@@ -1,0 +1,25 @@
+"""flexflow_tpu_torch: the PyTorch / CUDA port of flexflow_tpu for NVIDIA
+Hopper GPUs.
+
+The same FFModel builder API, config flags, layer names and parameter
+layouts as ``flexflow_tpu``; plain tensor code is PyTorch, and every Pallas
+kernel of the JAX package on a ported path is a hand-written CUDA kernel
+(``kernels/csrc``). This package never imports ``jax`` or ``flexflow_tpu``.
+Entry points run on CUDA unless the caller passes ``device="cpu"``.
+
+Ported so far: serving — the GPT-2 family through ``FFModel.generate`` /
+``ServingEngine`` over the paged KV pool, with the flash-decode kernel.
+"""
+from .config import FFConfig, FFIterationConfig  # noqa: F401
+from .ffconst import (ActiMode, AggrMode, CompMode, DataType,  # noqa: F401
+                      LossType, MetricsType, OperatorType)
+from .tensor import Tensor  # noqa: F401
+from .layer import Layer  # noqa: F401
+from .model import FFModel  # noqa: F401
+from .execution.initializers import (ConstantInitializer,  # noqa: F401
+                                     GlorotUniformInitializer,
+                                     NormInitializer, UniformInitializer,
+                                     ZeroInitializer)
+from .serving import ServingEngine  # noqa: F401
+
+__version__ = "0.1.0"

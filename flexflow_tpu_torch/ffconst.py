@@ -1,0 +1,252 @@
+"""Framework-wide enums.
+
+Mirrors the reference's enum vocabulary (include/flexflow/ffconst.h) so that user
+code, frontends, and serialized strategies speak the same language, while the
+values themselves are idiomatic Python enums.
+"""
+from __future__ import annotations
+
+import enum
+
+
+class ActiMode(enum.IntEnum):
+    """Activation fused into an op (reference: ffconst.h:10-17)."""
+
+    AC_MODE_NONE = 10
+    AC_MODE_RELU = 11
+    AC_MODE_SIGMOID = 12
+    AC_MODE_TANH = 13
+    AC_MODE_GELU = 14
+
+
+class RegularizerMode(enum.IntEnum):
+    """reference: flexflow/type.py RegularizerMode."""
+
+    REG_MODE_NONE = 17
+    REG_MODE_L1 = 18
+    REG_MODE_L2 = 19
+
+
+class AggrMode(enum.IntEnum):
+    """Embedding aggregation (reference: ffconst.h:18-22)."""
+
+    AGGR_MODE_NONE = 20
+    AGGR_MODE_SUM = 21
+    AGGR_MODE_AVG = 22
+
+
+class PoolType(enum.IntEnum):
+    """Pooling flavor (reference: ffconst.h:24-27)."""
+
+    POOL_MAX = 30
+    POOL_AVG = 31
+
+
+class DataType(enum.IntEnum):
+    """Tensor element types (reference: ffconst.h:29-37)."""
+
+    DT_BOOLEAN = 40
+    DT_INT32 = 41
+    DT_INT64 = 42
+    DT_HALF = 43
+    DT_BFLOAT16 = 44
+    DT_FLOAT = 45
+    DT_DOUBLE = 46
+    DT_NONE = 49
+
+
+class LossType(enum.IntEnum):
+    """Loss functions (reference: ffconst.h:39-45)."""
+
+    LOSS_CATEGORICAL_CROSSENTROPY = 50
+    LOSS_SPARSE_CATEGORICAL_CROSSENTROPY = 51
+    LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE = 52
+    LOSS_MEAN_SQUARED_ERROR_SUM_REDUCE = 53
+    LOSS_IDENTITY = 54
+
+
+class CompMode(enum.IntEnum):
+    """Training vs inference compilation (reference: ffconst.h:47-50)."""
+
+    COMP_MODE_TRAINING = 55
+    COMP_MODE_INFERENCE = 56
+
+
+class ParameterSyncType(enum.IntEnum):
+    """Gradient-sync backend of a weight (reference: config.h:56-59).
+
+    Kept for API/strategy-file compatibility with the JAX package.
+    """
+
+    NONE = 60
+    PS = 61
+    NCCL = 62
+
+
+class MetricsType(enum.IntEnum):
+    """Metrics (reference: ffconst.h:58-65)."""
+
+    METRICS_ACCURACY = 1001
+    METRICS_CATEGORICAL_CROSSENTROPY = 1002
+    METRICS_SPARSE_CATEGORICAL_CROSSENTROPY = 1004
+    METRICS_MEAN_SQUARED_ERROR = 1008
+    METRICS_ROOT_MEAN_SQUARED_ERROR = 1016
+    METRICS_MEAN_ABSOLUTE_ERROR = 1032
+
+
+class OperatorType(enum.IntEnum):
+    """Operator vocabulary (reference: ffconst.h:69-160).
+
+    Includes the parallel ops — they are first-class graph nodes exactly as in
+    the reference PCG.
+    """
+
+    OP_NOOP = 1
+    OP_INPUT = 2
+    OP_WEIGHT = 3
+    OP_CONV2D = 4
+    OP_DROPOUT = 5
+    OP_LINEAR = 6
+    OP_BATCHMATMUL = 7
+    OP_POOL2D = 8
+    OP_SCALAR_MULTIPLY = 9
+    OP_SCALAR_ADD = 10
+    OP_SCALAR_SUB = 11
+    OP_SCALAR_TRUE_DIV = 12
+    OP_RELU = 13
+    OP_IDENTITY = 14
+    OP_SIGMOID = 15
+    OP_TANH = 16
+    OP_ELU = 17
+    OP_GELU = 18
+    OP_FLAT = 19
+    OP_SOFTMAX = 20
+    OP_BATCHNORM = 21
+    OP_CONCAT = 22
+    OP_SPLIT = 23
+    OP_EMBEDDING = 24
+    OP_GROUP_BY = 25
+    OP_CACHE = 26
+    OP_AGGREGATE = 27
+    OP_AGG_SPEC = 28
+    OP_RESHAPE = 29
+    OP_REVERSE = 30
+    OP_TRANSPOSE = 31
+    OP_EW_ADD = 32
+    OP_EW_MUL = 33
+    OP_MATMUL = 34
+    OP_MUL = 35
+    OP_ENLARGE = 36
+    OP_SQUEEZE = 37
+    OP_UNSQUEEZE = 38
+    OP_EW_SUB = 39
+    OP_EW_DIV = 40
+    OP_EW_EQUAL = 41
+    OP_EW_GREATER = 42
+    OP_EW_LESS = 43
+    OP_EW_MAX = 44
+    OP_EW_MIN = 45
+    OP_REDUCE_ARGMAX = 46
+    OP_REDUCE_ARGMIN = 47
+    OP_REDUCE_MAX = 48
+    OP_REDUCE_MEAN = 49
+    OP_REDUCE_MIN = 50
+    OP_REDUCE_PROD = 51
+    OP_REDUCE_SUM = 52
+    OP_PAD = 53
+    OP_SHAPE = 54
+    OP_SIZE = 55
+    OP_TOPK = 56
+    OP_WHERE = 57
+    OP_CEIL = 58
+    OP_CAST = 59
+    OP_EXP = 60
+    OP_ROUND = 61
+    OP_LOG = 62
+    OP_LOGICAL_NOT = 63
+    OP_SQRT = 64
+    OP_SIN = 65
+    OP_COS = 66
+    OP_LEAKYRELU = 67
+    OP_SLICE = 68
+    OP_RESIZE = 69
+    OP_PRELU = 70
+    OP_MULTIHEAD_ATTENTION = 71
+    OP_FUSED = 72
+    OP_RSQRT = 73
+    OP_POW = 74
+    OP_MEAN = 75
+    OP_LAYERNORM = 76
+    OP_GATHER = 77
+    OP_BROADCAST = 78
+    # Parallel ops (reference: ffconst.h:153-160)
+    OP_REPARTITION = 90
+    OP_COMBINE = 91
+    OP_REPLICATE = 92
+    OP_REDUCTION = 93
+    OP_PIPELINE = 94
+    OP_FUSED_PARALLEL = 95
+    # extensions of the JAX package (no reference analog)
+    OP_RMSNORM = 110
+    OP_RING_ATTENTION = 111
+    OP_ALLTOALL = 112
+    # recurrent family (reference: nmt/ hand-written lstm.cu predating the
+    # FFModel op set; we promote it to a first-class op)
+    OP_LSTM = 113
+    # constant (frozen host tensor baked into the graph — needed by the
+    # torch-fx frontend for traced buffers like position_ids)
+    OP_CONSTANT = 114
+    # attention core without projections (torch F.scaled_dot_product_attention;
+    # reference analog: the cuDNN MHA core inside attention.cu)
+    OP_SDPA = 115
+    # batched expert FFN: all experts' weights stacked into one (n, d_in,
+    # d_out) tensor (GShard-style), shardable over the expert dim
+    OP_EXPERTS = 116
+
+
+# --- dtype helpers -------------------------------------------------------------
+
+_DTYPE_TO_STR = {
+    DataType.DT_BOOLEAN: "bool",
+    DataType.DT_INT32: "int32",
+    DataType.DT_INT64: "int64",
+    DataType.DT_HALF: "float16",
+    DataType.DT_BFLOAT16: "bfloat16",
+    DataType.DT_FLOAT: "float32",
+    DataType.DT_DOUBLE: "float64",
+}
+
+_STR_TO_DTYPE = {v: k for k, v in _DTYPE_TO_STR.items()}
+
+
+def dtype_to_torch(dt: "DataType"):
+    """Map a DataType enum to the corresponding torch dtype."""
+    import torch
+
+    return getattr(torch, _DTYPE_TO_STR[dt])
+
+
+def str_to_dtype(name: str) -> "DataType":
+    """Parse a dtype name (CLI `--compute-dtype`); accepts common aliases."""
+    name = name.lower()
+    name = {"bf16": "bfloat16", "fp16": "float16", "half": "float16",
+            "fp32": "float32", "float": "float32", "fp64": "float64",
+            "double": "float64"}.get(name, name)
+    if name not in _STR_TO_DTYPE:
+        raise ValueError(f"unsupported dtype {name}")
+    return _STR_TO_DTYPE[name]
+
+
+def numpy_to_dtype(dt) -> "DataType":
+    import numpy as np
+
+    name = np.dtype(dt).name
+    if name not in _STR_TO_DTYPE:
+        raise ValueError(f"unsupported dtype {name}")
+    return _STR_TO_DTYPE[name]
+
+
+def size_of_datatype(dt: "DataType") -> int:
+    import numpy as np
+
+    return np.dtype(_DTYPE_TO_STR[dt]).itemsize

@@ -1,0 +1,70 @@
+"""Linear (dense) operator (port of ``flexflow_tpu.ops.linear``; reference:
+src/ops/linear.cc).
+
+Weight layout stays (in_dim, out_dim), as in the JAX package, so weights
+move between the packages unchanged. The product runs in the compute dtype:
+cuBLAS and oneDNN accumulate bf16 products in fp32 and round the result
+once, which is what the JAX op's ``preferred_element_type=float32`` followed
+by a cast asks for. ``jax.nn.gelu`` defaults to the tanh approximation, so
+GELU here is ``F.gelu(approximate="tanh")``.
+"""
+from __future__ import annotations
+
+from ..ffconst import ActiMode, OperatorType
+from .base import Op, OpContext, register_op
+
+
+def apply_activation(x, activation: ActiMode):
+    import torch
+    import torch.nn.functional as F
+
+    if activation == ActiMode.AC_MODE_NONE:
+        return x
+    if activation == ActiMode.AC_MODE_RELU:
+        return F.relu(x)
+    if activation == ActiMode.AC_MODE_SIGMOID:
+        return torch.sigmoid(x)
+    if activation == ActiMode.AC_MODE_TANH:
+        return torch.tanh(x)
+    if activation == ActiMode.AC_MODE_GELU:
+        return F.gelu(x, approximate="tanh")
+    raise ValueError(f"unknown activation {activation}")
+
+
+@register_op(OperatorType.OP_LINEAR)
+class LinearOp(Op):
+    """attrs: out_dim, activation, use_bias, kernel_initializer,
+    bias_initializer."""
+
+    def infer_output_shapes(self, input_shapes):
+        (ishape,) = input_shapes
+        return [tuple(ishape[:-1]) + (self.attrs["out_dim"],)]
+
+    def weight_specs(self, input_shapes):
+        from ..execution.initializers import (DefaultBiasInitializer,
+                                              DefaultWeightInitializer)
+
+        in_dim = input_shapes[0][-1]
+        out_dim = self.attrs["out_dim"]
+        specs = {
+            "kernel": ((in_dim, out_dim), self.data_type,
+                       self.attrs.get("kernel_initializer")
+                       or DefaultWeightInitializer()),
+        }
+        if self.attrs.get("use_bias", True):
+            specs["bias"] = ((out_dim,), self.data_type,
+                             self.attrs.get("bias_initializer")
+                             or DefaultBiasInitializer())
+        return specs
+
+    def forward(self, params, inputs, ctx: OpContext):
+        if self.attrs.get("kernel_regularizer"):
+            raise NotImplementedError(
+                f"{self.name}: kernel_regularizer is a training-loss term; "
+                "it is ported in a later slice (training)")
+        (x,) = inputs
+        y = x @ params["kernel"]
+        if "bias" in params:
+            y = y + params["bias"]
+        return [apply_activation(y, self.attrs.get("activation",
+                                                   ActiMode.AC_MODE_NONE))]

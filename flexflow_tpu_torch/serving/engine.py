@@ -1,0 +1,579 @@
+"""ServingEngine: continuous-batching inference over a compiled FFModel.
+
+Port of ``flexflow_tpu.serving.engine`` for the default configuration:
+the paged KV pool (``kv_cache="paged"``, native dtype), the radix prefix
+cache with its chunk-prefill step, optional chunked prefill
+(``--prefill-chunk-tokens``), the synchronous serve loop, one sequence
+shard, and greedy or temperature sampling. Each tick performs one
+scheduler action: a one-shot prefill, one prefill chunk, or one decode step
+that advances every live slot by a token. The decode step's attention read
+is the flash-decode kernel (``kernels/flash_decode.py``).
+
+Options outside this slice raise ``NotImplementedError`` naming the flag;
+none falls back quietly.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+
+from ..ffconst import DataType, OperatorType
+from .kvcache import DecodeState
+from .scheduler import ContinuousBatchScheduler, Request, default_buckets
+
+
+def _later_slice(flag: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{flag} is ported in a later slice of flexflow_tpu_torch; this "
+        "slice serves the paged native-KV sync loop")
+
+
+def position_context_bound(executor, max_len: int) -> int:
+    """The max supported context: ``max_len`` bounded by the
+    position-embedding table wherever one feeds off the baked position
+    ids — a position past the table has no embedding row."""
+    bound = int(max_len)
+    pos_guids = set(executor._position_const_guids())
+    for node in executor.pcg.compute_nodes():
+        if node.op.op_type == OperatorType.OP_EMBEDDING and any(
+                g in pos_guids for g, _ in node.inputs):
+            entries = int(node.op.attrs.get("num_entries", 0))
+            if entries:
+                bound = min(bound, entries)
+    return bound
+
+
+def uses_topk_kernel(vocab: int, top_k: int) -> bool:
+    """Where the JAX engine's sampler routes top-k through the Pallas row
+    top-k kernel (``should_use_pallas_topk``: vocab % 128 == 0 and
+    1 <= k <= 8) — the kernel this slice has not ported."""
+    return 1 <= top_k <= 8 and vocab >= 128 and vocab % 128 == 0
+
+
+@dataclasses.dataclass
+class ServingStats:
+    """Host-side counters of one serve() run."""
+
+    requests_served: int = 0
+    tokens_generated: int = 0
+    prefills: int = 0
+    decode_steps: int = 0
+    chunked_prefills: int = 0
+    prefix_hits: int = 0
+    prefix_tokens_reused: int = 0
+    prefill_tokens_computed: int = 0
+    queue_depth_hwm: int = 0
+    wall_s: float = 0.0
+    # per-token latency: decode tokens carry their step wall, first tokens
+    # their prefill wall
+    token_walls_s: List[float] = dataclasses.field(default_factory=list)
+
+    def tokens_per_s(self) -> float:
+        return self.tokens_generated / self.wall_s if self.wall_s > 0 else 0.0
+
+    def p50_token_ms(self) -> Optional[float]:
+        if not self.token_walls_s:
+            return None
+        return float(np.percentile(self.token_walls_s, 50) * 1e3)
+
+    def p99_token_ms(self) -> Optional[float]:
+        if not self.token_walls_s:
+            return None
+        return float(np.percentile(self.token_walls_s, 99) * 1e3)
+
+    def summary(self) -> Dict[str, Any]:
+        out = {k: getattr(self, k) for k in (
+            "requests_served", "tokens_generated", "prefills",
+            "decode_steps", "chunked_prefills", "prefix_hits",
+            "prefix_tokens_reused", "prefill_tokens_computed",
+            "queue_depth_hwm")}
+        out["wall_s"] = self.wall_s
+        out["tokens_per_s"] = self.tokens_per_s()
+        out["p50_token_ms"] = self.p50_token_ms()
+        out["p99_token_ms"] = self.p99_token_ms()
+        return out
+
+
+class ServingEngine:
+    """Inference engine over a compiled autoregressive FFModel (causal
+    self-attention as the only sequence-stateful op, a per-token final
+    output ``(batch, seq, vocab)``, and one integer token input)."""
+
+    def __init__(self, model, n_slots: Optional[int] = None,
+                 max_decode_len: Optional[int] = None,
+                 buckets: Optional[Sequence[int]] = None,
+                 max_queue: int = 64,
+                 eos_id: Optional[int] = None,
+                 exact_decode: bool = False,
+                 kv_cache: Optional[str] = None,
+                 kv_block_size: Optional[int] = None,
+                 kv_pool_blocks: Optional[int] = None,
+                 kv_dtype: Optional[str] = None,
+                 prefix_cache: Optional[str] = None,
+                 prefill_chunk_tokens: Optional[int] = None,
+                 prefix_cache_blocks: Optional[int] = None,
+                 serve_loop: Optional[str] = None,
+                 seq_shards: Optional[int] = None,
+                 context_buckets: Optional[Sequence[int]] = None):
+        from .kvcache import blocks_per_slot, parse_context_buckets
+        from .scheduler import BlockAllocator
+
+        if model.executor is None:
+            raise RuntimeError("call model.compile() first")
+        self.model = model
+        self.executor = model.executor
+        self.device = model.device
+        cfg = model.config
+        self.n_slots = int(n_slots or getattr(cfg, "max_inflight", 8))
+        self.max_decode_len = int(max_decode_len or
+                                  getattr(cfg, "max_decode_len", 128))
+        self.requested_max_decode_len = self.max_decode_len
+        self.max_queue = max_queue
+        self.eos_id = eos_id
+        self.exact_decode = bool(exact_decode)
+        self.serve_loop = str(serve_loop or
+                              getattr(cfg, "serve_loop", "sync") or "sync")
+        self.kv_cache = str(kv_cache or getattr(cfg, "kv_cache", "paged"))
+        self.kv_dtype = str(kv_dtype or getattr(cfg, "kv_dtype", "native"))
+        self.seq_shards = int(seq_shards if seq_shards is not None
+                              else getattr(cfg, "seq_shards", 1) or 1)
+        buckets_ctx = parse_context_buckets(
+            context_buckets if context_buckets is not None
+            else getattr(cfg, "context_buckets", "") or "")
+        if self.serve_loop != "sync":
+            raise _later_slice(f"serve_loop={self.serve_loop!r} "
+                               "(--serve-loop)")
+        if self.kv_cache != "paged":
+            raise _later_slice(f"kv_cache={self.kv_cache!r} (--kv-cache)")
+        if self.kv_dtype != "native":
+            raise _later_slice(f"kv_dtype={self.kv_dtype!r} (--kv-dtype)")
+        if self.seq_shards != 1:
+            raise _later_slice(f"seq_shards={self.seq_shards} "
+                               "(--seq-shards)")
+        if buckets_ctx:
+            raise _later_slice("context_buckets (--context-buckets)")
+        if getattr(cfg, "request_journal", ""):
+            raise _later_slice("the request journal (--request-journal)")
+        if getattr(cfg, "request_timeout_ms", 0) or \
+                getattr(cfg, "shed_policy", "off") != "off":
+            raise _later_slice("serving resilience (--request-timeout-ms, "
+                               "--shed-policy)")
+        self.kv_block_size = int(kv_block_size or
+                                 getattr(cfg, "kv_block_size", 16))
+        self.prefill_chunk_tokens = int(
+            prefill_chunk_tokens if prefill_chunk_tokens is not None
+            else getattr(cfg, "prefill_chunk_tokens", 0) or 0)
+        if self.prefill_chunk_tokens % self.kv_block_size:
+            raise ValueError(
+                f"prefill_chunk_tokens ({self.prefill_chunk_tokens}) must "
+                f"be a multiple of kv_block_size ({self.kv_block_size})")
+        prefix_mode = str(prefix_cache or
+                          getattr(cfg, "prefix_cache", "on") or "on")
+        if prefix_mode not in ("on", "off"):
+            raise ValueError(
+                f"prefix_cache must be 'on' or 'off', got {prefix_mode!r}")
+        self._validate_graph()
+        self.max_context = position_context_bound(self.executor,
+                                                  self.max_decode_len)
+        mb = blocks_per_slot(self.max_decode_len, self.kv_block_size)
+        self.max_blocks_per_slot = mb
+        # full capacity (every slot at max_len) + the garbage block + one
+        # live chunk's worth of headroom
+        chunk_blocks = -(-self.prefill_chunk_tokens // self.kv_block_size)
+        kv_pool_blocks = int(kv_pool_blocks if kv_pool_blocks is not None
+                             else getattr(cfg, "kv_pool_blocks", 0))
+        self.kv_pool_blocks = kv_pool_blocks or (
+            self.n_slots * mb + 1 + chunk_blocks)
+        self.block_allocator = BlockAllocator(self.kv_pool_blocks,
+                                              self.kv_block_size)
+        self._prefix = None
+        if prefix_mode == "on":
+            from .prefix import PrefixCache
+
+            self._prefix = PrefixCache(
+                self.block_allocator, self.kv_block_size,
+                max_blocks=int(prefix_cache_blocks
+                               if prefix_cache_blocks is not None
+                               else getattr(cfg, "prefix_cache_blocks", 0)
+                               or 0))
+        self.buckets = tuple(buckets) if buckets else \
+            default_buckets(self.max_decode_len)
+        self.state: Optional[DecodeState] = None
+        self._last_tokens = None  # (n_slots, 1) int32 on the device
+        self._paged_entry_names: set = set()
+        self.stats = ServingStats()
+
+    # ------------------------------------------------------------ validation
+    def _validate_graph(self) -> None:
+        pcg = self.executor.pcg
+        final = pcg.nodes[self.executor.final_guid]
+        out = final.out_shapes[self.executor.final_out_idx]
+        if len(out) != 3:
+            raise ValueError(
+                f"serving needs a per-token final output (batch, seq, "
+                f"vocab); {final.name} produces {out}")
+        for node in pcg.compute_nodes():
+            if node.op.op_type == OperatorType.OP_MULTIHEAD_ATTENTION:
+                if not node.op.attrs.get("causal", False):
+                    raise ValueError(
+                        f"{node.name}: serving requires causal=True "
+                        "attention (bidirectional attention cannot be "
+                        "decoded incrementally)")
+                if len({g for g, _ in node.inputs}) != 1:
+                    raise ValueError(
+                        f"{node.name}: serving decode supports "
+                        "self-attention only (q, k, v from one producer)")
+
+    def _token_input_check(self) -> None:
+        ins = self.executor.pcg.input_nodes()
+        if len(ins) != 1 or ins[0].op.attrs.get("dtype") not in (
+                DataType.DT_INT32, DataType.DT_INT64):
+            raise ValueError(
+                "generate() needs a single integer token input; this graph "
+                f"has {len(ins)} input(s)")
+
+    # ------------------------------------------------------------ device fns
+    def _decode_fn(self):
+        return self.executor.make_decode_step(
+            self.max_decode_len, exact=self.exact_decode,
+            block_size=self.kv_block_size)
+
+    def _prefill_fn(self, bucket: int):
+        return self.executor.make_prefill_step(bucket, self.max_decode_len)
+
+    def _chunk_fn(self, chunk_shape: int):
+        return self.executor.make_chunk_prefill_step(
+            int(chunk_shape), self.max_decode_len, self.kv_block_size)
+
+    def _ids(self, rows) -> Any:
+        import torch
+
+        return torch.as_tensor(np.asarray(rows, np.int32)).to(self.device)
+
+    def _ensure_state(self, prefill_cache) -> None:
+        """Allocate the pools lazily from the first prefill's cache
+        structure: one zero ``(kv_pool_blocks, h, block_size, hd)`` pool
+        per K and V of every attention node, all-garbage block tables and
+        zero cursors."""
+        import torch
+
+        from .kvcache import paged_pool_entry
+
+        if self.state is not None:
+            return
+        with torch.inference_mode():
+            caches = {}
+            self._paged_entry_names = set(prefill_cache)
+            for name, (kc, vc) in prefill_cache.items():
+                caches[name] = (
+                    paged_pool_entry(kc, self.kv_pool_blocks,
+                                     self.kv_block_size),
+                    paged_pool_entry(vc, self.kv_pool_blocks,
+                                     self.kv_block_size))
+            n = self.n_slots
+            self.state = DecodeState(
+                caches=caches,
+                lengths=torch.zeros((n,), dtype=torch.int32,
+                                    device=self.device),
+                block_tables=torch.zeros(
+                    (n, self.max_blocks_per_slot), dtype=torch.int32,
+                    device=self.device))
+            self._last_tokens = torch.zeros((n, 1), dtype=torch.int32,
+                                            device=self.device)
+
+    def _ensure_state_bootstrap(self) -> None:
+        """A chunk action needs the pool before any prefill has run: take
+        its structure from one smallest-bucket prefill on a dummy token."""
+        if self.state is not None:
+            return
+        b0 = self.buckets[0]
+        _lg, _last, cache = self._prefill_fn(b0)(
+            self.model.params, [self._ids(np.zeros((1, b0)))],
+            self._ids([1]))
+        self._ensure_state(cache)
+
+    def _write_slot(self, cache, slot: int, length: int, token: int,
+                    table_row: np.ndarray) -> None:
+        """Insert one prefilled request into the decode batch: scatter its
+        k/v rows into its blocks, set its table row, length cursor and
+        pending first token — in place."""
+        import torch
+
+        from .kvcache import scatter_prefill_paged
+
+        with torch.inference_mode():
+            row = self._ids(table_row)
+            for name in self._paged_entry_names:
+                kp, vp = self.state.caches[name]
+                kc, vc = cache[name]
+                scatter_prefill_paged(kp, kc, row, self.kv_block_size)
+                scatter_prefill_paged(vp, vc, row, self.kv_block_size)
+            self.state.block_tables[slot] = row
+            self.state.lengths[slot] = int(length)
+            self._last_tokens[slot, 0] = int(token)
+
+    def _set_slot_meta(self, slot: int, length: int, token: int,
+                       table_row: np.ndarray) -> None:
+        """Arm a chunk-prefilled slot for decode: the chunks already wrote
+        its rows, so only the cursor, table row and first token remain."""
+        import torch
+
+        with torch.inference_mode():
+            self.state.block_tables[slot] = self._ids(table_row)
+            self.state.lengths[slot] = int(length)
+            self._last_tokens[slot, 0] = int(token)
+
+    def _clear_slot_tables(self, slot: int) -> None:
+        """Reset a freed slot's table row (all GARBAGE) and cursor (0).
+        Without it the freed slot's stale row would keep writing its
+        discarded tokens into blocks the allocator may already have handed
+        to a new request in another slot."""
+        import torch
+
+        if self.state is None:
+            return
+        with torch.inference_mode():
+            self.state.block_tables[slot] = 0
+            self.state.lengths[slot] = 0
+
+    def _cow_clone(self, src: int, dst: int) -> None:
+        """Copy-on-write: duplicate pool block ``src`` into ``dst`` in every
+        pool before the cloner's first divergent write."""
+        import torch
+
+        if self.state is None:
+            return
+        with torch.inference_mode():
+            for name in self._paged_entry_names:
+                for pool in self.state.caches[name]:
+                    pool[dst] = pool[src]
+
+    def _table_row_for(self, req) -> np.ndarray:
+        row = np.zeros((self.max_blocks_per_slot,), np.int32)
+        if req.kv_blocks:
+            row[:len(req.kv_blocks)] = req.kv_blocks
+        return row
+
+    def _attach(self, sched: ContinuousBatchScheduler) -> None:
+        sched.allocator = self.block_allocator
+        sched.on_slot_freed = self._clear_slot_tables
+        sched.prefix = self._prefix
+        sched.chunk_tokens = self.prefill_chunk_tokens
+        if self.max_context < sched.max_len:
+            sched.max_context = self.max_context
+
+    # -------------------------------------------------------------- sampling
+    def _sampler(self, temperature: float, top_k: int):
+        """``(logits (S, V) fp32, tag_counts (S, 2) host ints, seed) ->
+        tokens (S,) int32`` on the device. Greedy when temperature <= 0;
+        otherwise top-k filtered (``torch.topk``) categorical at
+        ``temperature``, each row drawn from its own ``torch.Generator``
+        seeded from (seed, submission tag, tokens emitted) — deterministic
+        under any co-scheduling. The streams differ from the JAX engine's
+        ``jax.random`` ones."""
+        import torch
+
+        if temperature <= 0.0:
+            def greedy(logits, tag_counts, seed):
+                return torch.argmax(logits, dim=-1).to(torch.int32)
+            return greedy
+        temp = float(temperature)
+        k = int(top_k)
+
+        def sample(logits, tag_counts, seed):
+            out = torch.empty((logits.shape[0],), dtype=torch.int32,
+                              device=logits.device)
+            for i in range(logits.shape[0]):
+                tag, count = (int(x) for x in tag_counts[i])
+                gen = torch.Generator(device=logits.device).manual_seed(
+                    (int(seed) * 1_000_003 + tag) * 1_000_003 + count)
+                row = logits[i] / temp
+                idx = None
+                if k > 0:
+                    row, idx = torch.topk(row, min(k, row.shape[-1]))
+                choice = torch.multinomial(torch.softmax(row, -1), 1,
+                                           generator=gen)
+                out[i] = (idx[choice] if idx is not None else choice)[0]
+            return out
+        return sample
+
+    # ------------------------------------------------------------- main loop
+    def generate(self, prompts: Sequence[Sequence[int]],
+                 max_new_tokens: int = 32, temperature: float = 0.0,
+                 top_k: int = 0, eos_id: Optional[int] = None,
+                 seed: int = 0, chaos=None,
+                 deadline_ms: Optional[float] = None) -> List[List[int]]:
+        """Generate continuations for ``prompts`` (token-id sequences)
+        through the continuous-batching loop; returns the generated token
+        lists in submission order."""
+        if chaos is not None:
+            raise _later_slice("chaos injection (generate(chaos=...))")
+        if deadline_ms is not None:
+            raise _later_slice("request deadlines (deadline_ms)")
+        self._token_input_check()
+        sched = ContinuousBatchScheduler(
+            n_slots=self.n_slots, max_queue=max(len(prompts),
+                                                self.max_queue),
+            buckets=self.buckets, max_len=self.max_decode_len)
+        self._attach(sched)
+        reqs = []
+        for i, p in enumerate(prompts):
+            r = Request(prompt=np.asarray(p, dtype=np.int32),
+                        max_new_tokens=max_new_tokens,
+                        eos_id=self.eos_id if eos_id is None else eos_id,
+                        rng_tag=i)
+            sched.submit(r)
+            reqs.append(r)
+        self.serve(sched, temperature=temperature, top_k=top_k, seed=seed)
+        return [list(r.generated) for r in reqs]
+
+    def serve(self, sched: ContinuousBatchScheduler,
+              temperature: float = 0.0, top_k: int = 0,
+              seed: int = 0) -> ServingStats:
+        """Drive the scheduler until its queue and slots drain."""
+        import torch
+
+        loop = _ServeLoop(self, sched, temperature=temperature,
+                          top_k=top_k, seed=seed)
+        with torch.inference_mode():
+            while loop.tick():
+                pass
+        return loop.finish()
+
+
+class _ServeLoop:
+    """One serve() run, advanced one scheduler action per ``tick()``."""
+
+    def __init__(self, engine: ServingEngine,
+                 sched: ContinuousBatchScheduler, temperature: float = 0.0,
+                 top_k: int = 0, seed: int = 0):
+        vocab = engine.executor.pcg.nodes[engine.executor.final_guid] \
+            .out_shapes[engine.executor.final_out_idx][-1]
+        if temperature > 0.0 and uses_topk_kernel(vocab, top_k):
+            raise _later_slice(
+                f"top_k={top_k} sampling at vocab {vocab} (the Pallas row "
+                "top-k kernel, kernels/topk.py)")
+        self.engine = engine
+        self.sched = sched
+        engine._attach(sched)
+        self.params = engine.model.params
+        self.sampler = engine._sampler(temperature, top_k)
+        self.seed = int(seed)
+        self.stats = engine.stats = ServingStats()
+        self._chunk_walls: Dict[int, float] = {}
+        self._prefix_hits0 = sched.prefix_hits
+        self._prefix_reused0 = sched.prefix_tokens_reused
+        self.t0 = time.perf_counter()
+
+    def _sample_one(self, last, req) -> int:
+        tag = req.rng_tag if req.rng_tag is not None else req.rid
+        return int(self.sampler(last, [[tag, len(req.generated)]],
+                                self.seed)[0])
+
+    def _cache_prompt(self, req, tokens, eff: int) -> None:
+        """Eagerly cache the prompt's FULL blocks at prefill completion so
+        same-batch shared-prefix admissions already hit."""
+        eng = self.engine
+        if eng._prefix is not None and req.kv_blocks:
+            full = eff // eng.kv_block_size
+            if full:
+                eng._prefix.insert(tokens[:full * eng.kv_block_size],
+                                   req.kv_blocks[:full])
+
+    def tick(self) -> bool:
+        """Perform ONE scheduler action; False when there is nothing to
+        do."""
+        eng, sched, stats = self.engine, self.sched, self.stats
+        action = sched.next_action()
+        if action is None:
+            return False
+        if action[0] == "prefill":
+            _, req, slot, bucket = action
+            t_p = time.perf_counter()
+            eff = req.effective_len
+            cur = req.current_prompt()
+            ids = np.zeros((1, bucket), np.int32)
+            ids[0, :eff] = cur
+            _logits, last, cache = eng._prefill_fn(bucket)(
+                self.params, [eng._ids(ids)], eng._ids([eff]))
+            eng._ensure_state(cache)
+            tok = self._sample_one(last, req)
+            wall = time.perf_counter() - t_p
+            stats.prefills += 1
+            stats.prefill_tokens_computed += eff
+            stats.token_walls_s.append(wall)
+            stats.tokens_generated += 1
+            if not sched.commit_token(slot, tok):
+                eng._write_slot(cache, slot, eff, tok,
+                                eng._table_row_for(req))
+                req.prefill_pos = req.prefill_target
+                self._cache_prompt(req, cur, eff)
+            return True
+        if action[0] == "prefill_chunk":
+            _, req, slot, start, n, shape = action
+            t_p = time.perf_counter()
+            eng._ensure_state_bootstrap()
+            if req.pending_cow is not None:
+                src, dst = req.pending_cow
+                eng._cow_clone(src, dst)
+                sched.release_cow(req)
+            cur = req.current_prompt()
+            ids = np.zeros((1, shape), np.int32)
+            ids[0, :n] = cur[start:start + n]
+            row = eng._table_row_for(req)
+            last, eng.state = eng._chunk_fn(shape)(
+                self.params, [eng._ids(ids)], eng.state, eng._ids(row),
+                start, n)
+            stats.prefill_tokens_computed += n
+            stats.chunked_prefills += 1
+            done = sched.chunk_done(slot, n)
+            wall = time.perf_counter() - t_p
+            self._chunk_walls[req.rid] = \
+                self._chunk_walls.get(req.rid, 0.0) + wall
+            if not done:
+                return True
+            eff = req.prefill_target
+            tok = self._sample_one(last, req)
+            stats.prefills += 1
+            stats.token_walls_s.append(self._chunk_walls.pop(req.rid, wall))
+            stats.tokens_generated += 1
+            self._cache_prompt(req, cur, eff)
+            if not sched.commit_token(slot, tok):
+                eng._set_slot_meta(slot, eff, tok, row)
+            return True
+        return self._tick_decode(action[1])
+
+    def _tick_decode(self, live) -> bool:
+        """One decode step for every live slot: dispatch, sample on the
+        device, one blocking host transfer of the tokens, commit."""
+        eng, sched, stats = self.engine, self.sched, self.stats
+        t_d = time.perf_counter()
+        logits, eng.state = eng._decode_fn()(
+            self.params, [eng._last_tokens], eng.state)
+        tag_counts = [[0, 0]] * eng.n_slots
+        for s, r in live:
+            tag_counts[s] = [r.rng_tag if r.rng_tag is not None else r.rid,
+                             len(r.generated)]
+        toks = self.sampler(logits, tag_counts, self.seed)
+        eng._last_tokens = toks[:, None].clone()
+        toks_host = toks.cpu().numpy()
+        wall = time.perf_counter() - t_d
+        stats.decode_steps += 1
+        for slot, req in live:
+            stats.tokens_generated += 1
+            stats.token_walls_s.append(wall)
+            sched.commit_token(slot, int(toks_host[slot]))
+        return True
+
+    def finish(self) -> ServingStats:
+        stats, sched = self.stats, self.sched
+        stats.wall_s = time.perf_counter() - self.t0
+        stats.requests_served = len(sched.finished)
+        stats.queue_depth_hwm = sched.queue_depth_hwm
+        stats.prefix_hits = sched.prefix_hits - self._prefix_hits0
+        stats.prefix_tokens_reused = \
+            sched.prefix_tokens_reused - self._prefix_reused0
+        return stats

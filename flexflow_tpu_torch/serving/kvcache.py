@@ -1,0 +1,194 @@
+"""KV-cache state of the serving engine: the paged block pool.
+
+Port of ``flexflow_tpu.serving.kvcache`` for the paged, native-dtype
+layout. Each causal attention node owns one pool of fixed-size KV blocks
+``(n_blocks, heads, block_size, head_dim)`` per K and V, and every decode
+slot owns one row of the ``(n_slots, max_blocks_per_slot)`` int32 block
+table that maps its positions onto pool blocks. Block 0 is the reserved
+GARBAGE block: unused table entries point at it, free slots write their
+discarded tokens into it, and attention never reads it unmasked — its
+contents only need to stay finite.
+
+Where the JAX package returns new arrays, this port updates the pool and
+the cursors IN PLACE (``index_put_``): the decode loop never copies the
+pool. Free slots collide in the garbage block, which is harmless for the
+same reason as above. The ring layout and int8 KV come in a later slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+
+#: reserved pool block every unused block-table entry points at — written
+#: by free slots, never read unmasked, must stay finite
+GARBAGE_BLOCK = 0
+
+
+@dataclasses.dataclass
+class ServingState:
+    """Per-forward serving context threaded as ``OpContext.serving``.
+
+    mode:      "prefill" (whole padded prompt), "decode" (one token per
+               slot) or "chunk" (one fixed-width prefill chunk of ONE slot,
+               batch 1, written into its pool blocks)
+    max_len:   per-slot capacity (``--max-decode-len``)
+    positions: (batch,) int32 — the first position this call writes
+               (zeros for prefill, the slot cursors for decode, the chunk's
+               start for chunk mode)
+    lengths:   (batch,) int32 true prompt lengths (prefill) or the chunk's
+               real token count (chunk)
+    cache_in:  {node_name: (kpool, vpool)} read by decode/chunk
+    cache_out: {node_name: entry} every causal attention node fills:
+               the prompt's (k, v) rows for prefill, the updated pools for
+               decode/chunk
+    exact:     True takes the plain gather path for decode attention
+               instead of the flash-decode kernel (the JAX package's
+               bitwise-verification mode)
+    block_tables: (n_slots, max_blocks_per_slot) int32
+    block_size: tokens per KV block
+    """
+
+    mode: str
+    max_len: int
+    positions: Any
+    lengths: Any = None
+    cache_in: Optional[Dict[str, Any]] = None
+    cache_out: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    exact: bool = False
+    block_tables: Any = None
+    block_size: int = 0
+
+
+@dataclasses.dataclass
+class DecodeState:
+    """The decode loop's carried state: {node_name: (kpool, vpool)}, the
+    per-slot length cursor and the block tables. Decode steps update all of
+    it in place."""
+
+    caches: Dict[str, Any]
+    lengths: Any  # (n_slots,) int32
+    block_tables: Any  # (n_slots, max_blocks_per_slot) int32
+
+    @property
+    def n_slots(self) -> int:
+        return int(self.lengths.shape[0])
+
+
+def parse_context_buckets(spec) -> Tuple[int, ...]:
+    """Normalize a ``--context-buckets`` spec ("1024,4096" or an int
+    sequence) into a validated ascending tuple (copied from the JAX
+    package so ``FFConfig`` fails fast on the same inputs). Empty spec ->
+    no bucketing."""
+    if not spec:
+        return ()
+    if isinstance(spec, str):
+        vals = []
+        for part in spec.split(","):
+            part = part.strip()
+            if not part:
+                continue
+            try:
+                vals.append(int(part))
+            except ValueError:
+                raise ValueError(
+                    f"--context-buckets: {part!r} is not an integer "
+                    "(expected a comma-separated list like "
+                    "'1024,4096,16384')")
+    else:
+        vals = [int(v) for v in spec]
+    if any(v < 1 for v in vals):
+        raise ValueError(
+            f"--context-buckets entries must be >= 1, got {vals}")
+    if vals != sorted(set(vals)):
+        raise ValueError(
+            "--context-buckets must be strictly ascending context "
+            f"lengths, got {vals}")
+    return tuple(vals)
+
+
+def is_position_constant(value) -> bool:
+    """Detect the position-id constant the autoregressive builders bake in
+    (models/gpt2.py: ``broadcast(arange(seq_len), (b, s))``): an integer
+    2-D constant whose every row is ``arange(seq)``. Serving regenerates it
+    per phase."""
+    v = np.asarray(value)
+    if v.ndim != 2 or not np.issubdtype(v.dtype, np.integer):
+        return False
+    if v.shape[1] < 1:
+        return False
+    return bool(np.all(v == np.arange(v.shape[1], dtype=v.dtype)[None, :]))
+
+
+def blocks_per_slot(max_len: int, block_size: int) -> int:
+    """Block-table width: blocks covering ``max_len`` tokens."""
+    return -(-int(max_len) // int(block_size))
+
+
+def write_token_kv_paged(pool, new, positions, block_tables, block_size):
+    """Write one token's k or v ``(n_slots, h, 1, hd)`` into the pool, in
+    place, at each slot's position: block ``tables[slot, pos // bs]``,
+    offset ``pos % bs``. Returns the pool."""
+    import torch
+
+    pos = positions.long()
+    bi = torch.gather(block_tables.long(), 1,
+                      (pos // block_size)[:, None])[:, 0]
+    pool[bi, :, pos % block_size] = new[:, :, 0, :].to(pool.dtype)
+    return pool
+
+
+def write_chunk_kv_paged(pool, new, positions, valid, table_row,
+                         block_size):
+    """Write one prefill chunk's k or v rows ``(1, h, C, hd)`` into the
+    pool, in place, at ``positions`` (C,) of the slot owning ``table_row``
+    (mb,). Pad rows (``valid`` False) go to the GARBAGE block."""
+    import torch
+
+    mb = table_row.shape[0]
+    pos = positions.long()
+    blk = torch.clamp(pos // block_size, 0, mb - 1)
+    bi = torch.where(valid, table_row.long()[blk],
+                     torch.full_like(blk, GARBAGE_BLOCK))
+    rows = new[0].transpose(0, 1)  # (h, C, hd) -> (C, h, hd)
+    pool[bi, :, pos % block_size] = rows.to(pool.dtype)
+    return pool
+
+
+def gather_paged_kv(pool, block_tables):
+    """Each slot's logical KV extent in position order:
+    ``(n_blocks, h, bs, hd)`` through ``(n_slots, mb)`` tables ->
+    ``(n_slots, h, mb * bs, hd)``. The exact/chunk read path."""
+    g = pool[block_tables.long()]          # (S, mb, h, bs, hd)
+    g = g.transpose(1, 2)                  # (S, h, mb, bs, hd)
+    return g.reshape(g.shape[0], g.shape[1], -1, g.shape[-1])
+
+
+def paged_pool_entry(leaf, n_blocks: int, block_size: int):
+    """Zero pool for one KV leaf whose per-request shape is
+    ``(1, h, L, hd)``."""
+    import torch
+
+    _, h, _L, hd = leaf.shape
+    return torch.zeros((n_blocks, h, block_size, hd), dtype=leaf.dtype,
+                       device=leaf.device)
+
+
+def scatter_prefill_paged(pool, leaf, table_row, block_size: int):
+    """Write one prefilled request's k or v rows ``(1, h, L, hd)`` into its
+    table row's pool blocks, in place: rows are padded with zeros to whole
+    blocks, reshaped block-major and written at ``table_row[:ceil(L/bs)]``.
+    Entries past the request's allocation point at GARBAGE_BLOCK and take
+    the tail rows — harmless, never read. Returns the pool."""
+    import torch
+
+    x = leaf[0]                            # (h, L, hd)
+    h, L, hd = x.shape
+    nb = -(-L // block_size)
+    pad = nb * block_size - L
+    if pad:
+        x = torch.cat([x, x.new_zeros((h, pad, hd))], dim=1)
+    xb = x.reshape(h, nb, block_size, hd).transpose(0, 1)
+    pool[table_row[:nb].long()] = xb.to(pool.dtype)
+    return pool

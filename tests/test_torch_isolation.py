@@ -1,0 +1,192 @@
+"""The PyTorch port stands alone and refuses what it has not ported.
+
+* Importing ``flexflow_tpu_torch`` and every module in it loads neither
+  ``jax`` nor ``flexflow_tpu`` (checked in a fresh interpreter, since this
+  test process has JAX loaded through ``tests/conftest.py``), and no source
+  file of the package names either in an import.
+* Entry points run on CUDA unless asked for the CPU: without a GPU,
+  ``FFModel`` with no ``device`` (or ``device="cuda"``) raises.
+* Every serving option outside this slice raises ``NotImplementedError``
+  naming its flag, whether it comes as an engine argument or through
+  ``FFConfig``; none falls back quietly.
+"""
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import flexflow_tpu_torch as ft
+from flexflow_tpu_torch.models.gpt2 import GPT2Config, build_gpt2
+from flexflow_tpu_torch.serving import ServingEngine
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG_DIR = os.path.join(REPO, "flexflow_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "flexflow_tpu")
+
+
+def _forbidden(module: str) -> bool:
+    """True for ``jax``, ``flexflow_tpu`` and their submodules — but not for
+    ``flexflow_tpu_torch``, which shares the prefix."""
+    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _all_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        [PKG_DIR], prefix="flexflow_tpu_torch."))
+
+
+def test_forbidden_matches_exact_names_only():
+    assert _forbidden("jax") and _forbidden("jax.numpy")
+    assert _forbidden("flexflow_tpu") and _forbidden("flexflow_tpu.ops")
+    assert not _forbidden("flexflow_tpu_torch")
+    assert not _forbidden("flexflow_tpu_torch.ops")
+    assert not _forbidden("jaxtyping_like")
+
+
+def test_importing_every_module_loads_neither_jax_nor_flexflow_tpu():
+    mods = _all_modules()
+    assert "flexflow_tpu_torch.kernels.flash_decode" in mods
+    script = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    import json
+
+    loaded = json.loads(res.stdout.strip().splitlines()[-1])
+    assert "flexflow_tpu_torch" in loaded
+    leaked = [m for m in loaded if _forbidden(m)]
+    assert leaked == []
+
+
+def test_no_source_file_imports_jax_or_flexflow_tpu():
+    bad = []
+    for root, _dirs, files in os.walk(PKG_DIR):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            path = os.path.join(root, f)
+            with open(path) as fh:
+                tree = ast.parse(fh.read(), filename=path)
+            for node in ast.walk(tree):
+                if isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                    names = [node.module or ""]
+                else:
+                    continue
+                bad += [(os.path.relpath(path, REPO), n) for n in names
+                        if _forbidden(n)]
+    assert bad == []
+
+
+# ------------------------------------------------------------- device rule
+def test_ffmodel_without_device_needs_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ft.FFModel(ft.FFConfig())
+    with pytest.raises(RuntimeError, match="no GPU"):
+        ft.FFModel(ft.FFConfig(), device="cuda")
+    assert ft.FFModel(ft.FFConfig(), device="cpu").device.type == "cpu"
+
+
+def test_ffmodel_default_device_raises_on_this_host():
+    if torch.cuda.is_available():
+        assert ft.FFModel(ft.FFConfig()).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError):
+            ft.FFModel(ft.FFConfig())
+
+
+# ------------------------------------------------------ out-of-slice options
+def _tiny_model(vocab=100, **config):
+    c = ft.FFConfig()
+    c.batch_size, c.seed, c.kv_block_size = 2, 0, 8
+    for k, v in config.items():
+        setattr(c, k, v)
+    ff = ft.FFModel(c, device="cpu")
+    build_gpt2(ff, GPT2Config(batch_size=2, seq_len=32, hidden=32,
+                              num_heads=2, num_layers=1, intermediate=64,
+                              vocab_size=vocab))
+    ff.compile()
+    return ff
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    return _tiny_model()
+
+
+LATER = "ported in a later slice"
+
+
+@pytest.mark.parametrize("kwargs,flag", [
+    (dict(kv_dtype="int8"), "--kv-dtype"),
+    (dict(kv_cache="ring"), "--kv-cache"),
+    (dict(seq_shards=2), "--seq-shards"),
+    (dict(context_buckets=(16, 32)), "--context-buckets"),
+    (dict(serve_loop="async"), "--serve-loop"),
+])
+def test_engine_refuses_options_of_later_slices(tiny, kwargs, flag):
+    with pytest.raises(NotImplementedError, match=LATER) as e:
+        ServingEngine(tiny, max_decode_len=32, **kwargs)
+    assert flag in str(e.value)
+
+
+@pytest.mark.parametrize("field,value,flag", [
+    ("kv_dtype", "int8", "--kv-dtype"),
+    ("kv_cache", "ring", "--kv-cache"),
+    ("seq_shards", 2, "--seq-shards"),
+    ("context_buckets", "16,32", "--context-buckets"),
+    ("serve_loop", "async", "--serve-loop"),
+    ("request_journal", "journal.log", "--request-journal"),
+])
+def test_generate_refuses_config_flags_of_later_slices(field, value, flag):
+    ff = _tiny_model(**{field: value})
+    with pytest.raises(NotImplementedError, match=LATER) as e:
+        ff.generate([[1, 2, 3]], max_new_tokens=2, max_decode_len=32)
+    assert flag in str(e.value)
+
+
+def test_generate_refuses_chaos(tiny):
+    eng = ServingEngine(tiny, max_decode_len=32)
+    with pytest.raises(NotImplementedError, match=LATER):
+        eng.generate([[1, 2, 3]], max_new_tokens=2, chaos=object())
+
+
+def test_top_k_refused_only_where_jax_runs_the_pallas_kernel(tiny):
+    """vocab % 128 == 0 and 1 <= k <= 8 is the JAX sampler's Pallas top-k
+    route: refused. Any other top_k samples through ``torch.topk``."""
+    wide = _tiny_model(vocab=128)
+    with pytest.raises(NotImplementedError, match=LATER):
+        wide.generate([[1, 2, 3]], max_new_tokens=2, temperature=1.0,
+                      top_k=4, max_decode_len=32)
+    for ff, k, vocab in ((wide, 9, 128), (tiny, 4, 100)):
+        out = ff.generate([[1, 2, 3], [4, 5]], max_new_tokens=3,
+                          temperature=1.0, top_k=k, max_decode_len=32)
+        assert [len(o) for o in out] == [3, 3]
+        assert all(0 <= t < vocab for o in out for t in o)
+    # greedy ignores top_k, as in the JAX sampler
+    greedy = wide.generate([[1, 2, 3]], max_new_tokens=3, top_k=4,
+                           max_decode_len=32)
+    assert len(greedy[0]) == 3
+
+
+def test_temperature_sampling_is_reproducible(tiny):
+    prompts = [[1, 2, 3], [7, 8, 9, 10]]
+    a = tiny.generate(prompts, max_new_tokens=4, temperature=0.8, seed=3,
+                      max_decode_len=32)
+    b = tiny.generate(prompts, max_new_tokens=4, temperature=0.8, seed=3,
+                      max_decode_len=32)
+    assert a == b
+    assert all(0 <= t < 100 for o in a for t in o)
+    assert np.asarray(a).shape == (2, 4)
