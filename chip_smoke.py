@@ -28,7 +28,33 @@ drives the PyTorch port only (it imports neither jax nor flexflow_tpu):
    flash-decode kernel once per layer. A teacher-forced prefill + decode
    run is then held against a whole-sequence plain forward. With
    ``--profile`` the same generate runs once more under ``torch.profiler``
-   and the card's busy share and kernels by time are printed.
+   and the card's busy share and kernels by time are printed;
+4. flash attention — holds the forward (B1), fused backward (B2) and
+   two-pass backward (B3 dK/dV, B4 dQ) kernels against their plain
+   versions at BERT-Large's attention (b8 h16 s512 d64) and GPT-2 small's
+   (b8 h12 s512 d64, causal) in fp32 and bf16, at GPT-2 small's widths at
+   seq 16384 (b1, causal: the shape where the JAX package's rule takes the
+   two-pass backward) in fp32, and once with dropout 0.1; times each
+   kernel launch alone, SDPA's forward, SDPA's backward
+   (``torch.autograd.grad`` of a retained forward) and SDPA's forward plus
+   backward as CUDA-graph replays (inputs warm in L2, as a training step
+   finds them), and each plain version eagerly, and prints each against
+   its bound;
+5. training — through ``FFModel.fit``, with random weights and data from a
+   seed: the BERT-Large proxy (``bench.py``'s flagship: hidden 1024, 16
+   heads, 24 layers, seq 512, batch 8, bf16 compute, Adam 1e-4, sparse
+   categorical cross-entropy), 2 warm-up then 6 timed steps; GPT-2 small
+   with a softmax head on token labels (fp32, batch 8, seq 512), 1 + 3
+   steps; GPT-2 small's widths at seq 16384 (fp32, batch 1), 2 steps.
+   Launch counts are reset before each timed fit and read after: each
+   step must launch the forward kernel once per layer and the backward
+   the JAX package's rule picks (fused at seq 512, two-pass at 16384)
+   once per layer. At the initial weights, one step's loss and grads with
+   attention through the kernels are held against the same step through
+   the einsum core. It prints p50 step ms, samples/s and MFU against
+   989 TF/s; ``--profile`` adds one BERT-Large step under
+   ``torch.profiler`` (busy share, flash/GEMM/other split, kernels by
+   time in ``chiprun_out/profile_train_bert_bf16.txt``).
 
 It prints one ``{"kernels": [...]}`` line, the card's name and power limit
 (nvidia-smi), and as its last line ``{"ok": true, "device": {...}}``. Any
@@ -73,16 +99,24 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, iters: int, device, graph: bool = False) -> float:
+def time_ms(fn, iters: int, device, graph: bool = False,
+            stream=None) -> float:
     """Mean milliseconds per call of ``fn(i)`` (i = 0..iters-1) after two
     warm-up calls: CUDA events around ``iters`` back-to-back calls on the
     card. With ``graph`` the calls are captured once into a CUDA graph and
     the replay is timed, so the figure is device time without Python's
-    per-call launch cost (which exceeds a short kernel's run time)."""
+    per-call launch cost (which exceeds a short kernel's run time).
+    ``stream``: warm up and capture on this stream (an autograd backward
+    runs on the stream its forward ran on, so a captured backward needs
+    its forward on the capture stream)."""
+    import contextlib
+
     import torch
 
-    fn(0)
-    fn(1)
+    with (torch.cuda.stream(stream) if stream is not None
+          else contextlib.nullcontext()):
+        fn(0)
+        fn(1)
     if device.type != "cuda":
         t = time.perf_counter()
         for i in range(iters):
@@ -92,7 +126,7 @@ def time_ms(fn, iters: int, device, graph: bool = False) -> float:
     run = lambda: [fn(i) for i in range(iters)]  # noqa: E731
     if graph:
         g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
+        with torch.cuda.graph(g, stream=stream):
             run()
         run = g.replay
         run()
@@ -427,6 +461,434 @@ def e2e_phase(device, card: str, cfg, compute: str, lengths,
                 logit_err=err)
 
 
+# ------------------------------------------- flash attention (B1-B4) phase
+BF16_FLOPS = 989e12
+# kernel-phase shapes: BERT-Large's attention (non-causal) and GPT-2
+# small's (causal) at batch 8, seq 512; and GPT-2 small's at seq 16384,
+# batch 1, where the JAX package's residency rule takes the two-pass
+# backward (B3 + B4) as the long-context training phase does
+FA_SHAPES = {
+    "bert": dict(b=8, h=16, sq=512, sk=512, d=64, causal=False),
+    "gpt2": dict(b=8, h=12, sq=512, sk=512, d=64, causal=True),
+    "long": dict(b=1, h=12, sq=16384, sk=16384, d=64, causal=True),
+}
+# kernel against plain: O absolute (fp32 summation order; bf16 one output
+# rounding), grads relative to their largest element (bf16: P and dS are
+# rounded to bf16 before each product on both sides, and a probability one
+# fp32 ulp apart can round to neighbouring bf16 values)
+FA_TOL = {"fp32": (2e-5, 1e-4), "bf16": (2e-2, 2e-2)}
+FA_KERNELS = {  # name -> (pallas kernel body replaced, flop factor)
+    "flash_fwd": ("flexflow_tpu/kernels/flash_attention.py:168", 4),
+    "flash_bwd_fused": ("flexflow_tpu/kernels/flash_attention.py:332", 10),
+    "flash_bwd_dkv": ("flexflow_tpu/kernels/flash_attention.py:432", 8),
+    "flash_bwd_dq": ("flexflow_tpu/kernels/flash_attention.py:496", 6),
+}
+FA_SOURCE = "flexflow_tpu_torch/kernels/csrc/flash_attention.cu"
+LONG_SEQ = FA_SHAPES["long"]["sq"]
+
+
+def band_pairs(sq: int, sk: int, causal: bool) -> int:
+    """(q, k) pairs a query attends: all, or those inside the causal band
+    k <= q + (sk - sq)."""
+    if not causal:
+        return sq * sk
+    off = sk - sq
+    return sum(min(q + off + 1, sk) for q in range(sq))
+
+
+def fa_bound(kernel: str, shape: dict, el: int):
+    """(bound_ms, bound_by) for one launch: the larger of the bytes it must
+    move over HBM bandwidth — q, k, v, O and lse for the forward; q, k, v,
+    O, dO, lse read and dq, dk, dv written for the fused backward; q, k, v,
+    dO, lse, delta read and dk, dv (B3) or dq (B4) written — and its
+    matmul flops (4, 10, 8, 6 x d per attended (q, k) pair) over the peak
+    for the input dtype (989 TF/s bf16 tensor cores, 67 TF/s fp32)."""
+    b, h, sq, sk, d = (shape[k] for k in ("b", "h", "sq", "sk", "d"))
+    bh = b * h
+    tq, tk, row = bh * sq * d * el, bh * sk * d * el, bh * sq * 4
+    nbytes = {"flash_fwd": 2 * tq + 2 * tk + row,
+              "flash_bwd_fused": 4 * tq + 4 * tk + row,
+              "flash_bwd_dkv": 2 * tq + 4 * tk + 2 * row,
+              "flash_bwd_dq": 3 * tq + 2 * tk + 2 * row}[kernel]
+    flops = FA_KERNELS[kernel][1] * bh * band_pairs(
+        sq, sk, shape["causal"]) * d
+    peak = BF16_FLOPS if el == 2 else FP32_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def fa_inputs(shape: dict, dtype, device, seed: int = SEED):
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    b, h, sq, sk, d = (shape[k] for k in ("b", "h", "sq", "sk", "d"))
+    return [torch.randn(s, generator=gen, device=device).to(dtype)
+            for s in ((b, h, sq, d), (b, h, sk, d), (b, h, sk, d),
+                      (b, h, sq, d))]
+
+
+def rel_err(got, want) -> float:
+    scale = max(1.0, want.float().abs().max().item())
+    return (got.float() - want.float()).abs().max().item() / scale
+
+
+def abs_err(got, want) -> float:
+    return (got.float() - want.float()).abs().max().item()
+
+
+def fa_case(device, card: str, shape_name: str, dname: str,
+            dropout: float = 0.0, timed: bool = True):
+    """Hold B1-B4 against their plain versions at one shape and dtype and
+    (``timed``) time each kernel launch, its plain version, and the
+    library yardsticks. Returns {kernel: numbers}."""
+    import torch
+    import torch.nn.functional as F
+
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    shape = FA_SHAPES[shape_name]
+    causal = shape["causal"]
+    dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[dname]
+    seed = 0x5EED if dropout else 0
+    # the plain versions' summation blocks: 128 as the attention router
+    # picks at seq 512, 512 at long context (fewer Python tile steps)
+    blk = 512 if shape["sq"] > 4096 else 128
+    q, k, v, do = fa_inputs(shape, dtype, device)
+    out_tol, grad_tol = FA_TOL[dname]
+    want_o, want_lse = fa.flash_forward_plain(q, k, v, causal, blk, blk,
+                                              dropout, seed)
+    got_o, got_lse = fa._flash_forward(q, k, v, causal, blk, blk, dropout,
+                                       seed)
+    errs = {"flash_fwd": (abs_err(got_o, want_o), abs_err(got_o, want_o),
+                          out_tol)}
+    if abs_err(got_lse, want_lse) > 1e-4:
+        fail(f"flash_fwd {shape_name} {dname}: lse differs by "
+             f"{abs_err(got_lse, want_lse)}")
+    for fused in (True, False):
+        got = fa._flash_backward(q, k, v, want_o, want_lse, do, causal, blk,
+                                 blk, dropout, seed, fused=fused)
+        want = fa.flash_backward_plain(q, k, v, want_o, want_lse, do, causal,
+                                       blk, blk, dropout, seed, fused=fused)
+        pairs = [(g, w) for g, w in zip(got, want)]
+        if fused:
+            errs["flash_bwd_fused"] = (
+                max(abs_err(g, w) for g, w in pairs),
+                max(rel_err(g, w) for g, w in pairs), grad_tol)
+        else:
+            errs["flash_bwd_dq"] = (abs_err(*pairs[0]), rel_err(*pairs[0]),
+                                    grad_tol)
+            errs["flash_bwd_dkv"] = (
+                max(abs_err(g, w) for g, w in pairs[1:]),
+                max(rel_err(g, w) for g, w in pairs[1:]), grad_tol)
+    torch.cuda.synchronize()
+    for name, (ae, re, tol) in errs.items():
+        err = ae if name == "flash_fwd" else re
+        if not err <= tol:
+            fail(f"{name} {shape_name} {dname} dropout {dropout}: kernel vs "
+                 f"plain error {err} > {tol}")
+    if not timed:
+        log(f"kernel flash attention {shape_name} {dname} dropout "
+            f"{dropout}: B1-B4 agree with their plain versions (max rel "
+            f"err {max(e[1] for e in errs.values()):.3g}) [{card}]")
+        return {}
+
+    # -- timing: each launch alone into preallocated buffers and the
+    # library calls, as CUDA graph replays; the plain versions eagerly
+    qs, dor, delta2 = fa._bwd_inputs(q, want_o, do, fused=False)
+    out, lse = torch.empty_like(q), torch.empty_like(want_lse)
+    dk, dv, dq = torch.empty_like(k), torch.empty_like(v), torch.empty_like(q)
+    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=device)
+    args = (causal, dropout, seed)
+    launches = {
+        "flash_fwd": lambda i: fa._launch_fwd(qs, k, v, out, lse, *args),
+        "flash_bwd_fused": lambda i: fa._launch_bwd_kv(
+            qs, k, v, want_o, dor, want_lse, None, dk, dv, dq_acc, *args),
+        "flash_bwd_dkv": lambda i: fa._launch_bwd_kv(
+            qs, k, v, want_o, dor, want_lse, delta2, dk, dv, None, *args),
+        "flash_bwd_dq": lambda i: fa._launch_bwd_q(
+            qs, k, v, dor, want_lse, delta2, dq, *args),
+    }
+    pargs = (qs, k, v, dor, want_lse, delta2, causal, blk, blk, dropout,
+             seed)
+    plains = {
+        "flash_fwd": lambda i: fa.flash_forward_plain(q, k, v, causal, blk,
+                                                      blk, dropout, seed),
+        "flash_bwd_fused": lambda i: fa.flash_backward_plain(
+            q, k, v, want_o, want_lse, do, causal, blk, blk, dropout, seed,
+            fused=True),
+        "flash_bwd_dkv": lambda i: fa.flash_bwd_kv_plain(*pargs),
+        "flash_bwd_dq": lambda i: fa.flash_bwd_q_plain(*pargs),
+    }
+    # yardsticks: SDPA forward, and SDPA's backward alone (autograd.grad
+    # of a retained forward graph), which computes what B2 computes; the
+    # forward runs on the side stream the backward is captured on
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+    torch.cuda.current_stream(device).wait_stream(side)
+    library = {
+        "flash_fwd": lambda i: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal),
+        "flash_bwd_fused": lambda i: torch.autograd.grad(
+            sdpa_out, leaves, do, retain_graph=True),
+    }
+    flops_long = shape["sq"] > 4096
+    iters, plain_iters = (3, 1) if flops_long else (20, 2)
+    res = {}
+    for name in FA_KERNELS:
+        ms = time_ms(launches[name], iters, device, graph=True)
+        plain_ms = time_ms(plains[name], plain_iters, device)
+        lib_ms = (time_ms(library[name], iters, device, graph=True,
+                          stream=side) if name in library else None)
+        bound_ms, bound_by = fa_bound(name, shape, q.element_size())
+        ae, re, _tol = errs[name]
+        res[name] = dict(max_abs_err=ae, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=lib_ms)
+        lib_txt = f"{lib_ms * 1e3:.1f} us" if lib_ms is not None else "none"
+        log(f"kernel {name} {shape_name} {dname} (b{shape['b']} "
+            f"h{shape['h']} s{shape['sq']} d{shape['d']}"
+            f"{' causal' if causal else ''}): max_abs_err {ae:.3g} (rel "
+            f"{re:.3g}), {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
+            f"sdpa {lib_txt}, bound {bound_ms * 1e3:.2f} us ({bound_by}; "
+            f"{bound_ms / ms:.3f} of it) [{card}]")
+    fwdbwd = time_ms(lambda i: torch.autograd.grad(
+        F.scaled_dot_product_attention(*leaves, is_causal=causal), leaves,
+        do), iters, device, graph=True, stream=side)
+    log(f"library sdpa forward+backward {shape_name} {dname}: "
+        f"{fwdbwd * 1e3:.1f} us; flash kernels B1+B2 "
+        f"{(res['flash_fwd']['ms'] + res['flash_bwd_fused']['ms']) * 1e3:.1f}"
+        f" us [{card}]")
+    return res
+
+
+def fa_kernel_phase(device, card: str):
+    out = {}
+    for shape_name, dname in (("bert", "bf16"), ("bert", "fp32"),
+                              ("gpt2", "fp32"), ("gpt2", "bf16"),
+                              ("long", "fp32")):
+        for name, r in fa_case(device, card, shape_name, dname).items():
+            out[(name, shape_name, dname)] = r
+    fa_case(device, card, "bert", "bf16", dropout=0.1, timed=False)
+    return out
+
+
+# ------------------------------------------------------------ training phase
+def train_model(kind: str, compute: str, device, seq: int = 512,
+                batch: int = 8):
+    """A model the port trains, as a user builds it: the BERT-Large proxy
+    (``bench.py``'s flagship config) or GPT-2 small with a softmax head and
+    token-level labels; Adam, sparse categorical cross-entropy; random
+    weights from the seed. ``--profiling`` records each step's wall."""
+    from flexflow_tpu_torch import (AdamOptimizer, DataType, FFConfig,
+                                    FFModel, LossType, MetricsType)
+    from flexflow_tpu_torch.models.bert import BertConfig, build_bert
+    from flexflow_tpu_torch.models.gpt2 import GPT2Config, build_gpt2
+
+    config = FFConfig()
+    config.batch_size, config.seed = batch, SEED
+    config.profiling, config.print_freq = True, 1
+    if compute == "bf16":
+        config.compute_dtype = DataType.DT_BFLOAT16
+    ff = FFModel(config, device=device)
+    metrics = []
+    if kind == "bert":
+        cfg = BertConfig.large()
+        build_bert(ff, cfg)
+        metrics = [MetricsType.METRICS_ACCURACY]
+    else:
+        cfg = GPT2Config(batch_size=batch, seq_len=seq)
+        _ids, logits = build_gpt2(ff, cfg)
+        ff.softmax(logits)
+    ff.compile(optimizer=AdamOptimizer(ff, alpha=1e-4),
+               loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+               metrics=metrics)
+    return ff, cfg
+
+
+def train_data(kind: str, cfg, n: int):
+    rng = np.random.default_rng(SEED)
+    if kind == "bert":
+        x = rng.standard_normal((n, cfg.seq_len, cfg.hidden),
+                                dtype=np.float32)
+        y = rng.integers(0, cfg.num_classes, (n, 1)).astype(np.int32)
+    else:
+        x = rng.integers(0, cfg.vocab_size, (n, cfg.seq_len)).astype(
+            np.int32)
+        y = rng.integers(0, cfg.vocab_size, (n, cfg.seq_len)).astype(
+            np.int32)
+    return x, y
+
+
+def set_flash(ff, on: bool) -> None:
+    from flexflow_tpu_torch import OperatorType
+
+    for node in ff.pcg.compute_nodes():
+        if node.op.op_type == OperatorType.OP_MULTIHEAD_ATTENTION:
+            node.op.attrs["use_flash"] = "auto" if on else False
+
+
+def grad_check(ff, x, y, layers: int):
+    """One step's loss and grads with attention through the kernels
+    against the same step through the einsum core (``use_flash=False``).
+    Returns (|loss diff|, relative grad-norm error, max per-tensor relative
+    norm error)."""
+    import torch
+
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    ex, dev = ff.executor, ff.device
+    xs = [torch.from_numpy(x).to(dev)]
+    lab = torch.from_numpy(ff._prep_label(y)).to(dev)
+    fa.reset_launch_count()
+    lk, _, gk = ex.loss_and_grads(ff.params, xs, lab)
+    torch.cuda.synchronize()
+    if fa.launch_count("flash_fwd") != layers:
+        fail(f"grad check: {fa.launch_count('flash_fwd')} flash forward "
+             f"launches, want {layers}")
+    set_flash(ff, False)
+    try:
+        lc, _, gc = ex.loss_and_grads(ff.params, xs, lab)
+    finally:
+        set_flash(ff, True)
+    num = den = 0.0
+    worst = 0.0
+    for n, ws in gc.items():
+        for w, g in ws.items():
+            d = (gk[n][w] - g).float().norm().item()
+            gn = g.float().norm().item()
+            num += d * d
+            den += gn * gn
+            worst = max(worst, d / max(gn, 1e-30))
+    return abs(lk.item() - lc.item()), (num / max(den, 1e-30)) ** 0.5, worst
+
+
+# kernels vs einsum core over one whole step: fp32 differs in summation
+# order only; in bf16 the flash path rounds the unnormalised probabilities
+# and the core the normalised ones, before the PV product, in every layer
+TRAIN_TOL = {"fp32": (1e-4, 1e-4), "bf16": (2e-2, 5e-2)}
+
+
+def train_phase(device, card: str, kind: str, compute: str, steps: int,
+                warmup: int, profile: bool = False, seq: int = 512,
+                batch: int = 8, check_grads: bool = True):
+    import torch
+
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.models.bert import bert_train_flops_per_step
+    from flexflow_tpu_torch.models.gpt2 import gpt2_train_flops_per_step
+
+    label = f"{kind}{'' if seq == 512 else f'-seq{seq}'} {compute}"
+    t = time.perf_counter()
+    ff, cfg = train_model(kind, compute, device, seq=seq, batch=batch)
+    layers = cfg.num_layers
+    x, y = train_data(kind, cfg, batch * (warmup + steps))
+    log(f"train {label}: hidden {cfg.hidden} heads {cfg.num_heads} layers "
+        f"{layers} seq {cfg.seq_len} batch {batch} built in "
+        f"{time.perf_counter() - t:.1f} s")
+    if check_grads:
+        # at the initial weights, before the softmax head saturates
+        dl, grel, worst = grad_check(ff, x[:batch], y[:batch], layers)
+        ltol, gtol = TRAIN_TOL[compute]
+        log(f"train {label}: one step with the flash kernels vs the einsum "
+            f"core: |loss diff| {dl:.3g} (tol {ltol}), grad relative norm "
+            f"error {grel:.3g} (tol {gtol}), worst tensor {worst:.3g} "
+            f"[{card}]")
+        if not (dl <= ltol and grel <= gtol):
+            fail(f"train {label}: kernels and einsum core disagree")
+        # the einsum core's score tensors leave the allocator's cache in
+        # another shape than the flash steps want
+        torch.cuda.empty_cache()
+    if warmup:
+        ff.fit(x[:batch * warmup], y[:batch * warmup], epochs=1)
+        torch.cuda.synchronize()
+    fa.reset_launch_count()
+    perf = ff.fit(x[batch * warmup:], y[batch * warmup:], epochs=1)
+    torch.cuda.synchronize()
+    counts = {n: fa.launch_count(n) for n in fa.KERNELS}
+    losses = ff.fit_history.loss
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        fail(f"train {label}: losses {losses}")
+    if perf.train_all != batch * steps:
+        fail(f"train {label}: PerfMetrics counted {perf.train_all} samples")
+    two_pass = not fa.use_fused_backward(cfg.seq_len,
+                                         cfg.hidden // cfg.num_heads)
+    want = {"flash_fwd": layers * steps,
+            "flash_bwd_fused": 0 if two_pass else layers * steps,
+            "flash_bwd_dkv": layers * steps if two_pass else 0,
+            "flash_bwd_dq": layers * steps if two_pass else 0}
+    if counts != want:
+        fail(f"train {label}: flash launches {counts}, want {want} "
+             f"({layers} layers x {steps} steps)")
+    p50 = float(np.median(ff.fit_history.step_s))
+    flops = (bert_train_flops_per_step(cfg) if kind == "bert"
+             else gpt2_train_flops_per_step(cfg))
+    log(f"train {label}: {steps} steps after {warmup} warm-up, losses "
+        f"{[round(v, 4) for v in losses]}, p50 step {p50 * 1e3:.1f} ms, "
+        f"{batch / p50:.2f} samples/s, {flops / p50 / 1e12:.1f} TFLOP/s "
+        f"= MFU {flops / p50 / BF16_FLOPS:.4f} of 989 TF/s; flash launches "
+        f"per step {({n: c // steps for n, c in counts.items() if c})} "
+        f"[{card}]")
+    res = dict(counts=counts, p50_ms=p50 * 1e3, losses=losses)
+    if profile:
+        profile_train(ff, x[:batch], y[:batch], label, p50)
+    del ff
+    torch.cuda.empty_cache()
+    return res
+
+
+def profile_train(ff, x, y, label: str, step_s: float) -> None:
+    """``--profile``: one more training step under ``torch.profiler``. Prints
+    the card's busy time (the sum of kernel times) against the unprofiled
+    p50 step and writes the kernels by total time to
+    ``chiprun_out/profile_train_<label>.txt``."""
+    import os
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ff.fit(x, y, epochs=1)
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    if not kernels or busy_us <= 0:
+        log(f"profile train {label}: the profiler saw no kernel time; "
+            "device busy share not measured")
+        return
+    flash = sum(e.self_device_time_total for e in kernels
+                if "flash_" in e.key)
+    gemm = sum(e.self_device_time_total for e in kernels
+               if any(w in e.key.lower()
+                      for w in ("gemm", "cutlass", "nvjet", "xmma")))
+    log(f"profile train {label}: kernels busy {busy_us / 1e3:.3f} ms of the "
+        f"unprofiled p50 step's {step_s * 1e3:.3f} ms (idle share "
+        f"{1 - busy_us / 1e3 / (step_s * 1e3):.4f}); flash attention "
+        f"{flash / 1e3:.3f} ms ({flash / busy_us:.3f}), GEMMs "
+        f"{gemm / 1e3:.3f} ms ({gemm / busy_us:.3f}), other "
+        f"{(busy_us - flash - gemm) / 1e3:.3f} ms; "
+        f"{sum(e.count for e in kernels)} kernel launches")
+    os.makedirs("chiprun_out", exist_ok=True)
+    path = os.path.join("chiprun_out",
+                        f"profile_train_{label.replace(' ', '_')}.txt")
+    with open(path, "w") as f:
+        f.write("kernel\tcount\ttotal_us\tshare\n")
+        for e in kernels:
+            f.write(f"{e.key}\t{e.count}\t{e.self_device_time_total:.1f}\t"
+                    f"{e.self_device_time_total / busy_us:.4f}\n")
+    for e in kernels[:10]:
+        log(f"profile train {label}:   {e.self_device_time_total / 1e3:9.3f}"
+            f" ms {e.count:6d}x {e.key[:90]}")
+    log(f"profile train {label}: full table in {path}")
+
+
 def main() -> None:
     try:
         import torch
@@ -454,6 +916,7 @@ def main() -> None:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)} [{card}]")
 
+    profile = "--profile" in sys.argv[1:]
     build_phase()
     kern = kernel_phase(device, card)
     cfg = GPT2Config.small()
@@ -463,7 +926,15 @@ def main() -> None:
             device, card, cfg, compute,
             lengths=(200, 96, 150, 32, 120, 180, 72, 48),
             shared_len=64, n_shared=3, new_tokens=E2E_NEW_TOKENS,
-            max_len=E2E_MAX_DECODE_LEN, profile="--profile" in sys.argv[1:])
+            max_len=E2E_MAX_DECODE_LEN, profile=profile)
+    fa_kern = fa_kernel_phase(device, card)
+    train = {
+        "bert": train_phase(device, card, "bert", "bf16", steps=6, warmup=2,
+                            profile=profile),
+        "gpt2": train_phase(device, card, "gpt2", "fp32", steps=3, warmup=1),
+        "long": train_phase(device, card, "gpt2", "fp32", steps=2, warmup=0,
+                            seq=LONG_SEQ, batch=1, check_grads=False),
+    }
 
     kernels = []
     for compute, name in (("fp32", "flash_decode"),
@@ -475,6 +946,25 @@ def main() -> None:
             "replaces": "flexflow_tpu/kernels/flash_decode.py:54",
             "launches": e2e[compute]["launches"],
             **kern[compute],
+        })
+    # each flash-attention kernel at the shape and dtype of the training
+    # path that launched it; launches summed over the training paths
+    for name, kernel, shape, dname, paths in (
+            ("flash_fwd_bf16", "flash_fwd", "bert", "bf16", ("bert",)),
+            ("flash_bwd_fused_bf16", "flash_bwd_fused", "bert", "bf16",
+             ("bert",)),
+            ("flash_fwd", "flash_fwd", "gpt2", "fp32", ("gpt2", "long")),
+            ("flash_bwd_fused", "flash_bwd_fused", "gpt2", "fp32",
+             ("gpt2",)),
+            ("flash_bwd_dkv", "flash_bwd_dkv", "long", "fp32", ("long",)),
+            ("flash_bwd_dq", "flash_bwd_dq", "long", "fp32", ("long",))):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": FA_SOURCE,
+            "replaces": FA_KERNELS[kernel][0],
+            "launches": sum(train[p]["counts"][kernel] for p in paths),
+            **fa_kern[(kernel, shape, dname)],
         })
     log(json.dumps({"kernels": kernels}))
     log(card)

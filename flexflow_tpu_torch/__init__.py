@@ -8,7 +8,10 @@ kernel of the JAX package on a ported path is a hand-written CUDA kernel
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 
 Ported so far: serving — the GPT-2 family through ``FFModel.generate`` /
-``ServingEngine`` over the paged KV pool, with the flash-decode kernel.
+``ServingEngine`` over the paged KV pool, with the flash-decode kernel —
+and training on one device — ``compile(optimizer, loss_type, metrics)``,
+``fit`` / ``eval`` / ``predict`` for the BERT proxy and GPT-2, with the
+flash-attention forward and backward kernels.
 """
 from .config import FFConfig, FFIterationConfig  # noqa: F401
 from .ffconst import (ActiMode, AggrMode, CompMode, DataType,  # noqa: F401
@@ -20,6 +23,8 @@ from .execution.initializers import (ConstantInitializer,  # noqa: F401
                                      GlorotUniformInitializer,
                                      NormInitializer, UniformInitializer,
                                      ZeroInitializer)
+from .execution.metrics import PerfMetrics  # noqa: F401
+from .execution.optimizers import AdamOptimizer, SGDOptimizer  # noqa: F401
 from .serving import ServingEngine  # noqa: F401
 
 __version__ = "0.1.0"

@@ -1,34 +1,44 @@
 """Executor: runs a PCG's ops as plain PyTorch on one device.
 
-Port of ``flexflow_tpu.execution.executor`` for this slice: parameter
-init, the mixed-precision cast, the graph forward with node overrides, and
-the three serving programs — per-bucket prefill, chunk prefill and the
-one-token decode step. JAX jits each program once per shape; here each is a
-plain Python function run eagerly under ``torch.inference_mode()``, and the
-decode step updates the KV pool and cursors in place instead of donating
-them. The training step, sharding and remat come in later slices.
+Port of ``flexflow_tpu.execution.executor``: parameter init, the
+mixed-precision cast, the graph forward with node overrides, the training
+step (forward, loss, autograd over the fp32 master leaves, metrics,
+optimizer update), the eval step and the inference forward, and the three
+serving programs — per-bucket prefill, chunk prefill and the one-token
+decode step. JAX jits each program once per shape; here each is a plain
+Python function run eagerly (the inference ones under
+``torch.inference_mode()``), and the train step, the optimizer and the
+decode step update tensors in place where JAX donates them. Sharding,
+remat, collective overlap, the divergence guard and CacheOps come in later
+slices.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
-from ..ffconst import DataType, OperatorType, dtype_to_torch
+from ..ffconst import DataType, LossType, OperatorType, dtype_to_torch
 from ..ops.base import OpContext
 from ..parallel.pcg import PCG, PCGNode
+from .losses import loss_value
 
 
 class Executor:
     def __init__(self, pcg: PCG, config, final_guid: int, device,
-                 final_out_idx: int = 0):
+                 final_out_idx: int = 0, loss_type: Optional[LossType] = None,
+                 metrics=None, optimizer=None, repl_labels: bool = False):
         self.pcg = pcg
         self.config = config
         self.final_guid = final_guid
         self.final_out_idx = final_out_idx
         self.device = device
+        self.loss_type = loss_type
+        self.metrics = metrics
+        self.optimizer = optimizer
+        self.repl_labels = repl_labels
         # serving programs by key — ("prefill", bucket, max_len) etc.
         self._serving_fns: Dict[Tuple, Callable] = {}
-        # (params dict, its compute-dtype copy): the cast runs once per
-        # params object, not once per step
+        # (stamp of the params it was cast from, compute-dtype copy): the
+        # inference programs cast once per version of the params
         self._cast_cache: Optional[Tuple[Any, Any]] = None
 
     # ------------------------------------------------------------------ params
@@ -68,18 +78,45 @@ class Executor:
             return None
         return dtype_to_torch(cd)
 
-    def _cast_for_compute(self, params, xs):
+    @staticmethod
+    def _params_stamp(params):
+        """Every param tensor with its in-place version: a replaced or
+        updated tensor (an optimizer step, ``set_params_numpy``, a weight
+        edit) breaks the match. It holds the tensors themselves, not their
+        ids, so a freed tensor's reused id can never fake a match."""
+        return [(t, t._version) for ws in params.values()
+                for t in ws.values()]
+
+    @staticmethod
+    def _stamp_matches(old, new) -> bool:
+        return len(old) == len(new) and all(
+            a is b and va == vb for (a, va), (b, vb) in zip(old, new))
+
+    def _cast_for_compute(self, params, xs, cache: bool = False):
+        """Params and inputs in the compute dtype (fp32 masters stay
+        untouched; a tensor already in it is passed through). The training
+        step casts the masters itself, every step inside its graph
+        (:meth:`loss_and_grads`), so grads reach the fp32 masters as in
+        JAX's ``loss_fn``. The inference programs pass ``cache=True``: the
+        cast copy is kept and reused while the params' stamp is unchanged,
+        and made again after any update."""
         cdtype = self._compute_dtype()
         if cdtype is None:
             return params, xs
-        cached = self._cast_cache
-        if cached is None or cached[0] is not params:
-            cast = {n: {w: (t.to(cdtype) if t.is_floating_point() else t)
+        xs = [x.to(cdtype) if x.is_floating_point() else x for x in xs]
+
+        def cast():
+            return {n: {w: (t.to(cdtype) if t.is_floating_point() else t)
                         for w, t in ws.items()}
                     for n, ws in params.items()}
-            cached = self._cast_cache = (params, cast)
-        xs = [x.to(cdtype) if x.is_floating_point() else x for x in xs]
-        return cached[1], xs
+
+        if not cache:
+            return cast(), xs
+        stamp = self._params_stamp(params)
+        if self._cast_cache is None or \
+                not self._stamp_matches(self._cast_cache[0], stamp):
+            self._cast_cache = (stamp, cast())
+        return self._cast_cache[1], xs
 
     @staticmethod
     def _logits_f32(logits):
@@ -123,7 +160,8 @@ class Executor:
         import torch
 
         with torch.inference_mode():
-            params, xs = self._cast_for_compute(params, list(xs))
+            params, xs = self._cast_for_compute(params, list(xs),
+                                                    cache=True)
             ctx = OpContext(training=False, device=self.device)
             b, seq = xs[0].shape[:2]
             pos = torch.arange(seq, dtype=torch.int32,
@@ -133,6 +171,130 @@ class Executor:
                 overrides={g: [pos] for g in self._position_const_guids()})
             return self._logits_f32(
                 values[self.final_guid][self.final_out_idx])
+
+    # ---------------------------------------------------------------- training
+    def _loss_and_logits(self, params, xs, labels, rng, training: bool):
+        params_c, xs = self._cast_for_compute(params, list(xs))
+        ctx = OpContext(training=training, rng=rng, device=self.device)
+        values = self.forward_outputs(params_c, self._bind_inputs(xs), ctx)
+        logits = self._logits_f32(values[self.final_guid][self.final_out_idx])
+        loss = loss_value(self.loss_type, logits, labels, self.repl_labels)
+        return loss, logits
+
+    def make_train_step(self):
+        """``(params, opt_state, xs, labels, rng) -> (params, opt_state,
+        loss, metrics)``: forward, loss, ``torch.autograd.grad`` over the
+        fp32 master leaves, metrics, then the optimizer's in-place update
+        (flexflow_tpu/execution/executor.py:538-596 without remat, overlap,
+        the guard and CacheOps). ``rng`` is the step's ``torch.Generator``
+        (dropout seeds). ``params`` and ``opt_state`` come back as the same
+        objects, updated in place; ``loss`` and the metrics stay on the
+        device (no host sync in the step)."""
+        opt = self.optimizer
+
+        def step(params, opt_state, xs, labels, rng):
+            loss, logits, grads = self.loss_and_grads(params, xs, labels,
+                                                      rng)
+            m = self._compute_metrics(logits, labels)
+            params, opt_state = opt.update(params, grads, opt_state)
+            return params, opt_state, loss, m
+
+        return step
+
+    def loss_and_grads(self, params, xs, labels, rng=None):
+        """The differentiated half of the train step: ``(loss, logits,
+        grads)`` with grads ``{node: {wname: tensor}}`` on the fp32 master
+        leaves (zeros for a param the loss does not reach, as
+        ``jax.value_and_grad`` gives), all detached.
+
+        With a compute dtype the masters are cast afresh every step, all at
+        once (one flat copy, whose per-tensor views are the graph's
+        leaves), and the grads of those compute-dtype leaves are upcast to
+        fp32 at once: the same values autograd through a per-tensor cast
+        gives (its backward upcasts the same accumulated grads), in four
+        launches instead of two per tensor."""
+        import torch
+
+        names = [(n, w) for n, ws in params.items()
+                 for w, t in ws.items() if t.is_floating_point()]
+        masters = [params[n][w].detach() for n, w in names]
+        cdtype = self._compute_dtype()
+        if cdtype is None:
+            # leaves share storage with the masters: an in-place update of
+            # the masters is what the next step's leaves read
+            leaf_list = masters
+        else:
+            sizes = [m.numel() for m in masters]
+            flat = torch.cat([m.reshape(-1) for m in masters]).to(cdtype)
+            leaf_list = [v.view(m.shape)
+                         for v, m in zip(flat.split(sizes), masters)]
+        leaf_list = [t.detach().requires_grad_(True) for t in leaf_list]
+        leaves = {n: dict(ws) for n, ws in params.items()}
+        for (n, w), t in zip(names, leaf_list):
+            leaves[n][w] = t
+        with torch.enable_grad():
+            loss, logits = self._loss_and_logits(leaves, xs, labels, rng,
+                                                 training=True)
+            flat_grads = torch.autograd.grad(loss, leaf_list,
+                                             allow_unused=True)
+        flat_grads = [g if g is not None else torch.zeros_like(t)
+                      for g, t in zip(flat_grads, leaf_list)]
+        if cdtype is not None:
+            up = torch.cat([g.reshape(-1) for g in flat_grads]).float()
+            flat_grads = [v.view(m.shape)
+                          for v, m in zip(up.split(sizes), masters)]
+        grads: Dict[str, Dict[str, Any]] = {n: {} for n in params}
+        for (n, w), g in zip(names, flat_grads):
+            grads[n][w] = g
+        return loss.detach(), logits.detach(), grads
+
+    def _compute_metrics(self, logits, labels):
+        import torch
+
+        if self.metrics is None:
+            return {}
+        if self.repl_labels:
+            k = logits.shape[0] // labels.shape[0]
+            labels = torch.repeat_interleave(labels, k, dim=0)
+        return self.metrics.compute(logits, labels)
+
+    def make_eval_step(self):
+        """``(params, xs, labels) -> (loss, metrics)``, no dropout, no
+        grads (flexflow_tpu/execution/executor.py:777-797)."""
+        import torch
+
+        def estep(params, xs, labels):
+            with torch.inference_mode():
+                params_c, xs_c = self._cast_for_compute(params, list(xs),
+                                                        cache=True)
+                ctx = OpContext(training=False, device=self.device)
+                values = self.forward_outputs(params_c,
+                                              self._bind_inputs(xs_c), ctx)
+                logits = self._logits_f32(
+                    values[self.final_guid][self.final_out_idx])
+                loss = loss_value(self.loss_type, logits, labels,
+                                  self.repl_labels)
+                return loss, self._compute_metrics(logits, labels)
+
+        return estep
+
+    def make_forward(self):
+        """``(params, xs) -> final output`` in the compute dtype: the
+        inference forward of ``predict`` (executor.py:799-817). Unlike
+        :meth:`forward` it runs the graph as built, baked constants
+        included."""
+        import torch
+
+        def fwd(params, xs):
+            with torch.inference_mode():
+                params_c, xs_c = self._cast_for_compute(params, list(xs),
+                                                        cache=True)
+                ctx = OpContext(training=False, device=self.device)
+                values = self.forward_outputs(params_c,
+                                              self._bind_inputs(xs_c), ctx)
+                return values[self.final_guid][self.final_out_idx]
+
+        return fwd
 
     # ----------------------------------------------------------------- serving
     def _position_const_guids(self) -> List[int]:
@@ -165,7 +327,8 @@ class Executor:
             import torch
 
             with torch.inference_mode():
-                params, xs = self._cast_for_compute(params, list(xs))
+                params, xs = self._cast_for_compute(params, list(xs),
+                                                    cache=True)
                 lengths = lengths.to(torch.int32)
                 sv = ServingState(mode="prefill", max_len=max_decode_len,
                                   positions=torch.zeros_like(lengths),
@@ -209,7 +372,8 @@ class Executor:
             import torch
 
             with torch.inference_mode():
-                params, xs = self._cast_for_compute(params, list(xs))
+                params, xs = self._cast_for_compute(params, list(xs),
+                                                    cache=True)
                 start_t = torch.tensor([int(start)], dtype=torch.int32,
                                        device=self.device)
                 n_t = torch.tensor([int(n_new)], dtype=torch.int32,
@@ -256,7 +420,8 @@ class Executor:
             import torch
 
             with torch.inference_mode():
-                params, xs = self._cast_for_compute(params, list(xs))
+                params, xs = self._cast_for_compute(params, list(xs),
+                                                    cache=True)
                 sv = ServingState(mode="decode", max_len=max_decode_len,
                                   positions=state.lengths,
                                   cache_in=state.caches, exact=exact,

@@ -25,6 +25,7 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 #: kernel name -> source file under csrc/
 SOURCES: Dict[str, str] = {
     "flash_decode": "flash_decode.cu",
+    "flash_attention": "flash_attention.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",

@@ -4,16 +4,20 @@ reference: include/flexflow/model.h:326, src/runtime/model.cc).
 The builder methods record a Layer graph exactly as the JAX package does;
 ``compile`` lowers it to a PCG and builds an :class:`Executor` on one
 device (the reference pipeline's single-device branch: no search, no
-mesh); ``generate`` serves it through the paged-KV ``ServingEngine``.
+mesh); ``fit`` / ``eval`` / ``predict`` train and run it, and ``generate``
+serves it through the paged-KV ``ServingEngine``.
 
 The model runs on ``device`` — CUDA unless the caller asks for the CPU.
 With no GPU and no explicit ``device="cpu"`` the constructor raises: the
-port never drops to the CPU silently. Training (``fit``/``eval``, the
-optimizers and losses), multi-device strategies and the builder methods
-this slice's models do not use come in later slices.
+port never drops to the CPU silently. Multi-device strategies, the phase
+API (``forward/backward/update``), checkpointing and resilience, remat,
+telemetry and the builder methods this slice's models do not use come in
+later slices; their flags raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import dataclasses
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -21,8 +25,12 @@ import numpy as np
 from .config import FFConfig
 from .ffconst import (ActiMode, AggrMode, CompMode, DataType, LossType,
                       MetricsType, OperatorType, numpy_to_dtype)
+from .execution.metrics import Metrics, PerfMetrics
+from .execution.optimizers import SGDOptimizer
 from .layer import Layer
 from .tensor import Tensor
+
+LATER = "ported in a later slice"
 
 
 def resolve_device(device=None):
@@ -39,6 +47,16 @@ def resolve_device(device=None):
     return dev
 
 
+@dataclasses.dataclass
+class FitHistory:
+    """What the last ``fit`` saw, per executed step: the loss (one host
+    transfer at the end of fit) and, under ``--profiling`` only, the step's
+    wall seconds (each step then ends in a device sync)."""
+
+    loss: List[float] = dataclasses.field(default_factory=list)
+    step_s: List[float] = dataclasses.field(default_factory=list)
+
+
 class FFModel:
     def __init__(self, config: Optional[FFConfig] = None, device=None):
         self.device = resolve_device(device)
@@ -51,6 +69,12 @@ class FFModel:
         self.executor = None
         self.params: Optional[Dict[str, Dict[str, Any]]] = None
         self.loss_type: Optional[LossType] = None
+        self.metrics_obj: Optional[Metrics] = None
+        self.label_tensor: Optional[Tensor] = None
+        self.opt_state = None
+        self._perf = PerfMetrics()
+        self._rng_counter = 0
+        self.fit_history = FitHistory()
         self.final_guid: Optional[int] = None
         self.final_out_idx = 0
         self._tensor_to_node: Dict[int, int] = {}
@@ -149,6 +173,31 @@ class FFModel:
         return self._add_layer(OperatorType.OP_EW_ADD, [x, y], {}, x.dtype,
                                name)
 
+    def _unary(self, op_type, x, attrs=None, name=None):
+        return self._add_layer(op_type, [x], attrs or {}, x.dtype, name)
+
+    def softmax(self, x, axis: int = -1, name=None,
+                use_pallas: bool = False):
+        """``use_pallas`` asks for the row-softmax kernel, which is ported
+        in a later slice: the op raises when it runs."""
+        return self._unary(OperatorType.OP_SOFTMAX, x,
+                           {"axis": axis, "use_pallas": use_pallas}, name)
+
+    def mean(self, x, dims: Sequence[int], keepdims: bool = False,
+             name=None):
+        return self._unary(OperatorType.OP_MEAN, x,
+                           {"axes": list(dims), "keepdims": keepdims}, name)
+
+    def sdpa(self, q: Tensor, k: Tensor, v: Tensor,
+             attn_mask: Optional[Tensor] = None, dropout: float = 0.0,
+             causal: bool = False, scale: Optional[float] = None, name=None):
+        """Attention core on pre-projected (batch, heads, seq, head_dim)
+        tensors (``F.scaled_dot_product_attention``'s signature)."""
+        inputs = [q, k, v] + ([attn_mask] if attn_mask is not None else [])
+        return self._add_layer(OperatorType.OP_SDPA, inputs,
+                               {"dropout": dropout, "causal": causal,
+                                "scale": scale}, q.dtype, name)
+
     def constant(self, value, dtype: Optional[DataType] = None, name=None):
         """Frozen host tensor as a graph node (position ids)."""
         value = np.asarray(value)
@@ -166,10 +215,12 @@ class FFModel:
                 strategy=None, strategy_fn=None,
                 final_tensor: Optional[Tensor] = None) -> None:
         """Lower the Layer graph to a PCG and build the executor on one
-        device, then initialize the parameters from ``config.seed``.
-        ``optimizer``, ``loss_type`` and ``metrics`` are recorded for the
-        training slice; an explicit or imported strategy, ``--fusion`` and
-        a multi-device search are refused until their slices land."""
+        device, then initialize the parameters from ``config.seed`` and the
+        optimizer state (reference pipeline: src/runtime/model.cc:2803).
+        The optimizer defaults to ``SGDOptimizer``; the label tensor is
+        (batch, 1) int32 for sparse categorical cross-entropy, else the
+        final output's shape. An explicit or imported strategy, ``--fusion``
+        and a multi-device search are refused until their slices land."""
         from .execution.executor import Executor
 
         if strategy is not None or strategy_fn is not None \
@@ -180,8 +231,12 @@ class FFModel:
         if self.config.perform_fusion:
             raise NotImplementedError(
                 "--fusion is ported in a later slice; compile without it")
-        self.optimizer = optimizer
+        if optimizer is not None:
+            self.optimizer = optimizer
+        if self.optimizer is None:
+            self.optimizer = SGDOptimizer(self)
         self.loss_type = loss_type
+        self.metrics_obj = Metrics(loss_type, metrics or [])
         pcg = self.create_pcg()
         if final_tensor is not None:
             final = pcg.nodes[self._tensor_to_node[final_tensor.guid]]
@@ -192,11 +247,22 @@ class FFModel:
             final = sinks[-1]
             self.final_out_idx = 0
         self.final_guid = final.guid
+        out_shape = final.out_shapes[self.final_out_idx]
+        if loss_type == LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY:
+            label_shape, label_dtype = (out_shape[0], 1), DataType.DT_INT32
+        else:
+            label_shape = out_shape
+            label_dtype = final.out_dtypes[self.final_out_idx]
+        self.label_tensor = Tensor(label_shape, label_dtype, name="label",
+                                   model=self)
         self.pcg = pcg
-        self.executor = Executor(pcg, self.config, self.final_guid,
-                                 self.device,
-                                 final_out_idx=self.final_out_idx)
+        self.executor = Executor(
+            pcg, self.config, self.final_guid, self.device,
+            final_out_idx=self.final_out_idx, loss_type=loss_type,
+            metrics=self.metrics_obj, optimizer=self.optimizer,
+            repl_labels=final.op.op_type == OperatorType.OP_AGG_SPEC)
         self.params = self.executor.init_params(self.config.numpy_seed())
+        self.opt_state = self.optimizer.init_state(self.params)
         self._serving_engine = None
 
     def create_pcg(self):
@@ -246,6 +312,8 @@ class FFModel:
                     for n, w, shape, dt, _ in self.executor.weight_entries()}
         self.params = params_from_numpy(np_params, self.device,
                                         expected=expected)
+        # fresh moments for the fresh weights
+        self.opt_state = self.optimizer.init_state(self.params)
         self._serving_engine = None
 
     def _require_compiled(self) -> None:
@@ -279,6 +347,194 @@ class FFModel:
             self.device)
         self.params = new
         self._serving_engine = None
+
+    # =============================================================== training
+    def _next_rng(self):
+        """The step's generator, seeded as the JAX package seeds its step
+        key (``seed * 100003 + counter``); a CPU generator, so drawing a
+        dropout seed never syncs the device."""
+        import torch
+
+        self._rng_counter += 1
+        return torch.Generator().manual_seed(
+            self.config.numpy_seed() * 100003 + self._rng_counter)
+
+    @staticmethod
+    def _as_input_list(x) -> List[np.ndarray]:
+        if isinstance(x, (list, tuple)):
+            return [np.asarray(a) for a in x]
+        return [np.asarray(x)]
+
+    def _prep_label(self, y) -> np.ndarray:
+        y = np.asarray(y)
+        if self.loss_type == LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY:
+            if y.ndim >= 2 and int(np.prod(y.shape[1:])) > 1:
+                return y.astype(np.int32)  # token-level targets (causal LM)
+            y = y.reshape(y.shape[0], 1).astype(np.int32)
+        return y
+
+    def _refuse_fit_options(self, recompile_state, chaos) -> None:
+        """Every fit option outside this slice raises, naming its flag."""
+        c = self.config
+        refused = [
+            (bool(c.checkpoint_dir), "--checkpoint-dir"),
+            (int(c.max_bad_steps or 0) > 0, "--max-bad-steps"),
+            (bool((c.resume or "").strip()), "--resume"),
+            (chaos is not None, "chaos="),
+            (bool(c.audit_strategy), "--audit-strategy"),
+            (int(c.memory_budget_mb or 0) > 0, "--memory-budget-mb"),
+            (bool(c.profile_ops), "--profile-ops"),
+            (bool(c.profiler_trace_dir), "--profiler-trace-dir"),
+            (bool(c.telemetry_file), "--telemetry-file"),
+            (bool(c.trace_file), "--trace-file"),
+            (recompile_state is not None, "recompile_state="),
+            ((c.remat or "none") != "none", "--remat"),
+            ((c.collective_overlap or "off") == "on",
+             "--collective-overlap on"),
+            (bool(c.schedule), "--schedule (pipeline strategies)"),
+        ]
+        for on, flag in refused:
+            if on:
+                raise NotImplementedError(
+                    f"fit: {flag} is {LATER}; this slice trains on one "
+                    "device with the plain step")
+
+    def fit(self, x=None, y=None, batch_size: Optional[int] = None,
+            epochs: Optional[int] = None, callbacks=None,
+            recompile_state=None, shuffle: bool = True,
+            chaos=None) -> PerfMetrics:
+        """Training loop (reference: flexflow_cffi.py:2058-2100; the JAX
+        package's plain SPMD path, flexflow_tpu/model.py:875-1168): shuffled
+        epochs (epoch e shuffles with seed ``config.seed + e``), batches
+        staged onto the device one ahead, one train step per batch with
+        the step's generator from ``_next_rng``, metrics folded on the host
+        once per epoch. ``--profiling`` prints the JAX package's ``step``,
+        ``epoch`` and ``THROUGHPUT`` lines verbatim and records each step's
+        wall in ``fit_history.step_s``. Resilience, the strategy cascade,
+        telemetry and tracing, dynamic recompiles and pipelines are refused
+        (``NotImplementedError`` naming the flag)."""
+        import torch
+
+        from .data.dataloader import batch_iterator, prefetch_iterator
+        from .resilience.preflight import validate_batch
+
+        self._require_compiled()
+        self._refuse_fit_options(recompile_state, chaos)
+        xs = self._as_input_list(x)
+        y = self._prep_label(y)
+        batch_size = batch_size or self.config.batch_size
+        epochs = epochs or self.config.epochs
+        validate_batch(self, xs, y, phase="fit")
+        step_fn = self.executor.make_train_step()
+        profiling = bool(self.config.profiling)
+        cuda = self.device.type == "cuda"
+        self._perf = PerfMetrics()
+        self.fit_history = FitHistory()
+        losses = []
+        step_count = 0
+        loss_val = None
+        t0 = time.time()
+        for epoch in range(epochs):
+            it = batch_iterator(xs + [y], batch_size, shuffle=shuffle,
+                                seed=self.config.numpy_seed() + epoch)
+            epoch_metrics = []
+            for batch in prefetch_iterator(it, self.device):
+                bx, by = batch[:-1], batch[-1]
+                t_step = time.perf_counter()
+                self.params, self.opt_state, loss_val, m = step_fn(
+                    self.params, self.opt_state, bx, by, self._next_rng())
+                step_count += 1
+                losses.append(loss_val)
+                epoch_metrics.append(m)
+                if profiling:
+                    if cuda:
+                        torch.cuda.synchronize(self.device)
+                    self.fit_history.step_s.append(
+                        time.perf_counter() - t_step)
+                    if step_count % max(self.config.print_freq, 1) == 0:
+                        print(f"step {step_count}: loss="
+                              f"{float(loss_val):.4f}")
+            for m in epoch_metrics:
+                self._perf.update({k: (v.item() if torch.is_tensor(v)
+                                       else v) for k, v in m.items()})
+            if profiling and loss_val is not None:
+                print(f"epoch {epoch}: loss={float(loss_val):.4f}")
+        if losses:
+            self.fit_history.loss = torch.stack(losses).cpu().tolist()
+        elapsed = time.time() - t0
+        self._last_fit_time = elapsed
+        self._last_fit_samples = step_count * batch_size
+        if elapsed > 0 and profiling:
+            print(f"THROUGHPUT = {self._last_fit_samples / elapsed:.2f} "
+                  "samples/s")
+        return self._perf
+
+    def eval(self, x=None, y=None, batch_size: Optional[int] = None
+             ) -> PerfMetrics:
+        """Loss and metrics over every batch, the last one partial
+        (reference: flexflow_cffi.py:2102)."""
+        import torch
+
+        from .data.dataloader import batch_iterator, to_device
+        from .resilience.preflight import validate_batch
+
+        self._require_compiled()
+        xs = self._as_input_list(x)
+        y = self._prep_label(y)
+        batch_size = batch_size or self.config.batch_size
+        validate_batch(self, xs, y, phase="eval")
+        estep = self.executor.make_eval_step()
+
+        perf = PerfMetrics()
+        for batch in batch_iterator(xs + [y], batch_size,
+                                    drop_remainder=False):
+            staged = to_device(batch, self.device)
+            _loss, m = estep(self.params, staged[:-1], staged[-1])
+            perf.update({k: (v.item() if torch.is_tensor(v) else v)
+                         for k, v in m.items()})
+        return perf
+
+    def predict(self, x, batch_size: Optional[int] = None) -> np.ndarray:
+        """Batched inference forward; the final partial batch is padded to
+        the full batch (repeating its last row) and trimmed, so every call
+        sees the compiled batch shape. Outputs stay on the device until the
+        end; floating outputs come back as float32 (numpy has no bf16)."""
+        from .data.dataloader import batch_iterator, to_device
+        from .resilience.preflight import validate_batch
+
+        self._require_compiled()
+        xs = self._as_input_list(x)
+        batch_size = batch_size or self.config.batch_size
+        validate_batch(self, xs, None, phase="predict")
+        fwd = self.executor.make_forward()
+        # static rows per sample of the final output
+        final = self.pcg.nodes[self.final_guid]
+        out_rows = final.out_shapes[self.final_out_idx][0]
+        in_rows = self.pcg.input_nodes()[0].out_shapes[0][0]
+        per_sample = out_rows // in_rows if in_rows and \
+            out_rows % in_rows == 0 else None
+        outs = []
+        tail_rows = None
+        for batch in batch_iterator(xs, batch_size, drop_remainder=False):
+            nb = batch[0].shape[0]
+            if nb < batch_size and per_sample is not None:
+                pad = batch_size - nb
+                batch = [np.concatenate([a, np.repeat(a[-1:], pad, axis=0)],
+                                        axis=0) for a in batch]
+                tail_rows = nb
+            outs.append(fwd(self.params, to_device(batch, self.device)))
+        host = [o.float().cpu().numpy() if o.is_floating_point()
+                else o.cpu().numpy() for o in outs]
+        if tail_rows is not None:
+            host[-1] = host[-1][:tail_rows * per_sample]
+        return np.concatenate(host, axis=0)
+
+    def get_perf_metrics(self) -> PerfMetrics:
+        return self._perf
+
+    def reset_metrics(self) -> None:
+        """reference: flexflow_cffi.py:1968."""
+        self._perf = PerfMetrics()
 
     # ================================================================ serving
     def generate(self, prompts, max_new_tokens: int = 32,

@@ -1,19 +1,24 @@
-"""Multi-head attention (port of ``flexflow_tpu.ops.attention``; reference:
-src/ops/attention.cc).
+"""Multi-head attention and the SDPA core (port of
+``flexflow_tpu.ops.attention``; reference: src/ops/attention.cc).
 
 Weight layouts are the JAX package's — ``wq/wk/wv (d, h, k)``,
 ``wo (h, v, d)``, ``bo (d,)`` — so parameters carry over unchanged. Scores
 and the probability-weighted sum accumulate in fp32 whatever the compute
 dtype (the JAX op's ``preferred_element_type=float32``).
 
+Whole-sequence forwards (training, eval, predict) route as the JAX op
+routes (``_should_use_flash``): to the flash-attention kernels
+(``kernels/flash_attention.py``; CUDA forward and backward on the card,
+their plain versions on the CPU) or to the plain einsum core
+``mha_core``. Attention dropout draws its uint32 seed from the step's
+generator (``ctx.rng``) and masks through the flash path's counter hash on
+both routes, so one seed gives one mask whichever route runs.
+
 Serving (``ctx.serving``): prefill runs the plain causal core and hands the
 prompt's k/v rows to the engine; decode writes one token per slot into the
 paged pool and reads it through the flash-decode kernel
-(``kernels/flash_decode.py``; CUDA on the card, its plain version on the
-CPU); chunk prefill writes a chunk's rows into one slot's blocks and
-attends over the slot's gathered extent. The training/eval flash kernels
-are ported in the next slice; until then a whole-sequence forward outside
-serving runs the plain einsum core.
+(``kernels/flash_decode.py``); chunk prefill writes a chunk's rows into one
+slot's blocks and attends over the slot's gathered extent.
 """
 from __future__ import annotations
 
@@ -25,29 +30,57 @@ from .base import Op, OpContext, register_op
 NEG_INF = -1e30
 
 
-def mha_core(q, k, v, *, causal: bool = False, scale: float = None):
+def mha_core(q, k, v, *, causal: bool = False, dropout: float = 0.0,
+             seed=None, attn_mask=None, scale: float = None):
     """q,k,v: (batch, heads, seq, head_dim) -> (batch, heads, seq_q, vd) in
-    v's dtype; scores, softmax and the PV sum in fp32."""
+    v's dtype; scores, softmax and the PV sum in fp32. ``attn_mask`` is a
+    bool mask (True attends) or an additive one, broadcastable to
+    (b, h, seq_q, seq_k). ``dropout`` > 0 needs a ``seed`` and multiplies
+    the probabilities by the counter-hash mask of that seed."""
     import torch
 
     head_dim = q.shape[-1]
     scale = scale if scale is not None else 1.0 / np.sqrt(head_dim)
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if attn_mask is not None:
+        if attn_mask.dtype == torch.bool:
+            logits = logits.masked_fill(~attn_mask, NEG_INF)
+        else:
+            logits = logits + attn_mask.float()
     if causal:
         sq, sk = logits.shape[-2], logits.shape[-1]
         mask = torch.ones((sq, sk), dtype=torch.bool,
                           device=logits.device).tril(diagonal=sk - sq)
         logits = logits.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
+    if dropout > 0.0:
+        probs = probs * _dropout_mask(seed, probs.shape, dropout,
+                                      probs.device)
     out = torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype).float(),
                        v.float())
     return out.to(v.dtype)
 
 
+def _dropout_mask(seed, shape, rate: float, device):
+    """The (b, h, sq, sk) keep-scale mask of the flash kernels' counter
+    hash at GLOBAL coordinates."""
+    import torch
+
+    from ..kernels.flash_attention import dropout_keep_scale_plain
+
+    b, h, sq, sk = shape
+    bh = torch.arange(b * h, device=device).view(b, h, 1, 1)
+    qp = torch.arange(sq, device=device).view(1, 1, sq, 1)
+    kp = torch.arange(sk, device=device).view(1, 1, 1, sk)
+    return dropout_keep_scale_plain(seed, bh, qp, kp, rate)
+
+
 @register_op(OperatorType.OP_MULTIHEAD_ATTENTION)
 class MultiHeadAttentionOp(Op):
     """attrs: embed_dim, num_heads, kdim, vdim, dropout, bias, add_bias_kv,
-    add_zero_attn, causal (builder: FFModel.multihead_attention).
+    add_zero_attn, causal, use_flash ("auto", True or False; set on the
+    layer's attrs, as in the JAX package) (builder:
+    FFModel.multihead_attention).
 
     inputs: (query, key, value), each (batch, seq, dim).
     output: (batch, seq_q, embed_dim).
@@ -94,13 +127,11 @@ class MultiHeadAttentionOp(Op):
             out = _serving_attention(self.name, q, k, v, ctx.serving,
                                      causal=causal)
         else:
-            if ctx.training and self.attrs.get("dropout", 0.0):
-                raise NotImplementedError(
-                    f"{self.name}: attention dropout in training is ported "
-                    "in a later slice (training)")
-            out = mha_core(q, k, v, causal=causal)
-        y = torch.einsum("bhsv,hvd->bsd", out.float(),
-                         params["wo"].float()).to(q_in.dtype)
+            out = _attention_core(self.attrs, q, k, v, ctx, causal)
+        # in the compute dtype: cuBLAS sums bf16 products in fp32 and rounds
+        # once, as the JAX op's preferred_element_type=float32 + astype
+        y = torch.einsum("bhsv,hvd->bsd", out.to(params["wo"].dtype),
+                         params["wo"]).to(q_in.dtype)
         if "bo" in params:
             y = y + params["bo"]
         return [y]
@@ -195,3 +226,126 @@ def _maybe_flash_decode(q, entry, tables, sv, sm_scale):
     out = flash_decode(q[:, :, 0, :].contiguous(), kp, vp, tables, n_keys,
                        sm_scale=sm_scale)
     return out[:, :, None, :]
+
+
+def _attention_core(attrs, q, k, v, ctx: OpContext, causal: bool):
+    """Whole-sequence attention of MultiHeadAttentionOp: the flash kernels
+    where ``_should_use_flash`` and the block table allow, else the einsum
+    core (flexflow_tpu/ops/attention.py:134-147)."""
+    live = _resolve_live_dropout(attrs.get("dropout", 0.0), ctx)
+    seed = _dropout_seed(ctx.rng) if live else None
+    blocks = _flash_blocks(q.shape[-2], k.shape[-2])
+    if _should_use_flash(attrs.get("use_flash", "auto"), q, k, causal) \
+            and blocks is not None:
+        from ..kernels.flash_attention import flash_attention
+
+        return flash_attention(q, k, v, causal, *blocks, dropout=live,
+                               seed=seed)
+    return mha_core(q, k, v, causal=causal, dropout=live, seed=seed)
+
+
+def _dropout_seed(rng) -> int:
+    """One uint32 from the step's generator: the flash kernels' dropout
+    seed (JAX folds its step key into ``jax.random.bits``)."""
+    import torch
+
+    return int(torch.randint(0, 2 ** 32, (1,), generator=rng,
+                             dtype=torch.int64))
+
+
+def _resolve_live_dropout(dropout, ctx) -> float:
+    """Effective dropout rate for this forward. A training context that
+    asks for dropout but carries no generator would train without dropout
+    on every path: say so loudly, as the JAX op does."""
+    if not dropout or not ctx.training:
+        return 0.0
+    if ctx.rng is None:
+        import warnings
+
+        warnings.warn(
+            f"attention dropout={dropout} requested with training=True but "
+            "the step context has no rng — training WITHOUT dropout. Thread "
+            "a torch.Generator through OpContext.rng (fit and "
+            "make_train_step do this).", stacklevel=3)
+        return 0.0
+    return float(dropout)
+
+
+# The port's flash tile row (the JAX package keys its rows by TPU
+# generation; no TPU row applies here). The CUDA kernels tile in 64 rows
+# (kernels/csrc/flash_attention.cu), so the caps only steer the plain
+# versions' summation blocks and the divisibility gate; ``min_block`` 128
+# is the JAX gate's 128-multiple rule, as the flash/einsum crossover on the
+# H100 is not measured yet (PERF.md, open questions).
+FLASH_TUNING = {"block_q_cap": 128, "block_k_cap": 128, "min_block": 128}
+
+
+def _flash_blocks(seq_q: int, seq_k: int):
+    """(block_q, block_k) for the flash kernels, or None when a sequence
+    has no 128-multiple divisor under the cap (the einsum core runs)."""
+    def pick(seq, cap):
+        for b in (cap, 512, 384, 256, 128):
+            if b <= cap and seq % b == 0:
+                return b
+        return None
+
+    bq = pick(seq_q, FLASH_TUNING["block_q_cap"])
+    bk = pick(seq_k, FLASH_TUNING["block_k_cap"])
+    if bq is None or bk is None:
+        return None
+    return bq, bk
+
+
+def _should_use_flash(use_flash, q, k, causal) -> bool:
+    """``True`` forces the flash function (its plain version on CPU
+    tensors, as JAX forces interpret mode off-TPU); ``"auto"`` takes it on
+    CUDA tensors under the JAX gate (head_dim % 64 == 0, blocks of at least
+    ``min_block``) narrowed to the head dims the kernels are built for, and
+    never on the CPU (the JAX package's off-TPU default)."""
+    from ..kernels.flash_attention import KERNEL_HEAD_DIMS
+
+    if causal and q.shape[-2] > k.shape[-2]:
+        return False  # empty attention windows: einsum core only
+    if use_flash is True:
+        return True
+    if use_flash == "auto":
+        if q.device.type != "cuda" or q.shape[-1] not in KERNEL_HEAD_DIMS:
+            return False
+        blocks = _flash_blocks(q.shape[-2], k.shape[-2])
+        return blocks is not None and \
+            min(blocks) >= FLASH_TUNING["min_block"]
+    return False
+
+
+@register_op(OperatorType.OP_SDPA)
+class SDPAOp(Op):
+    """Scaled-dot-product attention core without projections (torch
+    ``F.scaled_dot_product_attention``'s signature; the port never calls
+    it).
+
+    inputs: (q, k, v[, attn_mask]), q/k/v (batch, heads, seq, hd).
+    attrs: dropout, causal, scale (None = 1/sqrt(head_dim)), use_flash.
+    """
+
+    def infer_output_shapes(self, input_shapes):
+        q, _k, v = input_shapes[:3]
+        return [tuple(q[:-1]) + (v[-1],)]
+
+    def forward(self, params, inputs, ctx: OpContext):
+        q, k, v = inputs[:3]
+        mask = inputs[3] if len(inputs) > 3 else None
+        causal = self.attrs.get("causal", False)
+        live = _resolve_live_dropout(self.attrs.get("dropout", 0.0), ctx)
+        seed = _dropout_seed(ctx.rng) if live else None
+        blocks = _flash_blocks(q.shape[-2], k.shape[-2])
+        # the flash kernels take no mask and no scale
+        if mask is None and self.attrs.get("scale") is None \
+                and _should_use_flash(self.attrs.get("use_flash", "auto"),
+                                      q, k, causal) \
+                and blocks is not None:
+            from ..kernels.flash_attention import flash_attention
+
+            return [flash_attention(q, k, v, causal, *blocks, dropout=live,
+                                    seed=seed)]
+        return [mha_core(q, k, v, causal=causal, dropout=live, seed=seed,
+                         attn_mask=mask, scale=self.attrs.get("scale"))]

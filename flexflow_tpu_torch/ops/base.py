@@ -3,8 +3,8 @@
 Port of ``flexflow_tpu.ops.base`` (reference: ``class Op``,
 include/flexflow/operator.h:51). ``forward(params, inputs, ctx)`` is a plain
 function on torch tensors; the serving paths run it under
-``torch.inference_mode()``. Backward comes from autograd in the training
-slice. Shape/dtype inference and ``weight_specs`` are unchanged from the
+``torch.inference_mode()``. Backward comes from autograd (the training
+step differentiates the whole graph forward). Shape/dtype inference and ``weight_specs`` are unchanged from the
 JAX package, so both packages declare the same parameter names and layouts.
 """
 from __future__ import annotations
@@ -20,6 +20,11 @@ class OpContext:
     """Per-call context threaded through forward."""
 
     training: bool = False
+    # the step's random stream (a CPU ``torch.Generator``, seeded per step
+    # by ``FFModel.fit``): ops with live dropout draw their uint32 seeds
+    # from it in graph order. None outside training (JAX threads ``ctx.rng``
+    # the same way, flexflow_tpu/execution/executor.py:191-198)
+    rng: Any = None
     # torch.device the forward runs on (constants are materialized there)
     device: Any = None
     # a ``serving.kvcache.ServingState`` when this forward is a prefill,

@@ -1,7 +1,8 @@
-"""LayerNorm (port of ``flexflow_tpu.ops.normalization``; reference:
-src/ops/layer_norm.cc). Statistics are taken in fp32 whatever the compute
-dtype, and the result is cast back, as in the JAX op. RMSNorm and the
-opt-in Pallas softmax come in later slices."""
+"""LayerNorm and Softmax (port of ``flexflow_tpu.ops.normalization``;
+reference: src/ops/layer_norm.cc, softmax.cc). LayerNorm statistics are
+taken in fp32 whatever the compute dtype, and the result is cast back, as
+in the JAX op. RMSNorm and the opt-in row-softmax kernel (the JAX op's
+``use_pallas``) come in later slices."""
 from __future__ import annotations
 
 from ..ffconst import OperatorType
@@ -34,12 +35,20 @@ class LayerNormOp(Op):
 
     def forward(self, params, inputs, ctx: OpContext):
         import torch
+        import torch.nn.functional as F
 
         (x,) = inputs
         ndim = x.dim()
         axes = tuple(sorted(a % ndim
                             for a in self.attrs.get("axes", [ndim - 1])))
         eps = self.attrs.get("eps", 1e-5)
+        w, b = params.get("scale"), params.get("bias")
+        if axes == tuple(range(ndim - len(axes), ndim)) and all(
+                t is None or t.dtype == x.dtype for t in (w, b)):
+            # trailing axes: one fused kernel (and one in the backward),
+            # which takes the statistics and applies scale and shift in
+            # fp32 for 16-bit inputs too and rounds the result once
+            return [F.layer_norm(x, x.shape[ndim - len(axes):], w, b, eps)]
         xf = x.float()
         mean = xf.mean(dim=axes, keepdim=True)
         var = xf.var(dim=axes, keepdim=True, unbiased=False)
@@ -49,3 +58,24 @@ class LayerNormOp(Op):
             y = y * params["scale"].reshape(bshape) \
                 + params["bias"].reshape(bshape)
         return [y.to(x.dtype)]
+
+
+@register_op(OperatorType.OP_SOFTMAX)
+class SoftmaxOp(Op):
+    """attrs: axis (default -1), use_pallas. ``torch.softmax`` over the
+    axis, in the input's dtype as ``jax.nn.softmax``. ``use_pallas=True``
+    asks for the JAX package's opt-in row-softmax kernel, which is ported
+    in a later slice: it raises."""
+
+    def infer_output_shapes(self, input_shapes):
+        return [input_shapes[0]]
+
+    def forward(self, params, inputs, ctx: OpContext):
+        import torch
+
+        if self.attrs.get("use_pallas"):
+            raise NotImplementedError(
+                f"{self.name}: softmax use_pallas=True (the row-softmax "
+                "kernel) is ported in a later slice")
+        (x,) = inputs
+        return [torch.softmax(x, dim=self.attrs.get("axis", -1))]

@@ -8,7 +8,8 @@
   ``FFModel`` with no ``device`` (or ``device="cuda"``) raises.
 * Every serving option outside this slice raises ``NotImplementedError``
   naming its flag, whether it comes as an engine argument or through
-  ``FFConfig``; none falls back quietly.
+  ``FFConfig``; none falls back quietly. So does every training option
+  outside this slice, at ``fit``.
 """
 import ast
 import os
@@ -50,7 +51,11 @@ def test_forbidden_matches_exact_names_only():
 
 def test_importing_every_module_loads_neither_jax_nor_flexflow_tpu():
     mods = _all_modules()
-    assert "flexflow_tpu_torch.kernels.flash_decode" in mods
+    for m in ("kernels.flash_decode", "kernels.flash_attention",
+              "execution.losses", "execution.metrics",
+              "execution.optimizers", "data.dataloader",
+              "resilience.preflight", "models.bert", "ops.tensor_ops"):
+        assert f"flexflow_tpu_torch.{m}" in mods
     script = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -190,3 +195,68 @@ def test_temperature_sampling_is_reproducible(tiny):
     assert a == b
     assert all(0 <= t < 100 for o in a for t in o)
     assert np.asarray(a).shape == (2, 4)
+
+
+# ------------------------------------------------ out-of-slice fit options
+def _tiny_mlp(**config):
+    c = ft.FFConfig()
+    c.batch_size, c.seed = 4, 0
+    for k, v in config.items():
+        setattr(c, k, v)
+    ff = ft.FFModel(c, device="cpu")
+    ff.softmax(ff.dense(ff.create_tensor((4, 8)), 3))
+    ff.compile(loss_type=ft.LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY)
+    return ff
+
+
+def _xy():
+    rng = np.random.default_rng(0)
+    return (rng.standard_normal((8, 8)).astype(np.float32),
+            rng.integers(0, 3, (8, 1)).astype(np.int32))
+
+
+@pytest.mark.parametrize("field,value,flag", [
+    ("checkpoint_dir", "ckpt", "--checkpoint-dir"),
+    ("max_bad_steps", 2, "--max-bad-steps"),
+    ("resume", "auto", "--resume"),
+    ("audit_strategy", True, "--audit-strategy"),
+    ("memory_budget_mb", 1024, "--memory-budget-mb"),
+    ("profile_ops", "ops.jsonl", "--profile-ops"),
+    ("profiler_trace_dir", "trace", "--profiler-trace-dir"),
+    ("telemetry_file", "tel.json", "--telemetry-file"),
+    ("trace_file", "trace.json", "--trace-file"),
+    ("remat", "full", "--remat"),
+    ("collective_overlap", "on", "--collective-overlap"),
+    ("schedule", "1f1b", "--schedule"),
+])
+def test_fit_refuses_config_flags_of_later_slices(field, value, flag):
+    ff = _tiny_mlp(**{field: value})
+    with pytest.raises(NotImplementedError, match=LATER) as e:
+        ff.fit(*_xy())
+    assert flag in str(e.value)
+
+
+@pytest.mark.parametrize("kwarg,flag", [("chaos", "chaos="),
+                                        ("recompile_state",
+                                         "recompile_state=")])
+def test_fit_refuses_arguments_of_later_slices(kwarg, flag):
+    ff = _tiny_mlp()
+    with pytest.raises(NotImplementedError, match=LATER) as e:
+        ff.fit(*_xy(), **{kwarg: object()})
+    assert flag in str(e.value)
+
+
+def test_fit_takes_the_in_slice_defaults():
+    ff = _tiny_mlp(remat="none", collective_overlap="off")
+    perf = ff.fit(*_xy(), epochs=1)
+    assert perf.train_all == 8 and len(ff.fit_history.loss) == 2
+
+
+def test_softmax_kernel_opt_in_is_refused():
+    c = ft.FFConfig()
+    c.batch_size = 2
+    ff = ft.FFModel(c, device="cpu")
+    ff.softmax(ff.create_tensor((2, 128)), use_pallas=True)
+    ff.compile()
+    with pytest.raises(NotImplementedError, match=LATER):
+        ff.predict(np.zeros((2, 128), np.float32))

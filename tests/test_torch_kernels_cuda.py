@@ -87,3 +87,100 @@ def test_flash_decode_kernel_refuses_what_it_does_not_take():
         fd.flash_decode(q, k, v, tables.long(), nk)
     with pytest.raises(ValueError):
         fd.flash_decode(q, k.transpose(2, 3), v, tables, nk)
+
+
+# ------------------------------------------------- flash attention (B1-B4)
+import flexflow_tpu_torch.kernels.flash_attention as fa  # noqa: E402
+
+# fp32: summation order (and dQ's atomics) only. bf16/fp16: P and dS are
+# rounded to the dtype before each product, and a probability one fp32 ulp
+# apart on the two sides can round to neighbouring values; outputs round
+# once more. Gradients are judged relative to their largest element.
+FA_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-2, 2e-2),
+          torch.float16: (4e-3, 4e-3)}
+
+
+def _fa_inputs(seed, dtype, dev, b=2, h=3, sq=256, sk=256, d=64):
+    rng = np.random.default_rng(seed)
+    shapes = [(b, h, sq, d), (b, h, sk, d), (b, h, sk, d), (b, h, sq, d)]
+    return [torch.tensor(rng.standard_normal(s), dtype=dtype, device=dev)
+            for s in shapes]
+
+
+def _rel_err(got, want):
+    scale = max(1.0, want.float().abs().max().item())
+    return (got.float() - want.float()).abs().max().item() / scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("causal,sq,sk,d,dropout", [
+    (False, 256, 256, 64, 0.0),
+    (True, 256, 256, 64, 0.0),
+    (True, 128, 256, 64, 0.0),     # rectangular band, offset sk - sq
+    (True, 192, 192, 128, 0.1),
+    (False, 128, 128, 128, 0.1),
+])
+def test_flash_attention_kernels_match_plain(dtype, causal, sq, sk, d,
+                                             dropout):
+    dev = _cuda()
+    q, k, v, do = _fa_inputs(0, dtype, dev, sq=sq, sk=sk, d=d)
+    seed = 20261016
+    out_tol, grad_tol = FA_TOL[dtype]
+    before = {n: fa.launch_count(n) for n in fa.KERNELS}
+    out, lse = fa._flash_forward(q, k, v, causal, 64, 64, dropout, seed)
+    want_out, want_lse = fa.flash_forward_plain(q, k, v, causal, 64, 64,
+                                                dropout, seed)
+    torch.cuda.synchronize()
+    assert (out.float() - want_out.float()).abs().max().item() <= out_tol
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    for fused in (True, False):
+        got = fa._flash_backward(q, k, v, want_out, want_lse, do, causal, 64,
+                                 64, dropout, seed, fused=fused)
+        want = fa.flash_backward_plain(q, k, v, want_out, want_lse, do,
+                                       causal, 64, 64, dropout, seed,
+                                       fused=fused)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            assert g.dtype == dtype
+            assert _rel_err(g, w) <= grad_tol, (name, fused, _rel_err(g, w))
+    after = {n: fa.launch_count(n) - before[n] for n in fa.KERNELS}
+    assert after == {"flash_fwd": 1, "flash_bwd_fused": 1,
+                     "flash_bwd_dkv": 1, "flash_bwd_dq": 1}
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_launches_the_kernels():
+    """Through the autograd Function: grads equal the plain version's, and
+    the backward takes the fused schedule at this shape."""
+    dev = _cuda()
+    q, k, v, do = _fa_inputs(3, torch.float32, dev, sq=512, sk=512)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.reset_launch_count()
+    out = fa.flash_attention(*leaves, causal=True)
+    grads = torch.autograd.grad(out, leaves, do)
+    assert fa.launch_count("flash_fwd") == 1
+    assert fa.launch_count("flash_bwd_fused") == 1
+    o_w, l_w = fa.flash_forward_plain(q, k, v, True)
+    want = fa.flash_backward_plain(q, k, v, o_w, l_w, do, True)
+    assert (out - o_w).abs().max().item() <= 2e-5
+    for g, w in zip(grads, want):
+        assert _rel_err(g, w) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernels_refuse_what_they_do_not_take():
+    dev = _cuda()
+    q, k, v, _ = _fa_inputs(1, torch.float32, dev, sq=128, sk=128, d=32)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa._flash_forward(q, k, v, False, 64, 64)
+    q, k, v, _ = _fa_inputs(1, torch.float32, dev, sq=96, sk=96)
+    with pytest.raises(ValueError, match="multiple"):
+        fa._flash_forward(q, k, v, False, 32, 32)
+    q, k, v, _ = _fa_inputs(1, torch.float32, dev, sq=128, sk=128)
+    with pytest.raises(TypeError):
+        fa._flash_forward(q, k.half(), v, False, 64, 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa._flash_forward(q.transpose(2, 3).contiguous().transpose(2, 3),
+                          k, v, False, 64, 64)
