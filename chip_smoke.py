@@ -8,17 +8,23 @@ drives the PyTorch port only (it imports neither jax nor flexflow_tpu):
 
 1. build — compiles every CUDA kernel of the port from ``csrc/`` (one
    nvcc per source, all started together) and prints the build seconds
-   and the compiler's register/spill report;
-2. kernels — holds each kernel against its plain-PyTorch version on the
-   card at the shapes GPT-2 small's decode gives it (8 slots, 12 heads,
-   head_dim 64, block_size 16, 32 blocks per slot, random tables, key
-   counts 1..512), in fp32 and bf16, and times kernel, plain version and
-   one PyTorch library call computing the same function
-   (``F.scaled_dot_product_attention`` over the gathered, masked keys).
-   Kernel and library call are timed as CUDA-graph replays cycling over
-   12 layers' inputs, so each launch finds its pool cold in L2 as in a
-   decode step and Python's launch cost is left out (it is printed
-   beside);
+   and, per source, the compiler's register and spill counts;
+2. kernels — holds flash decode (B5), top-k (B7) and softmax (B6) against
+   their plain-PyTorch versions on the card, and times kernel, plain
+   version and one PyTorch library call computing the same function:
+   flash decode (B5) at the shapes GPT-2 small's decode gives it (8 slots,
+   12 heads, head_dim 64, block_size 16, 32 blocks per slot, random
+   tables, key counts 1..512) in fp32 and bf16, with native pools and with
+   int8 pools and their scales (library: ``F.scaled_dot_product_attention``
+   over the gathered, masked — for int8 dequantized, untimed — keys),
+   timed as CUDA-graph replays cycling over 12 layers' inputs, so each
+   launch finds its pool cold in L2 as in a decode step and Python's
+   launch cost is left out (it is printed beside); the row top-k (B7) at
+   the sampler's shape (8, 50304) fp32, k = 8 and 1, with injected ties
+   and a row with fewer than k finite entries, values and indices equal to
+   the plain sweeps' (library: ``torch.topk``); the row softmax forward and
+   backward (B6) at GPT-2 small's logits (4096, 50304) in fp32 and bf16
+   (library: ``torch.softmax`` and its backward);
 3. end to end — per compute dtype (fp32, bf16): GPT-2 small at full width
    (hidden 768, 12 heads, 12 layers, vocab 50257; random weights from a
    seed) serves 8 prompts of 32..200 tokens, three sharing a 64-token
@@ -29,7 +35,19 @@ drives the PyTorch port only (it imports neither jax nor flexflow_tpu):
    run is then held against a whole-sequence plain forward. With
    ``--profile`` the same generate runs once more under ``torch.profiler``
    and the card's busy share and kernels by time are printed;
-4. flash attention — holds the forward (B1), fused backward (B2) and
+4. int8 KV and top-k sampling — per compute dtype: GPT-2 small at vocab
+   50304 (nanoGPT's padding, the width at which the sampler's top-k takes
+   its kernel) serves the same prompts with ``--kv-dtype int8``: greedy,
+   temperature 0.8 with top_k 8 and with top_k 1, and once with native KV,
+   each on a fresh engine with the launch counts reset before and read
+   after. Asserted: 12 int8 flash-decode launches per decode step, one
+   top-k launch per sampler call (prefills plus decode steps), the top_k 1
+   streams equal to the greedy ones, and teacher-forced int8 decode logits
+   inside a stated band of native KV's with the greedy argmax agreeing on
+   at least 0.9 of the steps. It prints tokens/s, p50/p99 ms per token and
+   ``kv_bytes_per_token`` of int8 beside native; ``--profile`` profiles
+   the greedy int8 run;
+5. flash attention — holds the forward (B1), fused backward (B2) and
    two-pass backward (B3 dK/dV, B4 dQ) kernels against their plain
    versions at BERT-Large's attention (b8 h16 s512 d64) and GPT-2 small's
    (b8 h12 s512 d64, causal) in fp32 and bf16, at GPT-2 small's widths at
@@ -40,21 +58,26 @@ drives the PyTorch port only (it imports neither jax nor flexflow_tpu):
    backward as CUDA-graph replays (inputs warm in L2, as a training step
    finds them), and each plain version eagerly, and prints each against
    its bound;
-5. training — through ``FFModel.fit``, with random weights and data from a
+6. training — through ``FFModel.fit``, with random weights and data from a
    seed: the BERT-Large proxy (``bench.py``'s flagship: hidden 1024, 16
    heads, 24 layers, seq 512, batch 8, bf16 compute, Adam 1e-4, sparse
    categorical cross-entropy), 2 warm-up then 6 timed steps; GPT-2 small
    with a softmax head on token labels (fp32, batch 8, seq 512), 1 + 3
-   steps; GPT-2 small's widths at seq 16384 (fp32, batch 1), 2 steps.
-   Launch counts are reset before each timed fit and read after: each
-   step must launch the forward kernel once per layer and the backward
-   the JAX package's rule picks (fused at seq 512, two-pass at 16384)
-   once per layer. At the initial weights, one step's loss and grads with
-   attention through the kernels are held against the same step through
-   the einsum core. It prints p50 step ms, samples/s and MFU against
-   989 TF/s; ``--profile`` adds one BERT-Large step under
-   ``torch.profiler`` (busy share, flash/GEMM/other split, kernels by
-   time in ``chiprun_out/profile_train_bert_bf16.txt``).
+   steps; GPT-2 small's widths at seq 16384 (fp32, batch 1), 2 steps;
+   GPT-2 small at vocab 50304 with the head's softmax opted into the
+   row-softmax kernel (``ff.softmax(logits, use_pallas=True)``; fp32,
+   batch 8, seq 512), 1 + 3 steps. Launch counts are reset before each
+   timed fit and read after: each step must launch the forward kernel once
+   per layer, the backward the JAX package's rule picks (fused at seq 512,
+   two-pass at 16384) once per layer, and, with the opt-in, the softmax
+   forward and backward once each. At the initial weights, one step's
+   loss and grads with attention through the kernels are held against
+   the same step through the einsum core, and with the softmax kernel
+   against the same step through ``torch.softmax``. It prints p50 step
+   ms, samples/s and MFU against 989 TF/s; ``--profile`` adds one
+   BERT-Large step under ``torch.profiler`` (busy share, flash/GEMM/other
+   split, kernels by time in
+   ``chiprun_out/profile_train_bert_bf16.txt``).
 
 It prints one ``{"kernels": [...]}`` line, the card's name and power limit
 (nvidia-smi), and as its last line ``{"ok": true, "device": {...}}``. Any
@@ -149,10 +172,16 @@ def build_phase() -> None:
     secs = time.perf_counter() - t
     log(f"build: {len(reports)} kernel(s) compiled for sm_90a in "
         f"{secs:.2f} s")
+    import re
+
     for name, rep in reports.items():
-        for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", rep)]
+        spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores",
+                                             rep)]
+        log(f"  {name}: {len(regs)} kernel instantiations, registers "
+            f"{min(regs, default=0)}..{max(regs, default=0)} a thread, "
+            f"{sum(1 for s in spills if s)} spilling (at most "
+            f"{max(spills, default=0)} bytes)")
 
 
 # ------------------------------------------------------------ kernel phase
@@ -184,13 +213,14 @@ def decode_inputs(dtype, device, layers: int, seed: int = SEED):
     return per_layer, i[0], i[1]
 
 
-def flash_decode_bound(n_keys, el: int):
+def flash_decode_bound(n_keys, el: int, int8: bool = False):
     """(bound_ms, bound_by): the bytes this call must move — the used K/V
-    rows, q, the output, tables and counts, each once — over HBM bandwidth,
-    against its fp32 flops (score and PV: 4 * dim per key and head) over
-    the fp32 peak."""
+    rows (int8: 1 byte an element plus two f32 scales per key and head), q,
+    the output, tables and counts, each once — over HBM bandwidth, against
+    its fp32 flops (score and PV: 4 * dim per key and head) over the fp32
+    peak."""
     keys = int(np.sum(n_keys))
-    kv = keys * HEADS * 2 * HEAD_DIM * el
+    kv = keys * HEADS * (2 * HEAD_DIM + 8 if int8 else 2 * HEAD_DIM * el)
     io = 2 * SLOTS * HEADS * HEAD_DIM * el + SLOTS * (MAX_BLOCKS + 1) * 4
     t_bytes = (kv + io) / HBM_BYTES_PER_S
     t_ops = keys * HEADS * 4 * HEAD_DIM / FP32_FLOPS
@@ -199,28 +229,56 @@ def flash_decode_bound(n_keys, el: int):
 
 
 def kernel_phase(device, card: str, dtypes=("fp32", "bf16"),
-                 iters: int = 240, layers: int = 12):
+                 iters: int = 240, layers: int = 12, int8: bool = False):
+    """Flash decode against its plain version and timed. ``int8``: the
+    kernel's int8 branch, the fp32 pools of the native case quantized per
+    (token, head) and q in the compute dtype; the library call then reads
+    keys gathered and dequantized to q's dtype beforehand (not timed)."""
     import torch
     import torch.nn.functional as F
 
     from flexflow_tpu_torch.kernels import flash_decode as fd
-    from flexflow_tpu_torch.serving.kvcache import gather_paged_kv
+    from flexflow_tpu_torch.serving.kvcache import (dequantize_kv,
+                                                    gather_paged_kv,
+                                                    gather_paged_scales,
+                                                    quantize_kv)
 
+    label = "flash_decode_int8" if int8 else "flash_decode"
     out = {}
     for name in dtypes:
         dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[name]
-        per_layer, tables, n_keys = decode_inputs(dtype, device, layers)
-        wants = [fd.flash_decode_plain(q, k, v, tables, n_keys)
-                 for q, k, v in per_layer]
-        err = max((fd.flash_decode(q, k, v, tables, n_keys).float()
-                   - want.float()).abs().max().item()
-                  for (q, k, v), want in zip(per_layer, wants))
+        per_layer, tables, n_keys = decode_inputs(
+            torch.float32 if int8 else dtype, device, layers)
+        if int8:
+            # (q, kq, vq, {kscale, vscale})
+            per_layer = [(q.to(dtype), kq, vq, dict(kscale=ks, vscale=vs))
+                         for q, (kq, ks), (vq, vs) in (
+                             (q, quantize_kv(k), quantize_kv(v))
+                             for q, k, v in per_layer)]
+        else:
+            per_layer = [(q, k, v, {}) for q, k, v in per_layer]
+
+        def call(fn, i):
+            q, k, v, scales = per_layer[i % layers]
+            return fn(q, k, v, tables, n_keys, **scales)
+
+        wants = [call(fd.flash_decode_plain, i) for i in range(layers)]
+        err = max((call(fd.flash_decode, i).float() - want.float())
+                  .abs().max().item() for i, want in enumerate(wants))
         if not err <= KERNEL_ATOL[name]:
-            fail(f"flash_decode {name}: max |kernel - plain| = {err} > "
+            fail(f"{label} {name}: max |kernel - plain| = {err} > "
                  f"{KERNEL_ATOL[name]}")
+
+        def gather(pool, scales):
+            if scales is None:
+                return gather_paged_kv(pool, tables)
+            return dequantize_kv(gather_paged_kv(pool, tables),
+                                 gather_paged_scales(scales, tables), dtype)
+
         # yardstick: one library call on the keys gathered and masked
-        gathered = [(q[:, :, None, :], gather_paged_kv(k, tables),
-                     gather_paged_kv(v, tables)) for q, k, v in per_layer]
+        gathered = [(q[:, :, None, :], gather(k, sc.get("kscale")),
+                     gather(v, sc.get("vscale")))
+                    for q, k, v, sc in per_layer]
         kpos = torch.arange(gathered[0][1].shape[2], device=device)
         mask = (kpos[None, :] < n_keys[:, None])[:, None, None, :]
         q4, kc, vc = gathered[0]
@@ -228,12 +286,10 @@ def kernel_phase(device, card: str, dtypes=("fp32", "bf16"),
         lib_err = (lib[:, :, 0].float() - wants[0].float()).abs().max().item()
 
         def kernel(i):
-            q, k, v = per_layer[i % layers]
-            return fd.flash_decode(q, k, v, tables, n_keys)
+            return call(fd.flash_decode, i)
 
         def plain(i):
-            q, k, v = per_layer[i % layers]
-            return fd.flash_decode_plain(q, k, v, tables, n_keys)
+            return call(fd.flash_decode_plain, i)
 
         def library(i):
             q4, kc, vc = gathered[i % layers]
@@ -245,8 +301,8 @@ def kernel_phase(device, card: str, dtypes=("fp32", "bf16"),
         plain_ms = time_ms(plain, max(iters // 20, 1), device)
         library_ms = time_ms(library, iters, device, graph=cuda)
         bound_ms, bound_by = flash_decode_bound(
-            n_keys.cpu().numpy(), per_layer[0][0].element_size())
-        log(f"kernel flash_decode {name}: max_abs_err {err:.3g} "
+            n_keys.cpu().numpy(), per_layer[0][0].element_size(), int8)
+        log(f"kernel {label} {name}: max_abs_err {err:.3g} "
             f"(sdpa vs plain {lib_err:.3g}), {ms * 1e3:.2f} us "
             f"({eager_ms * 1e3:.2f} us a call launched from Python), "
             f"plain {plain_ms * 1e3:.2f} us, sdpa over gathered keys "
@@ -255,6 +311,152 @@ def kernel_phase(device, card: str, dtypes=("fp32", "bf16"),
         out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=bound_by,
                          library_ms=library_ms)
+    return out
+
+
+# ------------------------------------------- top-k (B7) and softmax (B6)
+# nanoGPT's padded GPT-2 vocabulary (50257 rounded up, 393 x 128): the
+# width at which the sampler's top-k and the opt-in softmax take kernels
+VOCAB_PADDED = 50304
+TOPK_KS = (8, 1)
+# softmax kernel phase: GPT-2 small's logits at batch 8, seq 512
+SOFTMAX_ROWS = 8 * 512
+# kernel against plain: fp32 differs in summation order only (values <= 1);
+# 16-bit outputs are rounded once on both sides, and an fp32 value one ulp
+# apart may round to the neighbouring bf16 value, which is at most 2**-8
+# below 1. The backward is judged relative to its largest element.
+SOFTMAX_TOL = {"fp32": 2e-6, "bf16": 2.0 ** -8}
+# int8 KV against native KV, teacher-forced decode logits of the same
+# weights (GPT-2 small, seed 0, 4 requests x 31 steps): measured 9.3e-4 in
+# fp32 and 1.15e-2 in bf16 on an H100, banded at about 10x and 4x that
+# (the JAX package pins 0.25 on its tiny GPT-2, tests/test_decode_paged.py);
+# the greedy argmax agreement is the JAX package's law
+INT8_BAND = {"fp32": 1e-2, "bf16": 5e-2}
+INT8_ARGMAX_AGREEMENT = 0.9
+
+
+def topk_inputs(device, n: int, seed: int = SEED):
+    """``n`` (8, 50304) fp32 sampler logits: random, with a maximum
+    repeated in row 0, ties across the k-th place in row 1, and row 2 with
+    two finite entries (the rest -inf)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = []
+    for _ in range(n):
+        x = torch.randn((SLOTS, VOCAB_PADDED), generator=gen, device=device)
+        x[0, [3, 70, VOCAB_PADDED - 1]] = 9.0
+        x[1, [5, 6, 200]] = 7.5
+        x[1, [1, 2]] = 8.0
+        x[2] = float("-inf")
+        x[2, [VOCAB_PADDED // 2, 1]] = torch.tensor([0.5, -3.0],
+                                                    device=device)
+        out.append(x)
+    return out
+
+
+def topk_kernel_phase(device, card: str, iters: int = 240, n: int = 12):
+    """B7 at the sampler's decode shape, k = 8 and k = 1: values and
+    indices must EQUAL the plain sweeps'. Timed as graph replays cycling
+    over ``n`` inputs (19 MB, warm in L2, as logits fresh from the LM head
+    are); the library call is ``torch.topk``."""
+    import torch
+
+    from flexflow_tpu_torch.kernels import topk as tk
+
+    xs = topk_inputs(device, n)
+    out = {}
+    for k in TOPK_KS:
+        for x in xs:
+            vals, idx = tk.topk(x, k)
+            want_v, want_i = tk.topk_plain(x, k)
+            if not (torch.equal(idx, want_i) and torch.equal(vals, want_v)):
+                fail(f"topk k={k}: kernel and plain sweeps differ")
+        lib_v, _ = torch.topk(xs[0], k, dim=-1)
+        lib_same = bool(torch.equal(lib_v, tk.topk_plain(xs[0], k)[0]))
+        ms = time_ms(lambda i: tk.topk(xs[i % n], k), iters, device,
+                     graph=True)
+        plain_ms = time_ms(lambda i: tk.topk_plain(xs[i % n], k),
+                           max(iters // 20, 1), device)
+        lib_ms = time_ms(lambda i: torch.topk(xs[i % n], k, dim=-1), iters,
+                         device, graph=True)
+        nbytes = xs[0].numel() * 4 + SLOTS * k * 8
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = xs[0].numel() / FP32_FLOPS  # one compare an element
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"kernel topk k={k} ({SLOTS}, {VOCAB_PADDED}) fp32: values and "
+            f"indices equal the plain sweeps' (torch.topk values equal: "
+            f"{lib_same}), {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
+            f"torch.topk {lib_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.3f} us"
+            f" ({bound_by}) [{card}]")
+        out[k] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                      bound_ms=bound_ms, bound_by=bound_by,
+                      library_ms=lib_ms)
+    return out
+
+
+def softmax_kernel_phase(device, card: str, iters: int = 8):
+    """B6 forward and backward at GPT-2 small's logits (4096 rows of
+    50304) in fp32 and bf16 against their plain versions, timed as graph
+    replays (each call streams 0.8 GB or more, far past L2); the library
+    calls are ``torch.softmax`` and ``torch._softmax_backward_data`` (what
+    its autograd backward runs)."""
+    import torch
+
+    from flexflow_tpu_torch.kernels import softmax as sm
+
+    out = {}
+    for name in ("fp32", "bf16"):
+        dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[name]
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        shape = (SOFTMAX_ROWS, VOCAB_PADDED)
+        x = (torch.randn(shape, generator=gen, device=device) * 4.0).to(dtype)
+        g = torch.randn(shape, generator=gen, device=device).to(dtype)
+        p = sm._forward(x)
+        dx = sm._backward(p, g)
+        tol = SOFTMAX_TOL[name]
+        errs = {"softmax_fwd": abs_err(p, sm.softmax_plain(x))}
+        want_dx = sm.softmax_bwd_plain(p, g)
+        errs["softmax_bwd"] = abs_err(dx, want_dx)
+        rel_bwd = errs["softmax_bwd"] / want_dx.float().abs().max().item()
+        del want_dx
+        if not (errs["softmax_fwd"] <= tol and rel_bwd <= tol):
+            fail(f"softmax {name}: kernel vs plain forward {errs['softmax_fwd']}"
+                 f", backward (relative) {rel_bwd} > {tol}")
+        el = x.element_size()
+        calls = {
+            "softmax_fwd": (lambda i: sm._forward(x),
+                            lambda i: sm.softmax_plain(x),
+                            lambda i: torch.softmax(x, dim=-1), 2, 5),
+            "softmax_bwd": (lambda i: sm._backward(p, g),
+                            lambda i: sm.softmax_bwd_plain(p, g),
+                            lambda i: torch._softmax_backward_data(
+                                g, p, -1, dtype), 3, 4),
+        }
+        # (kernel, plain, library, tensors moved, fp32 operations an
+        # element: max, subtract, exp, add, divide; multiply, add,
+        # subtract, multiply)
+        for kname, (kern, plain, lib, tensors, ops) in calls.items():
+            ms = time_ms(kern, iters, device, graph=True)
+            torch.cuda.empty_cache()
+            plain_ms = time_ms(plain, 2, device)
+            lib_ms = time_ms(lib, iters, device, graph=True)
+            torch.cuda.empty_cache()
+            t_bytes = tensors * x.numel() * el / HBM_BYTES_PER_S
+            t_ops = ops * x.numel() / FP32_FLOPS
+            bound_ms = max(t_bytes, t_ops) * 1e3
+            bound_by = "bytes" if t_bytes >= t_ops else "operations"
+            log(f"kernel {kname} {name} {shape}: max_abs_err "
+                f"{errs[kname]:.3g}{f' (rel {rel_bwd:.3g})' if kname == 'softmax_bwd' else ''}"
+                f", {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, library "
+                f"{lib_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us "
+                f"({bound_by}; {bound_ms / ms:.3f} of it) [{card}]")
+            out[(kname, name)] = dict(max_abs_err=errs[kname], ms=ms,
+                                      plain_ms=plain_ms, bound_ms=bound_ms,
+                                      bound_by=bound_by, library_ms=lib_ms)
+        del x, g, p, dx
+        torch.cuda.empty_cache()
     return out
 
 
@@ -289,13 +491,13 @@ def make_prompts(vocab: int, lengths, shared_len: int, n_shared: int):
     return prompts
 
 
-def decode_vs_forward(ff, tokens, prompt_len: int, steps: int,
-                      max_len: int, block: int):
-    """Teacher-forced serving steps against the whole-sequence plain
-    forward: prefill ``tokens[:prompt_len]`` into a paged pool, then
-    ``steps`` decode steps fed the true next token. Returns
-    (max |serving - forward| over the prefill's last row and every decode
-    row, the serving logits). Launch counts include these decodes."""
+def teacher_forced(ff, tokens, prompt_len: int, steps: int, max_len: int,
+                   block: int, kv_dtype: str = "native"):
+    """Teacher-forced serving steps: prefill ``tokens[:prompt_len]`` into a
+    paged pool of ``kv_dtype`` ("native" or "int8"), then ``steps`` decode
+    steps fed the true next token. Returns the serving logits, the
+    prefill's last row then one row per decode step. Launch counts include
+    these decodes."""
     import torch
 
     from flexflow_tpu_torch.serving.kvcache import (DecodeState,
@@ -315,24 +517,41 @@ def decode_vs_forward(ff, tokens, prompt_len: int, steps: int,
     mb = blocks_per_slot(max_len, block)
     table = torch.arange(1, mb + 1, dtype=torch.int32, device=dev)
     caches = {}
-    for name, (kc, vc) in cache.items():
-        kp = scatter_prefill_paged(paged_pool_entry(kc, mb + 1, block), kc,
-                                   table, block)
-        vp = scatter_prefill_paged(paged_pool_entry(vc, mb + 1, block), vc,
-                                   table, block)
-        caches[name] = (kp, vp)
+    for name, leaves in cache.items():
+        entry = []
+        for leaf in leaves:
+            pool = paged_pool_entry(leaf, mb + 1, block, kv_dtype)
+            if kv_dtype == "int8":
+                entry += scatter_prefill_paged(pool[0], leaf, table, block,
+                                               scales=pool[1])
+            else:
+                entry.append(scatter_prefill_paged(pool, leaf, table, block))
+        caches[name] = tuple(entry)
     state = DecodeState(caches=caches,
                         lengths=torch.tensor([prompt_len], dtype=torch.int32,
                                              device=dev),
                         block_tables=table[None, :].clone())
-    decode = ex.make_decode_step(max_len, block_size=block)
+    decode = ex.make_decode_step(max_len, block_size=block,
+                                 kv_dtype=kv_dtype)
     rows = [last[0]]
     for s in range(steps):
         tok = torch.tensor([[tokens[prompt_len + s]]], dtype=torch.int32,
                            device=dev)
         logits, state = decode(ff.params, [tok], state)
         rows.append(logits[0])
-    serving = torch.stack(rows)
+    return torch.stack(rows)
+
+
+def decode_vs_forward(ff, tokens, prompt_len: int, steps: int,
+                      max_len: int, block: int):
+    """Teacher-forced serving steps (:func:`teacher_forced`, native KV)
+    against the whole-sequence plain forward. Returns (max |serving -
+    forward| over the prefill's last row and every decode row, the serving
+    logits)."""
+    import torch
+
+    ex, dev = ff.executor, ff.device
+    serving = teacher_forced(ff, tokens, prompt_len, steps, max_len, block)
     full = ex.forward(ff.params, [torch.tensor(
         [tokens[:prompt_len + steps]], dtype=torch.int32, device=dev)])[0]
     want = full[prompt_len - 1:prompt_len + steps]
@@ -459,6 +678,125 @@ def e2e_phase(device, card: str, cfg, compute: str, lengths,
     return dict(launches=launches, decode_steps=stats.decode_steps,
                 tokens_per_s=stats.tokens_per_s(), p50_token_ms=p50,
                 logit_err=err)
+
+
+def int8_serving_phase(device, card: str, compute: str, lengths,
+                       shared_len: int, n_shared: int, new_tokens: int,
+                       max_len: int, forced: int = 4, profile: bool = False):
+    """GPT-2 small at vocab 50304 served through ``FFModel.generate`` with
+    the KV pool in int8 (``--kv-dtype int8``), against the same weights
+    with native KV: (a) greedy, (b) temperature 0.8 with top_k 8, (c)
+    temperature 0.8 with top_k 1, and the native greedy run. Each run gets
+    a fresh engine (an empty prefix cache, so every run admits and chunks
+    the prompts alike), with the launch counts reset just before it and
+    read just after. Then ``forced`` requests are decoded teacher-forced
+    on their greedy int8 streams with both pools. ``--profile`` profiles
+    the greedy int8 run once more."""
+    import torch
+
+    from flexflow_tpu_torch.kernels import flash_decode as fd
+    from flexflow_tpu_torch.kernels import topk as tk
+    from flexflow_tpu_torch.models.gpt2 import GPT2Config
+
+    cfg = GPT2Config(vocab_size=VOCAB_PADDED)
+    t = time.perf_counter()
+    ff = build_model(cfg, compute, device, max_len)
+    log(f"int8 {compute}: GPT-2 hidden {cfg.hidden} heads {cfg.num_heads} "
+        f"layers {cfg.num_layers} vocab {cfg.vocab_size} built in "
+        f"{time.perf_counter() - t:.1f} s")
+    prompts = make_prompts(cfg.vocab_size, lengths, shared_len, n_shared)
+    layers = cfg.num_layers
+
+    def run(kv_dtype: str, prompts, **sampling):
+        ff.config.kv_dtype = kv_dtype
+        ff._serving_engine = None
+        fd.reset_launch_count()
+        tk.reset_launch_count()
+        outs = ff.generate(prompts, max_new_tokens=new_tokens,
+                           max_decode_len=max_len, **sampling)
+        torch.cuda.synchronize()
+        counts = {n: fd.launch_count(n) for n in fd.KERNELS}
+        counts["topk"] = tk.launch_count()
+        stats = ff._serving_engine.stats
+        for i, o in enumerate(outs):
+            if len(o) != new_tokens or not all(0 <= x < cfg.vocab_size
+                                               for x in o):
+                fail(f"int8 {compute} {kv_dtype} {sampling}: request {i} "
+                     f"produced {o}")
+        return outs, stats, counts
+
+    # warm-up on a prompt too short to enter the prefix cache
+    run("int8", [[1, 2, 3]], temperature=0.8, top_k=8)
+    runs = {
+        "native": run("native", prompts),
+        "greedy": run("int8", prompts),
+        "top8": run("int8", prompts, temperature=0.8, top_k=8, seed=SEED),
+        "top1": run("int8", prompts, temperature=0.8, top_k=1, seed=SEED),
+    }
+    for key, (_outs, stats, counts) in runs.items():
+        steps = stats.decode_steps
+        want = {"flash_decode": layers * steps if key == "native" else 0,
+                "flash_decode_int8": 0 if key == "native" else layers * steps,
+                "topk": (stats.prefills + steps) if key.startswith("top")
+                else 0}
+        if counts != want:
+            fail(f"int8 {compute} {key}: launches {counts}, want {want} "
+                 f"({steps} decode steps, {stats.prefills} prefills)")
+        if steps < 1 or stats.chunked_prefills < 1 or stats.prefix_hits < 1:
+            fail(f"int8 {compute} {key}: the run must decode, hit the prefix"
+                 f" cache and chunk-prefill: {stats.summary()}")
+        log(f"int8 {compute} {key}: {stats.tokens_generated} tokens in "
+            f"{stats.wall_s:.3f} s = {stats.tokens_per_s():.1f} tokens/s, "
+            f"p50 per-token {stats.p50_token_ms():.3f} ms, p99 "
+            f"{stats.p99_token_ms():.3f} ms, {steps} decode steps, "
+            f"{stats.prefills} prefills ({stats.chunked_prefills} chunks, "
+            f"{stats.prefix_hits} prefix hits), kv_bytes_per_token "
+            f"{stats.kv_bytes_per_token():.1f}, launches {counts} [{card}]")
+    if profile:
+        ff.config.kv_dtype = "int8"
+        profile_generate(ff, f"int8_{compute}", prompts, new_tokens, max_len,
+                         runs["greedy"][1].wall_s)
+    greedy = runs["greedy"][0]
+    if runs["top1"][0] != greedy:
+        fail(f"int8 {compute}: top_k 1 streams differ from the greedy ones")
+    same = np.mean([a == b for o8, on in zip(greedy, runs["native"][0])
+                    for a, b in zip(o8, on)])
+    log(f"int8 {compute}: top_k 1 streams equal the greedy streams; greedy "
+        f"tokens equal to native KV's: {same:.4f}; kv_bytes_per_token int8 "
+        f"{runs['greedy'][1].kv_bytes_per_token():.1f} vs native "
+        f"{runs['native'][1].kv_bytes_per_token():.1f}")
+
+    # teacher-forced int8 decode logits against native KV's on the same
+    # tokens (the prefill row reads no cache and is left out)
+    errs, agree = [], []
+    for r in range(forced):
+        seq = prompts[r] + greedy[r]
+        plen = len(prompts[r])
+        got, want = (teacher_forced(ff, seq, plen, new_tokens - 1, max_len,
+                                    ff.config.kv_block_size, kv)[1:]
+                     for kv in ("int8", "native"))
+        if not bool(torch.isfinite(got).all()):
+            fail(f"int8 {compute}: non-finite decode logits")
+        errs.append((got.float() - want.float()).abs().max().item())
+        agree += (got.argmax(-1) == want.argmax(-1)).tolist()
+    err, agreement = max(errs), float(np.mean(agree))
+    band = INT8_BAND[compute]
+    log(f"int8 {compute}: teacher-forced decode logits vs native KV over "
+        f"{len(agree)} steps: max |diff| {err:.4g} (band {band}), greedy "
+        f"argmax agreement {agreement:.4f} (need >= {INT8_ARGMAX_AGREEMENT})"
+        f" [{card}]")
+    if not (err <= band and agreement >= INT8_ARGMAX_AGREEMENT):
+        fail(f"int8 {compute}: int8 logits outside the band of native KV's")
+    res = {k: dict(counts=v[2], decode_steps=v[1].decode_steps,
+                   tokens_per_s=v[1].tokens_per_s(),
+                   p50_token_ms=v[1].p50_token_ms(),
+                   p99_token_ms=v[1].p99_token_ms(),
+                   kv_bytes_per_token=v[1].kv_bytes_per_token())
+           for k, v in runs.items()}
+    res["logit_err"], res["agreement"] = err, agreement
+    del ff
+    torch.cuda.empty_cache()
+    return res
 
 
 # ------------------------------------------- flash attention (B1-B4) phase
@@ -678,11 +1016,14 @@ def fa_kernel_phase(device, card: str):
 
 # ------------------------------------------------------------ training phase
 def train_model(kind: str, compute: str, device, seq: int = 512,
-                batch: int = 8):
+                batch: int = 8, softmax_kernel: bool = False):
     """A model the port trains, as a user builds it: the BERT-Large proxy
     (``bench.py``'s flagship config) or GPT-2 small with a softmax head and
     token-level labels; Adam, sparse categorical cross-entropy; random
-    weights from the seed. ``--profiling`` records each step's wall."""
+    weights from the seed. ``softmax_kernel``: GPT-2 small at vocab 50304
+    with the head's softmax opted into the row-softmax kernel
+    (``ff.softmax(logits, use_pallas=True)``). ``--profiling`` records
+    each step's wall."""
     from flexflow_tpu_torch import (AdamOptimizer, DataType, FFConfig,
                                     FFModel, LossType, MetricsType)
     from flexflow_tpu_torch.models.bert import BertConfig, build_bert
@@ -701,8 +1042,10 @@ def train_model(kind: str, compute: str, device, seq: int = 512,
         metrics = [MetricsType.METRICS_ACCURACY]
     else:
         cfg = GPT2Config(batch_size=batch, seq_len=seq)
+        if softmax_kernel:
+            cfg.vocab_size = VOCAB_PADDED
         _ids, logits = build_gpt2(ff, cfg)
-        ff.softmax(logits)
+        ff.softmax(logits, use_pallas=softmax_kernel)
     ff.compile(optimizer=AdamOptimizer(ff, alpha=1e-4),
                loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
                metrics=metrics)
@@ -731,29 +1074,37 @@ def set_flash(ff, on: bool) -> None:
             node.op.attrs["use_flash"] = "auto" if on else False
 
 
-def grad_check(ff, x, y, layers: int):
-    """One step's loss and grads with attention through the kernels
-    against the same step through the einsum core (``use_flash=False``).
-    Returns (|loss diff|, relative grad-norm error, max per-tensor relative
-    norm error)."""
-    import torch
+def set_softmax_kernel(ff, on: bool) -> None:
+    from flexflow_tpu_torch import OperatorType
 
-    from flexflow_tpu_torch.kernels import flash_attention as fa
+    for node in ff.pcg.compute_nodes():
+        if node.op.op_type == OperatorType.OP_SOFTMAX:
+            node.op.attrs["use_pallas"] = on
+
+
+def grad_check(ff, x, y, route, counter, want: dict):
+    """One step's loss and grads with the kernels under test against the
+    same step with ``route(ff, False)``: attention through the einsum core
+    (``set_flash``) or the head's softmax through ``torch.softmax``
+    (``set_softmax_kernel``). The kernel step must launch ``want``
+    ({kernel: count} of the ``counter`` module). Returns (|loss diff|,
+    relative grad-norm error, max per-tensor relative norm error)."""
+    import torch
 
     ex, dev = ff.executor, ff.device
     xs = [torch.from_numpy(x).to(dev)]
     lab = torch.from_numpy(ff._prep_label(y)).to(dev)
-    fa.reset_launch_count()
+    counter.reset_launch_count()
     lk, _, gk = ex.loss_and_grads(ff.params, xs, lab)
     torch.cuda.synchronize()
-    if fa.launch_count("flash_fwd") != layers:
-        fail(f"grad check: {fa.launch_count('flash_fwd')} flash forward "
-             f"launches, want {layers}")
-    set_flash(ff, False)
+    got = {n: counter.launch_count(n) for n in want}
+    if got != want:
+        fail(f"grad check: launches {got}, want {want}")
+    route(ff, False)
     try:
         lc, _, gc = ex.loss_and_grads(ff.params, xs, lab)
     finally:
-        set_flash(ff, True)
+        route(ff, True)
     num = den = 0.0
     worst = 0.0
     for n, ws in gc.items():
@@ -770,45 +1121,62 @@ def grad_check(ff, x, y, layers: int):
 # order only; in bf16 the flash path rounds the unnormalised probabilities
 # and the core the normalised ones, before the PV product, in every layer
 TRAIN_TOL = {"fp32": (1e-4, 1e-4), "bf16": (2e-2, 5e-2)}
+# the softmax kernel vs torch.softmax over one whole fp32 step: both
+# compute in fp32 and differ in summation order only
+SOFTMAX_STEP_TOL = (1e-5, 1e-4)
 
 
 def train_phase(device, card: str, kind: str, compute: str, steps: int,
                 warmup: int, profile: bool = False, seq: int = 512,
-                batch: int = 8, check_grads: bool = True):
+                batch: int = 8, check_grads: bool = True,
+                softmax_kernel: bool = False):
     import torch
 
     from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.kernels import softmax as sm
     from flexflow_tpu_torch.models.bert import bert_train_flops_per_step
     from flexflow_tpu_torch.models.gpt2 import gpt2_train_flops_per_step
 
-    label = f"{kind}{'' if seq == 512 else f'-seq{seq}'} {compute}"
+    label = (f"{kind}{'' if seq == 512 else f'-seq{seq}'}"
+             f"{'-softmax-kernel' if softmax_kernel else ''} {compute}")
     t = time.perf_counter()
-    ff, cfg = train_model(kind, compute, device, seq=seq, batch=batch)
+    ff, cfg = train_model(kind, compute, device, seq=seq, batch=batch,
+                          softmax_kernel=softmax_kernel)
     layers = cfg.num_layers
     x, y = train_data(kind, cfg, batch * (warmup + steps))
     log(f"train {label}: hidden {cfg.hidden} heads {cfg.num_heads} layers "
-        f"{layers} seq {cfg.seq_len} batch {batch} built in "
+        f"{layers} seq {cfg.seq_len} batch {batch}"
+        f"{f' vocab {cfg.vocab_size}' if kind == 'gpt2' else ''} built in "
         f"{time.perf_counter() - t:.1f} s")
     if check_grads:
         # at the initial weights, before the softmax head saturates
-        dl, grel, worst = grad_check(ff, x[:batch], y[:batch], layers)
-        ltol, gtol = TRAIN_TOL[compute]
-        log(f"train {label}: one step with the flash kernels vs the einsum "
-            f"core: |loss diff| {dl:.3g} (tol {ltol}), grad relative norm "
-            f"error {grel:.3g} (tol {gtol}), worst tensor {worst:.3g} "
-            f"[{card}]")
+        if softmax_kernel:
+            what = "the softmax kernel vs torch.softmax"
+            check = (set_softmax_kernel, sm,
+                     {"softmax_fwd": 1, "softmax_bwd": 1})
+            ltol, gtol = SOFTMAX_STEP_TOL
+        else:
+            what = "the flash kernels vs the einsum core"
+            check = (set_flash, fa, {"flash_fwd": layers})
+            ltol, gtol = TRAIN_TOL[compute]
+        dl, grel, worst = grad_check(ff, x[:batch], y[:batch], *check)
+        log(f"train {label}: one step with {what}: |loss diff| {dl:.3g} "
+            f"(tol {ltol}), grad relative norm error {grel:.3g} (tol "
+            f"{gtol}), worst tensor {worst:.3g} [{card}]")
         if not (dl <= ltol and grel <= gtol):
-            fail(f"train {label}: kernels and einsum core disagree")
-        # the einsum core's score tensors leave the allocator's cache in
-        # another shape than the flash steps want
+            fail(f"train {label}: {what} disagree")
+        # the reference step's tensors leave the allocator's cache in
+        # another shape than the kernel steps want
         torch.cuda.empty_cache()
     if warmup:
         ff.fit(x[:batch * warmup], y[:batch * warmup], epochs=1)
         torch.cuda.synchronize()
     fa.reset_launch_count()
+    sm.reset_launch_count()
     perf = ff.fit(x[batch * warmup:], y[batch * warmup:], epochs=1)
     torch.cuda.synchronize()
     counts = {n: fa.launch_count(n) for n in fa.KERNELS}
+    counts.update((n, sm.launch_count(n)) for n in sm.KERNELS)
     losses = ff.fit_history.loss
     if len(losses) != steps or not all(np.isfinite(losses)):
         fail(f"train {label}: losses {losses}")
@@ -819,9 +1187,11 @@ def train_phase(device, card: str, kind: str, compute: str, steps: int,
     want = {"flash_fwd": layers * steps,
             "flash_bwd_fused": 0 if two_pass else layers * steps,
             "flash_bwd_dkv": layers * steps if two_pass else 0,
-            "flash_bwd_dq": layers * steps if two_pass else 0}
+            "flash_bwd_dq": layers * steps if two_pass else 0,
+            "softmax_fwd": steps if softmax_kernel else 0,
+            "softmax_bwd": steps if softmax_kernel else 0}
     if counts != want:
-        fail(f"train {label}: flash launches {counts}, want {want} "
+        fail(f"train {label}: kernel launches {counts}, want {want} "
              f"({layers} layers x {steps} steps)")
     p50 = float(np.median(ff.fit_history.step_s))
     flops = (bert_train_flops_per_step(cfg) if kind == "bert"
@@ -829,7 +1199,7 @@ def train_phase(device, card: str, kind: str, compute: str, steps: int,
     log(f"train {label}: {steps} steps after {warmup} warm-up, losses "
         f"{[round(v, 4) for v in losses]}, p50 step {p50 * 1e3:.1f} ms, "
         f"{batch / p50:.2f} samples/s, {flops / p50 / 1e12:.1f} TFLOP/s "
-        f"= MFU {flops / p50 / BF16_FLOPS:.4f} of 989 TF/s; flash launches "
+        f"= MFU {flops / p50 / BF16_FLOPS:.4f} of 989 TF/s; kernel launches "
         f"per step {({n: c // steps for n, c in counts.items() if c})} "
         f"[{card}]")
     res = dict(counts=counts, p50_ms=p50 * 1e3, losses=losses)
@@ -919,14 +1289,20 @@ def main() -> None:
     profile = "--profile" in sys.argv[1:]
     build_phase()
     kern = kernel_phase(device, card)
+    kern_int8 = kernel_phase(device, card, int8=True)
+    topk_kern = topk_kernel_phase(device, card)
+    sm_kern = softmax_kernel_phase(device, card)
     cfg = GPT2Config.small()
-    e2e = {}
+    prompt_set = dict(lengths=(200, 96, 150, 32, 120, 180, 72, 48),
+                      shared_len=64, n_shared=3, new_tokens=E2E_NEW_TOKENS,
+                      max_len=E2E_MAX_DECODE_LEN)
+    e2e, int8 = {}, {}
     for compute in ("fp32", "bf16"):
-        e2e[compute] = e2e_phase(
-            device, card, cfg, compute,
-            lengths=(200, 96, 150, 32, 120, 180, 72, 48),
-            shared_len=64, n_shared=3, new_tokens=E2E_NEW_TOKENS,
-            max_len=E2E_MAX_DECODE_LEN, profile=profile)
+        e2e[compute] = e2e_phase(device, card, cfg, compute, **prompt_set,
+                                 profile=profile)
+    for compute in ("fp32", "bf16"):
+        int8[compute] = int8_serving_phase(device, card, compute,
+                                           **prompt_set, profile=profile)
     fa_kern = fa_kernel_phase(device, card)
     train = {
         "bert": train_phase(device, card, "bert", "bf16", steps=6, warmup=2,
@@ -934,6 +1310,8 @@ def main() -> None:
         "gpt2": train_phase(device, card, "gpt2", "fp32", steps=3, warmup=1),
         "long": train_phase(device, card, "gpt2", "fp32", steps=2, warmup=0,
                             seq=LONG_SEQ, batch=1, check_grads=False),
+        "softmax": train_phase(device, card, "gpt2", "fp32", steps=3,
+                               warmup=1, softmax_kernel=True),
     }
 
     kernels = []
@@ -965,6 +1343,37 @@ def main() -> None:
             "replaces": FA_KERNELS[kernel][0],
             "launches": sum(train[p]["counts"][kernel] for p in paths),
             **fa_kern[(kernel, shape, dname)],
+        })
+    for compute, name in (("fp32", "flash_decode_int8"),
+                          ("bf16", "flash_decode_int8_bf16")):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "flexflow_tpu_torch/kernels/csrc/flash_decode.cu",
+            "replaces": "flexflow_tpu/kernels/flash_decode.py:78",
+            "launches": sum(int8[compute][r]["counts"]["flash_decode_int8"]
+                            for r in ("greedy", "top8", "top1")),
+            **kern_int8[compute],
+        })
+    # the sampler's top-k: k = 8 in the top_k 8 runs, k = 1 in the top_k 1
+    # runs, of both compute dtypes
+    for k, name, run in ((8, "topk", "top8"), (1, "topk_k1", "top1")):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "flexflow_tpu_torch/kernels/csrc/topk.cu",
+            "replaces": "flexflow_tpu/kernels/topk.py:34",
+            "launches": sum(int8[c][run]["counts"]["topk"] for c in int8),
+            **topk_kern[k],
+        })
+    for kernel, line in (("softmax_fwd", 29), ("softmax_bwd", 38)):
+        kernels.append({
+            "name": kernel,
+            "route": "cuda",
+            "source": "flexflow_tpu_torch/kernels/csrc/softmax.cu",
+            "replaces": f"flexflow_tpu/kernels/softmax.py:{line}",
+            "launches": train["softmax"]["counts"][kernel],
+            **sm_kern[(kernel, "fp32")],
         })
     log(json.dumps({"kernels": kernels}))
     log(card)

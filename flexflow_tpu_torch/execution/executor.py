@@ -352,7 +352,7 @@ class Executor:
         return prefill
 
     def make_chunk_prefill_step(self, chunk_len: int, max_decode_len: int,
-                                block_size: int):
+                                block_size: int, kv_dtype: str = "native"):
         """``(params, xs, state, table_row, start, n_new) ->
         (last_logits, state)``: one prefill chunk of ``chunk_len`` token
         slots of a SINGLE request against the paged pool. ``xs`` carries
@@ -360,8 +360,10 @@ class Executor:
         ``table_row`` the slot's (mb,) block-table row, ``start`` the
         chunk's first position. The chunk's k/v rows are written into the
         pool in place; lengths and the block tables are untouched (the
-        engine arms the slot only when its whole prompt is in)."""
-        key = ("chunk", int(chunk_len), int(max_decode_len), int(block_size))
+        engine arms the slot only when its whole prompt is in).
+        ``kv_dtype`` is the pool's layout ("native" or "int8")."""
+        key = ("chunk", int(chunk_len), int(max_decode_len), int(block_size),
+               str(kv_dtype))
         fn = self._serving_fns.get(key)
         if fn is not None:
             return fn
@@ -382,7 +384,8 @@ class Executor:
                                   positions=start_t, lengths=n_t,
                                   cache_in=state.caches,
                                   block_tables=table_row[None, :],
-                                  block_size=int(block_size))
+                                  block_size=int(block_size),
+                                  kv_dtype=str(kv_dtype))
                 ctx = OpContext(training=False, device=self.device,
                                 serving=sv)
                 # pad rows past the last real token would index past the
@@ -403,13 +406,15 @@ class Executor:
         return chunk
 
     def make_decode_step(self, max_decode_len: int, exact: bool = False,
-                         block_size: int = 0):
+                         block_size: int = 0, kv_dtype: str = "native"):
         """``(params, xs, state) -> (logits, state)``: ONE token per slot
         through the graph, writing each slot's k/v at its ``lengths``
         cursor into the paged pool and advancing the cursors — all in
         place. ``exact=True`` reads attention through the plain gather
-        path instead of the flash-decode kernel."""
-        key = ("decode", int(max_decode_len), bool(exact), int(block_size))
+        path instead of the flash-decode kernel. ``kv_dtype`` is the pool's
+        layout ("native" or "int8")."""
+        key = ("decode", int(max_decode_len), bool(exact), int(block_size),
+               str(kv_dtype))
         fn = self._serving_fns.get(key)
         if fn is not None:
             return fn
@@ -426,7 +431,8 @@ class Executor:
                                   positions=state.lengths,
                                   cache_in=state.caches, exact=exact,
                                   block_tables=state.block_tables,
-                                  block_size=int(block_size))
+                                  block_size=int(block_size),
+                                  kv_dtype=str(kv_dtype))
                 ctx = OpContext(training=False, device=self.device,
                                 serving=sv)
                 values = self.forward_outputs(

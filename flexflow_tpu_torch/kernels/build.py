@@ -26,6 +26,8 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES: Dict[str, str] = {
     "flash_decode": "flash_decode.cu",
     "flash_attention": "flash_attention.cu",
+    "softmax": "softmax.cu",
+    "topk": "topk.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",

@@ -35,6 +35,18 @@
 //     the warps once through shared memory at the end — the in-CTA
 //     equivalent of the TPU kernel's sequential (m, l, acc) scratch, since
 //     CUDA blocks cannot carry state from one grid step to the next.
+//
+// int8 KV (ff_flash_decode_int8) replaces the same kernel's int8 branch
+// (flash_decode.py:78-80): pools hold int8 rows and f32 per-(token, head)
+// scales in (n_blocks, heads, block_size) arrays laid out like the pools'
+// rows, so a key's scale sits at the same row index as its K/V row. Each
+// lane loads its int8 elements (2 bytes a lane at head_dim 64: one 64-byte
+// row per warp) and the row's scale, and dequantizes in registers
+// (float(k) * scale, the TPU kernel's order) before the same fp32 math. q
+// and the output keep the model dtype. Bound: bytes again, now kd + vd
+// bytes plus 8 bytes of scales per key and head, about a quarter of the
+// fp32 pool's traffic.
+//
 // Not done yet (later work): split-K across CTAs for long contexts with few
 // slots (at 8 x 12 CTAs a third of the SMs idle), TMA/cp.async staging.
 
@@ -43,6 +55,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
@@ -54,6 +67,9 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 __device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+__device__ __forceinline__ float to_f32(int8_t x) {
+  return static_cast<float>(x);
+}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -68,6 +84,10 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 template <>
 __device__ __forceinline__ __half from_f32<__half>(float x) {
   return __float2half(x);
+}
+template <>
+__device__ __forceinline__ int8_t from_f32<int8_t>(float x) {
+  return static_cast<int8_t>(x);
 }
 
 template <typename T, int N>
@@ -118,14 +138,20 @@ __device__ __forceinline__ float warp_sum(float v) {
 // pay registers for the widest one. kWarps: warps per CTA, as many as
 // kPerLane's registers allow under the 64K-register file. kVec: vector
 // loads (see load_row).
-template <typename T, int kPerLane, int kWarps, bool kVec>
+// T: q and output dtype. TKV: pool dtype — T itself, or int8_t with the
+// f32 scale arrays kscale/vscale (null for a native pool).
+template <typename T, typename TKV, int kPerLane, int kWarps, bool kVec>
 __global__ void __launch_bounds__(kWarps * 32)
-    flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
-                        const T* __restrict__ vpool,
+    flash_decode_kernel(const T* __restrict__ q,
+                        const TKV* __restrict__ kpool,
+                        const TKV* __restrict__ vpool,
+                        const float* __restrict__ kscale,
+                        const float* __restrict__ vscale,
                         const int* __restrict__ tables,
                         const int* __restrict__ n_keys, T* __restrict__ out,
                         int heads, int hd, int vd, int bs, int mb,
                         float scale) {
+  constexpr bool kInt8 = sizeof(TKV) == 1;
   const int h = blockIdx.x;
   const int s = blockIdx.y;
   const int lane = threadIdx.x & 31;
@@ -163,8 +189,19 @@ __global__ void __launch_bounds__(kWarps * 32)
       const bool live = j < n;
       const int blk = live ? trow[j / bs] : 0;
       const size_t row = ((size_t)blk * heads + h) * bs + (live ? j % bs : 0);
-      load_row<T, kPerLane, kVec>(kpool + row * hd, hd, lane, live, kv[t]);
-      load_row<T, kPerLane, kVec>(vpool + row * vd, vd, lane, live, vv[t]);
+      load_row<TKV, kPerLane, kVec>(kpool + row * hd, hd, lane, live, kv[t]);
+      load_row<TKV, kPerLane, kVec>(vpool + row * vd, vd, lane, live, vv[t]);
+      if constexpr (kInt8) {
+        // every lane reads the row's scale (one broadcast load); dead keys
+        // are zeros already and keep them
+        const float ks = live ? kscale[row] : 0.f;
+        const float vs = live ? vscale[row] : 0.f;
+#pragma unroll
+        for (int i = 0; i < kPerLane; ++i) {
+          kv[t][i] *= ks;
+          vv[t][i] *= vs;
+        }
+      }
     }
     float sc[kTile];
 #pragma unroll
@@ -229,77 +266,124 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-template <typename T, int kPerLane, int kWarps>
-void launch_width(const T* q, const T* kpool, const T* vpool,
-                  const int* tables, const int* n_keys, T* out, int n_slots,
-                  int heads, int hd, int vd, int bs, int mb, float scale,
-                  cudaStream_t stream) {
+template <typename T, typename TKV, int kPerLane, int kWarps>
+void launch_width(const T* q, const TKV* kpool, const TKV* vpool,
+                  const float* kscale, const float* vscale, const int* tables,
+                  const int* n_keys, T* out, int n_slots, int heads, int hd,
+                  int vd, int bs, int mb, float scale, cudaStream_t stream) {
   const dim3 grid(heads, n_slots);
-  const size_t vec_bytes = sizeof(T) * kPerLane;
+  // each lane loads kPerLane contiguous elements as one vector when the
+  // dims divide and every base pointer is aligned to its vector
   const bool vec = hd % kPerLane == 0 && vd % kPerLane == 0 &&
-                   reinterpret_cast<size_t>(q) % vec_bytes == 0 &&
-                   reinterpret_cast<size_t>(kpool) % vec_bytes == 0 &&
-                   reinterpret_cast<size_t>(vpool) % vec_bytes == 0;
+                   reinterpret_cast<size_t>(q) % (sizeof(T) * kPerLane) == 0 &&
+                   reinterpret_cast<size_t>(kpool) %
+                           (sizeof(TKV) * kPerLane) == 0 &&
+                   reinterpret_cast<size_t>(vpool) %
+                           (sizeof(TKV) * kPerLane) == 0;
   if (vec) {
-    flash_decode_kernel<T, kPerLane, kWarps, true>
-        <<<grid, kWarps * 32, 0, stream>>>(q, kpool, vpool, tables, n_keys,
-                                           out, heads, hd, vd, bs, mb, scale);
+    flash_decode_kernel<T, TKV, kPerLane, kWarps, true>
+        <<<grid, kWarps * 32, 0, stream>>>(q, kpool, vpool, kscale, vscale,
+                                           tables, n_keys, out, heads, hd, vd,
+                                           bs, mb, scale);
   } else {
-    flash_decode_kernel<T, kPerLane, kWarps, false>
-        <<<grid, kWarps * 32, 0, stream>>>(q, kpool, vpool, tables, n_keys,
-                                           out, heads, hd, vd, bs, mb, scale);
+    flash_decode_kernel<T, TKV, kPerLane, kWarps, false>
+        <<<grid, kWarps * 32, 0, stream>>>(q, kpool, vpool, kscale, vscale,
+                                           tables, n_keys, out, heads, hd, vd,
+                                           bs, mb, scale);
   }
 }
 
-template <typename T>
+template <typename T, typename TKV>
 int launch(const void* q, const void* kpool, const void* vpool,
-           const void* tables, const void* n_keys, void* out, int n_slots,
-           int heads, int hd, int vd, int bs, int mb, float scale,
-           cudaStream_t stream) {
+           const void* kscale, const void* vscale, const void* tables,
+           const void* n_keys, void* out, int n_slots, int heads, int hd,
+           int vd, int bs, int mb, float scale, cudaStream_t stream) {
   const int widest = hd > vd ? hd : vd;
   const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(kpool);
-  const T* vt = static_cast<const T*>(vpool);
+  const TKV* kt = static_cast<const TKV*>(kpool);
+  const TKV* vt = static_cast<const TKV*>(vpool);
+  const float* kst = static_cast<const float*>(kscale);
+  const float* vst = static_cast<const float*>(vscale);
   const int* tt = static_cast<const int*>(tables);
   const int* nt = static_cast<const int*>(n_keys);
   T* ot = static_cast<T*>(out);
   if (widest <= 64) {
-    launch_width<T, 2, 32>(qt, kt, vt, tt, nt, ot, n_slots, heads, hd, vd,
-                           bs, mb, scale, stream);
+    launch_width<T, TKV, 2, 32>(qt, kt, vt, kst, vst, tt, nt, ot, n_slots,
+                                heads, hd, vd, bs, mb, scale, stream);
   } else if (widest <= 128) {
-    launch_width<T, 4, 16>(qt, kt, vt, tt, nt, ot, n_slots, heads, hd, vd,
-                           bs, mb, scale, stream);
+    launch_width<T, TKV, 4, 16>(qt, kt, vt, kst, vst, tt, nt, ot, n_slots,
+                                heads, hd, vd, bs, mb, scale, stream);
   } else {
-    launch_width<T, 8, 8>(qt, kt, vt, tt, nt, ot, n_slots, heads, hd, vd,
-                          bs, mb, scale, stream);
+    launch_width<T, TKV, 8, 8>(qt, kt, vt, kst, vst, tt, nt, ot, n_slots,
+                               heads, hd, vd, bs, mb, scale, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+bool bad_shape(int n_slots, int heads, int hd, int vd, int bs, int mb) {
+  return n_slots < 1 || n_slots > 65535 || heads < 1 || hd < 1 ||
+         hd > kMaxDim || vd < 1 || vd > kMaxDim || bs < 1 || mb < 1;
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16. Returns a cudaError_t code
-// (0 on success); the launch is asynchronous on `stream`.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, pools and output).
+// Returns a cudaError_t code (0 on success); the launch is asynchronous on
+// `stream`.
 extern "C" int ff_flash_decode(const void* q, const void* kpool,
                                const void* vpool, const void* tables,
                                const void* n_keys, void* out, int n_slots,
                                int heads, int hd, int vd, int bs, int mb,
                                float scale, int dtype, void* stream) {
-  if (n_slots < 1 || n_slots > 65535 || heads < 1 || hd < 1 ||
-      hd > kMaxDim || vd < 1 || vd > kMaxDim || bs < 1 || mb < 1) {
+  if (bad_shape(n_slots, heads, hd, vd, bs, mb)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch<float>(q, kpool, vpool, tables, n_keys, out, n_slots,
-                           heads, hd, vd, bs, mb, scale, st);
+      return launch<float, float>(q, kpool, vpool, nullptr, nullptr, tables,
+                                  n_keys, out, n_slots, heads, hd, vd, bs,
+                                  mb, scale, st);
     case 1:
-      return launch<__nv_bfloat16>(q, kpool, vpool, tables, n_keys, out,
-                                   n_slots, heads, hd, vd, bs, mb, scale, st);
+      return launch<__nv_bfloat16, __nv_bfloat16>(
+          q, kpool, vpool, nullptr, nullptr, tables, n_keys, out, n_slots,
+          heads, hd, vd, bs, mb, scale, st);
     case 2:
-      return launch<__half>(q, kpool, vpool, tables, n_keys, out, n_slots,
-                            heads, hd, vd, bs, mb, scale, st);
+      return launch<__half, __half>(q, kpool, vpool, nullptr, nullptr,
+                                    tables, n_keys, out, n_slots, heads, hd,
+                                    vd, bs, mb, scale, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// int8 pools with f32 scales (n_blocks, heads, bs); dtype is q's and the
+// output's (0 = float32, 1 = bfloat16, 2 = float16).
+extern "C" int ff_flash_decode_int8(const void* q, const void* kpool,
+                                    const void* vpool, const void* kscale,
+                                    const void* vscale, const void* tables,
+                                    const void* n_keys, void* out,
+                                    int n_slots, int heads, int hd, int vd,
+                                    int bs, int mb, float scale, int dtype,
+                                    void* stream) {
+  if (bad_shape(n_slots, heads, hd, vd, bs, mb) || kscale == nullptr ||
+      vscale == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return launch<float, int8_t>(q, kpool, vpool, kscale, vscale, tables,
+                                   n_keys, out, n_slots, heads, hd, vd, bs,
+                                   mb, scale, st);
+    case 1:
+      return launch<__nv_bfloat16, int8_t>(q, kpool, vpool, kscale, vscale,
+                                           tables, n_keys, out, n_slots,
+                                           heads, hd, vd, bs, mb, scale, st);
+    case 2:
+      return launch<__half, int8_t>(q, kpool, vpool, kscale, vscale, tables,
+                                    n_keys, out, n_slots, heads, hd, vd, bs,
+                                    mb, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

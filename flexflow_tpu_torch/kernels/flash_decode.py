@@ -2,9 +2,11 @@
 attention read over the paged KV pool.
 
 Port of ``flexflow_tpu/kernels/flash_decode.py`` (the Pallas split-K
-``_decode_kernel``). The CUDA kernel is ``csrc/flash_decode.cu``; its
-header says what bounds it (bytes: the used K/V rows) and how the design
-follows from that. Beside it:
+``_decode_kernel``, both branches: native-dtype pools, and int8 pools with
+f32 per-(token, head) scales). The CUDA kernel is ``csrc/flash_decode.cu``
+(``ff_flash_decode``, ``ff_flash_decode_int8``); its header says what
+bounds it (bytes: the used K/V rows) and how the design follows from that.
+Beside it:
 
 * :func:`flash_decode_plain` — the same function in plain PyTorch, walking
   the same per-block online-softmax loop (the TPU kernel's grid order,
@@ -12,8 +14,9 @@ follows from that. Beside it:
   only the reference the kernel is held against.
 * :func:`flash_decode` — the wrapper. A CPU tensor goes to the plain
   version; a CUDA tensor launches the kernel or raises. It never falls back.
-* :func:`launch_count` — kernel launches since the last
-  :func:`reset_launch_count`, so a run can show it went through the kernel.
+* :func:`launch_count` — launches of each branch (``"flash_decode"``,
+  ``"flash_decode_int8"``) since the last :func:`reset_launch_count`, so a
+  run can show it went through the kernel.
 """
 from __future__ import annotations
 
@@ -23,17 +26,19 @@ from typing import Optional
 
 NEG_INF = -1e30
 
-_launches = 0
+KERNELS = ("flash_decode", "flash_decode_int8")
+_launches = dict.fromkeys(KERNELS, 0)
 
 
-def launch_count() -> int:
-    """CUDA launches of the flash-decode kernel since the last reset."""
-    return _launches
+def launch_count(kernel: str = "flash_decode") -> int:
+    """CUDA launches of one branch of the kernel (native pools by default,
+    ``"flash_decode_int8"`` for int8 pools) since the last reset."""
+    return _launches[kernel]
 
 
 def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+    for name in KERNELS:
+        _launches[name] = 0
 
 
 def _scale(head_dim: int, sm_scale: Optional[float]) -> float:
@@ -41,11 +46,14 @@ def _scale(head_dim: int, sm_scale: Optional[float]) -> float:
 
 
 def flash_decode_plain(q, kpool, vpool, block_tables, n_keys, *,
-                       sm_scale: Optional[float] = None):
+                       sm_scale: Optional[float] = None, kscale=None,
+                       vscale=None):
     """Plain-PyTorch flash decode, step for step the TPU kernel's loop.
 
     q            (n_slots, heads, head_dim), any float dtype
-    kpool/vpool  (n_blocks, heads, block_size, kd|vd)
+    kpool/vpool  (n_blocks, heads, block_size, kd|vd) — a float dtype, or
+                 int8 with ``kscale``/``vscale`` (n_blocks, heads,
+                 block_size) f32 per-(token, head) scales
     block_tables (n_slots, max_blocks_per_slot) int
     n_keys       (n_slots,) int — keys each slot attends (position + 1)
 
@@ -53,11 +61,13 @@ def flash_decode_plain(q, kpool, vpool, block_tables, n_keys, *,
     ``tables[s, min(j, used - 1)]`` (steps past the last used block clamp to
     it), keys at global position >= n_keys are masked, and (m, l, acc)
     follow the online-softmax recurrence in fp32; a slot only updates on
-    steps that hold at least one of its keys. Returns
+    steps that hold at least one of its keys. An int8 block is dequantized
+    in fp32 (``k.float() * scale``) as the TPU kernel does. Returns
     (n_slots, heads, vd) in q's dtype; a slot with no keys gets zeros.
     """
     import torch
 
+    int8 = _check_scales(kpool, kscale, vscale)
     n_slots, heads, head_dim = q.shape
     block_size = kpool.shape[2]
     vd = vpool.shape[-1]
@@ -77,6 +87,9 @@ def flash_decode_plain(q, kpool, vpool, block_tables, n_keys, *,
         blk = tables[rows, jj]
         k = kpool[blk].float()                       # (S, h, bs, kd)
         v = vpool[blk].float()                       # (S, h, bs, vd)
+        if int8:
+            k = k * kscale[blk][..., None]
+            v = v * vscale[blk][..., None]
         s = torch.einsum("shd,shkd->shk", qf, k)
         live = (j * block_size + offs)[None, :] < nk[:, None]   # (S, bs)
         s = torch.where(live[:, None, :], s, torch.full_like(s, NEG_INF))
@@ -93,6 +106,19 @@ def flash_decode_plain(q, kpool, vpool, block_tables, n_keys, *,
     return out.to(q.dtype)
 
 
+def _check_scales(kpool, kscale, vscale) -> bool:
+    """True for an int8 pool (which needs both scale arrays)."""
+    import torch
+
+    if kpool.dtype == torch.int8:
+        if kscale is None or vscale is None:
+            raise ValueError("flash_decode: int8 pools need kscale/vscale")
+        return True
+    if kscale is not None or vscale is not None:
+        raise ValueError("flash_decode: scales are for int8 pools only")
+    return False
+
+
 def _dtype_code(dtype) -> int:
     import torch
 
@@ -107,15 +133,18 @@ def _library():
     from .build import load
 
     lib = load("flash_decode")
-    fn = lib.ff_flash_decode
-    if fn.restype is not ctypes.c_int or fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+    if lib.ff_flash_decode.argtypes is None:
+        tail = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
+                                     ctypes.c_void_p]
+        lib.ff_flash_decode.argtypes = [ctypes.c_void_p] * 6 + tail
+        lib.ff_flash_decode_int8.argtypes = [ctypes.c_void_p] * 8 + tail
+        for fn in (lib.ff_flash_decode, lib.ff_flash_decode_int8):
+            fn.restype = ctypes.c_int
     return lib
 
 
-def _check_cuda_inputs(q, kpool, vpool, block_tables, n_keys) -> None:
+def _check_cuda_inputs(q, kpool, vpool, block_tables, n_keys, kscale=None,
+                       vscale=None) -> None:
     import torch
 
     if q.dim() != 3 or kpool.dim() != 4 or vpool.dim() != 4:
@@ -138,11 +167,26 @@ def _check_cuda_inputs(q, kpool, vpool, block_tables, n_keys) -> None:
                          "n_keys (S,)")
     if block_tables.dtype != torch.int32 or n_keys.dtype != torch.int32:
         raise TypeError("flash_decode: block_tables and n_keys must be int32")
-    if not (kpool.dtype == vpool.dtype == q.dtype):
+    _dtype_code(q.dtype)
+    scales = []
+    if kscale is not None:
+        if kpool.dtype != torch.int8 or vpool.dtype != torch.int8:
+            raise TypeError(f"flash_decode: int8 pools take both K and V as "
+                            f"int8, got {kpool.dtype}/{vpool.dtype}")
+        for t in (kscale, vscale):
+            if t.dtype != torch.float32 or tuple(t.shape) != tuple(
+                    kpool.shape[:3]):
+                raise TypeError(
+                    f"flash_decode: scales must be float32 "
+                    f"{tuple(kpool.shape[:3])}, got {t.dtype} "
+                    f"{tuple(t.shape)}")
+        scales = [("kscale", kscale), ("vscale", vscale)]
+    elif not (kpool.dtype == vpool.dtype == q.dtype):
         raise TypeError(f"flash_decode: q {q.dtype} and pools {kpool.dtype}/"
                         f"{vpool.dtype} must share one dtype")
     for name, t in (("q", q), ("kpool", kpool), ("vpool", vpool),
-                    ("block_tables", block_tables), ("n_keys", n_keys)):
+                    ("block_tables", block_tables), ("n_keys", n_keys),
+                    *scales):
         if t.device != q.device:
             raise ValueError(f"flash_decode: {name} is on {t.device}, "
                              f"q on {q.device}")
@@ -151,22 +195,26 @@ def _check_cuda_inputs(q, kpool, vpool, block_tables, n_keys) -> None:
 
 
 def flash_decode(q, kpool, vpool, block_tables, n_keys, *,
-                 sm_scale: Optional[float] = None):
+                 sm_scale: Optional[float] = None, kscale=None, vscale=None):
     """Single-token paged attention: ``(n_slots, heads, vd)`` in q's dtype.
 
-    Shapes as in :func:`flash_decode_plain`. On CUDA tensors this launches
-    ``csrc/flash_decode.cu`` (fp32, bf16 or fp16; q and pools of one dtype;
-    head dims <= 256; int32 tables and counts; contiguous) and raises on
-    anything else; CPU tensors take :func:`flash_decode_plain`."""
-    global _launches
+    Shapes as in :func:`flash_decode_plain` (the JAX package's signature).
+    On CUDA tensors this launches ``csrc/flash_decode.cu`` and raises on
+    what it does not take: q in fp32, bf16 or fp16; pools of q's dtype, or
+    int8 with f32 ``kscale``/``vscale``; head dims <= 256; int32 tables
+    and counts; everything contiguous. An int8 pool without scales raises.
+    CPU tensors take :func:`flash_decode_plain`."""
     import torch
 
+    int8 = _check_scales(kpool, kscale, vscale)
     if q.device.type == "cpu":
         return flash_decode_plain(q, kpool, vpool, block_tables, n_keys,
-                                  sm_scale=sm_scale)
+                                  sm_scale=sm_scale, kscale=kscale,
+                                  vscale=vscale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode: no kernel for device {q.device}")
-    _check_cuda_inputs(q, kpool, vpool, block_tables, n_keys)
+    _check_cuda_inputs(q, kpool, vpool, block_tables, n_keys, kscale,
+                       vscale)
     from .build import check
 
     lib = _library()
@@ -174,11 +222,13 @@ def flash_decode(q, kpool, vpool, block_tables, n_keys, *,
     vd = vpool.shape[3]
     out = torch.empty((n_slots, heads, vd), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    code = lib.ff_flash_decode(
-        q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
-        block_tables.data_ptr(), n_keys.data_ptr(), out.data_ptr(),
-        n_slots, heads, hd, vd, kpool.shape[2], block_tables.shape[1],
-        _scale(hd, sm_scale), _dtype_code(q.dtype), stream)
-    check(lib, code, "flash_decode launch")
-    _launches += 1
+    scales = [kscale.data_ptr(), vscale.data_ptr()] if int8 else []
+    fn = lib.ff_flash_decode_int8 if int8 else lib.ff_flash_decode
+    code = fn(q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(), *scales,
+              block_tables.data_ptr(), n_keys.data_ptr(), out.data_ptr(),
+              n_slots, heads, hd, vd, kpool.shape[2], block_tables.shape[1],
+              _scale(hd, sm_scale), _dtype_code(q.dtype), stream)
+    name = "flash_decode_int8" if int8 else "flash_decode"
+    check(lib, code, f"{name} launch")
+    _launches[name] += 1
     return out

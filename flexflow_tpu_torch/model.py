@@ -178,8 +178,9 @@ class FFModel:
 
     def softmax(self, x, axis: int = -1, name=None,
                 use_pallas: bool = False):
-        """``use_pallas`` asks for the row-softmax kernel, which is ported
-        in a later slice: the op raises when it runs."""
+        """``use_pallas`` opts last-axis rows the gate takes into the
+        row-softmax kernel (``kernels/softmax.py``); elsewhere, and by
+        default, ``torch.softmax``."""
         return self._unary(OperatorType.OP_SOFTMAX, x,
                            {"axis": axis, "use_pallas": use_pallas}, name)
 
@@ -187,6 +188,17 @@ class FFModel:
              name=None):
         return self._unary(OperatorType.OP_MEAN, x,
                            {"axes": list(dims), "keepdims": keepdims}, name)
+
+    def top_k(self, x, k: int, sorted: bool = True, name=None,
+              use_pallas: bool = False):
+        """(values, int32 indices) of the k largest entries over the last
+        dim; ``use_pallas`` opts shapes the gate takes into the row top-k
+        kernel (``kernels/topk.py``). ``use_pallas`` comes after ``name``:
+        the reference's positional signature is ``top_k(input, k, sorted,
+        name)``."""
+        return self._add_layer(OperatorType.OP_TOPK, [x],
+                               {"k": k, "sorted": sorted,
+                                "use_pallas": use_pallas}, x.dtype, name)
 
     def sdpa(self, q: Tensor, k: Tensor, v: Tensor,
              attn_mask: Optional[Tensor] = None, dropout: float = 0.0,

@@ -18,7 +18,11 @@ Serving (``ctx.serving``): prefill runs the plain causal core and hands the
 prompt's k/v rows to the engine; decode writes one token per slot into the
 paged pool and reads it through the flash-decode kernel
 (``kernels/flash_decode.py``); chunk prefill writes a chunk's rows into one
-slot's blocks and attends over the slot's gathered extent.
+slot's blocks and attends over the slot's gathered extent. Under
+``kv_dtype="int8"`` every write quantizes its rows per (token, head) and
+stores the scales beside them; decode reads through the kernel's int8
+branch, the exact and chunk paths dequantize the gathered rows to the
+compute dtype.
 """
 from __future__ import annotations
 
@@ -142,7 +146,9 @@ def _serving_attention(name: str, q, k, v, sv, *, causal: bool):
     (``serving/kvcache.py``). q/k/v are (batch, heads, seq, dim)."""
     import torch
 
-    from ..serving.kvcache import gather_paged_kv, write_token_kv_paged
+    from ..serving.kvcache import (quantize_kv,
+                                   write_token_kv_paged,
+                                   write_token_scale_paged)
 
     if not causal:
         raise ValueError(
@@ -153,24 +159,57 @@ def _serving_attention(name: str, q, k, v, sv, *, causal: bool):
         return _chunk_prefill_attention(name, q, k, v, sv)
     if sv.mode == "prefill":
         # the prompt's rows; the engine scatters them into the slot's
-        # blocks (serving/kvcache.scatter_prefill_paged)
+        # blocks (serving/kvcache.scatter_prefill_paged), quantizing them
+        # for an int8 pool
         sv.cache_out[name] = (k, v)
         return mha_core(q, k, v, causal=True)
     scale = 1.0 / np.sqrt(q.shape[-1])
     tables, bs = sv.block_tables, sv.block_size
-    kp, vp = sv.cache_in[name]
-    write_token_kv_paged(kp, k, sv.positions, tables, bs)
-    write_token_kv_paged(vp, v, sv.positions, tables, bs)
-    sv.cache_out[name] = (kp, vp)
-    out = _maybe_flash_decode(q, (kp, vp), tables, sv, scale)
+    entry = sv.cache_in[name]
+    if sv.kv_dtype == "int8":
+        kq, ks, vq, vs = entry
+        for pool, scales, new in ((kq, ks, k), (vq, vs, v)):
+            rows, row_scales = quantize_kv(new)   # scales (S, h, 1)
+            write_token_kv_paged(pool, rows, sv.positions, tables, bs)
+            write_token_scale_paged(scales, row_scales, sv.positions,
+                                    tables, bs)
+    else:
+        for pool, new in zip(entry, (k, v)):
+            write_token_kv_paged(pool, new, sv.positions, tables, bs)
+    sv.cache_out[name] = entry
+    out = _maybe_flash_decode(q, entry, tables, sv, scale)
     if out is not None:
         return out
-    kc = gather_paged_kv(kp, tables)
-    vc = gather_paged_kv(vp, tables)
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kc.float()) * scale
+    kc, vc = _gathered_kv(entry, tables, sv.kv_dtype, k.dtype)
     kpos = torch.arange(kc.shape[2], device=q.device)
     mask = kpos[None, None, None, :] <= sv.positions.long()[:, None, None,
                                                             None]
+    return _masked_core(q, kc, vc, mask, scale)
+
+
+def _gathered_kv(entry, tables, kv_dtype: str, dtype):
+    """Every slot's K and V extent in position order, ``(S, h, mb * bs,
+    d)``: the stored rows, or for int8 the rows dequantized to ``dtype``
+    (the compute dtype), as the JAX op reads them off the kernel path."""
+    from ..serving.kvcache import (dequantize_kv, gather_paged_kv,
+                                   gather_paged_scales)
+
+    if kv_dtype == "int8":
+        kq, ks, vq, vs = entry
+        return (dequantize_kv(gather_paged_kv(kq, tables),
+                              gather_paged_scales(ks, tables), dtype),
+                dequantize_kv(gather_paged_kv(vq, tables),
+                              gather_paged_scales(vs, tables), dtype))
+    kp, vp = entry
+    return gather_paged_kv(kp, tables), gather_paged_kv(vp, tables)
+
+
+def _masked_core(q, kc, vc, mask, scale: float):
+    """Scores in fp32 under a bool ``mask`` (True attends), softmax, and
+    the PV sum with the probabilities rounded to the cache dtype first."""
+    import torch
+
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kc.float()) * scale
     logits = logits.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bhkd->bhqd", probs.to(vc.dtype).float(),
@@ -182,49 +221,57 @@ def _chunk_prefill_attention(name: str, q, k, v, sv):
     """One prefill CHUNK of a single slot (batch 1): q/k/v carry
     ``chunk_len`` tokens starting at ``sv.positions[0]``, of which the first
     ``sv.lengths[0]`` are real. The real rows are written into the slot's
-    pool blocks (pad rows into the garbage block) and every row attends to
-    the slot's gathered extent — the cached prefix and earlier chunks plus
-    this chunk — under ``key_pos <= row_pos``."""
+    pool blocks (pad rows into the garbage block; int8 pools take them
+    quantized, with their scales) and every row attends to the slot's
+    gathered extent — the cached prefix and earlier chunks plus this chunk
+    — under ``key_pos <= row_pos``."""
     import torch
 
-    from ..serving.kvcache import gather_paged_kv, write_chunk_kv_paged
+    from ..serving.kvcache import (quantize_kv, write_chunk_kv_paged,
+                                   write_chunk_scale_paged)
 
     tables, bs = sv.block_tables, sv.block_size  # tables: (1, mb)
     row = tables[0]
     chunk_len = q.shape[2]
     pos = sv.positions[0].long() + torch.arange(chunk_len, device=q.device)
     valid = torch.arange(chunk_len, device=q.device) < sv.lengths[0]
-    kp, vp = sv.cache_in[name]
-    write_chunk_kv_paged(kp, k, pos, valid, row, bs)
-    write_chunk_kv_paged(vp, v, pos, valid, row, bs)
-    sv.cache_out[name] = (kp, vp)
-    kc = gather_paged_kv(kp, tables)
-    vc = gather_paged_kv(vp, tables)
-    scale = 1.0 / np.sqrt(q.shape[-1])
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kc.float()) * scale
+    entry = sv.cache_in[name]
+    if sv.kv_dtype == "int8":
+        kq, ks, vq, vs = entry
+        for pool, scales, new in ((kq, ks, k), (vq, vs, v)):
+            rows, row_scales = quantize_kv(new)   # scales (1, h, C)
+            write_chunk_kv_paged(pool, rows, pos, valid, row, bs)
+            write_chunk_scale_paged(scales, row_scales, pos, valid, row, bs)
+    else:
+        for pool, new in zip(entry, (k, v)):
+            write_chunk_kv_paged(pool, new, pos, valid, row, bs)
+    sv.cache_out[name] = entry
+    kc, vc = _gathered_kv(entry, tables, sv.kv_dtype, k.dtype)
     kpos = torch.arange(kc.shape[2], device=q.device)
     mask = kpos[None, None, None, :] <= pos[None, None, :, None]
-    logits = logits.masked_fill(~mask, NEG_INF)
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhqk,bhkd->bhqd", probs.to(vc.dtype).float(),
-                       vc.float())
-    return out.to(vc.dtype)
+    return _masked_core(q, kc, vc, mask, 1.0 / np.sqrt(q.shape[-1]))
 
 
 def _maybe_flash_decode(q, entry, tables, sv, sm_scale):
     """Route one paged decode read through the flash-decode kernel — the
     default (non-exact) path, as ``jax`` routes it to the Pallas kernel on
-    a TPU. Returns the (S, h, 1, vd) output, or None for the exact gather
-    path. The wrapper launches the CUDA kernel for CUDA tensors and runs
-    its plain version for CPU tensors."""
+    a TPU; int8 pools go through its int8 branch with their scales.
+    Returns the (S, h, 1, vd) output, or None for the exact gather path.
+    The wrapper launches the CUDA kernel for CUDA tensors and runs its
+    plain version for CPU tensors."""
     from ..kernels.flash_decode import flash_decode
 
     if sv.exact:
         return None
-    kp, vp = entry
     n_keys = (sv.positions + 1).to(tables.dtype)
-    out = flash_decode(q[:, :, 0, :].contiguous(), kp, vp, tables, n_keys,
-                       sm_scale=sm_scale)
+    qr = q[:, :, 0, :].contiguous()
+    if sv.kv_dtype == "int8":
+        kq, ks, vq, vs = entry
+        out = flash_decode(qr, kq, vq, tables, n_keys, sm_scale=sm_scale,
+                           kscale=ks, vscale=vs)
+    else:
+        kp, vp = entry
+        out = flash_decode(qr, kp, vp, tables, n_keys, sm_scale=sm_scale)
     return out[:, :, None, :]
 
 

@@ -1,8 +1,9 @@
 """LayerNorm and Softmax (port of ``flexflow_tpu.ops.normalization``;
 reference: src/ops/layer_norm.cc, softmax.cc). LayerNorm statistics are
 taken in fp32 whatever the compute dtype, and the result is cast back, as
-in the JAX op. RMSNorm and the opt-in row-softmax kernel (the JAX op's
-``use_pallas``) come in later slices."""
+in the JAX op. ``SoftmaxOp`` takes the row-softmax kernel on opt-in
+(``use_pallas``) where the JAX op takes its Pallas kernel. RMSNorm comes in
+a later slice."""
 from __future__ import annotations
 
 from ..ffconst import OperatorType
@@ -64,8 +65,10 @@ class LayerNormOp(Op):
 class SoftmaxOp(Op):
     """attrs: axis (default -1), use_pallas. ``torch.softmax`` over the
     axis, in the input's dtype as ``jax.nn.softmax``. ``use_pallas=True``
-    asks for the JAX package's opt-in row-softmax kernel, which is ported
-    in a later slice: it raises."""
+    opts last-axis rows the kernel gate takes (``kernels/softmax.py``:
+    rows of at least 1024, a multiple of 128, on CUDA) into the row-softmax
+    kernel and its backward; elsewhere it computes ``torch.softmax``, as
+    the JAX op computes ``jax.nn.softmax`` where its gate is closed."""
 
     def infer_output_shapes(self, input_shapes):
         return [input_shapes[0]]
@@ -73,9 +76,11 @@ class SoftmaxOp(Op):
     def forward(self, params, inputs, ctx: OpContext):
         import torch
 
-        if self.attrs.get("use_pallas"):
-            raise NotImplementedError(
-                f"{self.name}: softmax use_pallas=True (the row-softmax "
-                "kernel) is ported in a later slice")
+        from ..kernels.softmax import softmax, should_use_softmax_kernel
+
         (x,) = inputs
-        return [torch.softmax(x, dim=self.attrs.get("axis", -1))]
+        axis = self.attrs.get("axis", -1)
+        if should_use_softmax_kernel(
+                x, axis, opt_in=bool(self.attrs.get("use_pallas"))):
+            return [softmax(x)]
+        return [torch.softmax(x, dim=axis)]

@@ -1,13 +1,15 @@
 """ServingEngine: continuous-batching inference over a compiled FFModel.
 
-Port of ``flexflow_tpu.serving.engine`` for the default configuration:
-the paged KV pool (``kv_cache="paged"``, native dtype), the radix prefix
-cache with its chunk-prefill step, optional chunked prefill
+Port of ``flexflow_tpu.serving.engine`` for the paged KV pool
+(``kv_cache="paged"``) in the model dtype or int8 (``--kv-dtype``), the
+radix prefix cache with its chunk-prefill step, optional chunked prefill
 (``--prefill-chunk-tokens``), the synchronous serve loop, one sequence
-shard, and greedy or temperature sampling. Each tick performs one
+shard, and greedy or top-k temperature sampling. Each tick performs one
 scheduler action: a one-shot prefill, one prefill chunk, or one decode step
 that advances every live slot by a token. The decode step's attention read
-is the flash-decode kernel (``kernels/flash_decode.py``).
+is the flash-decode kernel (``kernels/flash_decode.py``, its int8 branch
+for int8 pools); the sampler's top-k goes through the row top-k kernel
+(``kernels/topk.py``) where the JAX sampler takes its Pallas kernel.
 
 Options outside this slice raise ``NotImplementedError`` naming the flag;
 none falls back quietly.
@@ -28,7 +30,7 @@ from .scheduler import ContinuousBatchScheduler, Request, default_buckets
 def _later_slice(flag: str) -> NotImplementedError:
     return NotImplementedError(
         f"{flag} is ported in a later slice of flexflow_tpu_torch; this "
-        "slice serves the paged native-KV sync loop")
+        "slice serves the paged-KV sync loop")
 
 
 def position_context_bound(executor, max_len: int) -> int:
@@ -46,13 +48,6 @@ def position_context_bound(executor, max_len: int) -> int:
     return bound
 
 
-def uses_topk_kernel(vocab: int, top_k: int) -> bool:
-    """Where the JAX engine's sampler routes top-k through the Pallas row
-    top-k kernel (``should_use_pallas_topk``: vocab % 128 == 0 and
-    1 <= k <= 8) — the kernel this slice has not ported."""
-    return 1 <= top_k <= 8 and vocab >= 128 and vocab % 128 == 0
-
-
 @dataclasses.dataclass
 class ServingStats:
     """Host-side counters of one serve() run."""
@@ -66,6 +61,9 @@ class ServingStats:
     prefix_tokens_reused: int = 0
     prefill_tokens_computed: int = 0
     queue_depth_hwm: int = 0
+    # analytic KV bytes the decode steps' attention read (each live slot's
+    # occupied blocks, at the pool's layout)
+    kv_bytes_read: int = 0
     wall_s: float = 0.0
     # per-token latency: decode tokens carry their step wall, first tokens
     # their prefill wall
@@ -84,6 +82,11 @@ class ServingStats:
             return None
         return float(np.percentile(self.token_walls_s, 99) * 1e3)
 
+    def kv_bytes_per_token(self) -> Optional[float]:
+        if not self.tokens_generated or not self.kv_bytes_read:
+            return None
+        return self.kv_bytes_read / self.tokens_generated
+
     def summary(self) -> Dict[str, Any]:
         out = {k: getattr(self, k) for k in (
             "requests_served", "tokens_generated", "prefills",
@@ -94,6 +97,9 @@ class ServingStats:
         out["tokens_per_s"] = self.tokens_per_s()
         out["p50_token_ms"] = self.p50_token_ms()
         out["p99_token_ms"] = self.p99_token_ms()
+        kvpt = self.kv_bytes_per_token()
+        if kvpt is not None:
+            out["kv_bytes_per_token"] = round(kvpt, 1)
         return out
 
 
@@ -118,7 +124,7 @@ class ServingEngine:
                  serve_loop: Optional[str] = None,
                  seq_shards: Optional[int] = None,
                  context_buckets: Optional[Sequence[int]] = None):
-        from .kvcache import blocks_per_slot, parse_context_buckets
+        from .kvcache import KV_DTYPES, blocks_per_slot, parse_context_buckets
         from .scheduler import BlockAllocator
 
         if model.executor is None:
@@ -146,10 +152,17 @@ class ServingEngine:
         if self.serve_loop != "sync":
             raise _later_slice(f"serve_loop={self.serve_loop!r} "
                                "(--serve-loop)")
+        if self.kv_dtype not in KV_DTYPES:
+            raise ValueError(f"kv_dtype must be one of {KV_DTYPES}, got "
+                             f"{self.kv_dtype!r}")
+        if self.kv_cache not in ("paged", "ring"):
+            raise ValueError(f"kv_cache must be 'paged' or 'ring', got "
+                             f"{self.kv_cache!r}")
+        if self.kv_cache == "ring" and self.kv_dtype != "native":
+            raise ValueError("kv_dtype='int8' requires the paged KV layout "
+                             "(kv_cache='paged')")
         if self.kv_cache != "paged":
             raise _later_slice(f"kv_cache={self.kv_cache!r} (--kv-cache)")
-        if self.kv_dtype != "native":
-            raise _later_slice(f"kv_dtype={self.kv_dtype!r} (--kv-dtype)")
         if self.seq_shards != 1:
             raise _later_slice(f"seq_shards={self.seq_shards} "
                                "(--seq-shards)")
@@ -239,14 +252,15 @@ class ServingEngine:
     def _decode_fn(self):
         return self.executor.make_decode_step(
             self.max_decode_len, exact=self.exact_decode,
-            block_size=self.kv_block_size)
+            block_size=self.kv_block_size, kv_dtype=self.kv_dtype)
 
     def _prefill_fn(self, bucket: int):
         return self.executor.make_prefill_step(bucket, self.max_decode_len)
 
     def _chunk_fn(self, chunk_shape: int):
         return self.executor.make_chunk_prefill_step(
-            int(chunk_shape), self.max_decode_len, self.kv_block_size)
+            int(chunk_shape), self.max_decode_len, self.kv_block_size,
+            self.kv_dtype)
 
     def _ids(self, rows) -> Any:
         import torch
@@ -256,8 +270,10 @@ class ServingEngine:
     def _ensure_state(self, prefill_cache) -> None:
         """Allocate the pools lazily from the first prefill's cache
         structure: one zero ``(kv_pool_blocks, h, block_size, hd)`` pool
-        per K and V of every attention node, all-garbage block tables and
-        zero cursors."""
+        per K and V of every attention node (int8: each with its zero
+        ``(kv_pool_blocks, h, block_size)`` f32 scale array, the entry
+        ``(kq, kscale, vq, vscale)``), all-garbage block tables and zero
+        cursors."""
         import torch
 
         from .kvcache import paged_pool_entry
@@ -268,11 +284,11 @@ class ServingEngine:
             caches = {}
             self._paged_entry_names = set(prefill_cache)
             for name, (kc, vc) in prefill_cache.items():
-                caches[name] = (
-                    paged_pool_entry(kc, self.kv_pool_blocks,
-                                     self.kv_block_size),
-                    paged_pool_entry(vc, self.kv_pool_blocks,
-                                     self.kv_block_size))
+                kp, vp = (paged_pool_entry(c, self.kv_pool_blocks,
+                                           self.kv_block_size, self.kv_dtype)
+                          for c in (kc, vc))
+                caches[name] = (*kp, *vp) if self.kv_dtype == "int8" \
+                    else (kp, vp)
             n = self.n_slots
             self.state = DecodeState(
                 caches=caches,
@@ -298,19 +314,26 @@ class ServingEngine:
     def _write_slot(self, cache, slot: int, length: int, token: int,
                     table_row: np.ndarray) -> None:
         """Insert one prefilled request into the decode batch: scatter its
-        k/v rows into its blocks, set its table row, length cursor and
-        pending first token — in place."""
+        k/v rows into its blocks (quantized, with their scales, into an
+        int8 pool), set its table row, length cursor and pending first
+        token — in place."""
         import torch
 
         from .kvcache import scatter_prefill_paged
 
+        bs = self.kv_block_size
         with torch.inference_mode():
             row = self._ids(table_row)
             for name in self._paged_entry_names:
-                kp, vp = self.state.caches[name]
+                entry = self.state.caches[name]
                 kc, vc = cache[name]
-                scatter_prefill_paged(kp, kc, row, self.kv_block_size)
-                scatter_prefill_paged(vp, vc, row, self.kv_block_size)
+                if self.kv_dtype == "int8":
+                    kq, ks, vq, vs = entry
+                    scatter_prefill_paged(kq, kc, row, bs, scales=ks)
+                    scatter_prefill_paged(vq, vc, row, bs, scales=vs)
+                else:
+                    scatter_prefill_paged(entry[0], kc, row, bs)
+                    scatter_prefill_paged(entry[1], vc, row, bs)
             self.state.block_tables[slot] = row
             self.state.lengths[slot] = int(length)
             self._last_tokens[slot, 0] = int(token)
@@ -341,7 +364,8 @@ class ServingEngine:
 
     def _cow_clone(self, src: int, dst: int) -> None:
         """Copy-on-write: duplicate pool block ``src`` into ``dst`` in every
-        pool before the cloner's first divergent write."""
+        pool (int8 scale arrays included) before the cloner's first
+        divergent write."""
         import torch
 
         if self.state is None:
@@ -350,6 +374,39 @@ class ServingEngine:
             for name in self._paged_entry_names:
                 for pool in self.state.caches[name]:
                     pool[dst] = pool[src]
+
+    # -------------------------------------------------------- KV accounting
+    def _kv_row_bytes(self) -> int:
+        """KV bytes ONE token's row costs across every attention node, at
+        the pool's layout (``kvcache.kv_token_bytes``): int8 rows plus
+        their two f32 scales, or the stored dtype's bytes — the compute
+        dtype where one is set, as the pools hold the rows in it."""
+        if getattr(self, "_kv_row_bytes_cache", None) is None:
+            from ..ffconst import size_of_datatype
+            from .kvcache import kv_token_bytes
+
+            compute = self.executor._compute_dtype()
+            total = 0
+            for node in self.executor.pcg.compute_nodes():
+                if node.op.op_type != OperatorType.OP_MULTIHEAD_ATTENTION:
+                    continue
+                a = node.op.attrs
+                heads = int(a.get("num_heads", 1))
+                kd = int(a.get("kdim") or a["embed_dim"] // heads)
+                vd = int(a.get("vdim") or a["embed_dim"] // heads)
+                el = (compute.itemsize if compute is not None
+                      else size_of_datatype(node.op.data_type))
+                total += kv_token_bytes(heads, kd, vd, el, self.kv_dtype)
+            self._kv_row_bytes_cache = total
+        return self._kv_row_bytes_cache
+
+    def _decode_kv_bytes(self, live) -> int:
+        """KV bytes one decode step's attention reads: each live slot's
+        occupied blocks (the flash-decode kernel's traffic)."""
+        bs = self.kv_block_size
+        toks = sum(-(-(req.effective_len + 1) // bs) * bs
+                   for _slot, req in live)
+        return toks * self._kv_row_bytes()
 
     def _table_row_for(self, req) -> np.ndarray:
         row = np.zeros((self.max_blocks_per_slot,), np.int32)
@@ -368,13 +425,20 @@ class ServingEngine:
     # -------------------------------------------------------------- sampling
     def _sampler(self, temperature: float, top_k: int):
         """``(logits (S, V) fp32, tag_counts (S, 2) host ints, seed) ->
-        tokens (S,) int32`` on the device. Greedy when temperature <= 0;
-        otherwise top-k filtered (``torch.topk``) categorical at
-        ``temperature``, each row drawn from its own ``torch.Generator``
-        seeded from (seed, submission tag, tokens emitted) — deterministic
-        under any co-scheduling. The streams differ from the JAX engine's
+        tokens (S,) int32`` on the device. Greedy when temperature <= 0.
+        Otherwise a categorical draw at ``temperature`` over the top-k of
+        the raw logits (all of them for ``top_k`` 0), each row drawn from
+        its own ``torch.Generator`` seeded from (seed, submission tag,
+        tokens emitted) — deterministic under any co-scheduling. As the JAX
+        sampler: one top-k over all rows, taken before the division by the
+        temperature, through the row top-k kernel (``kernels/topk.py``;
+        its plain version on CPU tensors) where the JAX sampler takes its
+        Pallas kernel (1 <= k <= 8, vocab a multiple of 128), else
+        ``torch.topk``. The streams differ from the JAX engine's
         ``jax.random`` ones."""
         import torch
+
+        from ..kernels.topk import topk, topk_kernel_shape
 
         if temperature <= 0.0:
             def greedy(logits, tag_counts, seed):
@@ -384,19 +448,22 @@ class ServingEngine:
         k = int(top_k)
 
         def sample(logits, tag_counts, seed):
+            vals, idx = logits, None
+            if k > 0:
+                if topk_kernel_shape(logits, k):
+                    vals, idx = topk(logits, k)
+                else:
+                    vals, idx = torch.topk(logits, min(k, logits.shape[-1]),
+                                           dim=-1)
+            probs = torch.softmax(vals / temp, dim=-1)
             out = torch.empty((logits.shape[0],), dtype=torch.int32,
                               device=logits.device)
             for i in range(logits.shape[0]):
                 tag, count = (int(x) for x in tag_counts[i])
                 gen = torch.Generator(device=logits.device).manual_seed(
                     (int(seed) * 1_000_003 + tag) * 1_000_003 + count)
-                row = logits[i] / temp
-                idx = None
-                if k > 0:
-                    row, idx = torch.topk(row, min(k, row.shape[-1]))
-                choice = torch.multinomial(torch.softmax(row, -1), 1,
-                                           generator=gen)
-                out[i] = (idx[choice] if idx is not None else choice)[0]
+                choice = torch.multinomial(probs[i], 1, generator=gen)
+                out[i] = (idx[i][choice] if idx is not None else choice)[0]
             return out
         return sample
 
@@ -450,12 +517,6 @@ class _ServeLoop:
     def __init__(self, engine: ServingEngine,
                  sched: ContinuousBatchScheduler, temperature: float = 0.0,
                  top_k: int = 0, seed: int = 0):
-        vocab = engine.executor.pcg.nodes[engine.executor.final_guid] \
-            .out_shapes[engine.executor.final_out_idx][-1]
-        if temperature > 0.0 and uses_topk_kernel(vocab, top_k):
-            raise _later_slice(
-                f"top_k={top_k} sampling at vocab {vocab} (the Pallas row "
-                "top-k kernel, kernels/topk.py)")
         self.engine = engine
         self.sched = sched
         engine._attach(sched)
@@ -562,6 +623,7 @@ class _ServeLoop:
         toks_host = toks.cpu().numpy()
         wall = time.perf_counter() - t_d
         stats.decode_steps += 1
+        stats.kv_bytes_read += eng._decode_kv_bytes(live)
         for slot, req in live:
             stats.tokens_generated += 1
             stats.token_walls_s.append(wall)

@@ -12,7 +12,14 @@ contents only need to stay finite.
 Where the JAX package returns new arrays, this port updates the pool and
 the cursors IN PLACE (``index_put_``): the decode loop never copies the
 pool. Free slots collide in the garbage block, which is harmless for the
-same reason as above. The ring layout and int8 KV come in a later slice.
+same reason as above.
+
+Quantized layout (``kv_dtype="int8"``): pool blocks hold symmetric
+per-(token, head) int8 rows, with float32 scales in block-paged scale
+arrays ``(n_blocks, heads, block_size)`` — scale = amax / 127 over the
+head_dim row, written once with the row and folded back on read. The
+quantizer is the JAX package's bit for bit (``torch.round`` rounds half to
+even, as ``jnp.round``). The ring layout comes in a later slice.
 """
 from __future__ import annotations
 
@@ -24,6 +31,11 @@ import numpy as np
 #: reserved pool block every unused block-table entry points at — written
 #: by free slots, never read unmasked, must stay finite
 GARBAGE_BLOCK = 0
+
+#: supported KV-cache storage dtypes
+KV_DTYPES = ("native", "int8")
+
+INT8_QMAX = 127.0
 
 
 @dataclasses.dataclass
@@ -48,6 +60,8 @@ class ServingState:
                bitwise-verification mode)
     block_tables: (n_slots, max_blocks_per_slot) int32
     block_size: tokens per KV block
+    kv_dtype:  "native" (pools in the model dtype, entries ``(kpool,
+               vpool)``) or "int8" (entries ``(kq, kscale, vq, vscale)``)
     """
 
     mode: str
@@ -59,11 +73,13 @@ class ServingState:
     exact: bool = False
     block_tables: Any = None
     block_size: int = 0
+    kv_dtype: str = "native"
 
 
 @dataclasses.dataclass
 class DecodeState:
-    """The decode loop's carried state: {node_name: (kpool, vpool)}, the
+    """The decode loop's carried state: {node_name: (kpool, vpool)} (int8:
+    ``(kq, kscale, vq, vscale)``), the
     per-slot length cursor and the block tables. Decode steps update all of
     it in place."""
 
@@ -126,6 +142,39 @@ def blocks_per_slot(max_len: int, block_size: int) -> int:
     return -(-int(max_len) // int(block_size))
 
 
+def kv_token_bytes(heads: int, kdim: int, vdim: int, el: int,
+                   kv_dtype: str = "native") -> int:
+    """KV bytes ONE token costs across one attention node's heads: int8
+    stores 1-byte rows plus the two f32 per-(token, head) scales, native
+    the model dtype (``el`` bytes an element)."""
+    if kv_dtype == "int8":
+        return heads * ((kdim + vdim) * 1 + 8)
+    return heads * (kdim + vdim) * el
+
+
+def quantize_kv(x) -> Tuple[Any, Any]:
+    """Symmetric per-row int8 quantization over the trailing head_dim axis:
+    ``q = round(x / scale)`` (half to even) with ``scale = amax(|x|) / 127``
+    (scale 1 for an all-zero row, so its dequant stays exactly zero).
+    Returns ``(q int8, scale f32)``, ``scale`` shaped like ``x`` minus its
+    last axis."""
+    import torch
+
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, amax / INT8_QMAX,
+                        torch.ones_like(amax))
+    q = torch.clamp(torch.round(xf / scale[..., None]), -INT8_QMAX,
+                    INT8_QMAX).to(torch.int8)
+    return q, scale
+
+
+def dequantize_kv(q, scale, dtype):
+    """``q * scale`` in f32, cast to ``dtype``: the read half of
+    :func:`quantize_kv`."""
+    return (q.float() * scale[..., None]).to(dtype)
+
+
 def write_token_kv_paged(pool, new, positions, block_tables, block_size):
     """Write one token's k or v ``(n_slots, h, 1, hd)`` into the pool, in
     place, at each slot's position: block ``tables[slot, pos // bs]``,
@@ -139,11 +188,21 @@ def write_token_kv_paged(pool, new, positions, block_tables, block_size):
     return pool
 
 
-def write_chunk_kv_paged(pool, new, positions, valid, table_row,
-                         block_size):
-    """Write one prefill chunk's k or v rows ``(1, h, C, hd)`` into the
-    pool, in place, at ``positions`` (C,) of the slot owning ``table_row``
-    (mb,). Pad rows (``valid`` False) go to the GARBAGE block."""
+def write_token_scale_paged(scales, scale_new, positions, block_tables,
+                            block_size):
+    """Scale-array twin of :func:`write_token_kv_paged`, in place:
+    ``scales (n_blocks, h, block_size)``, ``scale_new (n_slots, h, 1)``."""
+    import torch
+
+    pos = positions.long()
+    bi = torch.gather(block_tables.long(), 1,
+                      (pos // block_size)[:, None])[:, 0]
+    scales[bi, :, pos % block_size] = scale_new[:, :, 0]
+    return scales
+
+
+def _chunk_rows(positions, valid, table_row, block_size):
+    """(block, offset) of each chunk row: pad rows go to GARBAGE_BLOCK."""
     import torch
 
     mb = table_row.shape[0]
@@ -151,9 +210,27 @@ def write_chunk_kv_paged(pool, new, positions, valid, table_row,
     blk = torch.clamp(pos // block_size, 0, mb - 1)
     bi = torch.where(valid, table_row.long()[blk],
                      torch.full_like(blk, GARBAGE_BLOCK))
+    return bi, pos % block_size
+
+
+def write_chunk_kv_paged(pool, new, positions, valid, table_row,
+                         block_size):
+    """Write one prefill chunk's k or v rows ``(1, h, C, hd)`` into the
+    pool, in place, at ``positions`` (C,) of the slot owning ``table_row``
+    (mb,). Pad rows (``valid`` False) go to the GARBAGE block."""
+    bi, off = _chunk_rows(positions, valid, table_row, block_size)
     rows = new[0].transpose(0, 1)  # (h, C, hd) -> (C, h, hd)
-    pool[bi, :, pos % block_size] = rows.to(pool.dtype)
+    pool[bi, :, off] = rows.to(pool.dtype)
     return pool
+
+
+def write_chunk_scale_paged(scales, scale_new, positions, valid, table_row,
+                            block_size):
+    """Scale-array twin of :func:`write_chunk_kv_paged`, in place:
+    ``scales (n_blocks, h, bs)``, ``scale_new (1, h, C)``."""
+    bi, off = _chunk_rows(positions, valid, table_row, block_size)
+    scales[bi, :, off] = scale_new[0].transpose(0, 1)
+    return scales
 
 
 def gather_paged_kv(pool, block_tables):
@@ -165,22 +242,39 @@ def gather_paged_kv(pool, block_tables):
     return g.reshape(g.shape[0], g.shape[1], -1, g.shape[-1])
 
 
-def paged_pool_entry(leaf, n_blocks: int, block_size: int):
+def gather_paged_scales(scales, block_tables):
+    """(n_blocks, h, bs) through (n_slots, mb) -> (n_slots, h, mb * bs)."""
+    g = scales[block_tables.long()]        # (S, mb, h, bs)
+    g = g.transpose(1, 2)                  # (S, h, mb, bs)
+    return g.reshape(g.shape[0], g.shape[1], -1)
+
+
+def paged_pool_entry(leaf, n_blocks: int, block_size: int,
+                     kv_dtype: str = "native"):
     """Zero pool for one KV leaf whose per-request shape is
-    ``(1, h, L, hd)``."""
+    ``(1, h, L, hd)``: the pool in the leaf's dtype for "native", ``(pool
+    int8, scales f32 (n_blocks, h, block_size))`` for "int8"."""
     import torch
 
     _, h, _L, hd = leaf.shape
+    if kv_dtype == "int8":
+        return (torch.zeros((n_blocks, h, block_size, hd), dtype=torch.int8,
+                            device=leaf.device),
+                torch.zeros((n_blocks, h, block_size), dtype=torch.float32,
+                            device=leaf.device))
     return torch.zeros((n_blocks, h, block_size, hd), dtype=leaf.dtype,
                        device=leaf.device)
 
 
-def scatter_prefill_paged(pool, leaf, table_row, block_size: int):
+def scatter_prefill_paged(pool, leaf, table_row, block_size: int,
+                          scales=None):
     """Write one prefilled request's k or v rows ``(1, h, L, hd)`` into its
     table row's pool blocks, in place: rows are padded with zeros to whole
     blocks, reshaped block-major and written at ``table_row[:ceil(L/bs)]``.
     Entries past the request's allocation point at GARBAGE_BLOCK and take
-    the tail rows — harmless, never read. Returns the pool."""
+    the tail rows — harmless, never read. An int8 pool takes the rows
+    quantized, with their scales written into ``scales`` (the pool's scale
+    array). Returns the pool, or ``(pool, scales)`` for int8."""
     import torch
 
     x = leaf[0]                            # (h, L, hd)
@@ -189,6 +283,12 @@ def scatter_prefill_paged(pool, leaf, table_row, block_size: int):
     pad = nb * block_size - L
     if pad:
         x = torch.cat([x, x.new_zeros((h, pad, hd))], dim=1)
+    rows = table_row[:nb].long()
+    if scales is not None:
+        q, s = quantize_kv(x)              # (h, P, hd), (h, P)
+        pool[rows] = q.reshape(h, nb, block_size, hd).transpose(0, 1)
+        scales[rows] = s.reshape(h, nb, block_size).transpose(0, 1)
+        return pool, scales
     xb = x.reshape(h, nb, block_size, hd).transpose(0, 1)
-    pool[table_row[:nb].long()] = xb.to(pool.dtype)
+    pool[rows] = xb.to(pool.dtype)
     return pool

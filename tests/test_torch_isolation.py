@@ -52,6 +52,7 @@ def test_forbidden_matches_exact_names_only():
 def test_importing_every_module_loads_neither_jax_nor_flexflow_tpu():
     mods = _all_modules()
     for m in ("kernels.flash_decode", "kernels.flash_attention",
+              "kernels.softmax", "kernels.topk",
               "execution.losses", "execution.metrics",
               "execution.optimizers", "data.dataloader",
               "resilience.preflight", "models.bert", "ops.tensor_ops"):
@@ -135,7 +136,6 @@ LATER = "ported in a later slice"
 
 
 @pytest.mark.parametrize("kwargs,flag", [
-    (dict(kv_dtype="int8"), "--kv-dtype"),
     (dict(kv_cache="ring"), "--kv-cache"),
     (dict(seq_shards=2), "--seq-shards"),
     (dict(context_buckets=(16, 32)), "--context-buckets"),
@@ -148,7 +148,6 @@ def test_engine_refuses_options_of_later_slices(tiny, kwargs, flag):
 
 
 @pytest.mark.parametrize("field,value,flag", [
-    ("kv_dtype", "int8", "--kv-dtype"),
     ("kv_cache", "ring", "--kv-cache"),
     ("seq_shards", 2, "--seq-shards"),
     ("context_buckets", "16,32", "--context-buckets"),
@@ -162,6 +161,24 @@ def test_generate_refuses_config_flags_of_later_slices(field, value, flag):
     assert flag in str(e.value)
 
 
+@pytest.mark.parametrize("via", ["engine", "config"])
+def test_int8_kv_is_served(via):
+    """``--kv-dtype int8`` is in this slice: it serves, whether it comes as
+    an engine argument or through ``FFConfig``, on the paged layout."""
+    if via == "engine":
+        eng = ServingEngine(_tiny_model(), max_decode_len=32,
+                            kv_dtype="int8")
+        out = eng.generate([[1, 2, 3], [4, 5]], max_new_tokens=3)
+        assert eng.kv_dtype == "int8"
+    else:
+        ff = _tiny_model(kv_dtype="int8")
+        out = ff.generate([[1, 2, 3], [4, 5]], max_new_tokens=3,
+                          max_decode_len=32)
+        assert ff._serving_engine.kv_dtype == "int8"
+    assert [len(o) for o in out] == [3, 3]
+    assert all(0 <= t < 100 for o in out for t in o)
+
+
 def test_generate_refuses_chaos(tiny):
     eng = ServingEngine(tiny, max_decode_len=32)
     with pytest.raises(NotImplementedError, match=LATER):
@@ -170,12 +187,11 @@ def test_generate_refuses_chaos(tiny):
 
 def test_top_k_refused_only_where_jax_runs_the_pallas_kernel(tiny):
     """vocab % 128 == 0 and 1 <= k <= 8 is the JAX sampler's Pallas top-k
-    route: refused. Any other top_k samples through ``torch.topk``."""
+    route, which the row top-k kernel (``kernels/topk.py``) now serves: no
+    top_k is refused any more. Any other top_k samples through
+    ``torch.topk``."""
     wide = _tiny_model(vocab=128)
-    with pytest.raises(NotImplementedError, match=LATER):
-        wide.generate([[1, 2, 3]], max_new_tokens=2, temperature=1.0,
-                      top_k=4, max_decode_len=32)
-    for ff, k, vocab in ((wide, 9, 128), (tiny, 4, 100)):
+    for ff, k, vocab in ((wide, 4, 128), (wide, 9, 128), (tiny, 4, 100)):
         out = ff.generate([[1, 2, 3], [4, 5]], max_new_tokens=3,
                           temperature=1.0, top_k=k, max_decode_len=32)
         assert [len(o) for o in out] == [3, 3]
@@ -253,10 +269,16 @@ def test_fit_takes_the_in_slice_defaults():
 
 
 def test_softmax_kernel_opt_in_is_refused():
+    """The row-softmax kernel's opt-in is in this slice and no longer
+    refused: where the kernel gate is closed (dim 128 < 1024, as in the JAX
+    op) ``use_pallas`` computes the library softmax."""
     c = ft.FFConfig()
     c.batch_size = 2
     ff = ft.FFModel(c, device="cpu")
     ff.softmax(ff.create_tensor((2, 128)), use_pallas=True)
     ff.compile()
-    with pytest.raises(NotImplementedError, match=LATER):
-        ff.predict(np.zeros((2, 128), np.float32))
+    x = np.random.default_rng(0).standard_normal((2, 128)).astype(
+        np.float32)
+    got = np.asarray(ff.predict(x))
+    np.testing.assert_allclose(
+        got, torch.softmax(torch.tensor(x), -1).numpy(), rtol=0, atol=0)

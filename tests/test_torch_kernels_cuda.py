@@ -184,3 +184,153 @@ def test_flash_attention_kernels_refuse_what_they_do_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         fa._flash_forward(q.transpose(2, 3).contiguous().transpose(2, 3),
                           k, v, False, 64, 64)
+
+
+# ------------------------------------------------- flash decode, int8 pools
+def _int8_pools(k, v):
+    from flexflow_tpu_torch.serving.kvcache import quantize_kv
+
+    kq, ks = quantize_kv(k)
+    vq, vs = quantize_kv(v)
+    return kq, vq, ks, vs
+
+
+# q in fp32 (summation order only) or 16-bit (the output's rounding); the
+# dequantized keys are the same fp32 values on both sides
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2),
+                                        (torch.float16, 2e-3)])
+@pytest.mark.parametrize("dim,bs", [(64, 16), (128, 8), (40, 3)])
+def test_flash_decode_int8_kernel_matches_plain(dtype, atol, dim, bs):
+    dev = _cuda()
+    q, k, v, tables, nk = _decode_inputs(4, torch.float32, dev, dim=dim,
+                                         bs=bs, n_keys=(1, 2 * bs + 1, 4 * bs))
+    kq, vq, ks, vs = _int8_pools(k, v)
+    q = q.to(dtype)
+    before = fd.launch_count("flash_decode_int8")
+    got = fd.flash_decode(q, kq, vq, tables, nk, kscale=ks, vscale=vs)
+    torch.cuda.synchronize()
+    assert fd.launch_count("flash_decode_int8") == before + 1
+    assert got.dtype == dtype
+    want = fd.flash_decode_plain(q, kq, vq, tables, nk, kscale=ks,
+                                 vscale=vs)
+    assert (got.float() - want.float()).abs().max().item() <= atol
+
+
+@pytest.mark.cuda
+def test_flash_decode_int8_kernel_refuses_what_it_does_not_take():
+    dev = _cuda()
+    q, k, v, tables, nk = _decode_inputs(5, torch.float32, dev)
+    kq, vq, ks, vs = _int8_pools(k, v)
+    with pytest.raises(ValueError, match="kscale"):
+        fd.flash_decode(q, kq, vq, tables, nk)
+    with pytest.raises(TypeError):
+        fd.flash_decode(q, kq, vq, tables, nk, kscale=ks.double(),
+                        vscale=vs)
+    with pytest.raises(TypeError):
+        fd.flash_decode(q, kq, v, tables, nk, kscale=ks, vscale=vs)
+
+
+# ------------------------------------------------------------------ top-k
+import flexflow_tpu_torch.kernels.topk as tk  # noqa: E402
+
+
+def _topk_rows(seed, rows, dim, dtype, dev):
+    """Random rows with injected ties (a repeated maximum, and a value
+    repeated across the top-k boundary) and one row with two finite
+    entries (the rest -inf)."""
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.standard_normal((rows, dim)), dtype=torch.float32)
+    x[0, [3, 70, dim - 1]] = 9.0
+    x[1, [5, 6, 200 % dim]] = 7.5
+    x[1, [1, 2]] = 8.0
+    x[2] = float("-inf")
+    x[2, [dim // 2, 1]] = torch.tensor([0.5, -3.0])
+    return x.to(dtype).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("rows,dim", [(8, 50304), (5, 128), (3, 1001)])
+@pytest.mark.parametrize("k", [1, 3, 8])
+def test_topk_kernel_equals_plain(dtype, rows, dim, k):
+    dev = _cuda()
+    x = _topk_rows(rows * dim + k, rows, dim, dtype, dev)
+    before = tk.launch_count()
+    vals, idx = tk.topk(x, k)
+    torch.cuda.synchronize()
+    assert tk.launch_count() == before + 1
+    want_v, want_i = tk.topk_plain(x, k)
+    assert vals.dtype == dtype and idx.dtype == torch.int32
+    assert torch.equal(idx, want_i)
+    assert torch.equal(vals, want_v)
+
+
+@pytest.mark.cuda
+def test_topk_kernel_backward_scatters_the_values_cotangent():
+    dev = _cuda()
+    x = _topk_rows(11, 4, 256, torch.float32, dev)
+    x[2] = torch.randn(256, device=dev)
+    x.requires_grad_(True)
+    vals, idx = tk.topk(x, 5)
+    w = torch.randn_like(vals)
+    (gx,) = torch.autograd.grad((vals * w).sum(), x)
+    want = torch.zeros_like(x).scatter(-1, idx.long(), w)
+    assert torch.equal(gx, want)
+
+
+# ---------------------------------------------------------------- softmax
+import flexflow_tpu_torch.kernels.softmax as sm  # noqa: E402
+
+# fp32: summation order only (probabilities <= 1). 16-bit: each output is
+# rounded once on both sides, and an fp32 value one ulp apart can round to
+# the neighbouring 16-bit value: one bf16 ulp below 1 is 2**-8 (fp16
+# 2**-11); gradients the same, relative to their largest element
+SM_TOL = {torch.float32: 2e-6, torch.bfloat16: 2 ** -8,
+          torch.float16: 2 ** -11}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("rows,dim", [(64, 50304), (16, 1024), (5, 1001),
+                                      (2, 70000)])
+def test_softmax_kernels_match_plain(dtype, rows, dim):
+    """Rows that fit shared memory and one that does not (70000 fp32),
+    vector loads and the scalar form (dim 1001)."""
+    dev = _cuda()
+    rng = np.random.default_rng(rows + dim)
+    x = torch.tensor(rng.standard_normal((rows, dim)) * 4.0,
+                     dtype=dtype, device=dev)
+    g = torch.tensor(rng.standard_normal((rows, dim)), dtype=dtype,
+                     device=dev)
+    sm.reset_launch_count()
+    p = sm._forward(x)
+    dx = sm._backward(p, g)
+    torch.cuda.synchronize()
+    assert sm.launch_count("softmax_fwd") == 1
+    assert sm.launch_count("softmax_bwd") == 1
+    want_p = sm.softmax_plain(x)
+    want_dx = sm.softmax_bwd_plain(p, g)
+    assert p.dtype == dtype and dx.dtype == dtype
+    assert (p.float() - want_p.float()).abs().max().item() <= SM_TOL[dtype]
+    scale = want_dx.float().abs().max().item()
+    assert (dx.float() - want_dx.float()).abs().max().item() \
+        <= SM_TOL[dtype] * max(scale, 1e-30) + 1e-12
+
+
+@pytest.mark.cuda
+def test_softmax_autograd_launches_both_kernels():
+    dev = _cuda()
+    x = torch.randn(8, 2048, device=dev, requires_grad=True)
+    w = torch.randn(8, 2048, device=dev)
+    sm.reset_launch_count()
+    p = sm.softmax(x)
+    (gx,) = torch.autograd.grad((p * w).sum(), x)
+    assert sm.launch_count("softmax_fwd") == 1
+    assert sm.launch_count("softmax_bwd") == 1
+    xr = x.detach().clone().requires_grad_(True)
+    (gr,) = torch.autograd.grad((torch.softmax(xr, -1) * w).sum(), xr)
+    assert (gx - gr).abs().max().item() <= 1e-6
