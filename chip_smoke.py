@@ -8,7 +8,12 @@ drives the PyTorch port only (it imports neither jax nor flexflow_tpu):
 
 1. build — compiles every CUDA kernel of the port from ``csrc/`` (one
    nvcc per source, all started together) and prints the build seconds
-   and, per source, the compiler's register and spill counts;
+   and, per source, the compiler's register and spill counts; then a SASS
+   census (``cuobjdump -sass``) of each instance of the Hopper
+   flash-attention forward and fused backward: its wgmma (``HGMMA``), TMA
+   load (``UTMALDG``) and, in the backward, bulk reduce-add (``UBLKRED``)
+   instructions, failing if one is missing, beside its registers, spill
+   bytes and dynamic shared memory;
 2. kernels — holds flash decode (B5), top-k (B7) and softmax (B6) against
    their plain-PyTorch versions on the card, and times kernel, plain
    version and one PyTorch library call computing the same function:
@@ -57,7 +62,9 @@ drives the PyTorch port only (it imports neither jax nor flexflow_tpu):
    (``torch.autograd.grad`` of a retained forward) and SDPA's forward plus
    backward as CUDA-graph replays (inputs warm in L2, as a training step
    finds them), and each plain version eagerly, and prints each against
-   its bound;
+   its bound; then the host time to encode one TMA descriptor (the 16-bit
+   forward encodes 3 a launch, the fused backward 5) beside a launch's
+   time from Python;
 6. training — through ``FFModel.fit``, with random weights and data from a
    seed: the BERT-Large proxy (``bench.py``'s flagship: hidden 1024, 16
    heads, 24 layers, seq 512, batch 8, bf16 compute, Adam 1e-4, sparse
@@ -79,7 +86,9 @@ drives the PyTorch port only (it imports neither jax nor flexflow_tpu):
    split, kernels by time in
    ``chiprun_out/profile_train_bert_bf16.txt``).
 
-It prints one ``{"kernels": [...]}`` line, the card's name and power limit
+It prints one ``{"kernels": [...]}`` line (the Hopper instances' entries
+also carry their SASS census, registers, spills and shared memory), the
+card's name and power limit
 (nvidia-smi), and as its last line ``{"ok": true, "device": {...}}``. Any
 failed phase exits non-zero; without CUDA, or without the package, it
 exits 1 and prints no result.
@@ -164,7 +173,9 @@ def time_ms(fn, iters: int, device, graph: bool = False,
 
 
 # ------------------------------------------------------------- build phase
-def build_phase() -> None:
+def build_phase() -> dict:
+    """Builds every kernel and returns the SASS census of the Hopper
+    flash-attention instances (:func:`sass_census`)."""
     from flexflow_tpu_torch.kernels import build_all
 
     t = time.perf_counter()
@@ -182,6 +193,95 @@ def build_phase() -> None:
             f"{min(regs, default=0)}..{max(regs, default=0)} a thread, "
             f"{sum(1 for s in spills if s)} spilling (at most "
             f"{max(spills, default=0)} bytes)")
+    return sass_census()
+
+
+# SASS instructions each Hopper flash-attention instance must hold: wgmma
+# (HGMMA) and TMA tile loads (UTMALDG); the fused backward also the bulk
+# reduce-add of its dQ partials (UBLKRED)
+SASS_NEEDS = {"flash_fwd_sm90": ("HGMMA", "UTMALDG"),
+              "flash_bwd_fused_sm90": ("HGMMA", "UTMALDG", "UBLKRED")}
+
+
+def cuobjdump_path() -> str:
+    import os
+    import shutil
+
+    from flexflow_tpu_torch.kernels.build import nvcc_path
+
+    beside = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    found = shutil.which("cuobjdump") or (beside if os.path.exists(beside)
+                                          else None)
+    if found is None:
+        try:
+            import triton
+        except ImportError:
+            fail("no cuobjdump (neither beside nvcc nor in triton)")
+        found = os.path.join(os.path.dirname(triton.__file__), "backends",
+                             "nvidia", "bin", "cuobjdump")
+    return found
+
+
+def sass_census() -> dict:
+    """Counts, in ``cuobjdump -sass`` of the built flash-attention library,
+    the instructions of :data:`SASS_NEEDS` in every instance of the Hopper
+    kernels, beside its registers and spill bytes (from the compiler's
+    report kept beside the library) and its dynamic shared memory. Fails if
+    an instance lacks an instruction its design needs. Returns {(kernel,
+    dtype, head_dim): entry}."""
+    import re
+
+    from flexflow_tpu_torch.kernels import build
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    lib = build.library_path("flash_attention")
+    sass = subprocess.run([cuobjdump_path(), "-sass", lib],
+                          capture_output=True, text=True, timeout=300)
+    if sass.returncode != 0:
+        fail(f"cuobjdump failed: {sass.stderr.strip()[:400]}")
+    with open(lib + ".log") as f:
+        report = f.read()
+    props, current = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = m.group(1)
+            props[current] = {}
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and current:
+            props[current]["spill_bytes"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current:
+            props[current]["registers"] = int(m.group(1))
+    pat = re.compile(r"(flash_fwd_sm90|flash_bwd_fused_sm90)I"
+                     r"(13__nv_bfloat16|6__half)Li(64|128)E")
+    census = {}
+    for chunk in re.split(r"\n\s*Function : ", sass.stdout)[1:]:
+        name = chunk.split("\n", 1)[0].strip()
+        m = pat.search(name)
+        if not m:
+            continue
+        kernel, d = m.group(1), int(m.group(3))
+        dtype = "bf16" if "bfloat16" in m.group(2) else "fp16"
+        ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?"
+                         r"([A-Z][A-Z0-9_]*)", chunk)
+        counts = {op: ops.count(op) for op in SASS_NEEDS[kernel]}
+        entry = dict(sass=counts, **props.get(name, {}),
+                     smem_bytes=fa.sm90_smem_bytes(
+                         kernel.replace("_sm90", ""), d))
+        census[(kernel.replace("_sm90", ""), dtype, d)] = entry
+        log(f"  sass {kernel}<{dtype}, d{d}>: "
+            + ", ".join(f"{op} {n}" for op, n in counts.items())
+            + f"; registers {entry.get('registers')}, spill bytes "
+            f"{entry.get('spill_bytes')}, dynamic shared memory "
+            f"{entry['smem_bytes']} bytes")
+        missing = [op for op, n in counts.items() if n == 0]
+        if missing:
+            fail(f"{kernel}<{dtype}, d{d}> has no {missing} in its SASS")
+    if len(census) != 8:
+        fail(f"found {len(census)} Hopper flash-attention instances in the "
+             "library's SASS, want 8 (B1 and B2 x bf16/fp16 x d 64/128)")
+    return census
 
 
 # ------------------------------------------------------------ kernel phase
@@ -978,6 +1078,7 @@ def fa_case(device, card: str, shape_name: str, dname: str,
     res = {}
     for name in FA_KERNELS:
         ms = time_ms(launches[name], iters, device, graph=True)
+        eager_ms = time_ms(launches[name], iters, device)
         plain_ms = time_ms(plains[name], plain_iters, device)
         lib_ms = (time_ms(library[name], iters, device, graph=True,
                           stream=side) if name in library else None)
@@ -985,7 +1086,7 @@ def fa_case(device, card: str, shape_name: str, dname: str,
         ae, re, _tol = errs[name]
         res[name] = dict(max_abs_err=ae, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=bound_by,
-                         library_ms=lib_ms)
+                         library_ms=lib_ms, eager_ms=eager_ms)
         lib_txt = f"{lib_ms * 1e3:.1f} us" if lib_ms is not None else "none"
         log(f"kernel {name} {shape_name} {dname} (b{shape['b']} "
             f"h{shape['h']} s{shape['sq']} d{shape['d']}"
@@ -1011,6 +1112,23 @@ def fa_kernel_phase(device, card: str):
         for name, r in fa_case(device, card, shape_name, dname).items():
             out[(name, shape_name, dname)] = r
     fa_case(device, card, "bert", "bf16", dropout=0.1, timed=False)
+    # host cost of the TMA descriptors the 16-bit B1 and B2 encode on every
+    # launch (3 and 5), beside the time a launch from Python takes
+    import torch
+
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    us = fa.tensor_map_us(fa_inputs(FA_SHAPES["bert"], torch.bfloat16,
+                                    device)[0])
+    log(f"host: one TMA descriptor encodes in {us:.3f} us: {3 * us:.3f} us "
+        f"a 16-bit forward launch, {5 * us:.3f} us a fused backward launch "
+        f"(a launch from Python: forward "
+        f"{out[('flash_fwd', 'bert', 'bf16')]['eager_ms'] * 1e3:.1f} us, "
+        f"fused backward "
+        f"{out[('flash_bwd_fused', 'bert', 'bf16')]['eager_ms'] * 1e3:.1f} "
+        f"us) [{card}]")
+    for r in out.values():
+        r.pop("eager_ms")
     return out
 
 
@@ -1287,7 +1405,7 @@ def main() -> None:
         f"{torch.cuda.get_device_name(0)} [{card}]")
 
     profile = "--profile" in sys.argv[1:]
-    build_phase()
+    census = build_phase()
     kern = kernel_phase(device, card)
     kern_int8 = kernel_phase(device, card, int8=True)
     topk_kern = topk_kernel_phase(device, card)
@@ -1343,6 +1461,9 @@ def main() -> None:
             "replaces": FA_KERNELS[kernel][0],
             "launches": sum(train[p]["counts"][kernel] for p in paths),
             **fa_kern[(kernel, shape, dname)],
+            # the Hopper instance this shape runs: SASS census, registers,
+            # spills, shared memory
+            **census.get((kernel, dname, FA_SHAPES[shape]["d"]), {}),
         })
     for compute, name in (("fp32", "flash_decode_int8"),
                           ("bf16", "flash_decode_int8_bf16")):

@@ -26,27 +26,38 @@
 // What bounds them: operations. At BERT-Large shapes (seq 512, d 64) the
 // forward does 4*seq*d = 131k flops per query row against 4*d*2 bytes of
 // q/o traffic plus k/v re-reads from L2; far above the H100's balance point
-// of ~295 bf16 flops per byte. The design is the simple one that is right:
-//   * one CTA per (batch*head, 64-row tile) — q tiles for the forward and
-//     dQ kernels, k tiles for the dK/dV kernel — looping inside the CTA
-//     over the other sequence's 64-row tiles (the TPU's sequential grid
-//     dimension becomes this loop, since CUDA blocks carry nothing from one
-//     to the next); causal loops start or stop at the band, so tiles wholly
-//     above it are never read (the TPU kernels' tile skipping);
-//   * the fused backward has no CTA that owns a dQ row, so dQ accumulates
-//     through fp32 atomicAdd into a (b*h, seq_q, d) buffer the caller
-//     zeroes;
-//   * fp32 inputs run on the CUDA cores (SIMT FMA, 256 threads, tiles
-//     staged as fp32 in shared memory with a one-word row pad, each thread
-//     owning a 4 x 4 block of the 64 x 64 score tile, rows ty*4+i and
-//     columns tx+16j; row max and sums are half-warp shuffles). fp32 has no
-//     tensor-core rate that keeps fp32 products (TF32 would round them);
-//   * bf16 and fp16 inputs run on the tensor cores (mma.sync m16n8k16, fp32
-//     accumulators, 128 threads; see the section below).
-// Not done yet: wgmma and TMA, pipelined (double-buffered) tile loads, a
-// persistent schedule, and split-K for few long heads (PERF.md has the
-// measured times).
+// of ~295 bf16 flops per byte. So the 16-bit forward (B1) and fused
+// backward (B2) are built for Hopper's tensor cores (the section "Hopper
+// path" below):
+//   * every product is a wgmma (64-row warpgroup tiles, operands read from
+//     shared memory through descriptors, P and dS as register operands);
+//   * tiles arrive by TMA into a ring of stages guarded by mbarriers, each
+//     load issued by one thread stages ahead of its use, so loads overlap
+//     the products;
+//   * B1: one CTA per (batch*head, 64 q rows), looping over 128-key tiles
+//     up to the causal band, the softmax of one tile overlapping the P v
+//     product of the one before; B2: one CTA per (batch*head, 128 keys)
+//     with k and v resident, streaming 64-row q, dO and O tiles (and lse)
+//     through the ring; its two warpgroups (64 keys each) work on their
+//     own, each computing delta = rowsum(dO * O) from the tiles TMA brought
+//     while its first products run. No CTA owns a dQ row (the TPU carried
+//     dQ across its sequential grid), so each warpgroup stages its (q tile,
+//     64 keys) partial in fp32 in shared memory and adds it into the zeroed
+//     (b*h, seq_q, d) fp32 buffer with one bulk asynchronous reduce-add
+//     (cp.reduce.async.bulk), in place of per-thread atomics.
+// The rest keeps its first design: one CTA per (batch*head, 64-row tile),
+// looping inside the CTA over the other sequence's 64-row tiles (the TPU's
+// sequential grid dimension becomes this loop); the two-pass backward (B3,
+// B4) in 16 bits runs on mma.sync, and fp32 inputs run every kernel on the
+// CUDA cores (SIMT FMA, 256 threads, tiles staged as fp32 in shared memory
+// with a one-word row pad, each thread owning a 4 x 4 block of the 64 x 64
+// score tile; fp32 has no tensor-core rate that keeps fp32 products: TF32
+// would round them), with dQ of the fused fp32 schedule added by atomics.
+// Not done yet: a persistent schedule, overlap of softmax with the next
+// product inside a warpgroup, and split-K for few long heads (PERF.md has
+// the measured times).
 
+#include <cuda.h>  // CUtensorMap (types only: no driver library is linked)
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -54,6 +65,7 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <chrono>
 #include <type_traits>
 
 namespace {
@@ -64,24 +76,12 @@ constexpr int kSP = kTile + 1; // padded row stride of score tiles
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <>
-__device__ __forceinline__ __half from_f32<__half>(float x) {
-  return __float2half(x);
 }
 
 // x rounded to T and back: what `.astype(T)` leaves of an fp32 value
@@ -502,18 +502,17 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ------------------------------------------------ tensor-core path (16-bit)
-// bf16 and fp16 inputs take mma.sync.m16n8k16 with fp32 accumulators: 128
-// threads (4 warps) per CTA, each warp owning 16 rows of the CTA's 64-row
-// tile. Tiles stay in their 16-bit dtype in shared memory with a 16-byte
-// row pad (row stride D + 8: the 32-bit fragment loads and the ldmatrix
-// rows of a warp fall in distinct banks). A score tile leaves the
-// accumulators as fp32, is masked, exponentiated and scaled in registers,
-// rounded to the dtype and re-packed as the A operand of the next product
-// (the accumulator layout of two adjacent 8-column tiles is the A layout
-// of one 16-wide k step). Operands needed k-major (V, dO, q, K as the B of
-// P V, P^T dO, dS^T q, dS K) come through ldmatrix.trans. The fused
-// backward writes dS to shared memory once, transposed, for the dQ product.
+// ------------------------------------ mma.sync path (16-bit B3 and B4)
+// The two-pass backward in bf16 and fp16 takes mma.sync.m16n8k16 with fp32
+// accumulators: 128 threads (4 warps) per CTA, each warp owning 16 rows of
+// the CTA's 64-row tile. Tiles stay in their 16-bit dtype in shared memory
+// with a 16-byte row pad (row stride D + 8: the 32-bit fragment loads and
+// the ldmatrix rows of a warp fall in distinct banks). A score tile leaves
+// the accumulators as fp32, is masked, exponentiated and scaled in
+// registers, rounded to the dtype and re-packed as the A operand of the
+// next product (the accumulator layout of two adjacent 8-column tiles is
+// the A layout of one 16-wide k step). Operands needed k-major (V, dO, q, K
+// as the B of P^T dO, dS^T q, dS K) come through ldmatrix.trans.
 
 constexpr int kThreadsTC = 128;
 
@@ -666,128 +665,21 @@ __device__ __forceinline__ void rows_times_tile_t(float (&c)[8][4],
   }
 }
 
+// backward over k tiles on the tensor cores (dK, dV): B3
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreadsTC)
-    flash_fwd_tc(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, Shape sh, Dropout dr) {
-  extern __shared__ __align__(16) unsigned char smem_tc[];
-  constexpr int S = D + 8;
-  T* sQ = reinterpret_cast<T*>(smem_tc);
-  T* sK = sQ + kTile * S;
-  T* sV = sK + kTile * S;
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;
-  const int t2 = (lane & 3) * 2;
-  const int q0 = blockIdx.x * kTile;
-  const int bh = blockIdx.y;
-  const int offset = sh.sk - sh.sq;
-  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0+8
-  const T* kb_base = k + (size_t)bh * sh.sk * D;
-  const T* vb_base = v + (size_t)bh * sh.sk * D;
-
-  load_tile16<T, D>(sQ, q + ((size_t)bh * sh.sq + q0) * D);
-
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  const int nkb = k_tiles_for(sh, q0);
-  for (int kb = 0; kb < nkb; ++kb) {
-    const int k0 = kb * kTile;
-    __syncthreads();
-    load_tile16<T, D>(sK, kb_base + (size_t)k0 * D);
-    load_tile16<T, D>(sV, vb_base + (size_t)k0 * D);
-    __syncthreads();
-
-    float s[8][4];
-    rows_times_tile_t<T, D>(s, sQ, warp * 16, sK, lane);
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        if (sh.causal && row0 + 8 * r + offset < k0 + j * 8 + t2 + (e & 1))
-          s[j][e] = kNegInf;
-        mx[r] = fmaxf(mx[r], s[j][e]);
-      }
-    float alpha[2], psum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      alpha[r] = expf(m[r] - m_new);
-      m[r] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[j][e] - m[e >> 1]);
-        psum[e >> 1] += p;
-        // the normaliser sums the UNDROPPED probabilities
-        s[j][e] = dr.on ? p * keep_scale(dr.seed, bh, row0 + 8 * (e >> 1),
-                                         k0 + j * 8 + t2 + (e & 1),
-                                         dr.threshold, dr.scale)
-                        : p;
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 1);
-      psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 2);
-      l[r] = l[r] * alpha[r] + psum[r];
-    }
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
-    uint32_t pa[4][4];
-    acc_to_a<T>(pa, s);
-    tile_times_kmajor<T, D>(acc, pa, sV, lane);
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float l_safe = l[r] == 0.f ? 1.f : l[r];
-    const size_t row = (size_t)bh * sh.sq + row0 + 8 * r;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(o + row * D + n * 8 + t2) = Mma<T>::pack(
-          acc[n][2 * r] / l_safe, acc[n][2 * r + 1] / l_safe);
-    if ((lane & 3) == 0) lse[row] = m[r] + logf(l_safe);
-  }
-}
-
-// backward over k tiles on the tensor cores: B2 (kFused) or B3
-template <typename T, int D, bool kFused>
-__global__ void __launch_bounds__(kThreadsTC)
     flash_bwd_kv_tc(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ o,
-                    const T* __restrict__ dout,
+                    const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dk,
-                    T* __restrict__ dv, float* __restrict__ dq_acc, Shape sh,
-                    Dropout dr) {
+                    T* __restrict__ dv, Shape sh, Dropout dr) {
   extern __shared__ __align__(16) unsigned char smem_tc[];
   constexpr int S = D + 8;
-  constexpr int SS = kTile + 8;  // stride of the dS^T tile, dS[q][key]
   T* sK = reinterpret_cast<T*>(smem_tc);
   T* sV = sK + kTile * S;
   T* sQ = sV + kTile * S;
   T* sdO = sQ + kTile * S;
-  T* sdS = sdO + kTile * S;
-  float* sLse = reinterpret_cast<float*>(sdS + kTile * SS);
+  float* sLse = reinterpret_cast<float*>(sdO + kTile * S);
   float* sDelta = sLse + kTile;
 
   const int lane = threadIdx.x & 31;
@@ -820,20 +712,9 @@ __global__ void __launch_bounds__(kThreadsTC)
     load_tile16<T, D>(sdO, dout + (qbase + q0) * D);
     if (threadIdx.x < kTile) {
       sLse[threadIdx.x] = lse[qbase + q0 + threadIdx.x];
-      if (!kFused) sDelta[threadIdx.x] = delta[qbase + q0 + threadIdx.x];
+      sDelta[threadIdx.x] = delta[qbase + q0 + threadIdx.x];
     }
     __syncthreads();
-    if (kFused) {
-      // delta = rowsum(dO * O): two threads per row
-      const int row = threadIdx.x >> 1;
-      const T* orow = o + (qbase + q0 + row) * D;
-      float sum = 0.f;
-      for (int d = threadIdx.x & 1; d < D; d += 2)
-        sum = fmaf(to_f32(sdO[row * S + d]), to_f32(orow[d]), sum);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      if ((threadIdx.x & 1) == 0) sDelta[row] = sum;
-      __syncthreads();
-    }
 
     // S^T and dP^T: this warp's 16 keys x the tile's 64 queries
     float st[8][4], dpt[8][4];
@@ -865,39 +746,6 @@ __global__ void __launch_bounds__(kThreadsTC)
     // dV += Pd^T dO, dK += dS^T q (q pre-scaled, so dK is exact)
     tile_times_kmajor<T, D>(dv_acc, pa, sdO, lane);
     tile_times_kmajor<T, D>(dk_acc, sa, sQ, lane);
-    if (kFused) {
-      // dS to shared memory as dS[q][key], rounded as in sa
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          sdS[(j * 8 + t2 + (e & 1)) * SS + warp * 16 + g + 8 * (e >> 1)] =
-              from_f32<T>(dpt[j][e]);
-      __syncthreads();
-      // dQ rows are this warp's 16 queries: dQ += dS K, unscaled
-      float dq[D / 8][4];
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
-      uint32_t da[4][4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        frag_a(da[kk], sdS, SS, warp * 16, kk * 16, lane);
-      tile_times_kmajor<T, D>(dq, da, sK, lane);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float* drow = dq_acc + (qbase + q0 + warp * 16 + g + 8 * r) * D;
-        // the two neighbouring columns of an accumulator pair in one
-        // 8-byte atomic (sm_90): on an H100 at the BERT-Large shape it
-        // takes 14 % off the kernel against scalar adds, where a 16-byte
-        // atomic after a lane shuffle was slower
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n)
-          atomicAdd(reinterpret_cast<float2*>(drow + n * 8 + t2),
-                    make_float2(dq[n][2 * r], dq[n][2 * r + 1]));
-      }
-    }
   }
 
 #pragma unroll
@@ -994,6 +842,815 @@ __global__ void __launch_bounds__(kThreadsTC)
   }
 }
 
+// ------------------------------------------- Hopper path: B1 and B2, 16-bit
+// bf16 and fp16 B1 and B2 run on wgmma with TMA tile loads. Each consumer
+// warpgroup owns 64 rows (q rows for B1, keys for B2); a B1 CTA is one
+// warpgroup (two CTAs share an SM), a B2 CTA two. Thread 0 issues the TMA
+// loads into a ring of kStages shared-memory stages whose arrival an
+// mbarrier reports, and refills a stage as soon as every reader is done
+// with it. There is no separate producer warpgroup: the register file is
+// split among the SM's four schedulers, so with a third warpgroup every
+// thread is held to 168 registers (the compiler does not raise the
+// consumers' budget for setmaxnreg), and the fused backward spills there;
+// with eight warps an SM a thread may hold 255. Tiles sit in shared memory
+// as [rows][64] 16-bit sub-tiles in the 128-byte swizzle TMA writes (a
+// d = 128 tile is two sub-tiles side by side); wgmma reads them through
+// descriptors, K-major where the reduction runs along the row (q k^T,
+// k q^T, v dO^T) and MN-major, i.e. transposed by the descriptor, where it
+// runs down the columns (P v, P^T dO, dS^T q, and both operands of dS k).
+// Accumulators are fp32 registers; a score tile is masked, exponentiated
+// and scaled in the accumulator layout, rounded to the dtype and handed to
+// the next product as its register A operand.
+
+constexpr int kWG = 128;   // threads of a warpgroup
+constexpr int kBM = 64;    // B1: q rows of a CTA (one warpgroup)
+constexpr int kBN = 128;   // B1: keys of a streamed tile; B2: keys of a CTA
+constexpr int kBQ = 64;    // B2: q rows of a streamed tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <typename T>
+constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// the 128-byte swizzle needs 1024-byte aligned tiles
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~static_cast<uintptr_t>(1023));
+}
+
+// byte offset of element (row, col) of a [rows][64] 16-bit sub-tile in the
+// 128-byte swizzle: 16-byte chunk c of row r sits at chunk c ^ (r % 8)
+__device__ __forceinline__ uint32_t sw128(int row, int col) {
+  return row * 128 + ((((col >> 3) ^ row) & 7) << 4) + (col & 7) * 2;
+}
+
+// ---- mbarriers, TMA, bulk copies
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// wait until the phase of parity `parity` has completed; a wait that
+// outlasts any tile by far (an arrival that never comes) traps, so the
+// launch fails instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t spins = 0; !done; ++spins) {
+    if (spins == (1u << 24)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// one box of a 3-D tensor map (column, row, head) into shared memory
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int col, int row,
+                                         int head) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col),
+      "r"(row), "r"(head)
+      : "memory");
+}
+
+// `bytes` contiguous bytes (a multiple of 16) into shared memory
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// dst[i] += src[i] in fp32 for `bytes` of shared memory, one asynchronous
+// bulk reduction into global memory
+__device__ __forceinline__ void bulk_reduce_add(float* dst, const float* src,
+                                                uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], "
+      "[%1], %2;\n" ::"l"(dst),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// shared memory of the committed bulk reductions has been read
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// generic-proxy shared-memory writes become visible to wgmma and bulk copies
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// the 128 threads of warpgroup wg (named barrier 2 + wg)
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(2 + wg), "n"(kWG) : "memory");
+}
+
+// ---- wgmma
+// descriptor of a 128-byte-swizzled shared-memory operand: start address,
+// leading and stride byte offsets (16-byte units), swizzle mode 1 (128 B)
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | (1ull << 62);
+}
+
+// K-major: rows of 64 contiguous k values, 8-row groups 1024 B apart (a k
+// step of 16 moves the start 32 B along the row)
+__device__ __forceinline__ uint64_t desc_k(uint32_t addr) {
+  return gmma_desc(addr, 16, 1024);
+}
+
+// MN-major: one row of 64 contiguous m (or n) values per k, 8-k groups
+// 1024 B apart, 64-wide column blocks `block` bytes apart (a k step of 16
+// moves the start 2048 B)
+__device__ __forceinline__ uint64_t desc_mn(uint32_t addr, uint32_t block) {
+  return gmma_desc(addr, block, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous products
+template <int N>
+__device__ __forceinline__ void hold(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0.f;
+}
+
+#define FF_D8(o)                                                         \
+  "+f"(d[o]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]),            \
+      "+f"(d[o + 4]), "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
+#define FF_D32 FF_D8(0), FF_D8(8), FF_D8(16), FF_D8(24)
+#define FF_D64 FF_D32, FF_D8(32), FF_D8(40), FF_D8(48), FF_D8(56)
+#define FF_R32 \
+  "{" "%0, %1, %2, %3, %4, %5, %6, %7, " \
+  "%8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31" "}"
+#define FF_R64 \
+  "{" "%0, %1, %2, %3, %4, %5, %6, %7, " \
+  "%8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, " \
+  "%40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, " \
+  "%56, %57, %58, %59, %60, %61, %62, %63" "}"
+
+// d (64 x N fp32, N/2 a thread) = A (64 x 16) B (16 x N) + (acc ? d : 0),
+// both operands in shared memory; kTA / kTB: A / B MN-major (transposed)
+#define FF_SS(SHAPE, TY, R, DOPS, IA, IB, IS, ITA, ITB)                     \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #IS ", 0;\n"             \
+               "wgmma.mma_async.sync.aligned." SHAPE ".f32." TY "." TY " " R \
+               ", %" #IA ", %" #IB ", p, 1, 1, %" #ITA ", %" #ITB ";\n}\n"   \
+               : DOPS                                                       \
+               : "l"(a), "l"(b), "r"(acc), "n"(kTA), "n"(kTB))
+// d += A (64 x 16) B (16 x N) with A in registers, four 32-bit pairs a
+// thread
+#define FF_RS(SHAPE, TY, R, DOPS, A4, IB, IS, ITB)                          \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #IS ", 0;\n"             \
+               "wgmma.mma_async.sync.aligned." SHAPE ".f32." TY "." TY " " R \
+               ", " A4 ", %" #IB ", p, 1, 1, %" #ITB ";\n}\n"                \
+               : DOPS                                                       \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), \
+                 "n"(kTB))
+
+template <typename T, int kTA, int kTB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int acc) {
+  if constexpr (kBf16<T>)
+    FF_SS("m64n64k16", "bf16", FF_R32, FF_D32, 32, 33, 34, 35, 36);
+  else
+    FF_SS("m64n64k16", "f16", FF_R32, FF_D32, 32, 33, 34, 35, 36);
+}
+template <typename T, int kTA, int kTB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
+                                         uint64_t b, int acc) {
+  if constexpr (kBf16<T>)
+    FF_SS("m64n128k16", "bf16", FF_R64, FF_D64, 64, 65, 66, 67, 68);
+  else
+    FF_SS("m64n128k16", "f16", FF_R64, FF_D64, 64, 65, 66, 67, 68);
+}
+template <typename T, int kTB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (kBf16<T>)
+    FF_RS("m64n64k16", "bf16", FF_R32, FF_D32, "{%32, %33, %34, %35}", 36,
+          37, 38);
+  else
+    FF_RS("m64n64k16", "f16", FF_R32, FF_D32, "{%32, %33, %34, %35}", 36,
+          37, 38);
+}
+template <typename T, int kTB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (kBf16<T>)
+    FF_RS("m64n128k16", "bf16", FF_R64, FF_D64, "{%64, %65, %66, %67}", 68,
+          69, 70);
+  else
+    FF_RS("m64n128k16", "f16", FF_R64, FF_D64, "{%64, %65, %66, %67}", 68,
+          69, 70);
+}
+
+// The accumulator of a 64-row product: thread (warp w, lane l) of the
+// warpgroup holds rows 16w + l/4 and 16w + l/4 + 8 at columns
+// 8j + 2(l%4) + {0, 1}: element e is column 8(e/4) + 2(l%4) + (e&1) of the
+// first row (e&2 == 0) or the second. Columns 16kk..16kk+15 rounded to the
+// dtype are the register A operand of k step kk.
+template <typename T, int N>
+__device__ __forceinline__ void acc_to_a16(uint32_t (&a)[N / 16][4],
+                                           const float (&d)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[kk][i] = Mma<T>::pack(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
+}
+
+// 2^x on the special-function unit (denormal results flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <typename T>
+__device__ __forceinline__ float2 to_f2(uint32_t v) {
+  if constexpr (kBf16<T>)
+    return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
+  else
+    return __half22float2(*reinterpret_cast<__half2*>(&v));
+}
+
+// sum of the products of eight 16-bit pairs
+template <typename T>
+__device__ __forceinline__ float dot8(uint4 a, uint4 b, float s) {
+  const uint32_t x[4] = {a.x, a.y, a.z, a.w};
+  const uint32_t y[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = to_f2<T>(x[i]), v = to_f2<T>(y[i]);
+    s = fmaf(u.x, v.x, s);
+    s = fmaf(u.y, v.y, s);
+  }
+  return s;
+}
+
+// ---- B1: forward
+// A CTA is one warpgroup owning 64 q rows; two CTAs share an SM. Shared
+// memory (bytes from a 1024-aligned base): the q tile, then kStages stages
+// of a k and a v tile (kBN rows each), then barriers.
+template <int D>
+struct FwdLayout {
+  static constexpr int kStages = D == 64 ? 3 : 2;
+  static constexpr int kQ = kBM * D * 2;
+  static constexpr int kKV = kBN * D * 2;
+  static constexpr int kStage0 = kQ;
+  static constexpr int kBar = kQ + kStages * 2 * kKV;
+  static constexpr int kBytes = kBar + 128 + 1024;
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kWG, 2)
+    flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   T* __restrict__ o, float* __restrict__ lse, Shape sh,
+                   Dropout dr) {
+  using L = FwdLayout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + L::kStages;
+  uint64_t* empty = v_full + L::kStages;  // the stage's readers are done
+
+  const int q0 = blockIdx.x * kBM;
+  const int bh = blockIdx.y;
+  const int offset = sh.sk - sh.sq;
+  // k tiles up to the causal band of the tile's last row
+  int nkb = (sh.sk + kBN - 1) / kBN;
+  if (sh.causal)
+    nkb = min(nkb, (min(q0 + kBM, sh.sq) - 1 + offset) / kBN + 1);
+  const int tw = threadIdx.x;
+  const int lane = tw & 31;
+  const int t2 = (lane & 3) * 2;
+  const int row0 = q0 + (tw >> 5) * 16 + (lane >> 2);  // rows row0, row0 + 8
+  const uint32_t base = smem_u32(smem);
+
+  // thread 0 loads k and v tile kb into its stage
+  auto load_kv = [&](int kb) {
+    const int s = kb % L::kStages;
+    unsigned char* kt = smem + L::kStage0 + s * 2 * L::kKV;
+    mbar_expect_tx(k_full + s, L::kKV);
+    for (int sub = 0; sub < D / 64; ++sub)
+      tma_load(kt + sub * kBN * 128, &tm_k, k_full + s, sub * 64, kb * kBN,
+               bh);
+    mbar_expect_tx(v_full + s, L::kKV);
+    for (int sub = 0; sub < D / 64; ++sub)
+      tma_load(kt + L::kKV + sub * kBN * 128, &tm_v, v_full + s, sub * 64,
+               kb * kBN, bh);
+  };
+  if (tw == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(k_full + s, 1);
+      mbar_init(v_full + s, 1);
+      mbar_init(empty + s, kWG / 32);  // one arrival per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tw == 0) {
+    mbar_expect_tx(q_full, L::kQ);
+    for (int sub = 0; sub < D / 64; ++sub)
+      tma_load(smem + sub * kBM * 128, &tm_q, q_full, sub * 64, q0, bh);
+    for (int kb = 0; kb < min(L::kStages, nkb); ++kb) load_kv(kb);
+  }
+
+  int lim[2];  // keys below lim[r] are inside row r's band
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    lim[r] = sh.causal ? min(row0 + 8 * r + offset + 1, sh.sk) : sh.sk;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};
+  float acc[D / 2];
+  zero(acc);
+  float sc[kBN / 2];         // the score tile
+  uint32_t pa[kBN / 16][4];  // P, rounded: the A operand of P v
+  float alpha[2];            // rescale of acc for the tile in sc
+
+  // S = q k^T of k tile kb into sc (issued, not waited for)
+  auto issue_s = [&](int kb) {
+    const int s = kb % L::kStages;
+    const uint32_t kt = base + L::kStage0 + s * 2 * L::kKV;
+    mbar_wait(k_full + s, (kb / L::kStages) & 1);
+    hold(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<T, 0, 0>(sc, desc_k(base + (kk / 4) * kBM * 128 + (kk % 4) * 32),
+                        desc_k(kt + (kk / 4) * kBN * 128 + (kk % 4) * 32),
+                        kk > 0);
+    wgmma_commit();
+  };
+  // the online softmax of the tile in sc, in place: masked (only where the
+  // tile crosses the causal band or the end of seq_k), exponentiated
+  // against the new running max, summed into l UNDROPPED, then dropped out
+  auto softmax = [&](int k0) {
+    const bool edge =
+        k0 + kBN > sh.sk || (sh.causal && k0 + kBN - 1 > q0 + offset);
+    if (edge) {
+#pragma unroll
+      for (int e = 0; e < kBN / 2; ++e)
+        if (k0 + (e >> 2) * 8 + t2 + (e & 1) >= lim[(e >> 1) & 1])
+          sc[e] = kNegInf;
+    }
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int e = 0; e < kBN / 2; ++e)
+      mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
+    float psum[2] = {0.f, 0.f}, mb[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = ex2((m[r] - m_new) * kLog2e);
+      m[r] = m_new;
+      mb[r] = m_new * kLog2e;
+    }
+#pragma unroll
+    for (int e = 0; e < kBN / 2; ++e) {
+      sc[e] = ex2(fmaf(sc[e], kLog2e, -mb[(e >> 1) & 1]));
+      psum[(e >> 1) & 1] += sc[e];
+    }
+    if (dr.on) {
+#pragma unroll
+      for (int e = 0; e < kBN / 2; ++e)
+        sc[e] *= keep_scale(dr.seed, bh, row0 + 8 * ((e >> 1) & 1),
+                            k0 + (e >> 2) * 8 + t2 + (e & 1), dr.threshold,
+                            dr.scale);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 1);
+      psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 2);
+      l[r] = l[r] * alpha[r] + psum[r];
+    }
+  };
+
+  // O += P v of tile kb (v MN-major: the descriptor transposes it)
+  auto issue_pv = [&](int kb) {
+    const int s = kb % L::kStages;
+    const uint32_t vt = base + L::kStage0 + s * 2 * L::kKV + L::kKV;
+    mbar_wait(v_full + s, (kb / L::kStages) & 1);
+    hold(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk)
+      wgmma_rs<T, 1>(acc, pa[kk], desc_mn(vt + kk * 2048, kBN * 128));
+    wgmma_commit();
+  };
+  // stage of tile kb spent: once every warp is done with it, thread 0
+  // refills it with tile kb + kStages
+  auto release = [&](int kb) {
+    const int s = kb % L::kStages;
+    if (lane == 0) mbar_arrive(empty + s);
+    if (tw == 0 && kb + L::kStages < nkb) {
+      mbar_wait(empty + s, (kb / L::kStages) & 1);
+      load_kv(kb + L::kStages);
+    }
+  };
+
+  // Software pipeline: while P v of tile kb - 1 runs on the tensor cores,
+  // the softmax of tile kb runs on the CUDA cores.
+  mbar_wait(q_full, 0);
+  issue_s(0);
+  wgmma_wait<0>();
+  hold(sc);
+  softmax(0);
+  acc_to_a16<T, kBN>(pa, sc);
+  for (int kb = 1; kb < nkb; ++kb) {
+    issue_s(kb);
+    issue_pv(kb - 1);
+    wgmma_wait<1>();
+    hold(sc);
+    softmax(kb * kBN);
+    wgmma_wait<0>();
+    hold(acc);
+    release(kb - 1);
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) acc[e] *= alpha[(e >> 1) & 1];
+    acc_to_a16<T, kBN>(pa, sc);
+  }
+  issue_pv(nkb - 1);
+  wgmma_wait<0>();
+  hold(acc);
+  release(nkb - 1);
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    const float l_safe = l[r] == 0.f ? 1.f : l[r];
+    T* orow = o + ((size_t)bh * sh.sq + row) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(orow + j * 8 + t2) = Mma<T>::pack(
+          acc[4 * j + 2 * r] / l_safe, acc[4 * j + 2 * r + 1] / l_safe);
+    if (t2 == 0) lse[(size_t)bh * sh.sq + row] = m[r] + logf(l_safe);
+  }
+}
+
+// ---- B2: fused backward
+// A CTA is two warpgroups, each owning 64 of the CTA's kBN keys and working
+// on its own: its dK and dV rows, its dS^T in shared memory, and its own
+// dQ partial (dS of its keys times its rows of k), added into dq_acc by its
+// own bulk reduce-add. The two meet only at a stage of the ring: the second
+// to finish with it has thread 0 of its warpgroup refill it. Shared memory
+// (bytes from a 1024-aligned base): the k and v tiles (kBN rows), each
+// warpgroup's dS^T ([64 keys][kBQ]) and fp32 dQ partial ([kBQ][D]), then
+// kStages stages of q, dO, O ([kBQ][D] each) and lse, then each
+// warpgroup's delta, the stage counters and the barriers.
+template <int D>
+struct BwdLayout {
+  // d = 128 fits one stage beside the resident tiles
+  static constexpr int kStages = D == 64 ? 3 : 1;
+  static constexpr int kKV = kBN * D * 2;
+  static constexpr int kT = kBQ * D * 2;
+  static constexpr int kV = kKV;
+  static constexpr int kDS = 2 * kKV;             // + wg * kDSBytes
+  static constexpr int kDSBytes = 64 * kBQ * 2;
+  static constexpr int kDQ = kDS + 2 * kDSBytes;  // + wg * kDQBytes
+  static constexpr int kDQBytes = kBQ * D * 4;
+  static constexpr int kStage0 = kDQ + 2 * kDQBytes;
+  static constexpr int kLse = 3 * kT;
+  static constexpr int kStageBytes = 3 * kT + 1024;
+  static constexpr int kDelta = kStage0 + kStages * kStageBytes;
+  static constexpr int kCount = kDelta + 2 * kBQ * 4;
+  static constexpr int kBar = kCount + 64;
+  static constexpr int kBytes = kBar + 128 + 1024;
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(2 * kWG, 1)
+    flash_bwd_fused_sm90(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_o,
+                         const __grid_constant__ CUtensorMap tm_do,
+                         const float* __restrict__ lse, T* __restrict__ dk,
+                         T* __restrict__ dv, float* __restrict__ dq_acc,
+                         Shape sh, Dropout dr) {
+  using L = BwdLayout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* q_full = kv_full + 1;             // q and lse landed
+  uint64_t* do_full = q_full + L::kStages;    // dO and O landed
+  // warpgroups done with each stage in its current use
+  int* done = reinterpret_cast<int*>(smem + L::kCount);
+
+  const int k0 = blockIdx.x * kBN;
+  const int bh = blockIdx.y;
+  const int offset = sh.sk - sh.sq;
+  // q tiles from the first that reaches key k0 under the causal band
+  const int qb0 = sh.causal ? max(k0 - offset, 0) / kBQ : 0;
+  const int n = sh.sq / kBQ - qb0;
+  const int tc = threadIdx.x;  // 0 .. 2 kWG - 1
+  const int wg = tc / kWG;
+  const int tw = tc % kWG;
+  const int lane = tw & 31;
+  const int t2 = (lane & 3) * 2;
+  const int kr = (tw >> 5) * 16 + (lane >> 2);  // rows kr, kr + 8 of the wg
+  const uint32_t base = smem_u32(smem);
+
+  // loads q tile `it` (q, lse, dO, O) into its stage
+  auto load_q = [&](int it) {
+    const int s = it % L::kStages;
+    const int q0 = (qb0 + it) * kBQ;
+    unsigned char* st = smem + L::kStage0 + s * L::kStageBytes;
+    mbar_expect_tx(q_full + s, L::kT + kBQ * 4);
+    for (int sub = 0; sub < D / 64; ++sub)
+      tma_load(st + sub * kBQ * 128, &tm_q, q_full + s, sub * 64, q0, bh);
+    bulk_load(st + L::kLse, lse + (size_t)bh * sh.sq + q0, kBQ * 4,
+              q_full + s);
+    mbar_expect_tx(do_full + s, 2 * L::kT);
+    for (int sub = 0; sub < D / 64; ++sub) {
+      tma_load(st + L::kT + sub * kBQ * 128, &tm_do, do_full + s, sub * 64,
+               q0, bh);
+      tma_load(st + 2 * L::kT + sub * kBQ * 128, &tm_o, do_full + s,
+               sub * 64, q0, bh);
+    }
+  };
+  if (tc == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(q_full + s, 1);
+      mbar_init(do_full + s, 1);
+      done[s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tc == 0) {
+    mbar_expect_tx(kv_full, 2 * L::kKV);
+    for (int sub = 0; sub < D / 64; ++sub) {
+      tma_load(smem + sub * kBN * 128, &tm_k, kv_full, sub * 64, k0, bh);
+      tma_load(smem + L::kV + sub * kBN * 128, &tm_v, kv_full, sub * 64, k0,
+               bh);
+    }
+    for (int it = 0; it < min(L::kStages, n); ++it) load_q(it);
+  }
+
+  float dk_acc[D / 2], dv_acc[D / 2];
+  zero(dk_acc);
+  zero(dv_acc);
+  const uint32_t k_rows = base + wg * 64 * 128;
+  const uint32_t v_rows = base + L::kV + wg * 64 * 128;
+  const uint32_t ds_tile = base + L::kDS + wg * L::kDSBytes;
+  unsigned char* ds = smem + L::kDS + wg * L::kDSBytes;
+  float* sdq = reinterpret_cast<float*>(smem + L::kDQ + wg * L::kDQBytes);
+  float* s_delta = reinterpret_cast<float*>(smem + L::kDelta) + wg * kBQ;
+  mbar_wait(kv_full, 0);
+
+  for (int it = 0; it < n; ++it) {
+    const int s = it % L::kStages;
+    const uint32_t ph = (it / L::kStages) & 1;
+    const int q0 = (qb0 + it) * kBQ;
+    unsigned char* stp = smem + L::kStage0 + s * L::kStageBytes;
+    const uint32_t st = base + L::kStage0 + s * L::kStageBytes;
+    const float* s_lse = reinterpret_cast<const float*>(stp + L::kLse);
+
+    // S^T = k q^T and dP^T = v dO^T (64 keys x kBQ queries each)
+    float sT[kBQ / 2], dpT[kBQ / 2];
+    mbar_wait(q_full + s, ph);
+    hold(sT);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<T, 0, 0>(
+          sT, desc_k(k_rows + (kk / 4) * kBN * 128 + (kk % 4) * 32),
+          desc_k(st + (kk / 4) * kBQ * 128 + (kk % 4) * 32), kk > 0);
+    wgmma_commit();
+    mbar_wait(do_full + s, ph);
+    hold(dpT);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<T, 0, 0>(
+          dpT, desc_k(v_rows + (kk / 4) * kBN * 128 + (kk % 4) * 32),
+          desc_k(st + L::kT + (kk / 4) * kBQ * 128 + (kk % 4) * 32), kk > 0);
+    wgmma_commit();
+
+    // while the products run: delta = rowsum(dO * O) of the tile's rows,
+    // two threads a row over whole 16-byte chunks (sub-tile `part` when
+    // D = 128)
+    {
+      const int row = tw >> 1, part = tw & 1;
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < D / 16; ++c) {
+        const int chunk = part * (D / 16) + c;
+        const int off = (chunk / 8) * kBQ * 128 + row * 128 +
+                        (((chunk % 8) ^ (row & 7)) << 4);
+        sum = dot8<T>(*reinterpret_cast<const uint4*>(stp + L::kT + off),
+                      *reinterpret_cast<const uint4*>(stp + 2 * L::kT + off),
+                      sum);
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      if (part == 0) s_delta[row] = sum;
+    }
+    warpgroup_sync(wg);
+
+    // P = exp(S - lse), while dP^T is still running: 0 outside the band
+    // and past seq_k, masked only where the tile crosses either
+    const int kw0 = k0 + wg * 64;  // this warpgroup's first key
+    const bool edge =
+        kw0 + 63 >= sh.sk || (sh.causal && q0 + offset < kw0 + 63);
+    float lse2[kBQ / 4], dl[kBQ / 4];  // of this thread's 16 columns
+#pragma unroll
+    for (int j = 0; j < kBQ / 8; ++j) {
+      const float2 v = *reinterpret_cast<const float2*>(s_lse + j * 8 + t2);
+      lse2[2 * j] = v.x * kLog2e;
+      lse2[2 * j + 1] = v.y * kLog2e;
+    }
+    wgmma_wait<1>();
+    hold(sT);
+#pragma unroll
+    for (int e = 0; e < kBQ / 2; ++e)
+      sT[e] = ex2(fmaf(sT[e], kLog2e, -lse2[(e >> 2) * 2 + (e & 1)]));
+    if (edge) {
+#pragma unroll
+      for (int e = 0; e < kBQ / 2; ++e) {
+        const int c = (e >> 2) * 8 + t2 + (e & 1);
+        const int key = kw0 + kr + 8 * ((e >> 1) & 1);
+        if (key >= sh.sk || (sh.causal && q0 + c + offset < key)) sT[e] = 0.f;
+      }
+    }
+    // dS = P * (D * dP - delta); dV takes P * D
+#pragma unroll
+    for (int j = 0; j < kBQ / 8; ++j) {
+      const float2 v = *reinterpret_cast<const float2*>(s_delta + j * 8 + t2);
+      dl[2 * j] = v.x;
+      dl[2 * j + 1] = v.y;
+    }
+    wgmma_wait<0>();
+    hold(dpT);
+    if (dr.on) {
+#pragma unroll
+      for (int e = 0; e < kBQ / 2; ++e) {
+        const float keep = keep_scale(
+            dr.seed, bh, q0 + (e >> 2) * 8 + t2 + (e & 1),
+            kw0 + kr + 8 * ((e >> 1) & 1), dr.threshold, dr.scale);
+        const float p = sT[e];
+        sT[e] = p * keep;
+        dpT[e] = p * (dpT[e] * keep - dl[(e >> 2) * 2 + (e & 1)]);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < kBQ / 2; ++e)
+        dpT[e] = sT[e] * (dpT[e] - dl[(e >> 2) * 2 + (e & 1)]);
+    }
+    uint32_t pa[kBQ / 16][4], sa[kBQ / 16][4];
+    acc_to_a16<T, kBQ>(pa, sT);
+    acc_to_a16<T, kBQ>(sa, dpT);
+
+    // dV += Pd^T dO, dK += dS^T q (q pre-scaled, so dK is exact); dO and
+    // q MN-major
+    hold(dv_acc);
+    hold(dk_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBQ / 16; ++kk)
+      wgmma_rs<T, 1>(dv_acc, pa[kk],
+                     desc_mn(st + L::kT + kk * 2048, kBQ * 128));
+#pragma unroll
+    for (int kk = 0; kk < kBQ / 16; ++kk)
+      wgmma_rs<T, 1>(dk_acc, sa[kk], desc_mn(st + kk * 2048, kBQ * 128));
+    wgmma_commit();
+
+    // dS^T, rounded as in sa, to shared memory: the A operand of dQ
+#pragma unroll
+    for (int kk = 0; kk < kBQ / 16; ++kk)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = (2 * kk + h) * 8 + t2;
+        *reinterpret_cast<uint32_t*>(ds + sw128(kr, c)) = sa[kk][2 * h];
+        *reinterpret_cast<uint32_t*>(ds + sw128(kr + 8, c)) =
+            sa[kk][2 * h + 1];
+      }
+    fence_proxy_async();
+    // the previous tile's reduce has read this warpgroup's dQ partial
+    if (tw == 0) bulk_wait_read();
+    warpgroup_sync(wg);
+
+    // dQ partial (kBQ x D) = dS (kBQ x 64 keys) k (64 keys x D): dS
+    // MN-major from dS^T, k MN-major
+    float dq[D / 2];
+    hold(dq);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 64 / 16; ++kk)
+      wgmma_ss<T, 1, 1>(dq, desc_mn(ds_tile + kk * 2048, 64 * 128),
+                        desc_mn(k_rows + kk * 2048, kBN * 128), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    hold(dq);
+    hold(dv_acc);
+    hold(dk_acc);
+
+    // the fp32 partial to shared memory, then one bulk reduce-add into
+    // dq_acc (the tile's rows are contiguous there)
+    const int qr = (tw >> 5) * 16 + (lane >> 2);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(sdq + (qr + 8 * h) * D + j * 8 + t2) =
+            make_float2(dq[4 * j + 2 * h], dq[4 * j + 2 * h + 1]);
+    fence_proxy_async();
+    warpgroup_sync(wg);
+    if (tw == 0) {
+      bulk_reduce_add(dq_acc + ((size_t)bh * sh.sq + q0) * D, sdq,
+                      kBQ * D * 4);
+      // the warpgroup is done with the stage: the second one to get here
+      // refills it
+      __threadfence_block();
+      if (atomicAdd(done + s, 1) == 1) {
+        done[s] = 0;
+        __threadfence_block();
+        if (it + L::kStages < n) load_q(it + L::kStages);
+      }
+    }
+  }
+  if (tw == 0) bulk_wait_all();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = k0 + wg * 64 + kr + 8 * h;
+    if (key >= sh.sk) continue;  // the ragged end of the last k tile
+    const size_t row = (size_t)bh * sh.sk + key;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(dk + row * D + j * 8 + t2) =
+          Mma<T>::pack(dk_acc[4 * j + 2 * h], dk_acc[4 * j + 2 * h + 1]);
+      *reinterpret_cast<uint32_t*>(dv + row * D + j * 8 + t2) =
+          Mma<T>::pack(dv_acc[4 * j + 2 * h], dv_acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- host side
 template <int D>
 constexpr size_t tc_tile_bytes() {
   return sizeof(uint16_t) * kTile * (D + 8);
@@ -1023,68 +1680,117 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// cuTensorMapEncodeTiled is a driver function; the library links only the
+// runtime, which hands out the driver's entry point
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault,
+                                         &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A (bh, seq, d) 16-bit tensor as a 3-D map over (d, seq, bh): boxes of
+// 64 columns by `rows` rows of one head in the 128-byte swizzle; rows past
+// seq read as zeros.
+cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int bh, int seq,
+                       int d, int rows, bool f16) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
+                                 static_cast<cuuint64_t>(seq) * d * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = fn(
+      map,
+      f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      3, const_cast<void*>(ptr), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // fp32 takes the SIMT kernels, bf16 and fp16 the tensor-core ones (only
 // the chosen one is instantiated for each dtype)
 template <typename T>
 constexpr bool kSimt = std::is_same<T, float>::value;
 
 template <typename T, int D>
-auto fwd_kernel() {
-  if constexpr (kSimt<T>) {
-    return flash_fwd_kernel<T, D>;
-  } else {
-    return flash_fwd_tc<T, D>;
-  }
-}
-
-template <typename T, int D, bool kFused>
-auto bwd_kv_kernel() {
-  if constexpr (kSimt<T>) {
-    return flash_bwd_kv_kernel<T, D, kFused>;
-  } else {
-    return flash_bwd_kv_tc<T, D, kFused>;
-  }
-}
-
-template <typename T, int D>
-auto bwd_q_kernel() {
-  if constexpr (kSimt<T>) {
-    return flash_bwd_q_kernel<T, D>;
-  } else {
-    return flash_bwd_q_tc<T, D>;
-  }
-}
-
-template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                float* lse, int bh, Shape sh, Dropout dr, cudaStream_t st) {
-  auto kernel = fwd_kernel<T, D>();
-  const size_t smem = kSimt<T> ? fwd_smem<D>() : 3 * tc_tile_bytes<D>();
-  static const cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(sh.sq / kTile, bh), kSimt<T> ? kThreads : kThreadsTC, smem,
-           st>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                 static_cast<const T*>(v), static_cast<T*>(o), lse, sh, dr);
+  if constexpr (kSimt<T>) {
+    auto kernel = flash_fwd_kernel<T, D>;
+    static const cudaError_t err = allow_smem(kernel, fwd_smem<D>());
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<dim3(sh.sq / kTile, bh), kThreads, fwd_smem<D>(), st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), lse, sh, dr);
+  } else {
+    constexpr bool f16 = !kBf16<T>;
+    CUtensorMap mq, mk, mv;
+    cudaError_t e;
+    if ((e = tensor_map(&mq, q, bh, sh.sq, D, kBM, f16)) != cudaSuccess ||
+        (e = tensor_map(&mk, k, bh, sh.sk, D, kBN, f16)) != cudaSuccess ||
+        (e = tensor_map(&mv, v, bh, sh.sk, D, kBN, f16)) != cudaSuccess)
+      return static_cast<int>(e);
+    auto kernel = flash_fwd_sm90<T, D>;
+    constexpr size_t smem = FwdLayout<D>::kBytes;
+    static const cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<dim3(sh.sq / kBM, bh), kWG, smem, st>>>(
+        mq, mk, mv, static_cast<T*>(o), lse, sh, dr);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D, bool kFused>
-int launch_bwd_kv_one(const void* q, const void* k, const void* v,
-                      const void* o, const void* dout, const float* lse,
-                      const float* delta, void* dk, void* dv, float* dq_acc,
-                      int bh, Shape sh, Dropout dr, cudaStream_t st) {
-  auto kernel = bwd_kv_kernel<T, D, kFused>();
-  const size_t smem =
-      kSimt<T> ? bwd_kv_smem<D>()
-               : 4 * tc_tile_bytes<D>() + sizeof(uint16_t) * kTile *
-                     (kTile + 8) + 2 * kTile * sizeof(float);
-  static const cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(sh.sk / kTile, bh), kSimt<T> ? kThreads : kThreadsTC, smem,
-           st>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                 static_cast<const T*>(v), static_cast<const T*>(o),
-                 static_cast<const T*>(dout), lse, delta,
-                 static_cast<T*>(dk), static_cast<T*>(dv), dq_acc, sh, dr);
+template <typename T, int D>
+int launch_bwd_fused(const void* q, const void* k, const void* v,
+                     const void* o, const void* dout, const float* lse,
+                     void* dk, void* dv, float* dq_acc, int bh, Shape sh,
+                     Dropout dr, cudaStream_t st) {
+  if constexpr (kSimt<T>) {
+    auto kernel = flash_bwd_kv_kernel<T, D, true>;
+    static const cudaError_t err = allow_smem(kernel, bwd_kv_smem<D>());
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<dim3(sh.sk / kTile, bh), kThreads, bwd_kv_smem<D>(), st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(o),
+        static_cast<const T*>(dout), lse, nullptr, static_cast<T*>(dk),
+        static_cast<T*>(dv), dq_acc, sh, dr);
+  } else {
+    constexpr bool f16 = !kBf16<T>;
+    CUtensorMap mq, mk, mv, mo, mdo;
+    cudaError_t e;
+    if ((e = tensor_map(&mq, q, bh, sh.sq, D, kBQ, f16)) != cudaSuccess ||
+        (e = tensor_map(&mk, k, bh, sh.sk, D, kBN, f16)) != cudaSuccess ||
+        (e = tensor_map(&mv, v, bh, sh.sk, D, kBN, f16)) != cudaSuccess ||
+        (e = tensor_map(&mo, o, bh, sh.sq, D, kBQ, f16)) != cudaSuccess ||
+        (e = tensor_map(&mdo, dout, bh, sh.sq, D, kBQ, f16)) != cudaSuccess)
+      return static_cast<int>(e);
+    auto kernel = flash_bwd_fused_sm90<T, D>;
+    constexpr size_t smem = BwdLayout<D>::kBytes;
+    static const cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<dim3((sh.sk + kBN - 1) / kBN, bh), 2 * kWG, smem, st>>>(
+        mq, mk, mv, mo, mdo, lse, static_cast<T*>(dk), static_cast<T*>(dv),
+        dq_acc, sh, dr);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1094,10 +1800,27 @@ int launch_bwd_kv(const void* q, const void* k, const void* v, const void* o,
                   void* dk, void* dv, float* dq_acc, int fused, int bh,
                   Shape sh, Dropout dr, cudaStream_t st) {
   if (fused)
-    return launch_bwd_kv_one<T, D, true>(q, k, v, o, dout, lse, delta, dk,
-                                         dv, dq_acc, bh, sh, dr, st);
-  return launch_bwd_kv_one<T, D, false>(q, k, v, o, dout, lse, delta, dk,
-                                        dv, dq_acc, bh, sh, dr, st);
+    return launch_bwd_fused<T, D>(q, k, v, o, dout, lse, dk, dv, dq_acc, bh,
+                                  sh, dr, st);
+  if constexpr (kSimt<T>) {
+    auto kernel = flash_bwd_kv_kernel<T, D, false>;
+    static const cudaError_t err = allow_smem(kernel, bwd_kv_smem<D>());
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<dim3(sh.sk / kTile, bh), kThreads, bwd_kv_smem<D>(), st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), nullptr, static_cast<const T*>(dout), lse,
+        delta, static_cast<T*>(dk), static_cast<T*>(dv), nullptr, sh, dr);
+  } else {
+    auto kernel = flash_bwd_kv_tc<T, D>;
+    constexpr size_t smem = 4 * tc_tile_bytes<D>() + 2 * kTile * sizeof(float);
+    static const cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<dim3(sh.sk / kTile, bh), kThreadsTC, smem, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+        static_cast<T*>(dk), static_cast<T*>(dv), sh, dr);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int D>
@@ -1105,10 +1828,16 @@ int launch_bwd_q(const void* q, const void* k, const void* v,
                  const void* dout, const float* lse, const float* delta,
                  void* dq, float sm_scale, int bh, Shape sh, Dropout dr,
                  cudaStream_t st) {
-  auto kernel = bwd_q_kernel<T, D>();
-  const size_t smem = kSimt<T> ? bwd_q_smem<D>()
-                               : 4 * tc_tile_bytes<D>() +
-                                     2 * kTile * sizeof(float);
+  size_t smem;
+  void (*kernel)(const T*, const T*, const T*, const T*, const float*,
+                 const float*, T*, float, Shape, Dropout);
+  if constexpr (kSimt<T>) {
+    kernel = flash_bwd_q_kernel<T, D>;
+    smem = bwd_q_smem<D>();
+  } else {
+    kernel = flash_bwd_q_tc<T, D>;
+    smem = 4 * tc_tile_bytes<D>() + 2 * kTile * sizeof(float);
+  }
   static const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<dim3(sh.sq / kTile, bh), kSimt<T> ? kThreads : kThreadsTC, smem,
@@ -1202,6 +1931,32 @@ extern "C" int ff_flash_bwd_q(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   FF_DISPATCH(launch_bwd_q, q, k, v, dout, static_cast<const float*>(lse),
               static_cast<const float*>(delta), dq, sm_scale, bh, sh, dr, st)
+}
+
+// Dynamic shared memory of the Hopper kernels: kernel 0 = forward (B1),
+// 1 = fused backward (B2), for head dim d (64 or 128); -1 otherwise.
+extern "C" int ff_flash_sm90_smem_bytes(int kernel, int d) {
+  if (d != 64 && d != 128) return -1;
+  if (kernel == 0)
+    return d == 64 ? FwdLayout<64>::kBytes : FwdLayout<128>::kBytes;
+  if (kernel == 1)
+    return d == 64 ? BwdLayout<64>::kBytes : BwdLayout<128>::kBytes;
+  return -1;
+}
+
+// Host microseconds to encode one TMA descriptor for a (bh, seq, d) bf16
+// tensor, the mean over `iters` encodings (a B1 launch encodes 3, a B2
+// launch 5); negative if an encoding fails.
+extern "C" double ff_flash_tensor_map_us(const void* ptr, int bh, int seq,
+                                         int d, int iters) {
+  CUtensorMap map;
+  const auto t0 = std::chrono::steady_clock::now();
+  for (int i = 0; i < iters; ++i)
+    if (tensor_map(&map, ptr, bh, seq, d, 64, false) != cudaSuccess)
+      return -1.0;
+  const std::chrono::duration<double, std::micro> us =
+      std::chrono::steady_clock::now() - t0;
+  return us.count() / (iters > 0 ? iters : 1);
 }
 
 extern "C" const char* ff_cuda_error_string(int code) {

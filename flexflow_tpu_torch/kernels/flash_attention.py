@@ -25,10 +25,13 @@ design follows. Beside them:
 * :func:`launch_count` — launches of each kernel since the last
   :func:`reset_launch_count`.
 
-The kernels tile both sequences in 64 rows, whatever ``block_q`` and
-``block_k`` say: those are the TPU's VMEM tiling, honoured by the plain
-versions (they change only the order of the fp32 sums); every block the
-attention router picks is a multiple of 64.
+The kernels pick their own tiles, whatever ``block_q`` and ``block_k``
+say: those are the TPU's VMEM tiling, honoured by the plain versions (they
+change only the order of the fp32 sums). The 16-bit forward and fused
+backward (wgmma and TMA) take 64 q rows by 128-key tiles and 128 keys by
+64-row q tiles, masking the ragged end of a key sequence that is a
+multiple of 64 only; the other kernels tile both sequences in 64 rows.
+Every block the attention router picks is a multiple of 64.
 """
 from __future__ import annotations
 
@@ -221,13 +224,19 @@ def _bwd_tile(qs, k, v, dor, lse, delta, q0, bq, k0, bk, causal, offset,
     return _rounded(pd, dor.dtype), ds
 
 
+def _bwd_operands(q, do):
+    """(q pre-scaled, dO in q's dtype): what every backward kernel reads;
+    the fused CUDA kernel computes delta itself and needs nothing more."""
+    return _prescale(q), do.to(q.dtype)
+
+
 def _bwd_inputs(q, out, do, fused: bool):
     """(q pre-scaled, dO in q's dtype, delta = rowsum(dO * O) in fp32):
     the fused schedule takes delta from dO cast to q's dtype (in-kernel),
     the two-pass one from dO as given (outside the kernels)."""
-    dor = do.to(q.dtype)
+    qs, dor = _bwd_operands(q, do)
     delta = ((dor if fused else do).float() * out.float()).sum(dim=-1)
-    return _prescale(q), dor, delta
+    return qs, dor, delta
 
 
 def _tiles(sq, sk, bq, bk, causal, outer_is_k: bool):
@@ -344,7 +353,29 @@ def _library():
             + [i, p]
         for fn in (lib.ff_flash_fwd, lib.ff_flash_bwd_kv, lib.ff_flash_bwd_q):
             fn.restype = ctypes.c_int
+        lib.ff_flash_sm90_smem_bytes.argtypes = [i, i]
+        lib.ff_flash_sm90_smem_bytes.restype = ctypes.c_int
+        lib.ff_flash_tensor_map_us.argtypes = [p] + [i] * 4
+        lib.ff_flash_tensor_map_us.restype = ctypes.c_double
     return lib
+
+
+def tensor_map_us(t, iters: int = 1000) -> float:
+    """Host microseconds to encode one TMA descriptor of the (b, h, s, d)
+    16-bit CUDA tensor ``t``, the mean over ``iters`` encodings: the 16-bit
+    forward encodes 3 a launch, the fused backward 5."""
+    b, h, s, d = t.shape
+    us = _library().ff_flash_tensor_map_us(t.data_ptr(), b * h, s, d, iters)
+    if us < 0:
+        raise RuntimeError("flash_attention: TMA descriptor encoding failed")
+    return us
+
+
+def sm90_smem_bytes(kernel: str, head_dim: int) -> int:
+    """Dynamic shared memory a launch of the 16-bit ``flash_fwd`` or
+    ``flash_bwd_fused`` kernel takes at ``head_dim``."""
+    return _library().ff_flash_sm90_smem_bytes(
+        ("flash_fwd", "flash_bwd_fused").index(kernel), head_dim)
 
 
 def _check_cuda_inputs(what: str, q, k, v, *more) -> None:
@@ -374,7 +405,7 @@ def _check_cuda_inputs(what: str, q, k, v, *more) -> None:
         if t.element_size() == 2 and t.data_ptr() % 16:
             raise ValueError(f"{what}: 16-bit inputs must start on a "
                              "16-byte boundary (the tensor-core kernels "
-                             "stage tiles in 16-byte loads)")
+                             "load tiles by TMA and in 16-byte loads)")
 
 
 def _dropout_args(dropout: float, seed: int):
@@ -457,8 +488,13 @@ def _launch_bwd_q(qs, k, v, dor, lse, delta, dq, causal, dropout, seed):
 def _backward_cuda(q, k, v, out, lse, do, causal, dropout, seed, fused):
     import torch
 
-    qs, dor, delta = _bwd_inputs(q, out, do, fused)
-    dor, lse, delta = dor.contiguous(), lse.contiguous(), delta.contiguous()
+    # the fused kernel computes delta itself: no host-side delta for it
+    if fused:
+        qs, dor = _bwd_operands(q, do)
+    else:
+        qs, dor, delta = _bwd_inputs(q, out, do, fused=False)
+        delta = delta.contiguous()
+    dor, lse = dor.contiguous(), lse.contiguous()
     _check_cuda_inputs("flash_attention backward", q, k, v, out, dor)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)

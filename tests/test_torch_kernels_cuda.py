@@ -151,6 +151,76 @@ def test_flash_attention_kernels_match_plain(dtype, causal, sq, sk, d,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("b,h,causal,sq,sk,d,dropout", [
+    (4, 40, False, 256, 256, 64, 0.0),    # b*h 160: more than one wave
+    (4, 40, True, 192, 192, 128, 0.0),    # ... with ragged 128-row tiles
+    (1, 2, False, 2048, 2048, 64, 0.0),   # long fused: the ring wraps
+    (1, 2, True, 2048, 2048, 128, 0.0),   # many times
+    (2, 4, False, 512, 512, 64, 0.1),
+    (2, 4, True, 512, 512, 128, 0.1),
+])
+def test_flash_attention_hopper_kernels_match_plain(dtype, b, h, causal, sq,
+                                                    sk, d, dropout):
+    """The 16-bit forward and fused backward (wgmma, TMA ring, dQ by bulk
+    reduce-add) at shapes past the small cases above: several waves of
+    CTAs, seq 2048 (which the JAX rule still sends to the fused backward),
+    dropout at seq 512."""
+    dev = _cuda()
+    q, k, v, do = _fa_inputs(7, dtype, dev, b=b, h=h, sq=sq, sk=sk, d=d)
+    seed = 977
+    out_tol, grad_tol = FA_TOL[dtype]
+    blk = 128 if sq % 128 == 0 else 64
+    fa.reset_launch_count()
+    out, lse = fa._flash_forward(q, k, v, causal, blk, blk, dropout, seed)
+    want_out, want_lse = fa.flash_forward_plain(q, k, v, causal, blk, blk,
+                                                dropout, seed)
+    got = fa._flash_backward(q, k, v, want_out, want_lse, do, causal, blk,
+                             blk, dropout, seed, fused=True)
+    want = fa.flash_backward_plain(q, k, v, want_out, want_lse, do, causal,
+                                   blk, blk, dropout, seed, fused=True)
+    torch.cuda.synchronize()
+    assert fa.launch_count("flash_fwd") == 1
+    assert fa.launch_count("flash_bwd_fused") == 1
+    assert (out.float() - want_out.float()).abs().max().item() <= out_tol
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert _rel_err(g, w) <= grad_tol, (name, _rel_err(g, w))
+
+
+@pytest.mark.cuda
+def test_fused_backward_launches_no_host_side_delta():
+    """The fused CUDA route launches exactly: the fill of the fp32 dQ
+    buffer, q's pre-scale, the fused kernel, dQ's 1/sqrt(d) scale and its
+    cast; the kernel computes delta itself, so no fp32 reduction runs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = _cuda()
+    q, k, v, do = _fa_inputs(5, torch.bfloat16, dev, sq=256, sk=256)
+    out, lse = fa._flash_forward(q, k, v, False, 64, 64)
+    fa._flash_backward(q, k, v, out, lse, do, False, 64, 64, fused=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fa._flash_backward(q, k, v, out, lse, do, False, 64, 64, fused=True)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    kinds = {"flash_bwd_fused": 0, "fill": 0, "mul": 0, "copy": 0}
+    for n in names:
+        low = n.lower()
+        kind = ("flash_bwd_fused" if "flash_bwd_fused" in low
+                else "fill" if "fill" in low or "memset" in low
+                else "mul" if "mul" in low
+                else "copy" if "copy" in low else n)
+        kinds[kind] = kinds.get(kind, 0) + 1
+    assert kinds == {"flash_bwd_fused": 1, "fill": 1, "mul": 2, "copy": 1}, \
+        names
+    assert not any("reduce" in n.lower() for n in names), names
+
+
+@pytest.mark.cuda
 def test_flash_attention_autograd_launches_the_kernels():
     """Through the autograd Function: grads equal the plain version's, and
     the backward takes the fused schedule at this shape."""
