@@ -10,9 +10,11 @@ drives the PyTorch port only (it imports neither jax nor flexflow_tpu):
    nvcc per source, all started together) and prints the build seconds
    and, per source, the compiler's register and spill counts; then a SASS
    census (``cuobjdump -sass``) of each instance of the Hopper
-   flash-attention forward and fused backward: its wgmma (``HGMMA``), TMA
-   load (``UTMALDG``) and, in the backward, bulk reduce-add (``UBLKRED``)
-   instructions, failing if one is missing, beside its registers, spill
+   flash-attention forward and fused backward (its wgmma ``HGMMA``, TMA
+   load ``UTMALDG`` and, in the backward, bulk reduce-add ``UBLKRED``
+   instructions) and of the fp32 two-pass backward (B3 and B4 at d 64 and
+   128: its ``cp.async`` copies ``LDGSTS`` and 128-bit shared loads
+   ``LDS.128``), failing if one is missing, beside its registers, spill
    bytes and dynamic shared memory;
 2. kernels — holds flash decode (B5), top-k (B7) and softmax (B6) against
    their plain-PyTorch versions on the card, and times kernel, plain
@@ -62,9 +64,10 @@ drives the PyTorch port only (it imports neither jax nor flexflow_tpu):
    (``torch.autograd.grad`` of a retained forward) and SDPA's forward plus
    backward as CUDA-graph replays (inputs warm in L2, as a training step
    finds them), and each plain version eagerly, and prints each against
-   its bound; then the host time to encode one TMA descriptor (the 16-bit
-   forward encodes 3 a launch, the fused backward 5) beside a launch's
-   time from Python;
+   its bound; at seq 16384 one ``pair B3+B4`` line holds the two-pass
+   kernels' sum against SDPA's backward in the same call; then the host
+   time to encode one TMA descriptor (the 16-bit forward encodes 3 a
+   launch, the fused backward 5) beside a launch's time from Python;
 6. training — through ``FFModel.fit``, with random weights and data from a
    seed: the BERT-Large proxy (``bench.py``'s flagship: hidden 1024, 16
    heads, 24 layers, seq 512, batch 8, bf16 compute, Adam 1e-4, sparse
@@ -82,12 +85,15 @@ drives the PyTorch port only (it imports neither jax nor flexflow_tpu):
    the same step through the einsum core, and with the softmax kernel
    against the same step through ``torch.softmax``. It prints p50 step
    ms, samples/s and MFU against 989 TF/s; ``--profile`` adds one
-   BERT-Large step under ``torch.profiler`` (busy share, flash/GEMM/other
-   split, kernels by time in
-   ``chiprun_out/profile_train_bert_bf16.txt``).
+   BERT-Large step and one GPT-2 seq 16384 fp32 step under
+   ``torch.profiler`` (busy share, flash/GEMM/other split, flash time by
+   kernel, kernels by time in ``profile_train_bert_bf16.txt`` and
+   ``profile_train_long_fp32.txt`` of the output directory).
 
-It prints one ``{"kernels": [...]}`` line (the Hopper instances' entries
-also carry their SASS census, registers, spills and shared memory), the
+It prints one ``{"kernels": [...]}`` line (the entries of the instances
+the census covers also carry their SASS counts, registers, spills and
+shared memory; the two-pass entries SDPA's backward as
+``pair_library_ms``), the
 card's name and power limit
 (nvidia-smi), and as its last line ``{"ok": true, "device": {...}}``. Any
 failed phase exits non-zero; without CUDA, or without the package, it
@@ -196,11 +202,28 @@ def build_phase() -> dict:
     return sass_census()
 
 
-# SASS instructions each Hopper flash-attention instance must hold: wgmma
-# (HGMMA) and TMA tile loads (UTMALDG); the fused backward also the bulk
-# reduce-add of its dQ partials (UBLKRED)
+# SASS instructions each flash-attention instance built for Hopper must
+# hold (an entry with a dot also needs that modifier, e.g. LDS.128): the
+# 16-bit forward and fused backward wgmma (HGMMA) and TMA tile loads
+# (UTMALDG), the fused backward also the bulk reduce-add of its dQ partials
+# (UBLKRED); the fp32 two-pass backward its cp.async ring (LDGSTS) and
+# 128-bit shared loads (LDS.128)
 SASS_NEEDS = {"flash_fwd_sm90": ("HGMMA", "UTMALDG"),
-              "flash_bwd_fused_sm90": ("HGMMA", "UTMALDG", "UBLKRED")}
+              "flash_bwd_fused_sm90": ("HGMMA", "UTMALDG", "UBLKRED"),
+              "flash_bwd_dkv_f32": ("LDGSTS", "LDS.128"),
+              "flash_bwd_dq_f32": ("LDGSTS", "LDS.128")}
+# instances the census must find: B1 and B2 x bf16/fp16 x d 64/128, B3
+# and B4 fp32 x d 64/128
+SASS_INSTANCES = 12
+
+
+def sass_count(ops, need: str) -> int:
+    """Instructions of ``ops`` (full opcodes, e.g. ``LDS.U.128``) with the
+    opcode and every modifier of ``need``."""
+    stem, *mods = need.split(".")
+    return sum(1 for op in ops
+               if op.split(".")[0] == stem
+               and all(m in op.split(".")[1:] for m in mods))
 
 
 def cuobjdump_path() -> str:
@@ -224,8 +247,8 @@ def cuobjdump_path() -> str:
 
 def sass_census() -> dict:
     """Counts, in ``cuobjdump -sass`` of the built flash-attention library,
-    the instructions of :data:`SASS_NEEDS` in every instance of the Hopper
-    kernels, beside its registers and spill bytes (from the compiler's
+    the instructions of :data:`SASS_NEEDS` in every instance of the kernels
+    it names, beside its registers and spill bytes (from the compiler's
     report kept beside the library) and its dynamic shared memory. Fails if
     an instance lacks an instruction its design needs. Returns {(kernel,
     dtype, head_dim): entry}."""
@@ -254,22 +277,26 @@ def sass_census() -> dict:
         if m and current:
             props[current]["registers"] = int(m.group(1))
     pat = re.compile(r"(flash_fwd_sm90|flash_bwd_fused_sm90)I"
-                     r"(13__nv_bfloat16|6__half)Li(64|128)E")
+                     r"(13__nv_bfloat16|6__half)Li(64|128)E"
+                     r"|(flash_bwd_dkv_f32|flash_bwd_dq_f32)ILi(64|128)E")
     census = {}
     for chunk in re.split(r"\n\s*Function : ", sass.stdout)[1:]:
         name = chunk.split("\n", 1)[0].strip()
         m = pat.search(name)
         if not m:
             continue
-        kernel, d = m.group(1), int(m.group(3))
-        dtype = "bf16" if "bfloat16" in m.group(2) else "fp16"
+        if m.group(1):
+            kernel, d = m.group(1), int(m.group(3))
+            dtype = "bf16" if "bfloat16" in m.group(2) else "fp16"
+        else:
+            kernel, d, dtype = m.group(4), int(m.group(5)), "fp32"
         ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?"
-                         r"([A-Z][A-Z0-9_]*)", chunk)
-        counts = {op: ops.count(op) for op in SASS_NEEDS[kernel]}
+                         r"([A-Z][A-Z0-9_]*(?:\.[A-Z0-9_]+)*)", chunk)
+        counts = {op: sass_count(ops, op) for op in SASS_NEEDS[kernel]}
         entry = dict(sass=counts, **props.get(name, {}),
-                     smem_bytes=fa.sm90_smem_bytes(
-                         kernel.replace("_sm90", ""), d))
-        census[(kernel.replace("_sm90", ""), dtype, d)] = entry
+                     smem_bytes=fa.smem_bytes(kernel, d))
+        short = kernel.replace("_sm90", "").replace("_f32", "")
+        census[(short, dtype, d)] = entry
         log(f"  sass {kernel}<{dtype}, d{d}>: "
             + ", ".join(f"{op} {n}" for op, n in counts.items())
             + f"; registers {entry.get('registers')}, spill bytes "
@@ -278,9 +305,10 @@ def sass_census() -> dict:
         missing = [op for op, n in counts.items() if n == 0]
         if missing:
             fail(f"{kernel}<{dtype}, d{d}> has no {missing} in its SASS")
-    if len(census) != 8:
-        fail(f"found {len(census)} Hopper flash-attention instances in the "
-             "library's SASS, want 8 (B1 and B2 x bf16/fp16 x d 64/128)")
+    if len(census) != SASS_INSTANCES:
+        fail(f"found {len(census)} flash-attention instances in the "
+             f"library's SASS, want {SASS_INSTANCES} (B1 and B2 x bf16/fp16 "
+             "x d 64/128, B3 and B4 fp32 x d 64/128)")
     return census
 
 
@@ -1094,6 +1122,19 @@ def fa_case(device, card: str, shape_name: str, dname: str,
             f"{re:.3g}), {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
             f"sdpa {lib_txt}, bound {bound_ms * 1e3:.2f} us ({bound_by}; "
             f"{bound_ms / ms:.3f} of it) [{card}]")
+    if flops_long:
+        # the two-pass pair against SDPA's backward, which computes the
+        # same dq, dk, dv in one call
+        pair = res["flash_bwd_dkv"]["ms"] + res["flash_bwd_dq"]["ms"]
+        sdpa_bwd = res["flash_bwd_fused"]["library_ms"]
+        for name in ("flash_bwd_dkv", "flash_bwd_dq"):
+            res[name]["pair_library_ms"] = sdpa_bwd
+        bound = sum(res[n]["bound_ms"] for n in ("flash_bwd_dkv",
+                                                  "flash_bwd_dq"))
+        log(f"pair B3+B4 {shape_name} {dname}: {pair * 1e3:.1f} us against "
+            f"sdpa backward {sdpa_bwd * 1e3:.1f} us ({pair / sdpa_bwd:.3f}x)"
+            f"; bound {bound * 1e3:.2f} us ({bound / pair:.3f} of it) "
+            f"[{card}]")
     fwdbwd = time_ms(lambda i: torch.autograd.grad(
         F.scaled_dot_product_attention(*leaves, is_causal=causal), leaves,
         do), iters, device, graph=True, stream=side)
@@ -1322,7 +1363,8 @@ def train_phase(device, card: str, kind: str, compute: str, steps: int,
         f"[{card}]")
     res = dict(counts=counts, p50_ms=p50 * 1e3, losses=losses)
     if profile:
-        profile_train(ff, x[:batch], y[:batch], label, p50)
+        profile_train(ff, x[:batch], y[:batch],
+                      f"long {compute}" if seq == LONG_SEQ else label, p50)
     del ff
     torch.cuda.empty_cache()
     return res
@@ -1334,6 +1376,7 @@ def profile_train(ff, x, y, label: str, step_s: float) -> None:
     p50 step and writes the kernels by total time to
     ``chiprun_out/profile_train_<label>.txt``."""
     import os
+    import re
 
     import torch
     from torch.autograd import DeviceType
@@ -1363,6 +1406,14 @@ def profile_train(ff, x, y, label: str, step_s: float) -> None:
         f"{gemm / 1e3:.3f} ms ({gemm / busy_us:.3f}), other "
         f"{(busy_us - flash - gemm) / 1e3:.3f} ms; "
         f"{sum(e.count for e in kernels)} kernel launches")
+    by_kernel = {}
+    for e in kernels:
+        m = re.search(r"flash_\w+", e.key)
+        if m:
+            by_kernel[m.group(0)] = (by_kernel.get(m.group(0), 0.0)
+                                     + e.self_device_time_total)
+    log(f"profile train {label}: flash attention by kernel: "
+        + ", ".join(f"{n} {us / 1e3:.3f} ms" for n, us in by_kernel.items()))
     os.makedirs("chiprun_out", exist_ok=True)
     path = os.path.join("chiprun_out",
                         f"profile_train_{label.replace(' ', '_')}.txt")
@@ -1427,7 +1478,8 @@ def main() -> None:
                             profile=profile),
         "gpt2": train_phase(device, card, "gpt2", "fp32", steps=3, warmup=1),
         "long": train_phase(device, card, "gpt2", "fp32", steps=2, warmup=0,
-                            seq=LONG_SEQ, batch=1, check_grads=False),
+                            seq=LONG_SEQ, batch=1, check_grads=False,
+                            profile=profile),
         "softmax": train_phase(device, card, "gpt2", "fp32", steps=3,
                                warmup=1, softmax_kernel=True),
     }

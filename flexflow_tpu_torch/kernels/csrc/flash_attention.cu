@@ -45,17 +45,38 @@
 //     64 keys) partial in fp32 in shared memory and adds it into the zeroed
 //     (b*h, seq_q, d) fp32 buffer with one bulk asynchronous reduce-add
 //     (cp.reduce.async.bulk), in place of per-thread atomics.
+// fp32 inputs run every kernel on the CUDA cores (SIMT FMA): fp32 has no
+// tensor-core rate that keeps fp32 products (TF32 would round them). There
+// the bound is the issue rate of shared-memory loads beside the FMAs: an
+// SM serves about one shared-memory wavefront a clock against four
+// warp-wide FFMAs. The fp32 two-pass backward (B3 dK/dV, B4 dQ; the
+// section "fp32 two-pass backward" below) is built for that:
+//   * every operand load is a 128-bit LDS from tiles padded by 4 floats a
+//     row, read without bank conflicts, and a lane's register block is
+//     8 x 8 (8 x 4 for the d 128 score tile), so each load feeds 16 FFMAs
+//     (4 for each quarter warp's wavefront; a 4 x 4 block of 32-bit loads
+//     feeds 2); P = 2^(s log2 e - lse log2 e) on the special-function unit
+//     (ex2.approx, as in the 16-bit kernels);
+//   * to hold 8 x 8 blocks in 255 registers a CTA's 8 warps form two
+//     groups that split each tile's products (B3: S^T, dV and dP^T, dK;
+//     B4: S and dP, then half the keys of dQ each); the two warps of a
+//     pair hand raw S and dP over through shared memory under a named
+//     barrier and finish P and dS for half of the rows each;
+//   * the streamed tiles (q, dO, lse, delta for B3; k, v for B4) arrive by
+//     16-byte cp.async into a 2-stage ring (one stage for B3 at d 128),
+//     the next tile's copy in flight while this tile's products run, one
+//     CTA barrier a tile;
+//   * B4 walks its q tiles from the last, so the CTAs with the most k
+//     tiles under the causal band start first (B3's k tile 0 already is);
+//     only tiles that cross the band take the mask compare.
 // The rest keeps its first design: one CTA per (batch*head, 64-row tile),
 // looping inside the CTA over the other sequence's 64-row tiles (the TPU's
-// sequential grid dimension becomes this loop); the two-pass backward (B3,
-// B4) in 16 bits runs on mma.sync, and fp32 inputs run every kernel on the
-// CUDA cores (SIMT FMA, 256 threads, tiles staged as fp32 in shared memory
-// with a one-word row pad, each thread owning a 4 x 4 block of the 64 x 64
-// score tile; fp32 has no tensor-core rate that keeps fp32 products: TF32
-// would round them), with dQ of the fused fp32 schedule added by atomics.
-// Not done yet: a persistent schedule, overlap of softmax with the next
-// product inside a warpgroup, and split-K for few long heads (PERF.md has
-// the measured times).
+// sequential grid dimension becomes this loop): the two-pass backward in
+// 16 bits on mma.sync, and the fp32 forward and fused backward with tiles
+// staged in shared memory with a one-word row pad, each thread owning a
+// 4 x 4 block of the 64 x 64 score tile, dQ of the fused fp32 schedule
+// added by atomics. Not done yet: a persistent schedule and split-K for
+// few long heads (PERF.md has the measured times).
 
 #include <cuda.h>  // CUtensorMap (types only: no driver library is linked)
 #include <cuda_bf16.h>
@@ -76,6 +97,15 @@ constexpr int kSP = kTile + 1; // padded row stride of score tiles
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the special-function unit (denormal results flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -297,16 +327,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ------------------------------------------- backward over k tiles (dK, dV)
-// fused = true: B2 — delta from dO and O in-kernel, dQ by atomicAdd into
-// dq_acc. fused = false: B3 — delta read from `delta`, no dQ.
-template <typename T, int D, bool kFused>
+// ---------------------------- fused backward over k tiles (dK, dV, dQ): B2
+// delta from dO and O in-kernel, dQ by atomicAdd into dq_acc
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ o,
                         const T* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta, T* __restrict__ dk,
+                        const float* __restrict__ lse, T* __restrict__ dk,
                         T* __restrict__ dv, float* __restrict__ dq_acc,
                         Shape sh, Dropout dr) {
   extern __shared__ float smem[];
@@ -346,12 +374,9 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();  // readers of the previous q tile are done
     load_tile<T, D>(sQ, q + (qbase + q0) * D);
     load_tile<T, D>(sdO, dout + (qbase + q0) * D);
-    if (threadIdx.x < kTile) {
-      sLse[threadIdx.x] = lse[qbase + q0 + threadIdx.x];
-      if (!kFused) sDelta[threadIdx.x] = delta[qbase + q0 + threadIdx.x];
-    }
+    if (threadIdx.x < kTile) sLse[threadIdx.x] = lse[qbase + q0 + threadIdx.x];
     __syncthreads();
-    if (kFused) {
+    {
       // delta = rowsum(dO * O): four threads per row, shuffled together
       const int row = threadIdx.x >> 2;
       const int part = threadIdx.x & 3;
@@ -395,7 +420,7 @@ __global__ void __launch_bounds__(kThreads)
     // dV += Pd^T dO, dK += dS^T q (q pre-scaled, so dK is exact)
     scores_times_tile<D, true>(sPd, sdO, ty, tx, dv_acc);
     scores_times_tile<D, true>(sdS, sQ, ty, tx, dk_acc);
-    if (kFused) {
+    {
       // dQ rows are q rows ty*4+i: dQ += dS k, unscaled (the caller scales)
       float dq[4][D / 16];
 #pragma unroll
@@ -423,82 +448,508 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ------------------------------------------------- backward over q tiles (dQ)
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, const T* __restrict__ dout,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ delta, T* __restrict__ dq,
-                       float sm_scale, Shape sh, Dropout dr) {
-  extern __shared__ float smem[];
-  constexpr int P = D + 1;
-  float* sQ = smem;
-  float* sdO = sQ + kTile * P;
-  float* sK = sdO + kTile * P;
-  float* sV = sK + kTile * P;
-  float* sdS = sV + kTile * P;  // 64 x kSP
-  float* sLse = sdS + kTile * kSP;
-  float* sDelta = sLse + kTile;
+// ------------------------- fp32 two-pass backward: B3 (dK, dV), B4 (dQ)
+// A CTA keeps kRows rows of one sequence resident (keys for B3, q rows for
+// B4) and streams 64-row tiles of the other through a ring of kStages
+// cp.async stages. Its 8 warps form two groups of 4 that split each tile's
+// work: for B3, group 0 computes S^T = k q^T and dV += Pd^T dO, group 1
+// dP^T = v dO^T and dK += dS^T q; for B4, group 0 computes S = q k^T,
+// group 1 dP = dO v^T, and each group adds dS k over half of the tile's
+// keys into its own dQ partial (summed once at the end). Warp w of group 0
+// and warp w of group 1 own the same kWarpRows rows and finish P, dS (and
+// B3's Pd) for half of them each, handing raw S and dP over through shared
+// memory under a named barrier of the pair (dkv_hand_over, dq_hand_over).
+// A lane holds an 8-row block of its warp's rows (rg + kRG*i),
+// score columns cg + kCG*j and output columns 4*cg + 4*kCG*jj + e, so each
+// 128-bit shared load feeds 16 FFMAs (8 x 8 blocks; 8 x 4 for the score
+// tile at d 128). Operand fragments of a quarter warp are one broadcast
+// address or 8 consecutive padded rows (stride D + 4: 4 banks apart), and
+// the scalar P/dS exchange hits 32 distinct banks (score stride 72 or 80).
+template <int D>
+struct TwoPass {
+  static constexpr int kThreads = 256;         // two groups of 4 warps
+  static constexpr int kRG = D == 64 ? 4 : 2;  // row groups of a warp
+  static constexpr int kCG = 32 / kRG;         // column groups of a warp
+  static constexpr int kTM = 8;                // rows of a lane
+  static constexpr int kTN = kTile / kCG;      // score columns of a lane
+  static constexpr int kDN = D / kCG;          // output columns of a lane
+  static constexpr int kWarpRows = kRG * kTM;  // 32 (d 64) or 16 (d 128)
+  static constexpr int kRows = 4 * kWarpRows;  // resident rows: 128 or 64
+  static constexpr int kStride = D + 4;        // padded row of a (rows, D) tile
+  static constexpr int kSStride = kTile + 32 / kRG;  // padded score row
+  static constexpr int kTileFloats = kTile * kStride;
+  // B3 at d 128 holds one stage: two would pass the 227 KB of a block
+  static constexpr int kDkvStages = D == 64 ? 2 : 1;
+};
 
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int q0 = blockIdx.x * kTile;
-  const int bh = blockIdx.y;
-  const int offset = sh.sk - sh.sq;
-  const size_t qbase = (size_t)bh * sh.sq;
-  const T* kb_base = k + (size_t)bh * sh.sk * D;
-  const T* vb_base = v + (size_t)bh * sh.sk * D;
+// 16 bytes from global to shared memory without passing through registers
+// (cp.async, L1 bypassed); with `valid` false the 16 bytes are zero-filled
+// and nothing is read
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  asm volatile(
+      "cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+          static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+      "l"(src), "r"(valid ? 16 : 0)
+      : "memory");
+}
 
-  load_tile<T, D>(sQ, q + (qbase + q0) * D);
-  load_tile<T, D>(sdO, dout + (qbase + q0) * D);
-  if (threadIdx.x < kTile) {
-    sLse[threadIdx.x] = lse[qbase + q0 + threadIdx.x];
-    sDelta[threadIdx.x] = delta[qbase + q0 + threadIdx.x];
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// named barrier `id` over `threads` threads: arrive and wait
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// rows [0, kRowsT) of a (rows, D) fp32 tile at `src` into shared memory
+// with row stride D + 4, as 16-byte asynchronous copies by 256 threads;
+// rows from `valid` on are zero-filled
+template <int D, int kRowsT>
+__device__ __forceinline__ void copy_rows_async(float* dst, const float* src,
+                                                int valid) {
+  constexpr int kChunks = D / 4;
+  static_assert(kRowsT * kChunks % 256 == 0, "whole rounds of 256 threads");
+#pragma unroll
+  for (int n = 0; n < kRowsT * kChunks / 256; ++n) {
+    const int i = threadIdx.x + n * 256;
+    const int r = i / kChunks;
+    const int c = (i % kChunks) * 4;
+    const bool ok = r < valid;
+    cp_async16(dst + r * (D + 4) + c, ok ? src + (size_t)r * D + c : src, ok);
   }
+}
 
-  float acc[4][D / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.f;
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
 
-  const int nkb = k_tiles_for(sh, q0);
-  for (int kb = 0; kb < nkb; ++kb) {
-    const int k0 = kb * kTile;
-    __syncthreads();
-    load_tile<T, D>(sK, kb_base + (size_t)k0 * D);
-    load_tile<T, D>(sV, vb_base + (size_t)k0 * D);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    rows_dot_rows<D>(sQ, sK, ty, tx, s);
-    rows_dot_rows<D>(sdO, sV, ty, tx, dp);
+__device__ __forceinline__ float float4_at(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// acc[i][j] = sum_d A[rg + kRG*i][d] * B[cg + kCG*j][d], d in order, over
+// two tiles of row stride D + 4 (A: the warp's resident rows; B: a
+// streamed tile)
+template <int D>
+__device__ __forceinline__ void nt_tile(const float* A, const float* B,
+                                        int rg, int cg,
+                                        float (&acc)[8][TwoPass<D>::kTN]) {
+  using C = TwoPass<D>;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-      const int qpos = q0 + r;
+  for (int i = 0; i < C::kTM; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        float sv = s[i][j];
-        if (sh.causal && qpos + offset < k0 + c) sv = kNegInf;
-        const float p = expf(sv - sLse[r]);
-        float dpj = dp[i][j];
-        if (dr.on)
-          dpj *= keep_scale(dr.seed, bh, qpos, k0 + c, dr.threshold, dr.scale);
-        sdS[r * kSP + c] = round_to<T>(p * (dpj - sDelta[r]));
+    for (int j = 0; j < C::kTN; ++j) acc[i][j] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < D; d += 4) {
+    float4 a[C::kTM], b[C::kTN];
+#pragma unroll
+    for (int i = 0; i < C::kTM; ++i)
+      a[i] = lds4(A + (rg + C::kRG * i) * C::kStride + d);
+#pragma unroll
+    for (int j = 0; j < C::kTN; ++j)
+      b[j] = lds4(B + (cg + C::kCG * j) * C::kStride + d);
+#pragma unroll
+    for (int i = 0; i < C::kTM; ++i)
+#pragma unroll
+      for (int j = 0; j < C::kTN; ++j) {
+        acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
+        acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
+        acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
+        acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
+      }
+  }
+}
+
+// acc[i][n] += sum_c X[rg + kRG*i][c] * M[c][n], c in order over kDepth
+// columns of a warp's score rows X (row stride kSStride) and rows of a
+// (64, D) tile M (row stride D + 4), for this lane's output columns
+// n = 4*cg + 4*kCG*jj + e
+template <int D, int kDepth>
+__device__ __forceinline__ void nn_tile(const float* X, const float* M,
+                                        int rg, int cg,
+                                        float (&acc)[8][TwoPass<D>::kDN]) {
+  using C = TwoPass<D>;
+#pragma unroll 2
+  for (int c = 0; c < kDepth; c += 4) {
+    float4 x[C::kTM];
+#pragma unroll
+    for (int i = 0; i < C::kTM; ++i)
+      x[i] = lds4(X + (rg + C::kRG * i) * C::kSStride + c);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float4 m[C::kDN / 4];
+#pragma unroll
+      for (int jj = 0; jj < C::kDN / 4; ++jj)
+        m[jj] = lds4(M + (c + e) * C::kStride + 4 * cg + 4 * C::kCG * jj);
+#pragma unroll
+      for (int i = 0; i < C::kTM; ++i) {
+        const float xv = float4_at(x[i], e);
+#pragma unroll
+        for (int jj = 0; jj < C::kDN / 4; ++jj) {
+          acc[i][4 * jj + 0] = fmaf(xv, m[jj].x, acc[i][4 * jj + 0]);
+          acc[i][4 * jj + 1] = fmaf(xv, m[jj].y, acc[i][4 * jj + 1]);
+          acc[i][4 * jj + 2] = fmaf(xv, m[jj].z, acc[i][4 * jj + 2]);
+          acc[i][4 * jj + 3] = fmaf(xv, m[jj].w, acc[i][4 * jj + 3]);
+        }
       }
     }
+  }
+}
+
+template <int D>
+__device__ __forceinline__ float& score_at(float* X, int rg, int cg, int i,
+                                           int j) {
+  using C = TwoPass<D>;
+  return X[(rg + C::kRG * i) * C::kSStride + cg + C::kCG * j];
+}
+
+// The hand-over between the two warps of a pair, who hold the same lane
+// blocks of one score tile: group 0 S (B3: S^T), group 1 dP (B3: dP^T).
+// Each writes the raw half of its block that the other finishes (rows i
+// in [4, 8) go from group 0, masked; rows [0, 4) from group 1), both wait
+// at the pair's barrier, each finishes its own half into the shared rows
+// (P = 2^(s log2 e - lse log2 e), dS = P (D dP - delta); B3 also the
+// dropped P^T), and both wait again before the products that read them.
+// kMask: the tile crosses the causal band (only group 0 masks).
+
+// B3: columns are queries q0 + cg + kCG*j (lse and delta from the stage),
+// rows keys key0 + kRG*i; xp receives dS^T, xpd the dropped P^T
+template <int D, int kGroup, bool kMask>
+__device__ __forceinline__ void dkv_hand_over(
+    const float (&sc)[8][TwoPass<D>::kTN], float* xp, float* xpd,
+    const float* sLse, const float* sDelta, int key0, int q0, int rg,
+    int cg, int off, int bh, const Dropout& dr, int bar) {
+  using C = TwoPass<D>;
+  constexpr int kMine = 4 * kGroup;
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii) {
+    const int i = 4 - kMine + ii;
+#pragma unroll
+    for (int j = 0; j < C::kTN; ++j) {
+      float v = sc[i][j];
+      if (kMask && q0 + cg + C::kCG * j + off < key0 + C::kRG * i)
+        v = kNegInf;
+      score_at<D>(kGroup == 0 ? xp : xpd, rg, cg, i, j) = v;
+    }
+  }
+  bar_sync(bar, 64);
+#pragma unroll
+  for (int j = 0; j < C::kTN; ++j) {
+    const int c = cg + C::kCG * j;
+    const int qpos = q0 + c;
+    const float l2 = sLse[c] * kLog2e;
+    const float dl = sDelta[c];
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii) {
+      const int i = kMine + ii;
+      const int key = key0 + C::kRG * i;
+      float& x = score_at<D>(xp, rg, cg, i, j);
+      float& xd = score_at<D>(xpd, rg, cg, i, j);
+      float sv = kGroup == 0 ? sc[i][j] : x;
+      if (kGroup == 0 && kMask && qpos + off < key) sv = kNegInf;
+      float dpv = kGroup == 0 ? xd : sc[i][j];
+      const float p = ex2(fmaf(sv, kLog2e, -l2));
+      float pd = p;
+      if (dr.on) {
+        const float keep =
+            keep_scale(dr.seed, bh, qpos, key, dr.threshold, dr.scale);
+        pd = p * keep;
+        dpv = dpv * keep;
+      }
+      xd = pd;
+      x = p * (dpv - dl);
+    }
+  }
+  bar_sync(bar, 64);
+}
+
+// B4: rows are queries qpos0 + kRG*i (this group's half: lse * log2 e in
+// l2, delta in dl), columns keys k0 + cg + kCG*j; xp receives dS
+template <int D, int kGroup, bool kMask>
+__device__ __forceinline__ void dq_hand_over(
+    const float (&sc)[8][TwoPass<D>::kTN], float* xp, const float (&l2)[4],
+    const float (&dl)[4], int qpos0, int k0, int rg, int cg, int off,
+    int bh, const Dropout& dr, int bar) {
+  using C = TwoPass<D>;
+  constexpr int kMine = 4 * kGroup;
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii) {
+    const int i = 4 - kMine + ii;
+#pragma unroll
+    for (int j = 0; j < C::kTN; ++j) {
+      float v = sc[i][j];
+      if (kMask && qpos0 + C::kRG * i + off < k0 + cg + C::kCG * j)
+        v = kNegInf;
+      score_at<D>(xp, rg, cg, i, j) = v;
+    }
+  }
+  bar_sync(bar, 64);
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii) {
+    const int i = kMine + ii;
+    const int qpos = qpos0 + C::kRG * i;
+#pragma unroll
+    for (int j = 0; j < C::kTN; ++j) {
+      const int key = k0 + cg + C::kCG * j;
+      float& x = score_at<D>(xp, rg, cg, i, j);
+      float sv = kGroup == 0 ? sc[i][j] : x;
+      if (kGroup == 0 && kMask && qpos + off < key) sv = kNegInf;
+      float dpv = kGroup == 0 ? x : sc[i][j];
+      if (dr.on)
+        dpv *= keep_scale(dr.seed, bh, qpos, key, dr.threshold, dr.scale);
+      x = ex2(fmaf(sv, kLog2e, -l2[ii])) * (dpv - dl[ii]);
+    }
+  }
+  bar_sync(bar, 64);
+}
+
+// B3: one CTA per (kRows keys, batch*head), k and v resident, q/dO/lse/
+// delta tiles of 64 rows streamed from the first q tile inside the band.
+// k tile 0 (the most q tiles under the causal band) is blockIdx.x 0, so the
+// heaviest CTAs start first.
+template <int D>
+__global__ void __launch_bounds__(TwoPass<D>::kThreads, 1)
+    flash_bwd_dkv_f32(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      float* __restrict__ dk, float* __restrict__ dv,
+                      Shape sh, Dropout dr) {
+  using C = TwoPass<D>;
+  constexpr int kStages = C::kDkvStages;
+  constexpr int kStage = 2 * C::kTileFloats + 2 * kTile;  // q, dO, lse, delta
+  extern __shared__ __align__(16) float smem_f32[];
+  float* sK = smem_f32;
+  float* sV = sK + C::kRows * C::kStride;
+  float* sP = sV + C::kRows * C::kStride;     // S^T / dS^T rows
+  float* sPd = sP + C::kRows * C::kSStride;   // dP^T / dropped P^T rows
+  float* ring = sPd + C::kRows * C::kSStride;
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int group = warp >> 2;  // 0: S^T, P, dV; 1: dP^T, dS^T, dK
+  const int wr = (warp & 3) * C::kWarpRows;  // the warp's rows in the CTA
+  const int rg = lane / C::kCG;
+  const int cg = lane % C::kCG;
+  const int k0 = blockIdx.x * C::kRows;
+  const int bh = blockIdx.y;
+  const int off = sh.sk - sh.sq;
+  const int kw = k0 + wr;  // the warp's first key
+  const size_t qbase = (size_t)bh * sh.sq;
+  const size_t kbase = (size_t)bh * sh.sk + k0;
+
+  // rows past seq_k read as zeros and are never written
+  copy_rows_async<D, C::kRows>(sK, k + kbase * D, sh.sk - k0);
+  copy_rows_async<D, C::kRows>(sV, v + kbase * D, sh.sk - k0);
+  auto load_stage = [&](int qb, int s) {
+    float* st = ring + s * kStage;
+    const size_t row0 = qbase + (size_t)qb * kTile;
+    copy_rows_async<D, kTile>(st, q + row0 * D, kTile);
+    copy_rows_async<D, kTile>(st + C::kTileFloats, dout + row0 * D, kTile);
+    if (threadIdx.x < 32) {
+      const int lo = threadIdx.x < 16;
+      const int part4 = 4 * (threadIdx.x & 15);
+      cp_async16(st + 2 * C::kTileFloats + (lo ? 0 : kTile) + part4,
+                 (lo ? lse : delta) + row0 + part4, true);
+    }
+    cp_async_commit();
+  };
+
+  float acc[8][C::kDN];  // dV rows (group 0) or dK rows (group 1)
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int n = 0; n < C::kDN; ++n) acc[i][n] = 0.f;
+
+  const int nqb = sh.sq / kTile;
+  const int qb0 = first_q_tile(sh, k0);
+  float* xp = sP + wr * C::kSStride;
+  float* xpd = sPd + wr * C::kSStride;
+  const float* nt_rows = (group ? sV : sK) + wr * C::kStride;
+  load_stage(qb0, 0);  // the resident k and v join this group of copies
+  for (int qb = qb0; qb < nqb; ++qb) {
+    const int s = kStages == 2 ? (qb - qb0) & 1 : 0;
+    // tile qb has landed for every thread, and every thread is done with
+    // the tile before it, whose stage the next copy refills
+    cp_async_wait_all();
     __syncthreads();
-    scores_times_tile<D, false>(sdS, sK, ty, tx, acc);
+    if (kStages == 2 && qb + 1 < nqb) load_stage(qb + 1, s ^ 1);
+    const int q0 = qb * kTile;
+    const float* sQ = ring + s * kStage;
+    const float* sdO = sQ + C::kTileFloats;
+    const float* sLse = sdO + C::kTileFloats;
+    const float* sDelta = sLse + kTile;
+    // the pair adds nothing when its keys lie past the band of every query
+    // of the tile, or past seq_k
+    if (!((sh.causal && q0 + kTile - 1 + off < kw) || kw >= sh.sk)) {
+      float sc[8][C::kTN];  // S^T (group 0) or dP^T (group 1)
+      nt_tile<D>(nt_rows, group ? sdO : sQ, rg, cg, sc);
+      const bool mask = sh.causal && q0 + off < kw + C::kWarpRows - 1;
+      const int bar = 1 + (warp & 3);
+      if (group == 0) {
+        if (mask)
+          dkv_hand_over<D, 0, true>(sc, xp, xpd, sLse, sDelta, kw + rg, q0,
+                                    rg, cg, off, bh, dr, bar);
+        else
+          dkv_hand_over<D, 0, false>(sc, xp, xpd, sLse, sDelta, kw + rg, q0,
+                                     rg, cg, off, bh, dr, bar);
+        nn_tile<D, kTile>(xpd, sdO, rg, cg, acc);  // dV += Pd^T dO
+      } else {
+        dkv_hand_over<D, 1, false>(sc, xp, xpd, sLse, sDelta, kw + rg, q0,
+                                   rg, cg, off, bh, dr, bar);
+        // dK += dS^T q (q pre-scaled, so dK is exact)
+        nn_tile<D, kTile>(xp, sQ, rg, cg, acc);
+      }
+    }
+    if (kStages == 1 && qb + 1 < nqb) {
+      __syncthreads();  // every reader is done with the one stage
+      load_stage(qb + 1, 0);
+    }
   }
 
+  float* out = group ? dk : dv;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    T* drow = dq + (qbase + q0 + ty * 4 + i) * D;
+  for (int i = 0; i < 8; ++i) {
+    const int key = kw + rg + C::kRG * i;
+    if (key >= sh.sk) continue;
+    float* row = out + ((size_t)bh * sh.sk + key) * D;
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j)
-      drow[tx + 16 * j] = from_f32<T>(acc[i][j] * sm_scale);
+    for (int jj = 0; jj < C::kDN / 4; ++jj)
+      *reinterpret_cast<float4*>(row + 4 * cg + 4 * C::kCG * jj) =
+          make_float4(acc[i][4 * jj], acc[i][4 * jj + 1],
+                      acc[i][4 * jj + 2], acc[i][4 * jj + 3]);
+  }
+}
+
+// B4: one CTA per (kRows q rows, batch*head), q and dO resident, k/v tiles
+// of 64 keys streamed up to the causal band. blockIdx.x 0 takes the LAST q
+// tile (the most k tiles under the band), so the heaviest CTAs start first.
+template <int D>
+__global__ void __launch_bounds__(TwoPass<D>::kThreads, 1)
+    flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dq,
+                     float sm_scale, Shape sh, Dropout dr) {
+  using C = TwoPass<D>;
+  constexpr int kStage = 2 * C::kTileFloats;  // k, v
+  extern __shared__ __align__(16) float smem_f32[];
+  float* sQ = smem_f32;
+  float* sdO = sQ + C::kRows * C::kStride;
+  float* sP = sdO + C::kRows * C::kStride;  // P, then dS
+  float* ring = sP + C::kRows * C::kSStride;
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int group = warp >> 2;  // 0: S, P; 1: dP, dS
+  const int wr = (warp & 3) * C::kWarpRows;
+  const int rg = lane / C::kCG;
+  const int cg = lane % C::kCG;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * C::kRows;
+  const int bh = blockIdx.y;
+  const int off = sh.sk - sh.sq;
+  const int qw = q0 + wr;  // the warp's first q row
+  const size_t qbase = (size_t)bh * sh.sq;
+  const size_t kbase = (size_t)bh * sh.sk;
+  const int valid = min(C::kRows, sh.sq - q0);
+
+  // rows past seq_q read as zeros and are never written
+  copy_rows_async<D, C::kRows>(sQ, q + (qbase + q0) * D, valid);
+  copy_rows_async<D, C::kRows>(sdO, dout + (qbase + q0) * D, valid);
+  auto load_stage = [&](int kb, int s) {
+    float* st = ring + s * kStage;
+    const size_t row0 = kbase + (size_t)kb * kTile;
+    copy_rows_async<D, kTile>(st, k + row0 * D, kTile);
+    copy_rows_async<D, kTile>(st + C::kTileFloats, v + row0 * D, kTile);
+    cp_async_commit();
+  };
+
+  // lse * log2(e) and delta of the half of the lane's rows this group
+  // finishes (rows 4 * group + ii); rows past seq_q read 0
+  float l2[4], dl[4], acc[8][C::kDN];
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii) {
+    const int row = qw + rg + C::kRG * (4 * group + ii);
+    l2[ii] = row < sh.sq ? lse[qbase + row] * kLog2e : 0.f;
+    dl[ii] = row < sh.sq ? delta[qbase + row] : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int n = 0; n < C::kDN; ++n) acc[i][n] = 0.f;
+
+  // k tiles up to the band of the CTA's last valid row
+  const int nkb = sh.causal ? min(sh.sk / kTile,
+                                  (q0 + valid - 1 + off) / kTile + 1)
+                            : sh.sk / kTile;
+  float* xp = sP + wr * C::kSStride;
+  const float* nt_rows = (group ? sdO : sQ) + wr * C::kStride;
+  load_stage(0, 0);  // the resident q and dO join this group of copies
+  for (int kb = 0, s = 0; kb < nkb; ++kb, s ^= 1) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (kb + 1 < nkb) load_stage(kb + 1, s ^ 1);
+    const int k0 = kb * kTile;
+    const float* sK = ring + s * kStage;
+    float sc[8][C::kTN];  // S (group 0) or dP (group 1)
+    nt_tile<D>(nt_rows, sK + (group ? C::kTileFloats : 0), rg, cg, sc);
+    const bool mask = sh.causal && qw + off < k0 + kTile - 1;
+    const int bar = 1 + (warp & 3);
+    if (group == 0) {
+      if (mask)
+        dq_hand_over<D, 0, true>(sc, xp, l2, dl, qw + rg, k0, rg, cg, off, bh,
+                                 dr, bar);
+      else
+        dq_hand_over<D, 0, false>(sc, xp, l2, dl, qw + rg, k0, rg, cg, off,
+                                  bh, dr, bar);
+    } else {
+      dq_hand_over<D, 1, false>(sc, xp, l2, dl, qw + rg, k0, rg, cg, off, bh,
+                                dr, bar);
+    }
+    // dQ += dS k over this group's half of the tile's keys
+    nn_tile<D, kTile / 2>(xp + group * (kTile / 2),
+                          sK + group * (kTile / 2) * C::kStride, rg, cg, acc);
+  }
+
+  // dQ = (group 0's partial + group 1's) / sqrt(d): group 1 hands its
+  // partial over through the ring, lane for lane
+  constexpr int kV = 8 * C::kDN / 4;  // float4s of a lane's partial
+  float4* hand = reinterpret_cast<float4*>(ring);
+  __syncthreads();  // the last tile's readers are done with the ring
+  if (group == 1) {
+#pragma unroll
+    for (int v4 = 0; v4 < kV; ++v4)
+      hand[((warp & 3) * kV + v4) * 32 + lane] =
+          make_float4(acc[v4 / 2][4 * (v4 & 1)], acc[v4 / 2][4 * (v4 & 1) + 1],
+                      acc[v4 / 2][4 * (v4 & 1) + 2],
+                      acc[v4 / 2][4 * (v4 & 1) + 3]);
+  }
+  __syncthreads();
+  if (group == 1) return;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = qw + rg + C::kRG * i;
+#pragma unroll
+    for (int jj = 0; jj < C::kDN / 4; ++jj) {
+      const float4 o = hand[((warp & 3) * kV + i * (C::kDN / 4) + jj) * 32 +
+                            lane];
+      if (row >= sh.sq) continue;
+      *reinterpret_cast<float4*>(dq + (qbase + row) * D + 4 * cg +
+                                 4 * C::kCG * jj) =
+          make_float4((acc[i][4 * jj] + o.x) * sm_scale,
+                      (acc[i][4 * jj + 1] + o.y) * sm_scale,
+                      (acc[i][4 * jj + 2] + o.z) * sm_scale,
+                      (acc[i][4 * jj + 3] + o.w) * sm_scale);
+    }
   }
 }
 
@@ -866,7 +1317,6 @@ constexpr int kWG = 128;   // threads of a warpgroup
 constexpr int kBM = 64;    // B1: q rows of a CTA (one warpgroup)
 constexpr int kBN = 128;   // B1: keys of a streamed tile; B2: keys of a CTA
 constexpr int kBQ = 64;    // B2: q rows of a streamed tile
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <typename T>
 constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
@@ -1114,13 +1564,6 @@ __device__ __forceinline__ void acc_to_a16(uint32_t (&a)[N / 16][4],
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       a[kk][i] = Mma<T>::pack(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
-}
-
-// 2^x on the special-function unit (denormal results flush to 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 template <typename T>
@@ -1664,10 +2107,26 @@ template <int D>
 constexpr size_t bwd_kv_smem() {
   return sizeof(float) * (4 * kTile * (D + 1) + 2 * kTile * kSP + 2 * kTile);
 }
+// fp32 B3: resident k, v, the score rows P (then dS^T) and Pd^T, and its
+// stages of q, dO, lse and delta; fp32 B4: resident q, dO and score rows,
+// two stages of k, v
 template <int D>
-constexpr size_t bwd_q_smem() {
-  return sizeof(float) * (4 * kTile * (D + 1) + kTile * kSP + 2 * kTile);
+constexpr size_t dkv_f32_smem() {
+  using C = TwoPass<D>;
+  return sizeof(float) *
+         (2 * C::kRows * C::kStride + 2 * C::kRows * C::kSStride +
+          C::kDkvStages * (2 * C::kTileFloats + 2 * kTile));
 }
+template <int D>
+constexpr size_t dq_f32_smem() {
+  using C = TwoPass<D>;
+  return sizeof(float) * (2 * C::kRows * C::kStride + C::kRows * C::kSStride +
+                          2 * 2 * C::kTileFloats);
+}
+static_assert(dkv_f32_smem<64>() <= 232448 && dq_f32_smem<64>() <= 232448 &&
+                  dkv_f32_smem<128>() <= 232448 &&
+                  dq_f32_smem<128>() <= 232448,
+              "fits the 227 KB a block may use");
 
 // Shared memory above 48 KB must be opted into for each kernel. The
 // callers keep the result in a function-local static, so the attribute is
@@ -1765,13 +2224,13 @@ int launch_bwd_fused(const void* q, const void* k, const void* v,
                      void* dk, void* dv, float* dq_acc, int bh, Shape sh,
                      Dropout dr, cudaStream_t st) {
   if constexpr (kSimt<T>) {
-    auto kernel = flash_bwd_kv_kernel<T, D, true>;
+    auto kernel = flash_bwd_kv_kernel<T, D>;
     static const cudaError_t err = allow_smem(kernel, bwd_kv_smem<D>());
     if (err != cudaSuccess) return static_cast<int>(err);
     kernel<<<dim3(sh.sk / kTile, bh), kThreads, bwd_kv_smem<D>(), st>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(o),
-        static_cast<const T*>(dout), lse, nullptr, static_cast<T*>(dk),
+        static_cast<const T*>(dout), lse, static_cast<T*>(dk),
         static_cast<T*>(dv), dq_acc, sh, dr);
   } else {
     constexpr bool f16 = !kBf16<T>;
@@ -1803,13 +2262,16 @@ int launch_bwd_kv(const void* q, const void* k, const void* v, const void* o,
     return launch_bwd_fused<T, D>(q, k, v, o, dout, lse, dk, dv, dq_acc, bh,
                                   sh, dr, st);
   if constexpr (kSimt<T>) {
-    auto kernel = flash_bwd_kv_kernel<T, D, false>;
-    static const cudaError_t err = allow_smem(kernel, bwd_kv_smem<D>());
+    using C = TwoPass<D>;
+    auto kernel = flash_bwd_dkv_f32<D>;
+    constexpr size_t smem = dkv_f32_smem<D>();
+    static const cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<dim3(sh.sk / kTile, bh), kThreads, bwd_kv_smem<D>(), st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), nullptr, static_cast<const T*>(dout), lse,
-        delta, static_cast<T*>(dk), static_cast<T*>(dv), nullptr, sh, dr);
+    kernel<<<dim3((sh.sk + C::kRows - 1) / C::kRows, bh), C::kThreads, smem,
+             st>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                   static_cast<const float*>(v),
+                   static_cast<const float*>(dout), lse, delta,
+                   static_cast<float*>(dk), static_cast<float*>(dv), sh, dr);
   } else {
     auto kernel = flash_bwd_kv_tc<T, D>;
     constexpr size_t smem = 4 * tc_tile_bytes<D>() + 2 * kTile * sizeof(float);
@@ -1828,22 +2290,27 @@ int launch_bwd_q(const void* q, const void* k, const void* v,
                  const void* dout, const float* lse, const float* delta,
                  void* dq, float sm_scale, int bh, Shape sh, Dropout dr,
                  cudaStream_t st) {
-  size_t smem;
-  void (*kernel)(const T*, const T*, const T*, const T*, const float*,
-                 const float*, T*, float, Shape, Dropout);
   if constexpr (kSimt<T>) {
-    kernel = flash_bwd_q_kernel<T, D>;
-    smem = bwd_q_smem<D>();
+    using C = TwoPass<D>;
+    auto kernel = flash_bwd_dq_f32<D>;
+    constexpr size_t smem = dq_f32_smem<D>();
+    static const cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<dim3((sh.sq + C::kRows - 1) / C::kRows, bh), C::kThreads, smem,
+             st>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                   static_cast<const float*>(v),
+                   static_cast<const float*>(dout), lse, delta,
+                   static_cast<float*>(dq), sm_scale, sh, dr);
   } else {
-    kernel = flash_bwd_q_tc<T, D>;
-    smem = 4 * tc_tile_bytes<D>() + 2 * kTile * sizeof(float);
+    auto kernel = flash_bwd_q_tc<T, D>;
+    constexpr size_t smem = 4 * tc_tile_bytes<D>() + 2 * kTile * sizeof(float);
+    static const cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<dim3(sh.sq / kTile, bh), kThreadsTC, smem, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+        static_cast<T*>(dq), sm_scale, sh, dr);
   }
-  static const cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(sh.sq / kTile, bh), kSimt<T> ? kThreads : kThreadsTC, smem,
-           st>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                 static_cast<const T*>(v), static_cast<const T*>(dout), lse,
-                 delta, static_cast<T*>(dq), sm_scale, sh, dr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1933,15 +2400,22 @@ extern "C" int ff_flash_bwd_q(const void* q, const void* k, const void* v,
               static_cast<const float*>(delta), dq, sm_scale, bh, sh, dr, st)
 }
 
-// Dynamic shared memory of the Hopper kernels: kernel 0 = forward (B1),
-// 1 = fused backward (B2), for head dim d (64 or 128); -1 otherwise.
-extern "C" int ff_flash_sm90_smem_bytes(int kernel, int d) {
+// Dynamic shared memory of a launch: kernel 0 = 16-bit forward (B1,
+// flash_fwd_sm90), 1 = 16-bit fused backward (B2, flash_bwd_fused_sm90),
+// 2 = fp32 dK/dV (B3, flash_bwd_dkv_f32), 3 = fp32 dQ (B4,
+// flash_bwd_dq_f32), for head dim d (64 or 128); -1 otherwise.
+extern "C" int ff_flash_smem_bytes(int kernel, int d) {
   if (d != 64 && d != 128) return -1;
-  if (kernel == 0)
-    return d == 64 ? FwdLayout<64>::kBytes : FwdLayout<128>::kBytes;
-  if (kernel == 1)
-    return d == 64 ? BwdLayout<64>::kBytes : BwdLayout<128>::kBytes;
-  return -1;
+  const bool d64 = d == 64;
+  switch (kernel) {
+    case 0: return d64 ? FwdLayout<64>::kBytes : FwdLayout<128>::kBytes;
+    case 1: return d64 ? BwdLayout<64>::kBytes : BwdLayout<128>::kBytes;
+    case 2: return static_cast<int>(d64 ? dkv_f32_smem<64>()
+                                        : dkv_f32_smem<128>());
+    case 3: return static_cast<int>(d64 ? dq_f32_smem<64>()
+                                        : dq_f32_smem<128>());
+    default: return -1;
+  }
 }
 
 // Host microseconds to encode one TMA descriptor for a (bh, seq, d) bf16

@@ -29,9 +29,11 @@ The kernels pick their own tiles, whatever ``block_q`` and ``block_k``
 say: those are the TPU's VMEM tiling, honoured by the plain versions (they
 change only the order of the fp32 sums). The 16-bit forward and fused
 backward (wgmma and TMA) take 64 q rows by 128-key tiles and 128 keys by
-64-row q tiles, masking the ragged end of a key sequence that is a
-multiple of 64 only; the other kernels tile both sequences in 64 rows.
-Every block the attention router picks is a multiple of 64.
+64-row q tiles, and the fp32 two-pass backward keeps 128 rows resident at
+head dim 64 (64 at 128) and streams 64-row tiles, each masking the ragged
+end of a sequence that is a multiple of 64 only; the other kernels tile
+both sequences in 64 rows. Every block the attention router picks is a
+multiple of 64.
 """
 from __future__ import annotations
 
@@ -353,8 +355,8 @@ def _library():
             + [i, p]
         for fn in (lib.ff_flash_fwd, lib.ff_flash_bwd_kv, lib.ff_flash_bwd_q):
             fn.restype = ctypes.c_int
-        lib.ff_flash_sm90_smem_bytes.argtypes = [i, i]
-        lib.ff_flash_sm90_smem_bytes.restype = ctypes.c_int
+        lib.ff_flash_smem_bytes.argtypes = [i, i]
+        lib.ff_flash_smem_bytes.restype = ctypes.c_int
         lib.ff_flash_tensor_map_us.argtypes = [p] + [i] * 4
         lib.ff_flash_tensor_map_us.restype = ctypes.c_double
     return lib
@@ -371,11 +373,17 @@ def tensor_map_us(t, iters: int = 1000) -> float:
     return us
 
 
-def sm90_smem_bytes(kernel: str, head_dim: int) -> int:
-    """Dynamic shared memory a launch of the 16-bit ``flash_fwd`` or
-    ``flash_bwd_fused`` kernel takes at ``head_dim``."""
-    return _library().ff_flash_sm90_smem_bytes(
-        ("flash_fwd", "flash_bwd_fused").index(kernel), head_dim)
+#: kernels whose dynamic shared memory :func:`smem_bytes` reports: the
+#: 16-bit forward and fused backward, the fp32 dK/dV and dQ
+SMEM_KERNELS = ("flash_fwd_sm90", "flash_bwd_fused_sm90", "flash_bwd_dkv_f32",
+                "flash_bwd_dq_f32")
+
+
+def smem_bytes(kernel: str, head_dim: int) -> int:
+    """Dynamic shared memory a launch of ``kernel`` (one of
+    :data:`SMEM_KERNELS`) takes at ``head_dim``."""
+    return _library().ff_flash_smem_bytes(SMEM_KERNELS.index(kernel),
+                                          head_dim)
 
 
 def _check_cuda_inputs(what: str, q, k, v, *more) -> None:
@@ -402,10 +410,10 @@ def _check_cuda_inputs(what: str, q, k, v, *more) -> None:
             raise ValueError(f"{what}: inputs on {q.device} and {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: inputs must be contiguous")
-        if t.element_size() == 2 and t.data_ptr() % 16:
-            raise ValueError(f"{what}: 16-bit inputs must start on a "
-                             "16-byte boundary (the tensor-core kernels "
-                             "load tiles by TMA and in 16-byte loads)")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: inputs must start on a 16-byte "
+                             "boundary (the kernels load tiles by TMA, "
+                             "cp.async and 16-byte loads)")
 
 
 def _dropout_args(dropout: float, seed: int):
@@ -496,6 +504,9 @@ def _backward_cuda(q, k, v, out, lse, do, causal, dropout, seed, fused):
         delta = delta.contiguous()
     dor, lse = dor.contiguous(), lse.contiguous()
     _check_cuda_inputs("flash_attention backward", q, k, v, out, dor)
+    if lse.data_ptr() % 16:
+        raise ValueError("flash_attention backward: lse must start on a "
+                         "16-byte boundary")
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     if fused:

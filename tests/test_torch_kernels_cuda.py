@@ -189,6 +189,46 @@ def test_flash_attention_hopper_kernels_match_plain(dtype, b, h, causal, sq,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,h,causal,sq,sk,d,dropout", [
+    (4, 40, False, 256, 256, 64, 0.0),    # b*h 160: more than one wave
+    (4, 40, True, 256, 256, 128, 0.0),
+    (1, 2, True, 4096, 4096, 64, 0.0),    # the copy ring wraps many times,
+    (1, 2, True, 2048, 2048, 128, 0.0),   # B4's reversed order under the band
+    (1, 3, True, 1024, 2048, 64, 0.0),    # rectangular causal band
+    (2, 3, True, 192, 192, 64, 0.0),      # ragged: a 128-row CTA spans 192
+    (2, 3, False, 192, 192, 128, 0.0),
+    (2, 4, True, 512, 512, 64, 0.1),      # dropout
+    (2, 4, False, 512, 512, 128, 0.1),
+])
+def test_fp32_two_pass_backward_matches_plain(b, h, causal, sq, sk, d,
+                                              dropout):
+    """The fp32 dK/dV (B3) and dQ (B4) kernels (cp.async ring, 128-bit
+    shared loads, warp-owned score rows) against the plain two-pass walk:
+    several waves, long causal sequences, a rectangular band, a ragged
+    sequence under a 128-row CTA, dropout."""
+    dev = _cuda()
+    q, k, v, do = _fa_inputs(11, torch.float32, dev, b=b, h=h, sq=sq, sk=sk,
+                             d=d)
+    seed = 4242
+    _out_tol, grad_tol = FA_TOL[torch.float32]
+    blk = 128 if sq % 128 == 0 and sk % 128 == 0 else 64
+    out, lse = fa.flash_forward_plain(q, k, v, causal, blk, blk, dropout,
+                                      seed)
+    fa.reset_launch_count()
+    got = fa._flash_backward(q, k, v, out, lse, do, causal, blk, blk,
+                             dropout, seed, fused=False)
+    torch.cuda.synchronize()
+    assert {n: fa.launch_count(n) for n in fa.KERNELS} == {
+        "flash_fwd": 0, "flash_bwd_fused": 0, "flash_bwd_dkv": 1,
+        "flash_bwd_dq": 1}
+    want = fa.flash_backward_plain(q, k, v, out, lse, do, causal, blk, blk,
+                                   dropout, seed, fused=False)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.float32
+        assert _rel_err(g, w) <= grad_tol, (name, _rel_err(g, w))
+
+
+@pytest.mark.cuda
 def test_fused_backward_launches_no_host_side_delta():
     """The fused CUDA route launches exactly: the fill of the fp32 dQ
     buffer, q's pre-scale, the fused kernel, dQ's 1/sqrt(d) scale and its
@@ -254,6 +294,10 @@ def test_flash_attention_kernels_refuse_what_they_do_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         fa._flash_forward(q.transpose(2, 3).contiguous().transpose(2, 3),
                           k, v, False, 64, 64)
+    flat = torch.empty(k.numel() + 1, device=dev)
+    k_off = flat[1:].view(k.shape)  # contiguous, 4 bytes past a boundary
+    with pytest.raises(ValueError, match="16-byte"):
+        fa._flash_forward(q, k_off, v, False, 64, 64)
 
 
 # ------------------------------------------------- flash decode, int8 pools
