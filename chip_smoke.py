@@ -12,10 +12,12 @@ drives the PyTorch port only (it imports neither jax nor flexflow_tpu):
    census (``cuobjdump -sass``) of each instance of the Hopper
    flash-attention forward and fused backward (its wgmma ``HGMMA``, TMA
    load ``UTMALDG`` and, in the backward, bulk reduce-add ``UBLKRED``
-   instructions) and of the fp32 two-pass backward (B3 and B4 at d 64 and
-   128: its ``cp.async`` copies ``LDGSTS`` and 128-bit shared loads
-   ``LDS.128``), failing if one is missing, beside its registers, spill
-   bytes and dynamic shared memory;
+   instructions) and of the fp32 forward and two-pass backward (B1, B3 and
+   B4 at d 64 and 128: their ``cp.async`` copies ``LDGSTS`` and 128-bit
+   shared loads ``LDS.128``), failing if one is missing, beside its
+   registers, spill bytes and dynamic shared memory (14 instances); and
+   the registers and spill bytes of the flash-decode instances the kernel
+   phase times;
 2. kernels — holds flash decode (B5), top-k (B7) and softmax (B6) against
    their plain-PyTorch versions on the card, and times kernel, plain
    version and one PyTorch library call computing the same function:
@@ -92,8 +94,8 @@ drives the PyTorch port only (it imports neither jax nor flexflow_tpu):
 
 It prints one ``{"kernels": [...]}`` line (the entries of the instances
 the census covers also carry their SASS counts, registers, spills and
-shared memory; the two-pass entries SDPA's backward as
-``pair_library_ms``), the
+shared memory; the flash-decode entries their registers and spills; the
+two-pass entries SDPA's backward as ``pair_library_ms``), the
 card's name and power limit
 (nvidia-smi), and as its last line ``{"ok": true, "device": {...}}``. Any
 failed phase exits non-zero; without CUDA, or without the package, it
@@ -206,15 +208,16 @@ def build_phase() -> dict:
 # hold (an entry with a dot also needs that modifier, e.g. LDS.128): the
 # 16-bit forward and fused backward wgmma (HGMMA) and TMA tile loads
 # (UTMALDG), the fused backward also the bulk reduce-add of its dQ partials
-# (UBLKRED); the fp32 two-pass backward its cp.async ring (LDGSTS) and
-# 128-bit shared loads (LDS.128)
+# (UBLKRED); the fp32 forward and two-pass backward their cp.async ring
+# (LDGSTS) and 128-bit shared loads (LDS.128)
 SASS_NEEDS = {"flash_fwd_sm90": ("HGMMA", "UTMALDG"),
               "flash_bwd_fused_sm90": ("HGMMA", "UTMALDG", "UBLKRED"),
               "flash_bwd_dkv_f32": ("LDGSTS", "LDS.128"),
-              "flash_bwd_dq_f32": ("LDGSTS", "LDS.128")}
-# instances the census must find: B1 and B2 x bf16/fp16 x d 64/128, B3
-# and B4 fp32 x d 64/128
-SASS_INSTANCES = 12
+              "flash_bwd_dq_f32": ("LDGSTS", "LDS.128"),
+              "flash_fwd_f32": ("LDGSTS", "LDS.128")}
+# instances the census must find: B1 and B2 x bf16/fp16 x d 64/128, B3,
+# B4 and B1 fp32 x d 64/128
+SASS_INSTANCES = 14
 
 
 def sass_count(ops, need: str) -> int:
@@ -262,23 +265,11 @@ def sass_census() -> dict:
                           capture_output=True, text=True, timeout=300)
     if sass.returncode != 0:
         fail(f"cuobjdump failed: {sass.stderr.strip()[:400]}")
-    with open(lib + ".log") as f:
-        report = f.read()
-    props, current = {}, None
-    for line in report.splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:
-            current = m.group(1)
-            props[current] = {}
-        m = re.search(r"(\d+) bytes spill stores", line)
-        if m and current:
-            props[current]["spill_bytes"] = int(m.group(1))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and current:
-            props[current]["registers"] = int(m.group(1))
+    props = ptxas_props("flash_attention")
     pat = re.compile(r"(flash_fwd_sm90|flash_bwd_fused_sm90)I"
                      r"(13__nv_bfloat16|6__half)Li(64|128)E"
-                     r"|(flash_bwd_dkv_f32|flash_bwd_dq_f32)ILi(64|128)E")
+                     r"|(flash_bwd_dkv_f32|flash_bwd_dq_f32|flash_fwd_f32)"
+                     r"ILi(64|128)E")
     census = {}
     for chunk in re.split(r"\n\s*Function : ", sass.stdout)[1:]:
         name = chunk.split("\n", 1)[0].strip()
@@ -308,8 +299,58 @@ def sass_census() -> dict:
     if len(census) != SASS_INSTANCES:
         fail(f"found {len(census)} flash-attention instances in the "
              f"library's SASS, want {SASS_INSTANCES} (B1 and B2 x bf16/fp16 "
-             "x d 64/128, B3 and B4 fp32 x d 64/128)")
+             "x d 64/128, B3, B4 and B1 fp32 x d 64/128)")
     return census
+
+
+def ptxas_props(name: str) -> dict:
+    """{mangled kernel name: {"registers", "spill_bytes"}} from the
+    compiler's report kept beside kernel ``name``'s library."""
+    import re
+
+    from flexflow_tpu_torch.kernels import build
+
+    with open(build.library_path(name) + ".log") as f:
+        report = f.read()
+    props, current = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = m.group(1)
+            props[current] = {}
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and current:
+            props[current]["spill_bytes"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current:
+            props[current]["registers"] = int(m.group(1))
+    return props
+
+
+def decode_props() -> dict:
+    """Registers and spill bytes of the flash-decode instances the kernel
+    phase times (head width class 64, 16-byte loads), by JSON entry name;
+    fails if one is missing from the compiler's report."""
+    import re
+
+    pat = re.compile(r"flash_decode_kernelI(f|13__nv_bfloat16)(f|S1_|a)"
+                     r"Li64ELb1E")
+    names = {("f", "f"): "flash_decode",
+             ("13__nv_bfloat16", "S1_"): "flash_decode_bf16",
+             ("f", "a"): "flash_decode_int8",
+             ("13__nv_bfloat16", "a"): "flash_decode_int8_bf16"}
+    out = {}
+    for kernel, p in ptxas_props("flash_decode").items():
+        m = pat.search(kernel)
+        if m and (m.group(1), m.group(2)) in names:
+            out[names[(m.group(1), m.group(2))]] = p
+    if set(out) != set(names.values()):
+        fail(f"flash_decode instances missing from the compiler's report: "
+             f"{sorted(set(names.values()) - set(out))}")
+    for name, p in sorted(out.items()):
+        log(f"  ptxas {name}: registers {p.get('registers')}, spill bytes "
+            f"{p.get('spill_bytes')}")
+    return out
 
 
 # ------------------------------------------------------------ kernel phase
@@ -1457,6 +1498,7 @@ def main() -> None:
 
     profile = "--profile" in sys.argv[1:]
     census = build_phase()
+    dprops = decode_props()
     kern = kernel_phase(device, card)
     kern_int8 = kernel_phase(device, card, int8=True)
     topk_kern = topk_kernel_phase(device, card)
@@ -1494,6 +1536,7 @@ def main() -> None:
             "replaces": "flexflow_tpu/kernels/flash_decode.py:54",
             "launches": e2e[compute]["launches"],
             **kern[compute],
+            **dprops[name],
         })
     # each flash-attention kernel at the shape and dtype of the training
     # path that launched it; launches summed over the training paths
@@ -1527,6 +1570,7 @@ def main() -> None:
             "launches": sum(int8[compute][r]["counts"]["flash_decode_int8"]
                             for r in ("greedy", "top8", "top1")),
             **kern_int8[compute],
+            **dprops[name],
         })
     # the sampler's top-k: k = 8 in the top_k 8 runs, k = 1 in the top_k 1
     # runs, of both compute dtypes

@@ -175,10 +175,15 @@ class Executor:
     # ---------------------------------------------------------------- training
     def _loss_and_logits(self, params, xs, labels, rng, training: bool):
         params_c, xs = self._cast_for_compute(params, list(xs))
-        ctx = OpContext(training=training, rng=rng, device=self.device)
+        ctx = OpContext(training=training, rng=rng, device=self.device,
+                        aux_losses=[] if training else None)
         values = self.forward_outputs(params_c, self._bind_inputs(xs), ctx)
         logits = self._logits_f32(values[self.final_guid][self.final_out_idx])
         loss = loss_value(self.loss_type, logits, labels, self.repl_labels)
+        # the training loss carries the ops' aux terms (the regularizers),
+        # as flexflow_tpu/execution/executor.py:554-555 adds them
+        for aux in ctx.aux_losses or ():
+            loss = loss + aux
         return loss, logits
 
     def make_train_step(self):

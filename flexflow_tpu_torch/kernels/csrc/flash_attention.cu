@@ -49,34 +49,42 @@
 // tensor-core rate that keeps fp32 products (TF32 would round them). There
 // the bound is the issue rate of shared-memory loads beside the FMAs: an
 // SM serves about one shared-memory wavefront a clock against four
-// warp-wide FFMAs. The fp32 two-pass backward (B3 dK/dV, B4 dQ; the
-// section "fp32 two-pass backward" below) is built for that:
+// warp-wide FFMAs. The fp32 forward (B1, flash_fwd_f32) and two-pass
+// backward (B3 dK/dV, B4 dQ; the section "fp32 SIMT kernels" below) are
+// built for that:
 //   * every operand load is a 128-bit LDS from tiles padded by 4 floats a
 //     row, read without bank conflicts, and a lane's register block is
 //     8 x 8 (8 x 4 for the d 128 score tile), so each load feeds 16 FFMAs
 //     (4 for each quarter warp's wavefront; a 4 x 4 block of 32-bit loads
-//     feeds 2); P = 2^(s log2 e - lse log2 e) on the special-function unit
-//     (ex2.approx, as in the 16-bit kernels);
+//     feeds 2); P = 2^(s log2 e - m log2 e) (B1) or 2^(s log2 e - lse
+//     log2 e) (B3, B4) on the special-function unit (ex2.approx, as in the
+//     16-bit kernels); lse stays in natural log;
 //   * to hold 8 x 8 blocks in 255 registers a CTA's 8 warps form two
-//     groups that split each tile's products (B3: S^T, dV and dP^T, dK;
-//     B4: S and dP, then half the keys of dQ each); the two warps of a
-//     pair hand raw S and dP over through shared memory under a named
-//     barrier and finish P and dS for half of the rows each;
-//   * the streamed tiles (q, dO, lse, delta for B3; k, v for B4) arrive by
-//     16-byte cp.async into a 2-stage ring (one stage for B3 at d 128),
-//     the next tile's copy in flight while this tile's products run, one
-//     CTA barrier a tile;
-//   * B4 walks its q tiles from the last, so the CTAs with the most k
-//     tiles under the causal band start first (B3's k tile 0 already is);
-//     only tiles that cross the band take the mask compare.
+//     groups. In B1 each group takes every other k tile with its own
+//     online softmax, merged at the end, and a warp owns whole q rows, so
+//     a row's max and sum never leave it; in B3 and B4 the groups split
+//     each tile's products (B3: S^T, dV and dP^T, dK; B4: S and dP, then
+//     half the keys of dQ each), and the two warps of a pair hand raw S
+//     and dP over through shared memory under a named barrier and finish
+//     P and dS for half of the rows each;
+//   * the streamed tiles (k, v for B1 and B4; q, dO, lse, delta for B3)
+//     arrive by 16-byte cp.async into a 2-stage ring (one stage for B1 and
+//     B3 at d 128), the next tiles' copy in flight while this step's
+//     products run, one CTA barrier a step;
+//   * B1 and B4 walk their q tiles from the last, so the CTAs with the most
+//     k tiles under the causal band start first (B3's k tile 0 already
+//     is); only tiles that cross the band take the mask compare.
+// At seq 512 a causal B1 CTA of 128 q rows sees at most 8 k tiles; its two
+// groups take them two at a time, so the chain a CTA walks is at most 4
+// steps, each step's loads in flight behind the step before.
 // The rest keeps its first design: one CTA per (batch*head, 64-row tile),
 // looping inside the CTA over the other sequence's 64-row tiles (the TPU's
 // sequential grid dimension becomes this loop): the two-pass backward in
-// 16 bits on mma.sync, and the fp32 forward and fused backward with tiles
-// staged in shared memory with a one-word row pad, each thread owning a
-// 4 x 4 block of the 64 x 64 score tile, dQ of the fused fp32 schedule
-// added by atomics. Not done yet: a persistent schedule and split-K for
-// few long heads (PERF.md has the measured times).
+// 16 bits on mma.sync, and the fp32 fused backward with tiles staged in
+// shared memory with a one-word row pad, each thread owning a 4 x 4 block
+// of the 64 x 64 score tile, dQ added by atomics. Not done yet: a
+// persistent schedule and split-K for few long heads (PERF.md has the
+// measured times).
 
 #include <cuda.h>  // CUtensorMap (types only: no driver library is linked)
 #include <cuda_bf16.h>
@@ -143,19 +151,6 @@ struct Dropout {
   uint32_t threshold;
   float scale;
 };
-
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // rows [0, 64) of a (rows, D) tile at `src` into fp32 shared memory with
 // row stride D + 1; coalesced reads along the row
@@ -235,96 +230,6 @@ __device__ __forceinline__ int k_tiles_for(const Shape& sh, int q0) {
 __device__ __forceinline__ int first_q_tile(const Shape& sh, int k0) {
   if (!sh.causal) return 0;
   return max(k0 - (sh.sk - sh.sq), 0) / kTile;
-}
-
-// ------------------------------------------------------------------ forward
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, Shape sh, Dropout dr) {
-  extern __shared__ float smem[];
-  constexpr int P = D + 1;
-  float* sQ = smem;
-  float* sK = sQ + kTile * P;
-  float* sV = sK + kTile * P;
-  float* sP = sV + kTile * P;  // 64 x kSP
-
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int q0 = blockIdx.x * kTile;
-  const int bh = blockIdx.y;
-  const int offset = sh.sk - sh.sq;
-  const T* kb_base = k + (size_t)bh * sh.sk * D;
-  const T* vb_base = v + (size_t)bh * sh.sk * D;
-
-  load_tile<T, D>(sQ, q + ((size_t)bh * sh.sq + q0) * D);
-
-  float m[4], l[4], acc[4][D / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.f;
-  }
-
-  const int nkb = k_tiles_for(sh, q0);
-  for (int kb = 0; kb < nkb; ++kb) {
-    const int k0 = kb * kTile;
-    __syncthreads();  // the previous tile's readers are done with sK/sV/sP
-    load_tile<T, D>(sK, kb_base + (size_t)k0 * D);
-    load_tile<T, D>(sV, vb_base + (size_t)k0 * D);
-    __syncthreads();
-
-    float s[4][4];
-    rows_dot_rows<D>(sQ, sK, ty, tx, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i;
-      if (sh.causal) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (qpos + offset < k0 + tx + 16 * j) s[i][j] = kNegInf;
-      }
-      float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
-      const float m_new = fmaxf(m[i], half_warp_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float p[4];
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        p[j] = expf(s[i][j] - m_new);
-        psum += p[j];
-      }
-      // the normaliser comes from the UNDROPPED probabilities
-      l[i] = l[i] * alpha + half_warp_sum(psum);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float pj = p[j];
-        if (dr.on)
-          pj *= keep_scale(dr.seed, bh, qpos, k0 + tx + 16 * j, dr.threshold,
-                           dr.scale);
-        sP[(ty * 4 + i) * kSP + tx + 16 * j] = round_to<T>(pj);
-      }
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
-    scores_times_tile<D, false>(sP, sV, ty, tx, acc);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    const float l_safe = l[i] == 0.f ? 1.f : l[i];
-    T* orow = o + ((size_t)bh * sh.sq + row) * D;
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j)
-      orow[tx + 16 * j] = from_f32<T>(acc[i][j] / l_safe);
-    if (tx == 0) lse[(size_t)bh * sh.sq + row] = m[i] + logf(l_safe);
-  }
 }
 
 // ---------------------------- fused backward over k tiles (dK, dV, dQ): B2
@@ -448,7 +353,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ------------------------- fp32 two-pass backward: B3 (dK, dV), B4 (dQ)
+// ------------------- fp32 SIMT kernels: B3 (dK, dV), B4 (dQ), B1 (forward)
 // A CTA keeps kRows rows of one sequence resident (keys for B3, q rows for
 // B4) and streams 64-row tiles of the other through a ring of kStages
 // cp.async stages. Its 8 warps form two groups of 4 that split each tile's
@@ -567,10 +472,10 @@ __device__ __forceinline__ void nt_tile(const float* A, const float* B,
 }
 
 // acc[i][n] += sum_c X[rg + kRG*i][c] * M[c][n], c in order over kDepth
-// columns of a warp's score rows X (row stride kSStride) and rows of a
+// columns of a warp's score rows X (row stride kXStride) and rows of a
 // (64, D) tile M (row stride D + 4), for this lane's output columns
 // n = 4*cg + 4*kCG*jj + e
-template <int D, int kDepth>
+template <int D, int kDepth, int kXStride = TwoPass<D>::kSStride>
 __device__ __forceinline__ void nn_tile(const float* X, const float* M,
                                         int rg, int cg,
                                         float (&acc)[8][TwoPass<D>::kDN]) {
@@ -580,7 +485,7 @@ __device__ __forceinline__ void nn_tile(const float* X, const float* M,
     float4 x[C::kTM];
 #pragma unroll
     for (int i = 0; i < C::kTM; ++i)
-      x[i] = lds4(X + (rg + C::kRG * i) * C::kSStride + c);
+      x[i] = lds4(X + (rg + C::kRG * i) * kXStride + c);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float4 m[C::kDN / 4];
@@ -950,6 +855,219 @@ __global__ void __launch_bounds__(TwoPass<D>::kThreads, 1)
                       (acc[i][4 * jj + 2] + o.z) * sm_scale,
                       (acc[i][4 * jj + 3] + o.w) * sm_scale);
     }
+  }
+}
+
+// B1 in fp32: one CTA per (kRows q rows, batch*head), q resident, k/v
+// tiles of 64 keys streamed up to the causal band. The CTA's two groups of
+// 4 warps take alternate k tiles (group 0 the even ones, group 1 the odd
+// ones) and keep their own online softmax over them, merged once at the
+// end: warp w of each group owns the same kWarpRows q rows, whole, so a
+// row's max and sum never leave its warp. A stage of the ring holds the
+// pair of tiles of one step (2 stages; 1 at d 128, where two would pass
+// the 227 KB of a block). S = q k^T is nt_tile (8 x 8 lane blocks, 8 x 4 at
+// d 128); P goes to the warp's own shared rows in two halves of 32 keys and
+// O += P v is nn_tile over each half. P = 2^(s log2 e - m log2 e); the
+// normaliser l sums the undropped P. The grid is (batch*head, q tile) with
+// blockIdx.y 0 on the LAST q tile (the most k tiles under the band), so
+// the heaviest CTAs of every head start first.
+template <int D>
+struct FwdF32 {
+  using C = TwoPass<D>;
+  static constexpr int kStages = D == 64 ? 2 : 1;
+  static constexpr int kPStride = 32 + 32 / C::kRG;  // a half of P's row
+  static constexpr int kStage = 4 * C::kTileFloats;  // k, v of two tiles
+  static constexpr int kPFloats = 8 * C::kWarpRows * kPStride;
+  static constexpr size_t kBytes =
+      sizeof(float) * (C::kRows * C::kStride + kPFloats + kStages * kStage);
+};
+
+template <int D>
+__global__ void __launch_bounds__(TwoPass<D>::kThreads, 1)
+    flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o,
+                  float* __restrict__ lse, Shape sh, Dropout dr) {
+  using C = TwoPass<D>;
+  using F = FwdF32<D>;
+  extern __shared__ __align__(16) float smem_f32[];
+  float* sQ = smem_f32;
+  float* sP = sQ + C::kRows * C::kStride;
+  float* ring = sP + F::kPFloats;
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int group = warp >> 2;  // 0: even k tiles, 1: odd ones
+  const int wr = (warp & 3) * C::kWarpRows;
+  const int rg = lane / C::kCG;
+  const int cg = lane % C::kCG;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * C::kRows;
+  const int bh = blockIdx.x;
+  const int off = sh.sk - sh.sq;
+  const int qw = q0 + wr;  // the warp's first q row
+  const size_t qbase = (size_t)bh * sh.sq;
+  const size_t kbase = (size_t)bh * sh.sk;
+  const int valid = min(C::kRows, sh.sq - q0);
+
+  // k tiles up to the band of the CTA's last valid row
+  const int nkb = sh.causal ? min(sh.sk / kTile,
+                                  (q0 + valid - 1 + off) / kTile + 1)
+                            : sh.sk / kTile;
+  const int steps = (nkb + 1) / 2;
+  // rows past seq_q read as zeros and are never written
+  copy_rows_async<D, C::kRows>(sQ, q + (qbase + q0) * D, valid);
+  auto load_stage = [&](int step, int s) {
+    float* st = ring + s * F::kStage;
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const int kb = 2 * step + t;
+      if (kb >= nkb) break;
+      const size_t row0 = kbase + (size_t)kb * kTile;
+      copy_rows_async<D, kTile>(st + 2 * t * C::kTileFloats, k + row0 * D,
+                                kTile);
+      copy_rows_async<D, kTile>(st + (2 * t + 1) * C::kTileFloats,
+                                v + row0 * D, kTile);
+    }
+    cp_async_commit();
+  };
+
+  // m2: the running max in log2 units; l: the sum of undropped P
+  float m2[8], l[8], acc[8][C::kDN];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m2[i] = kNegInf * kLog2e;
+    l[i] = 0.f;
+#pragma unroll
+    for (int n = 0; n < C::kDN; ++n) acc[i][n] = 0.f;
+  }
+
+  const float* q_rows = sQ + wr * C::kStride;
+  float* xp = sP + warp * C::kWarpRows * F::kPStride;
+  load_stage(0, 0);  // the resident q joins this group of copies
+  for (int step = 0, s = 0; step < steps; ++step) {
+    // the step's tiles have landed for every thread, and every thread is
+    // done with the step before, whose stage the next copy refills
+    cp_async_wait_all();
+    __syncthreads();
+    if (F::kStages == 2 && step + 1 < steps) load_stage(step + 1, s ^ 1);
+    const int kb = 2 * step + group;
+    const int k0 = kb * kTile;
+    // the warp adds nothing past the tiles, past seq_q, or where the tile
+    // lies past the band of every row it owns
+    if (kb < nkb && qw < sh.sq &&
+        !(sh.causal && k0 > qw + C::kWarpRows - 1 + off)) {
+      const float* sK = ring + s * F::kStage + 2 * group * C::kTileFloats;
+      const float* sV = sK + C::kTileFloats;
+      float sc[8][C::kTN];
+      nt_tile<D>(q_rows, sK, rg, cg, sc);
+      const bool mask = sh.causal && k0 + kTile - 1 > qw + off;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int qpos = qw + rg + C::kRG * i;
+        float mx = kNegInf * kLog2e;
+#pragma unroll
+        for (int j = 0; j < C::kTN; ++j) {
+          float x = sc[i][j];
+          if (mask && qpos + off < k0 + cg + C::kCG * j) x = kNegInf;
+          // s log2 e, rounded as m2 is, so a masked score against a
+          // masked max gives 2^0 as exp(-1e30 + 1e30) does in the plain walk
+          x = __fmul_rn(x, kLog2e);
+          sc[i][j] = x;
+          mx = fmaxf(mx, x);
+        }
+#pragma unroll
+        for (int o = 1; o < C::kCG; o <<= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        const float m_new = fmaxf(m2[i], mx);
+        const float alpha = ex2(m2[i] - m_new);
+        float psum = 0.f;
+#pragma unroll
+        for (int j = 0; j < C::kTN; ++j) {
+          const float p = ex2(sc[i][j] - m_new);
+          psum += p;
+          sc[i][j] = dr.on ? p * keep_scale(dr.seed, bh, qpos,
+                                            k0 + cg + C::kCG * j,
+                                            dr.threshold, dr.scale)
+                           : p;
+        }
+#pragma unroll
+        for (int o = 1; o < C::kCG; o <<= 1)
+          psum += __shfl_xor_sync(0xffffffffu, psum, o);
+        l[i] = l[i] * alpha + psum;
+        m2[i] = m_new;
+#pragma unroll
+        for (int n = 0; n < C::kDN; ++n) acc[i][n] *= alpha;
+      }
+      // O += P v, 32 keys at a time through the warp's shared rows
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int jj = 0; jj < C::kTN / 2; ++jj) {
+            const int j = half * (C::kTN / 2) + jj;
+            xp[(rg + C::kRG * i) * F::kPStride + cg + C::kCG * j -
+               32 * half] = sc[i][j];
+          }
+        __syncwarp();
+        nn_tile<D, 32, F::kPStride>(xp, sV + 32 * half * C::kStride, rg, cg,
+                                    acc);
+        __syncwarp();  // the half is read before the next one overwrites it
+      }
+    }
+    if (F::kStages == 1 && step + 1 < steps) {
+      __syncthreads();  // every reader is done with the one stage
+      load_stage(step + 1, 0);
+    }
+    if (F::kStages == 2) s ^= 1;
+  }
+
+  // merge the two groups: group 1 hands its (m2, l, acc) over through the
+  // ring, lane for lane; group 0 writes O and lse
+  constexpr int kV = 8 * C::kDN / 4;  // float4s of a lane's accumulator
+  float4* hand = reinterpret_cast<float4*>(ring);
+  float* hand_ml = ring + 4 * 4 * kV * 32;
+  __syncthreads();  // the last step's readers are done with the ring
+  if (group == 1) {
+#pragma unroll
+    for (int v4 = 0; v4 < kV; ++v4)
+      hand[((warp & 3) * kV + v4) * 32 + lane] =
+          make_float4(acc[v4 / (C::kDN / 4)][4 * (v4 % (C::kDN / 4))],
+                      acc[v4 / (C::kDN / 4)][4 * (v4 % (C::kDN / 4)) + 1],
+                      acc[v4 / (C::kDN / 4)][4 * (v4 % (C::kDN / 4)) + 2],
+                      acc[v4 / (C::kDN / 4)][4 * (v4 % (C::kDN / 4)) + 3]);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      hand_ml[(((warp & 3) * 8 + i) * 2) * 32 + lane] = m2[i];
+      hand_ml[(((warp & 3) * 8 + i) * 2 + 1) * 32 + lane] = l[i];
+    }
+  }
+  __syncthreads();
+  if (group == 1 || qw >= sh.sq) return;
+  constexpr float kLn2 = 0.6931471805599453f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = qw + rg + C::kRG * i;
+    const float mb = hand_ml[(((warp & 3) * 8 + i) * 2) * 32 + lane];
+    const float lb = hand_ml[(((warp & 3) * 8 + i) * 2 + 1) * 32 + lane];
+    const float mx = fmaxf(m2[i], mb);
+    const float wa = ex2(m2[i] - mx);
+    const float wb = ex2(mb - mx);
+    const float lt = l[i] * wa + lb * wb;
+    const float l_safe = lt == 0.f ? 1.f : lt;
+    const float ca = wa / l_safe;
+    const float cb = wb / l_safe;
+#pragma unroll
+    for (int jj = 0; jj < C::kDN / 4; ++jj) {
+      const float4 b = hand[((warp & 3) * kV + i * (C::kDN / 4) + jj) * 32 +
+                            lane];
+      *reinterpret_cast<float4*>(o + (qbase + row) * D + 4 * cg +
+                                 4 * C::kCG * jj) =
+          make_float4(acc[i][4 * jj] * ca + b.x * cb,
+                      acc[i][4 * jj + 1] * ca + b.y * cb,
+                      acc[i][4 * jj + 2] * ca + b.z * cb,
+                      acc[i][4 * jj + 3] * ca + b.w * cb);
+    }
+    if (cg == 0) lse[qbase + row] = mx * kLn2 + logf(l_safe);
   }
 }
 
@@ -2100,10 +2218,6 @@ constexpr size_t tc_tile_bytes() {
 }
 
 template <int D>
-constexpr size_t fwd_smem() {
-  return sizeof(float) * (3 * kTile * (D + 1) + kTile * kSP);
-}
-template <int D>
 constexpr size_t bwd_kv_smem() {
   return sizeof(float) * (4 * kTile * (D + 1) + 2 * kTile * kSP + 2 * kTile);
 }
@@ -2125,7 +2239,9 @@ constexpr size_t dq_f32_smem() {
 }
 static_assert(dkv_f32_smem<64>() <= 232448 && dq_f32_smem<64>() <= 232448 &&
                   dkv_f32_smem<128>() <= 232448 &&
-                  dq_f32_smem<128>() <= 232448,
+                  dq_f32_smem<128>() <= 232448 &&
+                  FwdF32<64>::kBytes <= 232448 &&
+                  FwdF32<128>::kBytes <= 232448,
               "fits the 227 KB a block may use");
 
 // Shared memory above 48 KB must be opted into for each kernel. The
@@ -2194,12 +2310,15 @@ template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                float* lse, int bh, Shape sh, Dropout dr, cudaStream_t st) {
   if constexpr (kSimt<T>) {
-    auto kernel = flash_fwd_kernel<T, D>;
-    static const cudaError_t err = allow_smem(kernel, fwd_smem<D>());
+    using C = TwoPass<D>;
+    auto kernel = flash_fwd_f32<D>;
+    constexpr size_t smem = FwdF32<D>::kBytes;
+    static const cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<dim3(sh.sq / kTile, bh), kThreads, fwd_smem<D>(), st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), lse, sh, dr);
+    kernel<<<dim3(bh, (sh.sq + C::kRows - 1) / C::kRows), C::kThreads, smem,
+             st>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                   static_cast<const float*>(v), static_cast<float*>(o), lse,
+                   sh, dr);
   } else {
     constexpr bool f16 = !kBf16<T>;
     CUtensorMap mq, mk, mv;
@@ -2403,7 +2522,8 @@ extern "C" int ff_flash_bwd_q(const void* q, const void* k, const void* v,
 // Dynamic shared memory of a launch: kernel 0 = 16-bit forward (B1,
 // flash_fwd_sm90), 1 = 16-bit fused backward (B2, flash_bwd_fused_sm90),
 // 2 = fp32 dK/dV (B3, flash_bwd_dkv_f32), 3 = fp32 dQ (B4,
-// flash_bwd_dq_f32), for head dim d (64 or 128); -1 otherwise.
+// flash_bwd_dq_f32), 4 = fp32 forward (B1, flash_fwd_f32), for head dim
+// d (64 or 128); -1 otherwise.
 extern "C" int ff_flash_smem_bytes(int kernel, int d) {
   if (d != 64 && d != 128) return -1;
   const bool d64 = d == 64;
@@ -2414,6 +2534,8 @@ extern "C" int ff_flash_smem_bytes(int kernel, int d) {
                                         : dkv_f32_smem<128>());
     case 3: return static_cast<int>(d64 ? dq_f32_smem<64>()
                                         : dq_f32_smem<128>());
+    case 4: return static_cast<int>(d64 ? FwdF32<64>::kBytes
+                                        : FwdF32<128>::kBytes);
     default: return -1;
   }
 }

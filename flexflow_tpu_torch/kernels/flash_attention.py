@@ -374,9 +374,9 @@ def tensor_map_us(t, iters: int = 1000) -> float:
 
 
 #: kernels whose dynamic shared memory :func:`smem_bytes` reports: the
-#: 16-bit forward and fused backward, the fp32 dK/dV and dQ
+#: 16-bit forward and fused backward, the fp32 dK/dV, dQ and forward
 SMEM_KERNELS = ("flash_fwd_sm90", "flash_bwd_fused_sm90", "flash_bwd_dkv_f32",
-                "flash_bwd_dq_f32")
+                "flash_bwd_dq_f32", "flash_fwd_f32")
 
 
 def smem_bytes(kernel: str, head_dim: int) -> int:

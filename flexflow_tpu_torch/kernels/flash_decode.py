@@ -5,8 +5,12 @@ Port of ``flexflow_tpu/kernels/flash_decode.py`` (the Pallas split-K
 ``_decode_kernel``, both branches: native-dtype pools, and int8 pools with
 f32 per-(token, head) scales). The CUDA kernel is ``csrc/flash_decode.cu``
 (``ff_flash_decode``, ``ff_flash_decode_int8``); its header says what
-bounds it (bytes: the used K/V rows) and how the design follows from that.
-Beside it:
+bounds it (the used K/V rows, and at decode sizes the latency of fetching
+them) and how the design follows from that: each (slot, head)'s keys are
+split into chunks of whole blocks across CTAs, sized from the launch's
+shape and the SM count (:func:`chunk_blocks`), never from the key counts,
+and the last CTA of a (slot, head) merges the chunks' partials in chunk
+order, in the same launch. Beside it:
 
 * :func:`flash_decode_plain` — the same function in plain PyTorch, walking
   the same per-block online-softmax loop (the TPU kernel's grid order,
@@ -14,6 +18,12 @@ Beside it:
   only the reference the kernel is held against.
 * :func:`flash_decode` — the wrapper. A CPU tensor goes to the plain
   version; a CUDA tensor launches the kernel or raises. It never falls back.
+  It allocates the output and the chunks' fp32 scratch with
+  ``torch.empty`` on every call, so a launch can be captured in a CUDA
+  graph and replayed. The per-(slot, head) ticket counters are state kept
+  across calls: made zeroed on the first eager call of a device (a first
+  call inside a capture raises), left zero by every launch, and shared by
+  all launches on the device, which must therefore run on one stream.
 * :func:`launch_count` — launches of each branch (``"flash_decode"``,
   ``"flash_decode_int8"``) since the last :func:`reset_launch_count`, so a
   run can show it went through the kernel.
@@ -134,13 +144,57 @@ def _library():
 
     lib = load("flash_decode")
     if lib.ff_flash_decode.argtypes is None:
-        tail = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
+        tail = [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int,
                                      ctypes.c_void_p]
-        lib.ff_flash_decode.argtypes = [ctypes.c_void_p] * 6 + tail
-        lib.ff_flash_decode_int8.argtypes = [ctypes.c_void_p] * 8 + tail
-        for fn in (lib.ff_flash_decode, lib.ff_flash_decode_int8):
+        lib.ff_flash_decode.argtypes = [ctypes.c_void_p] * 8 + tail
+        lib.ff_flash_decode_int8.argtypes = [ctypes.c_void_p] * 10 + tail
+        lib.ff_flash_decode_chunk_blocks.argtypes = [ctypes.c_int] * 8
+        for fn in (lib.ff_flash_decode, lib.ff_flash_decode_int8,
+                   lib.ff_flash_decode_chunk_blocks):
             fn.restype = ctypes.c_int
     return lib
+
+
+# chunk blocks by launch shape (a pure function of host-known values)
+_chunks = {}
+# per-(slot, head) ticket counters by device index: zero between launches,
+# every buffer ever handed to a launch kept alive (a captured graph holds
+# its pointer)
+_tickets = {}
+
+
+def chunk_blocks(lib, n_slots: int, heads: int, hd: int, vd: int, bs: int,
+                 mb: int, int8: bool, dtype_code: int) -> int:
+    """Blocks of one key chunk a CTA takes (``csrc/flash_decode.cu``
+    ``chunk_blocks_for``): from the launch's shape and the SM count only,
+    never from the key counts."""
+    key = (n_slots, heads, hd, vd, bs, mb, int8, dtype_code)
+    cb = _chunks.get(key)
+    if cb is None:
+        cb = lib.ff_flash_decode_chunk_blocks(n_slots, heads, hd, vd, bs, mb,
+                                              int(int8), dtype_code)
+        if cb < 1:
+            raise ValueError(f"flash_decode: no chunking for shape {key}")
+        _chunks[key] = cb
+    return cb
+
+
+def _ticket_buffer(device, n: int):
+    """The device's ticket counters (int32, at least ``n``). They are made
+    zeroed outside any CUDA-graph capture and each launch leaves them zero,
+    so launches that share them must run on one stream."""
+    import torch
+
+    bufs = _tickets.setdefault(device.index, [])
+    if bufs and bufs[-1].numel() >= n:
+        return bufs[-1]
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "flash_decode: its ticket counters are created on the first "
+            "eager call; launch it once outside CUDA-graph capture first")
+    bufs.append(torch.zeros(max(n, 2 * bufs[-1].numel() if bufs else n),
+                            dtype=torch.int32, device=device))
+    return bufs[-1]
 
 
 def _check_cuda_inputs(q, kpool, vpool, block_tables, n_keys, kscale=None,
@@ -220,15 +274,25 @@ def flash_decode(q, kpool, vpool, block_tables, n_keys, *,
     lib = _library()
     n_slots, heads, hd = q.shape
     vd = vpool.shape[3]
+    bs, mb = kpool.shape[2], block_tables.shape[1]
+    code = _dtype_code(q.dtype)
+    cb = chunk_blocks(lib, n_slots, heads, hd, vd, bs, mb, int8, code)
+    chunks = -(-mb // cb)
     out = torch.empty((n_slots, heads, vd), dtype=q.dtype, device=q.device)
+    tickets = _ticket_buffer(q.device, n_slots * heads)
+    # the chunks' (m, l, acc) partials; read only when a slot has several
+    # live chunks
+    part = (torch.empty(n_slots * heads * chunks * (vd + 2),
+                        dtype=torch.float32, device=q.device)
+            if chunks > 1 else out)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     scales = [kscale.data_ptr(), vscale.data_ptr()] if int8 else []
     fn = lib.ff_flash_decode_int8 if int8 else lib.ff_flash_decode
-    code = fn(q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(), *scales,
-              block_tables.data_ptr(), n_keys.data_ptr(), out.data_ptr(),
-              n_slots, heads, hd, vd, kpool.shape[2], block_tables.shape[1],
-              _scale(hd, sm_scale), _dtype_code(q.dtype), stream)
+    err = fn(q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(), *scales,
+             block_tables.data_ptr(), n_keys.data_ptr(), out.data_ptr(),
+             part.data_ptr(), tickets.data_ptr(), n_slots, heads, hd, vd, bs,
+             mb, cb, _scale(hd, sm_scale), code, stream)
     name = "flash_decode_int8" if int8 else "flash_decode"
-    check(lib, code, f"{name} launch")
+    check(lib, err, f"{name} launch")
     _launches[name] += 1
     return out

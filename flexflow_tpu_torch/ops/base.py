@@ -31,6 +31,10 @@ class OpContext:
     # chunk or decode step of the serving engine; ops with sequence state
     # (causal attention's KV) read ``cache_in`` and publish ``cache_out``
     serving: Any = None
+    # training-loss terms that ops append during a training forward
+    # (``kernel_regularizer``'s penalty); the train step adds them to the
+    # loss. None outside training, as in flexflow_tpu/ops/base.py:43
+    aux_losses: Any = None
 
 
 # registry: OperatorType -> Op subclass

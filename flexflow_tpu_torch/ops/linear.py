@@ -31,10 +31,26 @@ def apply_activation(x, activation: ActiMode):
     raise ValueError(f"unknown activation {activation}")
 
 
+def apply_weight_regularizer(spec, kernel, ctx: OpContext) -> None:
+    """The ``("l1"|"l2", lam)`` penalty of ``kernel`` (the compute-dtype
+    copy the forward multiplies by), in fp32, appended to
+    ``ctx.aux_losses`` when training (flexflow_tpu/ops/linear.py:74-89)."""
+    if not spec or not ctx.training or ctx.aux_losses is None:
+        return
+    kind, lam = spec
+    w = kernel.float()
+    if kind == "l1":
+        ctx.aux_losses.append(lam * w.abs().sum())
+    elif kind == "l2":
+        ctx.aux_losses.append(lam * (w * w).sum())
+    else:
+        raise ValueError(f"unknown regularizer kind {kind!r}")
+
+
 @register_op(OperatorType.OP_LINEAR)
 class LinearOp(Op):
     """attrs: out_dim, activation, use_bias, kernel_initializer,
-    bias_initializer."""
+    bias_initializer, kernel_regularizer."""
 
     def infer_output_shapes(self, input_shapes):
         (ishape,) = input_shapes
@@ -58,13 +74,12 @@ class LinearOp(Op):
         return specs
 
     def forward(self, params, inputs, ctx: OpContext):
-        if self.attrs.get("kernel_regularizer"):
-            raise NotImplementedError(
-                f"{self.name}: kernel_regularizer is a training-loss term; "
-                "it is ported in a later slice (training)")
         (x,) = inputs
-        y = x @ params["kernel"]
+        kernel = params["kernel"]
+        y = x @ kernel
         if "bias" in params:
             y = y + params["bias"]
+        apply_weight_regularizer(self.attrs.get("kernel_regularizer"),
+                                 kernel, ctx)
         return [apply_activation(y, self.attrs.get("activation",
                                                    ActiMode.AC_MODE_NONE))]

@@ -229,6 +229,39 @@ def test_fp32_two_pass_backward_matches_plain(b, h, causal, sq, sk, d,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,h,causal,sq,sk,d,dropout", [
+    (4, 40, False, 256, 256, 64, 0.0),    # b*h 160: more than one wave
+    (4, 40, True, 256, 256, 128, 0.0),
+    (1, 2, True, 4096, 4096, 64, 0.0),    # the copy ring wraps many times
+    (1, 2, True, 2048, 2048, 128, 0.0),   # one stage at d 128
+    (1, 3, True, 1024, 2048, 64, 0.0),    # rectangular causal band
+    (2, 3, True, 192, 512, 128, 0.0),
+    (2, 3, True, 192, 192, 64, 0.0),      # ragged: a 128-row CTA spans 192
+    (2, 3, False, 192, 192, 64, 0.0),
+    (2, 4, True, 512, 512, 64, 0.1),      # dropout
+    (2, 4, False, 192, 256, 128, 0.1),
+])
+def test_fp32_forward_matches_plain(b, h, causal, sq, sk, d, dropout):
+    """The fp32 forward (B1, ``flash_fwd_f32``: cp.async ring, 128-bit
+    shared loads, two warp groups on alternate k tiles) against the plain
+    tile walk, one launch each: O within 2e-5 and lse within 1e-4."""
+    dev = _cuda()
+    q, k, v, _do = _fa_inputs(12, torch.float32, dev, b=b, h=h, sq=sq, sk=sk,
+                              d=d)
+    seed = 777
+    out_tol, _grad_tol = FA_TOL[torch.float32]
+    blk = 128 if sq % 128 == 0 and sk % 128 == 0 else 64
+    fa.reset_launch_count()
+    out, lse = fa._flash_forward(q, k, v, causal, blk, blk, dropout, seed)
+    torch.cuda.synchronize()
+    assert fa.launch_count("flash_fwd") == 1
+    want, want_lse = fa.flash_forward_plain(q, k, v, causal, blk, blk,
+                                            dropout, seed)
+    assert (out - want).abs().max().item() <= out_tol
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
 def test_fused_backward_launches_no_host_side_delta():
     """The fused CUDA route launches exactly: the fill of the fp32 dQ
     buffer, q's pre-scale, the fused kernel, dQ's 1/sqrt(d) scale and its
@@ -344,6 +377,115 @@ def test_flash_decode_int8_kernel_refuses_what_it_does_not_take():
                         vscale=vs)
     with pytest.raises(TypeError):
         fd.flash_decode(q, kq, v, tables, nk, kscale=ks, vscale=vs)
+
+
+# ------------------------------------- flash decode, keys split across CTAs
+def _split_case(seed, dtype, dev, int8, slots, heads, hd, vd, bs, mb, n_keys,
+                unaligned=False):
+    """(args, kwargs) of one flash_decode call: pools of ``slots * mb + 1``
+    blocks (int8 with scales, or of ``dtype``), random tables."""
+    rng = np.random.default_rng(seed)
+    n_blocks = slots * mb + 1
+    pool_dtype = torch.float32 if int8 else dtype
+    q = torch.tensor(rng.standard_normal((slots, heads, hd)), dtype=dtype,
+                     device=dev)
+    k, v = (torch.tensor(rng.standard_normal((n_blocks, heads, bs, d)),
+                         dtype=pool_dtype, device=dev) for d in (hd, vd))
+    tables = torch.tensor(
+        rng.permutation(np.arange(1, n_blocks)).reshape(slots, mb),
+        dtype=torch.int32, device=dev)
+    nk = torch.tensor(n_keys, dtype=torch.int32, device=dev)
+    kw = {}
+    if int8:
+        k, v, ks, vs = _int8_pools(k, v)
+        kw = dict(kscale=ks, vscale=vs)
+    if unaligned:
+        def shift(t):
+            flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+            view = flat[1:].view(t.shape)
+            view.copy_(t)
+            return view
+        k, v = shift(k), shift(v)
+    return (q, k, v, tables, nk), kw
+
+
+def _chunk_keys(dtype, int8, slots, heads, hd, vd, bs, mb):
+    code = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}[dtype]
+    return bs * fd.chunk_blocks(fd._library(), slots, heads, hd, vd, bs, mb,
+                                int8, code)
+
+
+DECODE_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2,
+               torch.float16: 2e-3}
+
+
+# long contexts with few slots, where the split matters most, and key
+# counts at the chunk edges, 0 and past the table's extent (mb * bs)
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8,dtype,hd,vd,bs,mb", [
+    (False, torch.float32, 64, 64, 16, 256),
+    (False, torch.bfloat16, 128, 128, 8, 256),
+    (False, torch.float16, 256, 256, 32, 128),
+    (False, torch.bfloat16, 64, 128, 16, 64),
+    (False, torch.float32, 128, 64, 32, 128),
+    (False, torch.float32, 40, 72, 8, 64),
+    (True, torch.bfloat16, 64, 64, 16, 256),
+    (True, torch.float32, 128, 256, 8, 256),
+    (True, torch.float16, 256, 64, 32, 64),
+])
+def test_flash_decode_split_keys_match_plain(int8, dtype, hd, vd, bs, mb):
+    dev = _cuda()
+    heads = 2
+    full = mb * bs
+    for slots, edges in ((1, [full]), (2, [full - 3, full // 2 + 1])):
+        args, kw = _split_case(7, dtype, dev, int8, slots, heads, hd, vd, bs,
+                               mb, edges)
+        got = fd.flash_decode(*args, **kw)
+        want = fd.flash_decode_plain(*args, **kw)
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= DECODE_ATOL[dtype], (slots, edges, err)
+    ck = _chunk_keys(dtype, int8, 8, heads, hd, vd, bs, mb)
+    assert ck < full  # the long slots take several chunks
+    edges = [ck - 1, ck, ck + 1, 0, full + 7, 1, full, 2 * ck + 1]
+    for unaligned in (False, True):
+        args, kw = _split_case(8, dtype, dev, int8, 8, heads, hd, vd, bs, mb,
+                               edges, unaligned=unaligned)
+        got = fd.flash_decode(*args, **kw)
+        want = fd.flash_decode_plain(*args, **kw)
+        assert torch.all(got[3] == 0)  # no keys: zeros
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= DECODE_ATOL[dtype], (edges, unaligned, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_flash_decode_graph_replays_equal_an_eager_call(int8):
+    """The split kernel's partials merge in chunk order, so a call is
+    bitwise repeatable; it captures into a CUDA graph (its scratch comes
+    from the wrapper, its ticket counters stay zero between launches) and
+    every replay equals the eager call. One launch a call."""
+    dev = _cuda()
+    name = "flash_decode_int8" if int8 else "flash_decode"
+    args, kw = _split_case(9, torch.bfloat16, dev, int8, 8, 12, 64, 64, 16,
+                           32, [512, 1, 300, 17, 0, 511, 128, 64])
+    before = fd.launch_count(name)
+    eager = fd.flash_decode(*args, **kw)
+    again = fd.flash_decode(*args, **kw)
+    assert fd.launch_count(name) == before + 2
+    assert torch.equal(eager, again)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=side):
+        out = fd.flash_decode(*args, **kw)
+    assert fd.launch_count(name) == before + 3
+    for _ in range(2):
+        out.zero_()
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    want = fd.flash_decode_plain(*args, **kw)
+    assert (eager.float() - want.float()).abs().max().item() <= 2e-2
 
 
 # ------------------------------------------------------------------ top-k
