@@ -12,10 +12,11 @@ drives the PyTorch port only (it imports neither jax nor flexflow_tpu):
    census (``cuobjdump -sass``) of each instance of the Hopper
    flash-attention forward and fused backward (its wgmma ``HGMMA``, TMA
    load ``UTMALDG`` and, in the backward, bulk reduce-add ``UBLKRED``
-   instructions) and of the fp32 forward and two-pass backward (B1, B3 and
-   B4 at d 64 and 128: their ``cp.async`` copies ``LDGSTS`` and 128-bit
-   shared loads ``LDS.128``), failing if one is missing, beside its
-   registers, spill bytes and dynamic shared memory (14 instances); and
+   instructions) and of the fp32 forward, fused and two-pass backward (B1,
+   B2, B3 and B4 at d 64 and 128: their ``cp.async`` copies ``LDGSTS`` and
+   128-bit shared loads ``LDS.128``; B2 also its dQ reduce-adds ``REDG``),
+   failing if one is missing, beside its registers, spill bytes and
+   dynamic shared memory (16 instances); and
    the registers and spill bytes of the flash-decode instances the kernel
    phase times;
 2. kernels — holds flash decode (B5), top-k (B7) and softmax (B6) against
@@ -31,7 +32,9 @@ drives the PyTorch port only (it imports neither jax nor flexflow_tpu):
    launch cost is left out (it is printed beside); the row top-k (B7) at
    the sampler's shape (8, 50304) fp32, k = 8 and 1, with injected ties
    and a row with fewer than k finite entries, values and indices equal to
-   the plain sweeps' (library: ``torch.topk``); the row softmax forward and
+   the plain sweeps' and a CUDA-graph replay equal to an eager call
+   (library: ``torch.topk``), with its chunks a row and its registers and
+   spills; the row softmax forward and
    backward (B6) at GPT-2 small's logits (4096, 50304) in fp32 and bf16
    (library: ``torch.softmax`` and its backward);
 3. end to end — per compute dtype (fp32, bf16): GPT-2 small at full width
@@ -66,8 +69,9 @@ drives the PyTorch port only (it imports neither jax nor flexflow_tpu):
    (``torch.autograd.grad`` of a retained forward) and SDPA's forward plus
    backward as CUDA-graph replays (inputs warm in L2, as a training step
    finds them), and each plain version eagerly, and prints each against
-   its bound; at seq 16384 one ``pair B3+B4`` line holds the two-pass
-   kernels' sum against SDPA's backward in the same call; then the host
+   its bound; a ``pair B3+B4`` line for each timed shape holds the
+   two-pass kernels' sum against SDPA's backward in the same call; then the
+   host
    time to encode one TMA descriptor (the 16-bit forward encodes 3 a
    launch, the fused backward 5) beside a launch's time from Python;
 6. training — through ``FFModel.fit``, with random weights and data from a
@@ -87,9 +91,10 @@ drives the PyTorch port only (it imports neither jax nor flexflow_tpu):
    the same step through the einsum core, and with the softmax kernel
    against the same step through ``torch.softmax``. It prints p50 step
    ms, samples/s and MFU against 989 TF/s; ``--profile`` adds one
-   BERT-Large step and one GPT-2 seq 16384 fp32 step under
-   ``torch.profiler`` (busy share, flash/GEMM/other split, flash time by
-   kernel, kernels by time in ``profile_train_bert_bf16.txt`` and
+   BERT-Large step, one GPT-2 small fp32 step at seq 512 and one at seq
+   16384 under ``torch.profiler`` (busy share, flash/GEMM/other split,
+   flash time by kernel, kernels by time in
+   ``profile_train_bert_bf16.txt``, ``profile_train_gpt2_fp32.txt`` and
    ``profile_train_long_fp32.txt`` of the output directory).
 
 It prints one ``{"kernels": [...]}`` line (the entries of the instances
@@ -208,16 +213,18 @@ def build_phase() -> dict:
 # hold (an entry with a dot also needs that modifier, e.g. LDS.128): the
 # 16-bit forward and fused backward wgmma (HGMMA) and TMA tile loads
 # (UTMALDG), the fused backward also the bulk reduce-add of its dQ partials
-# (UBLKRED); the fp32 forward and two-pass backward their cp.async ring
-# (LDGSTS) and 128-bit shared loads (LDS.128)
+# (UBLKRED); the fp32 forward, fused and two-pass backward their cp.async
+# ring (LDGSTS) and 128-bit shared loads (LDS.128), the fused one also the
+# vector reduce-adds of its dQ partials (REDG)
 SASS_NEEDS = {"flash_fwd_sm90": ("HGMMA", "UTMALDG"),
               "flash_bwd_fused_sm90": ("HGMMA", "UTMALDG", "UBLKRED"),
               "flash_bwd_dkv_f32": ("LDGSTS", "LDS.128"),
               "flash_bwd_dq_f32": ("LDGSTS", "LDS.128"),
-              "flash_fwd_f32": ("LDGSTS", "LDS.128")}
-# instances the census must find: B1 and B2 x bf16/fp16 x d 64/128, B3,
-# B4 and B1 fp32 x d 64/128
-SASS_INSTANCES = 14
+              "flash_fwd_f32": ("LDGSTS", "LDS.128"),
+              "flash_bwd_fused_f32": ("LDGSTS", "LDS.128", "REDG")}
+# instances the census must find: B1 and B2 x bf16/fp16 x d 64/128, B1,
+# B2, B3 and B4 fp32 x d 64/128
+SASS_INSTANCES = 16
 
 
 def sass_count(ops, need: str) -> int:
@@ -268,7 +275,8 @@ def sass_census() -> dict:
     props = ptxas_props("flash_attention")
     pat = re.compile(r"(flash_fwd_sm90|flash_bwd_fused_sm90)I"
                      r"(13__nv_bfloat16|6__half)Li(64|128)E"
-                     r"|(flash_bwd_dkv_f32|flash_bwd_dq_f32|flash_fwd_f32)"
+                     r"|(flash_bwd_dkv_f32|flash_bwd_dq_f32|flash_fwd_f32"
+                     r"|flash_bwd_fused_f32)"
                      r"ILi(64|128)E")
     census = {}
     for chunk in re.split(r"\n\s*Function : ", sass.stdout)[1:]:
@@ -281,8 +289,9 @@ def sass_census() -> dict:
             dtype = "bf16" if "bfloat16" in m.group(2) else "fp16"
         else:
             kernel, d, dtype = m.group(4), int(m.group(5)), "fp32"
-        ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?"
-                         r"([A-Z][A-Z0-9_]*(?:\.[A-Z0-9_]+)*)", chunk)
+        # every instruction, at any offset (a kernel can pass 64 KB)
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                         r"([A-Z][A-Z0-9_]*(?:\.[A-Za-z0-9_]+)*)", chunk)
         counts = {op: sass_count(ops, op) for op in SASS_NEEDS[kernel]}
         entry = dict(sass=counts, **props.get(name, {}),
                      smem_bytes=fa.smem_bytes(kernel, d))
@@ -299,7 +308,7 @@ def sass_census() -> dict:
     if len(census) != SASS_INSTANCES:
         fail(f"found {len(census)} flash-attention instances in the "
              f"library's SASS, want {SASS_INSTANCES} (B1 and B2 x bf16/fp16 "
-             "x d 64/128, B3, B4 and B1 fp32 x d 64/128)")
+             "x d 64/128, B1, B2, B3 and B4 fp32 x d 64/128)")
     return census
 
 
@@ -524,11 +533,32 @@ def topk_inputs(device, n: int, seed: int = SEED):
     return out
 
 
+def topk_props() -> dict:
+    """Registers and spill bytes of the top-k instances the kernel phase
+    times (fp32, 16-byte loads), by k; fails if one is missing from the
+    compiler's report."""
+    import re
+
+    out = {}
+    for kernel, p in ptxas_props("topk").items():
+        m = re.search(r"topk_kernelIfLi(\d)ELb1E", kernel)
+        if m and int(m.group(1)) in TOPK_KS:
+            out[int(m.group(1))] = p
+    if set(out) != set(TOPK_KS):
+        fail(f"topk instances missing from the compiler's report: "
+             f"{sorted(set(TOPK_KS) - set(out))}")
+    for k, p in sorted(out.items()):
+        log(f"  ptxas topk k={k} fp32: registers {p.get('registers')}, "
+            f"spill bytes {p.get('spill_bytes')}")
+    return out
+
+
 def topk_kernel_phase(device, card: str, iters: int = 240, n: int = 12):
     """B7 at the sampler's decode shape, k = 8 and k = 1: values and
-    indices must EQUAL the plain sweeps'. Timed as graph replays cycling
-    over ``n`` inputs (19 MB, warm in L2, as logits fresh from the LM head
-    are); the library call is ``torch.topk``."""
+    indices must EQUAL the plain sweeps', and a CUDA-graph replay the
+    eager call's. Timed as graph replays cycling over ``n`` inputs (19 MB,
+    warm in L2, as logits fresh from the LM head are); the library call is
+    ``torch.topk``."""
     import torch
 
     from flexflow_tpu_torch.kernels import topk as tk
@@ -541,6 +571,16 @@ def topk_kernel_phase(device, card: str, iters: int = 240, n: int = 12):
             want_v, want_i = tk.topk_plain(x, k)
             if not (torch.equal(idx, want_i) and torch.equal(vals, want_v)):
                 fail(f"topk k={k}: kernel and plain sweeps differ")
+        # a replay of the split launch (scratch from the wrapper, tickets
+        # left zero) equals the eager call bitwise
+        vals, idx = tk.topk(xs[0], k)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            g_vals, g_idx = tk.topk(xs[0], k)
+        g.replay()
+        if not (torch.equal(g_vals, vals) and torch.equal(g_idx, idx)):
+            fail(f"topk k={k}: a graph replay differs from the eager call")
+        chunk, chunks, _kp = tk.chunking(SLOTS, VOCAB_PADDED, k, 0)
         lib_v, _ = torch.topk(xs[0], k, dim=-1)
         lib_same = bool(torch.equal(lib_v, tk.topk_plain(xs[0], k)[0]))
         ms = time_ms(lambda i: tk.topk(xs[i % n], k), iters, device,
@@ -556,12 +596,15 @@ def topk_kernel_phase(device, card: str, iters: int = 240, n: int = 12):
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
         log(f"kernel topk k={k} ({SLOTS}, {VOCAB_PADDED}) fp32: values and "
             f"indices equal the plain sweeps' (torch.topk values equal: "
-            f"{lib_same}), {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
+            f"{lib_same}), graph replay equal, {chunks} chunks of {chunk} a "
+            f"row, {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
             f"torch.topk {lib_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.3f} us"
             f" ({bound_by}) [{card}]")
         out[k] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                       bound_ms=bound_ms, bound_by=bound_by,
-                      library_ms=lib_ms)
+                      library_ms=lib_ms, chunks=chunks)
+    for k, p in topk_props().items():
+        out[k].update(p)
     return out
 
 
@@ -1163,19 +1206,18 @@ def fa_case(device, card: str, shape_name: str, dname: str,
             f"{re:.3g}), {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
             f"sdpa {lib_txt}, bound {bound_ms * 1e3:.2f} us ({bound_by}; "
             f"{bound_ms / ms:.3f} of it) [{card}]")
-    if flops_long:
-        # the two-pass pair against SDPA's backward, which computes the
-        # same dq, dk, dv in one call
-        pair = res["flash_bwd_dkv"]["ms"] + res["flash_bwd_dq"]["ms"]
-        sdpa_bwd = res["flash_bwd_fused"]["library_ms"]
-        for name in ("flash_bwd_dkv", "flash_bwd_dq"):
-            res[name]["pair_library_ms"] = sdpa_bwd
-        bound = sum(res[n]["bound_ms"] for n in ("flash_bwd_dkv",
-                                                  "flash_bwd_dq"))
-        log(f"pair B3+B4 {shape_name} {dname}: {pair * 1e3:.1f} us against "
-            f"sdpa backward {sdpa_bwd * 1e3:.1f} us ({pair / sdpa_bwd:.3f}x)"
-            f"; bound {bound * 1e3:.2f} us ({bound / pair:.3f} of it) "
-            f"[{card}]")
+    # the two-pass pair against SDPA's backward, which computes the same
+    # dq, dk, dv in one call
+    pair = res["flash_bwd_dkv"]["ms"] + res["flash_bwd_dq"]["ms"]
+    sdpa_bwd = res["flash_bwd_fused"]["library_ms"]
+    for name in ("flash_bwd_dkv", "flash_bwd_dq"):
+        res[name]["pair_library_ms"] = sdpa_bwd
+    bound = sum(res[n]["bound_ms"] for n in ("flash_bwd_dkv",
+                                              "flash_bwd_dq"))
+    log(f"pair B3+B4 {shape_name} {dname}: {pair * 1e3:.1f} us against "
+        f"sdpa backward {sdpa_bwd * 1e3:.1f} us ({pair / sdpa_bwd:.3f}x)"
+        f"; bound {bound * 1e3:.2f} us ({bound / pair:.3f} of it) "
+        f"[{card}]")
     fwdbwd = time_ms(lambda i: torch.autograd.grad(
         F.scaled_dot_product_attention(*leaves, is_causal=causal), leaves,
         do), iters, device, graph=True, stream=side)
@@ -1518,7 +1560,8 @@ def main() -> None:
     train = {
         "bert": train_phase(device, card, "bert", "bf16", steps=6, warmup=2,
                             profile=profile),
-        "gpt2": train_phase(device, card, "gpt2", "fp32", steps=3, warmup=1),
+        "gpt2": train_phase(device, card, "gpt2", "fp32", steps=3, warmup=1,
+                            profile=profile),
         "long": train_phase(device, card, "gpt2", "fp32", steps=2, warmup=0,
                             seq=LONG_SEQ, batch=1, check_grads=False,
                             profile=profile),

@@ -49,42 +49,50 @@
 // tensor-core rate that keeps fp32 products (TF32 would round them). There
 // the bound is the issue rate of shared-memory loads beside the FMAs: an
 // SM serves about one shared-memory wavefront a clock against four
-// warp-wide FFMAs. The fp32 forward (B1, flash_fwd_f32) and two-pass
-// backward (B3 dK/dV, B4 dQ; the section "fp32 SIMT kernels" below) are
-// built for that:
+// warp-wide FFMAs. The fp32 forward (B1, flash_fwd_f32), fused backward
+// (B2, flash_bwd_fused_f32) and two-pass backward (B3 dK/dV, B4 dQ; the
+// section "fp32 SIMT kernels" below) are built for that:
 //   * every operand load is a 128-bit LDS from tiles padded by 4 floats a
 //     row, read without bank conflicts, and a lane's register block is
 //     8 x 8 (8 x 4 for the d 128 score tile), so each load feeds 16 FFMAs
 //     (4 for each quarter warp's wavefront; a 4 x 4 block of 32-bit loads
 //     feeds 2); P = 2^(s log2 e - m log2 e) (B1) or 2^(s log2 e - lse
-//     log2 e) (B3, B4) on the special-function unit (ex2.approx, as in the
-//     16-bit kernels); lse stays in natural log;
+//     log2 e) (B2, B3, B4) on the special-function unit (ex2.approx, as in
+//     the 16-bit kernels); lse stays in natural log;
 //   * to hold 8 x 8 blocks in 255 registers a CTA's 8 warps form two
 //     groups. In B1 each group takes every other k tile with its own
 //     online softmax, merged at the end, and a warp owns whole q rows, so
-//     a row's max and sum never leave it; in B3 and B4 the groups split
-//     each tile's products (B3: S^T, dV and dP^T, dK; B4: S and dP, then
-//     half the keys of dQ each), and the two warps of a pair hand raw S
-//     and dP over through shared memory under a named barrier and finish
+//     a row's max and sum never leave it; in B2, B3 and B4 the groups split
+//     each tile's products (B2 and B3: S^T, dV and dP^T, dK; B4: S and dP,
+//     then half the keys of dQ each), and the two warps of a pair hand raw
+//     S and dP over through shared memory under a named barrier and finish
 //     P and dS for half of the rows each;
-//   * the streamed tiles (k, v for B1 and B4; q, dO, lse, delta for B3)
-//     arrive by 16-byte cp.async into a 2-stage ring (one stage for B1 and
-//     B3 at d 128), the next tiles' copy in flight while this step's
-//     products run, one CTA barrier a step;
-//   * B1 and B4 walk their q tiles from the last, so the CTAs with the most
-//     k tiles under the causal band start first (B3's k tile 0 already
-//     is); only tiles that cross the band take the mask compare.
+//   * B2 is B3 plus the two things that make it fused: delta = rowsum(dO *
+//     O) of each q tile, computed by the CTA from global memory (16-byte
+//     loads of two L2-resident tiles) one tile ahead, and dQ = dS k over
+//     the CTA's keys, a fifth product split by columns between the groups
+//     (4 x 4 or 4 x 8 lane blocks read as one broadcast dS^T float4 and
+//     one or two k float4s a key) once every pair's dS^T is in shared
+//     memory, added into the zeroed fp32 dq_acc by 16-byte vector
+//     reduce-adds (no staging buffer: the ring leaves no room for one);
+//   * the streamed tiles (k, v for B1 and B4; q, dO, lse, delta for B3; q,
+//     dO, lse for B2) arrive by 16-byte cp.async into a 2-stage ring (one
+//     stage for B1, B2 and B3 at d 128), the next tiles' copy in flight
+//     while this step's products run, one CTA barrier a step (two for B2);
+//   * B1 and B4 walk their q tiles from the last, and B2 and B3 start at
+//     key block 0, so the CTAs with the most tiles under the causal band
+//     start first; B1 and B2 put batch * head on blockIdx.x, so the first
+//     wave holds the heaviest CTAs of every head; only tiles that cross the
+//     band take the mask compare.
 // At seq 512 a causal B1 CTA of 128 q rows sees at most 8 k tiles; its two
 // groups take them two at a time, so the chain a CTA walks is at most 4
-// steps, each step's loads in flight behind the step before.
-// The rest keeps its first design: one CTA per (batch*head, 64-row tile),
-// looping inside the CTA over the other sequence's 64-row tiles (the TPU's
-// sequential grid dimension becomes this loop): the two-pass backward in
-// 16 bits on mma.sync, and the fp32 fused backward with tiles staged in
-// shared memory with a one-word row pad, each thread owning a 4 x 4 block
-// of the 64 x 64 score tile, dQ added by atomics. Not done yet: a
-// persistent schedule and split-K for few long heads (PERF.md has the
-// measured times).
+// steps, each step's loads in flight behind the step before. A causal B2
+// CTA of 128 keys walks 8, 6, 4 or 2 q tiles.
+// The two-pass backward in 16 bits keeps its first design on mma.sync: one
+// CTA per (batch*head, 64-row tile), looping inside the CTA over the other
+// sequence's 64-row tiles (the TPU's sequential grid dimension becomes
+// this loop). Not done yet: a persistent schedule and split-K for few long
+// heads (PERF.md has the measured times).
 
 #include <cuda.h>  // CUtensorMap (types only: no driver library is linked)
 #include <cuda_bf16.h>
@@ -100,11 +108,7 @@
 namespace {
 
 constexpr int kTile = 64;      // rows of a q tile and of a k tile
-constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 scores each
-constexpr int kSP = kTile + 1; // padded row stride of score tiles
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
 
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -113,19 +117,6 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-
-// x rounded to T and back: what `.astype(T)` leaves of an fp32 value
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
 }
 
 // flexflow_tpu/kernels/flash_attention.py:96-113 (dropout_keep_scale_nd),
@@ -152,64 +143,6 @@ struct Dropout {
   float scale;
 };
 
-// rows [0, 64) of a (rows, D) tile at `src` into fp32 shared memory with
-// row stride D + 1; coalesced reads along the row
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src) {
-  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
-    const int r = i / D;
-    const int c = i - r * D;
-    dst[r * (D + 1) + c] = to_f32(src[i]);
-  }
-}
-
-// acc[i][j] = sum_d A[ty*4+i][d] * B[tx+16j][d] over two (64, D) tiles of
-// stride D + 1: the score tile q k^T (or dO v^T) of this thread
-template <int D>
-__device__ __forceinline__ void rows_dot_rows(const float* A, const float* B,
-                                              int ty, int tx,
-                                              float (&acc)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ty * 4 + i) * (D + 1) + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = B[(tx + 16 * j) * (D + 1) + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-// acc[i][j] += sum_c S[rowsel(i)][c] * M[c][tx+16j] with S a 64 x 64 score
-// tile (stride kSP) and M a (64, D) tile (stride D + 1). With `transposed`
-// the score tile is read down its columns: S[c][ty*4+i] (P^T dO, dS^T q).
-template <int D, bool transposed>
-__device__ __forceinline__ void scores_times_tile(const float* S,
-                                                  const float* M, int ty,
-                                                  int tx,
-                                                  float (&acc)[4][D / 16]) {
-#pragma unroll 4
-  for (int c = 0; c < kTile; ++c) {
-    float s[4], m[D / 16];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      s[i] = transposed ? S[c * kSP + ty * 4 + i] : S[(ty * 4 + i) * kSP + c];
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) m[j] = M[c * (D + 1) + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) acc[i][j] = fmaf(s[i], m[j], acc[i][j]);
-  }
-}
-
 struct Shape {
   int sq;
   int sk;
@@ -230,127 +163,6 @@ __device__ __forceinline__ int k_tiles_for(const Shape& sh, int q0) {
 __device__ __forceinline__ int first_q_tile(const Shape& sh, int k0) {
   if (!sh.causal) return 0;
   return max(k0 - (sh.sk - sh.sq), 0) / kTile;
-}
-
-// ---------------------------- fused backward over k tiles (dK, dV, dQ): B2
-// delta from dO and O in-kernel, dQ by atomicAdd into dq_acc
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ o,
-                        const T* __restrict__ dout,
-                        const float* __restrict__ lse, T* __restrict__ dk,
-                        T* __restrict__ dv, float* __restrict__ dq_acc,
-                        Shape sh, Dropout dr) {
-  extern __shared__ float smem[];
-  constexpr int P = D + 1;
-  float* sK = smem;
-  float* sV = sK + kTile * P;
-  float* sQ = sV + kTile * P;
-  float* sdO = sQ + kTile * P;
-  float* sPd = sdO + kTile * P;  // dropped P, rounded (64 x kSP)
-  float* sdS = sPd + kTile * kSP;  // dS, rounded (64 x kSP)
-  float* sLse = sdS + kTile * kSP;
-  float* sDelta = sLse + kTile;
-
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int k0 = blockIdx.x * kTile;
-  const int bh = blockIdx.y;
-  const int offset = sh.sk - sh.sq;
-  const size_t qbase = (size_t)bh * sh.sq;
-
-  load_tile<T, D>(sK, k + ((size_t)bh * sh.sk + k0) * D);
-  load_tile<T, D>(sV, v + ((size_t)bh * sh.sk + k0) * D);
-
-  // this thread's dK/dV rows are k rows ty*4+i, columns tx+16j
-  float dk_acc[4][D / 16], dv_acc[4][D / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      dk_acc[i][j] = 0.f;
-      dv_acc[i][j] = 0.f;
-    }
-
-  const int nqb = sh.sq / kTile;
-  for (int qb = first_q_tile(sh, k0); qb < nqb; ++qb) {
-    const int q0 = qb * kTile;
-    __syncthreads();  // readers of the previous q tile are done
-    load_tile<T, D>(sQ, q + (qbase + q0) * D);
-    load_tile<T, D>(sdO, dout + (qbase + q0) * D);
-    if (threadIdx.x < kTile) sLse[threadIdx.x] = lse[qbase + q0 + threadIdx.x];
-    __syncthreads();
-    {
-      // delta = rowsum(dO * O): four threads per row, shuffled together
-      const int row = threadIdx.x >> 2;
-      const int part = threadIdx.x & 3;
-      const T* orow = o + (qbase + q0 + row) * D;
-      float sum = 0.f;
-      for (int d = part; d < D; d += 4)
-        sum = fmaf(sdO[row * P + d], to_f32(orow[d]), sum);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      if (part == 0) sDelta[row] = sum;
-      __syncthreads();
-    }
-
-    // score-tile rows are q rows ty*4+i, columns k rows tx+16j
-    float s[4][4], dp[4][4];
-    rows_dot_rows<D>(sQ, sK, ty, tx, s);
-    rows_dot_rows<D>(sdO, sV, ty, tx, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-      const int qpos = q0 + r;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        float sv = s[i][j];
-        if (sh.causal && qpos + offset < k0 + c) sv = kNegInf;
-        const float p = expf(sv - sLse[r]);
-        float pd = p;
-        float dpj = dp[i][j];
-        if (dr.on) {
-          const float keep =
-              keep_scale(dr.seed, bh, qpos, k0 + c, dr.threshold, dr.scale);
-          pd = p * keep;
-          dpj = dpj * keep;
-        }
-        sPd[r * kSP + c] = round_to<T>(pd);
-        sdS[r * kSP + c] = round_to<T>(p * (dpj - sDelta[r]));
-      }
-    }
-    __syncthreads();
-    // dV += Pd^T dO, dK += dS^T q (q pre-scaled, so dK is exact)
-    scores_times_tile<D, true>(sPd, sdO, ty, tx, dv_acc);
-    scores_times_tile<D, true>(sdS, sQ, ty, tx, dk_acc);
-    {
-      // dQ rows are q rows ty*4+i: dQ += dS k, unscaled (the caller scales)
-      float dq[4][D / 16];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < D / 16; ++j) dq[i][j] = 0.f;
-      scores_times_tile<D, false>(sdS, sK, ty, tx, dq);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float* drow = dq_acc + (qbase + q0 + ty * 4 + i) * D;
-#pragma unroll
-        for (int j = 0; j < D / 16; ++j) atomicAdd(drow + tx + 16 * j, dq[i][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const size_t row = (size_t)bh * sh.sk + k0 + ty * 4 + i;
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      dk[row * D + tx + 16 * j] = from_f32<T>(dk_acc[i][j]);
-      dv[row * D + tx + 16 * j] = from_f32<T>(dv_acc[i][j]);
-    }
-  }
 }
 
 // ------------------- fp32 SIMT kernels: B3 (dK, dV), B4 (dQ), B1 (forward)
@@ -614,29 +426,119 @@ __device__ __forceinline__ void dq_hand_over(
   bar_sync(bar, 64);
 }
 
-// B3: one CTA per (kRows keys, batch*head), k and v resident, q/dO/lse/
-// delta tiles of 64 rows streamed from the first q tile inside the band.
-// k tile 0 (the most q tiles under the causal band) is blockIdx.x 0, so the
-// heaviest CTAs start first.
-template <int D>
-__global__ void __launch_bounds__(TwoPass<D>::kThreads, 1)
-    flash_bwd_dkv_f32(const float* __restrict__ q,
-                      const float* __restrict__ k,
-                      const float* __restrict__ v,
-                      const float* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta,
-                      float* __restrict__ dk, float* __restrict__ dv,
-                      Shape sh, Dropout dr) {
+// B3 and B2 in fp32: shared memory of a CTA. Resident k, v, the score
+// rows P (then dS^T) and Pd^T, and its stages of q, dO, lse (B3 also
+// delta); B2 keeps the delta of two q tiles beside the ring.
+template <int D, bool kFused>
+struct BwdKvF32 {
   using C = TwoPass<D>;
-  constexpr int kStages = C::kDkvStages;
-  constexpr int kStage = 2 * C::kTileFloats + 2 * kTile;  // q, dO, lse, delta
+  static constexpr int kStages = C::kDkvStages;
+  static constexpr int kStage = 2 * C::kTileFloats + (kFused ? 1 : 2) * kTile;
+  static constexpr size_t kBytes =
+      sizeof(float) * (2 * C::kRows * C::kStride + 2 * C::kRows * C::kSStride +
+                       kStages * kStage + (kFused ? 2 * kTile : 0));
+};
+
+// B2: delta = rowsum(dO * O) of the 64 rows from row0 into dst[0, 64),
+// read from global memory in 16-byte loads (in a training step both
+// tensors are L2-resident): kChunks lanes a row, summed by shuffles
+template <int D>
+__device__ __forceinline__ void delta_rows(float* dst,
+                                           const float* __restrict__ dout,
+                                           const float* __restrict__ o,
+                                           size_t row0) {
+  constexpr int kChunks = D / 4;         // float4s of a row: 16 or 32
+  constexpr int kPass = 256 / kChunks;   // rows a pass of 256 threads
+  constexpr int kN = kTile / kPass;
+  const int c = (threadIdx.x % kChunks) * 4;
+  const int r = threadIdx.x / kChunks;
+  float sum[kN];
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+    const size_t at = (row0 + r + n * kPass) * D + c;
+    const float4 a = __ldg(reinterpret_cast<const float4*>(dout + at));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(o + at));
+    sum[n] = fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, a.x * b.x)));
+  }
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+#pragma unroll
+    for (int m = kChunks / 2; m > 0; m >>= 1)
+      sum[n] += __shfl_xor_sync(0xffffffffu, sum[n], m);
+    if (threadIdx.x % kChunks == 0) dst[r + n * kPass] = sum[n];
+  }
+}
+
+// B2: dQ += dS k for one q tile over the CTA's first nkeys keys (dS^T in
+// the score rows sP, k resident), added into `dq_rows` (the tile's rows
+// of dq_acc). Group g takes the columns [g D/2, (g + 1) D/2); lane t of
+// the group (0..127) holds rows 4 (t / 8) + r and columns g D/2 + 4 (t %
+// 8) + 32 jj, so for each key a quarter warp reads one broadcast dS^T
+// float4 and 8 consecutive k float4s. Keys are summed in order; the
+// partials of a tile's key blocks meet in 16-byte vector reduce-adds in
+// no fixed order, so dQ is not bitwise repeatable.
+template <int D>
+__device__ __forceinline__ void dq_tile(const float* sP, const float* sK,
+                                        int nkeys, float* dq_rows, int group,
+                                        int t) {
+  using C = TwoPass<D>;
+  constexpr int kJ = D / 64;  // k float4s a lane reads for a key: 1 or 2
+  const int qr = 4 * (t >> 3);
+  const int col = group * (D / 2) + 4 * (t & 7);
+  float acc[4][4 * kJ];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int n = 0; n < 4 * kJ; ++n) acc[r][n] = 0.f;
+  const float* xs = sP + qr;
+  const float* ks = sK + col;
+#pragma unroll 4
+  for (int key = 0; key < nkeys; ++key) {
+    const float4 x = lds4(xs + key * C::kSStride);
+#pragma unroll
+    for (int jj = 0; jj < kJ; ++jj) {
+      const float4 m = lds4(ks + key * C::kStride + 32 * jj);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float xv = float4_at(x, r);
+        acc[r][4 * jj + 0] = fmaf(xv, m.x, acc[r][4 * jj + 0]);
+        acc[r][4 * jj + 1] = fmaf(xv, m.y, acc[r][4 * jj + 1]);
+        acc[r][4 * jj + 2] = fmaf(xv, m.z, acc[r][4 * jj + 2]);
+        acc[r][4 * jj + 3] = fmaf(xv, m.w, acc[r][4 * jj + 3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int jj = 0; jj < kJ; ++jj)
+      atomicAdd(reinterpret_cast<float4*>(dq_rows + (qr + r) * D + col +
+                                          32 * jj),
+                make_float4(acc[r][4 * jj], acc[r][4 * jj + 1],
+                            acc[r][4 * jj + 2], acc[r][4 * jj + 3]));
+}
+
+// B3 and B2: one CTA per (kRows keys from k0, batch*head bh), k and v
+// resident, q/dO/lse (B3 also delta) tiles of 64 rows streamed from the
+// first q tile inside the band. kFused (B2) adds delta in-kernel and dQ.
+template <int D, bool kFused>
+__device__ __forceinline__ void bwd_kv_f32(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ o,
+    const float* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dk,
+    float* __restrict__ dv, float* __restrict__ dq_acc, int k0, int bh,
+    Shape sh, Dropout dr) {
+  using C = TwoPass<D>;
+  using L = BwdKvF32<D, kFused>;
+  constexpr int kStages = L::kStages;
   extern __shared__ __align__(16) float smem_f32[];
   float* sK = smem_f32;
   float* sV = sK + C::kRows * C::kStride;
   float* sP = sV + C::kRows * C::kStride;     // S^T / dS^T rows
   float* sPd = sP + C::kRows * C::kSStride;   // dP^T / dropped P^T rows
   float* ring = sPd + C::kRows * C::kSStride;
+  float* sDel = ring + kStages * L::kStage;   // B2: delta of two q tiles
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -644,8 +546,6 @@ __global__ void __launch_bounds__(TwoPass<D>::kThreads, 1)
   const int wr = (warp & 3) * C::kWarpRows;  // the warp's rows in the CTA
   const int rg = lane / C::kCG;
   const int cg = lane % C::kCG;
-  const int k0 = blockIdx.x * C::kRows;
-  const int bh = blockIdx.y;
   const int off = sh.sk - sh.sq;
   const int kw = k0 + wr;  // the warp's first key
   const size_t qbase = (size_t)bh * sh.sq;
@@ -655,11 +555,11 @@ __global__ void __launch_bounds__(TwoPass<D>::kThreads, 1)
   copy_rows_async<D, C::kRows>(sK, k + kbase * D, sh.sk - k0);
   copy_rows_async<D, C::kRows>(sV, v + kbase * D, sh.sk - k0);
   auto load_stage = [&](int qb, int s) {
-    float* st = ring + s * kStage;
+    float* st = ring + s * L::kStage;
     const size_t row0 = qbase + (size_t)qb * kTile;
     copy_rows_async<D, kTile>(st, q + row0 * D, kTile);
     copy_rows_async<D, kTile>(st + C::kTileFloats, dout + row0 * D, kTile);
-    if (threadIdx.x < 32) {
+    if (threadIdx.x < (kFused ? 16 : 32)) {
       const int lo = threadIdx.x < 16;
       const int part4 = 4 * (threadIdx.x & 15);
       cp_async16(st + 2 * C::kTileFloats + (lo ? 0 : kTile) + part4,
@@ -680,6 +580,8 @@ __global__ void __launch_bounds__(TwoPass<D>::kThreads, 1)
   float* xpd = sPd + wr * C::kSStride;
   const float* nt_rows = (group ? sV : sK) + wr * C::kStride;
   load_stage(qb0, 0);  // the resident k and v join this group of copies
+  if constexpr (kFused)
+    delta_rows<D>(sDel, dout, o, qbase + (size_t)qb0 * kTile);
   for (int qb = qb0; qb < nqb; ++qb) {
     const int s = kStages == 2 ? (qb - qb0) & 1 : 0;
     // tile qb has landed for every thread, and every thread is done with
@@ -688,10 +590,11 @@ __global__ void __launch_bounds__(TwoPass<D>::kThreads, 1)
     __syncthreads();
     if (kStages == 2 && qb + 1 < nqb) load_stage(qb + 1, s ^ 1);
     const int q0 = qb * kTile;
-    const float* sQ = ring + s * kStage;
+    const float* sQ = ring + s * L::kStage;
     const float* sdO = sQ + C::kTileFloats;
     const float* sLse = sdO + C::kTileFloats;
-    const float* sDelta = sLse + kTile;
+    const float* sDelta =
+        kFused ? sDel + ((qb - qb0) & 1) * kTile : sLse + kTile;
     // the pair adds nothing when its keys lie past the band of every query
     // of the tile, or past seq_k
     if (!((sh.causal && q0 + kTile - 1 + off < kw) || kw >= sh.sk)) {
@@ -714,6 +617,23 @@ __global__ void __launch_bounds__(TwoPass<D>::kThreads, 1)
         nn_tile<D, kTile>(xp, sQ, rg, cg, acc);
       }
     }
+    if constexpr (kFused) {
+      __syncthreads();  // the dS^T rows of every live pair are written
+      // the live pairs are the first ones: keys up to the band of the
+      // tile's last query and below seq_k (keys past the band in a live
+      // pair have dS 0; rows past seq_k are zero k rows)
+      int last = sh.sk - 1 - k0;
+      if (sh.causal) last = min(last, q0 + kTile - 1 + off - k0);
+      const int nkeys =
+          min(C::kRows, (last / C::kWarpRows + 1) * C::kWarpRows);
+      dq_tile<D>(sP, sK, nkeys, dq_acc + (qbase + q0) * D, group,
+                 threadIdx.x & 127);
+      // the next tile's delta, into the slot the tile before this one
+      // read (every reader passed this step's first barrier)
+      if (qb + 1 < nqb)
+        delta_rows<D>(sDel + ((qb + 1 - qb0) & 1) * kTile, dout, o,
+                      qbase + (size_t)(qb + 1) * kTile);
+    }
     if (kStages == 1 && qb + 1 < nqb) {
       __syncthreads();  // every reader is done with the one stage
       load_stage(qb + 1, 0);
@@ -732,6 +652,39 @@ __global__ void __launch_bounds__(TwoPass<D>::kThreads, 1)
           make_float4(acc[i][4 * jj], acc[i][4 * jj + 1],
                       acc[i][4 * jj + 2], acc[i][4 * jj + 3]);
   }
+}
+
+// B3: grid (key block, batch*head); key block 0 (the most q tiles under
+// the causal band) is blockIdx.x 0, so the heaviest CTAs start first.
+template <int D>
+__global__ void __launch_bounds__(TwoPass<D>::kThreads, 1)
+    flash_bwd_dkv_f32(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      float* __restrict__ dk, float* __restrict__ dv,
+                      Shape sh, Dropout dr) {
+  bwd_kv_f32<D, false>(q, k, v, nullptr, dout, lse, delta, dk, dv, nullptr,
+                       blockIdx.x * TwoPass<D>::kRows, blockIdx.y, sh, dr);
+}
+
+// B2: grid (batch*head, key block), so key block 0 of every head is in
+// the first wave; delta from dO and O, dQ added into the zeroed dq_acc
+// (unscaled: the caller scales by 1/sqrt(d))
+template <int D>
+__global__ void __launch_bounds__(TwoPass<D>::kThreads, 1)
+    flash_bwd_fused_f32(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ o,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        float* __restrict__ dk, float* __restrict__ dv,
+                        float* __restrict__ dq_acc, Shape sh, Dropout dr) {
+  bwd_kv_f32<D, true>(q, k, v, o, dout, lse, nullptr, dk, dv, dq_acc,
+                      blockIdx.y * TwoPass<D>::kRows, blockIdx.x, sh, dr);
 }
 
 // B4: one CTA per (kRows q rows, batch*head), q and dO resident, k/v tiles
@@ -2217,28 +2170,19 @@ constexpr size_t tc_tile_bytes() {
   return sizeof(uint16_t) * kTile * (D + 8);
 }
 
-template <int D>
-constexpr size_t bwd_kv_smem() {
-  return sizeof(float) * (4 * kTile * (D + 1) + 2 * kTile * kSP + 2 * kTile);
-}
-// fp32 B3: resident k, v, the score rows P (then dS^T) and Pd^T, and its
-// stages of q, dO, lse and delta; fp32 B4: resident q, dO and score rows,
-// two stages of k, v
-template <int D>
-constexpr size_t dkv_f32_smem() {
-  using C = TwoPass<D>;
-  return sizeof(float) *
-         (2 * C::kRows * C::kStride + 2 * C::kRows * C::kSStride +
-          C::kDkvStages * (2 * C::kTileFloats + 2 * kTile));
-}
+// fp32 B3 and B2: BwdKvF32; fp32 B4: resident q, dO and score rows, two
+// stages of k, v
 template <int D>
 constexpr size_t dq_f32_smem() {
   using C = TwoPass<D>;
   return sizeof(float) * (2 * C::kRows * C::kStride + C::kRows * C::kSStride +
                           2 * 2 * C::kTileFloats);
 }
-static_assert(dkv_f32_smem<64>() <= 232448 && dq_f32_smem<64>() <= 232448 &&
-                  dkv_f32_smem<128>() <= 232448 &&
+static_assert(BwdKvF32<64, false>::kBytes <= 232448 &&
+                  BwdKvF32<128, false>::kBytes <= 232448 &&
+                  BwdKvF32<64, true>::kBytes <= 232448 &&
+                  BwdKvF32<128, true>::kBytes <= 232448 &&
+                  dq_f32_smem<64>() <= 232448 &&
                   dq_f32_smem<128>() <= 232448 &&
                   FwdF32<64>::kBytes <= 232448 &&
                   FwdF32<128>::kBytes <= 232448,
@@ -2343,14 +2287,17 @@ int launch_bwd_fused(const void* q, const void* k, const void* v,
                      void* dk, void* dv, float* dq_acc, int bh, Shape sh,
                      Dropout dr, cudaStream_t st) {
   if constexpr (kSimt<T>) {
-    auto kernel = flash_bwd_kv_kernel<T, D>;
-    static const cudaError_t err = allow_smem(kernel, bwd_kv_smem<D>());
+    using C = TwoPass<D>;
+    auto kernel = flash_bwd_fused_f32<D>;
+    constexpr size_t smem = BwdKvF32<D, true>::kBytes;
+    static const cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<dim3(sh.sk / kTile, bh), kThreads, bwd_kv_smem<D>(), st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(o),
-        static_cast<const T*>(dout), lse, static_cast<T*>(dk),
-        static_cast<T*>(dv), dq_acc, sh, dr);
+    kernel<<<dim3(bh, (sh.sk + C::kRows - 1) / C::kRows), C::kThreads, smem,
+             st>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                   static_cast<const float*>(v), static_cast<const float*>(o),
+                   static_cast<const float*>(dout), lse,
+                   static_cast<float*>(dk), static_cast<float*>(dv), dq_acc,
+                   sh, dr);
   } else {
     constexpr bool f16 = !kBf16<T>;
     CUtensorMap mq, mk, mv, mo, mdo;
@@ -2383,7 +2330,7 @@ int launch_bwd_kv(const void* q, const void* k, const void* v, const void* o,
   if constexpr (kSimt<T>) {
     using C = TwoPass<D>;
     auto kernel = flash_bwd_dkv_f32<D>;
-    constexpr size_t smem = dkv_f32_smem<D>();
+    constexpr size_t smem = BwdKvF32<D, false>::kBytes;
     static const cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     kernel<<<dim3((sh.sk + C::kRows - 1) / C::kRows, bh), C::kThreads, smem,
@@ -2522,20 +2469,23 @@ extern "C" int ff_flash_bwd_q(const void* q, const void* k, const void* v,
 // Dynamic shared memory of a launch: kernel 0 = 16-bit forward (B1,
 // flash_fwd_sm90), 1 = 16-bit fused backward (B2, flash_bwd_fused_sm90),
 // 2 = fp32 dK/dV (B3, flash_bwd_dkv_f32), 3 = fp32 dQ (B4,
-// flash_bwd_dq_f32), 4 = fp32 forward (B1, flash_fwd_f32), for head dim
-// d (64 or 128); -1 otherwise.
+// flash_bwd_dq_f32), 4 = fp32 forward (B1, flash_fwd_f32), 5 = fp32 fused
+// backward (B2, flash_bwd_fused_f32), for head dim d (64 or 128); -1
+// otherwise.
 extern "C" int ff_flash_smem_bytes(int kernel, int d) {
   if (d != 64 && d != 128) return -1;
   const bool d64 = d == 64;
   switch (kernel) {
     case 0: return d64 ? FwdLayout<64>::kBytes : FwdLayout<128>::kBytes;
     case 1: return d64 ? BwdLayout<64>::kBytes : BwdLayout<128>::kBytes;
-    case 2: return static_cast<int>(d64 ? dkv_f32_smem<64>()
-                                        : dkv_f32_smem<128>());
+    case 2: return static_cast<int>(d64 ? BwdKvF32<64, false>::kBytes
+                                        : BwdKvF32<128, false>::kBytes);
     case 3: return static_cast<int>(d64 ? dq_f32_smem<64>()
                                         : dq_f32_smem<128>());
     case 4: return static_cast<int>(d64 ? FwdF32<64>::kBytes
                                         : FwdF32<128>::kBytes);
+    case 5: return static_cast<int>(d64 ? BwdKvF32<64, true>::kBytes
+                                        : BwdKvF32<128, true>::kBytes);
     default: return -1;
   }
 }

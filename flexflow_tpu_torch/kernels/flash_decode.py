@@ -157,10 +157,6 @@ def _library():
 
 # chunk blocks by launch shape (a pure function of host-known values)
 _chunks = {}
-# per-(slot, head) ticket counters by device index: zero between launches,
-# every buffer ever handed to a launch kept alive (a captured graph holds
-# its pointer)
-_tickets = {}
 
 
 def chunk_blocks(lib, n_slots: int, heads: int, hd: int, vd: int, bs: int,
@@ -177,24 +173,6 @@ def chunk_blocks(lib, n_slots: int, heads: int, hd: int, vd: int, bs: int,
             raise ValueError(f"flash_decode: no chunking for shape {key}")
         _chunks[key] = cb
     return cb
-
-
-def _ticket_buffer(device, n: int):
-    """The device's ticket counters (int32, at least ``n``). They are made
-    zeroed outside any CUDA-graph capture and each launch leaves them zero,
-    so launches that share them must run on one stream."""
-    import torch
-
-    bufs = _tickets.setdefault(device.index, [])
-    if bufs and bufs[-1].numel() >= n:
-        return bufs[-1]
-    if torch.cuda.is_current_stream_capturing():
-        raise RuntimeError(
-            "flash_decode: its ticket counters are created on the first "
-            "eager call; launch it once outside CUDA-graph capture first")
-    bufs.append(torch.zeros(max(n, 2 * bufs[-1].numel() if bufs else n),
-                            dtype=torch.int32, device=device))
-    return bufs[-1]
 
 
 def _check_cuda_inputs(q, kpool, vpool, block_tables, n_keys, kscale=None,
@@ -270,6 +248,7 @@ def flash_decode(q, kpool, vpool, block_tables, n_keys, *,
     _check_cuda_inputs(q, kpool, vpool, block_tables, n_keys, kscale,
                        vscale)
     from .build import check
+    from .tickets import ticket_buffer
 
     lib = _library()
     n_slots, heads, hd = q.shape
@@ -279,7 +258,7 @@ def flash_decode(q, kpool, vpool, block_tables, n_keys, *,
     cb = chunk_blocks(lib, n_slots, heads, hd, vd, bs, mb, int8, code)
     chunks = -(-mb // cb)
     out = torch.empty((n_slots, heads, vd), dtype=q.dtype, device=q.device)
-    tickets = _ticket_buffer(q.device, n_slots * heads)
+    tickets = ticket_buffer("flash_decode", q.device, n_slots * heads)
     # the chunks' (m, l, acc) partials; read only when a slot has several
     # live chunks
     part = (torch.empty(n_slots * heads * chunks * (vd + 2),

@@ -5,7 +5,10 @@ Port of ``flexflow_tpu/kernels/topk.py`` (the Pallas ``_topk_kernel``: k
 unrolled argmax sweeps, ties to the lowest index, -inf clamped to -FLT_MAX
 in the selection key and the original value returned). The CUDA kernel is
 ``csrc/topk.cu``; its header says what bounds it (bytes: one read of the
-row) and how the design follows from that. Beside it:
+row) and how the design follows from that: a row is cut into chunks across
+CTAs (the chunk from the launch's shape and the SM count), and the CTA that
+takes a row's last ticket merges the chunks' candidates in the same launch.
+Beside it:
 
 * :func:`topk_plain` — the same function in plain PyTorch: k unrolled
   ``torch.argmax`` sweeps (``torch.argmax`` returns the first maximum;
@@ -16,6 +19,11 @@ row) and how the design follows from that. Beside it:
   backward scatters the value cotangent to the selected positions (the
   indices carry none), as ``lax.top_k``'s vjp. CPU tensors take the plain
   version; CUDA tensors launch the kernel or raise. Nothing falls back.
+  The wrapper allocates the outputs and the chunks' scratch with
+  ``torch.empty`` on every call, so a launch captures into a CUDA graph;
+  the per-row ticket counters (``tickets.py``) are made zeroed on the first
+  eager call of a device and left zero by every launch, so launches that
+  share them run on one stream.
 * :func:`topk_kernel_shape` / :func:`should_use_topk_kernel` — the JAX
   package's routing gate (``should_use_pallas_topk``), with "on CUDA" in
   the place of "on TPU".
@@ -102,9 +110,33 @@ def _library():
     lib = load("topk")
     if lib.ff_topk.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ff_topk.argtypes = [p, p, p, i, i, i, i, p]
-        lib.ff_topk.restype = ctypes.c_int
+        lib.ff_topk.argtypes = [p] * 5 + [i] * 5 + [p]
+        lib.ff_topk_chunk_elems.argtypes = [i] * 4
+        lib.ff_topk_list_len.argtypes = [i]
+        for fn in (lib.ff_topk, lib.ff_topk_chunk_elems,
+                   lib.ff_topk_list_len):
+            fn.restype = ctypes.c_int
     return lib
+
+
+# (chunk elements, chunks, list length) by launch shape: a pure function of
+# host-known values
+_chunks = {}
+
+
+def chunking(rows: int, dim: int, k: int, dtype_code: int):
+    """(elements of a chunk, chunks a row, candidates a chunk keeps) of a
+    launch (``csrc/topk.cu`` ``chunk_elems_for``): from the launch's shape
+    and the SM count only, never from the data."""
+    key = (rows, dim, k, dtype_code)
+    got = _chunks.get(key)
+    if got is None:
+        lib = _library()
+        ce = lib.ff_topk_chunk_elems(rows, dim, k, dtype_code)
+        if ce < 1:
+            raise ValueError(f"topk: no chunking for shape {key}")
+        got = _chunks[key] = (ce, -(-dim // ce), lib.ff_topk_list_len(k))
+    return got
 
 
 def _topk_cuda(x, k: int):
@@ -112,21 +144,28 @@ def _topk_cuda(x, k: int):
     import torch
 
     from .build import check
+    from .tickets import ticket_buffer
 
     dim = x.shape[-1]
     rows = x.numel() // max(dim, 1)
     if not 1 <= k <= min(MAX_KERNEL_K, dim):
         raise ValueError(f"topk: k = {k} must be in [1, min(8, dim = {dim})]")
-    if rows < 1 or rows >= 2 ** 31 or dim >= 2 ** 31:
+    if rows < 1 or rows >= 2 ** 31 or dim >= 2 ** 30:
         raise ValueError(f"topk: {rows} rows of {dim} is outside the "
                          "kernel's range")
     code_dtype = _dtype_code(x.dtype)
     xr = x.reshape(rows, dim).contiguous()
     vals = torch.empty((rows, k), dtype=x.dtype, device=x.device)
     idx = torch.empty((rows, k), dtype=torch.int32, device=x.device)
+    chunk, chunks, kp = chunking(rows, dim, k, code_dtype)
+    # the chunks' lists of 64-bit candidates; read only with several
+    part = (torch.empty(rows * chunks * kp * 2, dtype=torch.int32,
+                        device=x.device) if chunks > 1 else idx)
+    tickets = ticket_buffer("topk", x.device, rows)
     lib = _library()
-    code = lib.ff_topk(xr.data_ptr(), vals.data_ptr(), idx.data_ptr(), rows,
-                       dim, k, code_dtype,
+    code = lib.ff_topk(xr.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+                       part.data_ptr(), tickets.data_ptr(), rows, dim, k,
+                       chunk, code_dtype,
                        torch.cuda.current_stream(x.device).cuda_stream)
     check(lib, code, "topk launch")
     _launches += 1

@@ -262,6 +262,44 @@ def test_fp32_forward_matches_plain(b, h, causal, sq, sk, d, dropout):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,h,causal,sq,sk,d,dropout", [
+    (8, 12, True, 512, 512, 64, 0.0),     # GPT-2 small's training shape
+    (1, 3, True, 1024, 2048, 64, 0.0),    # rectangular causal band
+    (2, 3, True, 192, 192, 64, 0.0),      # ragged: a 128-key CTA spans 192
+    (2, 3, False, 192, 192, 128, 0.0),
+    (2, 4, True, 512, 512, 128, 0.1),     # dropout at d 128 (one stage)
+    (4, 40, False, 256, 256, 64, 0.0),    # b*h 160: more than one wave
+])
+def test_fp32_fused_backward_matches_plain(b, h, causal, sq, sk, d,
+                                           dropout):
+    """The fp32 fused backward (B2, ``flash_bwd_fused_f32``: B3's cp.async
+    ring and warp groups, delta in-kernel, dQ by vector reduce-adds)
+    against the plain fused walk, one launch each. dQ's partials meet in
+    reduce-adds in no fixed order, so it is not bitwise repeatable: every
+    gradient is held within 1e-4 of its largest element."""
+    dev = _cuda()
+    q, k, v, do = _fa_inputs(13, torch.float32, dev, b=b, h=h, sq=sq, sk=sk,
+                             d=d)
+    seed = 9191
+    _out_tol, grad_tol = FA_TOL[torch.float32]
+    blk = 128 if sq % 128 == 0 and sk % 128 == 0 else 64
+    out, lse = fa.flash_forward_plain(q, k, v, causal, blk, blk, dropout,
+                                      seed)
+    fa.reset_launch_count()
+    got = fa._flash_backward(q, k, v, out, lse, do, causal, blk, blk,
+                             dropout, seed, fused=True)
+    torch.cuda.synchronize()
+    assert {n: fa.launch_count(n) for n in fa.KERNELS} == {
+        "flash_fwd": 0, "flash_bwd_fused": 1, "flash_bwd_dkv": 0,
+        "flash_bwd_dq": 0}
+    want = fa.flash_backward_plain(q, k, v, out, lse, do, causal, blk, blk,
+                                   dropout, seed, fused=True)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.float32
+        assert _rel_err(g, w) <= grad_tol, (name, _rel_err(g, w))
+
+
+@pytest.mark.cuda
 def test_fused_backward_launches_no_host_side_delta():
     """The fused CUDA route launches exactly: the fill of the fp32 dQ
     buffer, q's pre-scale, the fused kernel, dQ's 1/sqrt(d) scale and its
@@ -495,33 +533,121 @@ import flexflow_tpu_torch.kernels.topk as tk  # noqa: E402
 def _topk_rows(seed, rows, dim, dtype, dev):
     """Random rows with injected ties (a repeated maximum, and a value
     repeated across the top-k boundary) and one row with two finite
-    entries (the rest -inf)."""
+    entries (the rest -inf), as far as there are rows."""
     rng = np.random.default_rng(seed)
     x = torch.tensor(rng.standard_normal((rows, dim)), dtype=torch.float32)
     x[0, [3, 70, dim - 1]] = 9.0
-    x[1, [5, 6, 200 % dim]] = 7.5
-    x[1, [1, 2]] = 8.0
-    x[2] = float("-inf")
-    x[2, [dim // 2, 1]] = torch.tensor([0.5, -3.0])
+    if rows > 1:
+        x[1, [5, 6, 200 % dim]] = 7.5
+        x[1, [1, 2]] = 8.0
+    if rows > 2:
+        x[2] = float("-inf")
+        x[2, [dim // 2, 1]] = torch.tensor([0.5, -3.0])
     return x.to(dtype).to(dev)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
-                                   torch.float16])
-@pytest.mark.parametrize("rows,dim", [(8, 50304), (5, 128), (3, 1001)])
-@pytest.mark.parametrize("k", [1, 3, 8])
-def test_topk_kernel_equals_plain(dtype, rows, dim, k):
-    dev = _cuda()
-    x = _topk_rows(rows * dim + k, rows, dim, dtype, dev)
+def _topk_equals_plain(x, k):
     before = tk.launch_count()
     vals, idx = tk.topk(x, k)
     torch.cuda.synchronize()
     assert tk.launch_count() == before + 1
     want_v, want_i = tk.topk_plain(x, k)
-    assert vals.dtype == dtype and idx.dtype == torch.int32
+    assert vals.dtype == x.dtype and idx.dtype == torch.int32
     assert torch.equal(idx, want_i)
     assert torch.equal(vals, want_v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("rows,dim", [
+    (8, 50304), (5, 128), (3, 1001),
+    (1, 50304), (1, 1001), (1, 128), (8, 1001), (8, 128),
+    (128, 50304), (128, 1001), (128, 128),
+    (200, 50304), (200, 1001), (200, 128)])
+@pytest.mark.parametrize("k", [1, 3, 8])
+def test_topk_kernel_equals_plain(dtype, rows, dim, k):
+    """One launch a call, values and indices equal to the plain sweeps':
+    rows split across CTAs (1 and 8 rows), one CTA a row (128 and 200
+    rows), rows shorter than a chunk."""
+    dev = _cuda()
+    _topk_equals_plain(_topk_rows(rows * dim + k, rows, dim, dtype, dev), k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("rows,dim", [(1, 50304), (8, 50304), (4, 8192)])
+@pytest.mark.parametrize("k", [1, 3, 8])
+def test_topk_kernel_ties_across_chunks(dtype, rows, dim, k):
+    """An equal maximum in different chunks goes to the lowest index, ties
+    across the k-th place straddle a chunk edge, and rows with fewer than
+    k finite entries (none, one) still give k distinct indices, equal to
+    the plain sweeps'."""
+    dev = _cuda()
+    code = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}[dtype]
+    chunk, chunks, _kp = tk.chunking(rows, dim, k, code)
+    assert chunks > 1
+    rng = np.random.default_rng(rows + dim + k)
+    x = torch.tensor(rng.standard_normal((rows, dim)), dtype=torch.float32)
+    edge = chunk * (chunks // 2)  # the first element of a middle chunk
+    x[0, [dim - 1, edge, edge - 1, 7]] = 6.0
+    x[0, [chunk - 1, chunk, 2 * chunk + 5]] = 5.0
+    if rows > 1:
+        x[1] = float("-inf")
+        x[1, edge] = 1.0
+        x[2] = float("-inf")
+    _topk_equals_plain(x.to(dtype).to(dev), k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("rows", [1, 8, 200])
+@pytest.mark.parametrize("k", [1, 8])
+def test_topk_kernel_on_rows_of_equal_values(dtype, rows, k):
+    """Rows where thousands of elements tie at the top (all zeros, all
+    -inf, a maximum repeated across a whole chunk): far more candidates
+    reach a CTA's first threshold than it gathers, so it raises the
+    threshold and walks again; the lowest indices still win."""
+    dev = _cuda()
+    dim = 50304
+    x = torch.zeros((rows, dim), dtype=torch.float32)
+    if rows > 1:
+        x[1] = float("-inf")
+        x[-1, 5000:9000] = 3.0
+    _topk_equals_plain(x.to(dtype).to(dev), k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 8])
+def test_topk_graph_replays_equal_an_eager_call(k):
+    """The split kernel captures into a CUDA graph (its scratch comes from
+    the wrapper, its ticket counters stay zero between launches), and every
+    replay equals the eager call bitwise. One launch a call."""
+    dev = _cuda()
+    x = _topk_rows(31, 8, 50304, torch.float32, dev)
+    before = tk.launch_count()
+    eager_v, eager_i = tk.topk(x, k)
+    again_v, again_i = tk.topk(x, k)
+    assert tk.launch_count() == before + 2
+    assert torch.equal(eager_v, again_v) and torch.equal(eager_i, again_i)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=side):
+        vals, idx = tk.topk(x, k)
+    assert tk.launch_count() == before + 3
+    for _ in range(2):
+        vals.zero_()
+        idx.zero_()
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(vals, eager_v) and torch.equal(idx, eager_i)
+    from flexflow_tpu_torch.kernels.tickets import ticket_buffer
+    assert int(ticket_buffer("topk", dev, 8).abs().sum()) == 0
+    want_v, want_i = tk.topk_plain(x, k)
+    assert torch.equal(eager_v, want_v) and torch.equal(eager_i, want_i)
 
 
 @pytest.mark.cuda
