@@ -8,15 +8,17 @@ drives the PyTorch port only (it imports neither jax nor flexflow_tpu):
 
 1. build — compiles every CUDA kernel of the port from ``csrc/`` (one
    nvcc per source, all started together) and prints the build seconds
-   and, per source, the compiler's register and spill counts; then a SASS
-   census (``cuobjdump -sass``) of each instance of the Hopper
-   flash-attention forward and fused backward (its wgmma ``HGMMA``, TMA
-   load ``UTMALDG`` and, in the backward, bulk reduce-add ``UBLKRED``
-   instructions) and of the fp32 forward, fused and two-pass backward (B1,
-   B2, B3 and B4 at d 64 and 128: their ``cp.async`` copies ``LDGSTS`` and
-   128-bit shared loads ``LDS.128``; B2 also its dQ reduce-adds ``REDG``),
-   failing if one is missing, beside its registers, spill bytes and
-   dynamic shared memory (16 instances); and
+   and, per source, the compiler's register and spill counts (and any
+   warning that it serialized wgmma instructions); then a SASS census
+   (``cuobjdump -sass``) of each instance of the Hopper flash-attention
+   forward, fused and two-pass backward (B1, B2, B3, B4 in bf16 and fp16
+   at d 64 and 128: their wgmma ``HGMMA``, TMA load ``UTMALDG`` and, in the
+   fused backward, bulk reduce-add ``UBLKRED`` instructions) and of the
+   fp32 forward, fused and two-pass backward (B1, B2, B3 and B4 at d 64
+   and 128: their ``cp.async`` copies ``LDGSTS`` and 128-bit shared loads
+   ``LDS.128``; B2 also its dQ reduce-adds ``REDG``), failing if one is
+   missing, beside its registers, spill bytes and dynamic shared memory
+   (24 instances); and
    the registers and spill bytes of the flash-decode instances the kernel
    phase times;
 2. kernels — holds flash decode (B5), top-k (B7) and softmax (B6) against
@@ -64,22 +66,26 @@ drives the PyTorch port only (it imports neither jax nor flexflow_tpu):
    versions at BERT-Large's attention (b8 h16 s512 d64) and GPT-2 small's
    (b8 h12 s512 d64, causal) in fp32 and bf16, at GPT-2 small's widths at
    seq 16384 (b1, causal: the shape where the JAX package's rule takes the
-   two-pass backward) in fp32, and once with dropout 0.1; times each
-   kernel launch alone, SDPA's forward, SDPA's backward
+   two-pass backward) in fp32 and bf16, and once with dropout 0.1 (the
+   grads against their largest element and, per 64-row tile, against the
+   tile's; at seq 16384 it prints what planted faults read on both
+   checks); times each kernel launch alone, SDPA's forward, SDPA's backward
    (``torch.autograd.grad`` of a retained forward) and SDPA's forward plus
    backward as CUDA-graph replays (inputs warm in L2, as a training step
    finds them), and each plain version eagerly, and prints each against
    its bound; a ``pair B3+B4`` line for each timed shape holds the
-   two-pass kernels' sum against SDPA's backward in the same call; then the
-   host
-   time to encode one TMA descriptor (the 16-bit forward encodes 3 a
-   launch, the fused backward 5) beside a launch's time from Python;
+   two-pass kernels' sum against SDPA's backward in the same call; then
+   the host time to encode one TMA descriptor (the 16-bit forward encodes 3 a
+   launch, the fused backward 5, dK/dV and dQ 4 each) beside a launch's
+   time from Python;
 6. training — through ``FFModel.fit``, with random weights and data from a
    seed: the BERT-Large proxy (``bench.py``'s flagship: hidden 1024, 16
    heads, 24 layers, seq 512, batch 8, bf16 compute, Adam 1e-4, sparse
    categorical cross-entropy), 2 warm-up then 6 timed steps; GPT-2 small
    with a softmax head on token labels (fp32, batch 8, seq 512), 1 + 3
-   steps; GPT-2 small's widths at seq 16384 (fp32, batch 1), 2 steps;
+   steps; GPT-2 small's widths at seq 16384 (batch 1), 2 steps in fp32
+   and 2 after 1 warm-up in bf16 (its step launches the 16-bit B1, B3 and
+   B4 12 times each);
    GPT-2 small at vocab 50304 with the head's softmax opted into the
    row-softmax kernel (``ff.softmax(logits, use_pallas=True)``; fp32,
    batch 8, seq 512), 1 + 3 steps. Launch counts are reset before each
@@ -91,18 +97,19 @@ drives the PyTorch port only (it imports neither jax nor flexflow_tpu):
    the same step through the einsum core, and with the softmax kernel
    against the same step through ``torch.softmax``. It prints p50 step
    ms, samples/s and MFU against 989 TF/s; ``--profile`` adds one
-   BERT-Large step, one GPT-2 small fp32 step at seq 512 and one at seq
-   16384 under ``torch.profiler`` (busy share, flash/GEMM/other split,
-   flash time by kernel, kernels by time in
-   ``profile_train_bert_bf16.txt``, ``profile_train_gpt2_fp32.txt`` and
-   ``profile_train_long_fp32.txt`` of the output directory).
+   BERT-Large step, one GPT-2 small fp32 step at seq 512 and one fp32 and
+   one bf16 step at seq 16384 under ``torch.profiler`` (busy share,
+   flash/GEMM/other split, flash time by kernel, kernels by time in
+   ``profile_train_bert_bf16.txt``, ``profile_train_gpt2_fp32.txt``,
+   ``profile_train_long_fp32.txt`` and ``profile_train_long_bf16.txt`` of
+   the output directory).
 
-It prints one ``{"kernels": [...]}`` line (the entries of the instances
-the census covers also carry their SASS counts, registers, spills and
-shared memory; the flash-decode entries their registers and spills; the
-two-pass entries SDPA's backward as ``pair_library_ms``), the
-card's name and power limit
-(nvidia-smi), and as its last line ``{"ok": true, "device": {...}}``. Any
+It prints the run's wall seconds, one ``{"kernels": [...]}`` line (the
+entries of the instances the census covers also carry their SASS counts,
+registers, spills and shared memory; the flash-decode entries their
+registers and spills; the two-pass entries SDPA's backward as
+``pair_library_ms``; the backward entries their tile error), the card's
+name and power limit (nvidia-smi), and as its last line ``{"ok": true, "device": {...}}``. Any
 failed phase exits non-zero; without CUDA, or without the package, it
 exits 1 and prints no result.
 """
@@ -206,25 +213,30 @@ def build_phase() -> dict:
             f"{min(regs, default=0)}..{max(regs, default=0)} a thread, "
             f"{sum(1 for s in spills if s)} spilling (at most "
             f"{max(spills, default=0)} bytes)")
+        for line in rep.splitlines():
+            if "wgmma" in line and "serialized" in line:
+                log(f"  {name}: ptxas: {line.strip()[:300]}")
     return sass_census()
 
 
 # SASS instructions each flash-attention instance built for Hopper must
 # hold (an entry with a dot also needs that modifier, e.g. LDS.128): the
-# 16-bit forward and fused backward wgmma (HGMMA) and TMA tile loads
-# (UTMALDG), the fused backward also the bulk reduce-add of its dQ partials
-# (UBLKRED); the fp32 forward, fused and two-pass backward their cp.async
-# ring (LDGSTS) and 128-bit shared loads (LDS.128), the fused one also the
-# vector reduce-adds of its dQ partials (REDG)
+# 16-bit forward, fused and two-pass backward wgmma (HGMMA) and TMA tile
+# loads (UTMALDG), the fused backward also the bulk reduce-add of its dQ
+# partials (UBLKRED); the fp32 forward, fused and two-pass backward their
+# cp.async ring (LDGSTS) and 128-bit shared loads (LDS.128), the fused one
+# also the vector reduce-adds of its dQ partials (REDG)
 SASS_NEEDS = {"flash_fwd_sm90": ("HGMMA", "UTMALDG"),
               "flash_bwd_fused_sm90": ("HGMMA", "UTMALDG", "UBLKRED"),
+              "flash_bwd_dkv_sm90": ("HGMMA", "UTMALDG"),
+              "flash_bwd_dq_sm90": ("HGMMA", "UTMALDG"),
               "flash_bwd_dkv_f32": ("LDGSTS", "LDS.128"),
               "flash_bwd_dq_f32": ("LDGSTS", "LDS.128"),
               "flash_fwd_f32": ("LDGSTS", "LDS.128"),
               "flash_bwd_fused_f32": ("LDGSTS", "LDS.128", "REDG")}
-# instances the census must find: B1 and B2 x bf16/fp16 x d 64/128, B1,
-# B2, B3 and B4 fp32 x d 64/128
-SASS_INSTANCES = 16
+# instances the census must find: B1, B2, B3 and B4 x bf16/fp16/fp32 x d
+# 64/128
+SASS_INSTANCES = 24
 
 
 def sass_count(ops, need: str) -> int:
@@ -273,7 +285,8 @@ def sass_census() -> dict:
     if sass.returncode != 0:
         fail(f"cuobjdump failed: {sass.stderr.strip()[:400]}")
     props = ptxas_props("flash_attention")
-    pat = re.compile(r"(flash_fwd_sm90|flash_bwd_fused_sm90)I"
+    pat = re.compile(r"(flash_fwd_sm90|flash_bwd_fused_sm90"
+                     r"|flash_bwd_dkv_sm90|flash_bwd_dq_sm90)I"
                      r"(13__nv_bfloat16|6__half)Li(64|128)E"
                      r"|(flash_bwd_dkv_f32|flash_bwd_dq_f32|flash_fwd_f32"
                      r"|flash_bwd_fused_f32)"
@@ -307,8 +320,8 @@ def sass_census() -> dict:
             fail(f"{kernel}<{dtype}, d{d}> has no {missing} in its SASS")
     if len(census) != SASS_INSTANCES:
         fail(f"found {len(census)} flash-attention instances in the "
-             f"library's SASS, want {SASS_INSTANCES} (B1 and B2 x bf16/fp16 "
-             "x d 64/128, B1, B2, B3 and B4 fp32 x d 64/128)")
+             f"library's SASS, want {SASS_INSTANCES} (B1, B2, B3 and B4 x "
+             "bf16/fp16/fp32 x d 64/128)")
     return census
 
 
@@ -1016,7 +1029,8 @@ BF16_FLOPS = 989e12
 # kernel-phase shapes: BERT-Large's attention (non-causal) and GPT-2
 # small's (causal) at batch 8, seq 512; and GPT-2 small's at seq 16384,
 # batch 1, where the JAX package's residency rule takes the two-pass
-# backward (B3 + B4) as the long-context training phase does
+# backward (B3 + B4) as the long-context training paths (fp32 and bf16)
+# do
 FA_SHAPES = {
     "bert": dict(b=8, h=16, sq=512, sk=512, d=64, causal=False),
     "gpt2": dict(b=8, h=12, sq=512, sk=512, d=64, causal=True),
@@ -1027,6 +1041,15 @@ FA_SHAPES = {
 # rounded to bf16 before each product on both sides, and a probability one
 # fp32 ulp apart can round to neighbouring bf16 values)
 FA_TOL = {"fp32": (2e-5, 1e-4), "bf16": (2e-2, 2e-2)}
+# the backward's grads are held tile by tile as well: each 64-row tile's
+# largest error over that tile's own largest element. Under the causal band
+# at seq 16384 a late key's dV (or a late query's dQ) is 3-6x smaller than
+# the global limit above, so a kernel that skipped late key blocks or q
+# tiles would pass it. The limits sit 2.7x or more above the sound
+# kernels' readings and far below a planted fault's (a tile zeroed reads
+# 1; each run at seq 16384 prints both, PERF.md records them)
+TILE_ROWS = 64
+TILE_TOL = {"fp32": 1e-4, "bf16": 2e-2}
 FA_KERNELS = {  # name -> (pallas kernel body replaced, flop factor)
     "flash_fwd": ("flexflow_tpu/kernels/flash_attention.py:168", 4),
     "flash_bwd_fused": ("flexflow_tpu/kernels/flash_attention.py:332", 10),
@@ -1087,6 +1110,38 @@ def abs_err(got, want) -> float:
     return (got.float() - want.float()).abs().max().item()
 
 
+def tile_rel_err(got, want, rows: int = TILE_ROWS) -> float:
+    """The largest, over (batch, head, tile of ``rows`` rows), of the
+    tile's max |got - want| over its own max |want|."""
+    import torch.nn.functional as F
+
+    g, w = (t.float().reshape(-1, t.shape[-2], t.shape[-1])
+            for t in (got, want))
+    pad = -g.shape[1] % rows
+    g, w = (F.pad(t, (0, 0, 0, pad)).reshape(t.shape[0], -1,
+                                             rows * t.shape[-1])
+            for t in (g, w))
+    err, scale = (g - w).abs().amax(-1), w.abs().amax(-1)
+    # a tile whose reference is all zero counts as wrong if any error
+    return (err / scale.clamp_min(1e-30)).max().item()
+
+
+def planted_faults(want) -> dict:
+    """``want`` with rows along the sequence zeroed: what a dK/dV kernel
+    that stopped short of the late key blocks (or skipped one), or a dQ
+    kernel that did so with q tiles, would write."""
+    n = want.shape[-2]
+    late = (n - n // 3) // TILE_ROWS * TILE_ROWS
+    one = 3 * n // 4 // TILE_ROWS * TILE_ROWS
+    out = {}
+    for what, start, rows in (("last third", late, n - late),
+                              ("one at 3/4", one, TILE_ROWS)):
+        bad = want.clone()
+        bad.narrow(-2, start, rows).zero_()
+        out[what] = bad
+    return out
+
+
 def fa_case(device, card: str, shape_name: str, dname: str,
             dropout: float = 0.0, timed: bool = True):
     """Hold B1-B4 against their plain versions at one shape and dtype and
@@ -1112,6 +1167,7 @@ def fa_case(device, card: str, shape_name: str, dname: str,
                                        seed)
     errs = {"flash_fwd": (abs_err(got_o, want_o), abs_err(got_o, want_o),
                           out_tol)}
+    tiles = {}
     if abs_err(got_lse, want_lse) > 1e-4:
         fail(f"flash_fwd {shape_name} {dname}: lse differs by "
              f"{abs_err(got_lse, want_lse)}")
@@ -1121,26 +1177,48 @@ def fa_case(device, card: str, shape_name: str, dname: str,
         want = fa.flash_backward_plain(q, k, v, want_o, want_lse, do, causal,
                                        blk, blk, dropout, seed, fused=fused)
         pairs = [(g, w) for g, w in zip(got, want)]
-        if fused:
-            errs["flash_bwd_fused"] = (
-                max(abs_err(g, w) for g, w in pairs),
-                max(rel_err(g, w) for g, w in pairs), grad_tol)
-        else:
-            errs["flash_bwd_dq"] = (abs_err(*pairs[0]), rel_err(*pairs[0]),
-                                    grad_tol)
-            errs["flash_bwd_dkv"] = (
-                max(abs_err(g, w) for g, w in pairs[1:]),
-                max(rel_err(g, w) for g, w in pairs[1:]), grad_tol)
+        for name, sel in ((("flash_bwd_fused", pairs),) if fused else
+                          (("flash_bwd_dq", pairs[:1]),
+                           ("flash_bwd_dkv", pairs[1:]))):
+            errs[name] = (max(abs_err(g, w) for g, w in sel),
+                          max(rel_err(g, w) for g, w in sel), grad_tol)
+            tiles[name] = max(tile_rel_err(g, w) for g, w in sel)
+        if not fused and shape_name == "long":
+            # the check's reach: the readings of planted faults, the
+            # global one beside the tile one
+            for name, sel in (("flash_bwd_dq", want[:1]),
+                              ("flash_bwd_dkv", want[1:])):
+                bads = [planted_faults(w) for w in sel]
+                unit = "q tiles" if name == "flash_bwd_dq" else "key blocks"
+                for what in bads[0]:
+                    glob = max(rel_err(b[what], w) for b, w in zip(bads, sel))
+                    tile = max(tile_rel_err(b[what], w)
+                               for b, w in zip(bads, sel))
+                    log(f"planted fault {name} {shape_name} {dname} ({unit}: "
+                        f"{what} zeroed): global {glob:.3g} (limit "
+                        f"{grad_tol}), tile {tile:.3g} (limit {TILE_TOL[dname]}); the "
+                        f"kernel's: global {errs[name][1]:.3g}, tile "
+                        f"{tiles[name]:.3g} [{card}]")
+                    if not tile > TILE_TOL[dname]:
+                        fail(f"the tile check misses a planted fault in "
+                             f"{name} {shape_name} {dname}: {tile} <= "
+                             f"{TILE_TOL[dname]}")
     torch.cuda.synchronize()
     for name, (ae, re, tol) in errs.items():
         err = ae if name == "flash_fwd" else re
         if not err <= tol:
             fail(f"{name} {shape_name} {dname} dropout {dropout}: kernel vs "
                  f"plain error {err} > {tol}")
+    for name, err in tiles.items():
+        if not err <= TILE_TOL[dname]:
+            fail(f"{name} {shape_name} {dname} dropout {dropout}: kernel vs "
+                 f"plain error {err} of a {TILE_ROWS}-row tile's largest "
+                 f"element > {TILE_TOL[dname]}")
     if not timed:
         log(f"kernel flash attention {shape_name} {dname} dropout "
             f"{dropout}: B1-B4 agree with their plain versions (max rel "
-            f"err {max(e[1] for e in errs.values()):.3g}) [{card}]")
+            f"err {max(e[1] for e in errs.values()):.3g}, tile "
+            f"{max(tiles.values()):.3g}) [{card}]")
         return {}
 
     # -- timing: each launch alone into preallocated buffers and the
@@ -1199,11 +1277,16 @@ def fa_case(device, card: str, shape_name: str, dname: str,
         res[name] = dict(max_abs_err=ae, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=bound_by,
                          library_ms=lib_ms, eager_ms=eager_ms)
+        tile_txt = ""
+        if name in tiles:
+            res[name]["max_tile_rel_err"] = tiles[name]
+            tile_txt = f", tile {tiles[name]:.3g}"
         lib_txt = f"{lib_ms * 1e3:.1f} us" if lib_ms is not None else "none"
         log(f"kernel {name} {shape_name} {dname} (b{shape['b']} "
             f"h{shape['h']} s{shape['sq']} d{shape['d']}"
             f"{' causal' if causal else ''}): max_abs_err {ae:.3g} (rel "
-            f"{re:.3g}), {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
+            f"{re:.3g}{tile_txt}), {ms * 1e3:.1f} us, plain "
+            f"{plain_ms * 1e3:.1f} us, "
             f"sdpa {lib_txt}, bound {bound_ms * 1e3:.2f} us ({bound_by}; "
             f"{bound_ms / ms:.3f} of it) [{card}]")
     # the two-pass pair against SDPA's backward, which computes the same
@@ -1232,24 +1315,26 @@ def fa_kernel_phase(device, card: str):
     out = {}
     for shape_name, dname in (("bert", "bf16"), ("bert", "fp32"),
                               ("gpt2", "fp32"), ("gpt2", "bf16"),
-                              ("long", "fp32")):
+                              ("long", "fp32"), ("long", "bf16")):
         for name, r in fa_case(device, card, shape_name, dname).items():
             out[(name, shape_name, dname)] = r
     fa_case(device, card, "bert", "bf16", dropout=0.1, timed=False)
-    # host cost of the TMA descriptors the 16-bit B1 and B2 encode on every
-    # launch (3 and 5), beside the time a launch from Python takes
+    # host cost of the TMA descriptors the 16-bit kernels encode on every
+    # launch (B1 3, B2 5, B3 and B4 4 each), beside the time a launch from
+    # Python takes
     import torch
 
     from flexflow_tpu_torch.kernels import flash_attention as fa
 
     us = fa.tensor_map_us(fa_inputs(FA_SHAPES["bert"], torch.bfloat16,
                                     device)[0])
+    eager = {n: out[(n, "bert", "bf16")]["eager_ms"] * 1e3 for n in FA_KERNELS}
     log(f"host: one TMA descriptor encodes in {us:.3f} us: {3 * us:.3f} us "
-        f"a 16-bit forward launch, {5 * us:.3f} us a fused backward launch "
-        f"(a launch from Python: forward "
-        f"{out[('flash_fwd', 'bert', 'bf16')]['eager_ms'] * 1e3:.1f} us, "
-        f"fused backward "
-        f"{out[('flash_bwd_fused', 'bert', 'bf16')]['eager_ms'] * 1e3:.1f} "
+        f"a 16-bit forward launch, {5 * us:.3f} us a fused backward launch, "
+        f"{4 * us:.3f} us a dK/dV or dQ launch (a launch from Python: "
+        f"forward {eager['flash_fwd']:.1f} us, fused backward "
+        f"{eager['flash_bwd_fused']:.1f} us, dK/dV "
+        f"{eager['flash_bwd_dkv']:.1f} us, dQ {eager['flash_bwd_dq']:.1f} "
         f"us) [{card}]")
     for r in out.values():
         r.pop("eager_ms")
@@ -1539,6 +1624,7 @@ def main() -> None:
         f"{torch.cuda.get_device_name(0)} [{card}]")
 
     profile = "--profile" in sys.argv[1:]
+    wall = time.perf_counter()
     census = build_phase()
     dprops = decode_props()
     kern = kernel_phase(device, card)
@@ -1565,6 +1651,11 @@ def main() -> None:
         "long": train_phase(device, card, "gpt2", "fp32", steps=2, warmup=0,
                             seq=LONG_SEQ, batch=1, check_grads=False,
                             profile=profile),
+        # the 16-bit two-pass backward's main path: 12 B1 + 12 B3 + 12 B4
+        # a step (asserted in train_phase)
+        "long_bf16": train_phase(device, card, "gpt2", "bf16", steps=2,
+                                 warmup=1, seq=LONG_SEQ, batch=1,
+                                 check_grads=False, profile=profile),
         "softmax": train_phase(device, card, "gpt2", "fp32", steps=3,
                                warmup=1, softmax_kernel=True),
     }
@@ -1582,16 +1673,23 @@ def main() -> None:
             **dprops[name],
         })
     # each flash-attention kernel at the shape and dtype of the training
-    # path that launched it; launches summed over the training paths
+    # path that launched it, one entry a shape, with that path's launches
     for name, kernel, shape, dname, paths in (
             ("flash_fwd_bf16", "flash_fwd", "bert", "bf16", ("bert",)),
+            ("flash_fwd_bf16_long", "flash_fwd", "long", "bf16",
+             ("long_bf16",)),
             ("flash_bwd_fused_bf16", "flash_bwd_fused", "bert", "bf16",
              ("bert",)),
-            ("flash_fwd", "flash_fwd", "gpt2", "fp32", ("gpt2", "long")),
+            ("flash_fwd", "flash_fwd", "gpt2", "fp32", ("gpt2",)),
+            ("flash_fwd_long", "flash_fwd", "long", "fp32", ("long",)),
             ("flash_bwd_fused", "flash_bwd_fused", "gpt2", "fp32",
              ("gpt2",)),
             ("flash_bwd_dkv", "flash_bwd_dkv", "long", "fp32", ("long",)),
-            ("flash_bwd_dq", "flash_bwd_dq", "long", "fp32", ("long",))):
+            ("flash_bwd_dq", "flash_bwd_dq", "long", "fp32", ("long",)),
+            ("flash_bwd_dkv_bf16", "flash_bwd_dkv", "long", "bf16",
+             ("long_bf16",)),
+            ("flash_bwd_dq_bf16", "flash_bwd_dq", "long", "bf16",
+             ("long_bf16",))):
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -1635,6 +1733,8 @@ def main() -> None:
             "launches": train["softmax"]["counts"][kernel],
             **sm_kern[(kernel, "fp32")],
         })
+    log(f"wall: {time.perf_counter() - wall:.1f} s from the build to the "
+        f"last phase [{card}]")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

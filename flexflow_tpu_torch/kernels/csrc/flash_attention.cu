@@ -26,9 +26,8 @@
 // What bounds them: operations. At BERT-Large shapes (seq 512, d 64) the
 // forward does 4*seq*d = 131k flops per query row against 4*d*2 bytes of
 // q/o traffic plus k/v re-reads from L2; far above the H100's balance point
-// of ~295 bf16 flops per byte. So the 16-bit forward (B1) and fused
-// backward (B2) are built for Hopper's tensor cores (the section "Hopper
-// path" below):
+// of ~295 bf16 flops per byte. So every 16-bit kernel (B1, B2, B3, B4)
+// is built for Hopper's tensor cores (the section "Hopper path" below):
 //   * every product is a wgmma (64-row warpgroup tiles, operands read from
 //     shared memory through descriptors, P and dS as register operands);
 //   * tiles arrive by TMA into a ring of stages guarded by mbarriers, each
@@ -44,7 +43,13 @@
 //     dQ across its sequential grid), so each warpgroup stages its (q tile,
 //     64 keys) partial in fp32 in shared memory and adds it into the zeroed
 //     (b*h, seq_q, d) fp32 buffer with one bulk asynchronous reduce-add
-//     (cp.reduce.async.bulk), in place of per-thread atomics.
+//     (cp.reduce.async.bulk), in place of per-thread atomics;
+//   * B3 is B2's body without delta and dQ (delta arrives beside lse), its
+//     freed shared memory spent on a 4-stage ring; B4 is B1's skeleton
+//     (one warpgroup of 64 q rows, q, dO, lse and delta resident, k and v
+//     tiles streamed) with S, dP and dQ += dS k on wgmma, dS of one tile
+//     formed while dQ of the tile before runs. Both write their outputs
+//     once, rounded: no atomics, so a launch is bitwise repeatable.
 // fp32 inputs run every kernel on the CUDA cores (SIMT FMA): fp32 has no
 // tensor-core rate that keeps fp32 products (TF32 would round them). There
 // the bound is the issue rate of shared-memory loads beside the FMAs: an
@@ -87,12 +92,10 @@
 // At seq 512 a causal B1 CTA of 128 q rows sees at most 8 k tiles; its two
 // groups take them two at a time, so the chain a CTA walks is at most 4
 // steps, each step's loads in flight behind the step before. A causal B2
-// CTA of 128 keys walks 8, 6, 4 or 2 q tiles.
-// The two-pass backward in 16 bits keeps its first design on mma.sync: one
-// CTA per (batch*head, 64-row tile), looping inside the CTA over the other
-// sequence's 64-row tiles (the TPU's sequential grid dimension becomes
-// this loop). Not done yet: a persistent schedule and split-K for few long
-// heads (PERF.md has the measured times).
+// CTA of 128 keys walks 8, 6, 4 or 2 q tiles. In every kernel the TPU's
+// sequential grid dimension becomes a loop inside the CTA. Not done yet: a
+// persistent schedule and split-K for few long heads (PERF.md has the
+// measured times).
 
 #include <cuda.h>  // CUtensorMap (types only: no driver library is linked)
 #include <cuda_bf16.h>
@@ -148,15 +151,6 @@ struct Shape {
   int sk;
   int causal;
 };
-
-// number of k tiles a q tile starting at q0 reaches: all of them, or up to
-// the causal band (the tile holding key q0 + 63 + offset)
-__device__ __forceinline__ int k_tiles_for(const Shape& sh, int q0) {
-  const int nkb = sh.sk / kTile;
-  if (!sh.causal) return nkb;
-  const int last = q0 + kTile - 1 + (sh.sk - sh.sq);
-  return min(nkb, last / kTile + 1);
-}
 
 // first q tile that reaches key tile k0 under the causal band
 // (_first_contributing_qb, flash_attention.py:159)
@@ -1024,353 +1018,13 @@ __global__ void __launch_bounds__(TwoPass<D>::kThreads, 1)
   }
 }
 
-// ------------------------------------ mma.sync path (16-bit B3 and B4)
-// The two-pass backward in bf16 and fp16 takes mma.sync.m16n8k16 with fp32
-// accumulators: 128 threads (4 warps) per CTA, each warp owning 16 rows of
-// the CTA's 64-row tile. Tiles stay in their 16-bit dtype in shared memory
-// with a 16-byte row pad (row stride D + 8: the 32-bit fragment loads and
-// the ldmatrix rows of a warp fall in distinct banks). A score tile leaves
-// the accumulators as fp32, is masked, exponentiated and scaled in
-// registers, rounded to the dtype and re-packed as the A operand of the
-// next product (the accumulator layout of two adjacent 8-column tiles is
-// the A layout of one 16-wide k step). Operands needed k-major (V, dO, q, K
-// as the B of P^T dO, dS^T q, dS K) come through ldmatrix.trans.
-
-constexpr int kThreadsTC = 128;
-
-template <typename T>
-struct Mma;
-
-template <>
-struct Mma<__nv_bfloat16> {
-  static __device__ __forceinline__ void run(float (&d)[4],
-                                             const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  // two fp32 values rounded to the dtype, the first in the low half
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
-
-template <>
-struct Mma<__half> {
-  static __device__ __forceinline__ void run(float (&d)[4],
-                                             const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
-
-template <typename T>
-__device__ __forceinline__ uint32_t ld32(const T* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A operand (16 x 16) of a row-major shared matrix at (row0, col0)
-template <typename T>
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const T* m,
-                                       int stride, int row0, int col0,
-                                       int lane) {
-  const int g = lane >> 2, t = (lane & 3) * 2;
-  const T* p = m + (row0 + g) * stride + col0 + t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * stride);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * stride + 8);
-}
-
-// B operand (k 16 x n 8) of a shared matrix stored n-major, m[n][k]
-template <typename T>
-__device__ __forceinline__ void frag_b(uint32_t (&b)[2], const T* m,
-                                       int stride, int n0, int k0,
-                                       int lane) {
-  const T* p = m + (n0 + (lane >> 2)) * stride + k0 + (lane & 3) * 2;
-  b[0] = ld32(p);
-  b[1] = ld32(p + 8);
-}
-
-// B operands of two n tiles (n0, n0 + 8) over k0..k0+15 of a shared matrix
-// stored k-major, m[k][n]: b[0..1] for n0, b[2..3] for n0 + 8
-template <typename T>
-__device__ __forceinline__ void frag_b_kmajor(uint32_t (&b)[4], const T* m,
-                                              int stride, int k0, int n0,
-                                              int lane) {
-  const int row = k0 + (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int col = n0 + (lane >> 4) * 8;
-  const unsigned addr = static_cast<unsigned>(
-      __cvta_generic_to_shared(m + row * stride + col));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-      "[%4];\n"
-      : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-      : "r"(addr));
-}
-
-// rows [0, 64) of a (rows, D) 16-bit tile into shared memory with row
-// stride D + 8, in 16-byte chunks
-template <typename T, int D>
-__device__ __forceinline__ void load_tile16(T* dst, const T* src) {
-  constexpr int kChunks = D / 8;
-  for (int i = threadIdx.x; i < kTile * kChunks; i += kThreadsTC) {
-    const int r = i / kChunks;
-    const int c = (i - r * kChunks) * 8;
-    *reinterpret_cast<uint4*>(dst + r * (D + 8) + c) =
-        *reinterpret_cast<const uint4*>(src + r * D + c);
-  }
-}
-
-// A operands of a 16 x 64 tile held as accumulators (8 n tiles of 8):
-// k step kk is n tiles 2kk and 2kk+1, values rounded to the dtype
-template <typename T>
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4][4],
-                                         const float (&c)[8][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    a[kk][0] = Mma<T>::pack(c[2 * kk][0], c[2 * kk][1]);
-    a[kk][1] = Mma<T>::pack(c[2 * kk][2], c[2 * kk][3]);
-    a[kk][2] = Mma<T>::pack(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-    a[kk][3] = Mma<T>::pack(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-  }
-}
-
-// acc (16 x D, D/8 n tiles) += a (16 x 64) * m (64 x D), m k-major
-template <typename T, int D>
-__device__ __forceinline__ void tile_times_kmajor(float (&acc)[D / 8][4],
-                                                  const uint32_t (&a)[4][4],
-                                                  const T* m, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      uint32_t b[4];
-      frag_b_kmajor(b, m, D + 8, kk * 16, n * 16, lane);
-      Mma<T>::run(acc[2 * n], a[kk], b[0], b[1]);
-      Mma<T>::run(acc[2 * n + 1], a[kk], b[2], b[3]);
-    }
-  }
-}
-
-// c (16 x 64) = rows row0.. of a (.., D) times m^T, m a (64, D) n-major tile
-template <typename T, int D>
-__device__ __forceinline__ void rows_times_tile_t(float (&c)[8][4],
-                                                  const T* a_rows, int row0,
-                                                  const T* m, int lane) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    frag_a(a, a_rows, D + 8, row0, kk * 16, lane);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      uint32_t b[2];
-      frag_b(b, m, D + 8, j * 8, kk * 16, lane);
-      Mma<T>::run(c[j], a, b[0], b[1]);
-    }
-  }
-}
-
-// backward over k tiles on the tensor cores (dK, dV): B3
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreadsTC)
-    flash_bwd_kv_tc(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dk,
-                    T* __restrict__ dv, Shape sh, Dropout dr) {
-  extern __shared__ __align__(16) unsigned char smem_tc[];
-  constexpr int S = D + 8;
-  T* sK = reinterpret_cast<T*>(smem_tc);
-  T* sV = sK + kTile * S;
-  T* sQ = sV + kTile * S;
-  T* sdO = sQ + kTile * S;
-  float* sLse = reinterpret_cast<float*>(sdO + kTile * S);
-  float* sDelta = sLse + kTile;
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;
-  const int t2 = (lane & 3) * 2;
-  const int k0 = blockIdx.x * kTile;
-  const int bh = blockIdx.y;
-  const int offset = sh.sk - sh.sq;
-  const int key0 = k0 + warp * 16 + g;  // this thread's keys: key0, key0+8
-  const size_t qbase = (size_t)bh * sh.sq;
-
-  load_tile16<T, D>(sK, k + ((size_t)bh * sh.sk + k0) * D);
-  load_tile16<T, D>(sV, v + ((size_t)bh * sh.sk + k0) * D);
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      dk_acc[n][e] = 0.f;
-      dv_acc[n][e] = 0.f;
-    }
-
-  const int nqb = sh.sq / kTile;
-  for (int qb = first_q_tile(sh, k0); qb < nqb; ++qb) {
-    const int q0 = qb * kTile;
-    __syncthreads();  // readers of the previous q tile are done
-    load_tile16<T, D>(sQ, q + (qbase + q0) * D);
-    load_tile16<T, D>(sdO, dout + (qbase + q0) * D);
-    if (threadIdx.x < kTile) {
-      sLse[threadIdx.x] = lse[qbase + q0 + threadIdx.x];
-      sDelta[threadIdx.x] = delta[qbase + q0 + threadIdx.x];
-    }
-    __syncthreads();
-
-    // S^T and dP^T: this warp's 16 keys x the tile's 64 queries
-    float st[8][4], dpt[8][4];
-    rows_times_tile_t<T, D>(st, sK, warp * 16, sQ, lane);
-    rows_times_tile_t<T, D>(dpt, sV, warp * 16, sdO, lane);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = key0 + 8 * (e >> 1);
-        const int c = j * 8 + t2 + (e & 1);  // query within the tile
-        float sv = st[j][e];
-        if (sh.causal && q0 + c + offset < key) sv = kNegInf;
-        const float p = expf(sv - sLse[c]);
-        float dp = dpt[j][e];
-        float pd = p;
-        if (dr.on) {
-          const float keep =
-              keep_scale(dr.seed, bh, q0 + c, key, dr.threshold, dr.scale);
-          pd = p * keep;
-          dp = dp * keep;
-        }
-        st[j][e] = pd;
-        dpt[j][e] = p * (dp - sDelta[c]);
-      }
-    uint32_t pa[4][4], sa[4][4];
-    acc_to_a<T>(pa, st);
-    acc_to_a<T>(sa, dpt);
-    // dV += Pd^T dO, dK += dS^T q (q pre-scaled, so dK is exact)
-    tile_times_kmajor<T, D>(dv_acc, pa, sdO, lane);
-    tile_times_kmajor<T, D>(dk_acc, sa, sQ, lane);
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const size_t row = (size_t)bh * sh.sk + key0 + 8 * r;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(dk + row * D + n * 8 + t2) =
-          Mma<T>::pack(dk_acc[n][2 * r], dk_acc[n][2 * r + 1]);
-      *reinterpret_cast<uint32_t*>(dv + row * D + n * 8 + t2) =
-          Mma<T>::pack(dv_acc[n][2 * r], dv_acc[n][2 * r + 1]);
-    }
-  }
-}
-
-// backward over q tiles (dQ) on the tensor cores: B4
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreadsTC)
-    flash_bwd_q_tc(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const T* __restrict__ dout,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ delta, T* __restrict__ dq,
-                   float sm_scale, Shape sh, Dropout dr) {
-  extern __shared__ __align__(16) unsigned char smem_tc[];
-  constexpr int S = D + 8;
-  T* sQ = reinterpret_cast<T*>(smem_tc);
-  T* sdO = sQ + kTile * S;
-  T* sK = sdO + kTile * S;
-  T* sV = sK + kTile * S;
-  float* sLse = reinterpret_cast<float*>(sV + kTile * S);
-  float* sDelta = sLse + kTile;
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;
-  const int t2 = (lane & 3) * 2;
-  const int q0 = blockIdx.x * kTile;
-  const int bh = blockIdx.y;
-  const int offset = sh.sk - sh.sq;
-  const int lrow = warp * 16 + g;  // this thread's rows in the tile: +0, +8
-  const size_t qbase = (size_t)bh * sh.sq;
-  const T* kb_base = k + (size_t)bh * sh.sk * D;
-  const T* vb_base = v + (size_t)bh * sh.sk * D;
-
-  load_tile16<T, D>(sQ, q + (qbase + q0) * D);
-  load_tile16<T, D>(sdO, dout + (qbase + q0) * D);
-  if (threadIdx.x < kTile) {
-    sLse[threadIdx.x] = lse[qbase + q0 + threadIdx.x];
-    sDelta[threadIdx.x] = delta[qbase + q0 + threadIdx.x];
-  }
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  const int nkb = k_tiles_for(sh, q0);
-  for (int kb = 0; kb < nkb; ++kb) {
-    const int k0 = kb * kTile;
-    __syncthreads();
-    load_tile16<T, D>(sK, kb_base + (size_t)k0 * D);
-    load_tile16<T, D>(sV, vb_base + (size_t)k0 * D);
-    __syncthreads();
-    float s[8][4], dp[8][4];
-    rows_times_tile_t<T, D>(s, sQ, warp * 16, sK, lane);
-    rows_times_tile_t<T, D>(dp, sdO, warp * 16, sV, lane);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = lrow + 8 * (e >> 1);
-        const int key = k0 + j * 8 + t2 + (e & 1);
-        float sv = s[j][e];
-        if (sh.causal && q0 + r + offset < key) sv = kNegInf;
-        const float p = expf(sv - sLse[r]);
-        float dpv = dp[j][e];
-        if (dr.on)
-          dpv *= keep_scale(dr.seed, bh, q0 + r, key, dr.threshold, dr.scale);
-        s[j][e] = p * (dpv - sDelta[r]);
-      }
-    uint32_t sa[4][4];
-    acc_to_a<T>(sa, s);
-    tile_times_kmajor<T, D>(acc, sa, sK, lane);
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    T* drow = dq + (qbase + q0 + lrow + 8 * r) * D;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(drow + n * 8 + t2) = Mma<T>::pack(
-          acc[n][2 * r] * sm_scale, acc[n][2 * r + 1] * sm_scale);
-  }
-}
-
-// ------------------------------------------- Hopper path: B1 and B2, 16-bit
-// bf16 and fp16 B1 and B2 run on wgmma with TMA tile loads. Each consumer
-// warpgroup owns 64 rows (q rows for B1, keys for B2); a B1 CTA is one
-// warpgroup (two CTAs share an SM), a B2 CTA two. Thread 0 issues the TMA
-// loads into a ring of kStages shared-memory stages whose arrival an
-// mbarrier reports, and refills a stage as soon as every reader is done
-// with it. There is no separate producer warpgroup: the register file is
+// ------------------------------------------ Hopper path: B1 to B4, 16-bit
+// bf16 and fp16 B1 to B4 run on wgmma with TMA tile loads. Each consumer
+// warpgroup owns 64 rows (q rows for B1 and B4, keys for B2 and B3); a B1
+// or B4 CTA is one warpgroup (two CTAs share an SM), a B2 or B3 CTA two.
+// Thread 0 issues the TMA loads into a ring of kStages shared-memory
+// stages whose arrival an mbarrier reports, and refills a stage as soon as
+// every reader is done with it. There is no separate producer warpgroup: the register file is
 // split among the SM's four schedulers, so with a third warpgroup every
 // thread is held to 168 registers (the compiler does not raise the
 // consumers' budget for setmaxnreg), and the fused backward spills there;
@@ -1378,19 +1032,32 @@ __global__ void __launch_bounds__(kThreadsTC)
 // as [rows][64] 16-bit sub-tiles in the 128-byte swizzle TMA writes (a
 // d = 128 tile is two sub-tiles side by side); wgmma reads them through
 // descriptors, K-major where the reduction runs along the row (q k^T,
-// k q^T, v dO^T) and MN-major, i.e. transposed by the descriptor, where it
-// runs down the columns (P v, P^T dO, dS^T q, and both operands of dS k).
+// k q^T, v dO^T, dO v^T) and MN-major, i.e. transposed by the descriptor,
+// where it runs down the columns (P v, P^T dO, dS^T q, and k, and B2's dS,
+// in dS k).
 // Accumulators are fp32 registers; a score tile is masked, exponentiated
 // and scaled in the accumulator layout, rounded to the dtype and handed to
 // the next product as its register A operand.
 
 constexpr int kWG = 128;   // threads of a warpgroup
-constexpr int kBM = 64;    // B1: q rows of a CTA (one warpgroup)
-constexpr int kBN = 128;   // B1: keys of a streamed tile; B2: keys of a CTA
-constexpr int kBQ = 64;    // B2: q rows of a streamed tile
+constexpr int kBM = 64;    // B1, B4: q rows of a CTA (one warpgroup)
+constexpr int kBN = 128;   // B1: keys of a streamed tile; B2, B3: of a CTA
+constexpr int kBQ = 64;    // B2, B3: q rows of a streamed tile
 
 template <typename T>
 constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+
+// two fp32 values rounded to the dtype, the first in the low half
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (kBf16<T>) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -1634,7 +1301,7 @@ __device__ __forceinline__ void acc_to_a16(uint32_t (&a)[N / 16][4],
   for (int kk = 0; kk < N / 16; ++kk)
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      a[kk][i] = Mma<T>::pack(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
+      a[kk][i] = pack2<T>(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
 }
 
 template <typename T>
@@ -1859,63 +1526,66 @@ __global__ void __launch_bounds__(kWG, 2)
     T* orow = o + ((size_t)bh * sh.sq + row) * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(orow + j * 8 + t2) = Mma<T>::pack(
+      *reinterpret_cast<uint32_t*>(orow + j * 8 + t2) = pack2<T>(
           acc[4 * j + 2 * r] / l_safe, acc[4 * j + 2 * r + 1] / l_safe);
     if (t2 == 0) lse[(size_t)bh * sh.sq + row] = m[r] + logf(l_safe);
   }
 }
 
-// ---- B2: fused backward
+// ---- B2 (fused backward) and B3 (dK, dV): one body, kFused
 // A CTA is two warpgroups, each owning 64 of the CTA's kBN keys and working
-// on its own: its dK and dV rows, its dS^T in shared memory, and its own
-// dQ partial (dS of its keys times its rows of k), added into dq_acc by its
-// own bulk reduce-add. The two meet only at a stage of the ring: the second
-// to finish with it has thread 0 of its warpgroup refill it. Shared memory
-// (bytes from a 1024-aligned base): the k and v tiles (kBN rows), each
-// warpgroup's dS^T ([64 keys][kBQ]) and fp32 dQ partial ([kBQ][D]), then
-// kStages stages of q, dO, O ([kBQ][D] each) and lse, then each
-// warpgroup's delta, the stage counters and the barriers.
-template <int D>
+// on its own: its dK and dV rows and, in B2, its dS^T in shared memory and
+// its own dQ partial (dS of its keys times its rows of k), added into
+// dq_acc by its own bulk reduce-add. The two meet only at a stage of the
+// ring: the second to finish with it has thread 0 of its warpgroup refill
+// it. Shared memory (bytes from a 1024-aligned base): the k and v tiles
+// (kBN rows); in B2 each warpgroup's dS^T ([64 keys][kBQ]) and fp32 dQ
+// partial ([kBQ][D]); kStages stages of q and dO ([kBQ][D] each; B2 also
+// O), lse and (B3) delta; then B2's per-warpgroup delta, the stage
+// counters and the barriers.
+template <int D, bool kFused>
 struct BwdLayout {
-  // d = 128 fits one stage beside the resident tiles
-  static constexpr int kStages = D == 64 ? 3 : 1;
+  // B2 at d = 128 fits one stage beside the resident tiles; B3 has no O
+  // tile, dS^T tile or dQ partial and spends that room on four stages
+  static constexpr int kStages = kFused ? (D == 64 ? 3 : 1) : 4;
   static constexpr int kKV = kBN * D * 2;
   static constexpr int kT = kBQ * D * 2;
   static constexpr int kV = kKV;
   static constexpr int kDS = 2 * kKV;             // + wg * kDSBytes
-  static constexpr int kDSBytes = 64 * kBQ * 2;
+  static constexpr int kDSBytes = kFused ? 64 * kBQ * 2 : 0;
   static constexpr int kDQ = kDS + 2 * kDSBytes;  // + wg * kDQBytes
-  static constexpr int kDQBytes = kBQ * D * 4;
+  static constexpr int kDQBytes = kFused ? kBQ * D * 4 : 0;
   static constexpr int kStage0 = kDQ + 2 * kDQBytes;
-  static constexpr int kLse = 3 * kT;
-  static constexpr int kStageBytes = 3 * kT + 1024;
+  static constexpr int kTiles = kFused ? 3 : 2;   // q, dO (B2: and O)
+  static constexpr int kLse = kTiles * kT;        // B3: delta follows
+  static constexpr int kStageBytes = kTiles * kT + 1024;
   static constexpr int kDelta = kStage0 + kStages * kStageBytes;
-  static constexpr int kCount = kDelta + 2 * kBQ * 4;
+  static constexpr int kCount = kDelta + (kFused ? 2 * kBQ * 4 : 0);
   static constexpr int kBar = kCount + 64;
   static constexpr int kBytes = kBar + 128 + 1024;
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(2 * kWG, 1)
-    flash_bwd_fused_sm90(const __grid_constant__ CUtensorMap tm_q,
-                         const __grid_constant__ CUtensorMap tm_k,
-                         const __grid_constant__ CUtensorMap tm_v,
-                         const __grid_constant__ CUtensorMap tm_o,
-                         const __grid_constant__ CUtensorMap tm_do,
-                         const float* __restrict__ lse, T* __restrict__ dk,
-                         T* __restrict__ dv, float* __restrict__ dq_acc,
-                         Shape sh, Dropout dr) {
-  using L = BwdLayout<D>;
+// The CTA of keys [k0, k0 + kBN) of head bh. B3 (kFused false) takes delta
+// from `delta` and never touches tm_o or dq_acc. Its dV and dK products
+// are waited for in their own iteration: left running behind the next q
+// tile's S^T and dP^T, they made the compiler serialize every wgmma of the
+// kernel (ptxas C7515), which cost more than the overlap gave.
+template <typename T, int D, bool kFused>
+__device__ __forceinline__ void bwd_kv_sm90(
+    const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+    const CUtensorMap* tm_o, const CUtensorMap* tm_do,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ dq_acc,
+    int k0, int bh, Shape sh, Dropout dr) {
+  using L = BwdLayout<D, kFused>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
-  uint64_t* q_full = kv_full + 1;             // q and lse landed
-  uint64_t* do_full = q_full + L::kStages;    // dO and O landed
+  uint64_t* q_full = kv_full + 1;           // q and lse (B3: delta) landed
+  uint64_t* do_full = q_full + L::kStages;  // dO (B2: and O) landed
   // warpgroups done with each stage in its current use
   int* done = reinterpret_cast<int*>(smem + L::kCount);
 
-  const int k0 = blockIdx.x * kBN;
-  const int bh = blockIdx.y;
   const int offset = sh.sk - sh.sq;
   // q tiles from the first that reaches key k0 under the causal band
   const int qb0 = sh.causal ? max(k0 - offset, 0) / kBQ : 0;
@@ -1928,22 +1598,36 @@ __global__ void __launch_bounds__(2 * kWG, 1)
   const int kr = (tw >> 5) * 16 + (lane >> 2);  // rows kr, kr + 8 of the wg
   const uint32_t base = smem_u32(smem);
 
-  // loads q tile `it` (q, lse, dO, O) into its stage
+  // loads q tile `it` (q, lse, dO; B2 also O, B3 also delta) into its stage
   auto load_q = [&](int it) {
     const int s = it % L::kStages;
     const int q0 = (qb0 + it) * kBQ;
+    const size_t row = (size_t)bh * sh.sq + q0;
     unsigned char* st = smem + L::kStage0 + s * L::kStageBytes;
-    mbar_expect_tx(q_full + s, L::kT + kBQ * 4);
+    mbar_expect_tx(q_full + s, L::kT + (kFused ? 1 : 2) * kBQ * 4);
     for (int sub = 0; sub < D / 64; ++sub)
-      tma_load(st + sub * kBQ * 128, &tm_q, q_full + s, sub * 64, q0, bh);
-    bulk_load(st + L::kLse, lse + (size_t)bh * sh.sq + q0, kBQ * 4,
-              q_full + s);
-    mbar_expect_tx(do_full + s, 2 * L::kT);
+      tma_load(st + sub * kBQ * 128, tm_q, q_full + s, sub * 64, q0, bh);
+    bulk_load(st + L::kLse, lse + row, kBQ * 4, q_full + s);
+    if constexpr (!kFused)
+      bulk_load(st + L::kLse + kBQ * 4, delta + row, kBQ * 4, q_full + s);
+    mbar_expect_tx(do_full + s, (L::kTiles - 1) * L::kT);
     for (int sub = 0; sub < D / 64; ++sub) {
-      tma_load(st + L::kT + sub * kBQ * 128, &tm_do, do_full + s, sub * 64,
+      tma_load(st + L::kT + sub * kBQ * 128, tm_do, do_full + s, sub * 64,
                q0, bh);
-      tma_load(st + 2 * L::kT + sub * kBQ * 128, &tm_o, do_full + s,
-               sub * 64, q0, bh);
+      if constexpr (kFused)
+        tma_load(st + 2 * L::kT + sub * kBQ * 128, tm_o, do_full + s,
+                 sub * 64, q0, bh);
+    }
+  };
+  // thread 0 of a warpgroup whose readers are done with tile it's stage:
+  // the second warpgroup to get here refills it
+  auto release = [&](int it) {
+    const int s = it % L::kStages;
+    __threadfence_block();
+    if (atomicAdd(done + s, 1) == 1) {
+      done[s] = 0;
+      __threadfence_block();
+      if (it + L::kStages < n) load_q(it + L::kStages);
     }
   };
   if (tc == 0) {
@@ -1959,8 +1643,8 @@ __global__ void __launch_bounds__(2 * kWG, 1)
   if (tc == 0) {
     mbar_expect_tx(kv_full, 2 * L::kKV);
     for (int sub = 0; sub < D / 64; ++sub) {
-      tma_load(smem + sub * kBN * 128, &tm_k, kv_full, sub * 64, k0, bh);
-      tma_load(smem + L::kV + sub * kBN * 128, &tm_v, kv_full, sub * 64, k0,
+      tma_load(smem + sub * kBN * 128, tm_k, kv_full, sub * 64, k0, bh);
+      tma_load(smem + L::kV + sub * kBN * 128, tm_v, kv_full, sub * 64, k0,
                bh);
     }
     for (int it = 0; it < min(L::kStages, n); ++it) load_q(it);
@@ -1971,10 +1655,6 @@ __global__ void __launch_bounds__(2 * kWG, 1)
   zero(dv_acc);
   const uint32_t k_rows = base + wg * 64 * 128;
   const uint32_t v_rows = base + L::kV + wg * 64 * 128;
-  const uint32_t ds_tile = base + L::kDS + wg * L::kDSBytes;
-  unsigned char* ds = smem + L::kDS + wg * L::kDSBytes;
-  float* sdq = reinterpret_cast<float*>(smem + L::kDQ + wg * L::kDQBytes);
-  float* s_delta = reinterpret_cast<float*>(smem + L::kDelta) + wg * kBQ;
   mbar_wait(kv_full, 0);
 
   for (int it = 0; it < n; ++it) {
@@ -2006,10 +1686,12 @@ __global__ void __launch_bounds__(2 * kWG, 1)
           desc_k(st + L::kT + (kk / 4) * kBQ * 128 + (kk % 4) * 32), kk > 0);
     wgmma_commit();
 
-    // while the products run: delta = rowsum(dO * O) of the tile's rows,
-    // two threads a row over whole 16-byte chunks (sub-tile `part` when
-    // D = 128)
-    {
+    const float* s_dl;  // delta of the tile's rows
+    if constexpr (kFused) {
+      // while the products run: delta = rowsum(dO * O) of the tile's
+      // rows, two threads a row over whole 16-byte chunks (sub-tile `part`
+      // when D = 128)
+      float* s_delta = reinterpret_cast<float*>(smem + L::kDelta) + wg * kBQ;
       const int row = tw >> 1, part = tw & 1;
       float sum = 0.f;
 #pragma unroll
@@ -2023,8 +1705,11 @@ __global__ void __launch_bounds__(2 * kWG, 1)
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       if (part == 0) s_delta[row] = sum;
+      warpgroup_sync(wg);
+      s_dl = s_delta;
+    } else {
+      s_dl = s_lse + kBQ;
     }
-    warpgroup_sync(wg);
 
     // P = exp(S - lse), while dP^T is still running: 0 outside the band
     // and past seq_k, masked only where the tile crosses either
@@ -2051,33 +1736,47 @@ __global__ void __launch_bounds__(2 * kWG, 1)
         if (key >= sh.sk || (sh.causal && q0 + c + offset < key)) sT[e] = 0.f;
       }
     }
-    // dS = P * (D * dP - delta); dV takes P * D
 #pragma unroll
     for (int j = 0; j < kBQ / 8; ++j) {
-      const float2 v = *reinterpret_cast<const float2*>(s_delta + j * 8 + t2);
+      const float2 v = *reinterpret_cast<const float2*>(s_dl + j * 8 + t2);
       dl[2 * j] = v.x;
       dl[2 * j + 1] = v.y;
     }
     wgmma_wait<0>();
     hold(dpT);
-    if (dr.on) {
-#pragma unroll
-      for (int e = 0; e < kBQ / 2; ++e) {
-        const float keep = keep_scale(
-            dr.seed, bh, q0 + (e >> 2) * 8 + t2 + (e & 1),
-            kw0 + kr + 8 * ((e >> 1) & 1), dr.threshold, dr.scale);
-        const float p = sT[e];
-        sT[e] = p * keep;
-        dpT[e] = p * (dpT[e] * keep - dl[(e >> 2) * 2 + (e & 1)]);
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < kBQ / 2; ++e)
-        dpT[e] = sT[e] * (dpT[e] - dl[(e >> 2) * 2 + (e & 1)]);
-    }
+    // dS = P * (D * dP - delta); dV takes P * D. Elements are finished
+    // kFin at a time and then rounded into the A operands (k step kk holds
+    // elements 8 kk .. 8 kk + 7): at d = 128 one k step at a time, so P
+    // and dS never stand whole beside both accumulators (they would
+    // spill); at d = 64 all of them first, which schedules better (4 % at
+    // seq 16384)
+    constexpr int kFin = D == 128 ? 8 : kBQ / 2;
     uint32_t pa[kBQ / 16][4], sa[kBQ / 16][4];
-    acc_to_a16<T, kBQ>(pa, sT);
-    acc_to_a16<T, kBQ>(sa, dpT);
+#pragma unroll
+    for (int e0 = 0; e0 < kBQ / 2; e0 += kFin) {
+      if (dr.on) {
+#pragma unroll
+        for (int e = e0; e < e0 + kFin; ++e) {
+          const float keep = keep_scale(
+              dr.seed, bh, q0 + (e >> 2) * 8 + t2 + (e & 1),
+              kw0 + kr + 8 * ((e >> 1) & 1), dr.threshold, dr.scale);
+          const float p = sT[e];
+          sT[e] = p * keep;
+          dpT[e] = p * (dpT[e] * keep - dl[(e >> 2) * 2 + (e & 1)]);
+        }
+      } else {
+#pragma unroll
+        for (int e = e0; e < e0 + kFin; ++e)
+          dpT[e] = sT[e] * (dpT[e] - dl[(e >> 2) * 2 + (e & 1)]);
+      }
+#pragma unroll
+      for (int kk = e0 / 8; kk < (e0 + kFin) / 8; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          pa[kk][i] = pack2<T>(sT[8 * kk + 2 * i], sT[8 * kk + 2 * i + 1]);
+          sa[kk][i] = pack2<T>(dpT[8 * kk + 2 * i], dpT[8 * kk + 2 * i + 1]);
+        }
+    }
 
     // dV += Pd^T dO, dK += dS^T q (q pre-scaled, so dK is exact); dO and
     // q MN-major
@@ -2092,62 +1791,69 @@ __global__ void __launch_bounds__(2 * kWG, 1)
     for (int kk = 0; kk < kBQ / 16; ++kk)
       wgmma_rs<T, 1>(dk_acc, sa[kk], desc_mn(st + kk * 2048, kBQ * 128));
     wgmma_commit();
+    if constexpr (!kFused) {
+      // this warpgroup is done with the stage once dV and dK are
+      wgmma_wait<0>();
+      hold(dv_acc);
+      hold(dk_acc);
+      warpgroup_sync(wg);
+      if (tw == 0) release(it);
+    }
 
-    // dS^T, rounded as in sa, to shared memory: the A operand of dQ
+    if constexpr (kFused) {
+      unsigned char* ds = smem + L::kDS + wg * L::kDSBytes;
+      const uint32_t ds_tile = base + L::kDS + wg * L::kDSBytes;
+      float* sdq = reinterpret_cast<float*>(smem + L::kDQ + wg * L::kDQBytes);
+      // dS^T, rounded as in sa, to shared memory: the A operand of dQ
 #pragma unroll
-    for (int kk = 0; kk < kBQ / 16; ++kk)
+      for (int kk = 0; kk < kBQ / 16; ++kk)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int c = (2 * kk + h) * 8 + t2;
-        *reinterpret_cast<uint32_t*>(ds + sw128(kr, c)) = sa[kk][2 * h];
-        *reinterpret_cast<uint32_t*>(ds + sw128(kr + 8, c)) =
-            sa[kk][2 * h + 1];
-      }
-    fence_proxy_async();
-    // the previous tile's reduce has read this warpgroup's dQ partial
-    if (tw == 0) bulk_wait_read();
-    warpgroup_sync(wg);
+        for (int h = 0; h < 2; ++h) {
+          const int c = (2 * kk + h) * 8 + t2;
+          *reinterpret_cast<uint32_t*>(ds + sw128(kr, c)) = sa[kk][2 * h];
+          *reinterpret_cast<uint32_t*>(ds + sw128(kr + 8, c)) =
+              sa[kk][2 * h + 1];
+        }
+      fence_proxy_async();
+      // the previous tile's reduce has read this warpgroup's dQ partial
+      if (tw == 0) bulk_wait_read();
+      warpgroup_sync(wg);
 
-    // dQ partial (kBQ x D) = dS (kBQ x 64 keys) k (64 keys x D): dS
-    // MN-major from dS^T, k MN-major
-    float dq[D / 2];
-    hold(dq);
-    wgmma_fence();
+      // dQ partial (kBQ x D) = dS (kBQ x 64 keys) k (64 keys x D): dS
+      // MN-major from dS^T, k MN-major
+      float dq[D / 2];
+      hold(dq);
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 64 / 16; ++kk)
-      wgmma_ss<T, 1, 1>(dq, desc_mn(ds_tile + kk * 2048, 64 * 128),
-                        desc_mn(k_rows + kk * 2048, kBN * 128), kk > 0);
-    wgmma_commit();
-    wgmma_wait<0>();
-    hold(dq);
-    hold(dv_acc);
-    hold(dk_acc);
+      for (int kk = 0; kk < 64 / 16; ++kk)
+        wgmma_ss<T, 1, 1>(dq, desc_mn(ds_tile + kk * 2048, 64 * 128),
+                          desc_mn(k_rows + kk * 2048, kBN * 128), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      hold(dq);
+      hold(dv_acc);
+      hold(dk_acc);
 
-    // the fp32 partial to shared memory, then one bulk reduce-add into
-    // dq_acc (the tile's rows are contiguous there)
-    const int qr = (tw >> 5) * 16 + (lane >> 2);
+      // the fp32 partial to shared memory, then one bulk reduce-add into
+      // dq_acc (the tile's rows are contiguous there)
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+      for (int j = 0; j < D / 8; ++j)
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<float2*>(sdq + (qr + 8 * h) * D + j * 8 + t2) =
-            make_float2(dq[4 * j + 2 * h], dq[4 * j + 2 * h + 1]);
-    fence_proxy_async();
-    warpgroup_sync(wg);
-    if (tw == 0) {
-      bulk_reduce_add(dq_acc + ((size_t)bh * sh.sq + q0) * D, sdq,
-                      kBQ * D * 4);
-      // the warpgroup is done with the stage: the second one to get here
-      // refills it
-      __threadfence_block();
-      if (atomicAdd(done + s, 1) == 1) {
-        done[s] = 0;
-        __threadfence_block();
-        if (it + L::kStages < n) load_q(it + L::kStages);
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(sdq + (kr + 8 * h) * D + j * 8 + t2) =
+              make_float2(dq[4 * j + 2 * h], dq[4 * j + 2 * h + 1]);
+      fence_proxy_async();
+      warpgroup_sync(wg);
+      if (tw == 0) {
+        bulk_reduce_add(dq_acc + ((size_t)bh * sh.sq + q0) * D, sdq,
+                        kBQ * D * 4);
+        release(it);
       }
     }
   }
-  if (tw == 0) bulk_wait_all();
+  if constexpr (kFused) {
+    if (tw == 0) bulk_wait_all();
+  }
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -2157,19 +1863,250 @@ __global__ void __launch_bounds__(2 * kWG, 1)
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       *reinterpret_cast<uint32_t*>(dk + row * D + j * 8 + t2) =
-          Mma<T>::pack(dk_acc[4 * j + 2 * h], dk_acc[4 * j + 2 * h + 1]);
+          pack2<T>(dk_acc[4 * j + 2 * h], dk_acc[4 * j + 2 * h + 1]);
       *reinterpret_cast<uint32_t*>(dv + row * D + j * 8 + t2) =
-          Mma<T>::pack(dv_acc[4 * j + 2 * h], dv_acc[4 * j + 2 * h + 1]);
+          pack2<T>(dv_acc[4 * j + 2 * h], dv_acc[4 * j + 2 * h + 1]);
     }
   }
 }
 
-// ---------------------------------------------------------------- host side
-template <int D>
-constexpr size_t tc_tile_bytes() {
-  return sizeof(uint16_t) * kTile * (D + 8);
+// B2: grid (key block, batch*head); delta from dO and O, dQ added into
+// the zeroed dq_acc (unscaled: the caller scales by 1/sqrt(d))
+template <typename T, int D>
+__global__ void __launch_bounds__(2 * kWG, 1)
+    flash_bwd_fused_sm90(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_o,
+                         const __grid_constant__ CUtensorMap tm_do,
+                         const float* __restrict__ lse, T* __restrict__ dk,
+                         T* __restrict__ dv, float* __restrict__ dq_acc,
+                         Shape sh, Dropout dr) {
+  bwd_kv_sm90<T, D, true>(&tm_q, &tm_k, &tm_v, &tm_o, &tm_do, lse, nullptr,
+                          dk, dv, dq_acc, blockIdx.x * kBN, blockIdx.y, sh,
+                          dr);
 }
 
+// B3: grid (batch*head, key block), so key block 0 of every head (the most
+// q tiles under the causal band) is in the first wave; delta given
+template <typename T, int D>
+__global__ void __launch_bounds__(2 * kWG, 1)
+    flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const __grid_constant__ CUtensorMap tm_do,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta, T* __restrict__ dk,
+                       T* __restrict__ dv, Shape sh, Dropout dr) {
+  bwd_kv_sm90<T, D, false>(&tm_q, &tm_k, &tm_v, nullptr, &tm_do, lse, delta,
+                           dk, dv, nullptr, blockIdx.y * kBN, blockIdx.x, sh,
+                           dr);
+}
+
+// ---- B4: dQ
+// A CTA is one warpgroup owning 64 q rows with q, dO, lse and delta
+// resident (two CTAs share an SM, as in B1); k and v tiles of kKeys keys
+// stream through a ring of kStages stages. For each tile: S = q k^T and
+// dP = dO v^T on wgmma (both K-major), P = 2^(S log2 e - lse log2 e) and
+// dS = P (D dP - delta) in the accumulator layout, then dQ += dS k with dS
+// as the register A operand and k MN-major. The products of tile kb are
+// issued together with dQ of tile kb - 1, so dS of tile kb is formed on
+// the CUDA cores while dQ of tile kb - 1 runs on the tensor cores; a stage
+// is released when dQ of its tile is done. Shared memory (bytes from a
+// 1024-aligned base): q, dO, lse and delta, kStages stages of a k and a v
+// tile, then barriers.
+template <int D>
+struct DqLayout {
+  // 128-key tiles at d = 64; at d = 128 the S, dP and dQ accumulators of
+  // 128 keys would pass the 255 registers a thread may hold
+  static constexpr int kKeys = D == 64 ? 128 : 64;
+  // two CTAs an SM leave room for two stages
+  static constexpr int kStages = 2;
+  static constexpr int kQ = kBM * D * 2;
+  static constexpr int kRows = 2 * kQ;  // lse, then delta (kBM floats each)
+  static constexpr int kKV = kKeys * D * 2;
+  static constexpr int kStage0 = kRows + 1024;
+  static constexpr int kBar = kStage0 + kStages * 2 * kKV;
+  static constexpr int kBytes = kBar + 128 + 1024;
+};
+
+// grid (batch*head, q tile) with blockIdx.y 0 on the LAST q tile (the most
+// k tiles under the band), so the heaviest CTAs of every head start first
+template <typename T, int D>
+__global__ void __launch_bounds__(kWG, 2)
+    flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_do,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, T* __restrict__ dq,
+                      float sm_scale, Shape sh, Dropout dr) {
+  using L = DqLayout<D>;
+  constexpr int kN = L::kKeys;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* kv_full = q_full + 1;
+  uint64_t* empty = kv_full + L::kStages;  // the stage's readers are done
+
+  const int bh = blockIdx.x;
+  const int q0 = (sh.sq / kBM - 1 - blockIdx.y) * kBM;
+  const int offset = sh.sk - sh.sq;
+  // k tiles up to the causal band of the tile's last row
+  int nkb = (sh.sk + kN - 1) / kN;
+  if (sh.causal) nkb = min(nkb, (q0 + kBM - 1 + offset) / kN + 1);
+  const int tw = threadIdx.x;
+  const int lane = tw & 31;
+  const int t2 = (lane & 3) * 2;
+  const int r0 = (tw >> 5) * 16 + (lane >> 2);  // rows r0, r0 + 8 of the tile
+  const uint32_t base = smem_u32(smem);
+
+  // thread 0 loads k and v tile kb into its stage
+  auto load_kv = [&](int kb) {
+    const int s = kb % L::kStages;
+    unsigned char* kt = smem + L::kStage0 + s * 2 * L::kKV;
+    mbar_expect_tx(kv_full + s, 2 * L::kKV);
+    for (int sub = 0; sub < D / 64; ++sub) {
+      tma_load(kt + sub * kN * 128, &tm_k, kv_full + s, sub * 64, kb * kN,
+               bh);
+      tma_load(kt + L::kKV + sub * kN * 128, &tm_v, kv_full + s, sub * 64,
+               kb * kN, bh);
+    }
+  };
+  if (tw == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(kv_full + s, 1);
+      mbar_init(empty + s, kWG / 32);  // one arrival per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tw == 0) {
+    const size_t row = (size_t)bh * sh.sq + q0;
+    mbar_expect_tx(q_full, 2 * L::kQ + 2 * kBM * 4);
+    for (int sub = 0; sub < D / 64; ++sub) {
+      tma_load(smem + sub * kBM * 128, &tm_q, q_full, sub * 64, q0, bh);
+      tma_load(smem + L::kQ + sub * kBM * 128, &tm_do, q_full, sub * 64, q0,
+               bh);
+    }
+    bulk_load(smem + L::kRows, lse + row, kBM * 4, q_full);
+    bulk_load(smem + L::kRows + kBM * 4, delta + row, kBM * 4, q_full);
+    for (int kb = 0; kb < min(L::kStages, nkb); ++kb) load_kv(kb);
+  }
+
+  float acc[D / 2];          // dQ, unscaled
+  zero(acc);
+  float sc[kN / 2];          // S, then dS
+  float dp[kN / 2];          // dP
+  uint32_t dsa[kN / 16][4];  // dS rounded: the A operand of dS k
+
+  // S = q k^T and dP = dO v^T of tile kb (issued, not waited for)
+  auto issue_sdp = [&](int kb) {
+    const int s = kb % L::kStages;
+    const uint32_t kt = base + L::kStage0 + s * 2 * L::kKV;
+    mbar_wait(kv_full + s, (kb / L::kStages) & 1);
+    hold(sc);
+    hold(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<T, 0, 0>(sc,
+                        desc_k(base + (kk / 4) * kBM * 128 + (kk % 4) * 32),
+                        desc_k(kt + (kk / 4) * kN * 128 + (kk % 4) * 32),
+                        kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<T, 0, 0>(
+          dp, desc_k(base + L::kQ + (kk / 4) * kBM * 128 + (kk % 4) * 32),
+          desc_k(kt + L::kKV + (kk / 4) * kN * 128 + (kk % 4) * 32), kk > 0);
+    wgmma_commit();
+  };
+  // dQ += dS k of tile kb (k MN-major: the descriptor transposes it)
+  auto issue_dq = [&](int kb) {
+    const uint32_t kt = base + L::kStage0 + (kb % L::kStages) * 2 * L::kKV;
+    hold(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kN / 16; ++kk)
+      wgmma_rs<T, 1>(acc, dsa[kk], desc_mn(kt + kk * 2048, kN * 128));
+    wgmma_commit();
+  };
+  // stage of tile kb spent: once every warp is done with it, thread 0
+  // refills it with tile kb + kStages
+  auto release = [&](int kb) {
+    const int s = kb % L::kStages;
+    if (lane == 0) mbar_arrive(empty + s);
+    if (tw == 0 && kb + L::kStages < nkb) {
+      mbar_wait(empty + s, (kb / L::kStages) & 1);
+      load_kv(kb + L::kStages);
+    }
+  };
+
+  mbar_wait(q_full, 0);
+  const float* s_rows = reinterpret_cast<const float*>(smem + L::kRows);
+  float lse2[2], dl[2];
+  int lim[2];  // keys below lim[r] are inside row r's band
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lse2[r] = s_rows[r0 + 8 * r] * kLog2e;
+    dl[r] = s_rows[kBM + r0 + 8 * r];
+    lim[r] = sh.causal ? min(q0 + r0 + 8 * r + offset + 1, sh.sk) : sh.sk;
+  }
+
+  for (int kb = 0; kb < nkb; ++kb) {
+    const int k0 = kb * kN;
+    issue_sdp(kb);
+    if (kb > 0) {
+      issue_dq(kb - 1);
+      wgmma_wait<1>();
+    } else {
+      wgmma_wait<0>();
+    }
+    hold(sc);
+    hold(dp);
+    // masked only where the tile crosses the causal band or seq_k
+    const bool edge =
+        k0 + kN > sh.sk || (sh.causal && k0 + kN - 1 > q0 + offset);
+    if (edge) {
+#pragma unroll
+      for (int e = 0; e < kN / 2; ++e)
+        if (k0 + (e >> 2) * 8 + t2 + (e & 1) >= lim[(e >> 1) & 1])
+          sc[e] = kNegInf;
+    }
+    if (dr.on) {
+#pragma unroll
+      for (int e = 0; e < kN / 2; ++e)
+        dp[e] *= keep_scale(dr.seed, bh, q0 + r0 + 8 * ((e >> 1) & 1),
+                            k0 + (e >> 2) * 8 + t2 + (e & 1), dr.threshold,
+                            dr.scale);
+    }
+#pragma unroll
+    for (int e = 0; e < kN / 2; ++e) {
+      const int r = (e >> 1) & 1;
+      sc[e] = ex2(fmaf(sc[e], kLog2e, -lse2[r])) * (dp[e] - dl[r]);
+    }
+    wgmma_wait<0>();  // dQ of tile kb - 1: dsa and its stage are free
+    hold(acc);
+    if (kb > 0) release(kb - 1);
+    acc_to_a16<T, kN>(dsa, sc);
+  }
+  issue_dq(nkb - 1);
+  wgmma_wait<0>();
+  hold(acc);
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    T* drow = dq + ((size_t)bh * sh.sq + q0 + r0 + 8 * r) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(drow + j * 8 + t2) =
+          pack2<T>(acc[4 * j + 2 * r] * sm_scale,
+                   acc[4 * j + 2 * r + 1] * sm_scale);
+  }
+}
+
+// ---------------------------------------------------------------- host side
 // fp32 B3 and B2: BwdKvF32; fp32 B4: resident q, dO and score rows, two
 // stages of k, v
 template <int D>
@@ -2185,8 +2122,17 @@ static_assert(BwdKvF32<64, false>::kBytes <= 232448 &&
                   dq_f32_smem<64>() <= 232448 &&
                   dq_f32_smem<128>() <= 232448 &&
                   FwdF32<64>::kBytes <= 232448 &&
-                  FwdF32<128>::kBytes <= 232448,
-              "fits the 227 KB a block may use");
+                  FwdF32<128>::kBytes <= 232448 &&
+                  BwdLayout<64, true>::kBytes <= 232448 &&
+                  BwdLayout<128, true>::kBytes <= 232448 &&
+                  BwdLayout<64, false>::kBytes <= 232448 &&
+                  BwdLayout<128, false>::kBytes <= 232448 &&
+                  FwdLayout<64>::kBytes <= 232448 &&
+                  FwdLayout<128>::kBytes <= 232448 &&
+                  2 * (DqLayout<64>::kBytes + 1024) <= 233472 &&
+                  2 * (DqLayout<128>::kBytes + 1024) <= 233472,
+              "fits the 227 KB a block may use (B4: two CTAs an SM, each "
+              "with 1 KB the system keeps)");
 
 // Shared memory above 48 KB must be opted into for each kernel. The
 // callers keep the result in a function-local static, so the attribute is
@@ -2309,7 +2255,7 @@ int launch_bwd_fused(const void* q, const void* k, const void* v,
         (e = tensor_map(&mdo, dout, bh, sh.sq, D, kBQ, f16)) != cudaSuccess)
       return static_cast<int>(e);
     auto kernel = flash_bwd_fused_sm90<T, D>;
-    constexpr size_t smem = BwdLayout<D>::kBytes;
+    constexpr size_t smem = BwdLayout<D, true>::kBytes;
     static const cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     kernel<<<dim3((sh.sk + kBN - 1) / kBN, bh), 2 * kWG, smem, st>>>(
@@ -2339,14 +2285,21 @@ int launch_bwd_kv(const void* q, const void* k, const void* v, const void* o,
                    static_cast<const float*>(dout), lse, delta,
                    static_cast<float*>(dk), static_cast<float*>(dv), sh, dr);
   } else {
-    auto kernel = flash_bwd_kv_tc<T, D>;
-    constexpr size_t smem = 4 * tc_tile_bytes<D>() + 2 * kTile * sizeof(float);
+    constexpr bool f16 = !kBf16<T>;
+    CUtensorMap mq, mk, mv, mdo;
+    cudaError_t e;
+    if ((e = tensor_map(&mq, q, bh, sh.sq, D, kBQ, f16)) != cudaSuccess ||
+        (e = tensor_map(&mk, k, bh, sh.sk, D, kBN, f16)) != cudaSuccess ||
+        (e = tensor_map(&mv, v, bh, sh.sk, D, kBN, f16)) != cudaSuccess ||
+        (e = tensor_map(&mdo, dout, bh, sh.sq, D, kBQ, f16)) != cudaSuccess)
+      return static_cast<int>(e);
+    auto kernel = flash_bwd_dkv_sm90<T, D>;
+    constexpr size_t smem = BwdLayout<D, false>::kBytes;
     static const cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<dim3(sh.sk / kTile, bh), kThreadsTC, smem, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-        static_cast<T*>(dk), static_cast<T*>(dv), sh, dr);
+    kernel<<<dim3(bh, (sh.sk + kBN - 1) / kBN), 2 * kWG, smem, st>>>(
+        mq, mk, mv, mdo, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+        sh, dr);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -2368,14 +2321,21 @@ int launch_bwd_q(const void* q, const void* k, const void* v,
                    static_cast<const float*>(dout), lse, delta,
                    static_cast<float*>(dq), sm_scale, sh, dr);
   } else {
-    auto kernel = flash_bwd_q_tc<T, D>;
-    constexpr size_t smem = 4 * tc_tile_bytes<D>() + 2 * kTile * sizeof(float);
+    constexpr bool f16 = !kBf16<T>;
+    using L = DqLayout<D>;
+    CUtensorMap mq, mk, mv, mdo;
+    cudaError_t e;
+    if ((e = tensor_map(&mq, q, bh, sh.sq, D, kBM, f16)) != cudaSuccess ||
+        (e = tensor_map(&mk, k, bh, sh.sk, D, L::kKeys, f16)) != cudaSuccess ||
+        (e = tensor_map(&mv, v, bh, sh.sk, D, L::kKeys, f16)) != cudaSuccess ||
+        (e = tensor_map(&mdo, dout, bh, sh.sq, D, kBM, f16)) != cudaSuccess)
+      return static_cast<int>(e);
+    auto kernel = flash_bwd_dq_sm90<T, D>;
+    constexpr size_t smem = L::kBytes;
     static const cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<dim3(sh.sq / kTile, bh), kThreadsTC, smem, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-        static_cast<T*>(dq), sm_scale, sh, dr);
+    kernel<<<dim3(bh, sh.sq / kBM), kWG, smem, st>>>(
+        mq, mk, mv, mdo, lse, delta, static_cast<T*>(dq), sm_scale, sh, dr);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -2470,14 +2430,16 @@ extern "C" int ff_flash_bwd_q(const void* q, const void* k, const void* v,
 // flash_fwd_sm90), 1 = 16-bit fused backward (B2, flash_bwd_fused_sm90),
 // 2 = fp32 dK/dV (B3, flash_bwd_dkv_f32), 3 = fp32 dQ (B4,
 // flash_bwd_dq_f32), 4 = fp32 forward (B1, flash_fwd_f32), 5 = fp32 fused
-// backward (B2, flash_bwd_fused_f32), for head dim d (64 or 128); -1
-// otherwise.
+// backward (B2, flash_bwd_fused_f32), 6 = 16-bit dK/dV (B3,
+// flash_bwd_dkv_sm90), 7 = 16-bit dQ (B4, flash_bwd_dq_sm90), for head dim
+// d (64 or 128); -1 otherwise.
 extern "C" int ff_flash_smem_bytes(int kernel, int d) {
   if (d != 64 && d != 128) return -1;
   const bool d64 = d == 64;
   switch (kernel) {
     case 0: return d64 ? FwdLayout<64>::kBytes : FwdLayout<128>::kBytes;
-    case 1: return d64 ? BwdLayout<64>::kBytes : BwdLayout<128>::kBytes;
+    case 1: return d64 ? BwdLayout<64, true>::kBytes
+                       : BwdLayout<128, true>::kBytes;
     case 2: return static_cast<int>(d64 ? BwdKvF32<64, false>::kBytes
                                         : BwdKvF32<128, false>::kBytes);
     case 3: return static_cast<int>(d64 ? dq_f32_smem<64>()
@@ -2486,13 +2448,16 @@ extern "C" int ff_flash_smem_bytes(int kernel, int d) {
                                         : FwdF32<128>::kBytes);
     case 5: return static_cast<int>(d64 ? BwdKvF32<64, true>::kBytes
                                         : BwdKvF32<128, true>::kBytes);
+    case 6: return d64 ? BwdLayout<64, false>::kBytes
+                       : BwdLayout<128, false>::kBytes;
+    case 7: return d64 ? DqLayout<64>::kBytes : DqLayout<128>::kBytes;
     default: return -1;
   }
 }
 
 // Host microseconds to encode one TMA descriptor for a (bh, seq, d) bf16
-// tensor, the mean over `iters` encodings (a B1 launch encodes 3, a B2
-// launch 5); negative if an encoding fails.
+// tensor, the mean over `iters` encodings (a 16-bit B1 launch encodes 3, a
+// B2 launch 5, a B3 or B4 launch 4); negative if an encoding fails.
 extern "C" double ff_flash_tensor_map_us(const void* ptr, int bh, int seq,
                                          int d, int iters) {
   CUtensorMap map;

@@ -27,15 +27,16 @@ design follows. Beside them:
 
 The kernels pick their own tiles, whatever ``block_q`` and ``block_k``
 say: those are the TPU's VMEM tiling, honoured by the plain versions (they
-change only the order of the fp32 sums). The 16-bit forward and fused
-backward (wgmma and TMA) take 64 q rows by 128-key tiles and 128 keys by
-64-row q tiles, and the fp32 forward, fused and two-pass backward keep 128
-rows resident at head dim 64 (64 at 128) and stream 64-row tiles, each
-masking the ragged end of a sequence that is a multiple of 64 only; the
-16-bit two-pass backward tiles both sequences in 64 rows. Every block the
+change only the order of the fp32 sums). The 16-bit kernels (wgmma and
+TMA) take 64 q rows by 128-key tiles (forward; dQ at head dim 64, 64-key
+tiles at 128) and 128 keys by 64-row q tiles (fused backward, dK/dV), and
+the fp32 forward, fused and two-pass backward keep 128 rows resident at
+head dim 64 (64 at 128) and stream 64-row tiles, each masking the ragged
+end of a sequence that is a multiple of 64 only. Every block the
 attention router picks is a multiple of 64. The fused backward adds each
 CTA's dQ partial into an fp32 buffer by reduce-adds in no fixed order, so
-its dQ is not bitwise repeatable.
+its dQ is not bitwise repeatable; the two-pass kernels write each output
+once and are.
 """
 from __future__ import annotations
 
@@ -367,7 +368,8 @@ def _library():
 def tensor_map_us(t, iters: int = 1000) -> float:
     """Host microseconds to encode one TMA descriptor of the (b, h, s, d)
     16-bit CUDA tensor ``t``, the mean over ``iters`` encodings: the 16-bit
-    forward encodes 3 a launch, the fused backward 5."""
+    forward encodes 3 a launch, the fused backward 5, the dK/dV and dQ
+    kernels 4 each."""
     b, h, s, d = t.shape
     us = _library().ff_flash_tensor_map_us(t.data_ptr(), b * h, s, d, iters)
     if us < 0:
@@ -377,9 +379,10 @@ def tensor_map_us(t, iters: int = 1000) -> float:
 
 #: kernels whose dynamic shared memory :func:`smem_bytes` reports: the
 #: 16-bit forward and fused backward, the fp32 dK/dV, dQ, forward and fused
-#: backward
+#: backward, the 16-bit dK/dV and dQ
 SMEM_KERNELS = ("flash_fwd_sm90", "flash_bwd_fused_sm90", "flash_bwd_dkv_f32",
-                "flash_bwd_dq_f32", "flash_fwd_f32", "flash_bwd_fused_f32")
+                "flash_bwd_dq_f32", "flash_fwd_f32", "flash_bwd_fused_f32",
+                "flash_bwd_dkv_sm90", "flash_bwd_dq_sm90")
 
 
 def smem_bytes(kernel: str, head_dim: int) -> int:

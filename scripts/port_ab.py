@@ -20,10 +20,11 @@ replays, beside the same PyTorch library call):
 * the row softmax forward and backward (B6) at (4096, 50304), fp32 and
   bf16, beside ``torch.softmax`` and its backward;
 * flash attention B1-B4 at the smoke's shapes (BERT-Large bf16 and fp32,
-  GPT-2 small causal fp32 and bf16 at seq 512, fp32 at seq 16384), beside
-  SDPA's forward and backward;
-* with ``--step``, the p50 of a GPT-2 small fp32 training step at seq
-  16384 (1 warm-up and 3 timed steps through ``FFModel.fit``).
+  GPT-2 small causal fp32 and bf16 at seq 512, fp32 and bf16 at seq
+  16384), beside SDPA's forward and backward;
+* with ``--step``, the p50 of a GPT-2 small training step at seq 16384 in
+  fp32 and in bf16 (1 warm-up and 3 timed steps each through
+  ``FFModel.fit``).
 
 Each run prints one ``ab <root> {json}`` line (µs; step in ms), and the
 last line lists every figure by root in run order. It imports neither jax
@@ -67,9 +68,10 @@ def one(root: str, step: bool) -> dict:
     for (kernel, shape, dname), r in cs.fa_kernel_phase(dev, "").items():
         put(f"{kernel}_{shape}_{dname}", r)
     if step:
-        r = cs.train_phase(dev, "", "gpt2", "fp32", steps=3, warmup=1,
-                           seq=cs.LONG_SEQ, batch=1, check_grads=False)
-        out["step_s16384_fp32_p50_ms"] = r["p50_ms"]
+        for dname in ("fp32", "bf16"):
+            r = cs.train_phase(dev, "", "gpt2", dname, steps=3, warmup=1,
+                               seq=cs.LONG_SEQ, batch=1, check_grads=False)
+            out[f"step_s16384_{dname}_p50_ms"] = r["p50_ms"]
     return out
 
 

@@ -16,7 +16,10 @@ Function on CPU tensors), which walk the same tiles:
 * the dropout keep-scale masks equal bit for bit over random coordinates;
 * bf16 inputs: O within atol 2e-2 and grads within 2e-2 of their largest
   element (both sides round P and dS to bf16 before each product, and a
-  probability one fp32 ulp apart can round to neighbouring bf16 values);
+  probability one fp32 ulp apart can round to neighbouring bf16 values),
+  in the fused schedule and, case by case (causal, non-causal, a
+  rectangular band, head dim 128, dropout), in the two-pass one: the
+  reference the CUDA dK/dV and dQ kernels are held against on the card;
 * ``FFModel.sdpa`` (``SDPAOp``, the second route to the kernels) on both
   its routes, predict outputs within 1e-5.
 """
@@ -167,6 +170,42 @@ def test_bf16_inputs_in_band():
         tq, tk, tv, torch.tensor(o_jf).to(torch.bfloat16),
         torch.tensor(np.asarray(lse_j)), tdo, causal, bq, bk, fused=True)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        w = np.asarray(w.astype(jnp.float32))
+        err = np.abs(g.float().numpy() - w).max() / max(1.0, np.abs(w).max())
+        assert err <= 2e-2, (name, err)
+
+
+# (causal, seq_q, seq_k, head_dim, dropout) of the bf16 two-pass cases
+BF16_TWO_PASS = [
+    (True, 256, 256, 64, 0.0),
+    (False, 256, 256, 64, 0.0),
+    (True, 128, 256, 64, 0.0),     # rectangular band, offset sk - sq
+    (True, 256, 256, 128, 0.0),
+    (True, 256, 256, 64, 0.1),
+]
+
+
+@pytest.mark.parametrize("causal,sq,sk,d,dropout", BF16_TWO_PASS)
+def test_bf16_two_pass_matches_jax(causal, sq, sk, d, dropout):
+    """The two-pass backward (dK/dV walk, then the dQ walk, delta from dO
+    outside) in bf16 from the same inputs, O and lse: grads within 2e-2 of
+    their largest element, as for the fused schedule above."""
+    bq = bk = 64
+    arrays = _inputs(sq, sk, seed=8, d=d)
+    q, k, v, do = _j(arrays, jnp.bfloat16)
+    seed = jnp.uint32(SEED)
+    o_j, lse_j = jfa._flash_forward(q, k, v, causal, bq, bk, True,
+                                    dropout=dropout, seed=seed)
+    want = jfa._flash_backward(q, k, v, o_j, lse_j, do, causal, bq, bk,
+                               True, dropout=dropout, seed=seed, fused=False)
+    tq, tk, tv, tdo = _t(arrays, torch.bfloat16)
+    o_in = torch.tensor(np.asarray(o_j.astype(jnp.float32))).to(
+        torch.bfloat16)
+    got = fa.flash_backward_plain(tq, tk, tv, o_in,
+                                  torch.tensor(np.asarray(lse_j)), tdo,
+                                  causal, bq, bk, dropout, SEED, fused=False)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16
         w = np.asarray(w.astype(jnp.float32))
         err = np.abs(g.float().numpy() - w).max() / max(1.0, np.abs(w).max())
         assert err <= 2e-2, (name, err)

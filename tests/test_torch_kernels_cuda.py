@@ -112,6 +112,50 @@ def _rel_err(got, want):
     return (got.float() - want.float()).abs().max().item() / scale
 
 
+# The two-pass grads are held tile by tile too: each 64-row tile's largest
+# error over that tile's own largest element. Under a long causal band a
+# late key's dV (or a late query's dQ) is several times smaller than the
+# global limit, so a kernel that skipped late key blocks or q tiles would
+# pass that alone.
+TILE_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 4e-3}
+
+
+def _tile_rel_err(got, want, rows=64):
+    g, w = (t.float().reshape(-1, t.shape[-2], t.shape[-1])
+            for t in (got, want))
+    pad = -g.shape[1] % rows
+    g, w = (torch.nn.functional.pad(t, (0, 0, 0, pad)).reshape(
+        t.shape[0], -1, rows * t.shape[-1]) for t in (g, w))
+    err, scale = (g - w).abs().amax(-1), w.abs().amax(-1)
+    return (err / scale.clamp_min(1e-30)).max().item()
+
+
+def _launch_kinds(fn):
+    """The device kernels one call of ``fn`` launches under torch.profiler,
+    counted by kind: a flash kernel by its name, else reduce, fill (or
+    memset), mul, copy; any other kernel by its own name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kinds = {}
+    for n in (e.name for e in prof.events()
+              if e.device_type == DeviceType.CUDA):
+        low = n.lower()
+        kind = next((k for k in fa.KERNELS if k in low), None) or (
+            "reduce" if "reduce" in low
+            else "fill" if "fill" in low or "memset" in low
+            else "mul" if "mul" in low
+            else "copy" if "copy" in low else n)
+        kinds[kind] = kinds.get(kind, 0) + 1
+    return kinds
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
@@ -188,44 +232,74 @@ def test_flash_attention_hopper_kernels_match_plain(dtype, b, h, causal, sq,
         assert _rel_err(g, w) <= grad_tol, (name, _rel_err(g, w))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,h,causal,sq,sk,d,dropout", [
+# B3 + B4 cases, for every dtype
+TWO_PASS_CASES = [
     (4, 40, False, 256, 256, 64, 0.0),    # b*h 160: more than one wave
     (4, 40, True, 256, 256, 128, 0.0),
-    (1, 2, True, 4096, 4096, 64, 0.0),    # the copy ring wraps many times,
-    (1, 2, True, 2048, 2048, 128, 0.0),   # B4's reversed order under the band
+    (1, 2, True, 4096, 4096, 64, 0.0),    # the rings wrap many times, B4's
+    (1, 2, True, 2048, 2048, 128, 0.0),   # reversed order under the band
     (1, 3, True, 1024, 2048, 64, 0.0),    # rectangular causal band
     (2, 3, True, 192, 192, 64, 0.0),      # ragged: a 128-row CTA spans 192
     (2, 3, False, 192, 192, 128, 0.0),
     (2, 4, True, 512, 512, 64, 0.1),      # dropout
+    (2, 4, True, 512, 512, 128, 0.1),
     (2, 4, False, 512, 512, 128, 0.1),
-])
-def test_fp32_two_pass_backward_matches_plain(b, h, causal, sq, sk, d,
-                                              dropout):
-    """The fp32 dK/dV (B3) and dQ (B4) kernels (cp.async ring, 128-bit
-    shared loads, warp-owned score rows) against the plain two-pass walk:
-    several waves, long causal sequences, a rectangular band, a ragged
-    sequence under a 128-row CTA, dropout."""
+]
+
+
+def _two_pass_matches_plain(dtype, b, h, causal, sq, sk, d, dropout):
+    """One B3 and one B4 launch against the plain two-pass walk: grads
+    within FA_TOL of their largest element and TILE_TOL of each tile's;
+    neither kernel has atomics, so a second call and a CUDA-graph replay
+    are bitwise equal to the first call."""
     dev = _cuda()
-    q, k, v, do = _fa_inputs(11, torch.float32, dev, b=b, h=h, sq=sq, sk=sk,
-                             d=d)
+    q, k, v, do = _fa_inputs(11, dtype, dev, b=b, h=h, sq=sq, sk=sk, d=d)
     seed = 4242
-    _out_tol, grad_tol = FA_TOL[torch.float32]
+    _out_tol, grad_tol = FA_TOL[dtype]
     blk = 128 if sq % 128 == 0 and sk % 128 == 0 else 64
     out, lse = fa.flash_forward_plain(q, k, v, causal, blk, blk, dropout,
                                       seed)
+    args = (q, k, v, out, lse, do, causal, blk, blk, dropout, seed)
     fa.reset_launch_count()
-    got = fa._flash_backward(q, k, v, out, lse, do, causal, blk, blk,
-                             dropout, seed, fused=False)
+    got = fa._flash_backward(*args, fused=False)
     torch.cuda.synchronize()
     assert {n: fa.launch_count(n) for n in fa.KERNELS} == {
         "flash_fwd": 0, "flash_bwd_fused": 0, "flash_bwd_dkv": 1,
         "flash_bwd_dq": 1}
-    want = fa.flash_backward_plain(q, k, v, out, lse, do, causal, blk, blk,
-                                   dropout, seed, fused=False)
+    want = fa.flash_backward_plain(*args, fused=False)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
-        assert g.dtype == torch.float32
+        assert g.dtype == dtype
         assert _rel_err(g, w) <= grad_tol, (name, _rel_err(g, w))
+        assert _tile_rel_err(g, w) <= TILE_TOL[dtype], (
+            name, _tile_rel_err(g, w))
+    again = fa._flash_backward(*args, fused=False)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fa._flash_backward(*args, fused=False)
+    graph.replay()
+    torch.cuda.synchronize()
+    for name, g, a, c in zip(("dq", "dk", "dv"), got, again, captured):
+        assert torch.equal(g, a), name
+        assert torch.equal(g, c), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,causal,sq,sk,d,dropout", TWO_PASS_CASES)
+def test_fp32_two_pass_backward_matches_plain(b, h, causal, sq, sk, d,
+                                              dropout):
+    """The fp32 dK/dV (B3) and dQ (B4) kernels (cp.async ring, 128-bit
+    shared loads, warp-owned score rows)."""
+    _two_pass_matches_plain(torch.float32, b, h, causal, sq, sk, d, dropout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("b,h,causal,sq,sk,d,dropout", TWO_PASS_CASES)
+def test_16bit_two_pass_backward_matches_plain(dtype, b, h, causal, sq, sk,
+                                               d, dropout):
+    """The 16-bit dK/dV (B3, ``flash_bwd_dkv_sm90``) and dQ (B4,
+    ``flash_bwd_dq_sm90``) kernels (wgmma, TMA rings)."""
+    _two_pass_matches_plain(dtype, b, h, causal, sq, sk, d, dropout)
 
 
 @pytest.mark.cuda
@@ -304,31 +378,28 @@ def test_fused_backward_launches_no_host_side_delta():
     """The fused CUDA route launches exactly: the fill of the fp32 dQ
     buffer, q's pre-scale, the fused kernel, dQ's 1/sqrt(d) scale and its
     cast; the kernel computes delta itself, so no fp32 reduction runs."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     dev = _cuda()
     q, k, v, do = _fa_inputs(5, torch.bfloat16, dev, sq=256, sk=256)
     out, lse = fa._flash_forward(q, k, v, False, 64, 64)
-    fa._flash_backward(q, k, v, out, lse, do, False, 64, 64, fused=True)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fa._flash_backward(q, k, v, out, lse, do, False, 64, 64, fused=True)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == DeviceType.CUDA]
-    kinds = {"flash_bwd_fused": 0, "fill": 0, "mul": 0, "copy": 0}
-    for n in names:
-        low = n.lower()
-        kind = ("flash_bwd_fused" if "flash_bwd_fused" in low
-                else "fill" if "fill" in low or "memset" in low
-                else "mul" if "mul" in low
-                else "copy" if "copy" in low else n)
-        kinds[kind] = kinds.get(kind, 0) + 1
+    kinds = _launch_kinds(lambda: fa._flash_backward(
+        q, k, v, out, lse, do, False, 64, 64, fused=True))
     assert kinds == {"flash_bwd_fused": 1, "fill": 1, "mul": 2, "copy": 1}, \
-        names
-    assert not any("reduce" in n.lower() for n in names), names
+        kinds
+
+
+@pytest.mark.cuda
+def test_two_pass_backward_launch_set():
+    """The two-pass CUDA route launches exactly: q's pre-scale, delta =
+    rowsum(dO * O) from dO as given (two casts to fp32, a product, a sum),
+    the dK/dV kernel and the dQ kernel (which scales dQ by 1/sqrt(d)
+    itself): no fill, no fp32 dQ buffer, no cast of dQ."""
+    dev = _cuda()
+    q, k, v, do = _fa_inputs(6, torch.bfloat16, dev, sq=256, sk=256)
+    out, lse = fa._flash_forward(q, k, v, True, 64, 64)
+    kinds = _launch_kinds(lambda: fa._flash_backward(
+        q, k, v, out, lse, do, True, 64, 64, fused=False))
+    assert kinds == {"flash_bwd_dkv": 1, "flash_bwd_dq": 1, "mul": 2,
+                     "copy": 2, "reduce": 1}, kinds
 
 
 @pytest.mark.cuda

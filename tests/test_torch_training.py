@@ -10,7 +10,11 @@ plain versions. Checked, with the JAX weights carried over:
   two sides differ in summation order only);
 * bf16 compute: the loss within 2e-2 of JAX's bf16 loss (the frameworks
   round activations at different points), grads finite fp32 on every
-  master leaf;
+  master leaf; the GPT-2 step with both packages' backward forced onto the
+  two-pass schedule (dK/dV walk, then dQ walk): loss within 2e-2, every
+  grad within 2e-2 of its largest element and all grads within a relative
+  norm of 5e-2 of JAX's (the bands of the flash kernels against their
+  plain versions and of a kernel step against the einsum core);
 * the compute-dtype cast runs inside each step's graph (step 2 sees step
   1's update) and the inference programs' cast cache follows in-place
   param updates;
@@ -20,7 +24,9 @@ import numpy as np
 import pytest
 import torch
 
+import flexflow_tpu.kernels.flash_attention  # noqa: F401
 import flexflow_tpu_torch as ft
+import flexflow_tpu_torch.kernels.flash_attention as fa
 from torch_training_pairs import (GRAD_TOL, assert_trees_close, build_pair,
                                   data, jax_loss_and_grads,
                                   port_loss_and_grads)
@@ -47,6 +53,46 @@ def test_bf16_compute_loss_in_band():
         for w, g in ws.items():
             assert g.dtype == np.float32 and np.isfinite(g).all(), (n, w)
     assert any(np.abs(g).max() > 0 for ws in tg.values() for g in ws.values())
+
+
+def test_bf16_two_pass_step_matches_jax(monkeypatch):
+    """Both packages' residency budget set to 0, so each attention layer's
+    backward runs the two-pass schedule (the one the CUDA dK/dV and dQ
+    kernels serve on the card) in bf16 compute."""
+    import sys
+
+    jfa = sys.modules["flexflow_tpu.kernels.flash_attention"]
+    calls = {"jax": 0, "port": 0}
+
+    def counted(key, fn):
+        def wrapped(*args, **kwargs):
+            calls[key] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    monkeypatch.setattr(jfa, "FUSED_BWD_RESIDENT_BUDGET", 0)
+    monkeypatch.setattr(fa, "FUSED_BWD_RESIDENT_BUDGET", 0)
+    monkeypatch.setattr(jfa, "_flash_bwd_dq_kernel",
+                        counted("jax", jfa._flash_bwd_dq_kernel))
+    monkeypatch.setattr(fa, "flash_bwd_q_plain",
+                        counted("port", fa.flash_bwd_q_plain))
+    jff, tff = build_pair("gpt2", compute_bf16=True)
+    x, y = data("gpt2")
+    jl, jg = jax_loss_and_grads(jff, x, y)
+    tl, tg = port_loss_and_grads(tff, x, y)
+    # one dQ walk per attention layer on each side
+    assert calls == {"jax": 2, "port": 2}
+    assert abs(tl - jl) <= 2e-2, (tl, jl)
+    num = den = 0.0
+    for n, ws in jg.items():
+        for w, want in ws.items():
+            want = np.asarray(want, np.float32)
+            got = tg[n][w]
+            err = np.abs(got - want).max() / max(1.0, np.abs(want).max())
+            assert err <= 2e-2, (n, w, err)
+            num += float(np.sum((got - want) ** 2))
+            den += float(np.sum(want ** 2))
+    assert (num / den) ** 0.5 <= 5e-2
 
 
 def test_bf16_steps_see_the_updated_masters():
