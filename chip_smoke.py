@@ -4,7 +4,13 @@
     python3 chip_smoke.py [--profile]
 
 Run from the root of a checkout, on a host with a CUDA GPU and nvcc. It
-drives the PyTorch port only (it imports neither jax nor flexflow_tpu):
+drives the PyTorch port only (it imports neither jax nor flexflow_tpu).
+On CUDA the port's train step and decode step are captured programs
+(``execution/graphs.py``): a shape's first step runs eagerly, its second
+is captured as a CUDA graph, later ones replay it, and each replay adds
+the captured launches to the kernels' launch counts. Every training and
+serving phase below runs them so; their warm-ups take the eager step and
+the capture:
 
 1. build — compiles every CUDA kernel of the port from ``csrc/`` (one
    nvcc per source, all started together) and prints the build seconds
@@ -102,7 +108,23 @@ drives the PyTorch port only (it imports neither jax nor flexflow_tpu):
    flash/GEMM/other split, flash time by kernel, kernels by time in
    ``profile_train_bert_bf16.txt``, ``profile_train_gpt2_fp32.txt``,
    ``profile_train_long_fp32.txt`` and ``profile_train_long_bf16.txt`` of
-   the output directory).
+   the output directory);
+7. graph — the eager step bodies against the captured programs in this
+   call: the BERT-Large proxy (bf16) and GPT-2 small (fp32, seq 512) train
+   2 + 6 and 2 + 4 steps each way from the same weights, optimizer state,
+   batches and generator seeds (p50 step ms, the busy time and idle share
+   of one more step under the profiler and of one replay by CUDA events,
+   host kernel- and graph-launch calls, peak memory; losses and params
+   after the run within ``GRAPH_TOL``, flash launches a step equal);
+   GPT-2 small (fp32) serves the e2e prompts with native and with int8
+   KV, eager and captured on fresh engines (greedy streams
+   token-identical, flash-decode launches a step equal, ``decode_compiles
+   == 1``, teacher-forced logits within ``E2E_ATOL``; tokens/s, p50/p99
+   per-token ms, idle share and launch calls of the same generate under
+   the profiler); and a BERT-like model (BERT-Large's widths, 2 layers,
+   attention dropout 0.1) holds one captured step against one eager step
+   from the same generator and fails if a second replay's loss equals the
+   first's (the mask did not move).
 
 It prints the run's wall seconds, one ``{"kernels": [...]}`` line (the
 entries of the instances the census covers also carry their SASS counts,
@@ -717,10 +739,12 @@ def make_prompts(vocab: int, lengths, shared_len: int, n_shared: int):
 
 
 def teacher_forced(ff, tokens, prompt_len: int, steps: int, max_len: int,
-                   block: int, kv_dtype: str = "native"):
+                   block: int, kv_dtype: str = "native",
+                   capture: bool = True):
     """Teacher-forced serving steps: prefill ``tokens[:prompt_len]`` into a
     paged pool of ``kv_dtype`` ("native" or "int8"), then ``steps`` decode
-    steps fed the true next token. Returns the serving logits, the
+    steps fed the true next token, through the captured decode program (or,
+    ``capture=False``, its eager body). Returns the serving logits, the
     prefill's last row then one row per decode step. Launch counts include
     these decodes."""
     import torch
@@ -757,7 +781,7 @@ def teacher_forced(ff, tokens, prompt_len: int, steps: int, max_len: int,
                                              device=dev),
                         block_tables=table[None, :].clone())
     decode = ex.make_decode_step(max_len, block_size=block,
-                                 kv_dtype=kv_dtype)
+                                 kv_dtype=kv_dtype, capture=capture)
     rows = [last[0]]
     for s in range(steps):
         tok = torch.tensor([[tokens[prompt_len + s]]], dtype=torch.int32,
@@ -799,7 +823,7 @@ def profile_generate(ff, compute: str, prompts, new_tokens: int,
     from torch.profiler import ProfilerActivity, profile
 
     ff._serving_engine = None
-    ff.generate([[1, 2, 3]], max_new_tokens=2, max_decode_len=max_len)
+    ff.generate([[1, 2, 3]], max_new_tokens=4, max_decode_len=max_len)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -848,9 +872,10 @@ def e2e_phase(device, card: str, cfg, compute: str, lengths,
         f"layers {cfg.num_layers} vocab {cfg.vocab_size} built in "
         f"{time.perf_counter() - t:.1f} s")
     prompts = make_prompts(cfg.vocab_size, lengths, shared_len, n_shared)
-    # warm-up (cuBLAS handles, the kernel library, allocator pools) on a
-    # prompt too short to enter the prefix cache
-    ff.generate([[1, 2, 3]], max_new_tokens=2, max_decode_len=max_len)
+    # warm-up (cuBLAS handles, the kernel library, allocator pools, the
+    # decode step's capture: its first call runs eagerly, the second
+    # captures) on a prompt too short to enter the prefix cache
+    ff.generate([[1, 2, 3]], max_new_tokens=4, max_decode_len=max_len)
     if device.type == "cuda":
         torch.cuda.synchronize()
 
@@ -913,8 +938,9 @@ def int8_serving_phase(device, card: str, compute: str, lengths,
     with native KV: (a) greedy, (b) temperature 0.8 with top_k 8, (c)
     temperature 0.8 with top_k 1, and the native greedy run. Each run gets
     a fresh engine (an empty prefix cache, so every run admits and chunks
-    the prompts alike), with the launch counts reset just before it and
-    read just after. Then ``forced`` requests are decoded teacher-forced
+    the prompts alike) warmed up on a short prompt (its decode step
+    captured), with the launch counts reset just before the run and read
+    just after. Then ``forced`` requests are decoded teacher-forced
     on their greedy int8 streams with both pools. ``--profile`` profiles
     the greedy int8 run once more."""
     import torch
@@ -935,6 +961,11 @@ def int8_serving_phase(device, card: str, compute: str, lengths,
     def run(kv_dtype: str, prompts, **sampling):
         ff.config.kv_dtype = kv_dtype
         ff._serving_engine = None
+        # the fresh engine's warm-up: its decode step's eager first call
+        # and capture, on a prompt too short to enter the prefix cache
+        ff.generate([[1, 2, 3]], max_new_tokens=4, max_decode_len=max_len,
+                    **sampling)
+        torch.cuda.synchronize()
         fd.reset_launch_count()
         tk.reset_launch_count()
         outs = ff.generate(prompts, max_new_tokens=new_tokens,
@@ -950,8 +981,6 @@ def int8_serving_phase(device, card: str, compute: str, lengths,
                      f"produced {o}")
         return outs, stats, counts
 
-    # warm-up on a prompt too short to enter the prefix cache
-    run("int8", [[1, 2, 3]], temperature=0.8, top_k=8)
     runs = {
         "native": run("native", prompts),
         "greedy": run("int8", prompts),
@@ -1596,6 +1625,330 @@ def profile_train(ff, x, y, label: str, step_s: float) -> None:
     log(f"profile train {label}: full table in {path}")
 
 
+# ------------------------------------------------ captured vs eager steps
+# captured vs eager after the same steps from the same weights, batches
+# and generator seeds. fp32: the same kernels on the same inputs, except
+# that the fused backward (B2) adds dQ by reduce-adds in no fixed order, so
+# the two differ by that ordering only; bf16: the band of a bf16 step
+GRAPH_TOL = {"fp32": (1e-6, 1e-5), "bf16": TRAIN_TOL["bf16"]}
+
+
+def state_tensors(ff) -> list:
+    """Every param and optimizer-state tensor of ``ff``, in order."""
+    from flexflow_tpu_torch.execution.graphs import _tensors_of
+
+    return _tensors_of([ff.params, ff.opt_state])
+
+
+def profiled(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the card's busy ms (the
+    sum of its kernel, copy and memset times), the device operations it
+    ran, and the host's kernel launch calls (``cudaLaunchKernel`` and the
+    like) and graph launch calls (``cudaGraphLaunch``). Read from the raw
+    trace events: building the profiler's event tree for a whole generate
+    (tens of thousands of launches) takes longer than the run."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy_ns = ops = kernel_calls = graph_calls = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            busy_ns += e.duration_ns()
+            ops += 1
+        else:
+            name = e.name()
+            kernel_calls += "LaunchKernel" in name
+            graph_calls += "GraphLaunch" in name
+    return dict(busy_ms=busy_ns / 1e6, device_ops=ops,
+                kernel_launch_calls=kernel_calls,
+                graph_launch_calls=graph_calls)
+
+
+def replay_ms(program, iters: int = 3) -> float:
+    """Device ms of one replay of ``program``'s graph, CUDA events around
+    ``iters`` back-to-back replays: the step's device time without the
+    host, read even where the profiler would not see inside a graph."""
+    import torch
+
+    (entry,) = [e for e in program._entries.values() if e.graph is not None]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        entry.graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_train(device, card: str, kind: str, compute: str, steps: int,
+                warmup: int = 2) -> dict:
+    """The same ``warmup + steps`` training steps through ``fit``, first
+    with the eager step body, then with the captured program, from the
+    same weights, optimizer state, batches and generator seeds. Prints p50
+    step ms (over the ``steps`` after warm-up), the device busy time and
+    idle share of one more step under the profiler (and of one replay by
+    CUDA events), host launch calls a step, peak memory, and the loss and
+    param differences after the run; fails outside ``GRAPH_TOL`` or if the
+    kernels' launches a step differ."""
+    import torch
+
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    label = f"graph train {kind} {compute}"
+    ff, cfg = train_model(kind, compute, device)
+    batch = cfg.batch_size
+    x, y = train_data(kind, cfg, batch * (warmup + steps))
+    snap = [t.clone() for t in state_tensors(ff)]
+    res = {}
+    for mode in ("eager", "captured"):
+        for t, v in zip(state_tensors(ff), snap):
+            t.copy_(v)
+        ff._rng_counter = 0
+        ff._capture_steps = mode == "captured"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_count()
+        ff.fit(x, y, epochs=1)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        counts = {n: c // (warmup + steps) for n in fa.KERNELS
+                  if (c := fa.launch_count(n))}
+        losses = list(ff.fit_history.loss)
+        p50 = float(np.median(ff.fit_history.step_s[warmup:])) * 1e3
+        after = [t.clone() for ws in ff.params.values()
+                 for t in ws.values()]
+        prof = profiled(lambda: ff.fit(x[:batch], y[:batch], epochs=1))
+        res[mode] = dict(p50_ms=p50, peak_gb=peak / 2 ** 30, counts=counts,
+                         losses=losses, params=after, **prof)
+        if mode == "captured":
+            program = ff.executor.make_train_step().program
+            if program.captures != 1:
+                fail(f"{label}: {program.captures} captures, want 1")
+            res[mode]["replay_ms"] = replay_ms(program)
+    e, c = res["eager"], res["captured"]
+    if c["counts"] != e["counts"]:
+        fail(f"{label}: kernel launches a step {c['counts']} captured vs "
+             f"{e['counts']} eager")
+    dloss = max(abs(a - b) / max(abs(b), 1e-30)
+                for a, b in zip(c["losses"], e["losses"]))
+    dparams = rel_norm(c["params"], e["params"])
+    for mode, r in res.items():
+        log(f"{label} {mode}: p50 step {r['p50_ms']:.3f} ms over {steps} "
+            f"steps after {warmup}; one step under the profiler: busy "
+            f"{r['busy_ms']:.3f} ms (idle share "
+            f"{1 - r['busy_ms'] / r['p50_ms']:.4f} of the p50), "
+            f"{r['device_ops']} device ops, host launch calls "
+            f"{r['kernel_launch_calls']} kernel / {r['graph_launch_calls']} "
+            f"graph; peak memory {r['peak_gb']:.3f} GiB; flash launches a "
+            f"step {r['counts']}"
+            + (f"; one replay {r['replay_ms']:.3f} ms by CUDA events (idle "
+               f"share {1 - r['replay_ms'] / r['p50_ms']:.4f})"
+               if 'replay_ms' in r else "") + f" [{card}]")
+    ltol, ptol = GRAPH_TOL[compute]
+    log(f"{label}: after {warmup + steps} steps, captured vs eager: max "
+        f"relative loss difference {dloss:.3g} (tol {ltol}), param relative "
+        f"norm difference {dparams:.3g} (tol {ptol}); p50 "
+        f"{e['p50_ms']:.3f} -> {c['p50_ms']:.3f} ms "
+        f"({e['p50_ms'] / c['p50_ms']:.2f}x) [{card}]")
+    if not (dloss <= ltol and dparams <= ptol):
+        fail(f"{label}: captured and eager steps disagree")
+    for r in res.values():
+        del r["params"]
+    del ff
+    torch.cuda.empty_cache()
+    return dict(res, loss_rel_diff=dloss, param_rel_diff=dparams)
+
+
+def rel_norm(got, want) -> float:
+    num = sum(float((a - b).float().norm()) ** 2 for a, b in zip(got, want))
+    den = sum(float(b.float().norm()) ** 2 for b in want)
+    return (num / max(den, 1e-30)) ** 0.5
+
+
+def graph_serve(device, card: str, cfg, kv_dtype: str, lengths,
+                shared_len: int, n_shared: int, new_tokens: int,
+                max_len: int) -> dict:
+    """GPT-2 small (fp32) serves the e2e prompts greedily with
+    ``kv_dtype`` KV, first through the eager decode body, then through the
+    captured decode program, each on a fresh engine after a warm-up.
+    Asserted: token-identical streams, the same flash-decode launches a
+    decode step, ``decode_compiles == 1`` for the captured engine, and
+    teacher-forced decode logits within ``E2E_ATOL`` (B5 merges in a fixed
+    order: 0 expected). Prints tokens/s, p50/p99 per-token ms, peak
+    memory, and the idle share and host launch calls of the same generate
+    once more under the profiler."""
+    import torch
+
+    from flexflow_tpu_torch.kernels import flash_decode as fd
+
+    label = f"graph serve {kv_dtype}"
+    ff = build_model(cfg, "fp32", device, max_len)
+    ff.config.kv_dtype = kv_dtype
+    prompts = make_prompts(cfg.vocab_size, lengths, shared_len, n_shared)
+    name = "flash_decode_int8" if kv_dtype == "int8" else "flash_decode"
+    res = {}
+
+    def fresh_engine():
+        """A fresh engine (empty prefix cache, new pools), warmed up on a
+        prompt too short to enter the prefix cache (its two decode steps:
+        the eager first call and the capture)."""
+        ff._serving_engine = None
+        ff.generate([[1, 2, 3]], max_new_tokens=4, max_decode_len=max_len)
+        torch.cuda.synchronize()
+        fd.reset_launch_count()
+
+    def generate():
+        t = time.perf_counter()
+        outs = ff.generate(prompts, max_new_tokens=new_tokens,
+                           max_decode_len=max_len)
+        torch.cuda.synchronize()
+        return outs, time.perf_counter() - t
+
+    for mode in ("eager", "captured"):
+        ff._capture_steps = mode == "captured"
+        fresh_engine()
+        torch.cuda.reset_peak_memory_stats()
+        outs, _wall = generate()
+        peak = torch.cuda.max_memory_allocated()
+        eng = ff._serving_engine
+        stats = eng.stats
+        per_step = fd.launch_count(name) / max(stats.decode_steps, 1)
+        compiles = eng.decode_compiles
+        walls = {}
+        fresh_engine()
+        prof = profiled(lambda: walls.setdefault("s", generate()[1]))
+        res[mode] = dict(outs=outs, tokens_per_s=stats.tokens_per_s(),
+                         p50_token_ms=stats.p50_token_ms(),
+                         p99_token_ms=stats.p99_token_ms(),
+                         wall_s=stats.wall_s, decode_steps=stats.decode_steps,
+                         launches_per_step=per_step, decode_compiles=compiles,
+                         peak_gb=peak / 2 ** 30,
+                         idle_share=1 - prof["busy_ms"] / (stats.wall_s * 1e3),
+                         **prof)
+        log(f"{label} {mode}: {stats.tokens_generated} tokens in "
+            f"{stats.wall_s:.3f} s = {stats.tokens_per_s():.1f} tokens/s, "
+            f"p50 per-token {stats.p50_token_ms():.3f} ms, p99 "
+            f"{stats.p99_token_ms():.3f} ms, {stats.decode_steps} decode "
+            f"steps ({stats.prefix_hits} prefix hits, "
+            f"{stats.chunked_prefills} chunks), {name} launches a step "
+            f"{per_step:.1f}, decode_compiles {compiles}, peak memory "
+            f"{peak / 2 ** 30:.3f} GiB; the same generate "
+            f"under the profiler: busy {prof['busy_ms']:.3f} ms (idle share "
+            f"{res[mode]['idle_share']:.4f} of the unprofiled wall; profiled "
+            f"wall {walls['s'] * 1e3:.3f} ms), {prof['device_ops']} device "
+            f"ops, host launch calls {prof['kernel_launch_calls']} kernel / "
+            f"{prof['graph_launch_calls']} graph [{card}]")
+    e, c = res["eager"], res["captured"]
+    if c["outs"] != e["outs"]:
+        fail(f"{label}: captured greedy streams differ from eager ones")
+    if c["decode_compiles"] != 1:
+        fail(f"{label}: decode_compiles {c['decode_compiles']}, want 1")
+    if c["launches_per_step"] != e["launches_per_step"] or \
+            c["launches_per_step"] != cfg.num_layers:
+        fail(f"{label}: {name} launches a step {c['launches_per_step']} "
+             f"captured vs {e['launches_per_step']} eager")
+    seq = prompts[0] + e["outs"][0]
+    plen = len(prompts[0])
+    logits = [teacher_forced(ff, seq, plen, 8, max_len,
+                             ff.config.kv_block_size, kv_dtype, capture=cap)
+              for cap in (False, True)]
+    err = (logits[1] - logits[0]).abs().max().item()
+    log(f"{label}: greedy streams token-identical, teacher-forced decode "
+        f"logits captured vs eager max |diff| {err:.3g} (atol "
+        f"{E2E_ATOL['fp32']}); tokens/s {e['tokens_per_s']:.1f} -> "
+        f"{c['tokens_per_s']:.1f}, p50 per-token {e['p50_token_ms']:.3f} -> "
+        f"{c['p50_token_ms']:.3f} ms [{card}]")
+    if not err <= E2E_ATOL["fp32"]:
+        fail(f"{label}: captured decode logits differ from eager by {err}")
+    for r in res.values():
+        del r["outs"]
+    del ff
+    torch.cuda.empty_cache()
+    return dict(res, logit_err=err)
+
+
+def graph_dropout(device, card: str) -> dict:
+    """A BERT-like model (BERT-Large's widths, 2 layers, fp32, attention
+    dropout 0.1, SGD) trains one captured step and one eager step from the
+    same weights and generator state: loss and grads (the SGD update over
+    its rate) within ``TRAIN_TOL``; a second captured replay from the same
+    weights with the next generator must give another loss (a new mask)."""
+    import torch
+
+    from flexflow_tpu_torch import FFConfig, FFModel, LossType, SGDOptimizer
+    from flexflow_tpu_torch.models.bert import BertConfig, build_bert
+
+    label = "graph dropout"
+    config = FFConfig()
+    config.batch_size, config.seed = 8, SEED
+    ff = FFModel(config, device=device)
+    cfg = BertConfig(num_layers=2, dropout=0.1)
+    build_bert(ff, cfg)
+    lr = 1e-3
+    ff.compile(optimizer=SGDOptimizer(ff, lr=lr),
+               loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY)
+    x, y = train_data("bert", cfg, cfg.batch_size)
+    xs = [torch.from_numpy(x).to(device)]
+    lab = torch.from_numpy(ff._prep_label(y)).to(device)
+    ex = ff.executor
+    step, eager = ex.make_train_step(), ex.make_train_step(capture=False)
+    params = [t for ws in ff.params.values() for t in ws.values()]
+    snap = [t.clone() for t in params]
+
+    def run(fn, k):
+        for t, v in zip(params, snap):
+            t.copy_(v)
+        _p, _s, loss, _m = fn(ff.params, ff.opt_state, xs, lab,
+                              torch.Generator().manual_seed(k))
+        torch.cuda.synchronize()
+        return float(loss), [(v - t) / lr for t, v in zip(params, snap)]
+
+    run(step, 0)  # the shape's eager first call
+    loss1, grads1 = run(step, 1)  # captured, replayed once
+    loss_e, grads_e = run(eager, 1)
+    loss2, _ = run(step, 2)  # a replay with the next generator
+    if step.program.captures != 1:
+        fail(f"{label}: {step.program.captures} captures, want 1")
+    ltol, gtol = TRAIN_TOL["fp32"]
+    dl, dg = abs(loss1 - loss_e), rel_norm(grads1, grads_e)
+    log(f"{label}: BERT-Large widths, 2 layers, dropout 0.1, fp32: captured "
+        f"step vs eager step from the same generator: |loss diff| {dl:.3g} "
+        f"(tol {ltol}), grad relative norm difference {dg:.3g} (tol {gtol}); "
+        f"losses {loss1!r} (replay 1) and {loss2!r} (replay 2, next "
+        f"generator) [{card}]")
+    if not (dl <= ltol and dg <= gtol):
+        fail(f"{label}: the captured dropout step disagrees with the eager "
+             "one")
+    if loss2 == loss1:
+        fail(f"{label}: a second replay gave the same loss bitwise: the "
+             "dropout mask did not change")
+    del ff
+    torch.cuda.empty_cache()
+    return dict(loss_diff=dl, grad_rel_diff=dg)
+
+
+def graph_phase(device, card: str, cfg, prompt_set: dict) -> dict:
+    """Eager step bodies against the captured programs, in this call:
+    BERT-Large bf16 and GPT-2 small fp32 training at seq 512, GPT-2 small
+    serving with native and int8 KV, and one dropout step."""
+    return {
+        "bert": graph_train(device, card, "bert", "bf16", steps=6),
+        "gpt2": graph_train(device, card, "gpt2", "fp32", steps=4),
+        "serve_native": graph_serve(device, card, cfg, "native",
+                                    **prompt_set),
+        "serve_int8": graph_serve(device, card, cfg, "int8", **prompt_set),
+        "dropout": graph_dropout(device, card),
+    }
+
+
 def main() -> None:
     try:
         import torch
@@ -1648,17 +2001,20 @@ def main() -> None:
                             profile=profile),
         "gpt2": train_phase(device, card, "gpt2", "fp32", steps=3, warmup=1,
                             profile=profile),
-        "long": train_phase(device, card, "gpt2", "fp32", steps=2, warmup=0,
+        # two warm-up steps where the timed steps should all be replays:
+        # a shape's first step runs eagerly, its second is captured
+        "long": train_phase(device, card, "gpt2", "fp32", steps=2, warmup=2,
                             seq=LONG_SEQ, batch=1, check_grads=False,
                             profile=profile),
         # the 16-bit two-pass backward's main path: 12 B1 + 12 B3 + 12 B4
         # a step (asserted in train_phase)
         "long_bf16": train_phase(device, card, "gpt2", "bf16", steps=2,
-                                 warmup=1, seq=LONG_SEQ, batch=1,
+                                 warmup=2, seq=LONG_SEQ, batch=1,
                                  check_grads=False, profile=profile),
         "softmax": train_phase(device, card, "gpt2", "fp32", steps=3,
                                warmup=1, softmax_kernel=True),
     }
+    graph_phase(device, card, cfg, prompt_set)
 
     kernels = []
     for compute, name in (("fp32", "flash_decode"),

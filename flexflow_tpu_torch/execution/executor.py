@@ -5,12 +5,18 @@ mixed-precision cast, the graph forward with node overrides, the training
 step (forward, loss, autograd over the fp32 master leaves, metrics,
 optimizer update), the eval step and the inference forward, and the three
 serving programs — per-bucket prefill, chunk prefill and the one-token
-decode step. JAX jits each program once per shape; here each is a plain
-Python function run eagerly (the inference ones under
-``torch.inference_mode()``), and the train step, the optimizer and the
-decode step update tensors in place where JAX donates them. Sharding,
-remat, collective overlap, the divergence guard and CacheOps come in later
-slices.
+decode step. JAX jits the train step and the decode step once per shape
+and donates their state; here each is a :class:`~.graphs.StepProgram`:
+on CUDA its body is captured once per input shape as a CUDA graph and
+replayed over static buffers, while the train step, the optimizer and the
+decode step update params, moments and KV pools in place where JAX
+donates them. ``make_train_step(capture=False)`` and
+``make_decode_step(..., capture=False)`` return the eager bodies (the
+tests and ``chip_smoke.py`` compare the two); ``invalidate_jit_cache``
+drops every captured program. Prefill and chunk prefill, eval and predict
+run eagerly (the inference ones under ``torch.inference_mode()``).
+Sharding, remat, collective overlap, the divergence guard and CacheOps
+come in later slices.
 """
 from __future__ import annotations
 
@@ -37,6 +43,8 @@ class Executor:
         self.repl_labels = repl_labels
         # serving programs by key — ("prefill", bucket, max_len) etc.
         self._serving_fns: Dict[Tuple, Callable] = {}
+        # the captured train step (make_train_step)
+        self._train_step: Optional[Callable] = None
         # (stamp of the params it was cast from, compute-dtype copy): the
         # inference programs cast once per version of the params
         self._cast_cache: Optional[Tuple[Any, Any]] = None
@@ -186,7 +194,22 @@ class Executor:
             loss = loss + aux
         return loss, logits
 
-    def make_train_step(self):
+    def invalidate_jit_cache(self) -> None:
+        """Drop every captured program and the inference cast copy, and
+        with them their CUDA graphs and memory pools
+        (flexflow_tpu/execution/executor.py:472-482). Required after
+        anything a graph bakes in changes: an optimizer's ``lr`` /
+        ``alpha``, an op attribute, replaced params
+        (``FFModel.set_params_numpy`` calls it)."""
+        for fn in [self._train_step, *self._serving_fns.values()]:
+            program = getattr(fn, "program", None)
+            if program is not None:
+                program.reset()
+        self._train_step = None
+        self._serving_fns = {}
+        self._cast_cache = None
+
+    def make_train_step(self, capture: bool = True):
         """``(params, opt_state, xs, labels, rng) -> (params, opt_state,
         loss, metrics)``: forward, loss, ``torch.autograd.grad`` over the
         fp32 master leaves, metrics, then the optimizer's in-place update
@@ -194,7 +217,15 @@ class Executor:
         the guard and CacheOps). ``rng`` is the step's ``torch.Generator``
         (dropout seeds). ``params`` and ``opt_state`` come back as the same
         objects, updated in place; ``loss`` and the metrics stay on the
-        device (no host sync in the step)."""
+        device (no host sync in the step).
+
+        The step is a :class:`~.graphs.StepProgram`, cached on the
+        executor as the JAX package caches its jitted step: on CUDA the
+        first call of a batch shape runs eagerly, the second captures the
+        step as a CUDA graph, later ones replay it. ``capture=False``
+        returns the eager body itself (for comparisons)."""
+        if capture and self._train_step is not None:
+            return self._train_step
         opt = self.optimizer
 
         def step(params, opt_state, xs, labels, rng):
@@ -204,7 +235,34 @@ class Executor:
             params, opt_state = opt.update(params, grads, opt_state)
             return params, opt_state, loss, m
 
-        return step
+        if not capture:
+            return step
+        import torch
+
+        from .graphs import StepProgram
+
+        # metric names in output order, and the host-side (int) metrics
+        layout: Dict[str, Any] = {}
+
+        def body(inputs, seeds, params, opt_state):
+            _p, _s, loss, m = step(params, opt_state, inputs[:-1],
+                                   inputs[-1], seeds)
+            layout["names"] = [k for k, v in m.items() if torch.is_tensor(v)]
+            layout["host"] = {k: v for k, v in m.items()
+                              if not torch.is_tensor(v)}
+            return [loss] + [m[k] for k in layout["names"]]
+
+        program = StepProgram(body, self.device, "train")
+
+        def train_step(params, opt_state, xs, labels, rng):
+            outs = program(list(xs) + [labels], params, opt_state, rng=rng)
+            m = dict(layout["host"])
+            m.update(zip(layout["names"], outs[1:]))
+            return params, opt_state, outs[0], m
+
+        train_step.program = program
+        self._train_step = train_step
+        return train_step
 
     def loss_and_grads(self, params, xs, labels, rng=None):
         """The differentiated half of the train step: ``(loss, logits,
@@ -411,27 +469,37 @@ class Executor:
         return chunk
 
     def make_decode_step(self, max_decode_len: int, exact: bool = False,
-                         block_size: int = 0, kv_dtype: str = "native"):
+                         block_size: int = 0, kv_dtype: str = "native",
+                         capture: bool = True):
         """``(params, xs, state) -> (logits, state)``: ONE token per slot
         through the graph, writing each slot's k/v at its ``lengths``
         cursor into the paged pool and advancing the cursors — all in
         place. ``exact=True`` reads attention through the plain gather
         path instead of the flash-decode kernel. ``kv_dtype`` is the pool's
-        layout ("native" or "int8")."""
+        layout ("native" or "int8").
+
+        The step is a :class:`~.graphs.StepProgram` over the static token
+        input ``xs[0]`` (n_slots, 1); lengths, block tables and pools are
+        persistent and written in place. The params it reads (the
+        compute-dtype cast copy under a compute dtype, made afresh after
+        any update of the masters) and the pools are the tensors it was
+        captured against: a call with others (updated params, another
+        engine's pools) drops the graph and captures anew, so a replay
+        never reads stale weights. ``capture=False`` returns the eager
+        body (for comparisons)."""
         key = ("decode", int(max_decode_len), bool(exact), int(block_size),
                str(kv_dtype))
-        fn = self._serving_fns.get(key)
+        fn = self._serving_fns.get(key if capture else key + ("eager",))
         if fn is not None:
             return fn
         pos_guids = self._position_const_guids()
         from ..serving.kvcache import ServingState
 
-        def decode(params, xs, state):
+        def run(params, xs, state):
+            """The step on compute-dtype params and inputs: the logits."""
             import torch
 
             with torch.inference_mode():
-                params, xs = self._cast_for_compute(params, list(xs),
-                                                    cache=True)
                 sv = ServingState(mode="decode", max_len=max_decode_len,
                                   positions=state.lengths,
                                   cache_in=state.caches, exact=exact,
@@ -448,7 +516,28 @@ class Executor:
                     values[self.final_guid][self.final_out_idx])[:, 0]
                 state.caches.update(sv.cache_out)
                 state.lengths += 1
+                return logits
+
+        program = None
+        if capture:
+            from .graphs import StepProgram
+
+            program = StepProgram(
+                lambda inputs, _seeds, params, state: [run(params, inputs,
+                                                           state)],
+                self.device, "decode")
+
+        def decode(params, xs, state):
+            import torch
+
+            with torch.inference_mode():
+                params, xs = self._cast_for_compute(params, list(xs),
+                                                    cache=True)
+                if program is None:
+                    return run(params, xs, state), state
+                (logits,) = program(xs, params, state)
                 return logits, state
 
-        self._serving_fns[key] = decode
+        decode.program = program
+        self._serving_fns[key if capture else key + ("eager",)] = decode
         return decode

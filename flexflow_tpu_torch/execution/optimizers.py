@@ -8,7 +8,11 @@ step donates its param and state buffers to XLA and gets new ones back,
 this saves a second copy of the model and its moments. Each formula runs as
 ``torch._foreach_*`` passes over all tensors at once (a few launches a step
 instead of several per tensor), term for term in the JAX order. The step
-counter is a Python int in ``state``.
+counter ``state["step"]`` is a 0-d int32 tensor on the params' device,
+incremented in place, and Adam's bias correction ``alpha_t`` is computed
+from it on the device in fp32: a captured step (``execution/graphs.py``)
+reads the new count on every replay, and eager and captured steps run the
+same code.
 
 Adam is the reference's, not ``torch.optim.Adam``:
 ``alpha_t = alpha * sqrt(1 - beta2^t) / (1 - beta1^t)`` and
@@ -16,8 +20,6 @@ Adam is the reference's, not ``torch.optim.Adam``:
 bias-corrected, where torch's Adam divides by ``sqrt(v_hat) + eps``.
 """
 from __future__ import annotations
-
-import numpy as np
 
 
 def _leaves(params):
@@ -35,6 +37,15 @@ def _with_decay(gs, ps, wd: float):
     if not wd:
         return gs
     return torch._foreach_add(gs, torch._foreach_mul(ps, wd))
+
+
+def _step_counter(params):
+    """A zero 0-d int32 step count on the params' device."""
+    import torch
+
+    device = next((t.device for ws in params.values() for t in ws.values()),
+                  torch.device("cpu"))
+    return torch.zeros((), dtype=torch.int32, device=device)
 
 
 def _zeros_like(params, dtype=None):
@@ -65,8 +76,9 @@ class SGDOptimizer(Optimizer):
 
     def init_state(self, params):
         if self.momentum == 0.0:
-            return {"step": 0}
-        return {"step": 0, "velocity": _zeros_like(params)}
+            return {"step": _step_counter(params)}
+        return {"step": _step_counter(params),
+                "velocity": _zeros_like(params)}
 
     def update(self, params, grads, state):
         """p -= lr * (g + wd * p), or with momentum v = mom * v + g and
@@ -87,7 +99,7 @@ class SGDOptimizer(Optimizer):
                 step = (torch._foreach_add(gs, torch._foreach_mul(vs, mom))
                         if self.nesterov else vs)
                 torch._foreach_sub_(ps, torch._foreach_mul(step, lr))
-        state["step"] += 1
+            state["step"].add_(1)
         return params, state
 
 
@@ -113,26 +125,29 @@ class AdamOptimizer(Optimizer):
 
     def init_state(self, params):
         dt = self.moment_dtype
-        return {"step": 0, "m": _zeros_like(params, dt),
+        return {"step": _step_counter(params), "m": _zeros_like(params, dt),
                 "v": _zeros_like(params, dt)}
 
-    def alpha_t(self, step: int) -> float:
+    def alpha_t(self, step):
         """alpha * sqrt(1 - b2^t) / (1 - b1^t) in fp32, as the jitted JAX
-        step computes it."""
-        f = np.float32
-        b1t = f(self.beta1) ** f(step)
-        b2t = f(self.beta2) ** f(step)
-        return float(f(self.alpha) * np.sqrt(f(1.0) - b2t) / (f(1.0) - b1t))
+        step computes it, for the step count tensor ``step``: a 0-d fp32
+        tensor on its device."""
+        import torch
+
+        t = step.to(torch.float32)
+        b1t = torch.pow(self.beta1, t)
+        b2t = torch.pow(self.beta2, t)
+        return self.alpha * torch.sqrt(1.0 - b2t) / (1.0 - b1t)
 
     def update(self, params, grads, state):
         import torch
 
-        step = state["step"] + 1
         b1, b2 = self.beta1, self.beta2
-        alpha_t = self.alpha_t(step)
         reduced = self.moment_dtype is not None
         names = _leaves(params)
         with torch.no_grad():
+            state["step"].add_(1)
+            alpha_t = self.alpha_t(state["step"])
             ps = _flat(params, names)
             gs = _with_decay(_flat(grads, names), ps, self.weight_decay)
             ms, vs = _flat(state["m"], names), _flat(state["v"], names)
@@ -149,5 +164,4 @@ class AdamOptimizer(Optimizer):
             if reduced:
                 torch._foreach_copy_(ms, mf)
                 torch._foreach_copy_(vs, vf)
-        state["step"] = step
         return params, state

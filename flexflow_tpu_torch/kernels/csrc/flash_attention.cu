@@ -139,12 +139,20 @@ __device__ __forceinline__ float keep_scale(uint32_t seed, uint32_t bh,
   return x >= threshold ? scale : 0.f;
 }
 
+// The seed lives in device memory (a uint32 the caller owns), so a
+// captured CUDA graph reads a fresh seed on every replay; each kernel loads
+// it once in its prologue (load_seed) and the tiles read `seed`.
 struct Dropout {
   int on;
   uint32_t seed;
+  const uint32_t* seed_ptr;
   uint32_t threshold;
   float scale;
 };
+
+__device__ __forceinline__ void load_seed(Dropout& dr) {
+  dr.seed = dr.on ? __ldg(dr.seed_ptr) : 0u;
+}
 
 struct Shape {
   int sq;
@@ -660,6 +668,7 @@ __global__ void __launch_bounds__(TwoPass<D>::kThreads, 1)
                       const float* __restrict__ delta,
                       float* __restrict__ dk, float* __restrict__ dv,
                       Shape sh, Dropout dr) {
+  load_seed(dr);
   bwd_kv_f32<D, false>(q, k, v, nullptr, dout, lse, delta, dk, dv, nullptr,
                        blockIdx.x * TwoPass<D>::kRows, blockIdx.y, sh, dr);
 }
@@ -677,6 +686,7 @@ __global__ void __launch_bounds__(TwoPass<D>::kThreads, 1)
                         const float* __restrict__ lse,
                         float* __restrict__ dk, float* __restrict__ dv,
                         float* __restrict__ dq_acc, Shape sh, Dropout dr) {
+  load_seed(dr);
   bwd_kv_f32<D, true>(q, k, v, o, dout, lse, nullptr, dk, dv, dq_acc,
                       blockIdx.y * TwoPass<D>::kRows, blockIdx.x, sh, dr);
 }
@@ -692,6 +702,7 @@ __global__ void __launch_bounds__(TwoPass<D>::kThreads, 1)
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, float* __restrict__ dq,
                      float sm_scale, Shape sh, Dropout dr) {
+  load_seed(dr);
   using C = TwoPass<D>;
   constexpr int kStage = 2 * C::kTileFloats;  // k, v
   extern __shared__ __align__(16) float smem_f32[];
@@ -834,6 +845,7 @@ __global__ void __launch_bounds__(TwoPass<D>::kThreads, 1)
     flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o,
                   float* __restrict__ lse, Shape sh, Dropout dr) {
+  load_seed(dr);
   using C = TwoPass<D>;
   using F = FwdF32<D>;
   extern __shared__ __align__(16) float smem_f32[];
@@ -1347,6 +1359,7 @@ __global__ void __launch_bounds__(kWG, 2)
                    const __grid_constant__ CUtensorMap tm_v,
                    T* __restrict__ o, float* __restrict__ lse, Shape sh,
                    Dropout dr) {
+  load_seed(dr);
   using L = FwdLayout<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
@@ -1882,6 +1895,7 @@ __global__ void __launch_bounds__(2 * kWG, 1)
                          const float* __restrict__ lse, T* __restrict__ dk,
                          T* __restrict__ dv, float* __restrict__ dq_acc,
                          Shape sh, Dropout dr) {
+  load_seed(dr);
   bwd_kv_sm90<T, D, true>(&tm_q, &tm_k, &tm_v, &tm_o, &tm_do, lse, nullptr,
                           dk, dv, dq_acc, blockIdx.x * kBN, blockIdx.y, sh,
                           dr);
@@ -1898,6 +1912,7 @@ __global__ void __launch_bounds__(2 * kWG, 1)
                        const float* __restrict__ lse,
                        const float* __restrict__ delta, T* __restrict__ dk,
                        T* __restrict__ dv, Shape sh, Dropout dr) {
+  load_seed(dr);
   bwd_kv_sm90<T, D, false>(&tm_q, &tm_k, &tm_v, nullptr, &tm_do, lse, delta,
                            dk, dv, nullptr, blockIdx.y * kBN, blockIdx.x, sh,
                            dr);
@@ -1941,6 +1956,7 @@ __global__ void __launch_bounds__(kWG, 2)
                       const float* __restrict__ lse,
                       const float* __restrict__ delta, T* __restrict__ dq,
                       float sm_scale, Shape sh, Dropout dr) {
+  load_seed(dr);
   using L = DqLayout<D>;
   constexpr int kN = L::kKeys;
   extern __shared__ unsigned char smem_raw[];
@@ -2346,11 +2362,12 @@ bool valid(int bh, int sq, int sk, int d, int dtype) {
          dtype >= 0 && dtype <= 2;
 }
 
-Dropout make_dropout(int on, uint32_t seed, uint32_t threshold,
+Dropout make_dropout(int on, const void* seed, uint32_t threshold,
                      float scale) {
   Dropout dr;
   dr.on = on;
-  dr.seed = seed;
+  dr.seed = 0u;
+  dr.seed_ptr = static_cast<const uint32_t*>(seed);
   dr.threshold = threshold;
   dr.scale = scale;
   return dr;
@@ -2372,12 +2389,15 @@ Dropout make_dropout(int on, uint32_t seed, uint32_t threshold,
 
 // The C interface. Tensors are contiguous (bh, seq, d) in one dtype
 // (0 = float32, 1 = bfloat16, 2 = float16) except lse, delta and dq_acc,
-// which are float32; q is pre-scaled by 1/sqrt(d). Each returns a
-// cudaError_t code (0 on success); launches are asynchronous on `stream`.
+// which are float32; q is pre-scaled by 1/sqrt(d). `seed` is the device
+// address of the dropout seed (a uint32; read only when dropout_on). Each
+// returns a cudaError_t code (0 on success); launches are asynchronous on
+// `stream`.
 extern "C" int ff_flash_fwd(const void* q, const void* k, const void* v,
                             void* o, void* lse, int bh, int sq, int sk,
-                            int d, int causal, int dropout_on, uint32_t seed,
-                            uint32_t threshold, float keep_scale_value,
+                            int d, int causal, int dropout_on,
+                            const void* seed, uint32_t threshold,
+                            float keep_scale_value,
                             int dtype, void* stream) {
   if (!valid(bh, sq, sk, d, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -2394,7 +2414,7 @@ extern "C" int ff_flash_bwd_kv(const void* q, const void* k, const void* v,
                                const void* lse, const void* delta, void* dk,
                                void* dv, void* dq_acc, int fused, int bh,
                                int sq, int sk, int d, int causal,
-                               int dropout_on, uint32_t seed,
+                               int dropout_on, const void* seed,
                                uint32_t threshold, float keep_scale_value,
                                int dtype, void* stream) {
   if (!valid(bh, sq, sk, d, dtype))
@@ -2413,7 +2433,7 @@ extern "C" int ff_flash_bwd_q(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse,
                               const void* delta, void* dq, float sm_scale,
                               int bh, int sq, int sk, int d, int causal,
-                              int dropout_on, uint32_t seed,
+                              int dropout_on, const void* seed,
                               uint32_t threshold, float keep_scale_value,
                               int dtype, void* stream) {
   if (!valid(bh, sq, sk, d, dtype))

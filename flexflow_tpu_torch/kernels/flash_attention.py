@@ -14,7 +14,10 @@ design follows. Beside them:
   them; on the card they are the reference the kernels are held against.
 * :func:`dropout_keep_scale_plain` — the counter-hash dropout mask
   (``dropout_keep_scale_nd``) bit for bit, so one seed gives one mask in
-  both packages and in every kernel.
+  both packages and in every kernel. A seed is a uint32 int or a 0-d
+  integer tensor (its low 32 bits); the kernels read it from device
+  memory, so a captured step feeds a fresh seed to every replay
+  (``execution/graphs.py``).
 * :func:`flash_attention` — the entry point, a ``torch.autograd.Function``
   whose forward saves (q, k, v, O, lse) and whose backward runs the fused
   one-pass schedule or the two-pass one by the JAX package's rule
@@ -90,18 +93,28 @@ def dropout_scale(rate: float) -> float:
     return float(np.float32(1.0) / np.float32(1.0 - rate))
 
 
-def dropout_keep_scale_plain(seed: int, bh, q_pos, k_pos, rate: float):
+def _seed_u32(seed):
+    """The seed's low 32 bits: an int, or an int64 tensor for a tensor
+    seed (any integer dtype; int32 bits read as unsigned)."""
+    import torch
+
+    if torch.is_tensor(seed):
+        return seed.to(torch.int64) & _U32
+    return int(seed) & _U32
+
+
+def dropout_keep_scale_plain(seed, bh, q_pos, k_pos, rate: float):
     """``dropout_keep_scale_nd`` (flexflow_tpu/kernels/flash_attention.py
     :96-113) in int64 arithmetic masked to 32 bits: {0, 1/(1-rate)} as fp32
     for broadcastable integer tensors of GLOBAL (batch*head, q, k)
-    coordinates."""
+    coordinates. ``seed``: an int or a 0-d integer tensor."""
     import torch
 
     def u32(t):
         return torch.as_tensor(t).to(torch.int64) & _U32
 
     x = (_mul_u32(u32(q_pos), 0x9E3779B1) + _mul_u32(u32(k_pos), 0x85EBCA77)
-         + _mul_u32(u32(bh), 0xC2B2AE3D) + (int(seed) & _U32)) & _U32
+         + _mul_u32(u32(bh), 0xC2B2AE3D) + _seed_u32(seed)) & _U32
     x = x ^ (x >> 16)
     x = _mul_u32(x, 0x7FEB352D)
     x = x ^ (x >> 15)
@@ -160,7 +173,7 @@ def _rounded(x, dtype):
 def flash_forward_plain(q, k, v, causal: bool = False,
                         block_q: int = DEFAULT_BLOCK_Q,
                         block_k: int = DEFAULT_BLOCK_K,
-                        dropout: float = 0.0, seed: int = 0):
+                        dropout: float = 0.0, seed=0):
     """Plain-PyTorch flash forward, tile for tile the TPU kernel.
 
     q (b, h, sq, d), k/v (b, h, sk, d) of one float dtype. q is pre-scaled
@@ -258,7 +271,7 @@ def _tiles(sq, sk, bq, bk, causal, outer_is_k: bool):
 
 def flash_bwd_kv_plain(qs, k, v, dor, lse, delta, causal: bool,
                        block_q: int, block_k: int, dropout: float = 0.0,
-                       seed: int = 0, with_dq: bool = False):
+                       seed=0, with_dq: bool = False):
     """The walk over k tiles (B3, or B2 with ``with_dq``): for each k tile
     its q tiles in order. Returns fp32 (dk, dv, dq unscaled or None)."""
     import torch
@@ -284,7 +297,7 @@ def flash_bwd_kv_plain(qs, k, v, dor, lse, delta, causal: bool,
 
 def flash_bwd_q_plain(qs, k, v, dor, lse, delta, causal: bool,
                       block_q: int, block_k: int, dropout: float = 0.0,
-                      seed: int = 0):
+                      seed=0):
     """The walk over q tiles (B4): for each q tile its k tiles in order.
     Returns dq in fp32, not yet scaled by 1/sqrt(d)."""
     import torch
@@ -304,7 +317,7 @@ def flash_bwd_q_plain(qs, k, v, dor, lse, delta, causal: bool,
 def flash_backward_plain(q, k, v, out, lse, do, causal: bool = False,
                          block_q: int = DEFAULT_BLOCK_Q,
                          block_k: int = DEFAULT_BLOCK_K,
-                         dropout: float = 0.0, seed: int = 0,
+                         dropout: float = 0.0, seed=0,
                          fused: Optional[bool] = None):
     """Plain-PyTorch flash backward: (dq, dk, dv) in the inputs' dtypes.
 
@@ -351,7 +364,7 @@ def _library():
     if lib.ff_flash_fwd.argtypes is None:
         p, i, u, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
                       ctypes.c_float)
-        drop = [i, u, u, f]      # dropout_on, seed, threshold, keep scale
+        drop = [i, p, u, f]  # dropout_on, seed address, threshold, scale
         lib.ff_flash_fwd.argtypes = [p] * 5 + [i] * 5 + drop + [i, p]
         lib.ff_flash_bwd_kv.argtypes = [p] * 10 + [i] * 6 + drop + [i, p]
         lib.ff_flash_bwd_q.argtypes = [p] * 7 + [f] + [i] * 5 + drop \
@@ -422,10 +435,31 @@ def _check_cuda_inputs(what: str, q, k, v, *more) -> None:
                              "cp.async and 16-byte loads)")
 
 
-def _dropout_args(dropout: float, seed: int):
+def seed_on_device(seed, device):
+    """The dropout seed as an integer tensor on ``device`` whose first
+    element's low 32 bits the kernels read: a 0-d int32/int64 tensor there
+    passes through, an int becomes a 0-d int32 tensor (one fill)."""
+    import torch
+
+    if torch.is_tensor(seed):
+        if seed.device != device or seed.numel() != 1 or \
+                seed.dtype not in (torch.int32, torch.int64):
+            raise ValueError(
+                f"flash_attention: a seed tensor must be one int32 or int64 "
+                f"element on {device}, got {seed.dtype} {tuple(seed.shape)} "
+                f"on {seed.device}")
+        return seed
+    bits = int(seed) & _U32
+    return torch.full((), bits - (bits >> 31 << 32), dtype=torch.int32,
+                      device=device)
+
+
+def _dropout_args(dropout: float, seed):
+    """The kernels' dropout arguments; ``seed`` is a device tensor from
+    :func:`seed_on_device` (the caller keeps it alive past the launch)."""
     if dropout <= 0.0:
-        return [0, 0, 0, 0.0]
-    return [1, int(seed) & _U32, dropout_threshold(dropout),
+        return [0, None, 0, 0.0]
+    return [1, seed.data_ptr(), dropout_threshold(dropout),
             dropout_scale(dropout)]
 
 
@@ -438,6 +472,7 @@ def _launch_fwd(qs, k, v, out, lse, causal, dropout, seed):
 
     b, h, sq, d = qs.shape
     lib = _library()
+    seed = seed_on_device(seed, qs.device) if dropout > 0.0 else None
     code = lib.ff_flash_fwd(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), b * h, sq, k.shape[2], d, int(causal),
@@ -469,6 +504,7 @@ def _launch_bwd_kv(qs, k, v, out, dor, lse, delta, dk, dv, dq_acc,
     fused = dq_acc is not None
     b, h, sq, d = qs.shape
     lib = _library()
+    seed = seed_on_device(seed, qs.device) if dropout > 0.0 else None
     code = lib.ff_flash_bwd_kv(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dor.data_ptr(), lse.data_ptr(), None if fused else delta.data_ptr(),
@@ -489,6 +525,7 @@ def _launch_bwd_q(qs, k, v, dor, lse, delta, dq, causal, dropout, seed):
 
     b, h, sq, d = qs.shape
     lib = _library()
+    seed = seed_on_device(seed, qs.device) if dropout > 0.0 else None
     code = lib.ff_flash_bwd_q(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), dor.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), _sm_scale(d),
@@ -529,7 +566,7 @@ def _backward_cuda(q, k, v, out, lse, do, causal, dropout, seed, fused):
 
 # ----------------------------------------------------------------- wrappers
 def _flash_forward(q, k, v, causal: bool, block_q: int, block_k: int,
-                   dropout: float = 0.0, seed: int = 0):
+                   dropout: float = 0.0, seed=0):
     """(O, lse): the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors."""
     if q.device.type == "cpu":
@@ -541,7 +578,7 @@ def _flash_forward(q, k, v, causal: bool, block_q: int, block_k: int,
 
 
 def _flash_backward(q, k, v, out, lse, do, causal: bool, block_q: int,
-                    block_k: int, dropout: float = 0.0, seed: int = 0,
+                    block_k: int, dropout: float = 0.0, seed=0,
                     fused: Optional[bool] = None):
     """(dq, dk, dv) by the fused schedule (``fused=True``: B2) or the
     two-pass one (``False``: B3 then B4); None picks by the JAX package's
@@ -595,8 +632,9 @@ def flash_attention(q, k, v, causal: bool = False,
 
     As the JAX package's ``flash_attention``: the sequences must be
     multiples of the blocks, causal needs seq_q <= seq_k, and ``dropout``
-    needs a ``seed`` (a uint32; the same seed gives the same mask in both
-    packages)."""
+    needs a ``seed``: a uint32 int (the same seed gives the same mask in
+    both packages) or a 0-d integer tensor holding it in its low 32 bits,
+    which on CUDA the kernels read from device memory."""
     global _FN
     dropout = float(dropout)
     if not 0.0 <= dropout < 1.0:
@@ -611,6 +649,13 @@ def flash_attention(q, k, v, causal: bool = False,
     _blocks(q.shape[-2], k.shape[-2], block_q, block_k)
     if _FN is None:
         _FN = _function()
+    if dropout == 0.0:
+        seed = 0
+    elif q.device.type == "cuda":
+        # one device seed for the forward and the backward launches
+        seed = seed_on_device(seed, q.device)
+    else:
+        seed = _seed_u32(seed)
     return _FN.apply(q.contiguous(), k.contiguous(), v.contiguous(),
                      bool(causal), int(block_q), int(block_k), dropout,
-                     int(seed or 0) & _U32)
+                     seed)

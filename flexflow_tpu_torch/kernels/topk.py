@@ -40,17 +40,16 @@ import numpy as np
 MAX_KERNEL_K = 8
 FLT_MAX = float(np.finfo(np.float32).max)
 
-_launches = 0
+_launches = {"topk": 0}
 
 
 def launch_count() -> int:
     """CUDA launches of the top-k kernel since the last reset."""
-    return _launches
+    return _launches["topk"]
 
 
 def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+    _launches["topk"] = 0
 
 
 def topk_plain(x, k: int):
@@ -140,7 +139,6 @@ def chunking(rows: int, dim: int, k: int, dtype_code: int):
 
 
 def _topk_cuda(x, k: int):
-    global _launches
     import torch
 
     from .build import check
@@ -168,7 +166,7 @@ def _topk_cuda(x, k: int):
                        chunk, code_dtype,
                        torch.cuda.current_stream(x.device).cuda_stream)
     check(lib, code, "topk launch")
-    _launches += 1
+    _launches["topk"] += 1
     shape = tuple(x.shape[:-1]) + (k,)
     return vals.reshape(shape), idx.reshape(shape)
 

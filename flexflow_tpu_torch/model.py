@@ -79,6 +79,10 @@ class FFModel:
         self.final_out_idx = 0
         self._tensor_to_node: Dict[int, int] = {}
         self._serving_engine = None
+        # internal: False makes fit and the serving engine run the eager
+        # step bodies instead of the captured programs (the tests and
+        # chip_smoke.py compare the two; no flag sets it)
+        self._capture_steps = True
 
     # ======================================================= tensor creation ==
     def create_tensor(self, dims: Sequence[int],
@@ -322,6 +326,8 @@ class FFModel:
         self._require_compiled()
         expected = {(n.name, w): (tuple(shape), dt)
                     for n, w, shape, dt, _ in self.executor.weight_entries()}
+        # the captured steps hold the old tensors' addresses
+        self.executor.invalidate_jit_cache()
         self.params = params_from_numpy(np_params, self.device,
                                         expected=expected)
         # fresh moments for the fresh weights
@@ -357,6 +363,7 @@ class FFModel:
         new[lname] = dict(new[lname])
         new[lname][wname] = torch.as_tensor(arr, dtype=cur.dtype).to(
             self.device)
+        self.executor.invalidate_jit_cache()
         self.params = new
         self._serving_engine = None
 
@@ -420,11 +427,15 @@ class FFModel:
         epochs (epoch e shuffles with seed ``config.seed + e``), batches
         staged onto the device one ahead, one train step per batch with
         the step's generator from ``_next_rng``, metrics folded on the host
-        once per epoch. ``--profiling`` prints the JAX package's ``step``,
-        ``epoch`` and ``THROUGHPUT`` lines verbatim and records each step's
-        wall in ``fit_history.step_s``. Resilience, the strategy cascade,
-        telemetry and tracing, dynamic recompiles and pipelines are refused
-        (``NotImplementedError`` naming the flag)."""
+        once per epoch. The step is the executor's captured program
+        (``Executor.make_train_step``): on CUDA a batch shape's first step
+        runs eagerly and later ones replay its CUDA graph; each step's loss
+        and metrics come back as device copies, so the per-step values kept
+        here stay distinct without a sync. ``--profiling`` prints the JAX
+        package's ``step``, ``epoch`` and ``THROUGHPUT`` lines verbatim and
+        records each step's wall in ``fit_history.step_s``. Resilience, the
+        strategy cascade, telemetry and tracing, dynamic recompiles and
+        pipelines are refused (``NotImplementedError`` naming the flag)."""
         import torch
 
         from .data.dataloader import batch_iterator, prefetch_iterator
@@ -437,7 +448,7 @@ class FFModel:
         batch_size = batch_size or self.config.batch_size
         epochs = epochs or self.config.epochs
         validate_batch(self, xs, y, phase="fit")
-        step_fn = self.executor.make_train_step()
+        step_fn = self.executor.make_train_step(capture=self._capture_steps)
         profiling = bool(self.config.profiling)
         cuda = self.device.type == "cuda"
         self._perf = PerfMetrics()

@@ -10,9 +10,11 @@ Whole-sequence forwards (training, eval, predict) route as the JAX op
 routes (``_should_use_flash``): to the flash-attention kernels
 (``kernels/flash_attention.py``; CUDA forward and backward on the card,
 their plain versions on the CPU) or to the plain einsum core
-``mha_core``. Attention dropout draws its uint32 seed from the step's
-generator (``ctx.rng``) and masks through the flash path's counter hash on
-both routes, so one seed gives one mask whichever route runs.
+``mha_core``. Attention dropout takes its uint32 seed from the step's
+random stream (``ctx.rng``: a generator it draws from, or a step
+program's seeds, device tensors under CUDA-graph capture) and masks
+through the flash path's counter hash on both routes, so one seed gives
+one mask whichever route runs.
 
 Serving (``ctx.serving``): prefill runs the plain causal core and hands the
 prompt's k/v rows to the engine; decode writes one token per slot into the
@@ -39,8 +41,9 @@ def mha_core(q, k, v, *, causal: bool = False, dropout: float = 0.0,
     """q,k,v: (batch, heads, seq, head_dim) -> (batch, heads, seq_q, vd) in
     v's dtype; scores, softmax and the PV sum in fp32. ``attn_mask`` is a
     bool mask (True attends) or an additive one, broadcastable to
-    (b, h, seq_q, seq_k). ``dropout`` > 0 needs a ``seed`` and multiplies
-    the probabilities by the counter-hash mask of that seed."""
+    (b, h, seq_q, seq_k). ``dropout`` > 0 needs a ``seed`` (an int or a
+    0-d integer tensor) and multiplies the probabilities by the
+    counter-hash mask of that seed."""
     import torch
 
     head_dim = q.shape[-1]
@@ -291,13 +294,17 @@ def _attention_core(attrs, q, k, v, ctx: OpContext, causal: bool):
     return mha_core(q, k, v, causal=causal, dropout=live, seed=seed)
 
 
-def _dropout_seed(rng) -> int:
-    """One uint32 from the step's generator: the flash kernels' dropout
-    seed (JAX folds its step key into ``jax.random.bits``)."""
-    import torch
+def _dropout_seed(rng):
+    """The next dropout seed of the step: one uint32 drawn from ``rng``
+    when it is the step's ``torch.Generator`` (JAX folds its step key into
+    ``jax.random.bits``), else the next of a step program's
+    :class:`~flexflow_tpu_torch.execution.graphs.DropoutSeeds` (the same
+    values, drawn from the same generator in the same order)."""
+    from ..execution.graphs import DropoutSeeds, draw_seed
 
-    return int(torch.randint(0, 2 ** 32, (1,), generator=rng,
-                             dtype=torch.int64))
+    if isinstance(rng, DropoutSeeds):
+        return rng.next()
+    return draw_seed(rng)
 
 
 def _resolve_live_dropout(dropout, ctx) -> float:

@@ -21,7 +21,8 @@ class OpContext:
 
     training: bool = False
     # the step's random stream (a CPU ``torch.Generator``, seeded per step
-    # by ``FFModel.fit``): ops with live dropout draw their uint32 seeds
+    # by ``FFModel.fit``, or a step program's ``DropoutSeeds`` holding the
+    # seeds drawn from it): ops with live dropout take their uint32 seeds
     # from it in graph order. None outside training (JAX threads ``ctx.rng``
     # the same way, flexflow_tpu/execution/executor.py:191-198)
     rng: Any = None

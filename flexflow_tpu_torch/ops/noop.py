@@ -42,8 +42,9 @@ class WeightOp(Op):
 @register_op(OperatorType.OP_CONSTANT)
 class ConstantOp(Op):
     """Frozen host tensor baked into the graph (attrs: value — np.ndarray).
-    The tensor is made on the device of the params it runs with, once per
-    device, and reused."""
+    The tensor is made on the context's device once, and reused (a step's
+    first, eager run makes it; a CUDA-graph capture, which can make no
+    host-to-device copy, finds it made)."""
 
     def infer_output_shapes(self, input_shapes):
         return [tuple(np.asarray(self.attrs["value"]).shape)]
@@ -51,11 +52,13 @@ class ConstantOp(Op):
     def forward(self, params, inputs, ctx: OpContext):
         import torch
 
-        device = ctx.device
-        cached = getattr(self, "_on_device", None)
-        if cached is None or cached.device != device:
-            cached = torch.as_tensor(
+        # keyed by the device asked for: torch.device("cuda") is not equal
+        # to the "cuda:0" of the tensor made there
+        device = torch.device(ctx.device or "cpu")
+        made = getattr(self, "_on_device", None)
+        if made is None or made[0] != device:
+            made = (device, torch.as_tensor(
                 np.asarray(self.attrs["value"]),
-                dtype=dtype_to_torch(self.data_type)).to(device)
-            self._on_device = cached
-        return [cached]
+                dtype=dtype_to_torch(self.data_type)).to(device))
+            self._on_device = made
+        return [made[1]]

@@ -6,7 +6,11 @@ radix prefix cache with its chunk-prefill step, optional chunked prefill
 (``--prefill-chunk-tokens``), the synchronous serve loop, one sequence
 shard, and greedy or top-k temperature sampling. Each tick performs one
 scheduler action: a one-shot prefill, one prefill chunk, or one decode step
-that advances every live slot by a token. The decode step's attention read
+that advances every live slot by a token. The decode step is the
+executor's captured program (``Executor.make_decode_step``; on CUDA one
+CUDA graph per engine, replayed every step over the persistent token
+buffer, lengths, block tables and pools, which every action writes in
+place; ``decode_compiles`` counts its captures). Its attention read
 is the flash-decode kernel (``kernels/flash_decode.py``, its int8 branch
 for int8 pools); the sampler's top-k goes through the row top-k kernel
 (``kernels/topk.py``) where the JAX sampler takes its Pallas kernel.
@@ -216,6 +220,9 @@ class ServingEngine:
             default_buckets(self.max_decode_len)
         self.state: Optional[DecodeState] = None
         self._last_tokens = None  # (n_slots, 1) int32 on the device
+        # (decode program, its capture count) when this engine's pools
+        # were made: decode_compiles counts from there
+        self._decode_captures0: Any = (None, 0)
         self._paged_entry_names: set = set()
         self.stats = ServingStats()
 
@@ -248,11 +255,28 @@ class ServingEngine:
                 "generate() needs a single integer token input; this graph "
                 f"has {len(ins)} input(s)")
 
+    @property
+    def decode_compiles(self) -> Optional[int]:
+        """CUDA graphs the decode program captured for this engine's pools
+        (flexflow_tpu/serving/engine.py:559-575): exactly 1 after warm-up
+        for the whole of a generate — prefix hits, chunk prefill, slot
+        reuse and copy-on-write write the captured buffers in place. None
+        on the CPU, where nothing is captured, and before the first
+        decode."""
+        if self.device.type != "cuda" or self.state is None:
+            return None
+        program = getattr(self._decode_fn(), "program", None)
+        if program is None:
+            return None
+        base_program, base = self._decode_captures0
+        return program.captures - (base if program is base_program else 0)
+
     # ------------------------------------------------------------ device fns
     def _decode_fn(self):
         return self.executor.make_decode_step(
             self.max_decode_len, exact=self.exact_decode,
-            block_size=self.kv_block_size, kv_dtype=self.kv_dtype)
+            block_size=self.kv_block_size, kv_dtype=self.kv_dtype,
+            capture=self.model._capture_steps)
 
     def _prefill_fn(self, bucket: int):
         return self.executor.make_prefill_step(bucket, self.max_decode_len)
@@ -299,6 +323,9 @@ class ServingEngine:
                     device=self.device))
             self._last_tokens = torch.zeros((n, 1), dtype=torch.int32,
                                             device=self.device)
+            program = getattr(self._decode_fn(), "program", None)
+            self._decode_captures0 = (
+                program, program.captures if program is not None else 0)
 
     def _ensure_state_bootstrap(self) -> None:
         """A chunk action needs the pool before any prefill has run: take
@@ -619,7 +646,7 @@ class _ServeLoop:
             tag_counts[s] = [r.rng_tag if r.rng_tag is not None else r.rid,
                              len(r.generated)]
         toks = self.sampler(logits, tag_counts, self.seed)
-        eng._last_tokens = toks[:, None].clone()
+        eng._last_tokens.copy_(toks[:, None])
         toks_host = toks.cpu().numpy()
         wall = time.perf_counter() - t_d
         stats.decode_steps += 1

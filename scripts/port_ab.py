@@ -23,8 +23,9 @@ replays, beside the same PyTorch library call):
   GPT-2 small causal fp32 and bf16 at seq 512, fp32 and bf16 at seq
   16384), beside SDPA's forward and backward;
 * with ``--step``, the p50 of a GPT-2 small training step at seq 16384 in
-  fp32 and in bf16 (1 warm-up and 3 timed steps each through
-  ``FFModel.fit``).
+  fp32 and in bf16 (2 warm-up and 3 timed steps each through
+  ``FFModel.fit``: where the step is a captured program, its first step
+  runs eagerly and its second is captured, so the timed ones replay).
 
 Each run prints one ``ab <root> {json}`` line (µs; step in ms), and the
 last line lists every figure by root in run order. It imports neither jax
@@ -69,7 +70,7 @@ def one(root: str, step: bool) -> dict:
         put(f"{kernel}_{shape}_{dname}", r)
     if step:
         for dname in ("fp32", "bf16"):
-            r = cs.train_phase(dev, "", "gpt2", dname, steps=3, warmup=1,
+            r = cs.train_phase(dev, "", "gpt2", dname, steps=3, warmup=2,
                                seq=cs.LONG_SEQ, batch=1, check_grads=False)
             out[f"step_s16384_{dname}_p50_ms"] = r["p50_ms"]
     return out
