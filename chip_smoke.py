@@ -124,7 +124,29 @@ the capture:
    the profiler); and a BERT-like model (BERT-Large's widths, 2 layers,
    attention dropout 0.1) holds one captured step against one eager step
    from the same generator and fails if a second replay's loss equals the
-   first's (the mask did not move).
+   first's (the mask did not move);
+8. zoo — the vision and recommendation models at their published widths
+   (no Pallas kernel lies on their path: convolutions, pooling and batch
+   norm are cuDNN's, as they are ``lax`` calls in the JAX package). Per
+   architecture (AlexNet at 224, ResNet-50, InceptionV3 at 299, ResNeXt-50
+   32x4d, DLRM with eight 200000 x 64 tables) one fp32 step on the card
+   against the port's CPU path from the same weights and batch (batch 2;
+   DLRM 64), with cuDNN's process default ``allow_tf32`` left on: the
+   loss, each conv, dense, norm and batched-matmul node alone, and the
+   whole step's grads where no ReLU output lies on opposite sides of 0
+   (``ZOO_CPU_TOL``; the same readings with the conv op's IEEE guard
+   lifted are printed and must fail the node check). Then each timed run
+   (those five in fp32 and ResNet-50 in bf16, batch 64, Adam 1e-3, random
+   weights from the seed): 2 warm-up steps (eager, capture) and 3 replays
+   through ``fit``, once eager and once captured — losses, p50 step ms,
+   samples/s, MFU against the compute dtype's peak (67 TF/s fp32, 989
+   bf16), idle share by the profiler and by CUDA events around one
+   replay, host launch calls, peak memory — and, as gate (b), the same
+   steps eager and freshly captured with cuDNN's deterministic algorithms
+   (``GRAPH_TOL``). ``--profile`` adds one captured step of each
+   under the profiler, its kernels split into conv, batch norm, Adam,
+   copies, GEMMs, pooling and the rest (``profile zoo <model> <dtype>``
+   lines; tables in ``chiprun_out/profile_zoo_*.txt``).
 
 It prints the run's wall seconds, one ``{"kernels": [...]}`` line (the
 entries of the instances the census covers also carry their SASS counts,
@@ -1688,24 +1710,21 @@ def replay_ms(program, iters: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_train(device, card: str, kind: str, compute: str, steps: int,
-                warmup: int = 2) -> dict:
-    """The same ``warmup + steps`` training steps through ``fit``, first
-    with the eager step body, then with the captured program, from the
-    same weights, optimizer state, batches and generator seeds. Prints p50
-    step ms (over the ``steps`` after warm-up), the device busy time and
-    idle share of one more step under the profiler (and of one replay by
-    CUDA events), host launch calls a step, peak memory, and the loss and
-    param differences after the run; fails outside ``GRAPH_TOL`` or if the
-    kernels' launches a step differ."""
+def eager_and_captured(ff, xs, y, batch: int, steps: int, warmup: int,
+                       label: str, measure: bool = True) -> dict:
+    """The same ``warmup + steps`` training steps of ``ff`` through
+    ``fit``, first with the eager step body, then with the captured
+    program, from the same weights, optimizer state, batches (``xs``, a
+    list of input arrays, and ``y``) and generator seeds. Per mode: p50
+    step ms over the ``steps`` after warm-up, the losses, the params after
+    the run, the flash launches a step, peak memory and, with ``measure``,
+    one more step under the profiler (busy ms, device ops, host launch
+    calls); the captured mode also one replay by CUDA events. Fails unless
+    the captured program captured once and every loss is finite."""
     import torch
 
     from flexflow_tpu_torch.kernels import flash_attention as fa
 
-    label = f"graph train {kind} {compute}"
-    ff, cfg = train_model(kind, compute, device)
-    batch = cfg.batch_size
-    x, y = train_data(kind, cfg, batch * (warmup + steps))
     snap = [t.clone() for t in state_tensors(ff)]
     res = {}
     for mode in ("eager", "captured"):
@@ -1716,42 +1735,72 @@ def graph_train(device, card: str, kind: str, compute: str, steps: int,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fa.reset_launch_count()
-        ff.fit(x, y, epochs=1)
+        ff.fit(xs, y, epochs=1)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
         counts = {n: c // (warmup + steps) for n in fa.KERNELS
                   if (c := fa.launch_count(n))}
         losses = list(ff.fit_history.loss)
+        if len(losses) != warmup + steps or not all(np.isfinite(losses)):
+            fail(f"{label} {mode}: losses {losses}")
         p50 = float(np.median(ff.fit_history.step_s[warmup:])) * 1e3
         after = [t.clone() for ws in ff.params.values()
                  for t in ws.values()]
-        prof = profiled(lambda: ff.fit(x[:batch], y[:batch], epochs=1))
         res[mode] = dict(p50_ms=p50, peak_gb=peak / 2 ** 30, counts=counts,
-                         losses=losses, params=after, **prof)
+                         losses=losses, params=after)
+        if measure:
+            res[mode].update(profiled(lambda: ff.fit(
+                [a[:batch] for a in xs], y[:batch], epochs=1)))
         if mode == "captured":
             program = ff.executor.make_train_step().program
             if program.captures != 1:
                 fail(f"{label}: {program.captures} captures, want 1")
-            res[mode]["replay_ms"] = replay_ms(program)
+            if measure:
+                res[mode]["replay_ms"] = replay_ms(program)
     e, c = res["eager"], res["captured"]
     if c["counts"] != e["counts"]:
         fail(f"{label}: kernel launches a step {c['counts']} captured vs "
              f"{e['counts']} eager")
-    dloss = max(abs(a - b) / max(abs(b), 1e-30)
-                for a, b in zip(c["losses"], e["losses"]))
-    dparams = rel_norm(c["params"], e["params"])
-    for mode, r in res.items():
-        log(f"{label} {mode}: p50 step {r['p50_ms']:.3f} ms over {steps} "
-            f"steps after {warmup}; one step under the profiler: busy "
+    res["loss_rel_diff"] = max(abs(a - b) / max(abs(b), 1e-30)
+                               for a, b in zip(c["losses"], e["losses"]))
+    res["param_rel_diff"] = rel_norm(c["params"], e["params"])
+    for r in (e, c):
+        del r["params"]
+    return res
+
+
+def mode_line(r: dict, steps: int, warmup: int) -> str:
+    """One mode's figures of :func:`eager_and_captured`."""
+    return (f"p50 step {r['p50_ms']:.3f} ms over {steps} steps after "
+            f"{warmup}; one step under the profiler: busy "
             f"{r['busy_ms']:.3f} ms (idle share "
             f"{1 - r['busy_ms'] / r['p50_ms']:.4f} of the p50), "
             f"{r['device_ops']} device ops, host launch calls "
             f"{r['kernel_launch_calls']} kernel / {r['graph_launch_calls']} "
-            f"graph; peak memory {r['peak_gb']:.3f} GiB; flash launches a "
-            f"step {r['counts']}"
+            f"graph; peak memory {r['peak_gb']:.3f} GiB"
             + (f"; one replay {r['replay_ms']:.3f} ms by CUDA events (idle "
                f"share {1 - r['replay_ms'] / r['p50_ms']:.4f})"
-               if 'replay_ms' in r else "") + f" [{card}]")
+               if 'replay_ms' in r else ""))
+
+
+def graph_train(device, card: str, kind: str, compute: str, steps: int,
+                warmup: int = 2) -> dict:
+    """:func:`eager_and_captured` on the BERT-Large proxy or GPT-2 small
+    (``train_model``); prints both modes and the loss and param
+    differences after the run, and fails outside ``GRAPH_TOL`` or if the
+    kernels' launches a step differ."""
+    import torch
+
+    label = f"graph train {kind} {compute}"
+    ff, cfg = train_model(kind, compute, device)
+    batch = cfg.batch_size
+    x, y = train_data(kind, cfg, batch * (warmup + steps))
+    res = eager_and_captured(ff, [x], y, batch, steps, warmup, label)
+    e, c = res["eager"], res["captured"]
+    for mode in ("eager", "captured"):
+        log(f"{label} {mode}: {mode_line(res[mode], steps, warmup)}; flash "
+            f"launches a step {res[mode]['counts']} [{card}]")
+    dloss, dparams = res["loss_rel_diff"], res["param_rel_diff"]
     ltol, ptol = GRAPH_TOL[compute]
     log(f"{label}: after {warmup + steps} steps, captured vs eager: max "
         f"relative loss difference {dloss:.3g} (tol {ltol}), param relative "
@@ -1760,11 +1809,9 @@ def graph_train(device, card: str, kind: str, compute: str, steps: int,
         f"({e['p50_ms'] / c['p50_ms']:.2f}x) [{card}]")
     if not (dloss <= ltol and dparams <= ptol):
         fail(f"{label}: captured and eager steps disagree")
-    for r in res.values():
-        del r["params"]
     del ff
     torch.cuda.empty_cache()
-    return dict(res, loss_rel_diff=dloss, param_rel_diff=dparams)
+    return res
 
 
 def rel_norm(got, want) -> float:
@@ -1949,6 +1996,431 @@ def graph_phase(device, card: str, cfg, prompt_set: dict) -> dict:
     }
 
 
+# ----------------------------------------------------------------- zoo phase
+# the vision and recommendation models at their published widths: (kind,
+# compute dtype) of each timed run, in order
+ZOO_RUNS = (("alexnet", "fp32"), ("resnet50", "fp32"), ("resnet50", "bf16"),
+            ("inception_v3", "fp32"), ("resnext50", "fp32"), ("dlrm", "fp32"))
+ZOO_BATCH = 64
+# DLRM as the JAX bench's on-chip leg builds it (bench.py:1355-1391)
+DLRM_TABLES, DLRM_ROWS = 8, 200000
+# gate (a), card against CPU in fp32 from the same weights and batch (the
+# two sides differ in summation order only; a TF32 convolution, 10-bit
+# mantissa, moves a conv's output and grads by 2e-4..1e-3): the loss of
+# one step within 1e-4 relative; every conv, dense, batch-norm and batched
+# matmul node alone, without its fused activation, fed the CPU forward's
+# own input activations and a seeded cotangent on both sides, its output
+# and grads within 1e-4 relative norm;
+# and every grad of the whole step within 1e-4 relative norm where no ReLU
+# output lies on opposite sides of 0 on the two sides. Where one does (a
+# pre-activation within fp32 rounding of the kink), that element's grad
+# moves whole and the whole-step grads of a deep ReLU network differ by
+# 1e-3..2e-2 between any two correct fp32 implementations (the port's CPU
+# path against itself in float64 reads the same: ResNet-50 at batch 2, 57
+# such elements, 1.77e-2), so the per-node check holds the numerics there
+ZOO_CPU_TOL = 1e-4
+ZOO_CPU_BATCH = {"dlrm": ZOO_BATCH}
+ZOO_OP_TYPES = ("OP_CONV2D", "OP_LINEAR", "OP_BATCHNORM", "OP_BATCHMATMUL")
+
+
+def zoo_model(kind: str, compute: str, device, batch: int):
+    """A zoo model as a user builds it, at its published widths: AlexNet
+    (ImageNet, 224, examples/cpp/AlexNet/alexnet.cc), ResNet-50 (224),
+    InceptionV3 (299), ResNeXt-50 32x4d (224), each with 1000 classes and
+    sparse categorical cross-entropy, or DLRM (eight 200000 x 64 tables,
+    dense dim 16, bottom MLP 512-256-64, top 512-256-1, MSE avg-reduce);
+    Adam 1e-3 (the JAX bench's legs); random weights from the seed.
+    ``--profiling`` records each step's wall."""
+    from flexflow_tpu_torch import (AdamOptimizer, DataType, FFConfig,
+                                    FFModel, LossType)
+    from flexflow_tpu_torch.models import (build_alexnet, build_dlrm,
+                                           build_inception_v3,
+                                           build_resnet50, build_resnext50)
+
+    config = FFConfig()
+    config.batch_size, config.seed = batch, SEED
+    config.profiling, config.print_freq = True, 10 ** 6
+    if compute == "bf16":
+        config.compute_dtype = DataType.DT_BFLOAT16
+    ff = FFModel(config, device=device)
+    loss = LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY
+    if kind == "dlrm":
+        build_dlrm(ff, batch_size=batch,
+                   embedding_sizes=(DLRM_ROWS,) * DLRM_TABLES,
+                   embedding_dim=64)
+        loss = LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE
+    else:
+        build = {"alexnet": build_alexnet, "resnet50": build_resnet50,
+                 "inception_v3": build_inception_v3,
+                 "resnext50": build_resnext50}[kind]
+        build(ff, batch_size=batch)
+    ff.compile(optimizer=AdamOptimizer(ff, alpha=1e-3), loss_type=loss)
+    return ff
+
+
+def zoo_data(ff, n: int, seed: int = SEED):
+    """``n`` samples for ``ff``'s inputs from the seed: images from a
+    normal and labels over 1000 classes; DLRM's ids uniform over the
+    tables (int64), its dense features normal and its targets uniform in
+    [0, 1), as the JAX bench's leg draws them."""
+    rng = np.random.default_rng(seed)
+    xs = []
+    for t in ff._input_tensors:
+        shape = (n,) + tuple(t.dims[1:])
+        if t.name.startswith("sparse_"):
+            xs.append(rng.integers(0, DLRM_ROWS, size=shape).astype(
+                np.int64))
+        else:
+            xs.append(rng.normal(size=shape).astype(np.float32))
+    from flexflow_tpu_torch import LossType
+
+    if ff.loss_type == LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE:
+        y = rng.random(size=(n, 1)).astype(np.float32)
+    else:
+        y = rng.integers(0, 1000, size=(n, 1)).astype(np.int32)
+    return xs, y
+
+
+def shift_free_biases(ff) -> set:
+    """(node, "bias") of every convolution whose output feeds batch norms
+    only, with no activation between: the norm removes any per-channel
+    shift, so the exact gradient of such a bias is zero and each side's
+    is rounding noise, which no relative check can hold."""
+    from flexflow_tpu_torch import ActiMode, OperatorType
+
+    users = {}
+    for node in ff.pcg.compute_nodes():
+        for g, _ in node.inputs:
+            users.setdefault(g, []).append(node.op.op_type)
+    return {(node.name, "bias") for node in ff.pcg.compute_nodes()
+            if node.op.op_type == OperatorType.OP_CONV2D
+            and node.op.attrs.get("use_bias", True)
+            and node.op.attrs.get("activation", ActiMode.AC_MODE_NONE)
+            == ActiMode.AC_MODE_NONE
+            and users.get(node.guid)
+            and all(u == OperatorType.OP_BATCHNORM for u in users[node.guid])}
+
+
+def grad_errors(got: dict, want: dict, skip: set):
+    """(worst per-tensor relative norm error and its tensor, over every
+    grad but ``skip``; the relative norm error of all grads together)."""
+    worst, where, num, den = 0.0, None, 0.0, 0.0
+    for n, ws in want.items():
+        for w, g in ws.items():
+            d = float((got[n][w].double() - g.double()).norm())
+            gn = float(g.double().norm())
+            num, den = num + d * d, den + gn * gn
+            if (n, w) not in skip and d / max(gn, 1e-30) > worst:
+                worst, where = d / max(gn, 1e-30), f"{n}.{w}"
+    return worst, where, (num / max(den, 1e-30)) ** 0.5
+
+
+def op_outputs(model, xs) -> dict:
+    """Every node's outputs of ``model``'s inference forward on ``xs``, by
+    node name, on the CPU."""
+    import torch
+
+    from flexflow_tpu_torch.ops.base import OpContext
+
+    ex = model.executor
+    with torch.no_grad():
+        vals = ex.forward_outputs(model.params, ex._bind_inputs(xs),
+                                  OpContext(device=model.device))
+    return {model.pcg.nodes[g].name: [v.cpu() for v in vs]
+            for g, vs in vals.items()}
+
+
+def relu_side_flips(a: dict, b: dict) -> tuple:
+    """(elements that are 0 in one of the two ``op_outputs`` and not in the
+    other, elements compared)."""
+    flips = total = 0
+    for name, outs in a.items():
+        for u, v in zip(outs, b[name]):
+            if u.is_floating_point():
+                flips += int(((u == 0) != (v == 0)).sum())
+                total += u.numel()
+    return flips, total
+
+
+def op_errors(ff, cpu, vals: dict) -> tuple:
+    """Every ``ZOO_OP_TYPES`` node of ``cpu`` alone on the CPU and its
+    counterpart in ``ff`` on the card, both fed the CPU forward's input
+    activations ``vals`` and the node's weights, then a seeded cotangent:
+    (worst relative norm error of an output, an input grad or a weight
+    grad, where, nodes checked). The node runs without its fused
+    activation (a ReLU's kink would move a grad element whole, as in the
+    whole step); the activation is the same elementwise call on both
+    sides."""
+    import torch
+
+    from flexflow_tpu_torch import ActiMode
+    from flexflow_tpu_torch.ops.base import OpContext
+
+    def bare(op):
+        return type(op)(op.name, dict(op.attrs, relu=False,
+                                      activation=ActiMode.AC_MODE_NONE),
+                        op.data_type, op.num_inputs)
+
+    def run(op, params, ins, cot, device):
+        params = {w: t.detach().to(device).requires_grad_(True)
+                  for w, t in params.items()}
+        ins = [t.to(device).requires_grad_(t.is_floating_point())
+               for t in ins]
+        out = op.forward(params, ins, OpContext(training=True,
+                                                device=device))[0]
+        leaves = list(params.values()) + [t for t in ins
+                                          if t.requires_grad]
+        grads = torch.autograd.grad(out, leaves, cot.to(device))
+        return [out] + list(grads), list(params) + [
+            f"in{i}" for i, t in enumerate(ins) if t.requires_grad]
+
+    card_nodes = {n.name: n for n in ff.pcg.compute_nodes()}
+    worst, where, checked = 0.0, None, 0
+    gen = torch.Generator().manual_seed(SEED)
+    for node in cpu.pcg.compute_nodes():
+        if node.op.op_type.name not in ZOO_OP_TYPES:
+            continue
+        ins = [vals[cpu.pcg.nodes[g].name][i] for g, i in node.inputs]
+        shape = node.out_shapes[0]
+        cot = torch.randn(tuple(shape), generator=gen)
+        want, names = run(bare(node.op), cpu.params.get(node.name, {}), ins,
+                          cot, torch.device("cpu"))
+        got, _ = run(bare(card_nodes[node.name].op),
+                     ff.params.get(node.name, {}), ins, cot, ff.device)
+        for name, a, b in zip(["out"] + names, got, want):
+            b = b.detach().double()
+            e = float((a.detach().cpu().double() - b).norm()) / max(
+                float(b.norm()), 1e-30)
+            if e > worst:
+                worst, where = e, f"{node.name}.{name}"
+        checked += 1
+    return worst, where, checked
+
+
+def zoo_card_vs_cpu(device, card: str, kind: str) -> dict:
+    """Gate (a) (``ZOO_CPU_TOL``): one fp32 training step of the
+    full-width model (batch 2; DLRM at its batch of 64) on the card and
+    through the port's CPU path from the same weights and batch: the loss;
+    every conv, dense, batch-norm and batched-matmul node alone; and the
+    whole step's grads (``shift_free_biases`` held only in the norm of all
+    grads together), gated where no ReLU output lies on opposite sides of
+    0. The
+    process keeps cuDNN's default ``allow_tf32`` (True): the conv op
+    itself must run IEEE fp32. The same readings with the op's guard
+    lifted (TF32 convolutions) are printed beside them."""
+    import contextlib
+
+    import torch
+
+    from flexflow_tpu_torch.ops import conv as conv_op
+
+    batch = ZOO_CPU_BATCH.get(kind, 2)
+    label = f"zoo {kind} card vs cpu"
+    ff = zoo_model(kind, "fp32", device, batch)
+    cpu = zoo_model(kind, "fp32", torch.device("cpu"), batch)
+    cpu.set_params_numpy(ff.get_params_numpy())
+    xs, y = zoo_data(ff, batch, seed=SEED + 1)
+    lab = ff._prep_label(y)
+    xs_dev = [torch.from_numpy(a).to(device) for a in xs]
+    xs_cpu = [torch.from_numpy(a) for a in xs]
+    skip = shift_free_biases(ff)
+
+    def card_readings():
+        loss, _, g = ff.executor.loss_and_grads(
+            ff.params, xs_dev, torch.from_numpy(lab).to(device))
+        g = {n: {w: t.cpu() for w, t in ws.items()} for n, ws in g.items()}
+        dl = abs(float(loss) - float(lc)) / max(abs(float(lc)), 1e-30)
+        return (dl,) + grad_errors(g, gc, skip) + op_errors(ff, cpu, vals)
+
+    t = time.perf_counter()
+    lc, _, gc = cpu.executor.loss_and_grads(cpu.params, xs_cpu,
+                                            torch.from_numpy(lab))
+    vals = op_outputs(cpu, xs_cpu)
+    cpu_s = time.perf_counter() - t
+    flips, total = relu_side_flips(op_outputs(ff, xs_dev), vals)
+    dl, worst, where, glob, op_worst, op_where, n_ops = card_readings()
+    planted = None
+    if any(n.op.op_type.name == "OP_CONV2D" for n in ff.pcg.compute_nodes()):
+        saved = conv_op.ieee_fp32_convolutions
+        conv_op.ieee_fp32_convolutions = contextlib.nullcontext
+        try:
+            planted = card_readings()
+        finally:
+            conv_op.ieee_fp32_convolutions = saved
+    tol = ZOO_CPU_TOL
+    log(f"{label}: batch {batch}, fp32, cudnn.allow_tf32 "
+        f"{torch.backends.cudnn.allow_tf32}: loss relative difference "
+        f"{dl:.3g} (tol {tol}); {n_ops} conv/dense/norm/bmm nodes alone: "
+        f"worst relative norm error {op_worst:.3g} ({op_where}; tol {tol}); "
+        f"whole step: ReLU outputs on opposite sides of 0 {flips} of "
+        f"{total}, worst grad relative norm error {worst:.3g} ({where}; tol "
+        f"{tol} {'applied' if flips == 0 else 'not applied: kinks'}), all "
+        f"grads {glob:.3g}, {len(skip)} shift-free conv biases in the total "
+        f"only; CPU step and forward {cpu_s:.1f} s"
+        + (f"; with TF32 convolutions: loss {planted[0]:.3g}, nodes alone "
+           f"{planted[4]:.3g} ({planted[5]}), whole step worst "
+           f"{planted[1]:.3g} ({planted[2]}), all grads {planted[3]:.3g}"
+           if planted else "") + f" [{card}]")
+    if not (dl <= tol and op_worst <= tol and (flips or worst <= tol)):
+        fail(f"{label}: the card's fp32 step disagrees with the CPU's")
+    if planted is not None and planted[4] <= tol:
+        fail(f"{label}: the node check does not tell TF32 convolutions "
+             "from IEEE fp32 ones")
+    del ff, cpu
+    torch.cuda.empty_cache()
+    return dict(loss_rel_diff=dl, op_worst=op_worst, worst_grad=worst,
+                all_grads=glob, relu_flips=flips, tf32=planted)
+
+
+# kernel classes of a zoo step's profile, first match wins: cuDNN's
+# convolution kernels (implicit-GEMM fprop, dgrad, wgrad and their
+# helpers), batch norm, Adam's foreach passes, copies (the HWIO -> OIHW
+# kernel permute, its grad's way back, the bf16 casts), GEMMs (dense
+# layers), pooling, then the rest (bias adds, ReLUs, the loss)
+ZOO_KERNEL_CLASSES = (
+    ("conv", ("conv", "xmma", "implicit", "wgrad", "dgrad", "fprop",
+              "cudnn", "winograd", "fft")),
+    ("batch norm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw", "welford")),
+    ("adam", ("foreach", "multi_tensor")),
+    ("copies", ("copy", "permute", "transpose")),
+    ("gemm", ("gemm", "cutlass", "nvjet")),
+    ("pool", ("pool",)),
+)
+
+
+def profile_zoo(ff, xs, y, label: str, step_s: float) -> None:
+    """``--profile``: one more captured step of a zoo model under
+    ``torch.profiler``: busy time against the unprofiled p50 step, the
+    busy time by ``ZOO_KERNEL_CLASSES``, the ten kernels that take the
+    most, and the whole table in ``chiprun_out/profile_<label>.txt``."""
+    import os
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ff.fit(xs, y, epochs=1)
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in kernels)
+    if busy <= 0:
+        log(f"profile {label}: the profiler saw no kernel time; not "
+            "measured")
+        return
+    split = {}
+    for e in kernels:
+        key = e.key.lower()
+        cls = next((c for c, words in ZOO_KERNEL_CLASSES
+                    if any(w in key for w in words)), "other")
+        split[cls] = split.get(cls, 0.0) + e.self_device_time_total
+    log(f"profile {label}: kernels busy {busy / 1e3:.3f} ms of the "
+        f"unprofiled p50 step's {step_s * 1e3:.3f} ms; "
+        + ", ".join(f"{c} {us / 1e3:.3f} ms ({us / busy:.3f})"
+                    for c, us in sorted(split.items(), key=lambda kv: -kv[1]))
+        + f"; {sum(e.count for e in kernels)} kernel launches")
+    os.makedirs("chiprun_out", exist_ok=True)
+    path = os.path.join("chiprun_out",
+                        f"profile_{label.replace(' ', '_')}.txt")
+    with open(path, "w") as f:
+        f.write("kernel\tcount\ttotal_us\tshare\n")
+        for e in kernels:
+            f.write(f"{e.key}\t{e.count}\t{e.self_device_time_total:.1f}\t"
+                    f"{e.self_device_time_total / busy:.4f}\n")
+    for e in kernels[:10]:
+        log(f"profile {label}:   {e.self_device_time_total / 1e3:9.3f} ms "
+            f"{e.count:5d}x {e.key[:100]}")
+
+
+def zoo_train(device, card: str, kind: str, compute: str, steps: int = 3,
+              warmup: int = 2, profile: bool = False) -> dict:
+    """A zoo model at batch 64 through ``fit``: ``warmup`` steps (the
+    shape's eager first step and its capture) then ``steps`` replays, once
+    with the eager body and once captured (:func:`eager_and_captured`).
+    Prints p50 step ms, samples/s and MFU against the compute dtype's
+    peak for both, their idle shares, peak memory and host launch calls,
+    and their difference after the run. Then gate (b): the same steps
+    eager and freshly captured with cuDNN's deterministic algorithms,
+    within ``GRAPH_TOL``. Fails unless every loss of both pairs is
+    finite."""
+    import torch
+
+    from flexflow_tpu_torch.models import vision_train_flops_per_step
+
+    label = f"zoo train {kind} {compute}"
+    t = time.perf_counter()
+    ff = zoo_model(kind, compute, device, ZOO_BATCH)
+    xs, y = zoo_data(ff, ZOO_BATCH * (warmup + steps))
+    n_params = sum(t.numel() for ws in ff.params.values()
+                   for t in ws.values())
+    log(f"{label}: {len(ff._layers)} layers, {n_params} params, inputs "
+        f"{[tuple(t.dims) for t in ff._input_tensors]}, built in "
+        f"{time.perf_counter() - t:.1f} s")
+    res = eager_and_captured(ff, xs, y, ZOO_BATCH, steps, warmup, label)
+    flops = vision_train_flops_per_step(ff)
+    peak = BF16_FLOPS if compute == "bf16" else FP32_FLOPS
+    for mode in ("eager", "captured"):
+        r = res[mode]
+        s = r["p50_ms"] / 1e3
+        log(f"{label} {mode}: losses {[round(v, 4) for v in r['losses']]}, "
+            f"{ZOO_BATCH / s:.2f} samples/s, {flops / s / 1e12:.2f} TFLOP/s "
+            f"= MFU {flops / s / peak:.4f} of {peak / 1e12:.0f} TF/s; "
+            f"{mode_line(r, steps, warmup)} [{card}]")
+    e, c = res["eager"], res["captured"]
+    log(f"{label}: after {warmup + steps} steps with cuDNN's default "
+        f"algorithms, captured vs eager: max relative loss difference "
+        f"{res['loss_rel_diff']:.3g}, param relative norm difference "
+        f"{res['param_rel_diff']:.3g} (not bitwise repeatable, not gated); "
+        f"p50 {e['p50_ms']:.3f} -> {c['p50_ms']:.3f} ms "
+        f"({e['p50_ms'] / c['p50_ms']:.2f}x); {flops / 1e9:.1f} GFLOP a "
+        f"step [{card}]")
+    if profile:
+        profile_zoo(ff, [a[:ZOO_BATCH] for a in xs], y[:ZOO_BATCH],
+                    f"zoo {kind} {compute}", c["p50_ms"] / 1e3)
+    # gate (b), captured against eager after the same steps (the graph
+    # phase's method): cuDNN's default backward algorithms are not
+    # bitwise repeatable on the card (two eager steps from one state give
+    # other conv grads), and over a few Adam steps at 1e-3 the difference
+    # grows to 1e-2 of the params, past any band of one step. So a fresh
+    # capture and the eager body run the same steps again with cuDNN's
+    # deterministic algorithms, held to the graph phase's GRAPH_TOL
+    ff.executor.invalidate_jit_cache()
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        gate = eager_and_captured(ff, xs, y, ZOO_BATCH, steps, warmup, label,
+                                  measure=False)
+    finally:
+        torch.backends.cudnn.deterministic = was
+    ltol, ptol = GRAPH_TOL[compute]
+    log(f"{label}: after {warmup + steps} steps with cuDNN deterministic, "
+        f"captured vs eager: max relative loss difference "
+        f"{gate['loss_rel_diff']:.3g} (tol {ltol}), param relative norm "
+        f"difference {gate['param_rel_diff']:.3g} (tol {ptol}); p50 "
+        f"{gate['eager']['p50_ms']:.3f} -> {gate['captured']['p50_ms']:.3f} "
+        f"ms [{card}]")
+    if not (gate["loss_rel_diff"] <= ltol and gate["param_rel_diff"] <= ptol):
+        fail(f"{label}: captured and eager steps disagree")
+    del ff
+    torch.cuda.empty_cache()
+    return dict(res, flops=flops, gate=gate)
+
+
+def zoo_phase(device, card: str, profile: bool = False) -> dict:
+    """Gate (a) once per architecture, then every timed run of
+    ``ZOO_RUNS`` (ResNet-50 in bf16 shares the fp32 architecture's
+    gate); ``--profile`` profiles one more captured step of each."""
+    gates = {kind: zoo_card_vs_cpu(device, card, kind)
+             for kind in dict.fromkeys(k for k, _ in ZOO_RUNS)}
+    runs = {(kind, compute): zoo_train(device, card, kind, compute,
+                                       profile=profile)
+            for kind, compute in ZOO_RUNS}
+    return dict(gates=gates, runs=runs)
+
+
 def main() -> None:
     try:
         import torch
@@ -2015,6 +2487,7 @@ def main() -> None:
                                warmup=1, softmax_kernel=True),
     }
     graph_phase(device, card, cfg, prompt_set)
+    zoo_phase(device, card, profile=profile)
 
     kernels = []
     for compute, name in (("fp32", "flash_decode"),

@@ -11,11 +11,14 @@ Ported so far: serving — the GPT-2 family through ``FFModel.generate`` /
 ``ServingEngine`` over the paged KV pool, with the flash-decode kernel —
 and training on one device — ``compile(optimizer, loss_type, metrics)``,
 ``fit`` / ``eval`` / ``predict`` for the BERT proxy and GPT-2, with the
-flash-attention forward and backward kernels.
+flash-attention forward and backward kernels — and the conv, batch-norm,
+elementwise and tensor ops with the vision and recommendation models
+(AlexNet, ResNet-50, InceptionV3, ResNeXt-50, DLRM, XDL, MLP_Unify,
+CANDLE-Uno).
 """
 from .config import FFConfig, FFIterationConfig  # noqa: F401
 from .ffconst import (ActiMode, AggrMode, CompMode, DataType,  # noqa: F401
-                      LossType, MetricsType, OperatorType)
+                      LossType, MetricsType, OperatorType, PoolType)
 from .tensor import Tensor  # noqa: F401
 from .layer import Layer  # noqa: F401
 from .model import FFModel  # noqa: F401

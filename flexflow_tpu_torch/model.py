@@ -5,14 +5,19 @@ The builder methods record a Layer graph exactly as the JAX package does;
 ``compile`` lowers it to a PCG and builds an :class:`Executor` on one
 device (the reference pipeline's single-device branch: no search, no
 mesh); ``fit`` / ``eval`` / ``predict`` train and run it, and ``generate``
-serves it through the paged-KV ``ServingEngine``.
+serves it through the paged-KV ``ServingEngine``. The builders are the
+JAX package's, with its signatures and defaults
+(flexflow_tpu/model.py:118-470), but for the recurrent and MoE ones
+(``lstm``, ``group_by``, ``aggregate``, ``aggregate_spec``, ``cache``,
+``moe``, ``experts``, ``moe_experts``), which raise
+``NotImplementedError`` until their slice lands.
 
 The model runs on ``device`` — CUDA unless the caller asks for the CPU.
 With no GPU and no explicit ``device="cpu"`` the constructor raises: the
 port never drops to the CPU silently. Multi-device strategies, the phase
 API (``forward/backward/update``), checkpointing and resilience, remat,
-telemetry and the builder methods this slice's models do not use come in
-later slices; their flags raise ``NotImplementedError``.
+telemetry and the builders above come in later slices; their flags raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ import numpy as np
 
 from .config import FFConfig
 from .ffconst import (ActiMode, AggrMode, CompMode, DataType, LossType,
-                      MetricsType, OperatorType, numpy_to_dtype)
+                      MetricsType, OperatorType, PoolType, numpy_to_dtype)
 from .execution.metrics import Metrics, PerfMetrics
 from .execution.optimizers import SGDOptimizer
 from .layer import Layer
@@ -140,6 +145,41 @@ class FFModel:
              "kernel_regularizer": kernel_regularizer},
             datatype or input.dtype, name)
 
+    def conv2d(self, input: Tensor, out_channels: int, kernel_h: int,
+               kernel_w: int, stride_h: int, stride_w: int, padding_h: int,
+               padding_w: int, activation: ActiMode = ActiMode.AC_MODE_NONE,
+               groups: int = 1, use_bias: bool = True,
+               kernel_initializer=None, bias_initializer=None,
+               name: Optional[str] = None) -> Tensor:
+        return self._add_layer(
+            OperatorType.OP_CONV2D, [input],
+            {"out_channels": out_channels, "kernel_h": kernel_h,
+             "kernel_w": kernel_w, "stride_h": stride_h,
+             "stride_w": stride_w, "padding_h": padding_h,
+             "padding_w": padding_w, "activation": activation,
+             "groups": groups, "use_bias": use_bias,
+             "kernel_initializer": kernel_initializer,
+             "bias_initializer": bias_initializer},
+            input.dtype, name)
+
+    def pool2d(self, input: Tensor, kernel_h: int, kernel_w: int,
+               stride_h: int, stride_w: int, padding_h: int, padding_w: int,
+               pool_type: PoolType = PoolType.POOL_MAX,
+               activation: ActiMode = ActiMode.AC_MODE_NONE,
+               name: Optional[str] = None) -> Tensor:
+        return self._add_layer(
+            OperatorType.OP_POOL2D, [input],
+            {"kernel_h": kernel_h, "kernel_w": kernel_w,
+             "stride_h": stride_h, "stride_w": stride_w,
+             "padding_h": padding_h, "padding_w": padding_w,
+             "pool_type": pool_type, "activation": activation},
+            input.dtype, name)
+
+    def batch_norm(self, input: Tensor, relu: bool = True,
+                   name: Optional[str] = None) -> Tensor:
+        return self._add_layer(OperatorType.OP_BATCHNORM, [input],
+                               {"relu": relu}, input.dtype, name)
+
     def layer_norm(self, input: Tensor, axes: Sequence[int],
                    elementwise_affine: bool = True, eps: float = 1e-5,
                    name: Optional[str] = None) -> Tensor:
@@ -147,6 +187,17 @@ class FFModel:
             OperatorType.OP_LAYERNORM, [input],
             {"axes": list(axes), "elementwise_affine": elementwise_affine,
              "eps": eps}, input.dtype, name)
+
+    def rms_norm(self, input: Tensor, axes: Sequence[int] = (-1,),
+                 eps: float = 1e-6, name: Optional[str] = None) -> Tensor:
+        return self._add_layer(OperatorType.OP_RMSNORM, [input],
+                               {"axes": list(axes), "eps": eps},
+                               input.dtype, name)
+
+    def batch_matmul(self, A: Tensor, B: Tensor,
+                     name: Optional[str] = None) -> Tensor:
+        return self._add_layer(OperatorType.OP_BATCHMATMUL, [A, B], {},
+                               A.dtype, name)
 
     def embedding(self, input: Tensor, num_entries: int, out_dim: int,
                   aggr: AggrMode = AggrMode.AGGR_MODE_NONE,
@@ -173,12 +224,91 @@ class FFModel:
              "kernel_initializer": kernel_initializer, "causal": causal},
             query.dtype, name)
 
+    # ---- elementwise -------------------------------------------------------
+    def _binary(self, op_type, x, y, name=None):
+        return self._add_layer(op_type, [x, y], {}, x.dtype, name)
+
     def add(self, x, y, inplace_a=False, name=None):
-        return self._add_layer(OperatorType.OP_EW_ADD, [x, y], {}, x.dtype,
-                               name)
+        return self._binary(OperatorType.OP_EW_ADD, x, y, name)
+
+    def subtract(self, x, y, inplace_a=False, name=None):
+        return self._binary(OperatorType.OP_EW_SUB, x, y, name)
+
+    def multiply(self, x, y, inplace_a=False, name=None):
+        return self._binary(OperatorType.OP_EW_MUL, x, y, name)
+
+    def divide(self, x, y, inplace_a=False, name=None):
+        return self._binary(OperatorType.OP_EW_DIV, x, y, name)
+
+    def max(self, x, y, inplace_a=False, name=None):
+        return self._binary(OperatorType.OP_EW_MAX, x, y, name)
+
+    def min(self, x, y, inplace_a=False, name=None):
+        return self._binary(OperatorType.OP_EW_MIN, x, y, name)
 
     def _unary(self, op_type, x, attrs=None, name=None):
         return self._add_layer(op_type, [x], attrs or {}, x.dtype, name)
+
+    def exp(self, x, name=None):
+        return self._unary(OperatorType.OP_EXP, x, name=name)
+
+    def log(self, x, name=None):
+        return self._unary(OperatorType.OP_LOG, x, name=name)
+
+    def sin(self, x, name=None):
+        return self._unary(OperatorType.OP_SIN, x, name=name)
+
+    def cos(self, x, name=None):
+        return self._unary(OperatorType.OP_COS, x, name=name)
+
+    def rsqrt(self, x, name=None):
+        return self._unary(OperatorType.OP_RSQRT, x, name=name)
+
+    def pow(self, x, exponent: float, name=None):
+        return self._unary(OperatorType.OP_POW, x, {"exponent": exponent},
+                           name)
+
+    def scalar_multiply(self, x, scalar: float, inplace=True, name=None):
+        return self._unary(OperatorType.OP_SCALAR_MULTIPLY, x,
+                           {"scalar": scalar}, name)
+
+    def scalar_add(self, x, scalar: float, inplace=True, name=None):
+        return self._unary(OperatorType.OP_SCALAR_ADD, x,
+                           {"scalar": scalar}, name)
+
+    def scalar_sub(self, x, scalar: float, inplace=True, name=None):
+        return self._unary(OperatorType.OP_SCALAR_SUB, x,
+                           {"scalar": scalar}, name)
+
+    def scalar_true_divide(self, x, scalar: float, inplace=True, name=None):
+        return self._unary(OperatorType.OP_SCALAR_TRUE_DIV, x,
+                           {"scalar": scalar}, name)
+
+    def relu(self, x, inplace=True, name=None):
+        return self._unary(OperatorType.OP_RELU, x, name=name)
+
+    def identity(self, x, name=None):
+        return self._unary(OperatorType.OP_IDENTITY, x, name=name)
+
+    def sigmoid(self, x, name=None):
+        return self._unary(OperatorType.OP_SIGMOID, x, name=name)
+
+    def tanh(self, x, name=None):
+        return self._unary(OperatorType.OP_TANH, x, name=name)
+
+    def elu(self, x, inplace=True, name=None):
+        return self._unary(OperatorType.OP_ELU, x, name=name)
+
+    def gelu(self, x, name=None):
+        return self._unary(OperatorType.OP_GELU, x, name=name)
+
+    def dropout(self, x, rate: float = 0.5, seed: int = 0, name=None):
+        return self._unary(OperatorType.OP_DROPOUT, x,
+                           {"rate": rate, "seed": seed}, name)
+
+    # ---- shape ops -----------------------------------------------------------
+    def flat(self, x, name=None):
+        return self._unary(OperatorType.OP_FLAT, x, name=name)
 
     def softmax(self, x, axis: int = -1, name=None,
                 use_pallas: bool = False):
@@ -188,10 +318,58 @@ class FFModel:
         return self._unary(OperatorType.OP_SOFTMAX, x,
                            {"axis": axis, "use_pallas": use_pallas}, name)
 
+    def reshape(self, x, shape: Sequence[int], name=None):
+        return self._unary(OperatorType.OP_RESHAPE, x,
+                           {"shape": list(shape)}, name)
+
+    def transpose(self, x, perm: Sequence[int], name=None):
+        return self._unary(OperatorType.OP_TRANSPOSE, x,
+                           {"perm": list(perm)}, name)
+
+    def reverse(self, x, axis: int, name=None):
+        return self._unary(OperatorType.OP_REVERSE, x, {"axis": axis}, name)
+
+    def slice_tensor(self, x, items, name=None):
+        """Static getitem: items is a tuple of slice/int/None (the torch
+        frontend's getitem; reference OP_SLICE)."""
+        from .ops.tensor_ops import encode_slice_items
+
+        return self._unary(OperatorType.OP_SLICE, x,
+                           {"items": encode_slice_items(items)}, name)
+
+    def concat(self, tensors: List[Tensor], axis: int, name=None):
+        return self._add_layer(OperatorType.OP_CONCAT, list(tensors),
+                               {"axis": axis}, tensors[0].dtype, name)
+
+    def split(self, x, sizes: Union[int, List[int]], axis: int, name=None):
+        if isinstance(sizes, int):
+            dim = x.dims[axis % len(x.dims)]
+            if dim % sizes:
+                raise ValueError(f"split: {dim} does not divide into "
+                                 f"{sizes} equal parts")
+            sizes = [dim // sizes] * sizes
+        outs = self._add_layer(OperatorType.OP_SPLIT, [x],
+                               {"sizes": list(sizes), "axis": axis},
+                               x.dtype, name)
+        return outs if isinstance(outs, list) else [outs]
+
+    def gather(self, x, index: Tensor, dim: int, name=None):
+        return self._add_layer(OperatorType.OP_GATHER, [x, index],
+                               {"dim": dim}, x.dtype, name)
+
+    def cast(self, x, dtype: DataType, name=None):
+        return self._add_layer(OperatorType.OP_CAST, [x],
+                               {"target_dtype": dtype}, dtype, name)
+
     def mean(self, x, dims: Sequence[int], keepdims: bool = False,
              name=None):
         return self._unary(OperatorType.OP_MEAN, x,
                            {"axes": list(dims), "keepdims": keepdims}, name)
+
+    def reduce_sum(self, x, axes: Sequence[int], keepdims: bool = False,
+                   name=None):
+        return self._unary(OperatorType.OP_REDUCE_SUM, x,
+                           {"axes": list(axes), "keepdims": keepdims}, name)
 
     def top_k(self, x, k: int, sorted: bool = True, name=None,
               use_pallas: bool = False):
@@ -213,6 +391,53 @@ class FFModel:
         return self._add_layer(OperatorType.OP_SDPA, inputs,
                                {"dropout": dropout, "causal": causal,
                                 "scale": scale}, q.dtype, name)
+
+    # ---- recurrent and MoE builders (a later slice) ---------------------
+    @staticmethod
+    def _later(builder: str):
+        raise NotImplementedError(
+            f"FFModel.{builder} is {LATER} (the recurrent and MoE ops); "
+            "this slice ports the conv, normalization, elementwise and "
+            "tensor ops")
+
+    def lstm(self, input: Tensor, hidden_size: int,
+             initial_state: Optional[Tensor] = None,
+             name: Optional[str] = None) -> List[Tensor]:
+        self._later("lstm")
+
+    def group_by(self, input: Tensor, assign: Tensor, n: int,
+                 alpha: float = 1.0, name=None) -> List[Tensor]:
+        self._later("group_by")
+
+    def aggregate(self, gate_preds: Tensor, gate_assign: Tensor,
+                  true_gate_assign: Tensor, full_gate_grads: Tensor,
+                  exp_preds: List[Tensor], n: int, lambda_bal: float = 0.0,
+                  name=None) -> Tensor:
+        self._later("aggregate")
+
+    def aggregate_spec(self, gate_preds, gate_assign, true_gate_assign,
+                       full_gate_grads, exp_preds: List[Tensor], n: int,
+                       lambda_bal: float = 0.0, name=None) -> Tensor:
+        self._later("aggregate_spec")
+
+    def cache(self, input: Tensor, num_batches: int, score_fn=None,
+              name=None):
+        self._later("cache")
+
+    def moe(self, input: Tensor, num_exp: int, num_select: int,
+            expert_hidden_size: int, alpha: float = 2.0,
+            lambda_bal: float = 0.04) -> Tensor:
+        self._later("moe")
+
+    def experts(self, dispatched: Tensor, out_dim: int,
+                activation=ActiMode.AC_MODE_RELU, use_bias: bool = True,
+                name=None) -> Tensor:
+        self._later("experts")
+
+    def moe_experts(self, input: Tensor, num_exp: int, num_select: int,
+                    expert_hidden_size: int, alpha: float = 2.0,
+                    lambda_bal: float = 0.04) -> Tensor:
+        self._later("moe_experts")
 
     def constant(self, value, dtype: Optional[DataType] = None, name=None):
         """Frozen host tensor as a graph node (position ids)."""

@@ -10,6 +10,8 @@ GELU here is ``F.gelu(approximate="tanh")``.
 """
 from __future__ import annotations
 
+import numpy as np
+
 from ..ffconst import ActiMode, OperatorType
 from .base import Op, OpContext, register_op
 
@@ -83,3 +85,6 @@ class LinearOp(Op):
                                  kernel, ctx)
         return [apply_activation(y, self.attrs.get("activation",
                                                    ActiMode.AC_MODE_NONE))]
+
+    def flops(self, input_shapes, output_shapes):
+        return 2 * int(np.prod(input_shapes[0])) * self.attrs["out_dim"]

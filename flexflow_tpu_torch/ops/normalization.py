@@ -2,8 +2,8 @@
 reference: src/ops/layer_norm.cc, softmax.cc). LayerNorm statistics are
 taken in fp32 whatever the compute dtype, and the result is cast back, as
 in the JAX op. ``SoftmaxOp`` takes the row-softmax kernel on opt-in
-(``use_pallas``) where the JAX op takes its Pallas kernel. RMSNorm comes in
-a later slice."""
+(``use_pallas``) where the JAX op takes its Pallas kernel. RMSNorm, the JAX
+package's extension for LLM blocks, keeps its statistics in fp32 too."""
 from __future__ import annotations
 
 from ..ffconst import OperatorType
@@ -59,6 +59,38 @@ class LayerNormOp(Op):
             y = y * params["scale"].reshape(bshape) \
                 + params["bias"].reshape(bshape)
         return [y.to(x.dtype)]
+
+
+@register_op(OperatorType.OP_RMSNORM)
+class RMSNormOp(Op):
+    """attrs: axes (default the last), eps (default 1e-6);
+    ``x / sqrt(mean(x**2) + eps) * scale`` in fp32, cast back
+    (flexflow_tpu/ops/normalization.py:54-80)."""
+
+    def infer_output_shapes(self, input_shapes):
+        return [input_shapes[0]]
+
+    def _axes(self, ndim):
+        return tuple(sorted(a % ndim
+                            for a in self.attrs.get("axes", [ndim - 1])))
+
+    def weight_specs(self, input_shapes):
+        from ..execution.initializers import ConstantInitializer
+
+        ishape = input_shapes[0]
+        nshape = tuple(ishape[a] for a in self._axes(len(ishape)))
+        return {"scale": (nshape, self.data_type, ConstantInitializer(1.0))}
+
+    def forward(self, params, inputs, ctx: OpContext):
+        import torch
+
+        (x,) = inputs
+        axes = self._axes(x.dim())
+        xf = x.float()
+        ms = (xf * xf).mean(dim=axes, keepdim=True)
+        y = xf / torch.sqrt(ms + self.attrs.get("eps", 1e-6))
+        bshape = [x.shape[a] if a in axes else 1 for a in range(x.dim())]
+        return [(y * params["scale"].reshape(bshape)).to(x.dtype)]
 
 
 @register_op(OperatorType.OP_SOFTMAX)

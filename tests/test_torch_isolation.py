@@ -9,7 +9,8 @@
 * Every serving option outside this slice raises ``NotImplementedError``
   naming its flag, whether it comes as an engine argument or through
   ``FFConfig``; none falls back quietly. So does every training option
-  outside this slice, at ``fit``.
+  outside this slice, at ``fit``, and every FFModel builder of a later
+  slice (the recurrent and MoE ones), naming itself.
 """
 import ast
 import os
@@ -55,7 +56,9 @@ def test_importing_every_module_loads_neither_jax_nor_flexflow_tpu():
               "kernels.softmax", "kernels.topk",
               "execution.losses", "execution.metrics",
               "execution.optimizers", "data.dataloader",
-              "resilience.preflight", "models.bert", "ops.tensor_ops"):
+              "resilience.preflight", "models.bert", "ops.tensor_ops",
+              "ops.conv", "ops.elementwise", "models.vision",
+              "models.dlrm", "models.misc"):
         assert f"flexflow_tpu_torch.{m}" in mods
     script = (
         "import importlib, json, sys\n"
@@ -282,3 +285,45 @@ def test_softmax_kernel_opt_in_is_refused():
     got = np.asarray(ff.predict(x))
     np.testing.assert_allclose(
         got, torch.softmax(torch.tensor(x), -1).numpy(), rtol=0, atol=0)
+
+
+# ------------------------------------------- builders of a later slice
+@pytest.mark.parametrize("builder,args", [
+    ("lstm", lambda x: (x, 8)),
+    ("group_by", lambda x: (x, x, 2)),
+    ("aggregate", lambda x: (x, x, x, x, [x], 2)),
+    ("aggregate_spec", lambda x: (x, x, x, x, [x], 2)),
+    ("cache", lambda x: (x, 4)),
+    ("moe", lambda x: (x, 4, 2, 8)),
+    ("experts", lambda x: (x, 8)),
+    ("moe_experts", lambda x: (x, 4, 2, 8)),
+])
+def test_builders_of_later_slices_refuse_by_name(builder, args):
+    ff = ft.FFModel(ft.FFConfig(), device="cpu")
+    x = ff.create_tensor((4, 8))
+    with pytest.raises(NotImplementedError, match=LATER) as e:
+        getattr(ff, builder)(*args(x))
+    assert f"FFModel.{builder} " in str(e.value)
+    assert len(ff._layers) == 0
+
+
+def test_every_jax_builder_exists_in_the_port():
+    """The port's FFModel has each public builder of the JAX package's
+    (flexflow_tpu/model.py:118-470), ported or refusing by name: none
+    raises ``AttributeError``."""
+    import flexflow_tpu as fj
+
+    builders = ["dense", "conv2d", "pool2d", "batch_norm", "layer_norm",
+                "rms_norm", "batch_matmul", "embedding",
+                "multihead_attention", "add", "subtract", "multiply",
+                "divide", "max", "min", "exp", "log", "sin", "cos", "rsqrt",
+                "pow", "scalar_multiply", "scalar_add", "scalar_sub",
+                "scalar_true_divide", "relu", "identity", "sigmoid", "tanh",
+                "elu", "gelu", "dropout", "flat", "softmax", "reshape",
+                "transpose", "reverse", "slice_tensor", "constant", "sdpa",
+                "lstm", "concat", "split", "gather", "cast", "mean",
+                "reduce_sum", "top_k", "group_by", "aggregate",
+                "aggregate_spec", "cache", "moe", "experts", "moe_experts"]
+    for name in builders:
+        assert callable(getattr(fj.FFModel, name)), name
+        assert callable(getattr(ft.FFModel, name)), name
