@@ -33,7 +33,8 @@ the capture:
    flash decode (B5) at the shapes GPT-2 small's decode gives it (8 slots,
    12 heads, head_dim 64, block_size 16, 32 blocks per slot, random
    tables, key counts 1..512) in fp32 and bf16, with native pools and with
-   int8 pools and their scales (library: ``F.scaled_dot_product_attention``
+   int8 pools and their scales, and at the Transformer decoder's (the same
+   with 16 heads) in fp32 (library: ``F.scaled_dot_product_attention``
    over the gathered, masked — for int8 dequantized, untimed — keys),
    timed as CUDA-graph replays cycling over 12 layers' inputs, so each
    launch finds its pool cold in L2 as in a decode step and Python's
@@ -148,11 +149,46 @@ the capture:
    copies, GEMMs, pooling and the rest (``profile zoo <model> <dtype>``
    lines; tables in ``chiprun_out/profile_zoo_*.txt``).
 
+9. seq — the LSTM and MoE models and the Transformer family at their
+   published widths, fp32, random weights from the seed (no kernel of
+   their own: the JAX package computes the LSTM, the MoE dispatch and the
+   experts outside any Pallas body). Per model, gate (a) as in the zoo
+   phase: one step on the card against the port's CPU path from the same
+   weights and batch — the OSDI'22 Transformer proxy (transformer.cc: 12
+   layers, hidden 1024, 16 heads, seq 512) and NMT at ``rnn.h``'s widths
+   (vocab 32000, embed and hidden 1024, 2 layers, 40 tokens) at batch 2,
+   the MoE MLP of ``moe.cc`` (784 inputs, 8 experts, top 2, expert hidden
+   64) at batch 64 built with ``moe`` and with ``moe_experts`` (the proxy
+   here with its layer norms on, so that its activations and grads keep
+   their scale through the 12 layers): the loss,
+   each dense, attention, LSTM and experts node alone, the whole step's
+   grads where no ReLU output changes sides, and for the MoE MLPs the
+   dispatch (dest, keep) as integers (``GATE_MARGIN``); then each at its
+   published batch (the proxy 8, NMT 64, the MoE MLPs 64; Adam), 2
+   warm-up steps and 3 replays once eager and once captured, through
+   ``fit`` (NMT, whose labels are flattened tokens, through
+   ``make_train_step``): p50 step ms, samples/s (NMT target tokens/s),
+   MFU against 67 TF/s from the graph's op FLOPs, idle share by CUDA
+   events around one replay, host launch calls, peak memory, the
+   captured-vs-eager difference within ``GRAPH_TOL``; the proxy's step
+   must launch the fp32 flash forward (B1) and fused backward (B2) 12
+   times each. Last, the proxy's causal decoder
+   (``build_transformer_decoder``, vocab 256, layer norms on) serves the
+   e2e prompts eager and captured: streams token-identical, 12
+   flash-decode (B5) launches a decode step, ``decode_compiles == 1``,
+   teacher-forced logits of order 1 against the whole-sequence forward
+   within ``E2E_ATOL``; tokens/s and p50/p99 ms a token. ``--profile`` adds one profiled step
+   of each timed run (``profile seq <model> fp32`` lines: flash, Adam,
+   GEMM, MoE dispatch, elementwise — in NMT chiefly the LSTM's gates).
+
 It prints the run's wall seconds, one ``{"kernels": [...]}`` line (the
 entries of the instances the census covers also carry their SASS counts,
 registers, spills and shared memory; the flash-decode entries their
 registers and spills; the two-pass entries SDPA's backward as
-``pair_library_ms``; the backward entries their tile error), the card's
+``pair_library_ms``; the backward entries their tile error; the
+proxy's B1 and B2 as ``flash_fwd_transformer`` and
+``flash_bwd_fused_transformer``, timed at the fp32 BERT shape, which is
+theirs; the decoder's B5 as ``flash_decode_decoder``), the card's
 name and power limit (nvidia-smi), and as its last line ``{"ok": true, "device": {...}}``. Any
 failed phase exits non-zero; without CUDA, or without the package, it
 exits 1 and prints no result.
@@ -163,6 +199,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -420,12 +457,14 @@ def decode_props() -> dict:
 
 
 # ------------------------------------------------------------ kernel phase
-def decode_inputs(dtype, device, layers: int, seed: int = SEED):
-    """GPT-2 small decode shapes: one random (q, kpool, vpool) per layer,
-    shared shuffled block tables and key counts 1..512 (the ends always
-    present). Timing cycles through the layers, as a decode step does, so
-    a launch finds its pool outside the L2 cache (``layers`` pools of
-    25 MB in fp32 exceed its 50 MB)."""
+def decode_inputs(dtype, device, layers: int, seed: int = SEED,
+                  heads: int = HEADS):
+    """Decode shapes of 8 slots, d64, 16-token blocks, 32 blocks a slot
+    (GPT-2 small's 12 heads, or the Transformer decoder's 16): one random
+    (q, kpool, vpool) per layer, shared shuffled block tables and key
+    counts 1..512 (the ends always present). Timing cycles through the
+    layers, as a decode step does, so a launch finds its pool outside the
+    L2 cache (``layers`` pools of 25 MB in fp32 exceed its 50 MB)."""
     import torch
 
     rng = np.random.default_rng(seed)
@@ -439,36 +478,39 @@ def decode_inputs(dtype, device, layers: int, seed: int = SEED):
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=device).to(dtype)
 
-    per_layer = [(randn(SLOTS, HEADS, HEAD_DIM),
-                  randn(n_blocks, HEADS, BLOCK, HEAD_DIM),
-                  randn(n_blocks, HEADS, BLOCK, HEAD_DIM))
+    per_layer = [(randn(SLOTS, heads, HEAD_DIM),
+                  randn(n_blocks, heads, BLOCK, HEAD_DIM),
+                  randn(n_blocks, heads, BLOCK, HEAD_DIM))
                  for _ in range(layers)]
     i = [torch.tensor(a, dtype=torch.int32, device=device)
          for a in (tables, n_keys)]
     return per_layer, i[0], i[1]
 
 
-def flash_decode_bound(n_keys, el: int, int8: bool = False):
+def flash_decode_bound(n_keys, el: int, int8: bool = False,
+                       heads: int = HEADS):
     """(bound_ms, bound_by): the bytes this call must move — the used K/V
     rows (int8: 1 byte an element plus two f32 scales per key and head), q,
     the output, tables and counts, each once — over HBM bandwidth, against
     its fp32 flops (score and PV: 4 * dim per key and head) over the fp32
     peak."""
     keys = int(np.sum(n_keys))
-    kv = keys * HEADS * (2 * HEAD_DIM + 8 if int8 else 2 * HEAD_DIM * el)
-    io = 2 * SLOTS * HEADS * HEAD_DIM * el + SLOTS * (MAX_BLOCKS + 1) * 4
+    kv = keys * heads * (2 * HEAD_DIM + 8 if int8 else 2 * HEAD_DIM * el)
+    io = 2 * SLOTS * heads * HEAD_DIM * el + SLOTS * (MAX_BLOCKS + 1) * 4
     t_bytes = (kv + io) / HBM_BYTES_PER_S
-    t_ops = keys * HEADS * 4 * HEAD_DIM / FP32_FLOPS
+    t_ops = keys * heads * 4 * HEAD_DIM / FP32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
 def kernel_phase(device, card: str, dtypes=("fp32", "bf16"),
-                 iters: int = 240, layers: int = 12, int8: bool = False):
-    """Flash decode against its plain version and timed. ``int8``: the
-    kernel's int8 branch, the fp32 pools of the native case quantized per
-    (token, head) and q in the compute dtype; the library call then reads
-    keys gathered and dequantized to q's dtype beforehand (not timed)."""
+                 iters: int = 240, layers: int = 12, int8: bool = False,
+                 heads: int = HEADS):
+    """Flash decode against its plain version and timed, at ``heads``
+    heads (:func:`decode_inputs`). ``int8``: the kernel's int8 branch, the
+    fp32 pools of the native case quantized per (token, head) and q in the
+    compute dtype; the library call then reads keys gathered and
+    dequantized to q's dtype beforehand (not timed)."""
     import torch
     import torch.nn.functional as F
 
@@ -478,12 +520,13 @@ def kernel_phase(device, card: str, dtypes=("fp32", "bf16"),
                                                     gather_paged_scales,
                                                     quantize_kv)
 
-    label = "flash_decode_int8" if int8 else "flash_decode"
+    label = ("flash_decode_int8" if int8 else "flash_decode") + (
+        f" {heads} heads" if heads != HEADS else "")
     out = {}
     for name in dtypes:
         dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[name]
         per_layer, tables, n_keys = decode_inputs(
-            torch.float32 if int8 else dtype, device, layers)
+            torch.float32 if int8 else dtype, device, layers, heads=heads)
         if int8:
             # (q, kq, vq, {kscale, vscale})
             per_layer = [(q.to(dtype), kq, vq, dict(kscale=ks, vscale=vs))
@@ -536,7 +579,8 @@ def kernel_phase(device, card: str, dtypes=("fp32", "bf16"),
         plain_ms = time_ms(plain, max(iters // 20, 1), device)
         library_ms = time_ms(library, iters, device, graph=cuda)
         bound_ms, bound_by = flash_decode_bound(
-            n_keys.cpu().numpy(), per_layer[0][0].element_size(), int8)
+            n_keys.cpu().numpy(), per_layer[0][0].element_size(), int8,
+            heads)
         log(f"kernel {label} {name}: max_abs_err {err:.3g} "
             f"(sdpa vs plain {lib_err:.3g}), {ms * 1e3:.2f} us "
             f"({eager_ms * 1e3:.2f} us a call launched from Python), "
@@ -1710,17 +1754,57 @@ def replay_ms(program, iters: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def eager_and_captured(ff, xs, y, batch: int, steps: int, warmup: int,
-                       label: str, measure: bool = True) -> dict:
-    """The same ``warmup + steps`` training steps of ``ff`` through
-    ``fit``, first with the eager step body, then with the captured
-    program, from the same weights, optimizer state, batches (``xs``, a
-    list of input arrays, and ``y``) and generator seeds. Per mode: p50
-    step ms over the ``steps`` after warm-up, the losses, the params after
-    the run, the flash launches a step, peak memory and, with ``measure``,
-    one more step under the profiler (busy ms, device ops, host launch
-    calls); the captured mode also one replay by CUDA events. Fails unless
-    the captured program captured once and every loss is finite."""
+def fit_steps(ff, xs, y, batch: int):
+    """``run_steps`` of :func:`eager_and_captured` for a model trained
+    through ``fit``: one epoch over ``xs`` (a list of input arrays) and
+    ``y`` with the eager step body or the captured program, the generator
+    seeds from the start. Returns (losses, step walls in s, one more step
+    on the first batch)."""
+    def run(mode: str):
+        ff._rng_counter = 0
+        ff._capture_steps = mode == "captured"
+        ff.fit(xs, y, epochs=1)
+        return (list(ff.fit_history.loss), list(ff.fit_history.step_s),
+                lambda: ff.fit([a[:batch] for a in xs], y[:batch], epochs=1))
+    return run
+
+
+def train_step_steps(ff, batches):
+    """``run_steps`` of :func:`eager_and_captured` for a model trained
+    through ``Executor.make_train_step`` (NMT's flattened token labels):
+    one step a (device inputs, device labels) pair of ``batches``, each
+    ended by a device sync and timed, through the eager body or the
+    captured program."""
+    import torch
+
+    def run(mode: str):
+        step = ff.executor.make_train_step(capture=mode == "captured")
+        walls, losses = [], []
+        for xs, lab in batches:
+            t = time.perf_counter()
+            _p, _s, loss, _m = step(ff.params, ff.opt_state, xs, lab, None)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            losses.append(float(loss))
+        xs0, lab0 = batches[0]
+        return losses, walls, lambda: step(ff.params, ff.opt_state, xs0,
+                                           lab0, None)
+    return run
+
+
+def eager_and_captured(ff, run_steps, steps: int, warmup: int, label: str,
+                       measure: bool = True) -> dict:
+    """The same ``warmup + steps`` training steps of ``ff``, first with
+    the eager step body, then with the captured program, from the same
+    weights and optimizer state: ``run_steps(mode)`` (:func:`fit_steps`,
+    :func:`train_step_steps`) runs them and returns (losses, step walls,
+    one more step). Per mode: p50 step ms over the ``steps`` after
+    warm-up, the losses, the params after the run, the flash launches a
+    step, peak memory and, with ``measure``, one more step under the
+    profiler (busy ms, device ops, host launch calls); the captured mode
+    also one replay by CUDA events. Fails unless the captured program
+    captured once, every loss is finite and both modes launch the same
+    kernels a step."""
     import torch
 
     from flexflow_tpu_torch.kernels import flash_attention as fa
@@ -1730,27 +1814,23 @@ def eager_and_captured(ff, xs, y, batch: int, steps: int, warmup: int,
     for mode in ("eager", "captured"):
         for t, v in zip(state_tensors(ff), snap):
             t.copy_(v)
-        ff._rng_counter = 0
-        ff._capture_steps = mode == "captured"
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fa.reset_launch_count()
-        ff.fit(xs, y, epochs=1)
+        losses, walls, again = run_steps(mode)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
-        counts = {n: c // (warmup + steps) for n in fa.KERNELS
-                  if (c := fa.launch_count(n))}
-        losses = list(ff.fit_history.loss)
+        totals = {n: c for n in fa.KERNELS if (c := fa.launch_count(n))}
+        counts = {n: c // (warmup + steps) for n, c in totals.items()}
         if len(losses) != warmup + steps or not all(np.isfinite(losses)):
             fail(f"{label} {mode}: losses {losses}")
-        p50 = float(np.median(ff.fit_history.step_s[warmup:])) * 1e3
+        p50 = float(np.median(walls[warmup:])) * 1e3
         after = [t.clone() for ws in ff.params.values()
                  for t in ws.values()]
         res[mode] = dict(p50_ms=p50, peak_gb=peak / 2 ** 30, counts=counts,
-                         losses=losses, params=after)
+                         totals=totals, losses=losses, params=after)
         if measure:
-            res[mode].update(profiled(lambda: ff.fit(
-                [a[:batch] for a in xs], y[:batch], epochs=1)))
+            res[mode].update(profiled(again))
         if mode == "captured":
             program = ff.executor.make_train_step().program
             if program.captures != 1:
@@ -1795,7 +1875,8 @@ def graph_train(device, card: str, kind: str, compute: str, steps: int,
     ff, cfg = train_model(kind, compute, device)
     batch = cfg.batch_size
     x, y = train_data(kind, cfg, batch * (warmup + steps))
-    res = eager_and_captured(ff, [x], y, batch, steps, warmup, label)
+    res = eager_and_captured(ff, fit_steps(ff, [x], y, batch), steps, warmup,
+                             label)
     e, c = res["eager"], res["captured"]
     for mode in ("eager", "captured"):
         log(f"{label} {mode}: {mode_line(res[mode], steps, warmup)}; flash "
@@ -1822,7 +1903,7 @@ def rel_norm(got, want) -> float:
 
 def graph_serve(device, card: str, cfg, kv_dtype: str, lengths,
                 shared_len: int, n_shared: int, new_tokens: int,
-                max_len: int) -> dict:
+                max_len: int, model=None, label: str = "") -> dict:
     """GPT-2 small (fp32) serves the e2e prompts greedily with
     ``kv_dtype`` KV, first through the eager decode body, then through the
     captured decode program, each on a fresh engine after a warm-up.
@@ -1831,15 +1912,20 @@ def graph_serve(device, card: str, cfg, kv_dtype: str, lengths,
     teacher-forced decode logits within ``E2E_ATOL`` (B5 merges in a fixed
     order: 0 expected). Prints tokens/s, p50/p99 per-token ms, peak
     memory, and the idle share and host launch calls of the same generate
-    once more under the profiler."""
+    once more under the profiler. ``model`` serves a model built by the
+    caller (fp32) instead of GPT-2 small. The result also holds request
+    0's prompt and stream (``stream0``)."""
     import torch
 
     from flexflow_tpu_torch.kernels import flash_decode as fd
 
-    label = f"graph serve {kv_dtype}"
-    ff = build_model(cfg, "fp32", device, max_len)
+    label = label or f"graph serve {kv_dtype}"
+    ff = model if model is not None else build_model(cfg, "fp32", device,
+                                                     max_len)
     ff.config.kv_dtype = kv_dtype
-    prompts = make_prompts(cfg.vocab_size, lengths, shared_len, n_shared)
+    vocab = ff.pcg.nodes[ff.executor.final_guid].out_shapes[
+        ff.executor.final_out_idx][-1]
+    prompts = make_prompts(vocab, lengths, shared_len, n_shared)
     name = "flash_decode_int8" if kv_dtype == "int8" else "flash_decode"
     res = {}
 
@@ -1867,12 +1953,14 @@ def graph_serve(device, card: str, cfg, kv_dtype: str, lengths,
         peak = torch.cuda.max_memory_allocated()
         eng = ff._serving_engine
         stats = eng.stats
-        per_step = fd.launch_count(name) / max(stats.decode_steps, 1)
+        launches = fd.launch_count(name)
+        per_step = launches / max(stats.decode_steps, 1)
         compiles = eng.decode_compiles
         walls = {}
         fresh_engine()
         prof = profiled(lambda: walls.setdefault("s", generate()[1]))
-        res[mode] = dict(outs=outs, tokens_per_s=stats.tokens_per_s(),
+        res[mode] = dict(outs=outs, launches=launches,
+                         tokens_per_s=stats.tokens_per_s(),
                          p50_token_ms=stats.p50_token_ms(),
                          p99_token_ms=stats.p99_token_ms(),
                          wall_s=stats.wall_s, decode_steps=stats.decode_steps,
@@ -1919,7 +2007,7 @@ def graph_serve(device, card: str, cfg, kv_dtype: str, lengths,
         del r["outs"]
     del ff
     torch.cuda.empty_cache()
-    return dict(res, logit_err=err)
+    return dict(res, logit_err=err, stream0=(seq, plen))
 
 
 def graph_dropout(device, card: str) -> dict:
@@ -2142,8 +2230,9 @@ def relu_side_flips(a: dict, b: dict) -> tuple:
     return flips, total
 
 
-def op_errors(ff, cpu, vals: dict) -> tuple:
-    """Every ``ZOO_OP_TYPES`` node of ``cpu`` alone on the CPU and its
+def op_errors(ff, cpu, vals: dict, types=ZOO_OP_TYPES) -> tuple:
+    """Every node of ``types`` (``ZOO_OP_TYPES``) of ``cpu`` alone on the
+    CPU and its
     counterpart in ``ff`` on the card, both fed the CPU forward's input
     activations ``vals`` and the node's weights, then a seeded cotangent:
     (worst relative norm error of an output, an input grad or a weight
@@ -2164,8 +2253,10 @@ def op_errors(ff, cpu, vals: dict) -> tuple:
     def run(op, params, ins, cot, device):
         params = {w: t.detach().to(device).requires_grad_(True)
                   for w, t in params.items()}
-        ins = [t.to(device).requires_grad_(t.is_floating_point())
-               for t in ins]
+        # a copy each: one tensor may feed several inputs (attention's
+        # q, k and v), and each input takes its own grad
+        ins = [t.detach().to(device, copy=True).requires_grad_(
+            t.is_floating_point()) for t in ins]
         out = op.forward(params, ins, OpContext(training=True,
                                                 device=device))[0]
         leaves = list(params.values()) + [t for t in ins
@@ -2178,7 +2269,7 @@ def op_errors(ff, cpu, vals: dict) -> tuple:
     worst, where, checked = 0.0, None, 0
     gen = torch.Generator().manual_seed(SEED)
     for node in cpu.pcg.compute_nodes():
-        if node.op.op_type.name not in ZOO_OP_TYPES:
+        if node.op.op_type.name not in types:
             continue
         ins = [vals[cpu.pcg.nodes[g].name][i] for g, i in node.inputs]
         shape = node.out_shapes[0]
@@ -2290,9 +2381,17 @@ ZOO_KERNEL_CLASSES = (
 
 def profile_zoo(ff, xs, y, label: str, step_s: float) -> None:
     """``--profile``: one more captured step of a zoo model under
-    ``torch.profiler``: busy time against the unprofiled p50 step, the
-    busy time by ``ZOO_KERNEL_CLASSES``, the ten kernels that take the
-    most, and the whole table in ``chiprun_out/profile_<label>.txt``."""
+    ``torch.profiler`` (:func:`profile_classes`, ``ZOO_KERNEL_CLASSES``)."""
+    profile_classes(lambda: ff.fit(xs, y, epochs=1), label, step_s,
+                    ZOO_KERNEL_CLASSES)
+
+
+def profile_classes(run, label: str, step_s: float, classes) -> None:
+    """One call of ``run`` (a captured step) under ``torch.profiler``:
+    busy time against the unprofiled p50 step, the busy time by
+    ``classes`` (first match wins, the rest "other"), the ten kernels
+    that take the most, and the whole table in
+    ``chiprun_out/profile_<label>.txt``."""
     import os
 
     import torch
@@ -2301,7 +2400,7 @@ def profile_zoo(ff, xs, y, label: str, step_s: float) -> None:
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        ff.fit(xs, y, epochs=1)
+        run()
         torch.cuda.synchronize()
     kernels = sorted((e for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA),
@@ -2314,7 +2413,7 @@ def profile_zoo(ff, xs, y, label: str, step_s: float) -> None:
     split = {}
     for e in kernels:
         key = e.key.lower()
-        cls = next((c for c, words in ZOO_KERNEL_CLASSES
+        cls = next((c for c, words in classes
                     if any(w in key for w in words)), "other")
         split[cls] = split.get(cls, 0.0) + e.self_device_time_total
     log(f"profile {label}: kernels busy {busy / 1e3:.3f} ms of the "
@@ -2348,7 +2447,7 @@ def zoo_train(device, card: str, kind: str, compute: str, steps: int = 3,
     finite."""
     import torch
 
-    from flexflow_tpu_torch.models import vision_train_flops_per_step
+    from flexflow_tpu_torch.models import train_flops_per_step
 
     label = f"zoo train {kind} {compute}"
     t = time.perf_counter()
@@ -2359,8 +2458,9 @@ def zoo_train(device, card: str, kind: str, compute: str, steps: int = 3,
     log(f"{label}: {len(ff._layers)} layers, {n_params} params, inputs "
         f"{[tuple(t.dims) for t in ff._input_tensors]}, built in "
         f"{time.perf_counter() - t:.1f} s")
-    res = eager_and_captured(ff, xs, y, ZOO_BATCH, steps, warmup, label)
-    flops = vision_train_flops_per_step(ff)
+    res = eager_and_captured(ff, fit_steps(ff, xs, y, ZOO_BATCH), steps,
+                             warmup, label)
+    flops = train_flops_per_step(ff)
     peak = BF16_FLOPS if compute == "bf16" else FP32_FLOPS
     for mode in ("eager", "captured"):
         r = res[mode]
@@ -2391,8 +2491,8 @@ def zoo_train(device, card: str, kind: str, compute: str, steps: int = 3,
     was = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        gate = eager_and_captured(ff, xs, y, ZOO_BATCH, steps, warmup, label,
-                                  measure=False)
+        gate = eager_and_captured(ff, fit_steps(ff, xs, y, ZOO_BATCH),
+                                  steps, warmup, label, measure=False)
     finally:
         torch.backends.cudnn.deterministic = was
     ltol, ptol = GRAPH_TOL[compute]
@@ -2419,6 +2519,356 @@ def zoo_phase(device, card: str, profile: bool = False) -> dict:
                                        profile=profile)
             for kind, compute in ZOO_RUNS}
     return dict(gates=gates, runs=runs)
+
+
+# ----------------------------------------------------------------- seq phase
+# the recurrent and MoE models and the Transformer family at their
+# published widths (phase 9). The MoE MLP of moe.cc: batch 64, MNIST's 784
+# inputs, 8 experts, top 2, expert hidden 64, capacity factor 2.0, the
+# load-balance weight 0.04
+SEQ_MOE = dict(batch_size=64, in_dim=784, num_classes=10, num_exp=8,
+               num_select=2, expert_hidden=64, alpha=2.0, lambda_bal=0.04)
+SEQ_RUNS = ("transformer", "nmt", "moe", "moe_experts")
+# the decoder's logits must reach this for E2E_ATOL to see its attention
+DECODER_MIN_LOGIT = 0.1
+# the decoder's decode attention: 16 heads of d64 (the kernel phase's
+# GPT-2 shape has 12)
+DECODER_HEADS = 16
+# gate (a): the card against the CPU, fp32, one step from the same weights
+# and batch (batch 2; the MoE MLP at its batch of 64): the loss within
+# 1e-4 relative, every dense, attention, LSTM and experts node alone within
+# 1e-4 relative norm (``op_errors``), and the whole step's grads within
+# 1e-4 where no ReLU output changes sides (``relu_side_flips``). The proxy
+# runs it with its layer norms on (``SEQ_CPU_LAYERNORM``): without them
+# its activations shrink about 25x a layer at the seed's weights (the
+# port's CPU path reads 8.6e-3 after layer 0 and 2.2e-18 after layer 11),
+# so its loss sits at ln 2, its query and key grads past layer 0 are zero
+# or below fp32's normal range and the check would see little of
+# attention; the timed run keeps the reference's proxy, without them
+SEQ_CPU_BATCH = {"moe": 64, "moe_experts": 64}
+SEQ_CPU_LAYERNORM = ("transformer",)
+SEQ_OP_TYPES = ("OP_LINEAR", "OP_MULTIHEAD_ATTENTION", "OP_LSTM",
+                "OP_EXPERTS")
+# a router row whose top-3 gate probabilities lie within this of each
+# other may order its top 2 otherwise on the two sides (rounding alone);
+# the MoE dispatch (dest, keep) is compared as integers on every token
+# before the first such row that differs
+GATE_MARGIN = 1e-6
+# kernel classes of a phase-9 step's profile, first match wins: the flash
+# kernels (B1, B2), Adam's foreach passes, GEMMs, the MoE dispatch
+# (cumsum, index_add, gathers), elementwise passes (in NMT chiefly the
+# LSTM's gate arithmetic: sigmoid, tanh, mul, add), then the rest
+SEQ_KERNEL_CLASSES = (
+    ("flash", ("flash",)),
+    ("adam", ("foreach", "multi_tensor")),
+    ("gemm", ("gemm", "cutlass", "nvjet", "cublas")),
+    ("moe dispatch", ("index", "scan", "cumsum", "gather", "scatter")),
+    ("elementwise", ("elementwise", "sigmoid", "tanh", "mul", "add")),
+)
+
+
+def seq_model(kind: str, device, batch: int = 0, layernorm: bool = False):
+    """A phase-9 model as a user builds it, fp32, random weights from the
+    seed: the OSDI'22 Transformer proxy (``TransformerConfig()``: batch 8,
+    seq 512, hidden 1024, 16 heads, 12 layers, no layer norm; Adam 1e-4),
+    NMT at ``rnn.h``'s widths (``NMTConfig()``: batch 64, vocab 32000 /
+    32000, embed and hidden 1024, 2 layers, source and target 40; Adam
+    1e-3), or the MoE MLP of ``moe.cc`` (``SEQ_MOE``; Adam 1e-3) built
+    with ``moe`` (``build_moe_mlp``) or with ``moe_experts`` in its place.
+    ``batch`` overrides the batch; ``layernorm`` turns the proxy's layer
+    norms on. Returns (model, its config)."""
+    from flexflow_tpu_torch import (ActiMode, AdamOptimizer, FFConfig,
+                                    FFModel, LossType)
+    from flexflow_tpu_torch.models import (NMTConfig, TransformerConfig,
+                                           build_moe_mlp, build_nmt,
+                                           build_transformer)
+
+    if kind == "transformer":
+        cfg, alpha = TransformerConfig(use_layernorm=layernorm), 1e-4
+    elif kind == "nmt":
+        cfg, alpha = NMTConfig(), 1e-3
+    else:
+        cfg, alpha = types.SimpleNamespace(**SEQ_MOE), 1e-3
+    cfg.batch_size = batch or cfg.batch_size
+    config = FFConfig()
+    config.batch_size, config.seed = cfg.batch_size, SEED
+    config.profiling, config.print_freq = True, 10 ** 6
+    ff = FFModel(config, device=device)
+    if kind == "transformer":
+        build_transformer(ff, cfg)
+    elif kind == "nmt":
+        build_nmt(ff, cfg)
+    elif kind == "moe":
+        build_moe_mlp(ff, **vars(cfg))
+    else:
+        x = ff.create_tensor((cfg.batch_size, cfg.in_dim), name="moe_input")
+        t = ff.dense(x, 64, ActiMode.AC_MODE_RELU)
+        t = ff.moe_experts(t, cfg.num_exp, cfg.num_select, cfg.expert_hidden,
+                           alpha=cfg.alpha, lambda_bal=cfg.lambda_bal)
+        ff.softmax(ff.dense(t, cfg.num_classes))
+    ff.compile(optimizer=AdamOptimizer(ff, alpha=alpha),
+               loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY)
+    return ff, cfg
+
+
+def seq_data(kind: str, cfg, n: int, seed: int = SEED):
+    """``n`` samples from the seed: the proxy's inputs normal with labels
+    over its 2 classes; NMT's source and target tokens uniform over the
+    vocabularies and its labels flattened (n * tgt_len,); the MoE MLP's
+    inputs normal with labels over 10 classes. Returns (xs, y)."""
+    rng = np.random.default_rng(seed)
+    if kind == "transformer":
+        x = rng.standard_normal((n, cfg.seq_len, cfg.hidden),
+                                dtype=np.float32)
+        return [x], rng.integers(0, 2, (n, 1)).astype(np.int32)
+    if kind == "nmt":
+        src = rng.integers(0, cfg.src_vocab, (n, cfg.src_len)).astype(
+            np.int32)
+        tgt = rng.integers(0, cfg.tgt_vocab, (n, cfg.tgt_len)).astype(
+            np.int32)
+        y = rng.integers(0, cfg.tgt_vocab, (n * cfg.tgt_len,)).astype(
+            np.int32)
+        return [src, tgt], y
+    x = rng.standard_normal((n, cfg.in_dim)).astype(np.float32)
+    return [x], rng.integers(0, cfg.num_classes, (n, 1)).astype(np.int32)
+
+
+def moe_dispatch_check(ff, card_vals: dict, cpu_vals: dict) -> dict:
+    """The router's choices and the dispatch on the card against the CPU
+    forward's: the rows whose top-3 gate probabilities lie within
+    ``GATE_MARGIN`` (where rounding may reorder the top 2), the rows whose
+    assignment differs (fails unless each is such a row), and (dest, keep)
+    of every token before the first differing row, computed on the card
+    from the card's assignment and on the CPU from the CPU's, equal as
+    integers."""
+    import torch
+
+    from flexflow_tpu_torch import OperatorType
+    from flexflow_tpu_torch.ops.moe_ops import dispatch_indices
+
+    nodes = {n.op.op_type: n for n in ff.pcg.compute_nodes()}
+    topk, group = nodes[OperatorType.OP_TOPK], nodes[OperatorType.OP_GROUP_BY]
+    gate = ff.pcg.nodes[topk.inputs[0][0]].name
+    probs = cpu_vals[gate][0]
+    k = topk.op.attrs["k"]
+    top = probs.topk(k + 1, dim=-1).values
+    margin = (top[:, :-1] - top[:, 1:]).min(dim=-1).values
+    near = margin <= GATE_MARGIN
+    a_card, a_cpu = card_vals[topk.name][1], cpu_vals[topk.name][1]
+    differ = (a_card != a_cpu).any(dim=-1)
+    if bool((differ & ~near).any()):
+        fail(f"moe dispatch: the router's choice differs at rows "
+             f"{torch.nonzero(differ & ~near).flatten().tolist()} whose "
+             f"gate margin exceeds {GATE_MARGIN}")
+    rows = int(torch.nonzero(differ)[0]) if bool(differ.any()) \
+        else a_cpu.shape[0]
+    n = group.op.attrs["n"]
+    cap = group.out_shapes[0][-2]
+    dc, kc = dispatch_indices(a_cpu[:rows].reshape(-1), n, cap)
+    dg, kg = dispatch_indices(a_card[:rows].reshape(-1).to(ff.device), n,
+                              cap)
+    if not (torch.equal(dg.cpu(), dc) and torch.equal(kg.cpu(), kc)):
+        fail("moe dispatch: (dest, keep) on the card differ from the CPU's")
+    return dict(near_rows=int(near.sum()), differ_rows=int(differ.sum()),
+                tokens=int(dc.numel()), dropped=int((~kc).sum()),
+                capacity=cap)
+
+
+def seq_card_vs_cpu(device, card: str, kind: str) -> dict:
+    """Gate (a) for a phase-9 model (``SEQ_CPU_BATCH``,
+    ``SEQ_CPU_LAYERNORM``, ``SEQ_OP_TYPES``; the zoo's ``ZOO_CPU_TOL``):
+    one fp32 training step on the card and through the port's CPU path
+    from the same weights and batch. The MoE MLPs add
+    :func:`moe_dispatch_check`."""
+    import torch
+
+    batch = SEQ_CPU_BATCH.get(kind, 2)
+    ln = kind in SEQ_CPU_LAYERNORM
+    label = f"seq {kind} card vs cpu"
+    ff, _ = seq_model(kind, device, batch, ln)
+    cpu, cfg = seq_model(kind, torch.device("cpu"), batch, ln)
+    cpu.set_params_numpy(ff.get_params_numpy())
+    xs, y = seq_data(kind, cfg, batch, seed=SEED + 1)
+    lab = ff._prep_label(y)
+    xs_dev = [torch.from_numpy(a).to(device) for a in xs]
+    xs_cpu = [torch.from_numpy(a) for a in xs]
+    t = time.perf_counter()
+    lc, _, gc = cpu.executor.loss_and_grads(cpu.params, xs_cpu,
+                                            torch.from_numpy(lab))
+    vals = op_outputs(cpu, xs_cpu)
+    cpu_s = time.perf_counter() - t
+    loss, _, g = ff.executor.loss_and_grads(
+        ff.params, xs_dev, torch.from_numpy(lab).to(device))
+    g = {n: {w: v.cpu() for w, v in ws.items()} for n, ws in g.items()}
+    dl = abs(float(loss) - float(lc)) / max(abs(float(lc)), 1e-30)
+    worst, where, glob = grad_errors(g, gc, set())
+    card_vals = op_outputs(ff, xs_dev)
+    flips, total = relu_side_flips(card_vals, vals)
+    op_worst, op_where, n_ops = op_errors(ff, cpu, vals, SEQ_OP_TYPES)
+    disp = (moe_dispatch_check(ff, card_vals, vals)
+            if kind.startswith("moe") else None)
+    tol = ZOO_CPU_TOL
+    log(f"{label}: batch {batch}, fp32{', layer norm' if ln else ''}: loss "
+        f"{float(lc):.6g}, relative difference {dl:.3g} (tol {tol}); "
+        f"{n_ops} dense/attention/LSTM/experts nodes alone: "
+        f"worst relative norm error {op_worst:.3g} ({op_where}; tol {tol}); "
+        f"whole step: ReLU outputs on opposite sides of 0 {flips} of "
+        f"{total}, worst grad relative norm error {worst:.3g} ({where}; tol "
+        f"{tol} {'applied' if flips == 0 else 'not applied: kinks'}), all "
+        f"grads {glob:.3g}"
+        + (f"; dispatch: {disp['tokens']} tokens (capacity "
+           f"{disp['capacity']}, {disp['dropped']} dropped) equal as "
+           f"integers, {disp['near_rows']} router rows within a gate "
+           f"margin of {GATE_MARGIN}, {disp['differ_rows']} rows routed "
+           "otherwise" if disp else "")
+        + f"; CPU step and forward {cpu_s:.1f} s [{card}]")
+    if not (dl <= tol and op_worst <= tol and (flips or worst <= tol)):
+        fail(f"{label}: the card's fp32 step disagrees with the CPU's")
+    del ff, cpu
+    torch.cuda.empty_cache()
+    return dict(loss_rel_diff=dl, op_worst=op_worst, worst_grad=worst,
+                all_grads=glob, relu_flips=flips, dispatch=disp)
+
+
+def seq_train(device, card: str, kind: str, steps: int = 3, warmup: int = 2,
+              profile: bool = False) -> dict:
+    """A phase-9 model at its published widths (:func:`seq_model`):
+    ``warmup`` steps (the eager first step and the capture) then
+    ``steps`` replays, once with the eager body and once captured, through
+    ``fit`` (NMT through ``make_train_step``). Prints p50 step ms,
+    samples/s (NMT: target tokens/s), MFU against 67 TF/s from the graph's
+    op FLOPs, idle share by CUDA events around one replay, host launch
+    calls and peak memory each way, and the captured-vs-eager difference
+    after the run, held to ``GRAPH_TOL``. The proxy's step must launch
+    the fp32 flash forward and the fused backward once per layer."""
+    import torch
+
+    from flexflow_tpu_torch.models import train_flops_per_step
+
+    label = f"seq train {kind} fp32"
+    t = time.perf_counter()
+    ff, cfg = seq_model(kind, device)
+    batch = ff.config.batch_size
+    xs, y = seq_data(kind, cfg, batch * (warmup + steps))
+    n_params = sum(v.numel() for ws in ff.params.values()
+                   for v in ws.values())
+    log(f"{label}: {len(ff._layers)} layers, {n_params} params, inputs "
+        f"{[tuple(t.dims) for t in ff._input_tensors]}, built in "
+        f"{time.perf_counter() - t:.1f} s")
+    if kind == "nmt":
+        per = cfg.tgt_len
+        batches = [([torch.from_numpy(a[i * batch:(i + 1) * batch]).to(device)
+                     for a in xs],
+                    torch.from_numpy(ff._prep_label(
+                        y[i * batch * per:(i + 1) * batch * per])).to(device))
+                   for i in range(warmup + steps)]
+        run_steps = train_step_steps(ff, batches)
+        unit, per_step = "target tokens/s", batch * per
+    else:
+        run_steps = fit_steps(ff, xs, y, batch)
+        unit, per_step = "samples/s", batch
+    res = eager_and_captured(ff, run_steps, steps, warmup, label)
+    flops = train_flops_per_step(ff)
+    for mode in ("eager", "captured"):
+        r = res[mode]
+        s = r["p50_ms"] / 1e3
+        log(f"{label} {mode}: losses {[round(v, 4) for v in r['losses']]}, "
+            f"{per_step / s:.2f} {unit}, {flops / s / 1e12:.2f} TFLOP/s = "
+            f"MFU {flops / s / FP32_FLOPS:.4f} of 67 TF/s; "
+            f"{mode_line(r, steps, warmup)}; flash launches a step "
+            f"{r['counts']} [{card}]")
+    e, c = res["eager"], res["captured"]
+    ltol, ptol = GRAPH_TOL["fp32"]
+    log(f"{label}: after {warmup + steps} steps, captured vs eager: max "
+        f"relative loss difference {res['loss_rel_diff']:.3g} (tol {ltol}), "
+        f"param relative norm difference {res['param_rel_diff']:.3g} (tol "
+        f"{ptol}); p50 {e['p50_ms']:.3f} -> {c['p50_ms']:.3f} ms "
+        f"({e['p50_ms'] / c['p50_ms']:.2f}x); {flops / 1e9:.1f} GFLOP a "
+        f"step [{card}]")
+    if not (res["loss_rel_diff"] <= ltol and res["param_rel_diff"] <= ptol):
+        fail(f"{label}: captured and eager steps disagree")
+    want = ({"flash_fwd": cfg.num_layers, "flash_bwd_fused": cfg.num_layers}
+            if kind == "transformer" else {})
+    for mode in ("eager", "captured"):
+        if res[mode]["counts"] != want:
+            fail(f"{label} {mode}: flash launches a step "
+                 f"{res[mode]['counts']}, want {want}")
+    if profile:
+        if kind == "nmt":
+            xs0, lab0 = batches[0]
+            step = ff.executor.make_train_step()
+            run = lambda: step(ff.params, ff.opt_state, xs0, lab0,  # noqa
+                               None)
+        else:
+            run = lambda: ff.fit([a[:batch] for a in xs], y[:batch],  # noqa
+                                 epochs=1)
+        profile_classes(run, f"seq {kind} fp32", c["p50_ms"] / 1e3,
+                        SEQ_KERNEL_CLASSES)
+    del ff
+    torch.cuda.empty_cache()
+    return dict(res, flops=flops)
+
+
+def seq_serve(device, card: str, prompt_set: dict) -> dict:
+    """The proxy's causal decoder (``build_transformer_decoder`` at
+    ``TransformerConfig()``'s widths with its layer norms on, the
+    builder's vocabulary of 256, fp32, 8 slots) serves the e2e prompts
+    through ``FFModel.generate``, eager and captured (:func:`graph_serve`:
+    streams token-identical, 12 flash-decode launches a decode step,
+    ``decode_compiles == 1``); then request 0's teacher-forced prefill and
+    decode logits against the whole-sequence plain forward within
+    ``E2E_ATOL``. Layer norm keeps the logits of order 1: without it the
+    block stack shrinks its activations about 25x a layer at random
+    weights and the logits fall to ~1e-17, where an absolute bound of
+    1e-4 would pass any attention output. The check fails if the logits
+    are not at least ``DECODER_MIN_LOGIT`` large."""
+    import torch
+
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.models import (TransformerConfig,
+                                           build_transformer_decoder)
+
+    cfg = TransformerConfig(use_layernorm=True)
+    config = FFConfig()
+    config.batch_size, config.seed = cfg.batch_size, SEED
+    config.max_decode_len = prompt_set["max_len"]
+    config.max_inflight = 8
+    t = time.perf_counter()
+    ff = FFModel(config, device=device)
+    build_transformer_decoder(ff, cfg)
+    ff.compile()
+    label = "seq serve decoder fp32"
+    log(f"{label}: hidden {cfg.hidden} heads {cfg.num_heads} layers "
+        f"{cfg.num_layers}, layer norm, built in "
+        f"{time.perf_counter() - t:.1f} s")
+    res = graph_serve(device, card, cfg, "native", **prompt_set, model=ff,
+                      label=label)
+    seq, plen = res.pop("stream0")
+    err, logits = decode_vs_forward(ff, seq, plen, 8, prompt_set["max_len"],
+                                    ff.config.kv_block_size)
+    scale = logits.abs().max().item()
+    log(f"{label}: prefill + decode logits vs whole-sequence plain forward "
+        f"max |diff| {err:.3g} (atol {E2E_ATOL['fp32']}), largest |logit| "
+        f"{scale:.4g} (at least {DECODER_MIN_LOGIT}) [{card}]")
+    if not scale >= DECODER_MIN_LOGIT:
+        fail(f"{label}: logits of at most {scale} leave the check blind")
+    if not err <= E2E_ATOL["fp32"]:
+        fail(f"{label}: serving logits differ from the plain forward by "
+             f"{err}")
+    del ff
+    torch.cuda.empty_cache()
+    return dict(res, forward_err=err, logit_scale=scale)
+
+
+def seq_phase(device, card: str, prompt_set: dict,
+              profile: bool = False) -> dict:
+    """Gate (a) for each model, the timed runs of ``SEQ_RUNS``, then the
+    decoder's serving."""
+    gates = {kind: seq_card_vs_cpu(device, card, kind) for kind in SEQ_RUNS}
+    runs = {kind: seq_train(device, card, kind, profile=profile)
+            for kind in SEQ_RUNS}
+    return dict(gates=gates, runs=runs,
+                serve=seq_serve(device, card, prompt_set))
 
 
 def main() -> None:
@@ -2454,6 +2904,10 @@ def main() -> None:
     dprops = decode_props()
     kern = kernel_phase(device, card)
     kern_int8 = kernel_phase(device, card, int8=True)
+    # B5 at the Transformer decoder's shape (fp32, 8 slots, 16 heads, d64,
+    # 16-token blocks, 32 blocks a slot: its engine's at max_decode_len 512)
+    kern_dec = kernel_phase(device, card, dtypes=("fp32",),
+                            heads=DECODER_HEADS)
     topk_kern = topk_kernel_phase(device, card)
     sm_kern = softmax_kernel_phase(device, card)
     cfg = GPT2Config.small()
@@ -2488,6 +2942,7 @@ def main() -> None:
     }
     graph_phase(device, card, cfg, prompt_set)
     zoo_phase(device, card, profile=profile)
+    seq = seq_phase(device, card, prompt_set, profile=profile)
 
     kernels = []
     for compute, name in (("fp32", "flash_decode"),
@@ -2501,6 +2956,17 @@ def main() -> None:
             **kern[compute],
             **dprops[name],
         })
+    # the Transformer decoder's B5: the fp32 instance at 16 heads, timed
+    # there, with the captured serving run's launches
+    kernels.append({
+        "name": "flash_decode_decoder",
+        "route": "cuda",
+        "source": "flexflow_tpu_torch/kernels/csrc/flash_decode.cu",
+        "replaces": "flexflow_tpu/kernels/flash_decode.py:54",
+        "launches": seq["serve"]["captured"]["launches"],
+        **kern_dec["fp32"],
+        **dprops["flash_decode"],
+    })
     # each flash-attention kernel at the shape and dtype of the training
     # path that launched it, one entry a shape, with that path's launches
     for name, kernel, shape, dname, paths in (
@@ -2529,6 +2995,20 @@ def main() -> None:
             # the Hopper instance this shape runs: SASS census, registers,
             # spills, shared memory
             **census.get((kernel, dname, FA_SHAPES[shape]["d"]), {}),
+        })
+    # the OSDI'22 Transformer proxy's B1 and B2: fp32, b8 h16 s512 d64,
+    # non-causal, the fp32 BERT shape of the kernel phase
+    for name, kernel in (("flash_fwd_transformer", "flash_fwd"),
+                         ("flash_bwd_fused_transformer", "flash_bwd_fused")):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": FA_SOURCE,
+            "replaces": FA_KERNELS[kernel][0],
+            "launches": seq["runs"]["transformer"]["captured"]["totals"][
+                kernel],
+            **fa_kern[(kernel, "bert", "fp32")],
+            **census.get((kernel, "fp32", FA_SHAPES["bert"]["d"]), {}),
         })
     for compute, name in (("fp32", "flash_decode_int8"),
                           ("bf16", "flash_decode_int8_bf16")):

@@ -14,7 +14,8 @@ and training on one device — ``compile(optimizer, loss_type, metrics)``,
 flash-attention forward and backward kernels — and the conv, batch-norm,
 elementwise and tensor ops with the vision and recommendation models
 (AlexNet, ResNet-50, InceptionV3, ResNeXt-50, DLRM, XDL, MLP_Unify,
-CANDLE-Uno).
+CANDLE-Uno) — and the LSTM and MoE ops with NMT, the Transformer proxy,
+its causal decoder (served) and the MoE MLP.
 """
 from .config import FFConfig, FFIterationConfig  # noqa: F401
 from .ffconst import (ActiMode, AggrMode, CompMode, DataType,  # noqa: F401

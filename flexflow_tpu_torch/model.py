@@ -7,16 +7,14 @@ device (the reference pipeline's single-device branch: no search, no
 mesh); ``fit`` / ``eval`` / ``predict`` train and run it, and ``generate``
 serves it through the paged-KV ``ServingEngine``. The builders are the
 JAX package's, with its signatures and defaults
-(flexflow_tpu/model.py:118-470), but for the recurrent and MoE ones
-(``lstm``, ``group_by``, ``aggregate``, ``aggregate_spec``, ``cache``,
-``moe``, ``experts``, ``moe_experts``), which raise
-``NotImplementedError`` until their slice lands.
+(flexflow_tpu/model.py:118-470), but for ``cache``, which raises
+``NotImplementedError`` until the dynamic recompile it pairs with lands.
 
 The model runs on ``device`` — CUDA unless the caller asks for the CPU.
 With no GPU and no explicit ``device="cpu"`` the constructor raises: the
 port never drops to the CPU silently. Multi-device strategies, the phase
 API (``forward/backward/update``), checkpointing and resilience, remat,
-telemetry and the builders above come in later slices; their flags raise
+telemetry and the cache op come in later slices; their flags raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -392,52 +390,103 @@ class FFModel:
                                {"dropout": dropout, "causal": causal,
                                 "scale": scale}, q.dtype, name)
 
-    # ---- recurrent and MoE builders (a later slice) ---------------------
-    @staticmethod
-    def _later(builder: str):
-        raise NotImplementedError(
-            f"FFModel.{builder} is {LATER} (the recurrent and MoE ops); "
-            "this slice ports the conv, normalization, elementwise and "
-            "tensor ops")
-
+    # ---- recurrent (reference: nmt/lstm.cu; ops/recurrent.py) -------------
     def lstm(self, input: Tensor, hidden_size: int,
              initial_state: Optional[Tensor] = None,
              name: Optional[str] = None) -> List[Tensor]:
-        self._later("lstm")
+        """LSTM over (batch, seq, dim) -> [(batch, seq, hidden),
+        final_state (batch, 2*hidden)]; ``initial_state`` is [h, c]
+        concatenated (ops/recurrent.py)."""
+        inputs = [input] + ([initial_state] if initial_state is not None
+                            else [])
+        return self._add_layer(OperatorType.OP_LSTM, inputs,
+                               {"hidden_size": hidden_size},
+                               input.dtype, name)
 
+    # ---- MoE (reference: src/ops/moe.cc, group_by.cc, aggregate.cc) --------
     def group_by(self, input: Tensor, assign: Tensor, n: int,
                  alpha: float = 1.0, name=None) -> List[Tensor]:
-        self._later("group_by")
+        outs = self._add_layer(OperatorType.OP_GROUP_BY, [input, assign],
+                               {"n": n, "alpha": alpha}, input.dtype, name)
+        return outs if isinstance(outs, list) else [outs]
 
     def aggregate(self, gate_preds: Tensor, gate_assign: Tensor,
                   true_gate_assign: Tensor, full_gate_grads: Tensor,
                   exp_preds: List[Tensor], n: int, lambda_bal: float = 0.0,
                   name=None) -> Tensor:
-        self._later("aggregate")
+        ins = [gate_preds, gate_assign, true_gate_assign, full_gate_grads] + \
+            list(exp_preds)
+        return self._add_layer(OperatorType.OP_AGGREGATE, ins,
+                               {"n": n, "lambda_bal": lambda_bal},
+                               exp_preds[0].dtype, name)
 
     def aggregate_spec(self, gate_preds, gate_assign, true_gate_assign,
                        full_gate_grads, exp_preds: List[Tensor], n: int,
                        lambda_bal: float = 0.0, name=None) -> Tensor:
-        self._later("aggregate_spec")
+        ins = [gate_preds, gate_assign, true_gate_assign, full_gate_grads] + \
+            list(exp_preds)
+        return self._add_layer(OperatorType.OP_AGG_SPEC, ins,
+                               {"n": n, "lambda_bal": lambda_bal},
+                               exp_preds[0].dtype, name)
 
     def cache(self, input: Tensor, num_batches: int, score_fn=None,
               name=None):
-        self._later("cache")
+        raise NotImplementedError(
+            f"FFModel.cache is {LATER}: the cache op pairs with the "
+            "dynamic recompile (recompile_state=)")
+
+    def _moe_gate(self, input: Tensor, num_exp: int, num_select: int):
+        """The router of ``moe`` and ``moe_experts``: gate dense ->
+        softmax -> top_k, as the JAX builders build it (neither opts the
+        softmax or the top-k into its kernel)."""
+        gate = self.dense(input, num_exp, name="moe_gate")
+        gate = self.softmax(gate)
+        values, assign = self.top_k(gate, num_select)
+        return gate, values, assign
 
     def moe(self, input: Tensor, num_exp: int, num_select: int,
             expert_hidden_size: int, alpha: float = 2.0,
             lambda_bal: float = 0.04) -> Tensor:
-        self._later("moe")
+        """Composite MoE layer (reference: FFModel::moe,
+        src/ops/moe.cc:20-45): gate dense -> softmax -> top_k -> group_by
+        -> per-expert dense -> aggregate."""
+        gate, values, assign = self._moe_gate(input, num_exp, num_select)
+        grouped = self.group_by(input, assign, num_exp, alpha)
+        exp_preds = [
+            self.dense(g, expert_hidden_size,
+                       activation=ActiMode.AC_MODE_RELU,
+                       name=f"moe_expert_{i}")
+            for i, g in enumerate(grouped)
+        ]
+        return self.aggregate(values, assign, assign, gate, exp_preds,
+                              num_exp, lambda_bal)
 
     def experts(self, dispatched: Tensor, out_dim: int,
                 activation=ActiMode.AC_MODE_RELU, use_bias: bool = True,
                 name=None) -> Tensor:
-        self._later("experts")
+        """Every expert's dense layer as one batched product over a
+        stacked (n, cap, d) dispatch (ops/moe_ops.py ``ExpertsOp``)."""
+        n = dispatched.dims[0]
+        return self._unary(OperatorType.OP_EXPERTS, dispatched,
+                           {"n": n, "out_dim": out_dim,
+                            "activation": activation, "use_bias": use_bias},
+                           name)
 
     def moe_experts(self, input: Tensor, num_exp: int, num_select: int,
                     expert_hidden_size: int, alpha: float = 2.0,
                     lambda_bal: float = 0.04) -> Tensor:
-        self._later("moe_experts")
+        """``moe`` through the batched Experts op: gate dense -> softmax ->
+        top_k -> stacked group_by -> Experts (one batched product) ->
+        aggregate. The same function as ``moe``."""
+        gate, values, assign = self._moe_gate(input, num_exp, num_select)
+        grouped = self._add_layer(
+            OperatorType.OP_GROUP_BY, [input, assign],
+            {"n": num_exp, "alpha": alpha, "stacked": True},
+            input.dtype, "moe_group_by")
+        exp_out = self.experts(grouped, expert_hidden_size,
+                               name="moe_experts")
+        return self.aggregate(values, assign, assign, gate, [exp_out],
+                              num_exp, lambda_bal)
 
     def constant(self, value, dtype: Optional[DataType] = None, name=None):
         """Frozen host tensor as a graph node (position ids)."""
@@ -472,6 +521,7 @@ class FFModel:
         if self.config.perform_fusion:
             raise NotImplementedError(
                 "--fusion is ported in a later slice; compile without it")
+        self._refuse_compile_options()
         if optimizer is not None:
             self.optimizer = optimizer
         if self.optimizer is None:
@@ -505,6 +555,28 @@ class FFModel:
         self.params = self.executor.init_params(self.config.numpy_seed())
         self.opt_state = self.optimizer.init_state(self.params)
         self._serving_engine = None
+
+    def _refuse_compile_options(self) -> None:
+        """Flags the JAX package acts on at compile on a one-device host
+        (flexflow_tpu/model.py:595-672) and this slice does not: each
+        raises, naming itself, rather than being parsed and ignored."""
+        c = self.config
+        refused = [
+            (bool(c.export_strategy_file), "--export-strategy"),
+            (bool(c.export_strategy_computation_graph_file),
+             "--compgraph (with or without --include-costs-dot-graph)"),
+            (c.search_num_nodes != -1, "--search-num-nodes"),
+            (c.search_num_workers != -1, "--search-num-workers"),
+            (c.mesh_shape is not None, "--mesh-shape"),
+            ((c.static_analysis or "on") == "strict",
+             "--static-analysis strict"),
+            (bool(c.debug_nans), "--debug-nans"),
+        ]
+        for on, flag in refused:
+            if on:
+                raise NotImplementedError(
+                    f"compile: {flag} is {LATER}; this slice compiles for "
+                    "one device with no search, mesh or analysis")
 
     def create_pcg(self):
         """Layer graph -> PCG (reference: create_operators_from_layers,
@@ -817,3 +889,21 @@ class FFModel:
         return (f"FFModel(layers={len(self._layers)}, "
                 f"inputs={len(self._input_tensors)}, device={self.device}, "
                 f"compiled={self.executor is not None})")
+
+
+def train_flops_per_step(ff: FFModel) -> int:
+    """Model FLOPs of one training step of a compiled model: three times
+    the forward FLOPs (forward, input grads, weight grads) of every op
+    that counts its own — convolutions, dense layers, batched matmuls,
+    attention with its projections, LSTMs, experts — each op's
+    ``flops()`` at its compiled shapes. Norms, pooling, activations and
+    the loss are left out, as the matmul count of
+    ``bert_train_flops_per_step`` leaves them out. It reads only the
+    graph, so it serves every model family."""
+    pcg = ff.pcg
+    total = 0
+    for node in pcg.compute_nodes():
+        if hasattr(node.op, "flops"):
+            ins = [pcg.nodes[g].out_shapes[i] for g, i in node.inputs]
+            total += node.op.flops(ins, node.out_shapes)
+    return 3 * total

@@ -6,12 +6,11 @@ examples/cpp/InceptionV3/inception.cc, examples/cpp/resnext50/resnext.cc,
 bootcamp_demo/ff_alexnet_cifar10.py): the same FFModel builder calls in
 the same order build the same layer names and weight layouts (NCHW
 activations, HWIO conv kernels), so parameters carry between the two
-packages 1:1. :func:`vision_train_flops_per_step` counts a training step's
-model FLOPs for MFU.
+packages 1:1.
 """
 from __future__ import annotations
 
-from ..ffconst import ActiMode, OperatorType, PoolType
+from ..ffconst import ActiMode, PoolType
 from ..model import FFModel
 
 
@@ -234,23 +233,3 @@ def build_resnext50(ff: FFModel, batch_size: int = 64, image_size: int = 224,
     t = ff.flat(t)
     t = ff.dense(t, num_classes)
     return x, ff.softmax(t)
-
-
-_COUNTED_OPS = (OperatorType.OP_CONV2D, OperatorType.OP_LINEAR,
-                OperatorType.OP_BATCHMATMUL)
-
-
-def vision_train_flops_per_step(ff: FFModel) -> int:
-    """Model FLOPs of one training step of a compiled model: three times
-    the forward FLOPs (forward, input grads, weight grads) of its
-    convolutions, dense layers and batched matmuls, each op's ``flops()``
-    at its compiled shapes. Norms, pooling, activations and the loss are
-    left out, as the matmul count of ``bert_train_flops_per_step`` leaves
-    them out. It reads only the graph, so it serves DLRM too."""
-    pcg = ff.pcg
-    total = 0
-    for node in pcg.compute_nodes():
-        if node.op.op_type in _COUNTED_OPS:
-            ins = [pcg.nodes[g].out_shapes[i] for g, i in node.inputs]
-            total += node.op.flops(ins, node.out_shapes)
-    return 3 * total

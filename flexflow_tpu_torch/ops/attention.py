@@ -122,6 +122,17 @@ class MultiHeadAttentionOp(Op):
             specs["bo"] = ((embed,), self.data_type, DefaultBiasInitializer())
         return specs
 
+    def flops(self, input_shapes, output_shapes):
+        """The projections and the attention core at the full sequence
+        (a causal mask is not discounted), as the JAX op counts them."""
+        b, sq, _ = input_shapes[0]
+        sk = input_shapes[1][1]
+        embed, heads, kdim, vdim = self._dims()
+        proj = 2 * b * sq * input_shapes[0][-1] * heads * kdim * 3 \
+            + 2 * b * sq * heads * vdim * embed
+        core = 2 * b * heads * sq * sk * (kdim + vdim)
+        return proj + core
+
     def forward(self, params, inputs, ctx: OpContext):
         import torch
 

@@ -149,7 +149,11 @@ class Pool2DOp(Op):
     JAX op's ``reduce_window`` does. Average pooling divides by the
     window's cells inside the input (``count_include_pad=False``): the JAX
     op divides by a window sum of ones over the same padding, where padded
-    cells count 0."""
+    cells count 0. ``F.*_pool2d`` refuse a padding above half the window,
+    which ``reduce_window`` takes: there the input is padded explicitly
+    (``-inf`` for max; zeros for the average's sum, divided by the same
+    window sum over padded ones, as the JAX op divides) and pooled with
+    padding 0."""
 
     def infer_output_shapes(self, input_shapes):
         n, c, h, w = input_shapes[0]
@@ -159,6 +163,7 @@ class Pool2DOp(Op):
         return [(n, c, oh, ow)]
 
     def forward(self, params, inputs, ctx: OpContext):
+        import torch
         import torch.nn.functional as F
 
         (x,) = inputs
@@ -166,11 +171,24 @@ class Pool2DOp(Op):
         kernel = (a["kernel_h"], a["kernel_w"])
         stride = (a["stride_h"], a["stride_w"])
         padding = (a["padding_h"], a["padding_w"])
-        if a.get("pool_type", PoolType.POOL_MAX) == PoolType.POOL_MAX:
-            y = F.max_pool2d(x, kernel, stride, padding)
+        is_max = a.get("pool_type", PoolType.POOL_MAX) == PoolType.POOL_MAX
+        if all(p <= k // 2 for p, k in zip(padding, kernel)):
+            if is_max:
+                y = F.max_pool2d(x, kernel, stride, padding)
+            else:
+                y = F.avg_pool2d(x, kernel, stride, padding,
+                                 count_include_pad=False)
         else:
-            y = F.avg_pool2d(x, kernel, stride, padding,
-                             count_include_pad=False)
+            pad = (padding[1], padding[1], padding[0], padding[0])
+            if is_max:
+                y = F.max_pool2d(F.pad(x, pad, value=float("-inf")),
+                                 kernel, stride)
+            else:
+                s = F.avg_pool2d(F.pad(x, pad), kernel, stride,
+                                 divisor_override=1)
+                cnt = F.avg_pool2d(F.pad(torch.ones_like(x), pad), kernel,
+                                   stride, divisor_override=1)
+                y = s / cnt
         return [apply_activation(y, a.get("activation",
                                           ActiMode.AC_MODE_NONE))]
 

@@ -159,7 +159,10 @@ class TopKOp(Op):
     (``kernels/topk.py``: 1 <= k <= 8, rows a multiple of 128, on CUDA)
     goes through the row top-k kernel, as the JAX op routes to its Pallas
     kernel. Values keep x's dtype; ties go to the lowest index on the
-    kernel route (``torch.topk`` does not specify its order among ties)."""
+    kernel route, as ``lax.top_k`` sends them. ``torch.topk`` does not
+    specify its order among ties, so on that route (the MoE router's,
+    which does not opt in) a tie may pick another expert than JAX does;
+    the parity tests draw gates without ties."""
 
     def infer_output_shapes(self, input_shapes):
         s = input_shapes[0]

@@ -178,6 +178,12 @@ class ServingEngine:
                 getattr(cfg, "shed_policy", "off") != "off":
             raise _later_slice("serving resilience (--request-timeout-ms, "
                                "--shed-policy)")
+        # their defaults are live settings of the JAX loop (the SIGTERM
+        # drain and the decode guard), so only a value given on the
+        # command line is refused
+        for flag in ("--drain-grace-s", "--decode-retry-budget"):
+            if flag in getattr(cfg, "flags_given", ()):
+                raise _later_slice(f"{flag} (serving resilience)")
         self.kv_block_size = int(kv_block_size or
                                  getattr(cfg, "kv_block_size", 16))
         self.prefill_chunk_tokens = int(
@@ -229,6 +235,12 @@ class ServingEngine:
     # ------------------------------------------------------------ validation
     def _validate_graph(self) -> None:
         pcg = self.executor.pcg
+        for node in pcg.compute_nodes():
+            if node.op.op_type == OperatorType.OP_LSTM:
+                raise NotImplementedError(
+                    f"{node.name}: LSTM serving, ported in a later slice "
+                    "of flexflow_tpu_torch (the recurrent carry as decode "
+                    "state); this slice serves causal-attention graphs")
         final = pcg.nodes[self.executor.final_guid]
         out = final.out_shapes[self.executor.final_out_idx]
         if len(out) != 3:

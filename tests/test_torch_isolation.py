@@ -9,8 +9,11 @@
 * Every serving option outside this slice raises ``NotImplementedError``
   naming its flag, whether it comes as an engine argument or through
   ``FFConfig``; none falls back quietly. So does every training option
-  outside this slice, at ``fit``, and every FFModel builder of a later
-  slice (the recurrent and MoE ones), naming itself.
+  outside this slice, at ``fit``, every flag that ``compile`` or the
+  serving engine would otherwise parse and ignore, an LSTM graph in the
+  serving engine, and ``FFModel.cache``, naming itself. The recurrent and
+  MoE builders, which refused by name before their slice, build the same
+  output shapes as the JAX package's.
 """
 import ast
 import os
@@ -58,7 +61,8 @@ def test_importing_every_module_loads_neither_jax_nor_flexflow_tpu():
               "execution.optimizers", "data.dataloader",
               "resilience.preflight", "models.bert", "ops.tensor_ops",
               "ops.conv", "ops.elementwise", "models.vision",
-              "models.dlrm", "models.misc"):
+              "models.dlrm", "models.misc", "ops.recurrent", "ops.moe_ops",
+              "models.nmt", "models.transformer"):
         assert f"flexflow_tpu_torch.{m}" in mods
     script = (
         "import importlib, json, sys\n"
@@ -216,6 +220,33 @@ def test_temperature_sampling_is_reproducible(tiny):
     assert np.asarray(a).shape == (2, 4)
 
 
+@pytest.mark.parametrize("flag", ["--drain-grace-s",
+                                  "--decode-retry-budget"])
+def test_engine_refuses_serving_resilience_flags_given_on_the_command_line(
+        flag):
+    """Their defaults are live settings of the JAX serve loop, so only a
+    value given on the command line is refused (the default engine
+    serves: every other test here builds one)."""
+    ff = _tiny_model()
+    ff.config.parse_args([flag, "3"])
+    with pytest.raises(NotImplementedError, match=LATER) as e:
+        ServingEngine(ff, max_decode_len=32)
+    assert flag in str(e.value)
+
+
+def test_engine_refuses_an_lstm_graph_by_name():
+    c = ft.FFConfig()
+    c.batch_size = 2
+    ff = ft.FFModel(c, device="cpu")
+    ids = ff.create_tensor((2, 16), dtype=ft.DataType.DT_INT32)
+    t, _state = ff.lstm(ff.embedding(ids, 30, 8), 8, name="lm_lstm")
+    ff.dense(t, 30)
+    ff.compile()
+    with pytest.raises(NotImplementedError, match="LSTM serving") as e:
+        ServingEngine(ff, max_decode_len=16)
+    assert "lm_lstm" in str(e.value) and LATER in str(e.value)
+
+
 # ------------------------------------------------ out-of-slice fit options
 def _tiny_mlp(**config):
     c = ft.FFConfig()
@@ -265,6 +296,35 @@ def test_fit_refuses_arguments_of_later_slices(kwarg, flag):
     assert flag in str(e.value)
 
 
+@pytest.mark.parametrize("field,value,flag", [
+    ("export_strategy_file", "strategy.json", "--export-strategy"),
+    ("export_strategy_computation_graph_file", "graph.dot", "--compgraph"),
+    ("include_costs_dot_graph", True, "--compgraph"),
+    ("search_num_nodes", 2, "--search-num-nodes"),
+    ("search_num_workers", 4, "--search-num-workers"),
+    ("mesh_shape", (1,), "--mesh-shape"),
+    ("static_analysis", "strict", "--static-analysis strict"),
+    ("debug_nans", True, "--debug-nans"),
+])
+def test_compile_refuses_config_flags_of_later_slices(field, value, flag):
+    """Flags the JAX package acts on at compile on one device; the port
+    parsed them and did nothing. ``include_costs_dot_graph`` is set with
+    ``--compgraph`` (alone it asks for nothing in either package)."""
+    extra = {"export_strategy_computation_graph_file": "graph.dot"} \
+        if field == "include_costs_dot_graph" else {}
+    with pytest.raises(NotImplementedError, match=LATER) as e:
+        _tiny_mlp(**{field: value}, **extra)
+    assert flag in str(e.value)
+
+
+def test_compile_takes_the_in_slice_defaults():
+    """``--static-analysis on`` (the default) and -1 search sizes compile:
+    JAX runs no analysis and no search on a plain compile either."""
+    ff = _tiny_mlp(static_analysis="on", search_num_nodes=-1,
+                   search_num_workers=-1)
+    assert ff.executor is not None
+
+
 def test_fit_takes_the_in_slice_defaults():
     ff = _tiny_mlp(remat="none", collective_overlap="off")
     perf = ff.fit(*_xy(), epochs=1)
@@ -289,14 +349,7 @@ def test_softmax_kernel_opt_in_is_refused():
 
 # ------------------------------------------- builders of a later slice
 @pytest.mark.parametrize("builder,args", [
-    ("lstm", lambda x: (x, 8)),
-    ("group_by", lambda x: (x, x, 2)),
-    ("aggregate", lambda x: (x, x, x, x, [x], 2)),
-    ("aggregate_spec", lambda x: (x, x, x, x, [x], 2)),
     ("cache", lambda x: (x, 4)),
-    ("moe", lambda x: (x, 4, 2, 8)),
-    ("experts", lambda x: (x, 8)),
-    ("moe_experts", lambda x: (x, 4, 2, 8)),
 ])
 def test_builders_of_later_slices_refuse_by_name(builder, args):
     ff = ft.FFModel(ft.FFConfig(), device="cpu")
@@ -305,6 +358,43 @@ def test_builders_of_later_slices_refuse_by_name(builder, args):
         getattr(ff, builder)(*args(x))
     assert f"FFModel.{builder} " in str(e.value)
     assert len(ff._layers) == 0
+
+
+def _build_recurrent_and_moe(builder, ff, pkg):
+    """``builder`` of the recurrent and MoE slice called the same way in
+    either package; returns its output tensors."""
+    x = ff.create_tensor((4, 8))
+    ints = pkg.DataType.DT_INT32
+    if builder == "lstm":
+        return ff.lstm(ff.create_tensor((4, 5, 8)), 6,
+                       initial_state=ff.create_tensor((4, 12)))
+    if builder == "group_by":
+        return ff.group_by(x, ff.create_tensor((4, 2), ints), 2, alpha=1.5)
+    if builder in ("aggregate", "aggregate_spec"):
+        assign = ff.create_tensor((4, 2), ints)
+        exps = [ff.create_tensor((6, 3)) for _ in range(2)]
+        return [getattr(ff, builder)(ff.create_tensor((4, 2)), assign,
+                                     assign, ff.create_tensor((4, 2)),
+                                     exps, 2, lambda_bal=0.1)]
+    if builder == "experts":
+        return [ff.experts(ff.create_tensor((4, 6, 8)), 5)]
+    return [getattr(ff, builder)(x, 4, 2, 8)]
+
+
+@pytest.mark.parametrize("builder", [
+    "lstm", "group_by", "aggregate", "aggregate_spec", "moe", "experts",
+    "moe_experts"])
+def test_builders_of_this_slice_build_the_jax_shapes(builder):
+    """The recurrent and MoE builders, which refused by name before this
+    slice (one case each, as there), build the same
+    output shapes and dtypes as the JAX package's builders."""
+    import flexflow_tpu as fj
+
+    got = _build_recurrent_and_moe(builder, ft.FFModel(ft.FFConfig(),
+                                                       device="cpu"), ft)
+    want = _build_recurrent_and_moe(builder, fj.FFModel(fj.FFConfig()), fj)
+    assert [t.dims for t in got] == [t.dims for t in want]
+    assert [t.dtype.name for t in got] == [t.dtype.name for t in want]
 
 
 def test_every_jax_builder_exists_in_the_port():

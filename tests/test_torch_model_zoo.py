@@ -85,7 +85,7 @@ def test_vision_train_flops_counts_conv_dense_and_bmm():
     convs = [(3, 64, 32), (64, 192, 16), (192, 384, 8), (384, 256, 8)]
     want = sum(2 * 2 * co * hw * hw * ci * 9 for ci, co, hw in convs)
     want += 2 * 2 * (256 * 4 * 4 * 512 + 512 * 10)
-    assert tv.vision_train_flops_per_step(ff) == 3 * want
+    assert ft.models.train_flops_per_step(ff) == 3 * want
 
 
 def test_alexnet_cifar10_loss_falls_through_fit():

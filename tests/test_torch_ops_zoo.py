@@ -242,6 +242,10 @@ POOL_CASES = {
     # InceptionV3's branch pool: padded cells must not count
     "avg_3x3_s1_p1": _pool(3, 3, 1, 1, 1, 1, "POOL_AVG"),
     "avg_global": _pool(7, 7, 1, 1, 0, 0, "POOL_AVG"),
+    # padding above half the window, which F.*_pool2d refuse and
+    # reduce_window takes: the op pads explicitly
+    "max_3x3_s1_p2": _pool(3, 3, 1, 1, 2, 2),
+    "avg_3x3_s1_p2": _pool(3, 3, 1, 1, 2, 2, "POOL_AVG"),
 }
 
 
