@@ -5,12 +5,16 @@
 
 Run from the root of a checkout, on a host with a CUDA GPU and nvcc. It
 drives the PyTorch port only (it imports neither jax nor flexflow_tpu).
-On CUDA the port's train step and decode step are captured programs
+On CUDA the port's train step and its serving steps (prefill per
+bucket, chunk prefill per chunk shape, decode, the sampler per
+(temperature, top_k), the slot writes) are captured programs
 (``execution/graphs.py``): a shape's first step runs eagerly, its second
 is captured as a CUDA graph, later ones replay it, and each replay adds
 the captured launches to the kernels' launch counts. Every training and
 serving phase below runs them so; their warm-ups take the eager step and
-the capture:
+the capture (a serving engine is warmed by two generates of prompts of
+the timed prompts' shapes and other tokens, ``warm_serving``, so the
+timed generate only replays):
 
 1. build — compiles every CUDA kernel of the port from ``csrc/`` (one
    nvcc per source, all started together) and prints the build seconds
@@ -62,10 +66,14 @@ the capture:
    temperature 0.8 with top_k 8 and with top_k 1, and once with native KV,
    each on a fresh engine with the launch counts reset before and read
    after. Asserted: 12 int8 flash-decode launches per decode step, one
-   top-k launch per sampler call (prefills plus decode steps), the top_k 1
-   streams equal to the greedy ones, and teacher-forced int8 decode logits
+   top-k launch per sampler call (prefills plus decode steps; the
+   sampler is a captured program with B7 inside), the top_k 1 streams
+   equal to the greedy ones, and teacher-forced int8 decode logits
    inside a stated band of native KV's with the greedy argmax agreeing on
-   at least 0.9 of the steps. It prints tokens/s, p50/p99 ms per token and
+   at least 0.9 of the steps; then the captured sampler on the card
+   against the same sampler on CPU tensors over those logits (top_k 8
+   and 1, temperature 0.8, the same (seed, tag, count)): tokens equal
+   outside ``SAMPLER_TIE_MARGIN``. It prints tokens/s, p50/p99 ms per token and
    ``kv_bytes_per_token`` of int8 beside native; ``--profile`` profiles
    the greedy int8 run;
 5. flash attention — holds the forward (B1), fused backward (B2) and
@@ -118,11 +126,18 @@ the capture:
    host kernel- and graph-launch calls, peak memory; losses and params
    after the run within ``GRAPH_TOL``, flash launches a step equal);
    GPT-2 small (fp32) serves the e2e prompts with native and with int8
-   KV, eager and captured on fresh engines (greedy streams
-   token-identical, flash-decode launches a step equal, ``decode_compiles
-   == 1``, teacher-forced logits within ``E2E_ATOL``; tokens/s, p50/p99
-   per-token ms, idle share and launch calls of the same generate under
-   the profiler); and a BERT-like model (BERT-Large's widths, 2 layers,
+   KV in three modes on fresh warmed engines — eager bodies, captured
+   programs under the sync loop, captured under ``--serve-loop async``
+   (greedy streams token-identical, flash-decode launches a step equal,
+   ``decode_compiles == 1`` and no program capturing in the timed and
+   profiled generates, ``host_syncs`` equal to the decode steps (async:
+   at most), ``host_overlap_s > 0`` async, at most 10 kernel launch
+   calls a scheduler action captured, teacher-forced logits within
+   ``E2E_ATOL``; tokens/s, p50/p99 per-token ms, peak memory, the host
+   split, and the idle share and launch calls of a generate of the same
+   shapes under the profiler, beside the 3910 / 32 of the decode step
+   captured alone); and a BERT-like
+   model (BERT-Large's widths, 2 layers,
    attention dropout 0.1) holds one captured step against one eager step
    from the same generator and fails if a second replay's loss equals the
    first's (the mask did not move);
@@ -174,7 +189,7 @@ the capture:
    must launch the fp32 flash forward (B1) and fused backward (B2) 12
    times each. Last, the proxy's causal decoder
    (``build_transformer_decoder``, vocab 256, layer norms on) serves the
-   e2e prompts eager and captured: streams token-identical, 12
+   e2e prompts in the same three modes: streams token-identical, 12
    flash-decode (B5) launches a decode step, ``decode_compiles == 1``,
    teacher-forced logits of order 1 against the whole-sequence forward
    within ``E2E_ATOL``; tokens/s and p50/p99 ms a token. ``--profile`` adds one profiled step
@@ -791,8 +806,9 @@ def build_model(cfg, compute: str, device, max_decode_len: int):
     return ff
 
 
-def make_prompts(vocab: int, lengths, shared_len: int, n_shared: int):
-    rng = np.random.default_rng(SEED + 1)
+def make_prompts(vocab: int, lengths, shared_len: int, n_shared: int,
+                 seed: int = SEED + 1):
+    rng = np.random.default_rng(seed)
     shared = rng.integers(0, vocab, shared_len).tolist()
     prompts = []
     for i, n in enumerate(lengths):
@@ -802,6 +818,37 @@ def make_prompts(vocab: int, lengths, shared_len: int, n_shared: int):
         else:
             prompts.append(rng.integers(0, vocab, n).tolist())
     return prompts
+
+
+# seeds of the warm-up prompt sets (``warm_serving``) and of the profiled
+# run's (``graph_serve``): the timed prompts' shapes, other tokens
+WARM_SEEDS = (SEED + 101, SEED + 102)
+PROFILE_PROMPT_SEED = SEED + 103
+
+
+def warm_serving(ff, lengths, shared_len: int, n_shared: int,
+                 new_tokens: int, max_len: int, **sampling) -> None:
+    """Warm the model's serving engine (made here if there is none) for a
+    run of ``make_prompts`` at these lengths: two generates of prompt sets
+    of the same shapes and other tokens (so no prefix of the timed prompts
+    is cached), which run every program the timed run will (each prefill
+    bucket, chunk shape, sampler row count and slot write) twice: its
+    eager first call, then its capture. A timed generate after it only
+    replays."""
+    import torch
+
+    vocab = ff.pcg.nodes[ff.executor.final_guid].out_shapes[
+        ff.executor.final_out_idx][-1]
+    for seed in WARM_SEEDS:
+        ff.generate(make_prompts(vocab, lengths, shared_len, n_shared, seed),
+                    max_new_tokens=new_tokens, max_decode_len=max_len,
+                    **sampling)
+    torch.cuda.synchronize()
+
+
+def serving_captures(eng) -> int:
+    """Graphs captured so far by every program of ``eng``'s serving path."""
+    return sum(p.captures for p in eng.programs())
 
 
 def teacher_forced(ff, tokens, prompt_len: int, steps: int, max_len: int,
@@ -876,9 +923,10 @@ def decode_vs_forward(ff, tokens, prompt_len: int, steps: int,
 
 
 def profile_generate(ff, compute: str, prompts, new_tokens: int,
-                     max_len: int, wall_s: float) -> None:
-    """``--profile``: the timed generate once more, on a fresh engine (same
-    prefix-cache state, so the same work) under ``torch.profiler``. Prints
+                     max_len: int, wall_s: float, prompt_set: dict) -> None:
+    """``--profile``: the timed generate once more, on a fresh engine
+    warmed up as the timed one (``warm_serving`` on ``prompt_set``, so the
+    same work) under ``torch.profiler``. Prints
     the card's busy time (the sum of kernel times) against the unprofiled
     run's wall and writes the kernels by total time to
     ``chiprun_out/profile_<compute>.txt``."""
@@ -889,8 +937,7 @@ def profile_generate(ff, compute: str, prompts, new_tokens: int,
     from torch.profiler import ProfilerActivity, profile
 
     ff._serving_engine = None
-    ff.generate([[1, 2, 3]], max_new_tokens=4, max_decode_len=max_len)
-    torch.cuda.synchronize()
+    warm_serving(ff, **prompt_set)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         ff.generate(prompts, max_new_tokens=new_tokens,
@@ -938,12 +985,12 @@ def e2e_phase(device, card: str, cfg, compute: str, lengths,
         f"layers {cfg.num_layers} vocab {cfg.vocab_size} built in "
         f"{time.perf_counter() - t:.1f} s")
     prompts = make_prompts(cfg.vocab_size, lengths, shared_len, n_shared)
-    # warm-up (cuBLAS handles, the kernel library, allocator pools, the
-    # decode step's capture: its first call runs eagerly, the second
-    # captures) on a prompt too short to enter the prefix cache
-    ff.generate([[1, 2, 3]], max_new_tokens=4, max_decode_len=max_len)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
+    # warm-up (cuBLAS handles, the kernel library, allocator pools, every
+    # serving program's eager first call and capture)
+    prompt_set = dict(lengths=lengths, shared_len=shared_len,
+                      n_shared=n_shared, new_tokens=new_tokens,
+                      max_len=max_len)
+    warm_serving(ff, **prompt_set)
 
     fd.reset_launch_count()
     outs = ff.generate(prompts, max_new_tokens=new_tokens,
@@ -979,7 +1026,7 @@ def e2e_phase(device, card: str, cfg, compute: str, lengths,
         f"[{card}]")
     if profile:
         profile_generate(ff, compute, prompts, new_tokens, max_len,
-                         stats.wall_s)
+                         stats.wall_s, prompt_set)
 
     # teacher-forced check on request 0's prompt and greedy continuation
     seq = prompts[0] + outs[0]
@@ -1023,15 +1070,16 @@ def int8_serving_phase(device, card: str, compute: str, lengths,
         f"{time.perf_counter() - t:.1f} s")
     prompts = make_prompts(cfg.vocab_size, lengths, shared_len, n_shared)
     layers = cfg.num_layers
+    prompt_set = dict(lengths=lengths, shared_len=shared_len,
+                      n_shared=n_shared, new_tokens=new_tokens,
+                      max_len=max_len)
 
     def run(kv_dtype: str, prompts, **sampling):
         ff.config.kv_dtype = kv_dtype
         ff._serving_engine = None
-        # the fresh engine's warm-up: its decode step's eager first call
-        # and capture, on a prompt too short to enter the prefix cache
-        ff.generate([[1, 2, 3]], max_new_tokens=4, max_decode_len=max_len,
-                    **sampling)
-        torch.cuda.synchronize()
+        # the fresh engine's warm-up: every program's eager first call and
+        # capture, so the run samples in the captured sampler
+        warm_serving(ff, **prompt_set, **sampling)
         fd.reset_launch_count()
         tk.reset_launch_count()
         outs = ff.generate(prompts, max_new_tokens=new_tokens,
@@ -1075,7 +1123,7 @@ def int8_serving_phase(device, card: str, compute: str, lengths,
     if profile:
         ff.config.kv_dtype = "int8"
         profile_generate(ff, f"int8_{compute}", prompts, new_tokens, max_len,
-                         runs["greedy"][1].wall_s)
+                         runs["greedy"][1].wall_s, prompt_set)
     greedy = runs["greedy"][0]
     if runs["top1"][0] != greedy:
         fail(f"int8 {compute}: top_k 1 streams differ from the greedy ones")
@@ -1088,7 +1136,7 @@ def int8_serving_phase(device, card: str, compute: str, lengths,
 
     # teacher-forced int8 decode logits against native KV's on the same
     # tokens (the prefill row reads no cache and is left out)
-    errs, agree = [], []
+    errs, agree, rows = [], [], []
     for r in range(forced):
         seq = prompts[r] + greedy[r]
         plen = len(prompts[r])
@@ -1097,6 +1145,7 @@ def int8_serving_phase(device, card: str, compute: str, lengths,
                      for kv in ("int8", "native"))
         if not bool(torch.isfinite(got).all()):
             fail(f"int8 {compute}: non-finite decode logits")
+        rows.append(got.float())
         errs.append((got.float() - want.float()).abs().max().item())
         agree += (got.argmax(-1) == want.argmax(-1)).tolist()
     err, agreement = max(errs), float(np.mean(agree))
@@ -1107,6 +1156,8 @@ def int8_serving_phase(device, card: str, compute: str, lengths,
         f" [{card}]")
     if not (err <= band and agreement >= INT8_ARGMAX_AGREEMENT):
         fail(f"int8 {compute}: int8 logits outside the band of native KV's")
+    sampler = sampler_card_vs_cpu(ff, torch.cat(rows), f"int8 {compute}",
+                                  card)
     res = {k: dict(counts=v[2], decode_steps=v[1].decode_steps,
                    tokens_per_s=v[1].tokens_per_s(),
                    p50_token_ms=v[1].p50_token_ms(),
@@ -1114,9 +1165,64 @@ def int8_serving_phase(device, card: str, compute: str, lengths,
                    kv_bytes_per_token=v[1].kv_bytes_per_token())
            for k, v in runs.items()}
     res["logit_err"], res["agreement"] = err, agreement
+    res["sampler"] = sampler
     del ff
     torch.cuda.empty_cache()
     return res
+
+
+# the sampler on the card against the same sampler on CPU tensors: a row
+# whose two best Gumbel scores are closer than this may flip on a last-ulp
+# difference of log between the devices (scores are of order 10, where an
+# fp32 ulp is 1e-6)
+SAMPLER_TIE_MARGIN = 1e-4
+SAMPLER_TEMPERATURE = 0.8
+
+
+def sampler_card_vs_cpu(ff, logits, label: str, card: str) -> dict:
+    """The captured sampler (the decode step's 8-row program of
+    temperature 0.8, top_k 8 and 1, B7 inside) on ``logits`` rows 8 at a
+    time on the card, against ``draw_tokens`` on the same rows as CPU
+    tensors, with the same (tag, count) rows and seed. Fails unless the
+    tokens are equal in every row whose two best Gumbel scores (on the
+    CPU) are more than ``SAMPLER_TIE_MARGIN`` apart; prints the rows
+    inside the margin."""
+    import torch
+
+    from flexflow_tpu_torch.serving.engine import draw_tokens, gumbel_scores
+
+    eng, dev = ff._serving_engine, ff.device
+    out = {}
+    for k in TOPK_KS:
+        sample = eng._sampler(SAMPLER_TEMPERATURE, k)
+        total, inside = 0, []
+        for b in range(0, logits.shape[0] - SLOTS + 1, SLOTS):
+            x = logits[b:b + SLOTS].contiguous()
+            tc = torch.tensor([(b + r, 3 * r + k) for r in range(SLOTS)],
+                              dtype=torch.int32)
+            seed = torch.tensor([SEED + k], dtype=torch.int32)
+            on_card = sample(x, tc.to(dev), seed.to(dev)).cpu()
+            xc = x.cpu()
+            on_cpu = draw_tokens(xc, tc, seed, SAMPLER_TEMPERATURE, k)
+            score, _ = gumbel_scores(xc, tc, seed, SAMPLER_TEMPERATURE, k)
+            top2 = torch.topk(score, min(2, score.shape[1]), dim=-1).values
+            for r in range(SLOTS):
+                gap = float(top2[r, 0] - top2[r, 1]) if k > 1 \
+                    else float("inf")
+                total += 1
+                if gap <= SAMPLER_TIE_MARGIN:
+                    inside.append((b + r, gap, int(on_cpu[r]),
+                                   int(on_card[r])))
+                elif int(on_cpu[r]) != int(on_card[r]):
+                    fail(f"{label} sampler top_k {k}: row {b + r} draws "
+                         f"{int(on_card[r])} on the card and "
+                         f"{int(on_cpu[r])} on the CPU (score gap {gap})")
+        log(f"{label} sampler top_k {k} card vs cpu: {total} rows at "
+            f"temperature {SAMPLER_TEMPERATURE}, tokens equal outside the "
+            f"tie margin {SAMPLER_TIE_MARGIN}; {len(inside)} rows inside "
+            f"it {inside} [{card}]")
+        out[k] = dict(rows=total, inside_margin=len(inside))
+    return out
 
 
 # ------------------------------------------- flash attention (B1-B4) phase
@@ -1901,20 +2007,40 @@ def rel_norm(got, want) -> float:
     return (num / max(den, 1e-30)) ** 0.5
 
 
+# graph_serve's modes: (name, captured programs, serve loop)
+SERVE_MODES = (("eager", False, "sync"), ("captured", True, "sync"),
+               ("async", True, "async"))
+# GPT-2 small's timed generate with only the decode step captured (eager
+# prefills, chunks, sampler and slot writes; PERF.md section 5): host
+# kernel and graph launch calls
+DECODE_ONLY_LAUNCH_CALLS = (3910, 32)
+# kernel launch calls a scheduler action the captured modes may make
+MAX_LAUNCH_CALLS_PER_ACTION = 10
+
+
 def graph_serve(device, card: str, cfg, kv_dtype: str, lengths,
                 shared_len: int, n_shared: int, new_tokens: int,
                 max_len: int, model=None, label: str = "") -> dict:
     """GPT-2 small (fp32) serves the e2e prompts greedily with
-    ``kv_dtype`` KV, first through the eager decode body, then through the
-    captured decode program, each on a fresh engine after a warm-up.
+    ``kv_dtype`` KV in three modes (``SERVE_MODES``): the eager step
+    bodies, the captured programs under the sync loop, and the captured
+    programs under ``--serve-loop async``, each on a fresh engine warmed
+    up by :func:`warm_serving`. Per mode the timed generate, then the
+    same generate on prompts of the same shapes under the profiler.
     Asserted: token-identical streams, the same flash-decode launches a
-    decode step, ``decode_compiles == 1`` for the captured engine, and
-    teacher-forced decode logits within ``E2E_ATOL`` (B5 merges in a fixed
-    order: 0 expected). Prints tokens/s, p50/p99 per-token ms, peak
-    memory, and the idle share and host launch calls of the same generate
-    once more under the profiler. ``model`` serves a model built by the
-    caller (fp32) instead of GPT-2 small. The result also holds request
-    0's prompt and stream (``stream0``)."""
+    decode step (one a layer), ``decode_compiles == 1`` and no capture in
+    any program across the timed and the profiled generate for the
+    captured modes, one token fetch a committed decode step
+    (``host_syncs``; at most one async), host work overlapped in the async
+    loop (``host_overlap_s > 0``), at most
+    ``MAX_LAUNCH_CALLS_PER_ACTION`` kernel launch calls a scheduler action
+    captured, and teacher-forced decode logits within ``E2E_ATOL`` (B5
+    merges in a fixed order: 0 expected). Prints tokens/s, p50/p99
+    per-token ms, peak memory, the host split, and the idle share and host
+    launch calls of the profiled generate beside
+    ``DECODE_ONLY_LAUNCH_CALLS``. ``model`` serves
+    a model built by the caller (fp32) instead of GPT-2 small. The result
+    also holds request 0's prompt and stream (``stream0``)."""
     import torch
 
     from flexflow_tpu_torch.kernels import flash_decode as fd
@@ -1925,82 +2051,136 @@ def graph_serve(device, card: str, cfg, kv_dtype: str, lengths,
     ff.config.kv_dtype = kv_dtype
     vocab = ff.pcg.nodes[ff.executor.final_guid].out_shapes[
         ff.executor.final_out_idx][-1]
+    shapes = dict(lengths=lengths, shared_len=shared_len, n_shared=n_shared,
+                  new_tokens=new_tokens, max_len=max_len)
     prompts = make_prompts(vocab, lengths, shared_len, n_shared)
+    profile_prompts = make_prompts(vocab, lengths, shared_len, n_shared,
+                                   PROFILE_PROMPT_SEED)
     name = "flash_decode_int8" if kv_dtype == "int8" else "flash_decode"
     res = {}
 
-    def fresh_engine():
-        """A fresh engine (empty prefix cache, new pools), warmed up on a
-        prompt too short to enter the prefix cache (its two decode steps:
-        the eager first call and the capture)."""
-        ff._serving_engine = None
-        ff.generate([[1, 2, 3]], max_new_tokens=4, max_decode_len=max_len)
-        torch.cuda.synchronize()
-        fd.reset_launch_count()
-
-    def generate():
+    def generate(ps):
         t = time.perf_counter()
-        outs = ff.generate(prompts, max_new_tokens=new_tokens,
+        outs = ff.generate(ps, max_new_tokens=new_tokens,
                            max_decode_len=max_len)
         torch.cuda.synchronize()
         return outs, time.perf_counter() - t
 
-    for mode in ("eager", "captured"):
-        ff._capture_steps = mode == "captured"
-        fresh_engine()
-        torch.cuda.reset_peak_memory_stats()
-        outs, _wall = generate()
-        peak = torch.cuda.max_memory_allocated()
+    for mode, capture, loop in SERVE_MODES:
+        ff._capture_steps = capture
+        ff.config.serve_loop = loop
+        ff._serving_engine = None
+        warm_serving(ff, **shapes)
         eng = ff._serving_engine
+        before = serving_captures(eng)
+        fd.reset_launch_count()
+        torch.cuda.reset_peak_memory_stats()
+        outs, _wall = generate(prompts)
+        peak = torch.cuda.max_memory_allocated()
+        reserved = torch.cuda.memory_reserved()
         stats = eng.stats
         launches = fd.launch_count(name)
         per_step = launches / max(stats.decode_steps, 1)
         compiles = eng.decode_compiles
         walls = {}
-        fresh_engine()
-        prof = profiled(lambda: walls.setdefault("s", generate()[1]))
+        prof = profiled(lambda: walls.setdefault(
+            "s", generate(profile_prompts)[1]))
+        pstats = eng.stats
+        captured = serving_captures(eng) - before
+        per_action = prof["kernel_launch_calls"] / max(pstats.host_ticks, 1)
         res[mode] = dict(outs=outs, launches=launches,
                          tokens_per_s=stats.tokens_per_s(),
                          p50_token_ms=stats.p50_token_ms(),
                          p99_token_ms=stats.p99_token_ms(),
                          wall_s=stats.wall_s, decode_steps=stats.decode_steps,
                          launches_per_step=per_step, decode_compiles=compiles,
+                         captures_in_runs=captured,
+                         host_syncs=stats.host_syncs,
+                         host_dispatch_s=stats.host_dispatch_s,
+                         host_device_s=stats.host_device_s,
+                         host_bookkeep_s=stats.host_bookkeep_s,
+                         host_overlap_s=stats.host_overlap_s,
+                         host_ticks=stats.host_ticks,
+                         host_overhead_fraction=
+                         stats.host_overhead_fraction(),
+                         launch_calls_per_action=per_action,
                          peak_gb=peak / 2 ** 30,
+                         reserved_gb=reserved / 2 ** 30,
                          idle_share=1 - prof["busy_ms"] / (stats.wall_s * 1e3),
                          **prof)
         log(f"{label} {mode}: {stats.tokens_generated} tokens in "
             f"{stats.wall_s:.3f} s = {stats.tokens_per_s():.1f} tokens/s, "
             f"p50 per-token {stats.p50_token_ms():.3f} ms, p99 "
             f"{stats.p99_token_ms():.3f} ms, {stats.decode_steps} decode "
-            f"steps ({stats.prefix_hits} prefix hits, "
-            f"{stats.chunked_prefills} chunks), {name} launches a step "
-            f"{per_step:.1f}, decode_compiles {compiles}, peak memory "
-            f"{peak / 2 ** 30:.3f} GiB; the same generate "
-            f"under the profiler: busy {prof['busy_ms']:.3f} ms (idle share "
-            f"{res[mode]['idle_share']:.4f} of the unprofiled wall; profiled "
-            f"wall {walls['s'] * 1e3:.3f} ms), {prof['device_ops']} device "
-            f"ops, host launch calls {prof['kernel_launch_calls']} kernel / "
-            f"{prof['graph_launch_calls']} graph [{card}]")
-    e, c = res["eager"], res["captured"]
-    if c["outs"] != e["outs"]:
-        fail(f"{label}: captured greedy streams differ from eager ones")
-    if c["decode_compiles"] != 1:
-        fail(f"{label}: decode_compiles {c['decode_compiles']}, want 1")
-    if c["launches_per_step"] != e["launches_per_step"] or \
-            c["launches_per_step"] != cfg.num_layers:
-        fail(f"{label}: {name} launches a step {c['launches_per_step']} "
-             f"captured vs {e['launches_per_step']} eager")
+            f"steps ({stats.prefills} prefills, {stats.prefix_hits} prefix "
+            f"hits, {stats.chunked_prefills} chunks), {name} launches a "
+            f"step {per_step:.1f}, decode_compiles {compiles}, captures in "
+            f"the timed and profiled runs {captured}, peak memory "
+            f"{peak / 2 ** 30:.3f} GiB allocated, {reserved / 2 ** 30:.3f} "
+            f"GiB reserved; host split: dispatch "
+            f"{stats.host_dispatch_s * 1e3:.3f} ms, device "
+            f"{stats.host_device_s * 1e3:.3f} ms, bookkeeping "
+            f"{stats.host_bookkeep_s * 1e3:.3f} ms, overlap "
+            f"{stats.host_overlap_s * 1e3:.3f} ms over {stats.host_ticks} "
+            f"ticks (host_overhead_fraction "
+            f"{stats.host_overhead_fraction():.4f}), host_syncs "
+            f"{stats.host_syncs}; the same generate on other prompts of "
+            f"these shapes under the profiler: busy {prof['busy_ms']:.3f} "
+            f"ms (idle share {res[mode]['idle_share']:.4f} of the "
+            f"unprofiled wall; profiled wall {walls['s'] * 1e3:.3f} ms), "
+            f"{prof['device_ops']} device ops, host launch calls "
+            f"{prof['kernel_launch_calls']} kernel / "
+            f"{prof['graph_launch_calls']} graph ({per_action:.2f} kernel "
+            f"launch calls a scheduler action over {pstats.host_ticks}; "
+            f"with only the decode step captured: "
+            f"{DECODE_ONLY_LAUNCH_CALLS[0]} / {DECODE_ONLY_LAUNCH_CALLS[1]}) "
+            f"[{card}]")
+    ff.config.serve_loop = "sync"
+    e = res["eager"]
+    for mode, capture, loop in SERVE_MODES:
+        r = res[mode]
+        if r["outs"] != e["outs"]:
+            fail(f"{label}: {mode} greedy streams differ from eager ones")
+        if r["launches_per_step"] != cfg.num_layers:
+            fail(f"{label}: {name} launches a step {r['launches_per_step']}"
+                 f" in mode {mode}, want {cfg.num_layers}")
+        if loop == "sync" and r["host_syncs"] != r["decode_steps"]:
+            fail(f"{label} {mode}: host_syncs {r['host_syncs']} != "
+                 f"decode_steps {r['decode_steps']}")
+        if loop == "async" and not (r["host_syncs"] <= r["decode_steps"]
+                                    and r["host_overlap_s"] > 0.0):
+            fail(f"{label} {mode}: host_syncs {r['host_syncs']} over "
+                 f"{r['decode_steps']} decode steps, host_overlap_s "
+                 f"{r['host_overlap_s']}")
+        if not capture:
+            continue
+        if r["decode_compiles"] != 1:
+            fail(f"{label} {mode}: decode_compiles {r['decode_compiles']}, "
+                 "want 1")
+        if r["captures_in_runs"]:
+            fail(f"{label} {mode}: the programs captured "
+                 f"{r['captures_in_runs']} graphs in warmed-up runs")
+        if r["launch_calls_per_action"] > MAX_LAUNCH_CALLS_PER_ACTION:
+            fail(f"{label} {mode}: {r['launch_calls_per_action']:.2f} kernel "
+                 f"launch calls a scheduler action (at most "
+                 f"{MAX_LAUNCH_CALLS_PER_ACTION})")
+    c = res["captured"]
     seq = prompts[0] + e["outs"][0]
     plen = len(prompts[0])
     logits = [teacher_forced(ff, seq, plen, 8, max_len,
                              ff.config.kv_block_size, kv_dtype, capture=cap)
               for cap in (False, True)]
     err = (logits[1] - logits[0]).abs().max().item()
-    log(f"{label}: greedy streams token-identical, teacher-forced decode "
-        f"logits captured vs eager max |diff| {err:.3g} (atol "
-        f"{E2E_ATOL['fp32']}); tokens/s {e['tokens_per_s']:.1f} -> "
-        f"{c['tokens_per_s']:.1f}, p50 per-token {e['p50_token_ms']:.3f} -> "
-        f"{c['p50_token_ms']:.3f} ms [{card}]")
+    log(f"{label}: greedy streams token-identical in the three modes, "
+        f"teacher-forced decode logits captured vs eager max |diff| "
+        f"{err:.3g} (atol {E2E_ATOL['fp32']}); tokens/s "
+        f"{e['tokens_per_s']:.1f} -> {c['tokens_per_s']:.1f} -> "
+        f"{res['async']['tokens_per_s']:.1f}, p50 per-token "
+        f"{e['p50_token_ms']:.3f} -> {c['p50_token_ms']:.3f} -> "
+        f"{res['async']['p50_token_ms']:.3f} ms, idle share "
+        f"{e['idle_share']:.4f} -> {c['idle_share']:.4f} -> "
+        f"{res['async']['idle_share']:.4f} (eager -> captured -> async) "
+        f"[{card}]")
     if not err <= E2E_ATOL["fp32"]:
         fail(f"{label}: captured decode logits differ from eager by {err}")
     for r in res.values():
@@ -2813,9 +2993,10 @@ def seq_serve(device, card: str, prompt_set: dict) -> dict:
     """The proxy's causal decoder (``build_transformer_decoder`` at
     ``TransformerConfig()``'s widths with its layer norms on, the
     builder's vocabulary of 256, fp32, 8 slots) serves the e2e prompts
-    through ``FFModel.generate``, eager and captured (:func:`graph_serve`:
-    streams token-identical, 12 flash-decode launches a decode step,
-    ``decode_compiles == 1``); then request 0's teacher-forced prefill and
+    through ``FFModel.generate``, eager, captured and captured async
+    (:func:`graph_serve`: streams token-identical, 12 flash-decode
+    launches a decode step, ``decode_compiles == 1``, no capture after
+    warm-up); then request 0's teacher-forced prefill and
     decode logits against the whole-sequence plain forward within
     ``E2E_ATOL``. Layer norm keeps the logits of order 1: without it the
     block stack shrinks its activations about 25x a layer at random

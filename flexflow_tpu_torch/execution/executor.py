@@ -5,7 +5,7 @@ mixed-precision cast, the graph forward with node overrides, the training
 step (forward, loss, autograd over the fp32 master leaves, metrics,
 optimizer update), the eval step and the inference forward, and the three
 serving programs — per-bucket prefill, chunk prefill and the one-token
-decode step. JAX jits the train step and the decode step once per shape
+decode step. JAX jits the train step and the serving steps once per shape
 and donates their state; here each is a :class:`~.graphs.StepProgram`:
 on CUDA its body is captured once per input shape as a CUDA graph and
 replayed over static buffers, while the train step, the optimizer and the
@@ -13,8 +13,9 @@ decode step update params, moments and KV pools in place where JAX
 donates them. ``make_train_step(capture=False)`` and
 ``make_decode_step(..., capture=False)`` return the eager bodies (the
 tests and ``chip_smoke.py`` compare the two); ``invalidate_jit_cache``
-drops every captured program. Prefill and chunk prefill, eval and predict
-run eagerly (the inference ones under ``torch.inference_mode()``).
+drops every captured program. Prefill is one program per bucket, chunk
+prefill one per chunk shape; eval and predict run eagerly (under
+``torch.inference_mode()``).
 Sharding, remat, collective overlap, the divergence guard and CacheOps
 come in later slices.
 """
@@ -368,23 +369,65 @@ class Executor:
                 if node.op.op_type == OperatorType.OP_CONSTANT
                 and is_position_constant(node.op.attrs.get("value"))]
 
-    def make_prefill_step(self, bucket_len: int, max_decode_len: int):
+    def make_prefill_step(self, bucket_len: int, max_decode_len: int,
+                          capture: bool = True):
         """``(params, xs, lengths) -> (logits, last_logits, cache)``: run the
         whole right-padded prompt (``bucket_len`` wide) and return each
         causal attention node's prompt k/v rows in ``cache``. ``lengths``
-        are the true prompt lengths; ``last_logits`` (batch, vocab) are
-        taken at ``lengths - 1``.
+        are the true prompt lengths, a device int32 tensor;
+        ``last_logits`` (batch, vocab) are taken at ``lengths - 1`` on the
+        device.
+
+        The step is a :class:`~.graphs.StepProgram` per bucket, as the JAX
+        package jits one per bucket: its static inputs are the ids and the
+        lengths, its outputs the fp32 logits (the whole ``(batch, bucket,
+        vocab)``, as JAX returns them), the last rows and every k/v leaf.
+        Its only other argument is the params (the compute-dtype cast copy
+        under a compute dtype), so one program serves every engine of the
+        model. ``capture=False`` runs the body eagerly.
 
         Pad rows' position ids are clamped to the row's last real position:
         a bucket may be wider than the position table, where ``jnp.take``
         would fill and torch indexing raises. Real rows are unchanged (a
         causal row never sees the pad rows after it)."""
-        key = ("prefill", int(bucket_len), int(max_decode_len))
+        key = ("prefill", int(bucket_len), int(max_decode_len), bool(capture))
         fn = self._serving_fns.get(key)
         if fn is not None:
             return fn
         pos_guids = self._position_const_guids()
         from ..serving.kvcache import ServingState
+        from .graphs import step_program
+
+        names: List[str] = []  # the cache's node names, in output order
+
+        def body(inputs, _seeds, params):
+            import torch
+
+            *xs, lengths = inputs
+            sv = ServingState(mode="prefill", max_len=max_decode_len,
+                              positions=torch.zeros_like(lengths),
+                              lengths=lengths)
+            ctx = OpContext(training=False, device=self.device, serving=sv)
+            b = xs[0].shape[0]
+            pos = torch.arange(bucket_len, dtype=torch.int32,
+                               device=self.device).expand(b, bucket_len)
+            pos = torch.minimum(pos, (lengths - 1).clamp(min=0)[:, None])
+            values = self.forward_outputs(
+                params, self._bind_inputs(xs), ctx,
+                overrides={g: [pos] for g in pos_guids})
+            logits = self._logits_f32(
+                values[self.final_guid][self.final_out_idx])
+            idx = (lengths.long() - 1).clamp(0, logits.shape[1] - 1)
+            last = logits[torch.arange(b, device=logits.device), idx]
+            names[:] = list(sv.cache_out)
+            # the leaves come out of a head transpose; contiguous, the
+            # slot write's copy into its static inputs is one memcpy each,
+            # not a copy kernel launched outside any graph
+            return [logits, last, *(t.contiguous() for n in names
+                                    for t in sv.cache_out[n])]
+
+        program = step_program(body, self.device, f"prefill_{bucket_len}",
+                               capture)
 
         def prefill(params, xs, lengths):
             import torch
@@ -392,46 +435,73 @@ class Executor:
             with torch.inference_mode():
                 params, xs = self._cast_for_compute(params, list(xs),
                                                     cache=True)
-                lengths = lengths.to(torch.int32)
-                sv = ServingState(mode="prefill", max_len=max_decode_len,
-                                  positions=torch.zeros_like(lengths),
-                                  lengths=lengths)
-                ctx = OpContext(training=False, device=self.device,
-                                serving=sv)
-                b = xs[0].shape[0]
-                pos = torch.arange(bucket_len, dtype=torch.int32,
-                                   device=self.device).expand(b, bucket_len)
-                pos = torch.minimum(pos, (lengths - 1).clamp(min=0)[:, None])
-                values = self.forward_outputs(
-                    params, self._bind_inputs(xs), ctx,
-                    overrides={g: [pos] for g in pos_guids})
-                logits = self._logits_f32(
-                    values[self.final_guid][self.final_out_idx])
-                idx = (lengths.long() - 1).clamp(0, logits.shape[1] - 1)
-                last = logits[torch.arange(b, device=logits.device), idx]
-                return logits, last, sv.cache_out
+                logits, last, *leaves = program(
+                    list(xs) + [lengths.to(torch.int32)], params)
+            cache = {n: (leaves[2 * i], leaves[2 * i + 1])
+                     for i, n in enumerate(names)}
+            return logits, last, cache
 
+        prefill.program = program
         self._serving_fns[key] = prefill
         return prefill
 
     def make_chunk_prefill_step(self, chunk_len: int, max_decode_len: int,
-                                block_size: int, kv_dtype: str = "native"):
+                                block_size: int, kv_dtype: str = "native",
+                                capture: bool = True):
         """``(params, xs, state, table_row, start, n_new) ->
         (last_logits, state)``: one prefill chunk of ``chunk_len`` token
         slots of a SINGLE request against the paged pool. ``xs`` carries
         the chunk's ids ``(1, chunk_len)`` (rows beyond ``n_new`` are pad),
-        ``table_row`` the slot's (mb,) block-table row, ``start`` the
-        chunk's first position. The chunk's k/v rows are written into the
-        pool in place; lengths and the block tables are untouched (the
+        ``table_row`` the slot's (mb,) block-table row, ``start`` (1,) the
+        chunk's first position and ``n_new`` (1,) its real tokens, all
+        int32 tensors on the device. The chunk's k/v rows are written into
+        the pool in place; lengths and the block tables are untouched (the
         engine arms the slot only when its whole prompt is in).
-        ``kv_dtype`` is the pool's layout ("native" or "int8")."""
+        ``kv_dtype`` is the pool's layout ("native" or "int8").
+
+        The step is a :class:`~.graphs.StepProgram` per chunk shape, as the
+        JAX package jits one per shape with the state donated: the ids,
+        table row, start and count are its static inputs (no host int
+        reaches the body), the last real row is gathered on the device,
+        and the pools are arguments written in place — so a program
+        captures anew for another engine's pools. ``capture=False`` runs
+        the body eagerly."""
         key = ("chunk", int(chunk_len), int(max_decode_len), int(block_size),
-               str(kv_dtype))
+               str(kv_dtype), bool(capture))
         fn = self._serving_fns.get(key)
         if fn is not None:
             return fn
         pos_guids = self._position_const_guids()
         from ..serving.kvcache import ServingState
+        from .graphs import step_program
+
+        def body(inputs, _seeds, params, state):
+            import torch
+
+            *xs, table_row, start_t, n_t = inputs
+            sv = ServingState(mode="chunk", max_len=max_decode_len,
+                              positions=start_t, lengths=n_t,
+                              cache_in=state.caches,
+                              block_tables=table_row[None, :],
+                              block_size=int(block_size),
+                              kv_dtype=str(kv_dtype))
+            ctx = OpContext(training=False, device=self.device, serving=sv)
+            # pad rows past the last real token would index past the
+            # position table when start + chunk_len overhangs the context:
+            # clamp them to the last real position
+            pos = start_t + torch.arange(chunk_len, dtype=torch.int32,
+                                         device=self.device)
+            pos = torch.minimum(pos, start_t + n_t - 1)[None, :]
+            values = self.forward_outputs(
+                params, self._bind_inputs(xs), ctx,
+                overrides={g: [pos] for g in pos_guids})
+            logits = self._logits_f32(
+                values[self.final_guid][self.final_out_idx])
+            idx = (n_t.long() - 1).clamp(0, logits.shape[1] - 1)
+            return [logits[0].index_select(0, idx)]
+
+        program = step_program(body, self.device, f"chunk_{chunk_len}",
+                               capture)
 
         def chunk(params, xs, state, table_row, start, n_new):
             import torch
@@ -439,32 +509,11 @@ class Executor:
             with torch.inference_mode():
                 params, xs = self._cast_for_compute(params, list(xs),
                                                     cache=True)
-                start_t = torch.tensor([int(start)], dtype=torch.int32,
-                                       device=self.device)
-                n_t = torch.tensor([int(n_new)], dtype=torch.int32,
-                                   device=self.device)
-                sv = ServingState(mode="chunk", max_len=max_decode_len,
-                                  positions=start_t, lengths=n_t,
-                                  cache_in=state.caches,
-                                  block_tables=table_row[None, :],
-                                  block_size=int(block_size),
-                                  kv_dtype=str(kv_dtype))
-                ctx = OpContext(training=False, device=self.device,
-                                serving=sv)
-                # pad rows past the last real token would index past the
-                # position table when start + chunk_len overhangs the
-                # context: clamp them to the last real position
-                pos = start_t + torch.arange(chunk_len, dtype=torch.int32,
-                                             device=self.device)
-                pos = torch.minimum(pos, start_t + n_t - 1)[None, :]
-                values = self.forward_outputs(
-                    params, self._bind_inputs(xs), ctx,
-                    overrides={g: [pos] for g in pos_guids})
-                logits = self._logits_f32(
-                    values[self.final_guid][self.final_out_idx])
-                idx = min(max(int(n_new) - 1, 0), logits.shape[1] - 1)
-                return logits[:, idx], state
+                (last,) = program(list(xs) + [table_row, start, n_new],
+                                  params, state)
+            return last, state
 
+        chunk.program = program
         self._serving_fns[key] = chunk
         return chunk
 

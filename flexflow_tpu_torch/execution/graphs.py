@@ -8,7 +8,9 @@ A :class:`StepProgram` wraps a body ``body(inputs, seeds, *args) -> [tensor,
 
 * **Static inputs.** Each call copies ``inputs`` into buffers the program
   owns, one set per shape key (the inputs' shapes and dtypes, and whether
-  the step has a generator, as ``jax.jit`` keys its cache on avals). The
+  the step has a generator, as ``jax.jit`` keys its cache on avals), with
+  ``non_blocking`` copies: a pinned host input must be left alone until
+  its copy ran (the serving engine's staging buffers see to it). The
   ``args`` (params, optimizer state, KV pools) are not copied: they are
   updated in place and must be the same tensors on every replay. The
   program holds the tensors it captured against and, when a call passes
@@ -185,7 +187,7 @@ class StepProgram:
         if entry is None:
             return self._first_call(key, inputs, args, stamp, rng)
         for buf, x in zip(entry.inputs, inputs):
-            buf.copy_(x)
+            buf.copy_(x, non_blocking=True)
         seeds = self._feed_seeds(entry, rng)
         if self.device.type != "cuda":
             outs = self.body(entry.inputs, seeds, *args)
@@ -209,7 +211,7 @@ class StepProgram:
         bufs = [torch.empty(x.shape, dtype=x.dtype, device=self.device)
                 for x in inputs]
         for buf, x in zip(bufs, inputs):
-            buf.copy_(x)
+            buf.copy_(x, non_blocking=True)
         seeds = DropoutSeeds(rng) if rng is not None else None
         if self.device.type == "cuda":
             side = capture_stream(self.device)
@@ -293,3 +295,28 @@ class StepProgram:
         entry.graph, entry.outputs = graph, list(outs)
         self.captures += 1
         graph.replay()
+
+
+class EagerBody:
+    """A step body called directly, with :class:`StepProgram`'s call
+    interface and nothing captured: what ``capture=False`` gives (the
+    eager steps the tests and ``chip_smoke.py`` compare against)."""
+
+    captures = 0
+
+    def __init__(self, body: Callable):
+        self.body = body
+
+    def reset(self) -> None:
+        pass
+
+    def __call__(self, inputs, *args, rng=None):
+        return self.body(list(inputs), None, *args)
+
+
+def step_program(body: Callable, device, name: str, capture: bool = True):
+    """``body`` as a :class:`StepProgram`, or with ``capture=False`` as an
+    :class:`EagerBody`."""
+    if capture:
+        return StepProgram(body, device, name)
+    return EagerBody(body)

@@ -103,11 +103,13 @@ def _seed_u32(seed):
     return int(seed) & _U32
 
 
-def dropout_keep_scale_plain(seed, bh, q_pos, k_pos, rate: float):
-    """``dropout_keep_scale_nd`` (flexflow_tpu/kernels/flash_attention.py
-    :96-113) in int64 arithmetic masked to 32 bits: {0, 1/(1-rate)} as fp32
-    for broadcastable integer tensors of GLOBAL (batch*head, q, k)
-    coordinates. ``seed``: an int or a 0-d integer tensor."""
+def counter_hash_u32(seed, bh, q_pos, k_pos):
+    """The dropout mask's counter hash (``dropout_keep_scale_nd``,
+    flexflow_tpu/kernels/flash_attention.py:96-113) in int64 arithmetic
+    masked to 32 bits: a uint32 in an int64 tensor for broadcastable
+    integer tensors of three coordinates and a seed (an int or a 0-d or
+    broadcastable integer tensor). The serving sampler draws from it
+    too."""
     import torch
 
     def u32(t):
@@ -119,8 +121,18 @@ def dropout_keep_scale_plain(seed, bh, q_pos, k_pos, rate: float):
     x = _mul_u32(x, 0x7FEB352D)
     x = x ^ (x >> 15)
     x = _mul_u32(x, 0x846CA68B)
-    x = x ^ (x >> 16)
-    keep = x >= dropout_threshold(rate)
+    return x ^ (x >> 16)
+
+
+def dropout_keep_scale_plain(seed, bh, q_pos, k_pos, rate: float):
+    """``dropout_keep_scale_nd`` (flexflow_tpu/kernels/flash_attention.py
+    :96-113) in int64 arithmetic masked to 32 bits: {0, 1/(1-rate)} as fp32
+    for broadcastable integer tensors of GLOBAL (batch*head, q, k)
+    coordinates. ``seed``: an int or a 0-d integer tensor."""
+    import torch
+
+    keep = counter_hash_u32(seed, bh, q_pos, k_pos) >= \
+        dropout_threshold(rate)
     return keep.to(torch.float32) * dropout_scale(rate)
 
 

@@ -3,17 +3,28 @@
 Port of ``flexflow_tpu.serving.engine`` for the paged KV pool
 (``kv_cache="paged"``) in the model dtype or int8 (``--kv-dtype``), the
 radix prefix cache with its chunk-prefill step, optional chunked prefill
-(``--prefill-chunk-tokens``), the synchronous serve loop, one sequence
-shard, and greedy or top-k temperature sampling. Each tick performs one
-scheduler action: a one-shot prefill, one prefill chunk, or one decode step
-that advances every live slot by a token. The decode step is the
-executor's captured program (``Executor.make_decode_step``; on CUDA one
-CUDA graph per engine, replayed every step over the persistent token
-buffer, lengths, block tables and pools, which every action writes in
-place; ``decode_compiles`` counts its captures). Its attention read
-is the flash-decode kernel (``kernels/flash_decode.py``, its int8 branch
-for int8 pools); the sampler's top-k goes through the row top-k kernel
-(``kernels/topk.py``) where the JAX sampler takes its Pallas kernel.
+(``--prefill-chunk-tokens``), the synchronous and the async serve loop
+(``--serve-loop``), one sequence shard, and greedy or top-k temperature
+sampling. Each tick performs one scheduler action: a one-shot prefill, one
+prefill chunk, or one decode step that advances every live slot by a
+token.
+
+Every device step of an action is a step program
+(``execution/graphs.StepProgram``; on CUDA a CUDA graph per shape,
+replayed over static buffers), as the JAX package jits them: the prefill
+per bucket and the chunk prefill per chunk shape (``Executor``), the
+decode step (one graph per engine, replayed every step over the
+persistent token buffer, lengths, block tables and pools, which every
+action writes in place; ``decode_compiles`` counts its captures), the
+sampler per (temperature, top_k), and the engine's slot writes (insert a
+prefilled request, arm a chunk-prefilled slot, clear a freed slot, clone a
+block on write). Host values reach them through pinned staging buffers
+with ``non_blocking`` copies; the decode step's tokens come back through
+one pinned copy and an event, in ``_ServeLoop._fetch``, the one place a
+decode step blocks. The decode step's attention read is the flash-decode
+kernel (``kernels/flash_decode.py``, its int8 branch for int8 pools); the
+sampler's top-k goes through the row top-k kernel (``kernels/topk.py``)
+where the JAX sampler takes its Pallas kernel.
 
 Options outside this slice raise ``NotImplementedError`` naming the flag;
 none falls back quietly.
@@ -34,7 +45,7 @@ from .scheduler import ContinuousBatchScheduler, Request, default_buckets
 def _later_slice(flag: str) -> NotImplementedError:
     return NotImplementedError(
         f"{flag} is ported in a later slice of flexflow_tpu_torch; this "
-        "slice serves the paged-KV sync loop")
+        "slice serves the paged KV pool")
 
 
 def position_context_bound(executor, max_len: int) -> int:
@@ -72,6 +83,19 @@ class ServingStats:
     # per-token latency: decode tokens carry their step wall, first tokens
     # their prefill wall
     token_walls_s: List[float] = dataclasses.field(default_factory=list)
+    # host-overhead accounting: each tick's wall splits into dispatch (tick
+    # start -> device call issued), device (the call and the result fetch)
+    # and bookkeeping (commits, stats, trie inserts). The async loop's host
+    # work done while a dispatched decode step is in flight is overlap: it
+    # joins the denominator of host_overhead_fraction, never the numerator.
+    # host_syncs counts blocking token fetches (_ServeLoop._fetch): one a
+    # committed decode step
+    host_dispatch_s: float = 0.0
+    host_device_s: float = 0.0
+    host_bookkeep_s: float = 0.0
+    host_ticks: int = 0
+    host_overlap_s: float = 0.0
+    host_syncs: int = 0
 
     def tokens_per_s(self) -> float:
         return self.tokens_generated / self.wall_s if self.wall_s > 0 else 0.0
@@ -91,6 +115,17 @@ class ServingStats:
             return None
         return self.kv_bytes_read / self.tokens_generated
 
+    def host_overhead_fraction(self) -> Optional[float]:
+        """Share of the ticks' wall spent on host work (dispatch and
+        bookkeeping) rather than on the device call and its fetch; None
+        before any tick. Overlapped host work counts in the denominator
+        only."""
+        total = self.host_dispatch_s + self.host_device_s + \
+            self.host_bookkeep_s + self.host_overlap_s
+        if total <= 0.0:
+            return None
+        return (self.host_dispatch_s + self.host_bookkeep_s) / total
+
     def summary(self) -> Dict[str, Any]:
         out = {k: getattr(self, k) for k in (
             "requests_served", "tokens_generated", "prefills",
@@ -104,7 +139,119 @@ class ServingStats:
         kvpt = self.kv_bytes_per_token()
         if kvpt is not None:
             out["kv_bytes_per_token"] = round(kvpt, 1)
+        hof = self.host_overhead_fraction()
+        if hof is not None:
+            out["host_overhead_fraction"] = round(hof, 4)
+        if self.host_syncs:
+            out["host_syncs"] = self.host_syncs
         return out
+
+
+class _HostStaging:
+    """Pinned host buffers for the serving path's host->device copies. Each
+    copy is ``non_blocking`` from a pinned buffer, with an event recorded
+    behind it; a buffer is written again only once its event says the copy
+    ran (``query``, which never blocks: while every buffer of a shape is
+    busy, another is made). On the CPU a copy is a plain tensor."""
+
+    def __init__(self, device):
+        self.device = device
+        self._bufs: Dict[Any, List] = {}
+
+    def to_device(self, arr):
+        import torch
+
+        arr = np.ascontiguousarray(arr)
+        if self.device.type != "cuda":
+            return torch.tensor(arr, device=self.device)
+        ring = self._bufs.setdefault((arr.shape, arr.dtype.str), [])
+        for buf, event in ring:
+            if event.query():
+                break
+        else:
+            buf = torch.empty(arr.shape, dtype=torch.from_numpy(arr).dtype,
+                              pin_memory=True)
+            event = torch.cuda.Event()
+            ring.append((buf, event))
+        buf.numpy()[...] = arr
+        out = torch.empty(buf.shape, dtype=buf.dtype, device=self.device)
+        out.copy_(buf, non_blocking=True)
+        event.record()
+        return out
+
+
+class _Transfer:
+    """A device->host copy of sampled tokens: on CUDA ``non_blocking`` into
+    pinned memory with an event recorded behind it, so the host goes on
+    until :meth:`wait` blocks on the event."""
+
+    def __init__(self, toks):
+        import torch
+
+        self.event = None
+        if toks.device.type == "cuda":
+            self.host = torch.empty(toks.shape, dtype=toks.dtype,
+                                    pin_memory=True)
+            self.host.copy_(toks, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = toks.clone()
+
+    def wait(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy().copy()
+
+
+def gumbel_scores(logits, tag_counts, seed, temperature: float,
+                  top_k: int):
+    """The sampled draw's ``(scores, candidate token ids)``, both ``(S,
+    C)``: in the JAX sampler's order, one top-k over all rows of the raw
+    logits (``top_k`` > 0; through the row top-k kernel where its shape
+    gate takes them, else ``torch.topk``; all ``V`` tokens for 0), then
+    ``vals / temperature + g``, where each Gumbel ``g = -log(-log(u))``
+    comes from (``seed``, the row's (tag, count) in ``tag_counts (S, 2)``
+    int32, the candidate's token id) through the flash kernels' counter
+    hash (``kernels/flash_attention.counter_hash_u32``): its top 23 bits
+    make the uniform ``u`` in (0, 1)."""
+    import torch
+
+    from ..kernels.flash_attention import counter_hash_u32
+    from ..kernels.topk import topk, topk_kernel_shape
+
+    rows, vocab = logits.shape
+    k = int(top_k)
+    if k > 0:
+        if topk_kernel_shape(logits, k):
+            vals, idx = topk(logits, k)
+        else:
+            vals, idx = torch.topk(logits, min(k, vocab), dim=-1)
+    else:
+        vals = logits
+        idx = torch.arange(vocab, device=logits.device).expand(rows, vocab)
+    bits = counter_hash_u32(seed, tag_counts[:, 0:1], tag_counts[:, 1:2],
+                            idx)
+    u = ((bits >> 9).to(torch.float32) + 0.5) * 2.0 ** -23  # exact, < 1
+    return vals.float() / float(temperature) - torch.log(-torch.log(u)), idx
+
+
+def draw_tokens(logits, tag_counts, seed, temperature: float, top_k: int):
+    """The sampler's body: ``logits (S, V)`` fp32 -> tokens ``(S,)`` int32,
+    every row in one pass. Greedy (one argmax) when ``temperature <= 0``;
+    otherwise a categorical draw over ``softmax(vals / temperature)`` of
+    the top-k by the Gumbel-max rule, the argmax of
+    :func:`gumbel_scores`. So the same (seed, tag, count) and the same
+    logits row give the same token under any co-scheduling, batch or slot.
+    The streams differ from the JAX engine's, whose draws come from
+    ``jax.random``."""
+    import torch
+
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    score, idx = gumbel_scores(logits, tag_counts, seed, temperature, top_k)
+    choice = torch.argmax(score, dim=-1, keepdim=True)
+    return torch.gather(idx, -1, choice)[:, 0].to(torch.int32)
 
 
 class ServingEngine:
@@ -153,9 +300,9 @@ class ServingEngine:
         buckets_ctx = parse_context_buckets(
             context_buckets if context_buckets is not None
             else getattr(cfg, "context_buckets", "") or "")
-        if self.serve_loop != "sync":
-            raise _later_slice(f"serve_loop={self.serve_loop!r} "
-                               "(--serve-loop)")
+        if self.serve_loop not in ("sync", "async"):
+            raise ValueError(f"serve_loop must be 'sync' or 'async', got "
+                             f"{self.serve_loop!r}")
         if self.kv_dtype not in KV_DTYPES:
             raise ValueError(f"kv_dtype must be one of {KV_DTYPES}, got "
                              f"{self.kv_dtype!r}")
@@ -229,7 +376,11 @@ class ServingEngine:
         # (decode program, its capture count) when this engine's pools
         # were made: decode_compiles counts from there
         self._decode_captures0: Any = (None, 0)
-        self._paged_entry_names: set = set()
+        # the attention nodes' names, in the prefill cache's order
+        self._paged_entry_names: List[str] = []
+        self._staging = _HostStaging(self.device)
+        # the slot-write programs, over this engine's pools (_slot_program)
+        self._slot_programs: Dict[str, Any] = {}
         self.stats = ServingStats()
 
     # ------------------------------------------------------------ validation
@@ -291,17 +442,28 @@ class ServingEngine:
             capture=self.model._capture_steps)
 
     def _prefill_fn(self, bucket: int):
-        return self.executor.make_prefill_step(bucket, self.max_decode_len)
+        return self.executor.make_prefill_step(
+            bucket, self.max_decode_len, capture=self.model._capture_steps)
 
     def _chunk_fn(self, chunk_shape: int):
         return self.executor.make_chunk_prefill_step(
             int(chunk_shape), self.max_decode_len, self.kv_block_size,
-            self.kv_dtype)
+            self.kv_dtype, capture=self.model._capture_steps)
 
     def _ids(self, rows) -> Any:
-        import torch
+        """Host ints as an int32 tensor on the device, through pinned
+        staging (``non_blocking``)."""
+        return self._staging.to_device(np.asarray(rows, np.int32))
 
-        return torch.as_tensor(np.asarray(rows, np.int32)).to(self.device)
+    def programs(self) -> List[Any]:
+        """Every step program this engine's serving path runs: the
+        executor's prefill, chunk, decode and sampler programs and this
+        engine's slot writes (``captures`` on each; ``chip_smoke.py``
+        checks that a warmed-up generate captures nothing)."""
+        progs = [getattr(fn, "program", None)
+                 for fn in self.executor._serving_fns.values()]
+        return [p for p in progs + list(self._slot_programs.values())
+                if p is not None]
 
     def _ensure_state(self, prefill_cache) -> None:
         """Allocate the pools lazily from the first prefill's cache
@@ -318,7 +480,7 @@ class ServingEngine:
             return
         with torch.inference_mode():
             caches = {}
-            self._paged_entry_names = set(prefill_cache)
+            self._paged_entry_names = list(prefill_cache)
             for name, (kc, vc) in prefill_cache.items():
                 kp, vp = (paged_pool_entry(c, self.kv_pool_blocks,
                                            self.kv_block_size, self.kv_dtype)
@@ -350,43 +512,81 @@ class ServingEngine:
             self._ids([1]))
         self._ensure_state(cache)
 
-    def _write_slot(self, cache, slot: int, length: int, token: int,
-                    table_row: np.ndarray) -> None:
-        """Insert one prefilled request into the decode batch: scatter its
-        k/v rows into its blocks (quantized, with their scales, into an
-        int8 pool), set its table row, length cursor and pending first
-        token — in place."""
-        import torch
+    # ----------------------------------------------------------- slot writes
+    # The JAX package jits each of these with the state donated; here each
+    # is a small step program over this engine's pools, cursors, tables and
+    # token buffer (its arguments, written in place), whose static inputs
+    # carry the slot, length, token, table row and block ids
+    def _slot_program(self, name: str, body):
+        prog = self._slot_programs.get(name)
+        if prog is None:
+            from ..execution.graphs import step_program
 
+            prog = self._slot_programs[name] = step_program(
+                body, self.device, f"slot_{name}",
+                self.model._capture_steps)
+        return prog
+
+    def _slot_write_body(self, inputs, _seeds, state, last_tokens):
+        """``meta (2 + mb,)`` = [slot, length, table row...], ``token
+        (1,)`` and, for an inserted prefill, its k/v rows per node: scatter
+        the rows into the row's blocks (quantized with their scales into an
+        int8 pool), then set the slot's table row, length cursor and
+        pending token."""
         from .kvcache import scatter_prefill_paged
 
+        meta, token, *leaves = inputs
+        slot, row = meta[0:1].long(), meta[2:]
         bs = self.kv_block_size
-        with torch.inference_mode():
-            row = self._ids(table_row)
-            for name in self._paged_entry_names:
-                entry = self.state.caches[name]
-                kc, vc = cache[name]
-                if self.kv_dtype == "int8":
-                    kq, ks, vq, vs = entry
-                    scatter_prefill_paged(kq, kc, row, bs, scales=ks)
-                    scatter_prefill_paged(vq, vc, row, bs, scales=vs)
-                else:
-                    scatter_prefill_paged(entry[0], kc, row, bs)
-                    scatter_prefill_paged(entry[1], vc, row, bs)
-            self.state.block_tables[slot] = row
-            self.state.lengths[slot] = int(length)
-            self._last_tokens[slot, 0] = int(token)
+        for i, name in enumerate(self._paged_entry_names if leaves else ()):
+            kc, vc = leaves[2 * i], leaves[2 * i + 1]
+            entry = state.caches[name]
+            if self.kv_dtype == "int8":
+                kq, ks, vq, vs = entry
+                scatter_prefill_paged(kq, kc, row, bs, scales=ks)
+                scatter_prefill_paged(vq, vc, row, bs, scales=vs)
+            else:
+                scatter_prefill_paged(entry[0], kc, row, bs)
+                scatter_prefill_paged(entry[1], vc, row, bs)
+        state.block_tables.index_copy_(0, slot, row[None, :])
+        state.lengths.index_copy_(0, slot, meta[1:2])
+        last_tokens.index_copy_(0, slot, token[:, None])
+        return []
 
-    def _set_slot_meta(self, slot: int, length: int, token: int,
+    def _write_slot(self, cache, slot: int, length: int, token,
+                    table_row: np.ndarray) -> None:
+        """Insert one prefilled request into the decode batch: scatter its
+        k/v rows into its blocks, set its table row, length cursor and
+        pending first token — in place. ``token`` is the sampler's (1,)
+        device tensor, or a host int."""
+        self._arm_slot(slot, length, token, table_row,
+                       [t for name in self._paged_entry_names
+                        for t in cache[name]])
+
+    def _set_slot_meta(self, slot: int, length: int, token,
                        table_row: np.ndarray) -> None:
         """Arm a chunk-prefilled slot for decode: the chunks already wrote
         its rows, so only the cursor, table row and first token remain."""
+        self._arm_slot(slot, length, token, table_row, [])
+
+    def _arm_slot(self, slot, length, token, table_row, leaves) -> None:
         import torch
 
         with torch.inference_mode():
-            self.state.block_tables[slot] = self._ids(table_row)
-            self.state.lengths[slot] = int(length)
-            self._last_tokens[slot, 0] = int(token)
+            meta = self._ids(np.concatenate(
+                [[slot, length], np.asarray(table_row, np.int32)]))
+            if not torch.is_tensor(token):
+                token = self._ids([token])
+            self._slot_program("write", self._slot_write_body)(
+                [meta, token.to(torch.int32), *leaves], self.state,
+                self._last_tokens)
+
+    @staticmethod
+    def _slot_clear_body(inputs, _seeds, state):
+        (slot,) = inputs
+        state.block_tables.index_fill_(0, slot.long(), 0)
+        state.lengths.index_fill_(0, slot.long(), 0)
+        return []
 
     def _clear_slot_tables(self, slot: int) -> None:
         """Reset a freed slot's table row (all GARBAGE) and cursor (0).
@@ -398,8 +598,17 @@ class ServingEngine:
         if self.state is None:
             return
         with torch.inference_mode():
-            self.state.block_tables[slot] = 0
-            self.state.lengths[slot] = 0
+            self._slot_program("clear", self._slot_clear_body)(
+                [self._ids([slot])], self.state)
+
+    @staticmethod
+    def _cow_body(inputs, _seeds, caches):
+        (src_dst,) = inputs
+        src, dst = src_dst[0:1].long(), src_dst[1:2].long()
+        for entry in caches.values():
+            for pool in entry:
+                pool.index_copy_(0, dst, pool.index_select(0, src))
+        return []
 
     def _cow_clone(self, src: int, dst: int) -> None:
         """Copy-on-write: duplicate pool block ``src`` into ``dst`` in every
@@ -410,9 +619,8 @@ class ServingEngine:
         if self.state is None:
             return
         with torch.inference_mode():
-            for name in self._paged_entry_names:
-                for pool in self.state.caches[name]:
-                    pool[dst] = pool[src]
+            self._slot_program("cow", self._cow_body)(
+                [self._ids([src, dst])], self.state.caches)
 
     # -------------------------------------------------------- KV accounting
     def _kv_row_bytes(self) -> int:
@@ -463,50 +671,52 @@ class ServingEngine:
 
     # -------------------------------------------------------------- sampling
     def _sampler(self, temperature: float, top_k: int):
-        """``(logits (S, V) fp32, tag_counts (S, 2) host ints, seed) ->
-        tokens (S,) int32`` on the device. Greedy when temperature <= 0.
-        Otherwise a categorical draw at ``temperature`` over the top-k of
-        the raw logits (all of them for ``top_k`` 0), each row drawn from
-        its own ``torch.Generator`` seeded from (seed, submission tag,
-        tokens emitted) — deterministic under any co-scheduling. As the JAX
-        sampler: one top-k over all rows, taken before the division by the
-        temperature, through the row top-k kernel (``kernels/topk.py``;
-        its plain version on CPU tensors) where the JAX sampler takes its
-        Pallas kernel (1 <= k <= 8, vocab a multiple of 128), else
-        ``torch.topk``. The streams differ from the JAX engine's
-        ``jax.random`` ones."""
+        """``(logits (S, V) fp32, tag_counts (S, 2) int32, seed (1,) int32)
+        -> tokens (S,) int32``, all on the device: :func:`draw_tokens` as
+        one step program per (temperature, top_k) — captured per row count
+        on CUDA, with the top-k kernel (B7) inside — kept by the executor,
+        so every engine of the model replays it. ``tag_counts`` and
+        ``seed`` are static inputs; greedy reads neither (pass None). The
+        JAX sampler is one jitted program per (temperature, top_k)
+        (flexflow_tpu/serving/engine.py ``_sampler``)."""
         import torch
 
-        from ..kernels.topk import topk, topk_kernel_shape
+        from ..execution.graphs import step_program
 
-        if temperature <= 0.0:
-            def greedy(logits, tag_counts, seed):
-                return torch.argmax(logits, dim=-1).to(torch.int32)
-            return greedy
-        temp = float(temperature)
-        k = int(top_k)
+        temp = max(float(temperature), 0.0)
+        k = 0 if temp == 0.0 else int(top_k)
+        capture = self.model._capture_steps
+        key = ("sampler", temp, k, capture)
+        fn = self.executor._serving_fns.get(key)
+        if fn is not None:
+            return fn
+        program = step_program(
+            lambda inputs, _seeds: [draw_tokens(*inputs, temp, k)]
+            if temp > 0.0 else [draw_tokens(inputs[0], None, None, 0.0, 0)],
+            self.device, "sampler", capture)
 
-        def sample(logits, tag_counts, seed):
-            vals, idx = logits, None
-            if k > 0:
-                if topk_kernel_shape(logits, k):
-                    vals, idx = topk(logits, k)
-                else:
-                    vals, idx = torch.topk(logits, min(k, logits.shape[-1]),
-                                           dim=-1)
-            probs = torch.softmax(vals / temp, dim=-1)
-            out = torch.empty((logits.shape[0],), dtype=torch.int32,
-                              device=logits.device)
-            for i in range(logits.shape[0]):
-                tag, count = (int(x) for x in tag_counts[i])
-                gen = torch.Generator(device=logits.device).manual_seed(
-                    (int(seed) * 1_000_003 + tag) * 1_000_003 + count)
-                choice = torch.multinomial(probs[i], 1, generator=gen)
-                out[i] = (idx[i][choice] if idx is not None else choice)[0]
-            return out
+        def sample(logits, tag_counts=None, seed=None):
+            with torch.inference_mode():
+                inputs = [logits] if temp == 0.0 else \
+                    [logits, tag_counts, seed]
+                return program(inputs)[0]
+
+        sample.program = program
+        self.executor._serving_fns[key] = sample
         return sample
 
     # ------------------------------------------------------------- main loop
+    def admit(self, sched: ContinuousBatchScheduler, req: Request,
+              resilience=None) -> None:
+        """Admission into ``sched``, attached to this engine's pool: the
+        scheduler's submit (bounded queue, context and pool checks). The
+        JAX package's deadline stamp and shed gate (``resilience=``) come
+        with the resilience layer."""
+        if resilience is not None:
+            raise _later_slice("admit(resilience=...) (serving resilience)")
+        self._attach(sched)
+        sched.submit(req)
+
     def generate(self, prompts: Sequence[Sequence[int]],
                  max_new_tokens: int = 32, temperature: float = 0.0,
                  top_k: int = 0, eos_id: Optional[int] = None,
@@ -524,34 +734,52 @@ class ServingEngine:
             n_slots=self.n_slots, max_queue=max(len(prompts),
                                                 self.max_queue),
             buckets=self.buckets, max_len=self.max_decode_len)
-        self._attach(sched)
         reqs = []
         for i, p in enumerate(prompts):
             r = Request(prompt=np.asarray(p, dtype=np.int32),
                         max_new_tokens=max_new_tokens,
                         eos_id=self.eos_id if eos_id is None else eos_id,
                         rng_tag=i)
-            sched.submit(r)
+            self.admit(sched, r)
             reqs.append(r)
         self.serve(sched, temperature=temperature, top_k=top_k, seed=seed)
         return [list(r.generated) for r in reqs]
+
+    def start_serve(self, sched: ContinuousBatchScheduler,
+                    temperature: float = 0.0, top_k: int = 0,
+                    seed: int = 0, chaos=None,
+                    resilience=None) -> "_ServeLoop":
+        """Begin a serve run without driving it: the loop whose ``tick()``
+        advances one scheduler action. ``serve`` is ``start_serve``, then
+        ``tick()`` until it returns False, then ``finish()``. Under
+        ``--serve-loop async`` the loop is the one-deep
+        :class:`_AsyncServeLoop`: a decode step's result may be in flight
+        between ticks (``settle()`` lands it; ``finish()`` settles
+        first)."""
+        if chaos is not None:
+            raise _later_slice("chaos injection (start_serve(chaos=...))")
+        if resilience is not None:
+            raise _later_slice("start_serve(resilience=...) (serving "
+                               "resilience)")
+        cls = _AsyncServeLoop if self.serve_loop == "async" else _ServeLoop
+        return cls(self, sched, temperature=temperature, top_k=top_k,
+                   seed=seed)
 
     def serve(self, sched: ContinuousBatchScheduler,
               temperature: float = 0.0, top_k: int = 0,
               seed: int = 0) -> ServingStats:
         """Drive the scheduler until its queue and slots drain."""
-        import torch
-
-        loop = _ServeLoop(self, sched, temperature=temperature,
-                          top_k=top_k, seed=seed)
-        with torch.inference_mode():
-            while loop.tick():
-                pass
+        loop = self.start_serve(sched, temperature=temperature,
+                                top_k=top_k, seed=seed)
+        while loop.tick():
+            pass
         return loop.finish()
 
 
 class _ServeLoop:
-    """One serve() run, advanced one scheduler action per ``tick()``."""
+    """One serve() run, advanced one scheduler action per ``tick()``: the
+    synchronous loop, which dispatches a decode step, blocks on its tokens
+    (``_fetch``) and commits them before the next tick."""
 
     def __init__(self, engine: ServingEngine,
                  sched: ContinuousBatchScheduler, temperature: float = 0.0,
@@ -560,18 +788,85 @@ class _ServeLoop:
         self.sched = sched
         engine._attach(sched)
         self.params = engine.model.params
+        self.greedy = temperature <= 0.0
         self.sampler = engine._sampler(temperature, top_k)
-        self.seed = int(seed)
+        # the seed's low 32 bits, on the device once for the run
+        self.seed = None if self.greedy else engine._ids(
+            np.asarray([int(seed) & 0xFFFFFFFF], np.uint32).view(np.int32))
         self.stats = engine.stats = ServingStats()
         self._chunk_walls: Dict[int, float] = {}
         self._prefix_hits0 = sched.prefix_hits
         self._prefix_reused0 = sched.prefix_tokens_reused
         self.t0 = time.perf_counter()
 
-    def _sample_one(self, last, req) -> int:
-        tag = req.rng_tag if req.rng_tag is not None else req.rid
-        return int(self.sampler(last, [[tag, len(req.generated)]],
-                                self.seed)[0])
+    # -------------------------------------------------- pending transfers
+    def settle(self) -> None:
+        """Land any in-flight decode result and commit it: the async
+        loop's drain point. The sync loop never has one."""
+        self._settle_pending()
+
+    def _settle_pending(self) -> None:
+        return None
+
+    def _fetch(self, transfer: _Transfer) -> np.ndarray:
+        """THE blocking host transfer of a decode step's tokens (both loops
+        land every decode result through it), counted in
+        ``stats.host_syncs``: one a committed decode step."""
+        self.stats.host_syncs += 1
+        return transfer.wait()
+
+    def _acct_tick(self, t_tick: float, t_dev: float, dev_s: float) -> None:
+        """Split this tick's wall into dispatch (tick entry -> device call
+        issued), device (the call and its fetch) and bookkeeping (device
+        return -> now)."""
+        st = self.stats
+        st.host_dispatch_s += max(t_dev - t_tick, 0.0)
+        st.host_device_s += dev_s
+        st.host_bookkeep_s += max(time.perf_counter() - t_dev - dev_s, 0.0)
+        st.host_ticks += 1
+
+    # ------------------------------------------------------------ sampling
+    def _tag_counts(self, rows):
+        """The sampler's (tag, count) int32 rows on the device, from
+        ``rows`` [(tag, count), ...]; None for greedy, which reads
+        none."""
+        if self.greedy:
+            return None
+        return self.engine._ids(np.asarray(rows, np.int32).reshape(-1, 2))
+
+    @staticmethod
+    def _tag(req) -> int:
+        return req.rng_tag if req.rng_tag is not None else req.rid
+
+    def _sample_first(self, last, req):
+        """A completed prefill's first token: the sampler on its last row
+        at (tag, tokens emitted). Returns (the (1,) device token, its host
+        value); reading it blocks, as in the JAX loop."""
+        toks = self.sampler(
+            last, self._tag_counts([(self._tag(req), len(req.generated))]),
+            self.seed)
+        return toks, int(_Transfer(toks).wait()[0])
+
+    def _sample(self, live, logits, pending=None):
+        """Sample every slot's next token on the device and feed it back as
+        the next step's input: ``_last_tokens`` is written from the DEVICE
+        tokens, never a host copy, which is what lets the async loop
+        dispatch step k+1 before step k's tokens land. Rows draw at (tag,
+        tokens emitted); with ``pending`` (the async loop's in-flight
+        step) a slot whose previous token is still uncommitted draws at
+        count + 1, the count it will have when that token lands (a
+        pending token that is discarded discards this draw too)."""
+        eng, sched = self.engine, self.sched
+        rows = [(0, 0)] * eng.n_slots
+        for s, r in live:
+            rows[s] = (self._tag(r), len(r.generated))
+        if pending is not None:
+            for (s, r), e in zip(pending.live, pending.epochs):
+                if sched.slots[s] is r and sched.slot_epoch[s] == e:
+                    rows[s] = (rows[s][0], rows[s][1] + 1)
+        toks = self.sampler(logits, self._tag_counts(rows), self.seed)
+        eng._last_tokens.copy_(toks[:, None])
+        return toks
 
     def _cache_prompt(self, req, tokens, eff: int) -> None:
         """Eagerly cache the prompt's FULL blocks at prefill completion so
@@ -583,98 +878,246 @@ class _ServeLoop:
                 eng._prefix.insert(tokens[:full * eng.kv_block_size],
                                    req.kv_blocks[:full])
 
+    # ----------------------------------------------------------------- tick
     def tick(self) -> bool:
         """Perform ONE scheduler action; False when there is nothing to
         do."""
-        eng, sched, stats = self.engine, self.sched, self.stats
-        action = sched.next_action()
-        if action is None:
-            return False
-        if action[0] == "prefill":
-            _, req, slot, bucket = action
-            t_p = time.perf_counter()
-            eff = req.effective_len
-            cur = req.current_prompt()
-            ids = np.zeros((1, bucket), np.int32)
-            ids[0, :eff] = cur
-            _logits, last, cache = eng._prefill_fn(bucket)(
-                self.params, [eng._ids(ids)], eng._ids([eff]))
-            eng._ensure_state(cache)
-            tok = self._sample_one(last, req)
-            wall = time.perf_counter() - t_p
-            stats.prefills += 1
-            stats.prefill_tokens_computed += eff
-            stats.token_walls_s.append(wall)
-            stats.tokens_generated += 1
-            if not sched.commit_token(slot, tok):
-                eng._write_slot(cache, slot, eff, tok,
-                                eng._table_row_for(req))
-                req.prefill_pos = req.prefill_target
-                self._cache_prompt(req, cur, eff)
-            return True
-        if action[0] == "prefill_chunk":
-            _, req, slot, start, n, shape = action
-            t_p = time.perf_counter()
-            eng._ensure_state_bootstrap()
-            if req.pending_cow is not None:
-                src, dst = req.pending_cow
-                eng._cow_clone(src, dst)
-                sched.release_cow(req)
-            cur = req.current_prompt()
-            ids = np.zeros((1, shape), np.int32)
-            ids[0, :n] = cur[start:start + n]
-            row = eng._table_row_for(req)
-            last, eng.state = eng._chunk_fn(shape)(
-                self.params, [eng._ids(ids)], eng.state, eng._ids(row),
-                start, n)
-            stats.prefill_tokens_computed += n
-            stats.chunked_prefills += 1
-            done = sched.chunk_done(slot, n)
-            wall = time.perf_counter() - t_p
-            self._chunk_walls[req.rid] = \
-                self._chunk_walls.get(req.rid, 0.0) + wall
-            if not done:
-                return True
-            eff = req.prefill_target
-            tok = self._sample_one(last, req)
-            stats.prefills += 1
-            stats.token_walls_s.append(self._chunk_walls.pop(req.rid, wall))
-            stats.tokens_generated += 1
-            self._cache_prompt(req, cur, eff)
-            if not sched.commit_token(slot, tok):
-                eng._set_slot_meta(slot, eff, tok, row)
-            return True
-        return self._tick_decode(action[1])
+        import torch
 
-    def _tick_decode(self, live) -> bool:
-        """One decode step for every live slot: dispatch, sample on the
-        device, one blocking host transfer of the tokens, commit."""
+        t_tick = time.perf_counter()
+        with torch.inference_mode():
+            action = self.sched.next_action()
+            if action is None:
+                return self._idle()
+            if action[0] == "prefill":
+                return self._tick_prefill(t_tick, *action[1:])
+            if action[0] == "prefill_chunk":
+                return self._tick_chunk(t_tick, *action[1:])
+            return self._tick_decode(t_tick, action[1])
+
+    def _idle(self) -> bool:
+        """No scheduler action is available. The async loop may still hold
+        an in-flight result whose arrival is the remaining work; the sync
+        loop is done."""
+        return False
+
+    def _tick_prefill(self, t_tick: float, req, slot: int,
+                      bucket: int) -> bool:
         eng, sched, stats = self.engine, self.sched, self.stats
-        t_d = time.perf_counter()
+        t_p = time.perf_counter()
+        eff = req.effective_len
+        cur = req.current_prompt()
+        ids = np.zeros((1, bucket), np.int32)
+        ids[0, :eff] = cur
+        _logits, last, cache = eng._prefill_fn(bucket)(
+            self.params, [eng._ids(ids)], eng._ids([eff]))
+        eng._ensure_state(cache)
+        toks, tok = self._sample_first(last, req)
+        wall = time.perf_counter() - t_p
+        stats.prefills += 1
+        stats.prefill_tokens_computed += eff
+        stats.token_walls_s.append(wall)
+        stats.tokens_generated += 1
+        if not sched.commit_token(slot, tok):
+            eng._write_slot(cache, slot, eff, toks, eng._table_row_for(req))
+            req.prefill_pos = req.prefill_target
+            self._cache_prompt(req, cur, eff)
+        self._acct_tick(t_tick, t_p, wall)
+        return True
+
+    def _tick_chunk(self, t_tick: float, req, slot: int, start: int, n: int,
+                    shape: int) -> bool:
+        eng, sched, stats = self.engine, self.sched, self.stats
+        t_p = time.perf_counter()
+        eng._ensure_state_bootstrap()
+        if req.pending_cow is not None:
+            src, dst = req.pending_cow
+            eng._cow_clone(src, dst)
+            sched.release_cow(req)
+        cur = req.current_prompt()
+        ids = np.zeros((1, shape), np.int32)
+        ids[0, :n] = cur[start:start + n]
+        row = eng._table_row_for(req)
+        meta = eng._ids(np.concatenate([[start, n], row]))
+        last, eng.state = eng._chunk_fn(shape)(
+            self.params, [eng._ids(ids)], eng.state, meta[2:], meta[0:1],
+            meta[1:2])
+        stats.prefill_tokens_computed += n
+        stats.chunked_prefills += 1
+        done = sched.chunk_done(slot, n)
+        wall = time.perf_counter() - t_p
+        self._chunk_walls[req.rid] = self._chunk_walls.get(req.rid, 0.0) + \
+            wall
+        if not done:
+            self._acct_tick(t_tick, t_p, wall)
+            return True
+        eff = req.prefill_target
+        toks, tok = self._sample_first(last, req)
+        stats.prefills += 1
+        stats.token_walls_s.append(self._chunk_walls.pop(req.rid, wall))
+        stats.tokens_generated += 1
+        self._cache_prompt(req, cur, eff)
+        if not sched.commit_token(slot, tok):
+            eng._set_slot_meta(slot, eff, toks, row)
+        self._acct_tick(t_tick, t_p, wall)
+        return True
+
+    # --------------------------------------------------------------- decode
+    def _dispatch_decode(self):
+        """Enqueue one decode step and its sampler: the device tokens."""
+        eng = self.engine
         logits, eng.state = eng._decode_fn()(
             self.params, [eng._last_tokens], eng.state)
-        tag_counts = [[0, 0]] * eng.n_slots
-        for s, r in live:
-            tag_counts[s] = [r.rng_tag if r.rng_tag is not None else r.rid,
-                             len(r.generated)]
-        toks = self.sampler(logits, tag_counts, self.seed)
-        eng._last_tokens.copy_(toks[:, None])
-        toks_host = toks.cpu().numpy()
-        wall = time.perf_counter() - t_d
+        return logits
+
+    def _commit_arrival(self, live, epochs, toks_host, wall: float) -> None:
+        """THE commit point of one landed decode step: token commits
+        (EOS and length recycling inside ``commit_token``) and the stats.
+        The sync loop runs it right after its fetch; the async loop at
+        arrival, one step behind dispatch, where ``epochs`` discards the
+        entries of slots recycled while the result was in flight."""
+        eng, sched, stats = self.engine, self.sched, self.stats
         stats.decode_steps += 1
         stats.kv_bytes_read += eng._decode_kv_bytes(live)
-        for slot, req in live:
+        for i, (slot, req) in enumerate(live):
+            if epochs is not None and (
+                    sched.slots[slot] is not req
+                    or sched.slot_epoch[slot] != epochs[i]):
+                continue  # the one-deep pipeline's extra draw
             stats.tokens_generated += 1
             stats.token_walls_s.append(wall)
             sched.commit_token(slot, int(toks_host[slot]))
+
+    def _tick_decode(self, t_tick: float, live) -> bool:
+        """One decode step for every live slot, synchronously: dispatch,
+        sample on the device, block on the tokens' transfer, commit."""
+        t_d = time.perf_counter()
+        logits = self._dispatch_decode()
+        toks = self._sample(live, logits)
+        toks_host = self._fetch(_Transfer(toks))
+        wall = time.perf_counter() - t_d
+        self._commit_arrival(live, None, toks_host, wall)
+        self._acct_tick(t_tick, t_d, wall)
         return True
 
+    # --------------------------------------------------------------- finish
     def finish(self) -> ServingStats:
         stats, sched = self.stats, self.sched
         stats.wall_s = time.perf_counter() - self.t0
-        stats.requests_served = len(sched.finished)
+        stats.requests_served = sum(1 for r in sched.finished
+                                    if r.outcome == "ok")
         stats.queue_depth_hwm = sched.queue_depth_hwm
         stats.prefix_hits = sched.prefix_hits - self._prefix_hits0
         stats.prefix_tokens_reused = \
             sched.prefix_tokens_reused - self._prefix_reused0
         return stats
+
+
+@dataclasses.dataclass
+class _PendingStep:
+    """One in-flight decode step of the async loop: its tokens' transfer,
+    the live slots it was dispatched for and their epochs at dispatch (a
+    slot recycled while the result was in flight discards its entry), and
+    the dispatch time."""
+
+    transfer: _Transfer
+    live: List
+    epochs: List[int]
+    t_d: float
+
+
+class _AsyncServeLoop(_ServeLoop):
+    """The one-deep serve loop behind ``--serve-loop async``: decode step
+    k+1 is dispatched while step k's tokens are still on their way to the
+    host, and step k's commits (token commits, EOS and length recycling)
+    run at their arrival, one step behind dispatch, while step k+1 runs on
+    the card. The only blocking host wait a committed step costs is its
+    ``_fetch`` (``stats.host_syncs``).
+
+    Why the pipeline is safe (the JAX loop's argument, in torch terms):
+
+    * the decode input token is read from the DEVICE tokens
+      (``_last_tokens`` written by ``_sample`` on the stream), so
+      dispatching k+1 never needs k's host copy;
+    * every write to the pools, block tables, cursors and token buffer —
+      the decode graph, the sampler, the prefill and chunk programs, the
+      slot writes, clears and clones — is enqueued on one stream in host
+      dispatch order, so the device sees them in the order the sync loop
+      would run them;
+    * the per-row streams key on (tag, tokens emitted), with an
+      uncommitted in-flight token counted (+1), so sampled streams equal
+      the sync loop's whatever the commit lag;
+    * the extra in-flight step of a finishing slot writes its one row at
+      the slot's cursor, at or past the end of its prompt, so only past
+      the full blocks the prefix trie cached; it is enqueued before the
+      ``_clear_slot_tables`` its settle enqueues, and every block handed
+      to a new request is written by that request's prefill, chunk or
+      clone, enqueued after it, before any read;
+    * slot epochs (``ContinuousBatchScheduler.slot_epoch``) discard the
+      in-flight results of recycled slots.
+
+    ``finish()`` and an idle tick settle the pending step first."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._pending: Optional[_PendingStep] = None
+
+    def _settle_step(self, p: _PendingStep) -> float:
+        """Block until ``p``'s tokens land, then commit them. Returns the
+        seconds spent blocked (device wait, not host work)."""
+        t_s = time.perf_counter()
+        toks_host = self._fetch(p.transfer)
+        blocked = time.perf_counter() - t_s
+        self.stats.host_device_s += blocked
+        self._commit_arrival(p.live, p.epochs, toks_host,
+                             time.perf_counter() - p.t_d)
+        return blocked
+
+    def _settle_pending(self) -> None:
+        """Land and commit the in-flight step; with nothing to overlap,
+        its host work is bookkeeping."""
+        p, self._pending = self._pending, None
+        if p is None:
+            return
+        t0 = time.perf_counter()
+        blocked = self._settle_step(p)
+        self.stats.host_bookkeep_s += max(
+            time.perf_counter() - t0 - blocked, 0.0)
+
+    def _idle(self) -> bool:
+        if self._pending is None:
+            return False
+        # the in-flight step is the remaining work: its arrival commits
+        # tokens and frees slots
+        self._settle_pending()
+        return True
+
+    def _tick_decode(self, t_tick: float, live) -> bool:
+        """Dispatch step k+1 first, then land and commit step k while k+1
+        runs. Host time before the dispatch is overlap when a step was
+        already in flight (the card was busy), dispatch otherwise."""
+        stats = self.stats
+        pipelined = self._pending is not None
+        t_d = time.perf_counter()
+        logits = self._dispatch_decode()
+        issued = time.perf_counter()
+        if pipelined:
+            stats.host_overlap_s += max(issued - t_tick, 0.0)
+        else:
+            stats.host_dispatch_s += max(issued - t_tick, 0.0)
+        toks = self._sample(live, logits, pending=self._pending)
+        prev, self._pending = self._pending, _PendingStep(
+            transfer=_Transfer(toks), live=list(live),
+            epochs=[self.sched.slot_epoch[s] for s, _ in live], t_d=t_d)
+        blocked = self._settle_step(prev) if prev is not None else 0.0
+        stats.host_overlap_s += max(
+            time.perf_counter() - issued - blocked, 0.0)
+        stats.host_ticks += 1
+        return True
+
+    def finish(self) -> ServingStats:
+        import torch
+
+        with torch.inference_mode():
+            self._settle_pending()
+        return super().finish()

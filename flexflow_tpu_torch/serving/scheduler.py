@@ -7,6 +7,9 @@ copy-on-write, and chunked prefill). Pure host bookkeeping — the schedule
 is a deterministic function of the submission sequence, as in the JAX
 package, so both packages admit, chunk and decode in the same order.
 
+Of the resilience states it carries the slot epochs (bumped wherever a
+slot is freed, so the async serve loop can tell a recycled slot from the
+one it dispatched against) and the terminal outcome ("ok" at finish).
 Left for later slices: deadlines, load shedding, quarantine/retry,
 graceful drain, hedged-request cancellation (the resilience and fleet
 layers) and request tracing.
@@ -135,6 +138,9 @@ class Request:
     generated: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
     finish_reason: Optional[str] = None  # "eos" | "length"
+    # terminal disposition: "ok" at finish (the JAX package's other
+    # outcomes come with the resilience layer)
+    outcome: Optional[str] = None
     # sampling-stream tag (submission order), so the same (prompts, seed)
     # reproduces the same draws run after run
     rng_tag: Optional[int] = None
@@ -225,6 +231,10 @@ class ContinuousBatchScheduler:
         self._chunk_turn = False
         self.prefix_hits = 0
         self.prefix_tokens_reused = 0
+        # slot incarnation counters, bumped on every slot-freeing path: a
+        # result the async serve loop dispatched against epoch e of a slot
+        # is discarded if the slot was recycled while it was in flight
+        self.slot_epoch: List[int] = [0] * n_slots
 
     @property
     def queued(self) -> int:
@@ -406,10 +416,12 @@ class ContinuousBatchScheduler:
         req = self.slots[slot]
         req.done = True
         req.finish_reason = reason
+        req.outcome = "ok"
         self._release_blocks(req)
         self.finished.append(req)
         self.slots[slot] = None
         self._free.append(slot)
+        self.slot_epoch[slot] += 1
         if self.on_slot_freed is not None:
             self.on_slot_freed(slot)
         return True

@@ -146,7 +146,6 @@ LATER = "ported in a later slice"
     (dict(kv_cache="ring"), "--kv-cache"),
     (dict(seq_shards=2), "--seq-shards"),
     (dict(context_buckets=(16, 32)), "--context-buckets"),
-    (dict(serve_loop="async"), "--serve-loop"),
 ])
 def test_engine_refuses_options_of_later_slices(tiny, kwargs, flag):
     with pytest.raises(NotImplementedError, match=LATER) as e:
@@ -158,7 +157,6 @@ def test_engine_refuses_options_of_later_slices(tiny, kwargs, flag):
     ("kv_cache", "ring", "--kv-cache"),
     ("seq_shards", 2, "--seq-shards"),
     ("context_buckets", "16,32", "--context-buckets"),
-    ("serve_loop", "async", "--serve-loop"),
     ("request_journal", "journal.log", "--request-journal"),
 ])
 def test_generate_refuses_config_flags_of_later_slices(field, value, flag):

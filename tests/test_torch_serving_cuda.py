@@ -1,0 +1,255 @@
+"""The serving programs (prefill per bucket, chunk prefill per chunk shape,
+the sampler per (temperature, top_k), the slot writes) and ``--serve-loop
+async`` on the card. Every test here needs an NVIDIA GPU and skips without
+one (``tests/test_torch_serving_async.py`` and
+``tests/test_torch_sampler.py`` cover the same code on the CPU, through
+the programs' buffers):
+
+* captured prefill and chunk prefill against their eager bodies: logits
+  and pool rows within 1e-6 (fp32; both run the same kernels, so equal
+  in practice);
+* a generate after warm-up captures nothing, in every program;
+* async streams equal sync streams on the card, greedy and top-k sampled,
+  with one token fetch per committed decode step;
+* the sampler's top-k kernel (B7) launches inside the captured sampler,
+  and its launches are counted through the replays: one per sampler call
+  (prefills plus decode steps);
+* the sampler on the card against the same sampler on CPU tensors, same
+  logits and (seed, tag, count): equal tokens outside a tie margin.
+
+It imports neither jax nor flexflow_tpu:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_serving_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+import flexflow_tpu_torch as ft
+from flexflow_tpu_torch.kernels import topk as tk
+from flexflow_tpu_torch.models.gpt2 import GPT2Config, build_gpt2
+from flexflow_tpu_torch.serving.engine import (ServingEngine, draw_tokens,
+                                               gumbel_scores)
+from flexflow_tpu_torch.serving.kvcache import DecodeState, paged_pool_entry
+
+VOCAB = 128  # a multiple of 128: the sampler's top-k takes B7
+MAX_LEN, BLOCK = 64, 8
+# captured vs eager program, fp32: the same kernels on the same inputs
+PROGRAM_TOL = 1e-6
+# card vs CPU sampler: a row whose two best Gumbel scores are closer than
+# this may flip on a last-ulp difference of log between the two devices
+TIE_MARGIN = 1e-4
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the serving programs capture on "
+                    "the card only)")
+    return torch.device("cuda")
+
+
+def _gpt2(dev, vocab=VOCAB):
+    config = ft.FFConfig()
+    config.batch_size, config.seed, config.kv_block_size = 2, 42, BLOCK
+    ff = ft.FFModel(config, device=dev)
+    build_gpt2(ff, GPT2Config(batch_size=2, seq_len=MAX_LEN, hidden=256,
+                              num_heads=4, num_layers=2, intermediate=512,
+                              vocab_size=vocab))
+    ff.compile()
+    return ff
+
+
+def _prompts(seed=7):
+    """Six prompts: three share a 16-token prefix (a prefix hit takes the
+    chunk path); those over 8 tokens prefill in chunks of 8."""
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(1, VOCAB, 16).tolist()
+    return [shared + rng.integers(1, VOCAB, 3).tolist(),
+            shared + rng.integers(1, VOCAB, 4).tolist(),
+            rng.integers(1, VOCAB, 21).tolist(),
+            rng.integers(1, VOCAB, 5).tolist(),
+            shared + rng.integers(1, VOCAB, 1).tolist(),
+            rng.integers(1, VOCAB, 30).tolist()]
+
+
+def _engine(ff, loop="sync"):
+    return ServingEngine(ff, max_decode_len=MAX_LEN, n_slots=3,
+                         kv_block_size=BLOCK, prefill_chunk_tokens=8,
+                         serve_loop=loop)
+
+
+def _captures(eng):
+    return sum(p.captures for p in eng.programs())
+
+
+def _warm(eng, **sampling):
+    """Two generates of prompts of the timed ones' shapes (other tokens, so
+    no prefix hit reaches the timed run): every program's first call and
+    capture."""
+    for seed in (100, 101):
+        eng.generate(_prompts(seed), max_new_tokens=6, **sampling)
+
+
+def _ids(dev, rows):
+    return torch.tensor(np.asarray(rows, np.int32), device=dev)
+
+
+@pytest.mark.cuda
+def test_captured_prefill_equals_eager():
+    dev = _cuda()
+    ff = _gpt2(dev)
+    ex = ff.executor
+    rng = np.random.default_rng(1)
+    eager = ex.make_prefill_step(32, MAX_LEN, capture=False)
+    prog = ex.make_prefill_step(32, MAX_LEN)
+    for call in range(3):  # eager first call, capture, replay
+        n = 10 + 7 * call
+        ids = np.zeros((1, 32), np.int32)
+        ids[0, :n] = rng.integers(1, VOCAB, n)
+        args = (ff.params, [_ids(dev, ids)], _ids(dev, [n]))
+        want, got = eager(*args), prog(*args)
+        for w, g in zip(want[:2], got[:2]):
+            assert (g - w).abs().max().item() <= PROGRAM_TOL
+        assert list(got[2]) == list(want[2])
+        for name in want[2]:
+            for w, g in zip(want[2][name], got[2][name]):
+                assert (g - w).abs().max().item() <= PROGRAM_TOL
+    assert prog.program.captures == 1
+
+
+def _pools(ff):
+    """A zero paged state for one slot of the tiny GPT-2 (one pool per K
+    and V of each attention node)."""
+    mb = MAX_LEN // BLOCK
+    _lg, _last, cache = ff.executor.make_prefill_step(16, MAX_LEN,
+                                                      capture=False)(
+        ff.params, [_ids(ff.device, np.ones((1, 16)))],
+        _ids(ff.device, [1]))
+    caches = {n: tuple(paged_pool_entry(leaf, mb + 1, BLOCK)
+                       for leaf in leaves) for n, leaves in cache.items()}
+    return DecodeState(caches=caches,
+                       lengths=torch.zeros((1,), dtype=torch.int32,
+                                           device=ff.device),
+                       block_tables=torch.zeros((1, mb), dtype=torch.int32,
+                                                device=ff.device))
+
+
+@pytest.mark.cuda
+def test_captured_chunk_prefill_equals_eager():
+    """A 21-token prompt in three chunks of 8 (the third with 5 real
+    tokens): each chunk's last row and the pools it wrote, eager body
+    against program (first call, capture, replay)."""
+    dev = _cuda()
+    ff = _gpt2(dev)
+    ex = ff.executor
+    seq = np.random.default_rng(2).integers(1, VOCAB, 21)
+    row = _ids(dev, np.arange(1, MAX_LEN // BLOCK + 1))
+    states = {}
+    lasts = {}
+    for capture in (False, True):
+        fn = ex.make_chunk_prefill_step(8, MAX_LEN, BLOCK, capture=capture)
+        state = states[capture] = _pools(ff)
+        lasts[capture] = []
+        for start in (0, 8, 16):
+            n = min(8, len(seq) - start)
+            ids = np.zeros((1, 8), np.int32)
+            ids[0, :n] = seq[start:start + n]
+            last, state = fn(ff.params, [_ids(dev, ids)], state, row,
+                             _ids(dev, [start]), _ids(dev, [n]))
+            lasts[capture].append(last)
+        if capture:
+            assert fn.program.captures == 1
+    for w, g in zip(lasts[False], lasts[True]):
+        assert (g - w).abs().max().item() <= PROGRAM_TOL
+    for name, entry in states[False].caches.items():
+        for w, g in zip(entry, states[True].caches[name]):
+            assert (g - w).abs().max().item() <= PROGRAM_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampling", [{}, {"temperature": 0.8, "top_k": 8,
+                                           "seed": 3}],
+                         ids=["greedy", "top8"])
+def test_async_streams_equal_sync_and_nothing_captures_after_warmup(
+        sampling):
+    dev = _cuda()
+    ff = _gpt2(dev)
+    outs = {}
+    for loop in ("sync", "async"):
+        eng = _engine(ff, loop)
+        _warm(eng, **sampling)
+        before = _captures(eng)
+        tk.reset_launch_count()
+        outs[loop] = eng.generate(_prompts(), max_new_tokens=12, **sampling)
+        torch.cuda.synchronize()
+        st = eng.stats
+        assert _captures(eng) == before, f"{loop}: a program captured"
+        assert eng.decode_compiles == 1
+        assert st.host_syncs == st.decode_steps
+        assert st.prefix_hits >= 1 and st.chunked_prefills >= 1
+        # one B7 launch a sampler call: every prefill's first token and
+        # every decode step, replayed inside the captured sampler
+        want = st.prefills + st.decode_steps if sampling else 0
+        assert tk.launch_count() == want
+        if loop == "async":
+            assert st.host_overlap_s > 0.0
+    assert outs["sync"] == outs["async"]
+
+
+@pytest.mark.cuda
+def test_topk_launches_inside_the_captured_sampler():
+    dev = _cuda()
+    ff = _gpt2(dev)
+    sample = ServingEngine(ff, n_slots=8, max_decode_len=MAX_LEN)._sampler(
+        0.8, 8)
+    logits = torch.randn((8, VOCAB), device=dev)
+    tc = _ids(dev, [(i, 2 * i) for i in range(8)])
+    seed = _ids(dev, [5])
+    tk.reset_launch_count()
+    toks = [sample(logits, tc, seed) for _ in range(4)]
+    torch.cuda.synchronize()
+    assert sample.program.captures == 1
+    (entry,) = sample.program._entries.values()
+    assert entry.launches == {("topk", "topk"): 1}
+    assert tk.launch_count() == 4
+    assert all(torch.equal(t, toks[0]) for t in toks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("top_k", [8, 1, 0])
+def test_card_sampler_equals_cpu_sampler_outside_the_tie_margin(top_k):
+    """(8, 50304) logits (the int8 runs' padded vocabulary), 64 (tag,
+    count) draws: the card's tokens equal the CPU's wherever the two best
+    Gumbel scores (computed on the CPU) are more than ``TIE_MARGIN``
+    apart."""
+    dev = _cuda()
+    vocab, temp = 50304, 0.8
+    gen = torch.Generator().manual_seed(0)
+    inside = 0
+    for batch in range(8):
+        logits = torch.randn((8, vocab), generator=gen) * 3
+        tc = torch.tensor([(batch * 8 + r, batch) for r in range(8)],
+                          dtype=torch.int32)
+        seed = torch.tensor([11], dtype=torch.int32)
+        cpu = draw_tokens(logits, tc, seed, temp, top_k)
+        card = draw_tokens(logits.to(dev), tc.to(dev), seed.to(dev), temp,
+                           top_k).cpu()
+        gaps = _score_gaps(logits, tc, seed, temp, top_k)
+        for r in range(8):
+            if gaps[r] <= TIE_MARGIN:
+                inside += 1
+                print(f"row {batch}/{r} inside the tie margin: gap "
+                      f"{gaps[r]:.3g}, cpu {int(cpu[r])}, card "
+                      f"{int(card[r])}")
+            else:
+                assert int(cpu[r]) == int(card[r]), (batch, r, gaps[r])
+    assert inside <= 2
+
+
+def _score_gaps(logits, tc, seed, temp, top_k):
+    """Per row, the best Gumbel score minus the second best, on the CPU."""
+    score, _idx = gumbel_scores(logits, tc, seed, temp, top_k)
+    if score.shape[1] == 1:
+        return [float("inf")] * score.shape[0]
+    top2 = torch.topk(score, 2, dim=-1).values
+    return (top2[:, 0] - top2[:, 1]).tolist()

@@ -193,7 +193,10 @@ def test_top_k_is_taken_before_the_temperature_divides():
     logits[0, 10] = float(small)     # the lower index wins the tie
     logits[0, 20] = float(big)
     eng = ServingEngine(_tiny(256), max_decode_len=32)
-    tok = eng._sampler(float(temp), 1)(logits, [[0, 0]], 0)
+    # (tag, count) rows and the seed are device int32 tensors
+    tok = eng._sampler(float(temp), 1)(
+        logits, torch.zeros((1, 2), dtype=torch.int32),
+        torch.zeros((1,), dtype=torch.int32))
     assert int(tok[0]) == 20
 
 
