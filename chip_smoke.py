@@ -196,6 +196,33 @@ timed generate only replays):
    of each timed run (``profile seq <model> fp32`` lines: flash, Adam,
    GEMM, MoE dispatch, elementwise — in NMT chiefly the LSTM's gates).
 
+10. resilient train — the BERT-Large proxy (bf16, Adam 1e-4, float
+   input, ``default_rng`` data: 2 epochs of 6 batches) through the
+   fault-tolerant ``fit``, one model whose state every run resets in
+   place: (a) the guarded captured step against the plain one on a clean
+   batch (``GRAPH_TOL``); (b) on a poisoned batch ``ok`` is false and
+   params, m, v and the step count are bitwise unchanged; (c) a run
+   preempted by SIGTERM before step 7 (``--checkpoint-every 4``) stops at
+   step 8 with a committed ``step_8``, and ``--resume auto`` finishes it;
+   (d) a NaN batch at step 10 with ``--max-bad-steps 1`` rolls back to
+   ``step_8`` (counters fault 1, recovery 1, skipped 1, last resume 8; the
+   learning rate unchanged) — both final params within the band of the
+   widest pair of ``SPREAD_RUNS`` uninterrupted runs of this call
+   (``BAND_FACTOR``, ``BAND_FLOOR``); each save's GB, seconds, GB/s and
+   blocked seconds; (e) no capture across (c) and (d), exactly one after
+   a ``set_learning_rate``; (f) a save -> restore roundtrip bitwise and in
+   place; (g) ``--remat none|selective|full``: p50 step ms, one eager
+   step's peak allocated and reserved memory, flash launches a step (24 /
+   24 B1 / B2 under none and selective, 48 / 24 under full), peak full <
+   none and selective <= none, loss and grads within the band of none's,
+   also with attention dropout 0.1 on a 2-layer copy; (h) three manual
+   steps (``set_batch``, ``forward``, ``zero_gradients``, ``backward``,
+   ``update``) against three ``fit`` steps, in the band of
+   ``SPREAD_RUNS`` such fits; (i) the plain and the guarded fit's p50 step
+   and idle share. Checkpoints go to a temporary directory (``--keep-
+   checkpoints 2``; under ``$TMPDIR`` or, with more room, the checkout;
+   about 11 GB at most), removed at the end.
+
 It prints the run's wall seconds, one ``{"kernels": [...]}`` line (the
 entries of the instances the census covers also carry their SASS counts,
 registers, spills and shared memory; the flash-decode entries their
@@ -203,7 +230,9 @@ registers and spills; the two-pass entries SDPA's backward as
 ``pair_library_ms``; the backward entries their tile error; the
 proxy's B1 and B2 as ``flash_fwd_transformer`` and
 ``flash_bwd_fused_transformer``, timed at the fp32 BERT shape, which is
-theirs; the decoder's B5 as ``flash_decode_decoder``), the card's
+theirs; the decoder's B5 as ``flash_decode_decoder``; B1 and B2 under
+``--remat full`` as ``flash_fwd_remat`` and ``flash_bwd_fused_remat``),
+the card's
 name and power limit (nvidia-smi), and as its last line ``{"ok": true, "device": {...}}``. Any
 failed phase exits non-zero; without CUDA, or without the package, it
 exits 1 and prints no result.
@@ -3052,6 +3081,657 @@ def seq_phase(device, card: str, prompt_set: dict,
                 serve=seq_serve(device, card, prompt_set))
 
 
+# ------------------------------------------------------- resilient train
+# phase 10: the BERT-Large proxy (bf16, Adam 1e-4, float input) trains 12
+# steps over 2 epochs of 6 batches through the resilient fit
+RES_BATCHES = 6
+RES_EPOCHS = 2
+# a resumed, rolled-back or manual run against an uninterrupted one: both
+# replay the same batches through the same kernels, so they differ only as
+# uninterrupted runs of this call do (the 16-bit B2 sums dQ by bulk
+# reduce-adds in no fixed order, so a BERT step is not bitwise repeatable,
+# and twelve Adam steps on the saturated proxy loss amplify that to a few
+# percent of the params' change; which batches a run fed is checked
+# exactly, by their digests, since an order fault hides inside that band).
+# Held to BAND_FACTOR times that spread, in the norm of the params' change
+# over the run (or of the grads), and never below BAND_FLOOR, one bf16
+# rounding (accumulation order may differ too: remat's recompute feeds a
+# tensor's grads back in another grouping); a wrong batch or a lost step
+# moves the params by a sizeable share of their change
+BAND_FACTOR = 4.0
+BAND_FLOOR = 2.0 ** -8
+# how many uninterrupted runs the spread is taken over, as the largest
+# difference of any two: a pair sometimes comes out all but bitwise equal
+# (5e-6 of the change, against 0.009-0.020 for most pairs, twelve steps on
+# an H100), and a band from such a pair alone is narrower than the
+# difference a correct resume shows most of the time
+SPREAD_RUNS = 4
+
+
+def band_of(spread: float) -> float:
+    return BAND_FACTOR * max(spread, BAND_FLOOR)
+
+
+# the reduced copy for remat under dropout: BERT-Large's widths, 2 layers,
+# attention dropout 0.1
+REMAT_DROPOUT = dict(num_layers=2, dropout=0.1)
+
+
+def update_rel(got, want, init) -> float:
+    """||got - want|| over ||want - init||: the difference of two runs'
+    params in units of the change of ``want`` over its run."""
+    num = sum(float((a - b).float().norm()) ** 2 for a, b in zip(got, want))
+    den = sum(float((b - c).float().norm()) ** 2
+              for b, c in zip(want, init))
+    return (num / max(den, 1e-30)) ** 0.5
+
+
+def pair_diffs(finals: list, init: list) -> list:
+    """``update_rel`` of every two runs' final params."""
+    return [update_rel(a, b, init)
+            for i, b in enumerate(finals) for a in finals[i + 1:]]
+
+
+def param_list(ff) -> list:
+    return [t.detach().clone() for ws in ff.params.values()
+            for t in ws.values()]
+
+
+class ResilientRun:
+    """The phase's one BERT-Large model, its data, and its initial state,
+    to which every run is reset in place (so the captured programs keep
+    their tensors and no run captures anew)."""
+
+    def __init__(self, device):
+        import torch
+
+        t = time.perf_counter()
+        self.ff, self.cfg = train_model("bert", "bf16", device)
+        self.ff.config.print_freq = 10 ** 9  # walls kept, no step lines
+        self.batch = self.cfg.batch_size
+        self.x, self.y = train_data("bert", self.cfg,
+                                    self.batch * RES_BATCHES)
+        self.init = [t.clone() for t in state_tensors(self.ff)]
+        self.init_params = param_list(self.ff)
+        self.built_s = time.perf_counter() - t
+        self.device = device
+        torch.cuda.synchronize()
+
+    def reset(self, **config) -> None:
+        """Initial state, rng counter 0, and the resilience and remat
+        fields of the config set to ``config`` (the rest off)."""
+        import torch
+
+        for t, v in zip(state_tensors(self.ff), self.init):
+            t.copy_(v)
+        self.ff._rng_counter = 0
+        c = self.ff.config
+        c.checkpoint_dir, c.checkpoint_every, c.keep_checkpoints = "", 0, 2
+        c.max_bad_steps, c.resume, c.remat = 0, "", ""
+        for k, v in config.items():
+            setattr(c, k, v)
+        torch.cuda.synchronize()
+
+    def fit(self, n_batches: int = RES_BATCHES, epochs: int = RES_EPOCHS,
+            **kw):
+        n = self.batch * n_batches
+        return self.ff.fit(self.x[:n], self.y[:n], epochs=epochs, **kw)
+
+    def device_batch(self, i: int, poison: bool = False):
+        import torch
+
+        sl = slice(i * self.batch, (i + 1) * self.batch)
+        x = torch.from_numpy(self.x[sl]).to(self.device)
+        if poison:
+            x = x * float("nan")
+        return [x], torch.from_numpy(self.ff._prep_label(
+            self.y[sl])).to(self.device)
+
+    def batch_digests(self) -> list:
+        """The digest (a float64 sum on the card) of each batch an
+        uninterrupted fit feeds, in step order: ``batch_iterator``'s
+        shuffled epochs, as ``fit`` draws them."""
+        import torch
+
+        from flexflow_tpu_torch.data.dataloader import batch_iterator
+
+        seed = self.ff.config.numpy_seed()
+        return [float(torch.from_numpy(b[0]).to(self.device).double().sum())
+                for e in range(RES_EPOCHS)
+                for b in batch_iterator([self.x], self.batch, shuffle=True,
+                                        seed=seed + e)]
+
+    def record_batches(self) -> list:
+        """Wrap the executor's cached plain and guarded steps so that each
+        call appends its batch's digest to the returned list (a sync a
+        step: for the checks, not for timing); ``unrecord`` undoes it."""
+        ex = self.ff.executor
+        fed: list = []
+        self._wrapped = (ex._train_step, ex._guarded_train_step)
+
+        def wrap(fn):
+            def step(params, opt_state, xs, labels, rng):
+                fed.append(float(xs[0].double().sum()))
+                return fn(params, opt_state, xs, labels, rng)
+            step.program = fn.program
+            return step
+
+        ex._train_step, ex._guarded_train_step = map(wrap, self._wrapped)
+        return fed
+
+    def unrecord(self) -> None:
+        ex = self.ff.executor
+        ex._train_step, ex._guarded_train_step = self._wrapped
+
+    def state_equal(self) -> bool:
+        import torch
+
+        return all(torch.equal(t, v)
+                   for t, v in zip(state_tensors(self.ff), self.init))
+
+
+def resilient_guard(run: "ResilientRun", card: str) -> dict:
+    """Gates (a) and (b): the guarded captured step against the plain one
+    from the initial state, and the guarded step on a poisoned batch."""
+    import torch
+
+    from flexflow_tpu_torch.execution.graphs import HostTransfer
+
+    ff = run.ff
+    label = "resilient train guard"
+    ex = ff.executor
+    plain, guarded = ex.make_train_step(), ex.make_train_step(guard=True)
+
+    def call(fn, i, k, poison=False):
+        xs, lab = run.device_batch(i, poison)
+        outs = fn(ff.params, ff.opt_state, xs, lab,
+                  torch.Generator().manual_seed(k))
+        torch.cuda.synchronize()
+        return outs
+
+    for fn in (plain, guarded):  # the eager first call, then the capture
+        run.reset()
+        call(fn, 0, 0)
+        call(fn, 1, 1)
+    if (plain.program.captures, guarded.program.captures) != (1, 1):
+        fail(f"{label}: captures {plain.program.captures}, "
+             f"{guarded.program.captures}, want 1 each")
+    run.reset()
+    loss_p = float(call(plain, 2, 2)[2])
+    params_p = param_list(ff)
+    run.reset()
+    *_rest, loss_g, _m, ok = call(guarded, 2, 2)
+    ok = bool(HostTransfer(ok).wait())
+    params_g = param_list(ff)
+    dl = abs(float(loss_g) - loss_p) / max(abs(loss_p), 1e-30)
+    dp = rel_norm(params_g, params_p)
+    ltol, ptol = GRAPH_TOL["bf16"]
+    log(f"{label} (a): clean batch, guarded vs plain captured step from one "
+        f"state: ok {ok}, relative loss difference {dl:.3g} (tol {ltol}), "
+        f"param relative norm difference {dp:.3g} (tol {ptol}) [{card}]")
+    if not (ok and dl <= ltol and dp <= ptol):
+        fail(f"{label}: the guarded step disagrees with the plain one on a "
+             "clean batch")
+    run.reset()
+    *_rest, loss_n, _m, ok_n = call(guarded, 2, 2, poison=True)
+    ok_n = bool(HostTransfer(ok_n).wait())
+    same = run.state_equal()
+    log(f"{label} (b): poisoned batch: ok {ok_n}, loss {float(loss_n)!r}, "
+        f"params, m, v and the step count bitwise unchanged: {same} "
+        f"[{card}]")
+    if ok_n or not same:
+        fail(f"{label}: a poisoned batch reached the state")
+    return dict(loss_rel_diff=dl, param_rel_diff=dp)
+
+
+def save_lines(mgr, label: str, card: str) -> list:
+    """One line per commit of a checkpoint manager: GB, seconds, GB/s, and
+    the seconds ``save_async`` blocked on the queue."""
+    out = []
+    for i, (step, nbytes, secs) in enumerate(mgr.saves):
+        blocked = mgr.blocked_s[i] if i < len(mgr.blocked_s) else 0.0
+        out.append(dict(step=step, gb=nbytes / 1e9, s=secs,
+                        gbps=nbytes / 1e9 / secs, blocked_s=blocked))
+        log(f"{label}: save step_{step}: {nbytes / 1e9:.3f} GB in "
+            f"{secs:.3f} s = {nbytes / 1e9 / secs:.3f} GB/s (snapshot to "
+            f"commit, the worker thread); the step loop blocked "
+            f"{blocked:.4f} s on the queue [{card}]")
+    return out
+
+
+def resilient_recovery(run: "ResilientRun", card: str, root: str) -> dict:
+    """Gates (c), (d) and (e): a preempted run resumed with ``--resume
+    auto``, a NaN run rolled back, each against ``SPREAD_RUNS``
+    uninterrupted runs of this call (the band), and no capture across
+    them."""
+    import os
+    import shutil
+
+    import torch
+
+    from flexflow_tpu_torch.execution.checkpoint import list_checkpoints
+    from flexflow_tpu_torch.resilience import ChaosPlan
+
+    ff = run.ff
+    ex = ff.executor
+    label = "resilient train"
+    programs = (ex.make_train_step().program,
+                ex.make_train_step(guard=True).program)
+    captures = [p.captures for p in programs]
+    finals = []
+    for _ in range(SPREAD_RUNS):
+        run.reset()
+        run.fit()
+        finals.append(param_list(ff))
+    pairs = pair_diffs(finals, run.init_params)
+    spread = max(pairs)
+    band = band_of(spread)
+    log(f"{label}: {SPREAD_RUNS} uninterrupted runs of "
+        f"{RES_EPOCHS * RES_BATCHES} steps differ pairwise by "
+        f"{', '.join(f'{x:.3g}' for x in pairs)} of the params' change over "
+        f"the run (spread {spread:.3g}, band {band:.3g}); the change is "
+        f"{rel_norm(finals[0], run.init_params):.3g} of the params' norm "
+        f"[{card}]")
+    del finals[1:]
+    want = run.batch_digests()
+    # an order fault the band cannot see (the same 12 batches with epoch 1
+    # in epoch 0's order, as a resume taking the wrong epoch's shuffle
+    # would feed them); the batch digests do
+    run.reset()
+    fed = run.record_batches()
+    run.fit(epochs=1)
+    run.fit(epochs=1)
+    run.unrecord()
+    planted = update_rel(param_list(ff), finals[0], run.init_params)
+    log(f"{label}: planted fault (epoch 1's batches in epoch 0's order): "
+        f"params {planted:.3g} against the band {band:.3g}; batches fed as "
+        f"an uninterrupted run's: {fed == want} [{card}]")
+    if fed == want:
+        fail(f"{label}: the batch digests cannot tell batches out of order")
+    res = dict(spread=spread, band=band, planted=planted)
+
+    # (c) preemption at step 7, resume
+    d = os.path.join(root, "preempt")
+    run.reset(checkpoint_dir=d, checkpoint_every=4)
+    fed = run.record_batches()
+    t = time.perf_counter()
+    run.fit(chaos=ChaosPlan(preempt_at_step=7))
+    stop_s = time.perf_counter() - t
+    session = ff.resilience
+    stopped = ff._preempted_at_step
+    steps = [s for s, _p in list_checkpoints(d)]
+    saves = save_lines(session.manager, f"{label} (c) preempted run", card)
+    if stopped != 8 or steps[-1:] != [8]:
+        fail(f"{label} (c): stopped at {stopped} with checkpoints {steps}, "
+             "want step 8 and a committed step_8")
+    run.unrecord()
+    res["roundtrip"] = resilient_roundtrip(run, card,
+                                           os.path.join(d, "step_8"))
+    ff.config.resume = "auto"
+    fed_resumed = run.record_batches()
+    t = time.perf_counter()
+    run.fit()
+    resume_s = time.perf_counter() - t
+    run.unrecord()
+    fed += fed_resumed
+    resumed = ff.resilience
+    saves += save_lines(resumed.manager, f"{label} (c) resumed run", card)
+    diff = update_rel(param_list(ff), finals[0], run.init_params)
+    count = int(ff.opt_state["step"])
+    log(f"{label} (c): preempted by SIGTERM before step 7, stopped at step "
+        f"{stopped} ({stop_s:.2f} s), resumed from step "
+        f"{resumed.last_resume_step} and finished ({resume_s:.2f} s, "
+        f"{len(ff.fit_history.loss)} steps, step count {count}); batches "
+        f"fed as an uninterrupted run's: {fed == want}; final params vs an "
+        f"uninterrupted run {diff:.3g} (band {band:.3g}) [{card}]")
+    if resumed.last_resume_step != 8 or len(ff.fit_history.loss) != 4 \
+            or count != 12 or fed != want or diff > band:
+        fail(f"{label} (c): the resumed run is not the uninterrupted one: "
+             f"resumed from {resumed.last_resume_step} (want 8), "
+             f"{len(ff.fit_history.loss)} steps after it (want 4), step "
+             f"count {count} (want 12), batches fed as an uninterrupted "
+             f"run's {fed == want}, final params {diff:.3g} (band "
+             f"{band:.3g})")
+    shutil.rmtree(d)
+    res.update(preempt=dict(diff=diff, stop_s=stop_s, resume_s=resume_s))
+
+    # (d) NaN at step 10, rollback to step_8
+    d = os.path.join(root, "rollback")
+    run.reset(checkpoint_dir=d, checkpoint_every=4, max_bad_steps=1)
+    fed = run.record_batches()
+    t = time.perf_counter()
+    run.fit(chaos=ChaosPlan(nan_at_steps={10}))
+    roll_s = time.perf_counter() - t
+    run.unrecord()
+    # steps 0-9, the poisoned step 10, then 8-11 again from step_8
+    replayed = (fed[:10] == want[:10] and np.isnan(fed[10])
+                and fed[11:] == want[8:])
+    session = ff.resilience
+    saves += save_lines(session.manager, f"{label} (d) rollback run", card)
+    summary = session.summary()
+    diff = update_rel(param_list(ff), finals[0], run.init_params)
+    counters = {"fault_events": 1, "recovery_events": 1,
+                "skipped_steps": 1, "checkpoints_saved": 3,
+                "last_resume_step": 8}
+    count = int(ff.opt_state["step"])
+    log(f"{label} (d): NaN batch at step 10, rolled back to step_8 and "
+        f"replayed ({roll_s:.2f} s): counters {summary}, learning rate "
+        f"{ff.optimizer.alpha!r}, step count {count}; batches fed: 0-9, "
+        f"the poisoned one, 8-11 again: {replayed}; final params vs an "
+        f"uninterrupted run {diff:.3g} (band {band:.3g}) [{card}]")
+    if summary != counters or ff.optimizer.alpha != 1e-4 or count != 12 \
+            or not replayed or diff > band:
+        fail(f"{label} (d): counters {summary} (want {counters}), "
+             f"learning rate {ff.optimizer.alpha!r} (want 0.0001), step "
+             f"count {count} (want 12), batches fed 0-9, the poisoned one, "
+             f"8-11 again {replayed}, final params {diff:.3g} (band "
+             f"{band:.3g})")
+    res.update(rollback=dict(diff=diff, s=roll_s, summary=summary))
+
+    # (e) no capture across (c) and (d); one after a set_learning_rate
+    now = (ex.make_train_step().program, ex.make_train_step(
+        guard=True).program)
+    after = [p.captures for p in now]
+    log(f"{label} (e): captures of the plain and guarded programs before "
+        f"(c) {captures}, after (d) {after}, the same programs "
+        f"{now == programs} [{card}]")
+    if now != programs or after != captures:
+        fail(f"{label} (e): a resume or rollback captured anew")
+    run.reset()
+    ff.optimizer.set_learning_rate(5e-5)
+    run.fit(n_batches=3, epochs=1)
+    fresh = ex.make_train_step().program
+    log(f"{label} (e): after set_learning_rate(5e-5) the next fit made a "
+        f"new program (the old one dropped: {fresh is not programs[0]}) "
+        f"that captured {fresh.captures} time [{card}]")
+    if fresh is programs[0] or fresh.captures != 1:
+        fail(f"{label} (e): a learning-rate change must cost exactly one "
+             "capture")
+    ff.optimizer.set_learning_rate(1e-4)
+    ex.invalidate_jit_cache()
+    res.update(saves=saves, captures=after)
+    return res
+
+
+def resilient_roundtrip(run: "ResilientRun", card: str, path: str) -> dict:
+    """Gate (f), between (c)'s preempted run and its resume: the model
+    holds step 8's state, which the async save of ``path`` snapshotted;
+    one more step moves it on, and restoring ``path`` gives every state
+    tensor back bit for bit, in place."""
+    import torch
+
+    from flexflow_tpu_torch.execution.checkpoint import (restore_checkpoint,
+                                                         tree_bytes)
+
+    ff = run.ff
+    want = [t.clone() for t in state_tensors(ff)]
+    ptrs = [t.data_ptr() for t in state_tensors(ff)]
+    nbytes = tree_bytes([ff.params, ff.opt_state])
+    run.fit(n_batches=1, epochs=1)  # the state moves on
+    moved = not all(torch.equal(a, b)
+                    for a, b in zip(state_tensors(ff), want))
+    t = time.perf_counter()
+    restore_checkpoint(ff, path)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    same = all(torch.equal(a, b) for a, b in zip(state_tensors(ff), want))
+    in_place = ptrs == [t.data_ptr() for t in state_tensors(ff)]
+    log(f"resilient train roundtrip (f): step_8, {nbytes / 1e9:.3f} GB "
+        f"(params, m, v, step), saved by the async writer of (c); after "
+        f"one more step (the state moved: {moved}) the restore (checksums, "
+        f"load, copy into the live tensors) took {restore_s:.3f} s = "
+        f"{nbytes / 1e9 / restore_s:.3f} GB/s; bitwise {same}, in place "
+        f"{in_place} [{card}]")
+    if not (moved and same and in_place):
+        fail("resilient train roundtrip: save -> restore is not bitwise")
+    return dict(gb=nbytes / 1e9, restore_s=restore_s)
+
+
+def remat_grads(ff, xs, lab, seed):
+    """Loss and grads of one eager step at the reset state (a fixed
+    generator for dropout)."""
+    import torch
+
+    loss, _l, grads = ff.executor.loss_and_grads(
+        ff.params, xs, lab, torch.Generator().manual_seed(seed))
+    torch.cuda.synchronize()
+    return float(loss), [g.clone() for ws in grads.values()
+                         for g in ws.values()]
+
+
+def resilient_remat(run: "ResilientRun", card: str) -> dict:
+    """Gate (g): ``--remat none|selective|full``, each from the initial
+    state: one eager step's peak allocated and reserved memory (nothing
+    else held between the levels) and flash launches, then 2 warm-up steps
+    and 4 replays through ``fit`` (p50 step ms, flash launches a step);
+    then each level's loss and grads of one eager step against none's,
+    within the band of two none steps; then the same on a reduced copy
+    with attention dropout 0.1."""
+    import gc
+
+    import torch
+
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    ff = run.ff
+    label = "resilient train remat"
+    layers = run.cfg.num_layers
+    levels = ("none", "selective", "full")
+    want_fwd = {"none": layers, "selective": layers, "full": 2 * layers}
+    xs, lab = run.device_batch(0)
+    res = {}
+    for level in levels:
+        run.reset(remat="" if level == "none" else level)
+        ff.executor.invalidate_jit_cache()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fa.reset_launch_count()
+        ff.executor.make_train_step(capture=False)(ff.params, ff.opt_state,
+                                                   xs, lab, None)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        reserved = torch.cuda.max_memory_reserved()
+        eager_counts = {n: c for n in fa.KERNELS if (c := fa.launch_count(n))}
+        run.reset(remat="" if level == "none" else level)
+        run.fit(n_batches=2, epochs=1)  # the eager first step, the capture
+        fa.reset_launch_count()
+        run.fit(n_batches=4, epochs=1)
+        counts = {n: c // 4 for n in fa.KERNELS if (c := fa.launch_count(n))}
+        p50 = float(np.median(ff.fit_history.step_s)) * 1e3
+        res[level] = dict(p50_ms=p50, peak_gb=(peak - base) / 2 ** 30,
+                          reserved_gb=reserved / 2 ** 30,
+                          base_gb=base / 2 ** 30, counts=counts,
+                          eager_counts=eager_counts,
+                          totals={n: fa.launch_count(n) for n in fa.KERNELS})
+        log(f"{label} {level}: p50 step {p50:.3f} ms over 4 replays; one "
+            f"eager step: peak {(peak - base) / 2 ** 30:.3f} GiB allocated "
+            f"above the {base / 2 ** 30:.3f} GiB held before it (params, "
+            f"moments, the phase's snapshots), {reserved / 2 ** 30:.3f} GiB "
+            f"reserved; flash launches {eager_counts} eager, {counts} a "
+            f"captured step [{card}]")
+        want = {"flash_fwd": want_fwd[level], "flash_bwd_fused": layers}
+        if counts != want or eager_counts != want:
+            fail(f"{label} {level}: flash launches {counts} / "
+                 f"{eager_counts}, want {want}")
+    peaks = {level: res[level]["peak_gb"] for level in levels}
+    if not (peaks["full"] < peaks["none"]
+            and peaks["selective"] <= peaks["none"]):
+        fail(f"{label}: peak memory above the state {peaks} GiB: want full "
+             "< none and selective <= none")
+    out = {}
+    for level in ("none", "none", "selective", "full"):
+        run.reset(remat="" if level == "none" else level)
+        out.setdefault(level, []).append(remat_grads(ff, xs, lab, 0))
+    (l0, g0), (l1, g1) = out["none"]
+    spread, lspread = rel_norm(g1, g0), abs(l1 - l0) / abs(l0)
+    for level in ("selective", "full"):
+        (loss, grads), = out[level]
+        dl, dg = abs(loss - l0) / abs(l0), rel_norm(grads, g0)
+        res[level].update(loss_diff=dl, grad_diff=dg)
+        log(f"{label} {level} vs none, one eager step from the same state: "
+            f"relative loss difference {dl:.3g}, grad relative norm "
+            f"difference {dg:.3g} (two none steps: {lspread:.3g}, "
+            f"{spread:.3g}; bands {band_of(lspread):.3g}, "
+            f"{band_of(spread):.3g}) [{card}]")
+        if not (dl <= band_of(lspread) and dg <= band_of(spread)):
+            fail(f"{label} {level}: loss or grads outside the band of "
+                 "none's")
+    del out, g0, g1, grads
+    run.reset()
+    ff.executor.invalidate_jit_cache()
+    res["dropout"] = remat_dropout(run.device, card)
+    return res
+
+
+def remat_dropout(device, card: str) -> dict:
+    """The accuracy gate of (g) under attention dropout 0.1, on a reduced
+    copy (``REMAT_DROPOUT``, bf16): one eager step's loss and grads at each
+    level against none's from the same generator, within the band of two
+    none steps; the recompute replays the block's seeds."""
+    import torch
+
+    from flexflow_tpu_torch import (AdamOptimizer, DataType, FFConfig,
+                                    FFModel, LossType)
+    from flexflow_tpu_torch.models.bert import BertConfig, build_bert
+
+    config = FFConfig()
+    config.batch_size, config.seed = 8, SEED
+    config.compute_dtype = DataType.DT_BFLOAT16
+    ff = FFModel(config, device=device)
+    cfg = BertConfig(**REMAT_DROPOUT)
+    build_bert(ff, cfg)
+    ff.compile(optimizer=AdamOptimizer(ff, alpha=1e-4),
+               loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY)
+    x, y = train_data("bert", cfg, cfg.batch_size)
+    xs = [torch.from_numpy(x).to(device)]
+    lab = torch.from_numpy(ff._prep_label(y)).to(device)
+    out = {}
+    for level in ("none", "none", "selective", "full"):
+        config.remat = "" if level == "none" else level
+        loss, grads = remat_grads(ff, xs, lab, 3)
+        out.setdefault(level, []).append((loss, grads))
+    (l0, g0), (l1, g1) = out["none"]
+    spread, lspread = rel_norm(g1, g0), abs(l1 - l0) / abs(l0)
+    res = {}
+    for level in ("selective", "full"):
+        (loss, grads), = out[level]
+        res[level] = (abs(loss - l0) / abs(l0), rel_norm(grads, g0))
+    log(f"resilient train remat dropout 0.1 (BERT-Large widths, 2 layers, "
+        f"bf16): vs none from the same generator: selective {res['selective']}"
+        f", full {res['full']} (relative loss, grad relative norm "
+        f"differences; two none steps {lspread:.3g}, {spread:.3g}) [{card}]")
+    for level, (dl, dg) in res.items():
+        if not (dl <= band_of(lspread) and dg <= band_of(spread)):
+            fail(f"resilient train remat dropout: {level} is outside the "
+                 "band of none")
+    del ff
+    torch.cuda.empty_cache()
+    return res
+
+
+def resilient_manual(run: "ResilientRun", card: str) -> dict:
+    """Gate (h): three manual steps (``set_batch``, ``forward``,
+    ``zero_gradients``, ``backward``, ``update``) against three ``fit``
+    steps over the same batches, within the band of ``SPREAD_RUNS`` such
+    fits."""
+    ff = run.ff
+    label = "resilient train manual"
+    fits = []
+    for _ in range(SPREAD_RUNS):
+        run.reset()
+        run.fit(n_batches=3, epochs=1, shuffle=False)
+        fits.append(param_list(ff))
+    spread = max(pair_diffs(fits, run.init_params))
+    del fits[1:]
+    run.reset()
+    for i in range(3):
+        sl = slice(i * run.batch, (i + 1) * run.batch)
+        ff.set_batch(run.x[sl], run.y[sl])
+        ff.forward()
+        ff.zero_gradients()
+        ff.backward()
+        ff.update()
+    diff = update_rel(param_list(ff), fits[0], run.init_params)
+    log(f"{label} (h): three manual steps vs three fit steps: "
+        f"{diff:.3g} of the params' change ({SPREAD_RUNS} fits: spread "
+        f"{spread:.3g}, band {band_of(spread):.3g}); step count "
+        f"{int(ff.opt_state['step'])} [{card}]")
+    if diff > band_of(spread) or int(ff.opt_state["step"]) != 3:
+        fail(f"{label}: the manual loop is not fit's: {diff:.3g} of the "
+             f"params' change (band {band_of(spread):.3g}), step count "
+             f"{int(ff.opt_state['step'])} (want 3)")
+    return dict(diff=diff, spread=spread)
+
+
+def resilient_cost(run: "ResilientRun", card: str) -> dict:
+    """(i): the plain and the guarded fit, 12 steps each from the initial
+    state: p50 step ms over the steps after 2 and the idle share against
+    one replay's device time by CUDA events."""
+    ff = run.ff
+    res = {}
+    for mode, cfg in (("plain", {}), ("guarded", dict(max_bad_steps=1))):
+        run.reset(**cfg)
+        run.fit()
+        p50 = float(np.median(ff.fit_history.step_s[2:])) * 1e3
+        program = ff.executor.make_train_step(
+            guard=mode == "guarded").program
+        rep = replay_ms(program)
+        res[mode] = dict(p50_ms=p50, replay_ms=rep,
+                         idle=1 - rep / p50)
+        log(f"resilient train cost (i) {mode}: p50 step {p50:.3f} ms over "
+            f"10 steps after 2; one replay {rep:.3f} ms by CUDA events "
+            f"(idle share {1 - rep / p50:.4f}) [{card}]")
+    return res
+
+
+def resilient_phase(device, card: str) -> dict:
+    """Phase 10 (module doc): gates (a)-(h) and (i)'s figures on one
+    BERT-Large model, its checkpoints in a temporary directory removed at
+    the end."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    import os
+
+    from flexflow_tpu_torch.execution.checkpoint import tree_bytes
+
+    run = ResilientRun(device)
+    # at most --keep-checkpoints 2 committed checkpoints and one being
+    # staged lie on disk at once (each run's directory goes when it ends):
+    # the temporary directory or, if it has less room, the checkout's
+    need = 3 * tree_bytes([run.ff.params, run.ff.opt_state])
+    where = max((tempfile.gettempdir(), os.getcwd()),
+                key=lambda d: shutil.disk_usage(d).free)
+    free = shutil.disk_usage(where).free
+    if free < need:
+        fail(f"resilient train: {free / 1e9:.1f} GB free under {where}, "
+             f"the checkpoints need {need / 1e9:.1f} GB")
+    root = tempfile.mkdtemp(prefix="ff_resilient_", dir=where)
+    try:
+        log(f"resilient train: BERT-Large proxy bf16, Adam 1e-4, "
+            f"{RES_EPOCHS} epochs of {RES_BATCHES} batches of "
+            f"{run.batch}, built in {run.built_s:.1f} s; checkpoints in a "
+            f"temporary directory with {free / 1e9:.1f} GB free (they need "
+            f"{need / 1e9:.1f}) [{card}]")
+        fa.reset_launch_count()
+        res = dict(guard=resilient_guard(run, card))
+        res.update(resilient_recovery(run, card, root))
+        res["remat"] = resilient_remat(run, card)
+        res["manual"] = resilient_manual(run, card)
+        res["cost"] = resilient_cost(run, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del run
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> None:
     try:
         import torch
@@ -3124,6 +3804,7 @@ def main() -> None:
     graph_phase(device, card, cfg, prompt_set)
     zoo_phase(device, card, profile=profile)
     seq = seq_phase(device, card, prompt_set, profile=profile)
+    resilient = resilient_phase(device, card)
 
     kernels = []
     for compute, name in (("fp32", "flash_decode"),
@@ -3190,6 +3871,19 @@ def main() -> None:
                 kernel],
             **fa_kern[(kernel, "bert", "fp32")],
             **census.get((kernel, "fp32", FA_SHAPES["bert"]["d"]), {}),
+        })
+    # B1 and B2 on the BERT-Large proxy under --remat full (B1 runs again
+    # in the backward's recompute), timed at their BERT bf16 shape
+    for name, kernel in (("flash_fwd_remat", "flash_fwd"),
+                         ("flash_bwd_fused_remat", "flash_bwd_fused")):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": FA_SOURCE,
+            "replaces": FA_KERNELS[kernel][0],
+            "launches": resilient["remat"]["full"]["totals"][kernel],
+            **fa_kern[(kernel, "bert", "bf16")],
+            **census.get((kernel, "bf16", FA_SHAPES["bert"]["d"]), {}),
         })
     for compute, name in (("fp32", "flash_decode_int8"),
                           ("bf16", "flash_decode_int8_bf16")):

@@ -15,12 +15,15 @@ donates them. ``make_train_step(capture=False)`` and
 tests and ``chip_smoke.py`` compare the two); ``invalidate_jit_cache``
 drops every captured program. Prefill is one program per bucket, chunk
 prefill one per chunk shape; eval and predict run eagerly (under
-``torch.inference_mode()``).
-Sharding, remat, collective overlap, the divergence guard and CacheOps
-come in later slices.
+``torch.inference_mode()``). ``make_train_step(guard=True)`` is the
+divergence sentinel's step (a second program that also returns ``ok``),
+and the training forward follows the ``--remat`` plan
+(``execution/remat.py``, :meth:`Executor._forward_remat`).
+Sharding, collective overlap and CacheOps come in later slices.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from ..ffconst import DataType, LossType, OperatorType, dtype_to_torch
@@ -44,8 +47,13 @@ class Executor:
         self.repl_labels = repl_labels
         # serving programs by key — ("prefill", bucket, max_len) etc.
         self._serving_fns: Dict[Tuple, Callable] = {}
-        # the captured train step (make_train_step)
+        # the captured train steps (make_train_step), plain and guarded
         self._train_step: Optional[Callable] = None
+        self._guarded_train_step: Optional[Callable] = None
+        # the remat plan of the training forward (None at level none) and
+        # the (plan, blocks) it was built into
+        self.remat_plan = None
+        self._remat_cache: Optional[Tuple[Any, Any]] = None
         # (stamp of the params it was cast from, compute-dtype copy): the
         # inference programs cast once per version of the params
         self._cast_cache: Optional[Tuple[Any, Any]] = None
@@ -186,8 +194,15 @@ class Executor:
         params_c, xs = self._cast_for_compute(params, list(xs))
         ctx = OpContext(training=training, rng=rng, device=self.device,
                         aux_losses=[] if training else None)
-        values = self.forward_outputs(params_c, self._bind_inputs(xs), ctx)
-        logits = self._logits_f32(values[self.final_guid][self.final_out_idx])
+        blocks = self._remat_blocks() if training else None
+        if blocks is not None:
+            raw = self._forward_remat(params_c, self._bind_inputs(xs), ctx,
+                                      blocks)
+        else:
+            values = self.forward_outputs(params_c, self._bind_inputs(xs),
+                                          ctx)
+            raw = values[self.final_guid][self.final_out_idx]
+        logits = self._logits_f32(raw)
         loss = loss_value(self.loss_type, logits, labels, self.repl_labels)
         # the training loss carries the ops' aux terms (the regularizers),
         # as flexflow_tpu/execution/executor.py:554-555 adds them
@@ -195,74 +210,213 @@ class Executor:
             loss = loss + aux
         return loss, logits
 
+    # ------------------------------------------------------------------ remat
+    def _remat_blocks(self):
+        """The training forward's remat blocks for the ``--remat`` plan, or
+        None at level ``none``: ``[(guids, recompute, ext_refs,
+        out_refs)]`` in topological order. ``full`` makes each of
+        ``remat_segments``' segments one block to recompute; ``selective``
+        splits each segment at the ``REMAT_SAVEABLE_OPS`` nodes, which run
+        outside any block (autograd keeps what they save), and recomputes
+        the runs between them. ``ext_refs`` are the (guid, out_idx) values
+        a block reads from before it, ``out_refs`` those it hands on (read
+        by a later block, or the loss anchor): under ``full`` the only
+        activations kept between forward and backward."""
+        from .remat import REMAT_SAVEABLE_OPS, remat_segments, \
+            resolve_remat_plan
+
+        plan = resolve_remat_plan(self.config)
+        if plan.level == "none":
+            self.remat_plan = None
+            return None
+        self.remat_plan = plan
+        if self._remat_cache is not None and self._remat_cache[0] == plan:
+            return self._remat_cache[1]
+        pieces: List[Tuple[List[int], bool]] = []
+        for seg in remat_segments(self.pcg, plan.segment_size):
+            if plan.level == "full":
+                pieces.append((seg, True))
+                continue
+            run: List[int] = []
+            for g in seg:
+                if self.pcg.nodes[g].op.op_type in REMAT_SAVEABLE_OPS:
+                    if run:
+                        pieces.append((run, True))
+                        run = []
+                    pieces.append(([g], False))
+                else:
+                    run.append(g)
+            if run:
+                pieces.append((run, True))
+        piece_of = {g: k for k, (guids, _) in enumerate(pieces)
+                    for g in guids}
+        needed = {(self.final_guid, self.final_out_idx)}
+        for node in self.pcg.compute_nodes():
+            needed.update((pg, i) for pg, i in node.inputs
+                          if piece_of.get(pg, -1) != piece_of[node.guid])
+        blocks = []
+        for guids, recompute in pieces:
+            inside = set(guids)
+            ext_refs: List[Tuple[int, int]] = []
+            for g in guids:
+                for ref in self.pcg.nodes[g].inputs:
+                    if ref[0] not in inside and ref not in ext_refs:
+                        ext_refs.append(ref)
+            out_refs = [(g, i) for g in guids
+                        for i in range(len(self.pcg.nodes[g].out_shapes))
+                        if (g, i) in needed]
+            blocks.append((guids, recompute, ext_refs, out_refs))
+        self._remat_cache = (plan, blocks)
+        return blocks
+
+    def _run_nodes(self, guids, params, values, ctx) -> None:
+        for g in guids:
+            node = self.pcg.nodes[g]
+            outs = node.op.forward(params.get(node.name, {}),
+                                   [values[r] for r in node.inputs], ctx)
+            values.update(((g, i), v) for i, v in enumerate(outs))
+
+    def _forward_remat(self, params, bound_inputs: Dict[int, Any],
+                       ctx: OpContext, blocks):
+        """The training forward through the remat blocks: each block to
+        recompute runs under ``torch.utils.checkpoint.checkpoint``
+        (non-reentrant, so ``autograd.grad`` and closures over the param
+        leaves work; ``preserve_rng_state=False``, which would sync the
+        device and break a capture — the ops draw no torch RNG). A block's
+        dropout seeds are drawn once, on its first run, and replayed on
+        its recompute (:class:`~.graphs.SegmentSeeds`); its aux losses
+        leave it as outputs, so a recompute does not add them twice.
+        Returns the loss anchor's output."""
+        from torch.utils.checkpoint import checkpoint
+
+        from .graphs import SegmentSeeds
+
+        values: Dict[Tuple[int, int], Any] = {
+            (g, 0): v for g, v in bound_inputs.items()}
+        for guids, recompute, ext_refs, out_refs in blocks:
+            if not recompute:
+                self._run_nodes(guids, params, values, ctx)
+                continue
+            seeds = SegmentSeeds(ctx.rng) if ctx.rng is not None else None
+
+            def block(*ext, guids=guids, ext_refs=ext_refs,
+                      out_refs=out_refs, seeds=seeds):
+                local = dict(zip(ext_refs, ext))
+                aux = [] if ctx.aux_losses is not None else None
+                bctx = dataclasses.replace(
+                    ctx, rng=seeds.replay() if seeds is not None else None,
+                    aux_losses=aux)
+                self._run_nodes(guids, params, local, bctx)
+                return tuple(local[r] for r in out_refs) + tuple(aux or ())
+
+            outs = checkpoint(block, *[values[r] for r in ext_refs],
+                              use_reentrant=False, preserve_rng_state=False)
+            values.update(zip(out_refs, outs))
+            if ctx.aux_losses is not None:
+                ctx.aux_losses.extend(outs[len(out_refs):])
+        return values[(self.final_guid, self.final_out_idx)]
+
+    # ---------------------------------------------------------------- steps
     def invalidate_jit_cache(self) -> None:
         """Drop every captured program and the inference cast copy, and
         with them their CUDA graphs and memory pools
         (flexflow_tpu/execution/executor.py:472-482). Required after
         anything a graph bakes in changes: an optimizer's ``lr`` /
-        ``alpha``, an op attribute, replaced params
-        (``FFModel.set_params_numpy`` calls it)."""
-        for fn in [self._train_step, *self._serving_fns.values()]:
+        ``alpha`` (``Optimizer.set_learning_rate``), an op attribute,
+        replaced params (``FFModel.set_params_numpy`` calls it). A pending
+        learning-rate change is taken up with the programs that baked the
+        old rate."""
+        if self.optimizer is not None:
+            self.optimizer._lr_changed = False
+        for fn in [self._train_step, self._guarded_train_step,
+                   *self._serving_fns.values()]:
             program = getattr(fn, "program", None)
             if program is not None:
                 program.reset()
         self._train_step = None
+        self._guarded_train_step = None
         self._serving_fns = {}
         self._cast_cache = None
+        self._remat_cache = None
 
-    def make_train_step(self, capture: bool = True):
+    def make_train_step(self, capture: bool = True, guard: bool = False):
         """``(params, opt_state, xs, labels, rng) -> (params, opt_state,
-        loss, metrics)``: forward, loss, ``torch.autograd.grad`` over the
-        fp32 master leaves, metrics, then the optimizer's in-place update
-        (flexflow_tpu/execution/executor.py:538-596 without remat, overlap,
-        the guard and CacheOps). ``rng`` is the step's ``torch.Generator``
-        (dropout seeds). ``params`` and ``opt_state`` come back as the same
-        objects, updated in place; ``loss`` and the metrics stay on the
-        device (no host sync in the step).
+        loss, metrics)``: forward (through the ``--remat`` blocks when the
+        plan asks), loss, ``torch.autograd.grad`` over the fp32 master
+        leaves, metrics, then the optimizer's in-place update
+        (flexflow_tpu/execution/executor.py:484-596 without overlap and
+        CacheOps). ``rng`` is the step's ``torch.Generator`` (dropout
+        seeds). ``params`` and ``opt_state`` come back as the same objects,
+        updated in place; ``loss`` and the metrics stay on the device (no
+        host sync in the step).
 
-        The step is a :class:`~.graphs.StepProgram`, cached on the
-        executor as the JAX package caches its jitted step: on CUDA the
-        first call of a batch shape runs eagerly, the second captures the
-        step as a CUDA graph, later ones replay it. ``capture=False``
-        returns the eager body itself (for comparisons)."""
-        if capture and self._train_step is not None:
-            return self._train_step
+        With ``guard=True`` (the divergence sentinel,
+        ``resilience.GuardedTrainStep``) the step computes ``ok =
+        isfinite(loss) & isfinite(Σ|g|²)`` on the device (the grads'
+        squared norms, one multi-tensor launch, summed in fp32; any NaN or
+        Inf in any grad reaches the sum), applies the update masked by it
+        (``optimizers`` module doc: a bad step leaves every param and
+        state tensor bitwise unchanged) and returns ``ok``, a 0-d bool
+        device tensor, as a fifth value.
+
+        Each step is a :class:`~.graphs.StepProgram`, cached on the
+        executor as the JAX package caches its jitted steps (the plain and
+        the guarded one apart): on CUDA the first call of a batch shape
+        runs eagerly, the second captures the step as a CUDA graph, later
+        ones replay it. ``capture=False`` returns the eager body itself
+        (for comparisons)."""
+        cached = self._guarded_train_step if guard else self._train_step
+        if capture and cached is not None:
+            return cached
+        import torch
+
         opt = self.optimizer
 
         def step(params, opt_state, xs, labels, rng):
             loss, logits, grads = self.loss_and_grads(params, xs, labels,
                                                       rng)
             m = self._compute_metrics(logits, labels)
-            params, opt_state = opt.update(params, grads, opt_state)
-            return params, opt_state, loss, m
+            if not guard:
+                params, opt_state = opt.update(params, grads, opt_state)
+                return params, opt_state, loss, m
+            gs = [g for ws in grads.values() for g in ws.values()]
+            ok = torch.isfinite(loss)
+            if gs:
+                gsq = torch.stack(torch._foreach_norm(gs)).square().sum()
+                ok = ok & torch.isfinite(gsq)
+            params, opt_state = opt.update(params, grads, opt_state, ok=ok)
+            return params, opt_state, loss, m, ok
 
         if not capture:
             return step
-        import torch
-
         from .graphs import StepProgram
 
         # metric names in output order, and the host-side (int) metrics
         layout: Dict[str, Any] = {}
+        extra = 1 if guard else 0  # ok follows the loss
 
         def body(inputs, seeds, params, opt_state):
-            _p, _s, loss, m = step(params, opt_state, inputs[:-1],
-                                   inputs[-1], seeds)
+            _p, _s, loss, m, *ok = step(params, opt_state, inputs[:-1],
+                                        inputs[-1], seeds)
             layout["names"] = [k for k, v in m.items() if torch.is_tensor(v)]
             layout["host"] = {k: v for k, v in m.items()
                               if not torch.is_tensor(v)}
-            return [loss] + [m[k] for k in layout["names"]]
+            return [loss, *ok] + [m[k] for k in layout["names"]]
 
-        program = StepProgram(body, self.device, "train")
+        program = StepProgram(body, self.device,
+                              "train_guarded" if guard else "train")
 
         def train_step(params, opt_state, xs, labels, rng):
             outs = program(list(xs) + [labels], params, opt_state, rng=rng)
             m = dict(layout["host"])
-            m.update(zip(layout["names"], outs[1:]))
-            return params, opt_state, outs[0], m
+            m.update(zip(layout["names"], outs[1 + extra:]))
+            return (params, opt_state, outs[0], m) + tuple(outs[1:1 + extra])
 
         train_step.program = program
-        self._train_step = train_step
+        if guard:
+            self._guarded_train_step = train_step
+        else:
+            self._train_step = train_step
         return train_step
 
     def loss_and_grads(self, params, xs, labels, rng=None):

@@ -90,6 +90,52 @@ class DropoutSeeds:
         return self.fed[i]
 
 
+class SegmentSeeds:
+    """The dropout seeds of one remat block (``Executor._forward_remat``):
+    on the block's first run each seed comes from the step's stream
+    ``source`` (its generator or :class:`DropoutSeeds`) as an op asks and
+    is kept; the recompute in the backward (:meth:`replay`) hands the kept
+    seeds out again in the same order. The stream is therefore drawn once
+    per seed, in op order, as without remat, and a captured step draws no
+    seed the first run did not."""
+
+    def __init__(self, source):
+        self.source = source
+        self.drawn: List[Any] = []
+        self.sealed = False  # a run of the block has ended
+        self._started = False
+        self._i = 0
+
+    def replay(self) -> "SegmentSeeds":
+        """Start a run of the block: the first draws, later ones replay."""
+        self.sealed, self._started = self._started, True
+        self._i = 0
+        return self
+
+    def next(self):
+        i = self._i
+        self._i += 1
+        if i < len(self.drawn):
+            return self.drawn[i]
+        if self.sealed:
+            raise RuntimeError(
+                f"remat block: the recompute asked for dropout seed {i + 1} "
+                f"but the block's first run drew {len(self.drawn)}")
+        self.drawn.append(next_seed(self.source))
+        return self.drawn[-1]
+
+
+def next_seed(rng):
+    """The next dropout seed of the step: one uint32 drawn from ``rng`` when
+    it is the step's ``torch.Generator`` (JAX folds its step key into
+    ``jax.random.bits``), else the next of a step program's
+    :class:`DropoutSeeds` or a remat block's :class:`SegmentSeeds` (the
+    same values, drawn from the same generator in the same order)."""
+    if isinstance(rng, (DropoutSeeds, SegmentSeeds)):
+        return rng.next()
+    return draw_seed(rng)
+
+
 def _launch_counts() -> Dict[Tuple[str, str], int]:
     import importlib
 
@@ -295,6 +341,30 @@ class StepProgram:
         entry.graph, entry.outputs = graph, list(outs)
         self.captures += 1
         graph.replay()
+
+
+class HostTransfer:
+    """A device->host copy of a step's outputs (sampled tokens, the guarded
+    step's ``ok``): on CUDA ``non_blocking`` into pinned memory with an
+    event recorded behind it, so the host goes on until :meth:`wait`
+    blocks on the event."""
+
+    def __init__(self, t):
+        import torch
+
+        self.event = None
+        if t.device.type == "cuda":
+            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.host.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = t.clone()
+
+    def wait(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy().copy()
 
 
 class EagerBody:

@@ -12,10 +12,14 @@ JAX package's, with its signatures and defaults
 
 The model runs on ``device`` — CUDA unless the caller asks for the CPU.
 With no GPU and no explicit ``device="cpu"`` the constructor raises: the
-port never drops to the CPU silently. Multi-device strategies, the phase
-API (``forward/backward/update``), checkpointing and resilience, remat,
-telemetry and the cache op come in later slices; their flags raise
-``NotImplementedError``.
+port never drops to the CPU silently. ``fit`` runs the JAX package's
+fault-tolerant loop (checkpoints, ``--resume``, the divergence sentinel
+with rollback, SIGTERM preemption; ``resilience/``) and the ``--remat``
+plan; the manual-loop calls (``set_batch`` / ``forward`` /
+``zero_gradients`` / ``backward`` / ``update``, ``Tensor.set_tensor``)
+drive the same executor by hand. Multi-device strategies, telemetry and
+tracing flags, the dynamic recompile and the cache op come in later
+slices; their flags raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -27,7 +31,8 @@ import numpy as np
 
 from .config import FFConfig
 from .ffconst import (ActiMode, AggrMode, CompMode, DataType, LossType,
-                      MetricsType, OperatorType, PoolType, numpy_to_dtype)
+                      MetricsType, OperatorType, PoolType, dtype_to_torch,
+                      numpy_to_dtype)
 from .execution.metrics import Metrics, PerfMetrics
 from .execution.optimizers import SGDOptimizer
 from .layer import Layer
@@ -53,8 +58,9 @@ def resolve_device(device=None):
 @dataclasses.dataclass
 class FitHistory:
     """What the last ``fit`` saw, per executed step: the loss (one host
-    transfer at the end of fit) and, under ``--profiling`` only, the step's
-    wall seconds (each step then ends in a device sync)."""
+    transfer at the end of fit; NaN for a step the divergence sentinel
+    skipped) and, under ``--profiling`` only, the step's wall seconds (each
+    step then ends in a device sync)."""
 
     loss: List[float] = dataclasses.field(default_factory=list)
     step_s: List[float] = dataclasses.field(default_factory=list)
@@ -86,6 +92,14 @@ class FFModel:
         # step bodies instead of the captured programs (the tests and
         # chip_smoke.py compare the two; no flag sets it)
         self._capture_steps = True
+        # the manual-loop staging: the bound batch, per-tensor values,
+        # the last backward's loss and grads
+        self._staged: Dict[str, Any] = {}
+        # the last fit's ResilienceSession (its counters: ``summary()``),
+        # None when that fit asked for no resilience feature
+        self.resilience = None
+        # the step count at which the last fit stopped for a preemption
+        self._preempted_at_step: Optional[int] = None
 
     # ======================================================= tensor creation ==
     def create_tensor(self, dims: Sequence[int],
@@ -689,14 +703,10 @@ class FFModel:
             y = y.reshape(y.shape[0], 1).astype(np.int32)
         return y
 
-    def _refuse_fit_options(self, recompile_state, chaos) -> None:
+    def _refuse_fit_options(self, recompile_state) -> None:
         """Every fit option outside this slice raises, naming its flag."""
         c = self.config
         refused = [
-            (bool(c.checkpoint_dir), "--checkpoint-dir"),
-            (int(c.max_bad_steps or 0) > 0, "--max-bad-steps"),
-            (bool((c.resume or "").strip()), "--resume"),
-            (chaos is not None, "chaos="),
             (bool(c.audit_strategy), "--audit-strategy"),
             (int(c.memory_budget_mb or 0) > 0, "--memory-budget-mb"),
             (bool(c.profile_ops), "--profile-ops"),
@@ -704,7 +714,6 @@ class FFModel:
             (bool(c.telemetry_file), "--telemetry-file"),
             (bool(c.trace_file), "--trace-file"),
             (recompile_state is not None, "recompile_state="),
-            ((c.remat or "none") != "none", "--remat"),
             ((c.collective_overlap or "off") == "on",
              "--collective-overlap on"),
             (bool(c.schedule), "--schedule (pipeline strategies)"),
@@ -713,14 +722,14 @@ class FFModel:
             if on:
                 raise NotImplementedError(
                     f"fit: {flag} is {LATER}; this slice trains on one "
-                    "device with the plain step")
+                    "device without telemetry, strategies or recompiles")
 
     def fit(self, x=None, y=None, batch_size: Optional[int] = None,
             epochs: Optional[int] = None, callbacks=None,
             recompile_state=None, shuffle: bool = True,
             chaos=None) -> PerfMetrics:
         """Training loop (reference: flexflow_cffi.py:2058-2100; the JAX
-        package's plain SPMD path, flexflow_tpu/model.py:875-1168): shuffled
+        package's SPMD loop, flexflow_tpu/model.py:875-1168): shuffled
         epochs (epoch e shuffles with seed ``config.seed + e``), batches
         staged onto the device one ahead, one train step per batch with
         the step's generator from ``_next_rng``, metrics folded on the host
@@ -730,60 +739,152 @@ class FFModel:
         and metrics come back as device copies, so the per-step values kept
         here stay distinct without a sync. ``--profiling`` prints the JAX
         package's ``step``, ``epoch`` and ``THROUGHPUT`` lines verbatim and
-        records each step's wall in ``fit_history.step_s``. Resilience, the
-        strategy cascade, telemetry and tracing, dynamic recompiles and
-        pipelines are refused (``NotImplementedError`` naming the flag)."""
+        records each step's wall in ``fit_history.step_s``.
+
+        Fault tolerance, when the config asks for it (``--checkpoint-dir``
+        / ``--checkpoint-every`` / ``--resume`` / ``--max-bad-steps``) or
+        ``chaos`` (a ``resilience.ChaosPlan``) is given: a
+        ``ResilienceSession`` resumes from the newest committed checkpoint
+        into the same epoch and batch (``batch_iterator(start_batch=)``,
+        the rng counter restored), runs each batch through the guarded step
+        (one bool a step comes to the host), takes an async atomic
+        checkpoint every ``--checkpoint-every`` steps, rolls back to the
+        last committed one after ``--max-bad-steps`` bad steps in a row
+        (cutting the LR from the second rollback on), and on SIGTERM or
+        SIGINT finishes the step in flight, flushes a final checkpoint and
+        returns (``_preempted_at_step``). Its counters stay readable as
+        ``self.resilience.summary()``. The forward follows ``--remat``.
+        An ``Optimizer.set_learning_rate`` since the last fit drops the
+        captured steps, which baked the old rate in. Telemetry and
+        tracing, the strategy cascade, dynamic recompiles and pipelines
+        are refused (``NotImplementedError`` naming the flag)."""
         import torch
 
         from .data.dataloader import batch_iterator, prefetch_iterator
         from .resilience.preflight import validate_batch
+        from .resilience.session import ResilienceSession
 
         self._require_compiled()
-        self._refuse_fit_options(recompile_state, chaos)
+        self._refuse_fit_options(recompile_state)
         xs = self._as_input_list(x)
         y = self._prep_label(y)
         batch_size = batch_size or self.config.batch_size
         epochs = epochs or self.config.epochs
         validate_batch(self, xs, y, phase="fit")
-        step_fn = self.executor.make_train_step(capture=self._capture_steps)
+        if getattr(self.optimizer, "_lr_changed", False):
+            # set_learning_rate since the steps were captured: they baked
+            # the old rate in (as the JAX keras loop watches the flag)
+            self.executor.invalidate_jit_cache()
+        session = None
+        if ResilienceSession.wanted(self.config, chaos):
+            session = ResilienceSession(self, chaos=chaos)
+            session.install_signal_handlers()
+        self.resilience = session
+        guard = session.guard if session is not None else None
+        step_fn = (None if guard is not None else
+                   self.executor.make_train_step(capture=self._capture_steps))
         profiling = bool(self.config.profiling)
         cuda = self.device.type == "cuda"
         self._perf = PerfMetrics()
         self.fit_history = FitHistory()
+        steps_per_epoch = xs[0].shape[0] // batch_size
         losses = []
-        step_count = 0
+        step_count = executed = 0
+        epoch0 = skip_batches = 0
         loss_val = None
-        t0 = time.time()
-        for epoch in range(epochs):
-            it = batch_iterator(xs + [y], batch_size, shuffle=shuffle,
-                                seed=self.config.numpy_seed() + epoch)
-            epoch_metrics = []
-            for batch in prefetch_iterator(it, self.device):
-                bx, by = batch[:-1], batch[-1]
-                t_step = time.perf_counter()
-                self.params, self.opt_state, loss_val, m = step_fn(
-                    self.params, self.opt_state, bx, by, self._next_rng())
-                step_count += 1
-                losses.append(loss_val)
-                epoch_metrics.append(m)
-                if profiling:
-                    if cuda:
-                        torch.cuda.synchronize(self.device)
-                    self.fit_history.step_s.append(
-                        time.perf_counter() - t_step)
-                    if step_count % max(self.config.print_freq, 1) == 0:
-                        print(f"step {step_count}: loss="
-                              f"{float(loss_val):.4f}")
-            for m in epoch_metrics:
-                self._perf.update({k: (v.item() if torch.is_tensor(v)
-                                       else v) for k, v in m.items()})
-            if profiling and loss_val is not None:
-                print(f"epoch {epoch}: loss={float(loss_val):.4f}")
+        self._preempted_at_step = None
+        try:
+            if session is not None:
+                resumed = session.maybe_resume()
+                if resumed is not None:
+                    step_count, epoch0, skip_batches = resumed
+                    if steps_per_epoch and skip_batches >= steps_per_epoch:
+                        epoch0 += skip_batches // steps_per_epoch
+                        skip_batches %= steps_per_epoch
+            t0 = time.time()
+            epoch = epoch0
+            preempted = False
+            while epoch < epochs:
+                # start_batch replays an interrupted epoch's tail: the same
+                # seed reproduces the shuffle, the cursor skips what the
+                # restored checkpoint already consumed
+                it = batch_iterator(xs + [y], batch_size, shuffle=shuffle,
+                                    seed=self.config.numpy_seed() + epoch,
+                                    start_batch=skip_batches)
+                batch_in_epoch = skip_batches
+                skip_batches = 0
+                epoch_metrics = []
+                rolled_back = False
+                for batch in prefetch_iterator(it, self.device):
+                    bx, by = batch[:-1], batch[-1]
+                    if session is not None and session.chaos is not None:
+                        bx = session.chaos.poison_batch(step_count, bx)
+                        session.chaos.maybe_preempt(step_count)
+                    t_step = time.perf_counter()
+                    step_ok = True
+                    if guard is not None:
+                        (self.params, self.opt_state, loss_val, m), \
+                            step_ok = guard(self.params, self.opt_state, bx,
+                                            by, self._next_rng())
+                    else:
+                        self.params, self.opt_state, loss_val, m = step_fn(
+                            self.params, self.opt_state, bx, by,
+                            self._next_rng())
+                    step_count += 1
+                    batch_in_epoch += 1
+                    executed += 1
+                    losses.append(loss_val)
+                    if step_ok:
+                        # a skipped step's NaN metrics stay out of the fold
+                        epoch_metrics.append(m)
+                    if profiling:
+                        if cuda:
+                            torch.cuda.synchronize(self.device)
+                        self.fit_history.step_s.append(
+                            time.perf_counter() - t_step)
+                        if step_count % max(self.config.print_freq, 1) == 0:
+                            print(f"step {step_count}: loss="
+                                  f"{float(loss_val):.4f}")
+                    if not step_ok:
+                        session.record_fault(step_count - 1)
+                        if guard.should_rollback:
+                            step_count, epoch, skip_batches = \
+                                session.rollback()
+                            epoch_metrics = []  # poisoned partials dropped
+                            rolled_back = True
+                            break
+                    if session is not None:
+                        session.on_step(step_count, epoch, batch_in_epoch,
+                                        steps_per_epoch)
+                        if session.preempted:
+                            # finish cleanly: a final committed checkpoint
+                            self._preempted_at_step = step_count
+                            session.note_preemption(step_count)
+                            session.final_checkpoint(step_count, epoch,
+                                                     batch_in_epoch,
+                                                     steps_per_epoch)
+                            preempted = True
+                            break
+                for m in epoch_metrics:
+                    self._perf.update({k: (v.item() if torch.is_tensor(v)
+                                           else v) for k, v in m.items()})
+                if rolled_back:
+                    continue  # re-enter at the restored epoch and batch
+                if preempted:
+                    break
+                if profiling and loss_val is not None:
+                    print(f"epoch {epoch}: loss={float(loss_val):.4f}")
+                epoch += 1
+        finally:
+            if session is not None:
+                session.close()
         if losses:
             self.fit_history.loss = torch.stack(losses).cpu().tolist()
         elapsed = time.time() - t0
         self._last_fit_time = elapsed
-        self._last_fit_samples = step_count * batch_size
+        # executed steps: a resume's skipped batches do not count, a
+        # rollback's replayed ones do
+        self._last_fit_samples = executed * batch_size
         if elapsed > 0 and profiling:
             print(f"THROUGHPUT = {self._last_fit_samples / elapsed:.2f} "
                   "samples/s")
@@ -849,6 +950,138 @@ class FFModel:
             host[-1] = host[-1][:tail_rows * per_sample]
         return np.concatenate(host, axis=0)
 
+    # ---- manual-loop API (model.cc:2415-2469; flexflow_tpu/model.py:
+    # 1398-1520) -----------------------------------------------------------
+    def init_operators(self) -> None:
+        """Kept for the reference's API: ops hold no state to create."""
+
+    def init_layers(self) -> None:
+        """The reference's name for :meth:`init_operators` (no-op)."""
+
+    def _staged_batch(self, what: str):
+        self._require_compiled()
+        self._ensure_staged_batch()
+        batch = self._staged.get("batch")
+        if batch is None:
+            raise RuntimeError(f"{what}: bind a batch first via "
+                               "next_batch/set_batch/set_tensor")
+        return batch
+
+    def forward(self, seq_length: Optional[int] = None) -> None:
+        """The inference forward of the bound batch (``predict``'s); its
+        output is kept as the staged logits."""
+        xs, _ = self._staged_batch("forward()")
+        self._staged["logits"] = self.executor.make_forward()(self.params,
+                                                              xs)
+
+    def zero_gradients(self) -> None:
+        self._staged.pop("grads", None)
+
+    def backward(self, seq_length: Optional[int] = None) -> None:
+        """Loss and grads of the bound batch: the train step's forward
+        (dropout from the next step generator, the ``--remat`` plan) and
+        ``autograd`` over the fp32 masters. Refuses to train against the
+        zero label placeholder that forward-only staging binds."""
+        xs, y = self._staged_batch("backward()")
+        if self._staged.get("label_placeholder"):
+            raise RuntimeError(
+                "backward() needs a real label batch: stage one via "
+                "label_tensor.set_tensor(...) or set_batch(x, y) — refusing "
+                "to train against the zero placeholder")
+        loss, _logits, grads = self.executor.loss_and_grads(
+            self.params, xs, y, self._next_rng())
+        self._staged["loss"], self._staged["grads"] = loss, grads
+
+    def update(self) -> None:
+        """The optimizer's in-place update with the last backward's
+        grads."""
+        grads = self._staged.get("grads")
+        if grads is None:
+            raise RuntimeError("update(): call backward() first")
+        self.params, self.opt_state = self.optimizer.update(
+            self.params, grads, self.opt_state)
+
+    def set_batch(self, x, y) -> None:
+        """Bind inputs ``x`` and labels ``y`` on the device for the manual
+        loop."""
+        from .data.dataloader import to_device
+
+        xs = to_device(self._as_input_list(x), self.device)
+        (lab,) = to_device([self._prep_label(y)], self.device)
+        self._staged["batch"] = (xs, lab)
+        self._staged["label_placeholder"] = False
+
+    def _stage_tensor_value(self, tensor, np_array) -> None:
+        """``Tensor.set_tensor`` host staging (reference:
+        ParallelTensorBase::set_tensor, parallel_tensor.cc:698): the next
+        forward / backward binds the staged input and label values as one
+        batch."""
+        per = self._staged.setdefault("per_tensor", {})
+        per[tensor.guid] = np.asarray(np_array)
+        self._staged["per_tensor_dirty"] = True
+
+    def _label_placeholder(self) -> np.ndarray:
+        import torch
+
+        return torch.zeros(self.label_tensor.dims, dtype=dtype_to_torch(
+            self.label_tensor.dtype)).numpy()
+
+    def _ensure_staged_batch(self) -> None:
+        if not self._staged.get("per_tensor_dirty"):
+            return
+        per = self._staged.get("per_tensor", {})
+        if not all(t.guid in per for t in self._input_tensors):
+            return
+        xs = [per[t.guid] for t in self._input_tensors]
+        placeholder = False
+        if self.label_tensor is not None and self.label_tensor.guid in per:
+            y = per[self.label_tensor.guid]
+        elif self.label_tensor is not None:
+            # forward-only staging: a zero placeholder keeps forward()
+            # usable, and backward() refuses it
+            y = self._label_placeholder()
+            placeholder = True
+        else:
+            return
+        self.set_batch(xs, y)
+        self._staged["label_placeholder"] = placeholder
+        self._staged["per_tensor_dirty"] = False
+
+    def _activation_value(self, tensor) -> np.ndarray:
+        """``get_tensor`` of an activation: the inference forward of the
+        bound batch, that layer's output (float32 for 16-bit values)."""
+        import torch
+
+        from .ops.base import OpContext
+
+        xs, _ = self._staged_batch(f"reading activation {tensor.name}")
+        guid = self._tensor_to_node[tensor.guid]
+        ex = self.executor
+        with torch.inference_mode():
+            params, xs = ex._cast_for_compute(self.params, list(xs),
+                                              cache=True)
+            vals = ex.forward_outputs(params, ex._bind_inputs(xs),
+                                      OpContext(training=False,
+                                                device=self.device))
+        out = vals[guid][tensor.owner_idx]
+        return (out.float() if out.is_floating_point() else out).cpu() \
+            .numpy()
+
+    def _staged_tensor_value(self, tensor) -> np.ndarray:
+        per = self._staged.get("per_tensor", {})
+        if tensor.guid in per:
+            return np.asarray(per[tensor.guid])
+        if self.label_tensor is not None and tensor is self.label_tensor:
+            return self._label_placeholder()
+        raise KeyError(f"{tensor.name}: no value staged; call set_tensor")
+
+    def create_data_loader(self, batch_tensor: Tensor, full_array):
+        """A loader of ``batch_tensor``-sized batches of ``full_array``
+        (reference: flexflow_cffi.py:2447)."""
+        from .data.dataloader import SingleDataLoader
+
+        return SingleDataLoader(self, batch_tensor, full_array)
+
     def get_perf_metrics(self) -> PerfMetrics:
         return self._perf
 
@@ -884,6 +1117,35 @@ class FFModel:
 
     def get_layers(self) -> Dict[int, Layer]:
         return {i: layer for i, layer in enumerate(self._layers)}
+
+    def get_layer_by_id(self, layer_id: int) -> Layer:
+        return self._layers[layer_id]
+
+    def get_layer_by_name(self, name: str) -> Optional[Layer]:
+        return next((layer for layer in self._layers if layer.name == name),
+                    None)
+
+    def get_tensor_by_id(self, id: int) -> Tensor:
+        """Weight tensors in declaration order (reference:
+        flexflow_cffi.py:2179, the parameter id over the whole model)."""
+        return [w for layer in self._layers for w in layer.weights][id]
+
+    # ---- surfaces of later slices ---------------------------------------
+    def get_telemetry(self):
+        raise NotImplementedError(
+            f"FFModel.get_telemetry is {LATER}: step telemetry comes with "
+            "obs/telemetry (--telemetry-file); the resilience counters of "
+            "the last fit are self.resilience.summary()")
+
+    def profile_operators(self, max_ops: int = 8) -> None:
+        raise NotImplementedError(
+            f"FFModel.profile_operators is {LATER}: it times ops through "
+            "the search's simulator")
+
+    def recompile_on_condition(self, recompile_state) -> bool:
+        raise NotImplementedError(
+            f"FFModel.recompile_on_condition is {LATER}: the dynamic "
+            "recompile (recompile_state=) pairs with the cache op")
 
     def __repr__(self) -> str:
         return (f"FFModel(layers={len(self._layers)}, "

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..execution.graphs import next_seed
 from ..ffconst import OperatorType
 from .base import Op, OpContext, register_op
 
@@ -294,7 +295,7 @@ def _attention_core(attrs, q, k, v, ctx: OpContext, causal: bool):
     where ``_should_use_flash`` and the block table allow, else the einsum
     core (flexflow_tpu/ops/attention.py:134-147)."""
     live = _resolve_live_dropout(attrs.get("dropout", 0.0), ctx)
-    seed = _dropout_seed(ctx.rng) if live else None
+    seed = next_seed(ctx.rng) if live else None
     blocks = _flash_blocks(q.shape[-2], k.shape[-2])
     if _should_use_flash(attrs.get("use_flash", "auto"), q, k, causal) \
             and blocks is not None:
@@ -303,19 +304,6 @@ def _attention_core(attrs, q, k, v, ctx: OpContext, causal: bool):
         return flash_attention(q, k, v, causal, *blocks, dropout=live,
                                seed=seed)
     return mha_core(q, k, v, causal=causal, dropout=live, seed=seed)
-
-
-def _dropout_seed(rng):
-    """The next dropout seed of the step: one uint32 drawn from ``rng``
-    when it is the step's ``torch.Generator`` (JAX folds its step key into
-    ``jax.random.bits``), else the next of a step program's
-    :class:`~flexflow_tpu_torch.execution.graphs.DropoutSeeds` (the same
-    values, drawn from the same generator in the same order)."""
-    from ..execution.graphs import DropoutSeeds, draw_seed
-
-    if isinstance(rng, DropoutSeeds):
-        return rng.next()
-    return draw_seed(rng)
 
 
 def _resolve_live_dropout(dropout, ctx) -> float:
@@ -401,7 +389,7 @@ class SDPAOp(Op):
         mask = inputs[3] if len(inputs) > 3 else None
         causal = self.attrs.get("causal", False)
         live = _resolve_live_dropout(self.attrs.get("dropout", 0.0), ctx)
-        seed = _dropout_seed(ctx.rng) if live else None
+        seed = next_seed(ctx.rng) if live else None
         blocks = _flash_blocks(q.shape[-2], k.shape[-2])
         # the flash kernels take no mask and no scale
         if mask is None and self.attrs.get("scale") is None \

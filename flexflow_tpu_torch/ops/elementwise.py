@@ -199,7 +199,7 @@ class DropoutOp(Op):
         return [input_shapes[0]]
 
     def forward(self, params, inputs, ctx: OpContext):
-        from .attention import _dropout_seed
+        from ..execution.graphs import next_seed
 
         (x,) = inputs
         rate = float(self.attrs.get("rate", 0.5))
@@ -210,6 +210,6 @@ class DropoutOp(Op):
                 f"{self.name}: dropout in a training forward needs the "
                 "step's random stream (OpContext.rng); fit and "
                 "make_train_step pass it")
-        mask = dropout_mask(_dropout_seed(ctx.rng), tuple(x.shape), rate,
+        mask = dropout_mask(next_seed(ctx.rng), tuple(x.shape), rate,
                             x.device)
         return [(x * mask).to(x.dtype)]

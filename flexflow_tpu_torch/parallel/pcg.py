@@ -3,9 +3,10 @@
 Port of ``flexflow_tpu.parallel.pcg`` (reference: ``PCG::Graph``,
 include/flexflow/graph.h:293): a graph of (Op, guid) nodes over edges that
 carry tensor indices. This slice runs on one device, so it keeps what
-lowering needs — construction, topological order, sources/sinks — and
-leaves the search-time mutations (edge insertion, splitting, structural
-hashing) to the multi-GPU slice that brings strategies and meshes.
+lowering and the remat segmentation need — construction, topological
+order, sources/sinks, bottlenecks — and leaves the search-time mutations
+(edge insertion, splitting, structural hashing) to the multi-GPU slice
+that brings strategies and meshes.
 """
 from __future__ import annotations
 
@@ -72,6 +73,16 @@ class PCG:
         return [n for n in self.topo_order()
                 if n.op.op_type not in (OperatorType.OP_INPUT,
                                         OperatorType.OP_WEIGHT)]
+
+    def bottlenecks(self) -> List[int]:
+        """Compute-node guids every source-to-sink path passes through
+        (reference: find_bottleneck_node via imm_post_dominators,
+        graph.cc:610-623), sinks excluded."""
+        from ..utils.graph_utils import find_bottlenecks, pcg_basic_graph
+
+        sinks = set(x.guid for x in self.sinks())
+        return [b for b in find_bottlenecks(pcg_basic_graph(self))
+                if b not in sinks]
 
     def __len__(self) -> int:
         return len(self.nodes)

@@ -37,6 +37,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from ..execution.graphs import HostTransfer
 from ..ffconst import DataType, OperatorType
 from .kvcache import DecodeState
 from .scheduler import ContinuousBatchScheduler, Request, default_buckets
@@ -178,30 +179,6 @@ class _HostStaging:
         out.copy_(buf, non_blocking=True)
         event.record()
         return out
-
-
-class _Transfer:
-    """A device->host copy of sampled tokens: on CUDA ``non_blocking`` into
-    pinned memory with an event recorded behind it, so the host goes on
-    until :meth:`wait` blocks on the event."""
-
-    def __init__(self, toks):
-        import torch
-
-        self.event = None
-        if toks.device.type == "cuda":
-            self.host = torch.empty(toks.shape, dtype=toks.dtype,
-                                    pin_memory=True)
-            self.host.copy_(toks, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record()
-        else:
-            self.host = toks.clone()
-
-    def wait(self) -> np.ndarray:
-        if self.event is not None:
-            self.event.synchronize()
-        return self.host.numpy().copy()
 
 
 def gumbel_scores(logits, tag_counts, seed, temperature: float,
@@ -808,7 +785,7 @@ class _ServeLoop:
     def _settle_pending(self) -> None:
         return None
 
-    def _fetch(self, transfer: _Transfer) -> np.ndarray:
+    def _fetch(self, transfer: HostTransfer) -> np.ndarray:
         """THE blocking host transfer of a decode step's tokens (both loops
         land every decode result through it), counted in
         ``stats.host_syncs``: one a committed decode step."""
@@ -845,7 +822,7 @@ class _ServeLoop:
         toks = self.sampler(
             last, self._tag_counts([(self._tag(req), len(req.generated))]),
             self.seed)
-        return toks, int(_Transfer(toks).wait()[0])
+        return toks, int(HostTransfer(toks).wait()[0])
 
     def _sample(self, live, logits, pending=None):
         """Sample every slot's next token on the device and feed it back as
@@ -994,7 +971,7 @@ class _ServeLoop:
         t_d = time.perf_counter()
         logits = self._dispatch_decode()
         toks = self._sample(live, logits)
-        toks_host = self._fetch(_Transfer(toks))
+        toks_host = self._fetch(HostTransfer(toks))
         wall = time.perf_counter() - t_d
         self._commit_arrival(live, None, toks_host, wall)
         self._acct_tick(t_tick, t_d, wall)
@@ -1020,7 +997,7 @@ class _PendingStep:
     slot recycled while the result was in flight discards its entry), and
     the dispatch time."""
 
-    transfer: _Transfer
+    transfer: HostTransfer
     live: List
     epochs: List[int]
     t_d: float
@@ -1107,7 +1084,7 @@ class _AsyncServeLoop(_ServeLoop):
             stats.host_dispatch_s += max(issued - t_tick, 0.0)
         toks = self._sample(live, logits, pending=self._pending)
         prev, self._pending = self._pending, _PendingStep(
-            transfer=_Transfer(toks), live=list(live),
+            transfer=HostTransfer(toks), live=list(live),
             epochs=[self.sched.slot_epoch[s] for s, _ in live], t_d=t_d)
         blocked = self._settle_step(prev) if prev is not None else 0.0
         stats.host_overlap_s += max(

@@ -51,6 +51,9 @@ def params_from_numpy(np_params: Dict[str, Dict[str, Any]], device,
 
 def params_to_numpy(params: Dict[str, Dict[str, Any]]
                     ) -> Dict[str, Dict[str, np.ndarray]]:
-    """The inverse of :func:`params_from_numpy`."""
-    return {node: {w: t.detach().cpu().numpy() for w, t in ws.items()}
+    """The inverse of :func:`params_from_numpy`: host copies (the train
+    step updates the params in place, so a view of a CPU tensor would
+    change under its holder)."""
+    return {node: {w: t.detach().cpu().numpy().copy()
+                   for w, t in ws.items()}
             for node, ws in params.items()}

@@ -13,7 +13,9 @@
   serving engine would otherwise parse and ignore, an LSTM graph in the
   serving engine, and ``FFModel.cache``, naming itself. The recurrent and
   MoE builders, which refused by name before their slice, build the same
-  output shapes as the JAX package's.
+  output shapes as the JAX package's. Every public method of the JAX
+  package's ``FFModel`` and ``Tensor`` exists on the port's (ported, or
+  refusing by name), so none raises ``AttributeError``.
 """
 import ast
 import os
@@ -62,7 +64,10 @@ def test_importing_every_module_loads_neither_jax_nor_flexflow_tpu():
               "resilience.preflight", "models.bert", "ops.tensor_ops",
               "ops.conv", "ops.elementwise", "models.vision",
               "models.dlrm", "models.misc", "ops.recurrent", "ops.moe_ops",
-              "models.nmt", "models.transformer"):
+              "models.nmt", "models.transformer", "utils.durable_io",
+              "utils.graph_utils", "obs.trace", "execution.checkpoint",
+              "execution.remat", "resilience.chaos", "resilience.sentinel",
+              "resilience.session"):
         assert f"flexflow_tpu_torch.{m}" in mods
     script = (
         "import importlib, json, sys\n"
@@ -264,16 +269,12 @@ def _xy():
 
 
 @pytest.mark.parametrize("field,value,flag", [
-    ("checkpoint_dir", "ckpt", "--checkpoint-dir"),
-    ("max_bad_steps", 2, "--max-bad-steps"),
-    ("resume", "auto", "--resume"),
     ("audit_strategy", True, "--audit-strategy"),
     ("memory_budget_mb", 1024, "--memory-budget-mb"),
     ("profile_ops", "ops.jsonl", "--profile-ops"),
     ("profiler_trace_dir", "trace", "--profiler-trace-dir"),
     ("telemetry_file", "tel.json", "--telemetry-file"),
     ("trace_file", "trace.json", "--trace-file"),
-    ("remat", "full", "--remat"),
     ("collective_overlap", "on", "--collective-overlap"),
     ("schedule", "1f1b", "--schedule"),
 ])
@@ -284,8 +285,7 @@ def test_fit_refuses_config_flags_of_later_slices(field, value, flag):
     assert flag in str(e.value)
 
 
-@pytest.mark.parametrize("kwarg,flag", [("chaos", "chaos="),
-                                        ("recompile_state",
+@pytest.mark.parametrize("kwarg,flag", [("recompile_state",
                                          "recompile_state=")])
 def test_fit_refuses_arguments_of_later_slices(kwarg, flag):
     ff = _tiny_mlp()
@@ -415,3 +415,22 @@ def test_every_jax_builder_exists_in_the_port():
     for name in builders:
         assert callable(getattr(fj.FFModel, name)), name
         assert callable(getattr(ft.FFModel, name)), name
+
+
+@pytest.mark.parametrize("cls", ["FFModel", "Tensor"])
+def test_every_public_jax_method_exists_in_the_port(cls):
+    """Each public method of the JAX package's ``FFModel`` and ``Tensor``
+    exists on the port's, ported or refusing by name: none raises
+    ``AttributeError``. The refusing ones name themselves."""
+    import flexflow_tpu as fj
+
+    jcls, tcls = getattr(fj, cls), getattr(ft, cls)
+    names = [n for n in dir(jcls) if not n.startswith("_")]
+    assert [n for n in names if not hasattr(tcls, n)] == []
+    if cls == "FFModel":
+        ff = _tiny_mlp()
+        for name, args in (("get_telemetry", ()), ("profile_operators", ()),
+                           ("recompile_on_condition", (object(),))):
+            with pytest.raises(NotImplementedError, match=LATER) as e:
+                getattr(ff, name)(*args)
+            assert f"FFModel.{name} " in str(e.value)
