@@ -223,6 +223,36 @@ timed generate only replays):
    checkpoints 2``; under ``$TMPDIR`` or, with more room, the checkout;
    about 11 GB at most), removed at the end.
 
+11. obs — observability, fusion and the cache op's recompile: (a) the
+   BERT-Large proxy (bf16, Adam) through ``fit`` with ``--telemetry-file``
+   and ``--trace-file``: a fit's marginal step (12 replays less 6) without
+   and with telemetry (each step then waits for its loss), the telemetry's
+   ``steady_step_s``, samples/s, ``estimated_mfu`` against the card's peak
+   (``obs.detect_peak_flops``), ``model_flops_per_step`` (the JAX count:
+   ``train_flops_per_step`` plus three times the output elements of the
+   ops without a cost hook) and ``device_memory``; the Chrome trace's
+   ``compile``, ``train_step`` and ``epoch`` events; then three steps of a
+   fresh capture under ``--profiler-trace-dir``: every node named by a
+   ``record_function`` range, 24 B1 and 24 B2 kernels in each replay;
+   (b) before that, the same proxy compiled with ``--fusion``: 48 regions
+   (the JAX pass's count, ``tests/test_torch_fusion.py``), 24 + 24 flash
+   launches a step as unfused, the first loss bitwise the unfused
+   model's from the seed's weights, the params after 4 steps within
+   ``GRAPH_TOL`` (bf16 B2's dQ sums are unordered), both p50s; (c) GPT-2
+   small (fp32, vocab 50304) serves the e2e prompts with int8 KV and top-k
+   8 under ``--serve-loop async``, captured, untraced and then with
+   ``obs.enable_reqtrace()`` and ``--telemetry-file``, each on a fresh
+   warmed engine: streams equal, one ``ok`` record a request with its
+   tokens, the telemetry's tokens equal ``ServingStats``', no capture and
+   at most ``MAX_LAUNCH_CALLS_PER_ACTION`` kernel launch calls a
+   scheduler action, 12 B5 (int8) a decode step and one B7 a sampler
+   call, tokens/s and ``host_bookkeep_s`` each way; (d)
+   ``tests/test_cache_op.py``'s MoE model with the cache op and a
+   ``RecompileState``: the trigger fires once, the cache scores lie in
+   [0, 1], the old program is dropped and the new one captures once, not
+   again in a later fit; then a recompile's compile, eager and capture
+   seconds. Its files go to a temporary directory removed at the end.
+
 It prints the run's wall seconds, one ``{"kernels": [...]}`` line (the
 entries of the instances the census covers also carry their SASS counts,
 registers, spills and shared memory; the flash-decode entries their
@@ -231,8 +261,9 @@ registers and spills; the two-pass entries SDPA's backward as
 proxy's B1 and B2 as ``flash_fwd_transformer`` and
 ``flash_bwd_fused_transformer``, timed at the fp32 BERT shape, which is
 theirs; the decoder's B5 as ``flash_decode_decoder``; B1 and B2 under
-``--remat full`` as ``flash_fwd_remat`` and ``flash_bwd_fused_remat``),
-the card's
+``--remat full`` as ``flash_fwd_remat`` and ``flash_bwd_fused_remat``;
+phase 11's as ``flash_fwd_obs``, ``flash_bwd_fused_obs``,
+``flash_decode_int8_obs`` and ``topk_obs``), the card's
 name and power limit (nvidia-smi), and as its last line ``{"ok": true, "device": {...}}``. Any
 failed phase exits non-zero; without CUDA, or without the package, it
 exits 1 and prints no result.
@@ -1573,14 +1604,15 @@ def fa_kernel_phase(device, card: str):
 
 # ------------------------------------------------------------ training phase
 def train_model(kind: str, compute: str, device, seq: int = 512,
-                batch: int = 8, softmax_kernel: bool = False):
+                batch: int = 8, softmax_kernel: bool = False,
+                fusion: bool = False):
     """A model the port trains, as a user builds it: the BERT-Large proxy
     (``bench.py``'s flagship config) or GPT-2 small with a softmax head and
     token-level labels; Adam, sparse categorical cross-entropy; random
     weights from the seed. ``softmax_kernel``: GPT-2 small at vocab 50304
     with the head's softmax opted into the row-softmax kernel
     (``ff.softmax(logits, use_pallas=True)``). ``--profiling`` records
-    each step's wall."""
+    each step's wall; ``fusion`` compiles with ``--fusion``."""
     from flexflow_tpu_torch import (AdamOptimizer, DataType, FFConfig,
                                     FFModel, LossType, MetricsType)
     from flexflow_tpu_torch.models.bert import BertConfig, build_bert
@@ -1589,6 +1621,7 @@ def train_model(kind: str, compute: str, device, seq: int = 512,
     config = FFConfig()
     config.batch_size, config.seed = batch, SEED
     config.profiling, config.print_freq = True, 1
+    config.perform_fusion = fusion
     if compute == "bf16":
         config.compute_dtype = DataType.DT_BFLOAT16
     ff = FFModel(config, device=device)
@@ -3732,6 +3765,452 @@ def resilient_phase(device, card: str) -> dict:
     return res
 
 
+# ------------------------------------------------------------ phase 11: obs
+OBS_STEPS = 6
+# regions of --fusion on the BERT-Large proxy: the count the JAX pass gives
+# on the same graph (tests/test_torch_fusion.py, BERT_LARGE_REGIONS)
+FUSION_REGIONS = 48
+FUSION_STEPS = 4
+# gate (c)'s sampling: the sampler's top-k (B7) at k = 8
+OBS_SERVE_SAMPLING = dict(temperature=0.8, top_k=8, seed=SEED)
+
+
+def chrome_events(path: str) -> list:
+    with open(path) as f:
+        return json.load(f)["traceEvents"]
+
+
+def obs_fusion(device, card: str, ff, cfg, x, y) -> dict:
+    """Gate (b): the BERT-Large proxy compiled with ``--fusion`` against
+    ``ff`` (the same proxy unfused, at its initial weights: both from the
+    seed, whose draws the regions keep in order)."""
+    import torch
+
+    from flexflow_tpu_torch import OperatorType
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    label = "obs fusion"
+    t = time.perf_counter()
+    fused, _cfg = train_model("bert", "bf16", device, fusion=True)
+    built = time.perf_counter() - t
+    regions = [n for n in fused.pcg.compute_nodes()
+               if n.op.op_type == OperatorType.OP_FUSED]
+    if len(regions) != FUSION_REGIONS or \
+            len(fused.pcg.compute_nodes()) != FUSION_REGIONS:
+        fail(f"{label}: {len(regions)} regions of "
+             f"{len(fused.pcg.compute_nodes())} nodes, want "
+             f"{FUSION_REGIONS} of {FUSION_REGIONS}")
+    n = cfg.batch_size * FUSION_STEPS
+    res = {}
+    for name, model in (("unfused", ff), ("fused", fused)):
+        model.config.print_freq = 10 ** 9
+        fa.reset_launch_count()
+        model.fit(x[:n], y[:n], epochs=1)
+        torch.cuda.synchronize()
+        totals = {k: fa.launch_count(k) for k in fa.KERNELS
+                  if fa.launch_count(k)}
+        params = {}
+        for region, ws in model.params.items():
+            for w, v in ws.items():
+                # a fused weight sub{i}:{op}:{w} under its op's own name
+                key = tuple(w.split(":")[1:]) if ":" in w else (region, w)
+                params[key] = v.detach().clone()
+        res[name] = dict(losses=list(model.fit_history.loss),
+                         totals=totals, params=params)
+    for name, model in (("unfused", ff), ("fused", fused)):
+        model.fit(x, y, epochs=1)  # replays only
+        res[name]["p50_ms"] = float(np.median(model.fit_history.step_s)) * 1e3
+    u, f = res["unfused"], res["fused"]
+    want = {"flash_fwd": cfg.num_layers * FUSION_STEPS,
+            "flash_bwd_fused": cfg.num_layers * FUSION_STEPS}
+    keys = sorted(u["params"])
+    if sorted(f["params"]) != keys:
+        fail(f"{label}: the fused model's weights are not the unfused ones "
+             "under region names")
+    prel = rel_norm([f["params"][k] for k in keys],
+                    [u["params"][k] for k in keys])
+    log(f"{label}: {len(regions)} regions (the JAX pass's count on this "
+        f"graph), built in {built:.1f} s; flash launches over "
+        f"{FUSION_STEPS} steps {f['totals']} fused, {u['totals']} unfused; "
+        f"first-step loss "
+        f"{f['losses'][0]!r} fused, {u['losses'][0]!r} unfused; params "
+        f"after {FUSION_STEPS} steps relative norm difference {prel:.3g} "
+        f"(tol {GRAPH_TOL['bf16'][1]}); p50 step {f['p50_ms']:.3f} ms "
+        f"fused, {u['p50_ms']:.3f} ms unfused over {OBS_STEPS} replays "
+        f"[{card}]")
+    if f["totals"] != want or u["totals"] != want:
+        fail(f"{label}: flash launches over {FUSION_STEPS} steps "
+             f"{f['totals']} / {u['totals']}, want {want}")
+    if f["losses"][0] != u["losses"][0]:
+        fail(f"{label}: first-step loss {f['losses'][0]} fused vs "
+             f"{u['losses'][0]} unfused, want bitwise equal")
+    if not prel <= GRAPH_TOL["bf16"][1]:
+        fail(f"{label}: params after {FUSION_STEPS} steps {prel} apart")
+    for r in res.values():
+        del r["params"]
+    del fused
+    torch.cuda.empty_cache()
+    return dict(res, regions=len(regions), param_rel_diff=prel)
+
+
+def obs_bert(device, card: str, tmp: str) -> dict:
+    """Gates (a) and (b): the BERT-Large proxy (bf16, Adam) — first (b)
+    from its initial weights, then ``fit`` with ``--telemetry-file``,
+    ``--trace-file`` and, on a fresh capture, ``--profiler-trace-dir``."""
+    import collections
+    import os
+
+    import torch
+
+    from flexflow_tpu_torch import obs
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.models import train_flops_per_step
+    from flexflow_tpu_torch.ops.base import hookless_flops
+
+    label = "obs bert"
+    tracer = obs.enable()  # records compile's span from the build on
+    t = time.perf_counter()
+    ff, cfg = train_model("bert", "bf16", device)
+    built = time.perf_counter() - t
+    obs.set_tracer(obs.NoopTracer())  # no sink until the telemetry run
+    layers, batch = cfg.num_layers, cfg.batch_size
+    x, y = train_data("bert", cfg, batch * OBS_STEPS)
+    res = {"fusion": obs_fusion(device, card, ff, cfg, x, y)}
+
+    # the per-step sync telemetry costs: a fit's marginal step (the wall
+    # of 2 * OBS_STEPS replays less that of OBS_STEPS, so fit's own start
+    # and end, and the files telemetry writes, cancel) without a sink (one
+    # sync at the end of fit) and with one
+    ff.config.profiling = False
+    x2, y2 = np.concatenate([x, x]), np.concatenate([y, y])
+    walls = {}
+    for mode in ("plain", "telemetry"):
+        if mode == "telemetry":
+            obs.set_tracer(tracer)
+            ff.config.telemetry_file = os.path.join(tmp, "telemetry.json")
+            ff.config.trace_file = os.path.join(tmp, "trace.json")
+        fit_s = []
+        for xs, ys in ((x2, y2), (x, y)):  # the run gated last
+            fa.reset_launch_count()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ff.fit(xs, ys, epochs=1)
+            torch.cuda.synchronize()
+            fit_s.append(time.perf_counter() - t)
+        walls[mode] = (fit_s[0] - fit_s[1]) / OBS_STEPS * 1e3
+        totals = {k: fa.launch_count(k) for k in fa.KERNELS
+                  if fa.launch_count(k)}
+    tel_path, trace_path = ff.config.telemetry_file, ff.config.trace_file
+    ff.config.telemetry_file = ff.config.trace_file = ""
+    obs.disable()
+    with open(tel_path) as f:
+        tel = json.load(f)
+    names = collections.Counter(e["name"] for e in chrome_events(trace_path)
+                                if e["ph"] == "X")
+    flops = obs.model_flops_per_step(ff.pcg)
+    matmul = train_flops_per_step(ff)
+    rest = 3 * hookless_flops(ff.pcg)
+    peak = obs.detect_peak_flops()
+    mem = tel.get("device_memory") or {}
+    steady = tel.get("steady_step_s")
+    log(f"{label}: BERT-Large proxy bf16 built in {built:.1f} s; "
+        f"a fit's marginal step (the wall of {2 * OBS_STEPS} replays less "
+        f"that of {OBS_STEPS}, over {OBS_STEPS}): {walls['plain']:.3f} ms "
+        f"without telemetry (one sync at the end of fit), "
+        f"{walls['telemetry']:.3f} ms with it (each step waits for its "
+        f"loss); telemetry p50 steady_step_s "
+        f"{steady * 1e3 if steady else float('nan'):.3f} ms, "
+        f"samples_per_sec {tel.get('samples_per_sec')}, estimated_mfu "
+        f"{tel.get('estimated_mfu')} against {tel.get('peak_flops')} "
+        f"FLOP/s; model_flops_per_step {tel.get('model_flops_per_step')} = "
+        f"train_flops_per_step {matmul} + {rest} (3 x one FLOP an output "
+        f"element of the ops without a cost hook: norms, adds, pooling, "
+        f"softmax); device_memory {mem}; flash launches {totals}; trace "
+        f"events {dict(names)} [{card}]")
+    if not (steady and tel.get("samples_per_sec") and
+            tel.get("estimated_mfu") and peak is not None and
+            tel.get("peak_flops") == peak):
+        fail(f"{label}: telemetry lacks a figure: {tel}")
+    if tel.get("model_flops_per_step") != flops or flops != matmul + rest:
+        fail(f"{label}: model_flops_per_step {tel.get('model_flops_per_step')}"
+             f", obs {flops}, matmul {matmul} + hookless {rest}")
+    if not (mem.get("peak_memory_in_bytes", 0) >
+            mem.get("argument_size_in_bytes", 0) > 0):
+        fail(f"{label}: device_memory {mem}")
+    if tel.get("steps") != OBS_STEPS or \
+            names.get("train_step") != 3 * OBS_STEPS or \
+            names.get("compile") != 1 or names.get("epoch") != 2:
+        fail(f"{label}: {tel.get('steps')} telemetry steps, trace events "
+             f"{dict(names)}")
+    want = {"flash_fwd": layers * OBS_STEPS,
+            "flash_bwd_fused": layers * OBS_STEPS}
+    if totals != want:
+        fail(f"{label}: flash launches {totals}, want {want}")
+    res["telemetry"] = dict(walls, tel=tel, totals=totals, flops=flops,
+                            matmul=matmul)
+
+    # the profiler trace, from a fresh capture: an eager step names the
+    # nodes; the replays hold the kernels
+    prof_dir = os.path.join(tmp, "profile")
+    ff.executor.invalidate_jit_cache()
+    ff.config.profiler_trace_dir = prof_dir
+    t = time.perf_counter()
+    ff.fit(x[:3 * batch], y[:3 * batch], epochs=1)
+    prof_s = time.perf_counter() - t
+    ff.config.profiler_trace_dir = ""
+    (path,) = os.listdir(prof_dir)
+    events = chrome_events(os.path.join(prof_dir, path))
+    ranges = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    nodes = {n.name for n in ff.pcg.compute_nodes()}
+    launches = sorted(e["ts"] for e in events
+                      if e.get("cat") == "cuda_runtime"
+                      and "GraphLaunch" in e.get("name", ""))
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"
+               and launches and e["ts"] >= launches[0]]
+    fwd = sum("flash_fwd_sm90" in k for k in kernels)
+    bwd = sum("flash_bwd_fused_sm90" in k for k in kernels)
+    size = os.path.getsize(os.path.join(prof_dir, path))
+    log(f"{label} profiler: 3 steps (eager, capture, replay) in "
+        f"{prof_s:.1f} s, a {size / 2 ** 20:.1f} MiB Chrome trace; "
+        f"{len(nodes & ranges)} of {len(nodes)} nodes named by "
+        f"record_function ranges; {len(launches)} graph launches, after "
+        f"the first {fwd} flash_fwd_sm90 and {bwd} flash_bwd_fused_sm90 "
+        f"kernels [{card}]")
+    if not nodes <= ranges:
+        fail(f"{label}: nodes without a range in the profiler trace: "
+             f"{sorted(nodes - ranges)[:8]}")
+    if not launches or fwd != layers * len(launches) or \
+            bwd != layers * len(launches):
+        fail(f"{label}: {fwd} / {bwd} flash kernels in {len(launches)} "
+             f"replays, want {layers} each a replay")
+    res["profile"] = dict(seconds=prof_s, mib=size / 2 ** 20,
+                          replays=len(launches))
+    del ff
+    torch.cuda.empty_cache()
+    return res
+
+
+def obs_serve(device, card: str, prompt_set: dict, tmp: str) -> dict:
+    """Gate (c): GPT-2 small (fp32, vocab 50304) serves the e2e prompts
+    with int8 KV and top-k 8 sampling under ``--serve-loop async``,
+    captured, once untraced and once with ``obs.enable_reqtrace()`` and
+    ``--telemetry-file``, each on a fresh warmed engine."""
+    import os
+
+    import torch
+
+    from flexflow_tpu_torch import obs
+    from flexflow_tpu_torch.kernels import flash_decode as fd
+    from flexflow_tpu_torch.kernels import topk as tk
+    from flexflow_tpu_torch.models.gpt2 import GPT2Config
+
+    label = "obs serve int8 top8 async"
+    cfg = GPT2Config(vocab_size=VOCAB_PADDED)
+    shapes = {k: prompt_set[k] for k in ("lengths", "shared_len",
+                                         "n_shared", "new_tokens",
+                                         "max_len")}
+    ff = build_model(cfg, "fp32", device, shapes["max_len"])
+    ff.config.kv_dtype, ff.config.serve_loop = "int8", "async"
+    prompts = make_prompts(cfg.vocab_size, shapes["lengths"],
+                           shapes["shared_len"], shapes["n_shared"])
+    prof_prompts = make_prompts(cfg.vocab_size, shapes["lengths"],
+                                shapes["shared_len"], shapes["n_shared"],
+                                PROFILE_PROMPT_SEED)
+
+    def generate(ps):
+        outs = ff.generate(ps, max_new_tokens=shapes["new_tokens"],
+                           max_decode_len=shapes["max_len"],
+                           **OBS_SERVE_SAMPLING)
+        torch.cuda.synchronize()
+        return outs
+
+    res = {}
+    for mode in ("untraced", "traced"):
+        # a fresh engine for each (an empty prefix cache: the second run
+        # of the same prompts would hit it and admit other chunk shapes),
+        # warmed up on prompts of the same shapes
+        ff._serving_engine = None
+        warm_serving(ff, **shapes, **OBS_SERVE_SAMPLING)
+        eng = ff._serving_engine
+        rt = None
+        if mode == "traced":
+            rt = obs.enable_reqtrace()
+            ff.config.telemetry_file = os.path.join(tmp, "serving.json")
+        before = serving_captures(eng)
+        fd.reset_launch_count()
+        tk.reset_launch_count()
+        outs = generate(prompts)
+        counts = {"flash_decode_int8": fd.launch_count("flash_decode_int8"),
+                  "topk": tk.launch_count()}
+        st = eng.stats
+        r = res[mode] = dict(
+            outs=outs, counts=counts, tokens_per_s=st.tokens_per_s(),
+            tokens_generated=st.tokens_generated,
+            decode_steps=st.decode_steps, prefills=st.prefills,
+            host_bookkeep_s=st.host_bookkeep_s,
+            host_overhead_fraction=st.host_overhead_fraction())
+        if rt is not None:
+            r["records"] = sorted(rt.records(), key=lambda e: e["rid"])
+            with open(ff.config.telemetry_file) as f:
+                r["tel"] = json.load(f)
+        # the same generate on prompts of these shapes under the profiler
+        # (still traced in the traced mode)
+        prof = profiled(lambda: generate(prof_prompts))
+        per_action = prof["kernel_launch_calls"] / max(eng.stats.host_ticks,
+                                                       1)
+        r.update(captures=serving_captures(eng) - before,
+                 launch_calls_per_action=per_action)
+        if rt is not None:
+            obs.disable_reqtrace()
+            ff.config.telemetry_file = ""
+        log(f"{label} {mode}: {r['tokens_generated']} tokens, "
+            f"{r['tokens_per_s']:.1f} tokens/s, host_bookkeep_s "
+            f"{r['host_bookkeep_s']:.6f}, host_overhead_fraction "
+            f"{r['host_overhead_fraction']:.4f}, {r['decode_steps']} decode "
+            f"steps, {r['prefills']} prefills, launches {counts}, captures "
+            f"{r['captures']} in this and the profiled run, "
+            f"{per_action:.2f} kernel launch calls a scheduler action "
+            f"[{card}]")
+    u, t = res["untraced"], res["traced"]
+    recs, tel = t["records"], t["tel"]
+    if t["outs"] != u["outs"]:
+        fail(f"{label}: the traced streams differ from the untraced ones")
+    bad = [i for i, (rec, out) in enumerate(zip(recs, t["outs"]))
+           if rec["outcome"] != "ok" or rec["decode_ticks"] != len(out)
+           or rec["new_tokens"] != len(out)]
+    if len(recs) != len(prompts) or bad:
+        fail(f"{label}: {len(recs)} records for {len(prompts)} requests, "
+             f"wrong ones {bad}")
+    if tel["serving"]["tokens_generated"] != t["tokens_generated"]:
+        fail(f"{label}: telemetry tokens {tel['serving']} vs ServingStats "
+             f"{t['tokens_generated']}")
+    for mode, r in res.items():
+        if r["captures"]:
+            fail(f"{label} {mode}: {r['captures']} captures after warm-up")
+        if r["launch_calls_per_action"] > MAX_LAUNCH_CALLS_PER_ACTION:
+            fail(f"{label} {mode}: {r['launch_calls_per_action']:.2f} kernel "
+                 "launch calls a scheduler action")
+        c = r["counts"]
+        if c["flash_decode_int8"] != cfg.num_layers * r["decode_steps"] or \
+                c["topk"] != r["prefills"] + r["decode_steps"]:
+            fail(f"{label} {mode}: launches {c} over {r['decode_steps']} "
+                 f"decode steps and {r['prefills']} prefills")
+    log(f"{label}: streams equal traced and untraced, {len(recs)} records "
+        f"all ok with their tokens, telemetry serving block "
+        f"{tel['serving']}; tokens/s {u['tokens_per_s']:.1f} untraced, "
+        f"{t['tokens_per_s']:.1f} traced [{card}]")
+    for r in res.values():
+        r.pop("outs", None)
+        r.pop("records", None)
+    del ff, eng
+    torch.cuda.empty_cache()
+    return res
+
+
+def obs_cache(device, card: str) -> dict:
+    """Gate (d): ``tests/test_cache_op.py:11-30``'s MoE model on the card,
+    its top-k assignment cached, trained with a ``RecompileState`` whose
+    trigger fires once the routing's score passes 0.5."""
+    import torch
+
+    from flexflow_tpu_torch import (ActiMode, AdamOptimizer, FFConfig,
+                                    FFModel, LossType, OperatorType)
+    from flexflow_tpu_torch.execution.recompile import (RecompileState,
+                                                        recompile)
+
+    label = "obs cache recompile"
+    batch, num_exp = 32, 4
+    config = FFConfig()
+    config.batch_size, config.seed = batch, SEED
+    ff = FFModel(config, device=device)
+    x = ff.create_tensor((batch, 64), name="in")
+    gate = ff.softmax(ff.dense(x, num_exp, name="gate"))
+    vals, assign = ff.top_k(gate, 2)
+    assign = ff.cache(assign, num_batches=2, name="assign_cache",
+                      score_fn=lambda a, b: float((a == b).mean()))
+    grouped = ff.group_by(x, assign, num_exp, alpha=2.0)
+    experts = [ff.dense(g, 32, activation=ActiMode.AC_MODE_RELU,
+                        name=f"exp_{i}") for i, g in enumerate(grouped)]
+    out = ff.aggregate(vals, assign, assign, gate, experts, num_exp,
+                       lambda_bal=0.01)
+    ff.softmax(ff.dense(out, 4, name="cls"))
+    ff.compile(optimizer=AdamOptimizer(ff, alpha=1e-3),
+               loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY)
+    rng = np.random.default_rng(SEED)
+    xs = rng.normal(size=(batch, 64)).astype(np.float32)
+    ys = np.argmax(xs @ rng.normal(size=(64, 4)), axis=1)[:, None] \
+        .astype(np.int32)
+
+    def trigger(rs):
+        scores = list(rs.ffmodel.cache_scores.values())
+        return rs.recompilations == 0 and bool(scores) and scores[0] > 0.5
+
+    def alter(rs):
+        for layer in rs.ffmodel._layers:
+            if layer.op_type == OperatorType.OP_GROUP_BY:
+                layer.attrs["alpha"] = 1.0
+
+    old = ff.executor.make_train_step().program
+    rs = RecompileState(trigger, alter, ff)
+    ff.fit(xs, ys, epochs=6, recompile_state=rs, shuffle=False)
+    new = ff.executor.make_train_step().program
+    after_fit = (old.captures, new.captures)
+    ff.fit(xs, ys, epochs=3, shuffle=False)  # never again
+    scores = dict(ff.cache_scores)
+    losses = list(ff.fit_history.loss)
+    # the recompile's cost alone: compile anew, then the eager first step
+    # and the capture
+    t = time.perf_counter()
+    recompile(ff)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t
+    step = ff.executor.make_train_step()
+    bx, by = [torch.from_numpy(xs).to(device)], torch.from_numpy(ys).to(
+        device)
+    cache = ff.executor.init_cache()
+    walls = []
+    for _ in range(3):  # eager, capture, replay
+        t = time.perf_counter()
+        step(ff.params, ff.opt_state, bx, by, None, cache)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    log(f"{label}: the trigger fired {rs.recompilations} time(s); cache "
+        f"scores {scores}; captures old/new program after the fit "
+        f"{after_fit}, new after 3 more epochs {new.captures}; losses "
+        f"{['%.4f' % v for v in losses]}; a recompile alone: compile "
+        f"{compile_s:.3f} s, then eager step {walls[0]:.3f} s, capture "
+        f"step {walls[1]:.3f} s, replay {walls[2] * 1e3:.3f} ms [{card}]")
+    if rs.recompilations != 1:
+        fail(f"{label}: {rs.recompilations} recompilations, want 1")
+    if not scores or not all(0.0 <= v <= 1.0 for v in scores.values()):
+        fail(f"{label}: cache scores {scores}")
+    if after_fit != (1, 1) or new.captures != 1 or old._entries:
+        fail(f"{label}: captures {after_fit} then {new.captures}, old "
+             f"program entries {len(old._entries)}")
+    if not np.isfinite(losses).all():
+        fail(f"{label}: losses {losses}")
+    return dict(recompilations=rs.recompilations, scores=scores,
+                compile_s=compile_s, eager_s=walls[0], capture_s=walls[1],
+                replay_ms=walls[2] * 1e3)
+
+
+def obs_phase(device, card: str, prompt_set: dict) -> dict:
+    """Phase 11 (module doc): (a) and (b) on the BERT-Large proxy, (c) on
+    GPT-2 small serving, (d) on the MoE cache model; their files in a
+    temporary directory removed at the end."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="ff_obs_")
+    try:
+        res = obs_bert(device, card, tmp)
+        res["serve"] = obs_serve(device, card, prompt_set, tmp)
+        res["cache"] = obs_cache(device, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
 def main() -> None:
     try:
         import torch
@@ -3805,6 +4284,7 @@ def main() -> None:
     zoo_phase(device, card, profile=profile)
     seq = seq_phase(device, card, prompt_set, profile=profile)
     resilient = resilient_phase(device, card)
+    obs = obs_phase(device, card, prompt_set)
 
     kernels = []
     for compute, name in (("fp32", "flash_decode"),
@@ -3885,6 +4365,39 @@ def main() -> None:
             **fa_kern[(kernel, "bert", "bf16")],
             **census.get((kernel, "bf16", FA_SHAPES["bert"]["d"]), {}),
         })
+    # B1 and B2 on phase 11's BERT-Large fits: the telemetry run and the
+    # fused one, timed at their BERT bf16 shape
+    for name, kernel in (("flash_fwd_obs", "flash_fwd"),
+                         ("flash_bwd_fused_obs", "flash_bwd_fused")):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": FA_SOURCE,
+            "replaces": FA_KERNELS[kernel][0],
+            "launches": obs["telemetry"]["totals"][kernel]
+            + obs["fusion"]["fused"]["totals"][kernel],
+            **fa_kern[(kernel, "bert", "bf16")],
+            **census.get((kernel, "bf16", FA_SHAPES["bert"]["d"]), {}),
+        })
+    # B5 (int8) and B7 (k = 8) on phase 11's traced serving run: GPT-2
+    # small fp32, the shapes of the kernel phase's fp32 int8 and k = 8 runs
+    kernels.append({
+        "name": "flash_decode_int8_obs",
+        "route": "cuda",
+        "source": "flexflow_tpu_torch/kernels/csrc/flash_decode.cu",
+        "replaces": "flexflow_tpu/kernels/flash_decode.py:78",
+        "launches": obs["serve"]["traced"]["counts"]["flash_decode_int8"],
+        **kern_int8["fp32"],
+        **dprops["flash_decode_int8"],
+    })
+    kernels.append({
+        "name": "topk_obs",
+        "route": "cuda",
+        "source": "flexflow_tpu_torch/kernels/csrc/topk.cu",
+        "replaces": "flexflow_tpu/kernels/topk.py:34",
+        "launches": obs["serve"]["traced"]["counts"]["topk"],
+        **topk_kern[8],
+    })
     for compute, name in (("fp32", "flash_decode_int8"),
                           ("bf16", "flash_decode_int8_bf16")):
         kernels.append({

@@ -18,8 +18,12 @@ prefill one per chunk shape; eval and predict run eagerly (under
 ``torch.inference_mode()``). ``make_train_step(guard=True)`` is the
 divergence sentinel's step (a second program that also returns ``ok``),
 and the training forward follows the ``--remat`` plan
-(``execution/remat.py``, :meth:`Executor._forward_remat`).
-Sharding, collective overlap and CacheOps come in later slices.
+(``execution/remat.py``, :meth:`Executor._forward_remat`). A graph with
+CacheOps threads their state through the train step (:meth:`init_cache`).
+While a ``torch.profiler`` runs, each node runs inside a
+``record_function`` range named after it (the JAX package's per-node
+``jax.named_scope``). Sharding and collective overlap come in later
+slices.
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ import dataclasses
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from ..ffconst import DataType, LossType, OperatorType, dtype_to_torch
-from ..ops.base import OpContext
+from ..ops.base import OpContext, profiler_on, run_op
 from ..parallel.pcg import PCG, PCGNode
 from .losses import loss_value
 
@@ -57,6 +61,12 @@ class Executor:
         # (stamp of the params it was cast from, compute-dtype copy): the
         # inference programs cast once per version of the params
         self._cast_cache: Optional[Tuple[Any, Any]] = None
+        # cache-op state (src/ops/cache.cc; flexflow_tpu/execution/
+        # executor.py:52-55): cached tensors across steps, host-scored,
+        # paired with the dynamic recompile
+        self.cache_nodes = [n for n in pcg.compute_nodes()
+                            if n.op.op_type == OperatorType.OP_CACHE]
+        self._cache_state: Optional[Dict[str, Any]] = None
 
     # ------------------------------------------------------------------ params
     def _node_input_shapes(self, node: PCGNode) -> List[Tuple[int, ...]]:
@@ -148,6 +158,7 @@ class Executor:
         substitutes the outputs of specific compute nodes without running
         them — the serving hook that replaces the baked position ids."""
         values: Dict[int, List[Any]] = {}
+        scoped = profiler_on()
         for node in self.pcg.topo_order():
             op = node.op
             if op.op_type in (OperatorType.OP_INPUT, OperatorType.OP_WEIGHT):
@@ -157,8 +168,9 @@ class Executor:
                 values[node.guid] = overrides[node.guid]
                 continue
             inputs = [values[g][i] for g, i in node.inputs]
-            values[node.guid] = op.forward(params.get(node.name, {}), inputs,
-                                           ctx)
+            values[node.guid] = run_op(node.op, node.name,
+                                       params.get(node.name, {}), inputs,
+                                       ctx, scoped)
         return values
 
     def _bind_inputs(self, xs: List[Any]) -> Dict[int, Any]:
@@ -190,10 +202,12 @@ class Executor:
                 values[self.final_guid][self.final_out_idx])
 
     # ---------------------------------------------------------------- training
-    def _loss_and_logits(self, params, xs, labels, rng, training: bool):
+    def _loss_and_logits(self, params, xs, labels, rng, training: bool,
+                         cache=None, cache_out=None):
         params_c, xs = self._cast_for_compute(params, list(xs))
         ctx = OpContext(training=training, rng=rng, device=self.device,
-                        aux_losses=[] if training else None)
+                        aux_losses=[] if training else None,
+                        cache_in=cache, cache_out=cache_out)
         blocks = self._remat_blocks() if training else None
         if blocks is not None:
             raw = self._forward_remat(params_c, self._bind_inputs(xs), ctx,
@@ -270,10 +284,11 @@ class Executor:
         return blocks
 
     def _run_nodes(self, guids, params, values, ctx) -> None:
+        scoped = profiler_on()
         for g in guids:
             node = self.pcg.nodes[g]
-            outs = node.op.forward(params.get(node.name, {}),
-                                   [values[r] for r in node.inputs], ctx)
+            outs = run_op(node.op, node.name, params.get(node.name, {}),
+                          [values[r] for r in node.inputs], ctx, scoped)
             values.update(((g, i), v) for i, v in enumerate(outs))
 
     def _forward_remat(self, params, bound_inputs: Dict[int, Any],
@@ -285,8 +300,9 @@ class Executor:
         device and break a capture — the ops draw no torch RNG). A block's
         dropout seeds are drawn once, on its first run, and replayed on
         its recompute (:class:`~.graphs.SegmentSeeds`); its aux losses
-        leave it as outputs, so a recompute does not add them twice.
-        Returns the loss anchor's output."""
+        and its CacheOps' fresh values leave it as outputs, so a recompute
+        does not add them twice (flexflow_tpu/execution/executor.py:
+        287-332). Returns the loss anchor's output."""
         from torch.utils.checkpoint import checkpoint
 
         from .graphs import SegmentSeeds
@@ -298,23 +314,62 @@ class Executor:
                 self._run_nodes(guids, params, values, ctx)
                 continue
             seeds = SegmentSeeds(ctx.rng) if ctx.rng is not None else None
+            cache_names = [self.pcg.nodes[g].name for g in guids
+                           if self.pcg.nodes[g].op.op_type ==
+                           OperatorType.OP_CACHE] \
+                if ctx.cache_out is not None else []
 
             def block(*ext, guids=guids, ext_refs=ext_refs,
-                      out_refs=out_refs, seeds=seeds):
+                      out_refs=out_refs, seeds=seeds,
+                      cache_names=cache_names):
                 local = dict(zip(ext_refs, ext))
                 aux = [] if ctx.aux_losses is not None else None
+                fresh = {} if ctx.cache_out is not None else None
                 bctx = dataclasses.replace(
                     ctx, rng=seeds.replay() if seeds is not None else None,
-                    aux_losses=aux)
+                    aux_losses=aux, cache_out=fresh)
                 self._run_nodes(guids, params, local, bctx)
-                return tuple(local[r] for r in out_refs) + tuple(aux or ())
+                return (tuple(local[r] for r in out_refs)
+                        + tuple(fresh[n] for n in cache_names)
+                        + tuple(aux or ()))
 
             outs = checkpoint(block, *[values[r] for r in ext_refs],
                               use_reentrant=False, preserve_rng_state=False)
             values.update(zip(out_refs, outs))
+            n_out = len(out_refs) + len(cache_names)
+            if cache_names:
+                ctx.cache_out.update(zip(cache_names,
+                                         outs[len(out_refs):n_out]))
             if ctx.aux_losses is not None:
-                ctx.aux_losses.extend(outs[len(out_refs):])
+                ctx.aux_losses.extend(outs[n_out:])
         return values[(self.final_guid, self.final_out_idx)]
+
+    # ----------------------------------------------------------- cache state
+    def init_cache(self) -> Dict[str, Any]:
+        """Zeroed cache state for the graph's CacheOps, on the device:
+        ``{"__use_cache__": a 0-d bool tensor (False), op_name: zeros of
+        its input's shape and dtype}`` (flexflow_tpu/execution/
+        executor.py:458-469). The train step reads these tensors in place,
+        so a captured step keeps reading them: the host changes them with
+        ``copy_``, never by binding new ones. So the executor makes them
+        once and a later call zeroes the same tensors (a fit, a rollback):
+        new tensors would make the step capture anew."""
+        import torch
+
+        if self._cache_state is not None:
+            for t in self._cache_state.values():
+                t.zero_()
+            return self._cache_state
+        cache = {"__use_cache__": torch.zeros((), dtype=torch.bool,
+                                              device=self.device)}
+        for node in self.cache_nodes:
+            g, i = node.inputs[0]
+            src = self.pcg.nodes[g]
+            cache[node.name] = torch.zeros(
+                src.out_shapes[i], dtype=dtype_to_torch(src.out_dtypes[i]),
+                device=self.device)
+        self._cache_state = cache
+        return cache
 
     # ---------------------------------------------------------------- steps
     def invalidate_jit_cache(self) -> None:
@@ -344,11 +399,16 @@ class Executor:
         loss, metrics)``: forward (through the ``--remat`` blocks when the
         plan asks), loss, ``torch.autograd.grad`` over the fp32 master
         leaves, metrics, then the optimizer's in-place update
-        (flexflow_tpu/execution/executor.py:484-596 without overlap and
-        CacheOps). ``rng`` is the step's ``torch.Generator`` (dropout
-        seeds). ``params`` and ``opt_state`` come back as the same objects,
+        (flexflow_tpu/execution/executor.py:484-596 without overlap).
+        ``rng`` is the step's ``torch.Generator`` (dropout seeds).
+        ``params`` and ``opt_state`` come back as the same objects,
         updated in place; ``loss`` and the metrics stay on the device (no
         host sync in the step).
+
+        With CacheOps in the graph the step takes the cache state
+        (:meth:`init_cache`) as a sixth argument and returns the CacheOps'
+        fresh values ``{op_name: tensor}`` after the metrics (before
+        ``ok``), as the JAX step does.
 
         With ``guard=True`` (the divergence sentinel,
         ``resilience.GuardedTrainStep``) the step computes ``ok =
@@ -371,21 +431,24 @@ class Executor:
         import torch
 
         opt = self.optimizer
+        cache_names = [n.name for n in self.cache_nodes]
 
-        def step(params, opt_state, xs, labels, rng):
-            loss, logits, grads = self.loss_and_grads(params, xs, labels,
-                                                      rng)
+        def step(params, opt_state, xs, labels, rng, cache=None):
+            fresh = {} if cache is not None else None
+            loss, logits, grads = self.loss_and_grads(
+                params, xs, labels, rng, cache=cache, cache_out=fresh)
             m = self._compute_metrics(logits, labels)
+            extra = (fresh,) if cache is not None else ()
             if not guard:
                 params, opt_state = opt.update(params, grads, opt_state)
-                return params, opt_state, loss, m
+                return (params, opt_state, loss, m) + extra
             gs = [g for ws in grads.values() for g in ws.values()]
             ok = torch.isfinite(loss)
             if gs:
                 gsq = torch.stack(torch._foreach_norm(gs)).square().sum()
                 ok = ok & torch.isfinite(gsq)
             params, opt_state = opt.update(params, grads, opt_state, ok=ok)
-            return params, opt_state, loss, m, ok
+            return (params, opt_state, loss, m) + extra + (ok,)
 
         if not capture:
             return step
@@ -395,22 +458,34 @@ class Executor:
         layout: Dict[str, Any] = {}
         extra = 1 if guard else 0  # ok follows the loss
 
-        def body(inputs, seeds, params, opt_state):
-            _p, _s, loss, m, *ok = step(params, opt_state, inputs[:-1],
-                                        inputs[-1], seeds)
+        def body(inputs, seeds, params, opt_state, *cache):
+            _p, _s, loss, m, *rest = step(params, opt_state, inputs[:-1],
+                                          inputs[-1], seeds, *cache)
+            fresh = rest[0] if cache else {}
             layout["names"] = [k for k, v in m.items() if torch.is_tensor(v)]
             layout["host"] = {k: v for k, v in m.items()
                               if not torch.is_tensor(v)}
-            return [loss, *ok] + [m[k] for k in layout["names"]]
+            return [loss, *rest[len(rest) - extra:]] + \
+                [fresh[n] for n in cache_names if cache] + \
+                [m[k] for k in layout["names"]]
 
         program = StepProgram(body, self.device,
                               "train_guarded" if guard else "train")
 
-        def train_step(params, opt_state, xs, labels, rng):
-            outs = program(list(xs) + [labels], params, opt_state, rng=rng)
+        def train_step(params, opt_state, xs, labels, rng, cache=None):
+            """The cache tensors are arguments the program reads in
+            place (their addresses are captured), not static inputs."""
+            args = (params, opt_state) + ((cache,) if cache is not None
+                                          else ())
+            outs = program(list(xs) + [labels], *args, rng=rng)
+            n_fresh = len(cache_names) if cache is not None else 0
             m = dict(layout["host"])
-            m.update(zip(layout["names"], outs[1 + extra:]))
-            return (params, opt_state, outs[0], m) + tuple(outs[1:1 + extra])
+            m.update(zip(layout["names"], outs[1 + extra + n_fresh:]))
+            fresh = (dict(zip(cache_names, outs[1 + extra:1 + extra +
+                                                n_fresh])),) \
+                if cache is not None else ()
+            return (params, opt_state, outs[0], m) + fresh + \
+                tuple(outs[1:1 + extra])
 
         train_step.program = program
         if guard:
@@ -419,11 +494,14 @@ class Executor:
             self._train_step = train_step
         return train_step
 
-    def loss_and_grads(self, params, xs, labels, rng=None):
+    def loss_and_grads(self, params, xs, labels, rng=None, cache=None,
+                       cache_out=None):
         """The differentiated half of the train step: ``(loss, logits,
         grads)`` with grads ``{node: {wname: tensor}}`` on the fp32 master
         leaves (zeros for a param the loss does not reach, as
-        ``jax.value_and_grad`` gives), all detached.
+        ``jax.value_and_grad`` gives), all detached. ``cache`` is the
+        CacheOps' state the forward reads, ``cache_out`` a dict it fills
+        with their fresh values (detached).
 
         With a compute dtype the masters are cast afresh every step, all at
         once (one flat copy, whose per-tensor views are the graph's
@@ -452,9 +530,12 @@ class Executor:
             leaves[n][w] = t
         with torch.enable_grad():
             loss, logits = self._loss_and_logits(leaves, xs, labels, rng,
-                                                 training=True)
+                                                 training=True, cache=cache,
+                                                 cache_out=cache_out)
             flat_grads = torch.autograd.grad(loss, leaf_list,
                                              allow_unused=True)
+        if cache_out:
+            cache_out.update({k: v.detach() for k, v in cache_out.items()})
         flat_grads = [g if g is not None else torch.zeros_like(t)
                       for g, t in zip(flat_grads, leaf_list)]
         if cdtype is not None:

@@ -7,8 +7,7 @@ device (the reference pipeline's single-device branch: no search, no
 mesh); ``fit`` / ``eval`` / ``predict`` train and run it, and ``generate``
 serves it through the paged-KV ``ServingEngine``. The builders are the
 JAX package's, with its signatures and defaults
-(flexflow_tpu/model.py:118-470), but for ``cache``, which raises
-``NotImplementedError`` until the dynamic recompile it pairs with lands.
+(flexflow_tpu/model.py:118-470).
 
 The model runs on ``device`` — CUDA unless the caller asks for the CPU.
 With no GPU and no explicit ``device="cpu"`` the constructor raises: the
@@ -17,9 +16,13 @@ fault-tolerant loop (checkpoints, ``--resume``, the divergence sentinel
 with rollback, SIGTERM preemption; ``resilience/``) and the ``--remat``
 plan; the manual-loop calls (``set_batch`` / ``forward`` /
 ``zero_gradients`` / ``backward`` / ``update``, ``Tensor.set_tensor``)
-drive the same executor by hand. Multi-device strategies, telemetry and
-tracing flags, the dynamic recompile and the cache op come in later
-slices; their flags raise ``NotImplementedError``.
+drive the same executor by hand. ``--fusion`` merges op chains at
+compile (``ops/fused.py``); the cache op and ``fit(recompile_state=)``
+recompile the model mid-training (``execution/recompile.py``);
+``--trace-file``, ``--telemetry-file`` and ``--profiler-trace-dir`` record
+compile, fit, eval and serving (``obs/``). Multi-device strategies and the
+search's simulator (``--profile-ops``, ``profile_operators``) come in
+later slices; their flags raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -100,6 +103,12 @@ class FFModel:
         self.resilience = None
         # the step count at which the last fit stopped for a preemption
         self._preempted_at_step: Optional[int] = None
+        # the CacheOps' last scores (``score_fn``), by op name
+        self.cache_scores: Dict[str, float] = {}
+        # the dynamic recompile's state, once a fit was given one
+        self._recompile_state = None
+        # the StepTelemetry of the last fit or serve run (get_telemetry)
+        self._telemetry = None
 
     # ======================================================= tensor creation ==
     def create_tensor(self, dims: Sequence[int],
@@ -445,9 +454,13 @@ class FFModel:
 
     def cache(self, input: Tensor, num_batches: int, score_fn=None,
               name=None):
-        raise NotImplementedError(
-            f"FFModel.cache is {LATER}: the cache op pairs with the "
-            "dynamic recompile (recompile_state=)")
+        """Keep ``input`` across steps (``ops/moe_ops.CacheOp``): ``fit``
+        runs ``score_fn(cached, fresh)`` on host copies every
+        ``num_batches`` steps into ``cache_scores``, which a
+        ``RecompileState`` trigger reads."""
+        return self._unary(OperatorType.OP_CACHE, input,
+                           {"num_batches": num_batches, "score_fn": score_fn},
+                           name)
 
     def _moe_gate(self, input: Tensor, num_exp: int, num_select: int):
         """The router of ``moe`` and ``moe_experts``: gate dense ->
@@ -510,6 +523,40 @@ class FFModel:
         return self._add_layer(OperatorType.OP_CONSTANT, [],
                                {"value": value}, dtype, name)
 
+    # ========================================================= observability
+    def _obs_tracer(self):
+        """The process tracer, enabled the first time the config asks for a
+        trace file (flexflow_tpu/model.py:466-474); the no-op singleton
+        otherwise."""
+        from .obs import enable, get_tracer
+
+        t = get_tracer()
+        if not t.enabled and self.config.trace_file:
+            t = enable(trace_file=self.config.trace_file)
+        return t
+
+    def get_telemetry(self):
+        """StepTelemetry of the most recent fit or serve run (None when
+        that run recorded none)."""
+        return self._telemetry
+
+    def _make_telemetry(self, tracer, batch_size: int, phase: str):
+        """A StepTelemetry when a sink wants one, else None — the None-ness
+        is the hot loop's one instrumentation gate
+        (flexflow_tpu/model.py:481-515). MFU is against one card's peak:
+        the port runs on one device."""
+        if not (self.config.telemetry_file or tracer.enabled):
+            return None
+        from .obs.telemetry import (StepTelemetry, detect_peak_flops,
+                                    model_flops_per_step)
+
+        tel = StepTelemetry(batch_size=batch_size, phase=phase)
+        if self.pcg is not None:
+            tel.flops_per_step = model_flops_per_step(self.pcg)
+        tel.peak_flops = detect_peak_flops() if self.device.type == "cuda" \
+            else None
+        return tel
+
     # ================================================================= compile
     def compile(self, optimizer=None,
                 loss_type: LossType =
@@ -523,8 +570,23 @@ class FFModel:
         optimizer state (reference pipeline: src/runtime/model.cc:2803).
         The optimizer defaults to ``SGDOptimizer``; the label tensor is
         (batch, 1) int32 for sparse categorical cross-entropy, else the
-        final output's shape. An explicit or imported strategy, ``--fusion``
+        final output's shape. ``--fusion`` merges op chains into FusedOp
+        regions (``ops/fused.apply_fusion``, the final anchor a barrier).
+        The whole lowering is one ``compile`` span of the process tracer,
+        and ``--trace-file`` is written after it
+        (flexflow_tpu/model.py:519-538). An explicit or imported strategy
         and a multi-device search are refused until their slices land."""
+        tracer = self._obs_tracer()
+        with tracer.span("compile", layers=len(self._layers)):
+            self._compile_impl(optimizer, loss_type, metrics, final_tensor,
+                               strategy, strategy_fn)
+        if tracer.enabled and self.config.trace_file:
+            # flushed after each top-level phase, so compile-only sessions
+            # (and crashes later on) still leave a loadable trace
+            tracer.write(self.config.trace_file)
+
+    def _compile_impl(self, optimizer, loss_type, metrics, final_tensor,
+                      strategy, strategy_fn) -> None:
         from .execution.executor import Executor
 
         if strategy is not None or strategy_fn is not None \
@@ -532,9 +594,6 @@ class FFModel:
             raise NotImplementedError(
                 "compile: explicit/imported strategies are ported in a "
                 "later slice (multi-GPU); this slice compiles for one device")
-        if self.config.perform_fusion:
-            raise NotImplementedError(
-                "--fusion is ported in a later slice; compile without it")
         self._refuse_compile_options()
         if optimizer is not None:
             self.optimizer = optimizer
@@ -552,6 +611,25 @@ class FFModel:
             final = sinks[-1]
             self.final_out_idx = 0
         self.final_guid = final.guid
+        if self.config.perform_fusion:
+            from .ops.fused import apply_fusion
+
+            pcg, n_fused, remap = apply_fusion(
+                pcg, barrier_guids=(self.final_guid,))
+            if n_fused:
+                if final_tensor is not None:
+                    # the barrier leaves the anchor unfused or a region
+                    # tail; follow the remap either way
+                    new_guid, new_idx = remap[self.final_guid]
+                    self.final_guid = new_guid
+                    if new_idx >= 0:
+                        self.final_out_idx = new_idx
+                    final = pcg.nodes[self.final_guid]
+                else:
+                    final = [n for n in pcg.sinks()
+                             if n.op.op_type != OperatorType.OP_INPUT][-1]
+                    self.final_guid = final.guid
+                    self.final_out_idx = 0
         out_shape = final.out_shapes[self.final_out_idx]
         if loss_type == LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY:
             label_shape, label_dtype = (out_shape[0], 1), DataType.DT_INT32
@@ -703,17 +781,17 @@ class FFModel:
             y = y.reshape(y.shape[0], 1).astype(np.int32)
         return y
 
-    def _refuse_fit_options(self, recompile_state) -> None:
+    def _refuse_fit_options(self) -> None:
         """Every fit option outside this slice raises, naming its flag."""
         c = self.config
+        if c.profile_ops:
+            raise NotImplementedError(
+                f"fit: --profile-ops is {LATER} (ROADMAP A.6): it times ops "
+                "through the search's simulator, which the port does not "
+                "have yet")
         refused = [
             (bool(c.audit_strategy), "--audit-strategy"),
             (int(c.memory_budget_mb or 0) > 0, "--memory-budget-mb"),
-            (bool(c.profile_ops), "--profile-ops"),
-            (bool(c.profiler_trace_dir), "--profiler-trace-dir"),
-            (bool(c.telemetry_file), "--telemetry-file"),
-            (bool(c.trace_file), "--trace-file"),
-            (recompile_state is not None, "recompile_state="),
             ((c.collective_overlap or "off") == "on",
              "--collective-overlap on"),
             (bool(c.schedule), "--schedule (pipeline strategies)"),
@@ -722,7 +800,7 @@ class FFModel:
             if on:
                 raise NotImplementedError(
                     f"fit: {flag} is {LATER}; this slice trains on one "
-                    "device without telemetry, strategies or recompiles")
+                    "device without strategies")
 
     def fit(self, x=None, y=None, batch_size: Optional[int] = None,
             epochs: Optional[int] = None, callbacks=None,
@@ -755,9 +833,28 @@ class FFModel:
         returns (``_preempted_at_step``). Its counters stay readable as
         ``self.resilience.summary()``. The forward follows ``--remat``.
         An ``Optimizer.set_learning_rate`` since the last fit drops the
-        captured steps, which baked the old rate in. Telemetry and
-        tracing, the strategy cascade, dynamic recompiles and pipelines
-        are refused (``NotImplementedError`` naming the flag)."""
+        captured steps, which baked the old rate in.
+
+        CacheOps thread their state through the step (``init_cache``): the
+        fresh values are copied into the cache tensors in place after each
+        good step, and every ``num_batches`` steps ``score_fn`` runs on
+        host copies into ``cache_scores``. ``recompile_state`` (a
+        ``RecompileState``) is checked after every step; when it fires the
+        model is compiled anew (the old programs dropped, the cache made
+        anew) and the same epoch runs again (flexflow_tpu/model.py:
+        1094-1128).
+
+        Observability, when the config asks for it: ``--telemetry-file``
+        (or an enabled tracer) keeps a ``StepTelemetry`` — each step then
+        waits for its loss to reach the host, the opt-in sync that buys
+        true step walls — and writes it at the end with the card's peak
+        memory (``get_telemetry()``); the tracer gets a ``train_step``
+        event a step and an ``epoch`` event an epoch (``--trace-file``
+        written at the end); ``--profiler-trace-dir`` runs the loop under
+        ``torch.profiler`` (``obs.start_trace``). With these off the loop
+        pays one ``is not None`` test a step. The strategy cascade,
+        ``--profile-ops`` and pipelines are refused
+        (``NotImplementedError`` naming the flag)."""
         import torch
 
         from .data.dataloader import batch_iterator, prefetch_iterator
@@ -765,7 +862,10 @@ class FFModel:
         from .resilience.session import ResilienceSession
 
         self._require_compiled()
-        self._refuse_fit_options(recompile_state)
+        self._refuse_fit_options()
+        if recompile_state is not None:
+            self._recompile_state = recompile_state
+            recompile_state.ffmodel = self
         xs = self._as_input_list(x)
         y = self._prep_label(y)
         batch_size = batch_size or self.config.batch_size
@@ -793,6 +893,22 @@ class FFModel:
         epoch0 = skip_batches = 0
         loss_val = None
         self._preempted_at_step = None
+        cache = (self.executor.init_cache()
+                 if self.executor.cache_nodes else None)
+        # observability: with every sink off, telemetry is None and the
+        # loop below pays one test a step
+        tracer = self._obs_tracer()
+        telemetry = self._make_telemetry(tracer, batch_size, "train")
+        self._telemetry = telemetry
+        if telemetry is not None and cuda and self.config.telemetry_file:
+            torch.cuda.reset_peak_memory_stats(self.device)
+        last_batch = None
+        tracing = bool(self.config.profiler_trace_dir)
+        if tracing:
+            from .obs import start_trace
+
+            start_trace(self.config.profiler_trace_dir)
+        t0 = time.time()
         try:
             if session is not None:
                 resumed = session.maybe_resume()
@@ -814,7 +930,8 @@ class FFModel:
                 batch_in_epoch = skip_batches
                 skip_batches = 0
                 epoch_metrics = []
-                rolled_back = False
+                rolled_back = recompiled = False
+                t_epoch = time.perf_counter()
                 for batch in prefetch_iterator(it, self.device):
                     bx, by = batch[:-1], batch[-1]
                     if session is not None and session.chaos is not None:
@@ -822,14 +939,18 @@ class FFModel:
                         session.chaos.maybe_preempt(step_count)
                     t_step = time.perf_counter()
                     step_ok = True
+                    args = (self.params, self.opt_state, bx, by,
+                            self._next_rng()) + \
+                        ((cache,) if cache is not None else ())
                     if guard is not None:
-                        (self.params, self.opt_state, loss_val, m), \
-                            step_ok = guard(self.params, self.opt_state, bx,
-                                            by, self._next_rng())
+                        outs, step_ok = guard(*args)
                     else:
-                        self.params, self.opt_state, loss_val, m = step_fn(
-                            self.params, self.opt_state, bx, by,
-                            self._next_rng())
+                        outs = step_fn(*args)
+                    self.params, self.opt_state, loss_val, m = outs[:4]
+                    if cache is not None and step_ok:
+                        self._score_caches(cache, outs[4], step_count)
+                        for name, fresh in outs[4].items():
+                            cache[name].copy_(fresh)
                     step_count += 1
                     batch_in_epoch += 1
                     executed += 1
@@ -837,6 +958,17 @@ class FFModel:
                     if step_ok:
                         # a skipped step's NaN metrics stay out of the fold
                         epoch_metrics.append(m)
+                    loss_f = None
+                    if telemetry is not None:
+                        # the opt-in sync: the loss reaches the host, so
+                        # the wall is the step's
+                        loss_host = float(loss_val)
+                        wall = time.perf_counter() - t_step
+                        loss_f = loss_host if step_ok else None
+                        telemetry.record_step(wall, loss_f)
+                        tracer.complete("train_step", wall, step=step_count,
+                                        loss=loss_f)
+                        last_batch = (bx, by)
                     if profiling:
                         if cuda:
                             torch.cuda.synchronize(self.device)
@@ -850,6 +982,8 @@ class FFModel:
                         if guard.should_rollback:
                             step_count, epoch, skip_batches = \
                                 session.rollback()
+                            if cache is not None:
+                                self.executor.init_cache()  # in place
                             epoch_metrics = []  # poisoned partials dropped
                             rolled_back = True
                             break
@@ -865,19 +999,46 @@ class FFModel:
                                                      steps_per_epoch)
                             preempted = True
                             break
+                    if self._recompile_state is not None and \
+                            self.recompile_on_condition(
+                                self._recompile_state):
+                        # a new executor: its own steps and cache, and the
+                        # same epoch again (the old programs went with the
+                        # old executor)
+                        if guard is not None:
+                            guard.executor = self.executor
+                        else:
+                            step_fn = self.executor.make_train_step(
+                                capture=self._capture_steps)
+                        cache = (self.executor.init_cache()
+                                 if self.executor.cache_nodes else None)
+                        recompiled = True
+                        break
+                # the epoch's metrics, the partial ones before a recompile
+                # too (those steps trained the old graph but count)
                 for m in epoch_metrics:
                     self._perf.update({k: (v.item() if torch.is_tensor(v)
                                            else v) for k, v in m.items()})
-                if rolled_back:
-                    continue  # re-enter at the restored epoch and batch
+                if rolled_back or recompiled:
+                    continue  # re-enter at the restored cursor / same epoch
                 if preempted:
                     break
+                if telemetry is not None:
+                    loss_f = (float(loss_val) if loss_val is not None
+                              else None)
+                    telemetry.record_epoch(loss_f)
+                    tracer.complete("epoch", time.perf_counter() - t_epoch,
+                                    index=epoch, loss=loss_f)
                 if profiling and loss_val is not None:
                     print(f"epoch {epoch}: loss={float(loss_val):.4f}")
                 epoch += 1
         finally:
+            if tracing:
+                from .obs import stop_trace
+
+                stop_trace()
             if session is not None:
-                session.close()
+                session.close(telemetry)
         if losses:
             self.fit_history.loss = torch.stack(losses).cpu().tolist()
         elapsed = time.time() - t0
@@ -885,15 +1046,32 @@ class FFModel:
         # executed steps: a resume's skipped batches do not count, a
         # rollback's replayed ones do
         self._last_fit_samples = executed * batch_size
-        if elapsed > 0 and profiling:
-            print(f"THROUGHPUT = {self._last_fit_samples / elapsed:.2f} "
-                  "samples/s")
+        if elapsed > 0:
+            throughput = self._last_fit_samples / elapsed
+            if tracer.enabled:
+                tracer.counter("throughput_samples_per_sec",
+                               round(throughput, 2))
+            if profiling:
+                print(f"THROUGHPUT = {throughput:.2f} samples/s")
+        if telemetry is not None:
+            telemetry.finalize()
+            if self.config.telemetry_file and last_batch is not None:
+                from .obs.telemetry import capture_memory_analysis
+
+                telemetry.device_memory = capture_memory_analysis(
+                    self.executor, self.params, self.opt_state, *last_batch)
+            if self.config.telemetry_file:
+                telemetry.write(self.config.telemetry_file)
+        if tracer.enabled and self.config.trace_file:
+            tracer.write(self.config.trace_file)
         return self._perf
 
     def eval(self, x=None, y=None, batch_size: Optional[int] = None
              ) -> PerfMetrics:
         """Loss and metrics over every batch, the last one partial
-        (reference: flexflow_cffi.py:2102)."""
+        (reference: flexflow_cffi.py:2102); an ``eval`` span of the
+        process tracer, and ``--trace-file`` written after it
+        (flexflow_tpu/model.py:1306-1320)."""
         import torch
 
         from .data.dataloader import batch_iterator, to_device
@@ -906,13 +1084,26 @@ class FFModel:
         validate_batch(self, xs, y, phase="eval")
         estep = self.executor.make_eval_step()
 
+        tracer = self._obs_tracer()
         perf = PerfMetrics()
+        t_eval = time.perf_counter()
+        n_batches = 0
+        loss_val = None
         for batch in batch_iterator(xs + [y], batch_size,
                                     drop_remainder=False):
             staged = to_device(batch, self.device)
-            _loss, m = estep(self.params, staged[:-1], staged[-1])
+            loss_val, m = estep(self.params, staged[:-1], staged[-1])
             perf.update({k: (v.item() if torch.is_tensor(v) else v)
                          for k, v in m.items()})
+            n_batches += 1
+        if tracer.enabled:
+            tracer.complete("eval", time.perf_counter() - t_eval,
+                            batches=n_batches,
+                            loss=(float(loss_val) if loss_val is not None
+                                  else None))
+            if self.config.trace_file:
+                # eval-only workloads get their trace file too
+                tracer.write(self.config.trace_file)
         return perf
 
     def predict(self, x, batch_size: Optional[int] = None) -> np.ndarray:
@@ -1130,22 +1321,42 @@ class FFModel:
         flexflow_cffi.py:2179, the parameter id over the whole model)."""
         return [w for layer in self._layers for w in layer.weights][id]
 
-    # ---- surfaces of later slices ---------------------------------------
-    def get_telemetry(self):
-        raise NotImplementedError(
-            f"FFModel.get_telemetry is {LATER}: step telemetry comes with "
-            "obs/telemetry (--telemetry-file); the resilience counters of "
-            "the last fit are self.resilience.summary()")
-
+    # ---- the search's simulator (a later slice) ---------------------------
     def profile_operators(self, max_ops: int = 8) -> None:
         raise NotImplementedError(
-            f"FFModel.profile_operators is {LATER}: it times ops through "
-            "the search's simulator")
+            f"FFModel.profile_operators is {LATER} (ROADMAP A.6): it times "
+            "ops through the search's simulator")
+
+    # ---- recompilation (reference: RecompileState, model.cc:2422) ---------
+    def _score_caches(self, cache, fresh, step_count: int) -> None:
+        """Host-side cache scoring (reference: cache.cc score tasks;
+        flexflow_tpu/model.py:1566-1577): every ``num_batches`` steps each
+        CacheOp's ``score_fn(cached, fresh)`` runs on host copies, the two
+        tensors brought over in one copy; other steps copy nothing."""
+        import torch
+
+        for node in self.executor.cache_nodes:
+            nb = max(int(node.op.attrs.get("num_batches", 1) or 1), 1)
+            score_fn = node.op.attrs.get("score_fn")
+            if (step_count + 1) % nb or score_fn is None:
+                continue
+            old = cache[node.name]
+            both = torch.stack([old, fresh[node.name].to(old.dtype)]).cpu()
+            if both.dtype == torch.bfloat16:  # numpy has no bf16
+                both = both.float()
+            self.cache_scores[node.name] = float(score_fn(
+                both[0].numpy(), both[1].numpy()))
 
     def recompile_on_condition(self, recompile_state) -> bool:
-        raise NotImplementedError(
-            f"FFModel.recompile_on_condition is {LATER}: the dynamic "
-            "recompile (recompile_state=) pairs with the cache op")
+        """Run the trigger; when it fires, ``alter`` the model and compile
+        it anew (``execution.recompile.recompile``)."""
+        if recompile_state.trigger():
+            recompile_state.alter(self)
+            from .execution.recompile import recompile
+
+            recompile(self)
+            return True
+        return False
 
     def __repr__(self) -> str:
         return (f"FFModel(layers={len(self._layers)}, "
@@ -1162,10 +1373,11 @@ def train_flops_per_step(ff: FFModel) -> int:
     the loss are left out, as the matmul count of
     ``bert_train_flops_per_step`` leaves them out. It reads only the
     graph, so it serves every model family."""
+    from .ops.base import op_flops
+
     pcg = ff.pcg
     total = 0
     for node in pcg.compute_nodes():
-        if hasattr(node.op, "flops"):
-            ins = [pcg.nodes[g].out_shapes[i] for g, i in node.inputs]
-            total += node.op.flops(ins, node.out_shapes)
+        ins = [pcg.nodes[g].out_shapes[i] for g, i in node.inputs]
+        total += op_flops(node.op, ins, node.out_shapes, elementwise=False)
     return 3 * total

@@ -384,6 +384,14 @@ class SDPAOp(Op):
         q, _k, v = input_shapes[:3]
         return [tuple(q[:-1]) + (v[-1],)]
 
+    def flops(self, input_shapes, output_shapes):
+        """Scores and values at the full sequence, as the JAX op counts
+        them (flexflow_tpu/ops/attention.py:653)."""
+        b, h, sq, d = input_shapes[0]
+        sk = input_shapes[1][2]
+        vd = input_shapes[2][3]
+        return 2 * b * h * sq * sk * (d + vd)
+
     def forward(self, params, inputs, ctx: OpContext):
         q, k, v = inputs[:3]
         mask = inputs[3] if len(inputs) > 3 else None

@@ -12,6 +12,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, List, Tuple
 
+import numpy as np
+
 from ..ffconst import DataType, OperatorType
 
 
@@ -36,6 +38,12 @@ class OpContext:
     # (``kernel_regularizer``'s penalty); the train step adds them to the
     # loss. None outside training, as in flexflow_tpu/ops/base.py:43
     aux_losses: Any = None
+    # cache-op state (flexflow_tpu/ops/base.py:44-50): ``cache_in`` =
+    # {op_name: cached tensor, "__use_cache__": 0-d bool tensor} fed into
+    # the train step, ``cache_out`` the dict the CacheOps fill with their
+    # fresh values, which the step returns. None outside a cached step
+    cache_in: Any = None
+    cache_out: Any = None
 
 
 # registry: OperatorType -> Op subclass
@@ -95,3 +103,60 @@ class Op:
 
     def __repr__(self) -> str:
         return f"{type(self).__name__}({self.name})"
+
+
+def profiler_on() -> bool:
+    """True while a ``torch.profiler`` (or autograd profiler) records: the
+    one check a forward makes before it opens per-op ranges."""
+    import torch
+
+    return torch.autograd._profiler_enabled()
+
+
+def run_op(op, name: str, params, inputs, ctx: OpContext,
+           scoped: bool) -> List[Any]:
+    """``op.forward``, inside a ``record_function`` range called ``name``
+    when ``scoped`` (a profiler runs): the counterpart of the JAX
+    package's ``jax.named_scope`` around a node or a fused region's sub-op
+    (flexflow_tpu/execution/executor.py:180-208,
+    flexflow_tpu/ops/fused.py:95-99). A CUDA graph records the kernels of
+    a range but not the range, so a captured step's replays show no
+    names."""
+    if not scoped:
+        return op.forward(params, inputs, ctx)
+    import torch
+
+    with torch.profiler.record_function(name):
+        return op.forward(params, inputs, ctx)
+
+
+def op_flops(op, input_shapes, output_shapes, elementwise: bool = True
+             ) -> int:
+    """Forward FLOPs of ``op`` at these shapes: its own ``flops`` hook,
+    the sum over the sub-ops of a fused region, and for an op without a
+    hook one FLOP an output element (the JAX package's default,
+    flexflow_tpu/ops/base.py:127), or 0 with ``elementwise=False`` (the
+    matmul convention of ``models.train_flops_per_step``)."""
+    subs = getattr(op, "sub_op_shapes", None)
+    if subs is not None:
+        return sum(op_flops(sub, ins, outs, elementwise)
+                   for sub, ins, outs in subs(input_shapes))
+    if hasattr(op, "flops"):
+        return int(op.flops(input_shapes, output_shapes))
+    if not elementwise:
+        return 0
+    return sum(int(np.prod(s)) for s in output_shapes)
+
+
+def hookless_flops(pcg) -> int:
+    """Forward FLOPs of the ops (or a region's sub-ops) without a cost
+    hook of their own, one an output element: what the JAX count
+    (``obs.model_flops_per_step``) adds to the matmul count
+    (``models.train_flops_per_step``), a third of the step's share."""
+    total = 0
+    for node in pcg.compute_nodes():
+        ins = [pcg.nodes[g].out_shapes[i] for g, i in node.inputs]
+        outs = list(node.out_shapes)
+        total += op_flops(node.op, ins, outs) - \
+            op_flops(node.op, ins, outs, elementwise=False)
+    return total

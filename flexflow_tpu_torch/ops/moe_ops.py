@@ -1,5 +1,5 @@
 """Mixture-of-Experts building blocks: GroupBy, Experts, Aggregate,
-AggregateSpec (port of ``flexflow_tpu.ops.moe_ops``; reference:
+AggregateSpec, and the Cache op they pair with (port of ``flexflow_tpu.ops.moe_ops``; reference:
 src/ops/group_by.cc, aggregate.cc, aggregate_spec.cc, moe.cc).
 
 The dispatch is the JAX package's fixed-capacity scatter/gather, term for
@@ -22,8 +22,10 @@ distinct slots), and a dropped token adds an exact zero to the slot it is
 clipped to. The backward of the gather (an ``index_add`` of the same
 indices) is exact for the same reason.
 
-``CacheOp`` is not here: it pairs with the dynamic recompile of a later
-slice (``FFModel.cache`` refuses by name).
+``CacheOp`` keeps an intermediate tensor across steps for the dynamic
+recompile (``execution/recompile.py``): the train step reads its cached
+value and the ``__use_cache__`` flag from static buffers the host writes
+in place, so a captured step replays them without a recapture.
 """
 from __future__ import annotations
 
@@ -247,3 +249,33 @@ class AggregateSpecOp(Op):
         _load_balance_aux(inputs[1], inputs[3], n,
                           self.attrs.get("lambda_bal", 0.0), ctx)
         return [rows.reshape(batch * k, -1).to(exp_preds.dtype)]
+
+
+@register_op(OperatorType.OP_CACHE)
+class CacheOp(Op):
+    """Caches an intermediate tensor across iterations, re-using it while a
+    user score function deems it fresh (reference: src/ops/cache.cc:291;
+    flexflow_tpu/ops/moe_ops.py:282-309). The executor threads the cache
+    state: forward publishes the fresh value through ``ctx.cache_out``
+    (the train step returns it; ``FFModel.fit`` scores it on the host with
+    ``score_fn`` and feeds the recompile trigger) and, where the step reads
+    a cache, returns ``where(__use_cache__, cached, fresh)``.
+
+    attrs: num_batches, score_fn (callable(cached, fresh) -> float)."""
+
+    def infer_output_shapes(self, input_shapes):
+        return [input_shapes[0]]
+
+    def forward(self, params, inputs, ctx: OpContext):
+        import torch
+
+        fresh = inputs[0]
+        if ctx.cache_out is not None:
+            ctx.cache_out[self.name] = fresh
+        if ctx.cache_in is not None and self.name in ctx.cache_in:
+            use_cache = ctx.cache_in.get("__use_cache__")
+            if use_cache is not None:
+                cached = ctx.cache_in[self.name]
+                return [torch.where(use_cache, cached.to(fresh.dtype),
+                                    fresh)]
+        return [fresh]

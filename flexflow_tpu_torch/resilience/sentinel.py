@@ -19,7 +19,7 @@ from typing import Tuple
 
 
 class GuardedTrainStep:
-    """``guard(params, opt_state, xs, labels, rng) -> (outs, ok)``: ``outs``
+    """``guard(params, opt_state, xs, labels, rng[, cache]) -> (outs, ok)``: ``outs``
     is what the unguarded step returns, ``ok`` the host bool of the
     device-side check."""
 
@@ -41,11 +41,14 @@ class GuardedTrainStep:
     def reset(self) -> None:
         self.consecutive_bad = 0
 
-    def __call__(self, params, opt_state, xs, labels, rng
+    def __call__(self, params, opt_state, xs, labels, rng, cache=None
                  ) -> Tuple[tuple, bool]:
+        """With a cache state (a graph with CacheOps) ``outs`` ends with
+        the CacheOps' fresh values, as the plain step's does."""
         from ..execution.graphs import HostTransfer
 
-        *outs, ok_dev = self.fn(params, opt_state, xs, labels, rng)
+        extra = (cache,) if cache is not None else ()
+        *outs, ok_dev = self.fn(params, opt_state, xs, labels, rng, *extra)
         ok = bool(HostTransfer(ok_dev).wait())  # the one bool a step
         if ok:
             self.consecutive_bad = 0

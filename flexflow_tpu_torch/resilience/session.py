@@ -241,9 +241,23 @@ class ResilienceSession:
         return step, int(ts.get("epoch", 0)), int(ts.get("batch_in_epoch", 0))
 
     # --------------------------------------------------------------- close --
-    def close(self) -> None:
+    def merge_telemetry(self, telemetry) -> None:
+        """Add this run's counters to ``telemetry``'s resilience block
+        (flexflow_tpu/resilience/session.py:244-253); None is a no-op."""
+        if telemetry is None:
+            return
+        telemetry.fault_events += self.fault_events
+        telemetry.recovery_events += self.recovery_events
+        telemetry.skipped_steps += self.skipped_steps
+        if self.manager is not None:
+            telemetry.checkpoints_saved += self.manager.saved
+        if self.last_resume_step is not None:
+            telemetry.last_resume_step = self.last_resume_step
+
+    def close(self, telemetry=None) -> None:
         try:
             if self.manager is not None:
                 self.manager.close()
         finally:
             self.restore_signal_handlers()
+            self.merge_telemetry(telemetry)

@@ -26,6 +26,11 @@ kernel (``kernels/flash_decode.py``, its int8 branch for int8 pools); the
 sampler's top-k goes through the row top-k kernel (``kernels/topk.py``)
 where the JAX sampler takes its Pallas kernel.
 
+A run publishes its counters into a ``StepTelemetry`` (``serving`` and
+``serving_prefix`` blocks; ``--telemetry-file``) at its end, and request
+tracing (``obs.enable_reqtrace``) notes each chunk prefill beside the
+scheduler's notes; both are host-side and leave the programs as they are.
+
 Options outside this slice raise ``NotImplementedError`` naming the flag;
 none falls back quietly.
 """
@@ -76,6 +81,7 @@ class ServingStats:
     prefix_hits: int = 0
     prefix_tokens_reused: int = 0
     prefill_tokens_computed: int = 0
+    cache_evictions: int = 0
     queue_depth_hwm: int = 0
     # analytic KV bytes the decode steps' attention read (each live slot's
     # occupied blocks, at the pool's layout)
@@ -132,7 +138,7 @@ class ServingStats:
             "requests_served", "tokens_generated", "prefills",
             "decode_steps", "chunked_prefills", "prefix_hits",
             "prefix_tokens_reused", "prefill_tokens_computed",
-            "queue_depth_hwm")}
+            "cache_evictions", "queue_depth_hwm")}
         out["wall_s"] = self.wall_s
         out["tokens_per_s"] = self.tokens_per_s()
         out["p50_token_ms"] = self.p50_token_ms()
@@ -363,6 +369,29 @@ class ServingEngine:
     # ------------------------------------------------------------ validation
     def _validate_graph(self) -> None:
         pcg = self.executor.pcg
+        # FF005 (flexflow_tpu/analysis/rules.py:248-275): the per-node
+        # serving machinery (decode state, the position-constant override)
+        # cannot see inside a FusedOp; such a graph would decode without
+        # history, so it is refused before anything is served
+        from .kvcache import is_position_constant
+
+        folded = []
+        for node in pcg.compute_nodes():
+            if node.op.op_type != OperatorType.OP_FUSED:
+                continue
+            for sub in node.op.sub_ops:
+                if sub.op_type in (OperatorType.OP_MULTIHEAD_ATTENTION,
+                                   OperatorType.OP_LSTM) or (
+                        sub.op_type == OperatorType.OP_CONSTANT
+                        and is_position_constant(sub.attrs.get("value"))):
+                    folded.append(f"{node.name} holds '{sub.name}'")
+        if folded:
+            raise NotImplementedError(
+                "FF005 serving-state reachability: fusion folded a "
+                "stateful or position op into a fused region ("
+                + "; ".join(folded) + "); the serving engine cannot thread "
+                "decode state through it. Recompile without --fusion to "
+                "serve")
         for node in pcg.compute_nodes():
             if node.op.op_type == OperatorType.OP_LSTM:
                 raise NotImplementedError(
@@ -722,6 +751,38 @@ class ServingEngine:
         self.serve(sched, temperature=temperature, top_k=top_k, seed=seed)
         return [list(r.generated) for r in reqs]
 
+    def _merge_telemetry(self, sched, stats: ServingStats) -> None:
+        """Publish the run into a StepTelemetry when a sink wants one
+        (flexflow_tpu/serving/engine.py:1263-1305): the ``serving`` block
+        (requests, tokens, queue high-water mark, tokens/s, p50/p99 ms a
+        token, host overhead share) and the ``serving_prefix`` block. The
+        JAX run's ``kv_hbm_per_chip_bytes`` and ``serving_resilience``
+        counters stay empty until the port has sequence shards and serving
+        resilience."""
+        tracer = self.model._obs_tracer()
+        tel = self.model._make_telemetry(tracer, batch_size=self.n_slots,
+                                         phase="serving")
+        self.model._telemetry = tel or self.model._telemetry
+        if tel is None:
+            return
+        for w in stats.token_walls_s:
+            tel.record_step(w)
+        tel.requests_served = stats.requests_served
+        tel.tokens_generated = stats.tokens_generated
+        tel.queue_depth_hwm = stats.queue_depth_hwm
+        tel.serving_p50_token_ms = stats.p50_token_ms()
+        tel.serving_p99_token_ms = stats.p99_token_ms()
+        tel.serving_tokens_per_s = round(stats.tokens_per_s(), 2)
+        tel.serving_host_overhead_fraction = stats.host_overhead_fraction()
+        tel.serving_prefix_hits = stats.prefix_hits
+        tel.serving_prefix_tokens_reused = stats.prefix_tokens_reused
+        tel.serving_prefill_tokens_computed = stats.prefill_tokens_computed
+        tel.serving_cache_evictions = stats.cache_evictions
+        tel.serving_chunked_prefills = stats.chunked_prefills
+        tel.finalize()
+        if self.model.config.telemetry_file:
+            tel.write(self.model.config.telemetry_file)
+
     def start_serve(self, sched: ContinuousBatchScheduler,
                     temperature: float = 0.0, top_k: int = 0,
                     seed: int = 0, chaos=None,
@@ -774,6 +835,8 @@ class _ServeLoop:
         self._chunk_walls: Dict[int, float] = {}
         self._prefix_hits0 = sched.prefix_hits
         self._prefix_reused0 = sched.prefix_tokens_reused
+        self._evictions0 = engine._prefix.evictions \
+            if engine._prefix is not None else 0
         self.t0 = time.perf_counter()
 
     # -------------------------------------------------- pending transfers
@@ -923,6 +986,9 @@ class _ServeLoop:
         stats.chunked_prefills += 1
         done = sched.chunk_done(slot, n)
         wall = time.perf_counter() - t_p
+        if sched.rt.enabled:
+            sched.rt.note(req.rid, "chunk", float(sched.clock()),
+                          start=start, tokens=n)
         self._chunk_walls[req.rid] = self._chunk_walls.get(req.rid, 0.0) + \
             wall
         if not done:
@@ -979,7 +1045,9 @@ class _ServeLoop:
 
     # --------------------------------------------------------------- finish
     def finish(self) -> ServingStats:
-        stats, sched = self.stats, self.sched
+        """The run's stats, published into the telemetry (and the trace
+        file written) when a sink wants them."""
+        eng, stats, sched = self.engine, self.stats, self.sched
         stats.wall_s = time.perf_counter() - self.t0
         stats.requests_served = sum(1 for r in sched.finished
                                     if r.outcome == "ok")
@@ -987,6 +1055,12 @@ class _ServeLoop:
         stats.prefix_hits = sched.prefix_hits - self._prefix_hits0
         stats.prefix_tokens_reused = \
             sched.prefix_tokens_reused - self._prefix_reused0
+        if eng._prefix is not None:
+            stats.cache_evictions = eng._prefix.evictions - self._evictions0
+        eng._merge_telemetry(sched, stats)
+        tracer = eng.model._obs_tracer()
+        if tracer.enabled and eng.model.config.trace_file:
+            tracer.write(eng.model.config.trace_file)
         return stats
 
 

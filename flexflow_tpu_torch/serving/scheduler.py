@@ -10,20 +10,31 @@ package, so both packages admit, chunk and decode in the same order.
 Of the resilience states it carries the slot epochs (bumped wherever a
 slot is freed, so the async serve loop can tell a recycled slot from the
 one it dispatched against) and the terminal outcome ("ok" at finish).
-Left for later slices: deadlines, load shedding, quarantine/retry,
-graceful drain, hedged-request cancellation (the resilience and fleet
-layers) and request tracing.
+Request tracing (``obs/reqtrace.py``) notes each request's submit,
+admission, tokens and finish on the scheduler's clock, every note behind
+the tracer's ``enabled`` test. Left for later slices: deadlines, load
+shedding, quarantine/retry, graceful drain, hedged-request cancellation
+(the resilience and fleet layers) and their notes.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import time
 from collections import deque
 from typing import Deque, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..obs.reqtrace import get_reqtrace
+
 _req_counter = itertools.count(1)
+
+
+def now_ms() -> float:
+    """The scheduler's default time base (ms, monotonic), as in
+    flexflow_tpu/serving/scheduler.py:43."""
+    return time.monotonic() * 1e3
 
 
 class ServingRejection(RuntimeError):
@@ -235,6 +246,12 @@ class ContinuousBatchScheduler:
         # result the async serve loop dispatched against epoch e of a slot
         # is discarded if the slot was recycled while it was in flight
         self.slot_epoch: List[int] = [0] * n_slots
+        # request tracing: the process request tracer as of construction;
+        # each lifecycle edge below notes it behind ``rt.enabled`` (one
+        # attribute load and test when tracing is off), stamped by
+        # ``clock`` (ms)
+        self.clock = now_ms
+        self.rt = get_reqtrace()
 
     @property
     def queued(self) -> int:
@@ -276,6 +293,10 @@ class ContinuousBatchScheduler:
         bucket_for(req.effective_len, self.buckets)
         self.queue.append(req)
         self.queue_depth_hwm = max(self.queue_depth_hwm, len(self.queue))
+        if self.rt.enabled:
+            self.rt.note(req.rid, "submit", float(self.clock()),
+                         prompt_len=req.prompt_len,
+                         max_new=req.max_new_tokens, deadline_ms=None)
 
     def _admit_head(self):
         """Admit the head-of-queue request into a free slot with
@@ -326,6 +347,9 @@ class ContinuousBatchScheduler:
         self.queue.popleft()
         slot = self._free.popleft()
         self.slots[slot] = req
+        if self.rt.enabled:
+            self.rt.note(req.rid, "admit", float(self.clock()), slot=slot,
+                         hit=match_t, cow=req.pending_cow is not None)
         if match_t:
             self.prefix_hits += 1
             self.prefix_tokens_reused += match_t
@@ -389,6 +413,9 @@ class ContinuousBatchScheduler:
         if req is None:
             raise ValueError(f"token for empty slot {slot}")
         req.generated.append(int(token))
+        if self.rt.enabled:
+            self.rt.note(req.rid, "token", float(self.clock()),
+                         occ=self.n_slots - len(self._free))
         if req.eos_id is not None and int(token) == int(req.eos_id):
             return self._finish(slot, "eos")
         if len(req.generated) >= req.max_new_tokens:
@@ -417,6 +444,9 @@ class ContinuousBatchScheduler:
         req.done = True
         req.finish_reason = reason
         req.outcome = "ok"
+        if self.rt.enabled:
+            self.rt.finish(req.rid, float(self.clock()), "ok", reason=reason,
+                           new_tokens=len(req.generated))
         self._release_blocks(req)
         self.finished.append(req)
         self.slots[slot] = None

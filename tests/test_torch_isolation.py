@@ -10,14 +10,18 @@
   naming its flag, whether it comes as an engine argument or through
   ``FFConfig``; none falls back quietly. So does every training option
   outside this slice, at ``fit``, every flag that ``compile`` or the
-  serving engine would otherwise parse and ignore, an LSTM graph in the
-  serving engine, and ``FFModel.cache``, naming itself. The recurrent and
-  MoE builders, which refused by name before their slice, build the same
-  output shapes as the JAX package's. Every public method of the JAX
-  package's ``FFModel`` and ``Tensor`` exists on the port's (ported, or
-  refusing by name), so none raises ``AttributeError``.
+  serving engine would otherwise parse and ignore, and an LSTM graph in
+  the serving engine. ``--profile-ops``, ``FFModel.profile_operators`` and
+  ``obs.start_server`` refuse, naming themselves. The recurrent and MoE
+  builders and ``FFModel.cache``, which refused by name before their
+  slices, build the JAX package's ops; the observability flags
+  (``--telemetry-file``, ``--trace-file``, ``--profiler-trace-dir``) and
+  ``fit(recompile_state=)``, refused before theirs, act. Every public
+  method of the JAX package's ``FFModel`` and ``Tensor`` exists on the
+  port's (ported, or refusing by name), so none raises ``AttributeError``.
 """
 import ast
+import json
 import os
 import pkgutil
 import subprocess
@@ -67,7 +71,8 @@ def test_importing_every_module_loads_neither_jax_nor_flexflow_tpu():
               "models.nmt", "models.transformer", "utils.durable_io",
               "utils.graph_utils", "obs.trace", "execution.checkpoint",
               "execution.remat", "resilience.chaos", "resilience.sentinel",
-              "resilience.session"):
+              "resilience.session", "obs.telemetry", "obs.reqtrace",
+              "ops.fused", "execution.recompile"):
         assert f"flexflow_tpu_torch.{m}" in mods
     script = (
         "import importlib, json, sys\n"
@@ -272,9 +277,6 @@ def _xy():
     ("audit_strategy", True, "--audit-strategy"),
     ("memory_budget_mb", 1024, "--memory-budget-mb"),
     ("profile_ops", "ops.jsonl", "--profile-ops"),
-    ("profiler_trace_dir", "trace", "--profiler-trace-dir"),
-    ("telemetry_file", "tel.json", "--telemetry-file"),
-    ("trace_file", "trace.json", "--trace-file"),
     ("collective_overlap", "on", "--collective-overlap"),
     ("schedule", "1f1b", "--schedule"),
 ])
@@ -285,13 +287,51 @@ def test_fit_refuses_config_flags_of_later_slices(field, value, flag):
     assert flag in str(e.value)
 
 
-@pytest.mark.parametrize("kwarg,flag", [("recompile_state",
-                                         "recompile_state=")])
-def test_fit_refuses_arguments_of_later_slices(kwarg, flag):
+def test_profile_ops_names_the_simulator_slice():
+    ff = _tiny_mlp(profile_ops="ops.jsonl")
+    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
+        ff.fit(*_xy())
+
+
+@pytest.mark.parametrize("field,value", [
+    ("profiler_trace_dir", "prof"),
+    ("telemetry_file", "tel.json"),
+    ("trace_file", "trace.json"),
+])
+def test_fit_acts_on_observability_flags(field, value, tmp_path):
+    """Refused by name before their slice; now ``fit`` writes the file
+    (or, for the profiler, one trace into the directory)."""
+    from flexflow_tpu_torch import obs
+
+    path = str(tmp_path / value)
+    ff = _tiny_mlp(**{field: path})
+    try:
+        ff.fit(*_xy(), epochs=1)
+    finally:
+        obs.disable()
+    if field == "profiler_trace_dir":
+        (name,) = os.listdir(path)
+        assert name.endswith(".pt.trace.json")
+    else:
+        with open(path) as f:
+            got = json.load(f)
+        assert (got["steps"] == 2 if field == "telemetry_file" else
+                "train_step" in {e["name"] for e in got["traceEvents"]})
+
+
+def test_fit_takes_recompile_state():
+    """``recompile_state=`` (refused before its slice): the trigger is
+    read after every step and fires a recompile once."""
+    from flexflow_tpu_torch.execution.recompile import RecompileState
+
     ff = _tiny_mlp()
-    with pytest.raises(NotImplementedError, match=LATER) as e:
-        ff.fit(*_xy(), **{kwarg: object()})
-    assert flag in str(e.value)
+    checks = []
+    rs = RecompileState(lambda r: checks.append(1) or len(checks) == 1,
+                        lambda r: None)
+    old = ff.executor
+    ff.fit(*_xy(), epochs=1, recompile_state=rs)
+    assert rs.recompilations == 1 and rs.ffmodel is ff
+    assert ff.executor is not old and len(checks) == 3  # 1 + the rerun 2
 
 
 @pytest.mark.parametrize("field,value,flag", [
@@ -345,17 +385,21 @@ def test_softmax_kernel_opt_in_is_refused():
         got, torch.softmax(torch.tensor(x), -1).numpy(), rtol=0, atol=0)
 
 
-# ------------------------------------------- builders of a later slice
-@pytest.mark.parametrize("builder,args", [
-    ("cache", lambda x: (x, 4)),
-])
-def test_builders_of_later_slices_refuse_by_name(builder, args):
-    ff = ft.FFModel(ft.FFConfig(), device="cpu")
-    x = ff.create_tensor((4, 8))
-    with pytest.raises(NotImplementedError, match=LATER) as e:
-        getattr(ff, builder)(*args(x))
-    assert f"FFModel.{builder} " in str(e.value)
-    assert len(ff._layers) == 0
+# ------------------------------------------------ the cache op's builder
+def test_cache_builder_builds_the_jax_op():
+    """``FFModel.cache`` (refused by name before its slice) builds the JAX
+    package's cache op: the same attributes, shape and dtype."""
+    import flexflow_tpu as fj
+
+    got = []
+    for pkg in (ft, fj):
+        ff = pkg.FFModel(pkg.FFConfig(), **({"device": "cpu"}
+                                            if pkg is ft else {}))
+        t = ff.cache(ff.create_tensor((4, 8)), 4, name="c")
+        layer = ff._layers[-1]
+        got.append((layer.op_type.name, layer.attrs["num_batches"],
+                    t.dims, t.dtype.name))
+    assert got[0] == got[1] == ("OP_CACHE", 4, (4, 8), "DT_FLOAT")
 
 
 def _build_recurrent_and_moe(builder, ff, pkg):
@@ -429,8 +473,20 @@ def test_every_public_jax_method_exists_in_the_port(cls):
     assert [n for n in names if not hasattr(tcls, n)] == []
     if cls == "FFModel":
         ff = _tiny_mlp()
-        for name, args in (("get_telemetry", ()), ("profile_operators", ()),
-                           ("recompile_on_condition", (object(),))):
-            with pytest.raises(NotImplementedError, match=LATER) as e:
-                getattr(ff, name)(*args)
-            assert f"FFModel.{name} " in str(e.value)
+        with pytest.raises(NotImplementedError, match=LATER) as e:
+            ff.profile_operators()
+        assert "FFModel.profile_operators " in str(e.value)
+        # ported in their slices: no telemetry without a sink, and a
+        # trigger that does not fire recompiles nothing
+        from flexflow_tpu_torch.execution.recompile import RecompileState
+
+        assert ff.get_telemetry() is None
+        assert not ff.recompile_on_condition(
+            RecompileState(lambda r: False, lambda r: None, ff))
+
+
+def test_obs_start_server_refuses_by_name():
+    from flexflow_tpu_torch import obs
+
+    with pytest.raises(NotImplementedError, match="obs.start_server"):
+        obs.start_server()
