@@ -253,6 +253,32 @@ timed generate only replays):
    again in a later fit; then a recompile's compile, eager and capture
    seconds. Its files go to a temporary directory removed at the end.
 
+12. chaos — serving under failure on GPT-2 small (fp32, 768 / 12 heads /
+   12 layers; vocab 50257 greedy, 50304 with int8 KV and top-k 8), the e2e
+   prompt lengths without a shared prefix, 8 slots, 512 positions: first
+   B5 (native and int8) on a NaN slot and B7 on NaN and inf rows against
+   their plain versions (healthy rows equal, the NaN slot NaN, in-range
+   indices); (a) per (native | int8) x (sync | async), on a fresh warmed
+   engine, an unpoisoned guarded run, a ``ChaosPlan`` poisoning slot 1
+   before decode step 4 and one poisoning it again at step 8: one
+   quarantine and retry (then a ``decode_fault``), the neighbours'
+   streams and every common decode step's logits rows bitwise the clean
+   run's, the native retried stream identical outside a top-2 tie of
+   ``CHAOS_TIE_MARGIN`` (and under ``exact_decode`` identical), no capture
+   after warm-up, ``host_syncs`` = decode steps, 12 B5 a step and one B7 a
+   sampler call; (b) the guarded against the unguarded program on one
+   engine: streams bitwise equal, B5 12 a step each way,
+   ``decode_compiles`` 1 each, tokens/s and p50 / p99 ms a token in turns
+   (unguarded, guarded, guarded, unguarded), launch calls kernel / graph
+   of a profiled generate; (c) scripted-clock deadlines twice alike, a
+   real-clock ``--request-timeout-ms`` run (counts), ``--shed-policy
+   queue`` under a storm (the same counts twice), a real SIGTERM drain
+   (in-flight finish, queued handed back and completed on resubmission,
+   the handler restored); (d) the ring layout: teacher-forced logits
+   bitwise paged-exact's, within ``RING_ATOL`` of paged B5's, greedy
+   streams equal, ``kv_bytes_per_token`` ring / paged the analytic ratio,
+   tokens/s each way.
+
 It prints the run's wall seconds, one ``{"kernels": [...]}`` line (the
 entries of the instances the census covers also carry their SASS counts,
 registers, spills and shared memory; the flash-decode entries their
@@ -263,7 +289,9 @@ proxy's B1 and B2 as ``flash_fwd_transformer`` and
 theirs; the decoder's B5 as ``flash_decode_decoder``; B1 and B2 under
 ``--remat full`` as ``flash_fwd_remat`` and ``flash_bwd_fused_remat``;
 phase 11's as ``flash_fwd_obs``, ``flash_bwd_fused_obs``,
-``flash_decode_int8_obs`` and ``topk_obs``), the card's
+``flash_decode_int8_obs`` and ``topk_obs``; phase 12's as
+``flash_decode_guarded``, ``flash_decode_int8_guarded`` and
+``topk_guarded``), the card's
 name and power limit (nvidia-smi), and as its last line ``{"ok": true, "device": {...}}``. Any
 failed phase exits non-zero; without CUDA, or without the package, it
 exits 1 and prints no result.
@@ -4211,6 +4239,624 @@ def obs_phase(device, card: str, prompt_set: dict) -> dict:
     return res
 
 
+# ----------------------------------------------- phase 12: serving chaos
+# GPT-2 small serves the e2e prompt lengths without a shared prefix (a
+# victim's table row then maps no block another slot shares, as in the
+# JAX package's isolation tests) on 8 slots. The victim is slot 1, the
+# 96-token prompt, poisoned before decode step 4: its quarantine retry
+# re-prefills 96 + 5 tokens, inside the 128 bucket the warm-up captured.
+CHAOS_POISON = {4: 1}
+CHAOS_POISON_TWICE = {4: 1, 8: 1}
+CHAOS_VICTIM = 1
+# a retried stream off the exact path (B5) may turn on a top-2 tie of the
+# clean run's logits this close (the sampler gate's margin)
+CHAOS_TIE_MARGIN = SAMPLER_TIE_MARGIN
+# ring against paged B5 decode: summation order only, fp32
+RING_ATOL = 1e-4
+
+
+class ScriptedClock:
+    """A deterministic ms clock for the deadline gate: a fixed step a
+    call, so every deadline decision is a function of the call
+    sequence."""
+
+    def __init__(self, step_ms: float):
+        self.t, self.step_ms = 0.0, step_ms
+
+    def __call__(self) -> float:
+        self.t += self.step_ms
+        return self.t
+
+
+def chaos_prompts(vocab: int, prompt_set: dict, seed: int = SEED + 1):
+    return make_prompts(vocab, prompt_set["lengths"], 0, 0, seed)
+
+
+def chaos_engine(ff, prompt_set: dict, **kw):
+    """A fresh engine of ``ff`` at the phase's widths, warmed up by two
+    guarded generates with ``CHAOS_POISON`` on prompts of the phase's
+    shapes and other tokens: every program a poisoned serve runs (the
+    retry's prefill and the scrub of the quarantined blocks included)
+    takes its eager call and its capture. Its prefix cache is off: the
+    gates run the same prompts several times on one engine, and a trie
+    hit would take the chunk path (other programs, other rows)."""
+    from flexflow_tpu_torch.resilience import ChaosPlan
+    from flexflow_tpu_torch.serving import ServingEngine
+
+    sampling = kw.pop("sampling", {})
+    eng = ServingEngine(ff, n_slots=8, max_decode_len=prompt_set["max_len"],
+                        prefix_cache="off", **kw)
+    for seed in WARM_SEEDS:
+        eng.generate(chaos_prompts(ff_vocab(ff), prompt_set, seed),
+                     max_new_tokens=prompt_set["new_tokens"],
+                     chaos=ChaosPlan(poison_decode_at=CHAOS_POISON),
+                     **sampling)
+    return eng
+
+
+def record_decode_logits(eng) -> list:
+    """Keep a device copy of every decode step's logits the engine
+    dispatches (the checks' view of the neighbours' rows; no sync)."""
+    rows = []
+    real = eng._dispatch_decode
+
+    def dispatch(params, guard):
+        logits, ok = real(params, guard)
+        rows.append(logits.clone())
+        return logits, ok
+
+    eng._dispatch_decode = dispatch
+    return rows
+
+
+def top2_gap(row) -> float:
+    top = row.float().topk(2).values
+    return float(top[0] - top[1])
+
+
+def chaos_poison(device, card: str, ff, kv: str, loop: str,
+                 prompt_set: dict, sampling: dict) -> dict:
+    """Gate (a) for one (KV layout, serve loop): on a fresh warmed
+    engine, an unpoisoned guarded run, the run with ``CHAOS_POISON`` and
+    the one with ``CHAOS_POISON_TWICE``."""
+    import torch
+
+    from flexflow_tpu_torch.kernels import flash_decode as fd
+    from flexflow_tpu_torch.kernels import topk as tk
+    from flexflow_tpu_torch.resilience import ChaosPlan
+
+    label = f"chaos poison {kv} {loop}"
+    eng = chaos_engine(ff, prompt_set, kv_dtype=kv, serve_loop=loop,
+                       sampling=sampling)
+    prompts = chaos_prompts(ff_vocab(ff), prompt_set)
+    new = prompt_set["new_tokens"]
+    before = serving_captures(eng)
+    b5 = "flash_decode_int8" if kv == "int8" else "flash_decode"
+    runs, counts = {}, {b5: 0, "topk": 0}
+    for name, script in (("clean", {}), ("poisoned", CHAOS_POISON),
+                         ("twice", CHAOS_POISON_TWICE)):
+        rows = record_decode_logits(eng)
+        chaos = ChaosPlan(poison_decode_at=script)
+        fd.reset_launch_count()
+        tk.reset_launch_count()
+        outs = eng.generate(prompts, max_new_tokens=new, chaos=chaos,
+                            **sampling)
+        torch.cuda.synchronize()
+        del eng._dispatch_decode
+        st = eng.stats
+        counts[b5] += fd.launch_count(b5)
+        counts["topk"] += tk.launch_count()
+        runs[name] = dict(outs=outs, rows=rows, steps=st.decode_steps,
+                          prefills=st.prefills, syncs=st.host_syncs,
+                          outcomes=dict(st.outcomes),
+                          quarantines=st.quarantines,
+                          retries=st.decode_retries,
+                          b5=fd.launch_count(b5), topk=tk.launch_count(),
+                          poisoned=chaos.poisoned_decode_steps)
+    n_layers = attention_layers(ff)
+    clean, pois, twice = runs["clean"], runs["poisoned"], runs["twice"]
+    want = {"clean": ({"ok": 8}, 0, 0), "poisoned": ({"ok": 8}, 1, 1),
+            "twice": ({"ok": 7, "decode_fault": 1}, 2, 1)}
+    for name, r in runs.items():
+        if (r["outcomes"], r["quarantines"], r["retries"]) != want[name]:
+            fail(f"{label} {name}: outcomes {r['outcomes']}, quarantines "
+                 f"{r['quarantines']}, retries {r['retries']}; want "
+                 f"{want[name]}")
+        if r["syncs"] != r["steps"]:
+            fail(f"{label} {name}: host_syncs {r['syncs']} != decode steps "
+                 f"{r['steps']}")
+        if r["b5"] != n_layers * r["steps"]:
+            fail(f"{label} {name}: {r['b5']} {b5} launches over "
+                 f"{r['steps']} decode steps, want {n_layers} a step")
+        if sampling and r["topk"] != r["prefills"] + r["steps"]:
+            fail(f"{label} {name}: {r['topk']} topk launches over "
+                 f"{r['prefills']} prefills and {r['steps']} decode steps")
+        if name != "clean" and r["poisoned"] != sorted(
+                (CHAOS_POISON_TWICE if name == "twice" else
+                 CHAOS_POISON)):
+            fail(f"{label} {name}: poisoned at {r['poisoned']}")
+    # the neighbours: streams and every common decode step's logits rows
+    nb = [s for s in range(8) if s != CHAOS_VICTIM]
+    for name in ("poisoned", "twice"):
+        r = runs[name]
+        for i in nb:
+            if r["outs"][i] != clean["outs"][i]:
+                fail(f"{label} {name}: neighbour {i}'s stream changed")
+        common = min(len(r["rows"]), len(clean["rows"]))
+        for s in range(common):
+            if not torch.equal(r["rows"][s][nb], clean["rows"][s][nb]):
+                fail(f"{label} {name}: neighbours' logits rows differ at "
+                     f"decode step {s}")
+    # the retried stream
+    got, ref = pois["outs"][CHAOS_VICTIM], clean["outs"][CHAOS_VICTIM]
+    diverge = next((j for j, (a, b) in enumerate(zip(got, ref)) if a != b),
+                   None)
+    gap = None
+    if diverge is not None and not sampling:
+        # token j came from decode step j - 1 of the clean run (all
+        # prompts prefill before the first decode step)
+        gap = top2_gap(clean["rows"][diverge - 1][CHAOS_VICTIM])
+        if kv == "native" and not gap <= CHAOS_TIE_MARGIN:
+            fail(f"{label}: the retried stream diverges at token "
+                 f"{diverge} where the clean logits' top-2 gap is {gap}")
+    if len(got) != len(ref):
+        fail(f"{label}: the retried stream has {len(got)} tokens")
+    captured = serving_captures(eng) - before
+    if captured:
+        fail(f"{label}: {captured} captures after warm-up")
+    log(f"{label}: quarantines 1 / retries 1 / outcomes {pois['outcomes']}"
+        f" and, poisoned twice, {twice['outcomes']}; neighbours' streams "
+        f"and logits rows over {min(len(pois['rows']), len(clean['rows']))}"
+        f" common decode steps bitwise the clean guarded run's; retried "
+        f"stream {'identical' if diverge is None else f'diverges at token {diverge} (top-2 gap {gap})'}"
+        f"; host_syncs = decode steps ({clean['steps']}, {pois['steps']}, "
+        f"{twice['steps']}); {b5} {n_layers} a step"
+        f"{'; topk one a sampler call' if sampling else ''}; captures 0 "
+        f"[{card}]")
+    del eng
+    return dict(counts=counts, retried_identical=diverge is None)
+
+
+def chaos_exact(device, card: str, ff, prompt_set: dict) -> None:
+    """Gate (a), exact decode: the poisoned run's streams, the retried one
+    included, token-identical to the clean run's."""
+    from flexflow_tpu_torch.resilience import ChaosPlan
+    from flexflow_tpu_torch.serving import ServingEngine
+
+    eng = ServingEngine(ff, n_slots=8, max_decode_len=prompt_set["max_len"],
+                        exact_decode=True)
+    prompts = chaos_prompts(ff_vocab(ff), prompt_set)
+    outs = {}
+    for name, script in (("clean", {}), ("poisoned", CHAOS_POISON)):
+        outs[name] = eng.generate(prompts,
+                                  max_new_tokens=prompt_set["new_tokens"],
+                                  chaos=ChaosPlan(poison_decode_at=script))
+    st = eng.stats
+    if outs["poisoned"] != outs["clean"] or st.quarantines != 1:
+        fail(f"chaos exact: poisoned streams differ from the clean run's "
+             f"(quarantines {st.quarantines})")
+    log(f"chaos exact native sync: under exact_decode the poisoned run's 8 "
+        f"streams, the retried one included, equal the clean run's; "
+        f"outcomes {st.outcomes} [{card}]")
+
+
+def attention_layers(ff) -> int:
+    from flexflow_tpu_torch.ffconst import OperatorType
+
+    return sum(1 for n in ff.executor.pcg.compute_nodes()
+               if n.op.op_type == OperatorType.OP_MULTIHEAD_ATTENTION)
+
+
+def ff_vocab(ff) -> int:
+    return ff.pcg.nodes[ff.executor.final_guid].out_shapes[
+        ff.executor.final_out_idx][-1]
+
+
+def settle_host() -> None:
+    """Before a timed run: collect garbage (a dropped engine's programs
+    hold CUDA graphs, whose destruction inside a timed run would cost it
+    tenths of a second) and let the card finish."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+
+
+def chaos_guard_cost(device, card: str, ff, prompt_set: dict) -> int:
+    """Gate (b): the guarded and the unguarded decode program on one fresh
+    engine (native, sync, greedy), both warmed: streams bitwise equal, B5
+    12 a decode step each way, ``decode_compiles`` 1 for each, then
+    tokens/s and p50 / p99 ms a token over the runs unguarded, guarded,
+    guarded, unguarded, and the host's kernel / graph launch calls of one
+    profiled generate each way."""
+    import torch
+
+    from flexflow_tpu_torch.kernels import flash_decode as fd
+    from flexflow_tpu_torch.resilience import ChaosPlan
+
+    eng = chaos_engine(ff, prompt_set)
+    vocab = ff_vocab(ff)
+    for seed in WARM_SEEDS:  # the unguarded program's warm-up
+        eng.generate(chaos_prompts(vocab, prompt_set, seed),
+                     max_new_tokens=prompt_set["new_tokens"])
+    prompts = chaos_prompts(vocab, prompt_set)
+    before = serving_captures(eng)
+    res = {False: [], True: []}
+    outs = {}
+    launches = 0
+    for guarded in (False, True, True, False):
+        settle_host()
+        fd.reset_launch_count()
+        outs[guarded] = eng.generate(
+            prompts, max_new_tokens=prompt_set["new_tokens"],
+            chaos=ChaosPlan() if guarded else None)
+        torch.cuda.synchronize()
+        st = eng.stats
+        if guarded:
+            launches += fd.launch_count()
+        if eng._last_guard is not guarded or eng.decode_compiles != 1:
+            fail(f"chaos guard: guard {eng._last_guard}, decode_compiles "
+                 f"{eng.decode_compiles}")
+        per_step = fd.launch_count() / st.decode_steps
+        if per_step != attention_layers(ff) or \
+                st.host_syncs != st.decode_steps:
+            fail(f"chaos guard {guarded}: B5 {per_step} a step, host_syncs "
+                 f"{st.host_syncs} over {st.decode_steps} steps")
+        res[guarded].append((st.tokens_per_s(), st.p50_token_ms(),
+                             st.p99_token_ms()))
+    if outs[True] != outs[False]:
+        fail("chaos guard: guarded streams differ from unguarded ones")
+    prof = {g: profiled(lambda g=g: eng.generate(
+        prompts, max_new_tokens=prompt_set["new_tokens"],
+        chaos=ChaosPlan() if g else None)) for g in (False, True)}
+    captured = serving_captures(eng) - before
+    if captured:
+        fail(f"chaos guard: {captured} captures after warm-up")
+    fmt = "; ".join(f"{t:.1f} tokens/s, p50 {p50:.3f} / p99 {p99:.3f} ms"
+                    for t, p50, p99 in [res[False][0], res[True][0],
+                                        res[True][1], res[False][1]])
+    log(f"chaos guard native sync (unguarded, guarded, guarded, "
+        f"unguarded): {fmt}; streams bitwise equal, B5 "
+        f"{attention_layers(ff)} a decode step, "
+        f"decode_compiles 1 each way, captures 0; launch calls kernel / "
+        f"graph a generate: unguarded {prof[False]['kernel_launch_calls']}"
+        f" / {prof[False]['graph_launch_calls']}, guarded "
+        f"{prof[True]['kernel_launch_calls']} / "
+        f"{prof[True]['graph_launch_calls']} [{card}]")
+    del eng
+    return launches
+
+
+def chaos_paths(device, card: str, ff, prompt_set: dict) -> None:
+    """Gate (c): deadlines on a scripted clock (twice, the same outcomes
+    and streams; the evicted requests' slots serve the queued ones), a
+    real-clock run under ``--request-timeout-ms`` (counts only), the
+    ``queue`` shed policy under a storm (the same shed / accept counts in
+    two calls), and a real SIGTERM drain (in-flight requests finish,
+    queued ones come back and complete when resubmitted, the handler
+    restored)."""
+    import signal
+
+    import torch
+
+    from flexflow_tpu_torch.resilience import ChaosPlan
+    from flexflow_tpu_torch.serving import (ContinuousBatchScheduler,
+                                            Request, ServingEngine)
+
+    vocab, new = ff_vocab(ff), prompt_set["new_tokens"]
+    max_len = prompt_set["max_len"]
+    prompts = chaos_prompts(vocab, prompt_set) + \
+        chaos_prompts(vocab, prompt_set, SEED + 7)[:2]
+
+    def deadlines():
+        eng = ServingEngine(ff, n_slots=8, max_decode_len=max_len)
+        eng.resilience_clock = ScriptedClock(1.0)
+        res = eng._make_resilience(None)
+        sched = ContinuousBatchScheduler(n_slots=8, max_queue=16,
+                                         buckets=eng.buckets,
+                                         max_len=max_len, clock=res.clock)
+        reqs = [Request(prompt=np.asarray(p, np.int32), max_new_tokens=new,
+                        rng_tag=i, deadline_ms=40.0 if i in (0, 3) else None)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            res.admit(sched, r)
+        eng.serve(sched, resilience=res)
+        return ([(r.outcome, list(r.generated)) for r in reqs],
+                dict(eng.stats.outcomes), sched.evicted)
+
+    a, b = deadlines(), deadlines()
+    if a != b:
+        fail("chaos deadlines: two scripted-clock runs differ")
+    outcomes = [o for o, _ in a[0]]
+    if a[1] != {"ok": 8, "deadline_exceeded": 2} or \
+            outcomes[8:] != ["ok", "ok"] or a[2] != 2:
+        fail(f"chaos deadlines: outcomes {a[1]} {outcomes}, evicted {a[2]}")
+    ff.config.request_timeout_ms = 60.0
+    try:
+        eng = ServingEngine(ff, n_slots=8, max_decode_len=max_len)
+        eng.generate(prompts, max_new_tokens=new)
+        real = dict(eng.stats.outcomes)
+    finally:
+        ff.config.request_timeout_ms = 0.0
+    ff.config.shed_policy = "queue"
+    try:
+        def storm():
+            # high-water 8: the 8 prompts queue before the serve, then
+            # the storm finds the queue empty and 8 of its 12 enter
+            eng = ServingEngine(ff, n_slots=8, max_decode_len=max_len,
+                                max_queue=16)
+            chaos = ChaosPlan(storm_queue={2: [prompts[3][:12]] * 12},
+                              storm_max_new_tokens=4)
+            outs = eng.generate(prompts[:8], max_new_tokens=new,
+                                chaos=chaos)
+            return outs, dict(eng.stats.outcomes), eng.stats.sheds
+        s1, s2 = storm(), storm()
+    finally:
+        ff.config.shed_policy = "off"
+    if s1 != s2 or s1[2] != 4 or s1[1] != {"ok": 16, "shed": 4}:
+        fail(f"chaos shed: {s1[1:]} then {s2[1:]}")
+    prev = signal.getsignal(signal.SIGTERM)
+    eng = ServingEngine(ff, n_slots=8, max_decode_len=max_len)
+    chaos = ChaosPlan(preempt_serving_at=1)
+    outs = eng.generate(prompts, max_new_tokens=new, chaos=chaos)
+    drained = eng.drained_requests
+    st = eng.stats
+    if signal.getsignal(signal.SIGTERM) is not prev:
+        fail("chaos drain: the SIGTERM handler was not restored")
+    if chaos.serving_preempted_at != 1 or \
+            [r.rng_tag for r in drained] != [8, 9] or \
+            st.outcomes != {"ok": 8, "preempted": 2} or \
+            any(len(o) != new for o in outs[:8]):
+        fail(f"chaos drain: outcomes {st.outcomes}, drained "
+             f"{[r.rng_tag for r in drained]}")
+    res = eng._make_resilience(None)
+    sched = ContinuousBatchScheduler(n_slots=8, max_queue=8,
+                                     max_len=max_len, clock=res.clock)
+    for r in drained:
+        r.outcome = None
+        res.admit(sched, r)
+    eng.serve(sched, resilience=res)
+    if any(len(r.generated) != new or r.outcome != "ok" for r in drained):
+        fail("chaos drain: the resubmitted requests did not complete")
+    torch.cuda.synchronize()
+    log(f"chaos paths: scripted-clock deadlines twice alike, outcomes "
+        f"{a[1]} (requests 0 and 3 evicted at "
+        f"{[len(a[0][i][1]) for i in (0, 3)]} tokens, 8 and 9 served in "
+        f"their slots); real clock, --request-timeout-ms 60: {real}; "
+        f"--shed-policy queue under a storm of 12: {s1[1]} twice "
+        f"({s1[2]} shed); SIGTERM before decode step 1: 8 finished, "
+        f"drained {[r.rng_tag for r in drained]} completed when "
+        f"resubmitted, handler restored [{card}]")
+
+
+def teacher_forced_engine(ff, tokens, prompt_len: int, steps: int,
+                          max_len: int, **engine_kw):
+    """Teacher-forced decode through a one-slot engine's own state and
+    decode program (any layout): the logits of ``steps`` decode steps."""
+    import torch
+
+    from flexflow_tpu_torch.serving import ServingEngine
+
+    eng = ServingEngine(ff, n_slots=1, max_decode_len=max_len, **engine_kw)
+    dev = ff.device
+    bucket = next(b for b in eng.buckets if b >= prompt_len)
+    ids = np.zeros((1, bucket), np.int32)
+    ids[0, :prompt_len] = tokens[:prompt_len]
+    _lg, _last, cache = eng._prefill_fn(bucket)(
+        ff.params, [torch.tensor(ids, device=dev)],
+        torch.tensor([prompt_len], dtype=torch.int32, device=dev))
+    eng._ensure_state(cache)
+    row = None
+    if eng._paged:
+        blocks = eng.block_allocator.alloc(
+            eng.block_allocator.blocks_needed(prompt_len + steps + 1))
+        row = np.zeros((eng.max_blocks_per_slot,), np.int32)
+        row[:len(blocks)] = blocks
+    eng._write_slot(cache, 0, prompt_len, int(tokens[prompt_len - 1]), row)
+    dec = eng._decode_fn()
+    state, rows = eng.state, []
+    for s in range(steps):
+        tok = torch.tensor([[tokens[prompt_len + s]]], dtype=torch.int32,
+                           device=dev)
+        logits, state = dec(ff.params, [tok], state)
+        rows.append(logits[0].clone())
+    return torch.stack(rows)
+
+
+def chaos_ring(device, card: str, ff, prompt_set: dict) -> None:
+    """Gate (d): the ring layout (max_decode_len 512, a multiple of the
+    16-token block). Teacher-forced logits of ring and paged-exact
+    decode bitwise equal; ring against paged B5 within ``RING_ATOL``;
+    greedy streams of warmed ring and paged engines equal (a divergence
+    only at a top-2 gap of the ring's logits under ``CHAOS_TIE_MARGIN``);
+    ring / paged ``kv_bytes_per_token`` the analytic ratio; tokens/s each
+    way."""
+    import math
+
+    import torch
+
+    from flexflow_tpu_torch.serving import ServingEngine
+
+    max_len, new = prompt_set["max_len"], prompt_set["new_tokens"]
+    vocab = ff_vocab(ff)
+    prompts = chaos_prompts(vocab, prompt_set)
+    # 96 prompt tokens and 48 decode steps at 512 positions
+    plen, steps = max_len * 3 // 16, max_len * 3 // 32
+    tokens = make_prompts(vocab, (plen + steps,), 0, 0, SEED + 9)[0]
+    ring = teacher_forced_engine(ff, tokens, plen, steps, max_len,
+                                 kv_cache="ring", exact_decode=True)
+    exact = teacher_forced_engine(ff, tokens, plen, steps, max_len,
+                                  exact_decode=True)
+    fast = teacher_forced_engine(ff, tokens, plen, steps, max_len)
+    if not torch.equal(ring, exact):
+        fail(f"chaos ring: ring and paged-exact logits differ by "
+             f"{(ring - exact).abs().max().item()}")
+    err = (ring - fast).abs().max().item()
+    if not err <= RING_ATOL:
+        fail(f"chaos ring: ring vs paged B5 logits differ by {err}")
+    engines, runs = {}, {"ring": [], "paged": []}
+    for layout in ("ring", "paged"):
+        eng = engines[layout] = ServingEngine(
+            ff, n_slots=8, max_decode_len=max_len, kv_cache=layout,
+            prefix_cache="off")
+        for seed in WARM_SEEDS:
+            eng.generate(chaos_prompts(vocab, prompt_set, seed),
+                         max_new_tokens=new)
+    before = {k: serving_captures(e) for k, e in engines.items()}
+    for layout in ("ring", "paged", "paged", "ring"):
+        eng = engines[layout]
+        settle_host()
+        outs = eng.generate(prompts, max_new_tokens=new)
+        torch.cuda.synchronize()
+        st = eng.stats
+        runs[layout].append((outs, st.tokens_per_s(), st.p50_token_ms(),
+                             st.p99_token_ms(), st.kv_bytes_per_token(),
+                             st.decode_steps))
+    captured = {k: serving_captures(e) - before[k]
+                for k, e in engines.items()}
+    del engines, eng
+    if any(captured.values()):
+        fail(f"chaos ring: captures in the timed runs {captured}")
+    timed = {k: [r[1:4] for r in v] for k, v in runs.items()}
+    runs = {k: v[0][:1] + v[0][1:3] + v[0][4:] for k, v in runs.items()}
+    bs, n = 16, runs["paged"][4]
+    paged_keys = sum(math.ceil((len(p) + 2 + i) / bs) * bs
+                     for p in prompts for i in range(n))
+    want = n * 8 * max_len / paged_keys
+    ratio = runs["ring"][3] / runs["paged"][3]
+    if abs(ratio - want) > 1e-9 * want:
+        fail(f"chaos ring: kv_bytes_per_token ratio {ratio}, analytic "
+             f"{want}")
+    for i, (a, b) in enumerate(zip(runs["ring"][0], runs["paged"][0])):
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        row = teacher_forced_engine(ff, prompts[i] + b, len(prompts[i]),
+                                    max(j, 1), max_len,
+                                    kv_cache="ring")[max(j, 1) - 1]
+        if j == 0 or top2_gap(row) > CHAOS_TIE_MARGIN:
+            fail(f"chaos ring: request {i}'s ring stream diverges from "
+                 f"paged at token {j}")
+    fmt = {k: "; ".join(f"{t:.1f} tokens/s, p50 {p50:.3f} / p99 {p99:.3f}"
+                        f" ms" for t, p50, p99 in v)
+           for k, v in timed.items()}
+    log(f"chaos ring: teacher-forced {steps} steps ring == paged-exact "
+        f"bitwise, ring vs paged B5 max |diff| {err:.3g} (atol "
+        f"{RING_ATOL}); greedy streams equal; timed ring, paged, paged, "
+        f"ring on warmed engines, no capture: ring {fmt['ring']}; paged "
+        f"{fmt['paged']}; kv_bytes_per_token {runs['ring'][3]:.1f} vs "
+        f"{runs['paged'][3]:.1f} = {ratio:.4f}, the analytic {want:.4f} "
+        f"[{card}]")
+
+
+def chaos_kernel_checks(device, card: str) -> dict:
+    """B5 and B7 on non-finite rows at the phase's shapes (not counted as
+    main-path launches): a slot whose occupied blocks are NaN (native and
+    int8, the scales carrying it) leaves the other slots equal to the
+    plain version and its own row NaN; a top-k over 8 rows of 50304 with
+    a NaN row, a half-NaN row and a +inf row returns healthy rows equal to
+    the plain sweeps' and in-range, distinct indices for the NaN rows."""
+    import torch
+
+    from flexflow_tpu_torch.kernels import flash_decode as fd
+    from flexflow_tpu_torch.kernels import topk as tk
+    from flexflow_tpu_torch.serving.kvcache import quantize_kv
+
+    per_layer, tables, n_keys = decode_inputs(torch.float32, device, 1)
+    q, k, v = per_layer[0]
+    victim = 3
+    used = -(-int(n_keys[victim]) // BLOCK)
+    blocks = tables[victim, :used].long()
+    healthy = [s for s in range(SLOTS) if s != victim]
+    out = {}
+    for int8 in (False, True):
+        if int8:
+            (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+            args = (q, kq, vq, tables, n_keys)
+            kw = dict(kscale=ks.clone().index_fill_(0, blocks, float("nan")),
+                      vscale=vs.clone().index_fill_(0, blocks, float("nan")))
+        else:
+            args = (q, k.clone().index_fill_(0, blocks, float("nan")),
+                    v.clone().index_fill_(0, blocks, float("nan")),
+                    tables, n_keys)
+            kw = {}
+        got = fd.flash_decode(*args, **kw)
+        want = fd.flash_decode_plain(*args, **kw)
+        err = (got[healthy] - want[healthy]).abs().max().item()
+        if not (err <= KERNEL_ATOL["fp32"] and torch.isnan(got[victim]).all()
+                and torch.isnan(want[victim]).all()):
+            fail(f"chaos B5 {'int8' if int8 else 'native'} on a NaN slot: "
+                 f"healthy max |diff| {err}, victim all NaN "
+                 f"{bool(torch.isnan(got[victim]).all())}")
+        out["flash_decode_int8" if int8 else "flash_decode"] = err
+    x = topk_inputs(device, 1)[0]
+    x[1] = float("nan")
+    x[3, ::2] = float("nan")
+    x[5, [10, 20]] = float("inf")
+    vals, idx = tk.topk(x, 8)
+    want_v, want_i = tk.topk_plain(x, 8)
+    nan_rows = torch.isnan(x).any(dim=-1)
+    ok_rows = ~nan_rows
+    if not (torch.equal(idx[ok_rows], want_i[ok_rows])
+            and torch.equal(vals[ok_rows], want_v[ok_rows])):
+        fail("chaos B7 on NaN rows: a healthy row differs from the plain")
+    for r in torch.nonzero(nan_rows)[:, 0].tolist():
+        got = idx[r].tolist()
+        if not (all(0 <= i < VOCAB_PADDED for i in got)
+                and len(set(got)) == 8):
+            fail(f"chaos B7 on NaN rows: row {r}'s indices {got}")
+    torch.cuda.synchronize()
+    out["topk"] = 0.0
+    log(f"chaos kernels: B5 on a NaN slot, healthy slots max |diff| "
+        f"native {out['flash_decode']:.3g}, int8 "
+        f"{out['flash_decode_int8']:.3g}, the slot NaN in kernel and plain; "
+        f"B7 k=8 on 2 NaN rows and an inf row: the other rows equal the "
+        f"plain sweeps', the NaN rows' indices in range and distinct "
+        f"[{card}]")
+    return out
+
+
+def chaos_phase(device, card: str, prompt_set: dict) -> dict:
+    """Phase 12 (module doc): serving under failure on GPT-2 small."""
+    import torch
+
+    from flexflow_tpu_torch.models.gpt2 import GPT2Config
+
+    t0 = time.perf_counter()
+    errs = chaos_kernel_checks(device, card)
+    shapes = dict(prompt_set)
+    native = build_model(GPT2Config.small(), "fp32", device,
+                         shapes["max_len"])
+    counts = {"flash_decode": 0, "flash_decode_int8": 0, "topk": 0}
+    retried = {}
+    for loop in ("sync", "async"):
+        r = chaos_poison(device, card, native, "native", loop, shapes, {})
+        counts["flash_decode"] += r["counts"]["flash_decode"]
+        retried[("native", loop)] = r["retried_identical"]
+    chaos_exact(device, card, native, shapes)
+    counts["flash_decode"] += chaos_guard_cost(device, card, native, shapes)
+    chaos_paths(device, card, native, shapes)
+    chaos_ring(device, card, native, shapes)
+    del native
+    torch.cuda.empty_cache()
+    padded = build_model(GPT2Config(vocab_size=VOCAB_PADDED), "fp32", device,
+                         shapes["max_len"])
+    for loop in ("sync", "async"):
+        r = chaos_poison(device, card, padded, "int8", loop, shapes,
+                         OBS_SERVE_SAMPLING)
+        counts["flash_decode_int8"] += r["counts"]["flash_decode_int8"]
+        counts["topk"] += r["counts"]["topk"]
+        retried[("int8", loop)] = r["retried_identical"]
+    del padded
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    log(f"chaos phase: {wall:.1f} s; main-path launches in the guarded "
+        f"runs {counts}; retried streams identical {retried} [{card}]")
+    return dict(counts=counts, errs=errs)
+
+
 def main() -> None:
     try:
         import torch
@@ -4285,6 +4931,7 @@ def main() -> None:
     seq = seq_phase(device, card, prompt_set, profile=profile)
     resilient = resilient_phase(device, card)
     obs = obs_phase(device, card, prompt_set)
+    chaos = chaos_phase(device, card, prompt_set)
 
     kernels = []
     for compute, name in (("fp32", "flash_decode"),
@@ -4421,6 +5068,36 @@ def main() -> None:
             "launches": sum(int8[c][run]["counts"]["topk"] for c in int8),
             **topk_kern[k],
         })
+    # phase 12: B5 native and int8 inside the guarded decode program, B7
+    # inside the sampler on a poisoned slot's NaN row (int8, top-k 8), at
+    # the kernel phase's shapes (GPT-2 small, 8 slots, 512 positions;
+    # (8, 50304)); max_abs_err is the healthy slots' or rows' on the NaN
+    # inputs of chaos_kernel_checks
+    for name, kernel, timed, props in (
+            ("flash_decode_guarded", "flash_decode", kern["fp32"],
+             dprops["flash_decode"]),
+            ("flash_decode_int8_guarded", "flash_decode_int8",
+             kern_int8["fp32"], dprops["flash_decode_int8"])):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "flexflow_tpu_torch/kernels/csrc/flash_decode.cu",
+            "replaces": "flexflow_tpu/kernels/flash_decode.py:"
+                        + ("78" if kernel.endswith("int8") else "54"),
+            "launches": chaos["counts"][kernel],
+            **timed,
+            **props,
+            "max_abs_err": chaos["errs"][kernel],
+        })
+    kernels.append({
+        "name": "topk_guarded",
+        "route": "cuda",
+        "source": "flexflow_tpu_torch/kernels/csrc/topk.cu",
+        "replaces": "flexflow_tpu/kernels/topk.py:34",
+        "launches": chaos["counts"]["topk"],
+        **topk_kern[8],
+        "max_abs_err": chaos["errs"]["topk"],
+    })
     for kernel, line in (("softmax_fwd", 29), ("softmax_bwd", 38)):
         kernels.append({
             "name": kernel,

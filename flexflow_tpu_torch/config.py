@@ -354,11 +354,6 @@ class FFConfig:
     iteration_config: FFIterationConfig = dataclasses.field(
         default_factory=FFIterationConfig
     )
-    # the recognized flags that a parsed argv carried (``parse_args``):
-    # what "given on the command line" means where a flag's default is
-    # also a valid value
-    flags_given: frozenset = dataclasses.field(default_factory=frozenset,
-                                               repr=False, compare=False)
 
     def __post_init__(self) -> None:
         # under pytest the process argv belongs to the test runner, whose
@@ -665,7 +660,6 @@ class FFConfig:
                 self.mesh_shape = tuple(int(x) for x in _next().split("x"))
             # unrecognized flags are ignored, matching the reference's behavior
             i += 1
-        self.flags_given = self.flags_given | seen
         self._validate_flag_combos(seen)
 
     def _validate_flag_combos(self, seen: set) -> None:

@@ -753,14 +753,22 @@ class Executor:
         return chunk
 
     def make_decode_step(self, max_decode_len: int, exact: bool = False,
-                         block_size: int = 0, kv_dtype: str = "native",
-                         capture: bool = True):
+                         guard: bool = False, block_size: int = 0,
+                         kv_dtype: str = "native", capture: bool = True):
         """``(params, xs, state) -> (logits, state)``: ONE token per slot
         through the graph, writing each slot's k/v at its ``lengths``
-        cursor into the paged pool and advancing the cursors — all in
-        place. ``exact=True`` reads attention through the plain gather
-        path instead of the flash-decode kernel. ``kv_dtype`` is the pool's
-        layout ("native" or "int8").
+        cursor into the paged pool (``block_size`` > 0) or the ring
+        (``block_size`` 0, a state without block tables) and advancing the
+        cursors — all in place. ``exact=True`` reads paged attention
+        through the plain gather path instead of the flash-decode kernel.
+        ``kv_dtype`` is the pool's layout ("native" or "int8").
+
+        ``guard=True`` is the guarded decode program, a second program
+        (flexflow_tpu/execution/executor.py:975-1060): it returns
+        ``(logits, state, ok)``, ``ok`` the (n_slots,) int32 verdict
+        ``isfinite(logits).all(-1)`` computed inside the same graph. The
+        logits are untouched, so a healthy slot's values equal the
+        unguarded step's bitwise; the quarantine decision is the host's.
 
         The step is a :class:`~.graphs.StepProgram` over the static token
         input ``xs[0]`` (n_slots, 1); lengths, block tables and pools are
@@ -771,8 +779,8 @@ class Executor:
         engine's pools) drops the graph and captures anew, so a replay
         never reads stale weights. ``capture=False`` returns the eager
         body (for comparisons)."""
-        key = ("decode", int(max_decode_len), bool(exact), int(block_size),
-               str(kv_dtype))
+        key = ("decode", int(max_decode_len), bool(exact), bool(guard),
+               int(block_size), str(kv_dtype))
         fn = self._serving_fns.get(key if capture else key + ("eager",))
         if fn is not None:
             return fn
@@ -780,7 +788,8 @@ class Executor:
         from ..serving.kvcache import ServingState
 
         def run(params, xs, state):
-            """The step on compute-dtype params and inputs: the logits."""
+            """The step on compute-dtype params and inputs: the logits, and
+            under ``guard`` the verdict."""
             import torch
 
             with torch.inference_mode():
@@ -800,16 +809,19 @@ class Executor:
                     values[self.final_guid][self.final_out_idx])[:, 0]
                 state.caches.update(sv.cache_out)
                 state.lengths += 1
-                return logits
+                if guard:
+                    ok = torch.isfinite(logits).all(dim=-1)
+                    return [logits, ok.to(torch.int32)]
+                return [logits]
 
         program = None
         if capture:
             from .graphs import StepProgram
 
             program = StepProgram(
-                lambda inputs, _seeds, params, state: [run(params, inputs,
-                                                           state)],
-                self.device, "decode")
+                lambda inputs, _seeds, params, state: run(params, inputs,
+                                                          state),
+                self.device, "decode_guarded" if guard else "decode")
 
         def decode(params, xs, state):
             import torch
@@ -817,10 +829,9 @@ class Executor:
             with torch.inference_mode():
                 params, xs = self._cast_for_compute(params, list(xs),
                                                     cache=True)
-                if program is None:
-                    return run(params, xs, state), state
-                (logits,) = program(xs, params, state)
-                return logits, state
+                outs = run(params, xs, state) if program is None \
+                    else program(xs, params, state)
+                return (outs[0], state, *outs[1:])
 
         decode.program = program
         self._serving_fns[key if capture else key + ("eager",)] = decode

@@ -73,7 +73,9 @@ def flash_decode_plain(q, kpool, vpool, block_tables, n_keys, *,
     follow the online-softmax recurrence in fp32; a slot only updates on
     steps that hold at least one of its keys. An int8 block is dequantized
     in fp32 (``k.float() * scale``) as the TPU kernel does. Returns
-    (n_slots, heads, vd) in q's dtype; a slot with no keys gets zeros.
+    (n_slots, heads, vd) in q's dtype; a slot with no keys gets zeros, and
+    a NaN in a slot's live keys or values makes its row NaN, as in the
+    kernel.
     """
     import torch
 
@@ -111,7 +113,11 @@ def flash_decode_plain(q, kpool, vpool, block_tables, n_keys, *,
                           + torch.einsum("shk,shkd->shd", p, v), acc)
         l = torch.where(step, l * corr + p.sum(dim=-1, keepdim=True), l)
         m = torch.where(step, m_new, m)
-    out = torch.where(l > 0, acc / torch.where(l > 0, l, torch.ones_like(l)),
+    # a slot with no keys gets zeros; otherwise acc / l, so a non-finite
+    # key or value row (a poisoned KV block) reaches the output as the
+    # kernel's division and the TPU kernel's give it
+    has = (nk > 0)[:, None, None]
+    out = torch.where(has, acc / torch.where(has, l, torch.ones_like(l)),
                       torch.zeros_like(acc))
     return out.to(q.dtype)
 

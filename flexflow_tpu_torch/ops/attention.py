@@ -20,7 +20,10 @@ Serving (``ctx.serving``): prefill runs the plain causal core and hands the
 prompt's k/v rows to the engine; decode writes one token per slot into the
 paged pool and reads it through the flash-decode kernel
 (``kernels/flash_decode.py``); chunk prefill writes a chunk's rows into one
-slot's blocks and attends over the slot's gathered extent. Under
+slot's blocks and attends over the slot's gathered extent. The ring layout
+(``block_tables`` None) writes the token at each slot's cursor and reads
+the whole ring under the position mask, plain tensor code as in the JAX
+package, where the ring runs no Pallas kernel either. Under
 ``kv_dtype="int8"`` every write quantizes its rows per (token, head) and
 stores the scales beside them; decode reads through the kernel's int8
 branch, the exact and chunk paths dequantize the gathered rows to the
@@ -157,11 +160,11 @@ class MultiHeadAttentionOp(Op):
 
 
 def _serving_attention(name: str, q, k, v, sv, *, causal: bool):
-    """Prefill / decode / chunk attention over the paged KV pool
-    (``serving/kvcache.py``). q/k/v are (batch, heads, seq, dim)."""
+    """Prefill / decode / chunk attention over the paged KV pool or the
+    ring (``serving/kvcache.py``). q/k/v are (batch, heads, seq, dim)."""
     import torch
 
-    from ..serving.kvcache import (quantize_kv,
+    from ..serving.kvcache import (quantize_kv, write_token_kv,
                                    write_token_kv_paged,
                                    write_token_scale_paged)
 
@@ -179,6 +182,18 @@ def _serving_attention(name: str, q, k, v, sv, *, causal: bool):
         sv.cache_out[name] = (k, v)
         return mha_core(q, k, v, causal=True)
     scale = 1.0 / np.sqrt(q.shape[-1])
+    if sv.block_tables is None:
+        # the ring (flexflow_tpu/ops/attention.py:259-288): the write at
+        # each slot's cursor, then the masked read over the whole ring,
+        # the paged exact path's arithmetic on the same extent
+        kc, vc = sv.cache_in[name]
+        write_token_kv(kc, k, sv.positions)
+        write_token_kv(vc, v, sv.positions)
+        sv.cache_out[name] = (kc, vc)
+        kpos = torch.arange(kc.shape[2], device=q.device)
+        mask = kpos[None, None, None, :] <= sv.positions.long()[
+            :, None, None, None]
+        return _masked_core(q, kc, vc, mask, scale)
     tables, bs = sv.block_tables, sv.block_size
     entry = sv.cache_in[name]
     if sv.kv_dtype == "int8":

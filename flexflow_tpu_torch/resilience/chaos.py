@@ -1,5 +1,5 @@
-"""Deterministic fault injection for the training resilience paths (the
-training part of ``flexflow_tpu.resilience.chaos``):
+"""Deterministic fault injection for the training and serving resilience
+paths (the training and serving parts of ``flexflow_tpu.resilience.chaos``):
 
 * ``ChaosPlan(nan_at_steps={K})`` poisons the batch of step K with NaN, so
   the guarded step sees a genuinely non-finite loss and grads.
@@ -9,14 +9,23 @@ training part of ``flexflow_tpu.resilience.chaos``):
   is flushed and ``fit`` returns.
 * ``corrupt_checkpoint(path)`` truncates, bit-flips or un-commits a written
   checkpoint.
+* Serving, keyed on the serve loop's decode-step count (the dispatch count
+  in the async loop): ``poison_decode_at {step: slot}`` NaNs one slot's KV
+  rows before that decode step, in place, so the guarded decode program
+  sees genuinely non-finite logits; ``storm_queue {step: [prompt, ...]}``
+  submits a burst through the engine's admission control;
+  ``preempt_serving_at`` sends a real SIGTERM before that decode step (the
+  graceful drain).
 
 Injection is once per step by default, so a run that rolls back and
 replays step K replays it clean (the transient-fault model under which
 recovery must reconverge to the uninterrupted run). Steps are global
 0-based indices: the step count as the step is about to dispatch.
 
-The JAX plan's strategy-safety, serving and fleet injections come with
-the slices that port those paths; here each raises, naming itself.
+The JAX plan's strategy-safety injections and its device drop
+(``drop_devices_at``, which drives the elastic replan of multi-device
+serving, ROADMAP A.8) come with the slices that port those paths; here
+each raises, naming itself.
 """
 from __future__ import annotations
 
@@ -30,20 +39,22 @@ from ..execution.checkpoint import COMMIT_MARKER, read_meta
 # with the value that leaves them off
 _LATER_ARGS = {"fail_compiles": 0, "wrong_reshard": False,
                "wrong_reshard_factor": 2.0, "wrong_reshard_mode": "scale",
-               "poison_decode_at": None, "storm_queue": None,
-               "storm_max_new_tokens": 4, "preempt_serving_at": None,
                "drop_devices_at": None}
 
 
 class ChaosPlan:
-    """Scripted fault schedule for one training run (module doc). With
-    ``once=True`` (default) each scripted fault fires a single time even
-    if its step is re-executed after a rollback."""
+    """Scripted fault schedule for one training or serving run (module
+    doc). With ``once=True`` (default) each scripted fault fires a single
+    time even if its step is re-executed after a rollback."""
 
     def __init__(self, nan_at_steps: Iterable[int] = (),
                  preempt_at_step: Optional[int] = None,
                  preempt_signal: int = signal.SIGTERM,
-                 once: bool = True, **later):
+                 once: bool = True,
+                 poison_decode_at: Optional[dict] = None,
+                 storm_queue: Optional[dict] = None,
+                 storm_max_new_tokens: int = 4,
+                 preempt_serving_at: Optional[int] = None, **later):
         for name, value in later.items():
             if name not in _LATER_ARGS:
                 raise TypeError(f"ChaosPlan got an unexpected argument "
@@ -51,8 +62,9 @@ class ChaosPlan:
             if value != _LATER_ARGS[name]:
                 raise NotImplementedError(
                     f"ChaosPlan({name}=) is ported in a later slice: it "
-                    "injects into the strategy-safety, serving or fleet "
-                    "paths, which this slice does not run")
+                    "injects into the strategy-safety path or the "
+                    "multi-device serving path (the elastic replan, "
+                    "ROADMAP A.8), which this slice does not run")
         self.nan_at_steps = {int(s) for s in nan_at_steps}
         self.preempt_at_step = (None if preempt_at_step is None
                                 else int(preempt_at_step))
@@ -61,6 +73,18 @@ class ChaosPlan:
         self.injected_nan_steps: List[int] = []
         self.preempted_at: Optional[int] = None
         self._nan_done: set = set()
+        self.poison_decode_at = {int(k): int(v) for k, v in
+                                 (poison_decode_at or {}).items()}
+        self.storm_queue = {int(k): list(v) for k, v in
+                            (storm_queue or {}).items()}
+        self.storm_max_new_tokens = int(storm_max_new_tokens)
+        self.preempt_serving_at = (None if preempt_serving_at is None
+                                   else int(preempt_serving_at))
+        self.poisoned_decode_steps: List[int] = []
+        self.storms_injected = 0
+        self.serving_preempted_at: Optional[int] = None
+        self._decode_poison_done: set = set()
+        self._storm_done: set = set()
 
     def poison_batch(self, step: int, bx):
         """Replace the first floating-point input of step ``step`` with NaN
@@ -88,6 +112,71 @@ class ChaosPlan:
             return
         self.preempted_at = step
         os.kill(os.getpid(), self.preempt_signal)
+
+    # -- hooks called by the serving engine ---------------------------------
+    def maybe_poison_decode(self, step: int, state, occupied,
+                            to_device) -> Optional[int]:
+        """NaN one slot's KV rows before decode step ``step`` dispatches
+        (:func:`poison_decode_state`); returns the slot, or None when
+        nothing is scripted. ``occupied(slot)`` gives the slot's occupied
+        pool block ids from the host's bookkeeping and ``to_device(ints)``
+        stages them on the device, so the poison costs no sync."""
+        slot = self.poison_decode_at.get(step)
+        if slot is None or (self.once and step in self._decode_poison_done):
+            return None
+        self._decode_poison_done.add(step)
+        self.poisoned_decode_steps.append(step)
+        poison_decode_state(state, slot, occupied(slot), to_device)
+        return slot
+
+    def maybe_storm(self, step: int) -> List:
+        """The scripted prompt burst to submit through admission control
+        before decode step ``step`` (empty when nothing is scheduled)."""
+        if step not in self.storm_queue or \
+                (self.once and step in self._storm_done):
+            return []
+        self._storm_done.add(step)
+        self.storms_injected += 1
+        return list(self.storm_queue[step])
+
+    def maybe_preempt_serving(self, step: int) -> None:
+        """Deliver the scripted signal before decode step ``step``, through
+        ``os.kill``, so the serve loop's flag-only handler runs and the
+        loop drains."""
+        if self.preempt_serving_at is None \
+                or self.serving_preempted_at is not None \
+                or step != self.preempt_serving_at:
+            return
+        self.serving_preempted_at = step
+        os.kill(os.getpid(), self.preempt_signal)
+
+
+def poison_decode_state(state, slot: int, blocks, to_device) -> None:
+    """NaN one slot's KV rows of a serving ``DecodeState`` in place
+    (flexflow_tpu/resilience/chaos.py:280-330): ``index_fill_`` on the pool
+    tensors the captured decode program reads, enqueued on the stream
+    before its replay, so the next step computes with them and nothing is
+    captured anew. Floating leaves only: an int8 pool's float scales carry
+    the NaN, the cursors stay intact.
+
+    Paged layout: exactly the ``blocks`` the victim occupies (the engine
+    passes ``req.kv_blocks[:ceil(cursor / bs)]``), never the GARBAGE block,
+    whose rows every co-batched slot's masked reads touch. A slot with no
+    occupied block has nothing to poison. Ring layout: the slot's whole
+    ``max_len`` ring."""
+    from ..serving.kvcache import GARBAGE_BLOCK
+
+    if state.block_tables is None:
+        ids = [slot]
+    else:
+        ids = [int(b) for b in blocks if int(b) != GARBAGE_BLOCK]
+        if not ids:
+            return
+    idx = to_device(ids).long()
+    for entry in state.caches.values():
+        for leaf in entry:
+            if leaf.is_floating_point():
+                leaf.index_fill_(0, idx, float("nan"))
 
 
 def corrupt_checkpoint(path: str, mode: str = "truncate") -> str:

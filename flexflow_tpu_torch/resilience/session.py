@@ -32,18 +32,21 @@ from .sentinel import GuardedTrainStep
 
 
 class ResilienceSession:
-    def __init__(self, ffmodel, chaos=None):
+    def __init__(self, ffmodel, chaos=None, signals_only: bool = False):
+        # signals_only: the serving engine takes only the flag-only
+        # preemption handlers for its graceful drain — no checkpoint
+        # writer, no train-step guard, whatever the config arms for fit
         cfg = ffmodel.config
         self.model = ffmodel
         self.chaos = chaos
         self.tracer = get_tracer()
         self.checkpoint_every = max(int(cfg.checkpoint_every or 0), 0)
         self.manager: Optional[CheckpointManager] = None
-        if cfg.checkpoint_dir:
+        if cfg.checkpoint_dir and not signals_only:
             self.manager = CheckpointManager(ffmodel, cfg.checkpoint_dir,
                                              keep=cfg.keep_checkpoints)
         self.guard: Optional[GuardedTrainStep] = None
-        if int(cfg.max_bad_steps or 0) > 0:
+        if int(cfg.max_bad_steps or 0) > 0 and not signals_only:
             self.guard = GuardedTrainStep(ffmodel.executor,
                                           cfg.max_bad_steps,
                                           capture=ffmodel._capture_steps)

@@ -1,9 +1,14 @@
-"""flexflow_tpu_torch.serving: prefill/decode over the paged KV pool with
-continuous batching, the prefix cache and chunked prefill."""
-from .kvcache import DecodeState, GARBAGE_BLOCK, ServingState  # noqa: F401
+"""flexflow_tpu_torch.serving: prefill/decode over the paged KV pool or the
+ring with continuous batching, the prefix cache and chunked prefill, and
+serving under failure (deadlines, load shedding, the guarded decode with
+per-slot quarantine, the graceful drain)."""
+from .kvcache import (DecodeState, GARBAGE_BLOCK,  # noqa: F401
+                      KV_DTYPES, ServingState)
 from .scheduler import (BlockAccountingError, BlockAllocator,  # noqa: F401
                         ContextOverflowError, ContinuousBatchScheduler,
                         QueueFullError, Request, ServingRejection,
                         bucket_for, default_buckets)
 from .prefix import PrefixCache, PrefixNode  # noqa: F401
 from .engine import ServingEngine, ServingStats  # noqa: F401
+from .resilience import (AdmissionController, OUTCOMES,  # noqa: F401
+                         OverloadError, ServingResilience)

@@ -1,13 +1,14 @@
 """ServingEngine: continuous-batching inference over a compiled FFModel.
 
 Port of ``flexflow_tpu.serving.engine`` for the paged KV pool
-(``kv_cache="paged"``) in the model dtype or int8 (``--kv-dtype``), the
-radix prefix cache with its chunk-prefill step, optional chunked prefill
+(``kv_cache="paged"``) in the model dtype or int8 (``--kv-dtype``) and the
+ring layout (``kv_cache="ring"``, the bitwise reference), the radix prefix
+cache with its chunk-prefill step, optional chunked prefill
 (``--prefill-chunk-tokens``), the synchronous and the async serve loop
-(``--serve-loop``), one sequence shard, and greedy or top-k temperature
-sampling. Each tick performs one scheduler action: a one-shot prefill, one
-prefill chunk, or one decode step that advances every live slot by a
-token.
+(``--serve-loop``), one sequence shard, greedy or top-k temperature
+sampling, and serving under failure (``serving/resilience.py``). Each tick
+performs one scheduler action: a one-shot prefill, one prefill chunk, or
+one decode step that advances every live slot by a token.
 
 Every device step of an action is a step program
 (``execution/graphs.StepProgram``; on CUDA a CUDA graph per shape,
@@ -26,10 +27,26 @@ kernel (``kernels/flash_decode.py``, its int8 branch for int8 pools); the
 sampler's top-k goes through the row top-k kernel (``kernels/topk.py``)
 where the JAX sampler takes its Pallas kernel.
 
-A run publishes its counters into a ``StepTelemetry`` (``serving`` and
-``serving_prefix`` blocks; ``--telemetry-file``) at its end, and request
-tracing (``obs.enable_reqtrace``) notes each chunk prefill beside the
-scheduler's notes; both are host-side and leave the programs as they are.
+Serving under failure (the JAX package's ``serve`` and ``_ServeLoop``):
+deadlines (``--request-timeout-ms`` or ``Request.deadline_ms``) are swept
+at every iteration and at admission; ``--shed-policy`` sheds at admission;
+``serve`` installs the flag-only SIGTERM/SIGINT handler and drains on it
+(admission stops, in-flight requests get ``--drain-grace-s``, queued ones
+come back in ``drained_requests``); and when any of it is armed (or a
+``ChaosPlan`` is given) the decode step is the guarded decode program,
+whose per-slot finite verdict rides the tokens' one pinned copy back: a
+slot whose logits are not finite is quarantined alone and its request
+retried on a fresh slot (``--decode-retry-budget``), or aborted as
+``decode_fault``. Nothing armed, the loop runs the unguarded program and
+pays no per-iteration cost. The decode dispatch catches no exception: a
+device error propagates (device-loss failover needs the multi-device
+serving plan, ROADMAP A.8).
+
+A run publishes its counters into a ``StepTelemetry`` (``serving``,
+``serving_prefix`` and ``serving_resilience`` blocks; ``--telemetry-file``)
+at its end, and request tracing (``obs.enable_reqtrace``) notes each chunk
+prefill beside the scheduler's notes; both are host-side and leave the
+programs as they are.
 
 Options outside this slice raise ``NotImplementedError`` naming the flag;
 none falls back quietly.
@@ -38,20 +55,28 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from collections import deque
+from typing import Any, Deque, Dict, List, Optional, Sequence
 
 import numpy as np
 
 from ..execution.graphs import HostTransfer
 from ..ffconst import DataType, OperatorType
 from .kvcache import DecodeState
-from .scheduler import ContinuousBatchScheduler, Request, default_buckets
+from .scheduler import (ContinuousBatchScheduler, Request, ServingRejection,
+                        bucket_for, default_buckets)
 
 
 def _later_slice(flag: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{flag} is ported in a later slice of flexflow_tpu_torch; this "
-        "slice serves the paged KV pool")
+        f"{flag} is ported in a later slice of flexflow_tpu_torch, with "
+        "the multi-device serving path and the serving fleet (ROADMAP "
+        "A.8); this slice serves one device")
+
+
+# the per-token latency window: p50/p99 read the most recent walls, so a
+# long serve does not grow the list without bound
+TOKEN_WALL_WINDOW = 8192
 
 
 def position_context_bound(executor, max_len: int) -> int:
@@ -88,8 +113,21 @@ class ServingStats:
     kv_bytes_read: int = 0
     wall_s: float = 0.0
     # per-token latency: decode tokens carry their step wall, first tokens
-    # their prefill wall
-    token_walls_s: List[float] = dataclasses.field(default_factory=list)
+    # their prefill wall; a window of the last TOKEN_WALL_WINDOW walls
+    token_walls_s: Deque[float] = dataclasses.field(
+        default_factory=lambda: deque(maxlen=TOKEN_WALL_WINDOW))
+    # the resilience ledger: every request leaves under exactly one
+    # outcome (serving.resilience.OUTCOMES); the counters mirror its
+    # events. replans stays 0 until the elastic replan is ported
+    outcomes: Dict[str, int] = dataclasses.field(default_factory=dict)
+    sheds: int = 0
+    deadline_misses: int = 0
+    quarantines: int = 0
+    decode_retries: int = 0
+    decode_faults: int = 0
+    drains: int = 0
+    replans: int = 0
+    drained_returned: int = 0
     # host-overhead accounting: each tick's wall splits into dispatch (tick
     # start -> device call issued), device (the call and the result fetch)
     # and bookkeeping (commits, stats, trie inserts). The async loop's host
@@ -104,18 +142,25 @@ class ServingStats:
     host_overlap_s: float = 0.0
     host_syncs: int = 0
 
+    def record_token(self, wall_s: float) -> None:
+        self.token_walls_s.append(wall_s)
+
+    def count_outcome(self, outcome: str, n: int = 1) -> None:
+        if n:
+            self.outcomes[outcome] = self.outcomes.get(outcome, 0) + int(n)
+
     def tokens_per_s(self) -> float:
         return self.tokens_generated / self.wall_s if self.wall_s > 0 else 0.0
 
     def p50_token_ms(self) -> Optional[float]:
         if not self.token_walls_s:
             return None
-        return float(np.percentile(self.token_walls_s, 50) * 1e3)
+        return float(np.percentile(list(self.token_walls_s), 50) * 1e3)
 
     def p99_token_ms(self) -> Optional[float]:
         if not self.token_walls_s:
             return None
-        return float(np.percentile(self.token_walls_s, 99) * 1e3)
+        return float(np.percentile(list(self.token_walls_s), 99) * 1e3)
 
     def kv_bytes_per_token(self) -> Optional[float]:
         if not self.tokens_generated or not self.kv_bytes_read:
@@ -134,18 +179,37 @@ class ServingStats:
         return (self.host_dispatch_s + self.host_bookkeep_s) / total
 
     def summary(self) -> Dict[str, Any]:
+        """The JAX ``ServingStats.summary()`` keys (flexflow_tpu/serving/
+        engine.py:203-247) the port has: counters, rounded rates, the
+        outcome ledger and the nonzero resilience and prefix counters."""
         out = {k: getattr(self, k) for k in (
             "requests_served", "tokens_generated", "prefills",
-            "decode_steps", "chunked_prefills", "prefix_hits",
-            "prefix_tokens_reused", "prefill_tokens_computed",
-            "cache_evictions", "queue_depth_hwm")}
-        out["wall_s"] = self.wall_s
-        out["tokens_per_s"] = self.tokens_per_s()
-        out["p50_token_ms"] = self.p50_token_ms()
-        out["p99_token_ms"] = self.p99_token_ms()
+            "decode_steps", "queue_depth_hwm")}
+        out["wall_s"] = round(self.wall_s, 4)
+        out["tokens_per_s"] = round(self.tokens_per_s(), 2)
+        p50, p99 = self.p50_token_ms(), self.p99_token_ms()
+        if p50 is not None:
+            out["p50_token_ms"] = round(p50, 3)
+            out["p99_token_ms"] = round(p99, 3)
+        if self.outcomes:
+            out["outcomes"] = dict(self.outcomes)
+        for k in ("sheds", "deadline_misses", "quarantines",
+                  "decode_retries", "drains", "replans",
+                  "drained_returned"):
+            if getattr(self, k):
+                out[k] = getattr(self, k)
         kvpt = self.kv_bytes_per_token()
         if kvpt is not None:
             out["kv_bytes_per_token"] = round(kvpt, 1)
+        for k in ("prefix_hits", "prefix_tokens_reused",
+                  "prefill_tokens_computed", "cache_evictions",
+                  "chunked_prefills"):
+            if getattr(self, k):
+                out[k] = getattr(self, k)
+        reused = self.prefix_tokens_reused + self.prefill_tokens_computed
+        if self.prefix_tokens_reused:
+            out["prefix_reuse_rate"] = round(
+                self.prefix_tokens_reused / reused, 4)
         hof = self.host_overhead_fraction()
         if hof is not None:
             out["host_overhead_fraction"] = round(hof, 4)
@@ -258,7 +322,9 @@ class ServingEngine:
                  serve_loop: Optional[str] = None,
                  seq_shards: Optional[int] = None,
                  context_buckets: Optional[Sequence[int]] = None):
-        from .kvcache import KV_DTYPES, blocks_per_slot, parse_context_buckets
+        from .kvcache import (KV_DTYPES, SeqShardsError, blocks_per_slot,
+                              parse_context_buckets)
+        from .resilience import AdmissionController
         from .scheduler import BlockAllocator
 
         if model.executor is None:
@@ -295,8 +361,40 @@ class ServingEngine:
         if self.kv_cache == "ring" and self.kv_dtype != "native":
             raise ValueError("kv_dtype='int8' requires the paged KV layout "
                              "(kv_cache='paged')")
-        if self.kv_cache != "paged":
-            raise _later_slice(f"kv_cache={self.kv_cache!r} (--kv-cache)")
+        if self.seq_shards < 1:
+            raise ValueError(
+                f"seq_shards must be >= 1, got {self.seq_shards}")
+        # the ring's constraints (flexflow_tpu/serving/engine.py:322-379)
+        if self.kv_cache == "ring" and self.seq_shards > 1:
+            raise SeqShardsError(
+                "--seq-shards > 1 requires the paged KV layout "
+                "(kv_cache='paged'): the ring layout has no block tables "
+                "to partition into per-shard contiguous runs")
+        if self.kv_cache == "ring" and buckets_ctx:
+            raise ValueError(
+                "--context-buckets requires the paged KV layout "
+                "(kv_cache='paged'): buckets route requests to "
+                "sequence-sharded block-table partitions")
+        self.prefill_chunk_tokens = int(
+            prefill_chunk_tokens if prefill_chunk_tokens is not None
+            else getattr(cfg, "prefill_chunk_tokens", 0) or 0)
+        prefix_mode = str(prefix_cache or
+                          getattr(cfg, "prefix_cache", "on") or "on")
+        if prefix_mode not in ("on", "off"):
+            raise ValueError(
+                f"prefix_cache must be 'on' or 'off', got {prefix_mode!r}")
+        if self.kv_cache == "ring":
+            if prefix_cache == "on":
+                raise ValueError(
+                    "prefix_cache='on' requires the paged KV layout "
+                    "(kv_cache='paged'): the ring layout has no shared "
+                    "block pool to map a cached prefix into")
+            if self.prefill_chunk_tokens:
+                raise ValueError(
+                    "prefill_chunk_tokens requires the paged KV layout "
+                    "(kv_cache='paged'): chunks write into the block "
+                    "pool")
+            prefix_mode = "off"
         if self.seq_shards != 1:
             raise _later_slice(f"seq_shards={self.seq_shards} "
                                "(--seq-shards)")
@@ -304,45 +402,31 @@ class ServingEngine:
             raise _later_slice("context_buckets (--context-buckets)")
         if getattr(cfg, "request_journal", ""):
             raise _later_slice("the request journal (--request-journal)")
-        if getattr(cfg, "request_timeout_ms", 0) or \
-                getattr(cfg, "shed_policy", "off") != "off":
-            raise _later_slice("serving resilience (--request-timeout-ms, "
-                               "--shed-policy)")
-        # their defaults are live settings of the JAX loop (the SIGTERM
-        # drain and the decode guard), so only a value given on the
-        # command line is refused
-        for flag in ("--drain-grace-s", "--decode-retry-budget"):
-            if flag in getattr(cfg, "flags_given", ()):
-                raise _later_slice(f"{flag} (serving resilience)")
         self.kv_block_size = int(kv_block_size or
                                  getattr(cfg, "kv_block_size", 16))
-        self.prefill_chunk_tokens = int(
-            prefill_chunk_tokens if prefill_chunk_tokens is not None
-            else getattr(cfg, "prefill_chunk_tokens", 0) or 0)
         if self.prefill_chunk_tokens % self.kv_block_size:
             raise ValueError(
                 f"prefill_chunk_tokens ({self.prefill_chunk_tokens}) must "
                 f"be a multiple of kv_block_size ({self.kv_block_size})")
-        prefix_mode = str(prefix_cache or
-                          getattr(cfg, "prefix_cache", "on") or "on")
-        if prefix_mode not in ("on", "off"):
-            raise ValueError(
-                f"prefix_cache must be 'on' or 'off', got {prefix_mode!r}")
         self._validate_graph()
         self.max_context = position_context_bound(self.executor,
                                                   self.max_decode_len)
+        self.block_allocator = None
+        self.kv_pool_blocks = None
+        self._prefix = None
         mb = blocks_per_slot(self.max_decode_len, self.kv_block_size)
         self.max_blocks_per_slot = mb
-        # full capacity (every slot at max_len) + the garbage block + one
-        # live chunk's worth of headroom
-        chunk_blocks = -(-self.prefill_chunk_tokens // self.kv_block_size)
-        kv_pool_blocks = int(kv_pool_blocks if kv_pool_blocks is not None
-                             else getattr(cfg, "kv_pool_blocks", 0))
-        self.kv_pool_blocks = kv_pool_blocks or (
-            self.n_slots * mb + 1 + chunk_blocks)
-        self.block_allocator = BlockAllocator(self.kv_pool_blocks,
-                                              self.kv_block_size)
-        self._prefix = None
+        if self._paged:
+            # full capacity (every slot at max_len) + the garbage block +
+            # one live chunk's worth of headroom
+            chunk_blocks = -(-self.prefill_chunk_tokens //
+                             self.kv_block_size)
+            kv_pool_blocks = int(kv_pool_blocks if kv_pool_blocks is not None
+                                 else getattr(cfg, "kv_pool_blocks", 0))
+            self.kv_pool_blocks = kv_pool_blocks or (
+                self.n_slots * mb + 1 + chunk_blocks)
+            self.block_allocator = BlockAllocator(self.kv_pool_blocks,
+                                                  self.kv_block_size)
         if prefix_mode == "on":
             from .prefix import PrefixCache
 
@@ -356,15 +440,26 @@ class ServingEngine:
             default_buckets(self.max_decode_len)
         self.state: Optional[DecodeState] = None
         self._last_tokens = None  # (n_slots, 1) int32 on the device
-        # (decode program, its capture count) when this engine's pools
-        # were made: decode_compiles counts from there
-        self._decode_captures0: Any = (None, 0)
+        # per guard mode, (decode program, its capture count) when this
+        # engine's pools were made: decode_compiles counts from there
+        self._decode_captures0: Dict[bool, Any] = {}
         # the attention nodes' names, in the prefill cache's order
         self._paged_entry_names: List[str] = []
         self._staging = _HostStaging(self.device)
         # the slot-write programs, over this engine's pools (_slot_program)
         self._slot_programs: Dict[str, Any] = {}
         self.stats = ServingStats()
+        # resilience: the admission controller's EWMA cost model lives on
+        # the engine, so it warms across serve runs; resilience_clock (ms)
+        # overrides the time base of every deadline and drain decision;
+        # drained_requests holds the queued requests a drain handed back;
+        # _last_guard is the last serve's guard mode (decode_compiles);
+        # _pending_resilience carries what admit() ledgered before a serve
+        self.admission = AdmissionController()
+        self.resilience_clock = None
+        self.drained_requests: List[Request] = []
+        self._last_guard = False
+        self._pending_resilience = None
 
     # ------------------------------------------------------------ validation
     def _validate_graph(self) -> None:
@@ -425,27 +520,35 @@ class ServingEngine:
                 f"has {len(ins)} input(s)")
 
     @property
+    def _paged(self) -> bool:
+        return self.kv_cache == "paged"
+
+    @property
     def decode_compiles(self) -> Optional[int]:
-        """CUDA graphs the decode program captured for this engine's pools
-        (flexflow_tpu/serving/engine.py:559-575): exactly 1 after warm-up
-        for the whole of a generate — prefix hits, chunk prefill, slot
-        reuse and copy-on-write write the captured buffers in place. None
-        on the CPU, where nothing is captured, and before the first
+        """CUDA graphs the decode program of the last serve's guard mode
+        captured for this engine's pools (flexflow_tpu/serving/
+        engine.py:559-575; guarded and unguarded decode are two programs,
+        each with its own count): exactly 1 after warm-up for the whole of
+        a generate — prefix hits, chunk prefill, slot reuse, copy-on-write
+        and the chaos poison write the captured buffers in place. None on
+        the CPU, where nothing is captured, and before the first
         decode."""
         if self.device.type != "cuda" or self.state is None:
             return None
-        program = getattr(self._decode_fn(), "program", None)
+        program = getattr(self._decode_fn(self._last_guard), "program",
+                          None)
         if program is None:
             return None
-        base_program, base = self._decode_captures0
+        base_program, base = self._decode_captures0.get(self._last_guard,
+                                                        (None, 0))
         return program.captures - (base if program is base_program else 0)
 
     # ------------------------------------------------------------ device fns
-    def _decode_fn(self):
+    def _decode_fn(self, guard: bool = False):
         return self.executor.make_decode_step(
-            self.max_decode_len, exact=self.exact_decode,
-            block_size=self.kv_block_size, kv_dtype=self.kv_dtype,
-            capture=self.model._capture_steps)
+            self.max_decode_len, exact=self.exact_decode, guard=guard,
+            block_size=self.kv_block_size if self._paged else 0,
+            kv_dtype=self.kv_dtype, capture=self.model._capture_steps)
 
     def _prefill_fn(self, bucket: int):
         return self.executor.make_prefill_step(
@@ -472,40 +575,47 @@ class ServingEngine:
                 if p is not None]
 
     def _ensure_state(self, prefill_cache) -> None:
-        """Allocate the pools lazily from the first prefill's cache
-        structure: one zero ``(kv_pool_blocks, h, block_size, hd)`` pool
-        per K and V of every attention node (int8: each with its zero
+        """Allocate the KV state lazily from the first prefill's cache
+        structure. Paged: one zero ``(kv_pool_blocks, h, block_size, hd)``
+        pool per K and V of every attention node (int8: each with its zero
         ``(kv_pool_blocks, h, block_size)`` f32 scale array, the entry
-        ``(kq, kscale, vq, vscale)``), all-garbage block tables and zero
-        cursors."""
+        ``(kq, kscale, vq, vscale)``) and all-garbage block tables. Ring:
+        one zero ``(n_slots, h, max_len, hd)`` ring per K and V and no
+        tables. Zero cursors either way."""
         import torch
 
-        from .kvcache import paged_pool_entry
+        from .kvcache import paged_pool_entry, ring_entry
 
         if self.state is not None:
             return
+        n = self.n_slots
         with torch.inference_mode():
             caches = {}
             self._paged_entry_names = list(prefill_cache)
             for name, (kc, vc) in prefill_cache.items():
+                if not self._paged:
+                    caches[name] = tuple(ring_entry(c, n,
+                                                    self.max_decode_len)
+                                         for c in (kc, vc))
+                    continue
                 kp, vp = (paged_pool_entry(c, self.kv_pool_blocks,
                                            self.kv_block_size, self.kv_dtype)
                           for c in (kc, vc))
                 caches[name] = (*kp, *vp) if self.kv_dtype == "int8" \
                     else (kp, vp)
-            n = self.n_slots
             self.state = DecodeState(
                 caches=caches,
                 lengths=torch.zeros((n,), dtype=torch.int32,
                                     device=self.device),
                 block_tables=torch.zeros(
                     (n, self.max_blocks_per_slot), dtype=torch.int32,
-                    device=self.device))
+                    device=self.device) if self._paged else None)
             self._last_tokens = torch.zeros((n, 1), dtype=torch.int32,
                                             device=self.device)
-            program = getattr(self._decode_fn(), "program", None)
-            self._decode_captures0 = (
-                program, program.captures if program is not None else 0)
+            for guard in (False, True):
+                program = getattr(self._decode_fn(guard), "program", None)
+                self._decode_captures0[guard] = (
+                    program, program.captures if program is not None else 0)
 
     def _ensure_state_bootstrap(self) -> None:
         """A chunk action needs the pool before any prefill has run: take
@@ -534,12 +644,13 @@ class ServingEngine:
         return prog
 
     def _slot_write_body(self, inputs, _seeds, state, last_tokens):
-        """``meta (2 + mb,)`` = [slot, length, table row...], ``token
-        (1,)`` and, for an inserted prefill, its k/v rows per node: scatter
-        the rows into the row's blocks (quantized with their scales into an
-        int8 pool), then set the slot's table row, length cursor and
-        pending token."""
-        from .kvcache import scatter_prefill_paged
+        """``meta`` = [slot, length, table row...] (paged) or [slot,
+        length] (ring), ``token (1,)`` and, for an inserted prefill, its
+        k/v rows per node: scatter the rows into the row's blocks
+        (quantized with their scales into an int8 pool) or insert them
+        into the slot's ring with the rest zeroed, then set the slot's
+        table row, length cursor and pending token."""
+        from .kvcache import scatter_prefill_paged, update_slot_entry
 
         meta, token, *leaves = inputs
         slot, row = meta[0:1].long(), meta[2:]
@@ -547,24 +658,29 @@ class ServingEngine:
         for i, name in enumerate(self._paged_entry_names if leaves else ()):
             kc, vc = leaves[2 * i], leaves[2 * i + 1]
             entry = state.caches[name]
-            if self.kv_dtype == "int8":
+            if state.block_tables is None:
+                update_slot_entry(entry[0], kc, slot)
+                update_slot_entry(entry[1], vc, slot)
+            elif self.kv_dtype == "int8":
                 kq, ks, vq, vs = entry
                 scatter_prefill_paged(kq, kc, row, bs, scales=ks)
                 scatter_prefill_paged(vq, vc, row, bs, scales=vs)
             else:
                 scatter_prefill_paged(entry[0], kc, row, bs)
                 scatter_prefill_paged(entry[1], vc, row, bs)
-        state.block_tables.index_copy_(0, slot, row[None, :])
+        if state.block_tables is not None:
+            state.block_tables.index_copy_(0, slot, row[None, :])
         state.lengths.index_copy_(0, slot, meta[1:2])
         last_tokens.index_copy_(0, slot, token[:, None])
         return []
 
     def _write_slot(self, cache, slot: int, length: int, token,
-                    table_row: np.ndarray) -> None:
+                    table_row: Optional[np.ndarray]) -> None:
         """Insert one prefilled request into the decode batch: scatter its
-        k/v rows into its blocks, set its table row, length cursor and
-        pending first token — in place. ``token`` is the sampler's (1,)
-        device tensor, or a host int."""
+        k/v rows into its blocks (or its ring), set its table row, length
+        cursor and pending first token — in place. ``token`` is the
+        sampler's (1,) device tensor, or a host int; ``table_row`` is None
+        for the ring."""
         self._arm_slot(slot, length, token, table_row,
                        [t for name in self._paged_entry_names
                         for t in cache[name]])
@@ -579,8 +695,9 @@ class ServingEngine:
         import torch
 
         with torch.inference_mode():
-            meta = self._ids(np.concatenate(
-                [[slot, length], np.asarray(table_row, np.int32)]))
+            row = () if table_row is None else np.asarray(table_row,
+                                                         np.int32)
+            meta = self._ids(np.concatenate([[slot, length], row]))
             if not torch.is_tensor(token):
                 token = self._ids([token])
             self._slot_program("write", self._slot_write_body)(
@@ -615,6 +732,34 @@ class ServingEngine:
             for pool in entry:
                 pool.index_copy_(0, dst, pool.index_select(0, src))
         return []
+
+    @staticmethod
+    def _scrub_body(inputs, _seeds, caches):
+        (blocks,) = inputs
+        for entry in caches.values():
+            for pool in entry:
+                pool.index_fill_(0, blocks.long(), 0)
+        return []
+
+    def _scrub_blocks(self, blocks: List[int]) -> None:
+        """Zero pool blocks a poison-suspect release returned to the free
+        list (``ContinuousBatchScheduler._release_blocks``), in place and in
+        stream order after the step that read them: the exact and chunk
+        paths weigh every row of a slot's extent (0 x NaN = NaN) and a
+        prefill writes only the blocks its prompt covers, so a later
+        request handed one of these blocks for its generated tokens would
+        otherwise read NaN. The ids are padded to one table row with the
+        GARBAGE block (zero is as finite as any garbage), so the program
+        has one shape."""
+        import torch
+
+        if self.state is None:
+            return
+        ids = np.zeros((self.max_blocks_per_slot,), np.int32)
+        ids[:len(blocks)] = blocks
+        with torch.inference_mode():
+            self._slot_program("scrub", self._scrub_body)(
+                [self._ids(ids)], self.state.caches)
 
     def _cow_clone(self, src: int, dst: int) -> None:
         """Copy-on-write: duplicate pool block ``src`` into ``dst`` in every
@@ -655,7 +800,10 @@ class ServingEngine:
 
     def _decode_kv_bytes(self, live) -> int:
         """KV bytes one decode step's attention reads: each live slot's
-        occupied blocks (the flash-decode kernel's traffic)."""
+        occupied blocks (the flash-decode kernel's traffic), or for the
+        ring every slot's full ``max_len`` (its masked read's extent)."""
+        if not self._paged:
+            return self.n_slots * self.max_decode_len * self._kv_row_bytes()
         bs = self.kv_block_size
         toks = sum(-(-(req.effective_len + 1) // bs) * bs
                    for _slot, req in live)
@@ -668,10 +816,14 @@ class ServingEngine:
         return row
 
     def _attach(self, sched: ContinuousBatchScheduler) -> None:
-        sched.allocator = self.block_allocator
-        sched.on_slot_freed = self._clear_slot_tables
-        sched.prefix = self._prefix
-        sched.chunk_tokens = self.prefill_chunk_tokens
+        """Bind the engine's paged-KV bookkeeping to a scheduler (the ring
+        has none) and the max supported context."""
+        if self.block_allocator is not None:
+            sched.allocator = self.block_allocator
+            sched.on_slot_freed = self._clear_slot_tables
+            sched.on_suspect_blocks_freed = self._scrub_blocks
+            sched.prefix = self._prefix
+            sched.chunk_tokens = self.prefill_chunk_tokens
         if self.max_context < sched.max_len:
             sched.max_context = self.max_context
 
@@ -712,16 +864,28 @@ class ServingEngine:
         return sample
 
     # ------------------------------------------------------------- main loop
+    def _make_resilience(self, chaos):
+        from .resilience import ServingResilience
+
+        return ServingResilience(self.model.config, chaos=chaos,
+                                 controller=self.admission,
+                                 clock=self.resilience_clock)
+
     def admit(self, sched: ContinuousBatchScheduler, req: Request,
               resilience=None) -> None:
-        """Admission into ``sched``, attached to this engine's pool: the
-        scheduler's submit (bounded queue, context and pool checks). The
-        JAX package's deadline stamp and shed gate (``resilience=``) come
-        with the resilience layer."""
-        if resilience is not None:
-            raise _later_slice("admit(resilience=...) (serving resilience)")
+        """Resilient admission: deadline stamp, shed-policy gate and the
+        scheduler's submit. Raises ``OverloadError`` (shed) or the
+        scheduler's rejection — all ``ServingRejection``. Without a
+        ``resilience``, its events accumulate on a pending policy object
+        the next ``serve`` consumes, so a shed or a deadline stamped before
+        the serve is not lost."""
         self._attach(sched)
-        sched.submit(req)
+        res = resilience
+        if res is None:
+            if self._pending_resilience is None:
+                self._pending_resilience = self._make_resilience(None)
+            res = self._pending_resilience
+        res.admit(sched, req)
 
     def generate(self, prompts: Sequence[Sequence[int]],
                  max_new_tokens: int = 32, temperature: float = 0.0,
@@ -730,35 +894,44 @@ class ServingEngine:
                  deadline_ms: Optional[float] = None) -> List[List[int]]:
         """Generate continuations for ``prompts`` (token-id sequences)
         through the continuous-batching loop; returns the generated token
-        lists in submission order."""
-        if chaos is not None:
-            raise _later_slice("chaos injection (generate(chaos=...))")
-        if deadline_ms is not None:
-            raise _later_slice("request deadlines (deadline_ms)")
+        lists in submission order. ``deadline_ms`` gives each request a
+        relative completion budget (default ``--request-timeout-ms``);
+        ``chaos`` a ``ChaosPlan`` of serving faults. A request shed at
+        admission, evicted or drained returns its partial (possibly empty)
+        continuation, with ``Request.outcome`` saying why: read
+        ``self.stats.outcomes`` and ``self.drained_requests``."""
         self._token_input_check()
+        res = self._make_resilience(chaos)
         sched = ContinuousBatchScheduler(
             n_slots=self.n_slots, max_queue=max(len(prompts),
                                                 self.max_queue),
-            buckets=self.buckets, max_len=self.max_decode_len)
+            buckets=self.buckets, max_len=self.max_decode_len,
+            clock=res.clock)
+        sched.shed_policy = res.shed_policy
+        self._attach(sched)
         reqs = []
         for i, p in enumerate(prompts):
             r = Request(prompt=np.asarray(p, dtype=np.int32),
                         max_new_tokens=max_new_tokens,
                         eos_id=self.eos_id if eos_id is None else eos_id,
-                        rng_tag=i)
-            self.admit(sched, r)
+                        rng_tag=i, deadline_ms=deadline_ms)
+            try:
+                res.admit(sched, r)
+            except ServingRejection:
+                pass  # r.outcome == "shed"; the ledger counts it at finish
             reqs.append(r)
-        self.serve(sched, temperature=temperature, top_k=top_k, seed=seed)
+        self.serve(sched, temperature=temperature, top_k=top_k, seed=seed,
+                   chaos=chaos, resilience=res)
         return [list(r.generated) for r in reqs]
 
     def _merge_telemetry(self, sched, stats: ServingStats) -> None:
         """Publish the run into a StepTelemetry when a sink wants one
         (flexflow_tpu/serving/engine.py:1263-1305): the ``serving`` block
         (requests, tokens, queue high-water mark, tokens/s, p50/p99 ms a
-        token, host overhead share) and the ``serving_prefix`` block. The
-        JAX run's ``kv_hbm_per_chip_bytes`` and ``serving_resilience``
-        counters stay empty until the port has sequence shards and serving
-        resilience."""
+        token, host overhead share), the ``serving_resilience`` block (the
+        outcome ledger and its counters) and the ``serving_prefix`` block.
+        The JAX run's ``kv_hbm_per_chip_bytes`` stays empty until the port
+        has sequence shards."""
         tracer = self.model._obs_tracer()
         tel = self.model._make_telemetry(tracer, batch_size=self.n_slots,
                                          phase="serving")
@@ -774,6 +947,12 @@ class ServingEngine:
         tel.serving_p99_token_ms = stats.p99_token_ms()
         tel.serving_tokens_per_s = round(stats.tokens_per_s(), 2)
         tel.serving_host_overhead_fraction = stats.host_overhead_fraction()
+        tel.serving_outcomes = dict(stats.outcomes)
+        tel.serving_sheds = stats.sheds
+        tel.serving_deadline_misses = stats.deadline_misses
+        tel.serving_quarantines = stats.quarantines
+        tel.serving_drains = stats.drains
+        tel.serving_replans = stats.replans
         tel.serving_prefix_hits = stats.prefix_hits
         tel.serving_prefix_tokens_reused = stats.prefix_tokens_reused
         tel.serving_prefill_tokens_computed = stats.prefill_tokens_computed
@@ -794,50 +973,168 @@ class ServingEngine:
         :class:`_AsyncServeLoop`: a decode step's result may be in flight
         between ticks (``settle()`` lands it; ``finish()`` settles
         first)."""
-        if chaos is not None:
-            raise _later_slice("chaos injection (start_serve(chaos=...))")
-        if resilience is not None:
-            raise _later_slice("start_serve(resilience=...) (serving "
-                               "resilience)")
         cls = _AsyncServeLoop if self.serve_loop == "async" else _ServeLoop
         return cls(self, sched, temperature=temperature, top_k=top_k,
-                   seed=seed)
+                   seed=seed, chaos=chaos, resilience=resilience)
 
     def serve(self, sched: ContinuousBatchScheduler,
               temperature: float = 0.0, top_k: int = 0,
-              seed: int = 0) -> ServingStats:
-        """Drive the scheduler until its queue and slots drain."""
+              seed: int = 0, chaos=None, resilience=None) -> ServingStats:
+        """Drive the scheduler until its queue and slots drain. The loop
+        installs the flag-only SIGTERM/SIGINT handler (``resilience/
+        session.py``, ``signals_only``) for the run and restores the old
+        one after: a preemption signal becomes a graceful drain."""
+        from ..resilience.session import ResilienceSession
+
         loop = self.start_serve(sched, temperature=temperature,
-                                top_k=top_k, seed=seed)
-        while loop.tick():
-            pass
+                                top_k=top_k, seed=seed, chaos=chaos,
+                                resilience=resilience)
+        session = ResilienceSession(self.model, signals_only=True)
+        session.install_signal_handlers()
+        try:
+            while True:
+                if session.preempted:
+                    loop.request_drain(session=session)
+                if not loop.tick():
+                    break
+        finally:
+            session.close()
         return loop.finish()
+
+    # ------------------------------------------------------ resilience hooks
+    def _sweep_deadlines(self, sched, res, tracer) -> None:
+        """Deadline enforcement at the iteration boundary: expired queued
+        requests are dropped before they cost a prefill, expired in-flight
+        ones evicted and their slots recycled (outcome
+        ``deadline_exceeded`` either way)."""
+        now = res.clock()
+        for req in [r for r in sched.queue if r.expired(now)]:
+            res.deadline_misses += 1
+            sched.drop_queued(req, "deadline_exceeded")
+            if tracer.enabled:
+                tracer.event("deadline_exceeded", rid=req.rid, queued=True)
+        for slot, req in enumerate(list(sched.slots)):
+            if req is not None and req.expired(now):
+                res.deadline_misses += 1
+                sched.evict(slot, "deadline_exceeded")
+                if tracer.enabled:
+                    tracer.event("deadline_exceeded", rid=req.rid,
+                                 slot=slot, tokens=len(req.generated))
+
+    def _quarantine(self, sched, res, slot: int, req, tracer) -> None:
+        """The guarded decode said this slot's logits are not finite:
+        quarantine the slot and retry the request on a fresh one while its
+        retry budget lasts (re-prefilling prompt + committed tokens, so the
+        stream goes on where it stopped); once it is spent, abort the
+        request with outcome ``decode_fault``."""
+        res.quarantines += 1
+        retryable = req.retries_used < res.decode_retry_budget
+        if retryable:
+            try:
+                bucket_for(req.effective_len, sched.buckets)
+            except ValueError:
+                retryable = False  # the committed stream outgrew the buckets
+        if retryable:
+            req.retries_used += 1
+            res.decode_retries += 1
+            sched.quarantine(slot)
+            if tracer.enabled:
+                tracer.event("decode_quarantine", rid=req.rid, slot=slot,
+                             retry=req.retries_used,
+                             tokens=len(req.generated))
+        else:
+            res.decode_faults += 1
+            sched.evict(slot, "decode_fault")
+            if tracer.enabled:
+                tracer.event("decode_fault", rid=req.rid, slot=slot,
+                             retries_used=req.retries_used)
+
+    def _dispatch_decode(self, params, guard: bool):
+        """Enqueue one decode step: ``(logits, ok-or-None)``, ``ok`` the
+        guarded program's (n_slots,) int32 verdict. Nothing is caught: a
+        device error propagates."""
+        outs = self._decode_fn(guard)(params, [self._last_tokens],
+                                      self.state)
+        return outs[0], (outs[2] if guard else None)
 
 
 class _ServeLoop:
     """One serve() run, advanced one scheduler action per ``tick()``: the
     synchronous loop, which dispatches a decode step, blocks on its tokens
-    (``_fetch``) and commits them before the next tick."""
+    (``_fetch``) and commits them before the next tick. ``finish()``
+    closes the ledger exactly once."""
 
     def __init__(self, engine: ServingEngine,
                  sched: ContinuousBatchScheduler, temperature: float = 0.0,
-                 top_k: int = 0, seed: int = 0):
-        self.engine = engine
+                 top_k: int = 0, seed: int = 0, chaos=None,
+                 resilience=None):
+        eng = self.engine = engine
         self.sched = sched
-        engine._attach(sched)
-        self.params = engine.model.params
+        self.tracer = eng.model._obs_tracer()
+        self.params = eng.model.params
         self.greedy = temperature <= 0.0
-        self.sampler = engine._sampler(temperature, top_k)
+        self.sampler = eng._sampler(temperature, top_k)
         # the seed's low 32 bits, on the device once for the run
-        self.seed = None if self.greedy else engine._ids(
+        self.seed = None if self.greedy else eng._ids(
             np.asarray([int(seed) & 0xFFFFFFFF], np.uint32).view(np.int32))
-        self.stats = engine.stats = ServingStats()
+        self.stats = eng.stats = ServingStats()
+        pending = eng._pending_resilience
+        res = self.res = resilience or pending or \
+            eng._make_resilience(chaos)
+        eng._pending_resilience = None
+        if pending is not None and res is not pending:
+            # sheds and deadline stamps admit() ledgered before this serve
+            res.sheds += pending.sheds
+            res._saw_deadline = res._saw_deadline or pending._saw_deadline
+        if chaos is not None:
+            res.chaos = chaos
+        self.chaos = res.chaos
+        if res.controller is not eng.admission:
+            res.controller.warm_start(eng.admission)
+        sched.shed_policy = res.shed_policy
+        eng._attach(sched)
+        # one time base: submits were stamped by the scheduler's clock
+        res.clock = sched.clock
+        # requests submitted straight to the scheduler never passed
+        # res.admit: stamp the default deadline and arm the sweeps for a
+        # caller-set one
+        for r in list(sched.queue) + [s for s in sched.slots
+                                      if s is not None]:
+            res.stamp_deadline(r)
+        self.res_active = res.armed
+        self.guard = bool(self.res_active)
+        eng._last_guard = self.guard
+        eng.drained_requests = []
+        self.storm_seq = 0
+        self.draining = False
+        self.drain_deadline_ms = None
+        self.finished = False
         self._chunk_walls: Dict[int, float] = {}
         self._prefix_hits0 = sched.prefix_hits
         self._prefix_reused0 = sched.prefix_tokens_reused
-        self._evictions0 = engine._prefix.evictions \
-            if engine._prefix is not None else 0
+        self._evictions0 = eng._prefix.evictions \
+            if eng._prefix is not None else 0
         self.t0 = time.perf_counter()
+
+    # ---------------------------------------------------------------- drain
+    def request_drain(self, session=None) -> None:
+        """The graceful drain (a SIGTERM under ``serve``): admission stops,
+        in-flight requests get the grace window, queued ones are handed
+        back at ``finish()``. Idempotent."""
+        if self.draining:
+            return
+        sched, res = self.sched, self.res
+        self.draining = True
+        sched.draining = True
+        res.drains += 1
+        if session is not None:
+            session.note_preemption(self.stats.decode_steps)
+        self.drain_deadline_ms = res.clock() + res.drain_grace_s * 1e3
+        if self.tracer.enabled:
+            self.tracer.event("serving_drain",
+                              step=self.stats.decode_steps,
+                              queued=sched.queued, active=sched.active,
+                              grace_s=res.drain_grace_s)
 
     # -------------------------------------------------- pending transfers
     def settle(self) -> None:
@@ -848,12 +1145,27 @@ class _ServeLoop:
     def _settle_pending(self) -> None:
         return None
 
-    def _fetch(self, transfer: HostTransfer) -> np.ndarray:
-        """THE blocking host transfer of a decode step's tokens (both loops
+    def _fetch(self, transfer: HostTransfer):
+        """THE blocking host transfer of a decode step's result (both loops
         land every decode result through it), counted in
-        ``stats.host_syncs``: one a committed decode step."""
+        ``stats.host_syncs``: one a committed decode step. The guarded
+        program's verdict rides the same copy as the tokens (row 1 of the
+        packed buffer, :meth:`_transfer`). Returns ``(tokens (n_slots,),
+        ok (n_slots,) bool or None)``."""
         self.stats.host_syncs += 1
-        return transfer.wait()
+        out = transfer.wait()
+        if self.guard:
+            return out[0], out[1].astype(bool)
+        return out, None
+
+    @staticmethod
+    def _transfer(toks, ok) -> HostTransfer:
+        """The decode step's one device-to-host copy: the tokens, packed
+        with the guarded program's verdict into one (2, n_slots) int32
+        buffer when there is one."""
+        import torch
+
+        return HostTransfer(toks if ok is None else torch.stack((toks, ok)))
 
     def _acct_tick(self, t_tick: float, t_dev: float, dev_s: float) -> None:
         """Split this tick's wall into dispatch (tick entry -> device call
@@ -920,13 +1232,26 @@ class _ServeLoop:
 
     # ----------------------------------------------------------------- tick
     def tick(self) -> bool:
-        """Perform ONE scheduler action; False when there is nothing to
-        do."""
+        """Perform ONE scheduler action; False when there is nothing to do
+        (queue and slots empty, or the drain grace just ran out and
+        evicted the stragglers)."""
         import torch
 
         t_tick = time.perf_counter()
+        sched, res = self.sched, self.res
         with torch.inference_mode():
-            action = self.sched.next_action()
+            if self.draining and sched.active and \
+                    res.clock() > self.drain_deadline_ms:
+                # grace spent: stragglers are evicted as preempted, after
+                # any in-flight tokens land (async)
+                self._settle_pending()
+                for slot, r in enumerate(list(sched.slots)):
+                    if r is not None:
+                        sched.evict(slot, "preempted")
+                return False
+            if self.res_active and res.deadlines_armed:
+                self.engine._sweep_deadlines(sched, res, self.tracer)
+            action = sched.next_action()
             if action is None:
                 return self._idle()
             if action[0] == "prefill":
@@ -941,9 +1266,21 @@ class _ServeLoop:
         loop is done."""
         return False
 
+    def _expired_in_slot(self, req, slot: int) -> bool:
+        """A request that expired while queued but was admitted into a slot
+        in the same iteration is evicted before it costs a prefill."""
+        res = self.res
+        if self.res_active and req.expired(res.clock()):
+            res.deadline_misses += 1
+            self.sched.evict(slot, "deadline_exceeded")
+            return True
+        return False
+
     def _tick_prefill(self, t_tick: float, req, slot: int,
                       bucket: int) -> bool:
         eng, sched, stats = self.engine, self.sched, self.stats
+        if self._expired_in_slot(req, slot):
+            return True
         t_p = time.perf_counter()
         eff = req.effective_len
         cur = req.current_prompt()
@@ -956,10 +1293,11 @@ class _ServeLoop:
         wall = time.perf_counter() - t_p
         stats.prefills += 1
         stats.prefill_tokens_computed += eff
-        stats.token_walls_s.append(wall)
+        stats.record_token(wall)
         stats.tokens_generated += 1
         if not sched.commit_token(slot, tok):
-            eng._write_slot(cache, slot, eff, toks, eng._table_row_for(req))
+            eng._write_slot(cache, slot, eff, toks,
+                            eng._table_row_for(req) if eng._paged else None)
             req.prefill_pos = req.prefill_target
             self._cache_prompt(req, cur, eff)
         self._acct_tick(t_tick, t_p, wall)
@@ -968,6 +1306,9 @@ class _ServeLoop:
     def _tick_chunk(self, t_tick: float, req, slot: int, start: int, n: int,
                     shape: int) -> bool:
         eng, sched, stats = self.engine, self.sched, self.stats
+        if self._expired_in_slot(req, slot):
+            self._chunk_walls.pop(req.rid, None)
+            return True
         t_p = time.perf_counter()
         eng._ensure_state_bootstrap()
         if req.pending_cow is not None:
@@ -997,7 +1338,7 @@ class _ServeLoop:
         eff = req.prefill_target
         toks, tok = self._sample_first(last, req)
         stats.prefills += 1
-        stats.token_walls_s.append(self._chunk_walls.pop(req.rid, wall))
+        stats.record_token(self._chunk_walls.pop(req.rid, wall))
         stats.tokens_generated += 1
         self._cache_prompt(req, cur, eff)
         if not sched.commit_token(slot, tok):
@@ -1006,70 +1347,151 @@ class _ServeLoop:
         return True
 
     # --------------------------------------------------------------- decode
-    def _dispatch_decode(self):
-        """Enqueue one decode step and its sampler: the device tokens."""
-        eng = self.engine
-        logits, eng.state = eng._decode_fn()(
-            self.params, [eng._last_tokens], eng.state)
-        return logits
+    # shared by the sync loop and the async one, so the two differ only in
+    # WHEN the commit happens, never in what it does
+    def _pending_slots(self) -> set:
+        """Slots whose previous decode token is still in flight (the async
+        loop's pending step, at the epoch it was dispatched against)."""
+        return set()
 
-    def _commit_arrival(self, live, epochs, toks_host, wall: float) -> None:
-        """THE commit point of one landed decode step: token commits
-        (EOS and length recycling inside ``commit_token``) and the stats.
-        The sync loop runs it right after its fetch; the async loop at
-        arrival, one step behind dispatch, where ``epochs`` discards the
-        entries of slots recycled while the result was in flight."""
-        eng, sched, stats = self.engine, self.sched, self.stats
+    def _occupied_blocks(self, slot: int) -> List[int]:
+        """The pool blocks ``slot``'s request occupies on the device, from
+        the host's bookkeeping (no sync): its table row's first
+        ceil(cursor / block_size) entries, the cursor being the tokens
+        whose rows are written — prompt + committed tokens - 1, + 1 while
+        a step is in flight for it. Empty for a free or prefilling slot
+        (its device cursor is 0) and for the ring, which is poisoned
+        whole."""
+        eng = self.engine
+        req = self.sched.slots[slot]
+        if req is None or req.prefilling or not eng._paged:
+            return []
+        cursor = req.effective_len - 1 + (slot in self._pending_slots())
+        return req.kv_blocks[:-(-cursor // eng.kv_block_size)]
+
+    def _chaos_hooks(self, k: int) -> None:
+        """Scripted chaos at decode-step boundary ``k`` (the dispatch count
+        in the async loop, which equals the sync loop's decode-step count
+        at injection time): the preemption signal, the queue storm through
+        admission control, and the in-place KV poison."""
+        eng, sched, res = self.engine, self.sched, self.res
+        chaos = self.chaos
+        if chaos is None:
+            return
+        chaos.maybe_preempt_serving(k)
+        for p in chaos.maybe_storm(k):
+            r = Request(prompt=np.asarray(p, np.int32),
+                        max_new_tokens=chaos.storm_max_new_tokens,
+                        eos_id=eng.eos_id,
+                        rng_tag=1_000_000 + self.storm_seq)
+            self.storm_seq += 1
+            try:
+                res.admit(sched, r)
+            except ServingRejection:
+                pass  # counted by the policy; outcome shed
+        if eng.state is not None:
+            poisoned = chaos.maybe_poison_decode(
+                k, eng.state, self._occupied_blocks, eng._ids)
+            if poisoned is not None and self.tracer.enabled:
+                self.tracer.event("decode_poison", step=k, slot=poisoned)
+
+    def _commit_arrival(self, live, epochs, toks_host, ok_host,
+                        wall: float) -> None:
+        """THE commit point of one landed decode step: token commits (EOS
+        and length recycling inside ``commit_token``), the guard's verdict
+        (a poisoned slot's token is not committed; the slot is quarantined
+        alone) and the stats. The sync loop runs it right after its fetch;
+        the async loop at arrival, one step behind dispatch, where
+        ``epochs`` discards the entries of slots recycled while the result
+        was in flight."""
+        eng, sched, stats, res = self.engine, self.sched, self.stats, \
+            self.res
         stats.decode_steps += 1
         stats.kv_bytes_read += eng._decode_kv_bytes(live)
+        if self.res_active:
+            res.controller.observe_step(wall, len(live))
         for i, (slot, req) in enumerate(live):
             if epochs is not None and (
                     sched.slots[slot] is not req
                     or sched.slot_epoch[slot] != epochs[i]):
                 continue  # the one-deep pipeline's extra draw
+            if ok_host is not None and not bool(ok_host[slot]):
+                eng._quarantine(sched, res, slot, req, self.tracer)
+                continue
             stats.tokens_generated += 1
-            stats.token_walls_s.append(wall)
+            stats.record_token(wall)
             sched.commit_token(slot, int(toks_host[slot]))
 
     def _tick_decode(self, t_tick: float, live) -> bool:
-        """One decode step for every live slot, synchronously: dispatch,
-        sample on the device, block on the tokens' transfer, commit."""
+        """One decode step for every live slot, synchronously: chaos hooks,
+        dispatch, sample on the device, block on the result's transfer,
+        commit."""
+        self._chaos_hooks(self.stats.decode_steps)
         t_d = time.perf_counter()
-        logits = self._dispatch_decode()
+        logits, ok = self.engine._dispatch_decode(self.params, self.guard)
         toks = self._sample(live, logits)
-        toks_host = self._fetch(HostTransfer(toks))
+        toks_host, ok_host = self._fetch(self._transfer(toks, ok))
         wall = time.perf_counter() - t_d
-        self._commit_arrival(live, None, toks_host, wall)
+        self._commit_arrival(live, None, toks_host, ok_host, wall)
         self._acct_tick(t_tick, t_d, wall)
         return True
 
     # --------------------------------------------------------------- finish
     def finish(self) -> ServingStats:
-        """The run's stats, published into the telemetry (and the trace
-        file written) when a sink wants them."""
-        eng, stats, sched = self.engine, self.stats, self.sched
+        """Close the run exactly once: the drain handoff (queued requests
+        into ``engine.drained_requests``, their request timelines closed as
+        preempted), the outcome ledger (every request that entered leaves
+        under exactly one outcome), the stats, and the telemetry (and the
+        trace file) when a sink wants them."""
+        eng, stats, sched, res = self.engine, self.stats, self.sched, \
+            self.res
+        if self.finished:
+            return stats
+        self.finished = True
+        if self.draining:
+            eng.drained_requests = sched.pop_queued()
+            if sched.rt.enabled:
+                for r in eng.drained_requests:
+                    sched.rt.finish(r.rid, float(sched.clock()),
+                                    "preempted", reason="drain",
+                                    new_tokens=len(r.generated))
+            if self.tracer.enabled:
+                self.tracer.event("serving_drain_done",
+                                  returned=len(eng.drained_requests),
+                                  finished=len(sched.finished))
         stats.wall_s = time.perf_counter() - self.t0
         stats.requests_served = sum(1 for r in sched.finished
-                                    if r.outcome == "ok")
+                                    if (r.outcome or "ok") == "ok")
         stats.queue_depth_hwm = sched.queue_depth_hwm
+        for r in sched.finished:
+            stats.count_outcome(r.outcome or "ok")
+        stats.count_outcome("shed", res.sheds)
+        stats.count_outcome("preempted", len(eng.drained_requests))
+        stats.sheds = res.sheds
+        stats.deadline_misses = res.deadline_misses
+        stats.quarantines = res.quarantines
+        stats.decode_retries = res.decode_retries
+        stats.decode_faults = res.decode_faults
+        stats.drains = res.drains
+        stats.drained_returned = len(eng.drained_requests)
         stats.prefix_hits = sched.prefix_hits - self._prefix_hits0
         stats.prefix_tokens_reused = \
             sched.prefix_tokens_reused - self._prefix_reused0
         if eng._prefix is not None:
             stats.cache_evictions = eng._prefix.evictions - self._evictions0
         eng._merge_telemetry(sched, stats)
-        tracer = eng.model._obs_tracer()
-        if tracer.enabled and eng.model.config.trace_file:
-            tracer.write(eng.model.config.trace_file)
+        if self.tracer.enabled and eng.model.config.trace_file:
+            self.tracer.write(eng.model.config.trace_file)
         return stats
 
 
 @dataclasses.dataclass
 class _PendingStep:
-    """One in-flight decode step of the async loop: its tokens' transfer,
-    the live slots it was dispatched for and their epochs at dispatch (a
-    slot recycled while the result was in flight discards its entry), and
-    the dispatch time."""
+    """One in-flight decode step of the async loop: its result's transfer
+    (tokens, and the guard's verdict packed with them), the live slots it
+    was dispatched for and their epochs at dispatch (a slot recycled while
+    the result was in flight discards its entry), and the dispatch
+    time."""
 
     transfer: HostTransfer
     live: List
@@ -1079,11 +1501,11 @@ class _PendingStep:
 
 class _AsyncServeLoop(_ServeLoop):
     """The one-deep serve loop behind ``--serve-loop async``: decode step
-    k+1 is dispatched while step k's tokens are still on their way to the
-    host, and step k's commits (token commits, EOS and length recycling)
-    run at their arrival, one step behind dispatch, while step k+1 runs on
-    the card. The only blocking host wait a committed step costs is its
-    ``_fetch`` (``stats.host_syncs``).
+    k+1 is dispatched while step k's result is still on its way to the
+    host, and step k's commits (token commits, EOS and length recycling,
+    quarantine verdicts) run at its arrival, one step behind dispatch,
+    while step k+1 runs on the card. The only blocking host wait a
+    committed step costs is its ``_fetch`` (``stats.host_syncs``).
 
     Why the pipeline is safe (the JAX loop's argument, in torch terms):
 
@@ -1092,9 +1514,9 @@ class _AsyncServeLoop(_ServeLoop):
       dispatching k+1 never needs k's host copy;
     * every write to the pools, block tables, cursors and token buffer —
       the decode graph, the sampler, the prefill and chunk programs, the
-      slot writes, clears and clones — is enqueued on one stream in host
-      dispatch order, so the device sees them in the order the sync loop
-      would run them;
+      slot writes, clears, clones and scrubs, the chaos poison — is
+      enqueued on one stream in host dispatch order, so the device sees
+      them in the order the sync loop would run them;
     * the per-row streams key on (tag, tokens emitted), with an
       uncommitted in-flight token counted (+1), so sampled streams equal
       the sync loop's whatever the commit lag;
@@ -1105,22 +1527,34 @@ class _AsyncServeLoop(_ServeLoop):
       to a new request is written by that request's prefill, chunk or
       clone, enqueued after it, before any read;
     * slot epochs (``ContinuousBatchScheduler.slot_epoch``) discard the
-      in-flight results of recycled slots.
+      in-flight results of recycled slots, a quarantined one included
+      (``quarantine`` bumps the epoch, so the extra draw made against the
+      poisoned slot is dropped).
 
-    ``finish()`` and an idle tick settle the pending step first."""
+    Chaos keys on the dispatch count (``dispatch_no``), which equals the
+    sync loop's decode-step count at injection time. ``finish()``, an idle
+    tick and the drain-grace eviction settle the pending step first."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self._pending: Optional[_PendingStep] = None
+        self.dispatch_no = 0
+
+    def _pending_slots(self) -> set:
+        p, sched = self._pending, self.sched
+        if p is None:
+            return set()
+        return {s for (s, r), e in zip(p.live, p.epochs)
+                if sched.slots[s] is r and sched.slot_epoch[s] == e}
 
     def _settle_step(self, p: _PendingStep) -> float:
-        """Block until ``p``'s tokens land, then commit them. Returns the
+        """Block until ``p``'s result lands, then commit it. Returns the
         seconds spent blocked (device wait, not host work)."""
         t_s = time.perf_counter()
-        toks_host = self._fetch(p.transfer)
+        toks_host, ok_host = self._fetch(p.transfer)
         blocked = time.perf_counter() - t_s
         self.stats.host_device_s += blocked
-        self._commit_arrival(p.live, p.epochs, toks_host,
+        self._commit_arrival(p.live, p.epochs, toks_host, ok_host,
                              time.perf_counter() - p.t_d)
         return blocked
 
@@ -1139,7 +1573,7 @@ class _AsyncServeLoop(_ServeLoop):
         if self._pending is None:
             return False
         # the in-flight step is the remaining work: its arrival commits
-        # tokens and frees slots
+        # tokens, frees slots, may requeue a quarantined stream
         self._settle_pending()
         return True
 
@@ -1149,8 +1583,9 @@ class _AsyncServeLoop(_ServeLoop):
         already in flight (the card was busy), dispatch otherwise."""
         stats = self.stats
         pipelined = self._pending is not None
+        self._chaos_hooks(self.dispatch_no)
         t_d = time.perf_counter()
-        logits = self._dispatch_decode()
+        logits, ok = self.engine._dispatch_decode(self.params, self.guard)
         issued = time.perf_counter()
         if pipelined:
             stats.host_overlap_s += max(issued - t_tick, 0.0)
@@ -1158,8 +1593,9 @@ class _AsyncServeLoop(_ServeLoop):
             stats.host_dispatch_s += max(issued - t_tick, 0.0)
         toks = self._sample(live, logits, pending=self._pending)
         prev, self._pending = self._pending, _PendingStep(
-            transfer=HostTransfer(toks), live=list(live),
+            transfer=self._transfer(toks, ok), live=list(live),
             epochs=[self.sched.slot_epoch[s] for s, _ in live], t_d=t_d)
+        self.dispatch_no += 1
         blocked = self._settle_step(prev) if prev is not None else 0.0
         stats.host_overlap_s += max(
             time.perf_counter() - issued - blocked, 0.0)

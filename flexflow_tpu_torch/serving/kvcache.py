@@ -1,7 +1,8 @@
-"""KV-cache state of the serving engine: the paged block pool.
+"""KV-cache state of the serving engine: the paged block pool and the ring.
 
-Port of ``flexflow_tpu.serving.kvcache`` for the paged, native-dtype
-layout. Each causal attention node owns one pool of fixed-size KV blocks
+Port of ``flexflow_tpu.serving.kvcache``. Paged layout (the default,
+``--kv-cache paged``): each causal attention node owns one pool of
+fixed-size KV blocks
 ``(n_blocks, heads, block_size, head_dim)`` per K and V, and every decode
 slot owns one row of the ``(n_slots, max_blocks_per_slot)`` int32 block
 table that maps its positions onto pool blocks. Block 0 is the reserved
@@ -19,7 +20,16 @@ per-(token, head) int8 rows, with float32 scales in block-paged scale
 arrays ``(n_blocks, heads, block_size)`` — scale = amax / 127 over the
 head_dim row, written once with the row and folded back on read. The
 quantizer is the JAX package's bit for bit (``torch.round`` rounds half to
-even, as ``jnp.round``). The ring layout comes in a later slice.
+even, as ``jnp.round``).
+
+Ring layout (``--kv-cache ring``, the bitwise reference layout): each node
+keeps per-slot buffers ``(n_slots, heads, max_len, head_dim)`` per K and V
+and no block tables. A prefill's rows are inserted at position 0 of the
+slot's ring with the rest zeroed (:func:`update_slot_entry`), each decode
+step writes one row at the slot's cursor (:func:`write_token_kv`), and
+attention reads the whole ring under the mask ``key_pos <= position``:
+masked lanes weigh exact zeros, so with ``max_len`` a multiple of the
+block size the ring and the paged gather give bitwise-equal logits.
 """
 from __future__ import annotations
 
@@ -36,6 +46,12 @@ GARBAGE_BLOCK = 0
 KV_DTYPES = ("native", "int8")
 
 INT8_QMAX = 127.0
+
+
+class SeqShardsError(ValueError):
+    """Sequence-parallel decode (``--seq-shards`` > 1) asked for in a mode
+    that cannot honour it: the ring layout has no block tables to
+    partition."""
 
 
 @dataclasses.dataclass
@@ -58,7 +74,9 @@ class ServingState:
     exact:     True takes the plain gather path for decode attention
                instead of the flash-decode kernel (the JAX package's
                bitwise-verification mode)
-    block_tables: (n_slots, max_blocks_per_slot) int32
+    block_tables: (n_slots, max_blocks_per_slot) int32 — None selects the
+               ring layout (the two layouts' decode programs are
+               distinct)
     block_size: tokens per KV block
     kv_dtype:  "native" (pools in the model dtype, entries ``(kpool,
                vpool)``) or "int8" (entries ``(kq, kscale, vq, vscale)``)
@@ -79,13 +97,13 @@ class ServingState:
 @dataclasses.dataclass
 class DecodeState:
     """The decode loop's carried state: {node_name: (kpool, vpool)} (int8:
-    ``(kq, kscale, vq, vscale)``), the
-    per-slot length cursor and the block tables. Decode steps update all of
-    it in place."""
+    ``(kq, kscale, vq, vscale)``; ring: the ``(kbuf, vbuf)`` rings), the
+    per-slot length cursor and the block tables (None for the ring).
+    Decode steps update all of it in place."""
 
     caches: Dict[str, Any]
     lengths: Any  # (n_slots,) int32
-    block_tables: Any  # (n_slots, max_blocks_per_slot) int32
+    block_tables: Any = None  # (n_slots, max_blocks_per_slot) int32 | None
 
     @property
     def n_slots(self) -> int:
@@ -135,6 +153,39 @@ def is_position_constant(value) -> bool:
     if v.shape[1] < 1:
         return False
     return bool(np.all(v == np.arange(v.shape[1], dtype=v.dtype)[None, :]))
+
+
+def ring_entry(leaf, n_slots: int, max_len: int):
+    """Zero ring ``(n_slots, h, max_len, hd)`` for one KV leaf whose
+    per-request shape is ``(1, h, L, hd)``, in the leaf's dtype."""
+    import torch
+
+    _, h, _L, hd = leaf.shape
+    return torch.zeros((n_slots, h, max_len, hd), dtype=leaf.dtype,
+                       device=leaf.device)
+
+
+def update_slot_entry(buf, rows, slot):
+    """Insert one prefilled request's k or v rows ``(1, h, L, hd)`` into the
+    ring ``buf (n_slots, h, max_len, hd)`` at ``slot`` (a (1,) device int
+    tensor), in place: the rows at positions ``0..L-1`` and zeros past them,
+    as the JAX ring's fresh zero buffer gives — the zeros are what the
+    masked lanes of a decode read weigh."""
+    padded = rows.new_zeros((1,) + tuple(buf.shape[1:]))
+    padded[:, :, :rows.shape[2]] = rows
+    buf.index_copy_(0, slot.long(), padded.to(buf.dtype))
+    return buf
+
+
+def write_token_kv(buf, new, positions):
+    """Write one token's k or v ``(n_slots, h, 1, hd)`` into the ring
+    ``(n_slots, h, max_len, hd)`` at each slot's position, in place (no
+    arithmetic on the stored values)."""
+    import torch
+
+    slots = torch.arange(buf.shape[0], device=buf.device)
+    buf[slots, :, positions.long()] = new[:, :, 0, :].to(buf.dtype)
+    return buf
 
 
 def blocks_per_slot(max_len: int, block_size: int) -> int:

@@ -221,6 +221,39 @@ class PrefixCache:
             self.evictions += 1
         return freed
 
+    def invalidate(self, blocks: List[int]) -> int:
+        """Remove every node whose block is in ``blocks``, with its whole
+        subtree (a poisoned parent poisons the path to its children),
+        returning each removed node's trie reference; the count removed.
+        The quarantine and decode-fault release calls it with the suspect
+        request's blocks: a prompt block the trie cached at prefill may
+        have been poisoned in place since, and must be neither re-matched
+        by the victim's retry nor served to anyone else."""
+        bad = {int(b) for b in blocks}
+        removed: List[int] = []
+
+        def reap(node: PrefixNode) -> None:
+            if node.block is not None:
+                removed.append(node.block)
+            for child in node.children:
+                reap(child)
+
+        def rec(node: PrefixNode) -> None:
+            keep = []
+            for child in node.children:
+                if child.block is not None and child.block in bad:
+                    reap(child)
+                else:
+                    rec(child)
+                    keep.append(child)
+            node.children = keep
+
+        rec(self.root)
+        if removed:
+            self.n_blocks -= len(removed)
+            self.allocator.free(removed)
+        return len(removed)
+
     def clear(self, free: bool = True) -> None:
         """Drop every node. ``free=True`` returns the trie's references
         through the allocator; ``free=False`` when the allocator itself is

@@ -7,14 +7,17 @@ copy-on-write, and chunked prefill). Pure host bookkeeping — the schedule
 is a deterministic function of the submission sequence, as in the JAX
 package, so both packages admit, chunk and decode in the same order.
 
-Of the resilience states it carries the slot epochs (bumped wherever a
-slot is freed, so the async serve loop can tell a recycled slot from the
-one it dispatched against) and the terminal outcome ("ok" at finish).
-Request tracing (``obs/reqtrace.py``) notes each request's submit,
-admission, tokens and finish on the scheduler's clock, every note behind
-the tracer's ``enabled`` test. Left for later slices: deadlines, load
-shedding, quarantine/retry, graceful drain, hedged-request cancellation
-(the resilience and fleet layers) and their notes.
+The resilience layer (``serving/resilience.py``) drives the slot pool
+through ``evict``, ``drop_queued``, ``quarantine`` and ``pop_queued``:
+every request leaves under exactly one outcome (``ok``,
+``deadline_exceeded``, ``shed``, ``decode_fault``, ``preempted``), the
+slot epochs are bumped wherever a slot is freed (so the async serve loop
+can tell a recycled slot from the one it dispatched against), and
+``draining`` stops admission during a graceful drain. Request tracing
+(``obs/reqtrace.py``) notes each request's submit, admission, tokens,
+quarantine and finish on the scheduler's clock, every note behind the
+tracer's ``enabled`` test. Hedged-request cancellation and rid reservation
+come with the serving fleet and its journal (ROADMAP A.8).
 """
 from __future__ import annotations
 
@@ -37,13 +40,27 @@ def now_ms() -> float:
     return time.monotonic() * 1e3
 
 
-class ServingRejection(RuntimeError):
-    """Common base of every admission refusal."""
+def remove_by_identity(queue, req: "Request") -> bool:
+    """Remove ``req`` from a queue by identity, returning whether it was
+    there (a Request holds arrays, so ``==`` cannot compare two)."""
+    for i, q in enumerate(queue):
+        if q is req:
+            del queue[i]
+            return True
+    return False
 
-    def __init__(self, message: str, queued: int = 0, active: int = 0):
+
+class ServingRejection(RuntimeError):
+    """Common base of every admission refusal: ``queued`` / ``active``
+    snapshot the scheduler at refusal, ``retry_after_ms`` is the admission
+    controller's drain-time hint (0.0 without a cost estimate)."""
+
+    def __init__(self, message: str, queued: int = 0, active: int = 0,
+                 retry_after_ms: float = 0.0):
         super().__init__(message)
         self.queued = int(queued)
         self.active = int(active)
+        self.retry_after_ms = float(retry_after_ms)
 
 
 class QueueFullError(ServingRejection):
@@ -80,6 +97,10 @@ class BlockAllocator:
     @property
     def n_usable(self) -> int:
         return self.n_blocks - 1
+
+    @property
+    def in_use(self) -> int:
+        return self.n_usable - len(self.free_blocks)
 
     def blocks_needed(self, tokens: int) -> int:
         return -(-max(int(tokens), 1) // self.block_size)
@@ -136,6 +157,11 @@ class BlockAllocator:
         """Blocks still referenced."""
         return [b for b in range(1, self.n_blocks) if self.refcounts[b]]
 
+    def reset(self) -> None:
+        """Forget every allocation (the pool is rebuilt from zeros)."""
+        self.free_blocks = deque(range(1, self.n_blocks))
+        self.refcounts = [0] * self.n_blocks
+
 
 @dataclasses.dataclass
 class Request:
@@ -149,9 +175,17 @@ class Request:
     generated: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
     finish_reason: Optional[str] = None  # "eos" | "length"
-    # terminal disposition: "ok" at finish (the JAX package's other
-    # outcomes come with the resilience layer)
+    # resilience: the relative completion budget from submission (None: no
+    # deadline; the engine defaults it from --request-timeout-ms), the
+    # submit, first-token and terminal stamps on the scheduler's clock
+    # (ms), the terminal disposition (one of serving.resilience.OUTCOMES)
+    # and the decode-fault re-prefills spent against --decode-retry-budget
+    deadline_ms: Optional[float] = None
+    submit_ms: float = 0.0
+    first_token_ms: float = 0.0
+    finish_ms: float = 0.0
     outcome: Optional[str] = None
+    retries_used: int = 0
     # sampling-stream tag (submission order), so the same (prompts, seed)
     # reproduces the same draws run after run
     rng_tag: Optional[int] = None
@@ -183,10 +217,16 @@ class Request:
         return self.prompt_len + len(self.generated)
 
     def current_prompt(self) -> np.ndarray:
+        """Tokens the next prefill feeds: the prompt, plus the committed
+        tokens for a quarantine retry."""
         if not self.generated:
             return self.prompt
         return np.concatenate(
             [self.prompt, np.asarray(self.generated, np.int32)])
+
+    def expired(self, now_ms: float) -> bool:
+        return (self.deadline_ms is not None and self.deadline_ms > 0
+                and now_ms - self.submit_ms > self.deadline_ms)
 
 
 def default_buckets(max_prompt_len: int, min_bucket: int = 16
@@ -220,7 +260,7 @@ class ContinuousBatchScheduler:
 
     def __init__(self, n_slots: int, max_queue: int = 64,
                  buckets: Optional[Sequence[int]] = None,
-                 max_len: int = 128):
+                 max_len: int = 128, clock=None):
         if n_slots < 1:
             raise ValueError("need at least one decode slot")
         self.n_slots = n_slots
@@ -233,10 +273,15 @@ class ContinuousBatchScheduler:
         self._free: Deque[int] = deque(range(n_slots))
         self.finished: List[Request] = []
         self.queue_depth_hwm = 0
-        # attached by the paged engine before it drives the loop
+        # attached by the paged engine before it drives the loop.
+        # on_slot_freed fires on every slot-freeing path (the engine resets
+        # the slot's table row and cursor); on_suspect_blocks_freed gets
+        # the blocks a poison-suspect release returned to the free list
+        # (the engine zeroes them: a later request may read their rows)
         self.allocator: Optional[BlockAllocator] = None
         self.max_context: Optional[int] = None
         self.on_slot_freed = None
+        self.on_suspect_blocks_freed = None
         self.prefix = None
         self.chunk_tokens = 0
         self._chunk_turn = False
@@ -246,11 +291,19 @@ class ContinuousBatchScheduler:
         # result the async serve loop dispatched against epoch e of a slot
         # is discarded if the slot was recycled while it was in flight
         self.slot_epoch: List[int] = [0] * n_slots
+        # resilience: ``clock`` (ms, injectable) stamps submits, so the
+        # deadline math shares one time base with the engine's sweeps; the
+        # shed policy in effect is recorded so the queue wall can name it;
+        # ``draining`` stops admission during a graceful drain
+        self.clock = clock if clock is not None else now_ms
+        self.shed_policy = "off"
+        self.draining = False
+        self.quarantined = 0
+        self.evicted = 0
         # request tracing: the process request tracer as of construction;
         # each lifecycle edge below notes it behind ``rt.enabled`` (one
         # attribute load and test when tracing is off), stamped by
-        # ``clock`` (ms)
-        self.clock = now_ms
+        # ``clock``
         self.rt = get_reqtrace()
 
     @property
@@ -265,8 +318,9 @@ class ContinuousBatchScheduler:
         """FIFO admission with bounded-queue backpressure."""
         if len(self.queue) >= self.max_queue:
             raise QueueFullError(
-                f"serving queue full ({self.max_queue} waiting); retry "
-                "later or raise --max-inflight/max_queue",
+                f"serving queue full ({self.max_queue} waiting, shed "
+                f"policy '{self.shed_policy}'); retry later or raise "
+                "--max-inflight/max_queue",
                 queued=len(self.queue), active=self.active)
         if req.prompt_len + req.max_new_tokens > self.max_len:
             raise ValueError(
@@ -290,13 +344,18 @@ class ContinuousBatchScheduler:
                     f"request {req.rid}: needs {need} KV blocks but the "
                     f"pool has {self.allocator.n_usable} (raise "
                     "--kv-pool-blocks or --kv-block-size)")
+        # effective_len: a quarantine retry re-prefills its committed
+        # tokens too, so a narrower scheduler refuses it here, before
+        # next_action claims a slot
         bucket_for(req.effective_len, self.buckets)
+        req.submit_ms = float(self.clock())
         self.queue.append(req)
         self.queue_depth_hwm = max(self.queue_depth_hwm, len(self.queue))
         if self.rt.enabled:
-            self.rt.note(req.rid, "submit", float(self.clock()),
+            self.rt.note(req.rid, "submit", req.submit_ms,
                          prompt_len=req.prompt_len,
-                         max_new=req.max_new_tokens, deadline_ms=None)
+                         max_new=req.max_new_tokens,
+                         deadline_ms=req.deadline_ms)
 
     def _admit_head(self):
         """Admit the head-of-queue request into a free slot with
@@ -369,8 +428,10 @@ class ContinuousBatchScheduler:
     def next_action(self):
         """Prefill takes priority so freed capacity never idles while work
         queues; chunks of an in-progress chunked prefill alternate with
-        decode steps over the decodable slots."""
-        while self.queue and self._free:
+        decode steps over the decodable slots. While ``draining`` nothing
+        is admitted: in-flight requests finish, the queue stays for the
+        engine to hand back."""
+        while self.queue and self._free and not self.draining:
             act = self._admit_head()
             if act is None:
                 break  # pool pressure: decode on, recycling frees blocks
@@ -413,6 +474,11 @@ class ContinuousBatchScheduler:
         if req is None:
             raise ValueError(f"token for empty slot {slot}")
         req.generated.append(int(token))
+        # the first-token stamp (TTFT = first_token_ms - submit_ms) lands
+        # here, the one commit point every first token passes; a retry
+        # keeps its original stamp
+        if not req.first_token_ms:
+            req.first_token_ms = float(self.clock())
         if self.rt.enabled:
             self.rt.note(req.rid, "token", float(self.clock()),
                          occ=self.n_slots - len(self._free))
@@ -422,32 +488,48 @@ class ContinuousBatchScheduler:
             return self._finish(slot, "length")
         return False
 
-    def _release_blocks(self, req: Request) -> None:
+    def _release_blocks(self, req: Request, adopt: bool = True) -> None:
         """The one choke point returning a request's pool blocks; a fully
         prefilled request's prompt blocks are adopted into the prefix trie
-        first, so its cached KV outlives it."""
+        first, so its cached KV outlives it. ``adopt=False`` on the
+        quarantine and decode-fault paths: poison-suspect KV never enters
+        the trie, and blocks the trie cached from it are purged. The blocks
+        such a release returns to the free list go to
+        ``on_suspect_blocks_freed``: the exact and chunk reads multiply
+        every row of a slot's extent by its probability (0 x NaN = NaN),
+        and a later request may be handed these blocks for rows its
+        prefill does not write."""
         if self.allocator is not None:
             if req.pending_cow is not None:
                 self.allocator.free([req.pending_cow[0]])
                 req.pending_cow = None
             if req.kv_blocks:
-                if (self.prefix is not None and req.prefill_target > 0
+                if (adopt and self.prefix is not None
+                        and req.prefill_target > 0
                         and req.prefill_pos >= req.prefill_target):
                     self.prefix.insert(
                         req.current_prompt()[:req.prefill_pos],
                         req.kv_blocks)
+                elif not adopt and self.prefix is not None:
+                    self.prefix.invalidate(req.kv_blocks)
                 self.allocator.free(req.kv_blocks)
+                if not adopt and self.on_suspect_blocks_freed is not None:
+                    freed = [b for b in req.kv_blocks
+                             if self.allocator.refcount(b) == 0]
+                    if freed:
+                        self.on_suspect_blocks_freed(freed)
         req.kv_blocks = []
 
-    def _finish(self, slot: int, reason: str) -> bool:
+    def _finish(self, slot: int, reason: str, outcome: str = "ok") -> bool:
         req = self.slots[slot]
         req.done = True
         req.finish_reason = reason
-        req.outcome = "ok"
+        req.outcome = outcome
+        req.finish_ms = float(self.clock())
         if self.rt.enabled:
-            self.rt.finish(req.rid, float(self.clock()), "ok", reason=reason,
+            self.rt.finish(req.rid, req.finish_ms, outcome, reason=reason,
                            new_tokens=len(req.generated))
-        self._release_blocks(req)
+        self._release_blocks(req, adopt=outcome != "decode_fault")
         self.finished.append(req)
         self.slots[slot] = None
         self._free.append(slot)
@@ -455,3 +537,68 @@ class ContinuousBatchScheduler:
         if self.on_slot_freed is not None:
             self.on_slot_freed(slot)
         return True
+
+    # ---------------------------------------------------------- resilience
+    def evict(self, slot: int, outcome: str) -> Request:
+        """Terminate the request in ``slot`` with a failure ``outcome``
+        (deadline_exceeded | decode_fault | preempted) and recycle the
+        slot; the request lands in ``finished``, never silently dropped."""
+        req = self.slots[slot]
+        if req is None:
+            raise ValueError(f"evict of empty slot {slot}")
+        self.evicted += 1
+        self._finish(slot, outcome, outcome=outcome)
+        return req
+
+    def drop_queued(self, req: Request, outcome: str) -> None:
+        """Remove a still-queued request (it never held a slot) with a
+        terminal ``outcome``: the admission half of deadline
+        enforcement."""
+        if not remove_by_identity(self.queue, req):
+            raise ValueError(f"request rid={req.rid} is not queued")
+        req.done = True
+        req.finish_reason = outcome
+        req.outcome = outcome
+        req.finish_ms = float(self.clock())
+        if self.rt.enabled:
+            self.rt.finish(req.rid, req.finish_ms, outcome, reason=outcome,
+                           new_tokens=len(req.generated))
+        self._release_blocks(req)  # a queued request holds none
+        self.finished.append(req)
+
+    def quarantine(self, slot: int) -> Request:
+        """Pull a decode-poisoned request out of ``slot`` for a retry: the
+        slot goes to the BACK of the free pool (the retry prefers another
+        slot when one is free), the request to the FRONT of the queue with
+        its committed tokens (``current_prompt`` re-prefills them). Its
+        blocks are released without adoption."""
+        req = self.slots[slot]
+        if req is None:
+            raise ValueError(f"quarantine of empty slot {slot}")
+        self._release_blocks(req, adopt=False)
+        self.slots[slot] = None
+        self._free.append(slot)
+        self.slot_epoch[slot] += 1
+        self.quarantined += 1
+        if self.rt.enabled:
+            self.rt.note(req.rid, "quarantine", float(self.clock()),
+                         slot=slot)
+        self.queue.appendleft(req)
+        if self.on_slot_freed is not None:
+            self.on_slot_freed(slot)
+        return req
+
+    def remove_finished(self, req: Request) -> bool:
+        """Strike a request from ``finished`` (by identity); True when an
+        entry was removed."""
+        return remove_by_identity(self.finished, req)
+
+    def pop_queued(self) -> List[Request]:
+        """Drain handoff: every still-queued request (outcome
+        ``preempted``) for re-submission elsewhere — they never started,
+        so their state is clean."""
+        out = list(self.queue)
+        self.queue.clear()
+        for r in out:
+            r.outcome = "preempted"
+        return out

@@ -7,8 +7,10 @@
 * Entry points run on CUDA unless asked for the CPU: without a GPU,
   ``FFModel`` with no ``device`` (or ``device="cuda"``) raises.
 * Every serving option outside this slice raises ``NotImplementedError``
-  naming its flag, whether it comes as an engine argument or through
-  ``FFConfig``; none falls back quietly. So does every training option
+  naming its flag and ROADMAP A.8, whether it comes as an engine argument
+  or through ``FFConfig``; none falls back quietly. The ring KV layout,
+  serving chaos and the serving-resilience flags, refused before their
+  slice, serve. So does every training option
   outside this slice, at ``fit``, every flag that ``compile`` or the
   serving engine would otherwise parse and ignore, and an LSTM graph in
   the serving engine. ``--profile-ops``, ``FFModel.profile_operators`` and
@@ -153,18 +155,16 @@ LATER = "ported in a later slice"
 
 
 @pytest.mark.parametrize("kwargs,flag", [
-    (dict(kv_cache="ring"), "--kv-cache"),
     (dict(seq_shards=2), "--seq-shards"),
     (dict(context_buckets=(16, 32)), "--context-buckets"),
 ])
 def test_engine_refuses_options_of_later_slices(tiny, kwargs, flag):
     with pytest.raises(NotImplementedError, match=LATER) as e:
         ServingEngine(tiny, max_decode_len=32, **kwargs)
-    assert flag in str(e.value)
+    assert flag in str(e.value) and "A.8" in str(e.value)
 
 
 @pytest.mark.parametrize("field,value,flag", [
-    ("kv_cache", "ring", "--kv-cache"),
     ("seq_shards", 2, "--seq-shards"),
     ("context_buckets", "16,32", "--context-buckets"),
     ("request_journal", "journal.log", "--request-journal"),
@@ -173,7 +173,28 @@ def test_generate_refuses_config_flags_of_later_slices(field, value, flag):
     ff = _tiny_model(**{field: value})
     with pytest.raises(NotImplementedError, match=LATER) as e:
         ff.generate([[1, 2, 3]], max_new_tokens=2, max_decode_len=32)
-    assert flag in str(e.value)
+    assert flag in str(e.value) and "A.8" in str(e.value)
+
+
+@pytest.mark.parametrize("via", ["engine", "config"])
+def test_ring_kv_is_served(via):
+    """``--kv-cache ring`` is in this slice: it serves, as an engine
+    argument or through ``FFConfig``, with no block pool, and its greedy
+    streams are the paged layout's."""
+    ff = _tiny_model()
+    paged = ServingEngine(ff, max_decode_len=32).generate(
+        [[1, 2, 3], [4, 5]], max_new_tokens=3)
+    if via == "engine":
+        eng = ServingEngine(ff, max_decode_len=32, kv_cache="ring")
+        out = eng.generate([[1, 2, 3], [4, 5]], max_new_tokens=3)
+    else:
+        ff = _tiny_model(kv_cache="ring")
+        out = ff.generate([[1, 2, 3], [4, 5]], max_new_tokens=3,
+                          max_decode_len=32)
+        eng = ff._serving_engine
+    assert eng.kv_cache == "ring" and eng.block_allocator is None
+    assert eng.state.block_tables is None
+    assert out == paged
 
 
 @pytest.mark.parametrize("via", ["engine", "config"])
@@ -194,10 +215,17 @@ def test_int8_kv_is_served(via):
     assert all(0 <= t < 100 for o in out for t in o)
 
 
-def test_generate_refuses_chaos(tiny):
+def test_generate_serves_chaos(tiny):
+    """``generate(chaos=...)`` is in this slice: an empty ``ChaosPlan``
+    arms the guarded decode program and changes no stream."""
+    from flexflow_tpu_torch.resilience import ChaosPlan
+
     eng = ServingEngine(tiny, max_decode_len=32)
-    with pytest.raises(NotImplementedError, match=LATER):
-        eng.generate([[1, 2, 3]], max_new_tokens=2, chaos=object())
+    plain = eng.generate([[1, 2, 3]], max_new_tokens=2)
+    assert eng._last_guard is False
+    out = eng.generate([[1, 2, 3]], max_new_tokens=2, chaos=ChaosPlan())
+    assert eng._last_guard is True and out == plain
+    assert eng.stats.outcomes == {"ok": 1}
 
 
 def test_top_k_refused_only_where_jax_runs_the_pallas_kernel(tiny):
@@ -228,18 +256,19 @@ def test_temperature_sampling_is_reproducible(tiny):
     assert np.asarray(a).shape == (2, 4)
 
 
-@pytest.mark.parametrize("flag", ["--drain-grace-s",
-                                  "--decode-retry-budget"])
-def test_engine_refuses_serving_resilience_flags_given_on_the_command_line(
-        flag):
-    """Their defaults are live settings of the JAX serve loop, so only a
-    value given on the command line is refused (the default engine
-    serves: every other test here builds one)."""
+@pytest.mark.parametrize("flag,field", [
+    ("--drain-grace-s", "drain_grace_s"),
+    ("--decode-retry-budget", "decode_retry_budget")])
+def test_engine_takes_serving_resilience_flags_given_on_the_command_line(
+        flag, field):
+    """The serving-resilience flags given on the command line reach the
+    serve loop's policy, and the engine serves."""
     ff = _tiny_model()
     ff.config.parse_args([flag, "3"])
-    with pytest.raises(NotImplementedError, match=LATER) as e:
-        ServingEngine(ff, max_decode_len=32)
-    assert flag in str(e.value)
+    eng = ServingEngine(ff, max_decode_len=32)
+    assert getattr(eng._make_resilience(None), field) == 3
+    out = eng.generate([[1, 2, 3]], max_new_tokens=2)
+    assert len(out[0]) == 2 and eng.stats.outcomes == {"ok": 1}
 
 
 def test_engine_refuses_an_lstm_graph_by_name():

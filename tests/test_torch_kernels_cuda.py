@@ -787,3 +787,78 @@ def test_softmax_autograd_launches_both_kernels():
     xr = x.detach().clone().requires_grad_(True)
     (gr,) = torch.autograd.grad((torch.softmax(xr, -1) * w).sum(), xr)
     assert (gx - gr).abs().max().item() <= 1e-6
+
+
+# ----------------------------------------- non-finite rows (serving chaos)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,dim", [(8, 50304), (128, 1001)])
+@pytest.mark.parametrize("k", [1, 8])
+def test_topk_kernel_on_non_finite_rows(dtype, rows, dim, k):
+    """The sampler's top-k fed a quarantined slot's logits: a row of NaN,
+    a row with NaN in every other element, a row with NaN at a few places
+    and rows with +inf / -inf entries. The kernel returns, in one launch;
+    every row without a NaN (the inf rows included) equals the plain
+    sweeps' values and indices, and a NaN row's indices are in range and
+    distinct (the selection clamps NaN, as -inf, to -FLT_MAX: its token is
+    drawn and discarded, as in the JAX loop)."""
+    dev = _cuda()
+    x = _topk_rows(rows + dim + k, rows, dim, torch.float32, "cpu")
+    x[1] = float("nan")
+    x[3, ::2] = float("nan")
+    x[4, [0, dim // 3, dim - 1]] = float("nan")
+    x[5, [10, 20]] = float("inf")
+    x[6, [7, dim - 2]] = float("-inf")
+    x = x.to(dtype).to(dev)
+    before = tk.launch_count()
+    vals, idx = tk.topk(x, k)
+    torch.cuda.synchronize()
+    assert tk.launch_count() == before + 1
+    want_v, want_i = tk.topk_plain(x, k)
+    nan_rows = torch.isnan(x).any(dim=-1)
+    healthy = ~nan_rows
+    assert torch.equal(idx[healthy], want_i[healthy])
+    assert torch.equal(vals[healthy], want_v[healthy])
+    for r in torch.nonzero(nan_rows)[:, 0].tolist():
+        got = idx[r].tolist()
+        assert all(0 <= i < dim for i in got) and len(set(got)) == k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("mb", [4, 64])
+def test_flash_decode_on_a_poisoned_slot(int8, mb):
+    """A slot whose KV blocks are NaN (the serving chaos poison: the rows
+    of a native pool, the scales of an int8 one), with one chunk a slot
+    (mb 4) and keys split across CTAs (mb 64): the poisoned slot's output
+    is NaN in every element, as the plain version's, and every other slot
+    equals the same launch on unpoisoned pools bit for bit and the plain
+    version within DECODE_ATOL."""
+    dev = _cuda()
+    slots, heads, bs, victim = 8, 12, 16, 2
+    full = mb * bs
+    args, kw = _split_case(11, torch.float32, dev, int8, slots, heads, 64,
+                           64, bs, mb, [full, 5, full // 2, 1, full - 3,
+                                        bs, 2 * bs + 1, full])
+    clean = fd.flash_decode(*args, **kw)
+    q, k, v, tables, nk = args
+    used = -(-int(nk[victim]) // bs)
+    blocks = tables[victim, :used].long()
+    if int8:
+        kw = {n: s.clone().index_fill_(0, blocks, float("nan"))
+              for n, s in kw.items()}
+    else:
+        k = k.clone().index_fill_(0, blocks, float("nan"))
+        v = v.clone().index_fill_(0, blocks, float("nan"))
+    before = fd.launch_count("flash_decode_int8" if int8 else
+                             "flash_decode")
+    got = fd.flash_decode(q, k, v, tables, nk, **kw)
+    torch.cuda.synchronize()
+    assert fd.launch_count("flash_decode_int8" if int8 else
+                           "flash_decode") == before + 1
+    want = fd.flash_decode_plain(q, k, v, tables, nk, **kw)
+    assert torch.isnan(got[victim]).all() and torch.isnan(want[victim]).all()
+    rest = [s for s in range(slots) if s != victim]
+    assert torch.equal(got[rest], clean[rest])
+    assert (got[rest] - want[rest]).abs().max().item() <= \
+        DECODE_ATOL[torch.float32]

@@ -237,15 +237,61 @@ def test_chaos_poison_requires_float_input():
 
 @pytest.mark.parametrize("arg,value", [
     ("fail_compiles", 1), ("wrong_reshard", True),
-    ("poison_decode_at", {3: 0}), ("storm_queue", {1: [[1]]}),
-    ("preempt_serving_at", 2), ("drop_devices_at", {4: 2})])
+    ("drop_devices_at", {4: 2})])
 def test_chaos_plan_refuses_injections_of_later_slices(arg, value):
     with pytest.raises(NotImplementedError, match="later slice") as e:
         ChaosPlan(**{arg: value})
     assert arg in str(e.value)
+    if arg == "drop_devices_at":
+        assert "A.8" in str(e.value)
     from flexflow_tpu_torch.resilience.chaos import _LATER_ARGS
 
     ChaosPlan(**{arg: _LATER_ARGS[arg]})  # the off value is accepted
+
+
+@pytest.mark.parametrize("arg,value,hook", [
+    ("poison_decode_at", {3: 0}, "maybe_poison_decode"),
+    ("storm_queue", {1: [[1]]}, "maybe_storm"),
+    ("preempt_serving_at", 2, "maybe_preempt_serving")])
+def test_chaos_plan_takes_serving_injections(arg, value, hook):
+    """The serving injections are in this slice: each is kept as the JAX
+    plan keeps it, fires once at its step and never at another."""
+    import signal
+
+    plan = ChaosPlan(**{arg: value})
+    assert getattr(plan, arg) == value
+    if hook == "maybe_storm":
+        assert plan.maybe_storm(0) == [] and plan.maybe_storm(1) == [[1]]
+        assert plan.maybe_storm(1) == [] and plan.storms_injected == 1
+    elif hook == "maybe_preempt_serving":
+        got = []
+        prev = signal.signal(signal.SIGTERM,
+                             lambda signum, frame: got.append(signum))
+        try:
+            plan.maybe_preempt_serving(1)
+            plan.maybe_preempt_serving(2)
+            plan.maybe_preempt_serving(2)
+        finally:
+            signal.signal(signal.SIGTERM, prev)
+        assert got == [signal.SIGTERM] and plan.serving_preempted_at == 2
+    else:
+        from flexflow_tpu_torch.serving.kvcache import DecodeState
+
+        pool = torch.zeros((4, 1, 2, 2))
+        state = DecodeState(caches={"a": (pool, pool.clone())},
+                            lengths=torch.tensor([3], dtype=torch.int32),
+                            block_tables=torch.tensor([[2, 0]]))
+        stage = lambda ids: torch.tensor(ids)  # noqa: E731
+        assert plan.maybe_poison_decode(2, state, lambda s: [2],
+                                        stage) is None
+        assert plan.maybe_poison_decode(3, state, lambda s: [2, 0],
+                                        stage) == 0
+        for leaf in state.caches["a"]:
+            assert torch.isnan(leaf[2]).all()  # the victim's block
+            assert torch.isfinite(leaf[[0, 1, 3]]).all()  # never GARBAGE
+        assert plan.poisoned_decode_steps == [3]
+        assert plan.maybe_poison_decode(3, state, lambda s: [2],
+                                        stage) is None  # once
 
 
 def test_config_resilience_flags():

@@ -16,7 +16,8 @@ arrival, one step behind dispatch. The sync loop is the reference:
 * the port's async greedy streams equal the JAX engine's greedy streams
   from the same weights (``set_params_numpy``).
 
-Speculative decoding, chaos, drain and the fleet come in later slices.
+Speculative decoding and the fleet come in later slices; serving under
+failure has its own files (``test_torch_serving_resilience*.py``).
 """
 import numpy as np
 import pytest
@@ -186,13 +187,21 @@ def test_finish_settles_pending(gpt2):
     assert eng.stats.requests_served == 3
 
 
-def test_admit_refuses_resilience_by_name(gpt2):
-    eng = _engine(gpt2, "sync")
-    sched = ContinuousBatchScheduler(n_slots=3, max_len=64)
-    with pytest.raises(NotImplementedError, match="later slice") as e:
-        eng.admit(sched, Request(prompt=np.asarray([1, 2], np.int32),
-                                 max_new_tokens=2), resilience=object())
-    assert "resilience" in str(e.value)
+def test_admit_takes_an_explicit_resilience(gpt2):
+    """``admit(resilience=)`` stamps and gates on the caller's policy
+    object (a deadline arms it), and the async serve handed the same
+    object runs the guarded program and ledgers the request ``ok``."""
+    eng = _engine(gpt2, "async")
+    res = eng._make_resilience(None)
+    sched = ContinuousBatchScheduler(n_slots=3, max_len=64, clock=res.clock)
+    req = Request(prompt=np.asarray([1, 2], np.int32), max_new_tokens=2,
+                  deadline_ms=1e9)
+    eng.admit(sched, req, resilience=res)
+    assert eng._pending_resilience is None and res.deadlines_armed
+    eng.serve(sched, resilience=res)
+    assert eng._last_guard is True
+    assert req.outcome == "ok" and len(req.generated) == 2
+    assert eng.stats.outcomes == {"ok": 1}
 
 
 def test_serve_loop_validation(gpt2):

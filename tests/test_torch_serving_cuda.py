@@ -15,7 +15,11 @@ the programs' buffers):
   and its launches are counted through the replays: one per sampler call
   (prefills plus decode steps);
 * the sampler on the card against the same sampler on CPU tensors, same
-  logits and (seed, tag, count): equal tokens outside a tie margin.
+  logits and (seed, tag, count): equal tokens outside a tie margin;
+* the guarded decode program against the unguarded one (native and int8
+  KV): equal streams, the same B5 launches a step, one fetch a step, no
+  capture after warm-up, and a poisoned slot quarantined with the other
+  streams unchanged.
 
 It imports neither jax nor flexflow_tpu:
 
@@ -253,3 +257,56 @@ def _score_gaps(logits, tc, seed, temp, top_k):
         return [float("inf")] * score.shape[0]
     top2 = torch.topk(score, 2, dim=-1).values
     return (top2[:, 0] - top2[:, 1]).tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["native", "int8"])
+def test_guarded_decode_streams_equal_unguarded(kv_dtype):
+    """The guarded decode program (an empty ``ChaosPlan`` arms it) against
+    the unguarded one on one engine, after warm-up of both: equal greedy
+    streams, the same B5 launches a decode step (one a layer), one token
+    fetch a decode step with the verdict in the same copy, nothing
+    captured in the timed runs, ``decode_compiles`` 1 for each mode. Then
+    a poisoned slot: quarantined once and retried, the other streams the
+    clean run's, still nothing captured."""
+    from flexflow_tpu_torch.kernels import flash_decode as fd
+    from flexflow_tpu_torch.resilience import ChaosPlan
+
+    dev = _cuda()
+    ff = _gpt2(dev)
+    eng = ServingEngine(ff, max_decode_len=MAX_LEN, n_slots=3,
+                        kv_block_size=BLOCK, kv_dtype=kv_dtype,
+                        prefix_cache="off")
+    name = "flash_decode_int8" if kv_dtype == "int8" else "flash_decode"
+
+    def prompts_of(seed):
+        rng = np.random.default_rng(seed)
+        return [rng.integers(1, VOCAB, n).tolist() for n in (5, 9, 3, 12)]
+
+    prompts = prompts_of(7)
+    for chaos in (None, ChaosPlan()):
+        for seed in (100, 101):
+            eng.generate(prompts_of(seed), max_new_tokens=10, chaos=chaos)
+    out, per_step = {}, {}
+    before = _captures(eng)
+    for guarded in (False, True):
+        fd.reset_launch_count()
+        out[guarded] = eng.generate(prompts, max_new_tokens=10,
+                                    chaos=ChaosPlan() if guarded else None)
+        torch.cuda.synchronize()
+        st = eng.stats
+        assert eng._last_guard is guarded and eng.decode_compiles == 1
+        assert st.host_syncs == st.decode_steps
+        per_step[guarded] = fd.launch_count(name) / st.decode_steps
+    assert out[False] == out[True]
+    assert per_step[False] == per_step[True] == 2  # one a layer
+    chaos = ChaosPlan(poison_decode_at={3: 1})
+    poisoned = eng.generate(prompts, max_new_tokens=10, chaos=chaos)
+    torch.cuda.synchronize()
+    assert chaos.poisoned_decode_steps == [3]
+    assert eng.stats.quarantines == 1 and eng.stats.outcomes == {"ok": 4}
+    # the neighbours' streams are the clean run's; the retried one
+    # re-prefills its committed tokens, which may move a near-tie of B5's
+    # logits (exact decode makes it token-identical, on the CPU tests)
+    assert sum(a != b for a, b in zip(poisoned, out[False])) <= 1
+    assert _captures(eng) == before
