@@ -279,6 +279,34 @@ timed generate only replays):
    streams equal, ``kv_bytes_per_token`` ring / paged the analytic ratio,
    tokens/s each way.
 
+13. serving13 — the rest of one-GPU serving: (a) speculative decoding on
+   GPT-2 small (fp32, vocab 50257) with a drafter GPT-2 of the same
+   vocabulary (hidden 256, 4 heads, 2 layers, its own seed), eight
+   prompts of 16-64 tokens, 32 tokens, gamma 4, context 128: the
+   speculative streams of the random and of the perfect drafter (the
+   target itself) equal the exact-decode and the B5 baseline's outside
+   positions whose top-2 logit gap is under ``SPEC_TIE`` (the count
+   excluded and the smallest gap printed), the perfect drafter rejects
+   only at such ties and commits more tokens than it runs rounds, no
+   prefill program captures after warm-up, 12 B5 a step in the B5
+   baseline; rounds, proposed, accepted, acceptance, tokens/s and p50 ms
+   a token beside the baselines'; (b) an LSTM language model at
+   ``NMTConfig()``'s widths (vocab 32000, embed 1024, two LSTMs of 1024,
+   a dense head; fp32, 8 slots, 128 positions, prompts of 8-40 tokens, 32
+   tokens): the prefix cache refused by name and chunked prefill
+   (``ValueError``), teacher-forced decode logits within ``LSTM_ATOL`` of
+   the card's whole-sequence forward with the greedy argmax equal outside
+   ties, streams equal on paged / ring, sync / async and to the port's
+   CPU path from the same weights (outside ties), ``decode_compiles`` 1
+   and no capture after warm-up, tokens/s and p50 ms a token each way;
+   (c) a traced GPT-2 small serve (``--trace-file``, the prefix cache on,
+   64-token chunks, a ninth prompt sharing the first's 72 tokens): the
+   ``prefill`` / ``prefill_chunk`` / ``decode_step`` spans number the
+   one-shot prefills, chunks and decode steps of ``ServingStats``, with
+   the JAX engine's fields, the ``prefix_cow_clone`` events counted, the
+   streams the untraced run's, traced / untraced tokens/s. B5 is held
+   against its plain version on each B5 engine's own pools after its run.
+
 It prints the run's wall seconds, one ``{"kernels": [...]}`` line (the
 entries of the instances the census covers also carry their SASS counts,
 registers, spills and shared memory; the flash-decode entries their
@@ -291,7 +319,8 @@ theirs; the decoder's B5 as ``flash_decode_decoder``; B1 and B2 under
 phase 11's as ``flash_fwd_obs``, ``flash_bwd_fused_obs``,
 ``flash_decode_int8_obs`` and ``topk_obs``; phase 12's as
 ``flash_decode_guarded``, ``flash_decode_int8_guarded`` and
-``topk_guarded``), the card's
+``topk_guarded``; phase 13's as ``flash_decode_spec`` and
+``flash_decode_spans``), the card's
 name and power limit (nvidia-smi), and as its last line ``{"ok": true, "device": {...}}``. Any
 failed phase exits non-zero; without CUDA, or without the package, it
 exits 1 and prints no result.
@@ -877,13 +906,14 @@ def softmax_kernel_phase(device, card: str, iters: int = 8):
 
 
 # ---------------------------------------------------------- end-to-end phase
-def build_model(cfg, compute: str, device, max_decode_len: int):
+def build_model(cfg, compute: str, device, max_decode_len: int,
+                seed: int = SEED):
     from flexflow_tpu_torch import DataType, FFConfig, FFModel
     from flexflow_tpu_torch.models.gpt2 import build_gpt2
 
     config = FFConfig()
     config.batch_size = cfg.batch_size
-    config.seed = SEED
+    config.seed = seed
     config.max_decode_len = max_decode_len
     config.max_inflight = 8
     if compute == "bf16":
@@ -4857,6 +4887,486 @@ def chaos_phase(device, card: str, prompt_set: dict) -> dict:
     return dict(counts=counts, errs=errs)
 
 
+# ------------------------- phase 13: speculative decoding, LSTM, spans
+# (a) GPT-2 small (fp32, vocab 50257) verifies the proposals of a drafter
+# GPT-2 of the same vocabulary at hidden 256 / 4 heads / 2 layers, from its
+# own seed: eight prompts of 16-64 tokens, 32 new tokens, gamma 4, a
+# scoring context of 128 (buckets 16 / 32 / 64 / 128)
+SPEC_LENGTHS = (16, 24, 32, 40, 48, 56, 64, 20)
+SPEC_GAMMA = 4
+SPEC_MAX_LEN = 128
+SPEC_DRAFTER = dict(hidden=256, num_heads=4, num_layers=2, intermediate=1024)
+SPEC_DRAFTER_SEED = SEED + 7
+# two greedy streams may part only at a position whose top-2 logit gap
+# (of the target's whole-sequence forward on their common prefix) is
+# under this: the port's prefill, exact decode and B5 decode differ in
+# summation order only
+SPEC_TIE = 1e-4
+# (b) an LSTM language model at NMTConfig()'s published widths (rnn.h:
+# vocab 32000, embed 1024, two stacked LSTMs of hidden 1024) with a dense
+# head: the decoder half of models/nmt.py as an LM, fp32, 8 slots
+LSTM_LM = dict(vocab=32000, embed=1024, hidden=1024, layers=2)
+LSTM_LENGTHS = (8, 13, 40, 21, 32, 9, 27, 16)
+LSTM_MAX_LEN = 128
+# teacher-forced decode logits against the card's whole-sequence forward
+LSTM_ATOL = 1e-4
+# (c) the traced serve: the e2e prompt lengths and a ninth prompt that
+# shares the first one's 72-token prefix (4.5 blocks of 16); it waits for
+# a free slot, so the first's blocks are in the trie by then. The prefix
+# cache on and 64-token chunks
+SPANS_LENGTHS = (200, 96, 150, 32, 120, 180, 72, 48)
+SPANS_SHARED = 72
+SPANS_PAIR_TAIL = 40
+SPANS_CHUNK_TOKENS = 64
+SPANS_FIELDS = {"prefill": {"rid", "bucket", "slot", "prompt_len"},
+                "prefill_chunk": {"rid", "slot", "start", "tokens", "hit",
+                                  "done"},
+                "decode_step": {"step", "live_slots"},
+                "prefix_cow_clone": {"rid", "slot", "src", "dst"}}
+
+
+def stream_gaps(ff, prompt, stream):
+    """The top-2 logit gap of ``ff``'s whole-sequence forward at each token
+    of ``stream`` (the distribution it was taken from), as numpy."""
+    import torch
+
+    seq = list(prompt) + list(stream)
+    full = ff.executor.forward(ff.params, [torch.tensor(
+        [seq], dtype=torch.int32, device=ff.device)])[0]
+    top = full[len(prompt) - 1:len(seq) - 1].float().topk(2, dim=-1).values
+    return (top[:, 0] - top[:, 1]).cpu().numpy()
+
+
+def equal_outside_ties(label: str, ff, prompts, want, got) -> tuple:
+    """Fail unless ``got`` equals ``want`` stream by stream, except after a
+    position whose top-2 gap (on ``ff``'s forward) is under SPEC_TIE.
+    Returns (tokens excluded by that rule, the smallest gap over every
+    compared token)."""
+    excluded, smallest = 0, float("inf")
+    for i, (p, a, b) in enumerate(zip(prompts, want, got)):
+        if len(a) != len(b):
+            fail(f"{label}: stream {i} has {len(b)} tokens, want {len(a)}")
+        gaps = stream_gaps(ff, p, b)
+        part = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y),
+                    None)
+        upto = len(b) if part is None else part + 1
+        smallest = min(smallest, float(gaps[:upto].min()))
+        if part is None:
+            continue
+        if not gaps[part] < SPEC_TIE:
+            fail(f"{label}: stream {i} parts at token {part} where the "
+                 f"top-2 gap is {gaps[part]}")
+        excluded += len(b) - part
+    return excluded, smallest
+
+
+def program_captures(*models) -> int:
+    """Graphs captured so far by every serving program of the models'
+    executors (the prefill per bucket among them)."""
+    seen, total = set(), 0
+    for m in models:
+        for fn in m.executor._serving_fns.values():
+            prog = getattr(fn, "program", None)
+            if prog is not None and id(prog) not in seen:
+                seen.add(id(prog))
+                total += prog.captures
+    return total
+
+
+def held_decode_err(eng, seed: int = SEED) -> float:
+    """B5 against its plain version on ``eng``'s pools after its run (the
+    main path's shapes: its slots, heads, blocks and extent), under
+    shuffled tables and key counts 1..max_len. Not counted as main-path
+    launches: the caller reads the counts first."""
+    import torch
+
+    from flexflow_tpu_torch.kernels import flash_decode as fd
+
+    dev = eng.device
+    n, mb = eng.n_slots, eng.max_blocks_per_slot
+    rng = np.random.default_rng(seed)
+    first = next(iter(eng.state.caches.values()))[0]
+    blocks, heads, _bs, d = first.shape
+    tables = torch.tensor(rng.permutation(np.arange(1, blocks))[:n * mb]
+                          .reshape(n, mb), dtype=torch.int32, device=dev)
+    keys = rng.integers(1, eng.max_decode_len + 1, n)
+    keys[0], keys[-1] = 1, eng.max_decode_len
+    n_keys = torch.tensor(keys, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((n, heads, d), generator=gen, device=dev)
+    err = 0.0
+    for kp, vp in eng.state.caches.values():
+        got = fd.flash_decode(q, kp, vp, tables, n_keys)
+        want = fd.flash_decode_plain(q, kp, vp, tables, n_keys)
+        err = max(err, (got - want).abs().max().item())
+    if not err <= KERNEL_ATOL["fp32"]:
+        fail(f"flash_decode on the engine's pools: max |kernel - plain| = "
+             f"{err}")
+    return err
+
+
+def spec_phase(device, card: str, target) -> dict:
+    """Gate (a): the baselines, then the random and the perfect drafter."""
+    import torch
+
+    from flexflow_tpu_torch.kernels import flash_decode as fd
+    from flexflow_tpu_torch.models.gpt2 import GPT2Config
+    from flexflow_tpu_torch.serving import ServingEngine, SpeculativeDecoder
+
+    label = "spec gpt2-small fp32"
+    vocab, new = ff_vocab(target), E2E_NEW_TOKENS
+    prompts = make_prompts(vocab, SPEC_LENGTHS, 0, 0)
+    warm = [make_prompts(vocab, SPEC_LENGTHS, 0, 0, s) for s in WARM_SEEDS]
+    base, err = {}, None
+    for mode, exact in (("exact", True), ("b5", False)):
+        eng = ServingEngine(target, n_slots=8, max_decode_len=SPEC_MAX_LEN,
+                            exact_decode=exact, prefix_cache="off")
+        for w in warm:
+            eng.generate(w, max_new_tokens=new)
+        settle_host()
+        before = serving_captures(eng)
+        fd.reset_launch_count()
+        outs = eng.generate(prompts, max_new_tokens=new)
+        torch.cuda.synchronize()
+        st = eng.stats
+        r = base[mode] = dict(
+            outs=outs, tokens_per_s=st.tokens_per_s(), steps=st.decode_steps,
+            p50=st.p50_token_ms(), b5=fd.launch_count("flash_decode"),
+            captures=serving_captures(eng) - before,
+            compiles=eng.decode_compiles)
+        want_b5 = 0 if exact else attention_layers(target) * r["steps"]
+        if r["b5"] != want_b5 or r["captures"] or r["compiles"] != 1:
+            fail(f"{label} baseline {mode}: {r['b5']} B5 launches over "
+                 f"{r['steps']} decode steps (want {want_b5}), captures "
+                 f"{r['captures']}, decode_compiles {r['compiles']}")
+        if not exact:
+            err = held_decode_err(eng)
+        log(f"{label} baseline {mode}: {r['tokens_per_s']:.1f} tokens/s, "
+            f"p50 {r['p50']:.3f} ms a token, {r['steps']} decode steps, "
+            f"B5 launches {r['b5']}, captures 0, decode_compiles 1 [{card}]")
+        del eng
+    x, g = equal_outside_ties(f"{label} exact vs b5", target, prompts,
+                              base["exact"]["outs"], base["b5"]["outs"])
+    drafter = build_model(GPT2Config(**SPEC_DRAFTER), "fp32", device,
+                          SPEC_MAX_LEN, seed=SPEC_DRAFTER_SEED)
+    res = {}
+    for which, d in (("random", drafter), ("perfect", target)):
+        for w in warm:
+            SpeculativeDecoder(target, d, gamma=SPEC_GAMMA,
+                               max_context=SPEC_MAX_LEN).generate(
+                w, max_new_tokens=new)
+        settle_host()
+        before = program_captures(target, d)
+        spec = SpeculativeDecoder(target, d, gamma=SPEC_GAMMA,
+                                  max_context=SPEC_MAX_LEN)
+        outs = spec.generate(prompts, max_new_tokens=new)
+        torch.cuda.synchronize()
+        st = spec.stats
+        captured = program_captures(target, d) - before
+        cmp = {}
+        for mode in ("exact", "b5"):
+            cmp[mode] = equal_outside_ties(f"{label} {which} vs {mode}",
+                                           target, prompts,
+                                           base[mode]["outs"], outs)
+        r = res[which] = dict(
+            rounds=st.spec_rounds, proposed=st.spec_proposed,
+            accepted=st.spec_accepted, acceptance=st.acceptance_rate(),
+            tokens=st.tokens_generated, tokens_per_s=st.tokens_per_s(),
+            p50=st.p50_token_ms(), captures=captured, cmp=cmp)
+        if captured:
+            fail(f"{label} {which}: {captured} prefill captures after "
+                 "warm-up")
+        if which == "perfect":
+            # a rejection of the target's own proposal can come only from
+            # a near-tie read at two buckets
+            ties = sum(int((stream_gaps(target, p, o) < SPEC_TIE).sum())
+                       for p, o in zip(prompts, outs))
+            if st.spec_proposed - st.spec_accepted > ties or \
+                    not st.spec_rounds < st.tokens_generated:
+                fail(f"{label} perfect: acceptance {st.acceptance_rate()} "
+                     f"({st.spec_proposed - st.spec_accepted} rejections, "
+                     f"{ties} tied positions), {st.spec_rounds} rounds for "
+                     f"{st.tokens_generated} tokens")
+        log(f"{label} {which} drafter gamma {SPEC_GAMMA}: rounds "
+            f"{r['rounds']}, proposed {r['proposed']}, accepted "
+            f"{r['accepted']}, acceptance {r['acceptance']:.4f}, "
+            f"{r['tokens']} tokens, {r['tokens_per_s']:.1f} tokens/s, p50 "
+            f"{r['p50']:.3f} ms a token (baseline exact "
+            f"{base['exact']['tokens_per_s']:.1f}, B5 "
+            f"{base['b5']['tokens_per_s']:.1f} tokens/s); streams equal "
+            f"both baselines outside ties (excluded tokens / smallest gap: "
+            f"exact {cmp['exact'][0]} / {cmp['exact'][1]:.3g}, B5 "
+            f"{cmp['b5'][0]} / {cmp['b5'][1]:.3g}); prefill captures after "
+            f"warm-up 0 [{card}]")
+    log(f"{label}: exact and B5 baselines equal outside ties (excluded "
+        f"{x}, smallest gap {g:.3g}) [{card}]")
+    del drafter
+    torch.cuda.empty_cache()
+    return dict(b5=base["b5"]["b5"], err=err, base=base, runs=res)
+
+
+def lstm_lm(device, seed: int = SEED):
+    """The LSTM language model at LSTM_LM's widths, compiled on ``device``
+    with random weights from ``seed``."""
+    from flexflow_tpu_torch import DataType, FFConfig, FFModel
+
+    w = LSTM_LM
+    config = FFConfig()
+    config.batch_size, config.seed = 8, seed
+    config.max_decode_len, config.max_inflight = LSTM_MAX_LEN, 8
+    ff = FFModel(config, device=device)
+    ids = ff.create_tensor((8, LSTM_MAX_LEN), dtype=DataType.DT_INT32,
+                           name="lm_ids")
+    t = ff.embedding(ids, w["vocab"], w["embed"], name="lm_embed")
+    for i in range(w["layers"]):
+        t, _state = ff.lstm(t, w["hidden"], name=f"lm_lstm{i}")
+    ff.dense(t, w["vocab"], name="lm_head")
+    ff.compile()
+    return ff
+
+
+def lstm_teacher_forced(ff, tokens, prompt_len: int):
+    """Prefill ``tokens[:prompt_len]``, then decode the rest fed the true
+    tokens through the captured decode program; the serving logits (the
+    prefill's last row, then one row a decode step)."""
+    import torch
+
+    from flexflow_tpu_torch.serving.kvcache import DecodeState
+    from flexflow_tpu_torch.serving.scheduler import (bucket_for,
+                                                      default_buckets)
+
+    ex, dev = ff.executor, ff.device
+    bucket = bucket_for(prompt_len, default_buckets(LSTM_MAX_LEN))
+    ids = np.zeros((1, bucket), np.int32)
+    ids[0, :prompt_len] = tokens[:prompt_len]
+    _lg, last, cache = ex.make_prefill_step(bucket, LSTM_MAX_LEN)(
+        ff.params, [torch.tensor(ids, device=dev)],
+        torch.tensor([prompt_len], dtype=torch.int32, device=dev))
+    state = DecodeState(caches=dict(cache), lengths=torch.tensor(
+        [prompt_len], dtype=torch.int32, device=dev))
+    decode = ex.make_decode_step(LSTM_MAX_LEN)
+    rows = [last[0]]
+    for t in range(prompt_len, len(tokens)):
+        logits, state = decode(ff.params, [torch.tensor(
+            [[tokens[t]]], dtype=torch.int32, device=dev)], state)
+        rows.append(logits[0])
+    return torch.stack(rows)
+
+
+def lstm_phase(device, card: str) -> dict:
+    """Gate (b): the LSTM language model served at NMT's widths."""
+    import torch
+
+    from flexflow_tpu_torch.serving import ServingEngine
+
+    label = "lstm lm nmt-widths fp32"
+    ff = lstm_lm(device)
+    vocab = LSTM_LM["vocab"]
+    # the refusals: prefix cache by name, chunked prefill
+    for kw in (dict(prefix_cache="on"),
+               dict(prefill_chunk_tokens=32, kv_block_size=16)):
+        try:
+            ServingEngine(ff, n_slots=8, max_decode_len=LSTM_MAX_LEN, **kw)
+        except ValueError as e:
+            if "LSTM" not in str(e):
+                fail(f"{label}: {kw} raised {e}")
+        else:
+            fail(f"{label}: {kw} did not raise ValueError")
+    # teacher-forced decode against the card's whole-sequence forward
+    rng = np.random.default_rng(SEED + 5)
+    worst, ties, scale, rows = 0.0, 0, 0.0, 0
+    for prompt_len in (24, 5):
+        tokens = rng.integers(0, vocab, 64).tolist()
+        serving = lstm_teacher_forced(ff, tokens, prompt_len)
+        full = ff.executor.forward(ff.params, [torch.tensor(
+            [tokens], dtype=torch.int32, device=device)])[0]
+        want = full[prompt_len - 1:]
+        if not bool(torch.isfinite(serving).all()):
+            fail(f"{label}: non-finite serving logits")
+        worst = max(worst, (serving - want).abs().max().item())
+        scale = max(scale, want.abs().max().item())
+        rows += want.shape[0]
+        top = want.topk(2, dim=-1).values
+        gap = (top[:, 0] - top[:, 1])
+        differ = serving.argmax(-1) != want.argmax(-1)
+        if bool((differ & (gap >= SPEC_TIE)).any()):
+            fail(f"{label}: teacher-forced greedy argmax differs from the "
+                 "forward's outside a tie")
+        ties += int((gap < SPEC_TIE).sum())
+    if not worst <= LSTM_ATOL:
+        fail(f"{label}: teacher-forced decode logits {worst} from the "
+             f"forward (> {LSTM_ATOL})")
+    log(f"{label}: teacher-forced decode logits within {worst:.3g} of the "
+        f"card's whole-sequence forward (limit {LSTM_ATOL}; the logits "
+        f"reach {scale:.3g} at random weights), greedy argmax equal "
+        f"({ties} of {rows} positions under the {SPEC_TIE} tie rule) "
+        f"[{card}]")
+    prompts = make_prompts(vocab, LSTM_LENGTHS, 0, 0)
+    warm = [make_prompts(vocab, LSTM_LENGTHS, 0, 0, s) for s in WARM_SEEDS]
+    new = E2E_NEW_TOKENS
+    runs = {}
+    for kv in ("paged", "ring"):
+        for loop in ("sync", "async"):
+            eng = ServingEngine(ff, n_slots=8, max_decode_len=LSTM_MAX_LEN,
+                                kv_cache=kv, serve_loop=loop)
+            if eng._prefix is not None:
+                fail(f"{label}: the prefix cache is on")
+            for w in warm:
+                eng.generate(w, max_new_tokens=new)
+            settle_host()
+            before = serving_captures(eng)
+            outs = eng.generate(prompts, max_new_tokens=new)
+            torch.cuda.synchronize()
+            st = eng.stats
+            r = runs[(kv, loop)] = dict(
+                outs=outs, tokens_per_s=st.tokens_per_s(),
+                p50=st.p50_token_ms(), steps=st.decode_steps,
+                captures=serving_captures(eng) - before,
+                compiles=eng.decode_compiles)
+            if r["captures"] or r["compiles"] != 1:
+                fail(f"{label} {kv} {loop}: captures {r['captures']}, "
+                     f"decode_compiles {r['compiles']}")
+            log(f"{label} {kv} {loop}: {r['tokens_per_s']:.1f} tokens/s, "
+                f"p50 {r['p50']:.3f} ms a token, {r['steps']} decode steps,"
+                f" decode_compiles 1, captures 0 after warm-up [{card}]")
+            del eng
+    first = runs[("paged", "sync")]["outs"]
+    for key, r in runs.items():
+        if r["outs"] != first:
+            fail(f"{label}: {key} streams differ from paged sync's")
+    # the port's CPU path from the same weights
+    cpu = lstm_lm("cpu")
+    cpu.set_params_numpy(ff.get_params_numpy())
+    t0 = time.perf_counter()
+    want = ServingEngine(cpu, n_slots=8,
+                         max_decode_len=LSTM_MAX_LEN).generate(
+        prompts, max_new_tokens=new)
+    cpu_s = time.perf_counter() - t0
+    x, g = equal_outside_ties(f"{label} card vs cpu", ff, prompts, want,
+                              first)
+    log(f"{label}: streams equal on paged / ring, sync / async, and the "
+        f"port's CPU path's outside ties (excluded {x}, smallest gap "
+        f"{g:.3g}; the CPU generate took {cpu_s:.1f} s) [{card}]")
+    del ff, cpu
+    torch.cuda.empty_cache()
+    return {f"{kv} {loop}": dict(tokens_per_s=r["tokens_per_s"],
+                                 p50=r["p50"])
+            for (kv, loop), r in runs.items()}
+
+
+def spans_prompts(vocab: int, seed: int) -> list:
+    """SPANS_LENGTHS' prompts, then one sharing the first's SPANS_SHARED
+    tokens."""
+    prompts = make_prompts(vocab, SPANS_LENGTHS, 0, 0, seed)
+    tail = np.random.default_rng(seed + 1000).integers(0, vocab,
+                                                       SPANS_PAIR_TAIL)
+    return prompts + [prompts[0][:SPANS_SHARED] + tail.tolist()]
+
+
+def spans_phase(device, card: str, target) -> dict:
+    """Gate (c): a traced serve's spans against its ServingStats."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from flexflow_tpu_torch import obs
+    from flexflow_tpu_torch.kernels import flash_decode as fd
+    from flexflow_tpu_torch.serving import ServingEngine
+
+    label = "spans gpt2-small fp32"
+    vocab, new = ff_vocab(target), E2E_NEW_TOKENS
+    prompts, *warm = (spans_prompts(vocab, s)
+                      for s in (SEED + 1,) + WARM_SEEDS)
+    tmp = tempfile.mkdtemp(prefix="ff_spans_")
+    res, err = {}, None
+    try:
+        for mode in ("untraced", "traced"):
+            eng = ServingEngine(target, n_slots=8,
+                                max_decode_len=E2E_MAX_DECODE_LEN,
+                                prefix_cache="on",
+                                prefill_chunk_tokens=SPANS_CHUNK_TOKENS)
+            for w in warm:
+                eng.generate(w, max_new_tokens=new)
+            settle_host()
+            obs.disable()
+            path = os.path.join(tmp, "trace.json")
+            if mode == "traced":
+                target.config.trace_file = path
+            before = serving_captures(eng)
+            fd.reset_launch_count()
+            try:
+                outs = eng.generate(prompts, max_new_tokens=new)
+                torch.cuda.synchronize()
+            finally:
+                target.config.trace_file = ""
+                obs.disable()
+            st = eng.stats
+            r = res[mode] = dict(
+                outs=outs, tokens_per_s=st.tokens_per_s(),
+                steps=st.decode_steps, prefills=st.prefills,
+                chunks=st.chunked_prefills, hits=st.prefix_hits,
+                b5=fd.launch_count("flash_decode"),
+                captures=serving_captures(eng) - before)
+            if r["b5"] != attention_layers(target) * r["steps"] or \
+                    r["captures"] or not r["chunks"] or not r["hits"]:
+                fail(f"{label} {mode}: B5 {r['b5']} over {r['steps']} "
+                     f"decode steps, captures {r['captures']}, chunks "
+                     f"{r['chunks']}, prefix hits {r['hits']}")
+            if mode == "traced":
+                r["events"] = [e for e in chrome_events(path)
+                               if e["name"] in SPANS_FIELDS]
+                err = held_decode_err(eng)
+            del eng
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    u, t = res["untraced"], res["traced"]
+    ev = t["events"]
+    count = {n: sum(e["name"] == n for e in ev) for n in SPANS_FIELDS}
+    done = sum(e["name"] == "prefill_chunk" and e["args"]["done"]
+               for e in ev)
+    if t["outs"] != u["outs"]:
+        fail(f"{label}: the traced streams differ from the untraced ones")
+    if count["prefill"] + done != t["prefills"] or \
+            count["prefill_chunk"] != t["chunks"] or \
+            count["decode_step"] != t["steps"]:
+        fail(f"{label}: spans {count} ({done} chunks done) against "
+             f"prefills {t['prefills']}, chunked_prefills {t['chunks']}, "
+             f"decode steps {t['steps']}")
+    for e in ev:
+        if set(e["args"]) != SPANS_FIELDS[e["name"]]:
+            fail(f"{label}: {e['name']} fields {sorted(e['args'])}")
+    log(f"{label}: spans {count} ({done} of the chunks finish a prefill;"
+        f" prefix_cow_clone events {count['prefix_cow_clone']}) "
+        f"= prefills {t['prefills']} / chunked_prefills {t['chunks']} / "
+        f"decode steps {t['steps']}, with the JAX fields; streams equal "
+        f"untraced; prefix hits {t['hits']}; B5 12 a decode step, captures "
+        f"0; tokens/s traced {t['tokens_per_s']:.1f} / untraced "
+        f"{u['tokens_per_s']:.1f} = {t['tokens_per_s'] / u['tokens_per_s']:.3f}"
+        f" [{card}]")
+    return dict(b5=u["b5"] + t["b5"], err=err)
+
+
+def serving13_phase(device, card: str) -> dict:
+    """Phase 13 (module doc): speculative decoding, LSTM serving and the
+    serving spans."""
+    import torch
+
+    from flexflow_tpu_torch.models.gpt2 import GPT2Config
+
+    t0 = time.perf_counter()
+    target = build_model(GPT2Config.small(), "fp32", device,
+                         E2E_MAX_DECODE_LEN)
+    spec = spec_phase(device, card, target)
+    spans = spans_phase(device, card, target)
+    del target
+    torch.cuda.empty_cache()
+    lstm = lstm_phase(device, card)
+    log(f"phase 13: {time.perf_counter() - t0:.1f} s [{card}]")
+    return dict(spec=spec, spans=spans, lstm=lstm)
+
+
 def main() -> None:
     try:
         import torch
@@ -4932,6 +5442,7 @@ def main() -> None:
     resilient = resilient_phase(device, card)
     obs = obs_phase(device, card, prompt_set)
     chaos = chaos_phase(device, card, prompt_set)
+    serving13 = serving13_phase(device, card)
 
     kernels = []
     for compute, name in (("fp32", "flash_decode"),
@@ -5098,6 +5609,21 @@ def main() -> None:
         **topk_kern[8],
         "max_abs_err": chaos["errs"]["topk"],
     })
+    # phase 13: B5 in the speculative comparison's B5 baseline and in the
+    # traced GPT-2 small serve, timed at the kernel phase's fp32 shapes;
+    # max_abs_err is held on each engine's own pools after its run
+    for name, run in (("flash_decode_spec", serving13["spec"]),
+                      ("flash_decode_spans", serving13["spans"])):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "flexflow_tpu_torch/kernels/csrc/flash_decode.cu",
+            "replaces": "flexflow_tpu/kernels/flash_decode.py:54",
+            "launches": run["b5"],
+            **kern["fp32"],
+            **dprops["flash_decode"],
+            "max_abs_err": run["err"],
+        })
     for kernel, line in (("softmax_fwd", 29), ("softmax_bwd", 38)):
         kernels.append({
             "name": kernel,

@@ -601,7 +601,11 @@ class FFConfig:
             elif a == "--circuit-open-after":
                 self.circuit_open_after = int(_next())
             elif a == "--tenant-tiers":
-                self.tenant_tiers = _next()
+                from .serving.tenancy import parse_tenant_tiers
+
+                v = _next()
+                parse_tenant_tiers(v)  # fail fast at parse time
+                self.tenant_tiers = v
             elif a == "--autoscale":
                 v = _next()
                 if v not in ("on", "off"):

@@ -630,10 +630,12 @@ class Executor:
         if fn is not None:
             return fn
         pos_guids = self._position_const_guids()
-        from ..serving.kvcache import ServingState
+        from ..serving.kvcache import ServingState, cache_leaves
         from .graphs import step_program
 
-        names: List[str] = []  # the cache's node names, in output order
+        # the cache's (node name, leaf count) in output order; 0 marks an
+        # entry that is one tensor (the LSTM carry), not a tuple
+        layout: List[Tuple[str, int]] = []
 
         def body(inputs, _seeds, params):
             import torch
@@ -654,12 +656,14 @@ class Executor:
                 values[self.final_guid][self.final_out_idx])
             idx = (lengths.long() - 1).clamp(0, logits.shape[1] - 1)
             last = logits[torch.arange(b, device=logits.device), idx]
-            names[:] = list(sv.cache_out)
+            layout[:] = [(n, len(e) if isinstance(e, tuple) else 0)
+                         for n, e in sv.cache_out.items()]
             # the leaves come out of a head transpose; contiguous, the
             # slot write's copy into its static inputs is one memcpy each,
             # not a copy kernel launched outside any graph
-            return [logits, last, *(t.contiguous() for n in names
-                                    for t in sv.cache_out[n])]
+            return [logits, last, *(t.contiguous()
+                                    for e in sv.cache_out.values()
+                                    for t in cache_leaves(e))]
 
         program = step_program(body, self.device, f"prefill_{bucket_len}",
                                capture)
@@ -672,8 +676,10 @@ class Executor:
                                                     cache=True)
                 logits, last, *leaves = program(
                     list(xs) + [lengths.to(torch.int32)], params)
-            cache = {n: (leaves[2 * i], leaves[2 * i + 1])
-                     for i, n in enumerate(names)}
+            cache, i = {}, 0
+            for n, k in layout:
+                cache[n] = leaves[i] if k == 0 else tuple(leaves[i:i + k])
+                i += max(k, 1)
             return logits, last, cache
 
         prefill.program = program
@@ -785,7 +791,7 @@ class Executor:
         if fn is not None:
             return fn
         pos_guids = self._position_const_guids()
-        from ..serving.kvcache import ServingState
+        from ..serving.kvcache import ServingState, cache_leaves
 
         def run(params, xs, state):
             """The step on compute-dtype params and inputs: the logits, and
@@ -807,7 +813,15 @@ class Executor:
                                for g in pos_guids})
                 logits = self._logits_f32(
                     values[self.final_guid][self.final_out_idx])[:, 0]
-                state.caches.update(sv.cache_out)
+                # the state is written in place: attention entries already
+                # are (their pools took the token's rows); any other entry
+                # (the LSTM carry) is copied into the state's buffer, so
+                # the program's next replay reads the advanced state
+                for name, out in sv.cache_out.items():
+                    for c, o in zip(cache_leaves(state.caches[name]),
+                                    cache_leaves(out)):
+                        if o is not c:
+                            c.copy_(o)
                 state.lengths += 1
                 if guard:
                     ok = torch.isfinite(logits).all(dim=-1)

@@ -13,6 +13,12 @@ cuDNN's RNN is not used: it follows ``torch.backends.cudnn.allow_tf32``
 carries a second bias (``b_hh``) that would take gradients. The carry
 ``(h, c)`` stays in the compute dtype, as JAX keeps it.
 
+Serving (flexflow_tpu/ops/recurrent.py:52-72, 93-108): the carry is the
+LSTM's decode state. A prefill puts ``[h, c]`` at each row's true last
+token into ``cache_out``; a decode step resumes from ``cache_in`` and puts
+the advanced carry into ``cache_out`` (the decode program copies it into
+the engine's slot-major buffer in place); a prefill chunk raises.
+
 Layout: input (batch, seq, in_dim) -> outputs (batch, seq, hidden).
 Optional second input: the initial state (batch, 2*hidden) = [h, c]
 concatenated (how the NMT decoder receives the encoder's final state).
@@ -51,14 +57,28 @@ class LSTMOp(Op):
     def forward(self, params, inputs, ctx: OpContext):
         import torch
 
-        if ctx.serving is not None:
+        sv = ctx.serving
+        if sv is not None and sv.mode == "chunk":
+            # the carry is a summary, not per-token pool rows: there is no
+            # block to share or chunk. The engine turns the prefix cache off
+            # and refuses --prefill-chunk-tokens for LSTM graphs; this is
+            # the backstop, as in the JAX op
             raise NotImplementedError(
-                f"{self.name}: LSTM serving (the recurrent carry as decode "
-                "state) is ported in a later slice")
+                f"{self.name}: chunked/prefix-cached prefill supports "
+                "attention-only stateful graphs; LSTM recurrence has no "
+                "chunk path (serve without --prefill-chunk-tokens and "
+                "with --prefix-cache off)")
         x = inputs[0]
         b, s, _ = x.shape
         h = self.attrs["hidden_size"]
-        if len(inputs) > 1:
+        if sv is not None and sv.mode == "decode" and \
+                sv.cache_in is not None and self.name in sv.cache_in:
+            # the carry IS the decode state: resume from the slot's [h, c]
+            # (which already folds a graph-given initial state through
+            # the prefill)
+            carry = sv.cache_in[self.name]
+            h_t, c_t = carry[:, :h], carry[:, h:]
+        elif len(inputs) > 1:
             h_t, c_t = inputs[1][:, :h], inputs[1][:, h:]
         else:
             h_t = torch.zeros((b, h), dtype=x.dtype, device=x.device)
@@ -70,14 +90,32 @@ class LSTMOp(Op):
         # selects would zero-fill and add s full-size grads, that of one
         # unbind stacks the s step grads once
         xproj = x.transpose(0, 1) @ params["wx"] + params["bias"]
-        ys = []
+        prefill = sv is not None and sv.mode == "prefill" and \
+            sv.lengths is not None
+        ys, cs = [], []
         for xp_t in xproj.unbind(0):
             gates = torch.addmm(xp_t, h_t, wh)
             i, f, g, o = gates.chunk(4, dim=-1)
             c_t = torch.sigmoid(f) * c_t + torch.sigmoid(i) * torch.tanh(g)
             h_t = torch.sigmoid(o) * torch.tanh(c_t)
             ys.append(h_t)
-        return [torch.stack(ys, dim=1), torch.cat([h_t, c_t], dim=-1)]
+            if prefill:
+                cs.append(c_t)
+        outputs = torch.stack(ys, dim=1)
+        final_state = torch.cat([h_t, c_t], dim=-1)
+        if prefill:
+            # right-padded prompts: the carry decode resumes from is the
+            # state at each row's last real token (lengths - 1), not at
+            # the padded tail the loop marched through; gathered on the
+            # device
+            rows = torch.arange(b, device=x.device)
+            idx = (sv.lengths.long() - 1).clamp(0, s - 1)
+            sv.cache_out[self.name] = torch.cat(
+                [outputs[rows, idx], torch.stack(cs, dim=1)[rows, idx]],
+                dim=-1)
+        elif sv is not None:
+            sv.cache_out[self.name] = final_state
+        return [outputs, final_state]
 
     def flops(self, input_shapes, output_shapes):
         b, s, d = input_shapes[0]

@@ -162,19 +162,22 @@ def poison_decode_state(state, slot: int, blocks, to_device) -> None:
     Paged layout: exactly the ``blocks`` the victim occupies (the engine
     passes ``req.kv_blocks[:ceil(cursor / bs)]``), never the GARBAGE block,
     whose rows every co-batched slot's masked reads touch. A slot with no
-    occupied block has nothing to poison. Ring layout: the slot's whole
-    ``max_len`` ring."""
-    from ..serving.kvcache import GARBAGE_BLOCK
+    occupied block has no pool row to poison. Ring layout: the slot's whole
+    ``max_len`` ring. A slot-major entry (the LSTM carry) takes the ring
+    rule on either layout: the slot's row."""
+    from ..serving.kvcache import GARBAGE_BLOCK, cache_leaves
 
-    if state.block_tables is None:
-        ids = [slot]
-    else:
-        ids = [int(b) for b in blocks if int(b) != GARBAGE_BLOCK]
-        if not ids:
-            return
-    idx = to_device(ids).long()
+    blocks = [int(b) for b in blocks if int(b) != GARBAGE_BLOCK]
+    slot_idx = block_idx = to_device([slot]).long()
+    if state.block_tables is not None:
+        block_idx = to_device(blocks).long() if blocks else None
     for entry in state.caches.values():
-        for leaf in entry:
+        leaves = cache_leaves(entry)
+        idx = block_idx if any(leaf.ndim == 4 for leaf in leaves) \
+            else slot_idx
+        if idx is None:
+            continue
+        for leaf in leaves:
             if leaf.is_floating_point():
                 leaf.index_fill_(0, idx, float("nan"))
 

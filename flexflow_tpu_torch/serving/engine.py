@@ -44,9 +44,12 @@ serving plan, ROADMAP A.8).
 
 A run publishes its counters into a ``StepTelemetry`` (``serving``,
 ``serving_prefix`` and ``serving_resilience`` blocks; ``--telemetry-file``)
-at its end, and request tracing (``obs.enable_reqtrace``) notes each chunk
-prefill beside the scheduler's notes; both are host-side and leave the
-programs as they are.
+at its end; the process tracer (``--trace-file``) gets a ``prefill``,
+``prefill_chunk`` or ``decode_step`` span per action and a
+``prefix_cow_clone`` event per clone, with the JAX engine's names and
+fields; and request tracing (``obs.enable_reqtrace``) notes each chunk
+prefill beside the scheduler's notes. All of it is host-side, written only
+when enabled, and leaves the programs as they are.
 
 Options outside this slice raise ``NotImplementedError`` naming the flag;
 none falls back quietly.
@@ -108,6 +111,11 @@ class ServingStats:
     prefill_tokens_computed: int = 0
     cache_evictions: int = 0
     queue_depth_hwm: int = 0
+    # speculative decoding (serving/speculative.py): verification rounds,
+    # drafter tokens proposed and accepted
+    spec_rounds: int = 0
+    spec_proposed: int = 0
+    spec_accepted: int = 0
     # analytic KV bytes the decode steps' attention read (each live slot's
     # occupied blocks, at the pool's layout)
     kv_bytes_read: int = 0
@@ -167,6 +175,28 @@ class ServingStats:
             return None
         return self.kv_bytes_read / self.tokens_generated
 
+    def acceptance_rate(self) -> Optional[float]:
+        """Drafter tokens accepted over proposed; None before a proposal."""
+        if not self.spec_proposed:
+            return None
+        return self.spec_accepted / self.spec_proposed
+
+    def prefix_reuse_rate(self) -> Optional[float]:
+        """Share of prefill tokens served from the prefix cache; None before
+        any prefill ran."""
+        total = self.prefix_tokens_reused + self.prefill_tokens_computed
+        if not total:
+            return None
+        return self.prefix_tokens_reused / total
+
+    def batch_occupancy(self, n_slots: int) -> float:
+        """Share of decode slot-steps that produced a kept token (1.0 =
+        every slot busy every step). First tokens come from a prefill, not
+        a decode slot, so they stay out of the numerator."""
+        denom = self.decode_steps * n_slots
+        return max(self.tokens_generated - self.prefills, 0) / denom \
+            if denom else 0.0
+
     def host_overhead_fraction(self) -> Optional[float]:
         """Share of the ticks' wall spent on host work (dispatch and
         bookkeeping) rather than on the device call and its fetch; None
@@ -195,21 +225,23 @@ class ServingStats:
             out["outcomes"] = dict(self.outcomes)
         for k in ("sheds", "deadline_misses", "quarantines",
                   "decode_retries", "drains", "replans",
-                  "drained_returned"):
+                  "drained_returned", "spec_rounds"):
             if getattr(self, k):
                 out[k] = getattr(self, k)
         kvpt = self.kv_bytes_per_token()
         if kvpt is not None:
             out["kv_bytes_per_token"] = round(kvpt, 1)
+        acc = self.acceptance_rate()
+        if acc is not None:
+            out["spec_acceptance"] = round(acc, 4)
         for k in ("prefix_hits", "prefix_tokens_reused",
                   "prefill_tokens_computed", "cache_evictions",
                   "chunked_prefills"):
             if getattr(self, k):
                 out[k] = getattr(self, k)
-        reused = self.prefix_tokens_reused + self.prefill_tokens_computed
-        if self.prefix_tokens_reused:
-            out["prefix_reuse_rate"] = round(
-                self.prefix_tokens_reused / reused, 4)
+        reuse = self.prefix_reuse_rate()
+        if reuse:
+            out["prefix_reuse_rate"] = round(reuse, 4)
         hof = self.host_overhead_fraction()
         if hof is not None:
             out["host_overhead_fraction"] = round(hof, 4)
@@ -303,8 +335,11 @@ def draw_tokens(logits, tag_counts, seed, temperature: float, top_k: int):
 
 class ServingEngine:
     """Inference engine over a compiled autoregressive FFModel (causal
-    self-attention as the only sequence-stateful op, a per-token final
-    output ``(batch, seq, vocab)``, and one integer token input)."""
+    self-attention and the LSTM as its sequence-stateful ops, a per-token
+    final output ``(batch, seq, vocab)``, and one integer token input).
+    An LSTM's carry is its decode state, one slot-major ``(n_slots, 2h)``
+    buffer; such a graph serves without the prefix cache and chunked
+    prefill."""
 
     def __init__(self, model, n_slots: Optional[int] = None,
                  max_decode_len: Optional[int] = None,
@@ -409,6 +444,22 @@ class ServingEngine:
                 f"prefill_chunk_tokens ({self.prefill_chunk_tokens}) must "
                 f"be a multiple of kv_block_size ({self.kv_block_size})")
         self._validate_graph()
+        if any(n.op.op_type == OperatorType.OP_LSTM
+               for n in self.executor.pcg.compute_nodes()):
+            # the LSTM carry is a summary, not per-token pool rows: there
+            # is no block to share or chunk (flexflow_tpu/serving/
+            # engine.py:385-402)
+            if self.prefill_chunk_tokens:
+                raise ValueError(
+                    "prefill_chunk_tokens: chunked prefill supports "
+                    "attention-only stateful graphs; this model has "
+                    "LSTM recurrence")
+            if prefix_cache == "on":
+                raise ValueError(
+                    "prefix_cache='on': prefix caching supports "
+                    "attention-only stateful graphs; this model has "
+                    "LSTM recurrence")
+            prefix_mode = "off"
         self.max_context = position_context_bound(self.executor,
                                                   self.max_decode_len)
         self.block_allocator = None
@@ -443,8 +494,9 @@ class ServingEngine:
         # per guard mode, (decode program, its capture count) when this
         # engine's pools were made: decode_compiles counts from there
         self._decode_captures0: Dict[bool, Any] = {}
-        # the attention nodes' names, in the prefill cache's order
-        self._paged_entry_names: List[str] = []
+        # the state's attention K/V entries (pooled or ringed; the rest,
+        # the LSTM carries, are slot-major)
+        self._paged_entry_names: set = set()
         self._staging = _HostStaging(self.device)
         # the slot-write programs, over this engine's pools (_slot_program)
         self._slot_programs: Dict[str, Any] = {}
@@ -487,12 +539,6 @@ class ServingEngine:
                 + "; ".join(folded) + "); the serving engine cannot thread "
                 "decode state through it. Recompile without --fusion to "
                 "serve")
-        for node in pcg.compute_nodes():
-            if node.op.op_type == OperatorType.OP_LSTM:
-                raise NotImplementedError(
-                    f"{node.name}: LSTM serving, ported in a later slice "
-                    "of flexflow_tpu_torch (the recurrent carry as decode "
-                    "state); this slice serves causal-attention graphs")
         final = pcg.nodes[self.executor.final_guid]
         out = final.out_shapes[self.executor.final_out_idx]
         if len(out) != 3:
@@ -581,18 +627,28 @@ class ServingEngine:
         ``(kv_pool_blocks, h, block_size)`` f32 scale array, the entry
         ``(kq, kscale, vq, vscale)``) and all-garbage block tables. Ring:
         one zero ``(n_slots, h, max_len, hd)`` ring per K and V and no
-        tables. Zero cursors either way."""
+        tables. Any other entry (the LSTM carry ``(1, 2h)``) gets a zero
+        slot-major buffer ``(n_slots, 2h)`` in its own dtype on either
+        layout; an int8 pool never quantizes it
+        (flexflow_tpu/serving/engine.py:802-850). Zero cursors either
+        way."""
         import torch
 
-        from .kvcache import paged_pool_entry, ring_entry
+        from .kvcache import is_kv_entry, paged_pool_entry, ring_entry
 
         if self.state is not None:
             return
         n = self.n_slots
         with torch.inference_mode():
             caches = {}
-            self._paged_entry_names = list(prefill_cache)
-            for name, (kc, vc) in prefill_cache.items():
+            self._paged_entry_names = {name for name, e in
+                                       prefill_cache.items()
+                                       if is_kv_entry(e)}
+            for name, entry in prefill_cache.items():
+                if name not in self._paged_entry_names:
+                    caches[name] = entry.new_zeros((n,) + entry.shape[1:])
+                    continue
+                kc, vc = entry
                 if not self._paged:
                     caches[name] = tuple(ring_entry(c, n,
                                                     self.max_decode_len)
@@ -646,18 +702,24 @@ class ServingEngine:
     def _slot_write_body(self, inputs, _seeds, state, last_tokens):
         """``meta`` = [slot, length, table row...] (paged) or [slot,
         length] (ring), ``token (1,)`` and, for an inserted prefill, its
-        k/v rows per node: scatter the rows into the row's blocks
+        state leaves per entry: scatter the k/v rows into the row's blocks
         (quantized with their scales into an int8 pool) or insert them
-        into the slot's ring with the rest zeroed, then set the slot's
-        table row, length cursor and pending token."""
+        into the slot's ring with the rest zeroed, copy a carry into the
+        slot's row, then set the slot's table row, length cursor and
+        pending token."""
         from .kvcache import scatter_prefill_paged, update_slot_entry
 
         meta, token, *leaves = inputs
         slot, row = meta[0:1].long(), meta[2:]
         bs = self.kv_block_size
-        for i, name in enumerate(self._paged_entry_names if leaves else ()):
-            kc, vc = leaves[2 * i], leaves[2 * i + 1]
-            entry = state.caches[name]
+        i = 0
+        for name, entry in state.caches.items() if leaves else ():
+            if name not in self._paged_entry_names:
+                entry.index_copy_(0, slot, leaves[i].to(entry.dtype))
+                i += 1
+                continue
+            kc, vc = leaves[i], leaves[i + 1]
+            i += 2
             if state.block_tables is None:
                 update_slot_entry(entry[0], kc, slot)
                 update_slot_entry(entry[1], vc, slot)
@@ -677,13 +739,16 @@ class ServingEngine:
     def _write_slot(self, cache, slot: int, length: int, token,
                     table_row: Optional[np.ndarray]) -> None:
         """Insert one prefilled request into the decode batch: scatter its
-        k/v rows into its blocks (or its ring), set its table row, length
+        k/v rows into its blocks (or its ring), copy its carries into the
+        slot's rows, set its table row, length
         cursor and pending first token — in place. ``token`` is the
         sampler's (1,) device tensor, or a host int; ``table_row`` is None
         for the ring."""
+        from .kvcache import cache_leaves
+
         self._arm_slot(slot, length, token, table_row,
-                       [t for name in self._paged_entry_names
-                        for t in cache[name]])
+                       [t for name in self.state.caches
+                        for t in cache_leaves(cache[name])])
 
     def _set_slot_meta(self, slot: int, length: int, token,
                        table_row: np.ndarray) -> None:
@@ -753,13 +818,16 @@ class ServingEngine:
         has one shape."""
         import torch
 
-        if self.state is None:
+        if self.state is None or not self._paged_entry_names:
             return
         ids = np.zeros((self.max_blocks_per_slot,), np.int32)
         ids[:len(blocks)] = blocks
+        # the pooled entries only: a block id does not index a carry
+        pools = {n: e for n, e in self.state.caches.items()
+                 if n in self._paged_entry_names}
         with torch.inference_mode():
             self._slot_program("scrub", self._scrub_body)(
-                [self._ids(ids)], self.state.caches)
+                [self._ids(ids)], pools)
 
     def _cow_clone(self, src: int, dst: int) -> None:
         """Copy-on-write: duplicate pool block ``src`` into ``dst`` in every
@@ -1295,6 +1363,9 @@ class _ServeLoop:
         stats.prefill_tokens_computed += eff
         stats.record_token(wall)
         stats.tokens_generated += 1
+        if self.tracer.enabled:
+            self.tracer.complete("prefill", wall, rid=req.rid, bucket=bucket,
+                                 slot=slot, prompt_len=eff)
         if not sched.commit_token(slot, tok):
             eng._write_slot(cache, slot, eff, toks,
                             eng._table_row_for(req) if eng._paged else None)
@@ -1315,6 +1386,9 @@ class _ServeLoop:
             src, dst = req.pending_cow
             eng._cow_clone(src, dst)
             sched.release_cow(req)
+            if self.tracer.enabled:
+                self.tracer.event("prefix_cow_clone", rid=req.rid,
+                                  slot=slot, src=src, dst=dst)
         cur = req.current_prompt()
         ids = np.zeros((1, shape), np.int32)
         ids[0, :n] = cur[start:start + n]
@@ -1327,6 +1401,10 @@ class _ServeLoop:
         stats.chunked_prefills += 1
         done = sched.chunk_done(slot, n)
         wall = time.perf_counter() - t_p
+        if self.tracer.enabled:
+            self.tracer.complete("prefill_chunk", wall, rid=req.rid,
+                                 slot=slot, start=start, tokens=n,
+                                 hit=req.prefix_hit_tokens, done=done)
         if sched.rt.enabled:
             sched.rt.note(req.rid, "chunk", float(sched.clock()),
                           start=start, tokens=n)
@@ -1421,6 +1499,10 @@ class _ServeLoop:
             stats.tokens_generated += 1
             stats.record_token(wall)
             sched.commit_token(slot, int(toks_host[slot]))
+        if self.tracer.enabled:
+            self.tracer.complete("decode_step", wall,
+                                 step=stats.decode_steps,
+                                 live_slots=len(live))
 
     def _tick_decode(self, t_tick: float, live) -> bool:
         """One decode step for every live slot, synchronously: chaos hooks,

@@ -110,6 +110,20 @@ class DecodeState:
         return int(self.lengths.shape[0])
 
 
+def cache_leaves(entry) -> Tuple[Any, ...]:
+    """The tensors of one cache entry: a K/V entry's tuple as it is, the
+    LSTM carry (one ``(batch, 2h)`` tensor) as a 1-tuple."""
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def is_kv_entry(entry) -> bool:
+    """Attention K/V entries are tuples of 4-D leaves (the prefill's ``(1,
+    h, L, hd)`` rows, the pools, the rings): the pageable kind. Anything
+    else (the LSTM carry ``(1, 2h)``) is kept slot-major."""
+    return isinstance(entry, tuple) and bool(entry) and all(
+        getattr(leaf, "ndim", 0) == 4 for leaf in entry)
+
+
 def parse_context_buckets(spec) -> Tuple[int, ...]:
     """Normalize a ``--context-buckets`` spec ("1024,4096" or an int
     sequence) into a validated ascending tuple (copied from the JAX

@@ -74,6 +74,22 @@ class AdmissionController:
         self._ewma_token_ms: Optional[float] = None
         self.observed_steps = 0
         self.force_token_cost_ms: Optional[float] = None
+        # speculative decoding: the acceptance rate's EWMA (None until a
+        # round proposed something). The cost side needs nothing apart: a
+        # round reports (wall, tokens committed) through observe_step
+        self.spec_acceptance: Optional[float] = None
+
+    def observe_speculation(self, accepted: int, proposed: int) -> None:
+        """Feed one verification round's (accepted, proposed) draft counts
+        into the acceptance EWMA, with the cost model's alpha."""
+        if proposed <= 0:
+            return
+        rate = accepted / proposed
+        if self.spec_acceptance is None:
+            self.spec_acceptance = rate
+        else:
+            self.spec_acceptance += self.alpha * (rate -
+                                                  self.spec_acceptance)
 
     @property
     def token_cost_ms(self) -> float:

@@ -12,8 +12,9 @@
   serving chaos and the serving-resilience flags, refused before their
   slice, serve. So does every training option
   outside this slice, at ``fit``, every flag that ``compile`` or the
-  serving engine would otherwise parse and ignore, and an LSTM graph in
-  the serving engine. ``--profile-ops``, ``FFModel.profile_operators`` and
+  serving engine would otherwise parse and ignore. An LSTM graph serves,
+  and the engine refuses its prefix cache and chunked prefill by name.
+  ``--profile-ops``, ``FFModel.profile_operators`` and
   ``obs.start_server`` refuse, naming themselves. The recurrent and MoE
   builders and ``FFModel.cache``, which refused by name before their
   slices, build the JAX package's ops; the observability flags
@@ -272,6 +273,10 @@ def test_engine_takes_serving_resilience_flags_given_on_the_command_line(
 
 
 def test_engine_refuses_an_lstm_graph_by_name():
+    """An LSTM graph serves since its slice; what the JAX engine refuses
+    for it (the prefix cache by name, chunked prefill) the port refuses
+    with the same ``ValueError`` naming the LSTM, and nothing falls back
+    quietly."""
     c = ft.FFConfig()
     c.batch_size = 2
     ff = ft.FFModel(c, device="cpu")
@@ -279,9 +284,14 @@ def test_engine_refuses_an_lstm_graph_by_name():
     t, _state = ff.lstm(ff.embedding(ids, 30, 8), 8, name="lm_lstm")
     ff.dense(t, 30)
     ff.compile()
-    with pytest.raises(NotImplementedError, match="LSTM serving") as e:
-        ServingEngine(ff, max_decode_len=16)
-    assert "lm_lstm" in str(e.value) and LATER in str(e.value)
+    with pytest.raises(ValueError, match="LSTM recurrence"):
+        ServingEngine(ff, max_decode_len=16, prefix_cache="on")
+    with pytest.raises(ValueError, match="LSTM recurrence"):
+        ServingEngine(ff, max_decode_len=16, kv_block_size=8,
+                      prefill_chunk_tokens=8)
+    eng = ServingEngine(ff, max_decode_len=16)
+    assert eng._prefix is None
+    assert len(eng.generate([[1, 2, 3]], max_new_tokens=3)[0]) == 3
 
 
 # ------------------------------------------------ out-of-slice fit options

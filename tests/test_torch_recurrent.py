@@ -18,7 +18,9 @@ the CPU.
   relative and every grad within 1e-4 relative norm, then one
   ``make_train_step`` (SGD 0.1) in each package: the loss, and the
   params after it within 1e-5.
-* An LSTM graph is refused by the serving engine by name.
+* An LSTM graph serves; the engine refuses its prefix cache and chunked
+  prefill by name (``tests/test_torch_lstm_serving.py`` holds the served
+  streams against the JAX engine).
 """
 import numpy as np
 import pytest
@@ -112,6 +114,10 @@ def test_nmt_tiny_loss_grads_and_one_step_match_jax():
 
 
 def test_lstm_graph_is_refused_by_the_engine():
+    """Since the port serves LSTM graphs, the engine refuses only what the
+    JAX engine refuses for them: the prefix cache asked for by name and
+    chunked prefill (``ValueError`` naming LSTM). Left at its default, the
+    prefix cache is off and the graph serves."""
     c = ft.FFConfig()
     c.batch_size = 2
     ff = ft.FFModel(c, device="cpu")
@@ -120,6 +126,10 @@ def test_lstm_graph_is_refused_by_the_engine():
     t, _ = ff.lstm(t, 8, name="lm_lstm")
     ff.dense(t, 20)
     ff.compile()
-    with pytest.raises(NotImplementedError,
-                       match="LSTM serving, ported in a later slice"):
-        ff.generate([[1, 2, 3]], max_new_tokens=2, max_decode_len=8)
+    with pytest.raises(ValueError, match="LSTM"):
+        ft.serving.ServingEngine(ff, max_decode_len=8, prefix_cache="on")
+    with pytest.raises(ValueError, match="LSTM"):
+        ft.serving.ServingEngine(ff, max_decode_len=8, kv_block_size=4,
+                                 prefill_chunk_tokens=4)
+    out = ff.generate([[1, 2, 3]], max_new_tokens=2, max_decode_len=8)
+    assert len(out[0]) == 2 and ff._serving_engine._prefix is None

@@ -16,8 +16,9 @@ arrival, one step behind dispatch. The sync loop is the reference:
 * the port's async greedy streams equal the JAX engine's greedy streams
   from the same weights (``set_params_numpy``).
 
-Speculative decoding and the fleet come in later slices; serving under
-failure has its own files (``test_torch_serving_resilience*.py``).
+Speculative decoding (``test_torch_speculative.py``, against both loops)
+and serving under failure (``test_torch_serving_resilience*.py``) have
+their own files; the fleet comes in a later slice.
 """
 import numpy as np
 import pytest

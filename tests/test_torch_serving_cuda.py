@@ -310,3 +310,163 @@ def test_guarded_decode_streams_equal_unguarded(kv_dtype):
     # logits (exact decode makes it token-identical, on the CPU tests)
     assert sum(a != b for a, b in zip(poisoned, out[False])) <= 1
     assert _captures(eng) == before
+
+
+# --------------------------------------------- LSTM serving, speculation
+LSTM_WIDTH = 128
+# greedy streams of two paths may part only where the forward's top-2
+# logit gap is under this (both paths are fp32; they differ in summation
+# order only)
+STREAM_TIE = 1e-4
+
+
+def _lstm_lm(dev):
+    config = ft.FFConfig()
+    config.batch_size, config.seed = 2, 42
+    ff = ft.FFModel(config, device=dev)
+    ids = ff.create_tensor((2, MAX_LEN), dtype=ft.DataType.DT_INT32)
+    t = ff.embedding(ids, VOCAB, LSTM_WIDTH)
+    for _ in range(2):
+        t, _state = ff.lstm(t, LSTM_WIDTH)
+    ff.dense(t, VOCAB)
+    ff.compile()
+    return ff
+
+
+def _lstm_names(ff):
+    return [n.name for n in ff.executor.pcg.compute_nodes()
+            if n.op.op_type == ft.OperatorType.OP_LSTM]
+
+
+def _parts_only_at_ties(ff, prompts, want, got):
+    """``got`` equals ``want`` stream by stream, or parts from it at a
+    position where ``ff``'s forward has a top-2 gap under STREAM_TIE."""
+    for p, a, b in zip(prompts, want, got):
+        assert len(a) == len(b)
+        i = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is None:
+            continue
+        seq = list(p) + list(b[:i + 1])
+        full = ff.executor.forward(ff.params, [torch.tensor(
+            [seq], dtype=torch.int32, device=ff.device)])[0]
+        top = full[len(seq) - 2].topk(2).values
+        assert float(top[0] - top[1]) < STREAM_TIE, (i, a, b)
+
+
+@pytest.mark.cuda
+def test_lstm_decode_program_advances_the_carry_in_place():
+    """The captured decode program of a two-layer LSTM LM: its first call
+    is eager, its second captures, its third replays; each advances the
+    slot-major carry buffers in place (the state keeps the same tensors)
+    to what the eager body gives from the same carry, and the program
+    captures once."""
+    dev = _cuda()
+    ff = _lstm_lm(dev)
+    names = _lstm_names(ff)
+    ex = ff.executor
+    prog = ex.make_decode_step(MAX_LEN)
+    eager = ex.make_decode_step(MAX_LEN, capture=False)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    bufs = {n: torch.randn((3, 2 * LSTM_WIDTH), generator=gen, device=dev)
+            for n in names}
+    state = DecodeState(caches=dict(bufs), lengths=torch.zeros(
+        3, dtype=torch.int32, device=dev))
+    ref = DecodeState(caches={n: b.clone() for n, b in bufs.items()},
+                      lengths=torch.zeros(3, dtype=torch.int32, device=dev))
+    rng = np.random.default_rng(4)
+    for _ in range(3):
+        before = {n: b.clone() for n, b in bufs.items()}
+        x = _ids(dev, rng.integers(1, VOCAB, (3, 1)))
+        lg, state = prog(ff.params, [x], state)
+        rlg, ref = eager(ff.params, [x], ref)
+        assert (lg - rlg).abs().max().item() <= PROGRAM_TOL
+        for n in names:
+            assert state.caches[n] is bufs[n]
+            assert not torch.equal(bufs[n], before[n])
+            assert (bufs[n] - ref.caches[n]).abs().max().item() <= \
+                PROGRAM_TOL
+    assert prog.program.captures == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["paged", "ring"])
+def test_lstm_streams_on_card_equal_cpu(kv):
+    """An LSTM LM served on the card: sync and async streams equal, no
+    capture after warm-up, ``decode_compiles`` 1, the prefix cache off;
+    and the streams of the port's CPU path from the same weights, outside
+    ties."""
+    dev = _cuda()
+    ff = _lstm_lm(dev)
+    cpu = _lstm_lm(torch.device("cpu"))
+    cpu.set_params_numpy(ff.get_params_numpy())
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(1, VOCAB, n).tolist() for n in (5, 17, 3, 30,
+                                                            9)]
+    outs = {}
+    for loop in ("sync", "async"):
+        eng = ServingEngine(ff, max_decode_len=MAX_LEN, n_slots=3,
+                            kv_cache=kv, serve_loop=loop)
+        assert eng._prefix is None
+        for seed in (100, 101):
+            r = np.random.default_rng(seed)
+            eng.generate([r.integers(1, VOCAB, len(p)).tolist()
+                          for p in prompts], max_new_tokens=12)
+        before = _captures(eng)
+        outs[loop] = eng.generate(prompts, max_new_tokens=12)
+        torch.cuda.synchronize()
+        assert _captures(eng) == before and eng.decode_compiles == 1
+    assert outs["sync"] == outs["async"]
+    want = ServingEngine(cpu, max_decode_len=MAX_LEN, n_slots=3,
+                         kv_cache=kv).generate(prompts, max_new_tokens=12)
+    _parts_only_at_ties(ff, prompts, want, outs["sync"])
+
+
+@pytest.mark.cuda
+def test_speculative_on_card_equals_the_exact_baseline():
+    """Greedy speculative decoding on the card (the file's GPT-2 as
+    target, a one-layer width-64 drafter): streams equal the exact-decode
+    baseline's outside ties, the perfect drafter accepts every proposal
+    but at tied positions and commits more tokens than it runs rounds, and
+    nothing captures after warm-up."""
+    from flexflow_tpu_torch.serving import SpeculativeDecoder
+
+    dev = _cuda()
+    ff = _gpt2(dev)
+    config = ft.FFConfig()
+    config.batch_size, config.seed = 2, 7
+    drafter = ft.FFModel(config, device=dev)
+    build_gpt2(drafter, GPT2Config(batch_size=2, seq_len=MAX_LEN, hidden=64,
+                                   num_heads=2, num_layers=1,
+                                   intermediate=128, vocab_size=VOCAB))
+    drafter.compile()
+
+    def prompts_of(seed):
+        r = np.random.default_rng(seed)
+        return [r.integers(1, VOCAB, n).tolist() for n in (5, 17, 30, 9)]
+
+    prompts = prompts_of(7)
+    base = ServingEngine(ff, max_decode_len=MAX_LEN, n_slots=3,
+                         exact_decode=True, prefix_cache="off").generate(
+        prompts, max_new_tokens=16)
+
+    def captures():
+        return sum(getattr(fn, "program", None).captures
+                   for m in (ff, drafter)
+                   for fn in m.executor._serving_fns.values()
+                   if getattr(fn, "program", None) is not None)
+
+    for d in (drafter, ff):
+        for seed in (100, 101):
+            SpeculativeDecoder(ff, d, gamma=4, max_context=MAX_LEN).generate(
+                prompts_of(seed), max_new_tokens=16)
+        before = captures()
+        spec = SpeculativeDecoder(ff, d, gamma=4, max_context=MAX_LEN)
+        outs = spec.generate(prompts, max_new_tokens=16)
+        torch.cuda.synchronize()
+        assert captures() == before
+        _parts_only_at_ties(ff, prompts, base, outs)
+        st = spec.stats
+        assert st.tokens_generated == 64 and st.spec_rounds > 0
+        if d is ff:
+            assert st.spec_rounds < st.tokens_generated
+            assert st.spec_accepted >= st.spec_proposed - 1
