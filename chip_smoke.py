@@ -328,6 +328,7 @@ exits 1 and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1352,6 +1353,8 @@ BF16_FLOPS = 989e12
 # do
 FA_SHAPES = {
     "bert": dict(b=8, h=16, sq=512, sk=512, d=64, causal=False),
+    # a tensor-parallel rank's share of the BERT shape at tp = 2 (phase 14)
+    "bert_tp2": dict(b=8, h=8, sq=512, sk=512, d=64, causal=False),
     "gpt2": dict(b=8, h=12, sq=512, sk=512, d=64, causal=True),
     "long": dict(b=1, h=12, sq=16384, sk=16384, d=64, causal=True),
 }
@@ -1663,14 +1666,17 @@ def fa_kernel_phase(device, card: str):
 # ------------------------------------------------------------ training phase
 def train_model(kind: str, compute: str, device, seq: int = 512,
                 batch: int = 8, softmax_kernel: bool = False,
-                fusion: bool = False):
+                fusion: bool = False, strategy_fn=None,
+                num_layers: int = 0):
     """A model the port trains, as a user builds it: the BERT-Large proxy
     (``bench.py``'s flagship config) or GPT-2 small with a softmax head and
     token-level labels; Adam, sparse categorical cross-entropy; random
     weights from the seed. ``softmax_kernel``: GPT-2 small at vocab 50304
     with the head's softmax opted into the row-softmax kernel
     (``ff.softmax(logits, use_pallas=True)``). ``--profiling`` records
-    each step's wall; ``fusion`` compiles with ``--fusion``."""
+    each step's wall; ``fusion`` compiles with ``--fusion``;
+    ``strategy_fn`` compiles for a device mesh (phase 14); ``num_layers``
+    cuts BERT's depth (its widths stay)."""
     from flexflow_tpu_torch import (AdamOptimizer, DataType, FFConfig,
                                     FFModel, LossType, MetricsType)
     from flexflow_tpu_torch.models.bert import BertConfig, build_bert
@@ -1686,6 +1692,8 @@ def train_model(kind: str, compute: str, device, seq: int = 512,
     metrics = []
     if kind == "bert":
         cfg = BertConfig.large()
+        if num_layers:
+            cfg.num_layers = num_layers
         build_bert(ff, cfg)
         metrics = [MetricsType.METRICS_ACCURACY]
     else:
@@ -1696,7 +1704,7 @@ def train_model(kind: str, compute: str, device, seq: int = 512,
         ff.softmax(logits, use_pallas=softmax_kernel)
     ff.compile(optimizer=AdamOptimizer(ff, alpha=1e-4),
                loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
-               metrics=metrics)
+               metrics=metrics, strategy_fn=strategy_fn)
     return ff, cfg
 
 
@@ -1949,17 +1957,20 @@ def profiled(fn) -> dict:
         fn()
         torch.cuda.synchronize()
     busy_ns = ops = kernel_calls = graph_calls = 0
+    nccl = set()
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == DeviceType.CUDA:
             busy_ns += e.duration_ns()
             ops += 1
+            if "nccl" in e.name().lower():
+                nccl.add(e.name())
         else:
             name = e.name()
             kernel_calls += "LaunchKernel" in name
             graph_calls += "GraphLaunch" in name
     return dict(busy_ms=busy_ns / 1e6, device_ops=ops,
                 kernel_launch_calls=kernel_calls,
-                graph_launch_calls=graph_calls)
+                graph_launch_calls=graph_calls, nccl_kernels=sorted(nccl))
 
 
 def replay_ms(program, iters: int = 3) -> float:
@@ -5367,6 +5378,470 @@ def serving13_phase(device, card: str) -> dict:
     return dict(spec=spec, spans=spans, lstm=lstm)
 
 
+# ------------------------------------------------------- mesh (phase 14)
+# phase 14: strategies on a device mesh. (a) the BERT-Large proxy (bf16,
+# Adam) under hybrid_data_tensor_strategy(dp=1, tp=1) on a (1, 1) mesh over
+# a real NCCL group of one, synchronous and with --collective-overlap on,
+# against the one-device path: the loss and the params after the same
+# steps within phase 10's band (BAND_FACTOR times the spread of
+# uninterrupted one-device runs of this call); (b) tp = 2 x dp = 2 on the
+# one card through torch's threaded process group, a test harness whose
+# collectives are copies, never the main path (BERT-Large's widths, depth
+# cut to MESH_THREADED_LAYERS); (c) four gloo ranks on the host's CPU, the
+# tiny BERT under dp = 2 x tp = 2 against the one-device port. The phase's
+# stated wall: MESH_WALL_S.
+MESH_STEPS, MESH_WARMUP = 6, 2
+MESH_SPREAD_RUNS = 3
+MESH_THREADED_LAYERS = 2
+MESH_WALL_S = 60.0
+# (b): the loss and the grads' relative norm error against the one-device
+# port on the card: bf16 B2 sums dQ in no fixed order, and the shards'
+# GEMMs sum in another order than the whole one's (the sums that cross
+# ranks are fp32, rounded once)
+MESH_THREADED_TOL = 2e-2
+# (c): fp32 on the CPU, the two sides differ in summation order only
+MESH_GLOO_TOL = 1e-5
+
+
+def flash_heads(heads: list):
+    """A context in which every B1 / B2 launch appends the number of heads
+    it saw to ``heads`` (the mesh runs' check that the kernels ran on a
+    rank's local heads; safe under the threaded ranks)."""
+    import contextlib
+    import threading
+
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    @contextlib.contextmanager
+    def ctx():
+        lock = threading.Lock()
+        orig = fa._launch_fwd, fa._launch_bwd_kv
+
+        def seen(fn):
+            def wrapped(qs, *a, **kw):
+                with lock:
+                    heads.append(qs.shape[1])
+                return fn(qs, *a, **kw)
+            return wrapped
+
+        fa._launch_fwd, fa._launch_bwd_kv = seen(orig[0]), seen(orig[1])
+        try:
+            yield heads
+        finally:
+            fa._launch_fwd, fa._launch_bwd_kv = orig
+
+    return ctx()
+
+
+def mesh_run(ff, x, y, snap, measure: bool) -> dict:
+    """One fit of ``ff`` over (x, y) from the state ``snap`` (in place, so
+    the captured program keeps its tensors): the losses, p50 step ms after
+    the warm-up, peak memory above what was allocated before the fit
+    (warm-up and capture included; the phase keeps clones of earlier
+    runs' params), B1/B2 launches a step, the params after the run, the
+    program's captures and (``measure``) one more step (a replay) under
+    the profiler with its own peak above the state, and the collectives
+    one eager step issues (``CommDebugMode``; on a mesh, the NCCL group's
+    backend)."""
+    import torch
+
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    for t, v in zip(state_tensors(ff), snap):
+        t.copy_(v)
+    ff._rng_counter = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fa.reset_launch_count()
+    ff.fit([x], y, epochs=1)
+    torch.cuda.synchronize()
+    n = len(ff.fit_history.loss)
+    res = dict(losses=list(ff.fit_history.loss),
+               p50_ms=float(np.median(ff.fit_history.step_s[MESH_WARMUP:]))
+               * 1e3,
+               peak_gb=(torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+               totals={k: fa.launch_count(k) for k in
+                       ("flash_fwd", "flash_bwd_fused")},
+               params=param_list(ff))
+    res["counts"] = {k: c // n for k, c in res["totals"].items()}
+    if measure:
+        from torch.distributed.tensor.debug import CommDebugMode
+
+        b = ff.config.batch_size
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        res.update(profiled(lambda: ff.fit([x[:b]], y[:b], epochs=1)))
+        res["replay_peak_gb"] = (torch.cuda.max_memory_allocated()
+                                 - base) / 2 ** 30
+        step = ff.executor.make_train_step(capture=False)
+        xs, lab = ff.executor.local_batch([x[:b], ff._prep_label(y[:b])])
+        with CommDebugMode() as comm:
+            step(ff.params, ff.opt_state,
+                 [torch.from_numpy(xs).to(ff.device)],
+                 torch.from_numpy(lab).to(ff.device), None)
+        torch.cuda.synchronize()
+        res["collectives"] = {str(k): int(v) for k, v in
+                              comm.get_comm_counts().items()}
+        if ff.mesh is not None:
+            import torch.distributed as dist
+
+            res["backend"] = str(dist.get_backend(ff.mesh.groups[0]))
+    res["captures"] = ff.executor.make_train_step().program.captures
+    return res
+
+
+def mesh_nccl(device, card: str) -> dict:
+    """(a): the mesh path at full width over NCCL, world size 1."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch.parallel.strategies import \
+        hybrid_data_tensor_strategy
+
+    tmp = tempfile.mkdtemp(prefix="ff_mesh_")
+    dist.init_process_group(
+        "nccl", init_method=f"file://{tmp}/pg", rank=0, world_size=1,
+        device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        ff, cfg = train_model("bert", "bf16", device)
+        ff.config.print_freq = 10 ** 9
+        x, y = train_data("bert", cfg,
+                          cfg.batch_size * (MESH_WARMUP + MESH_STEPS))
+        init = param_list(ff)
+        snap = [t.clone() for t in state_tensors(ff)]
+        plain = [mesh_run(ff, x, y, snap, measure=i == 0)
+                 for i in range(MESH_SPREAD_RUNS)]
+        del ff, snap
+        torch.cuda.empty_cache()
+        ff, _ = train_model(
+            "bert", "bf16", device, strategy_fn=lambda pcg:
+            hybrid_data_tensor_strategy(pcg, dp=1, tp=1))
+        ff.config.print_freq = 10 ** 9
+        if ff.mesh is None or tuple(ff.mesh.sizes) != (1, 1):
+            fail("mesh bert: compile under hybrid(1, 1) built no (1, 1) "
+                 "mesh")
+        if not all(torch.equal(a, b) for a, b in zip(param_list(ff), init)):
+            fail("mesh bert: the mesh path's initial weights differ from "
+                 "the one-device path's (same seed)")
+        snap = [t.clone() for t in state_tensors(ff)]
+        runs = {"sync": mesh_run(ff, x, y, snap, measure=True)}
+        ff.config.collective_overlap = "on"
+        ff.executor.invalidate_jit_cache()
+        runs["overlap"] = mesh_run(ff, x, y, snap, measure=True)
+        del ff, snap
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    finals = [r["params"] for r in plain]
+    spread = max(pair_diffs(finals, init))
+    band = band_of(spread)
+    loss_spread = max(abs(a - b) for i, r in enumerate(plain)
+                      for q in plain[i + 1:]
+                      for a, b in zip(r["losses"], q["losses"]))
+    top = max(abs(v) for v in plain[0]["losses"])
+    loss_band = BAND_FACTOR * max(loss_spread, BAND_FLOOR * top)
+    p = plain[0]
+    log(f"mesh bert plain: p50 {p['p50_ms']:.3f} ms over {MESH_STEPS} "
+        f"steps after {MESH_WARMUP}, idle share "
+        f"{1 - p['busy_ms'] / p['p50_ms']:.4f}, host launch calls "
+        f"{p['kernel_launch_calls']} kernel / {p['graph_launch_calls']} "
+        f"graph, peak {p['peak_gb']:.3f} GiB above the state; "
+        f"{MESH_SPREAD_RUNS} runs: "
+        f"spread {spread:.3g} of the params' change, band {band:.3g}; "
+        f"loss spread {loss_spread:.3g}, band {loss_band:.3g} [{card}]")
+    res = dict(plain=p, band=band, spread=spread)
+    for name, r in runs.items():
+        dparams = update_rel(r["params"], finals[0], init)
+        dloss = max(abs(a - b) for a, b in zip(r["losses"], p["losses"]))
+        log(f"mesh bert nccl {name} (hybrid dp=1 tp=1, mesh (1, 1)): p50 "
+            f"{r['p50_ms']:.3f} ms (plain {p['p50_ms']:.3f}), idle share "
+            f"{1 - r['busy_ms'] / r['p50_ms']:.4f}, host launch calls "
+            f"{r['kernel_launch_calls']} kernel / {r['graph_launch_calls']}"
+            f" graph, peak {r['peak_gb']:.3f} GiB above the state over "
+            f"the fit (plain {p['peak_gb']:.3f}), {r['replay_peak_gb']:.3f} "
+            f"GiB a replay (plain {p['replay_peak_gb']:.3f}), captures "
+            f"{r['captures']}, flash launches a step {r['counts']}; an eager "
+            f"step's collectives {r['collectives']} on {r['backend']}, NCCL "
+            f"kernels in the profiled replay {r['nccl_kernels']} (a "
+            f"one-rank in-place sum runs none); vs plain after "
+            f"{len(r['losses'])} steps: params {dparams:.3g} (band "
+            f"{band:.3g}), loss {dloss:.3g} (band {loss_band:.3g}) "
+            f"[{card}]")
+        if r["counts"] != {"flash_fwd": 24, "flash_bwd_fused": 24}:
+            fail(f"mesh bert {name}: flash launches a step {r['counts']}, "
+                 "want 24 B1 + 24 B2")
+        if r["captures"] != 1:
+            fail(f"mesh bert {name}: {r['captures']} captures, want 1 (no "
+                 "capture after warm-up)")
+        if r["backend"] != "nccl" or \
+                r["collectives"].get("c10d.allreduce_", 0) < 1:
+            fail(f"mesh bert {name}: the step issued no NCCL all-reduce "
+                 f"({r['collectives']} on {r['backend']})")
+        if not (dparams <= band and dloss <= loss_band):
+            fail(f"mesh bert {name}: outside the band of the plain path")
+        res[name] = dict(r, dparams=dparams, dloss=dloss)
+        del res[name]["params"]
+    del res["plain"]["params"]
+    return res
+
+
+def mesh_threaded(device, card: str) -> dict:
+    """(b): tp = 2 x dp = 2, four ranks as threads on the one card, one
+    train step against the one-device port on the same weights and batch;
+    every B1 / B2 launch must see the rank's 8 local heads."""
+    import threading
+
+    import torch
+    import torch.distributed as dist
+    import torch.testing._internal.distributed.multi_threaded_pg as mtpg
+
+    from flexflow_tpu_torch.parallel.strategies import \
+        hybrid_data_tensor_strategy
+
+    t0 = time.perf_counter()
+    ref, cfg = train_model("bert", "bf16", device,
+                           num_layers=MESH_THREADED_LAYERS)
+    x, y = train_data("bert", cfg, cfg.batch_size)
+    weights = ref.get_params_numpy()
+    lab = torch.from_numpy(ref._prep_label(y)).to(device)
+    loss, _l, grads = ref.executor.loss_and_grads(
+        ref.params, [torch.from_numpy(x).to(device)], lab)
+    want = (float(loss), [g for ws in grads.values() for g in ws.values()])
+    del ref, grads
+    heads = []
+    mtpg._install_threaded_pg()
+    torch._C._distributed_c10d._set_thread_isolation_mode(True)
+    store = dist.HashStore()
+    out, errs = {}, []
+    card_index = torch.cuda.current_device()
+
+    def rank(r):
+        try:
+            torch.cuda.set_device(card_index)
+            dist.init_process_group("threaded", rank=r, world_size=4,
+                                    store=store)
+            ff, _ = train_model(
+                "bert", "bf16", device, num_layers=MESH_THREADED_LAYERS,
+                strategy_fn=lambda pcg: hybrid_data_tensor_strategy(
+                    pcg, dp=2, tp=2))
+            ff.set_params_numpy(weights)
+            ex = ff.executor
+            xs, ys = ex.local_batch([x, ff._prep_label(y)])
+            loss, _l, grads = ex.loss_and_grads(
+                ff.params, [torch.from_numpy(xs).to(device)],
+                torch.from_numpy(ys).to(device))
+            full = [ex.gather_param(n, w, g) for n, ws in grads.items()
+                    for w, g in ws.items()]
+            torch.cuda.synchronize()
+            out[r] = (float(loss), full)
+        except BaseException as e:  # reaches the phase, which fails
+            errs.append(f"rank {r}: {e!r}")
+            raise
+
+    try:
+        with flash_heads(heads):
+            threads = [threading.Thread(target=rank, args=(r,))
+                       for r in range(4)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(600)
+    finally:
+        mtpg._uninstall_threaded_pg()
+        torch._C._distributed_c10d._set_thread_isolation_mode(False)
+    if errs or len(out) != 4:
+        fail(f"mesh threaded: {errs or 'a rank did not finish'}")
+    launches = len(heads)
+    losses = [out[r][0] for r in range(4)]
+    dloss = max(abs(v - want[0]) / max(abs(want[0]), 1e-30) for v in losses)
+    derr = max(rel_norm(out[r][1], want[1]) for r in range(4))
+    wall = time.perf_counter() - t0
+    log(f"mesh threaded bert (BERT-Large widths, {MESH_THREADED_LAYERS} "
+        f"layers, hybrid dp=2 tp=2, 4 ranks as threads on one card; a "
+        f"harness, its times are not multi-GPU speed): loss {losses[0]:.6f}"
+        f" vs one device {want[0]:.6f} (rel {dloss:.3g}), grads rel norm "
+        f"err {derr:.3g} (tol {MESH_THREADED_TOL}); {launches} B1/B2 "
+        f"launches, local heads {sorted(set(heads))}; {wall:.1f} s "
+        f"[{card}]")
+    if set(heads) != {8} or launches != 4 * MESH_THREADED_LAYERS * 2:
+        fail(f"mesh threaded: B1/B2 launches saw heads {set(heads)} "
+             f"({launches} launches), want 8 local heads in each of "
+             f"{4 * MESH_THREADED_LAYERS * 2}")
+    if not (dloss <= MESH_THREADED_TOL and derr <= MESH_THREADED_TOL):
+        fail("mesh threaded: tp=2 x dp=2 step disagrees with one device")
+    return dict(launches=launches, dloss=dloss, grad_err=derr)
+
+
+def gloo_model(strategy_fn=None):
+    """(c): the tiny BERT proxy on the CPU, fp32, Adam."""
+    from flexflow_tpu_torch import (AdamOptimizer, FFConfig, FFModel,
+                                    LossType)
+    from flexflow_tpu_torch.models.bert import BertConfig, build_bert
+
+    config = FFConfig()
+    config.batch_size, config.seed = 8, SEED
+    ff = FFModel(config, device="cpu")
+    build_bert(ff, BertConfig.tiny(batch_size=8))
+    ff.compile(optimizer=AdamOptimizer(ff, alpha=1e-3),
+               loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+               strategy_fn=strategy_fn)
+    return ff
+
+
+def gloo_step(ff, x, y) -> dict:
+    """One train step's loss, full grads and full params after it."""
+    import torch
+
+    ex = ff.executor
+    xs, ys = ex.local_batch([x, ff._prep_label(y)])
+    loss, _l, grads = ex.loss_and_grads(ff.params, [torch.from_numpy(xs)],
+                                        torch.from_numpy(ys))
+    out = {f"g/{n}/{w}": ex.gather_param(n, w, g).numpy().copy()
+           for n, ws in grads.items() for w, g in ws.items()}
+    ff.params, ff.opt_state = ff.optimizer.update(ff.params, grads,
+                                                  ff.opt_state)
+    out.update({f"p/{n}/{w}": a for n, ws in ff.get_params_numpy().items()
+                for w, a in ws.items()})
+    out["loss"] = np.float64(float(loss))
+    return out
+
+
+def _gloo_rank(rank: int, world: int, root: str) -> None:
+    """A spawned rank of (c) (a process of its own, on the CPU)."""
+    import torch
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch.parallel.strategies import \
+        hybrid_data_tensor_strategy
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{root}/pg",
+                            rank=rank, world_size=world)
+    try:
+        io = dict(np.load(os.path.join(root, "in.npz")))
+        ff = gloo_model(lambda pcg: hybrid_data_tensor_strategy(pcg, dp=2,
+                                                                tp=2))
+        ff.set_params_numpy({n: {w: io[f"w/{n}/{w}"] for w in ws}
+                             for n, ws in ff.get_params_numpy().items()})
+        np.savez(os.path.join(root, f"out_{rank}.npz"),
+                 **gloo_step(ff, io["x"], io["y"]))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_gloo(card: str) -> dict:
+    """(c): four gloo ranks spawned on the host's CPU, one step of the
+    tiny BERT under hybrid dp = 2 x tp = 2 against the one-device port."""
+    import multiprocessing as mp
+    import shutil
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="ff_gloo_")
+    try:
+        ref = gloo_model()
+        rng = np.random.default_rng(SEED)
+        x = rng.standard_normal((8, 16, 64)).astype(np.float32)
+        y = rng.integers(0, 2, (8, 1)).astype(np.int32)
+        np.savez(os.path.join(root, "in.npz"), x=x, y=y,
+                 **{f"w/{n}/{w}": a for n, ws in
+                    ref.get_params_numpy().items() for w, a in ws.items()})
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_gloo_rank, args=(r, 4, root))
+                 for r in range(4)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(300)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        codes = [p.exitcode for p in procs]
+        if codes != [0, 0, 0, 0]:
+            fail(f"mesh gloo: rank exit codes {codes}")
+        want = gloo_step(ref, x, y)
+        err = 0.0
+        for r in range(4):
+            got = dict(np.load(os.path.join(root, f"out_{r}.npz")))
+            err = max(err, max(float(np.abs(got[k] - want[k]).max())
+                               for k in want))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"mesh gloo (4 CPU ranks, tiny BERT, hybrid dp=2 tp=2, torch "
+        f"{torch.__version__}): loss, grads and params after one Adam step "
+        f"vs one device: max abs err {err:.3g} (tol {MESH_GLOO_TOL}); "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    if not err <= MESH_GLOO_TOL:
+        fail("mesh gloo: dp=2 x tp=2 disagrees with one device")
+    return dict(err=err)
+
+
+def mesh_kernels(device, card: str) -> dict:
+    """B1-B4 on shards: with dropout 0.1, a call on a rank's (batch,
+    head) block with its offsets gives the unsharded call's output and
+    grads at that block (so the same mask), and the same block without
+    offsets does not. Then B1-B4 timed at the tp = 2 shard shape."""
+    import torch
+
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    shape = FA_SHAPES["bert"]
+    q, k, v, do = fa_inputs(shape, torch.bfloat16, device)
+    rate, seed, blk = 0.1, 0x5EED, 128
+    o, lse = fa._flash_forward(q, k, v, False, blk, blk, rate, seed)
+    full = {f: fa._flash_backward(q, k, v, o, lse, do, False, blk, blk,
+                                  rate, seed, fused=f) for f in (True, False)}
+    _out_tol, grad_tol = FA_TOL["bf16"]
+    worst = 0.0
+    for b0, b1, h0, h1 in ((0, 8, 8, 16), (4, 8, 0, 16), (4, 8, 8, 16)):
+        sl = (slice(b0, b1), slice(h0, h1))
+        qs, ks, vs, ds = (t[sl].contiguous() for t in (q, k, v, do))
+        shard = (b0, h0, shape["h"])
+        so, slse = fa._flash_forward(qs, ks, vs, False, blk, blk, rate,
+                                     seed, shard)
+        bare, _ = fa._flash_forward(qs, ks, vs, False, blk, blk, rate, seed)
+        errs = [abs_err(so, o[sl]), abs_err(slse, lse[sl])]
+        for fused, grads in full.items():
+            got = fa._flash_backward(qs, ks, vs, so, slse, ds, False, blk,
+                                     blk, rate, seed, fused=fused,
+                                     shard=shard)
+            errs += [rel_err(g, w[sl]) for g, w in zip(got, grads)]
+        worst = max(worst, *errs)
+        if not (errs[0] == 0.0 and errs[1] == 0.0
+                and max(errs[2:]) <= grad_tol):
+            fail(f"kernel flash shard b{b0}:{b1} h{h0}:{h1}: the sharded "
+                 f"call differs from the unsharded one's block: {errs}")
+        if abs_err(bare, o[sl]) == 0.0:
+            fail("kernel flash shard: the block without its offsets draws "
+                 "the same mask (the check cannot see a wrong offset)")
+    torch.cuda.synchronize()
+    log(f"kernel flash shard (bf16 b8 h16 s512 d64, dropout 0.1): B1 output "
+        f"and lse of a tp, a dp and a dp x tp rank's block bitwise the "
+        f"unsharded call's, B2 and B3+B4 grads within {grad_tol} (max "
+        f"{worst:.3g}) [{card}]")
+    return fa_case(device, card, "bert_tp2", "bf16")
+
+
+def mesh_phase(device, card: str) -> dict:
+    t0 = time.perf_counter()
+    gloo = mesh_gloo(card)
+    threaded = mesh_threaded(device, card)
+    kern = mesh_kernels(device, card)
+    nccl = mesh_nccl(device, card)
+    wall = time.perf_counter() - t0
+    log(f"mesh phase wall {wall:.1f} s (stated {MESH_WALL_S:.0f} s) "
+        f"[{card}]")
+    return dict(gloo=gloo, threaded=threaded, kern=kern, nccl=nccl)
+
+
 def main() -> None:
     try:
         import torch
@@ -5443,6 +5918,7 @@ def main() -> None:
     obs = obs_phase(device, card, prompt_set)
     chaos = chaos_phase(device, card, prompt_set)
     serving13 = serving13_phase(device, card)
+    mesh = mesh_phase(device, card)
 
     kernels = []
     for compute, name in (("fp32", "flash_decode"),
@@ -5468,7 +5944,12 @@ def main() -> None:
         **dprops["flash_decode"],
     })
     # each flash-attention kernel at the shape and dtype of the training
-    # path that launched it, one entry a shape, with that path's launches
+    # path that launched it, one entry a shape, with that path's launches;
+    # the BERT bf16 entries add phase 14's mesh runs over NCCL (the
+    # synchronous and the overlapped), which launch them at that shape
+    mesh_launches = {k: sum(mesh["nccl"][r]["totals"][k]
+                            for r in ("sync", "overlap"))
+                     for k in ("flash_fwd", "flash_bwd_fused")}
     for name, kernel, shape, dname, paths in (
             ("flash_fwd_bf16", "flash_fwd", "bert", "bf16", ("bert",)),
             ("flash_fwd_bf16_long", "flash_fwd", "long", "bf16",
@@ -5490,7 +5971,9 @@ def main() -> None:
             "route": "cuda",
             "source": FA_SOURCE,
             "replaces": FA_KERNELS[kernel][0],
-            "launches": sum(train[p]["counts"][kernel] for p in paths),
+            "launches": sum(train[p]["counts"][kernel] for p in paths)
+            + (mesh_launches.get(kernel, 0)
+               if (shape, dname) == ("bert", "bf16") else 0),
             **fa_kern[(kernel, shape, dname)],
             # the Hopper instance this shape runs: SASS census, registers,
             # spills, shared memory
@@ -5623,6 +6106,21 @@ def main() -> None:
             **kern["fp32"],
             **dprops["flash_decode"],
             "max_abs_err": run["err"],
+        })
+    # phase 14: B1 and B2 on the threaded tp = 2 x dp = 2 harness's 8
+    # local heads, timed at that shard shape (b8 h8 s512 d64)
+    for name, kernel in (("flash_fwd_bf16_tp2", "flash_fwd"),
+                         ("flash_bwd_fused_bf16_tp2", "flash_bwd_fused")):
+        r = dict(mesh["kern"][kernel])
+        r.pop("eager_ms", None)
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": FA_SOURCE,
+            "replaces": FA_KERNELS[kernel][0],
+            "launches": mesh["threaded"]["launches"] // 2,
+            **r,
+            **census.get((kernel, "bf16", FA_SHAPES["bert"]["d"]), {}),
         })
     for kernel, line in (("softmax_fwd", 29), ("softmax_bwd", 38)):
         kernels.append({

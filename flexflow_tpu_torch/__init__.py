@@ -21,7 +21,9 @@ and backward kernels, the steps as CUDA graphs, checkpoints and
 batch-norm, elementwise and tensor ops with the vision and recommendation
 models (AlexNet, ResNet-50, InceptionV3, ResNeXt-50, DLRM, XDL, MLP_Unify,
 CANDLE-Uno) — and the LSTM and MoE ops with NMT, the Transformer proxy,
-its causal decoder (served) and the MoE MLP.
+its causal decoder (served) and the MoE MLP — and strategies on a
+``torch.distributed`` device mesh (``parallel/``: data, tensor, hybrid
+and expert parallelism, strategy import and export).
 """
 from .config import FFConfig, FFIterationConfig  # noqa: F401
 from .ffconst import (ActiMode, AggrMode, CompMode, DataType,  # noqa: F401

@@ -22,8 +22,19 @@ and the training forward follows the ``--remat`` plan
 CacheOps threads their state through the train step (:meth:`init_cache`).
 While a ``torch.profiler`` runs, each node runs inside a
 ``record_function`` range named after it (the JAX package's per-node
-``jax.named_scope``). Sharding and collective overlap come in later
-slices.
+``jax.named_scope``).
+
+Under a strategy (``strategy=`` and ``mesh=``, the multi-controller mesh
+path) the executor runs this rank's part of the SPMD program
+(``parallel/spmd.py``): params and optimizer state are local shards
+(:meth:`init_params` draws the full weights from the seed and keeps its
+shard, so every strategy starts from the one-device weights), each node
+runs on its inputs redistributed to the layout its plan asks for, the
+final output and the labels are gathered whole on every rank before the
+loss, and after the backward the param grads the data axis split are
+summed by one flat all-reduce (or, under ``--collective-overlap on``, one
+asynchronous all-reduce a remat block, issued as that block's backward
+completes, all awaited before the optimizer).
 """
 from __future__ import annotations
 
@@ -36,11 +47,44 @@ from ..parallel.pcg import PCG, PCGNode
 from .losses import loss_value
 
 
+def _reached_leaves(loss):
+    """ids of the leaf tensors the backward of ``loss`` will reach (a walk
+    of its autograd graph to the accumulate-grad nodes)."""
+    seen, out = set(), set()
+    stack = [loss.grad_fn]
+    while stack:
+        fn = stack.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        var = getattr(fn, "variable", None)
+        if var is not None:
+            out.add(id(var))
+        stack.extend(f for f, _ in fn.next_functions)
+    return out
+
+
 class Executor:
     def __init__(self, pcg: PCG, config, final_guid: int, device,
                  final_out_idx: int = 0, loss_type: Optional[LossType] = None,
-                 metrics=None, optimizer=None, repl_labels: bool = False):
+                 metrics=None, optimizer=None, repl_labels: bool = False,
+                 strategy=None, mesh=None):
         self.pcg = pcg
+        # the mesh path (module doc): None for one device
+        self.strategy = strategy
+        self.mesh = mesh
+        # whether the batch the steps get is this rank's slice of the data
+        # axis (``local_batch``) or the whole batch on every rank
+        self.batch_sharded = True
+        self._plans: Dict[bool, Any] = {}
+        self._shard_infos: Dict[bool, Dict[int, Any]] = {}
+        self._grad_groups_cache: Optional[Tuple[Any, Any]] = None
+        self._by_name: Optional[Dict[str, PCGNode]] = None
+        if strategy is not None:
+            # op-attr overrides a strategy carries (executor.py:57-60)
+            for guid, ns in strategy.node_strategies.items():
+                if ns.extra and guid in pcg.nodes:
+                    pcg.nodes[guid].op.attrs.update(ns.extra)
         self.config = config
         self.final_guid = final_guid
         self.final_out_idx = final_out_idx
@@ -85,15 +129,156 @@ class Executor:
     def init_params(self, seed: int = 0) -> Dict[str, Dict[str, Any]]:
         """{node_name: {wname: tensor}} on the executor's device, drawn on
         the CPU from one ``torch.Generator`` seeded with ``seed`` (the same
-        weights on every device)."""
+        weights on every device). On a mesh every rank draws the full
+        weights in the same order and keeps its shard of each."""
         import torch
 
         gen = torch.Generator().manual_seed(int(seed))
         params: Dict[str, Dict[str, Any]] = {}
         for node, wname, shape, dtype, init in self.weight_entries():
             w = init(gen, shape, dtype_to_torch(dtype))
-            params.setdefault(node.name, {})[wname] = w.to(self.device)
+            params.setdefault(node.name, {})[wname] = \
+                self.shard_param(node.name, wname, w)
         return params
+
+    # --------------------------------------------------------------- the mesh
+    def _plan(self):
+        """The SPMD plan for the current batch layout (computed once)."""
+        key = bool(self.batch_sharded)
+        if key not in self._plans:
+            from ..parallel.spmd import ShardInfo, plan_spmd
+
+            plans = plan_spmd(self.pcg, self.strategy, self.mesh,
+                              inputs_sharded=key)
+            self._plans[key] = plans
+            self._shard_infos[key] = {
+                g: ShardInfo(pl, self.mesh, self._node_input_shapes(
+                    self.pcg.nodes[g])) for g, pl in plans.items()}
+        return self._plans[key]
+
+    def param_shardings(self) -> Dict[str, Dict[str, Any]]:
+        """{node_name: {wname: placements}}: how each weight is held, one
+        ``torch.distributed.tensor`` placement per mesh dim (the JAX
+        package's NamedSharding pytree, executor.py:87-101); {} off a
+        mesh."""
+        if self.mesh is None:
+            return {}
+        plans = self._plan()
+        return {n.name: dict(plans[n.guid].stored)
+                for n in self.pcg.compute_nodes() if plans[n.guid].stored}
+
+    def batch_sharding(self, ndim: int):
+        """The placements of a batch of rank ``ndim``: split over the data
+        axis on dim 0 (the JAX package's ``P(data, None, ...)``), or None
+        off a mesh."""
+        if self.mesh is None:
+            return None
+        from ..parallel.spmd import spec_placements
+
+        return spec_placements((self.strategy.data_axis,) +
+                               (None,) * (ndim - 1), self.mesh.axis_names)
+
+    def data_ranks(self) -> Tuple[int, int]:
+        """(data-axis size, this rank's coordinate on it); (1, 0) off a
+        mesh or without a data axis."""
+        if self.mesh is None or \
+                self.strategy.data_axis not in self.mesh.axis_names:
+            return 1, 0
+        return (self.mesh.size(self.strategy.data_axis),
+                self.mesh.coord(self.strategy.data_axis))
+
+    def local_batch(self, arrays):
+        """This rank's rows of host batch ``arrays``: its slice of the data
+        axis when the batch divides by it, else the whole batch (an eval's
+        short last batch). Sets :attr:`batch_sharded` for the steps that
+        follow. Ranks of one model-parallel group get the same rows."""
+        n, c = self.data_ranks()
+        rows = arrays[0].shape[0]
+        self.batch_sharded = rows % n == 0
+        if n == 1 or not self.batch_sharded:
+            return list(arrays)
+        k = rows // n
+        return [a[c * k:(c + 1) * k] for a in arrays]
+
+    def shard_param(self, node_name: str, wname: str, full):
+        """This rank's shard of the full weight ``full`` (a CPU tensor), on
+        the executor's device."""
+        if self.mesh is None:
+            return full.to(self.device)
+        from ..parallel.spmd import local_slice
+
+        guid = self._node_by_name()[node_name].guid
+        pl = self._plan()[guid].stored[wname]
+        return local_slice(full, pl, self.mesh).contiguous().to(self.device)
+
+    def gather_param(self, node_name: str, wname: str, local):
+        """The full weight from this rank's shard ``local`` (every rank
+        takes part and gets the whole)."""
+        if self.mesh is None:
+            return local
+        from ..parallel.spmd import redistribute, replicated
+
+        guid = self._node_by_name()[node_name].guid
+        pl = self._plan()[guid].stored[wname]
+        return redistribute(local.detach(), self.mesh, pl,
+                            replicated(len(pl)))
+
+    def _node_by_name(self):
+        if self._by_name is None:
+            self._by_name = {n.name: n for n in self.pcg.compute_nodes()}
+        return self._by_name
+
+    def _replicate_output(self, guid: int, idx: int, x):
+        """A node's output gathered whole on every rank (what the loss, the
+        metrics and ``predict`` read)."""
+        if self.mesh is None:
+            return x
+        from ..parallel.spmd import redistribute, replicated
+
+        pl = self._plan()[guid].outs[idx]
+        return redistribute(x, self.mesh, pl, replicated(len(pl)))
+
+    def _labels_whole(self, labels):
+        """The labels gathered whole on every rank (they arrive as the
+        batch does)."""
+        if self.mesh is None:
+            return labels
+        from ..parallel.spmd import redistribute, replicated
+
+        n = len(self.mesh.axis_names)
+        src = self.batch_sharding(labels.dim()) if self.batch_sharded \
+            else replicated(n)
+        return redistribute(labels, self.mesh, src, replicated(n))
+
+    def _run_node(self, node, params, inputs, ctx, scoped: bool):
+        """One node: ``op.forward`` off a mesh; on a mesh its inputs and
+        weights redistributed to the layouts its plan asks for, the op run
+        with its ``ShardInfo`` in ``ctx.shard``, and its outputs moved to
+        their planned layouts."""
+        ws = params.get(node.name, {})
+        if self.mesh is None:
+            return run_op(node.op, node.name, ws, inputs, ctx, scoped)
+        from ..parallel.spmd import copy_to, redistribute
+
+        mesh = self.mesh
+        plan = self._plan()[node.guid]
+        ins = [redistribute(x, mesh, s, d)
+               for x, s, d in zip(inputs, plan.srcs, plan.ins)]
+        if plan.copy_axes:
+            copied: Dict[int, Any] = {}
+            for i, x in enumerate(ins):
+                if x.is_floating_point():
+                    if id(x) not in copied:
+                        copied[id(x)] = copy_to(x, mesh, plan.copy_axes)
+                    ins[i] = copied[id(x)]
+        ws = {w: redistribute(t, mesh, plan.stored[w], plan.use[w])
+              for w, t in ws.items()}
+        sctx = dataclasses.replace(
+            ctx, shard=self._shard_infos[bool(self.batch_sharded)][
+                node.guid])
+        outs = run_op(node.op, node.name, ws, ins, sctx, scoped)
+        return [redistribute(o, mesh, a, b)
+                for o, a, b in zip(outs, plan.natural, plan.outs)]
 
     # --------------------------------------------------------- mixed precision
     def _compute_dtype(self):
@@ -168,9 +353,8 @@ class Executor:
                 values[node.guid] = overrides[node.guid]
                 continue
             inputs = [values[g][i] for g, i in node.inputs]
-            values[node.guid] = run_op(node.op, node.name,
-                                       params.get(node.name, {}), inputs,
-                                       ctx, scoped)
+            values[node.guid] = self._run_node(node, params, inputs, ctx,
+                                               scoped)
         return values
 
     def _bind_inputs(self, xs: List[Any]) -> Dict[int, Any]:
@@ -207,7 +391,7 @@ class Executor:
         params_c, xs = self._cast_for_compute(params, list(xs))
         ctx = OpContext(training=training, rng=rng, device=self.device,
                         aux_losses=[] if training else None,
-                        cache_in=cache, cache_out=cache_out)
+                        cache_in=cache, cache_out=cache_out, mesh=self.mesh)
         blocks = self._remat_blocks() if training else None
         if blocks is not None:
             raw = self._forward_remat(params_c, self._bind_inputs(xs), ctx,
@@ -216,8 +400,10 @@ class Executor:
             values = self.forward_outputs(params_c, self._bind_inputs(xs),
                                           ctx)
             raw = values[self.final_guid][self.final_out_idx]
+        raw = self._replicate_output(self.final_guid, self.final_out_idx, raw)
         logits = self._logits_f32(raw)
-        loss = loss_value(self.loss_type, logits, labels, self.repl_labels)
+        loss = loss_value(self.loss_type, logits, self._labels_whole(labels),
+                          self.repl_labels)
         # the training loss carries the ops' aux terms (the regularizers),
         # as flexflow_tpu/execution/executor.py:554-555 adds them
         for aux in ctx.aux_losses or ():
@@ -287,8 +473,9 @@ class Executor:
         scoped = profiler_on()
         for g in guids:
             node = self.pcg.nodes[g]
-            outs = run_op(node.op, node.name, params.get(node.name, {}),
-                          [values[r] for r in node.inputs], ctx, scoped)
+            outs = self._run_node(node, params,
+                                  [values[r] for r in node.inputs], ctx,
+                                  scoped)
             values.update(((g, i), v) for i, v in enumerate(outs))
 
     def _forward_remat(self, params, bound_inputs: Dict[int, Any],
@@ -528,30 +715,187 @@ class Executor:
         leaves = {n: dict(ws) for n, ws in params.items()}
         for (n, w), t in zip(names, leaf_list):
             leaves[n][w] = t
+        overlap = None
         with torch.enable_grad():
-            loss, logits = self._loss_and_logits(leaves, xs, labels, rng,
-                                                 training=True, cache=cache,
-                                                 cache_out=cache_out)
-            flat_grads = torch.autograd.grad(loss, leaf_list,
-                                             allow_unused=True)
+            loss, logits = self._loss_and_logits(
+                leaves, xs, labels, rng, training=True, cache=cache,
+                cache_out=cache_out)
+            if self.mesh is not None and (getattr(
+                    self.config, "collective_overlap", "off")
+                    or "off") == "on":
+                overlap = self._overlap_hooks(names, leaf_list, cdtype,
+                                              loss)
+            try:
+                flat_grads = torch.autograd.grad(loss, leaf_list,
+                                                 allow_unused=True)
+            finally:
+                if overlap is not None:
+                    for h in overlap[0]:
+                        h.remove()
         if cache_out:
             cache_out.update({k: v.detach() for k, v in cache_out.items()})
-        flat_grads = [g if g is not None else torch.zeros_like(t)
-                      for g, t in zip(flat_grads, leaf_list)]
-        if cdtype is not None:
-            up = torch.cat([g.reshape(-1) for g in flat_grads]).float()
-            flat_grads = [v.view(m.shape)
-                          for v, m in zip(up.split(sizes), masters)]
+        if overlap is not None:
+            flat_grads = self._overlap_finish(overlap, masters, leaf_list,
+                                              flat_grads, cdtype)
+        else:
+            flat_grads = [g if g is not None else torch.zeros_like(t)
+                          for g, t in zip(flat_grads, leaf_list)]
+            up = None
+            if cdtype is not None:
+                up = torch.cat([g.reshape(-1) for g in flat_grads]).float()
+                flat_grads = [v.view(m.shape)
+                              for v, m in zip(up.split(sizes), masters)]
+            if self.mesh is not None:
+                flat_grads = self._all_reduce_grads(names, flat_grads, up)
         grads: Dict[str, Dict[str, Any]] = {n: {} for n in params}
         for (n, w), g in zip(names, flat_grads):
             grads[n][w] = g
         return loss.detach(), logits.detach(), grads
+
+    # ------------------------------------------------------------ grad sync
+    def _grad_groups(self, names):
+        """[(mesh dims, indices into ``names``)]: the params whose grads
+        are partial over the same mesh dims (the data axis, for ops that
+        ran on a batch slice), each group summed by one flat all-reduce.
+        Params whose grads are complete on every rank are in no group.
+        Kept for each batch layout, as the plan is: a whole batch leaves
+        every grad complete."""
+        key = (bool(self.batch_sharded), tuple(names))
+        if self._grad_groups_cache is not None and \
+                self._grad_groups_cache[0] == key:
+            return self._grad_groups_cache[1]
+        plans = self._plan()
+        by_name = self._node_by_name()
+        groups: Dict[Tuple[int, ...], List[int]] = {}
+        for i, (n, _w) in enumerate(names):
+            axes = plans[by_name[n].guid].grad_axes
+            if axes:
+                groups.setdefault(axes, []).append(i)
+        out = list(groups.items())
+        self._grad_groups_cache = (key, out)
+        return out
+
+    def _all_reduce_groups(self, buf, axes) -> None:
+        """Sum ``buf`` in place over the mesh dims ``axes``, even on a
+        one-rank group (which NCCL answers without a kernel): a mesh of one
+        card still issues, captures and replays the data axis's collective
+        that a mesh of several runs."""
+        import torch.distributed as dist
+
+        for i in axes:
+            dist.all_reduce(buf, group=self.mesh.groups[i])
+
+    def _all_reduce_grads(self, names, flat_grads, flat=None):
+        """The data-parallel grad sync: each group of :meth:`_grad_groups`
+        summed by one all-reduce of its grads laid end to end (``flat``,
+        the fp32 upcast every grad is a view of, when one group holds them
+        all: XLA's combined all-reduce)."""
+        import torch
+
+        groups = self._grad_groups(names)
+        if flat is not None and len(groups) == 1 and \
+                len(groups[0][1]) == len(names):
+            self._all_reduce_groups(flat, groups[0][0])
+            return flat_grads
+        flat_grads = list(flat_grads)
+        for axes, idx in groups:
+            buf = torch.cat([flat_grads[i].reshape(-1) for i in idx])
+            self._all_reduce_groups(buf, axes)
+            for i, v in zip(idx, buf.split([flat_grads[i].numel()
+                                            for i in idx])):
+                flat_grads[i] = v.view(flat_grads[i].shape)
+        return flat_grads
+
+    def _overlap_hooks(self, names, leaf_list, cdtype, loss):
+        """``--collective-overlap on`` (the counterpart of
+        ``_blockwise_value_and_grad``, flexflow_tpu/execution/executor.py:
+        357-456): the param grads of each group of :meth:`_grad_groups`
+        split into buckets by remat block, and a hook on each leaf; once
+        the backward has produced every grad of a bucket that the loss
+        reaches, the bucket's grads are laid end to end (upcast to fp32
+        with a compute dtype, as the synchronous path's flat upcast) and
+        their all-reduce starts asynchronously. :meth:`_overlap_finish`
+        waits for every bucket before the optimizer. The same sums of the
+        same values as the synchronous path, so the grads are bitwise
+        equal."""
+        import torch
+
+        from .remat import remat_segments, resolve_remat_plan
+
+        plan = resolve_remat_plan(self.config, self.strategy)
+        block_of = {g: k for k, seg in enumerate(
+            remat_segments(self.pcg, plan.segment_size)) for g in seg}
+        by_name = self._node_by_name()
+        buckets: Dict[Tuple[int, Tuple[int, ...]], List[int]] = {}
+        for axes, idx in self._grad_groups(names):
+            for i in idx:
+                blk = block_of[by_name[names[i][0]].guid]
+                buckets.setdefault((blk, axes), []).append(i)
+        reached = _reached_leaves(loss)
+        pending: Dict[Tuple, Any] = {}
+        handles = []
+        for key, idx in buckets.items():
+            want = [i for i in idx if id(leaf_list[i]) in reached]
+            if not want:
+                continue
+            got: Dict[int, Any] = {}
+
+            def hook(g, i, key=key, idx=idx, want=want, got=got):
+                got[i] = g
+                if len(got) < len(want):
+                    return
+                flat = torch.cat([
+                    (got[j] if j in got else torch.zeros_like(
+                        leaf_list[j])).reshape(-1) for j in idx])
+                if cdtype is not None:
+                    flat = flat.float()
+                for a in key[1][:-1]:
+                    self._all_reduce_groups(flat, (a,))
+                pending[key] = (flat, [self._async_all_reduce(
+                    flat, key[1][-1])])
+
+            for i in want:
+                handles.append(leaf_list[i].register_hook(
+                    lambda g, i=i, hook=hook: hook(g, i)))
+        return handles, buckets, pending
+
+    def _async_all_reduce(self, buf, axis: int):
+        import torch.distributed as dist
+
+        return dist.all_reduce(buf, group=self.mesh.groups[axis],
+                               async_op=True)
+
+    def _overlap_finish(self, overlap, masters, leaf_list, returned, cdtype):
+        """The grads after :meth:`_overlap_hooks`' all-reduces: every
+        bucket awaited and cut back into per-param views; params in no
+        bucket (complete grads) and unreached ones as the synchronous
+        path gives them."""
+        import torch
+
+        _handles, buckets, pending = overlap
+        out: List[Any] = [None] * len(masters)
+        for key, idx in buckets.items():
+            if key not in pending:
+                continue  # no grad reached this bucket: zeros below
+            flat, works = pending[key]
+            for w in works:
+                w.wait()
+            for i, v in zip(idx, flat.split([masters[i].numel()
+                                             for i in idx])):
+                out[i] = v.view(masters[i].shape)
+        for i, g in enumerate(out):
+            if g is None:
+                g = returned[i] if returned[i] is not None else \
+                    torch.zeros_like(leaf_list[i])
+                out[i] = g.float() if cdtype is not None else g
+        return out
 
     def _compute_metrics(self, logits, labels):
         import torch
 
         if self.metrics is None:
             return {}
+        labels = self._labels_whole(labels)
         if self.repl_labels:
             k = logits.shape[0] // labels.shape[0]
             labels = torch.repeat_interleave(labels, k, dim=0)
@@ -567,11 +911,14 @@ class Executor:
                 params_c, xs_c = self._cast_for_compute(params, list(xs),
                                                         cache=True)
                 ctx = OpContext(training=False, device=self.device)
+                ctx.mesh = self.mesh
                 values = self.forward_outputs(params_c,
                                               self._bind_inputs(xs_c), ctx)
-                logits = self._logits_f32(
-                    values[self.final_guid][self.final_out_idx])
-                loss = loss_value(self.loss_type, logits, labels,
+                logits = self._logits_f32(self._replicate_output(
+                    self.final_guid, self.final_out_idx,
+                    values[self.final_guid][self.final_out_idx]))
+                loss = loss_value(self.loss_type, logits,
+                                  self._labels_whole(labels),
                                   self.repl_labels)
                 return loss, self._compute_metrics(logits, labels)
 
@@ -588,10 +935,13 @@ class Executor:
             with torch.inference_mode():
                 params_c, xs_c = self._cast_for_compute(params, list(xs),
                                                         cache=True)
-                ctx = OpContext(training=False, device=self.device)
+                ctx = OpContext(training=False, device=self.device,
+                                mesh=self.mesh)
                 values = self.forward_outputs(params_c,
                                               self._bind_inputs(xs_c), ctx)
-                return values[self.final_guid][self.final_out_idx]
+                return self._replicate_output(
+                    self.final_guid, self.final_out_idx,
+                    values[self.final_guid][self.final_out_idx])
 
         return fwd
 

@@ -148,7 +148,22 @@ struct Dropout {
   const uint32_t* seed_ptr;
   uint32_t threshold;
   float scale;
+  // a shard of a larger call (a data- or tensor-parallel rank's batch and
+  // heads): this launch's heads, the whole call's heads and the global
+  // batch*head index of this launch's first (batch, head)
+  int heads_local;
+  int heads_global;
+  int bh_offset;
 };
+
+// The GLOBAL batch*head coordinate of this launch's row bh: the hash keys
+// on it, so a shard draws the unsharded call's mask at its elements (b*H +
+// h for an unsharded launch, where heads_local == heads_global and the
+// offset is 0).
+__device__ __forceinline__ uint32_t global_bh(const Dropout& dr, int bh) {
+  return static_cast<uint32_t>((bh / dr.heads_local) * dr.heads_global +
+                               bh % dr.heads_local + dr.bh_offset);
+}
 
 __device__ __forceinline__ void load_seed(Dropout& dr) {
   dr.seed = dr.on ? __ldg(dr.seed_ptr) : 0u;
@@ -377,7 +392,8 @@ __device__ __forceinline__ void dkv_hand_over(
       float pd = p;
       if (dr.on) {
         const float keep =
-            keep_scale(dr.seed, bh, qpos, key, dr.threshold, dr.scale);
+            keep_scale(dr.seed, global_bh(dr, bh), qpos, key, dr.threshold,
+                       dr.scale);
         pd = p * keep;
         dpv = dpv * keep;
       }
@@ -421,7 +437,8 @@ __device__ __forceinline__ void dq_hand_over(
       if (kGroup == 0 && kMask && qpos + off < key) sv = kNegInf;
       float dpv = kGroup == 0 ? x : sc[i][j];
       if (dr.on)
-        dpv *= keep_scale(dr.seed, bh, qpos, key, dr.threshold, dr.scale);
+        dpv *= keep_scale(dr.seed, global_bh(dr, bh), qpos, key,
+                          dr.threshold, dr.scale);
       x = ex2(fmaf(sv, kLog2e, -l2[ii])) * (dpv - dl[ii]);
     }
   }
@@ -943,7 +960,7 @@ __global__ void __launch_bounds__(TwoPass<D>::kThreads, 1)
         for (int j = 0; j < C::kTN; ++j) {
           const float p = ex2(sc[i][j] - m_new);
           psum += p;
-          sc[i][j] = dr.on ? p * keep_scale(dr.seed, bh, qpos,
+          sc[i][j] = dr.on ? p * keep_scale(dr.seed, global_bh(dr, bh), qpos,
                                             k0 + cg + C::kCG * j,
                                             dr.threshold, dr.scale)
                            : p;
@@ -1471,7 +1488,8 @@ __global__ void __launch_bounds__(kWG, 2)
     if (dr.on) {
 #pragma unroll
       for (int e = 0; e < kBN / 2; ++e)
-        sc[e] *= keep_scale(dr.seed, bh, row0 + 8 * ((e >> 1) & 1),
+        sc[e] *= keep_scale(dr.seed, global_bh(dr, bh),
+                            row0 + 8 * ((e >> 1) & 1),
                             k0 + (e >> 2) * 8 + t2 + (e & 1), dr.threshold,
                             dr.scale);
     }
@@ -1771,7 +1789,7 @@ __device__ __forceinline__ void bwd_kv_sm90(
 #pragma unroll
         for (int e = e0; e < e0 + kFin; ++e) {
           const float keep = keep_scale(
-              dr.seed, bh, q0 + (e >> 2) * 8 + t2 + (e & 1),
+              dr.seed, global_bh(dr, bh), q0 + (e >> 2) * 8 + t2 + (e & 1),
               kw0 + kr + 8 * ((e >> 1) & 1), dr.threshold, dr.scale);
           const float p = sT[e];
           sT[e] = p * keep;
@@ -2093,7 +2111,8 @@ __global__ void __launch_bounds__(kWG, 2)
     if (dr.on) {
 #pragma unroll
       for (int e = 0; e < kN / 2; ++e)
-        dp[e] *= keep_scale(dr.seed, bh, q0 + r0 + 8 * ((e >> 1) & 1),
+        dp[e] *= keep_scale(dr.seed, global_bh(dr, bh),
+                            q0 + r0 + 8 * ((e >> 1) & 1),
                             k0 + (e >> 2) * 8 + t2 + (e & 1), dr.threshold,
                             dr.scale);
     }
@@ -2363,13 +2382,17 @@ bool valid(int bh, int sq, int sk, int d, int dtype) {
 }
 
 Dropout make_dropout(int on, const void* seed, uint32_t threshold,
-                     float scale) {
+                     float scale, int heads_local, int heads_global,
+                     int bh_offset) {
   Dropout dr;
   dr.on = on;
   dr.seed = 0u;
   dr.seed_ptr = static_cast<const uint32_t*>(seed);
   dr.threshold = threshold;
   dr.scale = scale;
+  dr.heads_local = heads_local > 0 ? heads_local : 1;
+  dr.heads_global = heads_global;
+  dr.bh_offset = bh_offset;
   return dr;
 }
 
@@ -2390,20 +2413,24 @@ Dropout make_dropout(int on, const void* seed, uint32_t threshold,
 // The C interface. Tensors are contiguous (bh, seq, d) in one dtype
 // (0 = float32, 1 = bfloat16, 2 = float16) except lse, delta and dq_acc,
 // which are float32; q is pre-scaled by 1/sqrt(d). `seed` is the device
-// address of the dropout seed (a uint32; read only when dropout_on). Each
+// address of the dropout seed (a uint32; read only when dropout_on);
+// heads_local / heads_global / bh_offset place the launch's (batch, head)
+// rows in a larger call for the dropout hash (global_bh). Each
 // returns a cudaError_t code (0 on success); launches are asynchronous on
 // `stream`.
 extern "C" int ff_flash_fwd(const void* q, const void* k, const void* v,
                             void* o, void* lse, int bh, int sq, int sk,
                             int d, int causal, int dropout_on,
                             const void* seed, uint32_t threshold,
-                            float keep_scale_value,
+                            float keep_scale_value, int heads_local,
+                            int heads_global, int bh_offset,
                             int dtype, void* stream) {
   if (!valid(bh, sq, sk, d, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   const Shape sh{sq, sk, causal};
   const Dropout dr = make_dropout(dropout_on, seed, threshold,
-                                  keep_scale_value);
+                                  keep_scale_value, heads_local,
+                                  heads_global, bh_offset);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   FF_DISPATCH(launch_fwd, q, k, v, o, static_cast<float*>(lse), bh, sh, dr,
               st)
@@ -2416,12 +2443,14 @@ extern "C" int ff_flash_bwd_kv(const void* q, const void* k, const void* v,
                                int sq, int sk, int d, int causal,
                                int dropout_on, const void* seed,
                                uint32_t threshold, float keep_scale_value,
+                               int heads_local, int heads_global, int bh_offset,
                                int dtype, void* stream) {
   if (!valid(bh, sq, sk, d, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   const Shape sh{sq, sk, causal};
   const Dropout dr = make_dropout(dropout_on, seed, threshold,
-                                  keep_scale_value);
+                                  keep_scale_value, heads_local,
+                                  heads_global, bh_offset);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   FF_DISPATCH(launch_bwd_kv, q, k, v, o, dout,
               static_cast<const float*>(lse),
@@ -2435,12 +2464,14 @@ extern "C" int ff_flash_bwd_q(const void* q, const void* k, const void* v,
                               int bh, int sq, int sk, int d, int causal,
                               int dropout_on, const void* seed,
                               uint32_t threshold, float keep_scale_value,
+                              int heads_local, int heads_global, int bh_offset,
                               int dtype, void* stream) {
   if (!valid(bh, sq, sk, d, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   const Shape sh{sq, sk, causal};
   const Dropout dr = make_dropout(dropout_on, seed, threshold,
-                                  keep_scale_value);
+                                  keep_scale_value, heads_local,
+                                  heads_global, bh_offset);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   FF_DISPATCH(launch_bwd_q, q, k, v, dout, static_cast<const float*>(lse),
               static_cast<const float*>(delta), dq, sm_scale, bh, sh, dr, st)

@@ -136,11 +136,28 @@ def dropout_keep_scale_plain(seed, bh, q_pos, k_pos, rate: float):
     return keep.to(torch.float32) * dropout_scale(rate)
 
 
-def _tile_keep(seed, b, h, q0, bq, k0, bk, rate, device):
+def global_bh(b: int, h: int, shard, device):
+    """The (b, h, 1, 1) GLOBAL batch*head coordinates the dropout hash keys
+    on: ``b * H + h`` for an unsharded call, and for a shard (``shard =
+    (batch offset, head offset, global heads)``, a data- or tensor-parallel
+    rank's slice of the batch and heads) the coordinates of the same
+    elements in the whole tensor, so every rank draws the single-device
+    mask's slice."""
+    import torch
+
+    if shard is None:
+        return torch.arange(b * h, device=device).view(b, h, 1, 1)
+    b_off, h_off, heads = shard
+    rows = torch.arange(b, device=device) + b_off
+    cols = torch.arange(h, device=device) + h_off
+    return (rows[:, None] * heads + cols[None, :]).view(b, h, 1, 1)
+
+
+def _tile_keep(seed, b, h, q0, bq, k0, bk, rate, device, shard=None):
     """The (b, h, bq, bk) mask of one score tile."""
     import torch
 
-    bh = torch.arange(b * h, device=device).view(b, h, 1, 1)
+    bh = global_bh(b, h, shard, device)
     qp = torch.arange(q0, q0 + bq, device=device).view(1, 1, bq, 1)
     kp = torch.arange(k0, k0 + bk, device=device).view(1, 1, 1, bk)
     return dropout_keep_scale_plain(seed, bh, qp, kp, rate)
@@ -185,14 +202,15 @@ def _rounded(x, dtype):
 def flash_forward_plain(q, k, v, causal: bool = False,
                         block_q: int = DEFAULT_BLOCK_Q,
                         block_k: int = DEFAULT_BLOCK_K,
-                        dropout: float = 0.0, seed=0):
+                        dropout: float = 0.0, seed=0, shard=None):
     """Plain-PyTorch flash forward, tile for tile the TPU kernel.
 
     q (b, h, sq, d), k/v (b, h, sk, d) of one float dtype. q is pre-scaled
     here. For each q tile, the k tiles inside the causal band update
     (m, l, acc) in fp32; l sums the undropped probabilities and the dropout
-    mask multiplies them before the PV product. Returns (O in q's dtype,
-    lse (b, h, sq) fp32)."""
+    mask multiplies them before the PV product (at the global coordinates of
+    ``shard``, see :func:`global_bh`). Returns (O in q's dtype, lse (b, h,
+    sq) fp32)."""
     import torch
 
     b, h, sq, d = q.shape
@@ -221,7 +239,7 @@ def flash_forward_plain(q, k, v, causal: bool = False,
             m = m_new
             if dropout > 0.0:
                 p = p * _tile_keep(seed, b, h, q0, bq, k0, bk, dropout,
-                                   q.device)
+                                   q.device, shard)
             acc = acc * alpha + _rounded(p, v.dtype) @ vf[:, :, k0:k0 + bk]
         l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
         out[:, :, q0:q0 + bq] = acc / l_safe
@@ -230,7 +248,7 @@ def flash_forward_plain(q, k, v, causal: bool = False,
 
 
 def _bwd_tile(qs, k, v, dor, lse, delta, q0, bq, k0, bk, causal, offset,
-              dropout, seed):
+              dropout, seed, shard=None):
     """One (q, k) tile of the backward: (pd, ds) in fp32, each rounded to
     the dtype of the operand it multiplies, as the TPU kernels round."""
     import torch
@@ -247,7 +265,8 @@ def _bwd_tile(qs, k, v, dor, lse, delta, q0, bq, k0, bk, causal, offset,
         v[:, :, k0:k0 + bk].float().transpose(-1, -2)
     pd = p
     if dropout > 0.0:
-        keep = _tile_keep(seed, b, h, q0, bq, k0, bk, dropout, qs.device)
+        keep = _tile_keep(seed, b, h, q0, bq, k0, bk, dropout, qs.device,
+                          shard)
         pd = p * keep
         dp = dp * keep
     ds = p * (dp - delta[:, :, q0:q0 + bq, None])
@@ -283,7 +302,7 @@ def _tiles(sq, sk, bq, bk, causal, outer_is_k: bool):
 
 def flash_bwd_kv_plain(qs, k, v, dor, lse, delta, causal: bool,
                        block_q: int, block_k: int, dropout: float = 0.0,
-                       seed=0, with_dq: bool = False):
+                       seed=0, with_dq: bool = False, shard=None):
     """The walk over k tiles (B3, or B2 with ``with_dq``): for each k tile
     its q tiles in order. Returns fp32 (dk, dv, dq unscaled or None)."""
     import torch
@@ -297,7 +316,7 @@ def flash_bwd_kv_plain(qs, k, v, dor, lse, delta, causal: bool,
         if with_dq else None
     for q0, k0 in _tiles(sq, sk, bq, bk, causal, outer_is_k=True):
         pd, ds = _bwd_tile(qs, k, v, dor, lse, delta, q0, bq, k0, bk, causal,
-                           sk - sq, dropout, seed)
+                           sk - sq, dropout, seed, shard)
         ks, qsl = slice(k0, k0 + bk), slice(q0, q0 + bq)
         dv[:, :, ks] += pd.transpose(-1, -2) @ dor[:, :, qsl].float()
         dk[:, :, ks] += _rounded(ds, qs.dtype).transpose(-1, -2) \
@@ -309,7 +328,7 @@ def flash_bwd_kv_plain(qs, k, v, dor, lse, delta, causal: bool,
 
 def flash_bwd_q_plain(qs, k, v, dor, lse, delta, causal: bool,
                       block_q: int, block_k: int, dropout: float = 0.0,
-                      seed=0):
+                      seed=0, shard=None):
     """The walk over q tiles (B4): for each q tile its k tiles in order.
     Returns dq in fp32, not yet scaled by 1/sqrt(d)."""
     import torch
@@ -320,7 +339,7 @@ def flash_bwd_q_plain(qs, k, v, dor, lse, delta, causal: bool,
     dq = torch.zeros((b, h, sq, d), dtype=torch.float32, device=qs.device)
     for q0, k0 in _tiles(sq, sk, bq, bk, causal, outer_is_k=False):
         _pd, ds = _bwd_tile(qs, k, v, dor, lse, delta, q0, bq, k0, bk,
-                            causal, sk - sq, dropout, seed)
+                            causal, sk - sq, dropout, seed, shard)
         dq[:, :, q0:q0 + bq] += _rounded(ds, k.dtype) \
             @ k[:, :, k0:k0 + bk].float()
     return dq
@@ -330,7 +349,7 @@ def flash_backward_plain(q, k, v, out, lse, do, causal: bool = False,
                          block_q: int = DEFAULT_BLOCK_Q,
                          block_k: int = DEFAULT_BLOCK_K,
                          dropout: float = 0.0, seed=0,
-                         fused: Optional[bool] = None):
+                         fused: Optional[bool] = None, shard=None):
     """Plain-PyTorch flash backward: (dq, dk, dv) in the inputs' dtypes.
 
     ``fused`` (None: the JAX package's residency rule) picks the schedule:
@@ -342,9 +361,9 @@ def flash_backward_plain(q, k, v, out, lse, do, causal: bool = False,
     qs, dor, delta = _bwd_inputs(q, out, do, fused)
     args = (qs, k, v, dor, lse, delta, causal, block_q, block_k, dropout,
             seed)
-    dk, dv, dq = flash_bwd_kv_plain(*args, with_dq=fused)
+    dk, dv, dq = flash_bwd_kv_plain(*args, with_dq=fused, shard=shard)
     if not fused:
-        dq = flash_bwd_q_plain(*args)
+        dq = flash_bwd_q_plain(*args, shard=shard)
     return ((dq * _sm_scale(q.shape[3])).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
 
@@ -376,7 +395,9 @@ def _library():
     if lib.ff_flash_fwd.argtypes is None:
         p, i, u, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
                       ctypes.c_float)
-        drop = [i, p, u, f]  # dropout_on, seed address, threshold, scale
+        # dropout_on, seed address, threshold, scale, and the shard's
+        # local heads, global heads and batch*head offset
+        drop = [i, p, u, f, i, i, i]
         lib.ff_flash_fwd.argtypes = [p] * 5 + [i] * 5 + drop + [i, p]
         lib.ff_flash_bwd_kv.argtypes = [p] * 10 + [i] * 6 + drop + [i, p]
         lib.ff_flash_bwd_q.argtypes = [p] * 7 + [f] + [i] * 5 + drop \
@@ -466,16 +487,20 @@ def seed_on_device(seed, device):
                       device=device)
 
 
-def _dropout_args(dropout: float, seed):
+def _dropout_args(dropout: float, seed, heads: int, shard=None):
     """The kernels' dropout arguments; ``seed`` is a device tensor from
-    :func:`seed_on_device` (the caller keeps it alive past the launch)."""
+    :func:`seed_on_device` (the caller keeps it alive past the launch).
+    ``heads`` is the call's own head count; ``shard`` (:func:`global_bh`)
+    makes the kernels hash the global batch*head coordinate
+    ``(bh / heads) * H + bh % heads + (b_off * H + h_off)``."""
     if dropout <= 0.0:
-        return [0, None, 0, 0.0]
+        return [0, None, 0, 0.0, 1, 1, 0]
+    b_off, h_off, hg = shard if shard is not None else (0, 0, heads)
     return [1, seed.data_ptr(), dropout_threshold(dropout),
-            dropout_scale(dropout)]
+            dropout_scale(dropout), heads, hg, b_off * hg + h_off]
 
 
-def _launch_fwd(qs, k, v, out, lse, causal, dropout, seed):
+def _launch_fwd(qs, k, v, out, lse, causal, dropout, seed, shard=None):
     """One launch of the forward kernel (B1) into preallocated ``out`` (q's
     dtype) and ``lse`` (fp32); ``qs`` is q pre-scaled."""
     import torch
@@ -488,24 +513,24 @@ def _launch_fwd(qs, k, v, out, lse, causal, dropout, seed):
     code = lib.ff_flash_fwd(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), b * h, sq, k.shape[2], d, int(causal),
-        *_dropout_args(dropout, seed), _dtype_code(qs.dtype),
+        *_dropout_args(dropout, seed, h, shard), _dtype_code(qs.dtype),
         torch.cuda.current_stream(qs.device).cuda_stream)
     check(lib, code, "flash_attention forward launch")
     _launches["flash_fwd"] += 1
 
 
-def _forward_cuda(q, k, v, causal, dropout, seed):
+def _forward_cuda(q, k, v, causal, dropout, seed, shard=None):
     import torch
 
     _check_cuda_inputs("flash_attention forward", q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    _launch_fwd(_prescale(q), k, v, out, lse, causal, dropout, seed)
+    _launch_fwd(_prescale(q), k, v, out, lse, causal, dropout, seed, shard)
     return out, lse
 
 
 def _launch_bwd_kv(qs, k, v, out, dor, lse, delta, dk, dv, dq_acc,
-                   causal, dropout, seed):
+                   causal, dropout, seed, shard=None):
     """One launch of the k-tile backward kernel into preallocated dk, dv:
     B2 (fused: delta in-kernel, dQ added into the zeroed fp32 ``dq_acc``)
     when ``dq_acc`` is given, else B3 (``delta`` precomputed)."""
@@ -522,13 +547,14 @@ def _launch_bwd_kv(qs, k, v, out, dor, lse, delta, dk, dv, dq_acc,
         dor.data_ptr(), lse.data_ptr(), None if fused else delta.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), dq_acc.data_ptr() if fused else None,
         int(fused), b * h, sq, k.shape[2], d, int(causal),
-        *_dropout_args(dropout, seed), _dtype_code(qs.dtype),
+        *_dropout_args(dropout, seed, h, shard), _dtype_code(qs.dtype),
         torch.cuda.current_stream(qs.device).cuda_stream)
     check(lib, code, "flash_attention dK/dV backward launch")
     _launches["flash_bwd_fused" if fused else "flash_bwd_dkv"] += 1
 
 
-def _launch_bwd_q(qs, k, v, dor, lse, delta, dq, causal, dropout, seed):
+def _launch_bwd_q(qs, k, v, dor, lse, delta, dq, causal, dropout, seed,
+                  shard=None):
     """One launch of the q-tile backward kernel (B4) into preallocated
     ``dq`` (q's dtype, scaled by 1/sqrt(d) in-kernel)."""
     import torch
@@ -541,14 +567,15 @@ def _launch_bwd_q(qs, k, v, dor, lse, delta, dq, causal, dropout, seed):
     code = lib.ff_flash_bwd_q(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), dor.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), _sm_scale(d),
-        b * h, sq, k.shape[2], d, int(causal), *_dropout_args(dropout, seed),
-        _dtype_code(qs.dtype),
+        b * h, sq, k.shape[2], d, int(causal),
+        *_dropout_args(dropout, seed, h, shard), _dtype_code(qs.dtype),
         torch.cuda.current_stream(qs.device).cuda_stream)
     check(lib, code, "flash_attention dQ backward launch")
     _launches["flash_bwd_dq"] += 1
 
 
-def _backward_cuda(q, k, v, out, lse, do, causal, dropout, seed, fused):
+def _backward_cuda(q, k, v, out, lse, do, causal, dropout, seed, fused,
+                   shard=None):
     import torch
 
     # the fused kernel computes delta itself: no host-side delta for it
@@ -567,31 +594,32 @@ def _backward_cuda(q, k, v, out, lse, do, causal, dropout, seed, fused):
     if fused:
         dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
         _launch_bwd_kv(qs, k, v, out, dor, lse, None, dk, dv, dq_acc,
-                       causal, dropout, seed)
+                       causal, dropout, seed, shard)
         return (dq_acc * _sm_scale(q.shape[3])).to(q.dtype), dk, dv
     dq = torch.empty_like(q)
     _launch_bwd_kv(qs, k, v, out, dor, lse, delta, dk, dv, None, causal,
-                   dropout, seed)
-    _launch_bwd_q(qs, k, v, dor, lse, delta, dq, causal, dropout, seed)
+                   dropout, seed, shard)
+    _launch_bwd_q(qs, k, v, dor, lse, delta, dq, causal, dropout, seed,
+                  shard)
     return dq, dk, dv
 
 
 # ----------------------------------------------------------------- wrappers
 def _flash_forward(q, k, v, causal: bool, block_q: int, block_k: int,
-                   dropout: float = 0.0, seed=0):
+                   dropout: float = 0.0, seed=0, shard=None):
     """(O, lse): the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors."""
     if q.device.type == "cpu":
         return flash_forward_plain(q, k, v, causal, block_q, block_k,
-                                   dropout, seed)
+                                   dropout, seed, shard)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    return _forward_cuda(q, k, v, causal, dropout, seed)
+    return _forward_cuda(q, k, v, causal, dropout, seed, shard)
 
 
 def _flash_backward(q, k, v, out, lse, do, causal: bool, block_q: int,
                     block_k: int, dropout: float = 0.0, seed=0,
-                    fused: Optional[bool] = None):
+                    fused: Optional[bool] = None, shard=None):
     """(dq, dk, dv) by the fused schedule (``fused=True``: B2) or the
     two-pass one (``False``: B3 then B4); None picks by the JAX package's
     rule. CUDA tensors launch the kernels, CPU tensors take the plain
@@ -600,11 +628,11 @@ def _flash_backward(q, k, v, out, lse, do, causal: bool, block_q: int,
         fused = use_fused_backward(q.shape[2], q.shape[3])
     if q.device.type == "cpu":
         return flash_backward_plain(q, k, v, out, lse, do, causal, block_q,
-                                    block_k, dropout, seed, fused)
+                                    block_k, dropout, seed, fused, shard)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     return _backward_cuda(q, k, v, out, lse, do, causal, dropout, seed,
-                          fused)
+                          fused, shard)
 
 
 def _function():
@@ -615,19 +643,21 @@ def _function():
         the probabilities from lse and regenerates the dropout mask."""
 
         @staticmethod
-        def forward(ctx, q, k, v, causal, block_q, block_k, dropout, seed):
+        def forward(ctx, q, k, v, causal, block_q, block_k, dropout, seed,
+                    shard):
             out, lse = _flash_forward(q, k, v, causal, block_q, block_k,
-                                      dropout, seed)
+                                      dropout, seed, shard)
             ctx.save_for_backward(q, k, v, out, lse)
             ctx.cfg = (causal, block_q, block_k, dropout, seed)
+            ctx.shard = shard
             return out
 
         @staticmethod
         def backward(ctx, do):
             q, k, v, out, lse = ctx.saved_tensors
             dq, dk, dv = _flash_backward(q, k, v, out, lse, do.contiguous(),
-                                         *ctx.cfg)
-            return dq, dk, dv, None, None, None, None, None
+                                         *ctx.cfg, shard=ctx.shard)
+            return dq, dk, dv, None, None, None, None, None, None
 
     return FlashAttentionFn
 
@@ -638,7 +668,8 @@ _FN = None
 def flash_attention(q, k, v, causal: bool = False,
                     block_q: int = DEFAULT_BLOCK_Q,
                     block_k: int = DEFAULT_BLOCK_K,
-                    dropout: float = 0.0, seed: Optional[int] = None):
+                    dropout: float = 0.0, seed: Optional[int] = None,
+                    shard=None):
     """q, k, v (batch, heads, seq, head_dim) -> (batch, heads, seq_q,
     head_dim) in q's dtype, differentiable.
 
@@ -646,7 +677,10 @@ def flash_attention(q, k, v, causal: bool = False,
     multiples of the blocks, causal needs seq_q <= seq_k, and ``dropout``
     needs a ``seed``: a uint32 int (the same seed gives the same mask in
     both packages) or a 0-d integer tensor holding it in its low 32 bits,
-    which on CUDA the kernels read from device memory."""
+    which on CUDA the kernels read from device memory. ``shard`` = (batch
+    offset, head offset, global heads) when q/k/v are a rank's slice of a
+    larger batch and head set: the dropout mask is then the whole call's
+    mask at these elements (:func:`global_bh`)."""
     global _FN
     dropout = float(dropout)
     if not 0.0 <= dropout < 1.0:
@@ -670,4 +704,5 @@ def flash_attention(q, k, v, causal: bool = False,
         seed = _seed_u32(seed)
     return _FN.apply(q.contiguous(), k.contiguous(), v.contiguous(),
                      bool(causal), int(block_q), int(block_k), dropout,
-                     seed)
+                     seed, None if shard is None else tuple(
+                         int(x) for x in shard))

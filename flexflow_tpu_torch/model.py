@@ -20,8 +20,18 @@ drive the same executor by hand. ``--fusion`` merges op chains at
 compile (``ops/fused.py``); the cache op and ``fit(recompile_state=)``
 recompile the model mid-training (``execution/recompile.py``);
 ``--trace-file``, ``--telemetry-file`` and ``--profiler-trace-dir`` record
-compile, fit, eval and serving (``obs/``). Multi-device strategies and the
-search's simulator (``--profile-ops``, ``profile_operators``) come in
+compile, fit, eval and serving (``obs/``).
+
+A strategy (``compile(strategy=...)`` / ``strategy_fn=``,
+``--import-strategy``, ``--mesh-shape``, ``--only-data-parallel``, or a
+world size above 1 under ``torchrun``) compiles for a ``torch.distributed``
+device mesh, one process per GPU: each rank holds its shards of the params
+and trains on its slice of every batch, and ``fit`` / ``eval`` /
+``predict`` return what the JAX package's global arrays give, the same on
+every rank (``parallel/spmd.py``). Compile with none of these in one
+process is the one-device path, with no process group. Pipeline
+strategies, the search (``--search-num-*``, ``--profile-ops``,
+``profile_operators``), the static analyzer and serving on a mesh come in
 later slices; their flags raise ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -109,6 +119,10 @@ class FFModel:
         self._recompile_state = None
         # the StepTelemetry of the last fit or serve run (get_telemetry)
         self._telemetry = None
+        # set by compile: the Strategy it applied and the Mesh it runs on
+        # (both None on the one-device path)
+        self.strategy = None
+        self.mesh = None
 
     # ======================================================= tensor creation ==
     def create_tensor(self, dims: Sequence[int],
@@ -531,9 +545,18 @@ class FFModel:
         from .obs import enable, get_tracer
 
         t = get_tracer()
-        if not t.enabled and self.config.trace_file:
+        if not t.enabled and self.config.trace_file and self._writes_files():
             t = enable(trace_file=self.config.trace_file)
         return t
+
+    def _writes_files(self) -> bool:
+        """Trace, telemetry, profiler and strategy files are written by
+        rank 0 alone on a mesh (every rank would write the same)."""
+        if self.mesh is None:
+            return True
+        from .parallel.mesh import world
+
+        return world()[0] == 0
 
     def get_telemetry(self):
         """StepTelemetry of the most recent fit or serve run (None when
@@ -543,9 +566,11 @@ class FFModel:
     def _make_telemetry(self, tracer, batch_size: int, phase: str):
         """A StepTelemetry when a sink wants one, else None — the None-ness
         is the hot loop's one instrumentation gate
-        (flexflow_tpu/model.py:481-515). MFU is against one card's peak:
-        the port runs on one device."""
-        if not (self.config.telemetry_file or tracer.enabled):
+        (flexflow_tpu/model.py:481-515). MFU is against the peak of the
+        cards the step runs on: one card's times the mesh's size (the
+        step's model FLOPs cover the global batch)."""
+        if not (self.config.telemetry_file or tracer.enabled) or \
+                not self._writes_files():
             return None
         from .obs.telemetry import (StepTelemetry, detect_peak_flops,
                                     model_flops_per_step)
@@ -553,8 +578,10 @@ class FFModel:
         tel = StepTelemetry(batch_size=batch_size, phase=phase)
         if self.pcg is not None:
             tel.flops_per_step = model_flops_per_step(self.pcg)
-        tel.peak_flops = detect_peak_flops() if self.device.type == "cuda" \
-            else None
+        peak = detect_peak_flops() if self.device.type == "cuda" else None
+        if peak is not None and self.mesh is not None:
+            peak *= self.mesh.numel
+        tel.peak_flops = peak
         return tel
 
     # ================================================================= compile
@@ -574,13 +601,22 @@ class FFModel:
         regions (``ops/fused.apply_fusion``, the final anchor a barrier).
         The whole lowering is one ``compile`` span of the process tracer,
         and ``--trace-file`` is written after it
-        (flexflow_tpu/model.py:519-538). An explicit or imported strategy
-        and a multi-device search are refused until their slices land."""
+        (flexflow_tpu/model.py:519-538).
+
+        The strategy (flexflow_tpu/model.py:590-664): ``strategy_fn(pcg)``
+        or ``strategy``, else ``--import-strategy``'s file (each checked by
+        ``preflight_strategy`` first), else with ``--mesh-shape`` a mesh of
+        that shape with the batch over its first axis, else at a world size
+        above 1 data parallelism over every rank (``--only-data-parallel``;
+        the JAX package would search, which the port has not yet). Any of
+        them builds the device mesh and the executor's SPMD plan;
+        ``--export-strategy`` writes the strategy's JSON (rank 0). With
+        none, in one process, the executor runs on one device."""
         tracer = self._obs_tracer()
         with tracer.span("compile", layers=len(self._layers)):
             self._compile_impl(optimizer, loss_type, metrics, final_tensor,
                                strategy, strategy_fn)
-        if tracer.enabled and self.config.trace_file:
+        if tracer.enabled and self.config.trace_file and self._writes_files():
             # flushed after each top-level phase, so compile-only sessions
             # (and crashes later on) still leave a loadable trace
             tracer.write(self.config.trace_file)
@@ -589,11 +625,6 @@ class FFModel:
                       strategy, strategy_fn) -> None:
         from .execution.executor import Executor
 
-        if strategy is not None or strategy_fn is not None \
-                or self.config.import_strategy_file:
-            raise NotImplementedError(
-                "compile: explicit/imported strategies are ported in a "
-                "later slice (multi-GPU); this slice compiles for one device")
         self._refuse_compile_options()
         if optimizer is not None:
             self.optimizer = optimizer
@@ -611,6 +642,22 @@ class FFModel:
             final = sinks[-1]
             self.final_out_idx = 0
         self.final_guid = final.guid
+        strategy, mesh = self._resolve_strategy(pcg, strategy, strategy_fn)
+        self.strategy, self.mesh = strategy, mesh
+        if mesh is not None:
+            self.device = mesh.device
+        if self.config.export_strategy_file and self._writes_files():
+            from .parallel.mesh import world
+            from .parallel.strategy import data_parallel_strategy
+
+            with open(self.config.export_strategy_file, "w") as f:
+                f.write((strategy or data_parallel_strategy(
+                    pcg, world()[1])).to_json(pcg))
+        if self.config.perform_fusion and mesh is not None:
+            raise NotImplementedError(
+                f"compile: --fusion under a strategy is {LATER} (ROADMAP "
+                "A.5, second part): the fused regions would need their "
+                "sub-ops' shardings")
         if self.config.perform_fusion:
             from .ops.fused import apply_fusion
 
@@ -643,23 +690,23 @@ class FFModel:
             pcg, self.config, self.final_guid, self.device,
             final_out_idx=self.final_out_idx, loss_type=loss_type,
             metrics=self.metrics_obj, optimizer=self.optimizer,
-            repl_labels=final.op.op_type == OperatorType.OP_AGG_SPEC)
+            repl_labels=final.op.op_type == OperatorType.OP_AGG_SPEC,
+            strategy=strategy, mesh=mesh)
         self.params = self.executor.init_params(self.config.numpy_seed())
         self.opt_state = self.optimizer.init_state(self.params)
         self._serving_engine = None
 
     def _refuse_compile_options(self) -> None:
-        """Flags the JAX package acts on at compile on a one-device host
-        (flexflow_tpu/model.py:595-672) and this slice does not: each
-        raises, naming itself, rather than being parsed and ignored."""
+        """Flags the JAX package acts on at compile (flexflow_tpu/model.py:
+        595-672) that need the search or the static analyzer (ROADMAP
+        A.6): each raises, naming itself, rather than being parsed and
+        ignored."""
         c = self.config
         refused = [
-            (bool(c.export_strategy_file), "--export-strategy"),
             (bool(c.export_strategy_computation_graph_file),
              "--compgraph (with or without --include-costs-dot-graph)"),
             (c.search_num_nodes != -1, "--search-num-nodes"),
             (c.search_num_workers != -1, "--search-num-workers"),
-            (c.mesh_shape is not None, "--mesh-shape"),
             ((c.static_analysis or "on") == "strict",
              "--static-analysis strict"),
             (bool(c.debug_nans), "--debug-nans"),
@@ -667,8 +714,49 @@ class FFModel:
         for on, flag in refused:
             if on:
                 raise NotImplementedError(
-                    f"compile: {flag} is {LATER}; this slice compiles for "
-                    "one device with no search, mesh or analysis")
+                    f"compile: {flag} is {LATER} (ROADMAP A.6); the port "
+                    "has no search or static analyzer yet")
+
+    @staticmethod
+    def _refuse_pipeline(strategy) -> None:
+        if strategy.pipeline:
+            raise NotImplementedError(
+                f"compile: the pipeline grid {tuple(strategy.pipeline)} of "
+                f"this strategy is {LATER} (ROADMAP A.5, second part: the "
+                "gpipe, 1f1b and interleaved schedules)")
+
+    def _resolve_strategy(self, pcg, strategy, strategy_fn):
+        """(Strategy, Mesh) of this compile, or (None, None) for the
+        one-device path (:meth:`compile`)."""
+        from .parallel.mesh import build_mesh, mesh_for_strategy, world
+        from .parallel.strategy import Strategy, data_parallel_strategy
+        from .resilience.preflight import preflight_strategy
+
+        c = self.config
+        n_dev = world()[1]
+        dev = self.device.type
+        if strategy_fn is not None:
+            strategy = strategy_fn(pcg)
+        mesh = None
+        if strategy is None and c.import_strategy_file:
+            with open(c.import_strategy_file) as f:
+                strategy = Strategy.from_json(f.read(), pcg)
+        if strategy is not None:
+            self._refuse_pipeline(strategy)
+            preflight_strategy(pcg, strategy, n_dev=n_dev,
+                               batch_size=c.batch_size)
+        elif c.mesh_shape:
+            # an explicit mesh: the batch over its first axis
+            mesh = build_mesh(c, device_type=dev)
+            strategy = data_parallel_strategy(pcg, mesh.sizes[0],
+                                              axis_names=mesh.axis_names)
+        elif n_dev > 1:
+            strategy = data_parallel_strategy(pcg, n_dev)
+        if strategy is None:
+            return None, None
+        if mesh is None:
+            mesh = mesh_for_strategy(c, strategy, device_type=dev)
+        return strategy, mesh
 
     def create_pcg(self):
         """Layer graph -> PCG (reference: create_operators_from_layers,
@@ -700,16 +788,18 @@ class FFModel:
     # ================================================================= weights
     def get_params_numpy(self) -> Dict[str, Dict[str, np.ndarray]]:
         """The parameters as the JAX package's ``{node_name: {wname:
-        np.ndarray}}`` pytree (same names, same layouts, fp32 masters)."""
+        np.ndarray}}`` pytree (same names, same layouts, fp32 masters). On
+        a mesh every rank gets the full arrays (each rank must call it)."""
         from .utils.weights import params_to_numpy
 
         self._require_compiled()
-        return params_to_numpy(self.params)
+        return params_to_numpy(self.params, self.executor.gather_param)
 
     def set_params_numpy(self, np_params: Dict[str, Dict[str, Any]]) -> None:
         """Load a ``{node_name: {wname: array}}`` pytree — e.g. the JAX
         package's ``ff.params`` through ``jax.device_get`` — 1:1 into this
-        model. Names, shapes and dtypes must match the model's own."""
+        model. Names, shapes and dtypes must match the model's own. On a
+        mesh each rank passes the full arrays and keeps its shards."""
         from .utils.weights import params_from_numpy
 
         self._require_compiled()
@@ -718,7 +808,8 @@ class FFModel:
         # the captured steps hold the old tensors' addresses
         self.executor.invalidate_jit_cache()
         self.params = params_from_numpy(np_params, self.device,
-                                        expected=expected)
+                                        expected=expected,
+                                        place=self.executor.shard_param)
         # fresh moments for the fresh weights
         self.opt_state = self.optimizer.init_state(self.params)
         self._serving_engine = None
@@ -736,7 +827,8 @@ class FFModel:
     def _get_weight_by_tensor(self, tensor: Tensor) -> np.ndarray:
         self._require_compiled()
         lname, wname = self._locate_weight(tensor)
-        return self.params[lname][wname].detach().cpu().numpy()
+        return self.executor.gather_param(
+            lname, wname, self.params[lname][wname]).detach().cpu().numpy()
 
     def _set_weight_by_tensor(self, tensor: Tensor, arr: np.ndarray) -> None:
         import torch
@@ -745,13 +837,13 @@ class FFModel:
         lname, wname = self._locate_weight(tensor)
         cur = self.params[lname][wname]
         arr = np.asarray(arr)
-        if tuple(arr.shape) != tuple(cur.shape):
-            raise ValueError(f"{tensor.name}: shape {arr.shape} != "
-                             f"{tuple(cur.shape)}")
+        want = tuple(tensor.dims)
+        if tuple(arr.shape) != want:
+            raise ValueError(f"{tensor.name}: shape {arr.shape} != {want}")
         new = dict(self.params)
         new[lname] = dict(new[lname])
-        new[lname][wname] = torch.as_tensor(arr, dtype=cur.dtype).to(
-            self.device)
+        new[lname][wname] = self.executor.shard_param(
+            lname, wname, torch.as_tensor(arr, dtype=cur.dtype))
         self.executor.invalidate_jit_cache()
         self.params = new
         self._serving_engine = None
@@ -790,17 +882,15 @@ class FFModel:
                 "through the search's simulator, which the port does not "
                 "have yet")
         refused = [
-            (bool(c.audit_strategy), "--audit-strategy"),
-            (int(c.memory_budget_mb or 0) > 0, "--memory-budget-mb"),
-            ((c.collective_overlap or "off") == "on",
-             "--collective-overlap on"),
-            (bool(c.schedule), "--schedule (pipeline strategies)"),
+            (bool(c.audit_strategy), "--audit-strategy (ROADMAP A.6)"),
+            (int(c.memory_budget_mb or 0) > 0,
+             "--memory-budget-mb (ROADMAP A.6)"),
+            (bool(c.schedule),
+             "--schedule (pipeline strategies, ROADMAP A.5, second part)"),
         ]
         for on, flag in refused:
             if on:
-                raise NotImplementedError(
-                    f"fit: {flag} is {LATER}; this slice trains on one "
-                    "device without strategies")
+                raise NotImplementedError(f"fit: {flag} is {LATER}")
 
     def fit(self, x=None, y=None, batch_size: Optional[int] = None,
             epochs: Optional[int] = None, callbacks=None,
@@ -863,6 +953,13 @@ class FFModel:
 
         self._require_compiled()
         self._refuse_fit_options()
+        if self.mesh is not None and self.mesh.numel > 1 and \
+                ResilienceSession.wanted(self.config, chaos):
+            raise NotImplementedError(
+                f"fit: checkpoints, --resume, --max-bad-steps and chaos on "
+                f"a mesh of {self.mesh.numel} ranks are {LATER} (ROADMAP "
+                "A.5, second part: sharded checkpoints and the guarded step "
+                "across ranks)")
         if recompile_state is not None:
             self._recompile_state = recompile_state
             recompile_state.ffmodel = self
@@ -903,7 +1000,8 @@ class FFModel:
         if telemetry is not None and cuda and self.config.telemetry_file:
             torch.cuda.reset_peak_memory_stats(self.device)
         last_batch = None
-        tracing = bool(self.config.profiler_trace_dir)
+        tracing = bool(self.config.profiler_trace_dir) and \
+            self._writes_files()
         if tracing:
             from .obs import start_trace
 
@@ -923,10 +1021,12 @@ class FFModel:
             while epoch < epochs:
                 # start_batch replays an interrupted epoch's tail: the same
                 # seed reproduces the shuffle, the cursor skips what the
-                # restored checkpoint already consumed
-                it = batch_iterator(xs + [y], batch_size, shuffle=shuffle,
-                                    seed=self.config.numpy_seed() + epoch,
-                                    start_batch=skip_batches)
+                # restored checkpoint already consumed; on a mesh every rank
+                # draws the same shuffle and stages its slice of each batch
+                it = (self.executor.local_batch(b) for b in batch_iterator(
+                    xs + [y], batch_size, shuffle=shuffle,
+                    seed=self.config.numpy_seed() + epoch,
+                    start_batch=skip_batches))
                 batch_in_epoch = skip_batches
                 skip_batches = 0
                 epoch_metrics = []
@@ -1062,7 +1162,7 @@ class FFModel:
                     self.executor, self.params, self.opt_state, *last_batch)
             if self.config.telemetry_file:
                 telemetry.write(self.config.telemetry_file)
-        if tracer.enabled and self.config.trace_file:
+        if tracer.enabled and self.config.trace_file and self._writes_files():
             tracer.write(self.config.trace_file)
         return self._perf
 
@@ -1089,8 +1189,11 @@ class FFModel:
         t_eval = time.perf_counter()
         n_batches = 0
         loss_val = None
+        ex = self.executor
         for batch in batch_iterator(xs + [y], batch_size,
                                     drop_remainder=False):
+            # this rank's slice, or the whole of a short last batch
+            batch = ex.local_batch(batch)
             staged = to_device(batch, self.device)
             loss_val, m = estep(self.params, staged[:-1], staged[-1])
             perf.update({k: (v.item() if torch.is_tensor(v) else v)
@@ -1101,7 +1204,7 @@ class FFModel:
                             batches=n_batches,
                             loss=(float(loss_val) if loss_val is not None
                                   else None))
-            if self.config.trace_file:
+            if self.config.trace_file and self._writes_files():
                 # eval-only workloads get their trace file too
                 tracer.write(self.config.trace_file)
         return perf
@@ -1134,6 +1237,7 @@ class FFModel:
                 batch = [np.concatenate([a, np.repeat(a[-1:], pad, axis=0)],
                                         axis=0) for a in batch]
                 tail_rows = nb
+            batch = self.executor.local_batch(batch)
             outs.append(fwd(self.params, to_device(batch, self.device)))
         host = [o.float().cpu().numpy() if o.is_floating_point()
                 else o.cpu().numpy() for o in outs]
@@ -1197,8 +1301,10 @@ class FFModel:
         loop."""
         from .data.dataloader import to_device
 
-        xs = to_device(self._as_input_list(x), self.device)
-        (lab,) = to_device([self._prep_label(y)], self.device)
+        batch = self.executor.local_batch(self._as_input_list(x) +
+                                          [self._prep_label(y)])
+        xs = to_device(batch[:-1], self.device)
+        (lab,) = to_device(batch[-1:], self.device)
         self._staged["batch"] = (xs, lab)
         self._staged["label_placeholder"] = False
 
@@ -1254,7 +1360,8 @@ class FFModel:
             vals = ex.forward_outputs(params, ex._bind_inputs(xs),
                                       OpContext(training=False,
                                                 device=self.device))
-        out = vals[guid][tensor.owner_idx]
+        out = ex._replicate_output(guid, tensor.owner_idx,
+                                   vals[guid][tensor.owner_idx])
         return (out.float() if out.is_floating_point() else out).cpu() \
             .numpy()
 

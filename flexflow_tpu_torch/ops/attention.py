@@ -41,13 +41,15 @@ NEG_INF = -1e30
 
 
 def mha_core(q, k, v, *, causal: bool = False, dropout: float = 0.0,
-             seed=None, attn_mask=None, scale: float = None):
+             seed=None, attn_mask=None, scale: float = None, shard=None):
     """q,k,v: (batch, heads, seq, head_dim) -> (batch, heads, seq_q, vd) in
     v's dtype; scores, softmax and the PV sum in fp32. ``attn_mask`` is a
     bool mask (True attends) or an additive one, broadcastable to
     (b, h, seq_q, seq_k). ``dropout`` > 0 needs a ``seed`` (an int or a
     0-d integer tensor) and multiplies the probabilities by the
-    counter-hash mask of that seed."""
+    counter-hash mask of that seed, at the global coordinates of ``shard``
+    (``kernels.flash_attention.global_bh``) when q/k/v are a rank's slice
+    of the batch and heads."""
     import torch
 
     head_dim = q.shape[-1]
@@ -66,21 +68,21 @@ def mha_core(q, k, v, *, causal: bool = False, dropout: float = 0.0,
     probs = torch.softmax(logits, dim=-1)
     if dropout > 0.0:
         probs = probs * _dropout_mask(seed, probs.shape, dropout,
-                                      probs.device)
+                                      probs.device, shard)
     out = torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype).float(),
                        v.float())
     return out.to(v.dtype)
 
 
-def _dropout_mask(seed, shape, rate: float, device):
+def _dropout_mask(seed, shape, rate: float, device, shard=None):
     """The (b, h, sq, sk) keep-scale mask of the flash kernels' counter
     hash at GLOBAL coordinates."""
     import torch
 
-    from ..kernels.flash_attention import dropout_keep_scale_plain
+    from ..kernels.flash_attention import dropout_keep_scale_plain, global_bh
 
     b, h, sq, sk = shape
-    bh = torch.arange(b * h, device=device).view(b, h, 1, 1)
+    bh = global_bh(b, h, shard, device)
     qp = torch.arange(sq, device=device).view(1, 1, sq, 1)
     kp = torch.arange(sk, device=device).view(1, 1, 1, sk)
     return dropout_keep_scale_plain(seed, bh, qp, kp, rate)
@@ -95,6 +97,16 @@ class MultiHeadAttentionOp(Op):
 
     inputs: (query, key, value), each (batch, seq, dim).
     output: (batch, seq_q, embed_dim).
+
+    On a mesh (``ctx.shard`` in mode "heads", the hybrid strategy's
+    attribute parallelism) ``wq``/``wk``/``wv`` hold this rank's heads and
+    ``wo`` their rows: q, k and v are projected for the local heads only,
+    the flash kernels run on them, and the output projection's partial sum
+    is all-reduced over the model axis before ``bo``, in fp32 as is the
+    inputs' grad of the q/k/v projections (``ShardInfo.row_matmul`` /
+    ``column_matmuls``). Dropout hashes the
+    global (batch, head) coordinates, so every rank draws its slice of the
+    single-device mask.
     """
 
     def _dims(self):
@@ -141,9 +153,14 @@ class MultiHeadAttentionOp(Op):
         import torch
 
         q_in, k_in, v_in = inputs
-        q = torch.einsum("bsd,dhk->bhsk", q_in, params["wq"])
-        k = torch.einsum("bsd,dhk->bhsk", k_in, params["wk"])
-        v = torch.einsum("bsd,dhk->bhsk", v_in, params["wv"])
+        tp = ctx.shard if ctx.shard is not None and \
+            ctx.shard.mode == "heads" and ctx.shard.split else None
+        if tp is None:
+            q = torch.einsum("bsd,dhk->bhsk", q_in, params["wq"])
+            k = torch.einsum("bsd,dhk->bhsk", k_in, params["wk"])
+            v = torch.einsum("bsd,dhk->bhsk", v_in, params["wv"])
+        else:
+            q, k, v = _local_head_projections(tp, inputs, params)
         causal = self.attrs.get("causal", False)
         if ctx.serving is not None:
             out = _serving_attention(self.name, q, k, v, ctx.serving,
@@ -152,11 +169,37 @@ class MultiHeadAttentionOp(Op):
             out = _attention_core(self.attrs, q, k, v, ctx, causal)
         # in the compute dtype: cuBLAS sums bf16 products in fp32 and rounds
         # once, as the JAX op's preferred_element_type=float32 + astype
-        y = torch.einsum("bhsv,hvd->bsd", out.to(params["wo"].dtype),
-                         params["wo"]).to(q_in.dtype)
+        wo = params["wo"]
+        if tp is None:
+            y = torch.einsum("bhsv,hvd->bsd", out.to(wo.dtype), wo)
+        else:  # row-parallel wo: the local heads' partial, summed in fp32
+            b, h, s, dv = out.shape
+            y = tp.row_matmul(
+                out.to(wo.dtype).transpose(1, 2).reshape(b, s, h * dv),
+                wo.reshape(h * dv, wo.shape[-1]))
+        y = y.to(q_in.dtype)
         if "bo" in params:
             y = y + params["bo"]
         return [y]
+
+
+def _local_head_projections(tp, inputs, params):
+    """q, k and v (batch, local heads, seq, dim) of ``inputs`` under a
+    model axis: one ``column_matmuls`` for each distinct input tensor (a
+    self-attention's q, k and v share one), so the input's grad is one
+    fp32 all-reduce."""
+    ws = [params[w] for w in ("wq", "wk", "wv")]
+    out = [None] * 3
+    for i, x in enumerate(inputs):
+        if out[i] is not None:
+            continue
+        idx = [j for j in range(3) if inputs[j] is x]
+        ys = tp.column_matmuls(x, [ws[j].reshape(ws[j].shape[0], -1)
+                                   for j in idx])
+        for j, y in zip(idx, ys):
+            out[j] = y.view(*y.shape[:-1], ws[j].shape[1],
+                            ws[j].shape[2]).transpose(1, 2)
+    return out
 
 
 def _serving_attention(name: str, q, k, v, sv, *, causal: bool):
@@ -311,14 +354,39 @@ def _attention_core(attrs, q, k, v, ctx: OpContext, causal: bool):
     core (flexflow_tpu/ops/attention.py:134-147)."""
     live = _resolve_live_dropout(attrs.get("dropout", 0.0), ctx)
     seed = next_seed(ctx.rng) if live else None
+    shard = _hash_shard(ctx, q, attrs["num_heads"])
     blocks = _flash_blocks(q.shape[-2], k.shape[-2])
     if _should_use_flash(attrs.get("use_flash", "auto"), q, k, causal) \
             and blocks is not None:
         from ..kernels.flash_attention import flash_attention
 
         return flash_attention(q, k, v, causal, *blocks, dropout=live,
-                               seed=seed)
-    return mha_core(q, k, v, causal=causal, dropout=live, seed=seed)
+                               seed=seed, shard=shard)
+    return mha_core(q, k, v, causal=causal, dropout=live, seed=seed,
+                    shard=shard)
+
+
+def _hash_shard(ctx, q, heads: int):
+    """(batch offset, head offset, global heads) of this rank's (b, h)
+    block of q on a mesh, for the dropout hash; None off a mesh."""
+    if ctx.shard is None:
+        return None
+    b_off = ctx.shard.in_offsets(0)[0]
+    h_off = ctx.shard.axis_offset(q.shape[1]) \
+        if ctx.shard.mode == "heads" else 0
+    return (b_off, h_off, heads)
+
+
+def refuse_sequence_parallel(name: str, attrs) -> None:
+    """A strategy's ``sequence_parallel_axis`` (``long_context_strategy``)
+    asks for ring or all-to-all attention over a sequence axis, which the
+    port has not yet: refused by name."""
+    if attrs.get("sequence_parallel_axis"):
+        raise NotImplementedError(
+            f"{name}: sequence_parallel_axis="
+            f"{attrs['sequence_parallel_axis']!r} (ring / Ulysses attention "
+            "over a sequence axis, long_context_strategy) is ported in a "
+            "later slice (ROADMAP A.7)")
 
 
 def _resolve_live_dropout(dropout, ctx) -> float:
@@ -413,6 +481,7 @@ class SDPAOp(Op):
         causal = self.attrs.get("causal", False)
         live = _resolve_live_dropout(self.attrs.get("dropout", 0.0), ctx)
         seed = next_seed(ctx.rng) if live else None
+        shard = _hash_shard(ctx, q, q.shape[1])
         blocks = _flash_blocks(q.shape[-2], k.shape[-2])
         # the flash kernels take no mask and no scale
         if mask is None and self.attrs.get("scale") is None \
@@ -422,6 +491,7 @@ class SDPAOp(Op):
             from ..kernels.flash_attention import flash_attention
 
             return [flash_attention(q, k, v, causal, *blocks, dropout=live,
-                                    seed=seed)]
+                                    seed=seed, shard=shard)]
         return [mha_core(q, k, v, causal=causal, dropout=live, seed=seed,
-                         attn_mask=mask, scale=self.attrs.get("scale"))]
+                         attn_mask=mask, scale=self.attrs.get("scale"),
+                         shard=shard)]

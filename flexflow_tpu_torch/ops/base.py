@@ -44,6 +44,11 @@ class OpContext:
     # fresh values, which the step returns. None outside a cached step
     cache_in: Any = None
     cache_out: Any = None
+    # the ``parallel.mesh.Mesh`` a strategy runs over (None on one device)
+    # and, while a node runs on it, that node's ``parallel.spmd.ShardInfo``:
+    # its inputs' and weights' layouts and this rank's place in them
+    mesh: Any = None
+    shard: Any = None
 
 
 # registry: OperatorType -> Op subclass

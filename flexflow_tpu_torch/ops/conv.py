@@ -98,7 +98,12 @@ def conv2d_hwio(x, kernel, stride=(1, 1), padding=(0, 0), groups: int = 1):
 @register_op(OperatorType.OP_CONV2D)
 class Conv2DOp(Op):
     """attrs: out_channels, kernel_h/w, stride_h/w, padding_h/w, activation,
-    groups, use_bias (reference builder: FFModel::conv2d, src/ops/conv_2d.cc)."""
+    groups, use_bias (reference builder: FFModel::conv2d, src/ops/conv_2d.cc).
+
+    On a mesh under the hybrid strategy's channel-out split (mode
+    "channel") the kernel and bias hold this rank's output channels and
+    the forward, unchanged, computes them: its output is split over the
+    model axis on the channel dim (``parallel/spmd.py``)."""
 
     def infer_output_shapes(self, input_shapes):
         n, c, h, w = input_shapes[0]

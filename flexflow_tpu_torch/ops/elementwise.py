@@ -175,16 +175,29 @@ class CastOp(Op):
         return [inputs[0].to(dtype_to_torch(self.attrs["target_dtype"]))]
 
 
-def dropout_mask(seed, shape, rate: float, device):
+def dropout_mask(seed, shape, rate: float, device, global_shape=None,
+                 offsets=None):
     """The keep-scale mask ({0, 1/(1-rate)} in fp32) of a tensor of
     ``shape``: the flash kernels' counter hash at each element's flat
-    index. ``seed``: an int or a 0-d integer tensor."""
+    index. ``seed``: an int or a 0-d integer tensor. For a rank's shard
+    of a tensor of ``global_shape`` starting at ``offsets``, the index is
+    the element's flat index in the whole tensor."""
     import torch
 
     from ..kernels.flash_attention import dropout_keep_scale_plain
 
-    n = int(np.prod(shape))
-    idx = torch.arange(n, dtype=torch.int64, device=device).view(shape)
+    if global_shape is None:
+        n = int(np.prod(shape))
+        idx = torch.arange(n, dtype=torch.int64, device=device).view(shape)
+    else:
+        idx = torch.zeros((), dtype=torch.int64, device=device)
+        stride = 1
+        for d in reversed(range(len(shape))):
+            pos = torch.arange(shape[d], dtype=torch.int64,
+                               device=device) + offsets[d]
+            idx = idx + (pos * stride).view(
+                (-1,) + (1,) * (len(shape) - 1 - d))
+            stride *= int(global_shape[d])
     return dropout_keep_scale_plain(seed, 0, idx, 0, rate)
 
 
@@ -210,6 +223,9 @@ class DropoutOp(Op):
                 f"{self.name}: dropout in a training forward needs the "
                 "step's random stream (OpContext.rng); fit and "
                 "make_train_step pass it")
+        where = {} if ctx.shard is None else {
+            "global_shape": ctx.shard.in_shapes[0],
+            "offsets": ctx.shard.in_offsets(0)}
         mask = dropout_mask(next_seed(ctx.rng), tuple(x.shape), rate,
-                            x.device)
+                            x.device, **where)
         return [(x * mask).to(x.dtype)]

@@ -18,6 +18,11 @@ class EmbeddingOp(Op):
 
     input: int ids of shape (batch,) or (batch, bag); output
     (batch, bag, out_dim) for AGGR_MODE_NONE, (batch, out_dim) for SUM/AVG.
+
+    On a mesh the table is this rank's shard: split over the vocabulary
+    (mode "vocab", the hybrid strategy's) each rank gathers the ids it
+    holds, zeroes the others and the rows are summed over the model axis;
+    split over the embedding dim ("dim") each rank returns its columns.
     """
 
     def infer_output_shapes(self, input_shapes):
@@ -44,10 +49,21 @@ class EmbeddingOp(Op):
         import torch.nn.functional as F
 
         (ids,) = inputs
-        out = F.embedding(ids.long(), params["weight"])
+        weight = params["weight"]
+        vocab = ctx.shard is not None and ctx.shard.mode == "vocab"
+        if vocab:
+            rows = weight.shape[0]
+            local = ids.long() - ctx.shard.axis_offset(rows)
+            held = (local >= 0) & (local < rows)
+            out = F.embedding(local.clamp(0, rows - 1), weight) * \
+                held[..., None].to(weight.dtype)
+        else:
+            out = F.embedding(ids.long(), weight)
         aggr = self.attrs.get("aggr", AggrMode.AGGR_MODE_NONE)
         if aggr == AggrMode.AGGR_MODE_SUM:
             out = out.sum(dim=1)
         elif aggr == AggrMode.AGGR_MODE_AVG:
             out = out.mean(dim=1)
+        if vocab:
+            out = ctx.shard.reduce(out)
         return [out]

@@ -36,23 +36,44 @@ def apply_activation(x, activation: ActiMode):
 def apply_weight_regularizer(spec, kernel, ctx: OpContext) -> None:
     """The ``("l1"|"l2", lam)`` penalty of ``kernel`` (the compute-dtype
     copy the forward multiplies by), in fp32, appended to
-    ``ctx.aux_losses`` when training (flexflow_tpu/ops/linear.py:74-89)."""
+    ``ctx.aux_losses`` when training (flexflow_tpu/ops/linear.py:74-89).
+    On a mesh the penalty of a split kernel is summed over its shards, and
+    where the kernel's grads are summed over the data axis afterwards, the
+    penalty's gradient enters each rank's share once divided by that
+    axis's size (its value is the whole penalty)."""
     if not spec or not ctx.training or ctx.aux_losses is None:
         return
     kind, lam = spec
     w = kernel.float()
     if kind == "l1":
-        ctx.aux_losses.append(lam * w.abs().sum())
+        pen = lam * w.abs().sum()
     elif kind == "l2":
-        ctx.aux_losses.append(lam * (w * w).sum())
+        pen = lam * (w * w).sum()
     else:
         raise ValueError(f"unknown regularizer kind {kind!r}")
+    shard = ctx.shard
+    if shard is not None:
+        from ..parallel.spmd import reduce_to_replicated
+
+        pen = reduce_to_replicated(pen, shard.mesh,
+                                   shard.weight_axes("kernel"))
+        n = shard.grad_scale()
+        if n > 1:
+            pen = pen.detach() + (pen - pen.detach()) / n
+    ctx.aux_losses.append(pen)
 
 
 @register_op(OperatorType.OP_LINEAR)
 class LinearOp(Op):
     """attrs: out_dim, activation, use_bias, kernel_initializer,
-    bias_initializer, kernel_regularizer."""
+    bias_initializer, kernel_regularizer.
+
+    On a mesh the kernel and bias are this rank's shards: column-parallel
+    (mode "col") computes its block of output columns; row-parallel ("row")
+    contracts its block of input features and all-reduces the partial sum
+    over the model axis before the bias and the activation. Both keep the
+    cross-rank sums in fp32 (``ShardInfo.row_matmul`` /
+    ``column_matmuls``)."""
 
     def infer_output_shapes(self, input_shapes):
         (ishape,) = input_shapes
@@ -78,7 +99,13 @@ class LinearOp(Op):
     def forward(self, params, inputs, ctx: OpContext):
         (x,) = inputs
         kernel = params["kernel"]
-        y = x @ kernel
+        mode = ctx.shard.mode if ctx.shard is not None else "plain"
+        if mode == "row":
+            y = ctx.shard.row_matmul(x, kernel)
+        elif mode == "col":
+            (y,) = ctx.shard.column_matmuls(x, [kernel])
+        else:
+            y = x @ kernel
         if "bias" in params:
             y = y + params["bias"]
         apply_weight_regularizer(self.attrs.get("kernel_regularizer"),

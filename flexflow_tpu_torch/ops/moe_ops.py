@@ -133,7 +133,11 @@ class ExpertsOp(Op):
     products in fp32 and rounds once, as its ``preferred_element_type``
     and cast do).
 
-    attrs: n, out_dim, activation, use_bias."""
+    attrs: n, out_dim, activation, use_bias.
+
+    On a mesh whose strategy splits the kernel's expert dim (mode
+    "experts") the kernel, the bias and the dispatch hold this rank's
+    experts, and the forward, unchanged, computes them."""
 
     def infer_output_shapes(self, input_shapes):
         n, cap, _d = input_shapes[0]

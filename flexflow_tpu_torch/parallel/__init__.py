@@ -1,2 +1,3 @@
-"""Graph structures (the PCG); strategies and meshes come with the
-multi-GPU slice."""
+"""The PCG, strategies and their builders, the device mesh over a
+``torch.distributed`` group, the parallel ops and the SPMD plan that runs
+a strategy (``spmd.py``)."""

@@ -2,11 +2,10 @@
 
 Port of ``flexflow_tpu.parallel.pcg`` (reference: ``PCG::Graph``,
 include/flexflow/graph.h:293): a graph of (Op, guid) nodes over edges that
-carry tensor indices. This slice runs on one device, so it keeps what
-lowering and the remat segmentation need — construction, topological
-order, sources/sinks, bottlenecks — and leaves the search-time mutations
-(edge insertion, splitting, structural hashing) to the multi-GPU slice
-that brings strategies and meshes.
+carry tensor indices. It keeps what lowering, strategies and the remat
+segmentation need — construction, topological order, sources/sinks,
+bottlenecks — and leaves the search-time mutations (edge insertion,
+splitting, structural hashing) to the search slice.
 """
 from __future__ import annotations
 

@@ -364,6 +364,11 @@ class ServingEngine:
 
         if model.executor is None:
             raise RuntimeError("call model.compile() first")
+        if getattr(model, "mesh", None) is not None:
+            raise NotImplementedError(
+                "ServingEngine: serving a model compiled under a strategy "
+                "(a device mesh) is ported in a later slice (ROADMAP A.8, "
+                "multi-device serving); compile it without one to serve")
         self.model = model
         self.executor = model.executor
         self.device = model.device

@@ -16,12 +16,14 @@ import numpy as np
 def params_from_numpy(np_params: Dict[str, Dict[str, Any]], device,
                       expected: Optional[Dict[Tuple[str, str],
                                               Tuple[Tuple[int, ...],
-                                                    Any]]] = None
-                      ) -> Dict[str, Dict[str, Any]]:
+                                                    Any]]] = None,
+                      place=None) -> Dict[str, Dict[str, Any]]:
     """``{node: {wname: array}}`` -> the same pytree of torch tensors on
     ``device``. With ``expected`` ({(node, wname): (shape, DataType)}, as
     the model declares them) every entry must be present with its shape
-    and is cast to its declared dtype; unknown entries raise."""
+    and is cast to its declared dtype; unknown entries raise. ``place(node,
+    wname, full)`` (``Executor.shard_param``) turns each full CPU tensor
+    into what this rank holds, its shard under a strategy."""
     import torch
 
     from ..ffconst import dtype_to_torch
@@ -45,15 +47,22 @@ def params_from_numpy(np_params: Dict[str, Dict[str, Any]], device,
                                      f"model declares {tuple(shape)}")
                 dtype = dtype_to_torch(dt)
             t = torch.tensor(a, dtype=dtype)  # a copy, never a view
-            out.setdefault(node, {})[wname] = t.to(device)
+            out.setdefault(node, {})[wname] = (
+                place(node, wname, t) if place is not None
+                else t.to(device))
     return out
 
 
-def params_to_numpy(params: Dict[str, Dict[str, Any]]
+def params_to_numpy(params: Dict[str, Dict[str, Any]], gather=None
                     ) -> Dict[str, Dict[str, np.ndarray]]:
     """The inverse of :func:`params_from_numpy`: host copies (the train
     step updates the params in place, so a view of a CPU tensor would
-    change under its holder)."""
-    return {node: {w: t.detach().cpu().numpy().copy()
+    change under its holder). ``gather(node, wname, local)``
+    (``Executor.gather_param``) makes the full array from a rank's shard;
+    every rank must call it, in the same order."""
+    def full(node, w, t):
+        return gather(node, w, t) if gather is not None else t
+
+    return {node: {w: full(node, w, t).detach().cpu().numpy().copy()
                    for w, t in ws.items()}
             for node, ws in params.items()}

@@ -75,7 +75,10 @@ def test_importing_every_module_loads_neither_jax_nor_flexflow_tpu():
               "utils.graph_utils", "obs.trace", "execution.checkpoint",
               "execution.remat", "resilience.chaos", "resilience.sentinel",
               "resilience.session", "obs.telemetry", "obs.reqtrace",
-              "ops.fused", "execution.recompile"):
+              "ops.fused", "execution.recompile", "machine_view",
+              "parallel_tensor", "parallel.mesh", "parallel.spmd",
+              "parallel.strategy", "parallel.strategies",
+              "parallel.parallel_op", "parallel.pipeline"):
         assert f"flexflow_tpu_torch.{m}" in mods
     script = (
         "import importlib, json, sys\n"
@@ -316,7 +319,6 @@ def _xy():
     ("audit_strategy", True, "--audit-strategy"),
     ("memory_budget_mb", 1024, "--memory-budget-mb"),
     ("profile_ops", "ops.jsonl", "--profile-ops"),
-    ("collective_overlap", "on", "--collective-overlap"),
     ("schedule", "1f1b", "--schedule"),
 ])
 def test_fit_refuses_config_flags_of_later_slices(field, value, flag):
@@ -374,12 +376,10 @@ def test_fit_takes_recompile_state():
 
 
 @pytest.mark.parametrize("field,value,flag", [
-    ("export_strategy_file", "strategy.json", "--export-strategy"),
     ("export_strategy_computation_graph_file", "graph.dot", "--compgraph"),
     ("include_costs_dot_graph", True, "--compgraph"),
     ("search_num_nodes", 2, "--search-num-nodes"),
     ("search_num_workers", 4, "--search-num-workers"),
-    ("mesh_shape", (1,), "--mesh-shape"),
     ("static_analysis", "strict", "--static-analysis strict"),
     ("debug_nans", True, "--debug-nans"),
 ])
@@ -392,6 +392,27 @@ def test_compile_refuses_config_flags_of_later_slices(field, value, flag):
     with pytest.raises(NotImplementedError, match=LATER) as e:
         _tiny_mlp(**{field: value}, **extra)
     assert flag in str(e.value)
+
+
+def test_compile_acts_on_the_strategy_flags(tmp_path):
+    """``--export-strategy`` and ``--mesh-shape``, refused before their
+    slice: the one writes the strategy's JSON, the other compiles on a mesh
+    (of one gloo rank here); ``--collective-overlap on`` trains there."""
+    import torch.distributed as dist
+
+    path = str(tmp_path / "strategy.json")
+    ff = _tiny_mlp(export_strategy_file=path)
+    with open(path) as f:
+        assert json.load(f)["axis_names"] == ["data"]
+    assert ff.mesh is None
+    try:
+        ff = _tiny_mlp(mesh_shape=(1,), collective_overlap="on")
+        assert ff.mesh.shape == {"data": 1}
+        perf = ff.fit(*_xy(), epochs=1)
+        assert perf.train_all == 8
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def test_compile_takes_the_in_slice_defaults():

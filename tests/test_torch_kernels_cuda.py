@@ -195,6 +195,49 @@ def test_flash_attention_kernels_match_plain(dtype, causal, sq, sk, d,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("block", [((0, 4), (2, 4)), ((2, 4), (0, 4)),
+                                   ((2, 4), (2, 4))])
+def test_flash_kernels_on_a_shard_hash_global_coordinates(dtype, causal,
+                                                          block):
+    """B1-B4 on a data- or tensor-parallel rank's (batch, head) block with
+    its offsets: the output, lse and grads of the unsharded call at that
+    block (the same dropout mask), and the plain versions' on the same
+    block; without the offsets the block draws another mask."""
+    dev = _cuda()
+    q, k, v, do = _fa_inputs(3, dtype, dev, b=4, h=4, sq=128, sk=128)
+    rate, seed = 0.1, 20261018
+    out_tol, grad_tol = FA_TOL[dtype]
+    o, lse = fa._flash_forward(q, k, v, causal, 64, 64, rate, seed)
+    (b0, b1), (h0, h1) = block
+    sl = (slice(b0, b1), slice(h0, h1))
+    qs, ks, vs, ds = (t[sl].contiguous() for t in (q, k, v, do))
+    shard = (b0, h0, 4)
+    so, slse = fa._flash_forward(qs, ks, vs, causal, 64, 64, rate, seed,
+                                 shard)
+    po, plse = fa.flash_forward_plain(qs, ks, vs, causal, 64, 64, rate,
+                                      seed, shard)
+    bare, _ = fa._flash_forward(qs, ks, vs, causal, 64, 64, rate, seed)
+    torch.cuda.synchronize()
+    assert torch.equal(so, o[sl]) and torch.equal(slse, lse[sl])
+    assert (so.float() - po.float()).abs().max().item() <= out_tol
+    assert not torch.equal(bare, so)
+    for fused in (True, False):
+        full = fa._flash_backward(q, k, v, o, lse, do, causal, 64, 64, rate,
+                                  seed, fused=fused)
+        got = fa._flash_backward(qs, ks, vs, so, slse, ds, causal, 64, 64,
+                                 rate, seed, fused=fused, shard=shard)
+        plain = fa.flash_backward_plain(qs, ks, vs, so, slse, ds, causal,
+                                        64, 64, rate, seed, fused=fused,
+                                        shard=shard)
+        torch.cuda.synchronize()
+        for name, g, f, p in zip(("dq", "dk", "dv"), got, full, plain):
+            assert _rel_err(g, f[sl]) <= grad_tol, (name, fused)
+            assert _rel_err(g, p) <= grad_tol, (name, fused)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("b,h,causal,sq,sk,d,dropout", [
     (4, 40, False, 256, 256, 64, 0.0),    # b*h 160: more than one wave
