@@ -307,6 +307,19 @@ timed generate only replays):
    streams the untraced run's, traced / untraced tokens/s. B5 is held
    against its plain version on each B5 engine's own pools after its run.
 
+14. mesh — strategies on a device mesh (the section's comment): NCCL of
+   one rank, tp = 2 x dp = 2 as threads, four gloo ranks on the CPU.
+
+15. pipeline — pipeline parallelism (the section's comment): the
+   BERT-Large proxy at full width in fp32 as four ranks in threads on
+   the one card (a harness group that adds point-to-point as copies), pp
+   4 x dp 1 under gpipe, 1f1b and interleaved (v 2) and pp 2 x dp 2
+   under 1f1b, within the band of one-device runs, B1 and B2 counted per
+   rank; four gloo ranks on the CPU, the tiny BERT at pp 2 x dp 2, the
+   three schedules bitwise equal. B1 and B2 are held against their
+   plain versions at the microbatch shape and timed there
+   (``flash_fwd_pipeline``, ``flash_bwd_fused_pipeline``).
+
 It prints the run's wall seconds, one ``{"kernels": [...]}`` line (the
 entries of the instances the census covers also carry their SASS counts,
 registers, spills and shared memory; the flash-decode entries their
@@ -1355,6 +1368,8 @@ FA_SHAPES = {
     "bert": dict(b=8, h=16, sq=512, sk=512, d=64, causal=False),
     # a tensor-parallel rank's share of the BERT shape at tp = 2 (phase 14)
     "bert_tp2": dict(b=8, h=8, sq=512, sk=512, d=64, causal=False),
+    # a pipeline microbatch of the BERT shape: batch 8 in 4 (phase 15)
+    "bert_micro": dict(b=2, h=16, sq=512, sk=512, d=64, causal=False),
     "gpt2": dict(b=8, h=12, sq=512, sk=512, d=64, causal=True),
     "long": dict(b=1, h=12, sq=16384, sk=16384, d=64, causal=True),
 }
@@ -1942,8 +1957,9 @@ def state_tensors(ff) -> list:
 
 def profiled(fn) -> dict:
     """One call of ``fn`` under ``torch.profiler``: the card's busy ms (the
-    sum of its kernel, copy and memset times), the device operations it
-    ran, and the host's kernel launch calls (``cudaLaunchKernel`` and the
+    sum of its kernel, copy and memset times), of which ``nccl_ms`` in
+    NCCL kernels (a receive's kernel spins until its peer sends), the
+    device operations it ran, and the host's kernel launch calls (``cudaLaunchKernel`` and the
     like) and graph launch calls (``cudaGraphLaunch``). Read from the raw
     trace events: building the profiler's event tree for a whole generate
     (tens of thousands of launches) takes longer than the run."""
@@ -1956,7 +1972,7 @@ def profiled(fn) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    busy_ns = ops = kernel_calls = graph_calls = 0
+    busy_ns = ops = kernel_calls = graph_calls = nccl_ns = 0
     nccl = set()
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == DeviceType.CUDA:
@@ -1964,13 +1980,15 @@ def profiled(fn) -> dict:
             ops += 1
             if "nccl" in e.name().lower():
                 nccl.add(e.name())
+                nccl_ns += e.duration_ns()
         else:
             name = e.name()
             kernel_calls += "LaunchKernel" in name
             graph_calls += "GraphLaunch" in name
     return dict(busy_ms=busy_ns / 1e6, device_ops=ops,
                 kernel_launch_calls=kernel_calls,
-                graph_launch_calls=graph_calls, nccl_kernels=sorted(nccl))
+                graph_launch_calls=graph_calls, nccl_kernels=sorted(nccl),
+                nccl_ms=nccl_ns / 1e6)
 
 
 def replay_ms(program, iters: int = 3) -> float:
@@ -5842,6 +5860,447 @@ def mesh_phase(device, card: str) -> dict:
     return dict(gloo=gloo, threaded=threaded, kern=kern, nccl=nccl)
 
 
+# --------------------------------------------------- pipeline (phase 15)
+# phase 15: pipeline parallelism. (a) the BERT-Large proxy at full width in
+# fp32 (a pipeline stage runs in its params' dtype whatever the compute
+# dtype, as the JAX package's stages do), Adam 1e-4, as four ranks in
+# threads on the one card through a harness group (torch's threaded test
+# group with point-to-point added as copies between threads, never the
+# main path): pp 4 x dp 1 with PIPE_MICRO microbatches under gpipe, 1f1b
+# and interleaved (v 2), then pp 2 x dp 2 under 1f1b, each PIPE_STEPS
+# steps through ``PipelineTrainer``; the losses and the params after them
+# within phase 10's band of PIPE_SPREAD_RUNS uninterrupted one-device runs
+# of the same batches, and each rank's B1 / B2 launches the count its
+# chunks' attention layers, the microbatches and stage remat ``full``
+# give (B1 twice a microbatch and layer: the forward and its recompute);
+# (b) four gloo ranks on the host's CPU, the tiny BERT under pp 2 x dp 2,
+# the three schedules' losses and params bitwise equal. The phase's stated
+# wall: PIPE_WALL_S.
+PIPE_STEPS = 2
+PIPE_SPREAD_RUNS = 3
+PIPE_MICRO = 4
+PIPE_WALL_S = 90.0
+# (schedule, pp, dp, virtual stages)
+PIPE_RUNS = (("gpipe", 4, 1, 1), ("1f1b", 4, 1, 1), ("interleaved", 4, 1, 2),
+             ("1f1b", 2, 2, 1))
+_P2P_BACKEND = []
+
+
+def threaded_p2p_backend() -> str:
+    """The harness's backend name, registered once: torch's threaded test
+    group (``multi_threaded_pg``: collectives as copies between the threads
+    of one process) with ``send`` / ``recv`` added: a send leaves a copy in
+    the (group, src, dst) mailbox, a receive takes the oldest one, or
+    waits for it through a future. FIFO a pair and direction, as NCCL and
+    gloo match. Several ranks on one card only; never the main path."""
+    if _P2P_BACKEND:
+        return _P2P_BACKEND[0]
+    import collections
+    import threading
+
+    import torch.distributed as dist
+    import torch.testing._internal.distributed.multi_threaded_pg as mtpg
+    from torch._C._distributed_c10d import _create_work_from_future
+    from torch.distributed.distributed_c10d import _store_based_barrier
+    from torch.futures import Future
+
+    lock = threading.Lock()
+    boxes = collections.defaultdict(collections.deque)
+    waiting = collections.defaultdict(collections.deque)
+
+    class P2PGroup(mtpg.ProcessLocalGroup):
+        def send(self, tensors, dst, tag=0):
+            (t,) = tensors
+            key = (self.pg_name, self._rank, int(dst))
+            msg = t.detach().clone()
+            with lock:
+                w = waiting[key].popleft() if waiting[key] else None
+                if w is None:
+                    boxes[key].append(msg)
+            if w is not None:
+                w[0].copy_(msg)
+                w[1].set_result([w[0]])
+            return mtpg.ret_work(tensors)
+
+        def recv(self, tensors, src, tag=0):
+            (buf,) = tensors
+            key = (self.pg_name, int(src), self._rank)
+            fut = Future()
+            with lock:
+                msg = boxes[key].popleft() if boxes[key] else None
+                if msg is None:
+                    waiting[key].append((buf, fut))
+            if msg is not None:
+                buf.copy_(msg)
+                fut.set_result([buf])
+            return _create_work_from_future(fut)
+
+    def create(prefix_store, rank, world_size, timeout):
+        pg = P2PGroup(rank, world_size)
+        _store_based_barrier(rank, prefix_store, "", world_size, timeout)
+        return pg
+
+    dist.Backend.register_backend("threaded_p2p", create,
+                                  devices=["cpu", "cuda"])
+    _P2P_BACKEND.append("threaded_p2p")
+    return "threaded_p2p"
+
+
+def pipe_cfg(layers: int = 0, tiny: bool = False):
+    """The proxy's config: BERT-Large (depth cut to ``layers``) or tiny."""
+    from flexflow_tpu_torch.models.bert import BertConfig
+
+    cfg = BertConfig.tiny(batch_size=8) if tiny else BertConfig.large()
+    if layers:
+        cfg.num_layers = layers
+    return cfg
+
+
+def pipe_bert(device, layers: int = 0, tiny: bool = False):
+    """The proxy's graph (uncompiled: ``PipelineTrainer`` takes it as it
+    is) and its config."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.models.bert import build_bert
+
+    cfg = pipe_cfg(layers, tiny)
+    config = FFConfig()
+    config.batch_size, config.seed = cfg.batch_size, SEED
+    ff = FFModel(config, device=device)
+    build_bert(ff, cfg)
+    return ff, cfg
+
+
+def pipe_launch_counter(per_rank: dict):
+    """A context in which every B1 / B2 launch adds one to
+    ``per_rank[(thread name, kernel)]`` (threads name their rank)."""
+    import contextlib
+    import threading
+
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    @contextlib.contextmanager
+    def ctx():
+        lock = threading.Lock()
+        orig = fa._launch_fwd, fa._launch_bwd_kv
+
+        def counted(fn, kernel):
+            def wrapped(*a, **kw):
+                key = (threading.current_thread().name, kernel)
+                with lock:
+                    per_rank[key] = per_rank.get(key, 0) + 1
+                return fn(*a, **kw)
+            return wrapped
+
+        fa._launch_fwd = counted(orig[0], "flash_fwd")
+        fa._launch_bwd_kv = counted(orig[1], "flash_bwd_fused")
+        try:
+            yield
+        finally:
+            fa._launch_fwd, fa._launch_bwd_kv = orig
+
+    return ctx()
+
+
+def pipe_reference(device, cfg, x, y, layers: int, tiny: bool):
+    """PIPE_SPREAD_RUNS uninterrupted one-device fits (``FFModel.fit``,
+    Adam 1e-4, fp32, no shuffle) from the seed's weights over (x, y): the
+    weights, the initial and final params by name, the losses."""
+    import torch
+
+    from flexflow_tpu_torch import AdamOptimizer, LossType
+
+    ff, _ = pipe_bert(device, layers, tiny)
+    ff.compile(optimizer=AdamOptimizer(ff, alpha=1e-4),
+               loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY)
+    names = [(n, w) for n, ws in ff.params.items() for w in ws]
+    weights = {n: {w: t.detach().clone() for w, t in ws.items()}
+               for n, ws in ff.params.items()}
+    snap = [t.clone() for t in state_tensors(ff)]
+    finals, losses = [], []
+    for _ in range(PIPE_SPREAD_RUNS):
+        for t, v in zip(state_tensors(ff), snap):
+            t.copy_(v)
+        ff._rng_counter = 0
+        ff.fit([x], y, epochs=1, shuffle=False)
+        finals.append(dict(zip(names, param_list(ff))))
+        losses.append(list(ff.fit_history.loss))
+    del ff, snap
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    init = {(n, w): t for n, ws in weights.items() for w, t in ws.items()}
+    return weights, init, finals, losses
+
+
+def pipe_run(device, weights, x, y, sched: str, pp: int, dp: int, v: int,
+             layers: int, tiny: bool) -> dict:
+    """One pipeline run on four ranks as threads: each builds the graph,
+    a ``PipelineTrainer`` on the (pp, dp) grid loaded with ``weights`` and
+    takes PIPE_STEPS steps; per rank its losses, its chunks' final params
+    by name (data index 0), its attention layers, and its B1 / B2
+    launches."""
+    import threading
+
+    import torch
+    import torch.distributed as dist
+    import torch.testing._internal.distributed.multi_threaded_pg as mtpg
+
+    from flexflow_tpu_torch import AdamOptimizer, OperatorType
+    from flexflow_tpu_torch.parallel.pipeline import PipelineTrainer
+
+    backend = threaded_p2p_backend()
+    cuda = device.type == "cuda"
+    card_index = torch.cuda.current_device() if cuda else None
+    b = 8
+    per_rank, out, errs = {}, {}, []
+    mtpg._install_threaded_pg()
+    torch._C._distributed_c10d._set_thread_isolation_mode(True)
+    store = dist.HashStore()
+
+    def rank(r):
+        try:
+            if cuda:
+                torch.cuda.set_device(card_index)
+            dist.init_process_group(backend, rank=r, world_size=4,
+                                    store=store)
+            ff, _ = pipe_bert(device, layers, tiny)
+            tr = PipelineTrainer(ff, pp=pp, dp=dp, n_micro=PIPE_MICRO,
+                                 optimizer=AdamOptimizer(ff, alpha=1e-4),
+                                 schedule=sched, virtual_stages=v,
+                                 init_params=False)
+            tr.load_params(weights)
+            t0 = time.perf_counter()
+            losses = []
+            for i in range(PIPE_STEPS):
+                losses.append(tr.train_step([x[i * b:(i + 1) * b]],
+                                            y[i * b:(i + 1) * b],
+                                            rng_seed=i))
+            if cuda:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            d, j = tr.grid.coord
+            params = {} if j else {
+                (n, w): t for c in tr._mine
+                for n, ws in tr.params[c].items() for w, t in ws.items()}
+            att = sum(1 for c in tr._mine
+                      for node in tr.specs[c].sub_pcg.compute_nodes()
+                      if node.op.op_type ==
+                      OperatorType.OP_MULTIHEAD_ATTENTION)
+            out[r] = dict(losses=losses, params=params, att=att, wall=wall,
+                          chunks=list(tr._mine), remat=tr.remat)
+        except BaseException as e:  # reaches the phase, which fails
+            errs.append(f"rank {r}: {e!r}")
+            raise
+
+    try:
+        with pipe_launch_counter(per_rank):
+            threads = [threading.Thread(target=rank, args=(r,),
+                                        name=f"rank{r}") for r in range(4)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(600)
+    finally:
+        mtpg._uninstall_threaded_pg()
+        torch._C._distributed_c10d._set_thread_isolation_mode(False)
+    if errs or len(out) != 4:
+        fail(f"pipeline {sched} pp={pp} dp={dp}: "
+             f"{errs or 'a rank did not finish'}")
+    for r in range(4):
+        out[r]["launches"] = {k: per_rank.get((f"rank{r}", k), 0)
+                              for k in ("flash_fwd", "flash_bwd_fused")}
+    return out
+
+
+def pipe_threaded(device, card: str, layers: int = 0,
+                  tiny: bool = False) -> dict:
+    """(a): the one-device band, then every run of PIPE_RUNS against it."""
+    import torch
+
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    cuda = device.type == "cuda"
+    t0 = time.perf_counter()
+    cfg = pipe_cfg(layers, tiny)
+    x, y = train_data("bert", cfg, cfg.batch_size * PIPE_STEPS)
+    weights, init, finals, ref_losses = pipe_reference(device, cfg, x, y,
+                                                       layers, tiny)
+    names = list(init)
+
+    def as_list(named):
+        return [named[k] for k in names]
+
+    spread = max(pair_diffs([as_list(f) for f in finals], as_list(init)))
+    band = band_of(spread)
+    loss_spread = max(abs(a - b) for i, r in enumerate(ref_losses)
+                      for q in ref_losses[i + 1:] for a, b in zip(r, q))
+    top = max(abs(v) for v in ref_losses[0])
+    loss_band = BAND_FACTOR * max(loss_spread, BAND_FLOOR * top)
+    log(f"pipeline bert (BERT-Large {cfg.num_layers} layers, fp32, batch "
+        f"{cfg.batch_size}, Adam 1e-4) one device: {PIPE_SPREAD_RUNS} runs "
+        f"of {PIPE_STEPS} steps, spread {spread:.3g} of the params' change, "
+        f"band {band:.3g}; loss spread {loss_spread:.3g}, band "
+        f"{loss_band:.3g} [{card}]")
+    fa.reset_launch_count()
+    runs = {}
+    for sched, pp, dp, v in PIPE_RUNS:
+        label = f"{sched}{f'(v={v})' if v > 1 else ''} pp={pp} dp={dp}"
+        out = pipe_run(device, weights, x, y, sched, pp, dp, v, layers,
+                       tiny)
+        got = {}
+        for r in range(4):
+            got.update(out[r]["params"])
+        if set(got) != set(names):
+            fail(f"pipeline {label}: the ranks' chunks hold "
+                 f"{len(got)} of {len(names)} params")
+        dparams = update_rel(as_list(got), as_list(finals[0]),
+                             as_list(init))
+        losses = out[0]["losses"]
+        if any(out[r]["losses"] != losses for r in range(4)):
+            fail(f"pipeline {label}: the ranks' losses differ")
+        dloss = max(abs(a - b) for a, b in zip(losses, ref_losses[0]))
+        bad = []
+        for r in range(4):
+            att, got_l = out[r]["att"], out[r]["launches"]
+            # stage remat full: B1 in the forward and in its recompute
+            want = {"flash_fwd": 2 * att * PIPE_MICRO * PIPE_STEPS,
+                    "flash_bwd_fused": att * PIPE_MICRO * PIPE_STEPS}
+            if cuda and got_l != want:
+                bad.append(f"rank {r}: {got_l}, want {want}")
+        wall = max(out[r]["wall"] for r in range(4))
+        log(f"pipeline {label} (4 ranks as threads on one card; a "
+            f"harness, its times are not multi-GPU speed): losses "
+            f"{[round(v, 6) for v in losses]} vs one device "
+            f"{[round(v, 6) for v in ref_losses[0]]} (diff {dloss:.3g}, "
+            f"band {loss_band:.3g}), params {dparams:.3g} (band "
+            f"{band:.3g}); chunks {[out[r]['chunks'] for r in range(4)]}, "
+            f"B1/B2 a rank {[tuple(out[r]['launches'].values()) for r in range(4)]}"
+            f" over {PIPE_STEPS} steps x {PIPE_MICRO} microbatches, stage "
+            f"remat {out[0]['remat']}; {wall:.2f} s for {PIPE_STEPS} steps "
+            f"[{card}]")
+        if bad:
+            fail(f"pipeline {label}: B1/B2 launches {bad}")
+        if not (dparams <= band and dloss <= loss_band):
+            fail(f"pipeline {label}: outside the band of the one-device "
+                 "runs")
+        runs[label] = dict(dparams=dparams, dloss=dloss, wall=wall,
+                           launches=[out[r]["launches"] for r in range(4)])
+    totals = {k: fa.launch_count(k) for k in ("flash_fwd", "flash_bwd_fused")}
+    counted = {k: sum(r["launches"][i][k] for r in runs.values()
+                      for i in range(4)) for k in totals}
+    if cuda and (totals != counted or not all(totals.values())):
+        fail(f"pipeline: launch counts {totals} against the ranks' "
+             f"{counted}")
+    if cuda:
+        torch.cuda.empty_cache()
+    log(f"pipeline threaded: {time.perf_counter() - t0:.1f} s, B1/B2 "
+        f"launches over the runs {totals} [{card}]")
+    return dict(runs=runs, totals=totals, band=band, loss_band=loss_band)
+
+
+def _pipe_gloo_rank(rank: int, world: int, root: str) -> None:
+    """A spawned rank of (b): the tiny BERT at pp 2 x dp 2 under each
+    schedule, two steps from the seed's weights."""
+    import torch
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch import AdamOptimizer
+    from flexflow_tpu_torch.parallel.pipeline import PipelineTrainer
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{root}/pg",
+                            rank=rank, world_size=world)
+    try:
+        io = dict(np.load(os.path.join(root, "in.npz")))
+        out = {}
+        for sched, v in (("gpipe", 1), ("1f1b", 1), ("interleaved", 2)):
+            ff, _ = pipe_bert(torch.device("cpu"), tiny=True)
+            tr = PipelineTrainer(ff, pp=2, dp=2, n_micro=PIPE_MICRO,
+                                 optimizer=AdamOptimizer(ff, alpha=1e-3),
+                                 schedule=sched, virtual_stages=v)
+            for i in range(2):
+                out[f"{sched}/loss{i}"] = np.float64(tr.train_step(
+                    [io["x"]], io["y"], rng_seed=i))
+            out.update({f"{sched}/{n}/{w}": a for n, ws in
+                        tr.export_params().items() for w, a in ws.items()})
+        np.savez(os.path.join(root, f"out_{rank}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def pipe_gloo_start():
+    """(b): four gloo ranks spawned on the host's CPU, left running (the
+    phase's card work goes on meanwhile); :func:`pipe_gloo` joins them."""
+    import multiprocessing as mp
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="ff_pipe_gloo_")
+    rng = np.random.default_rng(SEED)
+    np.savez(os.path.join(root, "in.npz"),
+             x=rng.standard_normal((8, 16, 64)).astype(np.float32),
+             y=rng.integers(0, 2, (8, 1)).astype(np.int32))
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_pipe_gloo_rank, args=(r, 4, root),
+                         daemon=True) for r in range(4)]
+    for p in procs:
+        p.start()
+    return procs, root, time.perf_counter()
+
+
+def pipe_gloo(card: str, started) -> dict:
+    """(b): the ranks of :func:`pipe_gloo_start` joined and compared."""
+    import shutil
+
+    import torch
+
+    procs, root, t0 = started
+    try:
+        for p in procs:
+            p.join(300)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        codes = [p.exitcode for p in procs]
+        if codes != [0, 0, 0, 0]:
+            fail(f"pipeline gloo: rank exit codes {codes}")
+        outs = [dict(np.load(os.path.join(root, f"out_{r}.npz")))
+                for r in range(4)]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    unequal = [(r, k) for r, o in enumerate(outs) for k in o
+               if not k.startswith("gpipe/") and not np.array_equal(
+                   o[k], o["gpipe/" + k.split("/", 1)[1]])]
+    same_ranks = all(np.array_equal(o[k], outs[0][k]) for o in outs[1:]
+                     for k in outs[0])
+    losses = [float(outs[0][f"gpipe/loss{i}"]) for i in range(2)]
+    log(f"pipeline gloo (4 CPU ranks, tiny BERT, pp=2 dp=2, {PIPE_MICRO} "
+        f"microbatches, Adam, torch {torch.__version__}): gpipe, 1f1b and "
+        f"interleaved(v=2) losses {[round(v, 6) for v in losses]}, "
+        f"{len(unequal)} values not bitwise the gpipe run's, every rank "
+        f"the same: {same_ranks}; {time.perf_counter() - t0:.1f} s beside "
+        f"the card's runs [{card}]")
+    if unequal or not same_ranks:
+        fail(f"pipeline gloo: schedules or ranks disagree ({unequal[:4]})")
+    return dict(losses=losses)
+
+
+def pipeline_phase(device, card: str) -> dict:
+    t0 = time.perf_counter()
+    started = pipe_gloo_start()
+    try:
+        threaded = pipe_threaded(device, card)
+        kern = fa_case(device, card, "bert_micro", "fp32")
+    except BaseException:
+        for p in started[0]:
+            p.kill()
+        raise
+    gloo = pipe_gloo(card, started)
+    wall = time.perf_counter() - t0
+    log(f"pipeline phase wall {wall:.1f} s (stated {PIPE_WALL_S:.0f} s) "
+        f"[{card}]")
+    return dict(gloo=gloo, threaded=threaded, kern=kern)
+
+
 def main() -> None:
     try:
         import torch
@@ -5919,6 +6378,7 @@ def main() -> None:
     chaos = chaos_phase(device, card, prompt_set)
     serving13 = serving13_phase(device, card)
     mesh = mesh_phase(device, card)
+    pipe = pipeline_phase(device, card)
 
     kernels = []
     for compute, name in (("fp32", "flash_decode"),
@@ -6121,6 +6581,22 @@ def main() -> None:
             "launches": mesh["threaded"]["launches"] // 2,
             **r,
             **census.get((kernel, "bf16", FA_SHAPES["bert"]["d"]), {}),
+        })
+    # phase 15: B1 and B2 in the pipeline stages of the threaded runs
+    # (BERT-Large fp32; a microbatch of 2 rows at pp 4, 1 row a rank at pp
+    # 2 x dp 2), timed at the microbatch shape (b2 h16 s512 d64)
+    for name, kernel in (("flash_fwd_pipeline", "flash_fwd"),
+                         ("flash_bwd_fused_pipeline", "flash_bwd_fused")):
+        r = dict(pipe["kern"][kernel])
+        r.pop("eager_ms", None)
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": FA_SOURCE,
+            "replaces": FA_KERNELS[kernel][0],
+            "launches": pipe["threaded"]["totals"][kernel],
+            **r,
+            **census.get((kernel, "fp32", FA_SHAPES["bert"]["d"]), {}),
         })
     for kernel, line in (("softmax_fwd", 29), ("softmax_bwd", 38)):
         kernels.append({

@@ -29,12 +29,16 @@ path) the executor runs this rank's part of the SPMD program
 (``parallel/spmd.py``): params and optimizer state are local shards
 (:meth:`init_params` draws the full weights from the seed and keeps its
 shard, so every strategy starts from the one-device weights), each node
-runs on its inputs redistributed to the layout its plan asks for, the
-final output and the labels are gathered whole on every rank before the
-loss, and after the backward the param grads the data axis split are
-summed by one flat all-reduce (or, under ``--collective-overlap on``, one
-asynchronous all-reduce a remat block, issued as that block's backward
-completes, all awaited before the optimizer).
+runs on its inputs redistributed to the layout its plan asks for, and
+the final output is gathered over the model axes only: where the plan
+splits the batch over the data axis, each rank takes the loss and the
+metrics on its own rows (a local mean over the data axis's size, and local
+counts and sums, all-reduced over the data axis), as XLA takes the JAX
+package's loss on sharded logits; ``predict`` gathers the output whole.
+After the backward the param grads the data axis split are summed by one
+flat all-reduce (or, under ``--collective-overlap on``, one asynchronous
+all-reduce a remat block, issued as that block's backward completes, all
+awaited before the optimizer).
 """
 from __future__ import annotations
 
@@ -238,6 +242,69 @@ class Executor:
         pl = self._plan()[guid].outs[idx]
         return redistribute(x, self.mesh, pl, replicated(len(pl)))
 
+    def _final_layout(self):
+        """(held, wanted, split) of the final output on a mesh: its planned
+        placements, those the loss reads (the model axes gathered, the data
+        axis kept where the plan splits the batch on dim 0 over it alone)
+        and whether the batch stays split over a data axis of several
+        ranks. Static for a batch layout, as the plan is."""
+        from ..parallel.spmd import replicated
+
+        pl = self._plan()[self.final_guid].outs[self.final_out_idx]
+        n = len(pl)
+        di = self._data_axis()
+        split = di is not None and self.mesh.sizes[di] > 1 and \
+            pl[di].is_shard() and pl[di].dim == 0 and not any(
+                p.is_shard() and p.dim == 0 and self.mesh.sizes[i] > 1
+                for i, p in enumerate(pl) if i != di)
+        r = replicated(n)
+        want = tuple(pl[i] if split and i == di else r[i] for i in range(n))
+        return pl, want, split
+
+    def _data_axis(self) -> Optional[int]:
+        """The data axis's index among the mesh dims, or None."""
+        if self.mesh is None or \
+                self.strategy.data_axis not in self.mesh.axis_names:
+            return None
+        return self.mesh.axis_names.index(self.strategy.data_axis)
+
+    def _final_rows(self, x):
+        """The final output as the loss and the metrics read it
+        (:meth:`_final_layout`): this rank's rows where the batch stays
+        split, else the whole output; and whether it is split."""
+        if self.mesh is None:
+            return x, False
+        from ..parallel.spmd import redistribute
+
+        held, want, split = self._final_layout()
+        return redistribute(x, self.mesh, held, want), split
+
+    def _sum_over_data(self, t):
+        """A copy of ``t`` summed over the data axis's ranks."""
+        import torch.distributed as dist
+
+        out = t.detach().clone()
+        dist.all_reduce(out, group=self.mesh.groups[self._data_axis()])
+        return out
+
+    def _loss_on_rows(self, logits, labels, split: bool):
+        """(the loss to differentiate, the loss's value) of the final
+        output ``logits``. Where the batch stays split, each rank's loss is
+        the mean over its own rows (its labels are those rows) over the
+        data axis's size: its gradient is the full-batch mean's at those
+        rows, and its sum over the data axis, all-reduced, is the value.
+        Every loss type is a mean over equal shares of the batch, so the
+        value is the whole batch's. Else the loss of the whole batch on
+        every rank."""
+        if not split:
+            loss = loss_value(self.loss_type, logits,
+                              self._labels_whole(labels), self.repl_labels)
+            return loss, loss
+        part = loss_value(self.loss_type, logits, labels,
+                          self.repl_labels) / self.mesh.sizes[
+                              self._data_axis()]
+        return part, self._sum_over_data(part)
+
     def _labels_whole(self, labels):
         """The labels gathered whole on every rank (they arrive as the
         batch does)."""
@@ -388,27 +455,31 @@ class Executor:
     # ---------------------------------------------------------------- training
     def _loss_and_logits(self, params, xs, labels, rng, training: bool,
                          cache=None, cache_out=None):
+        """(the loss to differentiate, its value, the final output as the
+        loss read it: this rank's rows where the batch stays split)."""
         params_c, xs = self._cast_for_compute(params, list(xs))
         ctx = OpContext(training=training, rng=rng, device=self.device,
                         aux_losses=[] if training else None,
                         cache_in=cache, cache_out=cache_out, mesh=self.mesh)
         blocks = self._remat_blocks() if training else None
+        final = (self.final_guid, self.final_out_idx)
         if blocks is not None:
             raw = self._forward_remat(params_c, self._bind_inputs(xs), ctx,
-                                      blocks)
+                                      blocks, [final])[0]
         else:
             values = self.forward_outputs(params_c, self._bind_inputs(xs),
                                           ctx)
             raw = values[self.final_guid][self.final_out_idx]
-        raw = self._replicate_output(self.final_guid, self.final_out_idx, raw)
+        raw, split = self._final_rows(raw)
         logits = self._logits_f32(raw)
-        loss = loss_value(self.loss_type, logits, self._labels_whole(labels),
-                          self.repl_labels)
+        loss, value = self._loss_on_rows(logits, labels, split)
         # the training loss carries the ops' aux terms (the regularizers),
-        # as flexflow_tpu/execution/executor.py:554-555 adds them
+        # as flexflow_tpu/execution/executor.py:554-555 adds them; they are
+        # whole on every rank, so they join the value once
         for aux in ctx.aux_losses or ():
             loss = loss + aux
-        return loss, logits
+            value = value + aux.detach()
+        return loss, value, logits
 
     # ------------------------------------------------------------------ remat
     def _remat_blocks(self):
@@ -422,8 +493,7 @@ class Executor:
         a block reads from before it, ``out_refs`` those it hands on (read
         by a later block, or the loss anchor): under ``full`` the only
         activations kept between forward and backward."""
-        from .remat import REMAT_SAVEABLE_OPS, remat_segments, \
-            resolve_remat_plan
+        from .remat import level_pieces, remat_segments, resolve_remat_plan
 
         plan = resolve_remat_plan(self.config)
         if plan.level == "none":
@@ -432,25 +502,21 @@ class Executor:
         self.remat_plan = plan
         if self._remat_cache is not None and self._remat_cache[0] == plan:
             return self._remat_cache[1]
-        pieces: List[Tuple[List[int], bool]] = []
-        for seg in remat_segments(self.pcg, plan.segment_size):
-            if plan.level == "full":
-                pieces.append((seg, True))
-                continue
-            run: List[int] = []
-            for g in seg:
-                if self.pcg.nodes[g].op.op_type in REMAT_SAVEABLE_OPS:
-                    if run:
-                        pieces.append((run, True))
-                        run = []
-                    pieces.append(([g], False))
-                else:
-                    run.append(g)
-            if run:
-                pieces.append((run, True))
+        pieces = [p for seg in remat_segments(self.pcg, plan.segment_size)
+                  for p in level_pieces(self.pcg, seg, plan.level)]
+        blocks = self._blocks_of(pieces, [(self.final_guid,
+                                           self.final_out_idx)])
+        self._remat_cache = (plan, blocks)
+        return blocks
+
+    def _blocks_of(self, pieces, anchors):
+        """Remat blocks ``[(guids, recompute, ext_refs, out_refs)]`` of
+        ``pieces`` (``[(guids, recompute)]`` in topological order): a
+        block hands on what a later block reads and the ``anchors``
+        ((guid, out_idx) values read after the forward)."""
         piece_of = {g: k for k, (guids, _) in enumerate(pieces)
                     for g in guids}
-        needed = {(self.final_guid, self.final_out_idx)}
+        needed = set(anchors)
         for node in self.pcg.compute_nodes():
             needed.update((pg, i) for pg, i in node.inputs
                           if piece_of.get(pg, -1) != piece_of[node.guid])
@@ -466,7 +532,6 @@ class Executor:
                         for i in range(len(self.pcg.nodes[g].out_shapes))
                         if (g, i) in needed]
             blocks.append((guids, recompute, ext_refs, out_refs))
-        self._remat_cache = (plan, blocks)
         return blocks
 
     def _run_nodes(self, guids, params, values, ctx) -> None:
@@ -479,7 +544,7 @@ class Executor:
             values.update(((g, i), v) for i, v in enumerate(outs))
 
     def _forward_remat(self, params, bound_inputs: Dict[int, Any],
-                       ctx: OpContext, blocks):
+                       ctx: OpContext, blocks, anchors):
         """The training forward through the remat blocks: each block to
         recompute runs under ``torch.utils.checkpoint.checkpoint``
         (non-reentrant, so ``autograd.grad`` and closures over the param
@@ -489,7 +554,8 @@ class Executor:
         its recompute (:class:`~.graphs.SegmentSeeds`); its aux losses
         and its CacheOps' fresh values leave it as outputs, so a recompute
         does not add them twice (flexflow_tpu/execution/executor.py:
-        287-332). Returns the loss anchor's output."""
+        287-332). Returns the values of ``anchors`` ((guid, out_idx)
+        pairs, each in a block's ``out_refs`` or a node outside any)."""
         from torch.utils.checkpoint import checkpoint
 
         from .graphs import SegmentSeeds
@@ -529,7 +595,7 @@ class Executor:
                                          outs[len(out_refs):n_out]))
             if ctx.aux_losses is not None:
                 ctx.aux_losses.extend(outs[n_out:])
-        return values[(self.final_guid, self.final_out_idx)]
+        return [values[r] for r in anchors]
 
     # ----------------------------------------------------------- cache state
     def init_cache(self) -> Dict[str, Any]:
@@ -717,7 +783,7 @@ class Executor:
             leaves[n][w] = t
         overlap = None
         with torch.enable_grad():
-            loss, logits = self._loss_and_logits(
+            loss, value, logits = self._loss_and_logits(
                 leaves, xs, labels, rng, training=True, cache=cache,
                 cache_out=cache_out)
             if self.mesh is not None and (getattr(
@@ -750,7 +816,7 @@ class Executor:
         grads: Dict[str, Dict[str, Any]] = {n: {} for n in params}
         for (n, w), g in zip(names, flat_grads):
             grads[n][w] = g
-        return loss.detach(), logits.detach(), grads
+        return value.detach(), logits.detach(), grads
 
     # ------------------------------------------------------------ grad sync
     def _grad_groups(self, names):
@@ -891,19 +957,31 @@ class Executor:
         return out
 
     def _compute_metrics(self, logits, labels):
+        """The metrics of the final output as the loss read it
+        (:meth:`_final_rows`): where the batch stays split, counts and
+        sums over this rank's rows, all-reduced over the data axis."""
         import torch
 
         if self.metrics is None:
             return {}
-        labels = self._labels_whole(labels)
+        split = self.mesh is not None and self._final_layout()[2]
+        if not split:
+            labels = self._labels_whole(labels)
         if self.repl_labels:
             k = logits.shape[0] // labels.shape[0]
             labels = torch.repeat_interleave(labels, k, dim=0)
-        return self.metrics.compute(logits, labels)
+        m = self.metrics.compute(logits, labels)
+        if split:
+            n = self.mesh.sizes[self._data_axis()]
+            m = {k: (self._sum_over_data(v) if torch.is_tensor(v)
+                     else v * n) for k, v in m.items()}
+        return m
 
     def make_eval_step(self):
         """``(params, xs, labels) -> (loss, metrics)``, no dropout, no
-        grads (flexflow_tpu/execution/executor.py:777-797)."""
+        grads (flexflow_tpu/execution/executor.py:777-797); on a mesh the
+        loss and the metrics of the train step's rule (:meth:`_loss_on_rows`,
+        :meth:`_compute_metrics`)."""
         import torch
 
         def estep(params, xs, labels):
@@ -914,12 +992,10 @@ class Executor:
                 ctx.mesh = self.mesh
                 values = self.forward_outputs(params_c,
                                               self._bind_inputs(xs_c), ctx)
-                logits = self._logits_f32(self._replicate_output(
-                    self.final_guid, self.final_out_idx,
-                    values[self.final_guid][self.final_out_idx]))
-                loss = loss_value(self.loss_type, logits,
-                                  self._labels_whole(labels),
-                                  self.repl_labels)
+                raw, split = self._final_rows(
+                    values[self.final_guid][self.final_out_idx])
+                logits = self._logits_f32(raw)
+                _part, loss = self._loss_on_rows(logits, labels, split)
                 return loss, self._compute_metrics(logits, labels)
 
         return estep

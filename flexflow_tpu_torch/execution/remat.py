@@ -19,11 +19,18 @@ preserve_rng_state=False)`` and runs the nodes to keep outside it
 (``Executor._remat_blocks``). ``remat_segments`` is the JAX package's
 segmentation, cut at graph bottlenecks, so both packages recompute the same
 blocks under ``full``.
+
+A pipeline stage (``parallel/pipeline.PipelineTrainer``) is one segment at
+its own level (:func:`resolve_stage_remat`, default ``full``): ``full``
+recomputes the stage's whole forward in its backward, the JAX stage's
+``jax.checkpoint`` with ``nothing_saveable``; ``selective`` splits the stage
+at the ``REMAT_SAVEABLE_OPS`` nodes (``dots_saveable``); ``none`` keeps
+every tensor. :func:`level_pieces` is the one rule both consumers cut by.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Tuple
 
 from ..ffconst import OperatorType
 
@@ -89,3 +96,39 @@ def resolve_remat_plan(config, strategy=None) -> RematPlan:
     return RematPlan(level=level,
                      segment_size=int(getattr(config, "remat_segment_size",
                                               8) or 8))
+
+
+def level_pieces(pcg, guids: List[int], level: str
+                 ) -> List[Tuple[List[int], bool]]:
+    """One segment's nodes ``guids`` cut for ``level``: ``[(guids,
+    recompute)]`` in order. ``full`` recomputes the whole segment;
+    ``selective`` runs each ``REMAT_SAVEABLE_OPS`` node alone, kept, and
+    recomputes the runs between them; ``none`` keeps the whole segment."""
+    if level in ("full", "none"):
+        return [(list(guids), level == "full")]
+    pieces: List[Tuple[List[int], bool]] = []
+    run: List[int] = []
+    for g in guids:
+        if pcg.nodes[g].op.op_type in REMAT_SAVEABLE_OPS:
+            if run:
+                pieces.append((run, True))
+                run = []
+            pieces.append(([g], False))
+        else:
+            run.append(g)
+    if run:
+        pieces.append((run, True))
+    return pieces
+
+
+def resolve_stage_remat(config, strategy) -> str:
+    """The pipeline trainer's stage-level remat: the ``--remat`` flag, then
+    the strategy's level, then ``full`` (an unsearched pipeline strategy,
+    ``remat == ""``, keeps the classic GPipe recompute; only an explicit
+    ``none`` turns stage remat off; flexflow_tpu/execution/remat.py:
+    135-145)."""
+    level = (getattr(config, "remat", "") or "").strip() \
+        or getattr(strategy, "remat", "") or "full"
+    if level not in REMAT_LEVELS:
+        raise ValueError(f"remat level {level!r} not in {REMAT_LEVELS}")
+    return level

@@ -29,10 +29,14 @@ device mesh, one process per GPU: each rank holds its shards of the params
 and trains on its slice of every batch, and ``fit`` / ``eval`` /
 ``predict`` return what the JAX package's global arrays give, the same on
 every rank (``parallel/spmd.py``). Compile with none of these in one
-process is the one-device path, with no process group. Pipeline
-strategies, the search (``--search-num-*``, ``--profile-ops``,
-``profile_operators``), the static analyzer and serving on a mesh come in
-later slices; their flags raise ``NotImplementedError``.
+process is the one-device path, with no process group. A strategy with a
+pipeline grid ``(pp, dp, n_micro)`` trains through
+``parallel/pipeline.PipelineTrainer`` on a (pp, dp) grid of ranks under
+``--schedule`` / ``--virtual-stages`` and the stage remat, and ``eval`` /
+``predict`` run the trained weights on the strategy's mesh. The search
+(``--search-num-*``, ``--profile-ops``, ``profile_operators``), the static
+analyzer and serving on a mesh come in later slices; their flags raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -123,6 +127,9 @@ class FFModel:
         # (both None on the one-device path)
         self.strategy = None
         self.mesh = None
+        # set by compile for a pipeline strategy: fit trains through it
+        self._pipeline_trainer = None
+        self._pipeline_param_stamp = None
 
     # ======================================================= tensor creation ==
     def create_tensor(self, dims: Sequence[int],
@@ -611,7 +618,11 @@ class FFModel:
         the JAX package would search, which the port has not yet). Any of
         them builds the device mesh and the executor's SPMD plan;
         ``--export-strategy`` writes the strategy's JSON (rank 0). With
-        none, in one process, the executor runs on one device."""
+        none, in one process, the executor runs on one device. A strategy
+        with a pipeline grid also builds the ``PipelineTrainer`` that
+        ``fit`` trains through (flexflow_tpu/model.py:716-735): schedule
+        ``--schedule`` > the strategy's > gpipe, stage remat ``--remat`` >
+        the strategy's > full; it is seeded from the params at fit."""
         tracer = self._obs_tracer()
         with tracer.span("compile", layers=len(self._layers)):
             self._compile_impl(optimizer, loss_type, metrics, final_tensor,
@@ -656,7 +667,7 @@ class FFModel:
         if self.config.perform_fusion and mesh is not None:
             raise NotImplementedError(
                 f"compile: --fusion under a strategy is {LATER} (ROADMAP "
-                "A.5, second part): the fused regions would need their "
+                "A.5, third part): the fused regions would need their "
                 "sub-ops' shardings")
         if self.config.perform_fusion:
             from .ops.fused import apply_fusion
@@ -695,6 +706,20 @@ class FFModel:
         self.params = self.executor.init_params(self.config.numpy_seed())
         self.opt_state = self.optimizer.init_state(self.params)
         self._serving_engine = None
+        self._pipeline_trainer = None
+        self._pipeline_param_stamp = None
+        if strategy is not None and strategy.pipeline:
+            from .execution.remat import resolve_stage_remat
+            from .parallel.pipeline import PipelineTrainer, resolve_schedule
+
+            pp, pdp, n_micro = strategy.pipeline
+            sched, v = resolve_schedule(self.config, strategy)
+            self._pipeline_trainer = PipelineTrainer(
+                self, pp=pp, dp=pdp, n_micro=n_micro,
+                optimizer=self.optimizer, loss_type=loss_type,
+                init_params=False,  # fit seeds it from the live params
+                remat=resolve_stage_remat(self.config, strategy),
+                schedule=sched, virtual_stages=v)
 
     def _refuse_compile_options(self) -> None:
         """Flags the JAX package acts on at compile (flexflow_tpu/model.py:
@@ -717,14 +742,6 @@ class FFModel:
                     f"compile: {flag} is {LATER} (ROADMAP A.6); the port "
                     "has no search or static analyzer yet")
 
-    @staticmethod
-    def _refuse_pipeline(strategy) -> None:
-        if strategy.pipeline:
-            raise NotImplementedError(
-                f"compile: the pipeline grid {tuple(strategy.pipeline)} of "
-                f"this strategy is {LATER} (ROADMAP A.5, second part: the "
-                "gpipe, 1f1b and interleaved schedules)")
-
     def _resolve_strategy(self, pcg, strategy, strategy_fn):
         """(Strategy, Mesh) of this compile, or (None, None) for the
         one-device path (:meth:`compile`)."""
@@ -742,7 +759,6 @@ class FFModel:
             with open(c.import_strategy_file) as f:
                 strategy = Strategy.from_json(f.read(), pcg)
         if strategy is not None:
-            self._refuse_pipeline(strategy)
             preflight_strategy(pcg, strategy, n_dev=n_dev,
                                batch_size=c.batch_size)
         elif c.mesh_shape:
@@ -874,8 +890,17 @@ class FFModel:
         return y
 
     def _refuse_fit_options(self) -> None:
-        """Every fit option outside this slice raises, naming its flag."""
+        """Every fit option outside this slice raises, naming its flag;
+        ``--schedule`` / ``--virtual-stages`` without a pipeline strategy
+        would be parsed and ignored, so they raise too."""
         c = self.config
+        if self._pipeline_trainer is None and (
+                c.schedule or int(c.pipeline_virtual_stages or 0)):
+            raise ValueError(
+                "fit: --schedule / --virtual-stages order a pipeline "
+                "strategy's microbatches, and this model compiled without "
+                "a pipeline grid; compile with a strategy whose pipeline "
+                "is (pp, dp, n_micro), or drop the flags")
         if c.profile_ops:
             raise NotImplementedError(
                 f"fit: --profile-ops is {LATER} (ROADMAP A.6): it times ops "
@@ -885,8 +910,6 @@ class FFModel:
             (bool(c.audit_strategy), "--audit-strategy (ROADMAP A.6)"),
             (int(c.memory_budget_mb or 0) > 0,
              "--memory-budget-mb (ROADMAP A.6)"),
-            (bool(c.schedule),
-             "--schedule (pipeline strategies, ROADMAP A.5, second part)"),
         ]
         for on, flag in refused:
             if on:
@@ -942,9 +965,9 @@ class FFModel:
         event a step and an ``epoch`` event an epoch (``--trace-file``
         written at the end); ``--profiler-trace-dir`` runs the loop under
         ``torch.profiler`` (``obs.start_trace``). With these off the loop
-        pays one ``is not None`` test a step. The strategy cascade,
-        ``--profile-ops`` and pipelines are refused
-        (``NotImplementedError`` naming the flag)."""
+        pays one ``is not None`` test a step. The strategy cascade and
+        ``--profile-ops`` are refused (``NotImplementedError`` naming the
+        flag). A pipeline strategy trains through :meth:`_fit_pipeline`."""
         import torch
 
         from .data.dataloader import batch_iterator, prefetch_iterator
@@ -953,12 +976,15 @@ class FFModel:
 
         self._require_compiled()
         self._refuse_fit_options()
+        if self._pipeline_trainer is not None:
+            return self._fit_pipeline(x, y, batch_size, epochs, shuffle,
+                                      chaos)
         if self.mesh is not None and self.mesh.numel > 1 and \
                 ResilienceSession.wanted(self.config, chaos):
             raise NotImplementedError(
                 f"fit: checkpoints, --resume, --max-bad-steps and chaos on "
                 f"a mesh of {self.mesh.numel} ranks are {LATER} (ROADMAP "
-                "A.5, second part: sharded checkpoints and the guarded step "
+                "A.5, third part: sharded checkpoints and the guarded step "
                 "across ranks)")
         if recompile_state is not None:
             self._recompile_state = recompile_state
@@ -1164,6 +1190,137 @@ class FFModel:
                 telemetry.write(self.config.telemetry_file)
         if tracer.enabled and self.config.trace_file and self._writes_files():
             tracer.write(self.config.trace_file)
+        return self._perf
+
+    def _fit_pipeline(self, x, y, batch_size, epochs, shuffle,
+                      chaos) -> PerfMetrics:
+        """The training loop of a pipeline strategy
+        (flexflow_tpu/model.py:1184-1267): every batch through
+        ``PipelineTrainer.train_step``, then the trained weights copied
+        back into the executor's params on the strategy's mesh, so
+        ``eval``, ``predict`` and ``get_params_numpy`` see them. The
+        trainer is seeded from those params when they changed since the
+        last pipeline fit (a weight edit, ``set_params_numpy``); unchanged,
+        it keeps its params and optimizer state across fits. The
+        microbatch count is re-derived for the batch size. ``chaos``
+        raises ``ValueError`` as the JAX package does; the checkpoint
+        flags, which the JAX package ignores here, raise, naming
+        themselves. Metrics are the loss's (``train_all`` and the loss
+        sum); accuracy-style metrics come from ``eval``."""
+        import torch
+
+        from .data.dataloader import batch_iterator
+        from .resilience.preflight import validate_batch
+
+        if chaos is not None:
+            raise ValueError(
+                "chaos injection targets the SPMD fit loop; the pipeline "
+                "trainer is not covered")
+        c = self.config
+        flags = [f for on, f in (
+            (bool(c.checkpoint_dir), "--checkpoint-dir"),
+            (bool((c.resume or "").strip()), "--resume"),
+            (int(c.max_bad_steps or 0) > 0, "--max-bad-steps")) if on]
+        if flags:
+            raise NotImplementedError(
+                f"fit: {', '.join(flags)} on a pipeline strategy "
+                f"{'is' if len(flags) == 1 else 'are'} {LATER} (ROADMAP "
+                "A.5, third part: sharded checkpoints of the stages)")
+        xs = self._as_input_list(x)
+        y = self._prep_label(y)
+        batch_size = batch_size or c.batch_size
+        epochs = epochs or c.epochs
+        validate_batch(self, xs, y, phase="fit")
+        tr = self._pipeline_trainer
+        stamp = self.executor._params_stamp(self.params)
+        if tr.params is None or self._pipeline_param_stamp is None or \
+                not self.executor._stamp_matches(self._pipeline_param_stamp,
+                                                 stamp):
+            tr.load_params(self.get_params_numpy())
+        # the microbatch count was chosen for config.batch_size; re-derive
+        # it for the batch size actually passed
+        if batch_size % tr.dp != 0:
+            raise ValueError(
+                f"pipeline strategy needs batch_size % dp == 0 "
+                f"(batch {batch_size}, dp {tr.dp})")
+        micro_ok = [m for m in (2 * tr.pp, tr.pp, 2, 1)
+                    if batch_size % m == 0 and
+                    (batch_size // m) % tr.dp == 0 and
+                    (tr.schedule != "interleaved" or m % tr.pp == 0)]
+        if not micro_ok:
+            raise ValueError(
+                f"pipeline schedule {tr.schedule!r} found no microbatch "
+                f"count for batch_size {batch_size} (pp={tr.pp}, "
+                f"dp={tr.dp}); use a batch divisible by pp*dp")
+        tr.n_micro = micro_ok[0]
+        loss_key = {
+            LossType.LOSS_CATEGORICAL_CROSSENTROPY: "cce_loss",
+            LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY:
+                "sparse_cce_loss",
+            LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE: "mse_loss",
+            LossType.LOSS_MEAN_SQUARED_ERROR_SUM_REDUCE: "mse_loss",
+        }.get(self.loss_type, "sparse_cce_loss")
+        self._perf = PerfMetrics()
+        self.fit_history = FitHistory()
+        tracer = self._obs_tracer()
+        telemetry = self._make_telemetry(tracer, batch_size,
+                                         "train_pipeline")
+        self._telemetry = telemetry
+        t0 = time.time()
+        step = 0
+        losses = []
+        loss_f = None
+        for epoch in range(epochs):
+            it = batch_iterator(xs + [y], batch_size, shuffle=shuffle,
+                                seed=c.numpy_seed() + epoch)
+            t_epoch = time.perf_counter()
+            for batch in it:
+                bx, by = batch[:-1], batch[-1]
+                t_step = time.perf_counter()
+                loss_f = tr.train_step(list(bx), by, rng_seed=step)
+                step += 1
+                wall = time.perf_counter() - t_step
+                losses.append(loss_f)
+                if c.profiling:
+                    self.fit_history.step_s.append(wall)
+                if telemetry is not None:
+                    telemetry.record_step(wall, loss_f)
+                    tracer.complete("train_step", wall, step=step,
+                                    loss=loss_f)
+                self._perf.update({"train_all": by.shape[0],
+                                   loss_key: loss_f * by.shape[0]})
+                if c.profiling and step % max(c.print_freq, 1) == 0:
+                    print(f"step {step}: loss={loss_f:.4f}")
+            if telemetry is not None:
+                telemetry.record_epoch(loss_f)
+                tracer.complete("epoch", time.perf_counter() - t_epoch,
+                                index=epoch, loss=loss_f)
+        trained = tr.export_params()
+        self.executor.invalidate_jit_cache()
+        self.params = {n: {w: self.executor.shard_param(
+            n, w, torch.from_numpy(trained[n][w]).to(t.dtype))
+            for w, t in ws.items()} for n, ws in self.params.items()}
+        self.opt_state = self.optimizer.init_state(self.params)
+        self._serving_engine = None
+        # the sync point: a following fit without a weight edit reuses the
+        # trainer's params and optimizer state
+        self._pipeline_param_stamp = self.executor._params_stamp(self.params)
+        self.fit_history.loss = losses
+        self._last_fit_time = time.time() - t0
+        self._last_fit_samples = step * batch_size
+        if self._last_fit_time > 0:
+            throughput = self._last_fit_samples / self._last_fit_time
+            if tracer.enabled:
+                tracer.counter("throughput_samples_per_sec",
+                               round(throughput, 2))
+            if c.profiling:
+                print(f"THROUGHPUT = {throughput:.2f} samples/s")
+        if telemetry is not None:
+            telemetry.finalize()
+            if c.telemetry_file:
+                telemetry.write(c.telemetry_file)
+        if tracer.enabled and c.trace_file and self._writes_files():
+            tracer.write(c.trace_file)
         return self._perf
 
     def eval(self, x=None, y=None, batch_size: Optional[int] = None

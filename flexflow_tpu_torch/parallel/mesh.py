@@ -10,6 +10,12 @@ strategies. Ranks fill the mesh in row-major order. :class:`Mesh` wraps the
 ``DeviceMesh`` with what the executor reads on every node: each axis's
 size, this rank's coordinate on it and its process group.
 
+A pipeline strategy runs on a (pp, dp) grid of ranks instead
+(:func:`build_pipeline_grid`): rank ``d * dp + j`` of the grid is pipe
+device ``d``, data index ``j``, as the JAX package lays the first pp*dp
+devices out in a (pipe, data) array; each pipe device's dp ranks form the
+stage's data group, a one-axis :class:`Mesh` the SPMD plan runs a stage on.
+
 ``initialize_multihost`` becomes ``init_process_group``: it reads
 ``torchrun``'s ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK`` or takes them as
 arguments, and picks NCCL for CUDA and gloo for the CPU. A process
@@ -242,3 +248,59 @@ def build_hybrid_mesh(ici_shape: Sequence[int], dcn_shape: Sequence[int],
     names = tuple(axis_names)
     return Mesh(dm, names, list(grid.shape), list(dm.get_coordinate()),
                 [dm.get_group(a) for a in names], mesh_device(device_type))
+
+
+@dataclasses.dataclass
+class PipelineGrid:
+    """A (pp, dp) grid over ``ranks`` (global ranks, grid-major: entry
+    ``d * dp + j`` is pipe device ``d``, data index ``j``). ``coord`` is
+    this rank's (d, j), or None for a rank past the grid (it holds no
+    stage); ``data_mesh`` its stage's data group as a one-axis ``data``
+    mesh, None past the grid."""
+
+    pp: int
+    dp: int
+    ranks: List[int]
+    coord: Optional[Tuple[int, int]]
+    data_mesh: Optional[Mesh]
+
+    def rank_of(self, d: int, j: int) -> int:
+        """The global rank of pipe device ``d``, data index ``j``."""
+        return self.ranks[d * self.dp + j]
+
+    def peer(self, d: int) -> int:
+        """The global rank of pipe device ``d`` at this rank's data index:
+        the point-to-point peer of every boundary tensor between this
+        rank's stages and device ``d``'s."""
+        return self.rank_of(d, self.coord[1])
+
+
+def build_pipeline_grid(pp: int, dp: int, device,
+                        ranks: Optional[Sequence[int]] = None
+                        ) -> PipelineGrid:
+    """The (pp, dp) grid over the first pp*dp of ``ranks`` (default: every
+    rank of the default process group, joined first if need be). Every
+    rank of the group calls this: each pipe device's data group is made
+    by ``new_group``, which the whole group enters in the same order."""
+    import torch.distributed as dist
+
+    initialize_multihost(device_type=device.type)
+    world = dist.get_world_size()
+    ranks = list(range(world)) if ranks is None else [int(r) for r in ranks]
+    if len(ranks) < pp * dp:
+        raise ValueError(
+            f"pipeline grid pp={pp} x dp={dp} needs {pp * dp} ranks and "
+            f"{len(ranks)} are given (world size {world}); launch with "
+            f"torchrun --nproc-per-node {pp * dp} or shrink the grid")
+    grid = ranks[:pp * dp]
+    me = dist.get_rank()
+    coord = None
+    data_mesh = None
+    for d in range(pp):
+        members = grid[d * dp:(d + 1) * dp]
+        group = dist.new_group(ranks=members)
+        if me in members:
+            coord = (d, members.index(me))
+            data_mesh = Mesh(None, ("data",), [dp], [coord[1]], [group],
+                             device)
+    return PipelineGrid(pp, dp, grid, coord, data_mesh)

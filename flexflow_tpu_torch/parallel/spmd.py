@@ -560,8 +560,8 @@ def plan_spmd(pcg, strategy, mesh, inputs_sharded: bool = True
                     data_axis in entry_axes(e) for e in spec or ()):
                 raise NotImplementedError(
                     f"{node.name}.{w}: a weight split over the data axis "
-                    f"{data_axis!r} (ZeRO/FSDP-style) is ported with the "
-                    "pipeline schedules (A.5, second part)")
+                    f"{data_axis!r} (ZeRO/FSDP-style) is ported in a "
+                    "later slice (A.5, third part)")
         in_shapes = [pcg.nodes[g].out_shapes[i] for g, i in node.inputs]
         srcs = [held[r] for r in node.inputs]
         wdecl = {} if t in (OperatorType.OP_INPUT, OperatorType.OP_WEIGHT) \

@@ -49,7 +49,7 @@ class Strategy:
     # input batch sharding axis (the data-parallel dim)
     data_axis: str = "data"
     # GPipe pipeline selected by the search: (pp, dp, n_micro); None =
-    # pure SPMD. The port refuses a grid until its pipeline slice.
+    # pure SPMD. A grid trains through parallel/pipeline.PipelineTrainer.
     pipeline: Optional[Tuple[int, int, int]] = None
     # pipeline schedule the search chose: gpipe | 1f1b |
     # interleaved, or "" = unset (strategy predates the schedule axis /

@@ -28,6 +28,20 @@ proxy, the kernels' plain versions):
     python3 scripts/mesh_multigpu.py --reference --device cpu --tiny
     torchrun --standalone --nproc-per-node 4 scripts/mesh_multigpu.py \\
         --device cpu --tiny
+
+``--suite pipeline`` trains the proxy in fp32 (a pipeline stage runs in
+its params' dtype) under each grid of ``PIPELINES`` instead, through
+``compile(strategy_fn=)`` with a pipeline grid and ``fit`` (point-to-point
+over NCCL between the cards): per grid the p50 step, each rank's busy
+share of one profiled train step outside and inside NCCL kernels (a receive's
+kernel spins while its rank waits on the pipeline), each rank's peak
+memory over the fit above the compiled model's state, the B1 / B2 launches
+a step against the count the stage split gives, and the params off the
+one-device runs (``--reference --compute fp32`` first, same ``--steps``).
+``--suite c8`` trains GPT-2 small (fp32, batch 8, seq 512) data-parallel
+over the four cards and reports the p50 step and each rank's peak memory
+over the fit; ``--package-root DIR`` imports the package from another
+checkout (a parent commit), so two trees compare in one call.
 """
 from __future__ import annotations
 
@@ -43,6 +57,15 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
+# name -> (schedule, pp, dp, virtual stages); the grid's microbatch count
+# (fit re-derives it for the batch)
+PIPELINES = {
+    "gpipe_pp4": ("gpipe", 4, 1, 1),
+    "1f1b_pp4": ("1f1b", 4, 1, 1),
+    "interleaved_pp4_v2": ("interleaved", 4, 1, 2),
+    "1f1b_pp2_dp2": ("1f1b", 2, 2, 1),
+}
+N_MICRO = 4
 # name -> (kind, a, b, collective overlap)
 STRATEGIES = {
     "dp4": ("dp", 4, 1, False),
@@ -68,7 +91,14 @@ def args_of():
         os.environ.get("TMPDIR", "/tmp"), "ff_mesh_multigpu"))
     p.add_argument("--out", default=os.path.join(
         REPO, "chiprun_out", "mesh_multigpu.json"))
-    return p.parse_args()
+    p.add_argument("--suite", default="strategies",
+                   choices=("strategies", "pipeline", "c8"))
+    p.add_argument("--package-root", default=None,
+                   help="import flexflow_tpu_torch from this checkout")
+    args = p.parse_args()
+    if args.package_root:
+        sys.path.insert(0, os.path.abspath(args.package_root))
+    return args
 
 
 def build(args, device, strategy_fn=None, overlap=False):
@@ -150,17 +180,13 @@ def reference(args) -> None:
           f"{[round(v, 4) for v in runs[0]['losses']]}", flush=True)
 
 
-def mesh(args) -> None:
-    """Every strategy of ``STRATEGIES`` on the torchrun world."""
+def join(args):
+    """This process's rank of the torchrun world: (device, rank, world,
+    the card's name and power limit)."""
     import datetime
 
     import torch
     import torch.distributed as dist
-
-    import chip_smoke as cs
-    from flexflow_tpu_torch.parallel.strategies import \
-        hybrid_data_tensor_strategy
-    from flexflow_tpu_torch.parallel.strategy import data_parallel_strategy
 
     local = int(os.environ["LOCAL_RANK"])
     if args.device == "cuda":
@@ -174,27 +200,65 @@ def mesh(args) -> None:
         torch.set_num_threads(1)
         dist.init_process_group("gloo",
                                 timeout=datetime.timedelta(seconds=300))
-    rank, world = dist.get_rank(), dist.get_world_size()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True
     ).stdout.strip().splitlines()[0] if args.device == "cuda" else "cpu"
-    ref = init = finals = None
+    return device, dist.get_rank(), dist.get_world_size(), card
+
+
+def load_reference(args, card: str):
+    """The one-device runs of ``--reference``: (runs, initial params,
+    final params of each run, band)."""
+    import torch
+
+    import chip_smoke as cs
+
+    with open(os.path.join(args.ref_dir, "runs.json")) as f:
+        ref = json.load(f)
+    init = torch.load(os.path.join(args.ref_dir, "init.pt"))
+    finals = [torch.load(os.path.join(args.ref_dir, f"final_{i}.pt"))
+              for i in range(len(ref))]
+    spread = max(cs.pair_diffs(finals, init))
+    band = cs.band_of(spread)
+    loss_spread = max(abs(a - b) for i, r in enumerate(ref)
+                      for q in ref[i + 1:]
+                      for a, b in zip(r["losses"], q["losses"]))
+    print(f"one device: p50 {ref[0]['p50_ms']:.3f} ms, {len(ref)} runs "
+          f"spread {spread:.3g} of the params' change, band "
+          f"{band:.3g}; loss spread {loss_spread:.3g} [{card}]",
+          flush=True)
+    return ref, init, finals, band
+
+
+def finish(args, rank: int, out: dict) -> None:
+    import torch.distributed as dist
+
     if rank == 0:
-        with open(os.path.join(args.ref_dir, "runs.json")) as f:
-            ref = json.load(f)
-        init = torch.load(os.path.join(args.ref_dir, "init.pt"))
-        finals = [torch.load(os.path.join(args.ref_dir, f"final_{i}.pt"))
-                  for i in range(len(ref))]
-        spread = max(cs.pair_diffs(finals, init))
-        band = cs.band_of(spread)
-        loss_spread = max(abs(a - b) for i, r in enumerate(ref)
-                          for q in ref[i + 1:]
-                          for a, b in zip(r["losses"], q["losses"]))
-        print(f"one device: p50 {ref[0]['p50_ms']:.3f} ms, {len(ref)} runs "
-              f"spread {spread:.3g} of the params' change, band "
-              f"{band:.3g}; loss spread {loss_spread:.3g} [{card}]",
-              flush=True)
+        os.makedirs(os.path.dirname(args.out), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1, default=str)
+    dist.barrier()
+    sys.stdout.flush()
+    # no destroy_process_group: on the four-card host, tearing NCCL down
+    # under the captured programs' graphs hung for over 13 minutes
+    os._exit(0)
+
+
+def mesh(args) -> None:
+    """Every strategy of ``STRATEGIES`` on the torchrun world."""
+    import torch
+    import torch.distributed as dist
+
+    import chip_smoke as cs
+    from flexflow_tpu_torch.parallel.strategies import \
+        hybrid_data_tensor_strategy
+    from flexflow_tpu_torch.parallel.strategy import data_parallel_strategy
+
+    device, rank, world, card = join(args)
+    ref = init = finals = band = None
+    if rank == 0:
+        ref, init, finals, band = load_reference(args, card)
     out = {"card": card, "world": world, "strategies": {}}
     for name, (kind, a, b, overlap) in STRATEGIES.items():
         if kind == "dp":
@@ -249,17 +313,174 @@ def mesh(args) -> None:
         if args.device == "cuda":
             torch.cuda.empty_cache()
         dist.barrier()
+    finish(args, rank, out)
+
+
+def pipeline_strategy(sched: str, pp: int, dp: int, v: int, world: int):
+    from flexflow_tpu_torch.parallel.strategy import data_parallel_strategy
+
+    def fn(pcg):
+        s = data_parallel_strategy(pcg, world)
+        s.pipeline = (pp, dp, N_MICRO)
+        s.schedule, s.virtual_stages = sched, v
+        return s
+    return fn
+
+
+def pipeline(args) -> None:
+    """Every grid of ``PIPELINES`` on the torchrun world."""
+    import torch
+    import torch.distributed as dist
+
+    import chip_smoke as cs
+    from flexflow_tpu_torch import OperatorType
+
+    device, rank, world, card = join(args)
+    cuda = args.device == "cuda"
+    ref = init = finals = band = None
     if rank == 0:
-        os.makedirs(os.path.dirname(args.out), exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(out, f, indent=1, default=str)
-    dist.barrier()
-    sys.stdout.flush()
-    # no destroy_process_group: on the four-card host, tearing NCCL down
-    # under the captured programs' graphs hung for over 13 minutes
-    os._exit(0)
+        ref, init, finals, band = load_reference(args, card)
+    out = {"card": card, "world": world, "pipelines": {}}
+    for name, (sched, pp, dp, v) in PIPELINES.items():
+        t0 = time.perf_counter()
+        ff, x, y = build(args, device, pipeline_strategy(sched, pp, dp, v,
+                                                         world))
+        tr = ff._pipeline_trainer
+        if cuda:  # the fit's peak above the compiled model's state
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            base = torch.cuda.memory_allocated(device)
+        r = run(ff, x, y, args)
+        peak = ((torch.cuda.max_memory_allocated(device) - base) / 2 ** 30
+                if cuda else None)
+        att = sum(1 for c in tr._mine
+                  for node in tr.specs[c].sub_pcg.compute_nodes()
+                  if node.op.op_type == OperatorType.OP_MULTIHEAD_ATTENTION)
+        # fit re-derives the microbatch count for the batch (2 pp, pp,
+        # 2, 1: the first that splits it), as the JAX package does; stage
+        # remat full: B1 in the forward and in its recompute
+        n_micro = tr.n_micro
+        want = {"flash_fwd": 2 * att * n_micro,
+                "flash_bwd_fused": att * n_micro}
+        params = ff.get_params_numpy()  # before the profiled extra step
+        prof = {}
+        if cuda:
+            b0 = ff.config.batch_size
+            prof = cs.profiled(lambda: tr.train_step([x[:b0]], y[:b0]))
+        mine = dict(rank=rank, chunks=list(tr._mine), counts=r["counts"],
+                    want=want, busy_ms=prof.get("busy_ms"),
+                    nccl_ms=prof.get("nccl_ms"),
+                    nccl_kernels=prof.get("nccl_kernels", [])[:4],
+                    peak_gib=peak)
+        ranks = [None] * world
+        dist.all_gather_object(ranks, mine)
+        line = dict(schedule=sched, pp=pp, dp=dp, v=v, n_micro=n_micro,
+                    p50_ms=r["p50_ms"],
+                    losses=r["losses"], ranks=ranks,
+                    samples_per_s=ff.config.batch_size / r["p50_ms"] * 1e3)
+        if cuda:
+            # one profiled train step's device time over the p50 step
+            line["busy_share"] = [q["busy_ms"] / r["p50_ms"] for q in ranks]
+            line["compute_share"] = [(q["busy_ms"] - q["nccl_ms"])
+                                     / r["p50_ms"] for q in ranks]
+        if rank == 0:
+            got = [torch.as_tensor(params[n][w]) for n in params
+                   for w in params[n]]
+            line["dparams"] = cs.update_rel(got, finals[0], init)
+            line["dloss"] = max(abs(p - q) for p, q in
+                                zip(r["losses"], ref[0]["losses"]))
+            line["band"] = band
+            line["in_band"] = bool(line["dparams"] <= band)
+        line["wall_s"] = time.perf_counter() - t0
+        if rank == 0:
+            print(f"pipeline {name} ({sched}, pp={pp} dp={dp} v={v}, "
+                  f"{n_micro} microbatches): p50 {r['p50_ms']:.3f} ms (one "
+                  f"device {ref[0]['p50_ms']:.3f}), "
+                  f"{line['samples_per_s']:.1f} samples/s; busy share a "
+                  f"rank {[round(q, 4) for q in line.get('busy_share', [])]}"
+                  f", outside NCCL "
+                  f"{[round(q, 4) for q in line.get('compute_share', [])]}"
+                  f"; B1/B2 a step {[q['counts'] for q in ranks]} (want "
+                  f"{[q['want'] for q in ranks]}); NCCL kernels "
+                  f"{ranks[0]['nccl_kernels']}; fit's peak GiB above the state "
+                  f"{[q['peak_gib'] for q in ranks]}; vs one device: "
+                  f"params {line['dparams']:.3g} (band {band:.3g}), loss "
+                  f"{line['dloss']:.3g} [{card}]", flush=True)
+            out["pipelines"][name] = line
+        fails = []
+        if not args.tiny and r["counts"] != want:
+            fails.append(f"launches {r['counts']}, want {want}")
+        if cuda and not prof.get("nccl_kernels"):
+            fails.append("no NCCL kernel in a profiled step")
+        if fails:
+            raise SystemExit(f"mesh_multigpu {name} rank {rank}: {fails}")
+        del ff, params
+        if cuda:
+            torch.cuda.empty_cache()
+        dist.barrier()
+    finish(args, rank, out)
+
+
+def c8(args) -> None:
+    """GPT-2 small data-parallel over the world: p50 step and each rank's
+    peak memory over the fit (the loss on sharded logits, ROADMAP C.8,
+    against a parent tree through ``--package-root``)."""
+    import torch
+    import torch.distributed as dist
+
+    import chip_smoke as cs
+    import flexflow_tpu_torch
+    from flexflow_tpu_torch.parallel.strategy import data_parallel_strategy
+
+    from flexflow_tpu_torch import (AdamOptimizer, FFConfig, FFModel,
+                                    LossType)
+    from flexflow_tpu_torch.models.gpt2 import GPT2Config, build_gpt2
+
+    device, rank, world, card = join(args)
+    cuda = args.device == "cuda"
+    t0 = time.perf_counter()
+    # chip_smoke.train_model's GPT-2 small (or the tiny LM): softmax head,
+    # token-level labels, Adam 1e-4, fp32
+    cfg = GPT2Config.tiny(batch_size=8) if args.tiny else \
+        GPT2Config(batch_size=8, seq_len=512)
+    c = FFConfig()
+    c.batch_size, c.seed = cfg.batch_size, cs.SEED
+    c.profiling, c.print_freq = True, 10 ** 9
+    ff = FFModel(c, device=device)
+    _ids, logits = build_gpt2(ff, cfg)
+    ff.softmax(logits)
+    ff.compile(optimizer=AdamOptimizer(ff, alpha=1e-4),
+               loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+               strategy_fn=lambda pcg: data_parallel_strategy(pcg, world))
+    x, y = cs.train_data("gpt2", cfg, cfg.batch_size * args.steps)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+    ff.fit([x], y, epochs=1)
+    mine = dict(rank=rank, peak_gib=(
+        (torch.cuda.max_memory_allocated(device) - base) / 2 ** 30
+        if cuda else None))
+    ranks = [None] * world
+    dist.all_gather_object(ranks, mine)
+    p50 = float(np.median(ff.fit_history.step_s[args.warmup:])) * 1e3
+    root = os.path.dirname(os.path.dirname(flexflow_tpu_torch.__file__))
+    line = dict(package=root, p50_ms=p50, losses=list(ff.fit_history.loss),
+                peak_gib_above_state=[q["peak_gib"] for q in ranks],
+                wall_s=time.perf_counter() - t0)
+    if rank == 0:
+        print(f"c8 gpt2 dp={world} fp32 b{cfg.batch_size} s{cfg.seq_len} "
+              f"({root}): p50 {p50:.3f} ms over {args.steps} steps after "
+              f"{args.warmup}, peak GiB above the state a rank "
+              f"{[round(q['peak_gib'], 3) for q in ranks if q['peak_gib']]}"
+              f", losses {[round(v, 5) for v in line['losses'][:3]]} "
+              f"[{card}]", flush=True)
+    finish(args, rank, {"card": card, "world": world, "c8": line})
 
 
 if __name__ == "__main__":
     a = args_of()
-    reference(a) if a.reference else mesh(a)
+    if a.reference:
+        reference(a)
+    else:
+        {"strategies": mesh, "pipeline": pipeline, "c8": c8}[a.suite](a)

@@ -319,13 +319,24 @@ def _xy():
     ("audit_strategy", True, "--audit-strategy"),
     ("memory_budget_mb", 1024, "--memory-budget-mb"),
     ("profile_ops", "ops.jsonl", "--profile-ops"),
-    ("schedule", "1f1b", "--schedule"),
 ])
 def test_fit_refuses_config_flags_of_later_slices(field, value, flag):
     ff = _tiny_mlp(**{field: value})
     with pytest.raises(NotImplementedError, match=LATER) as e:
         ff.fit(*_xy())
     assert flag in str(e.value)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("schedule", "1f1b"), ("pipeline_virtual_stages", 2)])
+def test_fit_refuses_schedule_flags_without_a_pipeline(field, value):
+    """``--schedule`` / ``--virtual-stages`` act on a pipeline strategy
+    since its slice; without one they would be parsed and ignored, so
+    ``fit`` raises, naming them."""
+    ff = _tiny_mlp(**{field: value})
+    with pytest.raises(ValueError, match="pipeline") as e:
+        ff.fit(*_xy())
+    assert "--schedule" in str(e.value)
 
 
 def test_profile_ops_names_the_simulator_slice():

@@ -164,4 +164,4 @@ def test_only_data_parallel_flow_and_rank_zero_files(runs):
 def test_checkpoints_on_several_ranks_are_refused_by_name(runs):
     root, _ = runs
     msg = str(tp.load(root, "refuse")["message"])
-    assert "ported in a later slice" in msg and "A.5, second part" in msg
+    assert "ported in a later slice" in msg and "A.5, third part" in msg

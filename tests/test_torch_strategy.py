@@ -15,9 +15,10 @@
   gives the one-device step; the exported text is the imported one and
   the JAX package's for the same flags; ``--only-data-parallel`` in one
   process stays on the one-device path;
-* refused by name: a pipeline grid (A.5, second part), a strategy's
-  ``sequence_parallel_axis`` (A.7), serving a model compiled on a mesh
-  (A.8).
+* a pipeline grid compiles since its slice (tests/test_torch_pipeline*.py);
+  one the world cannot hold is refused by the preflight, naming the grid;
+* refused by name: a strategy's ``sequence_parallel_axis`` (A.7), serving
+  a model compiled on a mesh (A.8).
 """
 import json
 
@@ -255,14 +256,17 @@ def test_only_data_parallel_in_one_process_stays_on_one_device(tmp_path):
 
 
 def test_pipeline_grid_is_refused_by_name():
+    """Compiled since its slice; a grid of two ranks in a process of one
+    is refused before any group is joined, naming the grid."""
     def fn(pcg):
         s = tstrategy.data_parallel_strategy(pcg, 1)
         s.pipeline = (2, 1, 2)
         return s
 
-    with pytest.raises(NotImplementedError, match="A.5, second part") as e:
+    with pytest.raises(tpre.PreflightError, match="pipeline grid") as e:
         _tiny_bert(strategy_fn=fn)
-    assert LATER in str(e.value)
+    assert "needs 2 devices but only 1" in str(e.value)
+    assert not dist.is_initialized()
 
 
 def test_sequence_parallel_axis_is_refused_by_name(one_rank):

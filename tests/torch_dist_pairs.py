@@ -20,6 +20,8 @@ Cases (``CASES``), each building the model on the CPU (``device="cpu"``):
   ``predict``, on every rank;
 * ``linear``: the column- then row-parallel dense pair's ``predict``;
 * ``census``: the collectives of one step under ``CommDebugMode``;
+* ``metrics``: ``eval`` (the accuracy counts), the eval step's loss and
+  ``predict`` on every rank;
 * ``refuse``: ``fit`` with a checkpoint directory on a mesh of several
   ranks, which raises (the message is kept);
 * ``flow``: no strategy, ``--only-data-parallel`` at the world size, a
@@ -68,6 +70,7 @@ def build(model: str, strategy, batch: int, *, dropout: float = 0.0,
     helpers build the same graph (tests/test_torch_mesh_*.py)."""
     import flexflow_tpu_torch as ft
     from flexflow_tpu_torch.models.bert import BertConfig, build_bert
+    from flexflow_tpu_torch.models.gpt2 import GPT2Config, build_gpt2
     from flexflow_tpu_torch.models.transformer import build_moe_mlp
 
     c = ft.FFConfig()
@@ -81,6 +84,9 @@ def build(model: str, strategy, batch: int, *, dropout: float = 0.0,
         cfg = BertConfig.tiny(batch_size=batch)
         cfg.dropout = dropout
         build_bert(ff, cfg)
+    elif model == "gpt2":  # the tiny LM, token-level targets
+        _ids, logits = build_gpt2(ff, GPT2Config.tiny(batch_size=batch))
+        ff.softmax(logits)
     elif model == "moe":
         build_moe_mlp(ff, batch_size=batch, in_dim=32, num_classes=4,
                       num_exp=4, num_select=2, expert_hidden=16)
@@ -127,8 +133,10 @@ def build(model: str, strategy, batch: int, *, dropout: float = 0.0,
     loss = (ft.LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE
             if model == "linear"
             else ft.LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY)
+    # the metrics read one class a sample, which token-level targets are not
     ff.compile(optimizer=opt, loss_type=loss,
-               metrics=[ft.MetricsType.METRICS_ACCURACY],
+               metrics=[] if model == "gpt2" else
+               [ft.MetricsType.METRICS_ACCURACY],
                strategy_fn=_strategy(strategy) if strategy else None)
     return ff
 
@@ -142,9 +150,10 @@ def one_step(ff, x, y, rng_seed: int = 11):
 
     ex = ff.executor
     xs, ys = ex.local_batch([x, ff._prep_label(y)])
-    loss, _logits, grads = ex.loss_and_grads(
+    loss, logits, grads = ex.loss_and_grads(
         ff.params, [torch.tensor(xs)], torch.tensor(ys),
         torch.Generator().manual_seed(rng_seed))
+    ff._seen_logits = tuple(logits.shape)
     full = {n: {w: ex.gather_param(n, w, g).numpy().copy()
                 for w, g in ws.items()} for n, ws in grads.items()}
     ff.params, ff.opt_state = ff.optimizer.update(ff.params, grads,
@@ -171,7 +180,7 @@ def _case_step(ff_args, io):
     ff.set_params_numpy(unflat("w", io))
     loss, grads, params = one_step(ff, io["x"], io["y"])
     out = {"loss": np.float64(loss), **flat("g", grads),
-           **flat("p", params)}
+           **flat("p", params), "logits_shape": np.array(ff._seen_logits)}
     attn = [n for n in ff.params if "attn" in n]
     if attn:
         out["wq_local_shape"] = np.array(ff.params[attn[0]]["wq"].shape)
@@ -220,15 +229,31 @@ def _case_census(ff_args, io):
     import torch
     from torch.distributed.tensor.debug import CommDebugMode
 
+    from flexflow_tpu_torch.parallel import spmd
+
     ff = build(**ff_args)
     ff.set_params_numpy(unflat("w", io))
     ex = ff.executor
     xs, ys = ex.local_batch([io["x"], ff._prep_label(io["y"])])
-    with CommDebugMode() as comm:
-        ex.loss_and_grads(ff.params, [torch.tensor(xs)], torch.tensor(ys))
+    shapes = []
+    gather = spmd._gather
+
+    def seen(x, dim, group, n):
+        out = gather(x, dim, group, n)
+        shapes.append(",".join(str(d) for d in out.shape))
+        return out
+
+    spmd._gather = seen
+    try:
+        with CommDebugMode() as comm:
+            ex.loss_and_grads(ff.params, [torch.tensor(xs)],
+                              torch.tensor(ys))
+    finally:
+        spmd._gather = gather
     counts = {str(k): int(v) for k, v in comm.get_comm_counts().items()}
     return {"kinds": np.array(sorted(counts)),
-            "counts": np.array([counts[k] for k in sorted(counts)])}
+            "counts": np.array([counts[k] for k in sorted(counts)]),
+            "gathered": np.array(shapes, dtype=str)}
 
 
 def _case_refuse(ff_args, io):
@@ -264,12 +289,32 @@ def _case_flow(ff_args, io):
             "wrote": np.array([os.path.exists(f) for f in files])}
 
 
-CASES = {"step": _case_step, "two_steps": _case_two_steps,
-         "flow": _case_flow, "fit": _case_fit, "linear": _case_linear,
+def _case_metrics(ff_args, io):
+    """``eval``'s accuracy counts, the eval step's loss on the whole batch
+    and ``predict``."""
+    import torch
+
+    ff = build(**ff_args)
+    ff.set_params_numpy(unflat("w", io))
+    perf = ff.eval(io["x"], io["y"])
+    ex = ff.executor
+    xs, ys = ex.local_batch([io["x"], ff._prep_label(io["y"])])
+    loss, _m = ex.make_eval_step()(ff.params, [torch.tensor(xs)],
+                                   torch.tensor(ys))
+    return {"train_all": np.int64(perf.train_all),
+            "train_correct": np.int64(perf.train_correct),
+            "loss": np.float64(float(loss)),
+            "pred": ff.predict(io["x"])}
+
+
+CASES = {"step": _case_step, "metrics": _case_metrics,
+         "two_steps": _case_two_steps, "flow": _case_flow, "fit": _case_fit, "linear": _case_linear,
          "census": _case_census, "refuse": _case_refuse}
 
 
-def _rank_main(rank: int, world: int, root: str, cases) -> None:
+def run_cases(rank: int, world: int, root: str, cases, registry) -> None:
+    """A rank's body: join the gloo group, run each case of ``registry``
+    in order, write its results; a failure leaves its traceback."""
     import torch
     import torch.distributed as dist
 
@@ -281,7 +326,7 @@ def _rank_main(rank: int, world: int, root: str, cases) -> None:
         for name, kind, ff_args in cases:
             io = dict(np.load(os.path.join(root, f"{name}_in.npz")),
                       root=root)
-            out = CASES[kind](ff_args, io)
+            out = registry[kind](ff_args, io)
             np.savez(os.path.join(root, f"{name}_r{rank}.npz"), **out)
         dist.destroy_process_group()
     except BaseException:
@@ -290,14 +335,21 @@ def _rank_main(rank: int, world: int, root: str, cases) -> None:
         raise
 
 
-def start(world: int, root: str, cases):
+def _rank_main(rank: int, world: int, root: str, cases) -> None:
+    run_cases(rank, world, root, cases, CASES)
+
+
+def start(world: int, root: str, cases, main=None):
     """Start ``cases`` ([(name, kind, build kwargs)], inputs in
     ``<root>/<name>_in.npz``) on ``world`` gloo ranks; :func:`finish`
-    waits for them. The caller may work meanwhile (the references)."""
+    waits for them. The caller may work meanwhile (the references).
+    ``main`` is the ranks' entry (another helper module's, with its own
+    cases); this module's by default."""
     import multiprocessing as mp
 
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_rank_main, args=(r, world, root, cases))
+    procs = [ctx.Process(target=main or _rank_main,
+                         args=(r, world, root, cases))
              for r in range(world)]
     for p in procs:
         p.start()

@@ -19,6 +19,8 @@ import flexflow_tpu as fj
 from flexflow_tpu.execution.losses import loss_value as jax_loss_value
 from flexflow_tpu.models.bert import BertConfig as JaxBertConfig
 from flexflow_tpu.models.bert import build_bert as jax_build_bert
+from flexflow_tpu.models.gpt2 import GPT2Config as JaxGPT2Config
+from flexflow_tpu.models.gpt2 import build_gpt2 as jax_build_gpt2
 from flexflow_tpu.models.transformer import build_moe_mlp as jax_moe_mlp
 from flexflow_tpu.ops.base import OpContext as JaxOpContext
 from flexflow_tpu.parallel import strategies as jax_strategies
@@ -53,6 +55,11 @@ def jax_build(model: str, strategy: str, batch: int, bf16: bool = False):
     ff = fj.FFModel(c)
     if model == "bert":
         jax_build_bert(ff, JaxBertConfig.tiny(batch_size=batch))
+    elif model == "gpt2":
+        _ids, logits = jax_build_gpt2(ff, JaxGPT2Config(
+            batch_size=batch, seq_len=16, hidden=64, num_heads=4,
+            num_layers=2, intermediate=128, vocab_size=100))
+        ff.softmax(logits)
     elif model == "moe":
         jax_moe_mlp(ff, batch_size=batch, in_dim=32, num_classes=4,
                     num_exp=4, num_select=2, expert_hidden=16)
@@ -65,7 +72,8 @@ def jax_build(model: str, strategy: str, batch: int, bf16: bool = False):
             if model == "linear"
             else fj.LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY)
     ff.compile(optimizer=fj.AdamOptimizer(None, alpha=1e-3), loss_type=loss,
-               metrics=[fj.MetricsType.METRICS_ACCURACY],
+               metrics=[] if model == "gpt2" else
+               [fj.MetricsType.METRICS_ACCURACY],
                strategy_fn=jax_strategy(strategy))
     return ff
 
@@ -116,6 +124,9 @@ def data(model: str, batch: int, n: int = 0, seed: int = 0):
     elif model in ("reg", "mlp"):
         x = rng.standard_normal((n, 32)).astype(np.float32)
         y = rng.integers(0, 4, (n, 1)).astype(np.int32)
+    elif model == "gpt2":
+        x = rng.integers(0, 100, (n, 16)).astype(np.int32)
+        y = rng.integers(0, 100, (n, 16)).astype(np.int32)
     elif model == "emb":
         x = rng.integers(0, 64, (n, 4)).astype(np.int32)
         y = rng.integers(0, 4, (n, 1)).astype(np.int32)
