@@ -5883,6 +5883,8 @@ PIPE_WALL_S = 90.0
 # (schedule, pp, dp, virtual stages)
 PIPE_RUNS = (("gpipe", 4, 1, 1), ("1f1b", 4, 1, 1), ("interleaved", 4, 1, 2),
              ("1f1b", 2, 2, 1))
+# the run phase 16 (d) repeats with captured stages
+PIPE_CAPTURED = ("1f1b", 4, 1, 1)
 _P2P_BACKEND = []
 
 
@@ -6032,12 +6034,15 @@ def pipe_reference(device, cfg, x, y, layers: int, tiny: bool):
 
 
 def pipe_run(device, weights, x, y, sched: str, pp: int, dp: int, v: int,
-             layers: int, tiny: bool) -> dict:
+             layers: int, tiny: bool, capture: bool = False,
+             steps: int = PIPE_STEPS) -> dict:
     """One pipeline run on four ranks as threads: each builds the graph,
     a ``PipelineTrainer`` on the (pp, dp) grid loaded with ``weights`` and
-    takes PIPE_STEPS steps; per rank its losses, its chunks' final params
-    by name (data index 0), its attention layers, and its B1 / B2
-    launches."""
+    takes ``steps`` steps; per rank its losses, its chunks' params by name
+    (data index 0) after PIPE_STEPS steps, its attention layers, and its
+    B1 / B2 launches. ``capture``: the stages' step programs are
+    captured (phase 16), else run uncaptured (phase 15); the programs'
+    captures after each step."""
     import threading
 
     import torch
@@ -6066,27 +6071,31 @@ def pipe_run(device, weights, x, y, sched: str, pp: int, dp: int, v: int,
             tr = PipelineTrainer(ff, pp=pp, dp=dp, n_micro=PIPE_MICRO,
                                  optimizer=AdamOptimizer(ff, alpha=1e-4),
                                  schedule=sched, virtual_stages=v,
-                                 init_params=False)
+                                 init_params=False, capture=capture)
             tr.load_params(weights)
             t0 = time.perf_counter()
-            losses = []
-            for i in range(PIPE_STEPS):
-                losses.append(tr.train_step([x[i * b:(i + 1) * b]],
-                                            y[i * b:(i + 1) * b],
+            losses, captures, params = [], [], {}
+            d, j = tr.grid.coord
+            for i in range(steps):
+                k = i % PIPE_STEPS
+                losses.append(tr.train_step([x[k * b:(k + 1) * b]],
+                                            y[k * b:(k + 1) * b],
                                             rng_seed=i))
+                captures.append(tr.captures)
+                if i == PIPE_STEPS - 1 and not j:
+                    params = {(n, w): t.detach().clone() for c in tr._mine
+                              for n, ws in tr.params[c].items()
+                              for w, t in ws.items()}
             if cuda:
                 torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            d, j = tr.grid.coord
-            params = {} if j else {
-                (n, w): t for c in tr._mine
-                for n, ws in tr.params[c].items() for w, t in ws.items()}
             att = sum(1 for c in tr._mine
                       for node in tr.specs[c].sub_pcg.compute_nodes()
                       if node.op.op_type ==
                       OperatorType.OP_MULTIHEAD_ATTENTION)
             out[r] = dict(losses=losses, params=params, att=att, wall=wall,
-                          chunks=list(tr._mine), remat=tr.remat)
+                          chunks=list(tr._mine), remat=tr.remat,
+                          captures=captures)
         except BaseException as e:  # reaches the phase, which fails
             errs.append(f"rank {r}: {e!r}")
             raise
@@ -6184,6 +6193,9 @@ def pipe_threaded(device, card: str, layers: int = 0,
                  "runs")
         runs[label] = dict(dparams=dparams, dloss=dloss, wall=wall,
                            launches=[out[r]["launches"] for r in range(4)])
+        if (sched, pp, dp, v) == PIPE_CAPTURED:
+            # phase 16 (d) holds its captured stages against these
+            runs[label].update(params=got, losses=losses)
     totals = {k: fa.launch_count(k) for k in ("flash_fwd", "flash_bwd_fused")}
     counted = {k: sum(r["launches"][i][k] for r in runs.values()
                       for i in range(4)) for k in totals}
@@ -6194,7 +6206,8 @@ def pipe_threaded(device, card: str, layers: int = 0,
         torch.cuda.empty_cache()
     log(f"pipeline threaded: {time.perf_counter() - t0:.1f} s, B1/B2 "
         f"launches over the runs {totals} [{card}]")
-    return dict(runs=runs, totals=totals, band=band, loss_band=loss_band)
+    return dict(runs=runs, totals=totals, band=band, loss_band=loss_band,
+                weights=weights, init=init, names=names, x=x, y=y)
 
 
 def _pipe_gloo_rank(rank: int, world: int, root: str) -> None:
@@ -6301,6 +6314,438 @@ def pipeline_phase(device, card: str) -> dict:
     return dict(gloo=gloo, threaded=threaded, kern=kern)
 
 
+# ------------------------------------------- A.5's third part (phase 16)
+# phase 16: what the mesh and pipeline paths once refused. (a) resilience
+# on threaded dp 2 ranks (the BERT-Large proxy, bf16, Adam, widths full
+# and depth cut to MESH16_LAYERS, torch's threaded test group, a harness):
+# with
+# --checkpoint-dir, --checkpoint-every MESH16_EVERY and --max-bad-steps 1,
+# a NaN on rank 0's chaos plan alone is skipped on both ranks and rolled
+# back once, and a preemption on rank 1's plan alone stops both after the
+# same step; the NaN run and the resumed one end within phase 10's band of
+# MESH16_SPREAD_RUNS uninterrupted runs; the sharded checkpoint's bytes per
+# rank and save seconds; (b) every weight of two or more dims split over
+# the data axis (ZeRO-3 / FSDP) on the same threaded dp 2: a rank's stored
+# bytes against plain dp 2's, the params in the band, B1 / B2 counted on
+# their b4 shard (held against their plain versions there), then the same
+# strategy on a (1,) NCCL mesh of one card, where the step and its
+# collectives are captured once; (c) --fusion on the (1, 1) NCCL mesh
+# under hybrid(dp=1, tp=1): its regions, the flash launches of the
+# unfused run, the params in the band; (d) phase 15's fp32 1f1b pp 4 with
+# the stages' step programs: captures, none after the warm-up, params
+# within phase 15's band of the eager run, B1 / B2 counted inside the
+# replays. The phase's stated wall: MESH16_WALL_S.
+MESH16_LAYERS = 2
+MESH16_STEPS = 8
+MESH16_EVERY = 4
+MESH16_SPREAD_RUNS = 3
+MESH16_NAN_STEP = 6
+MESH16_PREEMPT_STEP = 5
+MESH16_WALL_S = 90.0
+# (d): a third step after the band's two, in which nothing may capture
+PIPE16_STEPS = PIPE_STEPS + 1
+FA_SHAPES["bert_dp2"] = dict(b=4, h=16, sq=512, sk=512, d=64, causal=False)
+
+
+def fsdp16_strategy(dp: int):
+    """strategy_fn: data parallelism at ``dp`` with every weight of two or
+    more dims whose first dim ``dp`` divides split over the data axis on
+    it (biases and norms replicated)."""
+    from flexflow_tpu_torch.parallel.strategy import data_parallel_strategy
+
+    def fn(pcg):
+        s = data_parallel_strategy(pcg, dp)
+        for node in pcg.compute_nodes():
+            ins = [pcg.nodes[g].out_shapes[i] for g, i in node.inputs]
+            for w, (shape, _d, _i) in node.op.weight_specs(ins).items():
+                if len(shape) >= 2 and shape[0] % dp == 0:
+                    s.for_node(node.guid).weight_specs[w] = \
+                        ("data",) + (None,) * (len(shape) - 1)
+        return s
+    return fn
+
+
+def threaded_ranks(world: int, body, label: str) -> dict:
+    """``body(rank)`` on ``world`` threads named ``rank<r>`` of torch's
+    threaded test group on the one card (a harness: its collectives are
+    copies between threads, never captured); {rank: result}."""
+    import threading
+
+    import torch
+    import torch.distributed as dist
+    import torch.testing._internal.distributed.multi_threaded_pg as mtpg
+
+    card_index = torch.cuda.current_device()
+    mtpg._install_threaded_pg()
+    torch._C._distributed_c10d._set_thread_isolation_mode(True)
+    store = dist.HashStore()
+    out, errs = {}, []
+
+    def rank(r):
+        try:
+            torch.cuda.set_device(card_index)
+            dist.init_process_group("threaded", rank=r, world_size=world,
+                                    store=store)
+            out[r] = body(r)
+            torch.cuda.synchronize()
+        except BaseException as e:  # reaches the phase, which fails
+            errs.append(f"rank {r}: {e!r}")
+            raise
+
+    try:
+        threads = [threading.Thread(target=rank, args=(r,), name=f"rank{r}")
+                   for r in range(world)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+    finally:
+        mtpg._uninstall_threaded_pg()
+        torch._C._distributed_c10d._set_thread_isolation_mode(False)
+    if errs or len(out) != world:
+        fail(f"{label}: {errs or 'a rank did not finish'}")
+    return out
+
+
+def mesh16_fit(device, weights, x, y, strategy_fn, label: str,
+               ckpt: str = "", chaos=None, resume: bool = False,
+               layers: int = MESH16_LAYERS) -> dict:
+    """One fit of the proxy on threaded dp 2 ranks from ``weights``
+    (eager steps: the harness's collectives cannot be captured): per rank
+    the params after it (whole), its stored bytes (params and optimizer
+    state), its preemption step, the session's counters and the sharded
+    checkpoint saves (step, bytes, seconds)."""
+    import torch
+
+    from flexflow_tpu_torch.execution.graphs import _tensors_of
+    from flexflow_tpu_torch.resilience import ChaosPlan
+
+    def body(r):
+        ff, _ = train_model("bert", "bf16", device, num_layers=layers,
+                            strategy_fn=strategy_fn)
+        ff._capture_steps = False
+        ff.config.print_freq = 10 ** 9
+        if ckpt:
+            ff.config.checkpoint_dir = ckpt
+            ff.config.checkpoint_every = MESH16_EVERY
+            ff.config.max_bad_steps = 1
+            ff.config.resume = "auto" if resume else ""
+        ff.set_params_numpy(weights)
+        plan = (chaos or {}).get(r)
+        ff.fit([x], y, epochs=1, shuffle=False,
+               chaos=ChaosPlan(**plan) if plan is not None else None)
+        session = ff.resilience
+        full = ff.get_params_numpy()
+        return dict(
+            params=[torch.from_numpy(full[n][w]) for n, ws in
+                    ff.params.items() for w in ws],
+            stored=sum(t.numel() * t.element_size()
+                       for t in _tensors_of([ff.params, ff.opt_state])),
+            preempted=ff._preempted_at_step,
+            summary=session.summary() if session is not None else {},
+            saves=list(session.manager.saves)
+            if session is not None and session.manager is not None else [])
+    return threaded_ranks(2, body, label)
+
+
+def mesh16_resilience(device, card: str, root: str) -> dict:
+    """(a)."""
+    import torch
+
+    from flexflow_tpu_torch.parallel.strategy import data_parallel_strategy
+
+    t0 = time.perf_counter()
+    ref, cfg = train_model("bert", "bf16", device, num_layers=MESH16_LAYERS)
+    weights = ref.get_params_numpy()
+    init = [torch.from_numpy(weights[n][w]) for n, ws in ref.params.items()
+            for w in ws]
+    del ref
+    x, y = train_data("bert", cfg, cfg.batch_size * MESH16_STEPS)
+    dp2 = lambda pcg: data_parallel_strategy(pcg, 2)  # noqa: E731
+    plain = [mesh16_fit(device, weights, x, y, dp2, "mesh16 plain")
+             for _ in range(MESH16_SPREAD_RUNS)]
+    finals = [p[0]["params"] for p in plain]
+    spread = max(pair_diffs(finals, init))
+    band = band_of(spread)
+    nan = mesh16_fit(device, weights, x, y, dp2, "mesh16 nan",
+                     ckpt=os.path.join(root, "nan"),
+                     chaos={0: dict(nan_at_steps={MESH16_NAN_STEP})})
+    stop = mesh16_fit(device, weights, x, y, dp2, "mesh16 preempt",
+                      ckpt=os.path.join(root, "preempt"),
+                      chaos={1: dict(preempt_at_step=MESH16_PREEMPT_STEP,
+                                     preempt_signal=None)})
+    resumed = mesh16_fit(device, weights, x, y, dp2, "mesh16 resume",
+                         ckpt=os.path.join(root, "preempt"), resume=True)
+    res = dict(band=band, spread=spread, init=init, weights=weights, x=x,
+               y=y, plain=plain[0][0])
+    for name, run, want in (
+            ("nan", nan, dict(skipped_steps=1, recovery_events=1,
+                              last_resume_step=MESH16_EVERY)),
+            ("resume", resumed, dict(last_resume_step=MESH16_PREEMPT_STEP
+                                     + 1))):
+        summaries = [run[r]["summary"] for r in range(2)]
+        if any(summaries[r].get(k) != v for r in range(2)
+               for k, v in want.items()):
+            fail(f"mesh16 {name}: the ranks' counters {summaries}, want "
+                 f"{want} on both")
+        d = update_rel(run[0]["params"], finals[0], init)
+        if not d <= band:
+            fail(f"mesh16 {name}: params {d:.3g} from the uninterrupted "
+                 f"run, band {band:.3g}")
+        res[name] = dict(dparams=d, summary=summaries[0])
+    stops = [stop[r]["preempted"] for r in range(2)]
+    if stops != [MESH16_PREEMPT_STEP + 1] * 2:
+        fail(f"mesh16 preempt: the ranks stopped after steps {stops}, want "
+             f"{MESH16_PREEMPT_STEP + 1} on both")
+    saves = {r: nan[r]["saves"] for r in range(2)}
+    per_rank = [max(b for _s, b, _t in saves[r]) for r in range(2)]
+    secs = [max(t for _s, _b, t in saves[r]) for r in range(2)]
+    log(f"mesh16 resilience (BERT-Large widths, {MESH16_LAYERS} layers, "
+        f"bf16, threaded dp=2 ranks on one card; a harness): "
+        f"{MESH16_SPREAD_RUNS} uninterrupted runs of {MESH16_STEPS} steps, "
+        f"spread {spread:.3g}, band {band:.3g}; NaN on rank 0's plan at "
+        f"step {MESH16_NAN_STEP}: counters {res['nan']['summary']} on both "
+        f"ranks, params {res['nan']['dparams']:.3g} from the uninterrupted "
+        f"run; preemption on rank 1's plan at step {MESH16_PREEMPT_STEP}: "
+        f"both stopped after step {stops[0]}, --resume auto params "
+        f"{res['resume']['dparams']:.3g}; sharded checkpoint bytes a rank "
+        f"{per_rank} (rank 0 writes the replicas), save seconds a rank "
+        f"{[round(v, 3) for v in secs]}; {time.perf_counter() - t0:.1f} s "
+        f"[{card}]")
+    res.update(bytes_per_rank=per_rank, save_s=secs)
+    return res
+
+
+def mesh16_fsdp(device, card: str, base: dict) -> dict:
+    """(b), threaded: FSDP dp 2 against plain dp 2, B1 / B2 counted."""
+    t0 = time.perf_counter()
+    per_rank = {}
+    with pipe_launch_counter(per_rank):
+        run = mesh16_fit(device, base["weights"], base["x"], base["y"],
+                         fsdp16_strategy(2), "mesh16 fsdp")
+    plain = base["plain"]
+    d = update_rel(run[0]["params"], plain["params"], base["init"])
+    stored = [run[r]["stored"] for r in range(2)]
+    ratio = stored[0] / plain["stored"]
+    launches = {k: sum(per_rank.get((f"rank{r}", k), 0) for r in range(2))
+                for k in ("flash_fwd", "flash_bwd_fused")}
+    want = MESH16_LAYERS * MESH16_STEPS * 2
+    log(f"mesh16 fsdp (every weight of 2+ dims split over the data axis, "
+        f"threaded dp=2): stored bytes a rank {stored} vs plain dp=2 "
+        f"{plain['stored']} (ratio {ratio:.4f}), params {d:.3g} from plain "
+        f"dp=2 (band {base['band']:.3g}), B1/B2 launches {launches} on the "
+        f"ranks' b4 halves; {time.perf_counter() - t0:.1f} s [{card}]")
+    if not 0.5 <= ratio < 0.52:
+        fail(f"mesh16 fsdp: a rank stores {ratio:.4f} of plain dp's bytes, "
+             "want 1/2 and the replicated biases")
+    if not d <= base["band"]:
+        fail("mesh16 fsdp: outside the band of plain dp=2")
+    if launches != {"flash_fwd": want, "flash_bwd_fused": want}:
+        fail(f"mesh16 fsdp: B1/B2 launches {launches}, want {want} each")
+    return dict(dparams=d, stored=stored, ratio=ratio, launches=launches)
+
+
+def mesh16_nccl(device, card: str, base: dict) -> dict:
+    """(b) captured and (c): the (1,) FSDP mesh and the (1, 1) fused mesh
+    over a NCCL group of one, each against the one-device path."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from flexflow_tpu_torch import OperatorType
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.parallel.strategies import \
+        hybrid_data_tensor_strategy
+
+    tmp = tempfile.mkdtemp(prefix="ff_mesh16_")
+    dist.init_process_group(
+        "nccl", init_method=f"file://{tmp}/pg", rank=0, world_size=1,
+        device_id=torch.device("cuda", torch.cuda.current_device()))
+    x, y, init = base["x"], base["y"], base["init"]
+    runs = {}
+    try:
+        for name, fn, fusion in (
+                ("one", None, False),
+                ("fsdp", fsdp16_strategy(1), False),
+                ("hybrid", lambda pcg: hybrid_data_tensor_strategy(
+                    pcg, dp=1, tp=1), False),
+                ("fused", lambda pcg: hybrid_data_tensor_strategy(
+                    pcg, dp=1, tp=1), True)):
+            ff, _ = train_model("bert", "bf16", device,
+                                num_layers=MESH16_LAYERS, fusion=fusion,
+                                strategy_fn=fn)
+            ff.config.print_freq = 10 ** 9
+            ff.set_params_numpy(base["weights"]) if not fusion else \
+                ff.set_params_numpy(fused_weights(ff, base["weights"]))
+            fa.reset_launch_count()
+            ff.fit([x], y, epochs=1, shuffle=False)
+            torch.cuda.synchronize()
+            totals = {k: fa.launch_count(k)
+                      for k in ("flash_fwd", "flash_bwd_fused")}
+            step = ff.executor.make_train_step(capture=False)
+            b = ff.config.batch_size
+            xs, lab = ff.executor.local_batch([x[:b], ff._prep_label(y[:b])])
+            with CommDebugMode() as comm:
+                step(ff.params, ff.opt_state,
+                     [torch.from_numpy(xs).to(device)],
+                     torch.from_numpy(lab).to(device), None)
+            torch.cuda.synchronize()
+            full = ff.get_params_numpy()
+            if fusion:
+                full = unfused_params(full)
+            names = [(n, w) for n, ws in base["weights"].items() for w in ws]
+            runs[name] = dict(
+                params=[torch.from_numpy(full[n][w]) for n, w in names],
+                captures=ff.executor.make_train_step().program.captures,
+                totals=totals,
+                collectives={str(k): int(v) for k, v in
+                             comm.get_comm_counts().items()},
+                regions=sum(1 for n in ff.pcg.compute_nodes()
+                            if n.op.op_type == OperatorType.OP_FUSED),
+                p50_ms=float(np.median(ff.fit_history.step_s[2:])) * 1e3)
+            del ff, step
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    band = base["band"]
+    one = runs["one"]
+    res = {}
+    for name in ("fsdp", "hybrid", "fused"):
+        r = runs[name]
+        d = update_rel(r["params"], one["params"], init)
+        log(f"mesh16 nccl {name} (BERT-Large widths, {MESH16_LAYERS} "
+            f"layers, bf16, a NCCL group of one): captures {r['captures']}, "
+            f"an eager step's collectives {r['collectives']}, flash "
+            f"launches {r['totals']} (one device {one['totals']}), fused "
+            f"regions {r['regions']}, p50 {r['p50_ms']:.3f} ms (one device "
+            f"{one['p50_ms']:.3f}), params {d:.3g} from one device (band "
+            f"{band:.3g}) [{card}]")
+        if r["captures"] != 1:
+            fail(f"mesh16 nccl {name}: {r['captures']} captures, want 1")
+        if r["totals"] != one["totals"]:
+            fail(f"mesh16 nccl {name}: flash launches {r['totals']}, the "
+                 f"one-device run's {one['totals']}")
+        if not d <= band:
+            fail(f"mesh16 nccl {name}: outside the band of one device")
+        res[name] = dict(r, dparams=d)
+        del res[name]["params"]
+    c = runs["fsdp"]["collectives"]
+    if c.get("c10d._allgather_base_", 0) < 1 or \
+            c.get("c10d._reduce_scatter_base_", 0) < 1:
+        fail(f"mesh16 nccl fsdp: the step issued {c}, want the weights' "
+             "all-gathers and their grads' reduce-scatters")
+    if runs["fused"]["regions"] < 1:
+        fail("mesh16 nccl fused: --fusion built no region under the "
+             "strategy")
+    return res
+
+
+def fused_weights(ff, weights: dict) -> dict:
+    """``weights`` (unfused names) under a fused model's names."""
+    out = {}
+    for n, ws in ff.params.items():
+        for w in ws:
+            if n.startswith("fused_"):
+                _pos, node, wname = w.split(":")
+                out.setdefault(n, {})[w] = weights[node][wname]
+            else:
+                out.setdefault(n, {})[w] = weights[n][w]
+    return out
+
+
+def unfused_params(params: dict) -> dict:
+    """A fused model's params under the unfused names."""
+    out = {}
+    for n, ws in params.items():
+        for w, a in ws.items():
+            if n.startswith("fused_"):
+                _pos, node, wname = w.split(":")
+                out.setdefault(node, {})[wname] = a
+            else:
+                out.setdefault(n, {})[w] = a
+    return out
+
+
+def pipe16_captured(device, card: str, pipe: dict, layers: int = 0) -> dict:
+    """(d): phase 15's 1f1b pp 4 with the stages' step programs."""
+    import torch
+
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    t0 = time.perf_counter()
+    th = pipe["threaded"]
+    sched, pp, dp, v = PIPE_CAPTURED
+    label = f"{sched} pp={pp} dp={dp}"
+    eager = th["runs"][label]
+    fa.reset_launch_count()
+    out = pipe_run(device, th["weights"], th["x"], th["y"], sched, pp, dp,
+                   v, layers, False, capture=True, steps=PIPE16_STEPS)
+    totals = {k: fa.launch_count(k) for k in ("flash_fwd", "flash_bwd_fused")}
+    got = {}
+    for r in range(4):
+        got.update(out[r]["params"])
+    names = th["names"]
+    d = update_rel([got[k] for k in names], [eager["params"][k]
+                                             for k in names],
+                   [th["init"][k] for k in names])
+    caps = [out[r]["captures"] for r in range(4)]
+    att = sum(out[r]["att"] for r in range(4))
+    b2 = att * PIPE_MICRO * PIPE16_STEPS
+    want = {"flash_fwd": 2 * b2, "flash_bwd_fused": b2}
+    dloss = max(abs(a - b) for a, b in zip(out[0]["losses"][:PIPE_STEPS],
+                                           eager["losses"]))
+    wall = max(out[r]["wall"] for r in range(4))
+    log(f"pipeline16 captured {label} (BERT-Large fp32, 4 ranks as "
+        f"threads on one card; a harness): captures a rank after each of "
+        f"{PIPE16_STEPS} steps {caps}, B1/B2 {totals} (want {want}, "
+        f"replays counted), losses {[round(v, 6) for v in out[0]['losses']]}"
+        f" vs eager {[round(v, 6) for v in eager['losses']]} (diff "
+        f"{dloss:.3g}, band {th['loss_band']:.3g}), params after "
+        f"{PIPE_STEPS} steps {d:.3g} from the eager run (band "
+        f"{th['band']:.3g}); {wall:.2f} s for {PIPE16_STEPS} steps "
+        f"[{card}]")
+    for r in range(4):
+        c = caps[r]
+        if not c[0] > 0 or c[-1] != c[-2]:
+            fail(f"pipeline16 captured: rank {r} captures {c}, want some "
+                 "in the warm-up and none after")
+    if totals != want:
+        fail(f"pipeline16 captured: B1/B2 {totals}, want {want}")
+    if not (d <= th["band"] and dloss <= th["loss_band"]):
+        fail("pipeline16 captured: outside the band of the eager run")
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return dict(dparams=d, dloss=dloss, captures=caps, totals=totals,
+                wall=wall)
+
+
+def mesh16_phase(device, card: str, pipe: dict) -> dict:
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="ff_mesh16_ckpt_")
+    try:
+        res = mesh16_resilience(device, card, root)
+        fsdp = mesh16_fsdp(device, card, res)
+        pipe16 = pipe16_captured(device, card, pipe)
+        nccl = mesh16_nccl(device, card, res)
+        kern = fa_case(device, card, "bert_dp2", "bf16")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    log(f"mesh16 phase wall {wall:.1f} s (stated {MESH16_WALL_S:.0f} s) "
+        f"[{card}]")
+    return dict(fsdp=fsdp, pipe=pipe16, nccl=nccl, kern=kern,
+                resilience={k: res[k] for k in ("nan", "resume", "band",
+                                                 "bytes_per_rank",
+                                                 "save_s")})
+
+
 def main() -> None:
     try:
         import torch
@@ -6379,6 +6824,7 @@ def main() -> None:
     serving13 = serving13_phase(device, card)
     mesh = mesh_phase(device, card)
     pipe = pipeline_phase(device, card)
+    mesh16 = mesh16_phase(device, card, pipe)
 
     kernels = []
     for compute, name in (("fp32", "flash_decode"),
@@ -6597,6 +7043,30 @@ def main() -> None:
             "launches": pipe["threaded"]["totals"][kernel],
             **r,
             **census.get((kernel, "fp32", FA_SHAPES["bert"]["d"]), {}),
+        })
+    # phase 16: B1 and B2 inside the captured pipeline stages (fp32, the
+    # microbatch shape b2 h16 s512 d64, timed by phase 15) and on the
+    # FSDP path's threaded dp 2 ranks (bf16, a rank's b4 half, timed here)
+    for name, kernel, timed, launches in (
+            ("flash_fwd_stage_graph", "flash_fwd", pipe["kern"],
+             mesh16["pipe"]["totals"]),
+            ("flash_bwd_fused_stage_graph", "flash_bwd_fused", pipe["kern"],
+             mesh16["pipe"]["totals"]),
+            ("flash_fwd_fsdp", "flash_fwd", mesh16["kern"],
+             mesh16["fsdp"]["launches"]),
+            ("flash_bwd_fused_fsdp", "flash_bwd_fused", mesh16["kern"],
+             mesh16["fsdp"]["launches"])):
+        r = dict(timed[kernel])
+        r.pop("eager_ms", None)
+        dname = "fp32" if timed is pipe["kern"] else "bf16"
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": FA_SOURCE,
+            "replaces": FA_KERNELS[kernel][0],
+            "launches": launches[kernel],
+            **r,
+            **census.get((kernel, dname, FA_SHAPES["bert"]["d"]), {}),
         })
     for kernel, line in (("softmax_fwd", 29), ("softmax_bwd", 38)):
         kernels.append({

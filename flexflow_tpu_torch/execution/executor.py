@@ -38,7 +38,12 @@ package's loss on sharded logits; ``predict`` gathers the output whole.
 After the backward the param grads the data axis split are summed by one
 flat all-reduce (or, under ``--collective-overlap on``, one asynchronous
 all-reduce a remat block, issued as that block's backward completes, all
-awaited before the optimizer).
+awaited before the optimizer). A weight stored split over the data axis
+is gathered for its node and its grad reduce-scattered in the gather's
+backward, outside that all-reduce; autograd keeps its shard, not the
+gathered copy, and the backward gathers it again
+(:meth:`_fsdp_saved_hooks`). The guarded step's verdict is reduced over
+every rank of a mesh inside the step.
 """
 from __future__ import annotations
 
@@ -83,6 +88,12 @@ class Executor:
         self._plans: Dict[bool, Any] = {}
         self._shard_infos: Dict[bool, Dict[int, Any]] = {}
         self._grad_groups_cache: Optional[Tuple[Any, Any]] = None
+        # > 0 while a remat block runs: its recompute gathers the data-axis
+        # weights again, so nothing of them is saved to begin with
+        self._recomputing = 0
+        # {id(leaf): fp32 grad} of the data-axis weights during a 16-bit
+        # backward (``spmd.GatherWeight``)
+        self._fsdp_sink: Optional[Dict[int, Any]] = None
         self._by_name: Optional[Dict[str, PCGNode]] = None
         if strategy is not None:
             # op-attr overrides a strategy carries (executor.py:57-60)
@@ -215,6 +226,11 @@ class Executor:
         pl = self._plan()[guid].stored[wname]
         return local_slice(full, pl, self.mesh).contiguous().to(self.device)
 
+    def stored_placement(self, node_name: str, wname: str):
+        """How a weight is held on the mesh: its placement per mesh dim."""
+        return self._plan()[self._node_by_name()[node_name].guid].stored[
+            wname]
+
     def gather_param(self, node_name: str, wname: str, local):
         """The full weight from this rank's shard ``local`` (every rank
         takes part and gets the whole)."""
@@ -338,14 +354,95 @@ class Executor:
                     if id(x) not in copied:
                         copied[id(x)] = copy_to(x, mesh, plan.copy_axes)
                     ins[i] = copied[id(x)]
+        # the gathered copies live until the op returns (so no tensor the
+        # op makes reuses a storage the saved-tensor hooks key on), no longer
+        fulls, saved = [], []
+        if plan.fsdp:
+            ws, fulls, saved = self._gather_fsdp(plan, ws)
         ws = {w: redistribute(t, mesh, plan.stored[w], plan.use[w])
+              if w not in plan.fsdp else redistribute(
+                  t, mesh, self._fsdp_src(plan, w), plan.use[w])
               for w, t in ws.items()}
         sctx = dataclasses.replace(
             ctx, shard=self._shard_infos[bool(self.batch_sharded)][
                 node.guid])
-        outs = run_op(node.op, node.name, ws, ins, sctx, scoped)
+        import contextlib
+
+        import torch
+
+        saving = saved and self._recomputing == 0 and \
+            torch.is_grad_enabled()
+        with (self._fsdp_saved_hooks(saved) if saving
+              else contextlib.nullcontext()):
+            outs = run_op(node.op, node.name, ws, ins, sctx, scoped)
+        del ws, fulls
         return [redistribute(o, mesh, a, b)
                 for o, a, b in zip(outs, plan.natural, plan.outs)]
+
+    # ------------------------------------------- weights over the data axis
+    def _fsdp_src(self, plan, w):
+        """A data-axis weight's placements once gathered over that axis."""
+        from ..parallel.spmd import _types, _with
+
+        return _with(plan.stored[w], self._data_axis(), _types()[1]())
+
+    def _gather_fsdp(self, plan, ws):
+        """The weights ``plan`` stores split over the data axis, each
+        all-gathered whole over it (``spmd.gather_weight``; its grad is
+        reduce-scattered back where the op's grads are partial there).
+        Returns the weights, the gathered ones, and [(shard, dim, storage
+        pointer of the gathered copy)] for :meth:`_fsdp_saved_hooks`."""
+        from ..parallel.spmd import gather_weight
+
+        di = self._data_axis()
+        partial = di in plan.grad_axes
+        ws = dict(ws)
+        fulls, saved = [], []
+        sink = self._fsdp_sink
+        for w, d in plan.fsdp.items():
+            if w in ws:
+                shard = ws[w]
+                ws[w] = gather_weight(
+                    shard, self.mesh, di, d, partial,
+                    (sink, id(shard)) if sink is not None else None)
+                fulls.append(ws[w])
+                saved.append((shard, d, ws[w].untyped_storage().data_ptr()))
+        return ws, fulls, saved
+
+    def _fsdp_saved_hooks(self, saved):
+        """A context in which autograd saves a gathered weight (or a view
+        of it) as its shard and gathers it again when the backward reads
+        it: the whole weight is held only while its op runs, and again
+        while its backward does. ``saved`` is [(shard, dim, storage
+        pointer)]: the hooks, which autograd keeps until the backward,
+        hold the shards and never the gathered copies."""
+        import torch
+
+        from ..parallel.spmd import _gather
+
+        mesh, di = self.mesh, self._data_axis()
+        group, n = mesh.groups[di], mesh.sizes[di]
+        device = saved[0][0].device
+        shards = [(s, d) for s, d, _p in saved]
+        ptrs = {p: k for k, (_s, _d, p) in enumerate(saved)}
+
+        def pack(t):
+            k = ptrs.get(t.untyped_storage().data_ptr()) \
+                if t.device == device else None
+            if k is None:
+                return t
+            return ("fsdp", k, tuple(t.shape), t.stride(),
+                    t.storage_offset())
+
+        def unpack(x):
+            if not (isinstance(x, tuple) and x and x[0] == "fsdp"):
+                return x
+            _tag, k, shape, stride, offset = x
+            shard, d = shards[k]
+            full = _gather(shard.detach(), d, group, n)
+            return full.as_strided(shape, stride, offset)
+
+        return torch.autograd.graph.saved_tensors_hooks(pack, unpack)
 
     # --------------------------------------------------------- mixed precision
     def _compute_dtype(self):
@@ -581,7 +678,11 @@ class Executor:
                 bctx = dataclasses.replace(
                     ctx, rng=seeds.replay() if seeds is not None else None,
                     aux_losses=aux, cache_out=fresh)
-                self._run_nodes(guids, params, local, bctx)
+                self._recomputing += 1
+                try:
+                    self._run_nodes(guids, params, local, bctx)
+                finally:
+                    self._recomputing -= 1
                 return (tuple(local[r] for r in out_refs)
                         + tuple(fresh[n] for n in cache_names)
                         + tuple(aux or ()))
@@ -685,6 +786,8 @@ class Executor:
 
         opt = self.optimizer
         cache_names = [n.name for n in self.cache_nodes]
+        verdict_world = guard and self.mesh is not None and \
+            self.mesh.numel > 1
 
         def step(params, opt_state, xs, labels, rng, cache=None):
             fresh = {} if cache is not None else None
@@ -700,6 +803,15 @@ class Executor:
             if gs:
                 gsq = torch.stack(torch._foreach_norm(gs)).square().sum()
                 ok = ok & torch.isfinite(gsq)
+            if verdict_world:
+                # one rank's NaN (a grad shard under tp, its own batch)
+                # skips the step on every rank: one all-reduce of the bad
+                # count over the world, inside the step
+                import torch.distributed as dist
+
+                bad = (~ok).to(torch.int32).reshape(1)
+                dist.all_reduce(bad)
+                ok = (bad == 0).reshape(())
             params, opt_state = opt.update(params, grads, opt_state, ok=ok)
             return (params, opt_state, loss, m) + extra + (ok,)
 
@@ -782,6 +894,8 @@ class Executor:
         for (n, w), t in zip(names, leaf_list):
             leaves[n][w] = t
         overlap = None
+        sink = self._fsdp_sink = {} if cdtype is not None and \
+            self.mesh is not None else None
         with torch.enable_grad():
             loss, value, logits = self._loss_and_logits(
                 leaves, xs, labels, rng, training=True, cache=cache,
@@ -795,6 +909,7 @@ class Executor:
                 flat_grads = torch.autograd.grad(loss, leaf_list,
                                                  allow_unused=True)
             finally:
+                self._fsdp_sink = None
                 if overlap is not None:
                     for h in overlap[0]:
                         h.remove()
@@ -813,6 +928,12 @@ class Executor:
                               for v, m in zip(up.split(sizes), masters)]
             if self.mesh is not None:
                 flat_grads = self._all_reduce_grads(names, flat_grads, up)
+        if sink:
+            # a data-axis weight's grad as its reduce-scatter summed it in
+            # fp32, not rounded to the 16-bit leaf's dtype on the way
+            for i, t in enumerate(leaf_list):
+                if id(t) in sink:
+                    flat_grads[i].copy_(sink[id(t)])
         grads: Dict[str, Dict[str, Any]] = {n: {} for n in params}
         for (n, w), g in zip(names, flat_grads):
             grads[n][w] = g
@@ -833,8 +954,12 @@ class Executor:
         plans = self._plan()
         by_name = self._node_by_name()
         groups: Dict[Tuple[int, ...], List[int]] = {}
-        for i, (n, _w) in enumerate(names):
-            axes = plans[by_name[n].guid].grad_axes
+        for i, (n, w) in enumerate(names):
+            plan = plans[by_name[n].guid]
+            # a data-axis weight's grad was reduce-scattered in its
+            # gather's backward: summed already
+            axes = tuple(a for a in plan.grad_axes
+                         if not (w in plan.fsdp and a == self._data_axis()))
             if axes:
                 groups.setdefault(axes, []).append(i)
         out = list(groups.items())

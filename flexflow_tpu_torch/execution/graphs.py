@@ -35,9 +35,9 @@ A :class:`StepProgram` wraps a body ``body(inputs, seeds, *args) -> [tensor,
   its elements. A replay therefore masks with the seeds an eager step
   would have drawn from the same generator.
 * **Launch counts.** A replay calls no kernel wrapper, so the program
-  records each kernel's launch count increase during capture and adds it
-  on every later replay: ``launch_count`` still counts the launches the
-  card ran.
+  records the launches made on its stream during capture
+  (``kernels/counts.py``) and adds them on every later replay:
+  ``launch_count`` still counts the launches the card ran.
 
 On the CPU nothing is captured: each call runs the body through the same
 static input and seed buffers and copies its outputs into static outputs,
@@ -47,12 +47,10 @@ nothing falls back to the eager body.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
-
-# kernel modules whose ``_launches`` dicts a replay advances
-_COUNTED = ("flash_attention", "flash_decode", "softmax", "topk")
 
 
 def draw_seed(rng) -> int:
@@ -136,17 +134,6 @@ def next_seed(rng):
     return draw_seed(rng)
 
 
-def _launch_counts() -> Dict[Tuple[str, str], int]:
-    import importlib
-
-    counts = {}
-    for mod in _COUNTED:
-        launches = importlib.import_module(f"..kernels.{mod}",
-                                           __package__)._launches
-        counts.update(((mod, k), v) for k, v in launches.items())
-    return counts
-
-
 def _add_launches(delta: Dict[Tuple[str, str], int]) -> None:
     import importlib
 
@@ -156,17 +143,26 @@ def _add_launches(delta: Dict[Tuple[str, str], int]) -> None:
 
 
 _streams: Dict[Any, Any] = {}
+# one capture at a time in a process: entering a capture synchronizes the
+# device and empties the allocator's cache, which another thread's capture
+# in progress does not permit (ranks that are threads of one process)
+_capture_lock = threading.Lock()
 
 
 def capture_stream(device):
     """The side stream every program of ``device`` runs its first call and
-    its captures on (one per device: cuBLAS keeps a workspace per
-    stream)."""
+    its captures on: one per device and thread (cuBLAS keeps a workspace
+    per stream; ranks that are threads of one process, a test harness,
+    each run on their own stream). It comes from torch's high-priority
+    stream pool: the pools hand their streams out in turn, so a side
+    stream from the default pool (``fit``'s batch copies) would in time
+    be this one, and its copies and events would join a capture."""
     import torch
 
-    if device not in _streams:
-        _streams[device] = torch.cuda.Stream(device)
-    return _streams[device]
+    key = (device, threading.get_ident())
+    if key not in _streams:
+        _streams[key] = torch.cuda.Stream(device, priority=-1)
+    return _streams[key]
 
 
 def _tensors_of(tree) -> List[Any]:
@@ -278,7 +274,12 @@ class StepProgram:
             entry.outputs = [o.detach().clone() for o in outs]
         self._entries[key] = entry
         self.last_seeds = list(seeds.drawn) if seeds is not None else []
-        return outs
+        # an output that is a view of a static input (a stage handing an
+        # input on) would change under the shape's next call: copy it
+        held = {b.untyped_storage().data_ptr() for b in bufs}
+        with torch.no_grad():
+            return [o.clone() if o.untyped_storage().data_ptr() in held
+                    else o for o in outs]
 
     def _feed_seeds(self, entry: _Entry, rng) -> Optional[DropoutSeeds]:
         """Draw the step's seeds from ``rng`` on the host, in the order the
@@ -317,27 +318,31 @@ class StepProgram:
         invalidate it, so the collector runs first and stays off until the
         capture ends. The capture checks only this thread's CUDA calls
         (``thread_local``): ``fit``'s prefetch thread keeps staging batches
-        into pinned memory on its own stream meanwhile."""
+        into pinned memory on its own stream meanwhile. Captures of one
+        process run one at a time (``_capture_lock``)."""
         import gc
 
         import torch
 
+        from ..kernels.counts import start_recording, stop_recording
+
         graph = torch.cuda.CUDAGraph()
-        before = _launch_counts()
-        gc.collect()
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph, stream=capture_stream(self.device),
-                                  capture_error_mode="thread_local"):
-                outs = self.body(entry.inputs, seeds, *args)
-        finally:
-            if collecting:
-                gc.enable()
+        stream = capture_stream(self.device)
+        with _capture_lock:
+            gc.collect()
+            collecting = gc.isenabled()
+            gc.disable()
+            start_recording(stream)  # the launches on it: the graph's
+            try:
+                with torch.cuda.graph(graph, stream=stream,
+                                      capture_error_mode="thread_local"):
+                    outs = self.body(entry.inputs, seeds, *args)
+            finally:
+                launches = stop_recording(stream)
+                if collecting:
+                    gc.enable()
         self._check_seeds(entry, seeds)
-        after = _launch_counts()
-        entry.launches = {k: after[k] - before.get(k, 0) for k in after
-                          if after[k] != before.get(k, 0)}
+        entry.launches = launches
         entry.graph, entry.outputs = graph, list(outs)
         self.captures += 1
         graph.replay()
@@ -370,7 +375,9 @@ class HostTransfer:
 class EagerBody:
     """A step body called directly, with :class:`StepProgram`'s call
     interface and nothing captured: what ``capture=False`` gives (the
-    eager steps the tests and ``chip_smoke.py`` compare against)."""
+    eager steps the tests and ``chip_smoke.py`` compare against). The
+    body's dropout seeds come from ``rng`` itself, as they are drawn (the
+    values a program's seed feed hands out, :func:`next_seed`)."""
 
     captures = 0
 
@@ -381,7 +388,7 @@ class EagerBody:
         pass
 
     def __call__(self, inputs, *args, rng=None):
-        return self.body(list(inputs), None, *args)
+        return self.body(list(inputs), rng, *args)
 
 
 def step_program(body: Callable, device, name: str, capture: bool = True):

@@ -44,9 +44,11 @@ once and are.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Optional
 
 import numpy as np
+
+from .counts import LaunchCounts
 
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
@@ -61,7 +63,7 @@ KERNEL_TILE = 64
 KERNEL_HEAD_DIMS = (64, 128)
 
 KERNELS = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dkv", "flash_bwd_dq")
-_launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+_launches = LaunchCounts("flash_attention", KERNELS)
 _U32 = 0xFFFFFFFF
 
 

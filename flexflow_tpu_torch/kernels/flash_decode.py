@@ -34,10 +34,12 @@ import ctypes
 import math
 from typing import Optional
 
+from .counts import LaunchCounts
+
 NEG_INF = -1e30
 
 KERNELS = ("flash_decode", "flash_decode_int8")
-_launches = dict.fromkeys(KERNELS, 0)
+_launches = LaunchCounts("flash_decode", KERNELS)
 
 
 def launch_count(kernel: str = "flash_decode") -> int:

@@ -24,8 +24,10 @@ from __future__ import annotations
 
 import ctypes
 
+from .counts import LaunchCounts
+
 KERNELS = ("softmax_fwd", "softmax_bwd")
-_launches = dict.fromkeys(KERNELS, 0)
+_launches = LaunchCounts("softmax", KERNELS)
 
 
 def launch_count(kernel: str) -> int:

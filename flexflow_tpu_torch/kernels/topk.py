@@ -36,11 +36,13 @@ import ctypes
 
 import numpy as np
 
+from .counts import LaunchCounts
+
 #: the unrolled-sweep formulation only pays off for small k
 MAX_KERNEL_K = 8
 FLT_MAX = float(np.finfo(np.float32).max)
 
-_launches = {"topk": 0}
+_launches = LaunchCounts("topk", ("topk",))
 
 
 def launch_count() -> int:

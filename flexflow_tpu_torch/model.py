@@ -33,7 +33,10 @@ process is the one-device path, with no process group. A strategy with a
 pipeline grid ``(pp, dp, n_micro)`` trains through
 ``parallel/pipeline.PipelineTrainer`` on a (pp, dp) grid of ranks under
 ``--schedule`` / ``--virtual-stages`` and the stage remat, and ``eval`` /
-``predict`` run the trained weights on the strategy's mesh. The search
+``predict`` run the trained weights on the strategy's mesh. The
+fault-tolerant loop, sharded checkpoints, weights over the data axis and
+``--fusion`` run on a mesh too (a pipeline ``fit`` refuses the checkpoint
+flags, which the JAX package ignores there). The search
 (``--search-num-*``, ``--profile-ops``, ``profile_operators``), the static
 analyzer and serving on a mesh come in later slices; their flags raise
 ``NotImplementedError``.
@@ -127,6 +130,7 @@ class FFModel:
         # (both None on the one-device path)
         self.strategy = None
         self.mesh = None
+        self.coordination = None
         # set by compile for a pipeline strategy: fit trains through it
         self._pipeline_trainer = None
         self._pipeline_param_stamp = None
@@ -605,8 +609,9 @@ class FFModel:
         The optimizer defaults to ``SGDOptimizer``; the label tensor is
         (batch, 1) int32 for sparse categorical cross-entropy, else the
         final output's shape. ``--fusion`` merges op chains into FusedOp
-        regions (``ops/fused.apply_fusion``, the final anchor a barrier).
-        The whole lowering is one ``compile`` span of the process tracer,
+        regions (``ops/fused.apply_fusion``, the final anchor a barrier;
+        under a strategy only the nodes it does not pin, before a
+        pipeline split). The whole lowering is one ``compile`` span of the process tracer,
         and ``--trace-file`` is written after it
         (flexflow_tpu/model.py:519-538).
 
@@ -664,16 +669,20 @@ class FFModel:
             with open(self.config.export_strategy_file, "w") as f:
                 f.write((strategy or data_parallel_strategy(
                     pcg, world()[1])).to_json(pcg))
-        if self.config.perform_fusion and mesh is not None:
-            raise NotImplementedError(
-                f"compile: --fusion under a strategy is {LATER} (ROADMAP "
-                "A.5, third part): the fused regions would need their "
-                "sub-ops' shardings")
+        # the host-side agreements of a mesh (rollback target, resume
+        # path, preemption, checkpoint staging), made once by every rank
+        from .parallel.mesh import coordination_group
+
+        self.coordination = coordination_group() if mesh is not None \
+            else None
         if self.config.perform_fusion:
             from .ops.fused import apply_fusion
 
+            # under a strategy only the nodes it does not pin fuse, and
+            # the members' entries go (flexflow_tpu/model.py:674-693),
+            # before the pipeline split below
             pcg, n_fused, remap = apply_fusion(
-                pcg, barrier_guids=(self.final_guid,))
+                pcg, strategy, barrier_guids=(self.final_guid,))
             if n_fused:
                 if final_tensor is not None:
                     # the barrier leaves the anchor unfused or a region
@@ -719,7 +728,8 @@ class FFModel:
                 optimizer=self.optimizer, loss_type=loss_type,
                 init_params=False,  # fit seeds it from the live params
                 remat=resolve_stage_remat(self.config, strategy),
-                schedule=sched, virtual_stages=v)
+                schedule=sched, virtual_stages=v,
+                capture=self._capture_steps and self.device.type == "cuda")
 
     def _refuse_compile_options(self) -> None:
         """Flags the JAX package acts on at compile (flexflow_tpu/model.py:
@@ -944,7 +954,11 @@ class FFModel:
         (cutting the LR from the second rollback on), and on SIGTERM or
         SIGINT finishes the step in flight, flushes a final checkpoint and
         returns (``_preempted_at_step``). Its counters stay readable as
-        ``self.resilience.summary()``. The forward follows ``--remat``.
+        ``self.resilience.summary()``. On a mesh of several ranks every
+        rank runs the session and decides alike (``resilience/session``):
+        sharded checkpoints, the verdict reduced over the world, rank 0's
+        rollback and resume targets, a preemption on any rank stopping
+        all after the same step. The forward follows ``--remat``.
         An ``Optimizer.set_learning_rate`` since the last fit drops the
         captured steps, which baked the old rate in.
 
@@ -979,13 +993,6 @@ class FFModel:
         if self._pipeline_trainer is not None:
             return self._fit_pipeline(x, y, batch_size, epochs, shuffle,
                                       chaos)
-        if self.mesh is not None and self.mesh.numel > 1 and \
-                ResilienceSession.wanted(self.config, chaos):
-            raise NotImplementedError(
-                f"fit: checkpoints, --resume, --max-bad-steps and chaos on "
-                f"a mesh of {self.mesh.numel} ranks are {LATER} (ROADMAP "
-                "A.5, third part: sharded checkpoints and the guarded step "
-                "across ranks)")
         if recompile_state is not None:
             self._recompile_state = recompile_state
             recompile_state.ffmodel = self
@@ -1062,7 +1069,7 @@ class FFModel:
                     bx, by = batch[:-1], batch[-1]
                     if session is not None and session.chaos is not None:
                         bx = session.chaos.poison_batch(step_count, bx)
-                        session.chaos.maybe_preempt(step_count)
+                        session.chaos.maybe_preempt(step_count, session)
                     t_step = time.perf_counter()
                     step_ok = True
                     args = (self.params, self.opt_state, bx, by,
@@ -1205,7 +1212,8 @@ class FFModel:
         microbatch count is re-derived for the batch size. ``chaos``
         raises ``ValueError`` as the JAX package does; the checkpoint
         flags, which the JAX package ignores here, raise, naming
-        themselves. Metrics are the loss's (``train_all`` and the loss
+        themselves (``save_checkpoint`` on the model works: the params are
+        synced back after each fit). Metrics are the loss's (``train_all`` and the loss
         sum); accuracy-style metrics come from ``eval``."""
         import torch
 
@@ -1224,14 +1232,21 @@ class FFModel:
         if flags:
             raise NotImplementedError(
                 f"fit: {', '.join(flags)} on a pipeline strategy "
-                f"{'is' if len(flags) == 1 else 'are'} {LATER} (ROADMAP "
-                "A.5, third part: sharded checkpoints of the stages)")
+                f"{'is' if len(flags) == 1 else 'are'} refused: the JAX "
+                "package's pipeline loop ignores them, and the port does "
+                "not take a flag it would ignore (ROADMAP C, kept "
+                "deviation); save_checkpoint / restore_checkpoint on the "
+                "model save and restore the stages' synced-back params")
         xs = self._as_input_list(x)
         y = self._prep_label(y)
         batch_size = batch_size or c.batch_size
         epochs = epochs or c.epochs
         validate_batch(self, xs, y, phase="fit")
         tr = self._pipeline_trainer
+        if getattr(self.optimizer, "_lr_changed", False):
+            # the stages' update programs baked the old rate in
+            tr.reset_programs()
+            self.optimizer._lr_changed = False
         stamp = self.executor._params_stamp(self.params)
         if tr.params is None or self._pipeline_param_stamp is None or \
                 not self.executor._stamp_matches(self._pipeline_param_stamp,

@@ -19,6 +19,7 @@ come with it.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Tuple
 
 from ..ffconst import DataType, OperatorType
@@ -87,6 +88,11 @@ class FusedOp(Op):
         # sub-op ranges under a profiler, as the JAX region opens a named
         # scope per sub-op: a trace attributes the region's work to them
         scoped = profiler_on()
+        # on a mesh each sub-op reads its own global shapes (a dropout's
+        # mask is keyed on them); the region's layout is its members'
+        shard = ctx.shard
+        subs = self.sub_op_shapes(shard.in_shapes) if shard is not None \
+            else None
         sub_outs: List[List[Any]] = []
         for i, sub in enumerate(self.sub_ops):
             ins = [inputs[j] if kind == "ext" else sub_outs[j][k]
@@ -94,7 +100,9 @@ class FusedOp(Op):
             pfx = self._prefix(i, sub)
             sub_params = {k[len(pfx):]: v for k, v in params.items()
                           if k.startswith(pfx)}
-            sub_outs.append(run_op(sub, sub.name, sub_params, ins, ctx,
+            sctx = ctx if shard is None else dataclasses.replace(
+                ctx, shard=shard.for_sub_op(subs[i][1]))
+            sub_outs.append(run_op(sub, sub.name, sub_params, ins, sctx,
                                    scoped))
         return sub_outs[-1]
 
@@ -113,23 +121,31 @@ _FUSE_EXCLUDED = {
 }
 
 
-def _eligible(node) -> bool:
-    """The JAX pass's rule on one device, where no strategy pins a node:
-    an op outside ``_FUSE_EXCLUDED`` with one output."""
-    return node.op.op_type not in _FUSE_EXCLUDED and \
-        len(node.out_shapes) == 1
+def _eligible(node, strategy=None) -> bool:
+    """The JAX pass's rule (flexflow_tpu/ops/fused.py:140-152): an op
+    outside ``_FUSE_EXCLUDED`` with one output that the strategy does not
+    pin (no weight specs, no output spec, no op-attr overrides), so every
+    member of a region runs in the default layout."""
+    if node.op.op_type in _FUSE_EXCLUDED or len(node.out_shapes) != 1:
+        return False
+    ns = strategy.node_strategies.get(node.guid) if strategy else None
+    return not (ns is not None and (ns.weight_specs or
+                                    ns.output_spec is not None or ns.extra))
 
 
-def apply_fusion(pcg, max_region: int = 16, barrier_guids=()):
+def apply_fusion(pcg, strategy=None, max_region: int = 16,
+                 barrier_guids=()):
     """Merge single-consumer chains of ops into FusedOp nodes
     (flexflow_tpu/ops/fused.py:157-267; model.cc:2965-3040).
 
     Returns (new_pcg, n_fused_regions, remap) where remap maps old guid ->
     (new guid, out idx) — out idx -1 meaning "original indices preserved".
-    ``barrier_guids``: nodes whose outputs must stay addressable (the
-    compile final anchor) — a chain never extends past them, so they end
-    up either unfused or as a region tail (whose output is the
-    FusedOp's)."""
+    ``strategy`` (if given) is updated in place: the members' entries are
+    dropped (``_eligible`` leaves them nothing of interest), as the JAX
+    pass drops them. ``barrier_guids``: nodes whose outputs must stay
+    addressable (the compile final anchor) — a chain never extends past
+    them, so they end up either unfused or as a region tail (whose output
+    is the FusedOp's)."""
     from ..parallel.pcg import PCG, PCGNode, _node_guid
 
     barriers = set(barrier_guids)
@@ -142,7 +158,7 @@ def apply_fusion(pcg, max_region: int = 16, barrier_guids=()):
     in_chain: Dict[int, int] = {}  # guid -> chain id
     chains: List[List[int]] = []
     for node in pcg.topo_order():
-        if node.guid in in_chain or not _eligible(node):
+        if node.guid in in_chain or not _eligible(node, strategy):
             continue
         chain = [node.guid]
         cur = node
@@ -152,7 +168,7 @@ def apply_fusion(pcg, max_region: int = 16, barrier_guids=()):
                 break
             nxt = pcg.nodes[cons[0]]
             # `nxt` must consume cur exactly once and be eligible
-            if not _eligible(nxt) or nxt.guid in in_chain:
+            if not _eligible(nxt, strategy) or nxt.guid in in_chain:
                 break
             if sum(1 for g, _ in nxt.inputs if g == cur.guid) != 1:
                 break
@@ -223,4 +239,7 @@ def apply_fusion(pcg, max_region: int = 16, barrier_guids=()):
         new._order.append(guid)
         for g in chain:
             remap[g] = (guid, 0)
+        if strategy is not None:
+            for g in chain:
+                strategy.node_strategies.pop(g, None)
     return new, len(chains), remap

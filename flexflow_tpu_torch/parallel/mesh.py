@@ -304,3 +304,47 @@ def build_pipeline_grid(pp: int, dp: int, device,
             data_mesh = Mesh(None, ("data",), [dp], [coord[1]], [group],
                              device)
     return PipelineGrid(pp, dp, grid, coord, data_mesh)
+
+
+# ------------------------------------------------------------ coordination
+def coordination_group():
+    """The process group the ranks agree on host values through (a
+    rollback target, a resume path, a preemption flag, a checkpoint's
+    staging name), made once at compile by every rank. Under NCCL it is a
+    gloo group of its own, so the host's small agreements never share a
+    communicator with the train step's collectives; under gloo or a test
+    harness's group it is the default group. None in a world of one."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()) or \
+            dist.get_world_size() == 1:
+        return None
+    if dist.get_backend() == "nccl":
+        return dist.new_group(backend="gloo")
+    return dist.group.WORLD
+
+
+def agree(value, group):
+    """Rank 0's ``value`` (any picklable object) on every rank of
+    ``group``; ``value`` itself when ``group`` is None."""
+    import torch.distributed as dist
+
+    if group is None:
+        return value
+    box = [value]
+    dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0),
+                               group=group)
+    return box[0]
+
+
+def any_rank(flag: bool, group) -> bool:
+    """Is ``flag`` set on any rank of ``group``? (one host all-reduce;
+    ``flag`` itself when ``group`` is None)."""
+    import torch
+    import torch.distributed as dist
+
+    if group is None:
+        return bool(flag)
+    t = torch.tensor([1 if flag else 0], dtype=torch.int32)
+    dist.all_reduce(t, group=group)
+    return bool(int(t[0]))

@@ -37,9 +37,22 @@ every device) over the chunks ``c`` with ``c % pp == d``:
   updates the params, so every schedule gives bitwise the same update.
 
 Stage remat (``remat=`` none | selective | full, ``execution/remat.py``)
-cuts each stage into the executor's remat blocks; ``full`` (the default)
-recomputes the stage's forward in its backward. A stage runs in its
-params' dtype whatever ``--compute-dtype`` says, as the JAX stages do.
+cuts the last stage into the executor's remat blocks; ``full`` is the
+default. A stage runs in its params' dtype whatever ``--compute-dtype``
+says, as the JAX stages do.
+
+A chunk's work runs as step programs, the counterparts of the JAX
+stages' ``jax.jit`` functions (flexflow_tpu/parallel/pipeline.py:580-631):
+a forward, a backward that recomputes the forward from the stage input
+and differentiates it (the JAX ``mid_bwd``, whatever the remat level),
+the last chunk's fused forward, loss and backward (at the stage remat
+level, as the JAX ``last_bwd``), and the update. On CUDA (``capture=None``
+there, or ``capture=True``) each is a
+:class:`~..execution.graphs.StepProgram`, captured once a microbatch
+shape and replayed; dropout seeds reach a replay through its seed feed.
+``capture=False`` (the CPU's default) runs the same bodies uncaptured
+(:class:`~..execution.graphs.EagerBody`). The messages and the data
+group's grad sum run between the programs.
 """
 from __future__ import annotations
 
@@ -590,6 +603,61 @@ class _Stage:
     entries: List[Tuple[str, str, Tuple[int, ...], Any]]
 
 
+class _StageRun:
+    """A step's chunk work through the chunks' step programs
+    (:meth:`PipelineTrainer._stage_programs`, the counterparts of the JAX
+    stages' ``jax.jit`` functions): a forward program (no autograd), a
+    backward program that recomputes the stage forward from its input and
+    differentiates it (the JAX ``mid_bwd``), the last chunk's fused
+    forward, loss and backward, and an update program. With ``capture``
+    each is a :class:`~..execution.graphs.StepProgram` (on CUDA captured
+    once a microbatch shape and replayed, on the CPU run through the same
+    static buffers), else an :class:`~..execution.graphs.EagerBody`. The
+    point-to-point messages and the stage's data-parallel grad sum run
+    between the program calls, outside any graph. Grads accumulate into
+    per-chunk buffers the backward programs add to in place (ascending
+    microbatch order)."""
+
+    def __init__(self, tr, rng_seed: int, labels):
+        self.tr, self.rng_seed, self.labels = tr, rng_seed, labels
+        self.losses: List[Any] = []
+        tr._stage_programs()
+
+    def forward(self, m, c, ins):
+        tr = self.tr
+        return tr._programs[c]["fwd"](list(ins), tr.params[c],
+                                      rng=tr._gen(self.rng_seed, m, c))
+
+    def backward(self, m, c, ins, couts):
+        tr = self.tr
+        progs = tr._programs[c]
+        gen = tr._gen(self.rng_seed, m, c)
+        if c == tr.n_chunks - 1:
+            value, *dneed = progs["last"](list(ins) + [self.labels[m]],
+                                          tr.params[c], tr._acc[c], rng=gen)
+            self.losses.append(value)
+        else:
+            cots = [couts[pos] for pos in tr._cot_pos[c]]
+            dneed = progs["bwd"](list(ins) + cots, tr.params[c], tr._acc[c],
+                                 rng=gen)
+        it = iter(dneed)
+        return [next(it) if need else None for need in tr._need[c]]
+
+    def grads(self, c):
+        return self.tr._acc[c]
+
+    def update(self, c, grads, wrt, inv: float) -> None:
+        tr = self.tr
+        for a, g in zip(tr._acc[c], grads):
+            if a is not g:
+                a.copy_(g)
+        upd = tr._programs[c]["upd"]
+        if getattr(upd, "inv", None) != inv:
+            upd.reset()  # the microbatch count is baked into the graph
+            upd.inv = inv
+        upd([], tr.params[c], tr.opt_states[c], tr._acc[c])
+
+
 class PipelineTrainer:
     """Pipeline training of an FFModel over a (pipe, data) grid of ranks.
 
@@ -615,7 +683,8 @@ class PipelineTrainer:
                  LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
                  devices: Optional[Sequence] = None,
                  init_params: bool = True, remat: str = "full",
-                 schedule: str = "gpipe", virtual_stages: int = 1):
+                 schedule: str = "gpipe", virtual_stages: int = 1,
+                 capture: Optional[bool] = None):
         from ..execution.optimizers import SGDOptimizer
         from ..execution.remat import REMAT_LEVELS
         from .mesh import build_pipeline_grid
@@ -645,6 +714,10 @@ class PipelineTrainer:
         self.optimizer = optimizer or SGDOptimizer(None)
         self.config = ffmodel.config
         self.device = ffmodel.device
+        # the chunks' step programs are captured (the CUDA default) or not
+        self.capture = (self.device.type == "cuda") if capture is None \
+            else bool(capture)
+        self._programs: Dict[int, Dict[str, Any]] = {}
 
         pcg = ffmodel.pcg if ffmodel.pcg is not None else ffmodel.create_pcg()
         self.pcg = pcg
@@ -729,6 +802,124 @@ class PipelineTrainer:
                 chunk=c, ex=ex,
                 ph_guids=[n.guid for n in sub.input_nodes()],
                 blocks=blocks, entries=self._chunk_entries(c))
+
+    def _stage_programs(self) -> None:
+        """Make this rank's chunks' programs once (:class:`_StageRun`;
+        captured with ``capture``) with their grad buffers, the cotangent
+        positions a backward takes and the feeds it returns grads for."""
+        if self._programs:
+            return
+        import torch
+
+        from ..execution.graphs import step_program
+        from ..execution.remat import level_pieces
+
+        self._acc = {}
+        self._cot_pos = {}
+        self._need = {}
+        for c in self._mine:
+            st = self._stage[c]
+            sub = self.specs[c].sub_pcg
+            plain = st.ex._blocks_of(
+                level_pieces(sub, [n.guid for n in sub.compute_nodes()],
+                             "none"), list(self.specs[c].outputs))
+            self._acc[c] = [torch.zeros_like(t) for ws in
+                            self.params[c].values() for t in ws.values()
+                            if t.is_floating_point()]
+            self._cot_pos[c] = [pos for pos in range(
+                len(self.specs[c].outputs)) if self._grad_out[(c, pos)]] \
+                if c != self.n_chunks - 1 else []
+            self._need[c] = [f[0] == "stage" and
+                             self._grad_out[(f[1], f[2])]
+                             for f in self.specs[c].feeds]
+            bodies = {"upd": self._update_body(c)}
+            if c == self.n_chunks - 1:
+                # at the stage remat level, as the JAX ``last_bwd``
+                # (value_and_grad of the wrapped forward) differentiates it
+                bodies["last"] = self._last_body(st, st.blocks)
+            else:
+                bodies["fwd"] = self._fwd_body(st, plain)
+                bodies["bwd"] = self._bwd_body(st, plain)
+            self._programs[c] = {
+                k: step_program(b, self.device, f"stage{c}_{k}", self.capture)
+                for k, b in bodies.items()}
+
+    def reset_programs(self) -> None:
+        """Drop the chunks' programs (their graphs and pools): after
+        anything they bake in changes, such as the optimizer's rate."""
+        self._programs = {}
+
+    def _leaves(self, params, ins, c):
+        leaves = {n: {w: (t.detach().requires_grad_(True)
+                          if t.is_floating_point() else t)
+                      for w, t in ws.items()} for n, ws in params.items()}
+        leaf_ins = [x.detach().requires_grad_(need)
+                    for x, need in zip(ins, self._need[c])]
+        wrt = [t for ws in leaves.values() for t in ws.values()
+               if t.requires_grad]
+        return leaves, leaf_ins, wrt, [x for x in leaf_ins
+                                       if x.requires_grad]
+
+    def _fwd_body(self, st, plain):
+        def body(inputs, seeds, params):
+            # the params are no leaves here: nothing records a graph
+            outs, _aux = self._forward(st, params, inputs, seeds, plain)
+            return list(outs)
+        return body
+
+    def _bwd_body(self, st, plain):
+        import torch
+
+        c = st.chunk
+        n_in = len(self.specs[c].feeds)
+
+        def body(inputs, seeds, params, acc):
+            ins, cots = inputs[:n_in], inputs[n_in:]
+            leaves, leaf_ins, wrt, need = self._leaves(params, ins, c)
+            outs, aux = self._forward(st, leaves, leaf_ins, seeds, plain)
+            roots, grads_out = [], []
+            for pos, g in zip(self._cot_pos[c], cots):
+                if outs[pos].requires_grad:
+                    roots.append(outs[pos])
+                    grads_out.append(g)
+            if aux is not None and aux.requires_grad:
+                roots.append(aux)
+                grads_out.append(torch.ones_like(aux))
+            dparams, dneed = self._stage_grads(roots, grads_out, wrt, need)
+            if acc:  # a chunk may hold no params
+                torch._foreach_add_(acc, dparams)
+            return dneed
+        return body
+
+    def _last_body(self, st, plain):
+        import torch
+
+        c = st.chunk
+
+        def body(inputs, seeds, params, acc):
+            ins, labels = inputs[:-1], inputs[-1]
+            leaves, leaf_ins, wrt, need = self._leaves(params, ins, c)
+            outs, aux = self._forward(st, leaves, leaf_ins, seeds, plain)
+            loss, value = self._last_loss(st, outs, aux, labels)
+            dparams, dneed = self._stage_grads([loss], [None], wrt, need)
+            if acc:  # a chunk may hold no params
+                torch._foreach_add_(acc, dparams)
+            return [value.detach().float()] + dneed
+        return body
+
+    def _update_body(self, c):
+        def body(_inputs, _seeds, params, opt_state, acc):
+            inv = self._programs[c]["upd"].inv
+            names = [(n, w) for n, ws in params.items()
+                     for w, t in ws.items() if t.is_floating_point()]
+            grads = {n: {} for n in params}
+            for (n, w), a in zip(names, acc):
+                grads[n][w] = a * inv
+            self.optimizer.update(params, grads, opt_state)
+            for a in acc:
+                a.zero_()
+            return []
+        return body
 
     def _chunk_entries(self, c: int):
         """[(node, weight, shape, torch dtype)] of chunk ``c``'s params,
@@ -892,9 +1083,9 @@ class PipelineTrainer:
         seed = ((int(rng_seed) * 1000003 + m) * 8191 + c) % (2 ** 63)
         return torch.Generator().manual_seed(seed)
 
-    def _forward(self, st: _Stage, leaves, ins, gen):
+    def _forward(self, st: _Stage, leaves, ins, gen, blocks=None):
         """The stage's outputs and its aux-loss total (or None) at its
-        remat level, with autograd recording."""
+        remat level (or through ``blocks``), with autograd recording."""
         import torch
 
         from ..ops.base import OpContext
@@ -904,12 +1095,43 @@ class PipelineTrainer:
                         aux_losses=[], mesh=st.ex.mesh)
         with torch.enable_grad():
             outs = st.ex._forward_remat(
-                leaves, dict(zip(st.ph_guids, ins)), ctx, st.blocks,
+                leaves, dict(zip(st.ph_guids, ins)), ctx,
+                st.blocks if blocks is None else blocks,
                 list(self.specs[st.chunk].outputs))
             aux = None
             for a in ctx.aux_losses:
                 aux = a if aux is None else aux + a
         return outs, aux
+
+    def _last_loss(self, st: _Stage, outs, aux, labels):
+        """(the loss to differentiate, its value) of the last chunk's
+        output on the rank's rows (``Executor._loss_on_rows``)."""
+        import torch
+
+        with torch.enable_grad():
+            raw, split = st.ex._final_rows(outs[0])
+            logits = st.ex._logits_f32(raw)
+            loss, value = st.ex._loss_on_rows(logits, labels, split)
+            if aux is not None:
+                loss = loss + aux
+                value = value + aux.detach()
+        return loss, value
+
+    def _stage_grads(self, roots, grads_out, wrt, need):
+        """(param grads, input grads) of ``roots`` (zeros where a grad is
+        not reached)."""
+        import torch
+
+        if roots and all(r.requires_grad for r in roots) and (wrt or need):
+            got = torch.autograd.grad(roots, wrt + need, grads_out,
+                                      allow_unused=True)
+        else:
+            got = [None] * (len(wrt) + len(need))
+        dparams = [g if g is not None else torch.zeros_like(t)
+                   for g, t in zip(got[:len(wrt)], wrt)]
+        dins = [g if g is not None else torch.zeros_like(x)
+                for x, g in zip(need, got[len(wrt):])]
+        return dparams, dins
 
     def train_step(self, x, y, rng_seed: int = 0) -> float:
         """One pipelined step in ``self.schedule``'s order on this rank's
@@ -918,8 +1140,9 @@ class PipelineTrainer:
         microbatch order, are summed over the stage's data group, and the
         microbatch-mean update applies. A microbatch's boundary tensors are
         released as its backward completes (:func:`pipeline_in_flight`).
-        Returns the step's loss (the microbatch mean), the same on every
-        rank."""
+        The chunks' work runs through their step programs
+        (:class:`_StageRun`). Returns the step's loss (the microbatch
+        mean), the same on every rank."""
         import torch
 
         from ..obs import get_tracer
@@ -939,17 +1162,11 @@ class PipelineTrainer:
         net = _Pairs(self.grid, self.chunk_dev,
                      {(a if b == d else b): seq for (a, b), seq in
                       pairs.items() if d in (a, b)}, shapes, self.device)
-        leaves = {c: {n: {w: (t.detach().requires_grad_(True)
-                              if t.is_floating_point() else t)
-                          for w, t in ws.items()}
-                      for n, ws in self.params[c].items()}
-                  for c in self._mine}
-        saved: Dict[Tuple[int, int], Tuple] = {}  # (m, c) -> ins, outs, aux
+        run = _StageRun(self, rng_seed, labels)
+        saved: Dict[Tuple[int, int], Any] = {}  # (m, c) -> the stage input
         acts: Dict[Msg, Any] = {}   # in-memory activations by message key
         cots: Dict[Msg, Any] = {}   # in-memory cotangents by message key
-        grad_acc: Dict[int, List[Any]] = {}
         acc_m = {c: 0 for c in self._mine}
-        losses = []
 
         def sync():
             if self.device.type == "cuda":
@@ -962,31 +1179,43 @@ class PipelineTrainer:
                     ins.append(stacked[(c, feed[1])][m])
                     continue
                 msg = ("A", m, feed[1], feed[2], c)
-                val = acts.pop(msg) if self.chunk_dev[feed[1]] == d \
-                    else net.recv(msg)
-                ins.append(val.detach().requires_grad_(
-                    self._grad_out[(feed[1], feed[2])]))
+                ins.append(acts.pop(msg) if self.chunk_dev[feed[1]] == d
+                           else net.recv(msg))
             return ins
+
+        def gather_cots(m, c):
+            """{out pos: the cotangent summed over its consumers}, in
+            descending consumer order (the order every schedule runs
+            their backwards in)."""
+            out = {}
+            if c == S - 1:
+                return out
+            for pos in range(len(self.specs[c].outputs)):
+                if not self._grad_out[(c, pos)]:
+                    continue
+                total = None
+                for dc in reversed(self._cons[(c, pos)]):
+                    msg = ("C", m, c, pos, dc)
+                    g = cots.pop(msg) if self.chunk_dev[dc] == d \
+                        else net.recv(msg)
+                    total = g if total is None else total + g
+                out[pos] = total
+            return out
 
         for phase, m, c in self._order():
             if self.chunk_dev[c] != d:
                 continue
-            st = self._stage[c]
             if phase == "F":
                 ins = gather_ins(m, c)
-                if c == S - 1:  # the last chunk's forward fuses with its
-                    saved[(m, c)] = (ins, None, None)  # backward
-                else:
-                    if trace:
+                saved[(m, c)] = ins
+                if c != S - 1:  # the last chunk's forward fuses with its
+                    if trace:   # backward
                         with tracer.span("pipeline_fwd", micro=m, stage=c,
                                          device=d, schedule=self.schedule):
-                            outs, aux = self._forward(
-                                st, leaves[c], ins, self._gen(rng_seed, m, c))
+                            outs = run.forward(m, c, ins)
                             sync()
                     else:
-                        outs, aux = self._forward(
-                            st, leaves[c], ins, self._gen(rng_seed, m, c))
-                    saved[(m, c)] = (ins, outs, aux)
+                        outs = run.forward(m, c, ins)
                     for pos, out in enumerate(outs):
                         for dc in self._cons.get((c, pos), ()):
                             msg = ("A", m, c, pos, dc)
@@ -998,76 +1227,27 @@ class PipelineTrainer:
                 continue
 
             # ---- backward of (m, c)
-            def run_bwd():
-                ins, outs, aux = saved.pop((m, c))
-                wrt = [t for ws in leaves[c].values() for t in ws.values()
-                       if t.requires_grad]
-                need = [x for x in ins if x.requires_grad]
-                if c == S - 1:
-                    outs, aux = self._forward(st, leaves[c], ins,
-                                              self._gen(rng_seed, m, c))
-                    with torch.enable_grad():
-                        raw, split = st.ex._final_rows(outs[0])
-                        logits = st.ex._logits_f32(raw)
-                        loss, value = st.ex._loss_on_rows(logits, labels[m],
-                                                          split)
-                        if aux is not None:
-                            loss = loss + aux
-                            value = value + aux.detach()
-                    losses.append(value.detach())
-                    roots, grads_out = [loss], [None]
-                else:
-                    roots, grads_out = [], []
-                    for pos, out in enumerate(outs):
-                        if not self._grad_out[(c, pos)]:
-                            continue
-                        total = None
-                        # consumers' backwards ran in descending chunk
-                        # order in every schedule: sum in that order
-                        for dc in reversed(self._cons[(c, pos)]):
-                            msg = ("C", m, c, pos, dc)
-                            g = cots.pop(msg) if self.chunk_dev[dc] == d \
-                                else net.recv(msg)
-                            total = g if total is None else total + g
-                        if out.requires_grad:
-                            roots.append(out)
-                            grads_out.append(total)
-                    if aux is not None and aux.requires_grad:
-                        roots.append(aux)
-                        grads_out.append(torch.ones_like(aux))
-                roots_ok = [r.requires_grad for r in roots]
-                if all(roots_ok) and roots and (wrt or need):
-                    got = torch.autograd.grad(roots, wrt + need, grads_out,
-                                              allow_unused=True)
-                else:
-                    got = [None] * (len(wrt) + len(need))
-                dparams = [g if g is not None else torch.zeros_like(t)
-                           for g, t in zip(got[:len(wrt)], wrt)]
-                dins = {id(x): (g if g is not None else torch.zeros_like(x))
-                        for x, g in zip(need, got[len(wrt):])}
-                return ins, dparams, dins
-
-            if trace:
-                with tracer.span("pipeline_bwd", micro=m, stage=c, device=d,
-                                 schedule=self.schedule):
-                    ins, dparams, dins = run_bwd()
-                    sync()
-            else:
-                ins, dparams, dins = run_bwd()
+            ins = saved.pop((m, c))
             # ascending-microbatch accumulation per chunk: the invariant
             # every schedule preserves, keeping the grad sums bitwise-equal
             # across gpipe/1f1b/interleaved
             assert acc_m[c] == m, (self.schedule, c, m, acc_m[c])
             acc_m[c] += 1
-            acc = grad_acc.get(c)
-            grad_acc[c] = dparams if acc is None else \
-                [a + g for a, g in zip(acc, dparams)]
-            for x, feed in zip(ins, self.specs[c].feeds):
+            couts = gather_cots(m, c)
+            if trace:
+                with tracer.span("pipeline_bwd", micro=m, stage=c, device=d,
+                                 schedule=self.schedule):
+                    dins = run.backward(m, c, ins, couts)
+                    sync()
+            else:
+                dins = run.backward(m, c, ins, couts)
+            for k, feed in enumerate(self.specs[c].feeds):
                 if feed[0] != "stage" or \
                         not self._grad_out[(feed[1], feed[2])]:
                     continue
                 msg = ("C", m, feed[1], feed[2], c)
-                g = dins[id(x)] if id(x) in dins else torch.zeros_like(x)
+                g = dins[k] if dins[k] is not None else \
+                    torch.zeros_like(ins[k])
                 if self.chunk_dev[feed[1]] == d:
                     cots[msg] = g
                 else:
@@ -1083,15 +1263,17 @@ class PipelineTrainer:
         inv = 1.0 / self.n_micro
         for c in self._mine:
             st = self._stage[c]
-            wrt = [(n, w) for n, ws in leaves[c].items()
-                   for w, t in ws.items() if t.requires_grad]
-            flat = st.ex._all_reduce_grads(wrt, grad_acc[c])
-            grads = {n: {} for n in self.params[c]}
-            for (n, w), g in zip(wrt, flat):
-                grads[n][w] = g * inv
-            self.params[c], self.opt_states[c] = self.optimizer.update(
-                self.params[c], grads, self.opt_states[c])
-        return self._step_loss(losses)
+            wrt = [(n, w) for n, ws in self.params[c].items()
+                   for w, t in ws.items() if t.is_floating_point()]
+            run.update(c, st.ex._all_reduce_grads(wrt, run.grads(c)), wrt,
+                       inv)
+        return self._step_loss(run.losses)
+
+    @property
+    def captures(self) -> int:
+        """Graphs the stages' programs captured since they were made."""
+        return sum(p.captures for progs in self._programs.values()
+                   for p in progs.values())
 
     def _step_loss(self, losses) -> float:
         """The mean of the microbatch losses, broadcast over the default

@@ -34,10 +34,20 @@ module is its partitioner, written out:
   partial over. The layouts depend on the graph and the strategy only, so
   the plan is static and a captured step replays its collectives.
 
+A weight whose spec names the data axis (ZeRO-3 / FSDP) is stored split
+over it (``NodePlan.fsdp``): :func:`gather_weight` all-gathers it for its
+op and reduce-scatters its grad (its data-parallel sum, so it stays out
+of the flat all-reduce); the op computes with the weight's model-axis
+layout as if the spec named no data axis. A dim split over the data axis
+together with another axis raises.
+
 Ops outside the mesh-aware set see replicated values on every axis but
 the data axis: elementwise ops keep any layout, per-sample ops run on the
 local batch, and ops that mix samples (batch statistics, the MoE dispatch,
-reshapes of the batch, fused regions) see the whole batch. The loss reads
+reshapes of the batch) see the whole batch. A fused region (``--fusion``
+under a strategy, whose members the strategy does not pin) runs on the
+local batch iff each of its sub-ops would, its weights' grads partial over
+the data axis, and each sub-op reads its own global shapes. The loss reads
 the final output replicated everywhere, as the JAX package's loss reads
 its global array, so the loss, the metrics and ``predict``'s output are
 the same on every rank.
@@ -131,6 +141,19 @@ def _gather(x, dim: int, group, n: int):
 def _chunk(x, dim: int, n: int, coord: int):
     k = x.shape[dim] // n
     return x.narrow(dim, coord * k, k).contiguous()
+
+
+def _reduce_scatter(g, dim: int, group, n: int):
+    """This rank's chunk along ``dim`` of the sum of ``g`` over the group,
+    in fp32."""
+    import torch
+    import torch.distributed as dist
+
+    src = g.movedim(dim, 0).float().contiguous()
+    out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]),
+                      dtype=src.dtype, device=src.device)
+    dist.reduce_scatter_tensor(out, src, group=group)
+    return out.movedim(0, dim).contiguous()
 
 
 def _all_reduce(x, group):
@@ -266,7 +289,32 @@ def _functions():
                 dx = dx.to(x.dtype).view(x.shape)
             return (dx, None, *dws)
 
-    return AllReduce, CopyTo, AllGather, Chunk, RowMatmul, ColumnMatmuls
+    class GatherWeight(torch.autograd.Function):
+        """A weight split over the data axis (ZeRO-3 / FSDP), all-gathered
+        whole for its op; backward reduce-scatters its grad over the data
+        axis (the grad is partial there: that scatter is its
+        data-parallel sum), or keeps this rank's chunk of a grad that is
+        already complete (an op that saw the whole batch). The sum runs
+        in fp32; ``sink`` ((dict, key) or None) keeps the fp32 sum, which
+        the executor takes for the weight's grad in place of the one
+        autograd rounds to the weight's 16-bit dtype."""
+
+        @staticmethod
+        def forward(ctx, x, dim, group, n, coord, partial, sink):
+            ctx.cfg = (dim, group, n, coord, partial, sink)
+            return _gather(x, dim, group, n)
+
+        @staticmethod
+        def backward(ctx, g):
+            dim, group, n, coord, partial, sink = ctx.cfg
+            out = _reduce_scatter(g, dim, group, n) if partial else \
+                _chunk(g, dim, n, coord).float()
+            if sink is not None:
+                sink[0][sink[1]] = out
+            return out.to(g.dtype), None, None, None, None, None, None
+
+    return (AllReduce, CopyTo, AllGather, Chunk, RowMatmul, ColumnMatmuls,
+            GatherWeight)
 
 
 def _fns():
@@ -312,6 +360,18 @@ def redistribute(x, mesh, src: Placements, dst: Placements):
     return x
 
 
+def gather_weight(w, mesh, axis: int, dim: int, partial: bool,
+                  sink=None):
+    """A weight stored split on ``dim`` over the mesh dim ``axis`` (the
+    data axis), gathered whole over it for its op (:class:`GatherWeight`:
+    its grad reduce-scattered back when ``partial``, the fp32 sum left in
+    ``sink``). Issued on an axis of one rank too, as the grad sync's
+    all-reduce is, so a mesh of one card runs and captures the
+    collectives a mesh of several does."""
+    return _fns()[6].apply(w, dim, mesh.groups[axis], mesh.sizes[axis],
+                           mesh.coords[axis], partial, sink)
+
+
 def copy_to(x, mesh, axes: Sequence[int]):
     """Megatron's ``f`` over the mesh dims ``axes`` of size above 1."""
     CopyTo = _fns()[1]
@@ -348,6 +408,9 @@ class NodePlan:
     axis: Optional[int] = None
     copy_axes: Tuple[int, ...] = ()
     grad_axes: Tuple[int, ...] = ()
+    # weights split over the data axis as stored (ZeRO-3 / FSDP): the dim
+    # it splits; the op gathers them (:func:`gather_weight`)
+    fsdp: Dict[str, int] = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass
@@ -386,6 +449,20 @@ class ShardInfo:
             return [x @ w for w in ws]
         return list(_fns()[5].apply(x, self.mesh.groups[self.plan.axis],
                                     *ws))
+
+    def for_sub_op(self, in_shapes) -> "ShardInfo":
+        """What a fused region's sub-op reads (``FusedOp.forward``): its own
+        global input shapes, each batch-major one held as the region's
+        first input is (a region runs on the local batch or on the whole
+        one), the others whole."""
+        lead = self.in_shapes[0][:1] if self.in_shapes else ()
+        pl0 = self.plan.ins[0] if self.plan.ins else replicated(
+            len(self.mesh.sizes))
+        ins = [pl0 if tuple(s[:1]) == tuple(lead) and
+               len(s) == len(self.in_shapes[0]) else
+               replicated(len(self.mesh.sizes)) for s in in_shapes]
+        return ShardInfo(dataclasses.replace(self.plan, ins=ins), self.mesh,
+                         [tuple(s) for s in in_shapes])
 
     def in_offsets(self, i: int = 0) -> Tuple[int, ...]:
         """This rank's offset along each dim of input ``i``."""
@@ -444,11 +521,15 @@ _PARALLEL = {
 
 def _per_sample(node, in_shapes) -> bool:
     """Does the op keep samples apart along dim 0 (so it may run on the
-    local batch)?"""
+    local batch)? A fused region does iff each of its sub-ops does (an
+    elementwise sub-op among them too)."""
     t, a = node.op.op_type, node.op.attrs
     nd = len(in_shapes[0]) if in_shapes else 0
     if t in _PER_SAMPLE:
         return True
+    if t == OperatorType.OP_FUSED:
+        return all(_sub_per_sample(sub, ins)
+                   for sub, ins, _outs in node.op.sub_op_shapes(in_shapes))
     if t in (OperatorType.OP_LAYERNORM, OperatorType.OP_RMSNORM):
         return all(x % nd != 0 for x in a.get("axes", (-1,)))
     if t == OperatorType.OP_SOFTMAX:
@@ -464,6 +545,52 @@ def _per_sample(node, in_shapes) -> bool:
     if t == OperatorType.OP_GATHER:
         return a["dim"] % nd != 0
     return False
+
+
+def _sub_per_sample(op, in_shapes) -> bool:
+    """A fused region's sub-op keeps samples apart: an elementwise op on
+    batch-major inputs of one leading size, or a per-sample op."""
+    t = op.op_type
+    if t in _UNARY:
+        return True
+    if t in _BINARY:
+        return len({tuple(s[:1]) for s in in_shapes}) == 1 and \
+            len({len(s) for s in in_shapes}) == 1
+    return _per_sample(_AsNode(op), in_shapes)
+
+
+@dataclasses.dataclass
+class _AsNode:
+    op: Any
+
+
+def _without_axis(spec, axis):
+    """A spec with ``axis`` taken out of every entry."""
+    out = []
+    for e in spec or ():
+        rest = tuple(a for a in entry_axes(e) if a != axis)
+        out.append(None if not rest else rest[0] if len(rest) == 1
+                   else rest)
+    return tuple(out)
+
+
+def _data_dims(node, specs, data_axis) -> Dict[str, int]:
+    """{weight: the dim its spec splits over the data axis}; a dim that
+    the data axis splits together with another axis raises, naming
+    itself."""
+    out = {}
+    for w, spec in specs.items():
+        for d, e in enumerate(spec or ()):
+            axes = entry_axes(e)
+            if data_axis in axes:
+                if len(axes) > 1:
+                    raise NotImplementedError(
+                        f"{node.name}.{w}: dim {d} split over the data "
+                        f"axis together with {tuple(a for a in axes if a != data_axis)} "
+                        "is not ported (ROADMAP A.5 remainder); split the "
+                        "data axis and a model axis on different dims")
+                out[w] = d
+    return out
 
 
 def _axis_of(spec, d: int, names, data_axis) -> Tuple[bool, Optional[str]]:
@@ -555,18 +682,18 @@ def plan_spmd(pcg, strategy, mesh, inputs_sharded: bool = True
             from ..ops.attention import refuse_sequence_parallel
 
             refuse_sequence_parallel(node.name, ns.extra)
-        for w, spec in specs.items():
-            if data_axis is not None and any(
-                    data_axis in entry_axes(e) for e in spec or ()):
-                raise NotImplementedError(
-                    f"{node.name}.{w}: a weight split over the data axis "
-                    f"{data_axis!r} (ZeRO/FSDP-style) is ported in a "
-                    "later slice (A.5, third part)")
+        fsdp = _data_dims(node, specs, data_axis) \
+            if data_axis is not None else {}
         in_shapes = [pcg.nodes[g].out_shapes[i] for g, i in node.inputs]
         srcs = [held[r] for r in node.inputs]
         wdecl = {} if t in (OperatorType.OP_INPUT, OperatorType.OP_WEIGHT) \
             else op.weight_specs(in_shapes)
         stored = {w: spec_placements(specs.get(w), names) for w in wdecl}
+        fsdp = {w: d for w, d in fsdp.items() if w in wdecl}
+        # the mesh-aware ops read the model axes of a spec; the data axis
+        # of a weight is gathered before the op runs
+        specs = {w: _without_axis(sp, data_axis) if w in fsdp else sp
+                 for w, sp in specs.items()}
         use = {w: R for w in wdecl}
         mode, axis, copy_axes = "plain", None, ()
         nout = len(node.out_shapes)
@@ -651,7 +778,7 @@ def plan_spmd(pcg, strategy, mesh, inputs_sharded: bool = True
         plans[node.guid] = NodePlan(
             srcs=srcs, ins=ins, natural=natural, outs=outs, stored=stored,
             use=use, mode=mode, axis=axis, copy_axes=copy_axes,
-            grad_axes=grad_axes)
+            grad_axes=grad_axes, fsdp=fsdp)
         for i, pl in enumerate(outs):
             held[(node.guid, i)] = pl
     return plans

@@ -7,6 +7,11 @@ paths (the training and serving parts of ``flexflow_tpu.resilience.chaos``):
   ``preempt_signal``) to this process right before step M dispatches; the
   handler ``fit`` installs flags it, the step finishes, a final checkpoint
   is flushed and ``fit`` returns.
+
+A plan is per process, so on a mesh each rank passes its own and one rank
+alone can be poisoned or preempted: the guarded step's verdict and the
+preemption flag are agreed over the ranks (``resilience/session.py``), so
+every rank skips, rolls back or stops with it.
 * ``corrupt_checkpoint(path)`` truncates, bit-flips or un-commits a written
   checkpoint.
 * Serving, keyed on the serve loop's decode-step count (the dispatch count
@@ -104,13 +109,19 @@ class ChaosPlan:
             f"poison; step {step}'s batch has dtypes "
             f"{[str(a.dtype) for a in bx]}")
 
-    def maybe_preempt(self, step: int) -> None:
+    def maybe_preempt(self, step: int, session=None) -> None:
         """Deliver the scripted signal before step ``step`` dispatches,
-        through ``os.kill``, so the real installed handler runs."""
+        through ``os.kill``, so the real installed handler runs. With
+        ``preempt_signal=None`` the fit's ``session`` is flagged as its
+        handler would flag it, with no signal: for ranks that are threads
+        of one process, where only the main thread has handlers."""
         if self.preempt_at_step is None or self.preempted_at is not None \
                 or step != self.preempt_at_step:
             return
         self.preempted_at = step
+        if self.preempt_signal is None:
+            session._on_signal(None, None)
+            return
         os.kill(os.getpid(), self.preempt_signal)
 
     # -- hooks called by the serving engine ---------------------------------

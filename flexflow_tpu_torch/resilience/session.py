@@ -10,6 +10,18 @@ optimizer state, epoch, batch cursor, rng counter), the divergence
 sentinel (``--max-bad-steps`` consecutive non-finite steps roll back to
 the last committed checkpoint) and the scripted chaos hooks.
 
+On a mesh of several ranks every rank runs a session and every decision
+is the same on all of them: the guarded step's verdict is reduced over the
+world inside the step (``Executor.make_train_step``), so the bad-step
+count and the rollback step agree; the checkpoint rolled back or resumed
+to is rank 0's choice, agreed through the model's coordination group
+(``parallel/mesh.agree``), never each rank's view of the directory, and
+rank 0 alone checksums it; a restore that fails on any rank fails on
+all; a preemption seen by one rank (its SIGTERM, or its chaos plan) is
+agreed after every step (``any_rank``, one host all-reduce a step, only
+while a session runs), so every rank stops after the same step and they
+flush one checkpoint together.
+
 Rollback: the first replays from the last good checkpoint unchanged (under
 the transient-fault model the replay is clean and the run reconverges to
 the uninterrupted one); from the second on, the learning rate is first
@@ -27,7 +39,9 @@ from ..execution.checkpoint import (CheckpointCorruptError,
                                     CheckpointManager, latest_checkpoint,
                                     list_checkpoints, restore_checkpoint,
                                     restore_train_cursor)
+from ..execution.checkpoint import verify_checkpoint
 from ..obs.trace import get_tracer
+from ..parallel.mesh import agree, any_rank
 from .sentinel import GuardedTrainStep
 
 
@@ -57,8 +71,12 @@ class ResilienceSession:
         self.recovery_events = 0
         self.skipped_steps = 0
         self.last_resume_step: Optional[int] = None
+        # ``preempted`` is the agreed flag the loop reads; ``signalled``
+        # this rank's own (its handler, or its chaos plan)
         self.preempted = False
+        self.signalled = False
         self.preempt_signum: Optional[int] = None
+        self.group = getattr(ffmodel, "coordination", None)
         self._old_handlers: Dict[int, Any] = {}
 
     @staticmethod
@@ -92,8 +110,10 @@ class ResilienceSession:
         # flags only: the handler runs between two bytecodes of the main
         # thread, where the tracer's lock may be held; the fault event is
         # recorded at the next step boundary (note_preemption)
-        self.preempted = True
+        self.signalled = True
         self.preempt_signum = signum
+        if self.group is None:
+            self.preempted = True
 
     def note_preemption(self, step: int) -> None:
         """Record the flagged preemption (from the fit loop, before the
@@ -118,6 +138,29 @@ class ResilienceSession:
         self._old_handlers.clear()
 
     # ------------------------------------------------------------- resume --
+    def _chooses(self) -> bool:
+        """Is this rank the one whose choices the ranks agree on (rank 0
+        of the coordination group, or the only rank)?"""
+        if self.group is None:
+            return True
+        import torch.distributed as dist
+
+        return dist.get_rank(self.group) == 0
+
+    def _restore(self, path: str, verify: bool) -> int:
+        """``restore_checkpoint`` on every rank alike: a read that fails
+        on any rank raises on all of them (the others would otherwise wait
+        in an agreement that rank never joins)."""
+        err = None
+        try:
+            step = restore_checkpoint(self.model, path, verify=verify)
+        except (CheckpointCorruptError, OSError) as e:
+            err = e
+        if any_rank(err is not None, self.group):
+            raise err or CheckpointCorruptError(
+                f"{path}: the restore failed on another rank")
+        return step
+
     def maybe_resume(self) -> Optional[Tuple[int, int, int]]:
         """Honour ``--resume``: (step, epoch, batch_in_epoch) after the
         model state is restored, or None for a fresh start. ``auto`` with
@@ -128,13 +171,15 @@ class ResilienceSession:
             return None
         if mode == "auto":
             d = self.model.config.checkpoint_dir
-            path = latest_checkpoint(d, verify=True) if d else None
+            path = agree(latest_checkpoint(d, verify=True)
+                         if d and self._chooses() else None, self.group)
             if path is None:
                 return None
         else:
             path = mode
         t0 = time.perf_counter()
-        step = restore_checkpoint(self.model, path)
+        # rank 0 has checksummed the latest checkpoint already
+        step = self._restore(path, verify=mode != "auto")
         ts = restore_train_cursor(self.model, path)
         self.last_resume_step = step
         self.recovery_events += 1
@@ -153,7 +198,9 @@ class ResilienceSession:
 
     def on_step(self, step: int, epoch: int, batch_in_epoch: int,
                 steps_per_epoch: int) -> None:
-        """Periodic async checkpoint (after the step's update landed)."""
+        """Periodic async checkpoint (after the step's update landed), and
+        the preemption flag agreed over the ranks."""
+        self.preempted = any_rank(self.signalled, self.group)
         if self.manager is None or self.checkpoint_every <= 0:
             return
         if step % self.checkpoint_every == 0:
@@ -194,8 +241,8 @@ class ResilienceSession:
                 f"(loss/grads non-finite for {self.guard.consecutive_bad} "
                 "consecutive steps)")
         self.manager.flush()
-        candidates = [p for _s, p in
-                      reversed(list_checkpoints(self.manager.directory))]
+        candidates = agree([p for _s, p in reversed(
+            list_checkpoints(self.manager.directory))], self.group)
         if not candidates:
             raise RuntimeError(
                 "divergence sentinel: no committed checkpoint exists yet "
@@ -208,12 +255,17 @@ class ResilienceSession:
         t0 = time.perf_counter()
         step = path = None
         for cand in candidates:
-            # a bit-rotted newest checkpoint falls back to an older one
+            # a bit-rotted newest checkpoint falls back to an older one:
+            # rank 0 checksums each candidate and its verdict is everyone's
             try:
-                step = restore_checkpoint(self.model, cand)
+                if agree(bool(verify_checkpoint(cand))
+                         if self._chooses() else None, self.group):
+                    raise CheckpointCorruptError(f"{cand}: checksum "
+                                                 "mismatch")
+                step = self._restore(cand, verify=False)
                 path = cand
                 break
-            except CheckpointCorruptError:
+            except (CheckpointCorruptError, OSError):
                 self.fault_events += 1
                 self.tracer.event("fault", kind="corrupt_checkpoint",
                                   path=cand)

@@ -42,6 +42,21 @@ one-device runs (``--reference --compute fp32`` first, same ``--steps``).
 over the four cards and reports the p50 step and each rank's peak memory
 over the fit; ``--package-root DIR`` imports the package from another
 checkout (a parent commit), so two trees compare in one call.
+
+``--suite fsdp`` trains the proxy data-parallel over the world twice:
+plain, and with every weight of two or more dims split over the data
+axis (ZeRO-3 / FSDP, ``chip_smoke.fsdp16_strategy``); per run the p50
+step, each rank's stored bytes (params and optimizer state), its peak
+allocation over the fit less those bytes (earlier models collected
+first), and the params off the one-device runs.
+``--suite ckpt`` saves and restores a sharded checkpoint of the proxy at
+dp = 4 and at dp 2 x tp 2 (each rank's bytes, seconds and GB/s, the
+restored params bitwise the saved ones) and leaves the dp = 4 one in
+``--ref-dir``; ``--suite ckpt_one``, run without torchrun after it,
+restores that checkpoint onto one card and checks it bitwise. Under
+``--suite pipeline`` the stages run as captured step programs;
+``--eager-stages`` runs them eagerly, as before those existed (both in
+one call compare the two).
 """
 from __future__ import annotations
 
@@ -73,6 +88,12 @@ STRATEGIES = {
     "hybrid_dp2_tp2_overlap": ("hybrid", 2, 2, True),
     "tp4": ("hybrid", 1, 4, False),
 }
+FSDP_STRATEGIES = {
+    "dp4": ("dp", 4, 1, False),
+    "fsdp_dp4": ("fsdp", 4, 1, False),
+}
+# name -> (kind, a, b) of the checkpoint suite
+CKPT_STRATEGIES = {"dp4": ("dp", 4, 1), "hybrid_dp2_tp2": ("hybrid", 2, 2)}
 
 
 def args_of():
@@ -92,7 +113,10 @@ def args_of():
     p.add_argument("--out", default=os.path.join(
         REPO, "chiprun_out", "mesh_multigpu.json"))
     p.add_argument("--suite", default="strategies",
-                   choices=("strategies", "pipeline", "c8"))
+                   choices=("strategies", "pipeline", "c8", "fsdp", "ckpt",
+                            "ckpt_one"))
+    p.add_argument("--eager-stages", action="store_true",
+                   help="pipeline suite: run the stages eagerly")
     p.add_argument("--package-root", default=None,
                    help="import flexflow_tpu_torch from this checkout")
     args = p.parse_args()
@@ -121,6 +145,7 @@ def build(args, device, strategy_fn=None, overlap=False):
     if not args.tiny and args.compute == "bf16":
         c.compute_dtype = DataType.DT_BFLOAT16
     ff = FFModel(c, device=device)
+    ff._capture_steps = not args.eager_stages
     build_bert(ff, cfg)
     ff.compile(optimizer=AdamOptimizer(ff, alpha=1e-4),
                loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
@@ -245,30 +270,64 @@ def finish(args, rank: int, out: dict) -> None:
     os._exit(0)
 
 
-def mesh(args) -> None:
-    """Every strategy of ``STRATEGIES`` on the torchrun world."""
-    import torch
-    import torch.distributed as dist
+def memory_base(device) -> int:
+    """Start a peak measurement on ``device``: collect what earlier models
+    left (their reference cycles hold device memory until the collector
+    runs, and would be freed inside the measured fit), return the cached
+    blocks, reset the peak. Returns the bytes allocated now."""
+    import gc
 
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    return torch.cuda.memory_allocated(device)
+
+
+def strategy_fn(kind: str, a: int, b: int):
     import chip_smoke as cs
     from flexflow_tpu_torch.parallel.strategies import \
         hybrid_data_tensor_strategy
     from flexflow_tpu_torch.parallel.strategy import data_parallel_strategy
 
+    if kind == "dp":
+        return lambda pcg: data_parallel_strategy(pcg, a)
+    if kind == "fsdp":
+        return cs.fsdp16_strategy(a)
+    return lambda pcg: hybrid_data_tensor_strategy(pcg, dp=a, tp=b)
+
+
+def mesh(args, table=None) -> None:
+    """Every strategy of ``table`` (``STRATEGIES``) on the torchrun
+    world."""
+    import torch
+    import torch.distributed as dist
+
+    import chip_smoke as cs
+
     device, rank, world, card = join(args)
+    cuda = args.device == "cuda"
     ref = init = finals = band = None
     if rank == 0:
         ref, init, finals, band = load_reference(args, card)
     out = {"card": card, "world": world, "strategies": {}}
-    for name, (kind, a, b, overlap) in STRATEGIES.items():
-        if kind == "dp":
-            fn = (lambda pcg, a=a: data_parallel_strategy(pcg, a))
-        else:
-            fn = (lambda pcg, a=a, b=b: hybrid_data_tensor_strategy(
-                pcg, dp=a, tp=b))
+    for name, (kind, a, b, overlap) in (table or STRATEGIES).items():
+        fn = strategy_fn(kind, a, b)
         t0 = time.perf_counter()
         ff, x, y = build(args, device, fn, overlap)
+        state = sum(t.numel() * t.element_size()
+                    for t in cs.state_tensors(ff))
+        # the fit's peak above the state (params and optimizer state), and
+        # what the card held above the state when the fit began
+        start = memory_base(device) if cuda else None
         r = run(ff, x, y, args)
+        peak = ((torch.cuda.max_memory_allocated(device) - state) / 2 ** 30
+                if cuda else None)
+        mem = [None] * world
+        dist.all_gather_object(mem, (state, peak, (start - state) / 2 ** 30
+                                     if cuda else None))
         captures = ff.executor.make_train_step().program.captures
         params = ff.get_params_numpy()  # before the profiled extra step
         prof = {}
@@ -278,7 +337,10 @@ def mesh(args) -> None:
         line = dict(r, captures=captures, mesh=ff.mesh.shape,
                     samples_per_s=ff.config.batch_size / r["p50_ms"] * 1e3,
                     nccl_kernels=prof.get("nccl_kernels", []),
-                    busy_ms=prof.get("busy_ms"), wall_s=0.0)
+                    busy_ms=prof.get("busy_ms"), wall_s=0.0,
+                    state_bytes=[m[0] for m in mem],
+                    peak_gib_above_state=[m[1] for m in mem],
+                    start_gib_above_state=[m[2] for m in mem])
         if rank == 0:
             got = [torch.as_tensor(params[n][w]) for n in params
                    for w in params[n]]
@@ -295,6 +357,9 @@ def mesh(args) -> None:
                   f"{line['busy_ms']} ms a replay, B1/B2 a step "
                   f"{r['counts']} on {r['heads']} local heads, captures "
                   f"{captures}, NCCL kernels {line['nccl_kernels'][:3]}; "
+                  f"state bytes a rank {line['state_bytes']}, fit's peak "
+                  f"GiB above it {line['peak_gib_above_state']} (held "
+                  f"above it at the start {line['start_gib_above_state']}); "
                   f"vs one device: params {line['dparams']:.3g} (band "
                   f"{band:.3g}), loss {line['dloss']:.3g} [{card}]",
                   flush=True)
@@ -346,10 +411,8 @@ def pipeline(args) -> None:
         ff, x, y = build(args, device, pipeline_strategy(sched, pp, dp, v,
                                                          world))
         tr = ff._pipeline_trainer
-        if cuda:  # the fit's peak above the compiled model's state
-            torch.cuda.synchronize(device)
-            torch.cuda.reset_peak_memory_stats(device)
-            base = torch.cuda.memory_allocated(device)
+        # the fit's peak above the compiled model's state
+        base = memory_base(device) if cuda else None
         r = run(ff, x, y, args)
         peak = ((torch.cuda.max_memory_allocated(device) - base) / 2 ** 30
                 if cuda else None)
@@ -368,7 +431,8 @@ def pipeline(args) -> None:
             b0 = ff.config.batch_size
             prof = cs.profiled(lambda: tr.train_step([x[:b0]], y[:b0]))
         mine = dict(rank=rank, chunks=list(tr._mine), counts=r["counts"],
-                    want=want, busy_ms=prof.get("busy_ms"),
+                    want=want, captures=tr.captures,
+                    busy_ms=prof.get("busy_ms"),
                     nccl_ms=prof.get("nccl_ms"),
                     nccl_kernels=prof.get("nccl_kernels", [])[:4],
                     peak_gib=peak)
@@ -400,6 +464,8 @@ def pipeline(args) -> None:
                   f"rank {[round(q, 4) for q in line.get('busy_share', [])]}"
                   f", outside NCCL "
                   f"{[round(q, 4) for q in line.get('compute_share', [])]}"
+                  f"; stages {'eager' if args.eager_stages else 'captured'}"
+                  f", captures a rank {[q['captures'] for q in ranks]}"
                   f"; B1/B2 a step {[q['counts'] for q in ranks]} (want "
                   f"{[q['want'] for q in ranks]}); NCCL kernels "
                   f"{ranks[0]['nccl_kernels']}; fit's peak GiB above the state "
@@ -419,6 +485,116 @@ def pipeline(args) -> None:
             torch.cuda.empty_cache()
         dist.barrier()
     finish(args, rank, out)
+
+
+def _crcs(params) -> dict:
+    import zlib
+
+    return {f"{n}/{w}": zlib.crc32(np.ascontiguousarray(a).tobytes())
+            for n, ws in params.items() for w, a in ws.items()}
+
+
+def ckpt(args) -> None:
+    """A sharded save and restore at each layout of ``CKPT_STRATEGIES``:
+    each rank's bytes written, seconds and GB/s, the restore's seconds,
+    and the restored params bitwise the saved ones. The dp = 4 one stays
+    in ``--ref-dir`` with the saved params' crc32s for ``ckpt_one``."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch.execution.checkpoint import (
+        TREES, restore_checkpoint, save_checkpoint, written_bytes)
+
+    device, rank, world, card = join(args)
+    cuda = args.device == "cuda"
+    out = {"card": card, "world": world, "ckpt": {}}
+    for name, (kind, a, b) in CKPT_STRATEGIES.items():
+        fn = strategy_fn(kind, a, b)
+        ff, x, y = build(args, device, fn)
+        ff.fit([x[:2 * ff.config.batch_size]], y[:2 * ff.config.batch_size],
+               epochs=1)
+        saved = ff.get_params_numpy()
+        d = os.path.join(args.ref_dir, f"ckpt_{name}")
+        if rank == 0 and os.path.isdir(d):
+            shutil.rmtree(d)
+        dist.barrier()
+        nbytes = written_bytes(ff, {t: getattr(ff, t) for t in TREES})
+        if cuda:
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        path = save_checkpoint(ff, d, step=2)
+        save_s = time.perf_counter() - t0
+        back, _x, _y = build(args, device, fn)
+        dist.barrier()
+        t0 = time.perf_counter()
+        restore_checkpoint(back, path)
+        if cuda:
+            torch.cuda.synchronize(device)
+        restore_s = time.perf_counter() - t0
+        got = back.get_params_numpy()
+        same = all(np.array_equal(saved[n][w], got[n][w])
+                   for n in saved for w in saved[n])
+        ranks = [None] * world
+        dist.all_gather_object(ranks, dict(
+            rank=rank, bytes=nbytes, save_s=save_s, restore_s=restore_s,
+            gb_per_s=nbytes / save_s / 1e9 if nbytes else 0.0, same=same))
+        total = sum(q["bytes"] for q in ranks)
+        if rank == 0:
+            print(f"ckpt {name} {ff.mesh.shape}: {total / 1e9:.3f} GB in "
+                  f"all; a rank's bytes {[q['bytes'] for q in ranks]}, save "
+                  f"s {[round(q['save_s'], 3) for q in ranks]}, GB/s "
+                  f"{[round(q['gb_per_s'], 3) for q in ranks]}, restore s "
+                  f"{[round(q['restore_s'], 3) for q in ranks]}, restored "
+                  f"params bitwise on every rank: "
+                  f"{all(q['same'] for q in ranks)} [{card}]", flush=True)
+            out["ckpt"][name] = dict(ranks=ranks, total_bytes=total,
+                                     path=path)
+            if name == "dp4":
+                with open(os.path.join(args.ref_dir, "ckpt_dp4.json"),
+                          "w") as f:
+                    json.dump(dict(path=path, crcs=_crcs(saved)), f)
+        if not all(q["same"] for q in ranks):
+            raise SystemExit(f"mesh_multigpu ckpt {name}: a restore is not "
+                             "bitwise the saved params")
+        del ff, back
+        if cuda:
+            torch.cuda.empty_cache()
+        dist.barrier()
+    finish(args, rank, out)
+
+
+def ckpt_one(args) -> None:
+    """The dp = 4 checkpoint of ``--suite ckpt`` restored onto one card
+    (host-staged): its seconds and the params' crc32s against the saved
+    ones."""
+    import torch
+
+    from flexflow_tpu_torch.execution.checkpoint import restore_checkpoint
+
+    device = torch.device(args.device)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True
+    ).stdout.strip().splitlines()[0] if args.device == "cuda" else "cpu"
+    with open(os.path.join(args.ref_dir, "ckpt_dp4.json")) as f:
+        ref = json.load(f)
+    ff, _x, _y = build(args, device)
+    t0 = time.perf_counter()
+    restore_checkpoint(ff, ref["path"])
+    if args.device == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    same = _crcs(ff.get_params_numpy()) == ref["crcs"]
+    print(f"ckpt dp4 -> one device: restore {secs:.3f} s, params bitwise "
+          f"the dp = 4 ranks' saved ones: {same} [{card}]", flush=True)
+    os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump({"card": card, "ckpt_one": dict(restore_s=secs,
+                                                  same=same)}, f)
+    if not same:
+        raise SystemExit("mesh_multigpu ckpt_one: not bitwise")
 
 
 def c8(args) -> None:
@@ -453,10 +629,7 @@ def c8(args) -> None:
                loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
                strategy_fn=lambda pcg: data_parallel_strategy(pcg, world))
     x, y = cs.train_data("gpt2", cfg, cfg.batch_size * args.steps)
-    if cuda:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(device)
-        base = torch.cuda.memory_allocated(device)
+    base = memory_base(device) if cuda else None
     ff.fit([x], y, epochs=1)
     mine = dict(rank=rank, peak_gib=(
         (torch.cuda.max_memory_allocated(device) - base) / 2 ** 30
@@ -483,4 +656,6 @@ if __name__ == "__main__":
     if a.reference:
         reference(a)
     else:
-        {"strategies": mesh, "pipeline": pipeline, "c8": c8}[a.suite](a)
+        {"strategies": mesh, "pipeline": pipeline, "c8": c8,
+         "fsdp": lambda a: mesh(a, FSDP_STRATEGIES), "ckpt": ckpt,
+         "ckpt_one": ckpt_one}[a.suite](a)

@@ -9,6 +9,10 @@ beyond the numbers of tests/test_torch_pipeline.py.
   share under interleaved).
 * Stage remat ``none``, ``selective`` and ``full`` give the same grads
   within 1e-6 (read off one SGD step at learning rate 1).
+* The stages' step programs (``capture=True``: a forward, a recomputing
+  backward, the last chunk's fused step and the update, run through
+  their static buffers on the CPU) give the eager step bitwise under
+  each schedule and at pp 2 x dp 2.
 * A stage cut whose feed skips a chunk (a residual across stages) trains:
   gpipe and 1f1b bitwise equal, the first step within 1e-5 of one device.
 * ``compile(strategy_fn=)`` with a 1f1b grid, then ``fit`` / ``eval`` /
@@ -60,10 +64,17 @@ def runs(tmp_path_factory):
         add(f"live_{sched}", "bert", "train", dict(
             model="bert", pp=4, dp=1, n_micro=8, schedule=sched,
             virtual_stages=v, steps=1))
+    for sched, v in LIVE:  # the same steps through the stage programs
+        add(f"captured_{sched}", "bert", "train", dict(
+            model="bert", pp=4, dp=1, n_micro=8, schedule=sched,
+            virtual_stages=v, steps=1, capture=True))
     for level in REMATS:
         add(f"remat_{level}", "bert", "train", dict(
             model="bert", pp=2, dp=2, n_micro=4, remat=level,
             opt="sgd:1.0", steps=1))
+    add("captured_remat_full", "bert", "train", dict(
+        model="bert", pp=2, dp=2, n_micro=4, remat="full", opt="sgd:1.0",
+        steps=1, capture=True))
     for sched in SKIP_SCHEDULES:
         add(f"skip_{sched}", "skip", "train", dict(
             model="skip", pp=4, dp=1, n_micro=4, schedule=sched))
@@ -173,3 +184,16 @@ def test_tracer_spans_name_microbatch_stage_device_and_schedule(runs):
             [f"pipeline_bwd:{m}:{c}:{d}:interleaved" for m in range(4)
              for c in chunks])
         assert got == want
+
+
+@pytest.mark.parametrize("name", [f"captured_{s}" for s, _v in LIVE] +
+                         ["captured_remat_full"])
+def test_stage_programs_give_the_eager_step(runs, name):
+    root, _ws, _one = runs
+    eager = "remat_full" if name == "captured_remat_full" else \
+        f"live_{name.split('_', 1)[1]}"
+    for rank in range(WORLD):
+        want = tp.load(root, eager, rank)
+        got = tp.load(root, name, rank)
+        assert float(got["loss0"]) == float(want["loss0"])
+        assert_trees_equal(tp.unflat("p0", want), tp.unflat("p0", got))

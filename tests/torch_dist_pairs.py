@@ -23,7 +23,7 @@ Cases (``CASES``), each building the model on the CPU (``device="cpu"``):
 * ``metrics``: ``eval`` (the accuracy counts), the eval step's loss and
   ``predict`` on every rank;
 * ``refuse``: ``fit`` with a checkpoint directory on a mesh of several
-  ranks, which raises (the message is kept);
+  ranks, which saves (once refused), and a fresh model restored from it;
 * ``flow``: no strategy, ``--only-data-parallel`` at the world size, a
   telemetry and a trace file named per rank: ``fit``, then ``eval`` over a
   set whose last batch does not divide by the data axis (it runs whole on
@@ -49,6 +49,18 @@ def _strategy(name: str):
         return lambda pcg: hybrid_data_tensor_strategy(pcg, dp=a, tp=b)
     if kind == "expert":
         return lambda pcg: expert_parallel_strategy(pcg, dp=a, ep=b)
+    if kind == "fsdp":  # weights over the data axis (ZeRO-3 / FSDP)
+        from torch_ckpt_pairs import fsdp_strategy
+
+        return lambda pcg: fsdp_strategy(pcg, a)
+    if kind == "pipe":  # a (pp, dp, 2 microbatches) grid over the world
+        import torch.distributed as dist
+
+        def pipe(pcg):
+            s = data_parallel_strategy(pcg, dist.get_world_size())
+            s.pipeline = (a, b, 2)
+            return s
+        return pipe
     if kind == "experts_op":  # the batched Experts op split by expert
         def fn(pcg):
             s = expert_parallel_strategy(pcg, dp=a, ep=b)
@@ -257,13 +269,23 @@ def _case_census(ff_args, io):
 
 
 def _case_refuse(ff_args, io):
-    ff = build(**ff_args)
-    ff.config.checkpoint_dir = "never_written"  # refused before any I/O
-    try:
-        ff.fit(io["x"], io["y"])
-    except NotImplementedError as e:
-        return {"message": np.array(str(e))}
-    return {"message": np.array("")}
+    """Once refused, now the positive case: ``fit`` with a checkpoint
+    directory on the mesh saves sharded checkpoints, and a fresh model
+    restored from the newest one holds the fit's params bit for bit."""
+    from flexflow_tpu_torch.execution.checkpoint import (latest_checkpoint,
+                                                         restore_checkpoint)
+
+    ckpt = os.path.join(io["root"], "refuse_ckpt")
+    ff = build(**ff_args, checkpoint_dir=ckpt, checkpoint_every=1)
+    ff.set_params_numpy(unflat("w", io))
+    ff.fit(io["x"], io["y"])
+    path = latest_checkpoint(ckpt)
+    back = build(**ff_args)
+    step = restore_checkpoint(back, path)
+    return {"step": np.int64(step), "saved": np.int64(ff.resilience.summary()
+                                                      ["checkpoints_saved"]),
+            **flat("a", ff.get_params_numpy()),
+            **flat("b", back.get_params_numpy())}
 
 
 def _case_flow(ff_args, io):
