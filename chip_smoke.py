@@ -320,6 +320,28 @@ timed generate only replays):
    plain versions at the microbatch shape and timed there
    (``flash_fwd_pipeline``, ``flash_bwd_fused_pipeline``).
 
+16. mesh16 — checkpoints and FSDP on a mesh (the section's comment).
+
+17. search — the Unity search and its cost model on the card (the
+   section's comment): (a) the machine model's efficiencies measured
+   (a GEMM in bf16 and fp32, an elementwise pass, the port's Adam update)
+   and ``GPUMachineModel.detect`` reading the card; (b) the BERT-Large
+   proxy's ``profile_operators`` (8 heaviest op shapes, CUDA events around
+   a captured graph of each op) against the analytic ``op_cost``, the
+   attention op's ``"grad"`` measurement, and the simulated step against
+   phase 6's measured captured p50, B1 / B2 counted inside the
+   measurements (``flash_fwd_measure``, ``flash_bwd_fused_measure``);
+   (c) ``--search-num-workers 4 --export-strategy`` on the one card: the
+   winner, the search's wall and candidates, its simulated step beside
+   the best plan on dp 4, hybrid 2 x 2 and tp 4; (d) the same search at
+   BERT-Large's widths cut to 2 layers in fp32 without pipeline
+   candidates (the threaded harness has no point-to-point; phase 15 holds
+   the pipeline schedules), its export imported onto
+   four threaded ranks on the card: one step's loss and grads against one
+   device (``SEARCH_THREADED_TOL``), B1 / B2 counted per rank
+   (``flash_fwd_search``, ``flash_bwd_fused_search``) and held against
+   their plain versions at the rank's shape.
+
 It prints the run's wall seconds, one ``{"kernels": [...]}`` line (the
 entries of the instances the census covers also carry their SASS counts,
 registers, spills and shared memory; the flash-decode entries their
@@ -1682,7 +1704,7 @@ def fa_kernel_phase(device, card: str):
 def train_model(kind: str, compute: str, device, seq: int = 512,
                 batch: int = 8, softmax_kernel: bool = False,
                 fusion: bool = False, strategy_fn=None,
-                num_layers: int = 0):
+                num_layers: int = 0, per_op: bool = False):
     """A model the port trains, as a user builds it: the BERT-Large proxy
     (``bench.py``'s flagship config) or GPT-2 small with a softmax head and
     token-level labels; Adam, sparse categorical cross-entropy; random
@@ -1691,7 +1713,8 @@ def train_model(kind: str, compute: str, device, seq: int = 512,
     (``ff.softmax(logits, use_pallas=True)``). ``--profiling`` records
     each step's wall; ``fusion`` compiles with ``--fusion``;
     ``strategy_fn`` compiles for a device mesh (phase 14); ``num_layers``
-    cuts BERT's depth (its widths stay)."""
+    cuts BERT's depth (its widths stay); ``per_op`` leaves the per-op
+    block of ``--profiling`` (``profile_operators``) to the caller."""
     from flexflow_tpu_torch import (AdamOptimizer, DataType, FFConfig,
                                     FFModel, LossType, MetricsType)
     from flexflow_tpu_torch.models.bert import BertConfig, build_bert
@@ -1720,6 +1743,11 @@ def train_model(kind: str, compute: str, device, seq: int = 512,
     ff.compile(optimizer=AdamOptimizer(ff, alpha=1e-4),
                loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
                metrics=metrics, strategy_fn=strategy_fn)
+    # --profiling here records each step's wall; its per-op block is
+    # phase 17's, run here with no op, so a phase's launch counts stay its
+    # steps' alone
+    if not per_op:
+        ff.profile_operators(0)
     return ff, cfg
 
 
@@ -2472,6 +2500,7 @@ def zoo_model(kind: str, compute: str, device, batch: int):
                  "resnext50": build_resnext50}[kind]
         build(ff, batch_size=batch)
     ff.compile(optimizer=AdamOptimizer(ff, alpha=1e-3), loss_type=loss)
+    ff.profile_operators(0)  # the per-op block is phase 17's
     return ff
 
 
@@ -2937,6 +2966,7 @@ def seq_model(kind: str, device, batch: int = 0, layernorm: bool = False):
         ff.softmax(ff.dense(t, cfg.num_classes))
     ff.compile(optimizer=AdamOptimizer(ff, alpha=alpha),
                loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY)
+    ff.profile_operators(0)  # the per-op block is phase 17's
     return ff, cfg
 
 
@@ -3867,6 +3897,22 @@ def chrome_events(path: str) -> list:
         return json.load(f)["traceEvents"]
 
 
+def graph_replay_kernels(events: list) -> tuple:
+    """The ``cudaGraphLaunch`` calls of a Chrome trace (by host start) and
+    the names of the kernels those replays ran, each kernel tied to its
+    launch by the CUPTI correlation id that both events carry (a graph's
+    kernels carry their ``cudaGraphLaunch``'s): not by timestamp, since
+    the host's and the card's clocks are aligned only approximately, and
+    a replay's first kernels may read as earlier than its launch call."""
+    launches = sorted((e for e in events if e.get("cat") == "cuda_runtime"
+                       and "GraphLaunch" in e.get("name", "")),
+                      key=lambda e: e["ts"])
+    ids = {e.get("args", {}).get("correlation") for e in launches} - {None}
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"
+               and e.get("args", {}).get("correlation") in ids]
+    return launches, kernels
+
+
 def obs_fusion(device, card: str, ff, cfg, x, y) -> dict:
     """Gate (b): the BERT-Large proxy compiled with ``--fusion`` against
     ``ff`` (the same proxy unfused, at its initial weights: both from the
@@ -4049,20 +4095,21 @@ def obs_bert(device, card: str, tmp: str) -> dict:
     events = chrome_events(os.path.join(prof_dir, path))
     ranges = {e["name"] for e in events if e.get("cat") == "user_annotation"}
     nodes = {n.name for n in ff.pcg.compute_nodes()}
-    launches = sorted(e["ts"] for e in events
-                      if e.get("cat") == "cuda_runtime"
-                      and "GraphLaunch" in e.get("name", ""))
-    kernels = [e["name"] for e in events if e.get("cat") == "kernel"
-               and launches and e["ts"] >= launches[0]]
+    launches, kernels = graph_replay_kernels(events)
     fwd = sum("flash_fwd_sm90" in k for k in kernels)
     bwd = sum("flash_bwd_fused_sm90" in k for k in kernels)
+    # the whole trace's: the eager step's and the replays'
+    every = [e["name"] for e in events if e.get("cat") == "kernel"]
+    all_fwd = sum("flash_fwd_sm90" in k for k in every)
+    all_bwd = sum("flash_bwd_fused_sm90" in k for k in every)
     size = os.path.getsize(os.path.join(prof_dir, path))
     log(f"{label} profiler: 3 steps (eager, capture, replay) in "
         f"{prof_s:.1f} s, a {size / 2 ** 20:.1f} MiB Chrome trace; "
         f"{len(nodes & ranges)} of {len(nodes)} nodes named by "
-        f"record_function ranges; {len(launches)} graph launches, after "
-        f"the first {fwd} flash_fwd_sm90 and {bwd} flash_bwd_fused_sm90 "
-        f"kernels [{card}]")
+        f"record_function ranges; {len(launches)} graph launches, whose "
+        f"replays ran {fwd} flash_fwd_sm90 and {bwd} flash_bwd_fused_sm90 "
+        f"kernels (by correlation id; {all_fwd} and {all_bwd} in the whole "
+        f"trace) [{card}]")
     if not nodes <= ranges:
         fail(f"{label}: nodes without a range in the profiler trace: "
              f"{sorted(nodes - ranges)[:8]}")
@@ -6746,6 +6793,367 @@ def mesh16_phase(device, card: str, pipe: dict) -> dict:
                                                  "save_s")})
 
 
+# ------------------------------------------------------- phase 17: search
+# (a) the machine model's three efficiencies, measured on the card: a large
+# GEMM against the dense peak of its dtype, an elementwise pass and the
+# port's Adam update against the HBM rate (search/machine_model.py keeps
+# the measured fractions in MEASURED_EFFICIENCY)
+EFF_GEMM_N = 8192
+EFF_ELEMENTS = 1 << 28
+EFF_ADAM_TENSORS, EFF_ADAM_ELEMENTS = 24, 1 << 22
+
+
+def search_efficiency(device, card: str) -> dict:
+    """Time an ``EFF_GEMM_N``^3 GEMM in bf16 and in fp32 (TF32 off), ``z =
+    x + y`` over ``EFF_ELEMENTS`` fp32 elements and one Adam update of
+    ``EFF_ADAM_TENSORS`` fp32 tensors (``AdamOptimizer.update``, 7 streams
+    of 4 bytes a parameter); each as a fraction of the machine model's
+    peak or HBM rate from ``GPUMachineModel.detect``. Also checks that
+    ``detect`` reads the card: name, capacity, the telemetry's peak."""
+    import torch
+
+    from flexflow_tpu_torch.execution.optimizers import AdamOptimizer
+    from flexflow_tpu_torch.obs.telemetry import detect_peak_flops
+    from flexflow_tpu_torch.search.machine_model import (GPUMachineModel,
+                                                         detect_generation)
+
+    m = GPUMachineModel.detect(1, device=device)
+    name = torch.cuda.get_device_name(0)
+    total = torch.cuda.get_device_properties(0).total_memory
+    if m.generation != detect_generation(name) or \
+            m.hbm_capacity != total or m.peak_flops != detect_peak_flops():
+        fail(f"search machine: detect() gave {m.generation} "
+             f"{m.hbm_capacity} B {m.peak_flops:.4g} FLOP/s for {name!r} "
+             f"({total} B, peak {detect_peak_flops()})")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    out = {}
+    n = EFF_GEMM_N
+    for dname, dt, peak in (("bf16", torch.bfloat16, m.peak_flops),
+                            ("fp32", torch.float32, m.peak_flops_f32)):
+        a = torch.randn(n, n, device=device, dtype=dt, generator=gen)
+        b = torch.randn(n, n, device=device, dtype=dt, generator=gen)
+        c = torch.empty(n, n, device=device, dtype=dt)
+        ms = time_ms(lambda i: torch.mm(a, b, out=c), 10, device)
+        out[f"gemm_{dname}"] = 2 * n ** 3 / (ms * 1e-3) / peak
+        out[f"gemm_{dname}_ms"] = ms
+        del a, b, c
+    x = torch.randn(EFF_ELEMENTS, device=device, generator=gen)
+    y = torch.randn(EFF_ELEMENTS, device=device, generator=gen)
+    z = torch.empty_like(x)
+    ms = time_ms(lambda i: torch.add(x, y, out=z), 10, device)
+    out["elementwise"] = 3 * 4 * EFF_ELEMENTS / (ms * 1e-3) / m.hbm_bandwidth
+    out["elementwise_ms"] = ms
+    del x, y, z
+    shape = (EFF_ADAM_ELEMENTS,)
+    params = {f"w{i}": {"kernel": torch.randn(shape, device=device,
+                                             generator=gen)}
+              for i in range(EFF_ADAM_TENSORS)}
+    grads = {k: {"kernel": torch.randn(shape, device=device, generator=gen)}
+             for k in params}
+    opt = AdamOptimizer(alpha=1e-4)
+    state = opt.init_state(params)
+    ms = time_ms(lambda i: opt.update(params, grads, state), 10, device)
+    nbytes = 7 * 4 * EFF_ADAM_TENSORS * EFF_ADAM_ELEMENTS
+    out["adam"] = nbytes / (ms * 1e-3) / m.hbm_bandwidth
+    out["adam_ms"] = ms
+    log(f"search machine ({m.generation}, detect: {name}, "
+        f"{m.hbm_capacity / 2 ** 30:.2f} GiB, peak {m.peak_flops:.4g} / "
+        f"fp32 {m.peak_flops_f32:.4g} FLOP/s, HBM {m.hbm_bandwidth:.4g} B/s):"
+        f" GEMM {n}^3 bf16 {out['gemm_bf16_ms']:.4f} ms = "
+        f"{out['gemm_bf16']:.4f} of peak, fp32 {out['gemm_fp32_ms']:.4f} ms"
+        f" = {out['gemm_fp32']:.4f}; x+y over {EFF_ELEMENTS} fp32 "
+        f"{out['elementwise_ms']:.4f} ms = {out['elementwise']:.4f} of HBM; "
+        f"Adam over {EFF_ADAM_TENSORS} x {EFF_ADAM_ELEMENTS} fp32 "
+        f"{out['adam_ms']:.4f} ms = {out['adam']:.4f} of HBM; model "
+        f"matmul {m.matmul_efficiency} hbm {m.hbm_efficiency} update "
+        f"{m.update_hbm_efficiency} [{card}]")
+    return out
+
+
+# (b) the cost model against the card: the BERT-Large proxy at full width
+# (bf16, batch 8, seq 512, 24 layers) on one card; (c) its search for four
+# GPUs; (d) the winner of the same search at a cut depth (2 layers, fp32,
+# no pipeline candidates) on four threaded ranks. The phase's stated wall:
+# SEARCH_WALL_S.
+SEARCH_WALL_S = 60.0
+SEARCH_WORLD = 4
+SEARCH_THREADED_LAYERS = 2
+SEARCH_PER_OP = 8
+# (d): fp32 on both sides, the shards' sums in another order only
+SEARCH_THREADED_TOL = TRAIN_TOL["fp32"]
+# the plans the search chooses between on four GPUs: (dp, tp); and the
+# pipeline it picked while it priced a stage's fp32 matmuls at the 16-bit
+# rate: (schedule, pp, dp, virtual stages, microbatches)
+SEARCH_MESHES = {"dp4": (4, 1), "hybrid2x2": (2, 2), "tp4": (1, 4)}
+SEARCH_PIPELINE = ("interleaved", 4, 1, 2, 8)
+
+
+def search_plans(pcg, sim, batch: int) -> dict:
+    """The simulated step (ms) on ``sim``'s machine of the best plan the
+    search's DP finds on each mesh of ``SEARCH_MESHES``, and of the
+    ``SEARCH_PIPELINE`` grid (``pp4_interleaved``, stage remat full)."""
+    from flexflow_tpu_torch.search.unity import dp_assign, simulate_pipeline
+
+    plans = {name: dp_assign(pcg, sim, dp, tp, batch)[2] * 1e3
+             for name, (dp, tp) in SEARCH_MESHES.items()}
+    sched, pp, dp, v, micro = SEARCH_PIPELINE
+    plans["pp4_interleaved"] = simulate_pipeline(
+        sim, pcg, pp, dp, micro, remat="full", schedule=sched, v=v)[0] * 1e3
+    return plans
+
+
+def flash_counts() -> dict:
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    return {k: fa._launches[k] for k in ("flash_fwd", "flash_bwd_fused")}
+
+
+def search_cost(device, card: str, measured_step_ms: float) -> dict:
+    """(b): ``FFModel.profile_operators`` on the proxy (the
+    ``SEARCH_PER_OP`` heaviest op shapes, each timed by CUDA events around
+    a captured graph of its op, in bf16) against ``op_cost``; the
+    attention op's ``"grad"`` measurement; the simulated step against
+    phase 6's measured captured p50 of the same model. B1 / B2 counted
+    inside the measurements."""
+    import torch
+
+    from flexflow_tpu_torch.search.machine_model import GPUMachineModel
+    from flexflow_tpu_torch.search.simulator import OpSharding, Simulator
+
+    ff, _cfg = train_model("bert", "bf16", device, per_op=True)
+    pcg = ff.pcg
+    before = flash_counts()
+    ff.profile_operators(SEARCH_PER_OP)
+    sim = Simulator(GPUMachineModel.detect(1, device=device),
+                    dtype_label="bf16")
+    attn = [n for n in pcg.compute_nodes()
+            if n.op.op_type.name == "OP_MULTIHEAD_ATTENTION"][0]
+    ins = [pcg.nodes[g].out_shapes[i] for g, i in attn.inputs]
+    dts = [pcg.nodes[g].out_dtypes[i] for g, i in attn.inputs]
+    grad_s = sim.measure_operator_cost(attn, ins, compute_dtype=torch.bfloat16,
+                                       direction="grad", in_dtypes=dts,
+                                       device=device)
+    after = flash_counts()
+    launches = {k: after[k] - before[k] for k in after}
+    est = sim.op_cost(attn, ins, OpSharding())
+    rows = [dict(name=n, op_type=t, measured_us=m * 1e6, analytic_us=a * 1e6,
+                 ratio=a / m) for n, t, m, a in ff.per_op_profile]
+    for r in rows:
+        log(f"search per-op {r['name']} {r['op_type']}: measured "
+            f"{r['measured_us']:.2f} us, analytic {r['analytic_us']:.2f} us "
+            f"(analytic / measured {r['ratio']:.3f}) [{card}]")
+    if len(rows) != SEARCH_PER_OP or not all(
+            np.isfinite(r["measured_us"]) and r["measured_us"] > 0
+            for r in rows):
+        fail(f"search cost: profile_operators measured {len(rows)} of "
+             f"{SEARCH_PER_OP} ops")
+    if not (launches["flash_fwd"] > 0 and launches["flash_bwd_fused"] > 0):
+        fail(f"search cost: the measurements launched B1/B2 {launches}")
+    sim.activation_el = 2  # bf16 activations
+    t_sim, mem = sim.simulate(pcg, {n.guid: OpSharding()
+                                    for n in pcg.compute_nodes()})
+    ratio = t_sim * 1e3 / measured_step_ms
+    log(f"search step bert-large bf16 b8 s512 24 layers, one card: "
+        f"simulated {t_sim * 1e3:.3f} ms ({mem / 2 ** 30:.2f} GiB) vs "
+        f"measured captured p50 {measured_step_ms:.3f} ms (phase 6): "
+        f"simulated / measured {ratio:.3f}; attention fwd+bwd measured "
+        f"{grad_s * 1e6:.1f} us vs analytic "
+        f"{(est.forward_time + est.backward_time) * 1e6:.1f} us; B1/B2 "
+        f"launched {launches} inside the measurements [{card}]")
+    del ff
+    torch.cuda.empty_cache()
+    return dict(per_op=rows, step_sim_ms=t_sim * 1e3,
+                step_measured_ms=measured_step_ms, step_ratio=ratio,
+                attn_grad_us=grad_s * 1e6, launches=launches)
+
+
+def search_target(device, card: str, tmp: str, layers: int = 0,
+                  compute: str = "bf16") -> dict:
+    """(c): the proxy compiled with ``--search-num-workers 4
+    --export-strategy`` on one card (the search for four GPUs on the
+    detected H100 model; the compile then trains on the one card), and the
+    same search's result on a copy of the graph: the winner, its wall,
+    its candidates and simulated step beside the plans of
+    :func:`search_plans`."""
+    import torch
+
+    from flexflow_tpu_torch import (AdamOptimizer, DataType, FFConfig,
+                                    FFModel, LossType)
+    from flexflow_tpu_torch.models.bert import BertConfig, build_bert
+    from flexflow_tpu_torch.search.calibration import dtype_label
+    from flexflow_tpu_torch.search.machine_model import GPUMachineModel
+    from flexflow_tpu_torch.search.simulator import Simulator
+    from flexflow_tpu_torch.search.unity import unity_search
+
+    path = os.path.join(tmp, f"search_l{layers or 24}_{compute}.json")
+    c = FFConfig()
+    c.batch_size, c.seed = 8, SEED
+    c.search_num_workers, c.export_strategy_file = SEARCH_WORLD, path
+    if compute == "bf16":
+        c.compute_dtype = DataType.DT_BFLOAT16
+    ff = FFModel(c, device=device)
+    cfg = BertConfig.large()
+    if layers:
+        cfg.num_layers = layers
+    build_bert(ff, cfg)
+    t0 = time.perf_counter()
+    ff.compile(optimizer=AdamOptimizer(ff, alpha=1e-4),
+               loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY)
+    compile_s = time.perf_counter() - t0
+    if ff.mesh is not None or not os.path.exists(path):
+        fail("search target: --search-num-workers 4 did not export and "
+             "train on the one card")
+    with open(path) as f:
+        exported = json.load(f)
+    pcg = ff.create_pcg()
+    machine = GPUMachineModel.detect(SEARCH_WORLD, device=device)
+    res = unity_search(pcg.copy(), c, SEARCH_WORLD, machine=machine,
+                       return_result=True, insert_ir_nodes=False,
+                       protected_guids=(ff.final_guid,), device=device)
+    if list(res.strategy.mesh_shape) != list(exported["mesh_shape"]):
+        fail(f"search target: the export's mesh {exported['mesh_shape']} is "
+             f"not the search's {res.strategy.mesh_shape}")
+    plans = search_plans(pcg, Simulator(machine,
+                                        dtype_label=dtype_label(c)),
+                         c.batch_size)
+    win = res.strategy.describe() if hasattr(res.strategy, "describe") \
+        else str(res.strategy.mesh_shape)
+    log(f"search target bert-large {compute} b8 s512 {cfg.num_layers} layers "
+        f"for {SEARCH_WORLD} GPUs ({machine.generation}, NVLink "
+        f"{machine.ici_bandwidth * machine.ici_links_per_chip / 1e9:.0f} "
+        f"GB/s a direction): winner {win} mesh {list(res.mesh_shape)} "
+        f"remat {res.remat} pipeline {res.strategy.pipeline}, simulated "
+        f"{res.sim_time * 1e3:.3f} ms; search wall {res.search_wall_s:.3f} "
+        f"s, {res.candidates} candidates, {res.pruned_static} pruned; "
+        f"simulated "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in plans.items())
+        + f"; compile with the export {compile_s:.2f} s [{card}]")
+    del ff
+    torch.cuda.empty_cache()
+    return dict(path=path, mesh=list(res.mesh_shape), winner=win,
+                sim_ms=res.sim_time * 1e3, wall_s=res.search_wall_s,
+                candidates=res.candidates, pruned=res.pruned_static,
+                plans=plans, pipeline=res.strategy.pipeline)
+
+
+def search_threaded(device, card: str, target: dict) -> dict:
+    """(d): the strategy ``target`` exported (the cut-depth proxy, fp32)
+    imported onto ``SEARCH_WORLD`` threaded ranks on the card (eager: the
+    harness's collectives cannot be captured): one train step's loss and
+    grads against the one-device port from the same weights and batch,
+    B1 / B2 counted per rank and the (batch, heads) each launch saw."""
+    import torch
+
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    ref, cfg = train_model("bert", "fp32", device,
+                           num_layers=SEARCH_THREADED_LAYERS)
+    x, y = train_data("bert", cfg, cfg.batch_size)
+    weights = ref.get_params_numpy()
+    lab = torch.from_numpy(ref._prep_label(y)).to(device)
+    loss, _l, grads = ref.executor.loss_and_grads(
+        ref.params, [torch.from_numpy(x).to(device)], lab)
+    want = (float(loss), [g for ws in grads.values() for g in ws.values()])
+    del ref, grads
+    shapes, per_rank = [], {}
+    orig = fa._launch_fwd
+
+    def seen(qs, *a, **kw):
+        shapes.append(tuple(qs.shape[:2]))
+        return orig(qs, *a, **kw)
+
+    def body(r):
+        from flexflow_tpu_torch import (AdamOptimizer, FFConfig, FFModel,
+                                        LossType)
+        from flexflow_tpu_torch.models.bert import BertConfig, build_bert
+
+        c = FFConfig()
+        c.batch_size, c.seed = 8, SEED
+        c.import_strategy_file = target["path"]
+        ff = FFModel(c, device=device)
+        bc = BertConfig.large()
+        bc.num_layers = SEARCH_THREADED_LAYERS
+        build_bert(ff, bc)
+        ff.compile(optimizer=AdamOptimizer(ff, alpha=1e-4),
+                   loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY)
+        ff._capture_steps = False
+        ff.set_params_numpy(weights)
+        ex = ff.executor
+        xs, ys = ex.local_batch([x, ff._prep_label(y)])
+        loss, _l, grads = ex.loss_and_grads(
+            ff.params, [torch.from_numpy(xs).to(device)],
+            torch.from_numpy(ys).to(device))
+        full = [ex.gather_param(n, w, g) for n, ws in grads.items()
+                for w, g in ws.items()]
+        return float(loss), full, tuple(ff.mesh.sizes)
+
+    t0 = time.perf_counter()
+    fa._launch_fwd = seen
+    try:
+        with pipe_launch_counter(per_rank):
+            out = threaded_ranks(SEARCH_WORLD, body, "search threaded")
+    finally:
+        fa._launch_fwd = orig
+    losses = [out[r][0] for r in range(SEARCH_WORLD)]
+    dloss = max(abs(v - want[0]) / max(abs(want[0]), 1e-30) for v in losses)
+    derr = max(rel_norm(out[r][1], want[1]) for r in range(SEARCH_WORLD))
+    launches = {k: sum(per_rank.get((f"rank{r}", k), 0)
+                       for r in range(SEARCH_WORLD))
+                for k in ("flash_fwd", "flash_bwd_fused")}
+    rank_shapes = sorted(set(shapes))
+    log(f"search threaded bert (BERT-Large widths, "
+        f"{SEARCH_THREADED_LAYERS} layers, fp32, the searched "
+        f"{target['winner']} mesh {out[0][2]} imported on "
+        f"{SEARCH_WORLD} ranks as threads on one card; a harness, its "
+        f"times are not multi-GPU speed): loss {losses[0]:.6f} vs one "
+        f"device {want[0]:.6f} (rel {dloss:.3g}), grads rel norm err "
+        f"{derr:.3g} (tol {SEARCH_THREADED_TOL}); B1/B2 launches "
+        f"{launches}, (batch, heads) a launch {rank_shapes}; "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    want_n = SEARCH_WORLD * SEARCH_THREADED_LAYERS
+    if len(rank_shapes) != 1 or launches["flash_fwd"] < want_n or \
+            launches["flash_bwd_fused"] < want_n:
+        fail(f"search threaded: B1/B2 launches {launches} at {rank_shapes},"
+             f" want at least {want_n} each at one rank shape")
+    if not (dloss <= SEARCH_THREADED_TOL[0]
+            and derr <= SEARCH_THREADED_TOL[1]):
+        fail("search threaded: the searched plan's step disagrees with one "
+             "device")
+    return dict(launches=launches, shape=rank_shapes[0], dloss=dloss,
+                grad_err=derr)
+
+
+def search_phase(device, card: str, measured_step_ms: float) -> dict:
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ff_search_")
+    try:
+        eff = search_efficiency(device, card)
+        cost = search_cost(device, card, measured_step_ms)
+        full = search_target(device, card, tmp)
+        cut = search_target(device, card, tmp,
+                            layers=SEARCH_THREADED_LAYERS, compute="fp32")
+        if cut["pipeline"]:
+            # (d) holds one step of an SPMD plan against one device; a
+            # pipeline winner would need phase 15's harness instead
+            fail(f"search: the cut-depth search picked the pipeline "
+                 f"{cut['winner']}, which (d) does not train")
+        threaded = search_threaded(device, card, cut)
+        b, h = threaded["shape"]
+        FA_SHAPES["search_rank"] = dict(b=b, h=h, sq=512, sk=512, d=64,
+                                        causal=False)
+        kern = fa_case(device, card, "search_rank", "fp32")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    log(f"search phase wall {wall:.1f} s (stated {SEARCH_WALL_S:.0f} s) "
+        f"[{card}]")
+    return dict(eff=eff, cost=cost, full=full, cut=cut, threaded=threaded,
+                kern=kern, wall=wall)
+
+
 def main() -> None:
     try:
         import torch
@@ -6825,6 +7233,7 @@ def main() -> None:
     mesh = mesh_phase(device, card)
     pipe = pipeline_phase(device, card)
     mesh16 = mesh16_phase(device, card, pipe)
+    search = search_phase(device, card, train["bert"]["p50_ms"])
 
     kernels = []
     for compute, name in (("fp32", "flash_decode"),
@@ -7067,6 +7476,34 @@ def main() -> None:
             "launches": launches[kernel],
             **r,
             **census.get((kernel, dname, FA_SHAPES["bert"]["d"]), {}),
+        })
+    # phase 17: B1 and B2 on the threaded ranks of the searched plan (fp32,
+    # timed at the rank's shape, which the winner sets), and inside the
+    # cost model's measurements of the BERT-Large attention op (bf16,
+    # timed at its BERT shape by the kernel phase)
+    for name, kernel in (("flash_fwd_search", "flash_fwd"),
+                         ("flash_bwd_fused_search", "flash_bwd_fused")):
+        r = dict(search["kern"][kernel])
+        r.pop("eager_ms", None)
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": FA_SOURCE,
+            "replaces": FA_KERNELS[kernel][0],
+            "launches": search["threaded"]["launches"][kernel],
+            **r,
+            **census.get((kernel, "fp32", FA_SHAPES["bert"]["d"]), {}),
+        })
+    for name, kernel in (("flash_fwd_measure", "flash_fwd"),
+                         ("flash_bwd_fused_measure", "flash_bwd_fused")):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": FA_SOURCE,
+            "replaces": FA_KERNELS[kernel][0],
+            "launches": search["cost"]["launches"][kernel],
+            **fa_kern[(kernel, "bert", "bf16")],
+            **census.get((kernel, "bf16", FA_SHAPES["bert"]["d"]), {}),
         })
     for kernel, line in (("softmax_fwd", 29), ("softmax_bwd", 38)):
         kernels.append({

@@ -685,6 +685,15 @@ def restore_checkpoint(ffmodel, path: str, verify: bool = True) -> int:
 
 
 # ------------------------------------------------------------- async manager
+# The contract ShardLint checks (analysis/rules.py, FF002;
+# flexflow_tpu/execution/checkpoint.py:104-114): the async manager keeps
+# the step's params and optimizer state only as the device clones that
+# ``_Snapshot`` takes before the next step updates them in place. Drop the
+# clones (or flip this without doing so) and the analyzer flags the
+# post-step reference to a buffer the step overwrites.
+SNAPSHOT_DEVICE_COPY = True
+
+
 class _Snapshot:
     """One checkpoint's state on its way to the host: device clones taken
     on the current stream, copied into pinned host buffers on ``stream``

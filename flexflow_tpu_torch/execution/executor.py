@@ -521,6 +521,73 @@ class Executor:
                                                scoped)
         return values
 
+    def profile_ops(self, params, xs, iters: int = 3):
+        """ProfiledStep mode (flexflow_tpu/execution/executor.py:639-740):
+        run the graph node by node on the live params and batch and time
+        each DISTINCT op shape ``(op params, in-shapes)``: on CUDA as
+        ``search.simulator.measure_operator_cost`` times an op (``iters``
+        calls of the node captured into one CUDA graph, its replay timed
+        by CUDA events), on the CPU the best wall of ``iters`` calls. On a
+        mesh the node runs as the step runs it (``_run_node``: its
+        redistributes and collectives included). Returns one raw record
+        per key, ``{guid, name, op_type, in_shapes, measured_fwd_s,
+        count}``; a producer's outputs are dropped once its last consumer
+        has run."""
+        import time
+
+        import torch
+
+        from ..search.simulator import Simulator, _time_captured
+
+        with torch.no_grad():
+            params_c, xs_c = self._cast_for_compute(params, list(xs))
+            ctx = OpContext(training=False, device=self.device)
+            bound = self._bind_inputs(list(xs_c))
+            order = self.pcg.topo_order()
+            uses: Dict[int, int] = {}
+            for node in order:
+                for g, _i in node.inputs:
+                    uses[g] = uses.get(g, 0) + 1
+            values: Dict[int, List[Any]] = {}
+            timings: Dict[Tuple, Dict[str, Any]] = {}
+            for node in order:
+                if node.op.op_type in (OperatorType.OP_INPUT,
+                                       OperatorType.OP_WEIGHT):
+                    values[node.guid] = [bound[node.guid]]
+                    continue
+                inputs = [values[g][i] for g, i in node.inputs]
+                in_shapes = self._node_input_shapes(node)
+                key = Simulator._op_key(node, in_shapes)
+
+                def call(node=node, inputs=inputs):
+                    return self._run_node(node, params_c, inputs, ctx,
+                                          False)
+
+                values[node.guid] = call()
+                if key in timings:
+                    timings[key]["count"] += 1
+                elif self.device.type == "cuda":
+                    timings[key] = dict(
+                        guid=node.guid, name=node.name,
+                        op_type=node.op.op_type.name, in_shapes=in_shapes,
+                        measured_fwd_s=_time_captured(
+                            call, max(iters, 1), self.device), count=1)
+                else:
+                    best = float("inf")
+                    for _ in range(max(iters, 1)):
+                        t0 = time.perf_counter()
+                        call()
+                        best = min(best, time.perf_counter() - t0)
+                    timings[key] = dict(
+                        guid=node.guid, name=node.name,
+                        op_type=node.op.op_type.name, in_shapes=in_shapes,
+                        measured_fwd_s=best, count=1)
+                for g, _i in node.inputs:
+                    uses[g] -= 1
+                    if uses[g] == 0:
+                        values.pop(g, None)
+        return list(timings.values())
+
     def _bind_inputs(self, xs: List[Any]) -> Dict[int, Any]:
         input_nodes = self.pcg.input_nodes()
         if len(xs) != len(input_nodes):
@@ -592,7 +659,9 @@ class Executor:
         activations kept between forward and backward."""
         from .remat import level_pieces, remat_segments, resolve_remat_plan
 
-        plan = resolve_remat_plan(self.config)
+        # the --remat flag, then the strategy's searched level (as the JAX
+        # executor resolves it, flexflow_tpu/execution/executor.py)
+        plan = resolve_remat_plan(self.config, self.strategy)
         if plan.level == "none":
             self.remat_plan = None
             return None

@@ -89,8 +89,8 @@ def remat_segments(pcg, segment_size: int = 8) -> List[List[int]]:
 
 def resolve_remat_plan(config, strategy=None) -> RematPlan:
     """The train step's plan: the ``--remat`` flag, then a strategy's
-    searched level (the port has no search yet, so none passes one), then
-    none; ``--remat-segment-size`` sizes the blocks."""
+    searched level (``search.unity`` sets ``Strategy.remat``), then none;
+    ``--remat-segment-size`` sizes the blocks."""
     level = (getattr(config, "remat", "") or "").strip() \
         or getattr(strategy, "remat", "") or "none"
     return RematPlan(level=level,

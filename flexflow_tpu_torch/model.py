@@ -36,9 +36,14 @@ pipeline grid ``(pp, dp, n_micro)`` trains through
 ``predict`` run the trained weights on the strategy's mesh. The
 fault-tolerant loop, sharded checkpoints, weights over the data axis and
 ``--fusion`` run on a mesh too (a pipeline ``fit`` refuses the checkpoint
-flags, which the JAX package ignores there). The search
-(``--search-num-*``, ``--profile-ops``, ``profile_operators``), the static
-analyzer and serving on a mesh come in later slices; their flags raise
+flags, which the JAX package ignores there). With no strategy at a world
+size above 1, every rank runs the Unity search (``search/``) and the
+ranks agree its plan; ``--search-num-*`` searches for another machine and
+exports; ``--static-analysis strict`` runs ShardLint (``analysis/``) on
+every plan; ``--compgraph`` writes the PCG's dot text; ``--profiling``
+and ``--profile-ops`` time ops through the search's simulator. Serving on
+a mesh and the rest of A.6 (the strategy cascade, the drift loop,
+``--debug-nans``) come in later slices; their flags raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -615,15 +620,18 @@ class FFModel:
         and ``--trace-file`` is written after it
         (flexflow_tpu/model.py:519-538).
 
-        The strategy (flexflow_tpu/model.py:590-664): ``strategy_fn(pcg)``
+        The strategy (flexflow_tpu/model.py:590-671): ``strategy_fn(pcg)``
         or ``strategy``, else ``--import-strategy``'s file (each checked by
         ``preflight_strategy`` first), else with ``--mesh-shape`` a mesh of
-        that shape with the batch over its first axis, else at a world size
-        above 1 data parallelism over every rank (``--only-data-parallel``;
-        the JAX package would search, which the port has not yet). Any of
-        them builds the device mesh and the executor's SPMD plan;
-        ``--export-strategy`` writes the strategy's JSON (rank 0). With
-        none, in one process, the executor runs on one device. A strategy
+        that shape with the batch over its first axis, else with
+        ``--only-data-parallel`` (or on one device without
+        ``--search-num-*``) data parallelism over every rank, else the
+        Unity search (:meth:`_run_search`: the same search on every rank,
+        its digest agreed). Any of them builds the device mesh and the
+        executor's SPMD plan; ``--static-analysis strict`` runs ShardLint
+        on the plan first; ``--export-strategy`` writes the strategy's JSON
+        and ``--compgraph`` the PCG's dot text (rank 0). With none, in one
+        process, the executor runs on one device. A strategy
         with a pipeline grid also builds the ``PipelineTrainer`` that
         ``fit`` trains through (flexflow_tpu/model.py:716-735): schedule
         ``--schedule`` > the strategy's > gpipe, stage remat ``--remat`` >
@@ -658,17 +666,46 @@ class FFModel:
             final = sinks[-1]
             self.final_out_idx = 0
         self.final_guid = final.guid
+        # each compile decides afresh whether a --search-num-* target
+        # search took the export slot, and drops an earlier search's result
+        self._exported_search_target = False
+        self._search_result = None
+        self._search_sim = None
         strategy, mesh = self._resolve_strategy(pcg, strategy, strategy_fn)
         self.strategy, self.mesh = strategy, mesh
         if mesh is not None:
             self.device = mesh.device
-        if self.config.export_strategy_file and self._writes_files():
+        if (self.config.static_analysis or "on") == "strict":
+            # ShardLint judges every compiled plan (explicit, imported or
+            # searched) before the executor exists
+            # (flexflow_tpu/model.py:643-663)
+            from .analysis import StaticAnalysisError, analyze_model
+            from .parallel.strategy import data_parallel_strategy
+
+            # the one-device path judges the JAX package's 1-device plan
+            self.strategy = strategy or data_parallel_strategy(pcg, 1)
+            try:
+                report = analyze_model(self, pcg=pcg)
+            finally:
+                self.strategy = strategy
+            if report.errors:
+                raise StaticAnalysisError(
+                    report, context="compile under --static-analysis "
+                    "strict")
+        if self.config.export_strategy_file and self._writes_files() and \
+                not self._exported_search_target:
             from .parallel.mesh import world
             from .parallel.strategy import data_parallel_strategy
 
             with open(self.config.export_strategy_file, "w") as f:
                 f.write((strategy or data_parallel_strategy(
                     pcg, world()[1])).to_json(pcg))
+        if self.config.export_strategy_computation_graph_file and \
+                self._writes_files():
+            with open(self.config.export_strategy_computation_graph_file,
+                      "w") as f:
+                f.write(pcg.to_dot(
+                    include_costs=self.config.include_costs_dot_graph))
         # the host-side agreements of a mesh (rollback target, resume
         # path, preemption, checkpoint staging), made once by every rank
         from .parallel.mesh import coordination_group
@@ -732,30 +769,18 @@ class FFModel:
                 capture=self._capture_steps and self.device.type == "cuda")
 
     def _refuse_compile_options(self) -> None:
-        """Flags the JAX package acts on at compile (flexflow_tpu/model.py:
-        595-672) that need the search or the static analyzer (ROADMAP
-        A.6): each raises, naming itself, rather than being parsed and
-        ignored."""
-        c = self.config
-        refused = [
-            (bool(c.export_strategy_computation_graph_file),
-             "--compgraph (with or without --include-costs-dot-graph)"),
-            (c.search_num_nodes != -1, "--search-num-nodes"),
-            (c.search_num_workers != -1, "--search-num-workers"),
-            ((c.static_analysis or "on") == "strict",
-             "--static-analysis strict"),
-            (bool(c.debug_nans), "--debug-nans"),
-        ]
-        for on, flag in refused:
-            if on:
-                raise NotImplementedError(
-                    f"compile: {flag} is {LATER} (ROADMAP A.6); the port "
-                    "has no search or static analyzer yet")
+        """``--debug-nans`` (flexflow_tpu/model.py:624-625) raises, naming
+        itself, rather than being parsed and ignored: it comes with the
+        rest of ROADMAP A.6 part 2."""
+        if self.config.debug_nans:
+            raise NotImplementedError(
+                f"compile: --debug-nans is {LATER} (ROADMAP A.6 part 2)")
 
     def _resolve_strategy(self, pcg, strategy, strategy_fn):
         """(Strategy, Mesh) of this compile, or (None, None) for the
         one-device path (:meth:`compile`)."""
-        from .parallel.mesh import build_mesh, mesh_for_strategy, world
+        from .parallel.mesh import (build_mesh, initialize_multihost,
+                                    mesh_for_strategy, world)
         from .parallel.strategy import Strategy, data_parallel_strategy
         from .resilience.preflight import preflight_strategy
 
@@ -765,6 +790,7 @@ class FFModel:
         if strategy_fn is not None:
             strategy = strategy_fn(pcg)
         mesh = None
+        searching = c.search_num_nodes > 0 or c.search_num_workers > 0
         if strategy is None and c.import_strategy_file:
             with open(c.import_strategy_file) as f:
                 strategy = Strategy.from_json(f.read(), pcg)
@@ -776,13 +802,121 @@ class FFModel:
             mesh = build_mesh(c, device_type=dev)
             strategy = data_parallel_strategy(pcg, mesh.sizes[0],
                                               axis_names=mesh.axis_names)
-        elif n_dev > 1:
-            strategy = data_parallel_strategy(pcg, n_dev)
+        elif c.only_data_parallel or (n_dev == 1 and not searching):
+            if n_dev > 1:
+                strategy = data_parallel_strategy(pcg, n_dev)
+        else:
+            if n_dev > 1:
+                initialize_multihost(device_type=dev)
+            strategy = self._run_search(pcg, n_dev)
         if strategy is None:
             return None, None
         if mesh is None:
             mesh = mesh_for_strategy(c, strategy, device_type=dev)
         return strategy, mesh
+
+    def _run_search(self, pcg, n_dev):
+        """The Unity search's strategy for this compile
+        (flexflow_tpu/model.py:766-852), or None for the one-device path.
+
+        ``--search-num-nodes/-workers`` naming another device count than
+        the world's search for that target machine (with a multi-node
+        target and no machine file, the machine carries the node split),
+        write ``--export-strategy`` and run data parallel on the ranks
+        there are (one device: the one-device path). Otherwise every rank
+        runs the same deterministic search from the same inputs (the
+        analytic cost model, the same calibration file, the seeded MCMC).
+        ``unity_search`` rewrites the PCG in place (greedy fusions,
+        substitutions, inserted parallel-op nodes), so rank 0's strategy
+        JSON alone could not be broadcast: the other ranks' PCGs would lack
+        the rewritten nodes. Instead the ranks agree a digest of the
+        strategy's JSON and the rewritten PCG's node list
+        (:func:`_search_digest`) over the coordination group, and a
+        mismatch raises on every rank, naming the ranks that differ."""
+        from .parallel.mesh import world
+        from .parallel.strategy import data_parallel_strategy
+        from .search.unity import SearchResult, unity_search
+
+        c = self.config
+        n_search = n_dev
+        nodes = c.search_num_nodes if c.search_num_nodes > 0 \
+            else c.num_nodes
+        if c.search_num_nodes > 0 or c.search_num_workers > 0:
+            workers = (c.search_num_workers if c.search_num_workers > 0
+                       else max(c.workers_per_node, 1))
+            n_search = max(nodes * workers, 1)
+        if n_search != n_dev:
+            if c.export_strategy_file:
+                machine = None
+                file_used = (c.machine_model_version == 1
+                             and c.machine_model_file)
+                if nodes > 1 and n_search % nodes == 0 and not file_used:
+                    from .search.machine_model import GPUMachineModel
+
+                    machine = GPUMachineModel.detect(
+                        n_search, num_hosts=nodes, device=self.device)
+                target_pcg = pcg.copy()
+                strat = unity_search(target_pcg, c, n_search,
+                                     machine=machine,
+                                     protected_guids=(self.final_guid,),
+                                     device=self.device)
+                if world()[0] == 0:
+                    with open(c.export_strategy_file, "w") as f:
+                        f.write(strat.to_json(target_pcg))
+                self._exported_search_target = True
+            else:
+                import warnings
+
+                warnings.warn(
+                    "--search-num-nodes/--search-num-workers target "
+                    f"{n_search} devices but {n_dev} are available and no "
+                    "--export-strategy file is set; skipping the target "
+                    "search and running data-parallel")
+            return data_parallel_strategy(pcg, n_dev) if n_dev > 1 \
+                else None
+        if world()[0] != 0:
+            # every rank searches; rank 0 alone writes --search-log
+            import copy
+
+            c = copy.copy(c)
+            c.search_log_file = ""
+        res = unity_search(pcg, c, n_dev,
+                           protected_guids=(self.final_guid,),
+                           return_result=True, device=self.device)
+        if isinstance(res, SearchResult):
+            self._search_result = res
+            self._search_sim = res.sim
+            strategy = res.strategy
+        else:
+            strategy = res  # nothing better: plain data parallelism
+        self._agree_search(pcg, strategy)
+        if n_dev == 1 and not strategy.pipeline and \
+                all(d == 1 for d in strategy.mesh_shape):
+            return None
+        return strategy
+
+    def _agree_search(self, pcg, strategy) -> None:
+        """Every rank's search must have reached the same plan
+        (:meth:`_run_search`): the digests are gathered over the
+        coordination group, and any difference raises on every rank."""
+        import torch.distributed as dist
+
+        from .parallel.mesh import coordination_group
+
+        group = coordination_group()
+        digest = _search_digest(pcg, strategy)
+        self._search_digest = digest
+        if group is None:
+            return
+        got = [None] * dist.get_world_size(group)
+        dist.all_gather_object(got, digest, group=group)
+        odd = [r for r, d in enumerate(got) if d != got[0]]
+        if odd:
+            raise RuntimeError(
+                f"compile: the ranks' searches disagree: ranks {odd} reached "
+                f"another plan than rank 0 (digests {sorted(set(got))}); "
+                "every rank must search from the same graph, config, "
+                "machine and calibration")
 
     def create_pcg(self):
         """Layer graph -> PCG (reference: create_operators_from_layers,
@@ -911,15 +1045,14 @@ class FFModel:
                 "strategy's microbatches, and this model compiled without "
                 "a pipeline grid; compile with a strategy whose pipeline "
                 "is (pp, dp, n_micro), or drop the flags")
-        if c.profile_ops:
-            raise NotImplementedError(
-                f"fit: --profile-ops is {LATER} (ROADMAP A.6): it times ops "
-                "through the search's simulator, which the port does not "
-                "have yet")
         refused = [
-            (bool(c.audit_strategy), "--audit-strategy (ROADMAP A.6)"),
+            (bool(c.audit_strategy), "--audit-strategy (ROADMAP A.6 part 2)"),
             (int(c.memory_budget_mb or 0) > 0,
-             "--memory-budget-mb (ROADMAP A.6)"),
+             "--memory-budget-mb (ROADMAP A.6 part 2)"),
+            (bool(c.auto_recalibrate),
+             "--auto-recalibrate (ROADMAP A.6 part 2)"),
+            (float(c.drift_tolerance) != 0.25,
+             "--drift-tolerance (ROADMAP A.6 part 2)"),
         ]
         for on, flag in refused:
             if on:
@@ -1033,6 +1166,10 @@ class FFModel:
         if telemetry is not None and cuda and self.config.telemetry_file:
             torch.cuda.reset_peak_memory_stats(self.device)
         last_batch = None
+        if profiling:
+            self.profile_operators()
+        if self.config.profile_ops:
+            self._profile_ops_pass(xs, batch_size, step_count)
         tracing = bool(self.config.profiler_trace_dir) and \
             self._writes_files()
         if tracing:
@@ -1600,11 +1737,106 @@ class FFModel:
         flexflow_cffi.py:2179, the parameter id over the whole model)."""
         return [w for layer in self._layers for w in layer.weights][id]
 
-    # ---- the search's simulator (a later slice) ---------------------------
+    # ---- the search's simulator -------------------------------------------
     def profile_operators(self, max_ops: int = 8) -> None:
-        raise NotImplementedError(
-            f"FFModel.profile_operators is {LATER} (ROADMAP A.6): it times "
-            "ops through the search's simulator")
+        """Per-op timing printout behind ``--profiling``
+        (flexflow_tpu/model.py:1526-1564; reference: FFConfig::profiling,
+        model.cc:110,155): the ``max_ops`` heaviest distinct op shapes (by
+        the analytic cost) are timed standalone by
+        ``Simulator.measure_operator_cost`` on this model's device, in the
+        step's compute dtype, and printed once, each beside the analytic
+        forward time. The rows stay on ``self.per_op_profile``: (name, op
+        type, measured s, analytic s). ``max_ops=0`` times nothing: a
+        caller that wants ``--profiling``'s step walls alone calls it so
+        before ``fit``."""
+        if getattr(self, "_per_op_profiled", False) or self.pcg is None:
+            return
+        self._per_op_profiled = True
+        self.per_op_profile = []
+        if max_ops <= 0:
+            return
+        from .search.calibration import dtype_label
+        from .search.machine_model import GPUMachineModel
+        from .search.simulator import OpSharding, Simulator
+
+        sim = Simulator(GPUMachineModel.detect(1, device=self.device),
+                        dtype_label=dtype_label(self.config))
+        distinct = {}
+        for node in self.pcg.compute_nodes():
+            in_shapes = [self.pcg.nodes[g].out_shapes[i]
+                         for g, i in node.inputs]
+            key = sim._op_key(node, in_shapes)
+            if key not in distinct:
+                est = sim.op_cost(node, in_shapes, OpSharding()).forward_time
+                distinct[key] = (est, node, in_shapes)
+        heaviest = sorted(distinct.values(), key=lambda x: -x[0])[:max_ops]
+        tracer = self._obs_tracer()
+        cdtype = self.executor._compute_dtype()
+        print("PER-OP PROFILE (fwd, measured standalone, "
+              f"top {len(heaviest)} by estimated cost):")
+        for est, node, in_shapes in heaviest:
+            in_dtypes = [self.pcg.nodes[g].out_dtypes[i]
+                         for g, i in node.inputs]
+            try:
+                t = sim.measure_operator_cost(
+                    node, in_shapes, compute_dtype=cdtype,
+                    in_dtypes=in_dtypes, device=self.device)
+            except Exception:
+                continue  # not measurable standalone, as in the JAX loop
+            self.per_op_profile.append(
+                (node.name, node.op.op_type.name, t, est))
+            if tracer.enabled:
+                tracer.event("per_op_profile", op=node.name,
+                             op_type=node.op.op_type.name,
+                             forward_us=round(t * 1e6, 1))
+            print(f"  {node.name:24s} {node.op.op_type.name:28s} "
+                  f"{t * 1e6:10.1f} us")
+
+    def _profile_ops_pass(self, xs, batch_size: int, step: int) -> None:
+        """``--profile-ops PATH``: one ProfiledStep pass a fit before its
+        loop (flexflow_tpu/obs/drift.py:193-222, without the drift
+        sentinel, which is ROADMAP A.6 part 2): every distinct op shape
+        timed on the live params and the first batch
+        (``Executor.profile_ops``), joined with the live sharding and the
+        simulator's prediction into ``obs.profile.OpRecord``\\ s, appended to
+        PATH as JSONL (rank 0) and to the tracer as one span an op. The
+        records stay on ``self.op_profile``."""
+        import warnings
+
+        import torch
+
+        from .obs.profile import OpProfile, profile_model
+        from .search.calibration import dtype_label
+        from .search.machine_model import GPUMachineModel
+        from .search.simulator import Simulator
+
+        n = int(np.asarray(xs[0]).shape[0])
+        if n < batch_size:
+            warnings.warn(
+                f"--profile-ops: dataset ({n} samples) smaller than the "
+                f"batch ({batch_size}); skipping the profiled pass")
+            return
+        c = self.config
+        sim = self._search_sim
+        if sim is None:
+            sim = Simulator(
+                GPUMachineModel.detect(
+                    self.mesh.numel if self.mesh is not None else 1,
+                    device=self.device),
+                calibration_dir=c.calibration_dir or None,
+                dtype_label=dtype_label(c))
+        local = self.executor.local_batch(
+            [np.asarray(a)[:batch_size] for a in xs])
+        bx = [torch.as_tensor(a).to(self.device) for a in local]
+        records = profile_model(self, bx, iters=3, step=step, sim=sim)
+        self.op_profile = records
+        if self._writes_files():
+            OpProfile(records).write_jsonl(c.profile_ops)
+        tracer = self._obs_tracer()
+        if tracer.enabled:
+            for r in records:
+                tracer.complete(f"op_profile:{r.name}", r.measured_fwd_s,
+                                op_type=r.op_type, count=r.count, step=step)
 
     # ---- recompilation (reference: RecompileState, model.cc:2422) ---------
     def _score_caches(self, cache, fresh, step_count: int) -> None:
@@ -1660,3 +1892,20 @@ def train_flops_per_step(ff: FFModel) -> int:
         ins = [pcg.nodes[g].out_shapes[i] for g, i in node.inputs]
         total += op_flops(node.op, ins, node.out_shapes, elementwise=False)
     return 3 * total
+
+
+def _search_digest(pcg, strategy) -> str:
+    """sha256 of a searched plan: the strategy's JSON and the rewritten
+    PCG's nodes in order (name, op type, inputs by producer name, output
+    shapes). The names the rewrites make embed node guids, which each
+    process counts from its start, so ranks agree when they built the same
+    graphs in the same order (as one script on every rank does)."""
+    import hashlib
+    import json
+
+    names = {n.guid: n.name for n in pcg.topo_order()}
+    nodes = [[n.name, n.op.op_type.name,
+              [[names[g], i] for g, i in n.inputs],
+              [list(x) for x in n.out_shapes]] for n in pcg.topo_order()]
+    text = strategy.to_json(pcg) + json.dumps(nodes)
+    return hashlib.sha256(text.encode()).hexdigest()[:16]

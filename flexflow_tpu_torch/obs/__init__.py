@@ -23,8 +23,9 @@ from .trace import (NoopTracer, Tracer, atomic_write_json,  # noqa: F401
 from .reqtrace import (FleetTimeSeries, NoopRequestTrace,  # noqa: F401
                        RequestTrace, disable_reqtrace, enable_reqtrace,
                        get_reqtrace, set_reqtrace)
-from .telemetry import (StepTelemetry, capture_memory_analysis,  # noqa: F401
-                        detect_peak_flops, model_flops_per_step)
+from .telemetry import (SearchLog, StepTelemetry,  # noqa: F401
+                        capture_memory_analysis, detect_peak_flops,
+                        model_flops_per_step)
 
 _exports = itertools.count(1)
 _running = []  # the profile start_trace began, until stop_trace

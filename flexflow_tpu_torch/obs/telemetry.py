@@ -11,11 +11,12 @@ key for key and with the same rounding, written to ``--telemetry-file``.
 Three functions differ from the JAX module because the device does:
 ``detect_peak_flops`` reads the CUDA card's name, ``capture_memory_analysis``
 reads the CUDA allocator's peak counter over the run (XLA's
-compiled-memory fields have no counterpart here), and the search's
-``SearchLog`` comes with the search.
+compiled-memory fields have no counterpart here). ``SearchLog`` is the
+search's per-iteration sink (``--search-log``), a copy of the JAX one.
 """
 from __future__ import annotations
 
+import json
 import time
 from typing import Any, Dict, List, Optional
 
@@ -445,3 +446,54 @@ def capture_memory_analysis(executor, params, opt_state, xs, labels
         "peak_memory_in_bytes": int(torch.cuda.max_memory_allocated(
             executor.device)),
     }
+
+
+class SearchLog:
+    """Per-iteration search telemetry sink. Every ``log()`` lands as a JSONL
+    line (when ``path`` is set) and as an instant event on the process tracer
+    (when tracing is enabled) — one call site, both sinks. Safe to construct
+    unconditionally: with no path and tracing disabled it degrades to a
+    counter."""
+
+    def __init__(self, path: Optional[str] = None, kind: str = "unity"):
+        self.path = path
+        self.kind = kind
+        self.iterations = 0
+        # per-event-type record counts (e.g. "candidate", "xfer",
+        # "pipeline_candidate"): unity_search derives its candidates/sec
+        # metric from these, so the rate in the final record always matches
+        # what the log actually streamed
+        self.counts: Dict[str, int] = {}
+        self._fh = None  # set BEFORE open(): __del__ must find the attr
+        # even when open() raises on a bad path
+        if path:
+            # line-buffered: the log is for WATCHING a live search (tail
+            # -f) and must survive a mid-search kill
+            self._fh = open(path, "a", buffering=1)
+
+    def log(self, **rec) -> None:
+        self.iterations += 1
+        ev = rec.get("event")
+        if ev:
+            self.counts[ev] = self.counts.get(ev, 0) + 1
+        rec.setdefault("search", self.kind)
+        rec.setdefault("iter", self.iterations)
+        if self._fh is not None:
+            self._fh.write(json.dumps(rec, default=str) + "\n")
+        from .trace import get_tracer
+
+        tracer = get_tracer()
+        if tracer.enabled:
+            tracer.event(f"{self.kind}_iter", **rec)
+
+    def close(self) -> None:
+        if self._fh is not None:
+            self._fh.flush()
+            self._fh.close()
+            self._fh = None
+
+    def __del__(self):
+        # a search that raises mid-run drops its SearchLog frame without
+        # reaching the explicit close(); refcount collection closes the fd
+        # (writes are line-buffered, so no records are lost either way)
+        self.close()

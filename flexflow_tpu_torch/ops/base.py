@@ -83,6 +83,14 @@ class Op:
         self.attrs = dict(attrs)
         self.data_type = dtype
         self.num_inputs = num_inputs
+        # the view the search assigned (``search.unity.insert_parallel_ops``)
+        self.machine_view = None
+
+    def params_key(self) -> Tuple:
+        """Hashable params tuple: the search's cost tables key on it
+        (flexflow_tpu/ops/base.py:100-103; reference: <op>_params.h)."""
+        return (self.op_type, self.data_type,
+                tuple(sorted((k, _freeze(v)) for k, v in self.attrs.items())))
 
     def infer_output_shapes(
         self, input_shapes: List[Tuple[int, ...]]
@@ -108,6 +116,18 @@ class Op:
 
     def __repr__(self) -> str:
         return f"{type(self).__name__}({self.name})"
+
+
+def _freeze(v):
+    if isinstance(v, (list, tuple)):
+        return tuple(_freeze(x) for x in v)
+    if isinstance(v, dict):
+        return tuple(sorted((k, _freeze(x)) for k, x in v.items()))
+    if isinstance(v, np.ndarray):
+        return (v.shape, v.dtype.str, v.tobytes())
+    if callable(v) and not isinstance(v, type):
+        return getattr(v, "__name__", repr(v))
+    return v
 
 
 def profiler_on() -> bool:

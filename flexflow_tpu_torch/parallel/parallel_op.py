@@ -8,11 +8,15 @@ reduction_kernels.cu:24-34).
 
 A parallel op is a **resharding node** of the search: the JAX package pins
 its output to the layout of its target ``ParallelTensorShape``
-(``target_pts``). In the port nothing inserts one before the search
-(ROADMAP A.6), which brings the target layouts and the resharding forward
-(``parallel.spmd.redistribute``); until then the SPMD plan passes any
-layout through one and its forward is the identity. ``comm_bytes`` prices
-the movement for the search, as in the JAX package.
+(``target_pts``) with ``with_sharding_constraint``. The port is
+multi-controller, each rank holding its local shard: the node's op is the
+identity on that shard, and the SPMD plan (``parallel.spmd.plan_spmd``)
+makes ``target_pts.partition_spec()`` the node's output layout, so the
+executor redistributes the value there (``parallel.spmd.redistribute``,
+whose gradient moves it back). The search's ``insert_parallel_ops`` sets
+``target_pts`` on every node of a state transition. A node without one
+passes any layout through. ``comm_bytes`` prices the movement for the
+search, as in the JAX package.
 
 attrs (all): ``dim`` (tensor dim), ``degree``, ``axes`` (mesh axes involved).
 """

@@ -509,9 +509,11 @@ _PER_SAMPLE = {
     OperatorType.OP_LINEAR, OperatorType.OP_MULTIHEAD_ATTENTION,
     OperatorType.OP_EMBEDDING, OperatorType.OP_CONV2D,
 }
-# the search's resharding nodes (parallel/parallel_op.py): nothing inserts
-# them before the search (ROADMAP A.6), which brings their target layouts;
-# until then they pass any layout through, as the unary ops do
+# the search's resharding nodes (parallel/parallel_op.py): one the search
+# inserted carries ``target_pts``, whose layout the plan makes its output
+# layout (the executor's redistribute moves the data, and its gradient
+# moves it back); one without passes any layout through, as the unary
+# ops do
 _PARALLEL = {
     OperatorType.OP_REPARTITION, OperatorType.OP_COMBINE,
     OperatorType.OP_REPLICATE, OperatorType.OP_REDUCTION,
@@ -766,7 +768,15 @@ def plan_spmd(pcg, strategy, mesh, inputs_sharded: bool = True
             ins = [R] * len(srcs)
             natural = [R] * nout
         outs = list(natural)
-        if ns is not None and ns.output_spec and nout:
+        target = getattr(op, "target_pts", None) if t in _PARALLEL \
+            else None
+        if target is not None:
+            # the redistribute to the node's target layout on the model
+            # axes; the data axis follows the batch, as under output_spec
+            pinned = spec_placements(target.partition_spec(), names)
+            outs[0] = tuple(natural[0][i] if i == di else pinned[i]
+                            for i in range(n))
+        elif ns is not None and ns.output_spec and nout:
             # the pinned layout on the model axes; the data axis follows
             # the batch (a whole batch on every rank stays whole)
             pinned = spec_placements(ns.output_spec, names)

@@ -57,6 +57,15 @@ restores that checkpoint onto one card and checks it bitwise. Under
 ``--suite pipeline`` the stages run as captured step programs;
 ``--eager-stages`` runs them eagerly, as before those existed (both in
 one call compare the two).
+
+``--suite search`` compiles the proxy with no strategy at the world size,
+so every rank runs the Unity search on the detected machine (and agrees
+its digest), trains the winner, then dp 4, hybrid 2 x 2, tp 4 and the
+pp 4 interleaved pipeline as in the strategies and pipeline suites, all
+in one call: per plan the measured p50 beside the search's simulated step
+(the winner's own; for the others ``chip_smoke.search_plans``), the
+search's wall and candidates, and ``nvidia-smi topo -m`` once. Under
+``--compute fp32`` a plan outside the one-device band fails the run.
 """
 from __future__ import annotations
 
@@ -92,6 +101,16 @@ FSDP_STRATEGIES = {
     "dp4": ("dp", 4, 1, False),
     "fsdp_dp4": ("fsdp", 4, 1, False),
 }
+# the search suite: the searched plan, then the plans of
+# chip_smoke.search_plans (the meshes it chose between and the pipeline it
+# picked while it priced a stage's fp32 matmuls at the 16-bit rate)
+SEARCH_STRATEGIES = {
+    "searched": ("search", 0, 0, False),
+    "dp4": ("dp", 4, 1, False),
+    "hybrid2x2": ("hybrid", 2, 2, False),
+    "tp4": ("hybrid", 1, 4, False),
+    "pp4_interleaved": ("pipeline", 0, 0, False),
+}
 # name -> (kind, a, b) of the checkpoint suite
 CKPT_STRATEGIES = {"dp4": ("dp", 4, 1), "hybrid_dp2_tp2": ("hybrid", 2, 2)}
 
@@ -114,7 +133,7 @@ def args_of():
         REPO, "chiprun_out", "mesh_multigpu.json"))
     p.add_argument("--suite", default="strategies",
                    choices=("strategies", "pipeline", "c8", "fsdp", "ckpt",
-                            "ckpt_one"))
+                            "ckpt_one", "search"))
     p.add_argument("--eager-stages", action="store_true",
                    help="pipeline suite: run the stages eagerly")
     p.add_argument("--package-root", default=None,
@@ -151,6 +170,7 @@ def build(args, device, strategy_fn=None, overlap=False):
                loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
                metrics=[MetricsType.METRICS_ACCURACY],
                strategy_fn=strategy_fn)
+    ff.profile_operators(0)  # --profiling here is the steps' walls
     x, y = cs.train_data("bert", cfg, cfg.batch_size * args.steps)
     return ff, x, y
 
@@ -256,7 +276,7 @@ def load_reference(args, card: str):
     return ref, init, finals, band
 
 
-def finish(args, rank: int, out: dict) -> None:
+def finish(args, rank: int, out: dict, code: int = 0) -> None:
     import torch.distributed as dist
 
     if rank == 0:
@@ -267,7 +287,7 @@ def finish(args, rank: int, out: dict) -> None:
     sys.stdout.flush()
     # no destroy_process_group: on the four-card host, tearing NCCL down
     # under the captured programs' graphs hung for over 13 minutes
-    os._exit(0)
+    os._exit(code)
 
 
 def memory_base(device) -> int:
@@ -286,7 +306,7 @@ def memory_base(device) -> int:
     return torch.cuda.memory_allocated(device)
 
 
-def strategy_fn(kind: str, a: int, b: int):
+def strategy_fn(kind: str, a: int, b: int, world: int = 4):
     import chip_smoke as cs
     from flexflow_tpu_torch.parallel.strategies import \
         hybrid_data_tensor_strategy
@@ -296,7 +316,36 @@ def strategy_fn(kind: str, a: int, b: int):
         return lambda pcg: data_parallel_strategy(pcg, a)
     if kind == "fsdp":
         return cs.fsdp16_strategy(a)
+    if kind == "search":
+        return None  # no strategy at world > 1: compile searches
+    if kind == "pipeline":  # fit derives its microbatch count for the batch
+        sched, pp, dp, v, _micro = cs.SEARCH_PIPELINE
+        return pipeline_strategy(sched, pp, dp, v, world)
     return lambda pcg: hybrid_data_tensor_strategy(pcg, dp=a, tp=b)
+
+
+def simulated_plans(args, device, world: int) -> dict:
+    """``chip_smoke.search_plans`` on the detected machine, in the run's
+    compute dtype, for the uncompiled proxy."""
+    import chip_smoke as cs
+    from flexflow_tpu_torch import DataType, FFConfig, FFModel
+    from flexflow_tpu_torch.models.bert import BertConfig, build_bert
+    from flexflow_tpu_torch.search.calibration import dtype_label
+    from flexflow_tpu_torch.search.machine_model import GPUMachineModel
+    from flexflow_tpu_torch.search.simulator import Simulator
+
+    cfg = BertConfig(batch_size=8, seq_len=128, hidden=128, num_heads=4,
+                     num_layers=2, intermediate=256) if args.tiny \
+        else BertConfig.large()
+    c = FFConfig()
+    c.batch_size = cfg.batch_size
+    if not args.tiny and args.compute == "bf16":
+        c.compute_dtype = DataType.DT_BFLOAT16
+    ff = FFModel(c, device=device)
+    build_bert(ff, cfg)
+    sim = Simulator(GPUMachineModel.detect(world, device=device),
+                    dtype_label=dtype_label(c))
+    return cs.search_plans(ff.create_pcg(), sim, c.batch_size)
 
 
 def mesh(args, table=None) -> None:
@@ -314,7 +363,7 @@ def mesh(args, table=None) -> None:
         ref, init, finals, band = load_reference(args, card)
     out = {"card": card, "world": world, "strategies": {}}
     for name, (kind, a, b, overlap) in (table or STRATEGIES).items():
-        fn = strategy_fn(kind, a, b)
+        fn = strategy_fn(kind, a, b, world)
         t0 = time.perf_counter()
         ff, x, y = build(args, device, fn, overlap)
         state = sum(t.numel() * t.element_size()
@@ -334,6 +383,12 @@ def mesh(args, table=None) -> None:
         if args.device == "cuda":
             b0 = ff.config.batch_size
             prof = cs.profiled(lambda: ff.fit([x[:b0]], y[:b0], epochs=1))
+        res = getattr(ff, "_search_result", None)
+        if res is not None:
+            line_search = dict(
+                sim_ms=res.sim_time * 1e3, wall_s=res.search_wall_s,
+                candidates=res.candidates, winner=ff.strategy.describe(),
+                digest=ff._search_digest, pipeline=ff.strategy.pipeline)
         line = dict(r, captures=captures, mesh=ff.mesh.shape,
                     samples_per_s=ff.config.batch_size / r["p50_ms"] * 1e3,
                     nccl_kernels=prof.get("nccl_kernels", []),
@@ -349,6 +404,8 @@ def mesh(args, table=None) -> None:
                                 zip(r["losses"], ref[0]["losses"]))
             line["band"] = band
             line["in_band"] = bool(line["dparams"] <= band)
+        if res is not None:
+            line["search"] = line_search
         line["wall_s"] = time.perf_counter() - t0
         if rank == 0:
             print(f"mesh {name} {ff.mesh.shape}: p50 {r['p50_ms']:.3f} ms "
@@ -364,11 +421,17 @@ def mesh(args, table=None) -> None:
                   f"{band:.3g}), loss {line['dloss']:.3g} [{card}]",
                   flush=True)
             out["strategies"][name] = line
+        if rank == 0 and res is not None:
+            print(f"mesh {name}: the search's winner {ff.strategy.describe()}"
+                  f" simulated {res.sim_time * 1e3:.3f} ms, search wall "
+                  f"{res.search_wall_s:.3f} s, {res.candidates} candidates, "
+                  f"digest {ff._search_digest} agreed [{card}]", flush=True)
         fails = []
         if r["counts"] != {"flash_fwd": 24, "flash_bwd_fused": 24} and \
-                not args.tiny:
+                not args.tiny and not ff.strategy.pipeline:
             fails.append(f"launches {r['counts']}")
-        if captures != 1 and args.device == "cuda":
+        if captures != 1 and args.device == "cuda" and \
+                not ff.strategy.pipeline:  # stages capture on their own
             fails.append(f"{captures} captures")
         if args.device == "cuda" and not line["nccl_kernels"]:
             fails.append("no NCCL kernel in a replay")
@@ -378,7 +441,41 @@ def mesh(args, table=None) -> None:
         if args.device == "cuda":
             torch.cuda.empty_cache()
         dist.barrier()
-    finish(args, rank, out)
+    if table is SEARCH_STRATEGIES and rank == 0:
+        sims = simulated_plans(args, device, world)
+        for name, ms in sims.items():
+            got = out["strategies"][name]
+            got["sim_ms"] = ms
+            print(f"search {name}: measured p50 {got['p50_ms']:.3f} ms, "
+                  f"simulated (the search's best plan on that mesh, or "
+                  f"that pipeline grid) {ms:.3f} ms: simulated / measured "
+                  f"{ms / got['p50_ms']:.3f} [{card}]", flush=True)
+        s = out["strategies"]["searched"]
+        print(f"search searched: measured p50 {s['p50_ms']:.3f} ms, "
+              f"simulated {s['search']['sim_ms']:.3f} ms: simulated / "
+              f"measured {s['search']['sim_ms'] / s['p50_ms']:.3f}; "
+              f"measured order "
+              f"{sorted(out['strategies'], key=lambda k: out['strategies'][k]['p50_ms'])}"
+              f" [{card}]", flush=True)
+        if cuda:
+            topo = subprocess.run(["nvidia-smi", "topo", "-m"],
+                                  capture_output=True, text=True)
+            out["topo"] = topo.stdout
+            print(topo.stdout, flush=True)
+    code = 0
+    if table is SEARCH_STRATEGIES and rank == 0 and args.compute == "fp32":
+        # in fp32 every plan sums in another order only, so each must train
+        # inside the one-device runs' band (bf16 is not gated: its band,
+        # from near-bitwise one-device reruns, is narrower than bf16's
+        # rounding under another reduction order, and a pipeline stage
+        # runs in fp32 there)
+        out_of_band = [n for n, line in out["strategies"].items()
+                       if not line["in_band"]]
+        if out_of_band:
+            print(f"mesh_multigpu search: outside the band of one device: "
+                  f"{out_of_band}", flush=True)
+            code = 1
+    finish(args, rank, out, code)
 
 
 def pipeline_strategy(sched: str, pp: int, dp: int, v: int, world: int):
@@ -455,6 +552,8 @@ def pipeline(args) -> None:
                                 zip(r["losses"], ref[0]["losses"]))
             line["band"] = band
             line["in_band"] = bool(line["dparams"] <= band)
+        if res is not None:
+            line["search"] = line_search
         line["wall_s"] = time.perf_counter() - t0
         if rank == 0:
             print(f"pipeline {name} ({sched}, pp={pp} dp={dp} v={v}, "
@@ -628,6 +727,7 @@ def c8(args) -> None:
     ff.compile(optimizer=AdamOptimizer(ff, alpha=1e-4),
                loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
                strategy_fn=lambda pcg: data_parallel_strategy(pcg, world))
+    ff.profile_operators(0)  # --profiling here is the steps' walls
     x, y = cs.train_data("gpt2", cfg, cfg.batch_size * args.steps)
     base = memory_base(device) if cuda else None
     ff.fit([x], y, epochs=1)
@@ -658,4 +758,5 @@ if __name__ == "__main__":
     else:
         {"strategies": mesh, "pipeline": pipeline, "c8": c8,
          "fsdp": lambda a: mesh(a, FSDP_STRATEGIES), "ckpt": ckpt,
+         "search": lambda a: mesh(a, SEARCH_STRATEGIES),
          "ckpt_one": ckpt_one}[a.suite](a)

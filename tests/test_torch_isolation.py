@@ -14,8 +14,10 @@
   outside this slice, at ``fit``, every flag that ``compile`` or the
   serving engine would otherwise parse and ignore. An LSTM graph serves,
   and the engine refuses its prefix cache and chunked prefill by name.
-  ``--profile-ops``, ``FFModel.profile_operators`` and
-  ``obs.start_server`` refuse, naming themselves. The recurrent and MoE
+  ``obs.start_server`` and ``--debug-nans`` refuse, naming themselves;
+  ``--profile-ops``, ``FFModel.profile_operators``, ``--compgraph``,
+  ``--search-num-*`` and ``--static-analysis strict``, refused before the
+  search's slice, act. The recurrent and MoE
   builders and ``FFModel.cache``, which refused by name before their
   slices, build the JAX package's ops; the observability flags
   (``--telemetry-file``, ``--trace-file``, ``--profiler-trace-dir``) and
@@ -78,7 +80,13 @@ def test_importing_every_module_loads_neither_jax_nor_flexflow_tpu():
               "ops.fused", "execution.recompile", "machine_view",
               "parallel_tensor", "parallel.mesh", "parallel.spmd",
               "parallel.strategy", "parallel.strategies",
-              "parallel.parallel_op", "parallel.pipeline"):
+              "parallel.parallel_op", "parallel.pipeline",
+              "utils.recursive_logger", "native", "search",
+              "search.machine_model", "search.simulator",
+              "search.calibration", "search.substitution",
+              "search.multipod", "search.unity", "analysis",
+              "analysis.lattice", "analysis.report", "analysis.rules",
+              "analysis.interp", "obs.profile"):
         assert f"flexflow_tpu_torch.{m}" in mods
     script = (
         "import importlib, json, sys\n"
@@ -95,6 +103,21 @@ def test_importing_every_module_loads_neither_jax_nor_flexflow_tpu():
     assert "flexflow_tpu_torch" in loaded
     leaked = [m for m in loaded if _forbidden(m)]
     assert leaked == []
+
+
+def test_native_helper_builds_from_the_port_source():
+    """The search's host helper is built from ``flexflow_tpu_torch``'s own
+    ``ffnative.cpp`` into its own build directory; the JAX package's
+    committed library is never loaded."""
+    from flexflow_tpu_torch import native
+
+    real = os.path.realpath
+    assert real(native.SOURCE) == real(
+        os.path.join(PKG_DIR, "native", "ffnative.cpp"))
+    lib = native.get_lib()
+    assert lib._name == native.library_path()
+    assert real(lib._name).startswith(
+        real(os.path.join(PKG_DIR, "native", "_build")))
 
 
 def test_no_source_file_imports_jax_or_flexflow_tpu():
@@ -318,7 +341,7 @@ def _xy():
 @pytest.mark.parametrize("field,value,flag", [
     ("audit_strategy", True, "--audit-strategy"),
     ("memory_budget_mb", 1024, "--memory-budget-mb"),
-    ("profile_ops", "ops.jsonl", "--profile-ops"),
+    ("drift_tolerance", 0.5, "--drift-tolerance"),
 ])
 def test_fit_refuses_config_flags_of_later_slices(field, value, flag):
     ff = _tiny_mlp(**{field: value})
@@ -339,10 +362,19 @@ def test_fit_refuses_schedule_flags_without_a_pipeline(field, value):
     assert "--schedule" in str(e.value)
 
 
-def test_profile_ops_names_the_simulator_slice():
-    ff = _tiny_mlp(profile_ops="ops.jsonl")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        ff.fit(*_xy())
+def test_profile_ops_names_the_simulator_slice(tmp_path):
+    """``--profile-ops PATH`` (refused before the search's slice): one
+    profiled pass a fit appends a record per distinct op shape to PATH,
+    keyed as the simulator's op-cost cache and carrying its prediction."""
+    from flexflow_tpu_torch.obs.profile import OpProfile
+
+    path = str(tmp_path / "ops.jsonl")
+    ff = _tiny_mlp(profile_ops=path)
+    ff.fit(*_xy(), epochs=1)
+    recs = OpProfile.read_jsonl(path).records
+    assert sorted(r.op_type for r in recs) == ["OP_LINEAR", "OP_SOFTMAX"]
+    assert all(r.measured_fwd_s > 0 and r.predicted_fwd_s > 0
+               and r.key.startswith("((<OperatorType.") for r in recs)
 
 
 @pytest.mark.parametrize("field,value", [
@@ -394,15 +426,36 @@ def test_fit_takes_recompile_state():
     ("static_analysis", "strict", "--static-analysis strict"),
     ("debug_nans", True, "--debug-nans"),
 ])
-def test_compile_refuses_config_flags_of_later_slices(field, value, flag):
-    """Flags the JAX package acts on at compile on one device; the port
-    parsed them and did nothing. ``include_costs_dot_graph`` is set with
-    ``--compgraph`` (alone it asks for nothing in either package)."""
-    extra = {"export_strategy_computation_graph_file": "graph.dot"} \
-        if field == "include_costs_dot_graph" else {}
-    with pytest.raises(NotImplementedError, match=LATER) as e:
-        _tiny_mlp(**{field: value}, **extra)
-    assert flag in str(e.value)
+def test_compile_refuses_config_flags_of_later_slices(field, value, flag,
+                                                      tmp_path):
+    """Flags the JAX package acts on at compile on one device. Since the
+    search's slice only ``--debug-nans`` still raises, naming itself and
+    A.6 part 2; the others act: ``--compgraph`` writes the PCG's dot text
+    (``include_costs_dot_graph`` is set with it: alone it asks for
+    nothing in either package), ``--search-num-*`` for another machine
+    without ``--export-strategy`` warns and stays on one device, and
+    ``--static-analysis strict`` passes a sound plan."""
+    if field == "debug_nans":
+        with pytest.raises(NotImplementedError, match=LATER) as e:
+            _tiny_mlp(**{field: value})
+        assert flag in str(e.value) and "A.6 part 2" in str(e.value)
+        return
+    extra = {}
+    if field in ("export_strategy_computation_graph_file",
+                 "include_costs_dot_graph"):
+        extra["export_strategy_computation_graph_file"] = \
+            str(tmp_path / "graph.dot")
+        if field == "export_strategy_computation_graph_file":
+            value = extra.pop(field)
+    if field.startswith("search_num"):
+        with pytest.warns(UserWarning, match="skipping the target search"):
+            ff = _tiny_mlp(**{field: value}, **extra)
+    else:
+        ff = _tiny_mlp(**{field: value}, **extra)
+    assert ff.executor is not None and ff.mesh is None
+    if "compgraph" in flag:
+        with open(tmp_path / "graph.dot") as f:
+            assert f.read().startswith("digraph PCG {")
 
 
 def test_compile_acts_on_the_strategy_flags(tmp_path):
@@ -544,9 +597,9 @@ def test_every_public_jax_method_exists_in_the_port(cls):
     assert [n for n in names if not hasattr(tcls, n)] == []
     if cls == "FFModel":
         ff = _tiny_mlp()
-        with pytest.raises(NotImplementedError, match=LATER) as e:
-            ff.profile_operators()
-        assert "FFModel.profile_operators " in str(e.value)
+        ff.profile_operators()  # ported with the search's simulator
+        assert [r[1] for r in ff.per_op_profile] == ["OP_LINEAR",
+                                                     "OP_SOFTMAX"]
         # ported in their slices: no telemetry without a sink, and a
         # trigger that does not fire recompiles nothing
         from flexflow_tpu_torch.execution.recompile import RecompileState

@@ -110,11 +110,15 @@ def test_fit_telemetry_trace_and_profile(tmp_path):
         events = json.load(f)["traceEvents"]
     ranges = {e["name"] for e in events if e.get("cat") == "user_annotation"}
     assert {n.name for n in ff.pcg.compute_nodes()} <= ranges
-    launches = sorted(e["ts"] for e in events
-                      if e.get("cat") == "cuda_runtime"
-                      and "GraphLaunch" in e.get("name", ""))
-    kernels = [e["name"] for e in events
-               if e.get("cat") == "kernel" and e["ts"] >= launches[0]]
+    # a replay's kernels carry its cudaGraphLaunch's correlation id (the
+    # host's and the card's clocks are aligned only approximately, so a
+    # timestamp does not tell whose a kernel is)
+    launches = {e["args"]["correlation"] for e in events
+                if e.get("cat") == "cuda_runtime"
+                and "GraphLaunch" in e.get("name", "")}
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"
+               and e.get("args", {}).get("correlation") in launches]
+    assert launches
     assert sum("flash_fwd_sm90" in k for k in kernels) == \
         LAYERS * len(launches)
     assert sum("flash_bwd_fused_sm90" in k for k in kernels) == \

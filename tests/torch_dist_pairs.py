@@ -74,6 +74,12 @@ def _strategy(name: str):
     raise ValueError(name)
 
 
+# the tiny BERT's widths with one head: no head to shard, so a search
+# that may shard the sequence does (tests/test_torch_search_gloo.py)
+BERT_1HEAD = dict(seq_len=16, hidden=64, num_heads=1, num_layers=2,
+                  intermediate=128)
+
+
 def build(model: str, strategy, batch: int, *, dropout: float = 0.0,
           overlap: bool = False, optimizer: str = "adam", seed: int = 3,
           epochs: int = 1, remat: str = "none", **config):
@@ -96,6 +102,8 @@ def build(model: str, strategy, batch: int, *, dropout: float = 0.0,
         cfg = BertConfig.tiny(batch_size=batch)
         cfg.dropout = dropout
         build_bert(ff, cfg)
+    elif model == "bert_1head":  # the tiny BERT with one attention head
+        build_bert(ff, BertConfig(batch_size=batch, **BERT_1HEAD))
     elif model == "gpt2":  # the tiny LM, token-level targets
         _ids, logits = build_gpt2(ff, GPT2Config.tiny(batch_size=batch))
         ff.softmax(logits)
