@@ -342,6 +342,15 @@ timed generate only replays):
    (``flash_fwd_search``, ``flash_bwd_fused_search``) and held against
    their plain versions at the rank's shape.
 
+18. safety — the strategy-safety cascade, the audit, the drift loop and
+   ``--debug-nans`` on the BERT-Large proxy (the section's comment): a
+   scripted compile failure falling to dp + full remat from the pre-fit
+   weights, the measured peaks and the memory gate between and under
+   them, the audit and two injected defects on four threaded ranks of
+   the searched plan, the sentinel's ratios and repair, a step under
+   ``--debug-nans``; B1 / B2 counted on the one card
+   (``flash_fwd_safety``, ``flash_bwd_fused_safety``).
+
 It prints the run's wall seconds, one ``{"kernels": [...]}`` line (the
 entries of the instances the census covers also carry their SASS counts,
 registers, spills and shared memory; the flash-decode entries their
@@ -1704,7 +1713,8 @@ def fa_kernel_phase(device, card: str):
 def train_model(kind: str, compute: str, device, seq: int = 512,
                 batch: int = 8, softmax_kernel: bool = False,
                 fusion: bool = False, strategy_fn=None,
-                num_layers: int = 0, per_op: bool = False):
+                num_layers: int = 0, per_op: bool = False,
+                debug_nans: bool = False):
     """A model the port trains, as a user builds it: the BERT-Large proxy
     (``bench.py``'s flagship config) or GPT-2 small with a softmax head and
     token-level labels; Adam, sparse categorical cross-entropy; random
@@ -1714,7 +1724,8 @@ def train_model(kind: str, compute: str, device, seq: int = 512,
     each step's wall; ``fusion`` compiles with ``--fusion``;
     ``strategy_fn`` compiles for a device mesh (phase 14); ``num_layers``
     cuts BERT's depth (its widths stay); ``per_op`` leaves the per-op
-    block of ``--profiling`` (``profile_operators``) to the caller."""
+    block of ``--profiling`` (``profile_operators``) to the caller;
+    ``debug_nans`` compiles under ``--debug-nans`` (phase 18)."""
     from flexflow_tpu_torch import (AdamOptimizer, DataType, FFConfig,
                                     FFModel, LossType, MetricsType)
     from flexflow_tpu_torch.models.bert import BertConfig, build_bert
@@ -1724,6 +1735,7 @@ def train_model(kind: str, compute: str, device, seq: int = 512,
     config.batch_size, config.seed = batch, SEED
     config.profiling, config.print_freq = True, 1
     config.perform_fusion = fusion
+    config.debug_nans = debug_nans
     if compute == "bf16":
         config.compute_dtype = DataType.DT_BFLOAT16
     ff = FFModel(config, device=device)
@@ -7154,6 +7166,481 @@ def search_phase(device, card: str, measured_step_ms: float) -> dict:
                 kern=kern, wall=wall)
 
 
+# ------------------------------------------- phase 18: strategy safety
+# The cascade, the audit, the closed calibration loop and --debug-nans on
+# the BERT-Large proxy (bf16, full width and depth, one card, one model
+# reused and recompiled where a fallback or a flag asks): (a) fit under
+# --audit-strategy with ChaosPlan(fail_compiles=1) falls to data
+# parallelism with full remat, starts from the pre-fit weights bitwise,
+# and leaves nothing of the cascade allocated; (b) the step's measured
+# peak with no remat and with full remat (the allocator's peak over the
+# eager step and its capture), a budget between them reaches the last
+# resort on the memory gate, and one under both exhausts the cascade
+# listing both plans; (c) on four threaded ranks at phase 17 (d)'s cut
+# depth (fp32, eager) each compiles with no strategy, so the search runs
+# at world 4: the audit passes on the searched plan (its errors against
+# the one-device reference), a duplicated reduction is rejected
+# statically (FF001) with no probe of it, and a grad norm scaled 3x fails
+# the audit and falls to the ranked runner-up; (d) --profile-ops with
+# --auto-recalibrate: the sentinel's ratios before and after the repair,
+# then the attention key bent SAFETY_PERTURB-fold, flagged alone by a
+# second fit and repaired into the band; (e) --debug-nans: log of negative
+# inputs raises naming the node; a BERT-Large step under the flag
+# launches B1 / B2 eagerly, and its loss is the captured step's within
+# the bf16 band. B1 / B2 on the one card are counted over (a), (b), (d)
+# and (e) (flash_fwd_safety, flash_bwd_fused_safety). The phase's stated
+# wall: SAFETY_WALL_S.
+SAFETY_WALL_S = 60.0
+SAFETY_PERTURB = 8.0
+SAFETY_AUDIT_FACTOR = 3.0
+SAFETY_HELD_MIB = 64.0  # what the cascade may leave allocated
+
+
+def safety_rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def safety_fallback(ff, x, y, card: str) -> dict:
+    """(a): the weights ``fit``'s loop starts from and the memory held
+    after the cascade, read by a wrapper around ``preverify``."""
+    import gc
+
+    import torch
+
+    from flexflow_tpu_torch.resilience import ChaosPlan, StrategyCascade
+
+    before = ff.get_params_numpy()
+    seen = {}
+    orig = StrategyCascade.preverify
+
+    def preverify(self, *a, **kw):
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        orig(self, *a, **kw)
+        gc.collect()
+        torch.cuda.synchronize()
+        seen["held_mib"] = (torch.cuda.memory_allocated() - base) / 2 ** 20
+        seen["start"] = self.model.get_params_numpy()
+
+    # the last fit's programs go first: what the cascade leaves is what
+    # the loop would start with above the model's state
+    ff.executor.invalidate_jit_cache()
+    StrategyCascade.preverify = preverify
+    ff.config.audit_strategy = True
+    try:
+        ff.fit([x], y, epochs=1, chaos=ChaosPlan(fail_compiles=1))
+    finally:
+        StrategyCascade.preverify = orig
+        ff.config.audit_strategy = False
+    c = ff._last_cascade
+    rep = c.audit_reports[-1]
+    same = all(np.array_equal(seen["start"][n][w], before[n][w])
+               for n in before for w in before[n])
+    log(f"safety fallback bert-large bf16: ChaosPlan(fail_compiles=1) "
+        f"under --audit-strategy: strategy_fallbacks {c.fallbacks}, "
+        f"compile_probes {c.compile_probes}, rejected "
+        f"{[d for d, _r in c.failures]}, final strategy {c.final_desc!r} "
+        f"(live remat {ff.executor.remat_plan.level if ff.executor.remat_plan else 'none'}); "
+        f"audit loss rel err {rep.loss_rel_err:.3g}, grad-norm rel err "
+        f"{rep.grad_rel_err:.3g}; the loop started from the pre-fit "
+        f"weights bitwise: {same}; held after the cascade "
+        f"{seen['held_mib']:.1f} MiB [{card}]")
+    if not (c.fallbacks == 1 and c.compile_probes == 2
+            and c.final_desc == "mesh=(1,) remat=full"
+            and ff.strategy.remat == "full" and ff.mesh is None):
+        fail(f"safety fallback: the cascade did not reach dp + full remat "
+             f"({c.fallbacks} fallbacks, {c.final_desc!r})")
+    if not (same and rep.passed and seen["held_mib"] <= SAFETY_HELD_MIB):
+        fail(f"safety fallback: weights kept {same}, audit {rep.detail()},"
+             f" held {seen['held_mib']:.1f} MiB")
+    return dict(fallbacks=c.fallbacks, probes=c.compile_probes,
+                final=c.final_desc, held_mib=seen["held_mib"],
+                loss_rel=rep.loss_rel_err, grad_rel=rep.grad_rel_err)
+
+
+def safety_peaks(ff, x, y) -> dict:
+    """The step's measured peak (MiB) with no remat and with full remat on
+    the one-device model (``--remat`` set on its config, then cleared)."""
+    import torch
+
+    ex = ff.executor
+    xs = [torch.from_numpy(x).to(ff.device)]
+    lab = torch.from_numpy(ff._prep_label(y)).to(ff.device)
+    out = {}
+    for level in ("none", "full"):
+        ff.config.remat = "" if level == "none" else level
+        try:
+            ma = ex.train_step_memory_analysis(ff.params, ff.opt_state, xs,
+                                               lab)
+        finally:
+            ff.config.remat = ""
+        if ma["source"] != "cuda_allocator":
+            fail(f"safety memory: the peak came from {ma['source']}")
+        out[level] = ma["peak_memory_in_bytes"] / 2 ** 20
+    ex.invalidate_jit_cache()
+    return out
+
+
+def safety_memory(ff, x, y, card: str) -> dict:
+    """(b) on the model compiled with no strategy and no remat."""
+    peaks = safety_peaks(ff, x, y)
+    if not peaks["full"] < peaks["none"]:
+        fail(f"safety memory: full remat's peak {peaks} is not lower")
+    budget = int((peaks["none"] + peaks["full"]) / 2)
+    ff.config.memory_budget_mb = budget
+    try:
+        ff.fit([x], y, epochs=1)
+    finally:
+        ff.config.memory_budget_mb = 0
+    c = ff._last_cascade
+    got = dict(c.memory_peaks)
+    log(f"safety memory bert-large bf16 b8 s512: measured step peak "
+        f"{peaks['none']:.1f} MiB with no remat, {peaks['full']:.1f} MiB "
+        f"under --remat full (the allocator's peak over the eager step and"
+        f" its capture); --memory-budget-mb {budget}: rejected "
+        f"{[d for d, _r in c.failures]}, final {c.final_desc!r}, peaks "
+        f"seen {({k: round(v / 2 ** 20, 1) for k, v in got.items()})} "
+        f"[{card}]")
+    if not (c.fallbacks == 1 and c.final_desc == "mesh=(1,) remat=full"
+            and "MemoryBudgetError" in c.failures[0][1]):
+        fail(f"safety memory: a budget between the peaks did not reach the "
+             f"last resort on the memory gate: {c.failures}")
+    return dict(peaks=peaks, budget=budget, seen=got)
+
+
+def safety_exhausted(ff, x, y, peaks: dict, card: str) -> None:
+    """(b)'s second half: from the no-remat plan, a budget under both
+    peaks; the diagnosis lists both plans."""
+    from flexflow_tpu_torch.resilience import StrategySafetyError
+
+    budget = int(min(peaks.values()) / 2)
+    ff.config.memory_budget_mb = budget
+    try:
+        ff.fit([x], y, epochs=1)
+        fail("safety memory: a budget under both peaks trained")
+    except StrategySafetyError as e:
+        msg = str(e)
+    finally:
+        ff.config.memory_budget_mb = 0
+    lines = [ln.strip() for ln in msg.splitlines()[1:]]
+    log(f"safety memory: --memory-budget-mb {budget} under both: "
+        f"StrategySafetyError listing {len(lines)} plans: "
+        f"{[ln.split(':')[0] for ln in lines]} [{card}]")
+    if not ("exhausted" in msg and
+            [ln.split(":")[0] for ln in lines] ==
+            ["mesh=(1,)", "mesh=(1,) remat=full"]):
+        fail(f"safety memory: the exhausted diagnosis is {msg[:300]}")
+
+
+def thread_guids():
+    """A context in which each thread numbers its PCG nodes from the same
+    start: ranks that are threads of one process otherwise draw node
+    guids from one shared counter, and the names the search's rewrites
+    make (which embed guids) would differ between ranks, so their search
+    digests would too (processes, one a rank, count alike)."""
+    import contextlib
+    import itertools
+    import threading
+
+    import flexflow_tpu_torch.parallel.pcg as pcg_module
+
+    class PerThread:
+        def __init__(self, start):
+            self.start, self.local = start, threading.local()
+
+        def __iter__(self):
+            return self
+
+        def __next__(self):
+            if not hasattr(self.local, "count"):
+                self.local.count = itertools.count(self.start)
+            return next(self.local.count)
+
+    @contextlib.contextmanager
+    def ctx():
+        orig = pcg_module._node_guid
+        pcg_module._node_guid = PerThread(next(orig))
+        try:
+            yield
+        finally:
+            pcg_module._node_guid = orig
+
+    return ctx()
+
+
+def safety_threaded(device, card: str) -> dict:
+    """(c): on ``SEARCH_WORLD`` threaded ranks, each rank compiles the
+    cut-depth proxy (fp32) with no strategy, so the search runs at world 4,
+    three times: a plain audit, a duplicated reduction, a scaled grad
+    norm."""
+    from flexflow_tpu_torch.resilience import ChaosPlan
+
+    def run(r, chaos):
+        ff, cfg = train_model("bert", "fp32", device,
+                              num_layers=SEARCH_THREADED_LAYERS)
+        ff._capture_steps = False
+        ff.config.print_freq = 10 ** 9
+        ff.config.audit_strategy = True
+        x, y = train_data("bert", cfg, cfg.batch_size)
+        winner = ff.strategy.describe()
+        runner = [c.describe() for c in ff._strategy_candidates[1:]
+                  if c.strategy_json and not c.pipeline]
+        plan = ChaosPlan(**chaos) if chaos else None
+        ff.fit([x], y, epochs=1, chaos=plan)
+        c = ff._last_cascade
+        return dict(winner=winner, runner=runner[:1], final=c.final_desc,
+                    fallbacks=c.fallbacks, probes=c.compile_probes,
+                    static=(c.static_checks, c.static_rejects,
+                            list(c.static_rules)),
+                    audits=(c.audits, c.audit_failures),
+                    reports=[(r_.loss_rel_err, r_.grad_rel_err, r_.passed)
+                             for r_ in c.audit_reports],
+                    reasons=[r_ for _d, r_ in c.failures],
+                    defect=plan.injected_defect if plan else "")
+
+    def body(r):
+        return {name: run(r, chaos) for name, chaos in (
+            ("audit", None),
+            ("duplicate", dict(wrong_reshard=True,
+                               wrong_reshard_mode="duplicate")),
+            ("scale", dict(wrong_reshard=True,
+                           wrong_reshard_factor=SAFETY_AUDIT_FACTOR)))}
+
+    t0 = time.perf_counter()
+    per_rank = {}
+    with pipe_launch_counter(per_rank), thread_guids():
+        out = threaded_ranks(SEARCH_WORLD, body, "safety threaded")
+    launches = {k: sum(per_rank.get((f"rank{r}", k), 0)
+                       for r in range(SEARCH_WORLD))
+                for k in ("flash_fwd", "flash_bwd_fused")}
+    a, d, s = (out[0][k] for k in ("audit", "duplicate", "scale"))
+    log(f"safety threaded bert (BERT-Large widths, {SEARCH_THREADED_LAYERS}"
+        f" layers, fp32, {SEARCH_WORLD} ranks as threads on one card, the "
+        f"search at world {SEARCH_WORLD}: winner {a['winner']!r}, runner-up"
+        f" {a['runner']}): audit loss rel err {a['reports'][0][0]:.3g}, "
+        f"grad-norm rel err {a['reports'][0][1]:.3g} against the one-device"
+        f" reference; duplicate: static (checks, rejects, rules) "
+        f"{d['static']}, compile_probes {d['probes']}, final {d['final']!r}"
+        f" ({d['defect']}); scale x{SAFETY_AUDIT_FACTOR:g}: (audits, "
+        f"failures) {s['audits']}, final {s['final']!r}; B1/B2 launches "
+        f"{launches}; {time.perf_counter() - t0:.1f} s [{card}]")
+    if any(out[r] != out[0] for r in range(SEARCH_WORLD)):
+        fail("safety threaded: the ranks took different paths")
+    if not (a["reports"][0][2] and a["fallbacks"] == 0):
+        fail(f"safety threaded: the searched plan failed its audit {a}")
+    if not (d["static"][1:] == (1, ["FF001"]) and d["probes"] == 1
+            and d["fallbacks"] == 1 and "chaos_dup_reduction" in
+            d["reasons"][0]):
+        fail(f"safety threaded: the duplicate was not rejected statically "
+             f"{d}")
+    if not (s["audits"] == (2, 1) and s["fallbacks"] == 1
+            and [s["final"]] == a["runner"]):
+        fail(f"safety threaded: the scaled norm did not fall to the "
+             f"runner-up {s}")
+    return dict(audit=a, duplicate=d, scale=s, launches=launches)
+
+
+def safety_drift(ff, x, y, card: str, tmp: str) -> dict:
+    """(d): two profiled fits under --auto-recalibrate, the second after
+    the attention key's calibration is bent; the loop's results read by a
+    wrapper around ``CalibrationLoop.run_pass``."""
+    from flexflow_tpu_torch.obs.drift import CalibrationLoop, DriftSentinel
+
+    seen, pre = [], []
+    orig, observe = CalibrationLoop.run_pass, DriftSentinel.observe
+
+    def run_pass(self, *a, **kw):
+        drift = orig(self, *a, **kw)
+        seen.append(dict(drift, pre=pre[-1], post=self.sentinel.ratios(
+            self.model.op_profile)))
+        return drift
+
+    def observed(self, records, step=0):
+        pre.append(self.ratios(records))
+        return observe(self, records, step=step)
+
+    ff.config.profile_ops = os.path.join(tmp, "ops.jsonl")
+    ff.config.auto_recalibrate = True
+    CalibrationLoop.run_pass, DriftSentinel.observe = run_pass, observed
+    try:
+        ff.fit([x], y, epochs=1)
+        sim = ff._calibration_sim
+        pcg = ff.pcg
+        attn = [n for n in pcg.compute_nodes()
+                if n.op.op_type.name == "OP_MULTIHEAD_ATTENTION"][0]
+        key = sim._op_key(attn, [pcg.nodes[g].out_shapes[i]
+                                 for g, i in attn.inputs])
+        sim._key_calibration[key] = \
+            sim._key_calibration.get(key, sim.calibration) * SAFETY_PERTURB
+        sim.invalidate_op_keys([key])
+        ff.fit([x], y, epochs=1)
+    finally:
+        CalibrationLoop.run_pass, DriftSentinel.observe = orig, observe
+        ff.config.profile_ops, ff.config.auto_recalibrate = "", False
+    names = {r.key: r.name for r in ff.op_profile}
+    first, second = seen
+    # per key: (name, measured us, ratio before the repair, after it)
+    rows = [(names.get(k, k), d["measured_s"] * 1e6, d["ratio"],
+             first["post"]["per_key"][k]["ratio"])
+            for k, d in first["pre"]["per_key"].items()]
+    log(f"safety drift bert-large bf16 one card, first profiled pass: "
+        f"{first['profiled_keys']} keys, sim-vs-card aggregate ratio "
+        f"(measured / predicted) {first['aggregate_ratio']:.3f}, out of "
+        f"band {len(first['out_of_band'])} "
+        f"{sorted(names.get(k, k) for k in first['out_of_band'])}, after "
+        f"the repair {first.get('ratio_after', float('nan')):.3f} [{card}]")
+    log("safety drift per key (measured us, measured / predicted before "
+        "the repair, after it): "
+        f"{[(n, round(m, 2), round(b, 3), round(a, 3)) for n, m, b, a in rows]}"
+        f" [{card}]")
+    flagged = sorted(names.get(k, k) for k in second["out_of_band"])
+    victim = repr(key)
+    after = second["post"]["per_key"].get(victim, {}).get("ratio")
+    log(f"safety drift: {attn.name}'s key bent x{SAFETY_PERTURB:g}: second "
+        f"pass aggregate {second['aggregate_ratio']:.3f}, worst "
+        f"{second['worst_key']} at {second['worst_ratio']:.3f}, flagged "
+        f"{flagged}, repaired to {after} (ratio_after "
+        f"{second.get('ratio_after', float('nan')):.3f}); per key (measured "
+        f"us, measured / predicted) "
+        f"{[(names.get(k, k), round(d['measured_s'] * 1e6, 2), round(d['ratio'], 3)) for k, d in second['pre']['per_key'].items()]}"
+        f" [{card}]")
+    band = 1.0 + ff.config.drift_tolerance
+    if not (second["out_of_band"] == [victim] and after is not None
+            and 1 / band <= after <= band):
+        fail(f"safety drift: the bent key was not flagged alone and "
+             f"repaired: flagged {flagged}, after {after}")
+    return dict(first=dict(keys=first["profiled_keys"],
+                           aggregate=first["aggregate_ratio"],
+                           out_of_band=len(first["out_of_band"]),
+                           ratio_after=first.get("ratio_after")),
+                second=dict(aggregate=second["aggregate_ratio"],
+                            flagged=flagged, after=after,
+                            ratio_after=second.get("ratio_after")),
+                rows=rows)
+
+
+def safety_debug_nans(device, ff, x, y, card: str) -> dict:
+    """(e)."""
+    import torch
+
+    from flexflow_tpu_torch import FFConfig, FFModel, LossType
+    from flexflow_tpu_torch.execution.checkpoint import _tree_map
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    c = FFConfig()
+    c.parse_args(["--debug-nans"])
+    c.batch_size = 8
+    tiny = FFModel(c, device=device)
+    t = tiny.log(tiny.create_tensor((8, 64)), name="lg")
+    tiny.dense(t, 4, name="head")
+    tiny.compile(loss_type=LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE)
+    neg = -torch.rand((8, 64), device=device) - 1.0
+    try:
+        tiny.executor.make_train_step()(
+            tiny.params, tiny.opt_state, [neg], torch.zeros(
+                (8, 4), device=device), torch.Generator().manual_seed(SEED))
+        fail("safety debug-nans: log of negative inputs did not raise")
+    except FloatingPointError as e:
+        named = str(e)
+    if "'lg_0'" not in named:
+        fail(f"safety debug-nans: the error names no node: {named}")
+    weights = ff.get_params_numpy()
+    xs = [torch.from_numpy(x).to(device)]
+    lab = torch.from_numpy(ff._prep_label(y)).to(device)
+    # the captured step from those weights: the program's first call runs
+    # eagerly, the state is put back, the second call captures and replays
+    ex = ff.executor
+    ex.invalidate_jit_cache()
+    step = ex.make_train_step()
+    state = (_tree_map(lambda v: v.clone(), ff.params),
+             _tree_map(lambda v: v.clone(), ff.opt_state))
+    snap = (_tree_map(lambda v: v.clone(), ff.params),
+            _tree_map(lambda v: v.clone(), ff.opt_state))
+    step(*state, xs, lab, torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        for dst, src in zip(_tensors(state), _tensors(snap)):
+            dst.copy_(src)
+    captures = step.program.captures
+    captured = float(step(*state, xs, lab,
+                          torch.Generator().manual_seed(SEED))[2])
+    if step.program.captures != captures + 1:
+        fail("safety debug-nans: the reference step did not capture")
+    del state, snap
+    step.program.reset()
+    dbg, _cfg = train_model("bert", "bf16", device, debug_nans=True)
+    dbg.set_params_numpy(weights)
+    dstep = dbg.executor.make_train_step()
+    before = {k: fa.launch_count(k) for k in ("flash_fwd", "flash_bwd_fused")}
+    loss = float(dstep(dbg.params, dbg.opt_state, xs, lab,
+                       torch.Generator().manual_seed(SEED))[2])
+    torch.cuda.synchronize()
+    launches = {k: fa.launch_count(k) - before[k] for k in before}
+    rel = safety_rel(loss, captured)
+    log(f"safety debug-nans: log of negative inputs raised "
+        f"FloatingPointError: {named!r}; one BERT-Large bf16 step under the "
+        f"flag (eager, per-node NaN checks, anomaly mode over the backward):"
+        f" loss {loss:.6f} vs the captured step's {captured:.6f} (rel "
+        f"{rel:.3g}, tol {TRAIN_TOL['bf16'][0]}), B1/B2 {launches} "
+        f"[{card}]")
+    if getattr(dstep, "program", None) is not None or \
+            launches != {"flash_fwd": 24, "flash_bwd_fused": 24} or \
+            not rel <= TRAIN_TOL["bf16"][0]:
+        fail("safety debug-nans: the step under the flag is not the "
+             "captured step's")
+    del dbg, tiny
+    return dict(loss=loss, captured=captured, rel=rel, launches=launches)
+
+
+def _tensors(tree):
+    from flexflow_tpu_torch.execution.graphs import _tensors_of
+
+    return _tensors_of(tree)
+
+
+def safety_phase(device, card: str) -> dict:
+    import shutil
+    import tempfile
+
+    import torch
+
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ff_safety_")
+    try:
+        threaded = safety_threaded(device, card)
+        ff, cfg = train_model("bert", "bf16", device)
+        ff.config.print_freq = 10 ** 9
+        x, y = train_data("bert", cfg, cfg.batch_size)
+        fa.reset_launch_count()
+        memory = safety_memory(ff, x, y, card)
+        fallback = safety_fallback(ff, x, y, card)
+        drift = safety_drift(ff, x, y, card, tmp)
+        # back to the plan with no strategy and no remat for the gate's
+        # exhausted half
+        ff.compile(optimizer=ff.optimizer, loss_type=ff.loss_type,
+                   metrics=ff.metrics_obj.measures)
+        ff.profile_operators(0)
+        safety_exhausted(ff, x, y, memory["peaks"], card)
+        debug = safety_debug_nans(device, ff, x, y, card)
+        torch.cuda.synchronize()
+        launches = {k: fa.launch_count(k)
+                    for k in ("flash_fwd", "flash_bwd_fused")}
+        del ff
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    log(f"safety B1/B2 launches on the one card over (a), (b), (d), (e): "
+        f"{launches}; phase wall {wall:.1f} s (stated {SAFETY_WALL_S:.0f} s)"
+        f" [{card}]")
+    if not (launches["flash_fwd"] > 0 and launches["flash_bwd_fused"] > 0):
+        fail(f"safety: the phase launched B1/B2 {launches}")
+    return dict(threaded=threaded, memory=memory, fallback=fallback,
+                drift=drift, debug=debug, launches=launches, wall=wall)
+
+
 def main() -> None:
     try:
         import torch
@@ -7234,6 +7721,7 @@ def main() -> None:
     pipe = pipeline_phase(device, card)
     mesh16 = mesh16_phase(device, card, pipe)
     search = search_phase(device, card, train["bert"]["p50_ms"])
+    safety = safety_phase(device, card)
 
     kernels = []
     for compute, name in (("fp32", "flash_decode"),
@@ -7502,6 +7990,20 @@ def main() -> None:
             "source": FA_SOURCE,
             "replaces": FA_KERNELS[kernel][0],
             "launches": search["cost"]["launches"][kernel],
+            **fa_kern[(kernel, "bert", "bf16")],
+            **census.get((kernel, "bf16", FA_SHAPES["bert"]["d"]), {}),
+        })
+    # phase 18: B1 and B2 on the one card's cascade probes, audits,
+    # fallback steps, profiled passes and the step under --debug-nans
+    # (BERT-Large bf16, timed at its BERT shape by the kernel phase)
+    for name, kernel in (("flash_fwd_safety", "flash_fwd"),
+                         ("flash_bwd_fused_safety", "flash_bwd_fused")):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": FA_SOURCE,
+            "replaces": FA_KERNELS[kernel][0],
+            "launches": safety["launches"][kernel],
             **fa_kern[(kernel, "bert", "bf16")],
             **census.get((kernel, "bf16", FA_SHAPES["bert"]["d"]), {}),
         })

@@ -23,7 +23,15 @@ models (AlexNet, ResNet-50, InceptionV3, ResNeXt-50, DLRM, XDL, MLP_Unify,
 CANDLE-Uno) — and the LSTM and MoE ops with NMT, the Transformer proxy,
 its causal decoder (served) and the MoE MLP — and strategies on a
 ``torch.distributed`` device mesh (``parallel/``: data, tensor, hybrid
-and expert parallelism, strategy import and export).
+and expert parallelism, strategy import and export), the pipeline
+schedules and ``PipelineTrainer``, sharded checkpoints — and the Unity
+search (``search/``) with ShardLint (``analysis/``, also ``python -m
+flexflow_tpu_torch.analysis``) — and the strategy safety around it: the
+flag preflight at ``compile``, the fallback cascade with its compile
+probe, measured memory gate and parallel-correctness audit
+(``resilience.StrategyCascade``, ``audit_strategy``), the closed
+calibration loop (``obs.drift``), ``resilience.elastic_restore`` and
+``--debug-nans``.
 """
 from .config import FFConfig, FFIterationConfig  # noqa: F401
 from .ffconst import (ActiMode, AggrMode, CompMode, DataType,  # noqa: F401

@@ -1,5 +1,6 @@
 """ShardLint: static verification of parallel plans (a copy of
-``flexflow_tpu.analysis``; its command line is ROADMAP A.6 part 2).
+``flexflow_tpu.analysis``; its command line is ``python -m
+flexflow_tpu_torch.analysis``).
 
 Every property the strategy-safety layer verified *dynamically*
 — by compiling a candidate and running a probe step — that is actually

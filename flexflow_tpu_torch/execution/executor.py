@@ -56,6 +56,110 @@ from ..parallel.pcg import PCG, PCGNode
 from .losses import loss_value
 
 
+class _LiveBytes:
+    """The port's count of a CPU step's memory (:meth:`Executor.
+    train_step_memory_analysis`): a ``TorchDispatchMode`` that adds the
+    bytes of every new storage an op returns and subtracts them when the
+    storage is freed (a finalizer on it), starting from the storages of
+    ``resident`` (a tree of tensors alive throughout). ``peak`` is the
+    largest total seen."""
+
+    def __init__(self, resident):
+        from .graphs import _tensors_of
+
+        self._ptrs: Dict[int, Any] = {}
+        self.cur = self.peak = 0
+        for t in _tensors_of(resident):
+            self._track(t, finalize=False)
+        self._mode = None
+
+    def _track(self, t, finalize: bool = True) -> None:
+        import weakref
+
+        st = t.untyped_storage()
+        ptr = st.data_ptr()
+        if ptr == 0 or ptr in self._ptrs:
+            return  # a view, an in-place result, or an empty tensor
+        n = st.nbytes()
+        token = object()
+        self._ptrs[ptr] = token
+        self.cur += n
+        self.peak = max(self.peak, self.cur)
+        if finalize:
+            weakref.finalize(st, self._free, ptr, token, n)
+
+    def _free(self, ptr: int, token, n: int) -> None:
+        if self._ptrs.get(ptr) is token:
+            del self._ptrs[ptr]
+        self.cur -= n
+
+    def __enter__(self):
+        import torch
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils._pytree import tree_leaves
+
+        count = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                for t in tree_leaves(out):
+                    if isinstance(t, torch.Tensor) and t.device.type == "cpu":
+                        count._track(t)
+                return out
+
+        self._mode = Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+        self._mode = None
+        return False
+
+
+_NAN_TAG = "ff_debug_nans_node"
+
+
+def _check_nans(node, outs) -> None:
+    """``--debug-nans`` for one node (the counterpart of ``jax_debug_nans``,
+    which raises where a jitted op produces a NaN): a NaN in a forward
+    output raises ``FloatingPointError`` naming the node at once (one host
+    sync a node), and every autograd function between the node's inputs
+    and its outputs gets a hook that raises naming the node when its input
+    grads hold a NaN. A function already tagged belongs to an earlier node,
+    so the walk stops at the node's inputs."""
+    import torch
+
+    for i, o in enumerate(outs):
+        if torch.is_tensor(o) and o.is_floating_point() and \
+                bool(torch.isnan(o).any()):
+            raise FloatingPointError(
+                f"--debug-nans: node '{node.name}' "
+                f"({node.op.op_type.name}) produced NaN in its forward "
+                f"output {i}")
+    stack = [o.grad_fn for o in outs
+             if torch.is_tensor(o) and o.grad_fn is not None]
+    while stack:
+        fn = stack.pop()
+        if fn is None or _NAN_TAG in fn.metadata or \
+                type(fn).__name__ == "AccumulateGrad":
+            continue
+        fn.metadata[_NAN_TAG] = node.name
+
+        def hook(grad_inputs, _grad_outputs, name=node.name,
+                 op=node.op.op_type.name):
+            for g in grad_inputs:
+                if g is not None and g.is_floating_point() and \
+                        bool(torch.isnan(g).any()):
+                    raise FloatingPointError(
+                        f"--debug-nans: the backward of node '{name}' "
+                        f"({op}) produced NaN in an input grad")
+
+        fn.register_hook(hook)
+        stack.extend(f for f, _ in fn.next_functions)
+
+
 def _reached_leaves(loss):
     """ids of the leaf tensors the backward of ``loss`` will reach (a walk
     of its autograd graph to the accumulate-grad nodes)."""
@@ -126,6 +230,9 @@ class Executor:
         self.cache_nodes = [n for n in pcg.compute_nodes()
                             if n.op.op_type == OperatorType.OP_CACHE]
         self._cache_state: Optional[Dict[str, Any]] = None
+        # --debug-nans: every node's outputs are checked in the forward and
+        # its input grads in the backward, and the steps run eagerly
+        self.debug_nans = bool(getattr(config, "debug_nans", False))
 
     # ------------------------------------------------------------------ params
     def _node_input_shapes(self, node: PCGNode) -> List[Tuple[int, ...]]:
@@ -337,7 +444,14 @@ class Executor:
         """One node: ``op.forward`` off a mesh; on a mesh its inputs and
         weights redistributed to the layouts its plan asks for, the op run
         with its ``ShardInfo`` in ``ctx.shard``, and its outputs moved to
-        their planned layouts."""
+        their planned layouts. Under ``--debug-nans`` its outputs are
+        checked (:func:`_check_nans`)."""
+        outs = self._run_node_body(node, params, inputs, ctx, scoped)
+        if self.debug_nans:
+            _check_nans(node, outs)
+        return outs
+
+    def _run_node_body(self, node, params, inputs, ctx, scoped: bool):
         ws = params.get(node.name, {})
         if self.mesh is None:
             return run_op(node.op, node.name, ws, inputs, ctx, scoped)
@@ -526,8 +640,9 @@ class Executor:
         run the graph node by node on the live params and batch and time
         each DISTINCT op shape ``(op params, in-shapes)``: on CUDA as
         ``search.simulator.measure_operator_cost`` times an op (``iters``
-        calls of the node captured into one CUDA graph, its replay timed
-        by CUDA events), on the CPU the best wall of ``iters`` calls. On a
+        calls of the node captured into one CUDA graph, the median of its
+        replays timed by CUDA events), on the CPU the best wall of
+        ``iters`` calls. On a
         mesh the node runs as the step runs it (``_run_node``: its
         redistributes and collectives included). Returns one raw record
         per key, ``{guid, name, op_type, in_shapes, measured_fwd_s,
@@ -848,6 +963,9 @@ class Executor:
         runs eagerly, the second captures the step as a CUDA graph, later
         ones replay it. ``capture=False`` returns the eager body itself
         (for comparisons)."""
+        # a captured graph cannot raise mid-program: --debug-nans steps
+        # run eagerly
+        capture = capture and not self.debug_nans
         cached = self._guarded_train_step if guard else self._train_step
         if capture and cached is not None:
             return cached
@@ -975,8 +1093,7 @@ class Executor:
                 overlap = self._overlap_hooks(names, leaf_list, cdtype,
                                               loss)
             try:
-                flat_grads = torch.autograd.grad(loss, leaf_list,
-                                                 allow_unused=True)
+                flat_grads = self._grad(loss, leaf_list)
             finally:
                 self._fsdp_sink = None
                 if overlap is not None:
@@ -1007,6 +1124,115 @@ class Executor:
         for (n, w), g in zip(names, flat_grads):
             grads[n][w] = g
         return value.detach(), logits.detach(), grads
+
+    def make_probe_step(self):
+        """``(params, xs, labels, rng[, cache]) -> (loss, grad_l2_norm)``:
+        forward, loss and grads with NO optimizer update and nothing
+        written in place (flexflow_tpu/execution/executor.py:598-637), the
+        parallel-correctness audit's probe (``resilience/audit.py``). The
+        train step's own loss recipe (:meth:`loss_and_grads`: the
+        compute-dtype cast, the aux losses, the dropout seeds drawn from
+        ``rng``), so masks replay alike across strategies over the same
+        graph. On a mesh the loss is the global one and the norm is taken
+        over every grad gathered whole (each rank returns the same two
+        0-d fp32 device tensors); it is a collective, so every rank calls
+        it. Eager, as the audit runs it once."""
+        import torch
+
+        def probe(params, xs, labels, rng=None, cache=None):
+            fresh = {} if cache is not None else None
+            loss, _logits, grads = self.loss_and_grads(
+                params, xs, labels, rng, cache=cache, cache_out=fresh)
+            gsq = torch.zeros((), dtype=torch.float32, device=self.device)
+            for n, ws in grads.items():
+                for w, g in ws.items():
+                    full = self.gather_param(n, w, g).float()
+                    gsq = gsq + full.square().sum()
+            return loss.float(), gsq.sqrt()
+
+        return probe
+
+    def train_step_memory_analysis(self, params, opt_state, xs, labels,
+                                   guard: bool = False,
+                                   capture: bool = True) -> Dict[str, int]:
+        """The peak memory of the training step, measured (the
+        counterpart of XLA's compiled ``memory_analysis``,
+        flexflow_tpu/execution/executor.py:751-765, which the port cannot
+        have before anything runs). The exact step the loop will run
+        (:meth:`make_train_step` with ``guard`` and ``capture``) runs on
+        clones of ``params`` and ``opt_state``, which stay untouched, with
+        ``xs`` / ``labels`` this rank's device batch.
+
+        On CUDA: the allocator's peak is reset, the step's first call
+        (eager) and, when captured, its second (the capture into the
+        program's private pool, then its replay) run, and the peak is
+        ``torch.cuda.max_memory_allocated`` less the clones' bytes (the
+        loop holds the params once). The program's entries, which hold the
+        clones, are dropped after. On the CPU: the port's own count of one
+        eager step (:class:`_LiveBytes`): the bytes of the clones and the
+        batch, plus every storage the step's ops allocate, each counted
+        until it is freed; the peak is the largest total.
+
+        Returns ``{"peak_memory_in_bytes", "argument_size_in_bytes",
+        "source"}`` (``source`` ``cuda_allocator`` or ``cpu_count``)."""
+        import torch
+
+        from .checkpoint import _tree_map, tree_bytes
+
+        step = self.make_train_step(capture=capture, guard=guard)
+        p = _tree_map(lambda t: t.clone(), params)
+        s = _tree_map(lambda t: t.clone(), opt_state)
+        cache = (_tree_map(lambda t: t.clone(), self.init_cache()),) \
+            if self.cache_nodes else ()
+        xs = list(xs)
+        clone_bytes = tree_bytes([p, s, *cache])
+        args_bytes = tree_bytes([params, opt_state, xs, labels])
+        program = getattr(step, "program", None)
+        try:
+            if self.device.type == "cuda":
+                dev = self.device
+                torch.cuda.synchronize(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                for _ in range(2 if program is not None else 1):
+                    step(p, s, xs, labels, torch.Generator().manual_seed(0),
+                         *cache)
+                torch.cuda.synchronize(dev)
+                peak = torch.cuda.max_memory_allocated(dev) - clone_bytes
+                source = "cuda_allocator"
+            else:
+                with _LiveBytes([p, s, *cache, xs, labels]) as count:
+                    step(p, s, xs, labels, torch.Generator().manual_seed(0),
+                         *cache)
+                peak = count.peak
+                source = "cpu_count"
+        finally:
+            if program is not None:
+                program.reset()  # its entry holds the clones
+        return {"peak_memory_in_bytes": int(peak),
+                "argument_size_in_bytes": int(args_bytes),
+                "source": source}
+
+    def _grad(self, loss, leaf_list):
+        """``torch.autograd.grad`` of the step; under ``--debug-nans``
+        inside ``detect_anomaly(check_nan=True)``, whose error (a NaN no
+        node's hook named, in the loss's own backward) becomes a
+        ``FloatingPointError``."""
+        import torch
+
+        if not self.debug_nans:
+            return torch.autograd.grad(loss, leaf_list, allow_unused=True)
+        import warnings
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # anomaly mode's own notice
+            try:
+                with torch.autograd.detect_anomaly(check_nan=True):
+                    return torch.autograd.grad(loss, leaf_list,
+                                               allow_unused=True)
+            except RuntimeError as e:
+                if "nan values" not in str(e):
+                    raise
+                raise FloatingPointError(f"--debug-nans: {e}") from e
 
     # ------------------------------------------------------------ grad sync
     def _grad_groups(self, names):
@@ -1286,7 +1512,7 @@ class Executor:
                                     for t in cache_leaves(e))]
 
         program = step_program(body, self.device, f"prefill_{bucket_len}",
-                               capture)
+                               capture and not self.debug_nans)
 
         def prefill(params, xs, lengths):
             import torch
@@ -1362,7 +1588,7 @@ class Executor:
             return [logits[0].index_select(0, idx)]
 
         program = step_program(body, self.device, f"chunk_{chunk_len}",
-                               capture)
+                               capture and not self.debug_nans)
 
         def chunk(params, xs, state, table_row, start, n_new):
             import torch
@@ -1449,7 +1675,7 @@ class Executor:
                 return [logits]
 
         program = None
-        if capture:
+        if capture and not self.debug_nans:
             from .graphs import StepProgram
 
             program = StepProgram(

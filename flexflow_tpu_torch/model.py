@@ -41,10 +41,16 @@ size above 1, every rank runs the Unity search (``search/``) and the
 ranks agree its plan; ``--search-num-*`` searches for another machine and
 exports; ``--static-analysis strict`` runs ShardLint (``analysis/``) on
 every plan; ``--compgraph`` writes the PCG's dot text; ``--profiling``
-and ``--profile-ops`` time ops through the search's simulator. Serving on
-a mesh and the rest of A.6 (the strategy cascade, the drift loop,
-``--debug-nans``) come in later slices; their flags raise
-``NotImplementedError``.
+times ops through the search's simulator. ``compile`` runs
+``preflight_config`` first. ``fit`` verifies the plan through the
+strategy-safety cascade when ``--audit-strategy``, ``--memory-budget-mb``
+or strategy chaos arms it (``resilience/fallback.py``), and runs the
+closed calibration loop under ``--profile-ops`` /
+``--auto-recalibrate`` (``obs/drift.py``); ``resilience.elastic_restore``
+re-plans a checkpoint for the live world; ``--debug-nans`` runs the steps
+eagerly and raises ``FloatingPointError`` naming the node whose output or
+input grad holds a NaN. Serving on a mesh comes in a later slice; it
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -62,9 +68,6 @@ from .execution.metrics import Metrics, PerfMetrics
 from .execution.optimizers import SGDOptimizer
 from .layer import Layer
 from .tensor import Tensor
-
-LATER = "ported in a later slice"
-
 
 def resolve_device(device=None):
     """``None`` means CUDA. Raises when CUDA is asked for (or implied) and
@@ -139,6 +142,19 @@ class FFModel:
         # set by compile for a pipeline strategy: fit trains through it
         self._pipeline_trainer = None
         self._pipeline_param_stamp = None
+        # the search's warm simulator and ranked runners-up (set by a
+        # searching compile), the last fit's strategy cascade, the drift
+        # loop's simulator and sentinel (kept across fits), and the
+        # elastic restore's device count and the cascade's one-device
+        # last resort (set around the compiles they make)
+        self._search_result = None
+        self._search_sim = None
+        self._strategy_candidates: List[Any] = []
+        self._last_cascade = None
+        self._calibration_sim = None
+        self._drift_sentinel = None
+        self._elastic_n_dev: Optional[int] = None
+        self._one_device_plan = False
 
     # ======================================================= tensor creation ==
     def create_tensor(self, dims: Sequence[int],
@@ -648,8 +664,11 @@ class FFModel:
     def _compile_impl(self, optimizer, loss_type, metrics, final_tensor,
                       strategy, strategy_fn) -> None:
         from .execution.executor import Executor
+        from .resilience.preflight import preflight_config
 
-        self._refuse_compile_options()
+        # flag-combination sanity before any other work; it covers values
+        # set as attributes too (flexflow_tpu/model.py:556-562)
+        preflight_config(self.config)
         if optimizer is not None:
             self.optimizer = optimizer
         if self.optimizer is None:
@@ -670,8 +689,16 @@ class FFModel:
         # search took the export slot, and drops an earlier search's result
         self._exported_search_target = False
         self._search_result = None
+        # the ranked runners-up of this compile's search (the cascade's
+        # fallback chain); a compile that does not search has none
+        self._strategy_candidates = []
+        # a warm simulator handed in by elastic_restore for its re-search,
+        # on the live world (flexflow_tpu/model.py:599-604: the port's
+        # mesh covers every rank, so elastic_restore refuses another n_dev)
+        handed = self._search_sim if self._elastic_n_dev else None
         self._search_sim = None
-        strategy, mesh = self._resolve_strategy(pcg, strategy, strategy_fn)
+        strategy, mesh = self._resolve_strategy(pcg, strategy, strategy_fn,
+                                                handed)
         self.strategy, self.mesh = strategy, mesh
         if mesh is not None:
             self.device = mesh.device
@@ -768,17 +795,15 @@ class FFModel:
                 schedule=sched, virtual_stages=v,
                 capture=self._capture_steps and self.device.type == "cuda")
 
-    def _refuse_compile_options(self) -> None:
-        """``--debug-nans`` (flexflow_tpu/model.py:624-625) raises, naming
-        itself, rather than being parsed and ignored: it comes with the
-        rest of ROADMAP A.6 part 2."""
-        if self.config.debug_nans:
-            raise NotImplementedError(
-                f"compile: --debug-nans is {LATER} (ROADMAP A.6 part 2)")
-
-    def _resolve_strategy(self, pcg, strategy, strategy_fn):
+    def _resolve_strategy(self, pcg, strategy, strategy_fn, sim=None):
         """(Strategy, Mesh) of this compile, or (None, None) for the
-        one-device path (:meth:`compile`)."""
+        one-device path (:meth:`compile`). ``sim`` is a warm simulator for
+        the search (an elastic restore's). The cascade's last resort in
+        one process without a process group (``_one_device_plan``) keeps
+        its one-rank strategy on the one-device path (mesh None), for its
+        remat level."""
+        import torch.distributed as dist
+
         from .parallel.mesh import (build_mesh, initialize_multihost,
                                     mesh_for_strategy, world)
         from .parallel.strategy import Strategy, data_parallel_strategy
@@ -797,6 +822,11 @@ class FFModel:
         if strategy is not None:
             preflight_strategy(pcg, strategy, n_dev=n_dev,
                                batch_size=c.batch_size)
+            if self._one_device_plan and n_dev == 1 and \
+                    not strategy.pipeline and \
+                    all(int(d) == 1 for d in strategy.mesh_shape) and \
+                    not (dist.is_available() and dist.is_initialized()):
+                return strategy, None
         elif c.mesh_shape:
             # an explicit mesh: the batch over its first axis
             mesh = build_mesh(c, device_type=dev)
@@ -808,14 +838,14 @@ class FFModel:
         else:
             if n_dev > 1:
                 initialize_multihost(device_type=dev)
-            strategy = self._run_search(pcg, n_dev)
+            strategy = self._run_search(pcg, n_dev, sim)
         if strategy is None:
             return None, None
         if mesh is None:
             mesh = mesh_for_strategy(c, strategy, device_type=dev)
         return strategy, mesh
 
-    def _run_search(self, pcg, n_dev):
+    def _run_search(self, pcg, n_dev, sim=None):
         """The Unity search's strategy for this compile
         (flexflow_tpu/model.py:766-852), or None for the one-device path.
 
@@ -882,10 +912,18 @@ class FFModel:
             c.search_log_file = ""
         res = unity_search(pcg, c, n_dev,
                            protected_guids=(self.final_guid,),
-                           return_result=True, device=self.device)
+                           return_result=True, device=self.device, sim=sim)
         if isinstance(res, SearchResult):
             self._search_result = res
+            # the ranked fallback chain the strategy-safety cascade
+            # degrades through (flexflow_tpu/model.py:837-850)
+            self._strategy_candidates = list(res.ranked)
+            # the warm simulator: the drift loop repairs THIS ruler, and an
+            # elastic restore reuses its tables; a new ruler obsoletes the
+            # sentinel and its simulator of an earlier compile
             self._search_sim = res.sim
+            self._calibration_sim = None
+            self._drift_sentinel = None
             strategy = res.strategy
         else:
             strategy = res  # nothing better: plain data parallelism
@@ -1034,9 +1072,8 @@ class FFModel:
         return y
 
     def _refuse_fit_options(self) -> None:
-        """Every fit option outside this slice raises, naming its flag;
-        ``--schedule`` / ``--virtual-stages`` without a pipeline strategy
-        would be parsed and ignored, so they raise too."""
+        """``--schedule`` / ``--virtual-stages`` without a pipeline
+        strategy would be parsed and ignored, so they raise."""
         c = self.config
         if self._pipeline_trainer is None and (
                 c.schedule or int(c.pipeline_virtual_stages or 0)):
@@ -1045,18 +1082,6 @@ class FFModel:
                 "strategy's microbatches, and this model compiled without "
                 "a pipeline grid; compile with a strategy whose pipeline "
                 "is (pp, dp, n_micro), or drop the flags")
-        refused = [
-            (bool(c.audit_strategy), "--audit-strategy (ROADMAP A.6 part 2)"),
-            (int(c.memory_budget_mb or 0) > 0,
-             "--memory-budget-mb (ROADMAP A.6 part 2)"),
-            (bool(c.auto_recalibrate),
-             "--auto-recalibrate (ROADMAP A.6 part 2)"),
-            (float(c.drift_tolerance) != 0.25,
-             "--drift-tolerance (ROADMAP A.6 part 2)"),
-        ]
-        for on, flag in refused:
-            if on:
-                raise NotImplementedError(f"fit: {flag} is {LATER}")
 
     def fit(self, x=None, y=None, batch_size: Optional[int] = None,
             epochs: Optional[int] = None, callbacks=None,
@@ -1112,9 +1137,23 @@ class FFModel:
         event a step and an ``epoch`` event an epoch (``--trace-file``
         written at the end); ``--profiler-trace-dir`` runs the loop under
         ``torch.profiler`` (``obs.start_trace``). With these off the loop
-        pays one ``is not None`` test a step. The strategy cascade and
-        ``--profile-ops`` are refused (``NotImplementedError`` naming the
-        flag). A pipeline strategy trains through :meth:`_fit_pipeline`."""
+        pays one ``is not None`` test a step.
+
+        Strategy safety (flexflow_tpu/model.py:922-933): with
+        ``--audit-strategy``, ``--memory-budget-mb`` or a pending strategy
+        injection in ``chaos``, ``resilience.StrategyCascade`` verifies the
+        plan before the loop (ShardLint, preflight, one probe step on
+        clones, the measured memory peak, the audit against a one-device
+        reference) and degrades through the search's ranked runners-up to
+        data parallelism with full remat; it is ``self._last_cascade``
+        (None when unarmed) and its counters join the telemetry. The
+        closed calibration loop (``obs.drift.CalibrationLoop``): with
+        ``--profile-ops PATH`` one profiled pass a fit times every distinct
+        op shape, appends the records to PATH, and the drift sentinel
+        compares them with the simulator (``--drift-tolerance``); with
+        ``--auto-recalibrate`` the out-of-band keys are repaired and the
+        runners-up re-ranked. A pipeline strategy trains through
+        :meth:`_fit_pipeline`."""
         import torch
 
         from .data.dataloader import batch_iterator, prefetch_iterator
@@ -1134,6 +1173,14 @@ class FFModel:
         batch_size = batch_size or self.config.batch_size
         epochs = epochs or self.config.epochs
         validate_batch(self, xs, y, phase="fit")
+        # the strategy-safety cascade: may recompile (a new executor and
+        # strategy), so it runs before anything binds them
+        from .resilience.fallback import StrategyCascade
+
+        cascade = StrategyCascade.maybe_create(self, chaos)
+        self._last_cascade = cascade
+        if cascade is not None:
+            cascade.preverify(xs, y, batch_size)
         if getattr(self.optimizer, "_lr_changed", False):
             # set_learning_rate since the steps were captured: they baked
             # the old rate in (as the JAX keras loop watches the flag)
@@ -1163,13 +1210,18 @@ class FFModel:
         tracer = self._obs_tracer()
         telemetry = self._make_telemetry(tracer, batch_size, "train")
         self._telemetry = telemetry
+        if cascade is not None:
+            cascade.merge_telemetry(telemetry)
         if telemetry is not None and cuda and self.config.telemetry_file:
             torch.cuda.reset_peak_memory_stats(self.device)
         last_batch = None
         if profiling:
             self.profile_operators()
-        if self.config.profile_ops:
-            self._profile_ops_pass(xs, batch_size, step_count)
+        from .obs.drift import CalibrationLoop
+
+        calib = CalibrationLoop.maybe_create(self)
+        if calib is not None:
+            calib.run_pass(xs, batch_size, telemetry, step=step_count)
         tracing = bool(self.config.profiler_trace_dir) and \
             self._writes_files()
         if tracing:
@@ -1365,7 +1417,10 @@ class FFModel:
         flags = [f for on, f in (
             (bool(c.checkpoint_dir), "--checkpoint-dir"),
             (bool((c.resume or "").strip()), "--resume"),
-            (int(c.max_bad_steps or 0) > 0, "--max-bad-steps")) if on]
+            (int(c.max_bad_steps or 0) > 0, "--max-bad-steps"),
+            (bool(c.audit_strategy), "--audit-strategy"),
+            (int(c.memory_budget_mb or 0) > 0, "--memory-budget-mb"),
+            (bool(c.profile_ops), "--profile-ops")) if on]
         if flags:
             raise NotImplementedError(
                 f"fit: {', '.join(flags)} on a pipeline strategy "
@@ -1791,52 +1846,6 @@ class FFModel:
                              forward_us=round(t * 1e6, 1))
             print(f"  {node.name:24s} {node.op.op_type.name:28s} "
                   f"{t * 1e6:10.1f} us")
-
-    def _profile_ops_pass(self, xs, batch_size: int, step: int) -> None:
-        """``--profile-ops PATH``: one ProfiledStep pass a fit before its
-        loop (flexflow_tpu/obs/drift.py:193-222, without the drift
-        sentinel, which is ROADMAP A.6 part 2): every distinct op shape
-        timed on the live params and the first batch
-        (``Executor.profile_ops``), joined with the live sharding and the
-        simulator's prediction into ``obs.profile.OpRecord``\\ s, appended to
-        PATH as JSONL (rank 0) and to the tracer as one span an op. The
-        records stay on ``self.op_profile``."""
-        import warnings
-
-        import torch
-
-        from .obs.profile import OpProfile, profile_model
-        from .search.calibration import dtype_label
-        from .search.machine_model import GPUMachineModel
-        from .search.simulator import Simulator
-
-        n = int(np.asarray(xs[0]).shape[0])
-        if n < batch_size:
-            warnings.warn(
-                f"--profile-ops: dataset ({n} samples) smaller than the "
-                f"batch ({batch_size}); skipping the profiled pass")
-            return
-        c = self.config
-        sim = self._search_sim
-        if sim is None:
-            sim = Simulator(
-                GPUMachineModel.detect(
-                    self.mesh.numel if self.mesh is not None else 1,
-                    device=self.device),
-                calibration_dir=c.calibration_dir or None,
-                dtype_label=dtype_label(c))
-        local = self.executor.local_batch(
-            [np.asarray(a)[:batch_size] for a in xs])
-        bx = [torch.as_tensor(a).to(self.device) for a in local]
-        records = profile_model(self, bx, iters=3, step=step, sim=sim)
-        self.op_profile = records
-        if self._writes_files():
-            OpProfile(records).write_jsonl(c.profile_ops)
-        tracer = self._obs_tracer()
-        if tracer.enabled:
-            for r in records:
-                tracer.complete(f"op_profile:{r.name}", r.measured_fwd_s,
-                                op_type=r.op_type, count=r.count, step=step)
 
     # ---- recompilation (reference: RecompileState, model.cc:2422) ---------
     def _score_caches(self, cache, fresh, step_count: int) -> None:

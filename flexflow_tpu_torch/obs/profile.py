@@ -13,7 +13,8 @@ Records flow three ways (docs/calibration.md):
 * the process tracer — one retroactive Perfetto span per profiled op;
 * a JSONL profile file (``--profile-ops PATH``) — the artifact
   ``--calibrate-from-trace`` replays into ``calibrate_from_profile``;
-* the drift sentinel (``obs.drift``, ROADMAP A.6 part 2).
+* the drift sentinel (``obs.drift``), which compares them with the
+  simulator's predictions and, under ``--auto-recalibrate``, repairs it.
 """
 from __future__ import annotations
 

@@ -421,6 +421,15 @@ class StepTelemetry:
         return atomic_write_json(path, self.summary())
 
 
+def peak_memory_bytes(ma) -> Optional[int]:
+    """The peak of a step's memory analysis
+    (flexflow_tpu/obs/telemetry.py:423-440): the measured
+    ``peak_memory_in_bytes`` of ``Executor.train_step_memory_analysis``;
+    None when there is no analysis or no positive peak."""
+    v = (ma or {}).get("peak_memory_in_bytes")
+    return int(v) if v is not None and int(v) > 0 else None
+
+
 def capture_memory_analysis(executor, params, opt_state, xs, labels
                             ) -> Optional[Dict[str, int]]:
     """The card's memory of the training run, for the telemetry record:

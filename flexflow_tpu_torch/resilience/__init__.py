@@ -10,14 +10,21 @@ preflight (port of ``flexflow_tpu.resilience``).
 * deterministic fault injection: ``chaos.ChaosPlan`` /
   ``chaos.corrupt_checkpoint``;
 * ``session.ResilienceSession`` orchestrates them for one ``fit``;
-* ``preflight.validate_batch`` checks a batch against the compiled model,
-  ``preflight.preflight_strategy`` a strategy against the machine.
-
-Elastic restart, the strategy audit and the fallback cascade come with
-the multi-device slices.
+* elastic restart: ``elastic.elastic_restore`` (re-run the Unity search on
+  the live world, host-staged resharding of the restored checkpoint);
+* strategy safety: ``preflight`` (``preflight_config`` at compile, the
+  strategy and batch checks), ``audit`` (the parallel-correctness probe
+  against a one-device reference) and ``fallback.StrategyCascade`` (the
+  degrade-through-ranked-candidates cascade before ``fit``'s loop), with
+  ``chaos.inject_wrong_reshard`` to test them.
 """
-from .chaos import ChaosPlan, corrupt_checkpoint  # noqa: F401
-from .preflight import (PreflightError, preflight_strategy,  # noqa: F401
-                        validate_batch)
+from .audit import AuditError, AuditReport, audit_strategy  # noqa: F401
+from .chaos import (ChaosPlan, corrupt_checkpoint,  # noqa: F401
+                    inject_wrong_reshard)
+from .elastic import elastic_restore  # noqa: F401
+from .fallback import (MemoryBudgetError, StrategyCascade,  # noqa: F401
+                       StrategyCompileError, StrategySafetyError)
+from .preflight import (PreflightError, preflight_config,  # noqa: F401
+                        preflight_strategy, validate_batch)
 from .sentinel import GuardedTrainStep  # noqa: F401
 from .session import ResilienceSession  # noqa: F401

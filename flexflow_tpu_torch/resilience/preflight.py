@@ -9,6 +9,11 @@ runs (port of ``flexflow_tpu.resilience.preflight``).
   untrusted inputs). The per-node spec half is the JAX package's FF006
   checker (``analysis/rules.check_shapes``), copied here privately; the
   rest of the static analyzer comes with the search.
+* ``preflight_config`` — flag-combination sanity that needs the assembled
+  config (``--resume auto`` without a checkpoint dir, non-positive
+  ``--audit-tol``, retention that would delete the checkpoint resume
+  needs, the serving, fleet, tenancy and journal flags), run first by
+  ``FFModel.compile``.
 * ``validate_batch`` — fit / eval / predict arrays against the compiled
   signature: a mis-shaped or mis-typed batch raises a ``ValueError``
   naming the tensor and the axis.
@@ -18,6 +23,7 @@ message says what to change, in the JAX package's words.
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Optional, Sequence
 
 import numpy as np
@@ -28,6 +34,179 @@ from ..ffconst import LossType, dtype_to_torch
 class PreflightError(ValueError):
     """A strategy / flag / batch combination that cannot run; the message
     is actionable (names the offending piece and what to change)."""
+
+
+# ----------------------------------------------------------------- config
+def preflight_config(config) -> None:
+    """Flag-combination sanity on the assembled config
+    (flexflow_tpu/resilience/preflight.py:45-212): everything here would
+    otherwise fail mid-run with a far less helpful error. ``compile`` runs
+    it first, so a value set as an attribute is judged like a parsed one.
+    A ``--calibrate-from-trace`` naming a missing file raises
+    :class:`PreflightError` (the JAX copy's function-local ``import os``
+    makes that read raise ``UnboundLocalError`` instead)."""
+    fb = (getattr(config, "strategy_fallback", "on") or "on")
+    if fb not in ("on", "off"):
+        raise PreflightError(
+            f"--strategy-fallback expects on|off, got {fb!r}")
+    tol = getattr(config, "audit_tol", 0.05)
+    if tol is not None and float(tol) <= 0:
+        raise PreflightError(
+            f"--audit-tol must be > 0 (got {tol}): the audit compares "
+            "relative loss/grad-norm error against it")
+    if int(getattr(config, "memory_budget_mb", 0) or 0) < 0:
+        raise PreflightError(
+            "--memory-budget-mb must be >= 0 (0 disables the compile-time "
+            "OOM check)")
+    if getattr(config, "checkpoint_dir", "") and \
+            int(getattr(config, "keep_checkpoints", 3) or 0) < 1:
+        raise PreflightError(
+            "--keep-checkpoints must keep at least 1 committed checkpoint; "
+            "retention 0 would delete the checkpoint --resume and the "
+            "divergence sentinel roll back to")
+    if (getattr(config, "resume", "") or "").strip() == "auto" and \
+            not getattr(config, "checkpoint_dir", ""):
+        raise PreflightError(
+            "--resume auto needs --checkpoint-dir to know where committed "
+            "checkpoints live; pass --checkpoint-dir DIR or give --resume "
+            "an explicit step_N checkpoint path")
+    remat = (getattr(config, "remat", "") or "")
+    if remat and remat not in ("none", "selective", "full"):
+        raise PreflightError(
+            f"--remat expects none|selective|full, got {remat!r}")
+    sched = (getattr(config, "schedule", "") or "")
+    if sched and sched not in ("gpipe", "1f1b", "interleaved"):
+        raise PreflightError(
+            f"--schedule expects gpipe|1f1b|interleaved, got {sched!r}")
+    vstages = int(getattr(config, "pipeline_virtual_stages", 0) or 0)
+    if vstages and vstages < 2:
+        raise PreflightError(
+            f"--virtual-stages must be >= 2 (got {vstages}): v=1 IS the "
+            "1f1b schedule — use --schedule 1f1b instead")
+    if vstages and sched and sched != "interleaved":
+        raise PreflightError(
+            "--virtual-stages only applies to the interleaved schedule; "
+            "use --schedule interleaved or drop --virtual-stages")
+    co = (getattr(config, "collective_overlap", "off") or "off")
+    if co not in ("on", "off"):
+        raise PreflightError(
+            f"--collective-overlap expects on|off, got {co!r}")
+    sa = (getattr(config, "static_analysis", "on") or "on")
+    if sa not in ("on", "off", "strict"):
+        raise PreflightError(
+            f"--static-analysis expects on|off|strict, got {sa!r}")
+    dt = getattr(config, "drift_tolerance", 0.25)
+    if dt is not None and float(dt) <= 0:
+        raise PreflightError(
+            f"--drift-tolerance must be > 0 (got {dt}): it is the "
+            "half-width of the sim-vs-measured band the drift sentinel "
+            "alerts on")
+    if getattr(config, "auto_recalibrate", False) and \
+            not getattr(config, "profile_ops", ""):
+        raise PreflightError(
+            "--auto-recalibrate needs --profile-ops PATH: the closed loop "
+            "repairs calibration from the profiled pass's measurements")
+    trace = (getattr(config, "calibrate_from_trace", "") or "")
+    if trace and not os.path.isfile(trace):
+        raise PreflightError(
+            f"--calibrate-from-trace {trace!r}: no such profile file "
+            "(produce one with --profile-ops)")
+    pods = int(getattr(config, "num_pods", 0) or 0)
+    if pods < 0:
+        raise PreflightError(
+            f"--pods must be >= 0 (got {pods}); 0 keeps the detected "
+            "topology, N >= 1 splits the machine into N DCN-connected "
+            "pods")
+    gbps = float(getattr(config, "dcn_gbps", 0.0) or 0.0)
+    if gbps < 0:
+        raise PreflightError(
+            f"--dcn-gbps must be >= 0 (got {gbps}); 0 keeps the "
+            "generation default, > 0 overrides the per-pod DCN "
+            "bandwidth in GB/s")
+    if gbps > 0 and pods < 2 and \
+            not getattr(config, "machine_model_file", ""):
+        raise PreflightError(
+            "--dcn-gbps needs a multi-pod topology to apply to: set "
+            "--pods N >= 2 (or a --machine-model-file with num_pods)")
+    hs = (getattr(config, "search_hierarchical", "auto") or "auto")
+    if hs not in ("auto", "on", "off"):
+        raise PreflightError(
+            f"--hierarchical-search expects auto|on|off, got {hs!r}")
+    sl = (getattr(config, "serve_loop", "sync") or "sync")
+    if sl not in ("sync", "async"):
+        raise PreflightError(
+            f"--serve-loop expects sync|async, got {sl!r}: sync is the "
+            "blocking reference loop, async the double-buffered runtime "
+            "(bitwise-identical streams under exact decode)")
+    raw_ss = getattr(config, "seq_shards", 1)
+    ss = int(raw_ss if raw_ss is not None else 1)
+    if ss < 1:
+        raise PreflightError(
+            f"--seq-shards must be >= 1 (got {ss}): it is the number of "
+            "contiguous block-table shards a decode step scores across "
+            "(1 = unsharded)")
+    if ss > 1 and getattr(config, "kv_cache", "paged") == "ring":
+        raise PreflightError(
+            "--seq-shards > 1 requires --kv-cache paged: the ring "
+            "layout has no block tables to partition into per-shard "
+            "contiguous runs")
+    cb = getattr(config, "context_buckets", "") or ""
+    if cb:
+        from ..serving.kvcache import parse_context_buckets
+
+        try:
+            parse_context_buckets(cb)
+        except ValueError as e:
+            raise PreflightError(str(e))
+        if getattr(config, "kv_cache", "paged") == "ring":
+            raise PreflightError(
+                "--context-buckets requires --kv-cache paged: buckets "
+                "route requests to sequence-sharded block-table "
+                "partitions")
+    asc = (getattr(config, "autoscale", "off") or "off")
+    if asc not in ("on", "off"):
+        raise PreflightError(
+            f"--autoscale expects on|off, got {asc!r}")
+    mn = int(getattr(config, "min_replicas", 0) or 0)
+    mx = int(getattr(config, "max_replicas", 0) or 0)
+    if mn < 0 or mx < 0:
+        raise PreflightError(
+            f"--min-replicas/--max-replicas must be >= 0 (got {mn}/{mx}); "
+            "0 defaults to the initial fleet size / twice it")
+    if (mn or mx) and asc != "on":
+        raise PreflightError(
+            "--min-replicas/--max-replicas bound the autoscaler's pool "
+            "and are only meaningful with --autoscale on")
+    if mn and mx and mx < mn:
+        raise PreflightError(
+            f"--max-replicas ({mx}) must be >= --min-replicas ({mn})")
+    tiers = getattr(config, "tenant_tiers", "") or ""
+    if tiers:
+        from ..serving.tenancy import parse_tenant_tiers
+
+        try:
+            parse_tenant_tiers(tiers)
+        except ValueError as e:
+            raise PreflightError(str(e))
+    jdir = getattr(config, "request_journal", "") or ""
+    jsync = float(getattr(config, "journal_sync_ms", 0.0) or 0.0)
+    jevery = int(getattr(config, "journal_commit_every", 0) or 0)
+    if jsync < 0 or jevery < 0:
+        raise PreflightError(
+            f"--journal-sync-ms/--journal-commit-every must be >= 0 "
+            f"(got {jsync:g}/{jevery})")
+    if (jsync or jevery) and not jdir:
+        raise PreflightError(
+            "--journal-sync-ms/--journal-commit-every tune the "
+            "write-ahead request journal and are only meaningful with "
+            "--request-journal DIR (docs/durability.md)")
+    if jdir:
+        parent = os.path.dirname(os.path.abspath(jdir))
+        if not os.path.isdir(parent):
+            raise PreflightError(
+                f"--request-journal parent directory does not exist: "
+                f"{parent} — the journal cannot be made durable on a "
+                "path that cannot be created")
 
 
 # --------------------------------------------------------------- strategy

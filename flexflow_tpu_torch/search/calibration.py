@@ -170,3 +170,100 @@ def calibrate_sim_from_trace(sim, pcg, path: str,
     profile = OpProfile.read_jsonl(path)
     return sim.calibrate_from_profile(profile, pcg,
                                       min_rel_change=min_rel_change)
+
+
+def build_calibrated_sim(model):
+    """The fit loop's drift-sentinel Simulator
+    (flexflow_tpu/search/calibration.py:173-205). When a searched strategy
+    is live the model holds the search's WARM simulator
+    (``model._search_sim``): the sentinel judges (and, in auto mode,
+    repairs) the exact ruler the search ranked with, and
+    ``calibrate_from_profile``'s selective invalidation acts on its
+    delta-cost caches. Otherwise a fresh Simulator is built with
+    ``unity_search``'s recipe on the port's ``GPUMachineModel``: the
+    machine detected on the model's device for the live rank count,
+    persistent tables attached (``--calibration-dir``), a
+    ``--calibrate-from-trace`` profile applied, the executor's remat
+    segmentation mirrored."""
+    from .machine_model import GPUMachineModel
+    from .simulator import Simulator
+
+    cfg = model.config
+    sim = getattr(model, "_search_sim", None)
+    if sim is None:
+        n = model.mesh.numel if model.mesh is not None else 1
+        sim = Simulator(
+            GPUMachineModel.detect(n, device=model.device),
+            calibration_dir=getattr(cfg, "calibration_dir", "") or None,
+            dtype_label=dtype_label(cfg))
+        sim.remat_segment_size = int(
+            getattr(cfg, "remat_segment_size", 8) or 8)
+        trace = getattr(cfg, "calibrate_from_trace", "") or ""
+        if trace and model.pcg is not None:
+            calibrate_sim_from_trace(sim, model.pcg, trace)
+    return sim
+
+
+def rerank_candidates(model, sim) -> bool:
+    """Re-rank the search's top-K fallback chain
+    (``model._strategy_candidates``) against REPAIRED costs
+    (flexflow_tpu/search/calibration.py:208-271): each candidate is
+    re-priced by the engine that ranked it — ``dp_assign`` for SPMD plans,
+    ``simulate_pipeline`` for pipeline grids — on the model's live graph
+    under the repaired per-key calibration, on the port's machine model.
+    The runners-up are re-sorted feasible-first by time; rank 0, the LIVE
+    strategy, keeps its place (changing a running plan is the cascade's
+    job), and a ``calibration_rerank`` obs event says whether it would
+    still win. Returns True when any candidate's simulated time
+    changed."""
+    cands = list(getattr(model, "_strategy_candidates", []) or [])
+    if len(cands) < 2 or model.pcg is None:
+        return False
+    from ..obs import get_tracer
+    from .unity import SearchSpace, dp_assign, simulate_pipeline
+
+    space = SearchSpace.full()
+    space.sequence = getattr(model.config, "enable_sequence_parallel",
+                             True)
+    batch = int(getattr(model.config, "batch_size", 1) or 1)
+    changed = False
+    for c in cands:
+        old = (sim.dp_dcn, sim.tp_dcn)
+        sim.set_axis_topology(*tuple(c.dcn or (1, 1)))
+        try:
+            if c.pipeline:
+                pp, pdp, n_micro = tuple(c.pipeline)
+                # the candidate's schedule is part of its identity: re-price
+                # the task graph and in-flight memory it was ranked by
+                t, mem = simulate_pipeline(
+                    sim, model.pcg, pp, pdp, n_micro, remat=c.remat,
+                    schedule=(c.schedule or "gpipe"),
+                    v=int(getattr(c, "virtual_stages", 1) or 1))
+            else:
+                dp, tp = tuple(c.mesh_shape)
+                if batch % max(dp, 1):
+                    continue  # unpriceable at this batch; keep old cost
+                assignment, states, t = dp_assign(
+                    model.pcg, sim, dp, tp, batch, space=space,
+                    remat=c.remat)
+                _, mem = sim.simulate(model.pcg, assignment, states)
+        finally:
+            sim.set_axis_topology(*old)
+        if abs(t - c.sim_time) > 1e-12:
+            changed = True
+        c.sim_time, c.sim_memory = t, int(mem)
+    head, tail = cands[0], cands[1:]
+    tail.sort(key=lambda c: (not c.feasible, c.sim_time))
+    model._strategy_candidates = [head] + tail
+    feas = [c.sim_time for c in tail if c.feasible]
+    winner_still_best = not feas or head.sim_time <= min(feas) * 1.001
+    tracer = get_tracer()
+    if tracer.enabled:
+        tracer.event(
+            "calibration_rerank", changed=bool(changed),
+            winner_still_best=bool(winner_still_best),
+            live=head.describe(),
+            order=[{"strategy": c.describe(),
+                    "cost_ms": round(c.sim_time * 1e3, 4),
+                    "feasible": bool(c.feasible)} for c in tail[:8]])
+    return changed

@@ -15,9 +15,9 @@ the same machine fields and graph give the same prices:
   NVLink and the network between nodes.
 * ``measure_operator_cost`` times one op standalone on the card through
   the port's own op (``ops.base.run_op``: the attention op reaches the
-  flash kernels B1, and B2 for ``"grad"``), CUDA events around a captured
-  graph of ``_MEASURE_ITERS`` calls; no dispatch round trip is
-  subtracted.
+  flash kernels B1, and B2 for ``"grad"``), CUDA events around each of
+  ``_TIMED_REPLAYS`` replays of a captured graph of ``_MEASURE_ITERS``
+  calls, the median kept; no dispatch round trip is subtracted.
 * Delta-cost engine: ``op_cost`` and the DP search's per-node option
   tables are memoized in bounded LRUs keyed by (op params, in-shapes,
   sharding, dcn); calibration and knob changes flush them; the
@@ -1056,8 +1056,9 @@ class Simulator:
         the attention op reaches the flash kernels B1 (and B2 for
         ``"grad"``) as the training step does. On CUDA, after two warm-up
         calls, ``iters`` calls are captured into one CUDA graph and its
-        replay is timed with CUDA events (device time, without Python's
-        launch cost, as the captured step runs); each replay adds the
+        replays are timed with CUDA events, the median kept (device time,
+        without Python's launch cost, as the captured step runs); each
+        replay adds the
         captured kernel launches to the kernels' counts, as a step
         program's replay does. ``device`` is the card by default; the CPU
         only when asked for (``device="cpu"``, wall time of ``iters``
@@ -1136,14 +1137,25 @@ class Simulator:
 
 # calls captured into the graph that measure_operator_cost times
 _MEASURE_ITERS = 20
+# replays of that graph timed, each between its own CUDA events; the
+# median is kept
+_TIMED_REPLAYS = 5
+# a spin of this many clock cycles (~0.1 ms) queued before each timed
+# replay, so the graph is launched while the card is still busy: the
+# start event then runs right before the graph's first kernel, and the
+# host's launch latency (which a captured step does not pay op by op)
+# stays outside the timing. Without it, a launch-bound op (10-20 us a
+# call) read up to 50 % more in one smoke run than in another
+_SPIN_CYCLES = 200_000
 
 
 def _time_captured(call, iters: int, dev) -> float:
     """Seconds a call of ``call`` takes on the card: two warm-up calls on
     the capture stream, ``iters`` calls captured into one CUDA graph,
-    one untimed replay, then one replay between CUDA events. The capture
-    counts the launches of the first replay (as a step program's does),
-    the timed replay adds them again."""
+    one untimed replay, then ``_TIMED_REPLAYS`` replays, each behind a
+    spin (``_SPIN_CYCLES``) and between CUDA events, of which the median
+    counts. The capture counts the launches of the first replay (as a
+    step program's does), each timed replay adds them again."""
     import gc
 
     import torch
@@ -1171,11 +1183,16 @@ def _time_captured(call, iters: int, dev) -> float:
             launches = stop_recording(stream)
     graph.replay()  # the capture counted this replay's launches
     torch.cuda.synchronize(dev)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    _add_launches(launches)
+    events = []
+    for _ in range(_TIMED_REPLAYS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(_SPIN_CYCLES)
+        start.record()
+        graph.replay()
+        end.record()
+        _add_launches(launches)
+        events.append((start, end))
     torch.cuda.synchronize(dev)
-    return max(start.elapsed_time(end) * 1e-3 / iters, 1e-9)
+    ms = sorted(a.elapsed_time(b) for a, b in events)
+    return max(ms[len(ms) // 2] * 1e-3 / iters, 1e-9)

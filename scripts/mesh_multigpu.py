@@ -66,6 +66,18 @@ in one call: per plan the measured p50 beside the search's simulated step
 (the winner's own; for the others ``chip_smoke.search_plans``), the
 search's wall and candidates, and ``nvidia-smi topo -m`` once. Under
 ``--compute fp32`` a plan outside the one-device band fails the run.
+
+``--suite cascade`` compiles the proxy with no strategy at the world size
+(the search) and fits with ``--audit-strategy``: each rank's audit loss
+and grad-norm errors against its one-device reference on its own card;
+then again under ``ChaosPlan(fail_compiles=1)``: every rank must land on
+the search's first SPMD runner-up (the last resort, data parallelism
+with full remat, when it ranked none). ``--suite elastic`` under torchrun
+with four ranks trains the searched plan two steps and saves a sharded
+checkpoint in ``--ref-dir``; under torchrun with two ranks it compiles
+the proxy searched at two, restores that checkpoint through
+``resilience.elastic_restore`` (a re-searched plan, the params' crc32s
+the saved ones) and trains one step.
 """
 from __future__ import annotations
 
@@ -133,7 +145,7 @@ def args_of():
         REPO, "chiprun_out", "mesh_multigpu.json"))
     p.add_argument("--suite", default="strategies",
                    choices=("strategies", "pipeline", "c8", "fsdp", "ckpt",
-                            "ckpt_one", "search"))
+                            "ckpt_one", "search", "cascade", "elastic"))
     p.add_argument("--eager-stages", action="store_true",
                    help="pipeline suite: run the stages eagerly")
     p.add_argument("--package-root", default=None,
@@ -696,6 +708,135 @@ def ckpt_one(args) -> None:
         raise SystemExit("mesh_multigpu ckpt_one: not bitwise")
 
 
+def cascade(args) -> None:
+    """The strategy-safety cascade on the searched plan at the world size
+    (``--suite cascade``)."""
+    import torch
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch.resilience import ChaosPlan
+
+    device, rank, world, card = join(args)
+    out = {"card": card, "world": world, "cascade": {}}
+    code = 0
+    for name, chaos in (("audit", None), ("fail_compiles", 1)):
+        t0 = time.perf_counter()
+        ff, x, y = build(args, device)
+        ff.config.audit_strategy = name == "audit"
+        winner = ff.strategy.describe()
+        ranked = [c for c in ff._strategy_candidates[1:]
+                  if c.strategy_json and not c.pipeline][:1]
+        runner = [c.describe() for c in ranked]
+        b = ff.config.batch_size
+        ff.fit([x[:2 * b]], y[:2 * b], epochs=1,
+               chaos=ChaosPlan(fail_compiles=chaos) if chaos else None)
+        c = ff._last_cascade
+        # a mesh without its size-1 dims: a candidate's (4, 1) compiles
+        # as the strategy's (4,)
+        mine = dict(rank=rank, winner=winner, runner=runner,
+                    runner_mesh=[tuple(d for d in r.mesh_shape if d > 1)
+                                 for r in ranked],
+                    mesh=tuple(d for d in ff.strategy.mesh_shape if d > 1),
+                    remat=ff.strategy.remat or "none",
+                    final=c.final_desc, fallbacks=c.fallbacks,
+                    probes=c.compile_probes,
+                    audit=[(r.loss_rel_err, r.grad_rel_err, r.passed)
+                           for r in c.audit_reports],
+                    losses=list(ff.fit_history.loss),
+                    wall_s=time.perf_counter() - t0)
+        ranks = [None] * world
+        dist.all_gather_object(ranks, mine)
+        if rank == 0:
+            print(f"cascade {name}: searched winner {winner!r}, runner-up "
+                  f"{runner}; per rank final "
+                  f"{[q['final'] for q in ranks]}, fallbacks "
+                  f"{[q['fallbacks'] for q in ranks]}, compile_probes "
+                  f"{[q['probes'] for q in ranks]}, audit (loss rel err, "
+                  f"grad-norm rel err, passed) "
+                  f"{[q['audit'] for q in ranks]}, losses "
+                  f"{[round(v, 5) for v in ranks[0]['losses']]}, wall "
+                  f"{[round(q['wall_s'], 1) for q in ranks]} s [{card}]",
+                  flush=True)
+            out["cascade"][name] = ranks
+            finals = {(q["mesh"], q["remat"]) for q in ranks}
+            # the runner-up, or the last resort when the search ranked none
+            target = ((ranks[0]["runner_mesh"][0], ranked[0].remat or "none")
+                      if ranked else ((world,), "full"))
+            ok = len(finals) == 1 and (
+                all(q["audit"] and q["audit"][0][2] for q in ranks)
+                if name == "audit" else finals == {target})
+            if not ok:
+                print(f"mesh_multigpu cascade {name}: the ranks' paths "
+                      f"disagree or missed their target", flush=True)
+                code = 1
+        del ff
+        if args.device == "cuda":
+            torch.cuda.empty_cache()
+        dist.barrier()
+    finish(args, rank, out, code)
+
+
+def elastic(args) -> None:
+    """``--suite elastic``: save on four ranks, restore on two."""
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch.execution.checkpoint import save_checkpoint
+    from flexflow_tpu_torch.resilience import elastic_restore
+
+    device, rank, world, card = join(args)
+    d = os.path.join(args.ref_dir, "elastic")
+    meta = os.path.join(args.ref_dir, "elastic.json")
+    ff, x, y = build(args, device)
+    b = ff.config.batch_size
+    out = {"card": card, "world": world, "plan": ff.strategy.describe()}
+    if world == 4:
+        ff.fit([x[:2 * b]], y[:2 * b], epochs=1)
+        t0 = time.perf_counter()
+        path = save_checkpoint(
+            ff, d, step=2, train_state={"step": 2, "epoch": 1,
+                                        "batch_in_epoch": 0,
+                                        "rng_counter": ff._rng_counter})
+        crcs = _crcs(ff.get_params_numpy())
+        out.update(path=path, save_s=time.perf_counter() - t0)
+        if rank == 0:
+            with open(meta, "w") as f:
+                json.dump(dict(path=path, crcs=crcs,
+                               plan=ff.strategy.describe(),
+                               rng=ff._rng_counter), f)
+            print(f"elastic save: plan {out['plan']!r} at world {world}, "
+                  f"step 2 in {out['save_s']:.3f} s [{card}]", flush=True)
+        finish(args, rank, out)
+    with open(meta) as f:
+        saved = json.load(f)
+    t0 = time.perf_counter()
+    step = elastic_restore(ff, saved["path"])
+    restore_s = time.perf_counter() - t0
+    same = _crcs(ff.get_params_numpy()) == saved["crcs"]
+    rng = ff._rng_counter
+    ff.fit([x[:b]], y[:b], epochs=1)
+    mine = dict(rank=rank, step=step, same=same, rng=rng,
+                plan=ff.strategy.describe(), restore_s=restore_s,
+                loss=list(ff.fit_history.loss))
+    ranks = [None] * world
+    dist.all_gather_object(ranks, mine)
+    code = 0
+    if rank == 0:
+        print(f"elastic restore: saved at world 4 under {saved['plan']!r}, "
+              f"restored at world {world}: re-searched plan "
+              f"{[q['plan'] for q in ranks]}, step "
+              f"{[q['step'] for q in ranks]}, rng counter "
+              f"{[q['rng'] for q in ranks]} (saved {saved['rng']}), params "
+              f"bitwise the saved ones {[q['same'] for q in ranks]}, "
+              f"restore s {[round(q['restore_s'], 3) for q in ranks]}, one "
+              f"step's loss {[q['loss'] for q in ranks]} [{card}]",
+              flush=True)
+        if not all(q["same"] and q["step"] == 2 and q["rng"] == saved["rng"]
+                   and np.isfinite(q["loss"]).all() for q in ranks):
+            code = 1
+    out["elastic"] = ranks
+    finish(args, rank, out, code)
+
+
 def c8(args) -> None:
     """GPT-2 small data-parallel over the world: p50 step and each rank's
     peak memory over the fit (the loss on sharded logits, ROADMAP C.8,
@@ -759,4 +900,5 @@ if __name__ == "__main__":
         {"strategies": mesh, "pipeline": pipeline, "c8": c8,
          "fsdp": lambda a: mesh(a, FSDP_STRATEGIES), "ckpt": ckpt,
          "search": lambda a: mesh(a, SEARCH_STRATEGIES),
-         "ckpt_one": ckpt_one}[a.suite](a)
+         "ckpt_one": ckpt_one, "cascade": cascade,
+         "elastic": elastic}[a.suite](a)

@@ -14,7 +14,10 @@
   outside this slice, at ``fit``, every flag that ``compile`` or the
   serving engine would otherwise parse and ignore. An LSTM graph serves,
   and the engine refuses its prefix cache and chunked prefill by name.
-  ``obs.start_server`` and ``--debug-nans`` refuse, naming themselves;
+  ``obs.start_server`` refuses, naming itself; ``--debug-nans`` and the
+  strategy-safety and drift flags (``--audit-strategy``,
+  ``--memory-budget-mb``, ``--drift-tolerance``), refused before their
+  slice, act;
   ``--profile-ops``, ``FFModel.profile_operators``, ``--compgraph``,
   ``--search-num-*`` and ``--static-analysis strict``, refused before the
   search's slice, act. The recurrent and MoE
@@ -86,7 +89,9 @@ def test_importing_every_module_loads_neither_jax_nor_flexflow_tpu():
               "search.calibration", "search.substitution",
               "search.multipod", "search.unity", "analysis",
               "analysis.lattice", "analysis.report", "analysis.rules",
-              "analysis.interp", "obs.profile"):
+              "analysis.interp", "obs.profile", "analysis.__main__",
+              "resilience.audit", "resilience.fallback",
+              "resilience.elastic", "obs.drift"):
         assert f"flexflow_tpu_torch.{m}" in mods
     script = (
         "import importlib, json, sys\n"
@@ -343,11 +348,26 @@ def _xy():
     ("memory_budget_mb", 1024, "--memory-budget-mb"),
     ("drift_tolerance", 0.5, "--drift-tolerance"),
 ])
-def test_fit_refuses_config_flags_of_later_slices(field, value, flag):
-    ff = _tiny_mlp(**{field: value})
-    with pytest.raises(NotImplementedError, match=LATER) as e:
-        ff.fit(*_xy())
-    assert flag in str(e.value)
+def test_fit_refuses_config_flags_of_later_slices(field, value, flag,
+                                                  tmp_path):
+    """Refused by name before the strategy-safety slice; now each acts:
+    ``--audit-strategy`` and ``--memory-budget-mb`` arm the cascade (one
+    audit; one measured peak under a budget it fits), and
+    ``--drift-tolerance`` sets the drift sentinel's band of the profiled
+    pass (``--profile-ops``)."""
+    extra = {"profile_ops": str(tmp_path / "ops.jsonl")} \
+        if field == "drift_tolerance" else {}
+    ff = _tiny_mlp(**{field: value}, **extra)
+    perf = ff.fit(*_xy(), epochs=1)
+    assert perf.train_all == 8
+    c = ff._last_cascade
+    if field == "audit_strategy":
+        assert c.audits == 1 and c.audit_reports[0].passed
+    elif field == "memory_budget_mb":
+        (desc, peak), = c.memory_peaks
+        assert 0 < peak < value * 2 ** 20 and c.fallbacks == 0
+    else:
+        assert c is None and ff._drift_sentinel.tolerance == value
 
 
 @pytest.mark.parametrize("field,value", [
@@ -430,15 +450,18 @@ def test_compile_refuses_config_flags_of_later_slices(field, value, flag,
                                                       tmp_path):
     """Flags the JAX package acts on at compile on one device. Since the
     search's slice only ``--debug-nans`` still raises, naming itself and
-    A.6 part 2; the others act: ``--compgraph`` writes the PCG's dot text
+    A.6 part 2 (since then it acts too: the steps run eagerly and check
+    each node for NaNs); the others act: ``--compgraph`` writes the PCG's dot text
     (``include_costs_dot_graph`` is set with it: alone it asks for
     nothing in either package), ``--search-num-*`` for another machine
     without ``--export-strategy`` warns and stays on one device, and
     ``--static-analysis strict`` passes a sound plan."""
     if field == "debug_nans":
-        with pytest.raises(NotImplementedError, match=LATER) as e:
-            _tiny_mlp(**{field: value})
-        assert flag in str(e.value) and "A.6 part 2" in str(e.value)
+        ff = _tiny_mlp(**{field: value})
+        assert ff.executor.debug_nans
+        assert getattr(ff.executor.make_train_step(), "program",
+                       None) is None
+        assert ff.fit(*_xy(), epochs=1).train_all == 8
         return
     extra = {}
     if field in ("export_strategy_computation_graph_file",

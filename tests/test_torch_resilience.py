@@ -239,14 +239,30 @@ def test_chaos_poison_requires_float_input():
     ("fail_compiles", 1), ("wrong_reshard", True),
     ("drop_devices_at", {4: 2})])
 def test_chaos_plan_refuses_injections_of_later_slices(arg, value):
-    with pytest.raises(NotImplementedError, match="later slice") as e:
-        ChaosPlan(**{arg: value})
-    assert arg in str(e.value)
+    """``drop_devices_at`` still refuses, naming A.8 (the off value is
+    accepted). The strategy-safety injections, refused before their
+    slice, are taken as the JAX plan takes them: each arms the cascade
+    and fires once."""
     if arg == "drop_devices_at":
-        assert "A.8" in str(e.value)
-    from flexflow_tpu_torch.resilience.chaos import _LATER_ARGS
+        with pytest.raises(NotImplementedError, match="later slice") as e:
+            ChaosPlan(**{arg: value})
+        assert arg in str(e.value) and "A.8" in str(e.value)
+        from flexflow_tpu_torch.resilience.chaos import _LATER_ARGS
 
-    ChaosPlan(**{arg: _LATER_ARGS[arg]})  # the off value is accepted
+        ChaosPlan(**{arg: _LATER_ARGS[arg]})
+        return
+    plan = ChaosPlan(**{arg: value})
+    assert getattr(plan, arg) == value and plan.strategy_chaos_pending()
+    if arg == "fail_compiles":
+        assert plan.consume_compile_failure()
+        assert not plan.consume_compile_failure()
+    else:
+        assert plan.wrong_reshard_mode == "scale"
+        assert not plan.graph_defect_pending()
+        assert plan.consume_wrong_reshard() == 2.0
+        assert plan.consume_wrong_reshard() == 1.0
+    assert not plan.strategy_chaos_pending()
+    assert not ChaosPlan().strategy_chaos_pending()
 
 
 @pytest.mark.parametrize("arg,value,hook", [

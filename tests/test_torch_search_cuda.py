@@ -58,7 +58,9 @@ def test_detect_reads_the_card(device):
 def test_measure_launches_the_flash_kernels(device, direction, want):
     from flexflow_tpu_torch.kernels import flash_attention as fa
     from flexflow_tpu_torch.search.machine_model import GPUMachineModel
-    from flexflow_tpu_torch.search.simulator import _MEASURE_ITERS, Simulator
+    from flexflow_tpu_torch.search.simulator import (_MEASURE_ITERS,
+                                                     _TIMED_REPLAYS,
+                                                     Simulator)
 
     ff = _bert(device)
     pcg = ff.pcg
@@ -69,8 +71,8 @@ def test_measure_launches_the_flash_kernels(device, direction, want):
     before = {k: fa._launches[k] for k in want}
     t = sim.measure_operator_cost(node, ins, compute_dtype=torch.bfloat16,
                                   direction=direction, device=device)
-    calls = 2 + 2 * _MEASURE_ITERS  # warm-ups, capture (its first
-    # replay), the timed replay
+    # warm-ups, capture (its first replay), the timed replays
+    calls = 2 + (1 + _TIMED_REPLAYS) * _MEASURE_ITERS
     assert {k: fa._launches[k] - before[k] for k in want} == \
         {k: v * calls for k, v in want.items()}
     assert 0 < t < 1e-2

@@ -139,8 +139,11 @@ def _case_pipe_refuse(args, io):
     messages of the refusals (a kept deviation: the JAX package ignores
     the flags there)."""
     out = {}
+    # an explicit checkpoint path: ``--resume auto`` with no checkpoint
+    # directory is refused at compile (``preflight_config``), before fit
     for field, value in (("checkpoint_dir", "never_written"),
-                         ("resume", "auto"), ("max_bad_steps", 1)):
+                         ("resume", "never_written/step_1"),
+                         ("max_bad_steps", 1)):
         ff = model_of(dict(args, **{field: value}))
         try:
             ff.fit(io["x"], io["y"])
