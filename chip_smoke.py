@@ -410,9 +410,10 @@ def log(msg: str) -> None:
 
 
 def time_ms(fn, iters: int, device, graph: bool = False,
-            stream=None) -> float:
-    """Mean milliseconds per call of ``fn(i)`` (i = 0..iters-1) after two
-    warm-up calls: CUDA events around ``iters`` back-to-back calls on the
+            stream=None, warmup: int = 2) -> float:
+    """Mean milliseconds per call of ``fn(i)`` (i = 0..iters-1) after
+    ``warmup`` (at most two) warm-up calls: CUDA events around ``iters``
+    back-to-back calls on the
     card. With ``graph`` the calls are captured once into a CUDA graph and
     the replay is timed, so the figure is device time without Python's
     per-call launch cost (which exceeds a short kernel's run time).
@@ -425,8 +426,8 @@ def time_ms(fn, iters: int, device, graph: bool = False,
 
     with (torch.cuda.stream(stream) if stream is not None
           else contextlib.nullcontext()):
-        fn(0)
-        fn(1)
+        for i in range(min(warmup, 2)):
+            fn(i)
     if device.type != "cuda":
         t = time.perf_counter()
         for i in range(iters):
@@ -1403,6 +1404,14 @@ FA_SHAPES = {
     "bert_micro": dict(b=2, h=16, sq=512, sk=512, d=64, causal=False),
     "gpt2": dict(b=8, h=12, sq=512, sk=512, d=64, causal=True),
     "long": dict(b=1, h=12, sq=16384, sk=16384, d=64, causal=True),
+    # phase 19: a small ring block on the diagonal and one below it (the
+    # kernels against their plain versions at non-zero position offsets),
+    # then the main path's shapes: GPT-2 small at s16384 over sp 4, the
+    # ring's below-diagonal block and Ulysses' head group of 3
+    "ring_diag": dict(b=1, h=4, sq=512, sk=512, d=64, causal=True),
+    "ring_below": dict(b=1, h=4, sq=512, sk=512, d=64, causal=False),
+    "ring": dict(b=1, h=12, sq=4096, sk=4096, d=64, causal=False),
+    "ulysses": dict(b=1, h=3, sq=16384, sk=16384, d=64, causal=True),
 }
 # kernel against plain: O absolute (fp32 summation order; bf16 one output
 # rounding), grads relative to their largest element (bf16: P and dS are
@@ -1511,10 +1520,16 @@ def planted_faults(want) -> dict:
 
 
 def fa_case(device, card: str, shape_name: str, dname: str,
-            dropout: float = 0.0, timed: bool = True):
+            dropout: float = 0.0, timed: bool = True, shard=None,
+            quick: bool = False):
     """Hold B1-B4 against their plain versions at one shape and dtype and
     (``timed``) time each kernel launch, its plain version, and the
-    library yardsticks. Returns {kernel: numbers}."""
+    library yardsticks. ``shard`` places the call in a larger one for the
+    dropout hash (``flash_attention``'s (batch offset, head offset, heads,
+    query offset, key offset): a ring block's). ``quick`` leaves B2 out
+    (phase 19's paths do not run it at its shapes) and times each kernel
+    over 3 replays and its plain version once after one warm-up call
+    (phase 19's wall). Returns {kernel: numbers}."""
     import torch
     import torch.nn.functional as F
 
@@ -1530,20 +1545,22 @@ def fa_case(device, card: str, shape_name: str, dname: str,
     q, k, v, do = fa_inputs(shape, dtype, device)
     out_tol, grad_tol = FA_TOL[dname]
     want_o, want_lse = fa.flash_forward_plain(q, k, v, causal, blk, blk,
-                                              dropout, seed)
+                                              dropout, seed, shard)
     got_o, got_lse = fa._flash_forward(q, k, v, causal, blk, blk, dropout,
-                                       seed)
+                                       seed, shard)
     errs = {"flash_fwd": (abs_err(got_o, want_o), abs_err(got_o, want_o),
                           out_tol)}
     tiles = {}
     if abs_err(got_lse, want_lse) > 1e-4:
         fail(f"flash_fwd {shape_name} {dname}: lse differs by "
              f"{abs_err(got_lse, want_lse)}")
-    for fused in (True, False):
+    for fused in (False,) if quick else (True, False):
         got = fa._flash_backward(q, k, v, want_o, want_lse, do, causal, blk,
-                                 blk, dropout, seed, fused=fused)
+                                 blk, dropout, seed, fused=fused,
+                                 shard=shard)
         want = fa.flash_backward_plain(q, k, v, want_o, want_lse, do, causal,
-                                       blk, blk, dropout, seed, fused=fused)
+                                       blk, blk, dropout, seed, fused=fused,
+                                       shard=shard)
         pairs = [(g, w) for g, w in zip(got, want)]
         for name, sel in ((("flash_bwd_fused", pairs),) if fused else
                           (("flash_bwd_dq", pairs[:1]),
@@ -1583,9 +1600,10 @@ def fa_case(device, card: str, shape_name: str, dname: str,
                  f"plain error {err} of a {TILE_ROWS}-row tile's largest "
                  f"element > {TILE_TOL[dname]}")
     if not timed:
+        where = f" at offsets {tuple(shard[3:])}" if shard else ""
         log(f"kernel flash attention {shape_name} {dname} dropout "
-            f"{dropout}: B1-B4 agree with their plain versions (max rel "
-            f"err {max(e[1] for e in errs.values()):.3g}, tile "
+            f"{dropout}{where}: B1-B4 agree with their plain versions (max "
+            f"rel err {max(e[1] for e in errs.values()):.3g}, tile "
             f"{max(tiles.values()):.3g}) [{card}]")
         return {}
 
@@ -1595,7 +1613,7 @@ def fa_case(device, card: str, shape_name: str, dname: str,
     out, lse = torch.empty_like(q), torch.empty_like(want_lse)
     dk, dv, dq = torch.empty_like(k), torch.empty_like(v), torch.empty_like(q)
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=device)
-    args = (causal, dropout, seed)
+    args = (causal, dropout, seed, shard)
     launches = {
         "flash_fwd": lambda i: fa._launch_fwd(qs, k, v, out, lse, *args),
         "flash_bwd_fused": lambda i: fa._launch_bwd_kv(
@@ -1609,12 +1627,14 @@ def fa_case(device, card: str, shape_name: str, dname: str,
              seed)
     plains = {
         "flash_fwd": lambda i: fa.flash_forward_plain(q, k, v, causal, blk,
-                                                      blk, dropout, seed),
+                                                      blk, dropout, seed,
+                                                      shard),
         "flash_bwd_fused": lambda i: fa.flash_backward_plain(
             q, k, v, want_o, want_lse, do, causal, blk, blk, dropout, seed,
-            fused=True),
-        "flash_bwd_dkv": lambda i: fa.flash_bwd_kv_plain(*pargs),
-        "flash_bwd_dq": lambda i: fa.flash_bwd_q_plain(*pargs),
+            fused=True, shard=shard),
+        "flash_bwd_dkv": lambda i: fa.flash_bwd_kv_plain(*pargs,
+                                                         shard=shard),
+        "flash_bwd_dq": lambda i: fa.flash_bwd_q_plain(*pargs, shard=shard),
     }
     # yardsticks: SDPA forward, and SDPA's backward alone (autograd.grad
     # of a retained forward graph), which computes what B2 computes; the
@@ -1631,13 +1651,16 @@ def fa_case(device, card: str, shape_name: str, dname: str,
         "flash_bwd_fused": lambda i: torch.autograd.grad(
             sdpa_out, leaves, do, retain_graph=True),
     }
-    flops_long = shape["sq"] > 4096
+    flops_long = shape["sq"] > 4096 or quick
     iters, plain_iters = (3, 1) if flops_long else (20, 2)
     res = {}
     for name in FA_KERNELS:
+        if quick and name == "flash_bwd_fused":
+            continue
         ms = time_ms(launches[name], iters, device, graph=True)
         eager_ms = time_ms(launches[name], iters, device)
-        plain_ms = time_ms(plains[name], plain_iters, device)
+        plain_ms = time_ms(plains[name], plain_iters, device,
+                           warmup=1 if quick else 2)
         lib_ms = (time_ms(library[name], iters, device, graph=True,
                           stream=side) if name in library else None)
         bound_ms, bound_by = fa_bound(name, shape, q.element_size())
@@ -1660,7 +1683,9 @@ def fa_case(device, card: str, shape_name: str, dname: str,
     # the two-pass pair against SDPA's backward, which computes the same
     # dq, dk, dv in one call
     pair = res["flash_bwd_dkv"]["ms"] + res["flash_bwd_dq"]["ms"]
-    sdpa_bwd = res["flash_bwd_fused"]["library_ms"]
+    sdpa_bwd = res["flash_bwd_fused"]["library_ms"] if not quick else \
+        time_ms(library["flash_bwd_fused"], iters, device, graph=True,
+                stream=side)
     for name in ("flash_bwd_dkv", "flash_bwd_dq"):
         res[name]["pair_library_ms"] = sdpa_bwd
     bound = sum(res[n]["bound_ms"] for n in ("flash_bwd_dkv",
@@ -1669,6 +1694,8 @@ def fa_case(device, card: str, shape_name: str, dname: str,
         f"sdpa backward {sdpa_bwd * 1e3:.1f} us ({pair / sdpa_bwd:.3f}x)"
         f"; bound {bound * 1e3:.2f} us ({bound / pair:.3f} of it) "
         f"[{card}]")
+    if quick:
+        return res
     fwdbwd = time_ms(lambda i: torch.autograd.grad(
         F.scaled_dot_product_attention(*leaves, is_causal=causal), leaves,
         do), iters, device, graph=True, stream=side)
@@ -1723,7 +1750,7 @@ def train_model(kind: str, compute: str, device, seq: int = 512,
     (``ff.softmax(logits, use_pallas=True)``). ``--profiling`` records
     each step's wall; ``fusion`` compiles with ``--fusion``;
     ``strategy_fn`` compiles for a device mesh (phase 14); ``num_layers``
-    cuts BERT's depth (its widths stay); ``per_op`` leaves the per-op
+    cuts the depth (the widths stay); ``per_op`` leaves the per-op
     block of ``--profiling`` (``profile_operators``) to the caller;
     ``debug_nans`` compiles under ``--debug-nans`` (phase 18)."""
     from flexflow_tpu_torch import (AdamOptimizer, DataType, FFConfig,
@@ -1748,6 +1775,8 @@ def train_model(kind: str, compute: str, device, seq: int = 512,
         metrics = [MetricsType.METRICS_ACCURACY]
     else:
         cfg = GPT2Config(batch_size=batch, seq_len=seq)
+        if num_layers:
+            cfg.num_layers = num_layers
         if softmax_kernel:
             cfg.vocab_size = VOCAB_PADDED
         _ids, logits = build_gpt2(ff, cfg)
@@ -5953,7 +5982,9 @@ def threaded_p2p_backend() -> str:
     of one process) with ``send`` / ``recv`` added: a send leaves a copy in
     the (group, src, dst) mailbox, a receive takes the oldest one, or
     waits for it through a future. FIFO a pair and direction, as NCCL and
-    gloo match. Several ranks on one card only; never the main path."""
+    gloo match. ``all_to_all_single`` of equal splits (Ulysses') runs as
+    the group's list all-to-all over views of its buffers. Several ranks on
+    one card only; never the main path."""
     if _P2P_BACKEND:
         return _P2P_BACKEND[0]
     import collections
@@ -5995,6 +6026,15 @@ def threaded_p2p_backend() -> str:
                 buf.copy_(msg)
                 fut.set_result([buf])
             return _create_work_from_future(fut)
+
+        def alltoall_base(self, output, input, output_split_sizes,
+                          input_split_sizes, opts=None):
+            if output_split_sizes or input_split_sizes:
+                raise NotImplementedError(
+                    "threaded_p2p: all_to_all_single of unequal splits")
+            n = self.size()
+            return self.alltoall(list(output.chunk(n)),
+                                 list(input.chunk(n)))
 
     def create(prefix_store, rank, world_size, timeout):
         pg = P2PGroup(rank, world_size)
@@ -6424,10 +6464,12 @@ def fsdp16_strategy(dp: int):
     return fn
 
 
-def threaded_ranks(world: int, body, label: str) -> dict:
+def threaded_ranks(world: int, body, label: str,
+                   backend: str = "threaded") -> dict:
     """``body(rank)`` on ``world`` threads named ``rank<r>`` of torch's
     threaded test group on the one card (a harness: its collectives are
-    copies between threads, never captured); {rank: result}."""
+    copies between threads, never captured; ``backend``
+    :func:`threaded_p2p_backend` adds point-to-point); {rank: result}."""
     import threading
 
     import torch
@@ -6443,7 +6485,7 @@ def threaded_ranks(world: int, body, label: str) -> dict:
     def rank(r):
         try:
             torch.cuda.set_device(card_index)
-            dist.init_process_group("threaded", rank=r, world_size=world,
+            dist.init_process_group(backend, rank=r, world_size=world,
                                     store=store)
             out[r] = body(r)
             torch.cuda.synchronize()
@@ -7641,6 +7683,283 @@ def safety_phase(device, card: str) -> dict:
                 drift=drift, debug=debug, launches=launches, wall=wall)
 
 
+# ------------------------------------------------ phase 19: long context
+# phase 19: long-context training (ROADMAP A.7). (a) B1-B4 with non-zero
+# position offsets and dropout 0.1 against their plain versions at a small
+# ring block on the diagonal (causal) and one below it, fp32 and bf16; a
+# launch with zero offsets bitwise the launch without them, and offsets
+# moving the mask; then each kernel timed at the main path's shapes (the
+# ring's below-diagonal block, b1 h12 s4096 d64; Ulysses' head group, b1
+# h3 s16384 d64 causal). (b) GPT-2 small at s16384, batch 1,
+# long_context_strategy(dp=1, sp=4) in ring and in alltoall mode, fp32 and
+# bf16, on SEQ_WORLD threaded ranks of the one card (eager: the
+# threaded_p2p harness's collectives cannot be captured), one step each
+# from the one-device step's weights and batch, held to its TRAIN_TOL
+# band, B1 / B3 / B4 counted per rank. (c) the degenerate ring: a captured
+# one-rank NCCL mesh with a sequence axis of 1, trained through fit
+# against the one-device fit (bitwise: one diagonal block is the one-device
+# flash call). The phase's stated wall: SEQ_WALL_S.
+SEQ_WALL_S = 60.0
+SEQ_WORLD = 4
+SEQ_STEPS = 2   # (c): an eager warm-up, then the capture
+# (a): the position offsets of the small blocks (rank 3 of 4 at s2048)
+SEQ_OFFSETS = {"ring_diag": (1536, 1536), "ring_below": (1536, 512)}
+SEQ_KERNELS = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dkv",
+               "flash_bwd_dq")
+
+
+def longctx_launch_counter(per_rank: dict):
+    """A context in which every B1-B4 launch adds one to
+    ``per_rank[(thread name, kernel)]`` (threads name their rank)."""
+    import contextlib
+    import threading
+
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    @contextlib.contextmanager
+    def ctx():
+        lock = threading.Lock()
+        orig = fa._launch_fwd, fa._launch_bwd_kv, fa._launch_bwd_q
+
+        def add(kernel):
+            with lock:
+                key = (threading.current_thread().name, kernel)
+                per_rank[key] = per_rank.get(key, 0) + 1
+
+        def fwd(*a, **kw):
+            add("flash_fwd")
+            return orig[0](*a, **kw)
+
+        def bwd_kv(*a, **kw):
+            add("flash_bwd_fused" if a[9] is not None else "flash_bwd_dkv")
+            return orig[1](*a, **kw)
+
+        def bwd_q(*a, **kw):
+            add("flash_bwd_dq")
+            return orig[2](*a, **kw)
+
+        fa._launch_fwd, fa._launch_bwd_kv, fa._launch_bwd_q = \
+            fwd, bwd_kv, bwd_q
+        try:
+            yield
+        finally:
+            fa._launch_fwd, fa._launch_bwd_kv, fa._launch_bwd_q = orig
+
+    return ctx()
+
+
+def longctx_kernels(device, card: str) -> dict:
+    """(a): the kernels at ring-block offsets against their plain
+    versions, the zero-offset launch, and the timed main-path shapes."""
+    import torch
+
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    for dname in ("fp32", "bf16"):
+        for name, (qo, ko) in SEQ_OFFSETS.items():
+            h = FA_SHAPES[name]["h"]
+            fa_case(device, card, name, dname, dropout=0.1, timed=False,
+                    shard=(0, 0, h, qo, ko))
+    # zero offsets: today's masks, bitwise; offsets: another mask
+    q, k, v, _do = fa_inputs(FA_SHAPES["ring_below"], torch.bfloat16,
+                             device)
+    h = q.shape[1]
+    outs = {}
+    for key, shard in (("none", None), ("zero", (0, 0, h, 0, 0)),
+                       ("offset", (0, 0, h) + SEQ_OFFSETS["ring_below"])):
+        outs[key] = fa._flash_forward(q, k, v, False, 128, 128, 0.1, 0x5EED,
+                                      shard)[0]
+    same = torch.equal(outs["none"], outs["zero"])
+    moved = not torch.equal(outs["none"], outs["offset"])
+    log(f"longctx kernels: B1 with zero offsets bitwise the launch without "
+        f"them: {same}; offsets move the dropout mask: {moved} [{card}]")
+    if not (same and moved):
+        fail("longctx kernels: the position offsets do not act as stated")
+    timed = {}
+    for shape in ("ring", "ulysses"):
+        for dname in ("fp32", "bf16"):
+            for kernel, r in fa_case(device, card, shape, dname,
+                                     quick=True).items():
+                r.pop("eager_ms", None)
+                timed[(kernel, shape, dname)] = r
+    return timed
+
+
+def longctx_threaded(device, card: str, dname: str) -> dict:
+    """(b) at one dtype: the one-device step, then the ring and Ulysses
+    steps on ``SEQ_WORLD`` threaded ranks from its weights and batch. The
+    one-device model is returned too (``ref``; (c) fits it)."""
+    import torch
+
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.parallel.strategies import long_context_strategy
+
+    ref, cfg = train_model("gpt2", dname, device, seq=LONG_SEQ, batch=1)
+    x, y = train_data("gpt2", cfg, 1)
+    weights = ref.get_params_numpy()
+    loss, _l, grads = ref.executor.loss_and_grads(
+        ref.params, [torch.from_numpy(x).to(device)],
+        torch.from_numpy(ref._prep_label(y)).to(device))
+    want = (float(loss), [g for ws in grads.values() for g in ws.values()])
+    del grads, _l
+    torch.cuda.empty_cache()
+    backend = threaded_p2p_backend()
+    res = {"ref": ref}
+    for mode in ("ring", "alltoall"):
+        def body(r, mode=mode):
+            ff, _ = train_model(
+                "gpt2", dname, device, seq=LONG_SEQ, batch=1,
+                strategy_fn=lambda pcg: long_context_strategy(
+                    pcg, dp=1, sp=SEQ_WORLD, mode=mode))
+            ff._capture_steps = False
+            ff.set_params_numpy(weights)
+            ex = ff.executor
+            xs, ys = ex.local_batch([x, ff._prep_label(y)])
+            loss, logits, grads = ex.loss_and_grads(
+                ff.params, [torch.from_numpy(xs).to(device)],
+                torch.from_numpy(ys).to(device))
+            full = [ex.gather_param(n, w, g) for n, ws in grads.items()
+                    for w, g in ws.items()]
+            return float(loss), full, tuple(logits.shape), \
+                torch.cuda.max_memory_allocated()
+
+        per_rank = {}
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_count()
+        with longctx_launch_counter(per_rank):
+            out = threaded_ranks(SEQ_WORLD, body, f"longctx threaded {mode}",
+                                 backend=backend)
+        wall = time.perf_counter() - t0
+        launches = {k: sum(per_rank.get((f"rank{r}", k), 0)
+                           for r in range(SEQ_WORLD)) for k in SEQ_KERNELS}
+        losses = [out[r][0] for r in range(SEQ_WORLD)]
+        dloss = max(abs(v - want[0]) / max(abs(want[0]), 1e-30)
+                    for v in losses)
+        derr = max(rel_norm(out[r][1], want[1]) for r in range(SEQ_WORLD))
+        tol = TRAIN_TOL[dname]
+        layers = cfg.num_layers
+        # ring, causal: rank r runs r + 1 blocks a layer (10 over 4
+        # ranks); Ulysses: one whole-sequence call a rank and layer
+        blocks = SEQ_WORLD * (SEQ_WORLD + 1) // 2 if mode == "ring" \
+            else SEQ_WORLD
+        want_l = {"flash_fwd": blocks * layers, "flash_bwd_dkv":
+                  blocks * layers, "flash_bwd_dq": blocks * layers,
+                  "flash_bwd_fused": 0}
+        log(f"longctx threaded gpt2 {dname} {mode} (GPT-2 small, s{LONG_SEQ} "
+            f"b1, long_context_strategy dp=1 sp={SEQ_WORLD}, ranks as "
+            f"threads on one card; a harness, its times are not multi-GPU "
+            f"speed): loss {losses[0]:.6f} vs one device {want[0]:.6f} (rel "
+            f"{dloss:.3g}), grads rel norm err {derr:.3g} (tol {tol}); "
+            f"logits a rank {out[0][2]}; launches {launches} (rank 3: "
+            f"{ {k: per_rank.get(('rank3', k), 0) for k in SEQ_KERNELS} }); "
+            f"peak {max(o[3] for o in out.values()) / 2 ** 30:.2f} GiB on "
+            f"the card; {wall:.1f} s [{card}]")
+        if launches != want_l:
+            fail(f"longctx threaded {dname} {mode}: launches {launches}, want "
+                 f"{want_l}")
+        if out[0][2][1] != LONG_SEQ // SEQ_WORLD:
+            fail(f"longctx threaded {dname} {mode}: the loss read logits "
+                 f"{out[0][2]}, not the rank's positions")
+        if not (dloss <= tol[0] and derr <= tol[1]):
+            fail(f"longctx threaded {dname} {mode}: the step disagrees with one "
+                 "device")
+        res[mode] = dict(launches=launches, dloss=dloss, grad_err=derr,
+                         wall=wall)
+    return res
+
+
+def longctx_degenerate(device, card: str, ref) -> dict:
+    """(c): GPT-2 small at s16384 (fp32) fit over SEQ_STEPS batches on one
+    device (``ref``, (b)'s model) and on a captured one-rank NCCL mesh
+    under long_context_strategy(1, 1): the ring of one block."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.models.gpt2 import GPT2Config
+    from flexflow_tpu_torch.parallel.strategies import long_context_strategy
+
+    def run(ff, x, y, weights):
+        ff.set_params_numpy(weights)
+        ff.config.print_freq = 10 ** 9
+        fa.reset_launch_count()
+        ff.fit([x], y, epochs=1)
+        torch.cuda.synchronize()
+        return dict(losses=list(ff.fit_history.loss),
+                    params=param_list(ff),
+                    counts={k: fa.launch_count(k) // SEQ_STEPS
+                            for k in SEQ_KERNELS},
+                    captures=ff.executor.make_train_step().program.captures)
+
+    x, y = train_data("gpt2", GPT2Config(batch_size=1, seq_len=LONG_SEQ),
+                      SEQ_STEPS)
+    weights = ref.get_params_numpy()
+    one = run(ref, x, y, weights)
+    del ref
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="ff_seq_")
+    dist.init_process_group(
+        "nccl", init_method=f"file://{tmp}/pg", rank=0, world_size=1,
+        device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        ff, _ = train_model("gpt2", "fp32", device, seq=LONG_SEQ, batch=1,
+                            strategy_fn=lambda pcg: long_context_strategy(
+                                pcg, dp=1, sp=1))
+        if ff.mesh is None or tuple(ff.mesh.axis_names) != ("data", "seq"):
+            fail("longctx degenerate: no (data, seq) mesh")
+        ring = run(ff, x, y, weights)
+        del ff
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    bitwise = ring["losses"] == one["losses"] and all(
+        torch.equal(a, b) for a, b in zip(ring["params"], one["params"]))
+    dparams = rel_norm(ring["params"], one["params"])
+    dloss = max(abs(a - b) for a, b in zip(ring["losses"], one["losses"]))
+    log(f"longctx degenerate gpt2 fp32 (s{LONG_SEQ} b1, a one-rank NCCL mesh "
+        f"(data 1, seq 1), captured fit of {SEQ_STEPS} steps): losses "
+        f"{ring['losses']} vs one device {one['losses']}; bitwise {bitwise}"
+        f" (params rel {dparams:.3g}, loss {dloss:.3g}); launches a step "
+        f"{ring['counts']} (one device {one['counts']}); captures "
+        f"{ring['captures']} [{card}]")
+    if ring["captures"] != 1:
+        fail(f"longctx degenerate: {ring['captures']} captures, want 1")
+    if ring["counts"] != one["counts"]:
+        fail("longctx degenerate: the ring of one block launched other kernels "
+             "than the one-device step")
+    tol = TRAIN_TOL["fp32"]
+    if not bitwise and not (dloss <= tol[0] and dparams <= tol[1]):
+        fail("longctx degenerate: the one-rank ring's fit left the band of the "
+             "one-device fit")
+    return dict(bitwise=bitwise, counts=ring["counts"], dparams=dparams)
+
+
+def longctx_phase(device, card: str) -> dict:
+    import torch
+
+    t0 = time.perf_counter()
+    kern = longctx_kernels(device, card)
+    t1 = time.perf_counter()
+    threaded = {d: longctx_threaded(device, card, d)
+                for d in ("fp32", "bf16")}
+    del threaded["bf16"]["ref"]
+    t2 = time.perf_counter()
+    degenerate = longctx_degenerate(device, card,
+                                    threaded["fp32"].pop("ref"))
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    log(f"longctx phase wall {wall:.1f} s (stated {SEQ_WALL_S:.0f} s): "
+        f"(a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
+        f"{wall - t2 + t0:.1f} s [{card}]")
+    return dict(kern=kern, threaded=threaded, degenerate=degenerate,
+                wall=wall)
+
+
 def main() -> None:
     try:
         import torch
@@ -7722,6 +8041,7 @@ def main() -> None:
     mesh16 = mesh16_phase(device, card, pipe)
     search = search_phase(device, card, train["bert"]["p50_ms"])
     safety = safety_phase(device, card)
+    longctx = longctx_phase(device, card)
 
     kernels = []
     for compute, name in (("fp32", "flash_decode"),
@@ -8006,6 +8326,36 @@ def main() -> None:
             "launches": safety["launches"][kernel],
             **fa_kern[(kernel, "bert", "bf16")],
             **census.get((kernel, "bf16", FA_SHAPES["bert"]["d"]), {}),
+        })
+    # phase 19: B1, B3 and B4 on the ring's blocks (GPT-2 small s16384 over
+    # four threaded ranks, timed at the below-diagonal block b1 h12 s4096)
+    # and on Ulysses' head groups (timed at b1 h3 s16384 causal), each
+    # dtype with its own path's launches; and the degenerate ring of (c)
+    # (fp32, one block at the s16384 shape, timed by the kernel phase)
+    for path, shape in (("ring", "ring"), ("alltoall", "ulysses")):
+        for dname in ("fp32", "bf16"):
+            for kernel in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+                kernels.append({
+                    "name": f"{kernel}_{shape}"
+                            + ("_bf16" if dname == "bf16" else ""),
+                    "route": "cuda",
+                    "source": FA_SOURCE,
+                    "replaces": FA_KERNELS[kernel][0],
+                    "launches": longctx["threaded"][dname][path][
+                        "launches"][kernel],
+                    **longctx["kern"][(kernel, shape, dname)],
+                    **census.get((kernel, dname, 64), {}),
+                })
+    for kernel in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        kernels.append({
+            "name": f"{kernel}_ring_one",
+            "route": "cuda",
+            "source": FA_SOURCE,
+            "replaces": FA_KERNELS[kernel][0],
+            "launches": longctx["degenerate"]["counts"][kernel]
+            * SEQ_STEPS,
+            **fa_kern[(kernel, "long", "fp32")],
+            **census.get((kernel, "fp32", 64), {}),
         })
     for kernel, line in (("softmax_fwd", 29), ("softmax_bwd", 38)):
         kernels.append({

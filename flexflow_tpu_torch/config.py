@@ -57,12 +57,10 @@ class FFConfig:
     enable_parameter_parallel: bool = False
     enable_attribute_parallel: bool = False
     # TPU-native extension: sequence/context parallelism (ring attention) in
-    # the search space; no reference analog (SURVEY §5 long-context). Off
-    # by default in the port, unlike the JAX package: the port's attention
-    # refuses a sequence-parallel plan until ring / Ulysses attention is
-    # ported (ROADMAP A.7), so a search that may pick one would turn an
-    # unstrategized compile that trains into one that raises
-    enable_sequence_parallel: bool = False
+    # the search space; no reference analog (SURVEY §5 long-context). On
+    # by default, as in the JAX package (flexflow_tpu/config.py:70-72);
+    # --disable-sequence-parallel takes it out
+    enable_sequence_parallel: bool = True
     # TPU-native extension: GPipe (pp, dp) grids as search candidates;
     # the reference reserves OP_PIPELINE but ships no schedule
     enable_pipeline_parallel: bool = True

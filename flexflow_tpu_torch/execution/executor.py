@@ -366,23 +366,32 @@ class Executor:
         return redistribute(x, self.mesh, pl, replicated(len(pl)))
 
     def _final_layout(self):
-        """(held, wanted, split) of the final output on a mesh: its planned
-        placements, those the loss reads (the model axes gathered, the data
-        axis kept where the plan splits the batch on dim 0 over it alone)
-        and whether the batch stays split over a data axis of several
-        ranks. Static for a batch layout, as the plan is."""
+        """(held, wanted, split, seq) of the final output on a mesh: its
+        planned placements, those the loss reads (the model axes gathered,
+        the data axis kept where the plan splits the batch on dim 0 over it
+        alone, the sequence axes kept where the plan leaves the output's
+        positions split over them), whether the batch stays split over a
+        data axis of several ranks, and those sequence axes. Static for a
+        batch layout, as the plan is."""
         from ..parallel.spmd import replicated
 
-        pl = self._plan()[self.final_guid].outs[self.final_out_idx]
+        plan = self._plan()[self.final_guid]
+        pl = plan.outs[self.final_out_idx]
         n = len(pl)
         di = self._data_axis()
         split = di is not None and self.mesh.sizes[di] > 1 and \
             pl[di].is_shard() and pl[di].dim == 0 and not any(
                 p.is_shard() and p.dim == 0 and self.mesh.sizes[i] > 1
                 for i, p in enumerate(pl) if i != di)
+        # a (batch, seq, ...) output whose positions stay split: each rank
+        # takes the loss on its own tokens (GPT-2's s16384 logits are 3.3
+        # GB in fp32, and as much again for their grad)
+        seq = tuple(i for i in plan.seq_axes if pl[i].is_shard()
+                    and pl[i].dim == 1 and self.mesh.sizes[i] > 1)
         r = replicated(n)
-        want = tuple(pl[i] if split and i == di else r[i] for i in range(n))
-        return pl, want, split
+        want = tuple(pl[i] if (split and i == di) or i in seq else r[i]
+                     for i in range(n))
+        return pl, want, split, seq
 
     def _data_axis(self) -> Optional[int]:
         """The data axis's index among the mesh dims, or None."""
@@ -399,16 +408,21 @@ class Executor:
             return x, False
         from ..parallel.spmd import redistribute
 
-        held, want, split = self._final_layout()
+        held, want, split, _seq = self._final_layout()
         return redistribute(x, self.mesh, held, want), split
 
-    def _sum_over_data(self, t):
-        """A copy of ``t`` summed over the data axis's ranks."""
+    def _sum_over(self, t, axes):
+        """A copy of ``t`` summed over the mesh dims ``axes``."""
         import torch.distributed as dist
 
         out = t.detach().clone()
-        dist.all_reduce(out, group=self.mesh.groups[self._data_axis()])
+        for i in axes:
+            dist.all_reduce(out, group=self.mesh.groups[i])
         return out
+
+    def _sum_over_data(self, t):
+        """A copy of ``t`` summed over the data axis's ranks."""
+        return self._sum_over(t, (self._data_axis(),))
 
     def _loss_on_rows(self, logits, labels, split: bool):
         """(the loss to differentiate, the loss's value) of the final
@@ -417,16 +431,39 @@ class Executor:
         data axis's size: its gradient is the full-batch mean's at those
         rows, and its sum over the data axis, all-reduced, is the value.
         Every loss type is a mean over equal shares of the batch, so the
-        value is the whole batch's. Else the loss of the whole batch on
-        every rank."""
-        if not split:
+        value is the whole batch's. Where the output's positions stay
+        split over sequence axes (:meth:`_final_layout`), each rank's loss
+        is likewise that of its own tokens, over the axes' sizes where the
+        loss is a mean over positions, and the value is summed over the
+        world. Else the loss of the whole batch on every rank."""
+        seq = self._final_layout()[3] if self.mesh is not None else ()
+        if not split and not seq:
             loss = loss_value(self.loss_type, logits,
                               self._labels_whole(labels), self.repl_labels)
             return loss, loss
+        share = self.mesh.sizes[self._data_axis()] if split else 1
+        if seq:
+            if not split:
+                labels = self._labels_whole(labels)
+            labels = self._label_positions(labels, seq)
+            if self.loss_type != \
+                    LossType.LOSS_MEAN_SQUARED_ERROR_SUM_REDUCE:
+                for i in seq:
+                    share *= self.mesh.sizes[i]
         part = loss_value(self.loss_type, logits, labels,
-                          self.repl_labels) / self.mesh.sizes[
-                              self._data_axis()]
-        return part, self._sum_over_data(part)
+                          self.repl_labels) / share
+        return part, self._sum_over(
+            part, ((self._data_axis(),) if split else ()) + seq)
+
+    def _label_positions(self, labels, seq):
+        """This rank's positions (dim 1) of ``labels`` over the mesh dims
+        ``seq``, as the final output holds them."""
+        from ..parallel.spmd import _types, local_slice, replicated
+
+        Shard = _types()[0]
+        pl = tuple(Shard(1) if i in seq else p for i, p in
+                   enumerate(replicated(len(self.mesh.sizes))))
+        return local_slice(labels, pl, self.mesh).contiguous()
 
     def _labels_whole(self, labels):
         """The labels gathered whole on every rank (they arrive as the
@@ -1379,18 +1416,28 @@ class Executor:
     def _compute_metrics(self, logits, labels):
         """The metrics of the final output as the loss read it
         (:meth:`_final_rows`): where the batch stays split, counts and
-        sums over this rank's rows, all-reduced over the data axis."""
+        sums over this rank's rows, all-reduced over the data axis; where
+        its positions stay split, over this rank's positions, summed over
+        the sequence axes (the output is never gathered for them)."""
         import torch
 
         if self.metrics is None:
             return {}
-        split = self.mesh is not None and self._final_layout()[2]
+        split, seq = self._final_layout()[2:] \
+            if self.mesh is not None else (False, ())
         if not split:
             labels = self._labels_whole(labels)
         if self.repl_labels:
             k = logits.shape[0] // labels.shape[0]
             labels = torch.repeat_interleave(labels, k, dim=0)
-        m = self.metrics.compute(logits, labels)
+        positions = None
+        if seq:
+            labels = self._label_positions(labels, seq)
+            n = 1
+            for i in seq:
+                n *= self.mesh.sizes[i]
+            positions = (n, lambda t: self._sum_over(t, seq))
+        m = self.metrics.compute(logits, labels, positions)
         if split:
             n = self.mesh.sizes[self._data_axis()]
             m = {k: (self._sum_over_data(v) if torch.is_tensor(v)

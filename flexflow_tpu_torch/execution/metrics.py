@@ -54,16 +54,29 @@ class Metrics:
         self.loss_type = loss_type
         self.measures = list(metrics)
 
-    def compute(self, logits, labels) -> Dict[str, object]:
+    def compute(self, logits, labels, positions=None) -> Dict[str, object]:
         """Per-batch metrics: {name: scalar tensor} plus the python int
         ``train_all`` (reference: Metrics::compute,
-        metrics_functions.cc:68)."""
+        metrics_functions.cc:68). ``positions`` = (n, total), where the
+        output's positions (dim 1) are split in ``n`` equal shares over
+        ranks that each hold theirs: ``total`` sums a tensor over those
+        ranks, so the counts and the per-sample means cover every
+        position."""
         import torch
 
         out: Dict[str, object] = {"train_all": logits.shape[0]}
         sparse = self.loss_type == \
             LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY
         feat = tuple(range(1, logits.dim()))
+        n, total = positions or (1, None)
+
+        def whole(t):
+            return t if total is None else total(t)
+
+        def sample_mean(t):
+            # the per-sample mean over every position: each share's mean
+            # over n, summed over the shares
+            return whole(t.mean(dim=feat) / n)
 
         def logp():
             return torch.log(torch.clamp(logits, 1e-12, 1.0))
@@ -75,20 +88,20 @@ class Metrics:
                     ref = labels.reshape(labels.shape[0]).to(pred.dtype)
                 else:
                     ref = torch.argmax(labels, dim=-1)
-                out["train_correct"] = (pred == ref).sum()
+                out["train_correct"] = whole((pred == ref).sum())
             elif m == MetricsType.METRICS_SPARSE_CATEGORICAL_CROSSENTROPY:
                 li = labels.reshape(labels.shape[0]).long()
-                out["sparse_cce_loss"] = -torch.gather(
-                    logp(), 1, li[:, None]).sum()
+                out["sparse_cce_loss"] = -whole(torch.gather(
+                    logp(), 1, li[:, None]).sum())
             elif m == MetricsType.METRICS_CATEGORICAL_CROSSENTROPY:
-                out["cce_loss"] = -(labels * logp()).sum()
+                out["cce_loss"] = -whole((labels * logp()).sum())
             elif m == MetricsType.METRICS_MEAN_SQUARED_ERROR:
-                out["mse_loss"] = torch.square(logits - labels).mean(
-                    dim=feat).sum()
+                out["mse_loss"] = sample_mean(
+                    torch.square(logits - labels)).sum()
             elif m == MetricsType.METRICS_ROOT_MEAN_SQUARED_ERROR:
-                out["rmse_loss"] = torch.sqrt(torch.square(
-                    logits - labels).mean(dim=feat)).sum()
+                out["rmse_loss"] = torch.sqrt(sample_mean(
+                    torch.square(logits - labels))).sum()
             elif m == MetricsType.METRICS_MEAN_ABSOLUTE_ERROR:
-                out["mae_loss"] = (logits - labels).abs().mean(
-                    dim=feat).sum()
+                out["mae_loss"] = sample_mean(
+                    (logits - labels).abs()).sum()
         return out

@@ -154,6 +154,11 @@ struct Dropout {
   int heads_local;
   int heads_global;
   int bh_offset;
+  // a block of a longer sequence (a ring-attention step): the global
+  // positions of this launch's first query and first key, added to the
+  // local ones the hash keys on (0 for a whole sequence)
+  int q_offset;
+  int k_offset;
 };
 
 // The GLOBAL batch*head coordinate of this launch's row bh: the hash keys
@@ -163,6 +168,17 @@ struct Dropout {
 __device__ __forceinline__ uint32_t global_bh(const Dropout& dr, int bh) {
   return static_cast<uint32_t>((bh / dr.heads_local) * dr.heads_global +
                                bh % dr.heads_local + dr.bh_offset);
+}
+
+// keep_scale at this launch's GLOBAL coordinates: the (batch, head) row
+// by global_bh, the local query and key positions shifted by the block's
+// offsets. Every kernel's mask goes through here.
+__device__ __forceinline__ float drop_keep(const Dropout& dr, int bh,
+                                           int qpos, int kpos) {
+  return keep_scale(dr.seed, global_bh(dr, bh),
+                    static_cast<uint32_t>(qpos + dr.q_offset),
+                    static_cast<uint32_t>(kpos + dr.k_offset), dr.threshold,
+                    dr.scale);
 }
 
 __device__ __forceinline__ void load_seed(Dropout& dr) {
@@ -391,9 +407,7 @@ __device__ __forceinline__ void dkv_hand_over(
       const float p = ex2(fmaf(sv, kLog2e, -l2));
       float pd = p;
       if (dr.on) {
-        const float keep =
-            keep_scale(dr.seed, global_bh(dr, bh), qpos, key, dr.threshold,
-                       dr.scale);
+        const float keep = drop_keep(dr, bh, qpos, key);
         pd = p * keep;
         dpv = dpv * keep;
       }
@@ -437,8 +451,7 @@ __device__ __forceinline__ void dq_hand_over(
       if (kGroup == 0 && kMask && qpos + off < key) sv = kNegInf;
       float dpv = kGroup == 0 ? x : sc[i][j];
       if (dr.on)
-        dpv *= keep_scale(dr.seed, global_bh(dr, bh), qpos, key,
-                          dr.threshold, dr.scale);
+        dpv *= drop_keep(dr, bh, qpos, key);
       x = ex2(fmaf(sv, kLog2e, -l2[ii])) * (dpv - dl[ii]);
     }
   }
@@ -960,9 +973,8 @@ __global__ void __launch_bounds__(TwoPass<D>::kThreads, 1)
         for (int j = 0; j < C::kTN; ++j) {
           const float p = ex2(sc[i][j] - m_new);
           psum += p;
-          sc[i][j] = dr.on ? p * keep_scale(dr.seed, global_bh(dr, bh), qpos,
-                                            k0 + cg + C::kCG * j,
-                                            dr.threshold, dr.scale)
+          sc[i][j] = dr.on ? p * drop_keep(dr, bh, qpos,
+                                           k0 + cg + C::kCG * j)
                            : p;
         }
 #pragma unroll
@@ -1488,10 +1500,8 @@ __global__ void __launch_bounds__(kWG, 2)
     if (dr.on) {
 #pragma unroll
       for (int e = 0; e < kBN / 2; ++e)
-        sc[e] *= keep_scale(dr.seed, global_bh(dr, bh),
-                            row0 + 8 * ((e >> 1) & 1),
-                            k0 + (e >> 2) * 8 + t2 + (e & 1), dr.threshold,
-                            dr.scale);
+        sc[e] *= drop_keep(dr, bh, row0 + 8 * ((e >> 1) & 1),
+                           k0 + (e >> 2) * 8 + t2 + (e & 1));
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -1788,9 +1798,9 @@ __device__ __forceinline__ void bwd_kv_sm90(
       if (dr.on) {
 #pragma unroll
         for (int e = e0; e < e0 + kFin; ++e) {
-          const float keep = keep_scale(
-              dr.seed, global_bh(dr, bh), q0 + (e >> 2) * 8 + t2 + (e & 1),
-              kw0 + kr + 8 * ((e >> 1) & 1), dr.threshold, dr.scale);
+          const float keep =
+              drop_keep(dr, bh, q0 + (e >> 2) * 8 + t2 + (e & 1),
+                        kw0 + kr + 8 * ((e >> 1) & 1));
           const float p = sT[e];
           sT[e] = p * keep;
           dpT[e] = p * (dpT[e] * keep - dl[(e >> 2) * 2 + (e & 1)]);
@@ -2111,10 +2121,8 @@ __global__ void __launch_bounds__(kWG, 2)
     if (dr.on) {
 #pragma unroll
       for (int e = 0; e < kN / 2; ++e)
-        dp[e] *= keep_scale(dr.seed, global_bh(dr, bh),
-                            q0 + r0 + 8 * ((e >> 1) & 1),
-                            k0 + (e >> 2) * 8 + t2 + (e & 1), dr.threshold,
-                            dr.scale);
+        dp[e] *= drop_keep(dr, bh, q0 + r0 + 8 * ((e >> 1) & 1),
+                           k0 + (e >> 2) * 8 + t2 + (e & 1));
     }
 #pragma unroll
     for (int e = 0; e < kN / 2; ++e) {
@@ -2383,7 +2391,7 @@ bool valid(int bh, int sq, int sk, int d, int dtype) {
 
 Dropout make_dropout(int on, const void* seed, uint32_t threshold,
                      float scale, int heads_local, int heads_global,
-                     int bh_offset) {
+                     int bh_offset, int q_offset, int k_offset) {
   Dropout dr;
   dr.on = on;
   dr.seed = 0u;
@@ -2393,6 +2401,8 @@ Dropout make_dropout(int on, const void* seed, uint32_t threshold,
   dr.heads_local = heads_local > 0 ? heads_local : 1;
   dr.heads_global = heads_global;
   dr.bh_offset = bh_offset;
+  dr.q_offset = q_offset;
+  dr.k_offset = k_offset;
   return dr;
 }
 
@@ -2415,7 +2425,8 @@ Dropout make_dropout(int on, const void* seed, uint32_t threshold,
 // which are float32; q is pre-scaled by 1/sqrt(d). `seed` is the device
 // address of the dropout seed (a uint32; read only when dropout_on);
 // heads_local / heads_global / bh_offset place the launch's (batch, head)
-// rows in a larger call for the dropout hash (global_bh). Each
+// rows in a larger call for the dropout hash (global_bh), q_offset /
+// k_offset its query and key blocks in a longer sequence (drop_keep). Each
 // returns a cudaError_t code (0 on success); launches are asynchronous on
 // `stream`.
 extern "C" int ff_flash_fwd(const void* q, const void* k, const void* v,
@@ -2423,14 +2434,15 @@ extern "C" int ff_flash_fwd(const void* q, const void* k, const void* v,
                             int d, int causal, int dropout_on,
                             const void* seed, uint32_t threshold,
                             float keep_scale_value, int heads_local,
-                            int heads_global, int bh_offset,
-                            int dtype, void* stream) {
+                            int heads_global, int bh_offset, int q_offset,
+                            int k_offset, int dtype, void* stream) {
   if (!valid(bh, sq, sk, d, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   const Shape sh{sq, sk, causal};
   const Dropout dr = make_dropout(dropout_on, seed, threshold,
                                   keep_scale_value, heads_local,
-                                  heads_global, bh_offset);
+                                  heads_global, bh_offset, q_offset,
+                                  k_offset);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   FF_DISPATCH(launch_fwd, q, k, v, o, static_cast<float*>(lse), bh, sh, dr,
               st)
@@ -2444,13 +2456,15 @@ extern "C" int ff_flash_bwd_kv(const void* q, const void* k, const void* v,
                                int dropout_on, const void* seed,
                                uint32_t threshold, float keep_scale_value,
                                int heads_local, int heads_global, int bh_offset,
-                               int dtype, void* stream) {
+                               int q_offset, int k_offset, int dtype,
+                               void* stream) {
   if (!valid(bh, sq, sk, d, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   const Shape sh{sq, sk, causal};
   const Dropout dr = make_dropout(dropout_on, seed, threshold,
                                   keep_scale_value, heads_local,
-                                  heads_global, bh_offset);
+                                  heads_global, bh_offset, q_offset,
+                                  k_offset);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   FF_DISPATCH(launch_bwd_kv, q, k, v, o, dout,
               static_cast<const float*>(lse),
@@ -2465,13 +2479,15 @@ extern "C" int ff_flash_bwd_q(const void* q, const void* k, const void* v,
                               int dropout_on, const void* seed,
                               uint32_t threshold, float keep_scale_value,
                               int heads_local, int heads_global, int bh_offset,
-                              int dtype, void* stream) {
+                              int q_offset, int k_offset, int dtype,
+                              void* stream) {
   if (!valid(bh, sq, sk, d, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   const Shape sh{sq, sk, causal};
   const Dropout dr = make_dropout(dropout_on, seed, threshold,
                                   keep_scale_value, heads_local,
-                                  heads_global, bh_offset);
+                                  heads_global, bh_offset, q_offset,
+                                  k_offset);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   FF_DISPATCH(launch_bwd_q, q, k, v, dout, static_cast<const float*>(lse),
               static_cast<const float*>(delta), dq, sm_scale, bh, sh, dr, st)

@@ -138,18 +138,42 @@ def dropout_keep_scale_plain(seed, bh, q_pos, k_pos, rate: float):
     return keep.to(torch.float32) * dropout_scale(rate)
 
 
+def shard_tuple(shard):
+    """A call's place in the whole (``shard``, see :func:`global_bh`) as
+    the 5-tuple (batch offset, head offset, global heads, query offset, key
+    offset), or None; a 3-tuple has offsets 0 on both sequences."""
+    if shard is None:
+        return None
+    shard = tuple(int(x) for x in shard)
+    if len(shard) == 3:
+        return shard + (0, 0)
+    if len(shard) != 5:
+        raise ValueError(f"flash_attention: shard {shard} is not (batch "
+                         "offset, head offset, heads[, q offset, k offset])")
+    return shard
+
+
+def seq_offsets(shard):
+    """(query offset, key offset) of ``shard``: where the call's query
+    and key blocks start in the whole sequence (0, 0 for a whole one)."""
+    shard = shard_tuple(shard)
+    return (0, 0) if shard is None else shard[3:]
+
+
 def global_bh(b: int, h: int, shard, device):
     """The (b, h, 1, 1) GLOBAL batch*head coordinates the dropout hash keys
     on: ``b * H + h`` for an unsharded call, and for a shard (``shard =
-    (batch offset, head offset, global heads)``, a data- or tensor-parallel
-    rank's slice of the batch and heads) the coordinates of the same
-    elements in the whole tensor, so every rank draws the single-device
-    mask's slice."""
+    (batch offset, head offset, global heads[, query offset, key
+    offset])``, a data-, tensor- or sequence-parallel rank's slice of the
+    batch, heads and sequence) the coordinates of the same elements in the
+    whole tensor, so every rank draws the single-device mask's slice. The
+    sequence offsets move the positions the hash keys on
+    (:func:`seq_offsets`)."""
     import torch
 
     if shard is None:
         return torch.arange(b * h, device=device).view(b, h, 1, 1)
-    b_off, h_off, heads = shard
+    b_off, h_off, heads = shard_tuple(shard)[:3]
     rows = torch.arange(b, device=device) + b_off
     cols = torch.arange(h, device=device) + h_off
     return (rows[:, None] * heads + cols[None, :]).view(b, h, 1, 1)
@@ -160,8 +184,9 @@ def _tile_keep(seed, b, h, q0, bq, k0, bk, rate, device, shard=None):
     import torch
 
     bh = global_bh(b, h, shard, device)
-    qp = torch.arange(q0, q0 + bq, device=device).view(1, 1, bq, 1)
-    kp = torch.arange(k0, k0 + bk, device=device).view(1, 1, 1, bk)
+    qo, ko = seq_offsets(shard)
+    qp = torch.arange(q0, q0 + bq, device=device).view(1, 1, bq, 1) + qo
+    kp = torch.arange(k0, k0 + bk, device=device).view(1, 1, 1, bk) + ko
     return dropout_keep_scale_plain(seed, bh, qp, kp, rate)
 
 
@@ -398,8 +423,9 @@ def _library():
         p, i, u, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
                       ctypes.c_float)
         # dropout_on, seed address, threshold, scale, and the shard's
-        # local heads, global heads and batch*head offset
-        drop = [i, p, u, f, i, i, i]
+        # local heads, global heads, batch*head offset, query and key
+        # position offsets
+        drop = [i, p, u, f, i, i, i, i, i]
         lib.ff_flash_fwd.argtypes = [p] * 5 + [i] * 5 + drop + [i, p]
         lib.ff_flash_bwd_kv.argtypes = [p] * 10 + [i] * 6 + drop + [i, p]
         lib.ff_flash_bwd_q.argtypes = [p] * 7 + [f] + [i] * 5 + drop \
@@ -494,12 +520,15 @@ def _dropout_args(dropout: float, seed, heads: int, shard=None):
     :func:`seed_on_device` (the caller keeps it alive past the launch).
     ``heads`` is the call's own head count; ``shard`` (:func:`global_bh`)
     makes the kernels hash the global batch*head coordinate
-    ``(bh / heads) * H + bh % heads + (b_off * H + h_off)``."""
+    ``(bh / heads) * H + bh % heads + (b_off * H + h_off)`` and the
+    positions shifted by its query and key offsets."""
     if dropout <= 0.0:
-        return [0, None, 0, 0.0, 1, 1, 0]
-    b_off, h_off, hg = shard if shard is not None else (0, 0, heads)
+        return [0, None, 0, 0.0, 1, 1, 0, 0, 0]
+    b_off, h_off, hg, q_off, k_off = shard_tuple(shard) \
+        if shard is not None else (0, 0, heads, 0, 0)
     return [1, seed.data_ptr(), dropout_threshold(dropout),
-            dropout_scale(dropout), heads, hg, b_off * hg + h_off]
+            dropout_scale(dropout), heads, hg, b_off * hg + h_off, q_off,
+            k_off]
 
 
 def _launch_fwd(qs, k, v, out, lse, causal, dropout, seed, shard=None):
@@ -680,9 +709,11 @@ def flash_attention(q, k, v, causal: bool = False,
     needs a ``seed``: a uint32 int (the same seed gives the same mask in
     both packages) or a 0-d integer tensor holding it in its low 32 bits,
     which on CUDA the kernels read from device memory. ``shard`` = (batch
-    offset, head offset, global heads) when q/k/v are a rank's slice of a
-    larger batch and head set: the dropout mask is then the whole call's
-    mask at these elements (:func:`global_bh`)."""
+    offset, head offset, global heads[, query offset, key offset]) when
+    q/k/v are a rank's slice of a larger batch, head set and sequence: the
+    dropout mask is then the whole call's mask at these elements
+    (:func:`global_bh`). The causal band stays the call's own (``k <= q +
+    (seq_k - seq_q)`` in local positions)."""
     global _FN
     dropout = float(dropout)
     if not 0.0 <= dropout < 1.0:
@@ -706,5 +737,4 @@ def flash_attention(q, k, v, causal: bool = False,
         seed = _seed_u32(seed)
     return _FN.apply(q.contiguous(), k.contiguous(), v.contiguous(),
                      bool(causal), int(block_q), int(block_k), dropout,
-                     seed, None if shard is None else tuple(
-                         int(x) for x in shard))
+                     seed, shard_tuple(shard))

@@ -7,9 +7,15 @@ and the probability-weighted sum accumulate in fp32 whatever the compute
 dtype (the JAX op's ``preferred_element_type=float32``).
 
 Whole-sequence forwards (training, eval, predict) route as the JAX op
-routes (``_should_use_flash``): to the flash-attention kernels
-(``kernels/flash_attention.py``; CUDA forward and backward on the card,
-their plain versions on the CPU) or to the plain einsum core
+routes (flexflow_tpu/ops/attention.py:111-135): serving first; then, where
+a strategy names a ``sequence_parallel_axis`` of the mesh, the sequence
+split over it (``ctx.shard``'s plan hands the op its block of positions)
+and attention by ring rotation (``kernels/ring_attention.py``, the
+default) or, under ``sequence_parallel_mode="alltoall"``, by Ulysses'
+all-to-alls (``kernels/ulysses_attention.py``), both on the flash kernels;
+then the flash-attention kernels (``_should_use_flash``;
+``kernels/flash_attention.py``, CUDA forward and backward on the card,
+their plain versions on the CPU); else the plain einsum core
 ``mha_core``. Attention dropout takes its uint32 seed from the step's
 random stream (``ctx.rng``: a generator it draws from, or a step
 program's seeds, device tensors under CUDA-graph capture) and masks
@@ -79,12 +85,14 @@ def _dropout_mask(seed, shape, rate: float, device, shard=None):
     hash at GLOBAL coordinates."""
     import torch
 
-    from ..kernels.flash_attention import dropout_keep_scale_plain, global_bh
+    from ..kernels.flash_attention import (dropout_keep_scale_plain,
+                                           global_bh, seq_offsets)
 
     b, h, sq, sk = shape
     bh = global_bh(b, h, shard, device)
-    qp = torch.arange(sq, device=device).view(1, 1, sq, 1)
-    kp = torch.arange(sk, device=device).view(1, 1, 1, sk)
+    qo, ko = seq_offsets(shard)
+    qp = torch.arange(sq, device=device).view(1, 1, sq, 1) + qo
+    kp = torch.arange(sk, device=device).view(1, 1, 1, sk) + ko
     return dropout_keep_scale_plain(seed, bh, qp, kp, rate)
 
 
@@ -104,9 +112,11 @@ class MultiHeadAttentionOp(Op):
     the flash kernels run on them, and the output projection's partial sum
     is all-reduced over the model axis before ``bo``, in fp32 as is the
     inputs' grad of the q/k/v projections (``ShardInfo.row_matmul`` /
-    ``column_matmuls``). Dropout hashes the
-    global (batch, head) coordinates, so every rank draws its slice of the
-    single-device mask.
+    ``column_matmuls``). Under a ``sequence_parallel_axis`` the op takes
+    and returns its rank's block of positions, the projections are
+    per-token and the core is the ring or Ulysses schedule over the
+    axis. Dropout hashes the global (batch, head, position) coordinates,
+    so every rank draws its slice of the single-device mask.
     """
 
     def _dims(self):
@@ -349,12 +359,25 @@ def _maybe_flash_decode(q, entry, tables, sv, sm_scale):
 
 
 def _attention_core(attrs, q, k, v, ctx: OpContext, causal: bool):
-    """Whole-sequence attention of MultiHeadAttentionOp: the flash kernels
+    """Whole-sequence attention of MultiHeadAttentionOp: ring or Ulysses
+    attention over a sequence axis of the mesh, else the flash kernels
     where ``_should_use_flash`` and the block table allow, else the einsum
-    core (flexflow_tpu/ops/attention.py:134-147)."""
+    core (flexflow_tpu/ops/attention.py:111-147)."""
     live = _resolve_live_dropout(attrs.get("dropout", 0.0), ctx)
     seed = next_seed(ctx.rng) if live else None
     shard = _hash_shard(ctx, q, attrs["num_heads"])
+    sg = _sequence_group(attrs, ctx)
+    if sg is not None:
+        if attrs.get("sequence_parallel_mode") == "alltoall":
+            from ..kernels.ulysses_attention import ulysses_attention
+
+            return ulysses_attention(
+                q, k, v, sg, causal, dropout=live, seed=seed, shard=shard,
+                seq_axis=attrs["sequence_parallel_axis"])
+        from ..kernels.ring_attention import ring_attention
+
+        return ring_attention(q, k, v, sg, causal, dropout=live, seed=seed,
+                              shard=shard)
     blocks = _flash_blocks(q.shape[-2], k.shape[-2])
     if _should_use_flash(attrs.get("use_flash", "auto"), q, k, causal) \
             and blocks is not None:
@@ -368,7 +391,8 @@ def _attention_core(attrs, q, k, v, ctx: OpContext, causal: bool):
 
 def _hash_shard(ctx, q, heads: int):
     """(batch offset, head offset, global heads) of this rank's (b, h)
-    block of q on a mesh, for the dropout hash; None off a mesh."""
+    block of q on a mesh, for the dropout hash; None off a mesh. The
+    sequence offsets are the ring's and Ulysses' own."""
     if ctx.shard is None:
         return None
     b_off = ctx.shard.in_offsets(0)[0]
@@ -377,16 +401,19 @@ def _hash_shard(ctx, q, heads: int):
     return (b_off, h_off, heads)
 
 
-def refuse_sequence_parallel(name: str, attrs) -> None:
-    """A strategy's ``sequence_parallel_axis`` (``long_context_strategy``)
-    asks for ring or all-to-all attention over a sequence axis, which the
-    port has not yet: refused by name."""
-    if attrs.get("sequence_parallel_axis"):
-        raise NotImplementedError(
-            f"{name}: sequence_parallel_axis="
-            f"{attrs['sequence_parallel_axis']!r} (ring / Ulysses attention "
-            "over a sequence axis, long_context_strategy) is ported in a "
-            "later slice (ROADMAP A.7)")
+def _sequence_group(attrs, ctx):
+    """The ``SeqGroup`` of the strategy's ``sequence_parallel_axis`` on
+    the mesh the op runs on, or None (no such axis, or off a mesh: the
+    JAX op's condition, flexflow_tpu/ops/attention.py:120)."""
+    axis = attrs.get("sequence_parallel_axis")
+    if not axis or ctx.shard is None or \
+            axis not in ctx.shard.mesh.axis_names:
+        return None
+    from ..kernels.ring_attention import SeqGroup
+
+    mesh = ctx.shard.mesh
+    i = mesh.axis_names.index(axis)
+    return SeqGroup.of(mesh.groups[i], mesh.sizes[i], mesh.coords[i])
 
 
 def _resolve_live_dropout(dropout, ctx) -> float:

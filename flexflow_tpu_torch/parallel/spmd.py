@@ -51,6 +51,26 @@ the data axis, and each sub-op reads its own global shapes. The loss reads
 the final output replicated everywhere, as the JAX package's loss reads
 its global array, so the loss, the metrics and ``predict``'s output are
 the same on every rank.
+
+**The sequence mode.** Where a strategy's attention names a
+``sequence_parallel_axis`` (``long_context_strategy``, the search's ``Q``
+state), the plan keeps (batch, seq, ...) values split over that axis on
+dim 1 (``Shard(1)``) through every op that keeps positions apart
+(:func:`_per_token`: dense, layer / RMS norm and softmax over trailing
+dims, embedding lookups, elementwise ops, and the attention itself, which
+exchanges k and v over the axis: ring or Ulysses). Such an op takes its
+token inputs split as they arrive, or as its output spec pins them (an
+embedding's integer ids are chunked, which costs nothing), and returns
+its outputs split (``NodePlan.seq_axes``). Ops that mix positions (a mean
+over the sequence, reshapes of it) read the value whole, gathered over
+the axis. A weight of an op that runs on its rank's positions has a grad
+that is partial over the sequence axes as well as over the data axis (the
+same weight, a different share of the tokens): ``grad_axes`` names both,
+so the executor's flat all-reduce sums it over the data axis and then
+over the sequence axis. A final (batch, seq, ...) output left split over a
+sequence axis is read by the loss on each rank's own tokens
+(``Executor._loss_on_rows``): the logits of a long sequence are never
+gathered.
 """
 from __future__ import annotations
 
@@ -411,6 +431,9 @@ class NodePlan:
     # weights split over the data axis as stored (ZeRO-3 / FSDP): the dim
     # it splits; the op gathers them (:func:`gather_weight`)
     fsdp: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # mesh dims over which the op runs on a block of positions (dim 1 of
+    # its token inputs and outputs: the sequence mode, module doc)
+    seq_axes: Tuple[int, ...] = ()
 
 
 @dataclasses.dataclass
@@ -656,6 +679,73 @@ def _aware_mode(node, specs, names, data_axis):
     return None
 
 
+# ---------------------------------------------------------- sequence mode
+def _is_token_value(shape, out_shape) -> bool:
+    """Is ``shape`` a (batch, seq, ...) value whose dim 1 is the op's
+    positions (the output's dim 1)?"""
+    return len(shape) >= 2 and len(out_shape) >= 3 and \
+        tuple(shape[:2]) == tuple(out_shape[:2])
+
+
+def _per_token(node, in_shapes) -> bool:
+    """Does the op keep positions apart: each output row (batch, position)
+    computed from the same row of each input? Dense over the last dim,
+    layer / RMS norm and softmax over trailing dims, an embedding lookup,
+    elementwise ops on equal (batch, seq) extents, and the attention whose
+    strategy splits the sequence (it exchanges k and v itself)."""
+    t, a = node.op.op_type, node.op.attrs
+    out = node.out_shapes[0] if node.out_shapes else ()
+    if not in_shapes or len(out) < 3:
+        return False
+    nd = len(in_shapes[0])
+    if t == OperatorType.OP_MULTIHEAD_ATTENTION:
+        return bool(a.get("sequence_parallel_axis"))
+    if t == OperatorType.OP_EMBEDDING:
+        return len(out) == nd + 1 and tuple(in_shapes[0]) == tuple(out[:nd])
+    if not all(_is_token_value(s, out) for s in in_shapes):
+        return False
+    if t in _UNARY or t in _BINARY or t == OperatorType.OP_LINEAR:
+        return True
+    if t in (OperatorType.OP_LAYERNORM, OperatorType.OP_RMSNORM):
+        return all(x % nd >= 2 for x in a.get("axes", (-1,)))
+    if t == OperatorType.OP_SOFTMAX:
+        return a.get("axis", -1) % nd >= 2
+    return False
+
+
+def _token_axes(node, in_shapes, srcs, ns, seq_axes, names, mesh,
+                op_axis) -> Tuple[int, ...]:
+    """The sequence axes over which a per-token op runs on its rank's
+    positions: those its token inputs arrive split over on dim 1, those
+    its strategy pins its output to, and always the axis its attention
+    splits the sequence over (``sequence_parallel_axis``)."""
+    Shard = _types()[0]
+    if not _per_token(node, in_shapes):
+        return ()
+    out = node.out_shapes[0]
+    pinned = spec_placements(ns.output_spec, names) \
+        if ns is not None and ns.output_spec else None
+    own = node.op.attrs.get("sequence_parallel_axis") \
+        if node.op.op_type == OperatorType.OP_MULTIHEAD_ATTENTION else None
+    tok = []
+    for i in seq_axes:
+        if i == op_axis:
+            continue
+        held = any(src[i] == Shard(1) for src, s in zip(srcs, in_shapes)
+                   if _is_token_value(s, out))
+        if not (held or names[i] == own or
+                (pinned is not None and pinned[i] == Shard(1))):
+            continue
+        if out[1] % mesh.sizes[i]:
+            if names[i] == own:
+                raise ValueError(
+                    f"{node.name}: sequence {out[1]} does not divide over "
+                    f"the {own!r} axis of {mesh.sizes[i]} ranks")
+            continue
+        tok.append(i)
+    return tuple(tok)
+
+
 def plan_spmd(pcg, strategy, mesh, inputs_sharded: bool = True
               ) -> Dict[int, NodePlan]:
     """The static SPMD plan of ``pcg`` under ``strategy`` on ``mesh``
@@ -667,6 +757,12 @@ def plan_spmd(pcg, strategy, mesh, inputs_sharded: bool = True
     R = replicated(n)
     data_axis = strategy.data_axis if strategy.data_axis in names else None
     di = names.index(data_axis) if data_axis is not None else None
+    # the mesh dims a strategy's attention splits the sequence over
+    seq_axes = tuple(sorted({
+        names.index(ns.extra["sequence_parallel_axis"])
+        for ns in strategy.node_strategies.values()
+        if ns.extra.get("sequence_parallel_axis") in names
+        and ns.extra["sequence_parallel_axis"] != data_axis}))
     plans: Dict[int, NodePlan] = {}
     held: Dict[Tuple[int, int], Placements] = {}
 
@@ -680,10 +776,6 @@ def plan_spmd(pcg, strategy, mesh, inputs_sharded: bool = True
         op, t = node.op, node.op.op_type
         ns = strategy.node_strategies.get(node.guid)
         specs = dict(ns.weight_specs) if ns is not None else {}
-        if ns is not None and ns.extra.get("sequence_parallel_axis"):
-            from ..ops.attention import refuse_sequence_parallel
-
-            refuse_sequence_parallel(node.name, ns.extra)
         fsdp = _data_dims(node, specs, data_axis) \
             if data_axis is not None else {}
         in_shapes = [pcg.nodes[g].out_shapes[i] for g, i in node.inputs]
@@ -767,6 +859,15 @@ def plan_spmd(pcg, strategy, mesh, inputs_sharded: bool = True
             mode = "global"
             ins = [R] * len(srcs)
             natural = [R] * nout
+        tok = _token_axes(node, in_shapes, srcs, ns, seq_axes, names,
+                          mesh, axis) if seq_axes else ()
+        for i in tok:
+            for j, s in enumerate(in_shapes):
+                if _is_token_value(s, node.out_shapes[0]):
+                    ins[j] = _with(ins[j], i, Shard(1))
+            natural = [_with(pl, i, Shard(1))
+                       if _is_token_value(s, node.out_shapes[0]) else pl
+                       for pl, s in zip(natural, node.out_shapes)]
         outs = list(natural)
         target = getattr(op, "target_pts", None) if t in _PARALLEL \
             else None
@@ -776,19 +877,25 @@ def plan_spmd(pcg, strategy, mesh, inputs_sharded: bool = True
             pinned = spec_placements(target.partition_spec(), names)
             outs[0] = tuple(natural[0][i] if i == di else pinned[i]
                             for i in range(n))
-        elif ns is not None and ns.output_spec and nout:
+        elif ns is not None and ns.output_spec and nout and \
+                t != OperatorType.OP_INPUT:
             # the pinned layout on the model axes; the data axis follows
-            # the batch (a whole batch on every rank stays whole)
+            # the batch (a whole batch on every rank stays whole). An input
+            # keeps the layout it is bound in: its consumers take theirs
             pinned = spec_placements(ns.output_spec, names)
             outs[0] = tuple(natural[0][i] if i == di else pinned[i]
                             for i in range(n))
         grad_axes = (di,) if (batch_split and wdecl and mode != "global"
                               and data_of(ins[0]) is not None
                               and data_of(ins[0]).is_shard()) else ()
+        if wdecl:
+            # a weight read by every rank's own positions: its grad is
+            # partial over the sequence axes too
+            grad_axes += tok
         plans[node.guid] = NodePlan(
             srcs=srcs, ins=ins, natural=natural, outs=outs, stored=stored,
             use=use, mode=mode, axis=axis, copy_axes=copy_axes,
-            grad_axes=grad_axes, fsdp=fsdp)
+            grad_axes=grad_axes, fsdp=fsdp, seq_axes=tok)
         for i, pl in enumerate(outs):
             held[(node.guid, i)] = pl
     return plans

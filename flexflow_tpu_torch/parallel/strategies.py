@@ -7,9 +7,10 @@ create_partition_attention_combine :3169, DLRM's pre-searched strategy
 protobufs examples/cpp/DLRM/strategies/*.pb): known-good hybrid shardings
 that are what ``--import-strategy`` files look like. The builders write the
 same specs node by node as the JAX package's, so the exported JSON is the
-same text. ``long_context_strategy`` is a builder only here: the attention
-op refuses its ``sequence_parallel_axis`` until the long-context schedules
-are ported.
+same text. ``long_context_strategy``'s plans train: ring or Ulysses
+attention over the sequence axis (``kernels/ring_attention.py``,
+``kernels/ulysses_attention.py``) with the activations split over it
+between blocks (``parallel/spmd.py``'s sequence mode).
 """
 from __future__ import annotations
 

@@ -78,6 +78,22 @@ checkpoint in ``--ref-dir``; under torchrun with two ranks it compiles
 the proxy searched at two, restores that checkpoint through
 ``resilience.elastic_restore`` (a re-searched plan, the params' crc32s
 the saved ones) and trains one step.
+
+``--suite long`` trains GPT-2 small at seq 16384, batch 1 (fp32, then
+bf16; ``--steps 4 --warmup 2`` is enough) on one card (``--reference
+--suite long``, a process of its own, first) and then
+under ``long_context_strategy(dp=1, sp=world)`` in ``ring`` and in
+``alltoall`` mode, captured steps over NCCL: per run the p50 step, each
+rank's peak allocation over the fit above what it held when the fit
+began, the first step's
+loss against the one-card run's (``chip_smoke.TRAIN_TOL``), the params'
+difference after the fit in units of their change, and per rank one
+profiled replay's busy and NCCL milliseconds (the causal ring's
+imbalance: rank r computes r + 1 of the sp blocks a layer). Then, in bf16,
+it looks for the longest power-of-two length up to 131072 that one train
+step takes at sp = world (ring) but not on one card (the reference
+process tries each on one card), with the per-rank peak. Rehearse with
+``--device cpu --tiny``.
 """
 from __future__ import annotations
 
@@ -87,6 +103,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 
@@ -145,7 +162,8 @@ def args_of():
         REPO, "chiprun_out", "mesh_multigpu.json"))
     p.add_argument("--suite", default="strategies",
                    choices=("strategies", "pipeline", "c8", "fsdp", "ckpt",
-                            "ckpt_one", "search", "cascade", "elastic"))
+                            "ckpt_one", "search", "cascade", "elastic",
+                            "long"))
     p.add_argument("--eager-stages", action="store_true",
                    help="pipeline suite: run the stages eagerly")
     p.add_argument("--package-root", default=None,
@@ -892,13 +910,239 @@ def c8(args) -> None:
     finish(args, rank, {"card": card, "world": world, "c8": line})
 
 
+# the long-context suite: the sequence GPT-2 small trains at, and the
+# lengths the probe tries, longest first
+LONG_SEQ = 16384
+LONG_PROBE = (131072, 65536, 32768)
+
+
+def long_model(args, device, dname: str, seq: int, strategy_fn=None):
+    """``chip_smoke.train_model``'s GPT-2 small at ``seq``, batch 1 (the
+    tiny LM at 16 a rank under ``--tiny``) in ``dname``; its batches."""
+    import chip_smoke as cs
+    from flexflow_tpu_torch import (AdamOptimizer, DataType, FFConfig,
+                                    FFModel, LossType)
+    from flexflow_tpu_torch.models.gpt2 import GPT2Config, build_gpt2
+
+    cfg = GPT2Config(batch_size=1, seq_len=seq, hidden=64, num_heads=4,
+                     num_layers=2, intermediate=128, vocab_size=100) \
+        if args.tiny else GPT2Config(batch_size=1, seq_len=seq)
+    c = FFConfig()
+    c.batch_size, c.seed = 1, cs.SEED
+    c.profiling, c.print_freq = True, 10 ** 9
+    if dname == "bf16":
+        c.compute_dtype = DataType.DT_BFLOAT16
+    ff = FFModel(c, device=device)
+    _ids, logits = build_gpt2(ff, cfg)
+    ff.softmax(logits)
+    ff.compile(optimizer=AdamOptimizer(ff, alpha=1e-4),
+               loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+               strategy_fn=strategy_fn)
+    ff.profile_operators(0)  # --profiling here is the steps' walls
+    x, y = cs.train_data("gpt2", cfg, args.steps)
+    return ff, x, y
+
+
+def long_fit(ff, x, y, args, device) -> dict:
+    """One fit: losses, p50 ms after the warm-up, peak GiB over it above
+    what the card held when it began (the model's state and what the
+    caller keeps), B1-B4 launches a step, the params after it, captures;
+    on the card, one more step (a replay) profiled: busy and NCCL ms."""
+    import torch
+
+    import chip_smoke as cs
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    cuda = device.type == "cuda"
+    base = memory_base(device) if cuda else 0
+    fa.reset_launch_count()
+    ff.fit([x], y, epochs=1)
+    n = len(ff.fit_history.loss)
+    res = dict(losses=list(ff.fit_history.loss),
+               p50_ms=float(np.median(ff.fit_history.step_s[args.warmup:]))
+               * 1e3,
+               counts={k: fa.launch_count(k) // n for k in fa.KERNELS},
+               captures=ff.executor.make_train_step().program.captures
+               if cuda else 0,
+               params=cs.param_list(ff))
+    if cuda:
+        res["peak_gib"] = (torch.cuda.max_memory_allocated(device)
+                           - base) / 2 ** 30
+        prof = cs.profiled(lambda: ff.fit([x[:1]], y[:1], epochs=1))
+        res["busy_ms"], res["nccl_ms"] = prof["busy_ms"], prof["nccl_ms"]
+    return res
+
+
+def long_step_peak(args, device, seq: int, fn=None) -> Optional[float]:
+    """Peak GiB of one bf16 train step (eager) at ``seq`` under ``fn``
+    (None: out of memory)."""
+    import gc
+
+    import torch
+
+    ff = None
+    try:
+        memory_base(device)
+        ff, x, y = long_model(args, device, "bf16", seq, fn)
+        ff._capture_steps = False
+        ff.fit([x[:1]], y[:1], epochs=1)
+        torch.cuda.synchronize(device)
+        return torch.cuda.max_memory_allocated(device) / 2 ** 30
+    except torch.cuda.OutOfMemoryError:
+        return None
+    finally:
+        del ff
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def long_reference(args) -> None:
+    """``--reference --suite long``: the one-card runs, in a process of
+    its own (under torchrun a compile with no strategy would search the
+    world): per dtype the fit's results and its initial weights, and on
+    the card the probe's one-card peaks, in ``--ref-dir``."""
+    import torch
+
+    import chip_smoke as cs
+
+    device = torch.device(args.device)
+    seq = 16 * 4 if args.tiny else LONG_SEQ
+    os.makedirs(args.ref_dir, exist_ok=True)
+    out = {}
+    for dname in ("fp32", "bf16"):
+        ff, x, y = long_model(args, device, dname, seq)
+        weights = ff.get_params_numpy()
+        init = [t.cpu() for t in cs.param_list(ff)]
+        one = long_fit(ff, x, y, args, device)
+        one["params"] = [t.cpu() for t in one["params"]]
+        del ff
+        torch.save(dict(one, init=init, weights=weights),
+                   os.path.join(args.ref_dir, f"long_{dname}.pt"))
+        print(f"long gpt2 {dname} one card s{seq} b1: p50 "
+              f"{one['p50_ms']:.3f} ms, peak GiB over the fit "
+              f"{one.get('peak_gib')}, launches a step {one['counts']}, "
+              f"captures {one['captures']}", flush=True)
+    if device.type == "cuda":
+        for seq in sorted(LONG_PROBE):
+            peak = long_step_peak(args, device, seq)
+            out[seq] = peak
+            print(f"long probe s{seq} one card: " + (
+                "out of memory" if peak is None else f"{peak:.3f} GiB"),
+                flush=True)
+    with open(os.path.join(args.ref_dir, "long_probe.json"), "w") as f:
+        json.dump({str(k): v for k, v in out.items()}, f)
+
+
+def long_probe(args, device, world: int, card: str) -> dict:
+    """The longest power-of-two length of ``LONG_PROBE`` that one bf16
+    train step takes at sp = world (ring) but not on one card (the
+    reference's probe), with each rank's peak: from the shortest length
+    one card cannot take, upwards while the last peak, doubled, stays
+    under 0.9 of the card (a rank out of memory inside the ring's
+    point-to-point would leave its peers waiting)."""
+    import torch
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch.parallel.strategies import long_context_strategy
+
+    with open(os.path.join(args.ref_dir, "long_probe.json")) as f:
+        one = {int(k): v for k, v in json.load(f).items()}
+    total = torch.cuda.get_device_properties(device).total_memory / 2 ** 30
+    res = dict(seq=None, one_card_peak_gib=one)
+    last = None
+    for seq in sorted(k for k, v in one.items() if v is None):
+        if last is not None and 2 * last > 0.9 * total:
+            break
+        peaks = [None] * world
+        dist.all_gather_object(peaks, long_step_peak(
+            args, device, seq, lambda pcg: long_context_strategy(
+                pcg, dp=1, sp=world)))
+        print(f"long probe s{seq} ring sp={world}: peak GiB a rank " + (
+            "out of memory" if None in peaks else
+            str([round(p, 3) for p in peaks])) + f" [{card}]", flush=True)
+        if None in peaks:
+            break
+        res.update(seq=seq, ring_peak_gib=peaks)
+        last = max(peaks)
+    return res
+
+
+def long_context(args) -> None:
+    """GPT-2 small at s16384 over the world by ring and by Ulysses
+    attention, fp32 then bf16, against the one-card runs of
+    ``--reference --suite long``; the length probe."""
+    import torch
+    import torch.distributed as dist
+
+    import chip_smoke as cs
+    from flexflow_tpu_torch.parallel.strategies import long_context_strategy
+
+    device, rank, world, card = join(args)
+    cuda = args.device == "cuda"
+    seq = 16 * world if args.tiny else LONG_SEQ
+    out = {"card": card, "world": world, "seq": seq, "runs": {}}
+    fails = []
+    for dname in ("fp32", "bf16"):
+        one = torch.load(os.path.join(args.ref_dir, f"long_{dname}.pt"),
+                         weights_only=False)
+        for mode in ("ring", "alltoall"):
+            ff, x, y = long_model(
+                args, device, dname, seq, lambda pcg: long_context_strategy(
+                    pcg, dp=1, sp=world, mode=mode))
+            ff.set_params_numpy(one["weights"])
+            r = long_fit(ff, x, y, args, device)
+            del ff
+            rows = [None] * world
+            dist.all_gather_object(rows, {k: r.get(k) for k in (
+                "p50_ms", "peak_gib", "busy_ms", "nccl_ms", "losses")})
+            dparams = cs.update_rel([t.cpu() for t in r["params"]],
+                                    one["params"], one["init"])
+            dloss = abs(r["losses"][0] - one["losses"][0]) / abs(
+                one["losses"][0])
+            line = dict(
+                p50_ms=r["p50_ms"], one_card_p50_ms=one["p50_ms"],
+                peak_gib_a_rank=[q["peak_gib"] for q in rows],
+                one_card_peak_gib=one.get("peak_gib"),
+                busy_ms_a_rank=[q["busy_ms"] for q in rows],
+                nccl_ms_a_rank=[q["nccl_ms"] for q in rows],
+                counts=r["counts"], one_card_counts=one["counts"],
+                captures=r["captures"], first_loss_rel=dloss,
+                dparams=dparams, losses=r["losses"],
+                one_card_losses=one["losses"])
+            out["runs"][f"{dname}_{mode}"] = line
+            if rank == 0:
+                compute = [None if b is None else b - n for b, n in zip(
+                    line["busy_ms_a_rank"], line["nccl_ms_a_rank"])]
+                print(f"long gpt2 {dname} {mode} sp={world} s{seq} b1: p50 "
+                      f"{r['p50_ms']:.3f} ms (one card {one['p50_ms']:.3f}),"
+                      f" peak GiB over the fit a rank "
+                      f"{line['peak_gib_a_rank']} (one card "
+                      f"{one.get('peak_gib')}); a replay's busy ms a rank "
+                      f"{line['busy_ms_a_rank']}, NCCL "
+                      f"{line['nccl_ms_a_rank']}, compute {compute}; "
+                      f"launches a step {r['counts']} (one card "
+                      f"{one['counts']}); captures {r['captures']}; first "
+                      f"loss rel {dloss:.3g}, params after "
+                      f"{len(r['losses'])} steps {dparams:.3g} of their "
+                      f"change [{card}]", flush=True)
+            if dloss > cs.TRAIN_TOL[dname][0]:
+                fails.append(f"{dname} {mode}: first loss rel {dloss}")
+            if cuda and r["captures"] != 1:
+                fails.append(f"{dname} {mode}: {r['captures']} captures")
+    if cuda:
+        out["probe"] = long_probe(args, device, world, card)
+    if fails and rank == 0:
+        print("long: " + "; ".join(fails), flush=True)
+    finish(args, rank, out, code=1 if fails else 0)
+
+
 if __name__ == "__main__":
     a = args_of()
     if a.reference:
-        reference(a)
+        long_reference(a) if a.suite == "long" else reference(a)
     else:
         {"strategies": mesh, "pipeline": pipeline, "c8": c8,
          "fsdp": lambda a: mesh(a, FSDP_STRATEGIES), "ckpt": ckpt,
          "search": lambda a: mesh(a, SEARCH_STRATEGIES),
          "ckpt_one": ckpt_one, "cascade": cascade,
-         "elastic": elastic}[a.suite](a)
+         "elastic": elastic, "long": long_context}[a.suite](a)

@@ -5,8 +5,8 @@ every rank runs the port's Unity search (``tests/torch_search_pairs.py``).
 The machine is a ``--machine-model-file`` whose compute is slow and links
 fast, so the search picks the hybrid mesh (2, 2), with Repartition and
 Combine nodes between its sharded and replicated regions, even at this
-size; sequence parallelism is off (its
-attention is a later slice). The JAX package searches the same PCG on the
+size; sequence parallelism is off in these cases. The JAX package searches
+the same PCG on the
 same machine fields (``unity_search`` in its ``strategy_fn``) and trains
 one Adam step under the result on its virtual mesh. Checked:
 
@@ -21,12 +21,11 @@ one Adam step under the result on its virtual mesh. Checked:
   the JAX package's;
 * a forced digest mismatch raises on every rank, naming rank 1, and no
   rank hangs;
-* the port's default config keeps the search out of sequence-parallel
-  plans, which its attention refuses until ring / Ulysses attention is
-  ported: on the tiny BERT with one head the JAX search, sequence
-  parallelism on (its default), shards the sequence, while the four ranks
-  compiled with the port's default config train the plan the JAX package
-  finds with it off, step for step.
+* the port's default config searches sequence-parallel plans, as the JAX
+  package's does: on the tiny BERT with one head the JAX search, sequence
+  parallelism on (its default), shards the sequence, and the four ranks
+  compiled with the port's default config find the same plan (ring
+  attention over the mesh's model axis) and train it, step for step.
 """
 import itertools
 import json
@@ -69,8 +68,9 @@ def _jax_model(path, bert, **config):
     return ff, c
 
 
-def _jax_searched(path, bert=None):
-    ff, c = _jax_model(path, bert or JaxBertConfig.tiny(batch_size=8))
+def _jax_searched(path, bert=None, **config):
+    ff, c = _jax_model(path, bert or JaxBertConfig.tiny(batch_size=8),
+                       **config)
     machine = TPUMachineModel(**sp.jax_fields(
         GPUMachineModel.from_file(path, WORLD)))
     ff.compile(optimizer=fj.AdamOptimizer(None, alpha=1e-3),
@@ -96,13 +96,14 @@ def runs(tmp_path_factory):
         mp.setattr(jax_pcg, "_node_guid", itertools.count(1))
         jff = _jax_searched(path)
         # the JAX default, sequence parallelism on, on the one-head BERT
+        mp.setattr(jax_pcg, "_node_guid", itertools.count(1))
         jsp, c = _jax_model(path, one_head, enable_sequence_parallel=True)
         pcg = jsp.create_pcg()
         sp_json = jax_unity_search(
             pcg, c, WORLD, machine=TPUMachineModel(**sp.jax_fields(
                 GPUMachineModel.from_file(path, WORLD)))).to_json(pcg)
         mp.setattr(jax_pcg, "_node_guid", itertools.count(1))
-        jdef = _jax_searched(path, one_head)
+        jdef = _jax_searched(path, one_head, enable_sequence_parallel=True)
     args = dict(model="bert", strategy=None, batch=8, **_config(path))
     # the port's default config: no enable_sequence_parallel set
     args_default = dict(model="bert_1head", strategy=None, batch=8,
@@ -167,11 +168,12 @@ def test_a_forced_mismatch_raises_on_every_rank(runs):
         assert "ranks [1]" in err and "disagree" in err, (r, err)
 
 
-def test_default_config_searches_no_sequence_parallel_plan(runs):
+def test_default_config_searches_the_jax_sequence_parallel_plan(runs):
     root, want = runs
     assert "sequence_parallel_axis" in want["sp_json"]
+    sp_json = want["sp_json"]
     want = want["default"]
-    assert "sequence_parallel_axis" not in want["strategy"]
+    assert want["strategy"] == sp_json
     got = [tp.load(root, "default", r) for r in range(WORLD)]
     assert len({str(g["digest"]) for g in got}) == 1
     for g in got:

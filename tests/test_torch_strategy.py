@@ -17,8 +17,9 @@
   process stays on the one-device path;
 * a pipeline grid compiles since its slice (tests/test_torch_pipeline*.py);
   one the world cannot hold is refused by the preflight, naming the grid;
-* refused by name: a strategy's ``sequence_parallel_axis`` (A.7), serving
-  a model compiled on a mesh (A.8).
+* refused by name: serving a model compiled on a mesh (A.8). (A
+  strategy's ``sequence_parallel_axis`` trains since its slice:
+  tests/test_torch_long_context.py.)
 """
 import json
 
@@ -267,13 +268,6 @@ def test_pipeline_grid_is_refused_by_name():
         _tiny_bert(strategy_fn=fn)
     assert "needs 2 devices but only 1" in str(e.value)
     assert not dist.is_initialized()
-
-
-def test_sequence_parallel_axis_is_refused_by_name(one_rank):
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7") as e:
-        _tiny_bert(strategy_fn=lambda pcg: tstr.long_context_strategy(
-            pcg, 1, 1))
-    assert "sequence_parallel_axis" in str(e.value) and LATER in str(e.value)
 
 
 def test_serving_a_mesh_model_is_refused_by_name(one_rank):

@@ -49,6 +49,11 @@ def _strategy(name: str):
         return lambda pcg: hybrid_data_tensor_strategy(pcg, dp=a, tp=b)
     if kind == "expert":
         return lambda pcg: expert_parallel_strategy(pcg, dp=a, ep=b)
+    if kind in ("ring", "alltoall"):  # the sequence over a (data, seq) mesh
+        from flexflow_tpu_torch.parallel.strategies import \
+            long_context_strategy
+
+        return lambda pcg: long_context_strategy(pcg, dp=a, sp=b, mode=kind)
     if kind == "fsdp":  # weights over the data axis (ZeRO-3 / FSDP)
         from torch_ckpt_pairs import fsdp_strategy
 
@@ -104,7 +109,8 @@ def build(model: str, strategy, batch: int, *, dropout: float = 0.0,
         build_bert(ff, cfg)
     elif model == "bert_1head":  # the tiny BERT with one attention head
         build_bert(ff, BertConfig(batch_size=batch, **BERT_1HEAD))
-    elif model == "gpt2":  # the tiny LM, token-level targets
+    elif model in ("gpt2", "gpt2_dense"):  # the tiny LM, token-level
+        # targets (gpt2_dense: one-hot, with the per-position metrics)
         _ids, logits = build_gpt2(ff, GPT2Config.tiny(batch_size=batch))
         ff.softmax(logits)
     elif model == "moe":
@@ -150,15 +156,34 @@ def build(model: str, strategy, batch: int, *, dropout: float = 0.0,
         raise ValueError(model)
     opt = (ft.AdamOptimizer(None, alpha=1e-3) if optimizer == "adam"
            else ft.SGDOptimizer(None, lr=0.05))
-    loss = (ft.LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE
-            if model == "linear"
-            else ft.LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY)
-    # the metrics read one class a sample, which token-level targets are not
-    ff.compile(optimizer=opt, loss_type=loss,
-               metrics=[] if model == "gpt2" else
-               [ft.MetricsType.METRICS_ACCURACY],
+    ff.compile(optimizer=opt, loss_type=loss_of(ft, model),
+               metrics=metrics_of(ft, model),
                strategy_fn=_strategy(strategy) if strategy else None)
     return ff
+
+
+def loss_of(pkg, model: str):
+    """The loss a case's model compiles with (``pkg``: either package)."""
+    if model == "linear":
+        return pkg.LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE
+    if model == "gpt2_dense":
+        return pkg.LossType.LOSS_CATEGORICAL_CROSSENTROPY
+    return pkg.LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY
+
+
+def metrics_of(pkg, model: str):
+    """The metrics a case's model compiles with: the sparse metrics read
+    one class a sample, which GPT-2's token-level ids are not; its one-hot
+    targets take every metric that reads positions."""
+    m = pkg.MetricsType
+    if model == "gpt2":
+        return []
+    if model == "gpt2_dense":
+        return [m.METRICS_ACCURACY, m.METRICS_CATEGORICAL_CROSSENTROPY,
+                m.METRICS_MEAN_SQUARED_ERROR,
+                m.METRICS_ROOT_MEAN_SQUARED_ERROR,
+                m.METRICS_MEAN_ABSOLUTE_ERROR]
+    return [m.METRICS_ACCURACY]
 
 
 def one_step(ff, x, y, rng_seed: int = 11):
@@ -319,9 +344,13 @@ def _case_flow(ff_args, io):
             "wrote": np.array([os.path.exists(f) for f in files])}
 
 
+PERF_SUMS = ("cce_loss", "sparse_cce_loss", "mse_loss", "rmse_loss",
+             "mae_loss")
+
+
 def _case_metrics(ff_args, io):
-    """``eval``'s accuracy counts, the eval step's loss on the whole batch
-    and ``predict``."""
+    """``eval``'s accuracy counts and metric sums, the eval step's loss on
+    the whole batch and ``predict``."""
     import torch
 
     ff = build(**ff_args)
@@ -333,6 +362,7 @@ def _case_metrics(ff_args, io):
                                    torch.tensor(ys))
     return {"train_all": np.int64(perf.train_all),
             "train_correct": np.int64(perf.train_correct),
+            **{f: np.float64(getattr(perf, f)) for f in PERF_SUMS},
             "loss": np.float64(float(loss)),
             "pred": ff.predict(io["x"])}
 

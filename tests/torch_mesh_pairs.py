@@ -41,6 +41,9 @@ def jax_strategy(name: str):
     if kind == "hybrid":
         return lambda pcg: jax_strategies.hybrid_data_tensor_strategy(
             pcg, dp=a, tp=b)
+    if kind in ("ring", "alltoall"):
+        return lambda pcg: jax_strategies.long_context_strategy(
+            pcg, dp=a, sp=b, mode=kind)
     return lambda pcg: jax_strategies.expert_parallel_strategy(pcg, dp=a,
                                                                ep=b)
 
@@ -55,7 +58,7 @@ def jax_build(model: str, strategy: str, batch: int, bf16: bool = False):
     ff = fj.FFModel(c)
     if model == "bert":
         jax_build_bert(ff, JaxBertConfig.tiny(batch_size=batch))
-    elif model == "gpt2":
+    elif model in ("gpt2", "gpt2_dense"):
         _ids, logits = jax_build_gpt2(ff, JaxGPT2Config(
             batch_size=batch, seq_len=16, hidden=64, num_heads=4,
             num_layers=2, intermediate=128, vocab_size=100))
@@ -68,12 +71,9 @@ def jax_build(model: str, strategy: str, batch: int, bf16: bool = False):
         h = ff.dense(x, 64, fj.ActiMode.AC_MODE_RELU, use_bias=False,
                      name="col")
         ff.dense(h, 8, use_bias=False, name="row")
-    loss = (fj.LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE
-            if model == "linear"
-            else fj.LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY)
-    ff.compile(optimizer=fj.AdamOptimizer(None, alpha=1e-3), loss_type=loss,
-               metrics=[] if model == "gpt2" else
-               [fj.MetricsType.METRICS_ACCURACY],
+    ff.compile(optimizer=fj.AdamOptimizer(None, alpha=1e-3),
+               loss_type=tp.loss_of(fj, model),
+               metrics=tp.metrics_of(fj, model),
                strategy_fn=jax_strategy(strategy))
     return ff
 
@@ -127,6 +127,9 @@ def data(model: str, batch: int, n: int = 0, seed: int = 0):
     elif model == "gpt2":
         x = rng.integers(0, 100, (n, 16)).astype(np.int32)
         y = rng.integers(0, 100, (n, 16)).astype(np.int32)
+    elif model == "gpt2_dense":  # one-hot token targets
+        x = rng.integers(0, 100, (n, 16)).astype(np.int32)
+        y = np.eye(100, dtype=np.float32)[rng.integers(0, 100, (n, 16))]
     elif model == "emb":
         x = rng.integers(0, 64, (n, 4)).astype(np.int32)
         y = rng.integers(0, 4, (n, 1)).astype(np.int32)
