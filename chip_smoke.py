@@ -196,8 +196,9 @@ timed generate only replays):
    of each timed run (``profile seq <model> fp32`` lines: flash, Adam,
    GEMM, MoE dispatch, elementwise — in NMT chiefly the LSTM's gates).
 
-10. resilient train — the BERT-Large proxy (bf16, Adam 1e-4, float
-   input, ``default_rng`` data: 2 epochs of 6 batches) through the
+10. resilient train — the BERT-Large proxy at ``RES_LAYERS`` (12) of its
+   24 layers (bf16, Adam 1e-4, float input, ``default_rng`` data: 2
+   epochs of 6 batches) through the
    fault-tolerant ``fit``, one model whose state every run resets in
    place: (a) the guarded captured step against the plain one on a clean
    batch (``GRAPH_TOL``); (b) on a poisoned batch ``ok`` is false and
@@ -212,8 +213,8 @@ timed generate only replays):
    blocked seconds; (e) no capture across (c) and (d), exactly one after
    a ``set_learning_rate``; (f) a save -> restore roundtrip bitwise and in
    place; (g) ``--remat none|selective|full``: p50 step ms, one eager
-   step's peak allocated and reserved memory, flash launches a step (24 /
-   24 B1 / B2 under none and selective, 48 / 24 under full), peak full <
+   step's peak allocated and reserved memory, flash launches a step (one
+   B1 / B2 a layer under none and selective, two B1 under full), peak full <
    none and selective <= none, loss and grads within the band of none's,
    also with attention dropout 0.1 on a 2-layer copy; (h) three manual
    steps (``set_batch``, ``forward``, ``zero_gradients``, ``backward``,
@@ -221,7 +222,7 @@ timed generate only replays):
    ``SPREAD_RUNS`` such fits; (i) the plain and the guarded fit's p50 step
    and idle share. Checkpoints go to a temporary directory (``--keep-
    checkpoints 2``; under ``$TMPDIR`` or, with more room, the checkout;
-   about 11 GB at most), removed at the end.
+   about 5.5 GB at most), removed at the end.
 
 11. obs — observability, fusion and the cache op's recompile: (a) the
    BERT-Large proxy (bf16, Adam) through ``fit`` with ``--telemetry-file``
@@ -1406,12 +1407,11 @@ FA_SHAPES = {
     "long": dict(b=1, h=12, sq=16384, sk=16384, d=64, causal=True),
     # phase 19: a small ring block on the diagonal and one below it (the
     # kernels against their plain versions at non-zero position offsets),
-    # then the main path's shapes: GPT-2 small at s16384 over sp 4, the
-    # ring's below-diagonal block and Ulysses' head group of 3
+    # then the ring's below-diagonal block of GPT-2 small at s16384 over
+    # sp 4 (Ulysses' head groups take the "long" timings)
     "ring_diag": dict(b=1, h=4, sq=512, sk=512, d=64, causal=True),
     "ring_below": dict(b=1, h=4, sq=512, sk=512, d=64, causal=False),
     "ring": dict(b=1, h=12, sq=4096, sk=4096, d=64, causal=False),
-    "ulysses": dict(b=1, h=3, sq=16384, sk=16384, d=64, causal=True),
 }
 # kernel against plain: O absolute (fp32 summation order; bf16 one output
 # rounding), grads relative to their largest element (bf16: P and dS are
@@ -3273,10 +3273,14 @@ def seq_phase(device, card: str, prompt_set: dict,
 
 
 # ------------------------------------------------------- resilient train
-# phase 10: the BERT-Large proxy (bf16, Adam 1e-4, float input) trains 12
-# steps over 2 epochs of 6 batches through the resilient fit
+# phase 10: the BERT-Large proxy (bf16, Adam 1e-4, float input) at half
+# its depth trains 12 steps over 2 epochs of 6 batches through the
+# resilient fit. Half the depth halves every checkpoint (1.8 GB, written
+# seven times) and step: the phase's gates read the layer count, and the
+# widths, the kernels and the save path are the full model's
 RES_BATCHES = 6
 RES_EPOCHS = 2
+RES_LAYERS = 12
 # a resumed, rolled-back or manual run against an uninterrupted one: both
 # replay the same batches through the same kernels, so they differ only as
 # uninterrupted runs of this call do (the 16-bit B2 sums dQ by bulk
@@ -3337,7 +3341,8 @@ class ResilientRun:
         import torch
 
         t = time.perf_counter()
-        self.ff, self.cfg = train_model("bert", "bf16", device)
+        self.ff, self.cfg = train_model("bert", "bf16", device,
+                                        num_layers=RES_LAYERS)
         self.ff.config.print_freq = 10 ** 9  # walls kept, no step lines
         self.batch = self.cfg.batch_size
         self.x, self.y = train_data("bert", self.cfg,
@@ -3905,7 +3910,8 @@ def resilient_phase(device, card: str) -> dict:
              f"the checkpoints need {need / 1e9:.1f} GB")
     root = tempfile.mkdtemp(prefix="ff_resilient_", dir=where)
     try:
-        log(f"resilient train: BERT-Large proxy bf16, Adam 1e-4, "
+        log(f"resilient train: BERT-Large proxy bf16 at "
+            f"{run.cfg.num_layers} layers, Adam 1e-4, "
             f"{RES_EPOCHS} epochs of {RES_BATCHES} batches of "
             f"{run.batch}, built in {run.built_s:.1f} s; checkpoints in a "
             f"temporary directory with {free / 1e9:.1f} GB free (they need "
@@ -7688,9 +7694,10 @@ def safety_phase(device, card: str) -> dict:
 # position offsets and dropout 0.1 against their plain versions at a small
 # ring block on the diagonal (causal) and one below it, fp32 and bf16; a
 # launch with zero offsets bitwise the launch without them, and offsets
-# moving the mask; then each kernel timed at the main path's shapes (the
-# ring's below-diagonal block, b1 h12 s4096 d64; Ulysses' head group, b1
-# h3 s16384 d64 causal). (b) GPT-2 small at s16384, batch 1,
+# moving the mask; then each kernel timed at the ring's below-diagonal
+# block (b1 h12 s4096 d64); Ulysses' head groups (b1 h3 s16384 d64 causal)
+# take the kernel phase's timings of the whole sequence (b1 h12 s16384,
+# the flash_*_long entries). (b) GPT-2 small at s16384, batch 1,
 # long_context_strategy(dp=1, sp=4) in ring and in alltoall mode, fp32 and
 # bf16, on SEQ_WORLD threaded ranks of the one card (eager: the
 # threaded_p2p harness's collectives cannot be captured), one step each
@@ -7775,13 +7782,14 @@ def longctx_kernels(device, card: str) -> dict:
         f"them: {same}; offsets move the dropout mask: {moved} [{card}]")
     if not (same and moved):
         fail("longctx kernels: the position offsets do not act as stated")
+    # the ring's block is timed here; Ulysses' head groups take the kernel
+    # phase's whole-sequence timings (flash_*_long, b1 h12 s16384)
     timed = {}
-    for shape in ("ring", "ulysses"):
-        for dname in ("fp32", "bf16"):
-            for kernel, r in fa_case(device, card, shape, dname,
-                                     quick=True).items():
-                r.pop("eager_ms", None)
-                timed[(kernel, shape, dname)] = r
+    for dname in ("fp32", "bf16"):
+        for kernel, r in fa_case(device, card, "ring", dname,
+                                 quick=True).items():
+            r.pop("eager_ms", None)
+            timed[(kernel, "ring", dname)] = r
     return timed
 
 
@@ -7960,6 +7968,341 @@ def longctx_phase(device, card: str) -> dict:
                 wall=wall)
 
 
+# ----------------------------------------------- phase 20: serving on a mesh
+# (a) B5's segment mode (sequence-parallel decode) against its plain
+# version at GPT-2 small's decode shape (the kernel phase's: 8 slots, 12
+# heads, d64, 16-token blocks, 32 blocks a slot, key counts 1..512, so slot
+# 0's later segments hold no key), fp32 and bf16, native and int8 pools, 2
+# and 4 segments; each combined read is held against the plain whole read
+# too, and the 4-segment read is timed. (b) GPT-2 small at vocab 50304 on
+# one card, greedy, native and int8 KV, served with --seq-shards 4 and
+# context buckets against the unsharded engine's streams (ties excepted:
+# the segments reassociate the softmax sums). (c) The same model under tp 2
+# on two ranks as threads of one process (eager, the harness group's
+# collectives cannot be captured), greedy and top-k 8, against the one
+# card's streams; the rank's pools hold 6 of the 12 heads, and its
+# kv_hbm_per_chip_bytes and pool bytes are half the one card's. (d) The
+# serving search at n_dev 4 on the detected card, and elastic_replan(2)
+# between two ticks of a serve whose streams must equal an uninterrupted
+# serve's. The phase's stated wall: SERVE20_WALL_S.
+SERVE20_WALL_S = 40.0
+SERVE20_SEGMENTS = (2, 4)
+SERVE20_SHARDS = 4
+SERVE20_BUCKETS = (256, 512)
+SERVE20_LENGTHS = (200, 96, 150, 32, 120, 180, 72, 48)
+SERVE20_NEW_TOKENS = 16
+SERVE20_TP = 2
+
+
+def segment_bound(n_keys, el: int, int8: bool, segments: int,
+                  heads: int = HEADS):
+    """(bound_ms, bound_by) of one decode read as ``segments`` segment
+    launches: the used K/V rows (as :func:`flash_decode_bound`), q and the
+    tables read, and the fp32 partials written (slots x heads x (vd + 2)
+    a segment), over HBM bandwidth, against the fp32 flops over the fp32
+    peak."""
+    keys = int(np.sum(n_keys))
+    kv = keys * heads * (2 * HEAD_DIM + 8 if int8 else 2 * HEAD_DIM * el)
+    io = SLOTS * heads * HEAD_DIM * el + SLOTS * (MAX_BLOCKS + 1) * 4 \
+        + segments * SLOTS * heads * (HEAD_DIM + 2) * 4
+    t_bytes = (kv + io) / HBM_BYTES_PER_S
+    t_ops = keys * heads * 4 * HEAD_DIM / FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def serve20_kernels(device, card: str, iters: int = 240,
+                    layers: int = 12) -> dict:
+    """(a): {(int8, dtype): timing dict} of the 4-segment read."""
+    import torch
+
+    from flexflow_tpu_torch.kernels import flash_decode as fd
+    from flexflow_tpu_torch.kernels.seqpar_decode import (MASK_NEG,
+                                                          combine_partials)
+    from flexflow_tpu_torch.serving.kvcache import quantize_kv
+
+    out = {}
+    for int8 in (False, True):
+        for name in ("fp32", "bf16"):
+            dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[name]
+            per_layer, tables, n_keys = decode_inputs(
+                torch.float32 if int8 else dtype, device, layers)
+            if int8:
+                per_layer = [(q.to(dtype), kq, vq,
+                              dict(kscale=ks, vscale=vs))
+                             for q, (kq, ks), (vq, vs) in (
+                                 (q, quantize_kv(k), quantize_kv(v))
+                                 for q, k, v in per_layer)]
+            else:
+                per_layer = [(q, k, v, {}) for q, k, v in per_layer]
+            label = "flash_decode_segment" + ("_int8" if int8 else "")
+            err, empty = 0.0, 0
+            for segs in SERVE20_SEGMENTS:
+                cols = MAX_BLOCKS // segs
+                for q, k, v, sc in per_layer[:2]:
+                    got = [fd.flash_decode_segment(
+                        q, k, v, tables, n_keys, s * cols, (s + 1) * cols,
+                        **sc) for s in range(segs)]
+                    want = [fd.flash_decode_segment_plain(
+                        q, k, v, tables, n_keys, s * cols, (s + 1) * cols,
+                        **sc) for s in range(segs)]
+                    whole = fd.flash_decode_plain(q, k, v, tables, n_keys,
+                                                  **sc).float()
+                    for s in range(segs):
+                        held = (n_keys > s * cols * BLOCK).cpu()
+                        m, l, acc = (t.cpu() for t in got[s])
+                        if not (m[~held].eq(MASK_NEG).all()
+                                and l[~held].eq(0).all()
+                                and acc[~held].eq(0).all()):
+                            fail(f"{label} {name}: a keyless segment's "
+                                 "partial is not (-1e30, 0, 0)")
+                        empty += int((~held).sum())
+                    a = combine_partials(got)[:, :, 0].float()
+                    b = combine_partials(want)[:, :, 0].float()
+                    err = max(err, (a - b).abs().max().item(),
+                              (a - whole).abs().max().item())
+            if empty < 1:
+                fail(f"{label} {name}: no segment was fully masked")
+            if not err <= KERNEL_ATOL[name]:
+                fail(f"{label} {name}: max |kernel - plain| = {err} > "
+                     f"{KERNEL_ATOL[name]}")
+            segs = SERVE20_SHARDS
+            cols = MAX_BLOCKS // segs
+
+            def read(fn, i, segs=segs, cols=cols):
+                q, k, v, sc = per_layer[i % layers]
+                return [fn(q, k, v, tables, n_keys, s * cols,
+                           (s + 1) * cols, **sc) for s in range(segs)]
+
+            cuda = device.type == "cuda"
+            ms = time_ms(lambda i: read(fd.flash_decode_segment, i), iters,
+                         device, graph=cuda)
+            plain_ms = time_ms(
+                lambda i: read(fd.flash_decode_segment_plain, i),
+                max(iters // 20, 1), device)
+            el = per_layer[0][0].element_size()
+            bound_ms, bound_by = segment_bound(n_keys.cpu().numpy(), el,
+                                               int8, segs)
+            log(f"serve20 kernel {label} {name}: max_abs_err {err:.3g} "
+                f"(combined vs plain, {empty} keyless segment partials "
+                f"exact), {segs} segments {ms * 1e3:.2f} us, plain "
+                f"{plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
+                f"({bound_by}) [{card}]")
+            out[(int8, name)] = dict(max_abs_err=err, ms=ms,
+                                     plain_ms=plain_ms, bound_ms=bound_ms,
+                                     bound_by=bound_by, library_ms=None)
+    return out
+
+
+def serve20_model(device, strategy_fn=None):
+    """GPT-2 small at vocab 50304, fp32, random weights from the seed, 8
+    slots, max_decode_len 512 (a 32-block table), compiled for inference
+    (under ``strategy_fn`` on the ranks)."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.models.gpt2 import GPT2Config, build_gpt2
+
+    cfg = GPT2Config(vocab_size=VOCAB_PADDED)
+    config = FFConfig()
+    config.batch_size, config.seed = cfg.batch_size, SEED
+    config.max_decode_len, config.max_inflight = E2E_MAX_DECODE_LEN, SLOTS
+    ff = FFModel(config, device=device)
+    build_gpt2(ff, cfg)
+    ff.compile(strategy_fn=strategy_fn)
+    return ff
+
+
+def serve20_engine(ff, **kw):
+    from flexflow_tpu_torch.serving.engine import ServingEngine
+
+    return ServingEngine(ff, n_slots=SLOTS, max_decode_len=E2E_MAX_DECODE_LEN,
+                         **kw)
+
+
+def serve20_seqpar(device, card: str, ff, prompts) -> dict:
+    """(b): the unsharded and the 4-segment engines, native and int8; the
+    segment counts are read around the sharded runs alone (the eager first
+    call of each program, its capture and the replays)."""
+    import torch
+
+    from flexflow_tpu_torch.kernels import flash_decode as fd
+
+    out = {}
+    for kv_dtype in ("native", "int8"):
+        want = serve20_engine(ff, kv_dtype=kv_dtype).generate(
+            prompts, max_new_tokens=SERVE20_NEW_TOKENS)
+        eng = serve20_engine(ff, kv_dtype=kv_dtype,
+                             seq_shards=SERVE20_SHARDS,
+                             context_buckets=SERVE20_BUCKETS)
+        fd.reset_launch_count()
+        got = eng.generate(prompts, max_new_tokens=SERVE20_NEW_TOKENS)
+        torch.cuda.synchronize()
+        name = "flash_decode_segment" + ("_int8" if kv_dtype == "int8"
+                                         else "")
+        launches = fd.launch_count(name)
+        whole = fd.launch_count("flash_decode" + ("_int8" if kv_dtype ==
+                                                  "int8" else ""))
+        stats = eng.stats
+        want_launches = SERVE20_SHARDS * attention_layers(ff) \
+            * stats.decode_steps
+        if launches < want_launches or whole:
+            fail(f"serve20 seq-shards {kv_dtype}: {launches} segment "
+                 f"launches and {whole} whole reads over "
+                 f"{stats.decode_steps} decode steps (want at least "
+                 f"{want_launches}, and 0)")
+        excluded, gap = equal_outside_ties(
+            f"serve20 seq-shards {kv_dtype}", ff, prompts, want, got)
+        log(f"serve20 seq-shards {SERVE20_SHARDS} {kv_dtype}: streams "
+            f"equal the unsharded engine's ({excluded} tokens past a "
+            f"tie, smallest gap {gap:.3g}); {launches} segment launches "
+            f"over {stats.decode_steps} decode steps; kv_hbm_per_chip "
+            f"{stats.kv_hbm_per_chip_bytes} B; {stats.tokens_per_s():.1f} "
+            f"tokens/s, p50 {stats.p50_token_ms():.3f} ms; buckets "
+            f"{eng.context_buckets} [{card}]")
+        out[kv_dtype] = dict(launches=launches, stats=stats.summary())
+    return out
+
+
+def serve20_threaded(device, card: str, weights, prompts, one: dict) -> dict:
+    """(c): tp 2 on two threaded ranks against the one card's runs
+    ``one`` ({sampling: (streams, stats)})."""
+    import threading
+
+    import torch
+
+    from flexflow_tpu_torch.kernels import flash_decode as fd
+    from flexflow_tpu_torch.kernels import topk as tk
+    from flexflow_tpu_torch.parallel.strategies import \
+        hybrid_data_tensor_strategy
+
+    runs = {"greedy": {}, "top8": dict(temperature=0.8, top_k=8, seed=3)}
+    heads = []
+    lock = threading.Lock()
+
+    def body(r):
+        ff = serve20_model(device, lambda pcg: hybrid_data_tensor_strategy(
+            pcg, dp=1, tp=SERVE20_TP))
+        ff._capture_steps = False
+        ff.set_params_numpy(weights)
+        res = {}
+        for key, sampling in runs.items():
+            eng = serve20_engine(ff)
+            res[key] = (eng.generate(prompts,
+                                     max_new_tokens=SERVE20_NEW_TOKENS,
+                                     **sampling), eng.stats)
+            with lock:
+                heads.append(next(iter(eng.state.caches.values()))[0]
+                             .shape[1])
+        return res
+
+    fd.reset_launch_count()
+    tk.reset_launch_count()
+    out = threaded_ranks(SERVE20_TP, body, "serve20 threaded")
+    torch.cuda.synchronize()
+    counts = {"flash_decode": fd.launch_count(), "topk": tk.launch_count()}
+    for key in runs:
+        want, want_stats = one[key]
+        for r in range(SERVE20_TP):
+            got, stats = out[r][key]
+            if got != want:
+                fail(f"serve20 threaded tp {SERVE20_TP} {key}: rank {r}'s "
+                     "streams differ from the one card's")
+            half = want_stats.kv_hbm_per_chip_bytes / SERVE20_TP
+            pool = want_stats.kv_pool_bytes_per_rank / SERVE20_TP
+            if abs(stats.kv_hbm_per_chip_bytes - half) > 1 or \
+                    stats.kv_pool_bytes_per_rank != pool:
+                fail(f"serve20 threaded {key}: rank {r} holds "
+                     f"{stats.kv_hbm_per_chip_bytes} B a step "
+                     f"({stats.kv_pool_bytes_per_rank} B pool), want half "
+                     f"the one card's {want_stats.kv_hbm_per_chip_bytes} "
+                     f"({want_stats.kv_pool_bytes_per_rank})")
+    if set(heads) != {HEADS // SERVE20_TP}:
+        fail(f"serve20 threaded: the ranks' pools hold {set(heads)} heads")
+    if counts["flash_decode"] < 1 or counts["topk"] < 1:
+        fail(f"serve20 threaded: launches {counts}")
+    st = out[0]["greedy"][1]
+    log(f"serve20 threaded tp {SERVE20_TP} (GPT-2 small, 2 ranks as "
+        f"threads on one card, eager; a harness, its times are not "
+        f"multi-GPU speed): greedy and top-8 streams equal the one card's "
+        f"on every rank; pools of {HEADS // SERVE20_TP} heads, "
+        f"kv_hbm_per_chip {st.kv_hbm_per_chip_bytes} B (one card "
+        f"{one['greedy'][1].kv_hbm_per_chip_bytes} B); launches {counts}; "
+        f"{st.tokens_per_s():.1f} tokens/s [{card}]")
+    return dict(counts=counts)
+
+
+def serve20_replan(device, card: str, ff, prompts) -> dict:
+    """(d): the serving search at n_dev 4 on the detected card, and a
+    replan between two ticks of a serve."""
+    from flexflow_tpu_torch.search.unity import search_all
+    from flexflow_tpu_torch.serving.scheduler import (
+        ContinuousBatchScheduler, Request)
+
+    t = time.perf_counter()
+    plan = search_all(ff.pcg, ff.config, 4, objective="serving")
+    search_s = time.perf_counter() - t
+    want = serve20_engine(ff).generate(prompts,
+                                       max_new_tokens=SERVE20_NEW_TOKENS)
+    eng = serve20_engine(ff)
+    sched = ContinuousBatchScheduler(n_slots=SLOTS, max_queue=len(prompts),
+                                     buckets=eng.buckets,
+                                     max_len=E2E_MAX_DECODE_LEN)
+    reqs = [Request(prompt=np.asarray(p, np.int32),
+                    max_new_tokens=SERVE20_NEW_TOKENS, rng_tag=i)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.admit(sched, r)
+    loop = eng.start_serve(sched)
+    ticks, replan = 0, None
+    while loop.tick():
+        ticks += 1
+        if ticks == len(prompts) + 4:
+            replan = eng.elastic_replan(2)
+    loop.finish()
+    got = [list(r.generated) for r in reqs]
+    if replan is None or got != want:
+        fail(f"serve20 replan: the continuations after elastic_replan(2) "
+             f"differ from the uninterrupted serve's (replanned: "
+             f"{replan is not None})")
+    log(f"serve20 search n_dev 4: {plan.describe()} (sim decode "
+        f"{plan.sim_decode_ms} ms, p99 {plan.sim_p99_ms} ms, "
+        f"{len(plan.ranked)} candidates, {search_s:.2f} s); "
+        f"elastic_replan(2) at tick {len(prompts) + 4}: "
+        f"{replan.describe()}, continuations identical [{card}]")
+    return dict(plan=plan.describe(),
+                sim_tokens_per_s=plan.sim_tokens_per_s,
+                replan=replan.describe())
+
+
+def serve20_phase(device, card: str) -> dict:
+    import torch
+
+    t0 = time.perf_counter()
+    kern = serve20_kernels(device, card)
+    t1 = time.perf_counter()
+    ff = serve20_model(device)
+    prompts = make_prompts(VOCAB_PADDED, SERVE20_LENGTHS, 64, 3)
+    seqpar = serve20_seqpar(device, card, ff, prompts)
+    t2 = time.perf_counter()
+    one = {}
+    for key, sampling in (("greedy", {}),
+                          ("top8", dict(temperature=0.8, top_k=8, seed=3))):
+        eng = serve20_engine(ff)
+        one[key] = (eng.generate(prompts, max_new_tokens=SERVE20_NEW_TOKENS,
+                                 **sampling), eng.stats)
+    threaded = serve20_threaded(device, card, ff.get_params_numpy(),
+                                prompts, one)
+    t3 = time.perf_counter()
+    replan = serve20_replan(device, card, ff, prompts)
+    del ff
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    log(f"serve20 phase wall {wall:.1f} s (stated {SERVE20_WALL_S:.0f} s): "
+        f"(a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) {t3 - t2:.1f} s, "
+        f"(d) {wall - t3 + t0:.1f} s [{card}]")
+    return dict(kern=kern, seqpar=seqpar, threaded=threaded, replan=replan,
+                wall=wall)
+
+
 def main() -> None:
     try:
         import torch
@@ -7997,6 +8340,9 @@ def main() -> None:
     # 16-token blocks, 32 blocks a slot: its engine's at max_decode_len 512)
     kern_dec = kernel_phase(device, card, dtypes=("fp32",),
                             heads=DECODER_HEADS)
+    # B5 at a tp 2 rank's share of GPT-2 small's heads (phase 20)
+    kern_tp2 = kernel_phase(device, card, dtypes=("fp32",),
+                            heads=HEADS // SERVE20_TP)
     topk_kern = topk_kernel_phase(device, card)
     sm_kern = softmax_kernel_phase(device, card)
     cfg = GPT2Config.small()
@@ -8042,6 +8388,7 @@ def main() -> None:
     search = search_phase(device, card, train["bert"]["p50_ms"])
     safety = safety_phase(device, card)
     longctx = longctx_phase(device, card)
+    serve20 = serve20_phase(device, card)
 
     kernels = []
     for compute, name in (("fp32", "flash_decode"),
@@ -8329,12 +8676,16 @@ def main() -> None:
         })
     # phase 19: B1, B3 and B4 on the ring's blocks (GPT-2 small s16384 over
     # four threaded ranks, timed at the below-diagonal block b1 h12 s4096)
-    # and on Ulysses' head groups (timed at b1 h3 s16384 causal), each
-    # dtype with its own path's launches; and the degenerate ring of (c)
-    # (fp32, one block at the s16384 shape, timed by the kernel phase)
+    # and on Ulysses' head groups (b1 h3 s16384 causal, timed by the kernel
+    # phase at the whole sequence's b1 h12 s16384, the flash_*_long
+    # entries), each dtype with its own path's launches; and the
+    # degenerate ring of (c) (fp32, one block at the s16384 shape, timed by
+    # the kernel phase)
     for path, shape in (("ring", "ring"), ("alltoall", "ulysses")):
         for dname in ("fp32", "bf16"):
             for kernel in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+                timed = longctx["kern"][(kernel, shape, dname)] \
+                    if shape == "ring" else fa_kern[(kernel, "long", dname)]
                 kernels.append({
                     "name": f"{kernel}_{shape}"
                             + ("_bf16" if dname == "bf16" else ""),
@@ -8343,7 +8694,7 @@ def main() -> None:
                     "replaces": FA_KERNELS[kernel][0],
                     "launches": longctx["threaded"][dname][path][
                         "launches"][kernel],
-                    **longctx["kern"][(kernel, shape, dname)],
+                    **timed,
                     **census.get((kernel, dname, 64), {}),
                 })
     for kernel in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
@@ -8357,6 +8708,41 @@ def main() -> None:
             **fa_kern[(kernel, "long", "fp32")],
             **census.get((kernel, "fp32", 64), {}),
         })
+    # phase 20: B5's segment mode on the sequence-sharded serves (fp32,
+    # native and int8 pools; timed as the 4-segment read at the kernel
+    # phase's shape), and B5 and B7 on the threaded tp 2 ranks (B5 at the
+    # rank's 6 heads, timed there by the kernel phase's 6-head instance;
+    # B7 at the sampler's (8, 50304), as the kernel phase times it)
+    for int8 in (False, True):
+        name = "flash_decode_segment" + ("_int8" if int8 else "")
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "flexflow_tpu_torch/kernels/csrc/flash_decode.cu",
+            "replaces": "flexflow_tpu/kernels/flash_decode.py:"
+                        + ("78" if int8 else "54"),
+            "launches": serve20["seqpar"]["int8" if int8 else "native"][
+                "launches"],
+            **serve20["kern"][(int8, "fp32")],
+            **dprops["flash_decode_int8" if int8 else "flash_decode"],
+        })
+    kernels.append({
+        "name": "flash_decode_tp2",
+        "route": "cuda",
+        "source": "flexflow_tpu_torch/kernels/csrc/flash_decode.cu",
+        "replaces": "flexflow_tpu/kernels/flash_decode.py:54",
+        "launches": serve20["threaded"]["counts"]["flash_decode"],
+        **kern_tp2["fp32"],
+        **dprops["flash_decode"],
+    })
+    kernels.append({
+        "name": "topk_tp2",
+        "route": "cuda",
+        "source": "flexflow_tpu_torch/kernels/csrc/topk.cu",
+        "replaces": "flexflow_tpu/kernels/topk.py:34",
+        "launches": serve20["threaded"]["counts"]["topk"],
+        **topk_kern[8],
+    })
     for kernel, line in (("softmax_fwd", 29), ("softmax_bwd", 38)):
         kernels.append({
             "name": kernel,

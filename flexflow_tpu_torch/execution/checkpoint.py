@@ -356,7 +356,11 @@ def _save_sharded(ffmodel, directory, final, step, trees, train_state,
         for fp in mine:
             _fsync_path(fp)
         sums = {os.path.basename(fp): list(_crc_file(fp)) for fp in mine}
-        _write_json(os.path.join(tmp, f"done.r{rank}.json"), sums)
+        # rank 0 reads a marker as soon as it exists: write it whole
+        # under another name, then rename it into place
+        done = os.path.join(tmp, f"done.r{rank}.json")
+        _write_json(f"{done}.part", sums)
+        os.replace(f"{done}.part", done)
         if rank != 0:
             _wait_for(lambda: not os.path.isdir(tmp) or
                       os.path.exists(failed),

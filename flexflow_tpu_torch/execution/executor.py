@@ -43,9 +43,14 @@ is gathered for its node and its grad reduce-scattered in the gather's
 backward, outside that all-reduce; autograd keeps its shard, not the
 gathered copy, and the backward gathers it again
 (:meth:`_fsdp_saved_hooks`). The guarded step's verdict is reduced over
-every rank of a mesh inside the step.
+every rank of a mesh inside the step. The serving programs run the plan
+of a batch held whole on every rank (every rank serves every slot) and
+gather their logits whole (:meth:`_serving_final`); attention computes
+the rank's heads, so the KV cache a rank keeps holds only those.
 """
 from __future__ import annotations
+
+import contextlib
 
 import dataclasses
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -517,8 +522,6 @@ class Executor:
         sctx = dataclasses.replace(
             ctx, shard=self._shard_infos[bool(self.batch_sharded)][
                 node.guid])
-        import contextlib
-
         import torch
 
         saving = saved and self._recomputing == 0 and \
@@ -1489,6 +1492,43 @@ class Executor:
         return fwd
 
     # ----------------------------------------------------------------- serving
+    @contextlib.contextmanager
+    def _batch_whole(self):
+        """Run the plan of a batch held whole on every rank (the serving
+        programs' layout, module doc) within the block."""
+        saved = self.batch_sharded
+        self.batch_sharded = False
+        try:
+            yield
+        finally:
+            self.batch_sharded = saved
+
+    def _serving_final(self, params, xs, ctx, overrides):
+        """The final output of a serving forward, whole on every rank. On a
+        mesh the batch (the slots, or one prompt) is whole on every rank,
+        as the JAX engine's programs hold it on a mesh, and the plan's
+        node layouts apply: attention runs on the rank's heads, so the
+        cache entries it hands back hold those heads only."""
+        with self._batch_whole():
+            values = self.forward_outputs(params, self._bind_inputs(xs),
+                                          ctx, overrides=overrides)
+            return self._replicate_output(
+                self.final_guid, self.final_out_idx,
+                values[self.final_guid][self.final_out_idx])
+
+    def serving_local_heads(self, node) -> int:
+        """The heads of attention node ``node`` that this rank's serving
+        programs compute and its KV pool holds: all of them off a mesh,
+        the rank's share where the serving plan splits them."""
+        heads = int(node.op.attrs.get("num_heads", 1))
+        if self.mesh is None:
+            return heads
+        with self._batch_whole():
+            plan = self._plan()[node.guid]
+        if plan.mode == "heads" and plan.axis is not None:
+            return heads // self.mesh.sizes[plan.axis]
+        return heads
+
     def _position_const_guids(self) -> List[int]:
         """Compute nodes holding the baked position-id constant."""
         from ..serving.kvcache import is_position_constant
@@ -1542,11 +1582,8 @@ class Executor:
             pos = torch.arange(bucket_len, dtype=torch.int32,
                                device=self.device).expand(b, bucket_len)
             pos = torch.minimum(pos, (lengths - 1).clamp(min=0)[:, None])
-            values = self.forward_outputs(
-                params, self._bind_inputs(xs), ctx,
-                overrides={g: [pos] for g in pos_guids})
-            logits = self._logits_f32(
-                values[self.final_guid][self.final_out_idx])
+            logits = self._logits_f32(self._serving_final(
+                params, xs, ctx, {g: [pos] for g in pos_guids}))
             idx = (lengths.long() - 1).clamp(0, logits.shape[1] - 1)
             last = logits[torch.arange(b, device=logits.device), idx]
             layout[:] = [(n, len(e) if isinstance(e, tuple) else 0)
@@ -1626,11 +1663,8 @@ class Executor:
             pos = start_t + torch.arange(chunk_len, dtype=torch.int32,
                                          device=self.device)
             pos = torch.minimum(pos, start_t + n_t - 1)[None, :]
-            values = self.forward_outputs(
-                params, self._bind_inputs(xs), ctx,
-                overrides={g: [pos] for g in pos_guids})
-            logits = self._logits_f32(
-                values[self.final_guid][self.final_out_idx])
+            logits = self._logits_f32(self._serving_final(
+                params, xs, ctx, {g: [pos] for g in pos_guids}))
             idx = (n_t.long() - 1).clamp(0, logits.shape[1] - 1)
             return [logits[0].index_select(0, idx)]
 
@@ -1653,14 +1687,17 @@ class Executor:
 
     def make_decode_step(self, max_decode_len: int, exact: bool = False,
                          guard: bool = False, block_size: int = 0,
-                         kv_dtype: str = "native", capture: bool = True):
+                         kv_dtype: str = "native", capture: bool = True,
+                         seq_shards: int = 1):
         """``(params, xs, state) -> (logits, state)``: ONE token per slot
         through the graph, writing each slot's k/v at its ``lengths``
         cursor into the paged pool (``block_size`` > 0) or the ring
         (``block_size`` 0, a state without block tables) and advancing the
         cursors — all in place. ``exact=True`` reads paged attention
         through the plain gather path instead of the flash-decode kernel.
-        ``kv_dtype`` is the pool's layout ("native" or "int8").
+        ``kv_dtype`` is the pool's layout ("native" or "int8");
+        ``seq_shards`` > 1 reads each slot's extent as that many key
+        segments (``ops/attention._seqpar_decode``), a program of its own.
 
         ``guard=True`` is the guarded decode program, a second program
         (flexflow_tpu/execution/executor.py:975-1060): it returns
@@ -1679,7 +1716,7 @@ class Executor:
         never reads stale weights. ``capture=False`` returns the eager
         body (for comparisons)."""
         key = ("decode", int(max_decode_len), bool(exact), bool(guard),
-               int(block_size), str(kv_dtype))
+               int(block_size), str(kv_dtype), int(seq_shards))
         fn = self._serving_fns.get(key if capture else key + ("eager",))
         if fn is not None:
             return fn
@@ -1697,15 +1734,13 @@ class Executor:
                                   cache_in=state.caches, exact=exact,
                                   block_tables=state.block_tables,
                                   block_size=int(block_size),
-                                  kv_dtype=str(kv_dtype))
+                                  kv_dtype=str(kv_dtype),
+                                  seq_shards=int(seq_shards))
                 ctx = OpContext(training=False, device=self.device,
                                 serving=sv)
-                values = self.forward_outputs(
-                    params, self._bind_inputs(xs), ctx,
-                    overrides={g: [state.lengths[:, None]]
-                               for g in pos_guids})
-                logits = self._logits_f32(
-                    values[self.final_guid][self.final_out_idx])[:, 0]
+                logits = self._logits_f32(self._serving_final(
+                    params, xs, ctx,
+                    {g: [state.lengths[:, None]] for g in pos_guids}))[:, 0]
                 # the state is written in place: attention entries already
                 # are (their pools took the token's rows); any other entry
                 # (the LSTM carry) is copied into the state's buffer, so

@@ -56,6 +56,17 @@
 // and shuffles hand each key row its pair. Elements are dequantized in
 // registers (float(k) * scale, the TPU kernel's order) before the same
 // fp32 math. q and the output keep the model dtype.
+//
+// Segment mode (ff_flash_decode_segment, ff_flash_decode_segment_int8)
+// serves sequence-parallel decode (flexflow_tpu/kernels/seqpar_decode.py,
+// whose decode_shard_partial it replaces on the card): the launch covers
+// only the table columns [seg_lo, seg_hi) of every slot, its chunks split
+// that range as above, and in place of the normalised output it writes the
+// segment's fp32 partial (m, l, acc) — the triple the chunks already merge
+// — to a (slots, heads, vd + 2) array. A segment that holds none of a
+// slot's keys (all of it at or past n_keys) writes m = -1e30, l = 0 and
+// acc = 0: it weighs exactly 0 in the combine, and no value of a block no
+// key reaches is ever read into it.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -149,10 +160,16 @@ __device__ __forceinline__ float weight(float m, float mx) {
   return m == -INFINITY ? 0.f : expf(m - mx);
 }
 
+// m of a partial over no key (segment mode): the decode mask's value
+constexpr float kMaskNeg = -1e30f;
+
 // T: q and output dtype. TKV: pool dtype — T itself, or int8_t with the
 // f32 scale arrays kscale/vscale (null for a native pool). part: scratch of
 // (slots * heads * chunks, vd + 2) fp32 partials (m, l, acc); tickets:
-// slots * heads counters, zero between launches.
+// slots * heads counters, zero between launches. The launch covers table
+// columns [seg_lo, seg_hi) (0 and mb outside segment mode); pout, when not
+// null, takes the (slots * heads, vd + 2) fp32 partial (m, l, acc) of those
+// columns in place of the normalised output.
 template <typename T, typename TKV, int kW, bool kVec>
 __global__ void __launch_bounds__(kThreads)
     flash_decode_kernel(const T* __restrict__ q,
@@ -163,7 +180,8 @@ __global__ void __launch_bounds__(kThreads)
                         const int* __restrict__ tables,
                         const int* __restrict__ n_keys, T* __restrict__ out,
                         float* __restrict__ part, int* __restrict__ tickets,
-                        int heads, int hd, int vd, int bs, int mb,
+                        float* __restrict__ pout, int heads, int hd, int vd,
+                        int bs, int mb, int seg_lo, int seg_hi,
                         int chunk_blocks, float scale) {
   using C = Layout<TKV, kW>;
   constexpr int kE = C::kE, kL = C::kL, kV = C::kV, kR = C::kR, kU = C::kU;
@@ -184,21 +202,32 @@ __global__ void __launch_bounds__(kThreads)
 
   // the chunk's table entries, loaded beside n_keys (entries past the
   // slot's used blocks are read but never followed)
-  const int b0 = chunk * chunk_blocks;
-  const int nb = min(chunk_blocks, mb - b0);
+  const int b0 = seg_lo + chunk * chunk_blocks;
+  const int nb = min(chunk_blocks, seg_hi - b0);
   for (int i = threadIdx.x; i < nb; i += kThreads)
     sm_blk[i] = tables[(size_t)s * mb + b0 + i];
   // keys past the table's extent do not exist: the slot attends to at
-  // most mb * bs positions (the TPU kernel's grid has exactly mb steps)
-  const int n = max(0, min(n_keys[s], mb * bs));
+  // most mb * bs positions (the TPU kernel's grid has exactly mb steps);
+  // a segment's keys end where its columns do
+  const int n = min(max(0, min(n_keys[s], mb * bs)), seg_hi * bs);
   const int ck = chunk_blocks * bs;
-  const int c0 = chunk * ck;
+  const int c0 = b0 * bs;
+  const int first = seg_lo * bs;
   const size_t sh = (size_t)s * heads + h;
-  T* orow = out + sh * vd;
+  T* orow = out != nullptr ? out + sh * vd : nullptr;
+  const int stride = vd + 2;
+  float* prow_out = pout != nullptr ? pout + sh * stride : nullptr;
   if (c0 >= n) {
-    if (chunk == 0)  // a slot with no keys gets zeros
-      for (int d = threadIdx.x; d < vd; d += kThreads)
-        orow[d] = from_f32<T>(0.f);
+    if (chunk == 0) {  // a slot with no keys here: zeros, or the empty
+                       // partial
+      if (prow_out != nullptr) {
+        for (int d = threadIdx.x; d < stride; d += kThreads)
+          prow_out[d] = d == 0 ? kMaskNeg : 0.f;
+      } else {
+        for (int d = threadIdx.x; d < vd; d += kThreads)
+          orow[d] = from_f32<T>(0.f);
+      }
+    }
     return;
   }
   const int end = min(n, c0 + ck);
@@ -343,18 +372,25 @@ __global__ void __launch_bounds__(kThreads)
     f[w] = weight(sm_m[w], mx);
     lsum += sm_l[w] * f[w];
   }
-  const int live_chunks = (n + ck - 1) / ck;
+  const int live_chunks = (n - first + ck - 1) / ck;
   if (live_chunks == 1) {
     for (int d = threadIdx.x; d < vd; d += kThreads) {
       float a = 0.f;
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) a += sm_acc[w][d] * f[w];
-      orow[d] = from_f32<T>(a / lsum);
+      if (prow_out != nullptr) {
+        prow_out[2 + d] = a;
+      } else {
+        orow[d] = from_f32<T>(a / lsum);
+      }
+    }
+    if (prow_out != nullptr && threadIdx.x == 0) {
+      prow_out[0] = mx;
+      prow_out[1] = lsum;
     }
     return;
   }
 
-  const int stride = vd + 2;
   float* prow = part + (sh * gridDim.x + chunk) * stride;
   for (int d = threadIdx.x; d < vd; d += kThreads) {
     float a = 0.f;
@@ -391,7 +427,15 @@ __global__ void __launch_bounds__(kThreads)
       lt += __ldcg(pc + 1) * w;
       a += __ldcg(pc + 2 + d) * w;
     }
-    orow[d] = from_f32<T>(a / lt);
+    if (prow_out != nullptr) {
+      prow_out[2 + d] = a;
+      if (d == 0) {
+        prow_out[0] = gm;
+        prow_out[1] = lt;
+      }
+    } else {
+      orow[d] = from_f32<T>(a / lt);
+    }
   }
 }
 
@@ -437,10 +481,12 @@ template <typename T, typename TKV, int kW>
 void launch_width(const T* q, const TKV* kpool, const TKV* vpool,
                   const float* kscale, const float* vscale, const int* tables,
                   const int* n_keys, T* out, float* part, int* tickets,
-                  int n_slots, int heads, int hd, int vd, int bs, int mb,
-                  int chunk_blocks, float scale, cudaStream_t stream) {
+                  float* pout, int n_slots, int heads, int hd, int vd, int bs,
+                  int mb, int seg_lo, int seg_hi, int chunk_blocks,
+                  float scale, cudaStream_t stream) {
   constexpr int kE = Layout<TKV, kW>::kE;
-  const dim3 grid((mb + chunk_blocks - 1) / chunk_blocks, heads, n_slots);
+  const int cols = seg_hi - seg_lo;
+  const dim3 grid((cols + chunk_blocks - 1) / chunk_blocks, heads, n_slots);
   // 16-byte loads when both widths are whole vectors and both pools start
   // on a 16-byte boundary (every row then does too)
   const bool vec = hd % kE == 0 && vd % kE == 0 &&
@@ -449,11 +495,11 @@ void launch_width(const T* q, const TKV* kpool, const TKV* vpool,
   if (vec) {
     flash_decode_kernel<T, TKV, kW, true><<<grid, kThreads, 0, stream>>>(
         q, kpool, vpool, kscale, vscale, tables, n_keys, out, part, tickets,
-        heads, hd, vd, bs, mb, chunk_blocks, scale);
+        pout, heads, hd, vd, bs, mb, seg_lo, seg_hi, chunk_blocks, scale);
   } else {
     flash_decode_kernel<T, TKV, kW, false><<<grid, kThreads, 0, stream>>>(
         q, kpool, vpool, kscale, vscale, tables, n_keys, out, part, tickets,
-        heads, hd, vd, bs, mb, chunk_blocks, scale);
+        pout, heads, hd, vd, bs, mb, seg_lo, seg_hi, chunk_blocks, scale);
   }
 }
 
@@ -461,8 +507,9 @@ template <typename T, typename TKV>
 int launch(const void* q, const void* kpool, const void* vpool,
            const void* kscale, const void* vscale, const void* tables,
            const void* n_keys, void* out, void* part, void* tickets,
-           int n_slots, int heads, int hd, int vd, int bs, int mb,
-           int chunk_blocks, float scale, cudaStream_t stream) {
+           void* pout, int n_slots, int heads, int hd, int vd, int bs,
+           int mb, int seg_lo, int seg_hi, int chunk_blocks, float scale,
+           cudaStream_t stream) {
   const int widest = hd > vd ? hd : vd;
   const T* qt = static_cast<const T*>(q);
   const TKV* kt = static_cast<const TKV*>(kpool);
@@ -474,18 +521,19 @@ int launch(const void* q, const void* kpool, const void* vpool,
   T* ot = static_cast<T*>(out);
   float* pt = static_cast<float*>(part);
   int* ct = static_cast<int*>(tickets);
+  float* po = static_cast<float*>(pout);
   if (widest <= 64) {
     launch_width<T, TKV, 64>(qt, kt, vt, kst, vst, tt, nt, ot, pt, ct,
-                             n_slots, heads, hd, vd, bs, mb, chunk_blocks,
-                             scale, stream);
+                             po, n_slots, heads, hd, vd, bs, mb, seg_lo,
+                             seg_hi, chunk_blocks, scale, stream);
   } else if (widest <= 128) {
     launch_width<T, TKV, 128>(qt, kt, vt, kst, vst, tt, nt, ot, pt, ct,
-                              n_slots, heads, hd, vd, bs, mb, chunk_blocks,
-                              scale, stream);
+                              po, n_slots, heads, hd, vd, bs, mb, seg_lo,
+                              seg_hi, chunk_blocks, scale, stream);
   } else {
     launch_width<T, TKV, 256>(qt, kt, vt, kst, vst, tt, nt, ot, pt, ct,
-                              n_slots, heads, hd, vd, bs, mb, chunk_blocks,
-                              scale, stream);
+                              po, n_slots, heads, hd, vd, bs, mb, seg_lo,
+                              seg_hi, chunk_blocks, scale, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -497,10 +545,43 @@ bool bad_shape(int n_slots, int heads, int hd, int vd, int bs, int mb,
          mb < 1 || chunk_blocks < 1 || chunk_blocks > kMaxChunkBlocks;
 }
 
+// One launch of any mode: native pools when kscale is null, else int8
+int dispatch(const void* q, const void* kpool, const void* vpool,
+             const void* kscale, const void* vscale, const void* tables,
+             const void* n_keys, void* out, void* part, void* tickets,
+             void* pout, int n_slots, int heads, int hd, int vd, int bs,
+             int mb, int seg_lo, int seg_hi, int chunk_blocks, float scale,
+             int dtype, void* stream) {
+  const bool int8 = kscale != nullptr;
+  if (bad_shape(n_slots, heads, hd, vd, bs, mb, chunk_blocks) ||
+      seg_lo < 0 || seg_hi <= seg_lo || seg_hi > mb ||
+      (int8 && vscale == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define FF_LAUNCH(T, TKV)                                                    \
+  launch<T, TKV>(q, kpool, vpool, kscale, vscale, tables, n_keys, out, part, \
+                 tickets, pout, n_slots, heads, hd, vd, bs, mb, seg_lo,      \
+                 seg_hi, chunk_blocks, scale, st)
+  switch (dtype) {
+    case 0:
+      return int8 ? FF_LAUNCH(float, int8_t) : FF_LAUNCH(float, float);
+    case 1:
+      return int8 ? FF_LAUNCH(__nv_bfloat16, int8_t)
+                  : FF_LAUNCH(__nv_bfloat16, __nv_bfloat16);
+    case 2:
+      return int8 ? FF_LAUNCH(__half, int8_t) : FF_LAUNCH(__half, __half);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef FF_LAUNCH
+}
+
 }  // namespace
 
 // Blocks of one chunk for a launch of this shape (int8: an int8 pool;
-// dtype: q's, 0 = float32, 1 = bfloat16, 2 = float16); the launch runs
+// dtype: q's, 0 = float32, 1 = bfloat16, 2 = float16; mb: the table
+// columns the launch covers, a segment's in segment mode); the launch runs
 // ceil(mb / chunk) chunks a (slot, head), and its scratch holds that many
 // (vd + 2)-float partials for each. Negative for a shape the kernel does
 // not take.
@@ -528,27 +609,9 @@ extern "C" int ff_flash_decode(const void* q, const void* kpool,
                                void* tickets, int n_slots, int heads, int hd,
                                int vd, int bs, int mb, int chunk_blocks,
                                float scale, int dtype, void* stream) {
-  if (bad_shape(n_slots, heads, hd, vd, bs, mb, chunk_blocks)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return launch<float, float>(q, kpool, vpool, nullptr, nullptr, tables,
-                                  n_keys, out, part, tickets, n_slots, heads,
-                                  hd, vd, bs, mb, chunk_blocks, scale, st);
-    case 1:
-      return launch<__nv_bfloat16, __nv_bfloat16>(
-          q, kpool, vpool, nullptr, nullptr, tables, n_keys, out, part,
-          tickets, n_slots, heads, hd, vd, bs, mb, chunk_blocks, scale, st);
-    case 2:
-      return launch<__half, __half>(q, kpool, vpool, nullptr, nullptr,
-                                    tables, n_keys, out, part, tickets,
-                                    n_slots, heads, hd, vd, bs, mb,
-                                    chunk_blocks, scale, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch(q, kpool, vpool, nullptr, nullptr, tables, n_keys, out,
+                  part, tickets, nullptr, n_slots, heads, hd, vd, bs, mb, 0,
+                  mb, chunk_blocks, scale, dtype, stream);
 }
 
 // int8 pools with f32 scales (n_blocks, heads, bs); dtype is q's and the
@@ -562,29 +625,27 @@ extern "C" int ff_flash_decode_int8(const void* q, const void* kpool,
                                     int hd, int vd, int bs, int mb,
                                     int chunk_blocks, float scale, int dtype,
                                     void* stream) {
-  if (bad_shape(n_slots, heads, hd, vd, bs, mb, chunk_blocks) ||
-      kscale == nullptr || vscale == nullptr) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return launch<float, int8_t>(q, kpool, vpool, kscale, vscale, tables,
-                                   n_keys, out, part, tickets, n_slots,
-                                   heads, hd, vd, bs, mb, chunk_blocks,
-                                   scale, st);
-    case 1:
-      return launch<__nv_bfloat16, int8_t>(
-          q, kpool, vpool, kscale, vscale, tables, n_keys, out, part,
-          tickets, n_slots, heads, hd, vd, bs, mb, chunk_blocks, scale, st);
-    case 2:
-      return launch<__half, int8_t>(q, kpool, vpool, kscale, vscale, tables,
-                                    n_keys, out, part, tickets, n_slots,
-                                    heads, hd, vd, bs, mb, chunk_blocks,
-                                    scale, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (kscale == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(q, kpool, vpool, kscale, vscale, tables, n_keys, out,
+                  part, tickets, nullptr, n_slots, heads, hd, vd, bs, mb, 0,
+                  mb, chunk_blocks, scale, dtype, stream);
+}
+
+// Segment mode: the partial (m, l, acc) of table columns [seg_lo, seg_hi)
+// into pout, fp32 (n_slots, heads, vd + 2); chunk_blocks from
+// ff_flash_decode_chunk_blocks at mb = seg_hi - seg_lo, part sized for
+// ceil((seg_hi - seg_lo) / chunk_blocks) chunks. kscale/vscale null for a
+// native pool, the f32 scales of an int8 one.
+extern "C" int ff_flash_decode_segment(
+    const void* q, const void* kpool, const void* vpool, const void* kscale,
+    const void* vscale, const void* tables, const void* n_keys, void* pout,
+    void* part, void* tickets, int n_slots, int heads, int hd, int vd, int bs,
+    int mb, int seg_lo, int seg_hi, int chunk_blocks, float scale, int dtype,
+    void* stream) {
+  if (pout == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(q, kpool, vpool, kscale, vscale, tables, n_keys, nullptr,
+                  part, tickets, pout, n_slots, heads, hd, vd, bs, mb, seg_lo,
+                  seg_hi, chunk_blocks, scale, dtype, stream);
 }
 
 extern "C" const char* ff_cuda_error_string(int code) {

@@ -24,9 +24,18 @@ order, in the same launch. Beside it:
   across calls: made zeroed on the first eager call of a device (a first
   call inside a capture raises), left zero by every launch, and shared by
   all launches on the device, which must therefore run on one stream.
+* :func:`flash_decode_segment` — the same kernel's segment mode for
+  sequence-parallel decode (``kernels/seqpar_decode.py``): the launch
+  covers the table columns ``[lo, hi)`` of every slot and returns the fp32
+  online-softmax partial ``(m, l, acc)`` of those keys instead of the
+  normalised output; a slot with no key there gets ``(-1e30, 0, 0)``.
+  Its plain version, :func:`flash_decode_segment_plain`, is
+  ``seqpar_decode.decode_shard_partial`` over the gathered segment.
 * :func:`launch_count` — launches of each branch (``"flash_decode"``,
-  ``"flash_decode_int8"``) since the last :func:`reset_launch_count`, so a
-  run can show it went through the kernel.
+  ``"flash_decode_int8"``, ``"flash_decode_segment"``,
+  ``"flash_decode_segment_int8"``) since the last
+  :func:`reset_launch_count`, so a run can show it went through the
+  kernel.
 """
 from __future__ import annotations
 
@@ -39,7 +48,8 @@ from .counts import LaunchCounts
 NEG_INF = -1e30
 
 KERNELS = ("flash_decode", "flash_decode_int8")
-_launches = LaunchCounts("flash_decode", KERNELS)
+SEGMENT_KERNELS = ("flash_decode_segment", "flash_decode_segment_int8")
+_launches = LaunchCounts("flash_decode", KERNELS + SEGMENT_KERNELS)
 
 
 def launch_count(kernel: str = "flash_decode") -> int:
@@ -49,7 +59,7 @@ def launch_count(kernel: str = "flash_decode") -> int:
 
 
 def reset_launch_count() -> None:
-    for name in KERNELS:
+    for name in KERNELS + SEGMENT_KERNELS:
         _launches[name] = 0
 
 
@@ -157,8 +167,12 @@ def _library():
         lib.ff_flash_decode.argtypes = [ctypes.c_void_p] * 8 + tail
         lib.ff_flash_decode_int8.argtypes = [ctypes.c_void_p] * 10 + tail
         lib.ff_flash_decode_chunk_blocks.argtypes = [ctypes.c_int] * 8
+        lib.ff_flash_decode_segment.argtypes = (
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         for fn in (lib.ff_flash_decode, lib.ff_flash_decode_int8,
-                   lib.ff_flash_decode_chunk_blocks):
+                   lib.ff_flash_decode_chunk_blocks,
+                   lib.ff_flash_decode_segment):
             fn.restype = ctypes.c_int
     return lib
 
@@ -283,3 +297,106 @@ def flash_decode(q, kpool, vpool, block_tables, n_keys, *,
     check(lib, err, f"{name} launch")
     _launches[name] += 1
     return out
+
+
+def _segment_bounds(block_tables, lo: int, hi: int) -> None:
+    mb = block_tables.shape[1]
+    if not 0 <= lo < hi <= mb:
+        raise ValueError(f"flash_decode_segment: columns [{lo}, {hi}) are "
+                         f"not a segment of a {mb}-column table")
+
+
+def flash_decode_segment_plain(q, kpool, vpool, block_tables, n_keys,
+                               lo: int, hi: int, *,
+                               sm_scale: Optional[float] = None,
+                               kscale=None, vscale=None):
+    """Plain-PyTorch segment partial: the slots' blocks at table columns
+    ``[lo, hi)`` gathered in position order (an int8 pool dequantized to
+    q's dtype, as the JAX op reads it off the kernel path), the keys at
+    positions ``>= n_keys`` masked, and
+    ``seqpar_decode.decode_shard_partial`` over them. A slot with no key in
+    the segment gets ``m = -1e30``, ``l = 0`` and ``acc = 0`` (the JAX
+    function gives it the segment's length and the sum of its values,
+    which the combine weighs by 0 all the same). Returns fp32 ``(m, l,
+    acc)`` of shapes (S, h, 1), (S, h, 1) and (S, h, 1, vd)."""
+    import torch
+
+    from .seqpar_decode import MASK_NEG, decode_shard_partial
+
+    int8 = _check_scales(kpool, kscale, vscale)
+    _segment_bounds(block_tables, lo, hi)
+    bs = kpool.shape[2]
+    cols = block_tables[:, lo:hi].long()               # (S, c)
+    n_slots, c = cols.shape
+
+    def gather(pool, scales):
+        g = pool[cols]                                 # (S, c, h, bs, d)
+        if int8:
+            g = (g.float() * scales[cols][..., None]).to(q.dtype)
+        return g.permute(0, 2, 1, 3, 4).reshape(
+            n_slots, pool.shape[1], c * bs, pool.shape[3])
+
+    k_seg, v_seg = gather(kpool, kscale), gather(vpool, vscale)
+    kpos = lo * bs + torch.arange(c * bs, device=q.device)
+    nk = n_keys.long()
+    mask = (kpos[None, :] < nk[:, None])[:, None, None, :]
+    m, l, acc = decode_shard_partial(  # noqa: E741
+        q[:, :, None, :], k_seg, v_seg, mask,
+        _scale(q.shape[-1], sm_scale))
+    has = (nk > lo * bs)[:, None, None]
+    m = torch.where(has, m, torch.full_like(m, MASK_NEG))
+    l = torch.where(has, l, torch.zeros_like(l))  # noqa: E741
+    acc = torch.where(has[..., None], acc, torch.zeros_like(acc))
+    return m, l, acc
+
+
+def flash_decode_segment(q, kpool, vpool, block_tables, n_keys, lo: int,
+                         hi: int, *, sm_scale: Optional[float] = None,
+                         kscale=None, vscale=None):
+    """The segment partial ``(m, l, acc)`` of table columns ``[lo, hi)``
+    (fp32, shapes (S, h, 1), (S, h, 1), (S, h, 1, vd); views of one
+    ``(S, h, vd + 2)`` array). Inputs as for :func:`flash_decode`. On CUDA
+    tensors this launches ``csrc/flash_decode.cu``'s segment mode (one
+    launch, both pool branches) or raises; CPU tensors take
+    :func:`flash_decode_segment_plain`."""
+    import torch
+
+    int8 = _check_scales(kpool, kscale, vscale)
+    if q.device.type == "cpu":
+        return flash_decode_segment_plain(
+            q, kpool, vpool, block_tables, n_keys, lo, hi,
+            sm_scale=sm_scale, kscale=kscale, vscale=vscale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode_segment: no kernel for device "
+                         f"{q.device}")
+    _segment_bounds(block_tables, lo, hi)
+    _check_cuda_inputs(q, kpool, vpool, block_tables, n_keys, kscale,
+                       vscale)
+    from .build import check
+    from .tickets import ticket_buffer
+
+    lib = _library()
+    n_slots, heads, hd = q.shape
+    vd = vpool.shape[3]
+    bs, mb = kpool.shape[2], block_tables.shape[1]
+    code = _dtype_code(q.dtype)
+    cb = chunk_blocks(lib, n_slots, heads, hd, vd, bs, hi - lo, int8, code)
+    chunks = -(-(hi - lo) // cb)
+    pout = torch.empty((n_slots, heads, vd + 2), dtype=torch.float32,
+                       device=q.device)
+    tickets = ticket_buffer("flash_decode", q.device, n_slots * heads)
+    part = (torch.empty(n_slots * heads * chunks * (vd + 2),
+                        dtype=torch.float32, device=q.device)
+            if chunks > 1 else pout)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.ff_flash_decode_segment(
+        q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
+        kscale.data_ptr() if int8 else None,
+        vscale.data_ptr() if int8 else None,
+        block_tables.data_ptr(), n_keys.data_ptr(), pout.data_ptr(),
+        part.data_ptr(), tickets.data_ptr(), n_slots, heads, hd, vd, bs, mb,
+        lo, hi, cb, _scale(hd, sm_scale), code, stream)
+    name = "flash_decode_segment_int8" if int8 else "flash_decode_segment"
+    check(lib, err, f"{name} launch")
+    _launches[name] += 1
+    return pout[..., 0:1], pout[..., 1:2], pout[..., 2:][:, :, None, :]

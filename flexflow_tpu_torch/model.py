@@ -49,8 +49,8 @@ closed calibration loop under ``--profile-ops`` /
 ``--auto-recalibrate`` (``obs/drift.py``); ``resilience.elastic_restore``
 re-plans a checkpoint for the live world; ``--debug-nans`` runs the steps
 eagerly and raises ``FloatingPointError`` naming the node whose output or
-input grad holds a NaN. Serving on a mesh comes in a later slice; it
-raises ``NotImplementedError``.
+input grad holds a NaN. ``generate`` on a model compiled under a strategy
+serves on its mesh (``serving/engine.py``): call it on every rank.
 """
 from __future__ import annotations
 

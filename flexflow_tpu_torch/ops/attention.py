@@ -25,13 +25,15 @@ one mask whichever route runs.
 Serving (``ctx.serving``): prefill runs the plain causal core and hands the
 prompt's k/v rows to the engine; decode writes one token per slot into the
 paged pool and reads it through the flash-decode kernel
-(``kernels/flash_decode.py``); chunk prefill writes a chunk's rows into one
-slot's blocks and attends over the slot's gathered extent. The ring layout
-(``block_tables`` None) writes the token at each slot's cursor and reads
-the whole ring under the position mask, plain tensor code as in the JAX
-package, where the ring runs no Pallas kernel either. Under
-``kv_dtype="int8"`` every write quantizes its rows per (token, head) and
-stores the scales beside them; decode reads through the kernel's int8
+(``kernels/flash_decode.py``), or under ``seq_shards`` > 1 through its
+segment mode, one launch a key segment, merged by
+``kernels/seqpar_decode.combine_partials``; chunk prefill writes a chunk's
+rows into one slot's blocks and attends over the slot's gathered extent.
+The ring layout (``block_tables`` None) writes the token at each slot's
+cursor and reads the whole ring under the position mask, plain tensor
+code as in the JAX package, where the ring runs no Pallas kernel either.
+Under ``kv_dtype="int8"`` every write quantizes its rows per (token, head)
+and stores the scales beside them; decode reads through the kernel's int8
 branch, the exact and chunk paths dequantize the gathered rows to the
 compute dtype.
 """
@@ -260,6 +262,8 @@ def _serving_attention(name: str, q, k, v, sv, *, causal: bool):
         for pool, new in zip(entry, (k, v)):
             write_token_kv_paged(pool, new, sv.positions, tables, bs)
     sv.cache_out[name] = entry
+    if sv.seq_shards > 1:
+        return _seqpar_decode(q, entry, tables, sv, scale, k.dtype)
     out = _maybe_flash_decode(q, entry, tables, sv, scale)
     if out is not None:
         return out
@@ -268,6 +272,71 @@ def _serving_attention(name: str, q, k, v, sv, *, causal: bool):
     mask = kpos[None, None, None, :] <= sv.positions.long()[:, None, None,
                                                             None]
     return _masked_core(q, kc, vc, mask, scale)
+
+
+def _seqpar_decode(q, entry, tables, sv, scale: float, dtype):
+    """Sequence-parallel decode (flexflow_tpu/ops/attention.py:291-348):
+    each slot's extent is scored as ``sv.seq_shards`` contiguous key
+    segments of ``mb / seq_shards`` table columns each, on the rank's own
+    heads.
+
+    ``exact`` keeps the bitwise contract against the single-segment exact
+    path: each segment is scored by a full-extent product whose keys
+    outside the segment are zero, so its columns come from the same
+    kernel at the same shape as that path's (the key axis is never
+    reduced by the score product; the JAX package pads q to the extent
+    for the same reason), and their concatenation in position order
+    feeds the one masked softmax and PV sum. The fast path takes each
+    segment's online-softmax partial ``(m, l, acc)`` from the flash-decode
+    kernel's segment mode (its plain version on the CPU) and merges them
+    with ``seqpar_decode.combine_partials``; a segment above a slot's
+    cursor weighs exactly 0."""
+    import torch
+
+    from ..kernels.flash_decode import flash_decode_segment
+    from ..kernels.seqpar_decode import (MASK_NEG, combine_partials,
+                                         shard_segment)
+
+    S = int(sv.seq_shards)
+    mb = tables.shape[1]
+    shard_segment(mb * sv.block_size, S)
+    if mb % S:
+        raise ValueError(
+            f"seq_shards={S} does not split the {mb}-column block table "
+            "into whole blocks (FF006: max_blocks_per_slot must be "
+            "divisible by seq_shards)")
+    cols = mb // S
+    if sv.exact:
+        kc, vc = _gathered_kv(entry, tables, sv.kv_dtype, dtype)
+        seg = shard_segment(kc.shape[2], S)
+        cols = []
+        for s in range(S):
+            lo, hi = s * seg, (s + 1) * seg
+            kseg = torch.zeros_like(kc, dtype=torch.float32)
+            kseg[:, :, lo:hi] = kc[:, :, lo:hi].float()
+            cols.append((torch.einsum("bhqd,bhkd->bhqk", q.float(), kseg)
+                         * scale)[..., lo:hi])
+        logits = torch.cat(cols, dim=-1)
+        kpos = torch.arange(kc.shape[2], device=q.device)
+        mask = kpos[None, None, None, :] <= sv.positions.long()[
+            :, None, None, None]
+        logits = logits.masked_fill(~mask, MASK_NEG)
+        probs = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bhqk,bhkd->bhqd", probs.to(vc.dtype).float(),
+                           vc.float())
+        return out.to(vc.dtype)
+    n_keys = (sv.positions + 1).to(tables.dtype)
+    qr = q[:, :, 0, :].contiguous()
+    if sv.kv_dtype == "int8":
+        kq, ks, vq, vs = entry
+        pools, scales = (kq, vq), dict(kscale=ks, vscale=vs)
+    else:
+        pools, scales = tuple(entry), {}
+    partials = [flash_decode_segment(qr, *pools, tables, n_keys,
+                                     s * cols, (s + 1) * cols,
+                                     sm_scale=scale, **scales)
+                for s in range(S)]
+    return combine_partials(partials).to(dtype)
 
 
 def _gathered_kv(entry, tables, kv_dtype: str, dtype):

@@ -41,9 +41,10 @@ recovery must reconverge to the uninterrupted run). Steps are global
   the psum in the JAX package); ``"scale"`` (the default) scales the
   candidate's reported grad norm by the factor, with no graph change.
 
-The JAX plan's device drop (``drop_devices_at``, which drives the elastic
-replan of multi-device serving, ROADMAP A.8) comes with the slice that
-ports that path; here it raises, naming itself.
+The JAX plan's device drop (``drop_devices_at``, which drives the
+device-loss failover of the serving engine into ``elastic_replan``,
+ROADMAP A.8) comes with the slice that ports that failover; here it
+raises, naming itself.
 """
 from __future__ import annotations
 
@@ -82,9 +83,9 @@ class ChaosPlan:
             if value != _LATER_ARGS[name]:
                 raise NotImplementedError(
                     f"ChaosPlan({name}=) is ported in a later slice: it "
-                    "injects into the multi-device serving path (the "
-                    "elastic replan, ROADMAP A.8), which this slice does "
-                    "not run")
+                    "injects into the serving engine's device-loss "
+                    "failover (ROADMAP A.8), which this slice does not "
+                    "run")
         self.nan_at_steps = {int(s) for s in nan_at_steps}
         self.preempt_at_step = (None if preempt_at_step is None
                                 else int(preempt_at_step))

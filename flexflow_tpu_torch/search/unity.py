@@ -2060,10 +2060,9 @@ def search_all(pcg: PCG, config, n_dev: int, objective: str = "training",
     share the Simulator's delta-cost caches when a warm ``sim=`` is
     passed."""
     if objective == "serving":
-        raise NotImplementedError(
-            "search_all: objective='serving' (the serving search, "
-            "flexflow_tpu/serving/search.py) is a later slice of the port "
-            "(ROADMAP A.8)")
+        from ..serving.search import serving_search
+
+        return serving_search(pcg, config, n_dev, **kwargs)
     if objective != "training":
         raise ValueError(
             f"unknown search objective {objective!r}: "

@@ -5,10 +5,25 @@ Port of ``flexflow_tpu.serving.engine`` for the paged KV pool
 ring layout (``kv_cache="ring"``, the bitwise reference), the radix prefix
 cache with its chunk-prefill step, optional chunked prefill
 (``--prefill-chunk-tokens``), the synchronous and the async serve loop
-(``--serve-loop``), one sequence shard, greedy or top-k temperature
-sampling, and serving under failure (``serving/resilience.py``). Each tick
-performs one scheduler action: a one-shot prefill, one prefill chunk, or
-one decode step that advances every live slot by a token.
+(``--serve-loop``), sequence-parallel decode (``--seq-shards``, each
+slot's extent read as contiguous key segments merged by the flash segment
+combine) with admission's context buckets (``--context-buckets``),
+greedy or top-k temperature sampling, and serving under failure
+(``serving/resilience.py``). Each tick performs one scheduler action: a
+one-shot prefill, one prefill chunk, or one decode step that advances
+every live slot by a token.
+
+A model compiled under a strategy serves on its device mesh, one process
+a rank (multi-controller, as the port's mesh trains): every rank runs the
+same scheduler on the same requests, so it makes the same admissions and
+block allocations, and runs the serving programs of the SPMD plan on its
+part of the weights. The batch is whole on every rank and attention runs
+on the rank's heads, so a rank's KV pool holds only its heads; the logits
+are gathered whole, so every rank samples the same token. At the end of
+a run the ranks agree a digest of the emitted tokens and raise on every
+rank if they differ. ``elastic_replan`` re-runs the serving search
+(``serving/search.py``) with the warm simulator and records its plan, as
+the JAX engine does; it does not move a live mesh.
 
 Every device step of an action is a step program
 (``execution/graphs.StepProgram``; on CUDA a CUDA graph per shape,
@@ -39,8 +54,8 @@ slot whose logits are not finite is quarantined alone and its request
 retried on a fresh slot (``--decode-retry-budget``), or aborted as
 ``decode_fault``. Nothing armed, the loop runs the unguarded program and
 pays no per-iteration cost. The decode dispatch catches no exception: a
-device error propagates (device-loss failover needs the multi-device
-serving plan, ROADMAP A.8).
+device error propagates (device-loss failover comes with the serving
+fleet, ROADMAP A.8).
 
 A run publishes its counters into a ``StepTelemetry`` (``serving``,
 ``serving_prefix`` and ``serving_resilience`` blocks; ``--telemetry-file``)
@@ -73,8 +88,7 @@ from .scheduler import (ContinuousBatchScheduler, Request, ServingRejection,
 def _later_slice(flag: str) -> NotImplementedError:
     return NotImplementedError(
         f"{flag} is ported in a later slice of flexflow_tpu_torch, with "
-        "the multi-device serving path and the serving fleet (ROADMAP "
-        "A.8); this slice serves one device")
+        "the serving fleet and device-loss failover (ROADMAP A.8)")
 
 
 # the per-token latency window: p50/p99 read the most recent walls, so a
@@ -117,8 +131,13 @@ class ServingStats:
     spec_proposed: int = 0
     spec_accepted: int = 0
     # analytic KV bytes the decode steps' attention read (each live slot's
-    # occupied blocks, at the pool's layout)
+    # occupied blocks, at the pool's layout and the rank's heads)
     kv_bytes_read: int = 0
+    # per-card KV residency: the mean occupied KV bytes a decode step
+    # over seq_shards (the JAX engine's figure, at this rank's heads), and
+    # the bytes of this rank's KV pool as allocated; 0 until a decode ran
+    kv_hbm_per_chip_bytes: int = 0
+    kv_pool_bytes_per_rank: int = 0
     wall_s: float = 0.0
     # per-token latency: decode tokens carry their step wall, first tokens
     # their prefill wall; a window of the last TOKEN_WALL_WINDOW walls
@@ -247,6 +266,10 @@ class ServingStats:
             out["host_overhead_fraction"] = round(hof, 4)
         if self.host_syncs:
             out["host_syncs"] = self.host_syncs
+        if self.kv_hbm_per_chip_bytes:
+            out["kv_hbm_per_chip_bytes"] = self.kv_hbm_per_chip_bytes
+        if self.kv_pool_bytes_per_rank:
+            out["kv_pool_bytes_per_rank"] = self.kv_pool_bytes_per_rank
         return out
 
 
@@ -364,11 +387,15 @@ class ServingEngine:
 
         if model.executor is None:
             raise RuntimeError("call model.compile() first")
-        if getattr(model, "mesh", None) is not None:
-            raise NotImplementedError(
-                "ServingEngine: serving a model compiled under a strategy "
-                "(a device mesh) is ported in a later slice (ROADMAP A.8, "
-                "multi-device serving); compile it without one to serve")
+        strategy = getattr(model, "strategy", None) \
+            if getattr(model, "mesh", None) is not None else None
+        if strategy is not None and strategy.pipeline:
+            raise _later_slice("serving a pipeline strategy")
+        if strategy is not None and any(
+                ns.extra.get("sequence_parallel_axis")
+                for ns in strategy.node_strategies.values()):
+            raise _later_slice("serving a strategy's "
+                               "sequence_parallel_axis")
         self.model = model
         self.executor = model.executor
         self.device = model.device
@@ -386,7 +413,7 @@ class ServingEngine:
         self.kv_dtype = str(kv_dtype or getattr(cfg, "kv_dtype", "native"))
         self.seq_shards = int(seq_shards if seq_shards is not None
                               else getattr(cfg, "seq_shards", 1) or 1)
-        buckets_ctx = parse_context_buckets(
+        self.context_buckets = buckets_ctx = parse_context_buckets(
             context_buckets if context_buckets is not None
             else getattr(cfg, "context_buckets", "") or "")
         if self.serve_loop not in ("sync", "async"):
@@ -435,11 +462,6 @@ class ServingEngine:
                     "(kv_cache='paged'): chunks write into the block "
                     "pool")
             prefix_mode = "off"
-        if self.seq_shards != 1:
-            raise _later_slice(f"seq_shards={self.seq_shards} "
-                               "(--seq-shards)")
-        if buckets_ctx:
-            raise _later_slice("context_buckets (--context-buckets)")
         if getattr(cfg, "request_journal", ""):
             raise _later_slice("the request journal (--request-journal)")
         self.kv_block_size = int(kv_block_size or
@@ -481,6 +503,7 @@ class ServingEngine:
                                  else getattr(cfg, "kv_pool_blocks", 0))
             self.kv_pool_blocks = kv_pool_blocks or (
                 self.n_slots * mb + 1 + chunk_blocks)
+            self._lint_paged_kv()
             self.block_allocator = BlockAllocator(self.kv_pool_blocks,
                                                   self.kv_block_size)
         if prefix_mode == "on":
@@ -517,8 +540,45 @@ class ServingEngine:
         self.drained_requests: List[Request] = []
         self._last_guard = False
         self._pending_resilience = None
+        # the serving search's last plan (elastic_replan) and its warm
+        # simulator
+        self.plan = None
+        self._search_sim = None
 
     # ------------------------------------------------------------ validation
+    def _lint_paged_kv(self) -> None:
+        """ShardLint's FF006 paged-KV laws at construction, with no program
+        run (flexflow_tpu/serving/engine.py:422-440): the pool, the block
+        table, the chunk, the sequence shards and the context buckets, and
+        on a mesh the heads-sharded layout over the model axis and the
+        world size."""
+        from ..analysis import (AnalysisReport, StaticAnalysisError,
+                                check_paged_kv)
+
+        ex = self.executor
+        tp, layout = 1, "replicated"
+        if ex.mesh is not None:
+            for node in ex.pcg.compute_nodes():
+                if node.op.op_type == OperatorType.OP_MULTIHEAD_ATTENTION:
+                    heads = int(node.op.attrs.get("num_heads", 1))
+                    local = ex.serving_local_heads(node)
+                    if local != heads:
+                        tp, layout = heads // local, "sharded"
+        diags = check_paged_kv(
+            ex.pcg, block_size=self.kv_block_size,
+            pool_blocks=self.kv_pool_blocks,
+            max_blocks_per_slot=self.max_blocks_per_slot,
+            max_context=self.max_context,
+            kv_layout=layout, tp=tp,
+            prefill_chunk_tokens=self.prefill_chunk_tokens,
+            seq_shards=self.seq_shards,
+            n_devices=ex.mesh.numel if ex.mesh is not None else 1,
+            context_buckets=self.context_buckets)
+        if diags:
+            raise StaticAnalysisError(
+                AnalysisReport(diagnostics=diags, checked=("FF006",)),
+                context="paged KV configuration")
+
     def _validate_graph(self) -> None:
         pcg = self.executor.pcg
         # FF005 (flexflow_tpu/analysis/rules.py:248-275): the per-node
@@ -599,7 +659,8 @@ class ServingEngine:
         return self.executor.make_decode_step(
             self.max_decode_len, exact=self.exact_decode, guard=guard,
             block_size=self.kv_block_size if self._paged else 0,
-            kv_dtype=self.kv_dtype, capture=self.model._capture_steps)
+            kv_dtype=self.kv_dtype, capture=self.model._capture_steps,
+            seq_shards=self.seq_shards)
 
     def _prefill_fn(self, bucket: int):
         return self.executor.make_prefill_step(
@@ -851,7 +912,9 @@ class ServingEngine:
         """KV bytes ONE token's row costs across every attention node, at
         the pool's layout (``kvcache.kv_token_bytes``): int8 rows plus
         their two f32 scales, or the stored dtype's bytes — the compute
-        dtype where one is set, as the pools hold the rows in it."""
+        dtype where one is set, as the pools hold the rows in it — for
+        the heads this rank's pool holds (its share on a mesh whose plan
+        splits them)."""
         if getattr(self, "_kv_row_bytes_cache", None) is None:
             from ..ffconst import size_of_datatype
             from .kvcache import kv_token_bytes
@@ -867,7 +930,9 @@ class ServingEngine:
                 vd = int(a.get("vdim") or a["embed_dim"] // heads)
                 el = (compute.itemsize if compute is not None
                       else size_of_datatype(node.op.data_type))
-                total += kv_token_bytes(heads, kd, vd, el, self.kv_dtype)
+                total += kv_token_bytes(
+                    self.executor.serving_local_heads(node), kd, vd, el,
+                    self.kv_dtype)
             self._kv_row_bytes_cache = total
         return self._kv_row_bytes_cache
 
@@ -953,12 +1018,28 @@ class ServingEngine:
         the next ``serve`` consumes, so a shed or a deadline stamped before
         the serve is not lost."""
         self._attach(sched)
+        self._stamp_context_bucket(req)
         res = resilience
         if res is None:
             if self._pending_resilience is None:
                 self._pending_resilience = self._make_resilience(None)
             res = self._pending_resilience
         res.admit(sched, req)
+
+    def _stamp_context_bucket(self, req: Request) -> None:
+        """Admission's context-length routing
+        (flexflow_tpu/serving/engine.py:955-970): the smallest bucket
+        covering the request's prompt plus its budget, else the largest,
+        as ``ServingPlan.seq_shards_for`` looks it up. No-op without
+        buckets or when a router upstream already stamped one."""
+        if not self.context_buckets or req.context_bucket is not None:
+            return
+        need = int(req.prompt_len + req.max_new_tokens)
+        for b in self.context_buckets:
+            if need <= b:
+                req.context_bucket = b
+                return
+        req.context_bucket = self.context_buckets[-1]
 
     def generate(self, prompts: Sequence[Sequence[int]],
                  max_new_tokens: int = 32, temperature: float = 0.0,
@@ -988,6 +1069,7 @@ class ServingEngine:
                         max_new_tokens=max_new_tokens,
                         eos_id=self.eos_id if eos_id is None else eos_id,
                         rng_tag=i, deadline_ms=deadline_ms)
+            self._stamp_context_bucket(r)
             try:
                 res.admit(sched, r)
             except ServingRejection:
@@ -1001,10 +1083,9 @@ class ServingEngine:
         """Publish the run into a StepTelemetry when a sink wants one
         (flexflow_tpu/serving/engine.py:1263-1305): the ``serving`` block
         (requests, tokens, queue high-water mark, tokens/s, p50/p99 ms a
-        token, host overhead share), the ``serving_resilience`` block (the
-        outcome ledger and its counters) and the ``serving_prefix`` block.
-        The JAX run's ``kv_hbm_per_chip_bytes`` stays empty until the port
-        has sequence shards."""
+        token, host overhead share, KV bytes per card), the
+        ``serving_resilience`` block (the outcome ledger and its counters)
+        and the ``serving_prefix`` block."""
         tracer = self.model._obs_tracer()
         tel = self.model._make_telemetry(tracer, batch_size=self.n_slots,
                                          phase="serving")
@@ -1020,6 +1101,8 @@ class ServingEngine:
         tel.serving_p99_token_ms = stats.p99_token_ms()
         tel.serving_tokens_per_s = round(stats.tokens_per_s(), 2)
         tel.serving_host_overhead_fraction = stats.host_overhead_fraction()
+        tel.serving_kv_hbm_per_chip_bytes = \
+            stats.kv_hbm_per_chip_bytes or None
         tel.serving_outcomes = dict(stats.outcomes)
         tel.serving_sheds = stats.sheds
         tel.serving_deadline_misses = stats.deadline_misses
@@ -1046,6 +1129,7 @@ class ServingEngine:
         :class:`_AsyncServeLoop`: a decode step's result may be in flight
         between ticks (``settle()`` lands it; ``finish()`` settles
         first)."""
+        self._check_mesh_serve(sched, chaos, resilience)
         cls = _AsyncServeLoop if self.serve_loop == "async" else _ServeLoop
         return cls(self, sched, temperature=temperature, top_k=top_k,
                    seed=seed, chaos=chaos, resilience=resilience)
@@ -1073,6 +1157,105 @@ class ServingEngine:
         finally:
             session.close()
         return loop.finish()
+
+    # ------------------------------------------------------------ the mesh
+    @property
+    def _coordination(self):
+        """The group the ranks agree host values over; None off a mesh of
+        several ranks."""
+        return getattr(self.model, "coordination", None) \
+            if self.executor.mesh is not None else None
+
+    def _check_mesh_serve(self, sched, chaos, resilience) -> None:
+        """On several ranks, every decision of the host loop must come out
+        the same on each. Deadlines, the deadline shed policy and serving
+        chaos read each rank's own clock or plan, so they would part the
+        ranks' schedules: they are refused by name."""
+        if self._coordination is None:
+            return
+        res = resilience or self._pending_resilience or \
+            self._make_resilience(chaos)
+        timed = any(r is not None and r.deadline_ms is not None
+                    for r in list(sched.queue) + list(sched.slots))
+        what = None
+        if chaos is not None or res.chaos is not None:
+            what = "a serving ChaosPlan"
+        elif res.deadlines_armed or timed:
+            what = "request deadlines (--request-timeout-ms, deadline_ms)"
+        elif res.shed_policy == "deadline":
+            what = "--shed-policy deadline"
+        if what is not None:
+            raise _later_slice(f"{what} on a mesh of several ranks")
+
+    def _agree_tokens(self, sched) -> None:
+        """The ranks' emitted tokens must be the same: one digest a rank of
+        every finished request's (prompt, outcome, tokens), in the order
+        the requests finished, gathered over the coordination group; any
+        difference raises on every rank, naming the ranks that differ.
+        (Request ids are a process's own count, so they stay out.)"""
+        group = self._coordination
+        if group is None:
+            return
+        import hashlib
+
+        import torch.distributed as dist
+
+        h = hashlib.sha256()
+        for r in sched.finished:
+            h.update(repr(([int(t) for t in r.prompt], r.outcome or "ok",
+                           [int(t) for t in r.generated])).encode())
+        digest = h.hexdigest()
+        got = [None] * dist.get_world_size(group)
+        dist.all_gather_object(got, digest, group=group)
+        odd = [r for r, d in enumerate(got) if d != got[0]]
+        if odd:
+            raise RuntimeError(
+                f"serve: the ranks emitted different tokens: ranks {odd} "
+                f"differ from rank 0 (digests {sorted(set(got))}); every "
+                "rank must serve the same requests with the same model")
+
+    def kv_pool_bytes(self) -> int:
+        """Bytes of this rank's KV state as allocated (every pool, scale
+        array and carry buffer); 0 before the first prefill."""
+        if self.state is None:
+            return 0
+        from .kvcache import cache_leaves
+
+        return sum(t.numel() * t.element_size()
+                   for e in self.state.caches.values()
+                   for t in cache_leaves(e))
+
+    # ---------------------------------------------------------------- elastic
+    def elastic_replan(self, n_dev: int):
+        """Re-search the serving plan for ``n_dev`` devices mid-serve
+        (flexflow_tpu/serving/engine.py:1307-1340): the serving search
+        runs with the warm simulator and the prefill reuse measured so far,
+        the plan is recorded (``self.plan``; ``plan.to_strategy`` makes it
+        an executor strategy), the serving programs are dropped so that
+        they capture again, and the in-flight decode state is left as it
+        is, so generation continues exactly where it stopped. As in the
+        JAX package, it records the plan and does not move a live mesh."""
+        from .search import serving_search
+
+        reuse = self.stats.prefix_reuse_rate() or 0.0
+        plan = serving_search(
+            self.executor.pcg, self.model.config, n_dev,
+            sim=self._search_sim, prefill_reuse=reuse,
+            device="cpu" if self.device.type == "cpu" else None)
+        self._search_sim = plan.sim
+        self.plan = plan
+        # the serving programs capture again; the slot writes and the
+        # samplers are shape-stable over the same state and stay
+        self.executor._serving_fns = {
+            k: fn for k, fn in self.executor._serving_fns.items()
+            if k[0] == "sampler"}
+        self._decode_captures0 = {}
+        tracer = self.model._obs_tracer()
+        if tracer.enabled:
+            tracer.event("serving_replan", n_dev=n_dev,
+                         mesh=list(plan.mesh_shape),
+                         tokens_per_s=round(plan.sim_tokens_per_s, 1))
+        return plan
 
     # ------------------------------------------------------ resilience hooks
     def _sweep_deadlines(self, sched, res, tracer) -> None:
@@ -1566,6 +1749,15 @@ class _ServeLoop:
             sched.prefix_tokens_reused - self._prefix_reused0
         if eng._prefix is not None:
             stats.cache_evictions = eng._prefix.evictions - self._evictions0
+        # per-card KV residency (flexflow_tpu/serving/engine.py:1896-1905):
+        # the mean occupied KV bytes a decode step, at this rank's heads,
+        # over the sequence shards; and this rank's pool as allocated
+        if stats.decode_steps and stats.kv_bytes_read:
+            stats.kv_hbm_per_chip_bytes = int(
+                stats.kv_bytes_read / stats.decode_steps
+                / max(eng.seq_shards, 1))
+        stats.kv_pool_bytes_per_rank = eng.kv_pool_bytes()
+        eng._agree_tokens(sched)
         eng._merge_telemetry(sched, stats)
         if self.tracer.enabled and eng.model.config.trace_file:
             self.tracer.write(eng.model.config.trace_file)

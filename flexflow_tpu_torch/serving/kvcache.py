@@ -80,6 +80,12 @@ class ServingState:
     block_size: tokens per KV block
     kv_dtype:  "native" (pools in the model dtype, entries ``(kpool,
                vpool)``) or "int8" (entries ``(kq, kscale, vq, vscale)``)
+    seq_shards: sequence-parallel decode width: each slot's gathered
+               extent is scored as this many contiguous key segments and
+               merged by the flash segment combine
+               (``kernels/seqpar_decode.py``). 1 is the unsharded path.
+               Paged decode only; chunk prefill writes the same rows at
+               any width.
     """
 
     mode: str
@@ -92,6 +98,7 @@ class ServingState:
     block_tables: Any = None
     block_size: int = 0
     kv_dtype: str = "native"
+    seq_shards: int = 1
 
 
 @dataclasses.dataclass

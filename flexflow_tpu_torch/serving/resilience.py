@@ -24,9 +24,8 @@ and the graceful drain (port of ``flexflow_tpu.serving.resilience``).
   and queued ones are handed back for re-submission.
 
 Device-loss failover (the JAX package's ``DeviceLossError``,
-``DecodeStateLostError`` and the auto elastic replan) needs the
-multi-device serving plan and comes with ROADMAP A.8: the port's decode
-dispatch catches nothing.
+``DecodeStateLostError`` and the auto elastic replan) comes with the
+serving fleet (ROADMAP A.8): the port's decode dispatch catches nothing.
 """
 from __future__ import annotations
 

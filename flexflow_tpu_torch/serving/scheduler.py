@@ -200,6 +200,10 @@ class Request:
     prefill_target: int = 0
     chunk_shape: int = 0
     pending_cow: Optional[Tuple[int, int]] = None
+    # the context bucket (``--context-buckets``) admission routed this
+    # request to: the smallest covering prompt + budget, else the largest;
+    # None without buckets
+    context_bucket: Optional[int] = None
 
     @property
     def prefilling(self) -> bool:

@@ -94,6 +94,21 @@ it looks for the longest power-of-two length up to 131072 that one train
 step takes at sp = world (ring) but not on one card (the reference
 process tries each on one card), with the per-rank peak. Rehearse with
 ``--device cpu --tiny``.
+
+``--suite serve`` serves GPT-2 small at vocab 50304 (fp32, then bf16; 8
+slots, max_decode_len 512, ``chip_smoke.py``'s prompt set of 8 requests
+sharing a 64-token prefix, 32 new tokens, greedy) on one card (``--reference
+--suite serve``, a process of its own, first: its streams, figures,
+weights and each stream's top-2 logit gaps) and then under dp = world, tp
+= world, hybrid 2 x 2 and the plan the serving search picks for the world
+(``search_all(objective="serving")`` on the detected cards), one process
+a card, the serving programs captured with their NCCL collectives. Per
+strategy: every rank's streams (equal across the ranks, and to the one
+card's except after a position whose top-2 gap is under the tie band:
+1e-4 in fp32, the bf16 band 5e-2 in bf16), tokens/s, p50 ms a token, the
+KV bytes a rank (``kv_hbm_per_chip_bytes`` and the pool), the decode
+program's captures, the B5 launches, and the searched plan's simulated
+tokens/s beside the measured. Rehearse with ``--device cpu --tiny``.
 """
 from __future__ import annotations
 
@@ -163,7 +178,7 @@ def args_of():
     p.add_argument("--suite", default="strategies",
                    choices=("strategies", "pipeline", "c8", "fsdp", "ckpt",
                             "ckpt_one", "search", "cascade", "elastic",
-                            "long"))
+                            "long", "serve"))
     p.add_argument("--eager-stages", action="store_true",
                    help="pipeline suite: run the stages eagerly")
     p.add_argument("--package-root", default=None,
@@ -1136,13 +1151,221 @@ def long_context(args) -> None:
     finish(args, rank, out, code=1 if fails else 0)
 
 
+# the serving suite: name -> (kind, a, b) at a world of 4 (tp over the
+# world, dp over it, 2 x 2, and the serving search's plan)
+SERVE_STRATEGIES = {"dp4": ("dp", 4, 1), "tp4": ("hybrid", 1, 4),
+                    "hybrid2x2": ("hybrid", 2, 2),
+                    "searched": ("serving", 0, 0)}
+SERVE_NEW_TOKENS = 32
+# greedy streams may part only after a position whose top-2 gap (on the
+# one card's forward) is under this: fp32 sums in another order (chip_smoke
+# SPEC_TIE), bf16 the bf16 serving band (chip_smoke E2E_ATOL)
+SERVE_TIE = {"fp32": 1e-4, "bf16": 5e-2}
+
+
+def serve_model(args, device, dname: str, strategy_fn=None):
+    """GPT-2 small at vocab 50304 (nanoGPT's padding, which tp 4 divides;
+    or the tiny LM) for serving, random weights from the seed, 8 slots,
+    max_decode_len 512 (the tiny LM's 64)."""
+    import chip_smoke as cs
+    from flexflow_tpu_torch import DataType, FFConfig, FFModel
+    from flexflow_tpu_torch.models.gpt2 import GPT2Config, build_gpt2
+
+    cfg = GPT2Config(batch_size=8, seq_len=64, hidden=64, num_heads=4,
+                     num_layers=2, intermediate=128, vocab_size=512) \
+        if args.tiny else GPT2Config(vocab_size=cs.VOCAB_PADDED)
+    c = FFConfig()
+    c.batch_size, c.seed = cfg.batch_size, cs.SEED
+    c.max_decode_len, c.max_inflight = min(cfg.seq_len, 512), 8
+    c.kv_block_size = 8 if args.tiny else 16
+    if dname == "bf16":
+        c.compute_dtype = DataType.DT_BFLOAT16
+    ff = FFModel(c, device=device)
+    build_gpt2(ff, cfg)
+    ff.compile(strategy_fn=strategy_fn)
+    return ff, cfg
+
+
+def serve_prompts(args, cfg, seed=None):
+    import chip_smoke as cs
+
+    lengths = (20, 9, 14, 3, 12, 18, 7, 5) if args.tiny else \
+        (200, 96, 150, 32, 120, 180, 72, 48)
+    shared = 4 if args.tiny else 64
+    kw = {} if seed is None else dict(seed=seed)
+    return cs.make_prompts(cfg.vocab_size, lengths, shared, 3, **kw)
+
+
+def serve_run(ff, cfg, args) -> dict:
+    """Two warm-up generates of the prompt set's shapes with other tokens
+    (every program's eager first call and capture), then the timed one:
+    its streams and figures."""
+    import torch
+
+    import chip_smoke as cs
+    from flexflow_tpu_torch.kernels import flash_decode as fd
+
+    new = 8 if args.tiny else SERVE_NEW_TOKENS
+    for seed in cs.WARM_SEEDS:
+        ff.generate(serve_prompts(args, cfg, seed), max_new_tokens=new)
+    fd.reset_launch_count()
+    streams = ff.generate(serve_prompts(args, cfg), max_new_tokens=new)
+    if ff.device.type == "cuda":
+        torch.cuda.synchronize()
+    eng = ff._serving_engine
+    st = eng.stats
+    return dict(streams=streams, tokens_per_s=st.tokens_per_s(),
+                p50_ms=st.p50_token_ms(), p99_ms=st.p99_token_ms(),
+                decode_steps=st.decode_steps,
+                kv_hbm_per_chip_bytes=st.kv_hbm_per_chip_bytes,
+                kv_pool_bytes_per_rank=st.kv_pool_bytes_per_rank,
+                decode_compiles=eng.decode_compiles,
+                b5=fd.launch_count())
+
+
+def serve_reference(args) -> None:
+    """``--reference --suite serve``: the one-card runs, fp32 and bf16:
+    their results, weights and each stream's top-2 gaps, in
+    ``--ref-dir``."""
+    import torch
+
+    import chip_smoke as cs
+
+    device = torch.device(args.device)
+    os.makedirs(args.ref_dir, exist_ok=True)
+    for dname in ("fp32", "bf16"):
+        ff, cfg = serve_model(args, device, dname)
+        r = serve_run(ff, cfg, args)
+        r["gaps"] = [cs.stream_gaps(ff, p, s).tolist() for p, s in zip(
+            serve_prompts(args, cfg), r["streams"])]
+        r["weights"] = ff.get_params_numpy()
+        torch.save(r, os.path.join(args.ref_dir, f"serve_{dname}.pt"))
+        print(f"serve gpt2 {dname} one card: {r['tokens_per_s']:.1f} "
+              f"tokens/s, p50 {r['p50_ms']:.3f} ms a token, kv bytes a "
+              f"step {r['kv_hbm_per_chip_bytes']}, pool "
+              f"{r['kv_pool_bytes_per_rank']} B, decode captures "
+              f"{r['decode_compiles']}, B5 launches {r['b5']}", flush=True)
+        del ff
+
+
+def parted(want, got, gaps, tie: float):
+    """The first (stream, token) where ``got`` parts from ``want`` at a
+    gap of at least ``tie``, or None; and the tokens past a tie."""
+    past = 0
+    for i, (a, b, g) in enumerate(zip(want, got, gaps)):
+        k = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if len(a) != len(b) and k is None:
+            k = min(len(a), len(b))
+        if k is None:
+            continue
+        if k >= len(g) or g[k] >= tie:
+            return (i, k), past
+        past += len(b) - k
+    return None, past
+
+
+def serve(args) -> None:
+    """``--suite serve``: each strategy of ``SERVE_STRATEGIES`` against
+    the one-card runs of ``--reference --suite serve``."""
+    import torch
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch import FFConfig
+    from flexflow_tpu_torch.serving.search import serving_search
+
+    device, rank, world, card = join(args)
+    cuda = args.device == "cuda"
+    out = {"card": card, "world": world, "runs": {}}
+    fails = []
+    for dname in ("fp32", "bf16"):
+        one = torch.load(os.path.join(args.ref_dir, f"serve_{dname}.pt"),
+                         weights_only=False)
+        for name, (kind, a, b) in SERVE_STRATEGIES.items():
+            plan = {}
+            if kind == "serving":
+                def fn(pcg, plan=plan):
+                    # every rank searches the same graph on the same
+                    # detected machine, so every rank takes one plan
+                    c = FFConfig()
+                    c.max_decode_len, c.max_inflight = \
+                        64 if args.tiny else 512, 8
+                    c.kv_block_size = 8 if args.tiny else 16
+                    p = serving_search(pcg, c, world,
+                                       device=None if cuda else "cpu")
+                    plan["plan"] = p
+                    return p.to_strategy(pcg)
+            else:
+                fn = strategy_fn(kind, a, b, world)
+            ff, cfg = serve_model(args, device, dname, fn)
+            ff.set_params_numpy(one["weights"])
+            r = serve_run(ff, cfg, args)
+            del ff
+            rows = [None] * world
+            dist.all_gather_object(rows, r)
+            line = dict(
+                tokens_per_s=r["tokens_per_s"], p50_ms=r["p50_ms"],
+                p99_ms=r["p99_ms"],
+                one_card_tokens_per_s=one["tokens_per_s"],
+                one_card_p50_ms=one["p50_ms"],
+                kv_hbm_per_chip_bytes=[q["kv_hbm_per_chip_bytes"]
+                                       for q in rows],
+                kv_pool_bytes_per_rank=[q["kv_pool_bytes_per_rank"]
+                                        for q in rows],
+                one_card_kv_hbm=one["kv_hbm_per_chip_bytes"],
+                one_card_kv_pool=one["kv_pool_bytes_per_rank"],
+                decode_compiles=[q["decode_compiles"] for q in rows],
+                b5=[q["b5"] for q in rows], decode_steps=r["decode_steps"])
+            if "plan" in plan:
+                p = plan["plan"]
+                line.update(plan=p.describe(),
+                            sim_tokens_per_s=p.sim_tokens_per_s,
+                            sim_decode_ms=p.sim_decode_ms)
+            same = all(q["streams"] == rows[0]["streams"] for q in rows)
+            where, past = parted(one["streams"], r["streams"], one["gaps"],
+                                 SERVE_TIE[dname])
+            line.update(ranks_agree=same, parted=where, past_a_tie=past)
+            out["runs"][f"{dname}_{name}"] = line
+            if rank == 0:
+                print(f"serve gpt2 {dname} {name} world {world}"
+                      + (f" ({line['plan']}, simulated "
+                         f"{line['sim_tokens_per_s']:.1f} tokens/s)"
+                         if "plan" in line else "")
+                      + f": {r['tokens_per_s']:.1f} tokens/s (one card "
+                      f"{one['tokens_per_s']:.1f}), p50 "
+                      f"{r['p50_ms']:.3f} ms a token (one card "
+                      f"{one['p50_ms']:.3f}); kv bytes a step a rank "
+                      f"{line['kv_hbm_per_chip_bytes']} (one card "
+                      f"{one['kv_hbm_per_chip_bytes']}), pool a rank "
+                      f"{line['kv_pool_bytes_per_rank']}; decode captures "
+                      f"{line['decode_compiles']}; B5 launches a rank "
+                      f"{line['b5']}; streams: ranks agree {same}, equal "
+                      f"the one card's "
+                      + ("outside ties" if where is None
+                         else f"NOT (stream {where[0]} token {where[1]})")
+                      + f" ({past} tokens past a tie) [{card}]", flush=True)
+            if not same:
+                fails.append(f"{dname} {name}: the ranks' streams differ")
+            if where is not None:
+                fails.append(f"{dname} {name}: streams part at {where}")
+            if cuda and any(c != 1 for c in line["decode_compiles"]):
+                fails.append(f"{dname} {name}: decode captures "
+                             f"{line['decode_compiles']}")
+            if cuda and min(line["b5"]) < 1:
+                fails.append(f"{dname} {name}: B5 launches {line['b5']}")
+    if fails and rank == 0:
+        print("serve: " + "; ".join(fails), flush=True)
+    finish(args, rank, out, code=1 if fails else 0)
+
+
 if __name__ == "__main__":
     a = args_of()
     if a.reference:
-        long_reference(a) if a.suite == "long" else reference(a)
+        {"long": long_reference, "serve": serve_reference}.get(
+            a.suite, reference)(a)
     else:
         {"strategies": mesh, "pipeline": pipeline, "c8": c8,
          "fsdp": lambda a: mesh(a, FSDP_STRATEGIES), "ckpt": ckpt,
          "search": lambda a: mesh(a, SEARCH_STRATEGIES),
          "ckpt_one": ckpt_one, "cascade": cascade,
-         "elastic": elastic, "long": long_context}[a.suite](a)
+         "elastic": elastic, "long": long_context,
+         "serve": serve}[a.suite](a)

@@ -9,8 +9,8 @@
 * Every serving option outside this slice raises ``NotImplementedError``
   naming its flag and ROADMAP A.8, whether it comes as an engine argument
   or through ``FFConfig``; none falls back quietly. The ring KV layout,
-  serving chaos and the serving-resilience flags, refused before their
-  slice, serve. So does every training option
+  serving chaos, the serving-resilience flags, ``--seq-shards`` and
+  ``--context-buckets``, refused before their slice, serve. So does every training option
   outside this slice, at ``fit``, every flag that ``compile`` or the
   serving engine would otherwise parse and ignore. An LSTM graph serves,
   and the engine refuses its prefix cache and chunked prefill by name.
@@ -186,19 +186,36 @@ def tiny():
 LATER = "ported in a later slice"
 
 
-@pytest.mark.parametrize("kwargs,flag", [
-    (dict(seq_shards=2), "--seq-shards"),
-    (dict(context_buckets=(16, 32)), "--context-buckets"),
+@pytest.mark.parametrize("kwargs", [
+    dict(seq_shards=2),
+    dict(context_buckets=(16, 32)),
 ])
-def test_engine_refuses_options_of_later_slices(tiny, kwargs, flag):
-    with pytest.raises(NotImplementedError, match=LATER) as e:
-        ServingEngine(tiny, max_decode_len=32, **kwargs)
-    assert flag in str(e.value) and "A.8" in str(e.value)
+def test_engine_serves_seq_shards_and_context_buckets(tiny, kwargs):
+    """``--seq-shards`` and ``--context-buckets`` (refused before their
+    slice) serve, as engine arguments, with the unsharded engine's greedy
+    streams."""
+    prompts = [[1, 2, 3], [4, 5, 6, 7, 8, 9]]
+    want = ServingEngine(tiny, max_decode_len=32).generate(
+        prompts, max_new_tokens=3)
+    assert ServingEngine(tiny, max_decode_len=32, **kwargs).generate(
+        prompts, max_new_tokens=3) == want
+
+
+@pytest.mark.parametrize("field,value", [
+    ("seq_shards", 2),
+    ("context_buckets", "16,32"),
+])
+def test_generate_serves_seq_shard_and_bucket_flags(field, value):
+    """The same two options through ``FFConfig`` and ``generate``."""
+    prompts = [[1, 2, 3]]
+    want = _tiny_model().generate(prompts, max_new_tokens=2,
+                                  max_decode_len=32)
+    ff = _tiny_model(**{field: value})
+    assert ff.generate(prompts, max_new_tokens=2,
+                       max_decode_len=32) == want
 
 
 @pytest.mark.parametrize("field,value,flag", [
-    ("seq_shards", 2, "--seq-shards"),
-    ("context_buckets", "16,32", "--context-buckets"),
     ("request_journal", "journal.log", "--request-journal"),
 ])
 def test_generate_refuses_config_flags_of_later_slices(field, value, flag):

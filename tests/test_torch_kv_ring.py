@@ -199,10 +199,11 @@ def test_quarantined_blocks_reach_a_later_request_clean(pair):
     retried on blocks 4-6; B then gets blocks 1-3, the third written only
     by its own decode steps — and read, weighed by 0, by every exact
     decode step before. B's stream and A's must be the clean engine's,
-    with one quarantine."""
+    with one quarantine. (max_decode_len 48: the pool must hold one
+    max-context request, ShardLint's FF006 law the engine checks.)"""
     _, tff = pair
     ps = [[5, 6, 7], [11, 12, 13]]
-    kw = dict(n_slots=1, max_decode_len=MAX_LEN, exact_decode=True,
+    kw = dict(n_slots=1, max_decode_len=48, exact_decode=True,
               kv_block_size=8, kv_pool_blocks=7, prefix_cache="off")
     clean = ServingEngine(tff, **kw).generate(ps, max_new_tokens=20)
     eng = ServingEngine(tff, **kw)

@@ -20,8 +20,8 @@ the sync and the async serve loop of each package:
 * with ``--telemetry-file`` and ``--trace-file`` the run publishes the
   JAX package's ``serving_resilience`` block and tracer events.
 
-The device-loss cases of the JAX file (:309, :328, :407) need the
-multi-device serving plan (ROADMAP A.8).
+The device-loss cases of the JAX file (:309, :328, :407) come with the
+serving engine's device-loss failover (ROADMAP A.8).
 """
 import signal
 

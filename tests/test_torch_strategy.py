@@ -17,9 +17,10 @@
   process stays on the one-device path;
 * a pipeline grid compiles since its slice (tests/test_torch_pipeline*.py);
   one the world cannot hold is refused by the preflight, naming the grid;
-* refused by name: serving a model compiled on a mesh (A.8). (A
-  strategy's ``sequence_parallel_axis`` trains since its slice:
-  tests/test_torch_long_context.py.)
+* a model compiled on a mesh of one rank serves and gives the one-device
+  streams (several ranks: tests/test_torch_serving_mesh.py); serving a
+  strategy's ``sequence_parallel_axis`` is refused by name (it trains
+  since its slice: tests/test_torch_long_context.py).
 """
 import json
 
@@ -270,24 +271,47 @@ def test_pipeline_grid_is_refused_by_name():
     assert not dist.is_initialized()
 
 
-def test_serving_a_mesh_model_is_refused_by_name(one_rank):
+def _serving_gpt2(strategy_fn=None):
     c = ft.FFConfig()
-    c.batch_size = 2
+    c.batch_size, c.seed = 2, 5
     ff = ft.FFModel(c, device="cpu")
     cfg = GPT2Config(batch_size=2, seq_len=32, hidden=32, num_heads=2,
                      num_layers=1, intermediate=64, vocab_size=64)
     _ids, logits = build_gpt2(ff, cfg)
     ff.softmax(logits)
     ff.compile(loss_type=ft.LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
-               strategy_fn=lambda pcg: tstr.hybrid_data_tensor_strategy(
-                   pcg, 1, 1))
+               strategy_fn=strategy_fn)
+    return ff
+
+
+def test_serving_a_mesh_model_on_one_rank(one_rank):
+    """A model compiled under a strategy trains on its mesh and serves
+    there (tests/test_torch_serving_mesh.py serves on several ranks):
+    ``generate`` gives the one-device model's streams."""
+    ff = _serving_gpt2(
+        lambda pcg: tstr.hybrid_data_tensor_strategy(pcg, 1, 1))
+    assert ff.mesh is not None
+    one = _serving_gpt2()
+    one.set_params_numpy(ff.get_params_numpy())
+    prompts = [[1, 2, 3], [4, 5, 6, 7, 8]]
+    assert ff.generate(prompts, max_new_tokens=4) == \
+        one.generate(prompts, max_new_tokens=4)
     # the model trains on its mesh (constants, reshapes: whole-batch ops)
     ids = np.random.default_rng(0).integers(0, 64, (2, 32)).astype(np.int32)
     ff.fit(ids, ids, epochs=1)
     assert np.isfinite(ff.fit_history.loss).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8") as e:
+
+
+def test_serving_a_sequence_parallel_strategy_is_refused_by_name(one_rank):
+    """A strategy whose attention splits the sequence trains, but a decode
+    step's one position has nothing to split: serving it is refused by
+    name."""
+    ff = _serving_gpt2(
+        lambda pcg: tstr.long_context_strategy(pcg, 1, 1))
+    with pytest.raises(NotImplementedError,
+                       match="sequence_parallel_axis") as e:
         ff.generate([[1, 2, 3]], max_new_tokens=2)
-    assert LATER in str(e.value)
+    assert LATER in str(e.value) and "A.8" in str(e.value)
 
 
 # ------------------------------------------------------- copied vocabulary

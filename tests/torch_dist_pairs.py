@@ -27,7 +27,9 @@ Cases (``CASES``), each building the model on the CPU (``device="cpu"``):
 * ``flow``: no strategy, ``--only-data-parallel`` at the world size, a
   telemetry and a trace file named per rank: ``fit``, then ``eval`` over a
   set whose last batch does not divide by the data axis (it runs whole on
-  every rank).
+  every rank);
+* ``hang``: a rank that sleeps past the join (:func:`finish` names it,
+  the case it is in and its threads' stacks).
 """
 import os
 import traceback
@@ -367,28 +369,55 @@ def _case_metrics(ff_args, io):
             "pred": ff.predict(io["x"])}
 
 
+def _case_hang(ff_args, io):
+    """A rank that never returns (the harness's hung-rank report)."""
+    import time
+
+    time.sleep(ff_args.get("seconds", 600))
+    return {}
+
+
 CASES = {"step": _case_step, "metrics": _case_metrics,
          "two_steps": _case_two_steps, "flow": _case_flow, "fit": _case_fit, "linear": _case_linear,
-         "census": _case_census, "refuse": _case_refuse}
+         "census": _case_census, "refuse": _case_refuse,
+         "hang": _case_hang}
+
+
+def _note(root: str, rank: int, what: str) -> None:
+    """What rank ``rank`` is doing now, for :func:`finish` to name if the
+    rank hangs."""
+    with open(os.path.join(root, f"doing_r{rank}.txt"), "w") as f:
+        f.write(what)
 
 
 def run_cases(rank: int, world: int, root: str, cases, registry) -> None:
     """A rank's body: join the gloo group, run each case of ``registry``
-    in order, write its results; a failure leaves its traceback."""
+    in order, write its results; a failure leaves its traceback. SIGUSR1
+    dumps every thread's stack to ``stack_r<rank>.txt`` (:func:`finish`
+    sends it to a rank that outlives the join)."""
+    import faulthandler
+    import signal
+
     import torch
     import torch.distributed as dist
 
+    stacks = open(os.path.join(root, f"stack_r{rank}.txt"), "w")
+    faulthandler.register(signal.SIGUSR1, file=stacks, all_threads=True)
     torch.set_num_threads(1)
     try:
+        _note(root, rank, "joining the gloo group")
         dist.init_process_group(
             "gloo", init_method=f"file://{os.path.join(root, 'pg')}",
             rank=rank, world_size=world)
         for name, kind, ff_args in cases:
+            _note(root, rank, f"case {name!r} ({kind})")
             io = dict(np.load(os.path.join(root, f"{name}_in.npz")),
                       root=root)
             out = registry[kind](ff_args, io)
             np.savez(os.path.join(root, f"{name}_r{rank}.npz"), **out)
+        _note(root, rank, "leaving the gloo group")
         dist.destroy_process_group()
+        _note(root, rank, "done")
     except BaseException:
         with open(os.path.join(root, f"err_r{rank}.txt"), "w") as f:
             f.write(traceback.format_exc())
@@ -416,23 +445,45 @@ def start(world: int, root: str, cases, main=None):
     return procs
 
 
+def _read(path: str) -> str:
+    try:
+        with open(path) as f:
+            return f.read()
+    except OSError:
+        return ""
+
+
 def finish(procs, root: str, timeout: float = 120.0) -> None:
-    """Join the ranks of :func:`start`; raise with the failing rank's
-    traceback."""
+    """Join the ranks of :func:`start` within ``timeout`` seconds in all;
+    raise with the failing rank's traceback, or name each rank that is
+    still running then, what it was doing and its threads' stacks."""
+    import signal
+    import time
+
+    deadline = time.monotonic() + timeout
     for p in procs:
-        p.join(timeout)
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for r in hung:
+        os.kill(procs[r].pid, signal.SIGUSR1)
+    if hung:
+        time.sleep(1.0)  # the handler writes the stacks
     for p in procs:
         if p.is_alive():
             p.kill()
             p.join()
     errs = []
     for r, p in enumerate(procs):
-        path = os.path.join(root, f"err_r{r}.txt")
-        if os.path.exists(path):
-            with open(path) as f:
-                errs.append(f"rank {r}:\n{f.read()}")
+        err = _read(os.path.join(root, f"err_r{r}.txt"))
+        doing = _read(os.path.join(root, f"doing_r{r}.txt")) or "starting"
+        if r in hung:
+            errs.append(f"rank {r}: still running after {timeout:.0f} s, "
+                        f"in {doing}; its stacks:\n"
+                        + _read(os.path.join(root, f"stack_r{r}.txt")))
+        elif err:
+            errs.append(f"rank {r}:\n{err}")
         elif p.exitcode != 0:
-            errs.append(f"rank {r}: exit code {p.exitcode}")
+            errs.append(f"rank {r}: exit code {p.exitcode} in {doing}")
     if errs:
         raise RuntimeError("\n".join(errs))
 
