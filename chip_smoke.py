@@ -372,8 +372,10 @@ exits 1 and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -4617,6 +4619,28 @@ def settle_host() -> None:
     torch.cuda.synchronize()
 
 
+@contextlib.contextmanager
+def frozen_heap(label: str, card: str):
+    """Around a serving phase: one full collection, then the objects
+    earlier phases left alive frozen (``gc.freeze``), so the full
+    collection each capture runs (``torch.cuda.graph``'s and the step
+    programs') walks this phase's objects only; unfrozen on exit. Logs the
+    tracked objects and the collection's time before the freeze. The
+    phase's timed runs follow its warm-ups, so only its wall moves."""
+    import gc
+
+    t = time.perf_counter()
+    gc.collect()
+    ms = (time.perf_counter() - t) * 1e3
+    n = len(gc.get_objects())
+    gc.freeze()
+    log(f"{label}: {n} objects tracked by the collector, a full "
+        f"collection {ms:.1f} ms; frozen for the phase [{card}]")
+    try:
+        yield
+    finally:
+        gc.unfreeze()
+
 def chaos_guard_cost(device, card: str, ff, prompt_set: dict) -> int:
     """Gate (b): the guarded and the unguarded decode program on one fresh
     engine (native, sync, greedy), both warmed: streams bitwise equal, B5
@@ -5098,11 +5122,13 @@ def program_captures(*models) -> int:
 
 def held_decode_err(eng, seed: int = SEED) -> float:
     """B5 against its plain version on ``eng``'s pools after its run (the
-    main path's shapes: its slots, heads, blocks and extent), under
-    shuffled tables and key counts 1..max_len. Not counted as main-path
-    launches: the caller reads the counts first."""
+    main path's shapes: its slots, heads, blocks and extent; the int8
+    branch with the pools' scales for int8 pools, q in the model's compute
+    dtype), under shuffled tables and key counts 1..max_len. Not counted
+    as main-path launches: the caller reads the counts first."""
     import torch
 
+    from flexflow_tpu_torch import DataType
     from flexflow_tpu_torch.kernels import flash_decode as fd
 
     dev = eng.device
@@ -5116,17 +5142,25 @@ def held_decode_err(eng, seed: int = SEED) -> float:
     keys[0], keys[-1] = 1, eng.max_decode_len
     n_keys = torch.tensor(keys, dtype=torch.int32, device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn((n, heads, d), generator=gen, device=dev)
+    bf16 = eng.model.config.compute_dtype == DataType.DT_BFLOAT16
+    q = torch.randn((n, heads, d), generator=gen, device=dev).to(
+        torch.bfloat16 if bf16 else torch.float32)
     err = 0.0
-    for kp, vp in eng.state.caches.values():
-        got = fd.flash_decode(q, kp, vp, tables, n_keys)
-        want = fd.flash_decode_plain(q, kp, vp, tables, n_keys)
+    for entry in eng.state.caches.values():
+        if len(entry) == 4:  # int8: (kq, kscale, vq, vscale)
+            kq, ks, vq, vs = entry
+            args, sc = (q, kq, vq, tables, n_keys), dict(kscale=ks,
+                                                         vscale=vs)
+        else:
+            args, sc = (q, *entry, tables, n_keys), {}
+        got = fd.flash_decode(*args, **sc).float()
+        want = fd.flash_decode_plain(*args, **sc).float()
         err = max(err, (got - want).abs().max().item())
-    if not err <= KERNEL_ATOL["fp32"]:
+    tol = KERNEL_ATOL["bf16" if bf16 else "fp32"]
+    if not err <= tol:
         fail(f"flash_decode on the engine's pools: max |kernel - plain| = "
-             f"{err}")
+             f"{err} > {tol}")
     return err
-
 
 def spec_phase(device, card: str, target) -> dict:
     """Gate (a): the baselines, then the random and the perfect drafter."""
@@ -7216,7 +7250,8 @@ def search_phase(device, card: str, measured_step_ms: float) -> dict:
 
 # ------------------------------------------- phase 18: strategy safety
 # The cascade, the audit, the closed calibration loop and --debug-nans on
-# the BERT-Large proxy (bf16, full width and depth, one card, one model
+# the BERT-Large proxy (bf16, full width, SAFETY_LAYERS of its 24 layers:
+# half its depth, to make room for later phases; one card, one model
 # reused and recompiled where a fallback or a flag asks): (a) fit under
 # --audit-strategy with ChaosPlan(fail_compiles=1) falls to data
 # parallelism with full remat, starts from the pre-fit weights bitwise,
@@ -7239,6 +7274,7 @@ def search_phase(device, card: str, measured_step_ms: float) -> dict:
 # and (e) (flash_fwd_safety, flash_bwd_fused_safety). The phase's stated
 # wall: SAFETY_WALL_S.
 SAFETY_WALL_S = 60.0
+SAFETY_LAYERS = 12
 SAFETY_PERTURB = 8.0
 SAFETY_AUDIT_FACTOR = 3.0
 SAFETY_HELD_MIB = 64.0  # what the cascade may leave allocated
@@ -7285,7 +7321,8 @@ def safety_fallback(ff, x, y, card: str) -> dict:
     rep = c.audit_reports[-1]
     same = all(np.array_equal(seen["start"][n][w], before[n][w])
                for n in before for w in before[n])
-    log(f"safety fallback bert-large bf16: ChaosPlan(fail_compiles=1) "
+    log(f"safety fallback bert-large bf16 {SAFETY_LAYERS} layers: "
+        f"ChaosPlan(fail_compiles=1) "
         f"under --audit-strategy: strategy_fallbacks {c.fallbacks}, "
         f"compile_probes {c.compile_probes}, rejected "
         f"{[d for d, _r in c.failures]}, final strategy {c.final_desc!r} "
@@ -7343,7 +7380,8 @@ def safety_memory(ff, x, y, card: str) -> dict:
         ff.config.memory_budget_mb = 0
     c = ff._last_cascade
     got = dict(c.memory_peaks)
-    log(f"safety memory bert-large bf16 b8 s512: measured step peak "
+    log(f"safety memory bert-large bf16 b8 s512 {SAFETY_LAYERS} layers: "
+        f"measured step peak "
         f"{peaks['none']:.1f} MiB with no remat, {peaks['full']:.1f} MiB "
         f"under --remat full (the allocator's peak over the eager step and"
         f" its capture); --memory-budget-mb {budget}: rejected "
@@ -7532,7 +7570,8 @@ def safety_drift(ff, x, y, card: str, tmp: str) -> dict:
     rows = [(names.get(k, k), d["measured_s"] * 1e6, d["ratio"],
              first["post"]["per_key"][k]["ratio"])
             for k, d in first["pre"]["per_key"].items()]
-    log(f"safety drift bert-large bf16 one card, first profiled pass: "
+    log(f"safety drift bert-large bf16 {SAFETY_LAYERS} layers one card, "
+        f"first profiled pass: "
         f"{first['profiled_keys']} keys, sim-vs-card aggregate ratio "
         f"(measured / predicted) {first['aggregate_ratio']:.3f}, out of "
         f"band {len(first['out_of_band'])} "
@@ -7616,7 +7655,8 @@ def safety_debug_nans(device, ff, x, y, card: str) -> dict:
         fail("safety debug-nans: the reference step did not capture")
     del state, snap
     step.program.reset()
-    dbg, _cfg = train_model("bert", "bf16", device, debug_nans=True)
+    dbg, _cfg = train_model("bert", "bf16", device, debug_nans=True,
+                            num_layers=SAFETY_LAYERS)
     dbg.set_params_numpy(weights)
     dstep = dbg.executor.make_train_step()
     before = {k: fa.launch_count(k) for k in ("flash_fwd", "flash_bwd_fused")}
@@ -7626,13 +7666,15 @@ def safety_debug_nans(device, ff, x, y, card: str) -> dict:
     launches = {k: fa.launch_count(k) - before[k] for k in before}
     rel = safety_rel(loss, captured)
     log(f"safety debug-nans: log of negative inputs raised "
-        f"FloatingPointError: {named!r}; one BERT-Large bf16 step under the "
+        f"FloatingPointError: {named!r}; one BERT-Large bf16 step "
+        f"({SAFETY_LAYERS} layers) under the "
         f"flag (eager, per-node NaN checks, anomaly mode over the backward):"
         f" loss {loss:.6f} vs the captured step's {captured:.6f} (rel "
         f"{rel:.3g}, tol {TRAIN_TOL['bf16'][0]}), B1/B2 {launches} "
         f"[{card}]")
     if getattr(dstep, "program", None) is not None or \
-            launches != {"flash_fwd": 24, "flash_bwd_fused": 24} or \
+            launches != {"flash_fwd": SAFETY_LAYERS,
+                         "flash_bwd_fused": SAFETY_LAYERS} or \
             not rel <= TRAIN_TOL["bf16"][0]:
         fail("safety debug-nans: the step under the flag is not the "
              "captured step's")
@@ -7658,20 +7700,29 @@ def safety_phase(device, card: str) -> dict:
     tmp = tempfile.mkdtemp(prefix="ff_safety_")
     try:
         threaded = safety_threaded(device, card)
-        ff, cfg = train_model("bert", "bf16", device)
+        parts = {"c": time.perf_counter() - t0}
+        ff, cfg = train_model("bert", "bf16", device,
+                              num_layers=SAFETY_LAYERS)
         ff.config.print_freq = 10 ** 9
         x, y = train_data("bert", cfg, cfg.batch_size)
         fa.reset_launch_count()
+        t = time.perf_counter()
         memory = safety_memory(ff, x, y, card)
+        parts["b"], t = time.perf_counter() - t, time.perf_counter()
         fallback = safety_fallback(ff, x, y, card)
+        parts["a"], t = time.perf_counter() - t, time.perf_counter()
         drift = safety_drift(ff, x, y, card, tmp)
+        parts["d"], t = time.perf_counter() - t, time.perf_counter()
         # back to the plan with no strategy and no remat for the gate's
         # exhausted half
         ff.compile(optimizer=ff.optimizer, loss_type=ff.loss_type,
                    metrics=ff.metrics_obj.measures)
         ff.profile_operators(0)
         safety_exhausted(ff, x, y, memory["peaks"], card)
+        parts["b"], t = parts["b"] + time.perf_counter() - t, \
+            time.perf_counter()
         debug = safety_debug_nans(device, ff, x, y, card)
+        parts["e"] = time.perf_counter() - t
         torch.cuda.synchronize()
         launches = {k: fa.launch_count(k)
                     for k in ("flash_fwd", "flash_bwd_fused")}
@@ -7682,7 +7733,8 @@ def safety_phase(device, card: str) -> dict:
     wall = time.perf_counter() - t0
     log(f"safety B1/B2 launches on the one card over (a), (b), (d), (e): "
         f"{launches}; phase wall {wall:.1f} s (stated {SAFETY_WALL_S:.0f} s)"
-        f" [{card}]")
+        f": " + ", ".join(f"({k}) {v:.1f} s" for k, v in sorted(
+            parts.items())) + f" [{card}]")
     if not (launches["flash_fwd"] > 0 and launches["flash_bwd_fused"] > 0):
         fail(f"safety: the phase launched B1/B2 {launches}")
     return dict(threaded=threaded, memory=memory, fallback=fallback,
@@ -8303,6 +8355,693 @@ def serve20_phase(device, card: str) -> dict:
                 wall=wall)
 
 
+# ------------------------------------------------ phase 21: serving fleet
+# phase 21: the serving fleet (ROADMAP A.8, second part) on one card: GPT-2
+# small at vocab 50304, 8 slots a replica, max_decode_len 512, as a fleet
+# of FLEET_REPLICAS replicas that share the model and tick in turn; 16
+# requests with a 64-token shared prefix on the even places (under the
+# pinned per-token cost the router sends even places to replica 0, so each
+# shared prompt finds the prefix in its replica's trie, as in one engine)
+# and 32 new tokens each. (a) fp32 greedy on native pools and bf16 top-8
+# on int8 pools: a cold fleet run (each replica's decode program captured
+# once over the whole run), then the timed run, whose streams equal one
+# warmed engine's (fp32 token for token; bf16 outside positions whose
+# top-2 score gap is under the bf16 band), timed against that engine;
+# no failover, circuit open or migration without a plan. (b) one
+# FleetChaosPlan (FLEET_CHAOS: a partition, a degradation, a rejoin, a
+# kill, a rejoin and a drain): every request one outcome, the failovers,
+# circuit opens and migrations the plan's, the completed streams equal
+# the undisturbed ones outside top-2 logit gaps under SPEC_TIE. (c) a
+# child process serving with --request-journal dies by SIGKILL at
+# FLEET_CRASH_TICK; ServingFleet.recover here gives every journaled
+# request one outcome, with the streams held as in (b). (d) on one engine,
+# drop_devices_at replans and the streams are identical; a real loss (the
+# pool's storage resized to 0 inside the dispatch) rebuilds the pool,
+# whose decode program captures once more and only once. (e) interactive
+# streams under a batch flood equal the same streams served alone. (f) B5
+# native and int8 on each replica's pool, and B7 on a replica's decode
+# logits, against their plain versions. The routers' per-token cost is
+# pinned (FLEET_COST_MS), so dispatch is a function of the script, not of
+# the host's timing. The phase's stated wall: FLEET_WALL_S.
+FLEET_WALL_S = 40.0
+FLEET_REPLICAS = 2
+FLEET_LENGTHS = SERVE20_LENGTHS + (136, 64, 88, 200, 112, 160, 40, 96)
+FLEET_SHARED = 64
+FLEET_SHARED_AT = (0, 2, 4, 6, 8)
+FLEET_NEW_TOKENS = 32
+# timed rounds of (a), each engine then fleet on a fresh prompt set
+FLEET_ROUNDS = 3
+FLEET_COST_MS = 1.0
+FLEET_TOP8 = dict(temperature=0.8, top_k=8, seed=SEED + 21)
+FLEET_CHAOS = dict(partition_at={4: 0}, partition_ticks=5,
+                   degrade_replica_at={14: 1}, degrade_poison_every=1,
+                   rejoin_at={20: 1, 34: 0}, kill_replica_at={28: 0},
+                   drain_replica_at={40: 1})
+# circuit opens the plan scripts: the partition's timeouts and the
+# degradation's quarantines (a kill, a rejoin and a drain force the
+# circuit open without counting one)
+FLEET_CHAOS_OPENS = 2
+FLEET_CRASH_TICK = 24
+FLEET_DROP_STEP = 6
+FLEET_INTERACTIVE = 6
+
+
+def fleet21_prompts(seed: int = SEED + 21, lengths=FLEET_LENGTHS,
+                    shared_at=FLEET_SHARED_AT) -> list:
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(0, VOCAB_PADDED, FLEET_SHARED).tolist()
+    return [(shared if i in shared_at else [])
+            + rng.integers(0, VOCAB_PADDED,
+                           n - (FLEET_SHARED if i in shared_at else 0)
+                           ).tolist()
+            for i, n in enumerate(lengths)]
+
+
+def fleet21_model(device, compute: str, **cfg_kw):
+    """GPT-2 small at vocab 50304 in ``compute``, random weights from the
+    seed (the CPU generator: a child process builds the same ones)."""
+    from flexflow_tpu_torch import DataType, FFConfig, FFModel
+    from flexflow_tpu_torch.models.gpt2 import GPT2Config, build_gpt2
+
+    cfg = GPT2Config(vocab_size=VOCAB_PADDED, **cfg_kw)
+    config = FFConfig()
+    config.batch_size, config.seed = cfg.batch_size, SEED
+    config.max_decode_len, config.max_inflight = E2E_MAX_DECODE_LEN, SLOTS
+    if compute == "bf16":
+        config.compute_dtype = DataType.DT_BFLOAT16
+    ff = FFModel(config, device=device)
+    build_gpt2(ff, cfg)
+    ff.compile()
+    return ff
+
+
+def fleet21_fleet(ff, cls=None, **kw):
+    """A fleet of FLEET_REPLICAS replicas of 8 slots with the per-token
+    cost pinned on every replica (``cls`` may be ``ServingFleet.recover``,
+    given the same arguments)."""
+    from flexflow_tpu_torch.serving import ServingFleet
+
+    make = cls or ServingFleet
+    fleet = make(ff, n_replicas=FLEET_REPLICAS, n_slots=SLOTS,
+                 max_decode_len=E2E_MAX_DECODE_LEN, **kw)
+    for rep in fleet.replicas:
+        rep.engine.admission.force_token_cost_ms = FLEET_COST_MS
+    return fleet
+
+
+def fleet21_ties(label: str, ff, prompts, want, got, margin: float,
+                 sampling: dict) -> tuple:
+    """Fail unless ``got`` equals ``want`` stream by stream, except after a
+    position where the top-2 gap of what chose the token (the logits of
+    ``ff``'s whole-sequence forward for greedy; the sampler's scores on
+    them, in logit units, for a sampled stream) is under ``margin``.
+    Returns (tokens excluded by that rule, the streams compared)."""
+    import torch
+
+    from flexflow_tpu_torch.serving.engine import gumbel_scores
+
+    excluded, compared = 0, 0
+    for i, (p, a, b) in enumerate(zip(prompts, want, got)):
+        if a is None or b is None:
+            continue
+        compared += 1
+        if len(a) != len(b):
+            fail(f"{label}: stream {i} has {len(b)} tokens, want {len(a)}")
+        part = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y),
+                    None)
+        if part is None:
+            continue
+        seq = list(p) + list(b[:part])
+        row = ff.executor.forward(ff.params, [torch.tensor(
+            [seq], dtype=torch.int32, device=ff.device)])[0][-1].float()
+        temp = float(sampling.get("temperature", 0.0))
+        if temp > 0.0:
+            seed = torch.tensor(
+                np.asarray([int(sampling["seed"]) & 0xFFFFFFFF],
+                           np.uint32).view(np.int32), device=ff.device)
+            tc = torch.tensor([[i, part]], dtype=torch.int32,
+                              device=ff.device)
+            score, _ = gumbel_scores(row[None], tc, seed, temp,
+                                     int(sampling["top_k"]))
+            top = score[0].topk(2).values * temp
+        else:
+            top = row.topk(2).values
+        gap = float(top[0] - top[1])
+        if not gap < margin:
+            fail(f"{label}: stream {i} parts at token {part} where the "
+                 f"top-2 gap is {gap} (margin {margin})")
+        excluded += len(b) - part
+    return excluded, compared
+
+
+def fleet21_run_stats(fleet, before=None) -> dict:
+    """The fleet's cumulative counters, and with ``before`` the run's share
+    of them: tokens, wall, tokens/s, p50 ms a token (the replicas' token
+    walls), host overhead fraction, decode steps, prefills."""
+    st = fleet.stats
+    loops = [r.loop for r in fleet.replicas if r.loop is not None]
+    cur = dict(tokens=st.tokens_generated,
+               walls=[list(lp.stats.token_walls_s) for lp in loops],
+               host=(st.host_dispatch_s, st.host_device_s,
+                     st.host_bookkeep_s, st.host_overlap_s),
+               steps=sum(r.decode_steps() for r in fleet.replicas),
+               prefills=sum(lp.stats.prefills for lp in loops))
+    if before is None:
+        return cur
+    d, v, b, o = (x - y for x, y in zip(cur["host"], before["host"]))
+    walls = [w for now, was in zip(cur["walls"], before["walls"])
+             for w in now[len(was):]]
+    tokens = cur["tokens"] - before["tokens"]
+    return dict(tokens=tokens, wall_s=st.wall_s,
+                tokens_per_s=tokens / max(st.wall_s, 1e-9),
+                p50_ms=float(np.percentile(walls, 50) * 1e3),
+                max_ms=float(max(walls) * 1e3),
+                host_overhead_fraction=(d + b) / max(d + v + b + o, 1e-12),
+                steps=cur["steps"] - before["steps"],
+                prefills=cur["prefills"] - before["prefills"])
+
+
+def fleet21_clean(device, card: str, ff, prompts, compute: str,
+                  kv_dtype: str, sampling: dict) -> dict:
+    """(a) for one configuration: FLEET_ROUNDS timed rounds, each a fresh
+    prompt set (the first is ``prompts``) served by the warmed engine and
+    then by the warmed fleet, so each pair of readings shares the card's
+    state; no program may capture inside a timed run."""
+    import torch
+
+    from flexflow_tpu_torch.kernels import flash_decode as fd
+    from flexflow_tpu_torch.kernels import topk as tk
+    from flexflow_tpu_torch.serving import ServingEngine
+
+    label = f"fleet {compute} {kv_dtype}" + (" top8" if sampling else "")
+    ff.config.kv_dtype = kv_dtype
+    new = FLEET_NEW_TOKENS
+    warm = [fleet21_prompts(s) for s in WARM_SEEDS]
+    rounds = [prompts] + [fleet21_prompts(SEED + 21 + 100 * r)
+                          for r in range(1, FLEET_ROUNDS)]
+    t0 = time.perf_counter()
+    eng = ServingEngine(ff, n_slots=SLOTS, max_decode_len=E2E_MAX_DECODE_LEN)
+    for w in warm:
+        eng.generate(w, max_new_tokens=new, **sampling)
+    t1 = time.perf_counter()
+    fleet = fleet21_fleet(ff)
+    fleet.generate(warm[0], max_new_tokens=new, **sampling)
+    torch.cuda.synchronize()
+    # each replica's guarded decode (the fleet arms the guard on each)
+    progs = [rep.engine._decode_fn(True).program for rep in fleet.replicas]
+    cold = [p.captures for p in progs]
+    if cold != [1] * FLEET_REPLICAS or any(p is progs[0]
+                                           for p in progs[1:]):
+        fail(f"{label}: the replicas' decode programs captured {cold} "
+             "times over the cold run (want once each, each its own)")
+    # the second warm-up set, as the engine had: the programs a timed run
+    # reaches once (the probe's prefill bucket, chunk shapes) capture here
+    fleet.generate(warm[1], max_new_tokens=new, **sampling)
+    t2 = time.perf_counter()
+    # the recorded decode logits of replica 0 (B7's held check, (f))
+    rec = fleet.replicas[0].engine
+    real = rec._dispatch_decode
+    last = []
+
+    def dispatch(params, guard):
+        logits, ok = real(params, guard)
+        last[:] = [logits]
+        return logits, ok
+
+    rec._dispatch_decode = dispatch
+    counts = {n: 0 for n in (*fd.KERNELS, "topk")}
+    ones, fleets, wants, gots, excl = [], [], [], [], 0
+    for r, ps in enumerate(rounds):
+        settle_host()
+        caps = serving_captures(eng)
+        wants.append(eng.generate(ps, max_new_tokens=new, **sampling))
+        torch.cuda.synchronize()
+        one = eng.stats
+        ones.append(dict(tokens_per_s=one.tokens_per_s(),
+                         p50_ms=one.p50_token_ms(),
+                         max_ms=max(one.token_walls_s) * 1e3,
+                         steps=one.decode_steps))
+        settle_host()
+        caps = serving_captures(eng) - caps
+        before = fleet21_run_stats(fleet)
+        fcaps = sum(serving_captures(x.engine) for x in fleet.replicas)
+        fd.reset_launch_count()
+        tk.reset_launch_count()
+        gots.append(fleet.generate(ps, max_new_tokens=new, **sampling))
+        torch.cuda.synchronize()
+        for n in fd.KERNELS:  # the fleet's launches, not the engine's
+            counts[n] += fd.launch_count(n)
+        counts["topk"] += tk.launch_count()
+        fleets.append(fleet21_run_stats(fleet, before))
+        fcaps = sum(serving_captures(x.engine)
+                    for x in fleet.replicas) - fcaps
+        if caps or fcaps:
+            fail(f"{label}: timed round {r} captured {caps} graphs in the "
+                 f"engine and {fcaps} in the fleet (want 0: every program "
+                 "a timed run reaches captured in the warm-ups)")
+        want, got = wants[-1], gots[-1]
+        if compute == "fp32" and not sampling:
+            if got != want:
+                n, _ = fleet21_ties(label, ff, ps, want, got, SPEC_TIE,
+                                    sampling)
+                fail(f"{label}: round {r}: the fleet's streams are not the "
+                     f"engine's token for token ({n} tokens past a tie)")
+        else:
+            excl += fleet21_ties(label, ff, ps, want, got,
+                                 E2E_ATOL[compute], sampling)[0]
+    del rec._dispatch_decode
+    t3 = time.perf_counter()
+    compiles = [x.engine.decode_compiles for x in fleet.replicas]
+    if [p.captures for p in progs] != cold or compiles != \
+            [1] * FLEET_REPLICAS:
+        fail(f"{label}: decode captures {[p.captures for p in progs]}, "
+             f"decode_compiles {compiles} after the timed runs (want 1 "
+             "each: replicas in turn replay their own graphs)")
+    st = fleet.stats
+    if st.failovers or st.circuit_opens or st.migrations or \
+            set(st.outcomes) != {"ok"}:
+        fail(f"{label}: a run with no plan has {st.summary()}")
+    steps = sum(f["steps"] for f in fleets)
+    prefills = sum(f["prefills"] for f in fleets)
+    b5 = "flash_decode_int8" if kv_dtype == "int8" else "flash_decode"
+    layers = attention_layers(ff)
+    want_counts = {n: 0 for n in fd.KERNELS}
+    want_counts[b5] = layers * steps
+    want_counts["topk"] = (prefills + steps) if sampling else 0
+    if counts != want_counts:
+        fail(f"{label}: launches {counts}, want {want_counts} ({steps} "
+             f"decode steps, {prefills} prefills over the replicas)")
+    exact = wants == gots
+    log(f"{label}: {FLEET_REPLICAS} replicas x {SLOTS} slots, "
+        f"{FLEET_ROUNDS} timed rounds of 16 requests x {new} tokens: "
+        f"streams equal one engine's "
+        f"{'token for token' if exact else f'outside ties ({excl} tokens past one)'}"
+        f"; decode captures {cold} over the cold run and 0 in the timed "
+        f"runs (decode_compiles {compiles}), 0 captures of any program in "
+        f"them; dispatches {list(st.dispatches)}; launches "
+        f"{ {k: v for k, v in counts.items() if v} } [{card}]")
+
+    def med(rows, key):
+        return float(np.median([x[key] for x in rows]))
+
+    for r, (f, o) in enumerate(zip(fleets, ones)):
+        log(f"{label} timed round {r}: fleet {f['tokens_per_s']:.1f} "
+            f"tokens/s, p50 {f['p50_ms']:.3f} ms a token, longest "
+            f"{f['max_ms']:.3f} ms ({f['tokens']} tokens in "
+            f"{f['wall_s']:.3f} s, {f['steps']} decode steps over the "
+            f"replicas), fleet_host_overhead_fraction "
+            f"{f['host_overhead_fraction']:.4f}; one engine "
+            f"{o['tokens_per_s']:.1f} tokens/s, p50 {o['p50_ms']:.3f} ms, "
+            f"longest {o['max_ms']:.3f} ms ({o['steps']} decode steps) "
+            f"[{card}]")
+    run = {k: med(fleets, k) for k in ("tokens_per_s", "p50_ms",
+                                       "host_overhead_fraction")}
+    one = {k: med(ones, k) for k in ("tokens_per_s", "p50_ms")}
+    log(f"{label} timed: median of {FLEET_ROUNDS} rounds: fleet "
+        f"{run['tokens_per_s']:.1f} tokens/s, p50 {run['p50_ms']:.3f} ms "
+        f"a token, fleet_host_overhead_fraction "
+        f"{run['host_overhead_fraction']:.4f}; one engine "
+        f"{one['tokens_per_s']:.1f} tokens/s, p50 {one['p50_ms']:.3f} ms "
+        f"a token; walls: engine warm-up {t1 - t0:.1f} s, fleet cold and "
+        f"warm runs {t2 - t1:.1f} s, timed rounds {t3 - t2:.1f} s "
+        f"[{card}]")
+    return dict(fleet=fleet, engine=eng, want=wants[0], got=gots[0],
+                counts=counts, run=run, one=one, excluded=excl,
+                logits=last[0])
+
+
+def fleet21_chaos(device, card: str, ff, prompts, want) -> dict:
+    """(b): FLEET_CHAOS on a fresh fp32 fleet."""
+    import torch
+
+    from flexflow_tpu_torch.resilience import FleetChaosPlan
+    from flexflow_tpu_torch.serving import OUTCOMES
+
+    ff.config.kv_dtype = "native"
+    fleet = fleet21_fleet(ff)
+    harvested = []
+    harvest = fleet._harvest
+
+    def counted(rep):
+        inflight, queued = harvest(rep)
+        harvested.append(len(inflight))
+        return inflight, queued
+
+    fleet._harvest = counted
+    chaos = FleetChaosPlan(**FLEET_CHAOS)
+    got = fleet.generate(prompts, max_new_tokens=FLEET_NEW_TOKENS,
+                         chaos=chaos)
+    torch.cuda.synchronize()
+    st = fleet.stats
+    fired = dict(partition=chaos.replicas_partitioned,
+                 degrade=chaos.replicas_degraded,
+                 rejoin=chaos.replicas_rejoined, kill=chaos.replicas_killed,
+                 drain=chaos.replicas_drained)
+    scripted = dict(partition=list(FLEET_CHAOS["partition_at"].values()),
+                    degrade=list(FLEET_CHAOS["degrade_replica_at"].values()),
+                    rejoin=list(FLEET_CHAOS["rejoin_at"].values()),
+                    kill=list(FLEET_CHAOS["kill_replica_at"].values()),
+                    drain=list(FLEET_CHAOS["drain_replica_at"].values()))
+    reqs = fleet._requests
+    outcomes = [r.outcome or ("ok" if r.done else "preempted") for r in reqs]
+    if fired != scripted:
+        fail(f"fleet chaos: fired {fired}, scripted {scripted}")
+    if sum(st.outcomes.values()) != len(prompts) or \
+            not set(st.outcomes) <= set(OUTCOMES) or \
+            len(outcomes) != len(prompts):
+        fail(f"fleet chaos: the ledger {st.outcomes} over {len(prompts)} "
+             "requests")
+    if st.failovers != len(scripted["kill"]) or \
+            st.circuit_opens != FLEET_CHAOS_OPENS or \
+            st.migrations != sum(harvested) or st.migrations < 1 or \
+            st.drains != 1 or st.rejoins != len(scripted["rejoin"]):
+        fail(f"fleet chaos: failovers {st.failovers}, circuit opens "
+             f"{st.circuit_opens}, migrations {st.migrations} (harvested "
+             f"{harvested}), drains {st.drains}, rejoins {st.rejoins}")
+    ok = [g if o == "ok" else None for g, o in zip(got, outcomes)]
+    excl, n = fleet21_ties("fleet chaos", ff, prompts, want, ok, SPEC_TIE,
+                           {})
+    if n < len(prompts) // 2:
+        fail(f"fleet chaos: only {n} requests ended ok: {st.outcomes}")
+    trail = [(t, r, a, b, why) for t, r, a, b, why in
+             st.health_transitions]
+    log(f"fleet chaos fp32 ({FLEET_CHAOS}): outcomes {st.outcomes}, "
+        f"failovers {st.failovers}, circuit opens {st.circuit_opens}, "
+        f"migrations {st.migrations} (harvested {harvested}), requeued "
+        f"{st.requeued}, probes {st.probes}, degrade poisons "
+        f"{st.degrade_poisons}, {st.ticks} ticks; {n} completed streams "
+        f"equal the undisturbed ones outside ties ({excl} tokens past "
+        f"one); health trail {trail} [{card}]")
+    return dict(outcomes=dict(st.outcomes), failovers=st.failovers,
+                circuit_opens=st.circuit_opens, migrations=st.migrations,
+                excluded=excl, ticks=st.ticks)
+
+
+FLEET_CHILD = """
+import sys
+import numpy as np
+import torch
+sys.path.insert(0, {root!r})
+import chip_smoke as cs
+from flexflow_tpu_torch.resilience import FleetChaosPlan
+from flexflow_tpu_torch.serving import Request
+
+ff = cs.fleet21_model(torch.device("cuda"), "fp32")
+ff.config.request_journal = {jdir!r}
+ff.config.journal_sync_ms = 1.0
+ff.config.journal_commit_every = 1
+fleet = cs.fleet21_fleet(ff)
+for i, p in enumerate(cs.fleet21_prompts()):
+    fleet.submit(Request(prompt=np.asarray(p, np.int32),
+                         max_new_tokens=cs.FLEET_NEW_TOKENS, rng_tag=i))
+print("child: serving", flush=True)
+fleet.run(chaos=FleetChaosPlan(crash_at={{cs.FLEET_CRASH_TICK: "sigkill"}}))
+raise SystemExit("child: still alive after the SIGKILL tick")
+"""
+
+
+def fleet21_child(tmp: str):
+    """(c)'s child process, started after the timed runs of (a): its
+    start-up and serve overlap (b), (d) and (e), which time nothing. The
+    fp32 fleet with the journal in ``tmp``, killed by SIGKILL at
+    FLEET_CRASH_TICK."""
+    script = os.path.join(tmp, "serve_and_die.py")
+    with open(script, "w") as f:
+        f.write(FLEET_CHILD.format(
+            root=os.path.dirname(os.path.abspath(__file__)),
+            jdir=os.path.join(tmp, "journal")))
+    out = open(os.path.join(tmp, "child.log"), "w")
+    return subprocess.Popen([sys.executable, script], stdout=out,
+                            stderr=subprocess.STDOUT), out
+
+
+def fleet21_recover(device, card: str, ff, prompts, want, child,
+                    tmp: str) -> dict:
+    """(c): wait for the child, then recover its journal here."""
+    import torch
+
+    from flexflow_tpu_torch.serving import RequestJournal, ServingFleet
+
+    proc, out = child
+    try:
+        rc = proc.wait(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = None
+    out.close()
+    with open(os.path.join(tmp, "child.log")) as f:
+        child_log = f.read()
+    if rc != -signal.SIGKILL:
+        fail(f"fleet crash: the child exited {rc}, not by SIGKILL: "
+             f"{child_log[-2000:]}")
+    jdir = os.path.join(tmp, "journal")
+    scan = RequestJournal(jdir)
+    backlog = scan.pending_requests()
+    settled = len(scan._outcomes)
+    if len(backlog) + settled != len(prompts) or not backlog or \
+            not any(r.generated for r in backlog):
+        fail(f"fleet crash: the journal holds {len(backlog)} pending and "
+             f"{settled} settled requests of {len(prompts)} (the crash "
+             "must land mid-stream)")
+    ff.config.kv_dtype = "native"
+    ff.config.request_journal = jdir
+    try:
+        t = time.perf_counter()
+        fleet = fleet21_fleet(ff, cls=ServingFleet.recover)
+        recover_s = time.perf_counter() - t
+        replayed = fleet.journal.replayed
+        fleet.run()
+        torch.cuda.synchronize()
+        st = fleet.stats
+        fleet.journal.close()
+    finally:
+        ff.config.request_journal = ""
+    left = RequestJournal(jdir).pending_rids()
+    if replayed != len(backlog) or st.outcomes != {"ok": replayed} or left:
+        fail(f"fleet crash: replayed {replayed} of {len(backlog)}, "
+             f"outcomes {st.outcomes}, left without an outcome {left}")
+    got = [None] * len(prompts)
+    for r in fleet._requests:
+        got[r.rng_tag] = list(r.generated)
+    excl, n = fleet21_ties("fleet crash", ff, prompts, want, got, SPEC_TIE,
+                           {})
+    log(f"fleet crash sigkill: the child died at tick {FLEET_CRASH_TICK} "
+        f"(rc {rc}); its journal held {len(backlog)} pending ("
+        f"{sum(len(r.generated) for r in backlog)} committed tokens "
+        f"journaled) and {settled} settled requests; recover replayed "
+        f"{replayed} in {recover_s:.3f} s, every journaled request has one "
+        f"outcome ({st.outcomes}), none left pending; {n} recovered "
+        f"streams equal the undisturbed ones outside ties ({excl} tokens "
+        f"past one) [{card}]")
+    return dict(replayed=replayed, settled=settled, excluded=excl)
+
+
+def fleet21_device_loss(device, card: str, ff, eng, prompts, want) -> dict:
+    """(d), on (a)'s warm fp32 engine ``eng``, whose timed run gave
+    ``want``: the pool survives a scripted drop, then dies in a real
+    loss."""
+    import torch
+
+    from flexflow_tpu_torch.execution.graphs import _tensors_of
+    from flexflow_tpu_torch.resilience import ChaosPlan
+
+    ff.config.kv_dtype = "native"
+    # the prompts are in the engine's trie now: the undisturbed run to hold
+    # the drop's against takes the same hits
+    hit = eng.generate(prompts, max_new_tokens=FLEET_NEW_TOKENS,
+                       chaos=ChaosPlan())
+    chaos = ChaosPlan(drop_devices_at={FLEET_DROP_STEP: 1})
+    got = eng.generate(prompts, max_new_tokens=FLEET_NEW_TOKENS, chaos=chaos)
+    torch.cuda.synchronize()
+    if got != hit or chaos.devices_dropped != [FLEET_DROP_STEP] or \
+            eng.stats.replans != 1:
+        fail(f"fleet device drop: replans {eng.stats.replans}, dropped "
+             f"{chaos.devices_dropped}, streams identical {got == hit}")
+    drop_plan = eng.plan.describe()
+    real = eng._decode_fn
+    program = real(True).program
+    fired = []
+
+    def patched(guard=False):
+        fn = real(guard=guard)
+
+        def lost(params, toks, state):
+            if eng.stats.decode_steps == FLEET_DROP_STEP and not fired:
+                fired.append(program.captures)
+                for t in _tensors_of((state, eng._last_tokens)):
+                    t.untyped_storage().resize_(0)
+                raise RuntimeError("CUDA error: CUDA-capable device(s) "
+                                   "is/are busy or unavailable")
+            return fn(params, toks, state)
+
+        lost.program = fn.program
+        return lost
+
+    eng._decode_fn = patched
+    got = eng.generate(prompts, max_new_tokens=FLEET_NEW_TOKENS,
+                       chaos=ChaosPlan())
+    torch.cuda.synchronize()
+    del eng._decode_fn
+    st = eng.stats
+    if len(fired) != 1 or program.captures != fired[0] + 1 or \
+            eng.decode_compiles != 1 or st.replans != 1 or \
+            st.outcomes != {"ok": len(prompts)}:
+        fail(f"fleet real loss: decode captures {fired} at the loss, "
+             f"{program.captures} after (want one more: the rebuilt pool "
+             f"captured once), decode_compiles {eng.decode_compiles}, "
+             f"replans {st.replans}, outcomes {st.outcomes}")
+    excl, n = fleet21_ties("fleet real loss", ff, prompts, want, got,
+                           SPEC_TIE, {})
+    log(f"fleet device loss fp32: drop_devices_at step {FLEET_DROP_STEP} "
+        f"replanned once ({drop_plan}), streams identical; a real loss "
+        f"(the pool's storage resized to 0, the CUDA runtime's "
+        f"unavailable text) at step {FLEET_DROP_STEP}: replanned, pool "
+        f"rebuilt, {st.prefills - len(prompts)} streams re-prefilled, the "
+        f"decode program captured {fired[0]} times before and once after "
+        f"(decode_compiles {eng.decode_compiles}), outcomes {st.outcomes}, "
+        f"{n} streams equal the undisturbed ones outside ties ({excl} "
+        f"tokens past one) [{card}]")
+    return dict(excluded=excl)
+
+
+def fleet21_tenancy(device, card: str, ff) -> dict:
+    """(e)."""
+    import torch
+
+    from flexflow_tpu_torch.serving import Request
+
+    ff.config.kv_dtype = "native"
+    rng = np.random.default_rng(SEED + 22)
+    inter = [rng.integers(0, VOCAB_PADDED, int(n)).tolist()
+             for n in rng.integers(16, 120, FLEET_INTERACTIVE)]
+    flood = fleet21_prompts(SEED + 23, shared_at=())
+    # one fleet serves both runs; without the prefix cache the mixed run
+    # finds no prefix the alone run left, so each request prefills alike
+    ff.config.prefix_cache = "off"
+    try:
+        fleet = fleet21_fleet(ff)
+    finally:
+        ff.config.prefix_cache = "on"
+
+    def serve(with_flood: bool):
+        reqs = [Request(prompt=np.asarray(p, np.int32),
+                        max_new_tokens=FLEET_NEW_TOKENS, rng_tag=100 + i,
+                        tenant="batch")
+                for i, p in enumerate(flood)] if with_flood else []
+        mine = [Request(prompt=np.asarray(p, np.int32),
+                        max_new_tokens=FLEET_NEW_TOKENS, rng_tag=i,
+                        tenant="interactive") for i, p in enumerate(inter)]
+        for r in reqs + mine:
+            fleet.submit(r)
+        fleet.run()
+        torch.cuda.synchronize()
+        return [list(r.generated) for r in mine], {
+            t: dict(led) for t, led in fleet.stats.tenant_outcomes.items()}
+
+    alone, rows_alone = serve(False)
+    mixed, rows = serve(True)
+    excl, _n = fleet21_ties("fleet tenancy", ff, inter, alone, mixed,
+                            SPEC_TIE, {})
+    # a fleet's ledgers cover every request it was given: both runs
+    if rows_alone != {"interactive": {"ok": FLEET_INTERACTIVE}} or \
+            rows != {"interactive": {"ok": 2 * FLEET_INTERACTIVE},
+                     "batch": {"ok": len(flood)}}:
+        fail(f"fleet tenancy: tenant ledgers {rows}, alone {rows_alone}")
+    st = fleet.stats
+    log(f"fleet tenancy fp32: {FLEET_INTERACTIVE} interactive streams "
+        f"under a flood of {len(flood)} batch requests equal the same "
+        f"streams served alone "
+        f"{'token for token' if mixed == alone else f'outside ties ({excl} tokens past one)'}"
+        f"; tenant ledgers {rows}, tokens {st.tenant_tokens} [{card}]")
+    return dict(excluded=excl, tenants=rows)
+
+
+def fleet21_kernels(card: str, runs: dict) -> dict:
+    """(f): after the main path's counts were read."""
+    import torch
+
+    from flexflow_tpu_torch.kernels import topk as tk
+
+    native = [held_decode_err(r.engine)
+              for r in runs["fp32"]["fleet"].replicas]
+    int8 = [held_decode_err(r.engine)
+            for r in runs["bf16"]["fleet"].replicas]
+    logits = runs["bf16"]["logits"]
+    temp = FLEET_TOP8["temperature"]
+    topk_ok = True
+    for x in (logits, logits / temp):
+        v, i = tk.topk(x.contiguous(), FLEET_TOP8["top_k"])
+        pv, pi = tk.topk_plain(x, FLEET_TOP8["top_k"])
+        topk_ok = topk_ok and bool(torch.equal(v, pv)) and \
+            bool(torch.equal(i, pi))
+    if not topk_ok:
+        fail("fleet topk: B7 on a replica's decode logits differs from its "
+             "plain version")
+    log(f"fleet kernels: B5 native on each replica's pool max |kernel - "
+        f"plain| {[float(f'{e:.3g}') for e in native]}, B5 int8 "
+        f"{[float(f'{e:.3g}') for e in int8]}; B7 k={FLEET_TOP8['top_k']} "
+        f"on replica 0's last decode logits ({tuple(logits.shape)}) equal "
+        f"to its plain version, values and indices [{card}]")
+    return dict(native=max(native), int8=max(int8), topk=0.0)
+
+
+def fleet21_phase(device, card: str) -> dict:
+    import shutil
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ff_fleet_")
+    child = None
+    try:
+        prompts = fleet21_prompts()
+        runs = {}
+        ff = fleet21_model(device, "fp32")
+        bf = fleet21_model(device, "bf16")
+        t = {"build": time.perf_counter() - t0}
+        runs["fp32"] = fleet21_clean(device, card, ff, prompts, "fp32",
+                                     "native", {})
+        runs["bf16"] = fleet21_clean(device, card, bf, prompts, "bf16",
+                                     "int8", FLEET_TOP8)
+        t["a"] = time.perf_counter() - t0 - t["build"]
+        child = fleet21_child(tmp)
+        t1 = time.perf_counter()
+        kern = fleet21_kernels(card, runs)
+        engine = runs["fp32"].pop("engine")
+        for r in runs.values():
+            r.pop("fleet")
+            r.pop("logits")
+            r.pop("engine", None)
+        del bf
+        torch.cuda.empty_cache()
+        want = runs["fp32"]["want"]
+        t["f"], t1 = time.perf_counter() - t1, time.perf_counter()
+        chaos = fleet21_chaos(device, card, ff, prompts, want)
+        t["b"], t1 = time.perf_counter() - t1, time.perf_counter()
+        loss = fleet21_device_loss(device, card, ff, engine, prompts, want)
+        del engine
+        t["d"], t1 = time.perf_counter() - t1, time.perf_counter()
+        tenancy = fleet21_tenancy(device, card, ff)
+        t["e"], t1 = time.perf_counter() - t1, time.perf_counter()
+        crash = fleet21_recover(device, card, ff, prompts, want, child, tmp)
+        t["c"] = time.perf_counter() - t1
+        del ff
+        torch.cuda.empty_cache()
+    finally:
+        if child is not None and child[0].poll() is None:
+            child[0].kill()
+            child[0].wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    log(f"fleet phase wall {wall:.1f} s (stated {FLEET_WALL_S:.0f} s): "
+        + ", ".join(f"({k}) {v:.1f} s" for k, v in t.items())
+        + " ((c): the wait for its child, which starts up and serves "
+        f"during (f), (b), (d) and (e), and the recovery) [{card}]")
+    return dict(runs=runs, kern=kern, chaos=chaos, crash=crash, loss=loss,
+                tenancy=tenancy, wall=wall)
+
 def main() -> None:
     try:
         import torch
@@ -8380,15 +9119,20 @@ def main() -> None:
     seq = seq_phase(device, card, prompt_set, profile=profile)
     resilient = resilient_phase(device, card)
     obs = obs_phase(device, card, prompt_set)
-    chaos = chaos_phase(device, card, prompt_set)
-    serving13 = serving13_phase(device, card)
+    with frozen_heap("phase 12", card):
+        chaos = chaos_phase(device, card, prompt_set)
+    with frozen_heap("phase 13", card):
+        serving13 = serving13_phase(device, card)
     mesh = mesh_phase(device, card)
     pipe = pipeline_phase(device, card)
     mesh16 = mesh16_phase(device, card, pipe)
     search = search_phase(device, card, train["bert"]["p50_ms"])
     safety = safety_phase(device, card)
     longctx = longctx_phase(device, card)
-    serve20 = serve20_phase(device, card)
+    with frozen_heap("phase 20", card):
+        serve20 = serve20_phase(device, card)
+    with frozen_heap("phase 21", card):
+        fleet = fleet21_phase(device, card)
 
     kernels = []
     for compute, name in (("fp32", "flash_decode"),
@@ -8742,6 +9486,37 @@ def main() -> None:
         "replaces": "flexflow_tpu/kernels/topk.py:34",
         "launches": serve20["threaded"]["counts"]["topk"],
         **topk_kern[8],
+    })
+    # phase 21: B5 native in the fp32 fleet's replicas and B5 int8 in the
+    # bf16 fleet's (each timed by the kernel phase at the replicas' shape:
+    # 8 slots, 12 heads, 512 positions), B7 k = 8 in the bf16 fleet's
+    # samplers, hedges and all; max_abs_err held on the replicas' own
+    # pools and logits after the timed runs
+    for name, kv, run, timed, props in (
+            ("flash_decode_fleet", "native", "fp32", kern["fp32"],
+             dprops["flash_decode"]),
+            ("flash_decode_int8_fleet", "int8", "bf16", kern_int8["bf16"],
+             dprops["flash_decode_int8_bf16"])):
+        b5 = "flash_decode_int8" if kv == "int8" else "flash_decode"
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "flexflow_tpu_torch/kernels/csrc/flash_decode.cu",
+            "replaces": "flexflow_tpu/kernels/flash_decode.py:"
+                        + ("78" if kv == "int8" else "54"),
+            "launches": fleet["runs"][run]["counts"][b5],
+            **timed,
+            **props,
+            "max_abs_err": fleet["kern"][kv],
+        })
+    kernels.append({
+        "name": "topk_fleet",
+        "route": "cuda",
+        "source": "flexflow_tpu_torch/kernels/csrc/topk.cu",
+        "replaces": "flexflow_tpu/kernels/topk.py:34",
+        "launches": fleet["runs"]["bf16"]["counts"]["topk"],
+        **topk_kern[8],
+        "max_abs_err": fleet["kern"]["topk"],
     })
     for kernel, line in (("softmax_fwd", 29), ("softmax_bwd", 38)):
         kernels.append({

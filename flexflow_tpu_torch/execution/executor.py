@@ -1618,7 +1618,8 @@ class Executor:
 
     def make_chunk_prefill_step(self, chunk_len: int, max_decode_len: int,
                                 block_size: int, kv_dtype: str = "native",
-                                capture: bool = True):
+                                capture: bool = True,
+                                fns: Optional[Dict] = None):
         """``(params, xs, state, table_row, start, n_new) ->
         (last_logits, state)``: one prefill chunk of ``chunk_len`` token
         slots of a SINGLE request against the paged pool. ``xs`` carries
@@ -1635,11 +1636,14 @@ class Executor:
         table row, start and count are its static inputs (no host int
         reaches the body), the last real row is gathered on the device,
         and the pools are arguments written in place — so a program
-        captures anew for another engine's pools. ``capture=False`` runs
-        the body eagerly."""
+        captures anew for other pools. ``fns`` is the dict the program is
+        kept in (default the executor's): a serving engine passes its own,
+        so that engines of one model used in turns each replay their own
+        graph. ``capture=False`` runs the body eagerly."""
         key = ("chunk", int(chunk_len), int(max_decode_len), int(block_size),
                str(kv_dtype), bool(capture))
-        fn = self._serving_fns.get(key)
+        cache = self._serving_fns if fns is None else fns
+        fn = cache.get(key)
         if fn is not None:
             return fn
         pos_guids = self._position_const_guids()
@@ -1682,13 +1686,13 @@ class Executor:
             return last, state
 
         chunk.program = program
-        self._serving_fns[key] = chunk
+        cache[key] = chunk
         return chunk
 
     def make_decode_step(self, max_decode_len: int, exact: bool = False,
                          guard: bool = False, block_size: int = 0,
                          kv_dtype: str = "native", capture: bool = True,
-                         seq_shards: int = 1):
+                         seq_shards: int = 1, fns: Optional[Dict] = None):
         """``(params, xs, state) -> (logits, state)``: ONE token per slot
         through the graph, writing each slot's k/v at its ``lengths``
         cursor into the paged pool (``block_size`` > 0) or the ring
@@ -1713,11 +1717,14 @@ class Executor:
         any update of the masters) and the pools are the tensors it was
         captured against: a call with others (updated params, another
         engine's pools) drops the graph and captures anew, so a replay
-        never reads stale weights. ``capture=False`` returns the eager
-        body (for comparisons)."""
+        never reads stale weights. ``fns`` is the dict the program is kept
+        in (default the executor's); a serving engine passes its own, as
+        for the chunk program. ``capture=False`` returns the eager body
+        (for comparisons)."""
         key = ("decode", int(max_decode_len), bool(exact), bool(guard),
                int(block_size), str(kv_dtype), int(seq_shards))
-        fn = self._serving_fns.get(key if capture else key + ("eager",))
+        cache = self._serving_fns if fns is None else fns
+        fn = cache.get(key if capture else key + ("eager",))
         if fn is not None:
             return fn
         pos_guids = self._position_const_guids()
@@ -1776,5 +1783,5 @@ class Executor:
                 return (outs[0], state, *outs[1:])
 
         decode.program = program
-        self._serving_fns[key if capture else key + ("eager",)] = decode
+        cache[key if capture else key + ("eager",)] = decode
         return decode

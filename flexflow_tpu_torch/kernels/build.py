@@ -7,7 +7,8 @@ at import: a kernel's library is built the first time its wrapper launches
 it (or by :func:`build_all`, which starts one ``nvcc`` per source, all at
 once). Libraries land in ``kernels/_build/`` (git-ignored), named by a hash
 of their source and flags, so an edited source rebuilds and an unchanged
-one is reused. A failed build raises with the compiler's output.
+one is reused. A kernel that cannot be built, loaded or launched raises
+:class:`KernelFault`, with the compiler's output for a failed build.
 """
 from __future__ import annotations
 
@@ -38,6 +39,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
 
+class KernelFault(RuntimeError):
+    """A kernel of the port could not be built, loaded or launched: a fault
+    of the program, never device loss, so no caller may route around it
+    (``serving.resilience.looks_like_program_fault``)."""
+
+
 def nvcc_path() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -46,7 +53,7 @@ def nvcc_path() -> str:
 
     if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
         return os.path.join(CUDA_HOME, "bin", "nvcc")
-    raise RuntimeError(
+    raise KernelFault(
         "nvcc not found (neither on PATH nor under CUDA_HOME): the port's "
         "CUDA kernels are compiled from source at first use")
 
@@ -78,7 +85,7 @@ def _finish(name: str, proc: subprocess.Popen) -> str:
     out = library_path(name)
     tmp = f"{out}.{os.getpid()}.tmp"
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {SOURCES[name]} "
+        raise KernelFault(f"nvcc failed for {SOURCES[name]} "
                            f"(exit {proc.returncode}):\n{log}")
     with open(out + ".log", "w") as f:
         f.write(log)
@@ -90,12 +97,17 @@ def build_all(names: Optional[List[str]] = None) -> Dict[str, str]:
     """Build every kernel (or ``names``) that has no library yet, one nvcc
     process per source, all started together. Returns {name: compiler
     report} for the kernels built by this call."""
-    procs = {n: _start(n) for n in (names or list(SOURCES))}
+    procs: Dict[str, Optional[subprocess.Popen]] = {}
     reports = {}
     try:
+        for n in names or list(SOURCES):
+            procs[n] = _start(n)
         for n, p in procs.items():
             if p is not None:
                 reports[n] = _finish(n, p)
+    except OSError as e:  # the build directory, nvcc's start, the publish
+        raise KernelFault(
+            f"building kernels {names or list(SOURCES)}: {e}") from e
     finally:
         for p in procs.values():
             if p is not None and p.poll() is None:
@@ -109,7 +121,10 @@ def load(name: str) -> ctypes.CDLL:
     lib = _LOADED.get(name)
     if lib is None:
         build_all([name])
-        lib = ctypes.CDLL(library_path(name))
+        try:
+            lib = ctypes.CDLL(library_path(name))
+        except OSError as e:
+            raise KernelFault(f"loading kernel {name}: {e}") from e
         lib.ff_cuda_error_string.argtypes = [ctypes.c_int]
         lib.ff_cuda_error_string.restype = ctypes.c_char_p
         _LOADED[name] = lib
@@ -120,4 +135,4 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     """Raise if a launch function returned a CUDA error code."""
     if code != 0:
         msg = lib.ff_cuda_error_string(code).decode()
-        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+        raise KernelFault(f"{what}: CUDA error {code} ({msg})")

@@ -447,7 +447,9 @@ def tensor_map_us(t, iters: int = 1000) -> float:
     b, h, s, d = t.shape
     us = _library().ff_flash_tensor_map_us(t.data_ptr(), b * h, s, d, iters)
     if us < 0:
-        raise RuntimeError("flash_attention: TMA descriptor encoding failed")
+        from .build import KernelFault
+
+        raise KernelFault("flash_attention: TMA descriptor encoding failed")
     return us
 
 

@@ -22,7 +22,9 @@ def ticket_buffer(kernel: str, device, n: int):
     if bufs and bufs[-1].numel() >= n:
         return bufs[-1]
     if torch.cuda.is_current_stream_capturing():
-        raise RuntimeError(
+        from .build import KernelFault
+
+        raise KernelFault(
             f"{kernel}: its ticket counters are created on the first eager "
             "call; launch it once outside CUDA-graph capture first")
     bufs.append(torch.zeros(max(n, 2 * bufs[-1].numel() if bufs else n),

@@ -7,7 +7,8 @@ preflight (port of ``flexflow_tpu.resilience``).
   ``--checkpoint-every`` / ``--resume``;
 * the divergence sentinel: ``sentinel.GuardedTrainStep`` (the on-device
   finite check, one bool a step, skip and ``--max-bad-steps`` rollback);
-* deterministic fault injection: ``chaos.ChaosPlan`` /
+* deterministic fault injection: ``chaos.ChaosPlan`` (training and one
+  serving engine), ``chaos.FleetChaosPlan`` (the serving fleet) and
   ``chaos.corrupt_checkpoint``;
 * ``session.ResilienceSession`` orchestrates them for one ``fit``;
 * elastic restart: ``elastic.elastic_restore`` (re-run the Unity search on
@@ -19,8 +20,9 @@ preflight (port of ``flexflow_tpu.resilience``).
   ``chaos.inject_wrong_reshard`` to test them.
 """
 from .audit import AuditError, AuditReport, audit_strategy  # noqa: F401
-from .chaos import (ChaosPlan, corrupt_checkpoint,  # noqa: F401
-                    inject_wrong_reshard)
+from .chaos import (ChaosPlan, FleetChaosPlan,  # noqa: F401
+                    corrupt_checkpoint, inject_wrong_reshard,
+                    poison_decode_state)
 from .elastic import elastic_restore  # noqa: F401
 from .fallback import (MemoryBudgetError, StrategyCascade,  # noqa: F401
                        StrategyCompileError, StrategySafetyError)

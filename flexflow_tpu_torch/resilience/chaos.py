@@ -20,7 +20,14 @@ every rank skips, rolls back or stops with it.
   sees genuinely non-finite logits; ``storm_queue {step: [prompt, ...]}``
   submits a burst through the engine's admission control;
   ``preempt_serving_at`` sends a real SIGTERM before that decode step (the
-  graceful drain).
+  graceful drain); ``drop_devices_at {step: surviving_n_dev}`` raises a
+  scripted device loss from the decode dispatch (the engine's automatic
+  ``elastic_replan``).
+* The serving fleet, keyed on the router's fleet tick
+  (:class:`FleetChaosPlan`): replica kills, sustained decode-poison
+  degradations, router-replica partitions, drains, rejoins, traffic steps,
+  tenant storms and whole-process crashes (``crash_at``, ``"hard"`` or
+  ``"sigkill"``).
 
 Injection is once per step by default, so a run that rolls back and
 replays step K replays it clean (the transient-fault model under which
@@ -40,11 +47,6 @@ recovery must reconverge to the uninterrupted run). Steps are global
   partials itself, so the dropped node changes no value, as XLA re-derives
   the psum in the JAX package); ``"scale"`` (the default) scales the
   candidate's reported grad norm by the factor, with no graph change.
-
-The JAX plan's device drop (``drop_devices_at``, which drives the
-device-loss failover of the serving engine into ``elastic_replan``,
-ROADMAP A.8) comes with the slice that ports that failover; here it
-raises, naming itself.
 """
 from __future__ import annotations
 
@@ -53,10 +55,6 @@ import signal
 from typing import Iterable, List, Optional
 
 from ..execution.checkpoint import COMMIT_MARKER, read_meta
-
-# ChaosPlan arguments of the JAX package whose paths are not ported yet,
-# with the value that leaves them off
-_LATER_ARGS = {"drop_devices_at": None}
 
 
 class ChaosPlan:
@@ -75,17 +73,8 @@ class ChaosPlan:
                  fail_compiles: int = 0,
                  wrong_reshard: bool = False,
                  wrong_reshard_factor: float = 2.0,
-                 wrong_reshard_mode: str = "scale", **later):
-        for name, value in later.items():
-            if name not in _LATER_ARGS:
-                raise TypeError(f"ChaosPlan got an unexpected argument "
-                                f"{name!r}")
-            if value != _LATER_ARGS[name]:
-                raise NotImplementedError(
-                    f"ChaosPlan({name}=) is ported in a later slice: it "
-                    "injects into the serving engine's device-loss "
-                    "failover (ROADMAP A.8), which this slice does not "
-                    "run")
+                 wrong_reshard_mode: str = "scale",
+                 drop_devices_at: Optional[dict] = None):
         self.nan_at_steps = {int(s) for s in nan_at_steps}
         self.preempt_at_step = (None if preempt_at_step is None
                                 else int(preempt_at_step))
@@ -101,11 +90,15 @@ class ChaosPlan:
         self.storm_max_new_tokens = int(storm_max_new_tokens)
         self.preempt_serving_at = (None if preempt_serving_at is None
                                    else int(preempt_serving_at))
+        self.drop_devices_at = {int(k): int(v) for k, v in
+                                (drop_devices_at or {}).items()}
         self.poisoned_decode_steps: List[int] = []
         self.storms_injected = 0
         self.serving_preempted_at: Optional[int] = None
+        self.devices_dropped: List[int] = []
         self._decode_poison_done: set = set()
         self._storm_done: set = set()
+        self._drop_done: set = set()
         # strategy-safety injections (resilience/fallback.py, audit.py)
         self.fail_compiles = int(fail_compiles)
         self.compile_failures_injected = 0
@@ -255,6 +248,17 @@ class ChaosPlan:
         self.serving_preempted_at = step
         os.kill(os.getpid(), self.preempt_signal)
 
+    def maybe_drop_devices(self, step: int) -> Optional[int]:
+        """Scripted device loss before decode step ``step``: the surviving
+        device count (the engine raises ``DeviceLossError`` and replans
+        onto it), or None."""
+        n = self.drop_devices_at.get(step)
+        if n is None or (self.once and step in self._drop_done):
+            return None
+        self._drop_done.add(step)
+        self.devices_dropped.append(step)
+        return n
+
 
 def poison_decode_state(state, slot: int, blocks, to_device) -> None:
     """NaN one slot's KV rows of a serving ``DecodeState`` in place
@@ -285,6 +289,161 @@ def poison_decode_state(state, slot: int, blocks, to_device) -> None:
         for leaf in leaves:
             if leaf.is_floating_point():
                 leaf.index_fill_(0, idx, float("nan"))
+
+
+class FleetChaosPlan(ChaosPlan):
+    """Scripted fleet-level fault schedule (serving/fleet.py).
+
+    Extends :class:`ChaosPlan` with replica-granular faults, keyed on the
+    router's FLEET TICK counter (one tick = every live replica advanced
+    one scheduler action) — the fleet analog of the serving extensions'
+    decode-step keys. All once-semantics, all runnable on the CPU:
+
+    * ``kill_replica_at={tick: replica}`` — the replica dies abruptly
+      mid-decode (DecodeState lost with its mesh); the router migrates
+      its in-flight streams to survivors (re-prefilled from host-side
+      committed tokens) and re-routes its queue.
+    * ``degrade_replica_at={tick: replica}`` — from that tick on, every
+      ``degrade_poison_every``-th decode step on the replica NaNs one
+      live slot's KV rows (a sustained decode-poison rate, as a flaky
+      HBM bank would produce): the quarantine-rate passive signal should
+      open the replica's circuit breaker. Cleared by ``rejoin_at``.
+    * ``partition_at={tick: replica}`` — router↔replica dispatches raise
+      timeouts for ``partition_ticks`` ticks (the replica itself is
+      healthy; the router just cannot reach it).
+    * ``drain_replica_at={tick: replica}`` — scripted ``fleet.drain``
+      (the rolling zero-downtime restart path).
+    * ``rejoin_at={tick: replica}`` — a killed/drained/degraded replica
+      re-enters through half-open probation (probe decode gates it).
+    * ``traffic_step_at={tick: (per_tick, ticks)}`` — a sustained
+      traffic step: starting at ``tick``, inject ``per_tick``
+      synthetic ``storm_tenant`` requests through the REAL fleet door
+      every tick for ``ticks`` ticks — the scripted 4x surge the
+      autoscaler must absorb.
+    * ``tenant_storm_at={tick: (tenant, n)}`` — a one-shot burst of
+      ``n`` requests from one tenant (once-semantics like every other
+      fleet fault), for proving WFQ isolation under a misbehaving
+      neighbor.
+    * ``crash_at={tick: mode}`` — whole-PROCESS death mid-serve:
+      ``"sigkill"`` delivers a real ``SIGKILL`` to the current process
+      (run the fleet in a child process for this mode); ``"hard"`` is
+      the in-process stand-in the CPU tests use — the fleet
+      drops its journal group-commit buffer and raises
+      :class:`~flexflow_tpu_torch.serving.fleet.FleetCrashed` past every
+      drain/finish path, so nothing gets to flush. Recovery goes
+      through ``ServingFleet.recover()`` on the journal directory.
+    """
+
+    def __init__(self, kill_replica_at: Optional[dict] = None,
+                 degrade_replica_at: Optional[dict] = None,
+                 partition_at: Optional[dict] = None,
+                 drain_replica_at: Optional[dict] = None,
+                 rejoin_at: Optional[dict] = None,
+                 partition_ticks: int = 8,
+                 degrade_poison_every: int = 1,
+                 traffic_step_at: Optional[dict] = None,
+                 tenant_storm_at: Optional[dict] = None,
+                 crash_at: Optional[dict] = None,
+                 storm_tenant: str = "batch",
+                 fleet_storm_max_new: int = 8,
+                 fleet_storm_prompt_tokens: int = 3,
+                 **kw):
+        super().__init__(**kw)
+        self.kill_replica_at = {int(k): int(v) for k, v in
+                                (kill_replica_at or {}).items()}
+        self.degrade_replica_at = {int(k): int(v) for k, v in
+                                   (degrade_replica_at or {}).items()}
+        self.partition_at = {int(k): int(v) for k, v in
+                             (partition_at or {}).items()}
+        self.drain_replica_at = {int(k): int(v) for k, v in
+                                 (drain_replica_at or {}).items()}
+        self.rejoin_at = {int(k): int(v) for k, v in
+                          (rejoin_at or {}).items()}
+        self.partition_ticks = int(partition_ticks)
+        self.degrade_poison_every = max(int(degrade_poison_every), 1)
+        self.traffic_step_at = {
+            int(k): (int(v[0]), int(v[1]))
+            for k, v in (traffic_step_at or {}).items()}
+        self.tenant_storm_at = {
+            int(k): (str(v[0]), int(v[1]))
+            for k, v in (tenant_storm_at or {}).items()}
+        self.crash_at = {int(k): str(v) for k, v in
+                         (crash_at or {}).items()}
+        self.storm_tenant = str(storm_tenant)
+        self.fleet_storm_max_new = int(fleet_storm_max_new)
+        self.fleet_storm_prompt_tokens = int(fleet_storm_prompt_tokens)
+        self.storm_requests_injected = 0
+        self.replicas_killed: List[int] = []
+        self.replicas_degraded: List[int] = []
+        self.replicas_partitioned: List[int] = []
+        self.replicas_drained: List[int] = []
+        self.replicas_rejoined: List[int] = []
+        self.crashes_fired: List[str] = []
+        self._fleet_done: set = set()
+
+    def _fire(self, table: dict, tick: int, kind: str,
+              log: List[int]) -> Optional[int]:
+        replica = table.get(tick)
+        if replica is None or (self.once and (kind, tick) in
+                               self._fleet_done):
+            return None
+        self._fleet_done.add((kind, tick))
+        log.append(replica)
+        return replica
+
+    def maybe_kill_replica(self, tick: int) -> Optional[int]:
+        return self._fire(self.kill_replica_at, tick, "kill",
+                          self.replicas_killed)
+
+    def maybe_degrade_replica(self, tick: int) -> Optional[int]:
+        return self._fire(self.degrade_replica_at, tick, "degrade",
+                          self.replicas_degraded)
+
+    def maybe_partition_replica(self, tick: int) -> Optional[int]:
+        return self._fire(self.partition_at, tick, "partition",
+                          self.replicas_partitioned)
+
+    def maybe_drain_replica(self, tick: int) -> Optional[int]:
+        return self._fire(self.drain_replica_at, tick, "drain",
+                          self.replicas_drained)
+
+    def maybe_rejoin_replica(self, tick: int) -> Optional[int]:
+        return self._fire(self.rejoin_at, tick, "rejoin",
+                          self.replicas_rejoined)
+
+    def maybe_crash(self, tick: int) -> Optional[str]:
+        """Process-death mode to fire this tick (``"hard"`` or
+        ``"sigkill"``), or None. Same once-semantics as every other
+        fleet fault."""
+        mode = self.crash_at.get(int(tick))
+        if mode is None or (self.once and ("crash", tick) in
+                            self._fleet_done):
+            return None
+        self._fleet_done.add(("crash", tick))
+        self.crashes_fired.append(mode)
+        return mode
+
+    def maybe_fleet_storm(self, tick: int) -> List[tuple]:
+        """``[(tenant, n), ...]`` to inject at the fleet door this tick.
+        One-shot storms honor the once-semantics key; a
+        traffic step fires on every tick inside its window (each window
+        tick is its own key, so ``once`` replays stay deterministic)."""
+        tick = int(tick)
+        out: List[tuple] = []
+        burst = self.tenant_storm_at.get(tick)
+        if burst is not None and not (self.once and
+                                      ("tenant_storm", tick)
+                                      in self._fleet_done):
+            self._fleet_done.add(("tenant_storm", tick))
+            out.append(burst)
+        for start, (per_tick, n_ticks) in self.traffic_step_at.items():
+            if start <= tick < start + n_ticks and not (
+                    self.once and ("traffic_step", tick)
+                    in self._fleet_done):
+                self._fleet_done.add(("traffic_step", tick))
+                out.append((self.storm_tenant, per_tick))
+        self.storm_requests_injected += sum(n for _t, n in out)
+        return out
 
 
 def _injected_reduction_op(*args, **kwargs):

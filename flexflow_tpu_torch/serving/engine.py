@@ -53,9 +53,21 @@ whose per-slot finite verdict rides the tokens' one pinned copy back: a
 slot whose logits are not finite is quarantined alone and its request
 retried on a fresh slot (``--decode-retry-budget``), or aborted as
 ``decode_fault``. Nothing armed, the loop runs the unguarded program and
-pays no per-iteration cost. The decode dispatch catches no exception: a
-device error propagates (device-loss failover comes with the serving
-fleet, ROADMAP A.8).
+pays no per-iteration cost. Device-loss failover: a decode dispatch that
+dies with a device-loss error (or a scripted
+``ChaosPlan.drop_devices_at``) replans through ``elastic_replan`` with
+bounded linear backoff, and when the pool's buffers did not survive, the
+loop rebuilds the pool and re-prefills every live stream from its
+committed tokens (``_rebuild_lost_state``). Any other error propagates: a
+kernel fault is never taken for device loss.
+
+The serving fleet (``serving/fleet.py``) drives engines as its replicas
+through ``start_serve`` and the loop's ``tick``, and calls the hooks
+``prefix_peek`` (its cache-affinity probe), ``health_probe`` (one prefill,
+a finite verdict) and ``reset_decode_pool`` (a replica's kill or rejoin).
+The chunk prefill and decode programs read the pools, so each engine keeps
+its own (``_pool_fns``): replicas that tick in turn each replay their own
+graphs. The prefill and sampler programs read no pool and stay shared.
 
 A run publishes its counters into a ``StepTelemetry`` (``serving``,
 ``serving_prefix`` and ``serving_resilience`` blocks; ``--telemetry-file``)
@@ -66,8 +78,8 @@ fields; and request tracing (``obs.enable_reqtrace``) notes each chunk
 prefill beside the scheduler's notes. All of it is host-side, written only
 when enabled, and leaves the programs as they are.
 
-Options outside this slice raise ``NotImplementedError`` naming the flag;
-none falls back quietly.
+Options the port does not serve raise, naming the flag; none falls back
+quietly.
 """
 from __future__ import annotations
 
@@ -87,8 +99,8 @@ from .scheduler import (ContinuousBatchScheduler, Request, ServingRejection,
 
 def _later_slice(flag: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{flag} is ported in a later slice of flexflow_tpu_torch, with "
-        "the serving fleet and device-loss failover (ROADMAP A.8)")
+        f"{flag} is ported in a later slice of flexflow_tpu_torch "
+        "(ROADMAP A.8)")
 
 
 # the per-token latency window: p50/p99 read the most recent walls, so a
@@ -462,8 +474,6 @@ class ServingEngine:
                     "(kv_cache='paged'): chunks write into the block "
                     "pool")
             prefix_mode = "off"
-        if getattr(cfg, "request_journal", ""):
-            raise _later_slice("the request journal (--request-journal)")
         self.kv_block_size = int(kv_block_size or
                                  getattr(cfg, "kv_block_size", 16))
         if self.prefill_chunk_tokens % self.kv_block_size:
@@ -522,6 +532,9 @@ class ServingEngine:
         # per guard mode, (decode program, its capture count) when this
         # engine's pools were made: decode_compiles counts from there
         self._decode_captures0: Dict[bool, Any] = {}
+        # the programs that read this engine's pools (chunk prefill,
+        # decode, guarded decode), kept here rather than on the executor
+        self._pool_fns: Dict[Any, Any] = {}
         # the state's attention K/V entries (pooled or ringed; the rest,
         # the LSTM carries, are slot-major)
         self._paged_entry_names: set = set()
@@ -660,7 +673,7 @@ class ServingEngine:
             self.max_decode_len, exact=self.exact_decode, guard=guard,
             block_size=self.kv_block_size if self._paged else 0,
             kv_dtype=self.kv_dtype, capture=self.model._capture_steps,
-            seq_shards=self.seq_shards)
+            seq_shards=self.seq_shards, fns=self._pool_fns)
 
     def _prefill_fn(self, bucket: int):
         return self.executor.make_prefill_step(
@@ -669,7 +682,29 @@ class ServingEngine:
     def _chunk_fn(self, chunk_shape: int):
         return self.executor.make_chunk_prefill_step(
             int(chunk_shape), self.max_decode_len, self.kv_block_size,
-            self.kv_dtype, capture=self.model._capture_steps)
+            self.kv_dtype, capture=self.model._capture_steps,
+            fns=self._pool_fns)
+
+    def _release_pool_programs(self, slot_writes: bool = True) -> None:
+        """Drop the graphs of the programs that read this engine's pools
+        (chunk prefill, decode and, with ``slot_writes``, the slot writes):
+        the pools they were captured against are gone or replaced. The
+        programs stay, so their capture counts go on; each captures once
+        more on its next calls, and ``decode_compiles`` counts from
+        here."""
+        programs = [getattr(fn, "program", None)
+                    for fn in self._pool_fns.values()]
+        if slot_writes:
+            programs += list(self._slot_programs.values())
+        for program in programs:
+            if program is not None:
+                program.reset()
+        self._decode_captures0 = {
+            guard: (program, program.captures)
+            for guard, program in (
+                (k[3], getattr(fn, "program", None))
+                for k, fn in self._pool_fns.items() if k[0] == "decode")
+            if program is not None}
 
     def _ids(self, rows) -> Any:
         """Host ints as an int32 tensor on the device, through pinned
@@ -682,7 +717,8 @@ class ServingEngine:
         engine's slot writes (``captures`` on each; ``chip_smoke.py``
         checks that a warmed-up generate captures nothing)."""
         progs = [getattr(fn, "program", None)
-                 for fn in self.executor._serving_fns.values()]
+                 for fns in (self.executor._serving_fns, self._pool_fns)
+                 for fn in fns.values()]
         return [p for p in progs + list(self._slot_programs.values())
                 if p is not None]
 
@@ -749,6 +785,16 @@ class ServingEngine:
             self.model.params, [self._ids(np.zeros((1, b0)))],
             self._ids([1]))
         self._ensure_state(cache)
+
+    def prefix_peek(self, tokens, cap: Optional[int] = None) -> int:
+        """The longest cached prefix (tokens) this engine's trie holds for
+        ``tokens``, with no LRU touch and no counters: the fleet router's
+        cache-affinity term. 0 for an engine without the prefix cache."""
+        if self._prefix is None:
+            return 0
+        n = len(tokens)
+        return self._prefix.peek(tokens, cap=n - 1 if cap is None
+                                 else cap)
 
     # ----------------------------------------------------------- slot writes
     # The JAX package jits each of these with the state donated; here each
@@ -1120,19 +1166,22 @@ class ServingEngine:
 
     def start_serve(self, sched: ContinuousBatchScheduler,
                     temperature: float = 0.0, top_k: int = 0,
-                    seed: int = 0, chaos=None,
-                    resilience=None) -> "_ServeLoop":
+                    seed: int = 0, chaos=None, resilience=None,
+                    publish_telemetry: bool = True) -> "_ServeLoop":
         """Begin a serve run without driving it: the loop whose ``tick()``
-        advances one scheduler action. ``serve`` is ``start_serve``, then
+        advances one scheduler action (the hook the serving fleet
+        interleaves its replicas with). ``serve`` is ``start_serve``, then
         ``tick()`` until it returns False, then ``finish()``. Under
         ``--serve-loop async`` the loop is the one-deep
         :class:`_AsyncServeLoop`: a decode step's result may be in flight
-        between ticks (``settle()`` lands it; ``finish()`` settles
-        first)."""
+        between ticks (``settle()`` lands it; ``finish()`` settles first).
+        ``publish_telemetry=False`` (the fleet, which publishes its own
+        block) keeps ``finish()`` from writing telemetry and the trace."""
         self._check_mesh_serve(sched, chaos, resilience)
         cls = _AsyncServeLoop if self.serve_loop == "async" else _ServeLoop
         return cls(self, sched, temperature=temperature, top_k=top_k,
-                   seed=seed, chaos=chaos, resilience=resilience)
+                   seed=seed, chaos=chaos, resilience=resilience,
+                   publish_telemetry=publish_telemetry)
 
     def serve(self, sched: ContinuousBatchScheduler,
               temperature: float = 0.0, top_k: int = 0,
@@ -1143,6 +1192,15 @@ class ServingEngine:
         one after: a preemption signal becomes a graceful drain."""
         from ..resilience.session import ResilienceSession
 
+        # only the fleet door (which drives its replicas through
+        # ``start_serve``) reads --request-journal: a lone engine refuses it
+        # rather than ignore it
+        if getattr(self.model.config, "request_journal", ""):
+            raise ValueError(
+                "--request-journal is read by the ServingFleet door only: "
+                "serve through ServingFleet (or ServingFleet.recover) to "
+                "journal requests, or unset request_journal to serve "
+                "through a lone ServingEngine")
         loop = self.start_serve(sched, temperature=temperature,
                                 top_k=top_k, seed=seed, chaos=chaos,
                                 resilience=resilience)
@@ -1249,7 +1307,7 @@ class ServingEngine:
         self.executor._serving_fns = {
             k: fn for k, fn in self.executor._serving_fns.items()
             if k[0] == "sampler"}
-        self._decode_captures0 = {}
+        self._release_pool_programs(slot_writes=False)
         tracer = self.model._obs_tracer()
         if tracer.enabled:
             tracer.event("serving_replan", n_dev=n_dev,
@@ -1305,13 +1363,102 @@ class ServingEngine:
                 tracer.event("decode_fault", rid=req.rid, slot=slot,
                              retries_used=req.retries_used)
 
+    def health_probe(self, prompt: Sequence[int] = (1, 2, 3)) -> bool:
+        """One prefill on the smallest bucket's program and a finite verdict
+        on its next-token logits, touching neither a scheduler nor the slot
+        pool: the fleet router's active health check. A replica whose
+        logits are not finite, or whose dispatch raises, fails the probe
+        (its circuit breaker decides what that means). A fault of the
+        program (an illegal address, a launch failure, a kernel build
+        error) is not a health verdict and propagates."""
+        import torch
+
+        from .resilience import looks_like_program_fault
+
+        try:
+            bucket = self.buckets[0]
+            eff = max(1, min(len(prompt), bucket))
+            ids = np.zeros((1, bucket), np.int32)
+            ids[0, :eff] = np.asarray(prompt[:eff], np.int32)
+            _logits, last, _cache = self._prefill_fn(bucket)(
+                self.model.params, [self._ids(ids)], self._ids([eff]))
+            return bool(torch.isfinite(last).all().item())
+        except Exception as e:  # noqa: BLE001 — a failed probe is a verdict
+            if looks_like_program_fault(e):
+                raise
+            return False
+
+    def reset_decode_pool(self) -> None:
+        """Drop the slot pool (a fleet replica's kill or rejoin): the next
+        prefill builds it anew in ``_ensure_state``. Committed tokens live
+        on each Request, so nothing a caller sees is lost. The programs
+        that read the old pools drop their graphs, the prefix trie forgets
+        its nodes and the block allocator every refcount (no block of the
+        old pool is live)."""
+        self.state = None
+        self._last_tokens = None
+        self._release_pool_programs()
+        if self._prefix is not None:
+            # the allocator's reset below forgets the refcounts wholesale
+            self._prefix.clear(free=False)
+        if self.block_allocator is not None:
+            self.block_allocator.reset()
+
     def _dispatch_decode(self, params, guard: bool):
         """Enqueue one decode step: ``(logits, ok-or-None)``, ``ok`` the
-        guarded program's (n_slots,) int32 verdict. Nothing is caught: a
-        device error propagates."""
+        guarded program's (n_slots,) int32 verdict. It catches nothing;
+        :meth:`_decode_with_failover` wraps it."""
         outs = self._decode_fn(guard)(params, [self._last_tokens],
                                       self.state)
         return outs[0], (outs[2] if guard else None)
+
+    def _decode_with_failover(self, params, res, chaos, k: int,
+                              guard: bool, tracer):
+        """One decode dispatch with device-loss failover: a scripted
+        (``ChaosPlan.drop_devices_at``) or real device-loss error replans
+        onto the survivors through ``elastic_replan``, with bounded linear
+        backoff, and retries. When the pool survived the loss, generation
+        resumes from it; when its buffers are gone
+        (:func:`~.resilience.state_buffers_lost`),
+        :class:`~.resilience.DecodeStateLostError` tells the serve loop to
+        rebuild the pool and re-prefill every live stream. Any other error
+        propagates (a kernel fault is not device loss). Returns what
+        :meth:`_dispatch_decode` returns."""
+        from .resilience import (DecodeStateLostError, DeviceLossError,
+                                 looks_like_device_loss, state_buffers_lost)
+
+        attempt = 0
+        while True:
+            try:
+                if chaos is not None:
+                    n = chaos.maybe_drop_devices(k)
+                    if n is not None:
+                        raise DeviceLossError(n)
+                return self._dispatch_decode(params, guard)
+            except Exception as e:  # noqa: BLE001 — filtered just below
+                if not looks_like_device_loss(e):
+                    raise
+                # a real loss replans onto the engine's own devices: its
+                # mesh's world, or the one card a lone engine serves on
+                surviving = e.n_dev if isinstance(e, DeviceLossError) \
+                    else (self.executor.mesh.numel
+                          if self.executor.mesh is not None else 1)
+                attempt += 1
+                if attempt > res.max_replan_attempts:
+                    raise
+                if tracer.enabled:
+                    tracer.event("serving_device_loss", step=k,
+                                 surviving=surviving, attempt=attempt)
+                # the first retry is immediate; repeats back off linearly
+                if attempt > 1 and res.replan_backoff_s > 0:
+                    time.sleep(res.replan_backoff_s * (attempt - 1))
+                self.elastic_replan(surviving)
+                res.replans += 1
+                if state_buffers_lost(self.state, self._last_tokens):
+                    raise DecodeStateLostError(
+                        f"decode state lost with the device at step {k}; "
+                        "re-prefilling live streams from committed "
+                        "tokens") from e
 
 
 class _ServeLoop:
@@ -1323,9 +1470,10 @@ class _ServeLoop:
     def __init__(self, engine: ServingEngine,
                  sched: ContinuousBatchScheduler, temperature: float = 0.0,
                  top_k: int = 0, seed: int = 0, chaos=None,
-                 resilience=None):
+                 resilience=None, publish_telemetry: bool = True):
         eng = self.engine = engine
         self.sched = sched
+        self.publish_telemetry = publish_telemetry
         self.tracer = eng.model._obs_tracer()
         self.params = eng.model.params
         self.greedy = temperature <= 0.0
@@ -1675,7 +1823,9 @@ class _ServeLoop:
         stats.decode_steps += 1
         stats.kv_bytes_read += eng._decode_kv_bytes(live)
         if self.res_active:
-            res.controller.observe_step(wall, len(live))
+            res.controller.observe_step(
+                wall, len(live),
+                tenants=[r.tenant for _s, r in live if r.tenant])
         for i, (slot, req) in enumerate(live):
             if epochs is not None and (
                     sched.slots[slot] is not req
@@ -1692,13 +1842,56 @@ class _ServeLoop:
                                  step=stats.decode_steps,
                                  live_slots=len(live))
 
+    def _rebuild_lost_state(self, k: int) -> None:
+        """The pool died with the device. Committed tokens are on each
+        Request, so recovery is the quarantine retry applied to every
+        occupied slot: back to the queue front, re-prefilled onto a new
+        pool (the sampler keys on (tag, tokens emitted), so the
+        continuations are unchanged). A stream whose committed length
+        outgrew the prefill buckets cannot re-enter and is evicted
+        (``preempted``). The dead state goes first, with its programs'
+        graphs: the quarantine's slot-freed hook must see no pool, and the
+        rebuilt pool is captured once more."""
+        eng, sched, tracer = self.engine, self.sched, self.tracer
+        eng.state = None
+        eng._last_tokens = None
+        eng._release_pool_programs()
+        if eng._prefix is not None:
+            # the cached blocks died with the pool: drop the trie before
+            # the requeued requests re-enter admission
+            eng._prefix.clear(free=True)
+        requeued = 0
+        for slot, req in enumerate(list(sched.slots)):
+            if req is None:
+                continue
+            requeued += 1
+            try:
+                bucket_for(req.effective_len, sched.buckets)
+            except ValueError:
+                sched.evict(slot, "preempted")
+                continue
+            sched.quarantine(slot)
+        if tracer.enabled:
+            tracer.event("serving_state_rebuild", step=k,
+                         requeued=requeued)
+
     def _tick_decode(self, t_tick: float, live) -> bool:
         """One decode step for every live slot, synchronously: chaos hooks,
-        dispatch, sample on the device, block on the result's transfer,
-        commit."""
-        self._chaos_hooks(self.stats.decode_steps)
+        dispatch (with the device-loss failover), sample on the device,
+        block on the result's transfer, commit."""
+        from .resilience import DecodeStateLostError
+
+        k = self.stats.decode_steps  # the chaos script's step index
+        self._chaos_hooks(k)
         t_d = time.perf_counter()
-        logits, ok = self.engine._dispatch_decode(self.params, self.guard)
+        try:
+            logits, ok = self.engine._decode_with_failover(
+                self.params, self.res, self.chaos, k, self.guard,
+                self.tracer)
+        except DecodeStateLostError:
+            self._rebuild_lost_state(k)
+            self._acct_tick(t_tick, t_d, 0.0)
+            return True
         toks = self._sample(live, logits)
         toks_host, ok_host = self._fetch(self._transfer(toks, ok))
         wall = time.perf_counter() - t_d
@@ -1707,12 +1900,18 @@ class _ServeLoop:
         return True
 
     # --------------------------------------------------------------- finish
-    def finish(self) -> ServingStats:
+    def finish(self, ledger_drained: bool = True) -> ServingStats:
         """Close the run exactly once: the drain handoff (queued requests
-        into ``engine.drained_requests``, their request timelines closed as
-        preempted), the outcome ledger (every request that entered leaves
-        under exactly one outcome), the stats, and the telemetry (and the
-        trace file) when a sink wants them."""
+        into ``engine.drained_requests``), the outcome ledger (every request
+        that entered leaves under exactly one outcome), the stats, and the
+        telemetry (and the trace file) when a sink wants them and
+        ``publish_telemetry`` is on.
+
+        ``ledger_drained``: a lone engine closes the handed-back requests'
+        timelines as preempted here; the fleet passes False, because it
+        re-admits them elsewhere (a premature terminal would pin
+        ``preempted`` on a stream that goes on to finish) and ledgers its
+        own drain at its terminal."""
         eng, stats, sched, res = self.engine, self.stats, self.sched, \
             self.res
         if self.finished:
@@ -1720,11 +1919,12 @@ class _ServeLoop:
         self.finished = True
         if self.draining:
             eng.drained_requests = sched.pop_queued()
-            if sched.rt.enabled:
+            if ledger_drained and sched.rt.enabled:
                 for r in eng.drained_requests:
                     sched.rt.finish(r.rid, float(sched.clock()),
                                     "preempted", reason="drain",
-                                    new_tokens=len(r.generated))
+                                    new_tokens=len(r.generated),
+                                    replica=sched.replica_idx)
             if self.tracer.enabled:
                 self.tracer.event("serving_drain_done",
                                   returned=len(eng.drained_requests),
@@ -1743,6 +1943,7 @@ class _ServeLoop:
         stats.decode_retries = res.decode_retries
         stats.decode_faults = res.decode_faults
         stats.drains = res.drains
+        stats.replans = res.replans
         stats.drained_returned = len(eng.drained_requests)
         stats.prefix_hits = sched.prefix_hits - self._prefix_hits0
         stats.prefix_tokens_reused = \
@@ -1758,9 +1959,10 @@ class _ServeLoop:
                 / max(eng.seq_shards, 1))
         stats.kv_pool_bytes_per_rank = eng.kv_pool_bytes()
         eng._agree_tokens(sched)
-        eng._merge_telemetry(sched, stats)
-        if self.tracer.enabled and eng.model.config.trace_file:
-            self.tracer.write(eng.model.config.trace_file)
+        if self.publish_telemetry:
+            eng._merge_telemetry(sched, stats)
+            if self.tracer.enabled and eng.model.config.trace_file:
+                self.tracer.write(eng.model.config.trace_file)
         return stats
 
 
@@ -1860,11 +2062,33 @@ class _AsyncServeLoop(_ServeLoop):
         """Dispatch step k+1 first, then land and commit step k while k+1
         runs. Host time before the dispatch is overlap when a step was
         already in flight (the card was busy), dispatch otherwise."""
+        from .resilience import DecodeStateLostError, looks_like_program_fault
+
         stats = self.stats
         pipelined = self._pending is not None
-        self._chaos_hooks(self.dispatch_no)
+        k = self.dispatch_no  # chaos keys on the dispatch order
+        self._chaos_hooks(k)
         t_d = time.perf_counter()
-        logits, ok = self.engine._dispatch_decode(self.params, self.guard)
+        try:
+            logits, ok = self.engine._decode_with_failover(
+                self.params, self.res, self.chaos, k, self.guard,
+                self.tracer)
+        except DecodeStateLostError:
+            # settle first: at this point the sync loop had committed step
+            # k-1, and the rebuild's re-prefills must resume from the same
+            # committed streams. A transfer that died with the device loses
+            # that step's tokens (the streams re-prefill one token earlier,
+            # still a valid position)
+            try:
+                self._settle_pending()
+            except Exception as e:  # noqa: BLE001 — its buffers died too
+                if looks_like_program_fault(e):
+                    raise
+                self._pending = None
+            self._rebuild_lost_state(k)
+            stats.host_dispatch_s += max(t_d - t_tick, 0.0)
+            stats.host_ticks += 1
+            return True
         issued = time.perf_counter()
         if pipelined:
             stats.host_overlap_s += max(issued - t_tick, 0.0)
@@ -1881,9 +2105,9 @@ class _AsyncServeLoop(_ServeLoop):
         stats.host_ticks += 1
         return True
 
-    def finish(self) -> ServingStats:
+    def finish(self, ledger_drained: bool = True) -> ServingStats:
         import torch
 
         with torch.inference_mode():
             self._settle_pending()
-        return super().finish()
+        return super().finish(ledger_drained=ledger_drained)

@@ -109,6 +109,12 @@ class PrefixCache:
         return blocks, matched
 
     # ---------------------------------------------------------- insertion
+    def peek(self, tokens, cap: int) -> int:
+        """Matched-token count only, no LRU touch and no counters: the
+        fleet router's cache-affinity probe."""
+        _blocks, matched = self._walk(tokens, cap, touch=False)
+        return matched if matched >= self.block_size else 0
+
     def insert(self, tokens, blocks: List[int]) -> int:
         """Adopt a request's prefilled blocks for ``tokens`` (block ``i``
         holds ``tokens[i*bs:(i+1)*bs]``); returns how many blocks the

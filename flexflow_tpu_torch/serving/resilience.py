@@ -22,21 +22,26 @@ and the graceful drain (port of ``flexflow_tpu.serving.resilience``).
   SIGTERM/SIGINT handler (``resilience/session.py``); on preemption
   admission stops, in-flight requests finish within ``--drain-grace-s``
   and queued ones are handed back for re-submission.
-
-Device-loss failover (the JAX package's ``DeviceLossError``,
-``DecodeStateLostError`` and the auto elastic replan) comes with the
-serving fleet (ROADMAP A.8): the port's decode dispatch catches nothing.
+* **device-loss failover** — a decode dispatch that dies with a
+  device-loss error (:func:`looks_like_device_loss`, or a scripted
+  ``ChaosPlan.drop_devices_at``) triggers ``elastic_replan`` with bounded
+  linear backoff; when the decode state did not survive the loss
+  (:func:`state_buffers_lost`) the serve loop rebuilds the pool and
+  re-prefills every live stream from its committed tokens
+  (:class:`DecodeStateLostError`). A fault of the program (an illegal
+  address, a launch failure, a kernel build error) is not device loss and
+  propagates.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 from .scheduler import (ContinuousBatchScheduler, Request,
                         ServingRejection, now_ms)
 
 #: terminal request dispositions — every request that enters the system
-#: leaves it under exactly one of these (``quota_exceeded`` is the
-#: tenancy layer's, ported later)
+#: leaves it under exactly one of these; the request journal persists
+#: exactly these strings in its ``outcome`` records
 OUTCOMES = ("ok", "deadline_exceeded", "shed", "quota_exceeded",
             "decode_fault", "preempted")
 
@@ -49,6 +54,86 @@ class OverloadError(ServingRejection):
     crossed its high-water mark. Carries ``queued`` / ``active`` /
     ``retry_after_ms`` like ``QueueFullError``, so one except clause
     handles both."""
+
+
+class DeviceLossError(RuntimeError):
+    """A decode dispatch lost (some of) its devices: raised by the chaos
+    hook (``ChaosPlan.drop_devices_at``) and recognised in real runtime
+    errors by :func:`looks_like_device_loss`; the engine answers with an
+    ``elastic_replan`` onto the survivors."""
+
+    def __init__(self, n_dev: int, message: str = ""):
+        super().__init__(message or f"device loss: {n_dev} device(s) "
+                         "surviving")
+        self.n_dev = int(n_dev)
+
+
+# substrings (lowercased) that mark a runtime error as device loss rather
+# than a fault of the program: the JAX package's markers word for word,
+# then the CUDA runtime's own texts for a device that is unavailable
+# (cudaErrorDevicesUnavailable), has fallen off the bus (NVIDIA's Xid
+# 79) or is lost (NVML_ERROR_GPU_IS_LOST). An illegal address,
+# a launch failure or a kernel build error matches none of them, so it
+# propagates: a replan must never hide a kernel fault.
+_DEVICE_LOSS_MARKERS = ("device_unavailable", "device unavailable",
+                        "failed_precondition: device",
+                        "tpu is unhealthy", "device is lost",
+                        "chip unreachable", "slice has been terminated",
+                        "cuda-capable device(s) is/are busy or "
+                        "unavailable",
+                        "fallen off the bus", "gpu is lost")
+
+
+def looks_like_device_loss(exc: BaseException) -> bool:
+    msg = str(exc).lower()
+    return isinstance(exc, DeviceLossError) or \
+        any(m in msg for m in _DEVICE_LOSS_MARKERS)
+
+
+# texts of a fault of the program on the card that torch raises itself
+# ("CUDA error: ..."); the port's kernel layer raises ``KernelFault`` for
+# every kernel it cannot build, load or launch. Such an error is never a
+# health verdict or a replica death the router may route around.
+_PROGRAM_FAULT_MARKERS = ("illegal memory access", "illegal address",
+                          "illegal instruction", "misaligned address",
+                          "launch failure", "launch timed out",
+                          "cuda error")
+
+
+def looks_like_program_fault(exc: BaseException) -> bool:
+    """True for a fault of the program (a kernel that cannot be built,
+    loaded or launched, an illegal address or launch failure in torch's own
+    launches) and not device loss."""
+    from ..kernels.build import KernelFault
+
+    if looks_like_device_loss(exc):
+        return False
+    msg = str(exc).lower()
+    return isinstance(exc, KernelFault) or \
+        any(m in msg for m in _PROGRAM_FAULT_MARKERS)
+
+
+class DecodeStateLostError(RuntimeError):
+    """The in-flight decode state did not survive a device-loss error. The
+    serve loop answers by rebuilding the slot pool and re-prefilling every
+    live stream from its host-side committed tokens
+    (``Request.current_prompt``), so generation resumes where it
+    stopped."""
+
+
+def state_buffers_lost(*trees) -> bool:
+    """True when any tensor in ``trees`` lost its buffer: its storage holds
+    0 bytes while it has elements (what ``untyped_storage().resize_(0)``
+    leaves, torch's counterpart of a JAX array whose ``is_deleted()``).
+    Retrying a decode over such a tensor would read freed memory, not
+    resume."""
+    from ..execution.graphs import _tensors_of
+
+    for tree in trees:
+        for t in _tensors_of(tree) if tree is not None else ():
+            if t.numel() > 0 and t.untyped_storage().nbytes() == 0:
+                return True
+    return False
 
 
 class AdmissionController:
@@ -66,7 +151,9 @@ class AdmissionController:
     slot and every queued request. ``retry_after_ms`` is the backlog half
     of that estimate. The controller lives on the engine, so the cost model
     warms across runs; ``force_token_cost_ms`` pins the cost (tests,
-    scripted capacity planning)."""
+    scripted capacity planning). Per-tenant EWMAs, same alpha, are fed only
+    on the steps where the tenant held a live slot
+    (``observe_step(tenants=)``); :meth:`token_cost_ms_for` reads them."""
 
     def __init__(self, alpha: float = 0.2):
         self.alpha = float(alpha)
@@ -77,6 +164,7 @@ class AdmissionController:
         # round proposed something). The cost side needs nothing apart: a
         # round reports (wall, tokens committed) through observe_step
         self.spec_acceptance: Optional[float] = None
+        self._tenant_ewma_ms: Dict[str, float] = {}
 
     def observe_speculation(self, accepted: int, proposed: int) -> None:
         """Feed one verification round's (accepted, proposed) draft counts
@@ -96,13 +184,29 @@ class AdmissionController:
             return float(self.force_token_cost_ms)
         return self._ewma_token_ms or 0.0
 
-    def observe_step(self, wall_s: float, tokens: int) -> None:
+    def token_cost_ms_for(self, tenant: Optional[str]) -> float:
+        """The tenant's cost once its EWMA has warmed, else the aggregate:
+        an untenanted caller gets exactly :attr:`token_cost_ms`."""
+        if self.force_token_cost_ms is not None:
+            return float(self.force_token_cost_ms)
+        if tenant is not None:
+            v = self._tenant_ewma_ms.get(tenant)
+            if v is not None:
+                return v
+        return self._ewma_token_ms or 0.0
+
+    def observe_step(self, wall_s: float, tokens: int,
+                     tenants=None) -> None:
         cost = wall_s * 1e3 / max(int(tokens), 1)
         if self._ewma_token_ms is None:
             self._ewma_token_ms = cost
         else:
             self._ewma_token_ms += self.alpha * (cost - self._ewma_token_ms)
         self.observed_steps += 1
+        for t in set(tenants or ()):
+            prev = self._tenant_ewma_ms.get(t)
+            self._tenant_ewma_ms[t] = cost if prev is None else \
+                prev + self.alpha * (cost - prev)
 
     def warm_start(self, other: "AdmissionController") -> None:
         """Adopt ``other``'s warm cost model iff this controller is cold
@@ -113,6 +217,9 @@ class AdmissionController:
             return
         self._ewma_token_ms = other._ewma_token_ms
         self.observed_steps = other.observed_steps
+        if self.spec_acceptance is None:
+            self.spec_acceptance = other.spec_acceptance
+        self._tenant_ewma_ms.update(other._tenant_ewma_ms)
 
     @staticmethod
     def _backlog_tokens(sched: ContinuousBatchScheduler) -> int:
@@ -167,7 +274,16 @@ class ServingResilience:
         self.decode_retries = 0
         self.decode_faults = 0
         self.drains = 0
+        self.replans = 0
+        # failover bounds: a replan that keeps failing must not loop
+        # forever (bounded linear backoff, then the error propagates)
+        self.max_replan_attempts = 3
+        self.replan_backoff_s = 0.5
         self._saw_deadline = False
+        # the fleet arms the guarded decode on every replica it
+        # health-checks: a scripted degrade poisons a replica's pool with
+        # no ChaosPlan of its own, so the verdict must be live
+        self.force_armed = False
 
     @property
     def armed(self) -> bool:
@@ -176,7 +292,7 @@ class ServingResilience:
         caller-set ``Request.deadline_ms`` arms it with every knob at its
         default."""
         return bool(self.chaos is not None or self.shed_policy != "off"
-                    or self.deadlines_armed)
+                    or self.deadlines_armed or self.force_armed)
 
     @property
     def deadlines_armed(self) -> bool:
@@ -195,7 +311,8 @@ class ServingResilience:
         req.outcome = "shed"
         if sched.rt.enabled:
             sched.rt.finish(req.rid, float(self.clock()), "shed",
-                            policy=policy, **fields)
+                            policy=policy, replica=sched.replica_idx,
+                            **fields)
 
     def admit(self, sched: ContinuousBatchScheduler, req: Request) -> None:
         """Deadline stamp + shed-policy gate + scheduler submit. Raises

@@ -16,8 +16,14 @@ can tell a recycled slot from the one it dispatched against), and
 ``draining`` stops admission during a graceful drain. Request tracing
 (``obs/reqtrace.py``) notes each request's submit, admission, tokens,
 quarantine and finish on the scheduler's clock, every note behind the
-tracer's ``enabled`` test. Hedged-request cancellation and rid reservation
-come with the serving fleet and its journal (ROADMAP A.8).
+tracer's ``enabled`` test, each carrying the scheduler's ``replica_idx``
+(the fleet's fault domain; None for a lone engine).
+
+The serving fleet (``serving/fleet.py``) adds its hooks: ``cancel_slot``
+and ``cancel_queued`` free capacity with no terminal outcome (a hedge's
+losing copy, a harvested migration), ``on_commit`` sees every committed
+token (the request journal's progress records), and ``reserve_rids``
+moves the request counter past the rids a recovered journal replays.
 """
 from __future__ import annotations
 
@@ -32,6 +38,15 @@ import numpy as np
 from ..obs.reqtrace import get_reqtrace
 
 _req_counter = itertools.count(1)
+
+
+def reserve_rids(past: int) -> None:
+    """Advance the process-wide rid counter past ``past``: journal recovery
+    replays requests under their original rids, so a fresh submit must not
+    collide with one. Monotone: the counter never moves backwards."""
+    global _req_counter
+    cur = next(_req_counter)  # the consumed value is issued again below
+    _req_counter = itertools.count(max(cur, int(past) + 1))
 
 
 def now_ms() -> float:
@@ -204,6 +219,9 @@ class Request:
     # request to: the smallest covering prompt + budget, else the largest;
     # None without buckets
     context_bucket: Optional[int] = None
+    # the tenant label the fleet door schedules, charges and ledgers by
+    # (serving/tenancy.py); None rides the standard tier, aggregate-only
+    tenant: Optional[str] = None
 
     @property
     def prefilling(self) -> bool:
@@ -304,6 +322,13 @@ class ContinuousBatchScheduler:
         self.draining = False
         self.quarantined = 0
         self.evicted = 0
+        # the serving fleet's hooks: the fault domain every trace note
+        # names (None for a lone engine), the commit hook (the request
+        # journal's progress records; None costs one test a commit) and
+        # the copies cancelled with no ledger entry
+        self.replica_idx: Optional[int] = None
+        self.on_commit = None
+        self.cancelled = 0
         # request tracing: the process request tracer as of construction;
         # each lifecycle edge below notes it behind ``rt.enabled`` (one
         # attribute load and test when tracing is off), stamped by
@@ -359,7 +384,8 @@ class ContinuousBatchScheduler:
             self.rt.note(req.rid, "submit", req.submit_ms,
                          prompt_len=req.prompt_len,
                          max_new=req.max_new_tokens,
-                         deadline_ms=req.deadline_ms)
+                         deadline_ms=req.deadline_ms,
+                         replica=self.replica_idx)
 
     def _admit_head(self):
         """Admit the head-of-queue request into a free slot with
@@ -412,7 +438,8 @@ class ContinuousBatchScheduler:
         self.slots[slot] = req
         if self.rt.enabled:
             self.rt.note(req.rid, "admit", float(self.clock()), slot=slot,
-                         hit=match_t, cow=req.pending_cow is not None)
+                         hit=match_t, cow=req.pending_cow is not None,
+                         replica=self.replica_idx)
         if match_t:
             self.prefix_hits += 1
             self.prefix_tokens_reused += match_t
@@ -485,7 +512,10 @@ class ContinuousBatchScheduler:
             req.first_token_ms = float(self.clock())
         if self.rt.enabled:
             self.rt.note(req.rid, "token", float(self.clock()),
-                         occ=self.n_slots - len(self._free))
+                         occ=self.n_slots - len(self._free),
+                         replica=self.replica_idx)
+        if self.on_commit is not None:
+            self.on_commit(req)
         if req.eos_id is not None and int(token) == int(req.eos_id):
             return self._finish(slot, "eos")
         if len(req.generated) >= req.max_new_tokens:
@@ -532,7 +562,8 @@ class ContinuousBatchScheduler:
         req.finish_ms = float(self.clock())
         if self.rt.enabled:
             self.rt.finish(req.rid, req.finish_ms, outcome, reason=reason,
-                           new_tokens=len(req.generated))
+                           new_tokens=len(req.generated),
+                           replica=self.replica_idx)
         self._release_blocks(req, adopt=outcome != "decode_fault")
         self.finished.append(req)
         self.slots[slot] = None
@@ -566,7 +597,8 @@ class ContinuousBatchScheduler:
         req.finish_ms = float(self.clock())
         if self.rt.enabled:
             self.rt.finish(req.rid, req.finish_ms, outcome, reason=outcome,
-                           new_tokens=len(req.generated))
+                           new_tokens=len(req.generated),
+                           replica=self.replica_idx)
         self._release_blocks(req)  # a queued request holds none
         self.finished.append(req)
 
@@ -586,16 +618,45 @@ class ContinuousBatchScheduler:
         self.quarantined += 1
         if self.rt.enabled:
             self.rt.note(req.rid, "quarantine", float(self.clock()),
-                         slot=slot)
+                         slot=slot, replica=self.replica_idx)
         self.queue.appendleft(req)
         if self.on_slot_freed is not None:
             self.on_slot_freed(slot)
         return req
 
+    def cancel_slot(self, slot: int) -> Request:
+        """Free ``slot`` with no terminal outcome and no ``finished`` entry:
+        the fleet's hedge-loss cancellation and migration harvest (the
+        winning copy, or the replica the stream migrates to, owns the
+        ledger entry). The slot's rows go stale as on an eviction; the
+        next prefill overwrites them before any read."""
+        req = self.slots[slot]
+        if req is None:
+            raise ValueError(f"cancel of empty slot {slot}")
+        self._release_blocks(req)
+        self.slots[slot] = None
+        self._free.append(slot)
+        self.slot_epoch[slot] += 1
+        self.cancelled += 1
+        if self.on_slot_freed is not None:
+            self.on_slot_freed(slot)
+        return req
+
+    def cancel_queued(self, req: Request) -> None:
+        """Remove a copy that never held a slot from the queue (by
+        identity), with no ledger entry."""
+        if not remove_by_identity(self.queue, req):
+            raise ValueError(f"request rid={req.rid} is not queued")
+        self.cancelled += 1
+
     def remove_finished(self, req: Request) -> bool:
-        """Strike a request from ``finished`` (by identity); True when an
+        """Strike a request from ``finished`` (by identity): a hedge's
+        losing copy that finished in the tick its twin won. True when an
         entry was removed."""
-        return remove_by_identity(self.finished, req)
+        if remove_by_identity(self.finished, req):
+            self.cancelled += 1
+            return True
+        return False
 
     def pop_queued(self) -> List[Request]:
         """Drain handoff: every still-queued request (outcome

@@ -6,9 +6,9 @@
   file of the package names either in an import.
 * Entry points run on CUDA unless asked for the CPU: without a GPU,
   ``FFModel`` with no ``device`` (or ``device="cuda"``) raises.
-* Every serving option outside this slice raises ``NotImplementedError``
-  naming its flag and ROADMAP A.8, whether it comes as an engine argument
-  or through ``FFConfig``; none falls back quietly. The ring KV layout,
+* ``--request-journal`` on a lone engine raises, naming ``ServingFleet``
+  (the fleet's door alone reads it), through ``generate`` or an engine
+  built directly; nothing falls back quietly. The ring KV layout,
   serving chaos, the serving-resilience flags, ``--seq-shards`` and
   ``--context-buckets``, refused before their slice, serve. So does every training option
   outside this slice, at ``fit``, every flag that ``compile`` or the
@@ -218,11 +218,32 @@ def test_generate_serves_seq_shard_and_bucket_flags(field, value):
 @pytest.mark.parametrize("field,value,flag", [
     ("request_journal", "journal.log", "--request-journal"),
 ])
-def test_generate_refuses_config_flags_of_later_slices(field, value, flag):
+def test_generate_refuses_config_flags_of_later_slices(field, value, flag,
+                                                       tmp_path,
+                                                       monkeypatch):
+    """``--request-journal`` is read by the serving fleet's door alone: a
+    lone engine (``generate``, or ``generate`` / ``serve`` of one built
+    directly) refuses it, naming ``ServingFleet``, rather than ignore it;
+    a fleet serves under it and journals its requests."""
+    from flexflow_tpu_torch.serving import (ContinuousBatchScheduler,
+                                            RequestJournal, ServingFleet)
+
+    monkeypatch.chdir(tmp_path)
     ff = _tiny_model(**{field: value})
-    with pytest.raises(NotImplementedError, match=LATER) as e:
+    with pytest.raises(ValueError, match="ServingFleet") as e:
         ff.generate([[1, 2, 3]], max_new_tokens=2, max_decode_len=32)
-    assert flag in str(e.value) and "A.8" in str(e.value)
+    assert flag in str(e.value)
+    eng = ServingEngine(ff, max_decode_len=32)
+    with pytest.raises(ValueError, match="ServingFleet"):
+        eng.generate([[1, 2, 3]], max_new_tokens=2)
+    with pytest.raises(ValueError, match="ServingFleet"):
+        eng.serve(ContinuousBatchScheduler(n_slots=2, max_len=32))
+    fleet = ServingFleet(ff, n_replicas=2, max_decode_len=32)
+    assert len(fleet.generate([[1, 2, 3]], max_new_tokens=2)[0]) == 2
+    assert fleet.stats.outcomes == {"ok": 1}
+    scan = RequestJournal(value)  # a fresh open scans what it journaled
+    assert scan.pending_rids() == [] and scan.max_rid() == \
+        fleet.journal.max_rid() >= 1
 
 
 @pytest.mark.parametrize("via", ["engine", "config"])

@@ -239,17 +239,34 @@ def test_chaos_poison_requires_float_input():
     ("fail_compiles", 1), ("wrong_reshard", True),
     ("drop_devices_at", {4: 2})])
 def test_chaos_plan_refuses_injections_of_later_slices(arg, value):
-    """``drop_devices_at`` still refuses, naming A.8 (the off value is
-    accepted). The strategy-safety injections, refused before their
-    slice, are taken as the JAX plan takes them: each arms the cascade
-    and fires once."""
+    """Each injection that refused before its slice is taken as the JAX
+    plan takes it. ``drop_devices_at`` drives the serving engine's
+    device-loss failover: the scripted loss at decode step 4 replans the
+    engine onto 2 devices, once, and the streams go on as an undisturbed
+    run's. The strategy-safety injections arm the cascade and fire
+    once."""
     if arg == "drop_devices_at":
-        with pytest.raises(NotImplementedError, match="later slice") as e:
-            ChaosPlan(**{arg: value})
-        assert arg in str(e.value) and "A.8" in str(e.value)
-        from flexflow_tpu_torch.resilience.chaos import _LATER_ARGS
+        from flexflow_tpu_torch.models.gpt2 import GPT2Config, build_gpt2
+        from flexflow_tpu_torch.serving import ServingEngine
 
-        ChaosPlan(**{arg: _LATER_ARGS[arg]})
+        c = ft.FFConfig()
+        c.batch_size = 2
+        ff = ft.FFModel(c, device="cpu")
+        build_gpt2(ff, GPT2Config(batch_size=2, seq_len=16, hidden=32,
+                                  num_heads=2, num_layers=1,
+                                  intermediate=64, vocab_size=64))
+        ff.compile()
+        ps = [[1, 2, 3], [4, 5, 6, 7]]
+        want = ServingEngine(ff, max_decode_len=16).generate(
+            ps, max_new_tokens=8)
+        plan = ChaosPlan(**{arg: value})
+        assert plan.drop_devices_at == value
+        eng = ServingEngine(ff, max_decode_len=16)
+        assert eng.generate(ps, max_new_tokens=8, chaos=plan) == want
+        assert plan.devices_dropped == [4]
+        assert eng.stats.replans == 1 and eng.plan is not None
+        assert eng.plan.mesh_shape[0] * eng.plan.mesh_shape[1] <= 2
+        assert eng.stats.outcomes == {"ok": 2}
         return
     plan = ChaosPlan(**{arg: value})
     assert getattr(plan, arg) == value and plan.strategy_chaos_pending()

@@ -1,5 +1,6 @@
-"""Shared fixtures of the port's serving-resilience parity tests
-(tests/test_torch_serving_resilience.py, test_torch_serving_chaos.py):
+"""Shared fixtures of the port's serving parity tests
+(tests/test_torch_serving_resilience.py, test_torch_serving_chaos.py, the
+fleet, tenancy, journal and failover files):
 the tiny GPT-2 of ``tests/test_serving_resilience.py`` (hidden 64, 4
 heads, 2 layers, seq 16, vocab 100) built in both packages with the JAX
 weights carried over by ``set_params_numpy``, each package's serving names
@@ -29,12 +30,20 @@ torch.set_num_threads(2)
 
 PKG_NAMES = ("ServingEngine", "ContinuousBatchScheduler", "Request",
              "OverloadError", "QueueFullError", "ServingRejection",
-             "AdmissionController")
+             "AdmissionController", "ServingFleet", "OUTCOMES",
+             "FLEET_MIN_RETRY_AFTER_MS", "QuotaExceededError",
+             "TenantRegistry", "WeightedFairQueue", "RequestJournal",
+             "NOOP_JOURNAL", "NoopJournal", "FleetCrashed",
+             "JournalCorruptError", "journal_from_config", "plan_replicas",
+             "parse_tenant_tiers")
 
 
 def _namespace(name, ff, serving, resilience):
     ns = types.SimpleNamespace(name=name, ff=ff,
-                               ChaosPlan=resilience.ChaosPlan)
+                               ChaosPlan=resilience.ChaosPlan,
+                               FleetChaosPlan=resilience.FleetChaosPlan,
+                               fleet=serving.fleet,
+                               scheduler=serving.scheduler)
     for n in PKG_NAMES:
         setattr(ns, n, getattr(serving, n))
     return ns
