@@ -352,6 +352,18 @@ timed generate only replays):
    ``--debug-nans``; B1 / B2 counted on the one card
    (``flash_fwd_safety``, ``flash_bwd_fused_safety``).
 
+19.-21. longctx, serve20, fleet — long-context training, serving on a
+   mesh and the serving fleet (each section's comment).
+
+22. frontends — the torch.fx and Keras frontends and the launcher (the
+   section's comment): a BERT-Large written as a plain torch module traced
+   through ``PyTorchModel`` at full width and depth, its fp32 ``predict``
+   against the module's own forward on the card and a captured bf16 fit
+   launching B1 and B2 once a layer a step (``flash_fwd_fx``,
+   ``flash_bwd_fused_fx``, ``flash_fwd_fx_fp32``); ``python -m
+   flexflow_tpu_torch`` running a user script in a fresh process on the
+   card; a Keras MLP fitting on CUDA under ``TelemetryCallback``.
+
 It prints the run's wall seconds, one ``{"kernels": [...]}`` line (the
 entries of the instances the census covers also carry their SASS counts,
 registers, spills and shared memory; the flash-decode entries their
@@ -7757,9 +7769,12 @@ def safety_phase(device, card: str) -> dict:
 # band, B1 / B3 / B4 counted per rank. (c) the degenerate ring: a captured
 # one-rank NCCL mesh with a sequence axis of 1, trained through fit
 # against the one-device fit (bitwise: one diagonal block is the one-device
-# flash call). The phase's stated wall: SEQ_WALL_S.
+# flash call). (b) and (c) run GPT-2 small at SEQ_LAYERS of its 12
+# layers (its widths, s16384): a depth cut that pays for phase 22. The
+# phase's stated wall: SEQ_WALL_S.
 SEQ_WALL_S = 60.0
 SEQ_WORLD = 4
+SEQ_LAYERS = 4
 SEQ_STEPS = 2   # (c): an eager warm-up, then the capture
 # (a): the position offsets of the small blocks (rank 3 of 4 at s2048)
 SEQ_OFFSETS = {"ring_diag": (1536, 1536), "ring_below": (1536, 512)}
@@ -7854,7 +7869,8 @@ def longctx_threaded(device, card: str, dname: str) -> dict:
     from flexflow_tpu_torch.kernels import flash_attention as fa
     from flexflow_tpu_torch.parallel.strategies import long_context_strategy
 
-    ref, cfg = train_model("gpt2", dname, device, seq=LONG_SEQ, batch=1)
+    ref, cfg = train_model("gpt2", dname, device, seq=LONG_SEQ, batch=1,
+                           num_layers=SEQ_LAYERS)
     x, y = train_data("gpt2", cfg, 1)
     weights = ref.get_params_numpy()
     loss, _l, grads = ref.executor.loss_and_grads(
@@ -7869,6 +7885,7 @@ def longctx_threaded(device, card: str, dname: str) -> dict:
         def body(r, mode=mode):
             ff, _ = train_model(
                 "gpt2", dname, device, seq=LONG_SEQ, batch=1,
+                num_layers=SEQ_LAYERS,
                 strategy_fn=lambda pcg: long_context_strategy(
                     pcg, dp=1, sp=SEQ_WORLD, mode=mode))
             ff._capture_steps = False
@@ -7906,8 +7923,9 @@ def longctx_threaded(device, card: str, dname: str) -> dict:
         want_l = {"flash_fwd": blocks * layers, "flash_bwd_dkv":
                   blocks * layers, "flash_bwd_dq": blocks * layers,
                   "flash_bwd_fused": 0}
-        log(f"longctx threaded gpt2 {dname} {mode} (GPT-2 small, s{LONG_SEQ} "
-            f"b1, long_context_strategy dp=1 sp={SEQ_WORLD}, ranks as "
+        log(f"longctx threaded gpt2 {dname} {mode} (GPT-2 small at "
+            f"{layers} layers, s{LONG_SEQ} b1, long_context_strategy dp=1 "
+            f"sp={SEQ_WORLD}, ranks as "
             f"threads on one card; a harness, its times are not multi-GPU "
             f"speed): loss {losses[0]:.6f} vs one device {want[0]:.6f} (rel "
             f"{dloss:.3g}), grads rel norm err {derr:.3g} (tol {tol}); "
@@ -7930,9 +7948,10 @@ def longctx_threaded(device, card: str, dname: str) -> dict:
 
 
 def longctx_degenerate(device, card: str, ref) -> dict:
-    """(c): GPT-2 small at s16384 (fp32) fit over SEQ_STEPS batches on one
-    device (``ref``, (b)'s model) and on a captured one-rank NCCL mesh
-    under long_context_strategy(1, 1): the ring of one block."""
+    """(c): GPT-2 small at s16384 (fp32, SEQ_LAYERS layers) fit over
+    SEQ_STEPS batches on one device (``ref``, (b)'s model) and on a
+    captured one-rank NCCL mesh under long_context_strategy(1, 1): the
+    ring of one block."""
     import shutil
     import tempfile
 
@@ -7967,6 +7986,7 @@ def longctx_degenerate(device, card: str, ref) -> dict:
         device_id=torch.device("cuda", torch.cuda.current_device()))
     try:
         ff, _ = train_model("gpt2", "fp32", device, seq=LONG_SEQ, batch=1,
+                            num_layers=SEQ_LAYERS,
                             strategy_fn=lambda pcg: long_context_strategy(
                                 pcg, dp=1, sp=1))
         if ff.mesh is None or tuple(ff.mesh.axis_names) != ("data", "seq"):
@@ -7981,7 +8001,8 @@ def longctx_degenerate(device, card: str, ref) -> dict:
         torch.equal(a, b) for a, b in zip(ring["params"], one["params"]))
     dparams = rel_norm(ring["params"], one["params"])
     dloss = max(abs(a - b) for a, b in zip(ring["losses"], one["losses"]))
-    log(f"longctx degenerate gpt2 fp32 (s{LONG_SEQ} b1, a one-rank NCCL mesh "
+    log(f"longctx degenerate gpt2 fp32 ({SEQ_LAYERS} layers, s{LONG_SEQ} b1, "
+        f"a one-rank NCCL mesh "
         f"(data 1, seq 1), captured fit of {SEQ_STEPS} steps): losses "
         f"{ring['losses']} vs one device {one['losses']}; bitwise {bitwise}"
         f" (params rel {dparams:.3g}, loss {dloss:.3g}); launches a step "
@@ -9042,6 +9063,385 @@ def fleet21_phase(device, card: str) -> dict:
     return dict(runs=runs, kern=kern, chaos=chaos, crash=crash, loss=loss,
                 tenancy=tenancy, wall=wall)
 
+# -------------------------------------------------- phase 22: frontends
+# phase 22: the frontends and the launcher (ROADMAP A.8's rest). (a) A
+# BERT-Large written as a plain torch module (fx_bert_module: the proxy's
+# architecture, models/bert.py, at BertConfig.large(): a float input
+# (8, 512, 1024), 24 post-LN layers of q/k/v/o linears, heads by
+# view/transpose, F.scaled_dot_product_attention without mask or scale,
+# a GELU MLP; a mean over the sequence, a 2-way head and a softmax),
+# weights from torch.manual_seed, traced through PyTorchModel into an
+# FFModel on CUDA (no device: the default), compiled with Adam and sparse
+# cross-entropy and given the module's weights by copy_torch_weights: its
+# fp32 predict held against the module's own forward on the card (TF32
+# off) within FX_FWD_BAND in relative norm, B1 fp32 launched once a layer;
+# then the same trace with --compute-dtype bf16 fit over FX_WARMUP +
+# FX_STEPS captured steps, B1 and B2 launched once a layer a timed step,
+# the losses finite, the p50 step beside phase 8's native proxy step. (b)
+# ``python -m flexflow_tpu_torch`` runs a user script (FX_CHILD) with
+# ``-b 8 -e 1 --compute-dtype bf16`` in a fresh process, started first
+# so its start-up overlaps (a)'s fp32 part: a 2-layer encoder at the same
+# width fit one epoch on CUDA, the flags parsed, B1 / B2 launched, no jax
+# loaded. (c) A Keras Sequential MLP at the keras mnist example's shape
+# (784-512-512-10) fits one epoch of FX_KERAS_ROWS rows on CUDA under a
+# TelemetryCallback (cuBLAS products, no kernel of the port). No HF,
+# tf.keras or ONNX model: the card host has none of those packages. The
+# phase's stated wall: FX_WALL_S.
+FX_WALL_S = 40.0
+FX_STEPS, FX_WARMUP = 6, 2
+# the traced fp32 forward against the module's own on the card: both run
+# fp32 products (TF32 off) and differ in summation order and in the
+# attention kernels (B1 against torch's SDPA), over 24 layers
+FX_FWD_BAND = 1e-4
+FX_CHILD_LAYERS, FX_CHILD_STEPS = 2, 3
+FX_KERAS_ROWS, FX_KERAS_BATCH = 2048, 64
+FX_CHILD = '''\
+import json
+import sys
+
+import numpy as np
+import torch
+
+sys.path.insert(0, {root!r})
+from chip_smoke import fx_bert_module  # noqa: E402
+from flexflow_tpu_torch import AdamOptimizer, FFConfig, FFModel, LossType
+from flexflow_tpu_torch.frontends import PyTorchModel, copy_torch_weights
+from flexflow_tpu_torch.kernels import flash_attention as fa
+
+config = FFConfig()  # -b, -e and --compute-dtype from the launcher's argv
+module = fx_bert_module(layers={layers}, seed={seed})
+ff = FFModel(config)
+x_t = ff.create_tensor((config.batch_size, {seq}, {hidden}))
+PyTorchModel(module).torch_to_ff(ff, [x_t])
+ff.compile(optimizer=AdamOptimizer(ff, alpha=1e-4),
+           loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY)
+copy_torch_weights(ff)
+rng = np.random.default_rng({seed})
+n = {steps} * config.batch_size
+x = rng.standard_normal((n, {seq}, {hidden}), dtype=np.float32)
+y = rng.integers(0, 2, (n, 1)).astype(np.int32)
+fa.reset_launch_count()
+ff.fit(x, y)
+torch.cuda.synchronize()
+print(json.dumps({{
+    "batch_size": config.batch_size, "epochs": config.epochs,
+    "compute_dtype": config.compute_dtype.name, "device": ff.device.type,
+    "launches": {{k: fa.launch_count(k) for k in fa.KERNELS}},
+    "losses": list(ff.fit_history.loss), "jax": "jax" in sys.modules,
+    "flexflow_tpu": "flexflow_tpu" in sys.modules}}))
+'''
+
+
+def fx_bert_module(layers: int = 0, seed: int = SEED):
+    """The BERT-Large proxy (models/bert.py, ``BertConfig.large()``) as a
+    plain ``torch.nn.Module`` a user would write, on the CPU in fp32, its
+    weights from ``torch.manual_seed(seed)``; ``layers`` cuts the depth."""
+    import torch
+    import torch.nn as nn
+    import torch.nn.functional as F
+
+    from flexflow_tpu_torch.models.bert import BertConfig
+
+    cfg = BertConfig.large()
+
+    class Layer(nn.Module):
+        def __init__(self):
+            super().__init__()
+            d = cfg.hidden
+            self.heads, self.dh, self.d = cfg.num_heads, d // cfg.num_heads, d
+            self.q, self.k, self.v, self.o = (nn.Linear(d, d)
+                                              for _ in range(4))
+            self.ln1 = nn.LayerNorm(d)
+            self.fc1 = nn.Linear(d, cfg.intermediate)
+            self.act = nn.GELU()
+            self.fc2 = nn.Linear(cfg.intermediate, d)
+            self.ln2 = nn.LayerNorm(d)
+
+        def forward(self, x):
+            b, n, _ = x.shape
+            q = self.q(x).view(b, n, self.heads, self.dh).transpose(1, 2)
+            k = self.k(x).view(b, n, self.heads, self.dh).transpose(1, 2)
+            v = self.v(x).view(b, n, self.heads, self.dh).transpose(1, 2)
+            a = F.scaled_dot_product_attention(q, k, v)
+            a = self.o(a.transpose(1, 2).reshape(b, n, self.d))
+            x = self.ln1(a + x)
+            return self.ln2(self.fc2(self.act(self.fc1(x))) + x)
+
+    class Bert(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.layers = nn.ModuleList(
+                Layer() for _ in range(layers or cfg.num_layers))
+            self.cls = nn.Linear(cfg.hidden, cfg.num_classes)
+            self.sm = nn.Softmax(dim=-1)
+
+        def forward(self, x):
+            for layer in self.layers:
+                x = layer(x)
+            return self.sm(self.cls(x.mean(dim=1)))
+
+    torch.manual_seed(seed)
+    return Bert().eval()
+
+
+def fx_traced(module, compute: str, device):
+    """``module`` traced through ``PyTorchModel`` into an FFModel on
+    ``device`` (the caller passes none: CUDA by default), compiled with
+    Adam and sparse cross-entropy, the module's weights copied in. Under
+    ``--profiling`` (each step's wall), its per-op block skipped."""
+    from flexflow_tpu_torch import (AdamOptimizer, DataType, FFConfig,
+                                    FFModel, LossType, MetricsType)
+    from flexflow_tpu_torch.frontends import (PyTorchModel,
+                                              copy_torch_weights)
+    from flexflow_tpu_torch.models.bert import BertConfig
+
+    cfg = BertConfig.large()
+    config = FFConfig()
+    config.batch_size, config.seed = cfg.batch_size, SEED
+    config.profiling, config.print_freq = True, 1
+    if compute == "bf16":
+        config.compute_dtype = DataType.DT_BFLOAT16
+    ff = FFModel(config) if device is None else FFModel(config,
+                                                        device=device)
+    x_t = ff.create_tensor((cfg.batch_size, cfg.seq_len, cfg.hidden))
+    PyTorchModel(module).torch_to_ff(ff, [x_t])
+    ff.compile(optimizer=AdamOptimizer(ff, alpha=1e-4),
+               loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+               metrics=[MetricsType.METRICS_ACCURACY])
+    copy_torch_weights(ff)
+    ff.profile_operators(0)
+    return ff, cfg
+
+
+def fx_child(tmp: str):
+    """(b): the launcher on a user script in a fresh process."""
+    from flexflow_tpu_torch.models.bert import BertConfig
+
+    cfg = BertConfig.large()
+    root = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(tmp, "train_fx.py")
+    with open(script, "w") as f:
+        f.write(FX_CHILD.format(root=root, layers=FX_CHILD_LAYERS,
+                                seed=SEED, seq=cfg.seq_len,
+                                hidden=cfg.hidden, steps=FX_CHILD_STEPS))
+    out = open(os.path.join(tmp, "child.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "flexflow_tpu_torch", script, "-b",
+         str(cfg.batch_size), "-e", "1", "--compute-dtype", "bf16"],
+        cwd=root, stdout=out, stderr=subprocess.STDOUT)
+    return proc, out
+
+
+def fx_launcher(card: str, child, tmp: str) -> dict:
+    """(b): wait for the child and hold what it printed."""
+    proc, out = child
+    try:
+        rc = proc.wait(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = None
+    out.close()
+    with open(os.path.join(tmp, "child.log")) as f:
+        text = f.read()
+    if rc != 0:
+        fail(f"fx launcher: the script exited {rc}: {text[-3000:]}")
+    lines = [ln for ln in text.splitlines()
+             if ln.startswith('{"batch_size"')]
+    if not lines:
+        fail(f"fx launcher: no JSON line: {text[-3000:]}")
+    got = json.loads(lines[-1])
+    n = FX_CHILD_LAYERS * FX_CHILD_STEPS
+    want = dict(batch_size=8, epochs=1, compute_dtype="DT_BFLOAT16",
+                device="cuda", jax=False, flexflow_tpu=False)
+    seen = {k: got.get(k) for k in want}
+    launches = {k: v for k, v in got["launches"].items() if v}
+    log(f"fx launcher: python -m flexflow_tpu_torch <script> -b 8 -e 1 "
+        f"--compute-dtype bf16 in a fresh process (a {FX_CHILD_LAYERS}-"
+        f"layer encoder at BERT-Large's width, {FX_CHILD_STEPS} steps): "
+        f"exit {rc}, {seen}, launches {launches}, losses "
+        f"{[round(v, 4) for v in got['losses']]} [{card}]")
+    if seen != want:
+        fail(f"fx launcher: the script saw {seen}, want {want}")
+    if launches != {"flash_fwd": n, "flash_bwd_fused": n}:
+        fail(f"fx launcher: launches {launches}, want {n} each of "
+             "flash_fwd and flash_bwd_fused")
+    if len(got["losses"]) != FX_CHILD_STEPS or \
+            not all(np.isfinite(got["losses"])):
+        fail(f"fx launcher: losses {got['losses']}")
+    return dict(rc=rc, launches=launches)
+
+
+def fx_forward(device, card: str, module) -> dict:
+    """(a) fp32: the traced BERT-Large's predict against the module (on
+    the CPU; moved to the card for its forward and back)."""
+    import torch
+
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    t = time.perf_counter()
+    ff, cfg = fx_traced(module, "fp32", None)
+    if ff.device.type != "cuda":
+        fail(f"fx forward: the model is on {ff.device}, not CUDA")
+    sdpa = sum(layer.op_type.name == "OP_SDPA" for layer in ff._layers)
+    built = time.perf_counter() - t
+    x = np.random.default_rng(SEED).standard_normal(
+        (cfg.batch_size, cfg.seq_len, cfg.hidden), dtype=np.float32)
+    fa.reset_launch_count()
+    got = ff.predict(x, batch_size=cfg.batch_size)
+    torch.cuda.synchronize()
+    counts = {k: fa.launch_count(k) for k in fa.KERNELS if
+              fa.launch_count(k)}
+    del ff
+    torch.cuda.empty_cache()
+    module.to(device)
+    with torch.no_grad():
+        want = module(torch.from_numpy(x).to(device)).cpu()
+    module.cpu()
+    torch.cuda.empty_cache()
+    err = rel_norm([torch.from_numpy(got)], [want])
+    finite = bool(np.isfinite(got).all())
+    log(f"fx forward: BERT-Large as a torch module ({cfg.num_layers} "
+        f"layers, hidden {cfg.hidden}, {cfg.num_heads} heads, seq "
+        f"{cfg.seq_len}, batch {cfg.batch_size}) traced into {sdpa} SDPA "
+        f"ops, built in {built:.1f} s; fp32 predict vs the module on the "
+        f"card: rel norm err {err:.3g} (band {FX_FWD_BAND}), out "
+        f"{got.shape}; launches {counts} [{card}]")
+    if sdpa != cfg.num_layers:
+        fail(f"fx forward: {sdpa} SDPA ops, want {cfg.num_layers}")
+    if counts != {"flash_fwd": cfg.num_layers}:
+        fail(f"fx forward: launches {counts}, want flash_fwd "
+             f"{cfg.num_layers}")
+    if not finite or got.shape != (cfg.batch_size, cfg.num_classes) or \
+            not err <= FX_FWD_BAND:
+        fail("fx forward: the traced model disagrees with the module")
+    return dict(counts=counts, err=err)
+
+
+def fx_train(device, card: str, module, native_p50_ms: float,
+             profile: bool = False) -> dict:
+    """(a) bf16: the traced BERT-Large fit, its timed steps counted;
+    ``--profile`` adds one profiled step (:func:`profile_train`)."""
+    import torch
+
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    ff, cfg = fx_traced(module, "bf16", None)
+    rng = np.random.default_rng(SEED)
+    n = cfg.batch_size * (FX_WARMUP + FX_STEPS)
+    x = rng.standard_normal((n, cfg.seq_len, cfg.hidden), dtype=np.float32)
+    y = rng.integers(0, cfg.num_classes, (n, 1)).astype(np.int32)
+    w = cfg.batch_size * FX_WARMUP
+    ff.fit(x[:w], y[:w], epochs=1)
+    torch.cuda.synchronize()
+    fa.reset_launch_count()
+    ff.fit(x[w:], y[w:], epochs=1)
+    torch.cuda.synchronize()
+    counts = {k: fa.launch_count(k) for k in fa.KERNELS}
+    losses = ff.fit_history.loss
+    captures = ff.executor.make_train_step().program.captures
+    p50 = float(np.median(ff.fit_history.step_s)) * 1e3
+    if profile:
+        profile_train(ff, x[:cfg.batch_size], y[:cfg.batch_size],
+                      "fx bf16", p50 / 1e3)
+    del ff
+    torch.cuda.empty_cache()
+    want = {"flash_fwd": cfg.num_layers * FX_STEPS,
+            "flash_bwd_fused": cfg.num_layers * FX_STEPS,
+            "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+    log(f"fx train bf16: the traced BERT-Large, {FX_STEPS} steps after "
+        f"{FX_WARMUP} warm-up, losses {[round(v, 4) for v in losses]}, "
+        f"captures {captures}, p50 step {p50:.3f} ms against the native "
+        f"proxy's {native_p50_ms:.3f} ms (phase 8; ratio "
+        f"{p50 / native_p50_ms:.3f}); launches per step "
+        f"{ {k: c // FX_STEPS for k, c in counts.items() if c} } [{card}]")
+    if counts != want:
+        fail(f"fx train: launches {counts}, want {want}")
+    if len(losses) != FX_STEPS or not all(np.isfinite(losses)):
+        fail(f"fx train: losses {losses}")
+    if captures != 1:
+        fail(f"fx train: {captures} captures of the step, want 1")
+    return dict(counts=counts, p50_ms=p50, losses=losses)
+
+
+def fx_keras(card: str, tmp: str) -> dict:
+    """(c): a Keras MLP on CUDA under a TelemetryCallback."""
+    import torch
+
+    from flexflow_tpu_torch.frontends import keras as K
+
+    (x, y), _ = K.datasets.mnist.load_data()
+    x = (x.reshape(-1, 784).astype("float32") / 255)[:FX_KERAS_ROWS]
+    y = y.astype("int32").reshape(-1, 1)[:FX_KERAS_ROWS]
+    model = K.Sequential([K.Input(shape=(784,)),
+                          K.Dense(512, activation="relu"),
+                          K.Dense(512, activation="relu"), K.Dense(10),
+                          K.Activation("softmax")])
+    model.ffconfig.batch_size = FX_KERAS_BATCH
+    model.compile(optimizer="sgd", loss="sparse_categorical_crossentropy",
+                  metrics=("accuracy",))
+    path = os.path.join(tmp, "keras_telemetry.json")
+    perf = model.fit(x, y, epochs=1, callbacks=[
+        K.callbacks.TelemetryCallback(telemetry_file=path)])
+    torch.cuda.synchronize()
+    with open(path) as f:
+        rec = json.load(f)
+    epochs = rec.get("epochs", [])
+    dev = model.ffmodel.device.type
+    loss = epochs[0]["epoch_loss"] if epochs else None
+    log(f"fx keras: Sequential 784-512-512-10 on {dev}, one epoch of "
+        f"{FX_KERAS_ROWS} mnist rows at batch {FX_KERAS_BATCH}: "
+        f"{perf.train_all} samples, accuracy {perf.accuracy():.4f}, "
+        f"telemetry epochs {len(epochs)}, steps "
+        f"{epochs[0]['steps'] if epochs else None}, loss {loss} [{card}]")
+    if dev != "cuda" or perf.train_all != FX_KERAS_ROWS:
+        fail(f"fx keras: device {dev}, {perf.train_all} samples")
+    if len(epochs) != 1 or epochs[0]["steps"] != \
+            FX_KERAS_ROWS // FX_KERAS_BATCH or \
+            not np.all(np.isfinite(loss)):
+        fail(f"fx keras: the telemetry record {rec}")
+    if model.ffmodel._telemetry_requested:
+        fail("fx keras: the telemetry opt-in outlived its fit")
+    return dict(steps=epochs[0]["steps"])
+
+
+def fx_phase(device, card: str, native_p50_ms: float,
+             profile: bool = False) -> dict:
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ff_fx_")
+    child = None
+    t = {}
+    try:
+        child = fx_child(tmp)
+        module = fx_bert_module()
+        fwd = fx_forward(device, card, module)
+        t["a_fp32"], t1 = time.perf_counter() - t0, time.perf_counter()
+        launcher = fx_launcher(card, child, tmp)
+        t["b_wait"], t1 = time.perf_counter() - t1, time.perf_counter()
+        train = fx_train(device, card, module, native_p50_ms, profile)
+        del module
+        t["a_bf16"], t1 = time.perf_counter() - t1, time.perf_counter()
+        keras = fx_keras(card, tmp)
+        t["c"] = time.perf_counter() - t1
+    finally:
+        if child is not None and child[0].poll() is None:
+            child[0].kill()
+            child[0].wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    log("fx: no HF, tf.keras or ONNX model on the card: transformers, "
+        "tensorflow and onnx are not installed on this host (the "
+        "frontends' CPU tests hold them against the JAX package)")
+    log(f"fx phase wall {wall:.1f} s (stated {FX_WALL_S:.0f} s): "
+        + ", ".join(f"({k}) {v:.1f} s" for k, v in t.items())
+        + f" ((b): the launcher's child ran during (a) fp32) [{card}]")
+    return dict(forward=fwd, train=train, launcher=launcher, keras=keras,
+                wall=wall)
+
+
 def main() -> None:
     try:
         import torch
@@ -9133,6 +9533,7 @@ def main() -> None:
         serve20 = serve20_phase(device, card)
     with frozen_heap("phase 21", card):
         fleet = fleet21_phase(device, card)
+    fx = fx_phase(device, card, train["bert"]["p50_ms"], profile=profile)
 
     kernels = []
     for compute, name in (("fp32", "flash_decode"),
@@ -9518,6 +9919,22 @@ def main() -> None:
         **topk_kern[8],
         "max_abs_err": fleet["kern"]["topk"],
     })
+    # phase 22: B1 and B2 in the traced BERT-Large's bf16 fit and B1 in
+    # its fp32 predict, timed by the kernel phase at the BERT shape (b8
+    # h16 s512 d64), which the trace gives them
+    for name, kernel, dname, run in (
+            ("flash_fwd_fx", "flash_fwd", "bf16", fx["train"]),
+            ("flash_bwd_fused_fx", "flash_bwd_fused", "bf16", fx["train"]),
+            ("flash_fwd_fx_fp32", "flash_fwd", "fp32", fx["forward"])):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": FA_SOURCE,
+            "replaces": FA_KERNELS[kernel][0],
+            "launches": run["counts"][kernel],
+            **fa_kern[(kernel, "bert", dname)],
+            **census.get((kernel, dname, FA_SHAPES["bert"]["d"]), {}),
+        })
     for kernel, line in (("softmax_fwd", 29), ("softmax_bwd", 38)):
         kernels.append({
             "name": kernel,

@@ -31,13 +31,19 @@ flag preflight at ``compile``, the fallback cascade with its compile
 probe, measured memory gate and parallel-correctness audit
 (``resilience.StrategyCascade``, ``audit_strategy``), the closed
 calibration loop (``obs.drift``), ``resilience.elastic_restore`` and
-``--debug-nans``.
+``--debug-nans`` — and the frontends (``frontends/``: the torch.fx
+importer ``PyTorchModel`` and ``copy_torch_weights``, the Keras clone, the
+ONNX and tf.keras importers, each gated on its package) with the launcher
+``python -m flexflow_tpu_torch script.py [flags]``.
 """
 from .config import FFConfig, FFIterationConfig  # noqa: F401
 from .ffconst import (ActiMode, AggrMode, CompMode, DataType,  # noqa: F401
-                      LossType, MetricsType, OperatorType, PoolType)
+                      LossType, MetricsType, OperatorType,
+                      ParameterSyncType, PoolType)
 from .tensor import Tensor  # noqa: F401
 from .layer import Layer  # noqa: F401
+from .machine_view import MachineResource, MachineView  # noqa: F401
+from .parallel_tensor import ParallelDim, ParallelTensorShape  # noqa: F401
 from .model import FFModel  # noqa: F401
 from .execution.initializers import (ConstantInitializer,  # noqa: F401
                                      GlorotUniformInitializer,
@@ -47,7 +53,8 @@ from .execution.metrics import PerfMetrics  # noqa: F401
 from .execution.optimizers import AdamOptimizer, SGDOptimizer  # noqa: F401
 from .execution.checkpoint import (latest_checkpoint,  # noqa: F401
                                    restore_checkpoint, save_checkpoint)
-from .resilience import ChaosPlan  # noqa: F401
+from .parallel.pipeline import PipelineTrainer  # noqa: F401
+from .resilience import ChaosPlan, elastic_restore  # noqa: F401
 from .serving import ServingEngine  # noqa: F401
 
 __version__ = "0.1.0"

@@ -132,8 +132,10 @@ class FFModel:
         self.cache_scores: Dict[str, float] = {}
         # the dynamic recompile's state, once a fit was given one
         self._recompile_state = None
-        # the StepTelemetry of the last fit or serve run (get_telemetry)
+        # the StepTelemetry of the last fit or serve run (get_telemetry),
+        # and the one-fit opt-in that _make_telemetry consumes
         self._telemetry = None
+        self._telemetry_requested = False
         # set by compile: the Strategy it applied and the Mesh it runs on
         # (both None on the one-device path)
         self.strategy = None
@@ -598,11 +600,16 @@ class FFModel:
     def _make_telemetry(self, tracer, batch_size: int, phase: str):
         """A StepTelemetry when a sink wants one, else None — the None-ness
         is the hot loop's one instrumentation gate
-        (flexflow_tpu/model.py:481-515). MFU is against the peak of the
-        cards the step runs on: one card's times the mesh's size (the
-        step's model FLOPs cover the global batch)."""
-        if not (self.config.telemetry_file or tracer.enabled) or \
-                not self._writes_files():
+        (flexflow_tpu/model.py:481-515). ``_telemetry_requested`` is the
+        in-process opt-in of callers that read ``get_telemetry()`` directly
+        (the keras ``TelemetryCallback``); it is consumed here, so one arm
+        instruments one fit. MFU is against the peak of the cards the step
+        runs on: one card's times the mesh's size (the step's model FLOPs
+        cover the global batch)."""
+        requested = getattr(self, "_telemetry_requested", False)
+        self._telemetry_requested = False
+        if not (self.config.telemetry_file or tracer.enabled or requested) \
+                or not self._writes_files():
             return None
         from .obs.telemetry import (StepTelemetry, detect_peak_flops,
                                     model_flops_per_step)
@@ -1025,8 +1032,11 @@ class FFModel:
     def _get_weight_by_tensor(self, tensor: Tensor) -> np.ndarray:
         self._require_compiled()
         lname, wname = self._locate_weight(tensor)
+        # a host copy: the train step updates the params in place, so a
+        # view of a CPU tensor would change under its holder
         return self.executor.gather_param(
-            lname, wname, self.params[lname][wname]).detach().cpu().numpy()
+            lname, wname,
+            self.params[lname][wname]).detach().cpu().numpy().copy()
 
     def _set_weight_by_tensor(self, tensor: Tensor, arr: np.ndarray) -> None:
         import torch
@@ -1041,7 +1051,7 @@ class FFModel:
         new = dict(self.params)
         new[lname] = dict(new[lname])
         new[lname][wname] = self.executor.shard_param(
-            lname, wname, torch.as_tensor(arr, dtype=cur.dtype))
+            lname, wname, torch.tensor(arr, dtype=cur.dtype))  # a copy
         self.executor.invalidate_jit_cache()
         self.params = new
         self._serving_engine = None

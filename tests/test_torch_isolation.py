@@ -3,7 +3,11 @@
 * Importing ``flexflow_tpu_torch`` and every module in it loads neither
   ``jax`` nor ``flexflow_tpu`` (checked in a fresh interpreter, since this
   test process has JAX loaded through ``tests/conftest.py``), and no source
-  file of the package names either in an import.
+  file of the package names either in an import. Every module of the JAX
+  package has a counterpart at its path (but the TPU-only
+  ``kernels._common``), every public top-level name of ``flexflow_tpu`` is
+  one of the port's, and the frontends import with transformers,
+  tensorflow and onnx blocked (the card host has none of them).
 * Entry points run on CUDA unless asked for the CPU: without a GPU,
   ``FFModel`` with no ``device`` (or ``device="cuda"``) raises.
 * ``--request-journal`` on a lone engine raises, naming ``ServingFleet``
@@ -91,7 +95,12 @@ def test_importing_every_module_loads_neither_jax_nor_flexflow_tpu():
               "analysis.lattice", "analysis.report", "analysis.rules",
               "analysis.interp", "obs.profile", "analysis.__main__",
               "resilience.audit", "resilience.fallback",
-              "resilience.elastic", "obs.drift"):
+              "resilience.elastic", "obs.drift", "__main__", "frontends",
+              "frontends.torch_fx", "frontends.keras",
+              "frontends.keras_backend", "frontends.keras_callbacks",
+              "frontends.keras_datasets", "frontends.keras_initializers",
+              "frontends.keras_preprocessing", "frontends.keras_regularizers",
+              "frontends.onnx", "frontends.keras_exp"):
         assert f"flexflow_tpu_torch.{m}" in mods
     script = (
         "import importlib, json, sys\n"
@@ -108,6 +117,80 @@ def test_importing_every_module_loads_neither_jax_nor_flexflow_tpu():
     assert "flexflow_tpu_torch" in loaded
     leaked = [m for m in loaded if _forbidden(m)]
     assert leaked == []
+
+
+def test_every_jax_module_has_a_counterpart():
+    """Each module of ``flexflow_tpu`` exists in the port at the same path,
+    but for ``kernels._common`` (the TPU's interpret switch and VMEM row
+    tiling, which the port's CUDA wrappers replace) and the JAX package's
+    built ``native/libffnative`` library (the port builds its own)."""
+    jax_dir = os.path.join(REPO, "flexflow_tpu")
+    jax_mods = {m.name for m in pkgutil.walk_packages(
+        [jax_dir], prefix="flexflow_tpu.")}
+    want = {"flexflow_tpu_torch." + m[len("flexflow_tpu."):]
+            for m in jax_mods} - {"flexflow_tpu_torch.kernels._common",
+                                  "flexflow_tpu_torch.native.libffnative"}
+    assert sorted(want - set(_all_modules())) == []
+
+
+def test_top_level_names_match_the_jax_package():
+    """Every public top-level name of ``flexflow_tpu`` that is not a
+    submodule (flexflow_tpu/__init__.py) is a top-level name of the port,
+    so a user script moved to the port imports."""
+    import types
+
+    import flexflow_tpu as fj
+
+    names = [n for n in dir(fj) if not n.startswith("_")
+             and not isinstance(getattr(fj, n), types.ModuleType)]
+    for n in ("MachineView", "MachineResource", "ParallelDim",
+              "ParallelTensorShape", "ParameterSyncType", "PipelineTrainer",
+              "elastic_restore", "FFModel", "ServingEngine"):
+        assert n in names
+    assert [n for n in names if not hasattr(ft, n)] == []
+    assert ft.PipelineTrainer.__module__ == \
+        "flexflow_tpu_torch.parallel.pipeline"
+    assert ft.elastic_restore.__module__ == \
+        "flexflow_tpu_torch.resilience.elastic"
+
+
+def test_frontends_import_without_transformers_tensorflow_onnx():
+    """The card host has none of transformers, tensorflow and onnx: with
+    their imports blocked, every frontend module imports in a fresh
+    interpreter and the gated importers refuse by name."""
+    mods = [m for m in _all_modules()
+            if m.startswith("flexflow_tpu_torch.frontends")]
+    assert len(mods) == 11  # the package and its ten modules
+    script = (
+        "import importlib, json, sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('transformers', 'tensorflow',\n"
+        "                                  'onnx'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from flexflow_tpu_torch.frontends import onnx, keras_exp\n"
+        "refused = []\n"
+        "for fn in (lambda: onnx.ONNXModel('m.onnx'),\n"
+        "           lambda: keras_exp.KerasExpModel(None)):\n"
+        "    try:\n"
+        "        fn()\n"
+        "    except ImportError as e:\n"
+        "        refused.append(str(e))\n"
+        "print(json.dumps({'refused': refused, 'loaded': sorted(\n"
+        "    m for m in sys.modules if m.split('.')[0] in (\n"
+        "        'transformers', 'tensorflow', 'onnx', 'jax',\n"
+        "        'flexflow_tpu'))}))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    got = json.loads(res.stdout.strip().splitlines()[-1])
+    assert got["loaded"] == []
+    assert "onnx package is required" in got["refused"][0]
+    assert "tensorflow package is required" in got["refused"][1]
 
 
 def test_native_helper_builds_from_the_port_source():
